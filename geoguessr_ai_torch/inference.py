@@ -1,0 +1,88 @@
+"""Guess the location of a street-view panorama with the PyTorch port.
+
+    python -m geoguessr_ai_torch.inference [1 or 4 images] [--use-refiner]
+        [--centroid-table PATH] [--device cuda|cpu]
+
+With no images it uses the bundled fixture panorama
+(tests/fixtures/heading=*.jpg).  Weights are seeded random until
+checkpoint loading is ported.
+"""
+
+from __future__ import annotations
+
+import argparse
+import functools
+import glob
+import logging
+import os
+from typing import List, Optional, Sequence, Tuple
+
+logger = logging.getLogger("geoguessr_ai_torch")
+
+
+@functools.lru_cache(maxsize=None)
+def _get_engine(backbone: str, device: Optional[str],
+                centroid_table: Optional[str]):
+    from geoguessr_ai_torch.geocells.manager import CentroidTable
+    from geoguessr_ai_torch.serving.engine import ServingEngine
+
+    table = CentroidTable.load(centroid_table) if centroid_table else None
+    return ServingEngine(backbone=backbone, centroid_table=table,
+                         device=device)
+
+
+def run_inference(
+    image_paths: Sequence[str],
+    backbone: str = "tinyvit",
+    use_refiner: bool = False,
+    device: Optional[str] = None,
+    centroid_table: Optional[str] = None,
+) -> Tuple[float, float, List[int], List[float]]:
+    """Predict (lat, lon) for 1 or 4 street-view images.
+
+    Returns (lat, lon, top_ids, top_probs).  ``device`` None means the GPU.
+    """
+    engine = _get_engine(backbone, device, centroid_table)
+    result = engine.predict_images(image_paths)
+    lat, lon = result.lat, result.lon
+    if use_refiner:
+        from geoguessr_ai_torch.models.proto_refiner import try_refine
+
+        refined = try_refine(result, device=device)
+        if refined is not None:
+            lat, lon = refined
+    for rank, (i, p, country, adm1) in enumerate(zip(
+            result.top_ids, result.top_probs, result.top_countries,
+            result.top_admin1)):
+        logger.info(f"top{rank + 1}: cell {i} p={p:.4f} {country} / {adm1}")
+    logger.info(f"prediction: lat={lat:.6f} lon={lon:.6f}")
+    return lat, lon, result.top_ids, result.top_probs
+
+
+def fixture_panorama() -> List[str]:
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    return sorted(glob.glob(os.path.join(root, "tests", "fixtures",
+                                         "heading=*.jpg")))[:4]
+
+
+def main(argv: Optional[Sequence[str]] = None) -> None:
+    ap = argparse.ArgumentParser(description=__doc__)
+    ap.add_argument("images", nargs="*", help="1 or 4 image paths")
+    ap.add_argument("--backbone", default="tinyvit", choices=("tinyvit",))
+    ap.add_argument("--centroid-table", default=None)
+    ap.add_argument("--use-refiner", action="store_true")
+    ap.add_argument("--device", default=None,
+                    help="cuda (the default) or cpu")
+    args = ap.parse_args(argv)
+    logging.basicConfig(level=logging.INFO, format="%(message)s")
+    paths = args.images or fixture_panorama()
+    if not args.images:
+        logger.info("no images supplied; using the bundled fixture panorama")
+    lat, lon, _, _ = run_inference(
+        paths, backbone=args.backbone, use_refiner=args.use_refiner,
+        device=args.device, centroid_table=args.centroid_table)
+    print(f"{lat:.6f} {lon:.6f}")
+
+
+if __name__ == "__main__":
+    main()

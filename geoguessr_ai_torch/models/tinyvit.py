@@ -1,0 +1,313 @@
+"""TinyViT eval forward in PyTorch, NHWC like the JAX package.
+
+Counterpart of geoguessr_ai_tpu/models/tinyvit.py.  Modules carry the
+flax module names (``patch_embed``, ``stage1_block0.attn.qkv``, ...), so a
+flax parameter tree maps onto the state dict by name
+(models/convert.py).  Activations stay NHWC; the convolutions see an
+NCHW view with channels-last strides.
+
+Attention per stage follows the JAX config's kernel stage lists, selected
+exactly as the JAX ``WindowAttention`` selects them:
+
+* ``fused_block_noproj_stages`` and N % 128 == 0: K2
+  (``fused_block_attention_noproj``), then the out-projection;
+* ``fused_block_stages`` and N % 128 == 0: K1 (``fused_block_attention``);
+* ``pallas_attention_stages`` and N % 128 == 0: LN and qkv GEMM, K3
+  (``window_attention_qkv``), out-projection;
+* otherwise the plain attention.
+
+Quantization, remat, scan, the fused MBConv kernel and the 4D fused
+block of the JAX config are not ported; the config has no such fields.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from geoguessr_ai_torch.ops import window_attention as wa
+
+
+@dataclasses.dataclass(frozen=True)
+class TinyViTConfig:
+    image_size: int = 512
+    in_channels: int = 3
+    embed_dims: Tuple[int, ...] = (96, 192, 384, 576)
+    depths: Tuple[int, ...] = (2, 2, 6, 2)
+    num_heads: Tuple[int, ...] = (3, 6, 12, 18)
+    window_sizes: Tuple[int, ...] = (16, 16, 32, 16)
+    mlp_ratio: float = 4.0
+    mbconv_expand_ratio: float = 4.0
+    dtype: torch.dtype = torch.bfloat16
+    #: tanh-approximated GELU, the JAX default.
+    exact_gelu: bool = False
+    pallas_attention_stages: Tuple[int, ...] = (3,)
+    fused_block_stages: Tuple[int, ...] = (1,)
+    fused_block_noproj_stages: Tuple[int, ...] = (2,)
+
+    @staticmethod
+    def tiny_vit_21m_512(**overrides) -> "TinyViTConfig":
+        return TinyViTConfig(**overrides)
+
+    @property
+    def embed_dim(self) -> int:
+        return self.embed_dims[-1]
+
+
+def _gelu(x, exact: bool):
+    return F.gelu(x, approximate="none" if exact else "tanh")
+
+
+def _linear(x, lin: nn.Linear, dtype):
+    return F.linear(x, lin.weight.to(dtype), lin.bias.to(dtype))
+
+
+class _BN(nn.Module):
+    """BatchNorm parameters and running statistics (eval only)."""
+
+    def __init__(self, c: int):
+        super().__init__()
+        self.weight = nn.Parameter(torch.ones(c))
+        self.bias = nn.Parameter(torch.zeros(c))
+        self.register_buffer("running_mean", torch.zeros(c))
+        self.register_buffer("running_var", torch.ones(c))
+
+    def forward(self, x, dtype):
+        """flax BatchNorm from running stats: f32 arithmetic, result in
+        the compute dtype."""
+        mul = torch.rsqrt(self.running_var + 1e-5) * self.weight
+        return ((x.float() - self.running_mean) * mul + self.bias).to(dtype)
+
+
+class ConvBN(nn.Module):
+    """Conv (no bias, padding k // 2 as flax) + BatchNorm, on NHWC."""
+
+    def __init__(self, cin, cout, kernel=1, stride=1, groups=1):
+        super().__init__()
+        self.conv = nn.Conv2d(cin, cout, kernel, stride, kernel // 2,
+                              groups=groups, bias=False)
+        self.bn = _BN(cout)
+
+    def forward(self, x, dtype):
+        c = self.conv
+        y = F.conv2d(x.permute(0, 3, 1, 2), c.weight.to(dtype), None,
+                     c.stride, c.padding, c.dilation, c.groups)
+        return self.bn(y.permute(0, 2, 3, 1), dtype)
+
+
+class MBConv(nn.Module):
+    def __init__(self, dim, expand_ratio, exact_gelu):
+        super().__init__()
+        hidden = int(dim * expand_ratio)
+        self.exact_gelu = exact_gelu
+        self.conv1 = ConvBN(dim, hidden, 1)
+        self.conv2 = ConvBN(hidden, hidden, 3, groups=hidden)
+        self.conv3 = ConvBN(hidden, dim, 1)
+
+    def forward(self, x, dtype):
+        g = self.exact_gelu
+        y = _gelu(self.conv1(x, dtype), g)
+        y = _gelu(self.conv2(y, dtype), g)
+        return _gelu(x + self.conv3(y, dtype), g)
+
+
+class PatchEmbed(nn.Module):
+    def __init__(self, cin, dim, exact_gelu):
+        super().__init__()
+        self.exact_gelu = exact_gelu
+        self.conv1 = ConvBN(cin, dim // 2, 3, stride=2)
+        self.conv2 = ConvBN(dim // 2, dim, 3, stride=2)
+
+    def forward(self, x, dtype):
+        return self.conv2(_gelu(self.conv1(x, dtype), self.exact_gelu), dtype)
+
+
+class PatchMerging(nn.Module):
+    """1x1 -> depthwise 3x3 stride 2 -> 1x1, BN and GELU between."""
+
+    def __init__(self, cin, cout, exact_gelu):
+        super().__init__()
+        self.exact_gelu = exact_gelu
+        self.conv1 = ConvBN(cin, cout, 1)
+        self.conv2 = ConvBN(cout, cout, 3, stride=2, groups=cout)
+        self.conv3 = ConvBN(cout, cout, 1)
+
+    def forward(self, x, dtype):
+        g = self.exact_gelu
+        x = _gelu(self.conv1(x, dtype), g)
+        x = _gelu(self.conv2(x, dtype), g)
+        return self.conv3(x, dtype)
+
+
+def _relative_bias_index(window: int) -> np.ndarray:
+    """(N, N) index into the unique-offset bias table for an N = window^2
+    window: offsets |dy| * window + |dx| renumbered in sorted order
+    (np.unique), as the JAX package does; not timm's insertion order."""
+    coords = np.stack(
+        np.meshgrid(np.arange(window), np.arange(window), indexing="ij"),
+        axis=-1,
+    ).reshape(-1, 2)
+    rel = np.abs(coords[:, None, :] - coords[None, :, :])
+    offsets = rel[..., 0] * window + rel[..., 1]
+    _, inv = np.unique(offsets, return_inverse=True)
+    return inv.reshape(offsets.shape).astype(np.int64)
+
+
+class WindowAttention(nn.Module):
+    """LeViT-style attention with learned relative biases; (B, N, C)
+    window tokens in, its own pre-LayerNorm inside."""
+
+    def __init__(self, dim, num_heads, window, use_kernel_qkv=False,
+                 fused_block=False, fused_block_noproj=False):
+        super().__init__()
+        self.num_heads = num_heads
+        self.use_kernel_qkv = use_kernel_qkv
+        self.fused_block = fused_block
+        self.fused_block_noproj = fused_block_noproj
+        self.norm = nn.LayerNorm(dim, eps=1e-5)
+        self.qkv = nn.Linear(dim, 3 * dim)
+        self.proj = nn.Linear(dim, dim)
+        idx = _relative_bias_index(window)
+        self.attention_biases = nn.Parameter(
+            torch.zeros(num_heads, int(idx.max()) + 1))
+        self.register_buffer("bias_idx", torch.from_numpy(idx),
+                             persistent=False)
+
+    def forward(self, x, dtype):
+        B, N, C = x.shape
+        H = self.num_heads
+        scale = (C // H) ** -0.5
+        bias = self.attention_biases[:, self.bias_idx]  # (H, N, N)
+        x = x.to(dtype)
+        n, q, p = self.norm, self.qkv, self.proj
+        if self.fused_block_noproj and N % 128 == 0:
+            out = wa.fused_block_attention_noproj(
+                x, n.weight, n.bias, q.weight.t(), q.bias, bias, scale, H)
+            return _linear(out, p, dtype)
+        if self.fused_block and N % 128 == 0:
+            return wa.fused_block_attention(
+                x, n.weight, n.bias, q.weight.t(), q.bias, p.weight.t(),
+                p.bias, bias, scale, H)
+        x = F.layer_norm(x.float(), (C,), n.weight, n.bias, 1e-5).to(dtype)
+        qkv = _linear(x, q, dtype)
+        if self.use_kernel_qkv and N % 128 == 0:
+            out = wa.window_attention_qkv(qkv, bias, scale, H)
+        else:
+            out = wa._attention_qkv_fused_plain(qkv, bias, scale, H)
+        return _linear(out, p, dtype)
+
+
+class Mlp(nn.Module):
+    def __init__(self, dim, hidden, exact_gelu):
+        super().__init__()
+        self.exact_gelu = exact_gelu
+        self.norm = nn.LayerNorm(dim, eps=1e-5)
+        self.fc1 = nn.Linear(dim, hidden)
+        self.fc2 = nn.Linear(hidden, dim)
+
+    def forward(self, x, dtype):
+        n = self.norm
+        x = F.layer_norm(x.float(), n.normalized_shape, n.weight, n.bias,
+                         1e-5).to(dtype)
+        x = _gelu(_linear(x, self.fc1, dtype), self.exact_gelu)
+        return _linear(x, self.fc2, dtype)
+
+
+def window_partition(x: torch.Tensor, window: int) -> torch.Tensor:
+    """(B, H, W, C) -> (B*nH*nW, window*window, C)."""
+    B, H, W, C = x.shape
+    x = x.reshape(B, H // window, window, W // window, window, C)
+    return x.permute(0, 1, 3, 2, 4, 5).reshape(-1, window * window, C)
+
+
+def window_unpartition(x: torch.Tensor, window: int, hw) -> torch.Tensor:
+    H, W = hw
+    B = x.shape[0] // ((H // window) * (W // window))
+    x = x.reshape(B, H // window, W // window, window, window, -1)
+    return x.permute(0, 1, 3, 2, 4, 5).reshape(B, H, W, -1)
+
+
+class TinyViTBlock(nn.Module):
+    """Window attention -> depthwise local conv -> MLP, all residual."""
+
+    def __init__(self, dim, num_heads, window, mlp_ratio, exact_gelu,
+                 use_kernel_qkv, fused_block, fused_block_noproj):
+        super().__init__()
+        self.window = window
+        self.attn = WindowAttention(dim, num_heads, window, use_kernel_qkv,
+                                    fused_block, fused_block_noproj)
+        self.local_conv = ConvBN(dim, dim, 3, groups=dim)
+        self.mlp = Mlp(dim, int(dim * mlp_ratio), exact_gelu)
+
+    def forward(self, x, dtype):
+        B, H, W, C = x.shape
+        w = min(self.window, H, W)
+        if (H, W) == (w, w):
+            attn_out = self.attn(x.reshape(B, H * W, C), dtype)
+            attn_out = attn_out.reshape(B, H, W, C)
+        else:
+            pad_h, pad_w = (-H) % w, (-W) % w
+            xp = F.pad(x, (0, 0, 0, pad_w, 0, pad_h))
+            win = self.attn(window_partition(xp, w), dtype)
+            attn_out = window_unpartition(win, w, (H + pad_h, W + pad_w))
+            attn_out = attn_out[:, :H, :W, :]
+        x = self.local_conv(x + attn_out, dtype)
+        mlp_out = self.mlp(x.reshape(B, H * W, C), dtype)
+        return x + mlp_out.reshape(B, H, W, C)
+
+
+class TinyViT(nn.Module):
+    """(B, H, W, 3) pixels -> (B, embed_dim) f32 pooled, normed features."""
+
+    def __init__(self, config: TinyViTConfig):
+        super().__init__()
+        cfg = self.config = config
+        g = cfg.exact_gelu
+        self.patch_embed = PatchEmbed(cfg.in_channels, cfg.embed_dims[0], g)
+        self._order = ["patch_embed"]
+        for stage, depth in enumerate(cfg.depths):
+            dim = cfg.embed_dims[stage]
+            for d in range(depth):
+                name = f"stage{stage}_block{d}"
+                if stage == 0:
+                    block = MBConv(dim, cfg.mbconv_expand_ratio, g)
+                else:
+                    block = TinyViTBlock(
+                        dim, cfg.num_heads[stage], cfg.window_sizes[stage],
+                        cfg.mlp_ratio, g,
+                        use_kernel_qkv=stage in cfg.pallas_attention_stages,
+                        fused_block=stage in cfg.fused_block_stages,
+                        fused_block_noproj=(
+                            stage in cfg.fused_block_noproj_stages),
+                    )
+                self.add_module(name, block)
+                self._order.append(name)
+            if stage < len(cfg.depths) - 1:
+                name = f"downsample{stage}"
+                self.add_module(name, PatchMerging(
+                    dim, cfg.embed_dims[stage + 1], g))
+                self._order.append(name)
+        self.norm_head = nn.LayerNorm(cfg.embed_dims[-1], eps=1e-5)
+
+    def cast_weights_(self) -> "TinyViT":
+        """Stores conv and linear weights in the compute dtype once, so the
+        forward's per-use casts are no-ops.  Norm parameters, biases and
+        attention biases stay f32, as the JAX forward reads them."""
+        for m in self.modules():
+            if isinstance(m, (nn.Conv2d, nn.Linear)):
+                m.weight.data = m.weight.data.to(self.config.dtype)
+        return self
+
+    def forward(self, pixel_values: torch.Tensor) -> torch.Tensor:
+        dtype = self.config.dtype
+        x = pixel_values.to(dtype)
+        for name in self._order:
+            x = getattr(self, name)(x, dtype)
+        x = x.reshape(x.shape[0], -1, x.shape[-1]).float().mean(dim=1)
+        n = self.norm_head
+        return F.layer_norm(x, n.normalized_shape, n.weight, n.bias, 1e-5)

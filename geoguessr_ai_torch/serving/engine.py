@@ -1,0 +1,240 @@
+"""Serving engine: build once, serve panorama batches through SuperGuessr
+(counterpart of geoguessr_ai_tpu/serving/engine.py)."""
+
+from __future__ import annotations
+
+import concurrent.futures
+import dataclasses
+import queue
+import threading
+import time
+from typing import Dict, List, Optional, Sequence
+
+import numpy as np
+import torch
+
+from geoguessr_ai_torch import config as C
+from geoguessr_ai_torch.data.pipeline import decode_jpeg
+from geoguessr_ai_torch.geocells.manager import CentroidTable
+from geoguessr_ai_torch.models.super_guessr import SuperGuessr, decode_predictions
+from geoguessr_ai_torch.models.tinyvit import TinyViT, TinyViTConfig
+from geoguessr_ai_torch.ops.preprocess import fused_preprocess
+
+
+@dataclasses.dataclass
+class InferenceResult:
+    lat: float
+    lon: float
+    top_ids: List[int]
+    top_probs: List[float]
+    top_countries: List[str]
+    top_admin1: List[str]
+    embedding: np.ndarray
+
+
+def init_parameters_(model: torch.nn.Module, seed: int = 0) -> None:
+    """Seeded random parameters (no weights ship with the repo):
+    conv/linear weights N(0, 1/fan_in), norm scales 1, biases and attention
+    biases small N(0, 0.02^2)."""
+    gen = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if p.ndim >= 2 and not name.endswith("attention_biases"):
+                fan_in = p[0].numel()
+                p.copy_(torch.randn(p.shape, generator=gen) * fan_in ** -0.5)
+            elif name.endswith("weight"):
+                p.fill_(1.0)
+            else:
+                p.copy_(torch.randn(p.shape, generator=gen) * 0.02)
+
+
+class ServingEngine:
+    """Holds the model and the centroid table; serves panorama batches.
+
+    Args:
+      backbone: only "tinyvit" is ported.
+      centroid_table: defaults to the repo's table (12647 cells).
+      device: None means "cuda"; raises when no GPU is present.
+      state_dict: SuperGuessr weights (e.g. from models.convert); seeded
+        random weights when None.
+      backbone_config: TinyViT config (default TinyViT-21M-512, bf16).
+      seed: seed of the random weights.
+    """
+
+    def __init__(
+        self,
+        backbone: str = "tinyvit",
+        centroid_table: Optional[CentroidTable] = None,
+        num_candidates: int = C.NUM_CANDIDATES,
+        hierarchical: bool = False,
+        device=None,
+        state_dict: Optional[Dict[str, torch.Tensor]] = None,
+        backbone_config: Optional[TinyViTConfig] = None,
+        seed: int = 0,
+    ):
+        if backbone != "tinyvit":
+            raise NotImplementedError(
+                f"backbone {backbone!r} is not ported; only 'tinyvit' is")
+        self.device = C.resolve_device(device)
+        self.table = centroid_table or CentroidTable.load(
+            C.CENTROID_TABLE_PATH)
+        cfg = backbone_config or TinyViTConfig.tiny_vit_21m_512()
+        self.config = cfg
+        self.image_size = cfg.image_size
+        self.norm = (C.TINYVIT_NORM_MEAN, C.TINYVIT_NORM_STD)
+        self.num_candidates = min(num_candidates, self.table.num_cells)
+        model = SuperGuessr(self.table.num_cells, TinyViT(cfg),
+                            embed_dim=cfg.embed_dim, hierarchical=hierarchical)
+        if state_dict is None:
+            init_parameters_(model, seed)
+        else:
+            model.load_state_dict(state_dict, strict=True)
+        model.backbone.cast_weights_()
+        self.model = model.to(self.device).eval()
+        self.centroids = torch.as_tensor(self.table.centroids,
+                                         device=self.device)
+
+    @torch.inference_mode()
+    def predict_batch(
+        self,
+        panoramas_u8: np.ndarray,
+        view_mask: Optional[np.ndarray] = None,
+    ) -> List[InferenceResult]:
+        """panoramas_u8: (B, V, H, W, 3) uint8 at self.image_size;
+        view_mask: optional (B, V) 1/0 mask of real views."""
+        dev = self.device
+        pixels = fused_preprocess(
+            torch.from_numpy(np.ascontiguousarray(panoramas_u8)).to(dev),
+            *self.norm, self.image_size, dtype=self.config.dtype)
+        mask = (None if view_mask is None
+                else torch.as_tensor(view_mask, dtype=torch.float32,
+                                     device=dev))
+        emb, logits = self.model(pixels, view_mask=mask)
+        _, _, lnglat, topk = decode_predictions(
+            logits, self.centroids, self.num_candidates)
+        lnglat = lnglat.cpu().numpy()
+        top_vals = topk.values.cpu().numpy()
+        top_idx = topk.indices.cpu().numpy()
+        emb = emb.float().cpu().numpy()
+        out = []
+        for b in range(lnglat.shape[0]):
+            ids = top_idx[b].tolist()
+            out.append(InferenceResult(
+                lat=float(lnglat[b, 1]),
+                lon=float(lnglat[b, 0]),
+                top_ids=ids,
+                top_probs=top_vals[b].tolist(),
+                top_countries=[str(self.table.country[i]) for i in ids],
+                top_admin1=[str(self.table.admin1[i]) for i in ids],
+                embedding=emb[b],
+            ))
+        return out
+
+    def predict_images(self, image_paths: Sequence[str]) -> InferenceResult:
+        """1 or 4 image files -> one panorama prediction."""
+        if len(image_paths) not in (1, 4):
+            raise ValueError("supply exactly 1 or 4 images")
+        size = self.image_size
+        views = np.zeros((1, C.NUM_PANORAMA_VIEWS, size, size, 3), np.uint8)
+        for v, p in enumerate(image_paths):
+            with open(p, "rb") as f:
+                views[0, v] = decode_jpeg(f.read(), size)
+        if len(image_paths) == 1:
+            views[0, 1:] = views[0, 0]  # replicate one image across views
+        return self.predict_batch(views)[0]
+
+
+class MicroBatcher:
+    """Coalesces concurrent single-panorama requests into one batch.
+
+    Requests gather for a rolling window: each arrival extends the
+    deadline by ``linger_ms``, bounded by ``max(max_wait_ms, 8 *
+    linger_ms)`` from the first arrival, or until ``max_batch``.  The batch
+    is padded up to a bucket size by repeating its last row."""
+
+    def __init__(
+        self,
+        engine: ServingEngine,
+        max_batch: int = 16,
+        max_wait_ms: float = 8.0,
+        buckets: Sequence[int] = (1, 4, 8, 16),
+        predict_timeout_s: float = 1800.0,
+        linger_ms: float = 25.0,
+    ):
+        self.engine = engine
+        self.max_batch = max_batch
+        self.max_wait_s = max_wait_ms / 1000.0
+        self.linger_s = linger_ms / 1000.0
+        self.max_linger_total_s = max(self.max_wait_s, 8 * self.linger_s)
+        self.buckets = sorted(buckets)
+        if self.max_batch > self.buckets[-1]:
+            raise ValueError("max_batch exceeds the largest bucket")
+        self.predict_timeout_s = predict_timeout_s
+        #: bucket size -> batches dispatched at that size
+        self.batch_sizes: Dict[int, int] = {}
+        self._q: "queue.Queue" = queue.Queue()
+        self._thread: Optional[threading.Thread] = None
+        self._lock = threading.Lock()
+
+    def _ensure_thread(self):
+        with self._lock:
+            if self._thread is None or not self._thread.is_alive():
+                self._thread = threading.Thread(target=self._loop,
+                                                daemon=True)
+                self._thread.start()
+
+    def _loop(self):
+        while True:
+            batch = [self._q.get()]
+            t0 = time.perf_counter()
+            hard_deadline = t0 + self.max_linger_total_s
+            deadline = t0 + max(self.max_wait_s, self.linger_s)
+            while len(batch) < self.max_batch:
+                remaining = min(deadline, hard_deadline) - time.perf_counter()
+                if remaining <= 0:
+                    break
+                try:
+                    batch.append(self._q.get(timeout=remaining))
+                    deadline = max(deadline,
+                                   time.perf_counter() + self.linger_s)
+                except queue.Empty:
+                    break
+            try:
+                views = np.stack([b[1] for b in batch])
+                masks = np.stack([b[2] for b in batch])
+                bucket = next(s for s in self.buckets if s >= len(batch))
+                if bucket > len(batch):  # pad by repeating the last row
+                    reps = bucket - len(batch)
+                    views = np.concatenate(
+                        [views, np.repeat(views[-1:], reps, axis=0)])
+                    masks = np.concatenate(
+                        [masks, np.repeat(masks[-1:], reps, axis=0)])
+                self.batch_sizes[bucket] = self.batch_sizes.get(bucket, 0) + 1
+                results = self.engine.predict_batch(views, view_mask=masks)
+                for (fut, _, _), r in zip(batch, results):
+                    fut.set_result(r)
+            except Exception as e:  # deliver the failure to every waiter
+                for fut, _, _ in batch:
+                    if not fut.done():
+                        fut.set_exception(e)
+
+    def warmup(self, num_views: int = C.NUM_PANORAMA_VIEWS) -> None:
+        """Runs every bucket size once."""
+        size = self.engine.image_size
+        for b in self.buckets:
+            views = np.zeros((b, num_views, size, size, 3), np.uint8)
+            masks = np.ones((b, num_views), np.float32)
+            self.engine.predict_batch(views, view_mask=masks)
+
+    def predict(self, views_u8: np.ndarray,
+                view_mask: Optional[np.ndarray] = None,
+                timeout: Optional[float] = None) -> InferenceResult:
+        """Blocking single-panorama predict: (V, H, W, 3) uint8 ->
+        InferenceResult, batched with concurrent callers."""
+        self._ensure_thread()
+        if view_mask is None:
+            view_mask = np.ones((views_u8.shape[0],), np.float32)
+        fut: concurrent.futures.Future = concurrent.futures.Future()
+        self._q.put((fut, views_u8, np.asarray(view_mask, np.float32)))
+        return fut.result(
+            timeout=self.predict_timeout_s if timeout is None else timeout)
