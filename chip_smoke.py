@@ -19,12 +19,28 @@ Phases, in order; any failure exits non-zero:
    first, and check that each kernel ran; print latency and panos/s;
 5. serve the fixture panorama through the same weights on the CPU in f32
    (the plain path) and compare embedding and top-1 cell;
-6. print the kernel JSON line, then ``{"ok": true, "device": ...}`` last.
+6. hold the attention backward kernels (K4, K5) against their plain
+   versions at the shapes a B=16 train step gives them, d_qkv and d_bias
+   each, and time kernel, plain version, SDPA's backward and the bound;
+7. for each autograd op (fused_block_attention, _noproj,
+   window_attention_qkv) at its train shape: the input gradients through
+   the kernels against autograd through the plain version;
+8. ``train()`` at full width (TinyViT-21M-512 bf16 compute, f32 master
+   weights, 12647 cells) for TRAIN_STEPS steps of TRAIN_BATCH fixture
+   panoramas with every launch counter set to 0 first: finite losses and
+   grad norms, each kernel's exact launches per step and per validation
+   forward (an out-of-memory error fails the run); then train_step's p50
+   on a fixed batch, panos/s and peak memory;
+9. one train step of the same weights and batch (B=2) on the card in bf16
+   and on the CPU in f32 and in bf16 (the plain path): loss, per-module
+   gradient cosines and the updated BatchNorm running statistics;
+10. print the kernel JSON line, then ``{"ok": true, "device": ...}`` last.
 """
 
 from __future__ import annotations
 
 import concurrent.futures as cf
+import gc
 import glob
 import json
 import math
@@ -49,6 +65,30 @@ PEAK_BF16_FLOP_S = 989e12
 KERNEL_REL_TOL = 2e-2
 #: GPU bf16 engine vs CPU f32 engine on the fixture panorama.
 MIN_COSINE = 0.999
+#: An op's input gradients through the kernels vs autograd through its
+#: plain version, both bf16 on the card: max |k - p| / max |p|.  The plain
+#: backward rounds dp = g.v and the GEMM cotangents to bf16 where the
+#: kernels keep f32, so a few bf16 ulps of the gradient's range.
+GRAD_REL_TOL = 2e-2
+#: One train step on the card in bf16 vs on the CPU (same weights, same
+#: batch): relative loss difference to the f32 step; cosine of each
+#: top-level module's flattened gradient; cosine of the updated running
+#: statistics.  Each module's gradient on the card must reach
+#: TRAIN_GRAD_MIN_COSINE against the plain path in bf16, and against the
+#: f32 step either TRAIN_GRAD_MIN_COSINE or, where bf16 itself falls short
+#: of it, the plain bf16 path's own cosine less TRAIN_GRAD_BF16_MARGIN:
+#: upstream of stage 3 any bf16 step, kernels or none, drifts further from
+#: f32 than 0.99 allows, and it drifts through the batch-statistics
+#: BatchNorm (tests/test_torch_port_train.py
+#: test_bf16_gradients_drift_from_f32_through_batch_statistics_bn).  The
+#: JAX package's own bf16 train step drifts as far at TinyViT-21M's depth
+#: (test_bf16_train_step_drifts_from_f32_as_the_jax_bf16_step_does).  The
+#: plain bf16 path's cosines to f32 are printed beside the card's; PERF.md
+#: has the numbers.
+TRAIN_LOSS_RTOL = 1e-2
+TRAIN_GRAD_MIN_COSINE = 0.99
+TRAIN_GRAD_BF16_MARGIN = 0.01
+TRAIN_STATS_MIN_COSINE = 0.999
 SEED = 0
 
 
@@ -359,28 +399,452 @@ def phase_cpu_reference(paths, gpu_result):
         fail("top-1 cell differs between the CPU and the GPU")
 
 
+# ---------------------------------------------------------------------------
+# Phase 6: the attention backward kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+#: (kernel, label, W, N, H): the shapes a train step of TRAIN_BATCH
+#: panoramas (64 images) gives K4 (stages 1 and 3) and K5 (stage 2); hd=32.
+BWD_CASES = (
+    ("K4", "stage1", 1024, 256, 6),
+    ("K4", "stage3", 64, 256, 18),
+    ("K5", "stage2", 64, 1024, 12),
+)
+BWD_META = {
+    "K4": ("_attention_qkv_bwd_cuda",
+           "geoguessr_ai_torch/ops/csrc/attention_qkv_bwd.cu",
+           "geoguessr_ai_tpu/ops/window_attention.py:560"),
+    "K5": ("_attention_bwd_merged_cuda",
+           "geoguessr_ai_torch/ops/csrc/attention_bwd_merged.cu",
+           "geoguessr_ai_tpu/ops/window_attention.py:1708"),
+}
+
+
+def _bwd_bound_ms(kernel, W, N, H):
+    """Five N x N x hd products per (window, head): s, dp, dv, dq, dk.
+    Bytes: qkv and g read once, the bias read once (bf16 into K4, f32 into
+    K5), d_qkv (bf16) and d_bias (f32) written once."""
+    hd = 32
+    D = H * hd
+    flops = 10.0 * W * H * N * N * hd
+    nbytes = (2 * W * N * 3 * D * 2 + W * N * D * 2
+              + H * N * N * (2 if kernel == "K4" else 4) + H * N * N * 4)
+    t_bytes = nbytes / PEAK_BYTES_S * 1e3
+    t_ops = flops / PEAK_BF16_FLOP_S * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def _sdpa_bwd_ms(qkv, bias, g, scale, H):
+    """The backward of one scaled_dot_product_attention call on the same
+    q, k, v and an (H, N, N) bias that requires grad, timed as
+    forward+backward minus forward (the yardstick only; the port never
+    calls it).  Returns (ms or None, what was timed or why not)."""
+    import torch.nn.functional as F
+
+    W, N, D3 = qkv.shape
+    hd = D3 // (3 * H)
+    parts = qkv.view(W, N, H, 3, hd).permute(3, 0, 2, 1, 4)
+    q, k, v = (parts[i].contiguous().requires_grad_() for i in range(3))
+    b = bias.to(qkv.dtype).detach().requires_grad_()
+    go = g.view(W, N, H, hd).transpose(1, 2).contiguous()
+
+    def fwd():
+        return F.scaled_dot_product_attention(q, k, v, attn_mask=b[None],
+                                              scale=scale)
+
+    try:
+        both = cuda_time_ms(lambda: torch.autograd.grad(fwd(), (q, k, v, b),
+                                                        go), iters=5)
+    except RuntimeError as e:
+        return None, ("no SDPA backend takes a bias gradient here: "
+                      + str(e).splitlines()[0][:160])
+    return both - cuda_time_ms(fwd, iters=5), (
+        "scaled_dot_product_attention forward+backward minus forward, bias "
+        "requires grad")
+
+
+def _rel_err(got, want):
+    err = float((got.float() - want.float()).abs().max())
+    return err, err / max(float(want.float().abs().max()), 1e-30)
+
+
+def phase_backward_kernels():
+    from geoguessr_ai_torch.ops import window_attention as wa
+
+    rows = {}
+    gen = torch.Generator().manual_seed(SEED + 1)
+    for kernel, label, W, N, H in BWD_CASES:
+        D = H * 32
+        scale = 32 ** -0.5
+        qkv = torch.randn(W, N, 3 * D, generator=gen).to("cuda", torch.bfloat16)
+        bias = (torch.randn(H, N, N, generator=gen) * 0.5).to("cuda")
+        g = torch.randn(W, N, D, generator=gen).to("cuda", torch.bfloat16)
+        name = BWD_META[kernel][0]
+        kern = getattr(wa, name)
+        plain = (wa._attention_qkv_bwd_plain if kernel == "K4"
+                 else wa._attention_bwd_merged_plain)
+        args = (qkv, bias, g, scale, H)
+        got = kern(*args)
+        torch.cuda.synchronize()
+        want = plain(*args)
+        torch.cuda.synchronize()
+        log(f"{kernel} {label} W={W} N={N} H={H} (bias {'bf16' if kernel == 'K4' else 'f32'})")
+        errs = {}
+        for out, a, b in (("d_qkv", got[0], want[0]), ("d_bias", got[1], want[1])):
+            if a.shape != b.shape or a.dtype != b.dtype:
+                fail(f"{kernel} {label} {out}: {tuple(a.shape)} {a.dtype} != "
+                     f"{tuple(b.shape)} {b.dtype}")
+            abs_err, rel = _rel_err(a, b)
+            finite = bool(torch.isfinite(a).all())
+            log(f"  {out} max_abs_err {abs_err:.6g} max_rel_err {rel:.6g} "
+                f"(tolerance {KERNEL_REL_TOL}) finite {finite}")
+            if not finite or rel > KERNEL_REL_TOL:
+                fail(f"{kernel} {label}: {out} disagrees with the plain "
+                     f"version (rel {rel:.3g}, finite {finite})")
+            errs[out] = abs_err
+        del got, want
+        ms = cuda_time_ms(lambda: kern(*args))
+        plain_ms = cuda_time_ms(lambda: plain(*args), iters=3)
+        lib_ms, lib_note = _sdpa_bwd_ms(qkv, bias, g, scale, H)
+        bound, bound_by = _bwd_bound_ms(kernel, W, N, H)
+        log(f"  kernel_ms {ms:.4f}")
+        log(f"  plain_ms {plain_ms:.4f}")
+        log(f"  library_ms {'null' if lib_ms is None else f'{lib_ms:.4f}'} "
+            f"({lib_note})")
+        log(f"  bound_ms {bound:.4f} ({bound_by})")
+        rows[(kernel, label)] = dict(
+            max_abs_err=errs["d_qkv"], max_abs_err_dbias=errs["d_bias"],
+            ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+            library_note=lib_note, bound_ms=bound, bound_by=bound_by)
+        del qkv, bias, g, args
+        torch.cuda.empty_cache()
+    wa.reset_launches()
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# Phase 7: each autograd op's input gradients, kernels vs plain autograd
+# ---------------------------------------------------------------------------
+
+#: (op, W, N, C, H): each op at the shape of a TRAIN_BATCH train step.
+OP_CASES = (
+    ("fused_block_attention", 1024, 256, 192, 6),
+    ("fused_block_attention_noproj", 64, 1024, 384, 12),
+    ("window_attention_qkv", 64, 256, 576, 18),
+)
+
+
+def _op_leaves(op, W, N, C, H, gen):
+    """Inputs as a train step hands them to the op: bf16 activations, f32
+    master weights stored (out, in), an f32 bias; each requires grad.
+    Returns (names, leaves)."""
+    from geoguessr_ai_torch.ops import window_attention as wa
+
+    def randn(*shape, std=1.0, mean=0.0):
+        return (torch.randn(*shape, generator=gen) * std + mean).to("cuda")
+
+    x = randn(W, N, C).to(torch.bfloat16)
+    p = dict(ln_scale=randn(C, std=0.1, mean=1.0), ln_bias=randn(C, std=0.1),
+             w_qkv=randn(3 * C, C, std=C ** -0.5), b_qkv=randn(3 * C, std=0.1),
+             w_proj=randn(C, C, std=C ** -0.5), b_proj=randn(C, std=0.1),
+             bias=randn(H, N, N, std=0.5))
+    if op == "window_attention_qkv":
+        leaves = {"qkv": wa._ln_qkv_plain(x, p["ln_scale"], p["ln_bias"],
+                                          p["w_qkv"].t(), p["b_qkv"], 1e-5),
+                  "bias": p["bias"]}
+    else:
+        keys = ["ln_scale", "ln_bias", "w_qkv", "b_qkv"]
+        if op == "fused_block_attention":
+            keys += ["w_proj", "b_proj"]
+        leaves = {"x": x, **{k: p[k] for k in keys + ["bias"]}}
+    return (list(leaves),
+            [t.detach().requires_grad_() for t in leaves.values()])
+
+
+def _op_call(fn, op, leaves, scale, H):
+    """fn called as the model calls the op: (in, out) weights as transposed
+    views of the stored (out, in) ones."""
+    if op == "window_attention_qkv":
+        return fn(*leaves, scale, H)
+    x, ls, lb, wq, bq, *rest = leaves
+    if op == "fused_block_attention":
+        wp, bp, bias = rest
+        return fn(x, ls, lb, wq.t(), bq, wp.t(), bp, bias, scale, H, 1e-5)
+    return fn(x, ls, lb, wq.t(), bq, rest[0], scale, H, 1e-5)
+
+
+def phase_op_gradients():
+    from geoguessr_ai_torch.ops import window_attention as wa
+
+    plain = {"fused_block_attention": wa._fused_block_plain,
+             "fused_block_attention_noproj": wa._fb_s2_plain,
+             "window_attention_qkv": wa._attention_qkv_fused_plain}
+    gen = torch.Generator().manual_seed(SEED + 2)
+    for op, W, N, C, H in OP_CASES:
+        names, leaves = _op_leaves(op, W, N, C, H, gen)
+        scale = (C // H) ** -0.5
+        out = _op_call(getattr(wa, op), op, leaves, scale, H)
+        if out.grad_fn is None:
+            fail(f"{op}: a CUDA output of inputs that require grad has no "
+                 "grad_fn")
+        gout = torch.randn(out.shape, generator=gen).to("cuda", out.dtype)
+        got = torch.autograd.grad(out, leaves, gout)
+        want = torch.autograd.grad(_op_call(plain[op], op, leaves, scale, H),
+                                   leaves, gout)
+        torch.cuda.synchronize()
+        log(f"op gradients {op} W={W} N={N} C={C} H={H} "
+            f"(tolerance {GRAD_REL_TOL})")
+        for name, a, b in zip(names, got, want):
+            abs_err, rel = _rel_err(a, b)
+            finite = bool(torch.isfinite(a).all())
+            log(f"  d_{name} max_abs_err {abs_err:.6g} max_rel_err {rel:.6g}"
+                f" finite {finite}")
+            if a.shape != b.shape or not finite or rel > GRAD_REL_TOL:
+                fail(f"{op}: gradient of {name} through the kernels "
+                     f"disagrees with the plain path (rel {rel:.3g})")
+        del leaves, out, got, want
+        torch.cuda.empty_cache()
+    wa.reset_launches()
+
+
+# ---------------------------------------------------------------------------
+# Phase 8: the train path at full width
+# ---------------------------------------------------------------------------
+
+TRAIN_BATCH = 16
+TRAIN_STEPS = 6
+#: Kernel launches of one train step: forward K1 at the 2 stage-1 blocks,
+#: K2 at the 6 stage-2 blocks, K3 at the 2 stage-3 blocks and again in each
+#: K1 backward (the attention recompute); K4 in the backward of stages 1
+#: and 3, K5 in that of stage 2.  train() must launch exactly these per
+#: step plus LAUNCHES_PER_FORWARD per validation forward.
+LAUNCHES_PER_TRAIN_STEP = {"K1": 2, "K2": 6, "K3": 4, "K4": 4, "K5": 6}
+ALL_META = {**KERNEL_META, **BWD_META}
+
+
+def phase_train():
+    from geoguessr_ai_torch import config as C
+    from geoguessr_ai_torch.config import TrainConfig
+    from geoguessr_ai_torch.geocells.manager import CentroidTable
+    from geoguessr_ai_torch.ops import window_attention as wa
+    from geoguessr_ai_torch.train.coordinator import train
+    from geoguessr_ai_torch.train.fixtures import (
+        fixture_records,
+        fixture_train_setup,
+    )
+    from geoguessr_ai_torch.train.steps import train_step
+    from geoguessr_ai_torch.utils.logging import MetricsLogger
+
+    class Recorder(MetricsLogger):
+        """Keeps every logged row with the host time it arrived (logging
+        reads the device scalars, so a row marks the end of its step)."""
+
+        def __init__(self):
+            super().__init__()
+            self.rows = []
+
+        def log(self, metrics, step):
+            self.rows.append((time.perf_counter(), step,
+                              {k: float(v) for k, v in metrics.items()}))
+
+    cfg = TrainConfig(batch_size=TRAIN_BATCH, log_every_steps=1, seed=SEED)
+    records = fixture_records(TRAIN_BATCH * (TRAIN_STEPS + 1), seed=SEED)
+    split = TRAIN_BATCH * TRAIN_STEPS
+    table = CentroidTable.load(C.CENTROID_TABLE_PATH)
+    rec = Recorder()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    wa.reset_launches()
+    t0 = time.perf_counter()
+    summary = train(cfg, records[:split], records[split:], table,
+                    metrics_logger=rec, max_steps=TRAIN_STEPS)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = {k: wa.LAUNCHES[m[0]] for k, m in ALL_META.items()}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+    steps = [(t, m) for t, _, m in rec.rows if "train/loss" in m]
+    log(f"train(): TinyViT-21M-512 bf16 compute, f32 master weights, "
+        f"{table.num_cells} cells, batch {TRAIN_BATCH} panoramas, "
+        f"{len(steps)} steps + validation in {wall_s:.2f} s")
+    if len(steps) != TRAIN_STEPS:
+        fail(f"train() logged {len(steps)} steps, expected {TRAIN_STEPS}")
+    for i, (_, m) in enumerate(steps):
+        log(f"  step {i + 1}: loss {m['train/loss']:.6f} grad_norm "
+            f"{m['train/grad_norm']:.6f} param_norm {m['train/param_norm']:.4f}")
+        if not (math.isfinite(m["train/loss"])
+                and math.isfinite(m["train/grad_norm"])):
+            fail(f"non-finite loss or grad_norm at train step {i + 1}")
+    if not math.isfinite(summary.get("val_loss", float("nan"))):
+        fail(f"validation gave no finite val_loss: {summary}")
+    log(f"  val_loss {summary['val_loss']:.6f} val_top1 "
+        f"{summary['val_top1']:.4f}")
+    loop_ms = [(b[0] - a[0]) * 1e3 for a, b in zip(steps, steps[1:])]
+    log(f"  train() loop p50 {float(np.median(loop_ms)):.2f} ms per step "
+        f"(host decode and upload included; steps 2-{TRAIN_STEPS})")
+    log(f"  peak device memory {peak_gb:.3f} GB "
+        f"(torch.cuda.max_memory_allocated)")
+    # each validation run is one eval forward per full batch of records
+    val_forwards = (sum("val_loss" in m for _, _, m in rec.rows)
+                    * (len(records[split:]) // TRAIN_BATCH))
+    for k, per in LAUNCHES_PER_TRAIN_STEP.items():
+        want = (per * TRAIN_STEPS
+                + LAUNCHES_PER_FORWARD.get(k, 0) * val_forwards)
+        log(f"  launches {k} {launches[k]} over {TRAIN_STEPS} steps + "
+            f"{val_forwards} validation forwards (expected {want}: {per} "
+            f"per step)")
+        if launches[k] != want:
+            fail(f"{k} launched {launches[k]} times in train(), expected "
+                 f"{per} per step x {TRAIN_STEPS} + "
+                 f"{LAUNCHES_PER_FORWARD.get(k, 0)} per validation forward "
+                 f"x {val_forwards} = {want}")
+    del summary
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # train_step alone on a fixed device batch: 1 warm-up, then timed
+    state, batch, centroids = fixture_train_setup(TRAIN_BATCH, seed=SEED)
+    times = []
+    for _ in range(TRAIN_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        train_step(state, batch, centroids)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    p50 = float(np.median(times[1:]))
+    log(f"train_step p50 {p50:.2f} ms ({TRAIN_BATCH} panoramas, fixed device "
+        f"batch, steps 2-{TRAIN_STEPS}: "
+        f"{', '.join(f'{t:.2f}' for t in times[1:])}), "
+        f"{TRAIN_BATCH / p50 * 1e3:.2f} panos/s")
+    del state, batch, centroids
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# Phase 9: one train step on the card (bf16) against the CPU (f32, bf16)
+# ---------------------------------------------------------------------------
+
+CPU_TRAIN_BATCH = 2
+
+
+def _top_module(name):
+    parts = name.split(".")
+    return parts[1] if parts[0] == "backbone" else parts[0]
+
+
+def _cosine(a, b):
+    a, b = a.double().flatten(), b.double().flatten()
+    return float((a @ b) / max(float(a.norm() * b.norm()), 1e-300))
+
+
+def _train_step_grads(device, dtype):
+    """One train step of the fixture batch at CPU_TRAIN_BATCH: (loss, the
+    gradients handed to the optimizer, the updated running statistics),
+    all on the host in f32."""
+    from geoguessr_ai_torch.train.fixtures import fixture_train_setup
+    from geoguessr_ai_torch.train.steps import train_step
+
+    state, batch, centroids = fixture_train_setup(
+        CPU_TRAIN_BATCH, device=device, seed=SEED, dtype=dtype)
+    grads = {}
+    step = state.optimizer.step
+
+    def capture(params, g):
+        grads.update({n: t.detach().float().cpu() for n, t in g.items()})
+        return step(params, g)
+
+    state.optimizer.step = capture
+    t0 = time.perf_counter()
+    _, metrics = train_step(state, batch, centroids)
+    loss = float(metrics["loss"])
+    log(f"train step {device} {dtype}: batch {CPU_TRAIN_BATCH} panoramas, "
+        f"loss {loss:.6f}, {time.perf_counter() - t0:.2f} s")
+    stats = {n: b.detach().float().cpu()
+             for n, b in state.model.named_buffers()
+             if n.endswith(("running_mean", "running_var"))}
+    return loss, grads, stats
+
+
+def phase_train_vs_cpu():
+    gl, gg, gs = _train_step_grads("cuda", "bfloat16")
+    cl, cg, cs = _train_step_grads("cpu", "float32")
+    bl, bg, bs = _train_step_grads("cpu", "bfloat16")
+    rel = abs(gl - cl) / abs(cl)
+    log(f"  loss gpu {gl:.6f} cpu f32 {cl:.6f} rel {rel:.3g} "
+        f"(tolerance {TRAIN_LOSS_RTOL}); cpu bf16 {bl:.6f}")
+    bad = [] if rel <= TRAIN_LOSS_RTOL else ["loss"]
+    modules = sorted({_top_module(n) for n in cg})
+    for mod in modules:
+        names = [n for n in cg if _top_module(n) == mod]
+
+        def flat(g):
+            return torch.cat([g[n].flatten() for n in names])
+
+        cos_plain = _cosine(flat(gg), flat(bg))
+        cos = _cosine(flat(gg), flat(cg))
+        cos_bf = _cosine(flat(bg), flat(cg))
+        want = min(TRAIN_GRAD_MIN_COSINE, cos_bf - TRAIN_GRAD_BF16_MARGIN)
+        log(f"  grad cosine {mod}: gpu vs cpu bf16 {cos_plain:.6f} "
+            f"(>= {TRAIN_GRAD_MIN_COSINE}); gpu vs cpu f32 {cos:.6f} "
+            f"(>= {want:.6f}); cpu bf16 vs cpu f32 {cos_bf:.6f}")
+        if not (cos_plain >= TRAIN_GRAD_MIN_COSINE and cos >= want):
+            bad.append(f"grad {mod}")
+    for kind in ("running_mean", "running_var"):
+        names = [n for n in cs if n.endswith(kind)]
+        cos = _cosine(torch.cat([gs[n] for n in names]),
+                      torch.cat([cs[n] for n in names]))
+        worst = min(_cosine(gs[n], cs[n]) for n in names)
+        log(f"  updated {kind} cosine {cos:.6f} over {len(names)} BatchNorms "
+            f"(>= {TRAIN_STATS_MIN_COSINE}), lowest single layer {worst:.6f}")
+        if not cos >= TRAIN_STATS_MIN_COSINE:
+            bad.append(kind)
+    if bad:
+        fail(f"train step on the card disagrees with the CPU steps: {bad}")
+
+
+# ---------------------------------------------------------------------------
+# Phase 10: the kernels line
+# ---------------------------------------------------------------------------
+
+
 def main():
     card = phase_device()
     phase_build()
     rows = phase_kernels()
-    _, paths, result, launches = phase_serve()
+    _, paths, result, serve_launches = phase_serve()
     phase_cpu_reference(paths, result)
+    gc.collect()
+    torch.cuda.empty_cache()
+    rows.update(phase_backward_kernels())
+    phase_op_gradients()
+    train_launches = phase_train()
+    phase_train_vs_cpu()
 
-    main_case = {"K1": "stage1", "K2": "stage2", "K3": "stage3"}
+    main_case = {"K1": "stage1", "K2": "stage2", "K3": "stage3",
+                 "K4": "stage1", "K5": "stage2"}
     kernels = []
-    for k, (name, source, replaces) in KERNEL_META.items():
+    for k, (name, source, replaces) in ALL_META.items():
         row = rows[(k, main_case[k])]
+        if k in BWD_META:
+            # SDPA's backward computes K4's and K5's function
+            library = row["library_ms"]
+        else:
+            # SDPA computes K3's function; K1/K2 add LN, GEMMs around it
+            library = row["sdpa_ms"] if k == "K3" else None
         entry = {
             "name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": launches[k],
+            "replaces": replaces,
+            "launches": serve_launches.get(k, 0) + train_launches[k],
             "max_abs_err": row["max_abs_err"], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
-            "bound_by": row["bound_by"],
-            # SDPA computes K3's function; K1/K2 add LN, GEMMs around it
-            "library_ms": row["sdpa_ms"] if k == "K3" else None,
+            "bound_by": row["bound_by"], "library_ms": library,
         }
-        if k != "K3":
+        if k in ("K1", "K2"):
             entry["sdpa_attention_ms"] = row["sdpa_ms"]
+        if k in BWD_META:
+            entry["max_abs_err_dbias"] = row["max_abs_err_dbias"]
         kernels.append(entry)
     log(card)
     log(json.dumps({"kernels": kernels}))

@@ -1,13 +1,23 @@
-"""Constants and paths of the port, copied from geoguessr_ai_tpu/config.py
-(the port imports nothing of the JAX package)."""
+"""Constants, paths and typed configs of the port, copied from
+geoguessr_ai_tpu/config.py (the port imports nothing of the JAX package)."""
 
 from __future__ import annotations
 
+import dataclasses
 import os
+from typing import Optional
 
 #: Earth radius of the model-side haversine (m), WGS84 semi-major axis.
 EARTH_RADIUS_MODEL_M = 6378137.0
 
+#: Haversine label-smoothing constant (km).
+LABEL_SMOOTHING_CONSTANT_KM = 65.0
+
+#: GeoGuessr score decay constant (km): score = 5000*exp(-d/DECAY).
+GEOGUESSR_DECAY_CONSTANT_KM = 1492.7
+
+TINYVIT_EMBED_DIM = 576
+TINYVIT_IMAGE_SIZE = 512
 TINYVIT_NORM_MEAN = (0.485, 0.456, 0.406)  # ImageNet stats (timm data cfg)
 TINYVIT_NORM_STD = (0.229, 0.224, 0.225)
 
@@ -41,3 +51,90 @@ def resolve_device(device=None):
             "plain PyTorch path on the CPU"
         )
     return dev
+
+
+# ---------------------------------------------------------------------------
+# Typed configs: the JAX package's MeshConfig, BackboneConfig, ModelConfig,
+# OptimizerConfig and TrainConfig with the same fields and defaults.
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class MeshConfig:
+    """Device layout.  The port trains on one device: data_parallel and
+    model_parallel must resolve to 1 (``train.coordinator.train``)."""
+
+    data_axis: str = "data"
+    model_axis: str = "model"
+    #: -1 = all devices on the data axis.
+    data_parallel: int = -1
+    model_parallel: int = 1
+
+
+@dataclasses.dataclass(frozen=True)
+class BackboneConfig:
+    """Which vision tower feeds SuperGuessr (only "tinyvit" is ported)."""
+
+    name: str = "tinyvit"  # "tinyvit" | "clip" | "none" (raw embeddings)
+    image_size: int = TINYVIT_IMAGE_SIZE
+    embed_dim: int = TINYVIT_EMBED_DIM
+    freeze_base: bool = False
+    #: Freeze all but the last stage (the reference TinyViT finetune recipe).
+    freeze_all_but_last_stage: bool = True
+    dtype: str = "bfloat16"  # compute dtype
+    #: QAT int8 activation storage in the train step (not ported).
+    qat_storage: bool = False
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelConfig:
+    """SuperGuessr head configuration."""
+
+    backbone: BackboneConfig = BackboneConfig()
+    panorama: bool = True
+    hierarchical: bool = False
+    should_smooth_labels: bool = True
+    num_candidates: int = NUM_CANDIDATES
+    embed_dim: int = TINYVIT_EMBED_DIM
+    num_cells: int = 12623  # overridden by the centroid table at build time
+
+
+@dataclasses.dataclass(frozen=True)
+class OptimizerConfig:
+    """AdamW + cosine warm restarts."""
+
+    learning_rate: float = 2e-5
+    weight_decay: float = 0.01
+    beta1: float = 0.9
+    beta2: float = 0.999
+    eps: float = 1e-8
+    max_grad_norm: float = 1.0
+    #: CosineAnnealingWarmRestarts T_0 (in epochs).
+    cosine_t0: int = 1
+    cosine_t_mult: int = 2
+    warmup_steps: int = 0
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    """Training-loop settings."""
+
+    seed: int = 330
+    batch_size: int = 24  # panoramas per step
+    num_epochs: int = 1000
+    eval_every_steps: int = 1000
+    log_every_steps: int = 10
+    early_stop_patience: int = 10
+    monitored_metric: str = "val_loss"
+    monitored_mode: str = "min"
+    #: Checkpoints are not ported yet: train() raises when this is set.
+    resume_path: Optional[str] = None
+    optimizer: OptimizerConfig = OptimizerConfig()
+    mesh: MeshConfig = MeshConfig()
+    model: ModelConfig = ModelConfig()
+    #: Split each step into this many microbatches, accumulating the
+    #: gradients in bf16 (``train.steps.train_step``).
+    grad_accum_steps: int = 1
+    #: Host pipeline
+    prefetch_depth: int = 2
+    decode_threads: int = 8

@@ -1,11 +1,19 @@
-"""Host-side JPEG decode for the guess path (PIL; the native libjpeg
-decoder of the JAX package is not ported yet)."""
+"""Host input pipeline: JPEG decode -> panorama batches -> the device
+(counterpart of geoguessr_ai_tpu/data/pipeline.py).  Decodes with PIL; the
+native libjpeg decoder of the JAX package is not ported yet."""
 
 from __future__ import annotations
 
+import collections
+import concurrent.futures as cf
 import io
+import types
+from typing import Dict, Iterator
 
 import numpy as np
+import torch
+
+from geoguessr_ai_torch.config import NUM_PANORAMA_VIEWS
 
 
 def decode_jpeg(blob: bytes, size: int) -> np.ndarray:
@@ -18,3 +26,126 @@ def decode_jpeg(blob: bytes, size: int) -> np.ndarray:
         if im.size != (size, size):
             im = im.resize((size, size), Image.BILINEAR)
         return np.asarray(im, dtype=np.uint8)
+
+
+def _rows(records) -> list:
+    """Panorama records as objects with ``location_id``, ``lat``, ``lon``
+    and ``images`` attributes: a table's ``itertuples()``, or a sequence of
+    dicts or of such objects."""
+    if hasattr(records, "itertuples"):
+        return list(records.itertuples(index=False))
+    return [types.SimpleNamespace(**r) if isinstance(r, dict) else r
+            for r in records]
+
+
+class PanoramaBatchIterator:
+    """Yields host batches from panorama records.
+
+    Each batch dict:
+      pixel_values: (B, V, size, size, 3) uint8
+      view_mask:    (B, V) float32, 1 for real views, 0 for padding
+      coords:       (B, 2) float32 (lng, lat)
+      location_id:  list[str]
+      num_real:     the true count before the last batch's padding
+    Panoramas with fewer than V views, or with views that fail to fetch or
+    decode, get black views with mask 0.  The final short batch is padded
+    up to batch_size by repeating the last record, or dropped when
+    ``drop_remainder``.
+    """
+
+    def __init__(self, records, batch_size: int, image_size: int,
+                 num_views: int = NUM_PANORAMA_VIEWS, shuffle: bool = False,
+                 seed: int = 0, decode_threads: int = 8,
+                 drop_remainder: bool = False, fetch_fn=None):
+        """fetch_fn maps an entry of a record's ``images`` to JPEG bytes
+        (None: the entries are the bytes)."""
+        self.rows = _rows(records)
+        self.batch_size = batch_size
+        self.image_size = image_size
+        self.num_views = num_views
+        self.shuffle = shuffle
+        self.seed = seed
+        self.decode_threads = decode_threads
+        self.drop_remainder = drop_remainder
+        self.fetch_fn = fetch_fn
+        self._epoch = 0
+
+    def __len__(self) -> int:
+        n = len(self.rows)
+        if self.drop_remainder:
+            return n // self.batch_size
+        return (n + self.batch_size - 1) // self.batch_size
+
+    def _decode_row(self, row):
+        views = np.zeros(
+            (self.num_views, self.image_size, self.image_size, 3), np.uint8)
+        mask = np.zeros((self.num_views,), np.float32)
+        for v, blob in enumerate(row.images[: self.num_views]):
+            if self.fetch_fn is not None:
+                blob = self.fetch_fn(blob)
+            if blob is None:
+                continue  # black placeholder (fetch failed)
+            try:
+                views[v] = decode_jpeg(blob, self.image_size)
+                mask[v] = 1.0
+            except (OSError, ValueError):
+                pass  # undecodable view -> black placeholder, mask 0
+        return views, mask
+
+    def __iter__(self) -> Iterator[Dict[str, np.ndarray]]:
+        order = np.arange(len(self.rows))
+        if self.shuffle:
+            rng = np.random.default_rng(self.seed + self._epoch)
+            rng.shuffle(order)
+        self._epoch += 1
+
+        with cf.ThreadPoolExecutor(self.decode_threads) as pool:
+            for start in range(0, len(order), self.batch_size):
+                idx = order[start: start + self.batch_size]
+                num_real = len(idx)
+                if num_real < self.batch_size:
+                    if self.drop_remainder:
+                        break
+                    idx = np.concatenate(
+                        [idx, np.repeat(idx[-1:], self.batch_size - num_real)])
+                rows = [self.rows[i] for i in idx]
+                decoded = list(pool.map(self._decode_row, rows))
+                yield {
+                    "pixel_values": np.stack([d[0] for d in decoded]),
+                    "view_mask": np.stack([d[1] for d in decoded]),
+                    "coords": np.array([[r.lon, r.lat] for r in rows],
+                                       dtype=np.float32),
+                    "location_id": [r.location_id for r in rows],
+                    "num_real": num_real,
+                }
+
+
+def prefetch_to_device(iterator, device, depth: int = 2):
+    """Keeps the next ``depth`` batches' copies to ``device`` in flight:
+    the pixel, mask and coordinate arrays go to pinned host memory and
+    over with ``non_blocking`` copies on a CUDA device; other entries stay
+    on the host."""
+    device = torch.device(device)
+
+    def transfer(batch):
+        out = dict(batch)
+        for k in ("pixel_values", "view_mask", "coords"):
+            if k in out:
+                t = torch.from_numpy(np.ascontiguousarray(out[k]))
+                if device.type == "cuda":
+                    t = t.pin_memory()
+                out[k] = t.to(device, non_blocking=True)
+        return out
+
+    queue = collections.deque()
+    it = iter(iterator)
+    for batch in it:
+        queue.append(transfer(batch))
+        if len(queue) >= depth:
+            break
+    while queue:
+        batch = queue.popleft()
+        nxt = next(it, None)
+        if nxt is not None:
+            queue.append(transfer(nxt))
+        yield batch

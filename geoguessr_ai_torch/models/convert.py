@@ -1,4 +1,4 @@
-"""Flax variables -> the port's state dict.
+"""Flax variables <-> the port's state dict.
 
 The port's modules carry the flax module names, so the mapping is by
 name; only leaf names and layouts change:
@@ -10,8 +10,10 @@ name; only leaf names and layouts change:
   ``running_var``;
 * ``attention_biases`` stays (H, num_offsets).
 
-Input is ``{"params": ..., "batch_stats": ...}`` as nested dicts of numpy
-arrays; nothing here sees JAX.
+``from_jax_variables`` takes ``{"params": ..., "batch_stats": ...}`` as
+nested dicts of numpy arrays; ``to_jax_variables`` is its inverse, so that
+gradients, updated parameters and running statistics of the port can be
+compared with the JAX tree leaf by leaf.  Nothing here sees JAX.
 """
 
 from __future__ import annotations
@@ -62,4 +64,41 @@ def from_jax_variables(variables) -> Dict[str, torch.Tensor]:
             raise ValueError(f"unknown batch stat {'/'.join(path)}")
         out[".".join(mods + [_STATS[leaf]])] = torch.from_numpy(
             np.ascontiguousarray(value, np.float32))
+    return out
+
+
+def _put(tree, path, value):
+    for k in path[:-1]:
+        tree = tree.setdefault(k, {})
+    tree[path[-1]] = value
+
+
+_STATS_BACK = {v: k for k, v in _STATS.items()}
+
+
+def to_jax_variables(named: Dict[str, torch.Tensor]):
+    """Port state dict (or any name -> tensor dict with its names, such as
+    gradients) -> ``{"params": ..., "batch_stats": ...}`` of f32 numpy
+    arrays in flax layout; ``batch_stats`` only when running statistics are
+    among the names."""
+    params, stats = {}, {}
+    for name, t in named.items():
+        *mods, leaf = name.split(".")
+        value = t.detach().float().cpu().numpy()
+        if leaf in _STATS_BACK:
+            _put(stats, mods + [_STATS_BACK[leaf]], value)
+            continue
+        if leaf == "weight":
+            if value.ndim == 4:
+                value, leaf = value.transpose(2, 3, 1, 0), "kernel"
+            elif value.ndim == 2:
+                value, leaf = value.T, "kernel"
+            else:
+                leaf = "scale"
+        elif leaf not in ("bias", "attention_biases"):
+            raise ValueError(f"unknown parameter {name}")
+        _put(params, mods + [leaf], np.ascontiguousarray(value))
+    out = {"params": params}
+    if stats:
+        out["batch_stats"] = stats
     return out

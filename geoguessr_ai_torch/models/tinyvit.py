@@ -1,4 +1,4 @@
-"""TinyViT eval forward in PyTorch, NHWC like the JAX package.
+"""TinyViT forward (eval and train) in PyTorch, NHWC like the JAX package.
 
 Counterpart of geoguessr_ai_tpu/models/tinyvit.py.  Modules carry the
 flax module names (``patch_embed``, ``stage1_block0.attn.qkv``, ...), so a
@@ -15,6 +15,11 @@ exactly as the JAX ``WindowAttention`` selects them:
 * ``pallas_attention_stages`` and N % 128 == 0: LN and qkv GEMM, K3
   (``window_attention_qkv``), out-projection;
 * otherwise the plain attention.
+
+``train=True`` (the flax ``train`` argument) normalises BatchNorm with
+the batch statistics and updates the running ones, and applies DropPath
+with the caller's ``torch.Generator``.  Training keeps the parameters in
+f32 and casts them per use; ``TinyViT.cast_weights_`` is for serving.
 
 Quantization, remat, scan, the fused MBConv kernel and the 4D fused
 block of the JAX config are not ported; the config has no such fields.
@@ -43,6 +48,8 @@ class TinyViTConfig:
     window_sizes: Tuple[int, ...] = (16, 16, 32, 16)
     mlp_ratio: float = 4.0
     mbconv_expand_ratio: float = 4.0
+    #: stochastic depth at the last block (linear ramp from 0, as timm).
+    drop_path_rate: float = 0.0
     dtype: torch.dtype = torch.bfloat16
     #: tanh-approximated GELU, the JAX default.
     exact_gelu: bool = False
@@ -68,7 +75,10 @@ def _linear(x, lin: nn.Linear, dtype):
 
 
 class _BN(nn.Module):
-    """BatchNorm parameters and running statistics (eval only)."""
+    """flax ``nn.BatchNorm(momentum=0.9, epsilon=1e-5)`` over the channels
+    of an NHWC tensor."""
+
+    MOMENTUM = 0.9
 
     def __init__(self, c: int):
         super().__init__()
@@ -77,11 +87,47 @@ class _BN(nn.Module):
         self.register_buffer("running_mean", torch.zeros(c))
         self.register_buffer("running_var", torch.ones(c))
 
-    def forward(self, x, dtype):
-        """flax BatchNorm from running stats: f32 arithmetic, result in
-        the compute dtype."""
-        mul = torch.rsqrt(self.running_var + 1e-5) * self.weight
-        return ((x.float() - self.running_mean) * mul + self.bias).to(dtype)
+    def forward(self, x, dtype, train: bool = False):
+        """f32 arithmetic, result in the compute dtype.  Eval normalises
+        with the running statistics.  Train normalises with the batch mean
+        and flax's fast variance max(E[x^2] - E[x]^2, 0), both f32 over
+        (N, H, W), and moves the running statistics 0.1 of the way to them
+        (the biased variance, unlike ``F.batch_norm``)."""
+        xf = x.float()
+        if train:
+            dims = tuple(range(x.ndim - 1))
+            mean = xf.mean(dims)
+            var = torch.clamp((xf * xf).mean(dims) - mean * mean, min=0.0)
+            m = self.MOMENTUM
+            with torch.no_grad():
+                self.running_mean.copy_(m * self.running_mean + (1 - m) * mean)
+                self.running_var.copy_(m * self.running_var + (1 - m) * var)
+        else:
+            mean, var = self.running_mean, self.running_var
+        mul = torch.rsqrt(var + 1e-5) * self.weight
+        return ((xf - mean) * mul + self.bias).to(dtype)
+
+
+class DropPath(nn.Module):
+    """Stochastic depth: zeroes a whole sample's residual branch with
+    probability ``rate`` in train mode and scales the kept ones by
+    1 / (1 - rate); the identity otherwise or at rate 0."""
+
+    def __init__(self, rate: float):
+        super().__init__()
+        self.rate = rate
+
+    def forward(self, x, train: bool, generator=None):
+        if self.rate == 0.0 or not train:
+            return x
+        if generator is None:
+            raise ValueError("DropPath in train mode needs a torch.Generator")
+        keep = 1.0 - self.rate
+        shape = (x.shape[0],) + (1,) * (x.ndim - 1)
+        mask = torch.rand(shape, generator=generator,
+                          device=generator.device) < keep
+        return torch.where(mask.to(x.device), x / keep,
+                           torch.zeros((), dtype=x.dtype, device=x.device))
 
 
 class ConvBN(nn.Module):
@@ -93,27 +139,29 @@ class ConvBN(nn.Module):
                               groups=groups, bias=False)
         self.bn = _BN(cout)
 
-    def forward(self, x, dtype):
+    def forward(self, x, dtype, train: bool = False):
         c = self.conv
         y = F.conv2d(x.permute(0, 3, 1, 2), c.weight.to(dtype), None,
                      c.stride, c.padding, c.dilation, c.groups)
-        return self.bn(y.permute(0, 2, 3, 1), dtype)
+        return self.bn(y.permute(0, 2, 3, 1), dtype, train)
 
 
 class MBConv(nn.Module):
-    def __init__(self, dim, expand_ratio, exact_gelu):
+    def __init__(self, dim, expand_ratio, exact_gelu, drop_path=0.0):
         super().__init__()
         hidden = int(dim * expand_ratio)
         self.exact_gelu = exact_gelu
         self.conv1 = ConvBN(dim, hidden, 1)
         self.conv2 = ConvBN(hidden, hidden, 3, groups=hidden)
         self.conv3 = ConvBN(hidden, dim, 1)
+        self.drop_path = DropPath(drop_path)
 
-    def forward(self, x, dtype):
+    def forward(self, x, dtype, train: bool = False, generator=None):
         g = self.exact_gelu
-        y = _gelu(self.conv1(x, dtype), g)
-        y = _gelu(self.conv2(y, dtype), g)
-        return _gelu(x + self.conv3(y, dtype), g)
+        y = _gelu(self.conv1(x, dtype, train), g)
+        y = _gelu(self.conv2(y, dtype, train), g)
+        y = self.drop_path(self.conv3(y, dtype, train), train, generator)
+        return _gelu(x + y, g)
 
 
 class PatchEmbed(nn.Module):
@@ -123,8 +171,9 @@ class PatchEmbed(nn.Module):
         self.conv1 = ConvBN(cin, dim // 2, 3, stride=2)
         self.conv2 = ConvBN(dim // 2, dim, 3, stride=2)
 
-    def forward(self, x, dtype):
-        return self.conv2(_gelu(self.conv1(x, dtype), self.exact_gelu), dtype)
+    def forward(self, x, dtype, train: bool = False, generator=None):
+        x = _gelu(self.conv1(x, dtype, train), self.exact_gelu)
+        return self.conv2(x, dtype, train)
 
 
 class PatchMerging(nn.Module):
@@ -137,11 +186,11 @@ class PatchMerging(nn.Module):
         self.conv2 = ConvBN(cout, cout, 3, stride=2, groups=cout)
         self.conv3 = ConvBN(cout, cout, 1)
 
-    def forward(self, x, dtype):
+    def forward(self, x, dtype, train: bool = False, generator=None):
         g = self.exact_gelu
-        x = _gelu(self.conv1(x, dtype), g)
-        x = _gelu(self.conv2(x, dtype), g)
-        return self.conv3(x, dtype)
+        x = _gelu(self.conv1(x, dtype, train), g)
+        x = _gelu(self.conv2(x, dtype, train), g)
+        return self.conv3(x, dtype, train)
 
 
 def _relative_bias_index(window: int) -> np.ndarray:
@@ -236,15 +285,17 @@ class TinyViTBlock(nn.Module):
     """Window attention -> depthwise local conv -> MLP, all residual."""
 
     def __init__(self, dim, num_heads, window, mlp_ratio, exact_gelu,
-                 use_kernel_qkv, fused_block, fused_block_noproj):
+                 use_kernel_qkv, fused_block, fused_block_noproj,
+                 drop_path=0.0):
         super().__init__()
         self.window = window
         self.attn = WindowAttention(dim, num_heads, window, use_kernel_qkv,
                                     fused_block, fused_block_noproj)
         self.local_conv = ConvBN(dim, dim, 3, groups=dim)
         self.mlp = Mlp(dim, int(dim * mlp_ratio), exact_gelu)
+        self.drop_path = DropPath(drop_path)
 
-    def forward(self, x, dtype):
+    def forward(self, x, dtype, train: bool = False, generator=None):
         B, H, W, C = x.shape
         w = min(self.window, H, W)
         if (H, W) == (w, w):
@@ -256,9 +307,10 @@ class TinyViTBlock(nn.Module):
             win = self.attn(window_partition(xp, w), dtype)
             attn_out = window_unpartition(win, w, (H + pad_h, W + pad_w))
             attn_out = attn_out[:, :H, :W, :]
-        x = self.local_conv(x + attn_out, dtype)
-        mlp_out = self.mlp(x.reshape(B, H * W, C), dtype)
-        return x + mlp_out.reshape(B, H, W, C)
+        x = x + self.drop_path(attn_out, train, generator)
+        x = self.local_conv(x, dtype, train)
+        mlp_out = self.mlp(x.reshape(B, H * W, C), dtype).reshape(B, H, W, C)
+        return x + self.drop_path(mlp_out, train, generator)
 
 
 class TinyViT(nn.Module):
@@ -270,12 +322,14 @@ class TinyViT(nn.Module):
         g = cfg.exact_gelu
         self.patch_embed = PatchEmbed(cfg.in_channels, cfg.embed_dims[0], g)
         self._order = ["patch_embed"]
+        dpr = iter(np.linspace(0.0, cfg.drop_path_rate,
+                               sum(cfg.depths)).tolist())
         for stage, depth in enumerate(cfg.depths):
             dim = cfg.embed_dims[stage]
             for d in range(depth):
                 name = f"stage{stage}_block{d}"
                 if stage == 0:
-                    block = MBConv(dim, cfg.mbconv_expand_ratio, g)
+                    block = MBConv(dim, cfg.mbconv_expand_ratio, g, next(dpr))
                 else:
                     block = TinyViTBlock(
                         dim, cfg.num_heads[stage], cfg.window_sizes[stage],
@@ -284,6 +338,7 @@ class TinyViT(nn.Module):
                         fused_block=stage in cfg.fused_block_stages,
                         fused_block_noproj=(
                             stage in cfg.fused_block_noproj_stages),
+                        drop_path=next(dpr),
                     )
                 self.add_module(name, block)
                 self._order.append(name)
@@ -303,11 +358,14 @@ class TinyViT(nn.Module):
                 m.weight.data = m.weight.data.to(self.config.dtype)
         return self
 
-    def forward(self, pixel_values: torch.Tensor) -> torch.Tensor:
+    def forward(self, pixel_values: torch.Tensor, train: bool = False,
+                generator=None) -> torch.Tensor:
+        """``train``: batch-statistics BatchNorm (updating the running
+        statistics) and DropPath drawn from ``generator``."""
         dtype = self.config.dtype
         x = pixel_values.to(dtype)
         for name in self._order:
-            x = getattr(self, name)(x, dtype)
+            x = getattr(self, name)(x, dtype, train, generator)
         x = x.reshape(x.shape[0], -1, x.shape[-1]).float().mean(dim=1)
         n = self.norm_head
         return F.layer_norm(x, n.normalized_shape, n.weight, n.bias, 1e-5)

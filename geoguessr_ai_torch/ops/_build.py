@@ -4,7 +4,7 @@ Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for Hopper (``sm_90a``)
 into its own shared library with a plain C interface, loaded with
 ``ctypes``.  Libraries are built at first use from the sources in this
 checkout and cached under ``<repo>/build/kernels/`` by a hash of the
-source, the shared header and the flags, so an edited source is rebuilt.
+source, the shared headers and the flags, so an edited source is rebuilt.
 Nothing here runs at import time.
 """
 
@@ -42,6 +42,14 @@ SIGNATURES: Dict[str, tuple] = {
         (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
          _I, _I, _I, _I, _F, _F, _P),
     ),
+    "attention_qkv_bwd": (
+        "attention_qkv_bwd_bf16",
+        (_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _P),
+    ),
+    "attention_bwd_merged": (
+        "attention_bwd_merged_bf16",
+        (_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _P),
+    ),
 }
 
 
@@ -57,7 +65,7 @@ def _nvcc() -> str:
 
 def _target(name: str) -> Path:
     h = hashlib.sha256()
-    for src in (CSRC / f"{name}.cu", CSRC / "common.cuh"):
+    for src in (CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))):
         h.update(src.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"

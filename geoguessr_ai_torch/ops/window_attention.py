@@ -1,19 +1,30 @@
-"""TinyViT window attention: the three ops the guess path runs.
+"""TinyViT window attention: the three ops of the TinyViT forward and
+their backward.
 
-Each op has a plain PyTorch version and a wrapper around a hand-written
-CUDA kernel (``csrc/``), and dispatches on the device of its input: a CPU
-tensor takes the plain version, a CUDA tensor launches the kernel or
-raises.  Signatures and layouts are those of the JAX package
-(geoguessr_ai_tpu/ops/window_attention.py):
+Each op is a ``torch.autograd.Function`` that mirrors the JAX package's
+``custom_vjp`` (geoguessr_ai_tpu/ops/window_attention.py).  Forward and
+backward dispatch on the device of their input: a CPU tensor takes the
+plain PyTorch versions, a CUDA tensor launches the hand-written kernels
+(``csrc/``) or raises.  Signatures and layouts are those of the JAX
+package:
 
 * x is (W, N, C) window tokens;
 * w_qkv is (C, 3D) and its output channels are interleaved per head:
   head h owns [h*3hd, (h+1)*3hd), with q|k|v slots of hd inside;
 * bias is the (H, N, N) additive attention bias.
 
-The kernels take bf16 activations and weights; the bias travels bf16, as
-it does into the Pallas kernels.  Every wrapper adds one to its entry in
-``LAUNCHES`` each time it launches its kernel.
+Kernels:
+
+* K1 ``_fused_block_cuda``, K2 ``_fb_s2_cuda`` and K3
+  ``_attention_qkv_fused_cuda``: the forwards;
+* K4 ``_attention_qkv_bwd_cuda`` and K5 ``_attention_bwd_merged_cuda``:
+  the attention backward, K4 when the all-heads f32 score footprint
+  H * N^2 * 4 is at most 6 MB (stages 1 and 3), else K5 (stage 2).
+
+The kernels take bf16 activations and weights; the bias travels bf16 into
+K1-K4, as it does into the Pallas kernels, and f32 into K5.  Every
+wrapper adds one to its entry in ``LAUNCHES`` each time it launches its
+kernel.
 """
 
 from __future__ import annotations
@@ -25,10 +36,17 @@ LAUNCHES = {
     "_fused_block_cuda": 0,
     "_fb_s2_cuda": 0,
     "_attention_qkv_fused_cuda": 0,
+    "_attention_qkv_bwd_cuda": 0,
+    "_attention_bwd_merged_cuda": 0,
 }
 
 #: The only head dim the kernels are built for (every TinyViT stage).
 KERNEL_HEAD_DIM = 32
+
+#: Largest all-heads f32 score footprint H * N^2 * 4 that takes the
+#: small-N backward (K4); above it the large-N one (K5).  The JAX
+#: package's _BWD_MAX_SCORE_BYTES.
+BWD_MAX_SCORE_BYTES = 6 * 1024 * 1024
 
 
 def reset_launches() -> None:
@@ -84,6 +102,44 @@ def _fb_s2_plain(x, ln_scale, ln_bias, w_qkv, b_qkv, bias, scale,
     """Mirror of ``_fb_s2_xla``."""
     qkv = _ln_qkv_plain(x, ln_scale, ln_bias, w_qkv, b_qkv, eps)
     return _attention_qkv_fused_plain(qkv, bias, scale, num_heads)
+
+
+def _attention_bwd_plain(qkv, bias, g, scale, num_heads):
+    """The attention cotangents of both backward kernels, in f32 from the
+    given bias: p in f32, dv from p rounded to the qkv dtype, dq and dk
+    from ds rounded to it and scaled after the f32 product, d_bias the f32
+    sum of ds over the windows.  Returns (d_qkv in the qkv dtype,
+    interleaved like qkv, and d_bias (H, N, N) f32)."""
+    W, N, D3 = qkv.shape
+    hd = D3 // (3 * num_heads)
+    q, k, v = (t.float() for t in
+               qkv.reshape(W, N, num_heads, 3 * hd).split(hd, dim=-1))
+    gh = g.reshape(W, N, num_heads, hd).float()
+    s = torch.einsum("wnhd,wmhd->whnm", q, k) * scale + bias[None].float()
+    p = torch.softmax(s, dim=-1)
+    del s
+    dp = torch.einsum("wnhd,wmhd->whnm", gh, v)
+    dv = torch.einsum("whnm,wnhd->wmhd", p.to(qkv.dtype).float(), gh)
+    ds = p * (dp - (dp * p).sum(-1, keepdim=True))
+    del p, dp
+    dsv = ds.to(qkv.dtype).float()
+    dq = torch.einsum("whnm,wmhd->wnhd", dsv, k) * scale
+    dk = torch.einsum("whnm,wnhd->wmhd", dsv, q) * scale
+    dqkv = torch.cat([dq, dk, dv], dim=-1).reshape(W, N, D3)
+    return dqkv.to(qkv.dtype), ds.sum(0)
+
+
+def _attention_qkv_bwd_plain(qkv, bias, g, scale, num_heads):
+    """Mirror of ``_qkv_bwd_kernel`` (K4): the bias rounded to the qkv
+    dtype, as ``_attention_qkv_bwd_pallas`` casts it."""
+    return _attention_bwd_plain(qkv, bias.to(qkv.dtype), g, scale, num_heads)
+
+
+def _attention_bwd_merged_plain(qkv, bias, g, scale, num_heads):
+    """Mirror of ``_bwd_tile_math`` over whole rows with the staging of
+    ``_attention_qkv_bwd_large`` (K5): the bias in f32, dq/dk/dv in f32
+    and cast once to the qkv dtype."""
+    return _attention_bwd_plain(qkv, bias.float(), g, scale, num_heads)
 
 
 # ---------------------------------------------------------------------------
@@ -210,16 +266,146 @@ def _fused_block_cuda(x, ln_scale, ln_bias, w_qkv, b_qkv, w_proj, b_proj,
     return out
 
 
+def _attention_bwd_cuda(name, lib, qkv, bias, g, scale, num_heads,
+                        bias_dtype):
+    from geoguessr_ai_torch.ops import _build
+
+    W, N, D3 = qkv.shape
+    D = D3 // 3
+    _check_geometry(W, N, 64, D, num_heads)
+    _check("qkv", qkv, (W, N, D3))
+    _check("g", g, (W, N, D))
+    bias = _check("bias", bias.to(bias_dtype).contiguous(), (num_heads, N, N),
+                  bias_dtype)
+    dqkv = torch.empty_like(qkv)
+    dbias = torch.empty((num_heads, N, N), dtype=torch.float32,
+                        device=qkv.device)
+    # row max, 1 / row sum and t per (window, head, query)
+    stats = torch.empty((3, W, num_heads, N), dtype=torch.float32,
+                        device=qkv.device)
+    fn = _build.entry(lib)
+    err = fn(qkv.data_ptr(), bias.data_ptr(), g.data_ptr(), dqkv.data_ptr(),
+             dbias.data_ptr(), stats.data_ptr(), W, N, num_heads,
+             float(scale), _stream())
+    _raise_on(err, name)
+    LAUNCHES[name] += 1
+    return dqkv, dbias
+
+
+def _attention_qkv_bwd_cuda(qkv, bias, g, scale, num_heads):
+    """K4: (d_qkv bf16, d_bias f32) with the bias rounded to bf16."""
+    return _attention_bwd_cuda("_attention_qkv_bwd_cuda", "attention_qkv_bwd",
+                               qkv, bias, g, scale, num_heads, torch.bfloat16)
+
+
+def _attention_bwd_merged_cuda(qkv, bias, g, scale, num_heads):
+    """K5: (d_qkv bf16, d_bias f32) with the bias in f32."""
+    return _attention_bwd_cuda("_attention_bwd_merged_cuda",
+                               "attention_bwd_merged", qkv, bias, g, scale,
+                               num_heads, torch.float32)
+
+
 # ---------------------------------------------------------------------------
-# Public ops: dispatch on the input's device.
+# Public ops: autograd Functions that dispatch on the input's device.
 # ---------------------------------------------------------------------------
+
+
+def _attention_bwd(qkv, bias, g, scale, num_heads):
+    """The attention cotangent rule (``_qkv_bwd``): K4 or K5 by the score
+    footprint on a CUDA tensor, their plain mirrors on a CPU one.
+    Returns (d_qkv, d_bias f32)."""
+    small = num_heads * qkv.shape[1] ** 2 * 4 <= BWD_MAX_SCORE_BYTES
+    if qkv.is_cuda:
+        fn = _attention_qkv_bwd_cuda if small else _attention_bwd_merged_cuda
+    else:
+        fn = _attention_qkv_bwd_plain if small else _attention_bwd_merged_plain
+    return fn(qkv, bias, g.contiguous(), scale, num_heads)
+
+
+def _grad_inputs(tensors):
+    """Detached copies that require grad, for a recompute in a backward."""
+    return [t.detach().requires_grad_() for t in tensors]
+
+
+class _WindowAttentionQKV(torch.autograd.Function):
+    """``window_attention_qkv``'s custom VJP: saves (qkv, bias) (``_qkv_fwd``)
+    and runs the attention backward, d_bias cast to the bias dtype."""
+
+    @staticmethod
+    def forward(ctx, qkv, bias, scale, num_heads):
+        ctx.save_for_backward(qkv, bias)
+        ctx.args = (scale, num_heads)
+        if qkv.is_cuda:
+            return _attention_qkv_fused_cuda(qkv, bias, scale, num_heads)
+        return _attention_qkv_fused_plain(qkv, bias, scale, num_heads)
+
+    @staticmethod
+    def backward(ctx, g):
+        qkv, bias = ctx.saved_tensors
+        dqkv, dbias = _attention_bwd(qkv, bias, g, *ctx.args)
+        return dqkv, dbias.to(bias.dtype), None, None
+
+
+class _FusedBlockAttention(torch.autograd.Function):
+    """``fused_block_attention``'s custom VJP (``_fb_fwd`` /
+    ``_fb_bwd_vjp``): the backward recomputes LayerNorm and the qkv GEMM,
+    and the attention output through ``window_attention_qkv`` (K3's
+    forward on the card, since the proj weight's gradient needs it), then
+    differentiates the proj, LayerNorm and qkv GEMMs with autograd and the
+    attention with its own backward (K4 on the card)."""
+
+    @staticmethod
+    def forward(ctx, x, ln_scale, ln_bias, w_qkv, b_qkv, w_proj, b_proj, bias,
+                scale, num_heads, eps):
+        args = (x, ln_scale, ln_bias, w_qkv, b_qkv, w_proj, b_proj, bias)
+        ctx.save_for_backward(*args)
+        ctx.args = (scale, num_heads, eps)
+        fn = _fused_block_cuda if x.is_cuda else _fused_block_plain
+        return fn(*args, scale, num_heads, eps)
+
+    @staticmethod
+    def backward(ctx, g):
+        scale, num_heads, eps = ctx.args
+        inputs = _grad_inputs(ctx.saved_tensors)
+        x, ln_scale, ln_bias, w_qkv, b_qkv, w_proj, b_proj, bias = inputs
+        with torch.enable_grad():
+            qkv = _ln_qkv_plain(x, ln_scale, ln_bias, w_qkv, b_qkv, eps)
+            o = _WindowAttentionQKV.apply(qkv, bias, scale, num_heads)
+            out = o @ w_proj.to(x.dtype) + b_proj.to(x.dtype)
+        return (*torch.autograd.grad(out, inputs, g), None, None, None)
+
+
+class _FusedBlockAttentionNoproj(torch.autograd.Function):
+    """``fused_block_attention_noproj``'s custom VJP in the hand-rolled form
+    of ``_fb_s2_bwd``: recompute only LayerNorm and the qkv GEMM, apply
+    the attention cotangent rule (K5 on the card at stage 2) and
+    differentiate the prefix with autograd; the attention output itself
+    is never recomputed."""
+
+    @staticmethod
+    def forward(ctx, x, ln_scale, ln_bias, w_qkv, b_qkv, bias, scale,
+                num_heads, eps):
+        args = (x, ln_scale, ln_bias, w_qkv, b_qkv, bias)
+        ctx.save_for_backward(*args)
+        ctx.args = (scale, num_heads, eps)
+        fn = _fb_s2_cuda if x.is_cuda else _fb_s2_plain
+        return fn(*args, scale, num_heads, eps)
+
+    @staticmethod
+    def backward(ctx, g):
+        scale, num_heads, eps = ctx.args
+        *saved, bias = ctx.saved_tensors
+        inputs = _grad_inputs(saved)
+        with torch.enable_grad():
+            qkv = _ln_qkv_plain(*inputs, eps)
+        dqkv, dbias = _attention_bwd(qkv.detach(), bias, g, scale, num_heads)
+        grads = torch.autograd.grad(qkv, inputs, dqkv)
+        return (*grads, dbias.to(bias.dtype), None, None, None)
 
 
 def window_attention_qkv(qkv, bias, scale: float, num_heads: int):
     """Window attention over a fused (W, N, 3D) qkv tensor -> (W, N, D)."""
-    if qkv.is_cuda:
-        return _attention_qkv_fused_cuda(qkv, bias, scale, num_heads)
-    return _attention_qkv_fused_plain(qkv, bias, scale, num_heads)
+    return _WindowAttentionQKV.apply(qkv, bias, scale, num_heads)
 
 
 def fused_block_attention(x, ln_scale, ln_bias, w_qkv, b_qkv, w_proj, b_proj,
@@ -227,11 +413,9 @@ def fused_block_attention(x, ln_scale, ln_bias, w_qkv, b_qkv, w_proj, b_proj,
                           eps: float = 1e-5):
     """proj(attention(qkv(LN(x)))) + b_proj for independent windows; the
     residual add stays with the caller.  x (W, N, C) -> (W, N, C)."""
-    if x.is_cuda:
-        return _fused_block_cuda(x, ln_scale, ln_bias, w_qkv, b_qkv, w_proj,
-                                 b_proj, bias, scale, num_heads, eps)
-    return _fused_block_plain(x, ln_scale, ln_bias, w_qkv, b_qkv, w_proj,
-                              b_proj, bias, scale, num_heads, eps)
+    return _FusedBlockAttention.apply(x, ln_scale, ln_bias, w_qkv, b_qkv,
+                                      w_proj, b_proj, bias, scale, num_heads,
+                                      eps)
 
 
 def fused_block_attention_noproj(x, ln_scale, ln_bias, w_qkv, b_qkv, bias,
@@ -239,8 +423,6 @@ def fused_block_attention_noproj(x, ln_scale, ln_bias, w_qkv, b_qkv, bias,
                                  eps: float = 1e-5):
     """attention(qkv(LN(x))) for independent windows, before the
     out-projection.  x (W, N, C) -> (W, N, D)."""
-    if x.is_cuda:
-        return _fb_s2_cuda(x, ln_scale, ln_bias, w_qkv, b_qkv, bias, scale,
-                           num_heads, eps)
-    return _fb_s2_plain(x, ln_scale, ln_bias, w_qkv, b_qkv, bias, scale,
-                        num_heads, eps)
+    return _FusedBlockAttentionNoproj.apply(x, ln_scale, ln_bias, w_qkv,
+                                            b_qkv, bias, scale, num_heads,
+                                            eps)

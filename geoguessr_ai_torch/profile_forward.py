@@ -1,11 +1,15 @@
-"""Where the device time of the guess path goes.
+"""Where the device time of the guess path, or of a train step, goes.
 
     python -m geoguessr_ai_torch.profile_forward [--bucket 16] [--steps 5] [--trace PATH]
+    python -m geoguessr_ai_torch.profile_forward --train [--bucket 16] [--steps 3]
 
-Builds the full-width ServingEngine (TinyViT-21M-512 bf16, 12647 cells,
-seeded random weights) on the GPU, serves the fixture panorama at one
-bucket size under ``torch.profiler``, and prints per forward: the host
-wall time, the device's busy time and idle share, and the kernels by
+Builds the full-width model (TinyViT-21M-512 bf16, 12647 cells, seeded
+random weights) on the GPU.  By default it serves the fixture panorama at
+one bucket size through the ServingEngine; with ``--train`` it runs
+``train_step`` on a fixed batch of ``--bucket`` fixture panoramas (f32
+master weights, the default freeze and optimizer).  Under
+``torch.profiler`` it prints per forward or step: the host wall time, the
+device's busy time and idle share, device time by group and the kernels by
 device time.  The last line is the same as one JSON object.  Needs a GPU.
 """
 
@@ -19,12 +23,18 @@ import time
 import numpy as np
 import torch
 
-#: Kernel-name substrings -> the port's layer they belong to.
+#: Kernel-name substrings -> the port's layer they belong to, first match.
 GROUPS = (
     ("window_attention_kernel", "attention (K1/K2/K3 CUDA)"),
     ("ln_gemm_kernel", "LN+GEMM (K1/K2 CUDA)"),
+    ("attn_bwd_", "attention backward (K4/K5 CUDA)"),
     ("conv", "convolution (cuDNN)"),
+    ("cudnn", "convolution (cuDNN)"),
+    ("implicit_gemm", "convolution (cuDNN)"),
+    ("dgrad", "convolution (cuDNN)"),
+    ("wgrad", "convolution (cuDNN)"),
     ("gemm", "GEMM (cuBLAS)"),
+    ("nvjet", "GEMM (cuBLAS)"),  # cuBLAS's own Hopper GEMM kernels
     ("xmma", "GEMM (cuBLAS)"),
     ("cutlass", "GEMM (cuBLAS)"),
 )
@@ -38,33 +48,59 @@ def _group(name: str) -> str:
     return "elementwise, copies and reductions"
 
 
-def main(argv=None) -> None:
-    ap = argparse.ArgumentParser(description=__doc__)
-    ap.add_argument("--bucket", type=int, default=16)
-    ap.add_argument("--steps", type=int, default=5)
-    ap.add_argument("--trace", default=None,
-                    help="also write a Chrome trace to this path")
-    args = ap.parse_args(argv)
-
+def _serve_runner(bucket: int):
     from geoguessr_ai_torch.data.pipeline import decode_jpeg
     from geoguessr_ai_torch.inference import fixture_panorama
     from geoguessr_ai_torch.serving.engine import ServingEngine
 
     engine = ServingEngine(seed=0)  # the GPU; raises without one
-    views = np.stack([decode_jpeg(open(p, "rb").read(), engine.image_size)
-                      for p in fixture_panorama()])
-    batch = np.repeat(views[None], args.bucket, axis=0)
+    views = []
+    for p in fixture_panorama():
+        with open(p, "rb") as f:
+            views.append(decode_jpeg(f.read(), engine.image_size))
+    batch = np.repeat(np.stack(views)[None], bucket, axis=0)
+    return lambda: engine.predict_batch(batch)  # ends with results on the host
+
+
+def _train_runner(bucket: int):
+    from geoguessr_ai_torch.train.fixtures import fixture_train_setup
+    from geoguessr_ai_torch.train.steps import train_step
+
+    state, batch, centroids = fixture_train_setup(bucket)
+
+    def run():
+        train_step(state, batch, centroids)
+        torch.cuda.synchronize()
+
+    return run
+
+
+def main(argv=None) -> None:
+    ap = argparse.ArgumentParser(description=__doc__)
+    ap.add_argument("--bucket", type=int, default=16,
+                    help="panoramas per forward or train step")
+    ap.add_argument("--steps", type=int, default=None,
+                    help="forwards or steps profiled (5, or 3 with --train)")
+    ap.add_argument("--train", action="store_true",
+                    help="profile train_step instead of the guess path")
+    ap.add_argument("--trace", default=None,
+                    help="also write a Chrome trace to this path")
+    args = ap.parse_args(argv)
+    steps = args.steps or (3 if args.train else 5)
+    unit = "step" if args.train else "forward"
+
+    run = (_train_runner if args.train else _serve_runner)(args.bucket)
     for _ in range(2):
-        engine.predict_batch(batch)
+        run()
     torch.cuda.synchronize()
 
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
-        for _ in range(args.steps):
-            engine.predict_batch(batch)  # ends with results on the host
-        wall_ms = (time.perf_counter() - t0) * 1e3 / args.steps
+        for _ in range(steps):
+            run()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / steps
     if args.trace:
         prof.export_chrome_trace(args.trace)
 
@@ -76,26 +112,28 @@ def main(argv=None) -> None:
             k[1] += evt.time_range.elapsed_us()
     if not kernels:
         raise SystemExit("the profiler recorded no device kernels")
-    per_fwd = {n: (c / args.steps, us / args.steps / 1e3)
+    per_run = {n: (c / steps, us / steps / 1e3)
                for n, (c, us) in kernels.items()}
-    busy_ms = sum(ms for _, ms in per_fwd.values())
+    busy_ms = sum(ms for _, ms in per_run.values())
     groups = collections.defaultdict(float)
-    for n, (_, ms) in per_fwd.items():
+    for n, (_, ms) in per_run.items():
         groups[_group(n)] += ms
 
     card = torch.cuda.get_device_name(0)
-    print(f"{card}: bucket {args.bucket}, {args.steps} forwards profiled")
-    print(f"wall_ms_per_forward {wall_ms:.3f}")
-    print(f"device_busy_ms_per_forward {busy_ms:.3f}")
+    what = "train steps" if args.train else "forwards"
+    print(f"{card}: bucket {args.bucket}, {steps} {what} profiled")
+    print(f"wall_ms_per_{unit} {wall_ms:.3f}")
+    print(f"device_busy_ms_per_{unit} {busy_ms:.3f}")
     print(f"device_idle_share {1 - busy_ms / wall_ms:.4f}")
     for g, ms in sorted(groups.items(), key=lambda kv: -kv[1]):
         print(f"  {ms:9.3f} ms  {ms / busy_ms:6.1%}  {g}")
-    print("top kernels per forward (launches, ms):")
-    top = sorted(per_fwd.items(), key=lambda kv: -kv[1][1])[:15]
+    print(f"top kernels per {unit} (launches, ms):")
+    top = sorted(per_run.items(), key=lambda kv: -kv[1][1])[:20]
     for n, (c, ms) in top:
         print(f"  {ms:9.3f} ms  x{c:5.1f}  {n[:110]}")
     print(json.dumps({
-        "device": card, "bucket": args.bucket, "wall_ms": wall_ms,
+        "device": card, "mode": "train" if args.train else "serve",
+        "bucket": args.bucket, "wall_ms": wall_ms,
         "device_busy_ms": busy_ms, "idle_share": 1 - busy_ms / wall_ms,
         "groups_ms": dict(groups),
     }))

@@ -16,7 +16,11 @@ import torch
 from geoguessr_ai_torch import config as C
 from geoguessr_ai_torch.data.pipeline import decode_jpeg
 from geoguessr_ai_torch.geocells.manager import CentroidTable
-from geoguessr_ai_torch.models.super_guessr import SuperGuessr, decode_predictions
+from geoguessr_ai_torch.models.super_guessr import (
+    SuperGuessr,
+    decode_predictions,
+    init_parameters_,
+)
 from geoguessr_ai_torch.models.tinyvit import TinyViT, TinyViTConfig
 from geoguessr_ai_torch.ops.preprocess import fused_preprocess
 
@@ -30,22 +34,6 @@ class InferenceResult:
     top_countries: List[str]
     top_admin1: List[str]
     embedding: np.ndarray
-
-
-def init_parameters_(model: torch.nn.Module, seed: int = 0) -> None:
-    """Seeded random parameters (no weights ship with the repo):
-    conv/linear weights N(0, 1/fan_in), norm scales 1, biases and attention
-    biases small N(0, 0.02^2)."""
-    gen = torch.Generator().manual_seed(seed)
-    with torch.no_grad():
-        for name, p in model.named_parameters():
-            if p.ndim >= 2 and not name.endswith("attention_biases"):
-                fan_in = p[0].numel()
-                p.copy_(torch.randn(p.shape, generator=gen) * fan_in ** -0.5)
-            elif name.endswith("weight"):
-                p.fill_(1.0)
-            else:
-                p.copy_(torch.randn(p.shape, generator=gen) * 0.02)
 
 
 class ServingEngine:

@@ -1,5 +1,5 @@
-"""The port's CUDA kernels and guess path on the card, held against the
-plain PyTorch path.
+"""The port's CUDA kernels, its autograd ops and its guess path on the
+card, held against the plain PyTorch path.
 
 Every test here needs a CUDA GPU and ``nvcc`` and skips without them.  The
 file imports no JAX, so it also runs on a GPU machine that has none;
@@ -23,6 +23,10 @@ FIXTURES = os.path.join(os.path.dirname(os.path.abspath(__file__)),
 #: Kernel vs plain version, both bf16 on the card: max |k - p| / max |p|
 #: (a few bf16 ulps of the output's range; as chip_smoke.py).
 KERNEL_REL_TOL = 2e-2
+#: An op's input gradients through the kernels vs autograd through the
+#: plain version, both bf16 on the card: the plain backward also rounds
+#: dp = g.v and the bf16 GEMM cotangents at other points (as chip_smoke.py).
+GRAD_REL_TOL = 2e-2
 
 #: The narrow TinyViT of tests/test_torch_port_serving.py: hd=32 at every
 #: stage, so K1 (stage 1), K2 (stage 2) and K3 (stage 3) all run.
@@ -85,8 +89,99 @@ def test_cuda_kernel_matches_plain(cuda_device, kernel, W, N, C, H):
     want = plain(*args).float()
     assert got.shape == want.shape and got.dtype == torch.bfloat16
     assert bool(torch.isfinite(got).all())
-    err = (got.float() - want).abs().max() / want.abs().max()
-    assert float(err) < KERNEL_REL_TOL
+    assert _rel_err(got, want) < KERNEL_REL_TOL
+
+
+def _rel_err(got, want):
+    want = want.float()
+    return float((got.float() - want).abs().max() / want.abs().max())
+
+
+def _bwd_inputs(W, N, H, device, seed=0):
+    """qkv and the cotangent g in bf16, an f32 bias: as the train path
+    hands them to the attention backward."""
+    rng = np.random.default_rng(seed)
+    D = H * wa.KERNEL_HEAD_DIM
+
+    def t(*shape, std=1.0):
+        return torch.from_numpy(rng.normal(0, std, shape).astype(np.float32)
+                                ).to(device)
+
+    return t(W, N, 3 * D).bfloat16(), t(H, N, N, std=0.5), t(W, N, D).bfloat16()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["K4", "K5"])
+@pytest.mark.parametrize("W,N,H", [(4, 256, 6), (2, 1024, 12), (3, 128, 2)])
+def test_cuda_backward_kernel_matches_plain(cuda_device, kernel, W, N, H):
+    """K4 and K5 against their plain mirrors: d_qkv and d_bias each within
+    KERNEL_REL_TOL of the mirror's range."""
+    qkv, bias, g = _bwd_inputs(W, N, H, cuda_device)
+    scale = wa.KERNEL_HEAD_DIM ** -0.5
+    if kernel == "K4":
+        kern, plain = wa._attention_qkv_bwd_cuda, wa._attention_qkv_bwd_plain
+        name = "_attention_qkv_bwd_cuda"
+    else:
+        kern = wa._attention_bwd_merged_cuda
+        plain = wa._attention_bwd_merged_plain
+        name = "_attention_bwd_merged_cuda"
+    before = wa.LAUNCHES[name]
+    dqkv, dbias = kern(qkv, bias, g, scale, H)
+    torch.cuda.synchronize()
+    assert wa.LAUNCHES[name] == before + 1
+    want_dqkv, want_dbias = plain(qkv, bias, g, scale, H)
+    assert dqkv.dtype == torch.bfloat16 and dbias.dtype == torch.float32
+    assert bool(torch.isfinite(dqkv).all() and torch.isfinite(dbias).all())
+    assert _rel_err(dqkv, want_dqkv) < KERNEL_REL_TOL
+    assert _rel_err(dbias, want_dbias) < KERNEL_REL_TOL
+
+
+#: op -> (W, N, C, H): stage 1 (K1 and K4), stage 2 (K2 and K5) and stage 3
+#: (K3 and K4) of TinyViT-21M-512, with fewer windows.
+OP_SHAPES = {
+    "fused_block_attention": (16, 256, 192, 6),
+    "fused_block_attention_noproj": (2, 1024, 384, 12),
+    "window_attention_qkv": (4, 256, 576, 18),
+}
+
+
+def _op_args(op, device):
+    W, N, C, H = OP_SHAPES[op]
+    a = _inputs(W, N, C, H, device)
+    if op == "window_attention_qkv":
+        qkv = wa._ln_qkv_plain(a["x"], a["ln_scale"], a["ln_bias"], a["w_qkv"],
+                               a["b_qkv"], 1e-5)
+        args = [qkv, a["bias"]]
+    else:
+        args = [a[k] for k in (_K1_KEYS if op == "fused_block_attention"
+                               else _K2_KEYS)]
+    return [t.detach().requires_grad_() for t in args], (C // H) ** -0.5, H
+
+
+_PLAIN_OPS = {
+    "fused_block_attention": lambda *a: wa._fused_block_plain(*a, 1e-5),
+    "fused_block_attention_noproj": lambda *a: wa._fb_s2_plain(*a, 1e-5),
+    "window_attention_qkv": wa._attention_qkv_fused_plain,
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("op", list(OP_SHAPES))
+def test_cuda_op_gradients_match_plain_autograd(cuda_device, op):
+    """Each op on CUDA tensors that require grad has a grad_fn, and its
+    input gradients (kernels forward and backward) match autograd through
+    the plain version on the same bf16 inputs."""
+    args, scale, H = _op_args(op, cuda_device)
+    out = getattr(wa, op)(*args, scale, H)
+    assert out.grad_fn is not None
+    gen = torch.Generator(device=cuda_device).manual_seed(1)
+    gout = torch.randn(out.shape, generator=gen, device=cuda_device).to(out.dtype)
+    got = torch.autograd.grad(out, args, gout)
+    want = torch.autograd.grad(_PLAIN_OPS[op](*args, scale, H), args, gout)
+    torch.cuda.synchronize()
+    for i, (a, b) in enumerate(zip(got, want)):
+        assert a.shape == b.shape and a.dtype == b.dtype
+        assert _rel_err(a, b) < GRAD_REL_TOL, (i, _rel_err(a, b))
 
 
 @pytest.mark.cuda
@@ -115,7 +210,9 @@ def test_narrow_engine_on_the_card_matches_the_cpu(cuda_device):
     wa.reset_launches()
     got = gpu.predict_images(paths)
     torch.cuda.synchronize()
-    assert all(n == 1 for n in wa.LAUNCHES.values()), wa.LAUNCHES
+    forwards = ("_fused_block_cuda", "_fb_s2_cuda", "_attention_qkv_fused_cuda")
+    assert {k: wa.LAUNCHES[k] for k in forwards} == dict.fromkeys(forwards, 1)
+    assert sum(wa.LAUNCHES.values()) == 3, wa.LAUNCHES
 
     cpu = ServingEngine(device="cpu", seed=1, backbone_config=TinyViTConfig(
         dtype=torch.float32, **NARROW))

@@ -272,9 +272,14 @@ def _port_sources():
 
 
 def test_port_imports_no_jax_flax_or_the_jax_package():
-    banned = ("jax", "flax", "geoguessr_ai_tpu")
+    banned = ("jax", "flax", "optax", "geoguessr_ai_tpu")
     files = _port_sources()
     assert len(files) > 15
+    rel = {os.path.relpath(f, REPO) for f in files}
+    assert {"geoguessr_ai_torch/train/coordinator.py",
+            "geoguessr_ai_torch/train/state.py",
+            "geoguessr_ai_torch/train/steps.py",
+            "geoguessr_ai_torch/utils/logging.py"} <= rel
     for path in files:
         tree = ast.parse(open(path).read(), filename=path)
         for node in ast.walk(tree):
