@@ -34,7 +34,19 @@ Phases, in order; any failure exits non-zero:
 9. one train step of the same weights and batch (B=2) on the card in bf16
    and on the CPU in f32 and in bf16 (the plain path): loss, per-module
    gradient cosines and the updated BatchNorm running statistics;
-10. print the kernel JSON line, then ``{"ok": true, "device": ...}`` last.
+10. hold the CLIP attention kernels (K6, K11) against their plain versions
+    in bf16 at the shapes the CLIP ViT-L/14-336 serving path gives them at
+    bucket 16 and at ViT-B/32's N=50, and time kernel, plain version,
+    SDPA and the bound;
+11. build the full-width CLIP ViT-L/14-336 ServingEngine (12647 cells,
+    seeded random weights) on the card, serve the fixture panorama and 32
+    concurrent MicroBatcher requests with every launch counter set to 0
+    first: K6 exactly 24 launches per forward and no other kernel; print
+    latency and panos/s; then the same weights with ``pallas_fuse_proj``:
+    K11 exactly 24 per forward, its embedding against the K6 engine's;
+12. serve the fixture panorama through the same CLIP weights on the CPU in
+    f32 (the plain path) and compare embedding and top-1 cell;
+13. print the kernel JSON line, then ``{"ok": true, "device": ...}`` last.
 """
 
 from __future__ import annotations
@@ -378,6 +390,12 @@ def phase_serve():
 # ---------------------------------------------------------------------------
 
 
+def _view_cosines(a, b):
+    a, b = a.astype(np.float64), b.astype(np.float64)
+    return (a * b).sum(-1) / (np.linalg.norm(a, axis=-1)
+                              * np.linalg.norm(b, axis=-1))
+
+
 def phase_cpu_reference(paths, gpu_result):
     from geoguessr_ai_torch.models.tinyvit import TinyViTConfig
     from geoguessr_ai_torch.serving.engine import ServingEngine
@@ -385,10 +403,7 @@ def phase_cpu_reference(paths, gpu_result):
     cpu = ServingEngine(device="cpu", seed=SEED,
                         backbone_config=TinyViTConfig(dtype=torch.float32))
     ref = cpu.predict_images(paths)
-    a = gpu_result.embedding.astype(np.float64)
-    b = ref.embedding.astype(np.float64)
-    cos = (a * b).sum(-1) / (np.linalg.norm(a, axis=-1)
-                             * np.linalg.norm(b, axis=-1))
+    cos = _view_cosines(gpu_result.embedding, ref.embedding)
     log(f"cpu f32 vs gpu bf16: min view cosine {cos.min():.6f} "
         f"(>= {MIN_COSINE}), top-1 cell cpu {ref.top_ids[0]} "
         f"gpu {gpu_result.top_ids[0]}, lat/lon cpu {ref.lat:.4f},"
@@ -805,7 +820,235 @@ def phase_train_vs_cpu():
 
 
 # ---------------------------------------------------------------------------
-# Phase 10: the kernels line
+# Phase 10: the CLIP attention kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+#: (kernel, label, B, N, D, H): CLIP ViT-L/14-336 at serving bucket 16 (64
+#: images) and ViT-B/32's N=50 (one partial tile); hd=64.
+CLIP_CASES = (
+    ("K6", "vit_l14_bucket16", 64, 577, 1024, 16),
+    ("K6", "vit_b32", 64, 50, 768, 12),
+    ("K11", "vit_l14_bucket16", 64, 577, 1024, 16),
+    ("K11", "vit_b32", 64, 50, 768, 12),
+)
+CLIP_META = {
+    "K6": ("_flash_cuda", "geoguessr_ai_torch/ops/csrc/clip_flash.cu",
+           "geoguessr_ai_tpu/ops/clip_attention.py:134"),
+    "K11": ("_flash_proj_cuda",
+            "geoguessr_ai_torch/ops/csrc/clip_flash_proj.cu",
+            "geoguessr_ai_tpu/ops/clip_attention.py:247"),
+}
+
+
+def _clip_bound_ms(kernel, B, N, D, H):
+    """4 B H N^2 hd attention flops (+ 2 B N D^2 for K11's projection);
+    bytes: qkv read once, the output written once (+ K11's weight)."""
+    flops = 4.0 * B * H * N * N * (D // H)
+    nbytes = B * N * 3 * D * 2 + B * N * D * 2
+    if kernel == "K11":
+        flops += 2.0 * B * N * D * D
+        nbytes += D * D * 2
+    t_bytes = nbytes / PEAK_BYTES_S * 1e3
+    t_ops = flops / PEAK_BF16_FLOP_S * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def phase_clip_kernels():
+    import torch.nn.functional as F
+
+    from geoguessr_ai_torch.ops import clip_attention as ca
+
+    rows = {}
+    gen = torch.Generator().manual_seed(SEED + 3)
+    for kernel, label, B, N, D, H in CLIP_CASES:
+        hd = D // H
+        scale = hd ** -0.5
+        qkv = torch.randn(B, N, 3 * D, generator=gen).to("cuda", torch.bfloat16)
+        w = (torch.randn(D, D, generator=gen) * D ** -0.5).to(
+            "cuda", torch.bfloat16)
+        if kernel == "K6":
+            args = (qkv, scale, H)
+            kern, plain = ca._flash_cuda, ca._flash_plain
+        else:
+            args = (qkv, w, scale, H)
+            kern, plain = ca._flash_proj_cuda, ca._flash_proj_plain
+        got = kern(*args)
+        torch.cuda.synchronize()
+        want = plain(*args)
+        torch.cuda.synchronize()
+        if got.shape != want.shape:
+            fail(f"{kernel} {label}: shape {tuple(got.shape)} != "
+                 f"{tuple(want.shape)}")
+        max_abs, rel = _rel_err(got, want)
+        finite = bool(torch.isfinite(got).all())
+        del got, want
+        ms = cuda_time_ms(lambda: kern(*args))
+        plain_ms = cuda_time_ms(lambda: plain(*args), iters=3)
+        # SDPA on the same q, k, v (head-major copies made outside the
+        # timing); the yardstick only, the port never calls it
+        q, k, v = (t.contiguous() for t in
+                   qkv.view(B, N, 3, H, hd).permute(2, 0, 3, 1, 4))
+        sdpa_ms = cuda_time_ms(
+            lambda: F.scaled_dot_product_attention(q, k, v, scale=scale))
+        o = F.scaled_dot_product_attention(q, k, v, scale=scale).transpose(
+            1, 2).reshape(B, N, D)
+        sdpa_mm_ms = sdpa_ms + cuda_time_ms(lambda: o @ w)
+        bound, bound_by = _clip_bound_ms(kernel, B, N, D, H)
+        log(f"{kernel} {label} B={B} N={N} D={D} H={H} hd={hd}")
+        log(f"  max_abs_err {max_abs:.6g}")
+        log(f"  max_rel_err {rel:.6g} (tolerance {KERNEL_REL_TOL})")
+        log(f"  kernel_ms {ms:.4f}")
+        log(f"  plain_ms {plain_ms:.4f}")
+        if kernel == "K6":
+            log(f"  library_ms {sdpa_ms:.4f} (scaled_dot_product_attention "
+                "on the same q, k, v)")
+        else:
+            log(f"  library_ms null [SDPA + matmul {sdpa_mm_ms:.4f}]")
+        log(f"  bound_ms {bound:.4f} ({bound_by})")
+        if not (finite and rel <= KERNEL_REL_TOL):
+            fail(f"{kernel} {label}: kernel disagrees with its plain version "
+                 f"(rel {rel:.3g}, finite {finite})")
+        rows[(kernel, label)] = dict(
+            max_abs_err=max_abs, ms=ms, plain_ms=plain_ms, sdpa_ms=sdpa_ms,
+            sdpa_mm_ms=sdpa_mm_ms, bound_ms=bound, bound_by=bound_by)
+        del qkv, w, args, q, k, v, o
+        torch.cuda.empty_cache()
+    ca.reset_launches()
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# Phase 11: the CLIP guess path on the card
+# ---------------------------------------------------------------------------
+
+#: Kernel launches of one CLIP ViT-L/14-336 forward: one per encoder layer.
+CLIP_LAUNCHES_PER_FORWARD = 24
+
+
+def _clip_serve_launches(engine, paths, views, burst):
+    """Serves the fixture panorama (and with ``burst`` NUM_REQUESTS
+    concurrent MicroBatcher requests) with every counter set to 0 first.
+    Returns (fixture result, forwards, CLIP launches, TinyViT launches)."""
+    from geoguessr_ai_torch.ops import clip_attention as ca
+    from geoguessr_ai_torch.ops import window_attention as wa
+    from geoguessr_ai_torch.serving.engine import MicroBatcher
+
+    batcher = MicroBatcher(engine)
+    if burst:
+        batcher.warmup()
+    torch.cuda.synchronize()
+    ca.reset_launches()
+    wa.reset_launches()
+    result = engine.predict_images(paths)
+    served = []
+    if burst:
+        rng = np.random.default_rng(SEED)
+        requests = [views[rng.permutation(4)] for _ in range(NUM_REQUESTS)]
+        t0 = time.perf_counter()
+        with cf.ThreadPoolExecutor(NUM_REQUESTS) as pool:
+            served = list(pool.map(batcher.predict, requests))
+        log(f"served {len(served)} concurrent requests in "
+            f"{time.perf_counter() - t0:.3f} s, batches by bucket "
+            f"{batcher.batch_sizes}")
+    torch.cuda.synchronize()
+    for r in [result] + served:
+        if not (np.isfinite(r.embedding).all() and np.isfinite(r.lat)
+                and np.isfinite(r.lon) and np.isfinite(r.top_probs).all()):
+            fail("non-finite output from the CLIP guess path")
+        if r.embedding.shape != (4, engine.config.embed_dim):
+            fail(f"CLIP embedding shape {r.embedding.shape}")
+    forwards = 1 + sum(batcher.batch_sizes.values())
+    return result, forwards, dict(ca.LAUNCHES), dict(wa.LAUNCHES)
+
+
+def _check_clip_launches(label, forwards, clip, tinyvit, kernel):
+    want = {name: 0 for name, _, _ in CLIP_META.values()}
+    want[CLIP_META[kernel][0]] = CLIP_LAUNCHES_PER_FORWARD * forwards
+    log(f"{label}: launches {clip} over {forwards} forwards (expected "
+        f"{want}: {CLIP_LAUNCHES_PER_FORWARD} {kernel} per forward); "
+        f"TinyViT kernels {sum(tinyvit.values())}")
+    if clip != want:
+        fail(f"{label}: CLIP kernel launches {clip}, expected {want}")
+    if any(tinyvit.values()):
+        fail(f"{label}: a TinyViT kernel ran on the CLIP path: {tinyvit}")
+
+
+def phase_clip_serve():
+    from geoguessr_ai_torch.models.clip_vit import CLIPVisionConfig
+    from geoguessr_ai_torch.serving.engine import ServingEngine
+
+    t0 = time.perf_counter()
+    engine = ServingEngine(backbone="clip", seed=SEED)  # the GPU
+    log(f"engine_build_seconds {time.perf_counter() - t0:.2f} (CLIP "
+        f"ViT-L/14-336 bf16, {engine.table.num_cells} cells)")
+    paths, views = _fixture_views(engine)
+    result, forwards, clip, tinyvit = _clip_serve_launches(
+        engine, paths, views, burst=True)
+    log(f"served fixture panorama (CLIP): lat {result.lat:.6f} lon "
+        f"{result.lon:.6f} top {result.top_ids}")
+    _check_clip_launches("CLIP K6 engine", forwards, clip, tinyvit, "K6")
+    launches = {"K6": clip[CLIP_META["K6"][0]]}
+    for bucket in (1, 16):
+        batch = np.repeat(views[None], bucket, axis=0)
+        p50 = _p50_ms(lambda: engine.predict_batch(batch), reps=10)
+        log(f"CLIP bucket {bucket}: p50 {p50:.2f} ms, "
+            f"{bucket / p50 * 1e3:.2f} panos/s")
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    fused = ServingEngine(backbone="clip", seed=SEED,
+                          backbone_config=CLIPVisionConfig.vit_l_14_336(
+                              pallas_fuse_proj=True))
+    fres, forwards, clip, tinyvit = _clip_serve_launches(
+        fused, paths, views, burst=False)
+    _check_clip_launches("CLIP K11 engine (pallas_fuse_proj)", forwards,
+                         clip, tinyvit, "K11")
+    launches["K11"] = clip[CLIP_META["K11"][0]]
+    cos = _view_cosines(fres.embedding, result.embedding)
+    log(f"CLIP K11 engine vs K6 engine: min view cosine {cos.min():.6f} "
+        f"(>= {MIN_COSINE}), top-1 cell {fres.top_ids[0]} / "
+        f"{result.top_ids[0]}")
+    if cos.min() < MIN_COSINE or fres.top_ids[0] != result.top_ids[0]:
+        fail("the pallas_fuse_proj engine disagrees with the K6 engine")
+    batch = np.repeat(views[None], 16, axis=0)
+    p50 = _p50_ms(lambda: fused.predict_batch(batch), reps=10)
+    log(f"CLIP pallas_fuse_proj bucket 16: p50 {p50:.2f} ms, "
+        f"{16 / p50 * 1e3:.2f} panos/s")
+    del fused
+    gc.collect()
+    torch.cuda.empty_cache()
+    return paths, result, launches
+
+
+# ---------------------------------------------------------------------------
+# Phase 12: the same CLIP weights on the CPU in f32 (the plain path)
+# ---------------------------------------------------------------------------
+
+
+def phase_clip_cpu_reference(paths, gpu_result):
+    from geoguessr_ai_torch.models.clip_vit import CLIPVisionConfig
+    from geoguessr_ai_torch.serving.engine import ServingEngine
+
+    t0 = time.perf_counter()
+    cpu = ServingEngine(backbone="clip", device="cpu", seed=SEED,
+                        backbone_config=CLIPVisionConfig.vit_l_14_336(
+                            dtype=torch.float32))
+    ref = cpu.predict_images(paths)
+    cos = _view_cosines(gpu_result.embedding, ref.embedding)
+    log(f"CLIP cpu f32 vs gpu bf16: min view cosine {cos.min():.6f} "
+        f"(>= {MIN_COSINE}; views {', '.join(f'{c:.6f}' for c in cos)}), "
+        f"top-1 cell cpu {ref.top_ids[0]} gpu {gpu_result.top_ids[0]}, "
+        f"lat/lon cpu {ref.lat:.4f},{ref.lon:.4f} gpu {gpu_result.lat:.4f},"
+        f"{gpu_result.lon:.4f} ({time.perf_counter() - t0:.1f} s)")
+    if cos.min() < MIN_COSINE:
+        fail(f"CLIP embedding cosine {cos.min():.6f} < {MIN_COSINE}")
+    if ref.top_ids[0] != gpu_result.top_ids[0]:
+        fail("CLIP top-1 cell differs between the CPU and the GPU")
+
+
+# ---------------------------------------------------------------------------
+# Phase 13: the kernels line
 # ---------------------------------------------------------------------------
 
 
@@ -821,6 +1064,11 @@ def main():
     phase_op_gradients()
     train_launches = phase_train()
     phase_train_vs_cpu()
+    gc.collect()
+    torch.cuda.empty_cache()
+    clip_rows = phase_clip_kernels()
+    clip_paths, clip_result, clip_launches = phase_clip_serve()
+    phase_clip_cpu_reference(clip_paths, clip_result)
 
     main_case = {"K1": "stage1", "K2": "stage2", "K3": "stage3",
                  "K4": "stage1", "K5": "stage2"}
@@ -845,6 +1093,21 @@ def main():
             entry["sdpa_attention_ms"] = row["sdpa_ms"]
         if k in BWD_META:
             entry["max_abs_err_dbias"] = row["max_abs_err_dbias"]
+        kernels.append(entry)
+    for k, (name, source, replaces) in CLIP_META.items():
+        row = clip_rows[(k, "vit_l14_bucket16")]
+        entry = {
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": clip_launches[k],
+            "max_abs_err": row["max_abs_err"], "ms": row["ms"],
+            "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"],
+            # SDPA computes K6's function; K11 adds the out-projection
+            "library_ms": row["sdpa_ms"] if k == "K6" else None,
+            "vit_b32_ms": clip_rows[(k, "vit_b32")]["ms"],
+        }
+        if k == "K11":
+            entry["sdpa_matmul_ms"] = row["sdpa_mm_ms"]
         kernels.append(entry)
     log(card)
     log(json.dumps({"kernels": kernels}))

@@ -21,6 +21,13 @@ TINYVIT_IMAGE_SIZE = 512
 TINYVIT_NORM_MEAN = (0.485, 0.456, 0.406)  # ImageNet stats (timm data cfg)
 TINYVIT_NORM_STD = (0.229, 0.224, 0.225)
 
+#: CLIP ViT-L/14-336, the reference's own embedder (its HF id is
+#: "openai/clip-vit-large-patch14-336"; no weights ship with the repo).
+CLIP_EMBED_DIM = 1024
+CLIP_IMAGE_SIZE = 336
+CLIP_NORM_MEAN = (0.48145466, 0.4578275, 0.40821073)
+CLIP_NORM_STD = (0.26862954, 0.26130258, 0.27577711)
+
 #: Panorama views per location (4 headings).
 NUM_PANORAMA_VIEWS = 4
 
@@ -73,7 +80,8 @@ class MeshConfig:
 
 @dataclasses.dataclass(frozen=True)
 class BackboneConfig:
-    """Which vision tower feeds SuperGuessr (only "tinyvit" is ported)."""
+    """Which vision tower feeds SuperGuessr: "tinyvit" (serve and train),
+    "clip" or "clip_b32" (serve only)."""
 
     name: str = "tinyvit"  # "tinyvit" | "clip" | "none" (raw embeddings)
     image_size: int = TINYVIT_IMAGE_SIZE
@@ -84,6 +92,21 @@ class BackboneConfig:
     dtype: str = "bfloat16"  # compute dtype
     #: QAT int8 activation storage in the train step (not ported).
     qat_storage: bool = False
+
+    @staticmethod
+    def tinyvit() -> "BackboneConfig":
+        return BackboneConfig(name="tinyvit", image_size=TINYVIT_IMAGE_SIZE,
+                              embed_dim=TINYVIT_EMBED_DIM)
+
+    @staticmethod
+    def clip() -> "BackboneConfig":
+        return BackboneConfig(name="clip", image_size=CLIP_IMAGE_SIZE,
+                              embed_dim=CLIP_EMBED_DIM)
+
+    @staticmethod
+    def clip_b32() -> "BackboneConfig":
+        """CLIP ViT-B/32 at 224 px (batch embedding extraction)."""
+        return BackboneConfig(name="clip_b32", image_size=224, embed_dim=768)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -1,7 +1,7 @@
 """Guess the location of a street-view panorama with the PyTorch port.
 
     python -m geoguessr_ai_torch.inference [1 or 4 images] [--use-refiner]
-        [--centroid-table PATH] [--device cuda|cpu]
+        [--backbone tinyvit|clip] [--centroid-table PATH] [--device cuda|cpu]
 
 With no images it uses the bundled fixture panorama
 (tests/fixtures/heading=*.jpg).  Weights are seeded random until
@@ -68,7 +68,8 @@ def fixture_panorama() -> List[str]:
 def main(argv: Optional[Sequence[str]] = None) -> None:
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("images", nargs="*", help="1 or 4 image paths")
-    ap.add_argument("--backbone", default="tinyvit", choices=("tinyvit",))
+    ap.add_argument("--backbone", default="tinyvit",
+                    choices=("tinyvit", "clip"))
     ap.add_argument("--centroid-table", default=None)
     ap.add_argument("--use-refiner", action="store_true")
     ap.add_argument("--device", default=None,

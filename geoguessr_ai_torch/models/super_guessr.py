@@ -1,5 +1,6 @@
-"""SuperGuessr: geocell classification head over the TinyViT backbone,
-and its losses (counterpart of geoguessr_ai_tpu/models/super_guessr.py)."""
+"""SuperGuessr: geocell classification head over a vision backbone
+(TinyViT or the CLIP tower), and its losses (counterpart of
+geoguessr_ai_tpu/models/super_guessr.py)."""
 
 from __future__ import annotations
 
@@ -16,11 +17,15 @@ from geoguessr_ai_torch.models.outputs import TopK
 def init_parameters_(model: torch.nn.Module, seed: int = 0) -> None:
     """Seeded random parameters (no weights ship with the repo):
     conv/linear weights N(0, 1/fan_in), norm scales 1, biases and attention
-    biases small N(0, 0.02^2)."""
+    biases small N(0, 0.02^2).  CLIP's ``class_embedding`` and
+    ``position_embedding`` draw from N(0, 0.02^2), flax's
+    ``normal(0.02)`` initialiser for them."""
     gen = torch.Generator().manual_seed(seed)
     with torch.no_grad():
         for name, p in model.named_parameters():
-            if p.ndim >= 2 and not name.endswith("attention_biases"):
+            if name.endswith(("class_embedding", "position_embedding")):
+                p.copy_(torch.randn(p.shape, generator=gen) * 0.02)
+            elif p.ndim >= 2 and not name.endswith("attention_biases"):
                 fan_in = p[0].numel()
                 p.copy_(torch.randn(p.shape, generator=gen) * fan_in ** -0.5)
             elif name.endswith("weight"):

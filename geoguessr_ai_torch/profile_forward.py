@@ -1,11 +1,13 @@
 """Where the device time of the guess path, or of a train step, goes.
 
     python -m geoguessr_ai_torch.profile_forward [--bucket 16] [--steps 5] [--trace PATH]
+    python -m geoguessr_ai_torch.profile_forward --backbone clip [--bucket 16]
     python -m geoguessr_ai_torch.profile_forward --train [--bucket 16] [--steps 3]
 
-Builds the full-width model (TinyViT-21M-512 bf16, 12647 cells, seeded
-random weights) on the GPU.  By default it serves the fixture panorama at
-one bucket size through the ServingEngine; with ``--train`` it runs
+Builds the full-width model (TinyViT-21M-512, or CLIP ViT-L/14-336 with
+``--backbone clip``; bf16, 12647 cells, seeded random weights) on the GPU.
+By default it serves the fixture panorama at one bucket size through the
+ServingEngine; with ``--train`` (TinyViT only) it runs
 ``train_step`` on a fixed batch of ``--bucket`` fixture panoramas (f32
 master weights, the default freeze and optimizer).  Under
 ``torch.profiler`` it prints per forward or step: the host wall time, the
@@ -28,6 +30,7 @@ GROUPS = (
     ("window_attention_kernel", "attention (K1/K2/K3 CUDA)"),
     ("ln_gemm_kernel", "LN+GEMM (K1/K2 CUDA)"),
     ("attn_bwd_", "attention backward (K4/K5 CUDA)"),
+    ("clip_flash", "CLIP attention (K6/K11 CUDA)"),
     ("conv", "convolution (cuDNN)"),
     ("cudnn", "convolution (cuDNN)"),
     ("implicit_gemm", "convolution (cuDNN)"),
@@ -48,12 +51,13 @@ def _group(name: str) -> str:
     return "elementwise, copies and reductions"
 
 
-def _serve_runner(bucket: int):
+def _serve_runner(bucket: int, backbone: str):
     from geoguessr_ai_torch.data.pipeline import decode_jpeg
     from geoguessr_ai_torch.inference import fixture_panorama
     from geoguessr_ai_torch.serving.engine import ServingEngine
 
-    engine = ServingEngine(seed=0)  # the GPU; raises without one
+    # the GPU; raises without one
+    engine = ServingEngine(backbone=backbone, seed=0)
     views = []
     for p in fixture_panorama():
         with open(p, "rb") as f:
@@ -81,6 +85,9 @@ def main(argv=None) -> None:
                     help="panoramas per forward or train step")
     ap.add_argument("--steps", type=int, default=None,
                     help="forwards or steps profiled (5, or 3 with --train)")
+    ap.add_argument("--backbone", default="tinyvit",
+                    choices=("tinyvit", "clip"),
+                    help="the served backbone (--train: tinyvit only)")
     ap.add_argument("--train", action="store_true",
                     help="profile train_step instead of the guess path")
     ap.add_argument("--trace", default=None,
@@ -89,7 +96,10 @@ def main(argv=None) -> None:
     steps = args.steps or (3 if args.train else 5)
     unit = "step" if args.train else "forward"
 
-    run = (_train_runner if args.train else _serve_runner)(args.bucket)
+    if args.train and args.backbone != "tinyvit":
+        ap.error("--train profiles the TinyViT train step only")
+    run = (_train_runner(args.bucket) if args.train
+           else _serve_runner(args.bucket, args.backbone))
     for _ in range(2):
         run()
     torch.cuda.synchronize()
@@ -121,7 +131,8 @@ def main(argv=None) -> None:
 
     card = torch.cuda.get_device_name(0)
     what = "train steps" if args.train else "forwards"
-    print(f"{card}: bucket {args.bucket}, {steps} {what} profiled")
+    print(f"{card}: {args.backbone}, bucket {args.bucket}, {steps} {what} "
+          "profiled")
     print(f"wall_ms_per_{unit} {wall_ms:.3f}")
     print(f"device_busy_ms_per_{unit} {busy_ms:.3f}")
     print(f"device_idle_share {1 - busy_ms / wall_ms:.4f}")
@@ -133,6 +144,7 @@ def main(argv=None) -> None:
         print(f"  {ms:9.3f} ms  x{c:5.1f}  {n[:110]}")
     print(json.dumps({
         "device": card, "mode": "train" if args.train else "serve",
+        "backbone": args.backbone,
         "bucket": args.bucket, "wall_ms": wall_ms,
         "device_busy_ms": busy_ms, "idle_share": 1 - busy_ms / wall_ms,
         "groups_ms": dict(groups),

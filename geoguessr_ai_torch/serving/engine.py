@@ -8,21 +8,24 @@ import dataclasses
 import queue
 import threading
 import time
-from typing import Dict, List, Optional, Sequence
+from typing import Dict, List, Optional, Sequence, Union
 
 import numpy as np
 import torch
 
 from geoguessr_ai_torch import config as C
+from geoguessr_ai_torch.config import BackboneConfig
 from geoguessr_ai_torch.data.pipeline import decode_jpeg
 from geoguessr_ai_torch.geocells.manager import CentroidTable
+from geoguessr_ai_torch.models.clip_vit import CLIPVisionConfig
 from geoguessr_ai_torch.models.super_guessr import (
     SuperGuessr,
     decode_predictions,
     init_parameters_,
 )
-from geoguessr_ai_torch.models.tinyvit import TinyViT, TinyViTConfig
+from geoguessr_ai_torch.models.tinyvit import TinyViTConfig
 from geoguessr_ai_torch.ops.preprocess import fused_preprocess
+from geoguessr_ai_torch.train.coordinator import build_backbone
 
 
 @dataclasses.dataclass
@@ -40,12 +43,14 @@ class ServingEngine:
     """Holds the model and the centroid table; serves panorama batches.
 
     Args:
-      backbone: only "tinyvit" is ported.
+      backbone: "tinyvit" (TinyViT-21M-512) or "clip" (CLIP ViT-L/14-336,
+        the mean-token embedding).
       centroid_table: defaults to the repo's table (12647 cells).
       device: None means "cuda"; raises when no GPU is present.
       state_dict: SuperGuessr weights (e.g. from models.convert); seeded
         random weights when None.
-      backbone_config: TinyViT config (default TinyViT-21M-512, bf16).
+      backbone_config: replaces the backbone's preset: a TinyViTConfig, or
+        a CLIPVisionConfig for "clip" (bf16 by default).
       seed: seed of the random weights.
     """
 
@@ -57,22 +62,32 @@ class ServingEngine:
         hierarchical: bool = False,
         device=None,
         state_dict: Optional[Dict[str, torch.Tensor]] = None,
-        backbone_config: Optional[TinyViTConfig] = None,
+        backbone_config: Optional[Union[TinyViTConfig,
+                                        CLIPVisionConfig]] = None,
         seed: int = 0,
     ):
-        if backbone != "tinyvit":
-            raise NotImplementedError(
-                f"backbone {backbone!r} is not ported; only 'tinyvit' is")
+        presets = {"tinyvit": (BackboneConfig.tinyvit(), TinyViTConfig),
+                   "clip": (BackboneConfig.clip(), CLIPVisionConfig)}
+        if backbone not in presets:
+            raise ValueError(f"unknown backbone {backbone!r}; the engine "
+                             f"serves {sorted(presets)}")
+        bb_cfg, cfg_type = presets[backbone]
+        if backbone_config is not None and not isinstance(backbone_config,
+                                                          cfg_type):
+            raise ValueError(f"backbone {backbone!r} takes a "
+                             f"{cfg_type.__name__}, got "
+                             f"{type(backbone_config).__name__}")
         self.device = C.resolve_device(device)
         self.table = centroid_table or CentroidTable.load(
             C.CENTROID_TABLE_PATH)
-        cfg = backbone_config or TinyViTConfig.tiny_vit_21m_512()
-        self.config = cfg
-        self.image_size = cfg.image_size
-        self.norm = (C.TINYVIT_NORM_MEAN, C.TINYVIT_NORM_STD)
+        bb, mean, std, self.image_size = build_backbone(bb_cfg,
+                                                        backbone_config)
+        self.config = bb.config
+        self.norm = (mean, std)
         self.num_candidates = min(num_candidates, self.table.num_cells)
-        model = SuperGuessr(self.table.num_cells, TinyViT(cfg),
-                            embed_dim=cfg.embed_dim, hierarchical=hierarchical)
+        model = SuperGuessr(self.table.num_cells, bb,
+                            embed_dim=self.config.embed_dim,
+                            hierarchical=hierarchical)
         if state_dict is None:
             init_parameters_(model, seed)
         else:

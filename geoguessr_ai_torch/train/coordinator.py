@@ -3,11 +3,16 @@
 records on one device, with periodic validation, early stopping and a
 returned summary.
 
+``build_backbone`` also builds the CLIP towers ("clip": ViT-L/14-336,
+"clip_b32": ViT-B/32-224) that the serving engine runs.
+
 Not ported yet, and raising ``NotImplementedError`` when asked for:
 checkpoints (``checkpoint_dir``, ``resume_path``: orbax directories become
 torch files later, ROADMAP Queue 1 item 8), QAT activation storage
-(``qat_storage``, item 8), the CLIP and embedding-only backbones (item 9),
-hierarchical view fusion and a mesh of more than one device (item 11).
+(``qat_storage``, item 8), training a CLIP backbone (its freeze rule keeps
+``layer{max}`` and ``post_layernorm`` trainable; item 9), the
+embedding-only backbone, hierarchical view fusion and a mesh of more than
+one device (item 11).
 The SQLite and object-store entry points (``main``, ``main_streaming``)
 wait for the port of the data modules they read.
 """
@@ -27,6 +32,7 @@ from geoguessr_ai_torch.data.pipeline import (
     prefetch_to_device,
 )
 from geoguessr_ai_torch.geocells.manager import CentroidTable
+from geoguessr_ai_torch.models.clip_vit import CLIPEmbed, CLIPVisionConfig
 from geoguessr_ai_torch.models.super_guessr import SuperGuessr, init_parameters_
 from geoguessr_ai_torch.models.tinyvit import TinyViT, TinyViTConfig
 from geoguessr_ai_torch.ops.preprocess import fused_preprocess
@@ -38,22 +44,29 @@ from geoguessr_ai_torch.train.steps import eval_step, train_step
 from geoguessr_ai_torch.utils.logging import MetricsLogger, StepTimer, logger
 
 
-def build_backbone(cfg: BackboneConfig):
-    """Returns (module, norm_mean, norm_std, image_size)."""
+def build_backbone(cfg: BackboneConfig, model_config=None):
+    """Returns (module, norm_mean, norm_std, image_size).  ``model_config``
+    (a TinyViTConfig, or a CLIPVisionConfig for "clip" / "clip_b32")
+    replaces the named preset."""
+    dtype = getattr(torch, cfg.dtype) if isinstance(cfg.dtype, str) \
+        else cfg.dtype
     if cfg.name == "tinyvit":
         if cfg.qat_storage:
             raise NotImplementedError(
                 "qat_storage (fake_quant_static_ste storage sites) is not "
                 "ported yet (ROADMAP Queue 1 item 8)")
-        dtype = getattr(torch, cfg.dtype) if isinstance(cfg.dtype, str) \
-            else cfg.dtype
-        tv = TinyViTConfig.tiny_vit_21m_512(dtype=dtype)
+        tv = model_config or TinyViTConfig.tiny_vit_21m_512(dtype=dtype)
         return TinyViT(tv), C.TINYVIT_NORM_MEAN, C.TINYVIT_NORM_STD, \
             tv.image_size
-    if cfg.name in ("clip", "clip_b32", "none"):
+    if cfg.name in ("clip", "clip_b32"):
+        preset = (CLIPVisionConfig.vit_l_14_336 if cfg.name == "clip"
+                  else CLIPVisionConfig.vit_b_32_224)
+        cv = model_config or preset(dtype=dtype)
+        return CLIPEmbed(cv), C.CLIP_NORM_MEAN, C.CLIP_NORM_STD, cv.image_size
+    if cfg.name == "none":
         raise NotImplementedError(
-            f"backbone {cfg.name!r} is not ported yet (ROADMAP Queue 1 "
-            "item 9); only 'tinyvit' is")
+            "the embedding-only backbone 'none' is not ported yet (ROADMAP "
+            "Queue 1 item 9)")
     raise ValueError(f"unknown backbone {cfg.name!r}")
 
 
@@ -74,6 +87,11 @@ def create_state(cfg: TrainConfig, num_cells: int, steps_per_epoch: int,
     """The model of ``cfg`` with seeded random weights (``cfg.seed``) on
     ``device``, under the freeze policy of ``cfg.model.backbone``, in a
     fresh TrainState.  Returns (state, norm_mean, norm_std, image_size)."""
+    if cfg.model.backbone.name != "tinyvit":
+        raise NotImplementedError(
+            f"training the {cfg.model.backbone.name!r} backbone is not ported "
+            "yet: its freeze rule (layer{max} + post_layernorm trainable) and "
+            "the CLIP train slice come later (ROADMAP Queue 1 item 9)")
     model, mean, std, image_size = build_model(cfg, num_cells)
     init_parameters_(model, cfg.seed)
     model.to(C.resolve_device(device))

@@ -15,6 +15,7 @@ import numpy as np
 import pytest
 import torch
 
+from geoguessr_ai_torch.ops import clip_attention as ca
 from geoguessr_ai_torch.ops import window_attention as wa
 
 FIXTURES = os.path.join(os.path.dirname(os.path.abspath(__file__)),
@@ -222,3 +223,119 @@ def test_narrow_engine_on_the_card_matches_the_cpu(cuda_device):
                              * np.linalg.norm(b, axis=-1))
     assert cos.min() >= 0.999, cos
     assert got.top_ids[0] == want.top_ids[0]
+
+
+# ---------------------------------------------------------------------------
+# CLIP attention: K6 and K11 (hd=64, q|k|v block layout, ragged N).
+# ---------------------------------------------------------------------------
+
+#: (B, N, D, H): ViT-L/14-336's N=577 (9 x 64 + 1) and ViT-B/32's N=50 (one
+#: partial tile), at narrow widths with hd=64.
+CLIP_SHAPES = [(2, 577, 256, 4), (3, 50, 128, 2)]
+
+
+def _clip_inputs(B, N, D, device, seed=0):
+    """qkv as the fused GEMM hands it over (bf16), and a (D, D) out-proj
+    weight in (in, out) layout."""
+    rng = np.random.default_rng(seed)
+    qkv = rng.normal(0, 1, (B, N, 3 * D)).astype(np.float32)
+    w = rng.normal(0, D ** -0.5, (D, D)).astype(np.float32)
+    return (torch.from_numpy(qkv).to(device).bfloat16(),
+            torch.from_numpy(w).to(device).bfloat16())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["K6", "K11"])
+@pytest.mark.parametrize("B,N,D,H", CLIP_SHAPES)
+def test_cuda_clip_kernel_matches_plain(cuda_device, kernel, B, N, D, H):
+    qkv, w = _clip_inputs(B, N, D, cuda_device)
+    scale = 64 ** -0.5
+    if kernel == "K6":
+        name, run = "_flash_cuda", lambda f: f(qkv, scale, H)
+        kern, plain = ca._flash_cuda, ca._flash_plain
+    else:
+        name, run = "_flash_proj_cuda", lambda f: f(qkv, w, scale, H)
+        kern, plain = ca._flash_proj_cuda, ca._flash_proj_plain
+    before = ca.LAUNCHES[name]
+    got = run(kern)
+    torch.cuda.synchronize()
+    assert ca.LAUNCHES[name] == before + 1
+    want = run(plain)
+    assert got.shape == want.shape == (B, N, D)
+    assert got.dtype == torch.bfloat16
+    assert bool(torch.isfinite(got).all())
+    assert _rel_err(got, want) < KERNEL_REL_TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("op", ["clip_attention", "clip_attention_proj"])
+def test_cuda_clip_op_gradients_match_plain_autograd(cuda_device, op):
+    """The kernel forward and the plain-autograd backward (the JAX
+    package's own recompute) on the card, against autograd through the
+    plain version."""
+    qkv, w = _clip_inputs(2, 577, 256, cuda_device, seed=1)
+    leaves = [qkv.requires_grad_()] + ([w.requires_grad_()]
+                                       if op == "clip_attention_proj" else [])
+    scale = 64 ** -0.5
+    out = getattr(ca, op)(*leaves, scale, 4)
+    assert out.grad_fn is not None
+    gout = torch.randn(out.shape, device=cuda_device).to(out.dtype)
+    got = torch.autograd.grad(out, leaves, gout)
+    plain = ca._flash_plain if op == "clip_attention" else ca._flash_proj_plain
+    want = torch.autograd.grad(plain(*leaves, scale, 4), leaves, gout)
+    for a, b in zip(got, want):
+        assert a.shape == b.shape and a.dtype == b.dtype
+        assert _rel_err(a, b) < GRAD_REL_TOL
+
+
+@pytest.mark.cuda
+def test_cuda_clip_wrappers_refuse_what_the_kernels_do_not_take(cuda_device):
+    qkv, w = _clip_inputs(2, 50, 128, cuda_device)
+    with pytest.raises(ValueError, match="bfloat16"):
+        ca._flash_cuda(qkv.float(), 0.125, 2)
+    with pytest.raises(ValueError, match="head dim"):
+        ca._flash_cuda(qkv, 0.125, 4)
+    with pytest.raises(ValueError, match="w_proj"):
+        ca._flash_proj_cuda(qkv, w[:64], 0.125, 2)
+    odd, _ = _clip_inputs(2, 50, 192, cuda_device)  # H=3: D not a multiple of 128
+    with pytest.raises(ValueError, match="multiple of 128"):
+        ca._flash_proj_cuda(odd, torch.zeros(192, 192, dtype=torch.bfloat16,
+                                              device=cuda_device), 0.125, 3)
+
+
+#: A narrow CLIP tower with hd=64 at 84 px: N = 6 x 6 + 1 = 37.
+CLIP_NARROW = dict(image_size=84, patch_size=14, hidden_size=128,
+                   num_layers=2, num_heads=2, mlp_dim=256)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fuse_proj", [False, True])
+def test_narrow_clip_engine_on_the_card_matches_the_cpu(cuda_device,
+                                                        fuse_proj):
+    """The CLIP guess path with seeded weights: bf16 on the card (K6, or
+    K11 with pallas_fuse_proj) vs f32 on the CPU, on the fixture panorama."""
+    from geoguessr_ai_torch.models.clip_vit import CLIPVisionConfig
+    from geoguessr_ai_torch.serving.engine import ServingEngine
+
+    paths = sorted(glob.glob(os.path.join(FIXTURES, "heading=*.jpg")))
+    gpu = ServingEngine(backbone="clip", seed=1,
+                        backbone_config=CLIPVisionConfig(
+                            pallas_fuse_proj=fuse_proj, **CLIP_NARROW))
+    ca.reset_launches()
+    wa.reset_launches()
+    got = gpu.predict_images(paths)
+    torch.cuda.synchronize()
+    want = {"_flash_cuda": 0, "_flash_proj_cuda": 0}
+    want["_flash_proj_cuda" if fuse_proj else "_flash_cuda"] = 2  # 2 layers
+    assert ca.LAUNCHES == want
+    assert sum(wa.LAUNCHES.values()) == 0, wa.LAUNCHES
+
+    cpu = ServingEngine(backbone="clip", device="cpu", seed=1,
+                        backbone_config=CLIPVisionConfig(
+                            dtype=torch.float32, **CLIP_NARROW))
+    ref = cpu.predict_images(paths)
+    a, b = got.embedding.astype(np.float64), ref.embedding.astype(np.float64)
+    cos = (a * b).sum(-1) / (np.linalg.norm(a, axis=-1)
+                             * np.linalg.norm(b, axis=-1))
+    assert cos.min() >= 0.999, cos
+    assert got.top_ids[0] == ref.top_ids[0]

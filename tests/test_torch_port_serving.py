@@ -255,10 +255,19 @@ def test_entry_points_default_to_cuda_and_refuse_without_it():
 
 
 def test_unported_options_raise():
+    from geoguessr_ai_torch.models.clip_vit import CLIPVisionConfig
+    from geoguessr_ai_torch.models.tinyvit import TinyViTConfig
     from geoguessr_ai_torch.serving.engine import ServingEngine
 
-    with pytest.raises(NotImplementedError):
-        ServingEngine(backbone="clip", device="cpu")
+    # the CLIP backbone serves (tests/test_torch_port_clip.py); its int8
+    # GEMMs and a config of the other backbone do not
+    with pytest.raises(NotImplementedError, match="quantize_gemms"):
+        ServingEngine(backbone="clip", device="cpu",
+                      backbone_config=CLIPVisionConfig.test_tiny(
+                          quantize_gemms=True))
+    with pytest.raises(ValueError, match="CLIPVisionConfig"):
+        ServingEngine(backbone="clip", device="cpu",
+                      backbone_config=TinyViTConfig(**NARROW))
     with pytest.raises(NotImplementedError, match="hierarchical"):
         from geoguessr_ai_torch.models.super_guessr import SuperGuessr
 
@@ -279,7 +288,9 @@ def test_port_imports_no_jax_flax_or_the_jax_package():
     assert {"geoguessr_ai_torch/train/coordinator.py",
             "geoguessr_ai_torch/train/state.py",
             "geoguessr_ai_torch/train/steps.py",
-            "geoguessr_ai_torch/utils/logging.py"} <= rel
+            "geoguessr_ai_torch/utils/logging.py",
+            "geoguessr_ai_torch/models/clip_vit.py",
+            "geoguessr_ai_torch/ops/clip_attention.py"} <= rel
     for path in files:
         tree = ast.parse(open(path).read(), filename=path)
         for node in ast.walk(tree):
@@ -304,6 +315,9 @@ def test_serving_engine_imports_with_jax_blocked():
         "import geoguessr_ai_torch.inference\n"
         "import geoguessr_ai_torch.models.convert\n"
         "import geoguessr_ai_torch.models.proto_refiner\n"
+        "import geoguessr_ai_torch.models.clip_vit\n"
+        "import geoguessr_ai_torch.ops.clip_attention\n"
+        "import geoguessr_ai_torch.profile_forward\n"
         "print('ok')\n"
     )
     env = dict(os.environ, PYTHONPATH=REPO + os.pathsep
