@@ -46,7 +46,24 @@ Phases, in order; any failure exits non-zero:
     K11 exactly 24 per forward, its embedding against the K6 engine's;
 12. serve the fixture panorama through the same CLIP weights on the CPU in
     f32 (the plain path) and compare embedding and top-1 cell;
-13. print the kernel JSON line, then ``{"ok": true, "device": ...}`` last.
+13. hold the bulk-embedding kernels (K9, the 4D fused block; K10, the fused
+    MBConv) against their plain versions in bf16 at the serving bucket-16
+    shapes (64 images) and at the embed batch (512 images), and time
+    kernel, plain version, the library yardstick (SDPA on K9's q, k, v; the
+    cuDNN conv2d composition for K10) and the bound;
+14. the bulk-embedding path: ``build_embedding_sqlite`` over a source
+    SQLite of the four fixture JPEGs repeated to 1100 rows, through an
+    ``Embedder`` in the embed configuration (TinyViT-21M-512 bf16, K1 at
+    stages 1 and 3, ``fused_mbconv``, ``fused_block_4d``; seeded weights)
+    with every launch counter set to 0 first: 1100 finite 576-wide rows,
+    exact launches per B=512 forward (K10 2, K9 2, K1 2, K2 6, K3 0), the
+    fixture images' embeddings against the CPU f32 forward of the same
+    weights; then ``Embedder`` p50 at B=512, img/s, panos/s and peak memory
+    with both knobs on and with both off;
+15. serve the fixture panorama through a TinyViT engine with both knobs
+    on (K10 2, K9 2, K2 6, K3 2, K1 0 launches a forward) against the
+    default engine of phase 4, and its bucket-16 p50;
+16. print the kernel JSON line, then ``{"ok": true, "device": ...}`` last.
 """
 
 from __future__ import annotations
@@ -59,6 +76,7 @@ import math
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -153,7 +171,7 @@ def phase_build() -> None:
     from geoguessr_ai_torch.ops import _build
 
     secs = _build.build()
-    log(f"build_seconds {secs:.2f}")
+    log(f"build_seconds {secs:.2f} ({len(_build.SIGNATURES)} kernels)")
     for name in _build.SIGNATURES:
         for line in _build.build_log(name).splitlines():
             if "registers" in line or "spill" in line:
@@ -541,12 +559,16 @@ def phase_backward_kernels():
 # Phase 7: each autograd op's input gradients, kernels vs plain autograd
 # ---------------------------------------------------------------------------
 
-#: (op, W, N, C, H): each op at the shape of a TRAIN_BATCH train step.
+#: (op, W, N, C, H): each op at the shape of a TRAIN_BATCH train step; the
+#: 4D block takes the same 1024 windows as 64 images of the 64x64 stage-1
+#: map.
 OP_CASES = (
     ("fused_block_attention", 1024, 256, 192, 6),
     ("fused_block_attention_noproj", 64, 1024, 384, 12),
     ("window_attention_qkv", 64, 256, 576, 18),
+    ("fused_block_attention_4d", 1024, 256, 192, 6),
 )
+STAGE1_MAP, STAGE1_WINDOW = 64, 16
 
 
 def _op_leaves(op, W, N, C, H, gen):
@@ -559,6 +581,8 @@ def _op_leaves(op, W, N, C, H, gen):
         return (torch.randn(*shape, generator=gen) * std + mean).to("cuda")
 
     x = randn(W, N, C).to(torch.bfloat16)
+    if op == "fused_block_attention_4d":
+        x = x.reshape(-1, STAGE1_MAP, STAGE1_MAP, C)
     p = dict(ln_scale=randn(C, std=0.1, mean=1.0), ln_bias=randn(C, std=0.1),
              w_qkv=randn(3 * C, C, std=C ** -0.5), b_qkv=randn(3 * C, std=0.1),
              w_proj=randn(C, C, std=C ** -0.5), b_proj=randn(C, std=0.1),
@@ -569,7 +593,7 @@ def _op_leaves(op, W, N, C, H, gen):
                   "bias": p["bias"]}
     else:
         keys = ["ln_scale", "ln_bias", "w_qkv", "b_qkv"]
-        if op == "fused_block_attention":
+        if op != "fused_block_attention_noproj":
             keys += ["w_proj", "b_proj"]
         leaves = {"x": x, **{k: p[k] for k in keys + ["bias"]}}
     return (list(leaves),
@@ -582,6 +606,10 @@ def _op_call(fn, op, leaves, scale, H):
     if op == "window_attention_qkv":
         return fn(*leaves, scale, H)
     x, ls, lb, wq, bq, *rest = leaves
+    if op == "fused_block_attention_4d":
+        wp, bp, bias = rest
+        return fn(x, ls, lb, wq.t(), bq, wp.t(), bp, bias, scale, H,
+                  STAGE1_WINDOW, 1e-5)
     if op == "fused_block_attention":
         wp, bp, bias = rest
         return fn(x, ls, lb, wq.t(), bq, wp.t(), bp, bias, scale, H, 1e-5)
@@ -593,7 +621,8 @@ def phase_op_gradients():
 
     plain = {"fused_block_attention": wa._fused_block_plain,
              "fused_block_attention_noproj": wa._fb_s2_plain,
-             "window_attention_qkv": wa._attention_qkv_fused_plain}
+             "window_attention_qkv": wa._attention_qkv_fused_plain,
+             "fused_block_attention_4d": wa._fb4d_plain}
     gen = torch.Generator().manual_seed(SEED + 2)
     for op, W, N, C, H in OP_CASES:
         names, leaves = _op_leaves(op, W, N, C, H, gen)
@@ -1048,7 +1077,346 @@ def phase_clip_cpu_reference(paths, gpu_result):
 
 
 # ---------------------------------------------------------------------------
-# Phase 13: the kernels line
+# Phase 13: the bulk-embedding kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+#: Images per batch: the serving bucket 16 (64 images) and the embed batch.
+EMBED_KERNEL_IMAGES = (64, 512)
+#: The plain versions run 64 images at a time (their f32 intermediates at
+#: 512 images would not fit beside the kernels' buffers).
+PLAIN_SLICE = 64
+EMBED_META = {
+    "K9": ("_fb4d_cuda", "geoguessr_ai_torch/ops/csrc/fb4d.cu",
+           "geoguessr_ai_tpu/ops/window_attention.py:1869"),
+    "K10": ("_mbconv_cuda", "geoguessr_ai_torch/ops/csrc/mbconv.cu",
+            "geoguessr_ai_tpu/ops/mbconv.py:164"),
+}
+#: Stage 0 of TinyViT-21M-512: a 128x128 map, C=96, E=384.
+MB_MAP, MB_C, MB_E = 128, 96, 384
+
+
+def _sliced(fn, args, images):
+    """fn over the leading (image) axis of args[0] in PLAIN_SLICE slices."""
+    return torch.cat([fn(args[0][i:i + PLAIN_SLICE], *args[1:])
+                      for i in range(0, images, PLAIN_SLICE)])
+
+
+def _mbconv_inputs(B, gen):
+    """bf16 x, bf16 conv weights in the JAX layouts (transposed views of the
+    stored OI ones, as the model passes them) and folded BN pairs."""
+    from geoguessr_ai_torch.ops.mbconv import fold_bn
+
+    def randn(*shape, std=1.0, mean=0.0):
+        return (torch.randn(*shape, generator=gen) * std + mean).to("cuda")
+
+    def folded(n):
+        return fold_bn(randn(n, std=0.1, mean=1.0), randn(n, std=0.1),
+                       randn(n, std=0.1), randn(n, std=0.1, mean=1.0).abs())
+
+    C, E = MB_C, MB_E
+    bf = torch.bfloat16
+    return (randn(B, MB_MAP, MB_MAP, C).to(bf),
+            randn(E, C, std=C ** -0.5).to(bf).t(), *folded(E),
+            randn(3, 3, E, std=1 / 3).to(bf), *folded(E),
+            randn(C, E, std=E ** -0.5).to(bf).t(), *folded(C))
+
+
+def _mbconv_bound_ms(B):
+    """Two 1x1 GEMMs (2 C E flops a pixel each) and 9 depthwise MACs a
+    pixel and expanded channel; bytes: x in, out, the weights once."""
+    px = B * MB_MAP * MB_MAP
+    flops = px * (4.0 * MB_C * MB_E + 18.0 * MB_E)
+    nbytes = 2 * px * MB_C * 2 + 2 * MB_C * MB_E * 2 + 9 * MB_E * 4
+    t_bytes = nbytes / PEAK_BYTES_S * 1e3
+    t_ops = flops / PEAK_BF16_FLOP_S * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def _mbconv_cudnn_ms(args, exact=False):
+    """The same function as one chain of cuDNN convolutions (1x1,
+    depthwise 3x3, 1x1) with the folded BN and GELU between, in bf16
+    channels-last: the yardstick only; the port never calls it."""
+    import torch.nn.functional as F
+
+    x, w1, s1, b1, w2, s2, b2, w3, s3, b3 = args
+    bf = torch.bfloat16
+    E = w1.shape[1]
+    xc = x.permute(0, 3, 1, 2)
+    k1 = w1.t().contiguous()[:, :, None, None]
+    k2 = w2.permute(2, 0, 1).contiguous()[:, None]
+    k3 = w3.t().contiguous()[:, :, None, None]
+    sb = [t.to(bf)[None, :, None, None] for t in (s1, b1, s2, b2, s3, b3)]
+    approx = "none" if exact else "tanh"
+
+    def chain():
+        h = F.gelu(F.conv2d(xc, k1) * sb[0] + sb[1], approximate=approx)
+        h = F.gelu(F.conv2d(h, k2, padding=1, groups=E) * sb[2] + sb[3],
+                   approximate=approx)
+        return F.gelu(xc + F.conv2d(h, k3) * sb[4] + sb[5], approximate=approx)
+
+    return cuda_time_ms(chain, iters=5)
+
+
+def _embed_kernel_case(kernel, images, gen):
+    """(kernel fn, plain fn, args, bound, bound_by, library ms, what the
+    library call is) at ``images`` images."""
+    from geoguessr_ai_torch.ops import mbconv
+    from geoguessr_ai_torch.ops import window_attention as wa
+
+    if kernel == "K10":
+        args = _mbconv_inputs(images, gen)
+        bound, bound_by = _mbconv_bound_ms(images)
+        return (lambda *a: mbconv._mbconv_cuda(*a, False),
+                lambda *a: mbconv._mbconv_plain(*a, False), args, bound,
+                bound_by, _mbconv_cudnn_ms(args),
+                "cuDNN conv2d 1x1, depthwise, 1x1 with folded BN and GELU")
+    C, H, N = 192, 6, STAGE1_WINDOW ** 2
+    W = images * (STAGE1_MAP // STAGE1_WINDOW) ** 2
+    a = _case_inputs(W, N, C, H, gen)
+    x4 = a["x"].reshape(images, STAGE1_MAP, STAGE1_MAP, C)
+    scale = (C // H) ** -0.5
+    args = (x4, a["ln_scale"], a["ln_bias"], a["w_qkv"], a["b_qkv"],
+            a["w_proj"], a["b_proj"], a["bias"])
+    bound, bound_by = _bound_ms("K1", W, N, C, H)
+    qkv = wa._ln_qkv_plain(a["x"], a["ln_scale"], a["ln_bias"], a["w_qkv"],
+                           a["b_qkv"], 1e-5)
+    sdpa = _sdpa_ms(qkv, a["bias"], scale, H)
+    del qkv
+    tail = (scale, H, STAGE1_WINDOW, 1e-5)
+    return (lambda *a: wa._fb4d_cuda(*a, *tail),
+            lambda *a: wa._fb4d_plain(*a, *tail), args, bound, bound_by,
+            sdpa, "scaled_dot_product_attention on its q, k, v and bias")
+
+
+def phase_embed_kernels():
+    rows = {}
+    gen = torch.Generator().manual_seed(SEED + 4)
+    for kernel in ("K10", "K9"):
+        for images in EMBED_KERNEL_IMAGES:
+            kern, plain, args, bound, bound_by, lib_ms, lib_what = \
+                _embed_kernel_case(kernel, images, gen)
+            got = kern(*args)
+            torch.cuda.synchronize()
+            want = _sliced(plain, args, images)
+            torch.cuda.synchronize()
+            if got.shape != want.shape:
+                fail(f"{kernel} {images} images: shape {tuple(got.shape)} != "
+                     f"{tuple(want.shape)}")
+            max_abs, rel = _rel_err(got, want)
+            finite = bool(torch.isfinite(got).all())
+            del got, want
+            ms = cuda_time_ms(lambda: kern(*args))
+            plain_ms = cuda_time_ms(lambda: _sliced(plain, args, images),
+                                    iters=2)
+            log(f"{kernel} {images} images, input {tuple(args[0].shape)}")
+            log(f"  max_abs_err {max_abs:.6g}")
+            log(f"  max_rel_err {rel:.6g} (tolerance {KERNEL_REL_TOL})")
+            log(f"  kernel_ms {ms:.4f}")
+            log(f"  plain_ms {plain_ms:.4f}")
+            log(f"  library_ms null [{lib_what} {lib_ms:.4f}]")
+            log(f"  bound_ms {bound:.4f} ({bound_by})")
+            if not (finite and rel <= KERNEL_REL_TOL):
+                fail(f"{kernel} {images} images: kernel disagrees with its "
+                     f"plain version (rel {rel:.3g}, finite {finite})")
+            rows[(kernel, images)] = dict(
+                max_abs_err=max_abs, ms=ms, plain_ms=plain_ms,
+                lib_ms=lib_ms, bound_ms=bound, bound_by=bound_by)
+            del args
+            gc.collect()
+            torch.cuda.empty_cache()
+    _reset_all_launches()
+    return rows
+
+
+def _reset_all_launches():
+    from geoguessr_ai_torch.ops import clip_attention as ca
+    from geoguessr_ai_torch.ops import mbconv
+    from geoguessr_ai_torch.ops import window_attention as wa
+
+    for mod in (wa, mbconv, ca):
+        mod.reset_launches()
+
+
+def _tinyvit_launches():
+    """K1-K5, K9 and K10 launches since the last reset, by kernel id."""
+    from geoguessr_ai_torch.ops import mbconv
+    from geoguessr_ai_torch.ops import window_attention as wa
+
+    meta = {**ALL_META, "K9": EMBED_META["K9"]}
+    out = {k: wa.LAUNCHES[m[0]] for k, m in meta.items()}
+    out["K10"] = mbconv.LAUNCHES[EMBED_META["K10"][0]]
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Phase 14: the bulk-embedding path
+# ---------------------------------------------------------------------------
+
+EMBED_ROWS = 1100
+EMBED_BATCH = 512
+#: Launches of one B=512 forward of the embed configuration: K10 at the 2
+#: stage-0 blocks, K9 at the 2 stage-1 blocks, K2 at the 6 stage-2 blocks,
+#: K1 at the 2 stage-3 blocks; no other kernel.
+EMBED_LAUNCHES_PER_FORWARD = {"K10": 2, "K9": 2, "K1": 2, "K2": 6, "K3": 0,
+                              "K4": 0, "K5": 0}
+
+
+def _embedder_p50(emb, images, label):
+    """p50 of Embedder.__call__ on a fixed host batch (1 warm-up, 5 timed),
+    and the peak device memory over those calls."""
+    emb(images)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    p50 = _p50_ms(lambda: emb(images), reps=5)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    n = images.shape[0]
+    log(f"Embedder {label}: B={n} p50 {p50:.2f} ms, {n / p50 * 1e3:.2f} img/s, "
+        f"{n / p50 * 1e3 / 4:.2f} panos/s, peak device memory {peak_gb:.3f} GB")
+    return p50, peak_gb
+
+
+def phase_embed(paths):
+    from geoguessr_ai_torch.config import BackboneConfig, EmbedBuildConfig
+    from geoguessr_ai_torch.data.embed_builder import (
+        Embedder,
+        build_embedding_sqlite,
+        bulk_embed_config,
+    )
+    from geoguessr_ai_torch.data.pipeline import decode_jpeg
+    from geoguessr_ai_torch.data.sqlite_dataset import (
+        create_sqlite_from_records,
+        read_embeddings,
+    )
+
+    blobs = []
+    for p in paths:
+        with open(p, "rb") as f:
+            blobs.append(f.read())
+    rng = np.random.default_rng(SEED)
+    coords = rng.uniform((-60.0, -180.0), (70.0, 180.0),
+                         (EMBED_ROWS // 4 + 1, 2))
+    bb = BackboneConfig.tinyvit()
+    emb = Embedder(bb, model_config=bulk_embed_config(), seed=SEED)
+    with tempfile.TemporaryDirectory() as tmp:
+        src = os.path.join(tmp, "raw.sqlite")
+        out = os.path.join(tmp, "emb.sqlite")
+        create_sqlite_from_records(src, (
+            {"location_id": f"loc{i // 4:05d}", "lat": coords[i // 4, 0],
+             "lon": coords[i // 4, 1], "heading": 90 * (i % 4),
+             "image": blobs[i % 4]} for i in range(EMBED_ROWS)))
+        telemetry = []
+        torch.cuda.synchronize()
+        _reset_all_launches()
+        t0 = time.perf_counter()
+        written = build_embedding_sqlite(
+            src, out, EmbedBuildConfig(quant_mode="none"), embedder=emb,
+            log_fn=telemetry.append, predecoded=True)
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        launches = _tinyvit_launches()
+        rows = read_embeddings(out)
+    forwards = -(-EMBED_ROWS // EMBED_BATCH)
+    log(f"build_embedding_sqlite: {written} rows written in {wall_s:.2f} s "
+        f"(predecoded, batch {EMBED_BATCH}, {forwards} forwards; "
+        f"ThroughputMeter {telemetry[-1]['throughput_img_per_s']:.2f} img/s "
+        "with the decode of every row)")
+    if written != EMBED_ROWS or len(rows) != EMBED_ROWS:
+        fail(f"embed wrote {written} rows, read back {len(rows)}, expected "
+             f"{EMBED_ROWS}")
+    dims = {r.embedding_dim for r in rows}
+    table = np.stack([r.embedding for r in rows])
+    if dims != {576} or table.shape != (EMBED_ROWS, 576):
+        fail(f"embedding dims {dims}, table {table.shape}")
+    if not np.isfinite(table).all():
+        fail("non-finite embedding written")
+    for k, per in EMBED_LAUNCHES_PER_FORWARD.items():
+        log(f"  launches {k} {launches[k]} over {forwards} forwards "
+            f"(expected {per * forwards})")
+        if launches[k] != per * forwards:
+            fail(f"embed path: {k} launched {launches[k]} times, expected "
+                 f"{per} per forward x {forwards}")
+
+    # the four fixture images against the CPU f32 forward of the same weights
+    views = np.stack([decode_jpeg(b, emb.image_size) for b in blobs])
+    by_heading = {int(r.heading): r.embedding for r in rows
+                  if r.location_id == "loc00000"}
+    got = np.stack([by_heading[90 * i] for i in range(4)])
+    t0 = time.perf_counter()
+    cpu = Embedder(bb, device="cpu", seed=SEED,
+                   model_config=bulk_embed_config(dtype=torch.float32))
+    ref = cpu(views)
+    cos = _view_cosines(got, ref)
+    log(f"embed gpu bf16 vs cpu f32 on the fixture images: min cosine "
+        f"{cos.min():.6f} (>= {MIN_COSINE}; {', '.join(f'{c:.6f}' for c in cos)})"
+        f" ({time.perf_counter() - t0:.1f} s)")
+    if cos.min() < MIN_COSINE:
+        fail(f"embed cosine {cos.min():.6f} < {MIN_COSINE}")
+    del cpu
+
+    batch = views[np.arange(EMBED_BATCH) % 4]
+    on = _embedder_p50(emb, batch, "embed config, fused_mbconv and "
+                                   "fused_block_4d on")
+    emb_on = emb(batch[:4])
+    del emb
+    gc.collect()
+    torch.cuda.empty_cache()
+    off_emb = Embedder(bb, model_config=bulk_embed_config(False), seed=SEED)
+    off = _embedder_p50(off_emb, batch, "embed config, both knobs off (K1 at "
+                                        "stage 1, eager MBConv)")
+    cos = _view_cosines(emb_on, off_emb(batch[:4]))
+    log(f"  knobs on vs off: min cosine {cos.min():.6f}; p50 {on[0]:.2f} vs "
+        f"{off[0]:.2f} ms ({off[0] / on[0]:.3f}x), peak {on[1]:.3f} vs "
+        f"{off[1]:.3f} GB")
+    del off_emb
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# Phase 15: the guess path with both knobs
+# ---------------------------------------------------------------------------
+
+#: Launches of one serving forward (default stages) with both knobs on.
+KNOB_SERVE_LAUNCHES = {"K10": 2, "K9": 2, "K2": 6, "K3": 2, "K1": 0}
+
+
+def phase_knob_serve(paths, default_result):
+    from geoguessr_ai_torch.models.tinyvit import TinyViTConfig
+    from geoguessr_ai_torch.serving.engine import ServingEngine
+
+    engine = ServingEngine(seed=SEED, backbone_config=TinyViTConfig(
+        fused_mbconv=True, fused_block_4d=True))
+    engine.predict_images(paths)  # warm-up, before the counters
+    torch.cuda.synchronize()
+    _reset_all_launches()
+    result = engine.predict_images(paths)
+    torch.cuda.synchronize()
+    launches = _tinyvit_launches()
+    cos = _view_cosines(result.embedding, default_result.embedding)
+    log(f"knob engine (fused_mbconv, fused_block_4d) vs default engine: min "
+        f"view cosine {cos.min():.6f} (>= {MIN_COSINE}), top-1 cell "
+        f"{result.top_ids[0]} / {default_result.top_ids[0]}; launches "
+        f"{ {k: launches[k] for k in KNOB_SERVE_LAUNCHES} }")
+    if cos.min() < MIN_COSINE or result.top_ids[0] != default_result.top_ids[0]:
+        fail("the knob engine disagrees with the default engine")
+    for k, per in KNOB_SERVE_LAUNCHES.items():
+        if launches[k] != per:
+            fail(f"knob engine: {k} launched {launches[k]} times in one "
+                 f"forward, expected {per}")
+    _, views = _fixture_views(engine)
+    batch = np.repeat(views[None], 16, axis=0)
+    p50 = _p50_ms(lambda: engine.predict_batch(batch), reps=10)
+    log(f"knob engine bucket 16: p50 {p50:.2f} ms, {16 / p50 * 1e3:.2f} "
+        f"panos/s")
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# Phase 16: the kernels line
 # ---------------------------------------------------------------------------
 
 
@@ -1069,6 +1437,11 @@ def main():
     clip_rows = phase_clip_kernels()
     clip_paths, clip_result, clip_launches = phase_clip_serve()
     phase_clip_cpu_reference(clip_paths, clip_result)
+    gc.collect()
+    torch.cuda.empty_cache()
+    embed_rows = phase_embed_kernels()
+    embed_launches = phase_embed(paths)
+    knob_launches = phase_knob_serve(paths, result)
 
     main_case = {"K1": "stage1", "K2": "stage2", "K3": "stage3",
                  "K4": "stage1", "K5": "stage2"}
@@ -1109,6 +1482,21 @@ def main():
         if k == "K11":
             entry["sdpa_matmul_ms"] = row["sdpa_mm_ms"]
         kernels.append(entry)
+    for k, (name, source, replaces) in EMBED_META.items():
+        row = embed_rows[(k, EMBED_BATCH)]  # the embed batch: the main path
+        kernels.append({
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces,
+            "launches": embed_launches[k] + knob_launches[k],
+            "max_abs_err": row["max_abs_err"], "ms": row["ms"],
+            "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"],
+            # no one PyTorch call computes either function
+            "library_ms": None,
+            ("sdpa_attention_ms" if k == "K9" else "cudnn_chain_ms"):
+                row["lib_ms"],
+            "bucket16_ms": embed_rows[(k, 64)]["ms"],
+        })
     log(card)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -62,7 +62,8 @@ def resolve_device(device=None):
 
 # ---------------------------------------------------------------------------
 # Typed configs: the JAX package's MeshConfig, BackboneConfig, ModelConfig,
-# OptimizerConfig and TrainConfig with the same fields and defaults.
+# OptimizerConfig, TrainConfig and EmbedBuildConfig with the same fields and
+# defaults.
 # ---------------------------------------------------------------------------
 
 
@@ -161,3 +162,19 @@ class TrainConfig:
     #: Host pipeline
     prefetch_depth: int = 2
     decode_threads: int = 8
+
+
+@dataclasses.dataclass(frozen=True)
+class EmbedBuildConfig:
+    """The embedding-dataset builder (``data.embed_builder``)."""
+
+    #: images per device batch; the last batch is padded up to it.
+    batch_size: int = 512
+    fetch_threads: int = 64
+    backbone: BackboneConfig = BackboneConfig()
+    #: "none" (the backbone's own dtype) or "static" (static-calibrated int8
+    #: MLP GEMMs, TinyViT only: not ported yet, ``Embedder`` raises).
+    quant_mode: str = "static"
+    #: 0 or 1: one device.  More (or -1, all devices) shards each batch over
+    #: a data-parallel mesh: not ported yet, the builder raises.
+    data_parallel: int = 0

@@ -7,6 +7,8 @@ from __future__ import annotations
 import collections
 import concurrent.futures as cf
 import io
+import threading
+import time
 import types
 from typing import Dict, Iterator
 
@@ -149,3 +151,30 @@ def prefetch_to_device(iterator, device, depth: int = 2):
         if nxt is not None:
             queue.append(transfer(nxt))
         yield batch
+
+
+class ThroughputMeter:
+    """Telemetry of the bulk builders, as the JAX package logs it: mode,
+    processed, total, throughput_img_per_s and phase per update."""
+
+    def __init__(self, mode: str, total: int, log_fn=None):
+        self.mode = mode
+        self.total = total
+        self.processed = 0
+        self._t0 = time.perf_counter()
+        self._log = log_fn or (lambda d: None)
+        self._lock = threading.Lock()
+
+    def update(self, n: int, phase: str = "run") -> Dict:
+        with self._lock:
+            self.processed += n
+            dt = max(time.perf_counter() - self._t0, 1e-9)
+            rec = {
+                "mode": self.mode,
+                "processed": self.processed,
+                "total": self.total,
+                "throughput_img_per_s": self.processed / dt,
+                "phase": phase,
+            }
+        self._log(rec)
+        return rec

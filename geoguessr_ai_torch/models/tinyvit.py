@@ -16,13 +16,20 @@ exactly as the JAX ``WindowAttention`` selects them:
   (``window_attention_qkv``), out-projection;
 * otherwise the plain attention.
 
+Two opt-in knobs of the JAX config, both off by default and both turned on
+by the bulk-embedding configuration, route through further kernels under
+the JAX gates: ``fused_mbconv`` runs each eval-mode stage-0 MBConv as K10
+(``ops/mbconv.py fused_mbconv``), and ``fused_block_4d`` runs a
+multi-window ``fused_block_stages`` stage as K9 over the raw map
+(``fused_block_attention_4d``), with no window partition copies.
+
 ``train=True`` (the flax ``train`` argument) normalises BatchNorm with
 the batch statistics and updates the running ones, and applies DropPath
 with the caller's ``torch.Generator``.  Training keeps the parameters in
 f32 and casts them per use; ``TinyViT.cast_weights_`` is for serving.
 
-Quantization, remat, scan, the fused MBConv kernel and the 4D fused
-block of the JAX config are not ported; the config has no such fields.
+Quantization, remat and scan of the JAX config are not ported; the config
+has no such fields.
 """
 
 from __future__ import annotations
@@ -35,7 +42,12 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from geoguessr_ai_torch.ops import mbconv
 from geoguessr_ai_torch.ops import window_attention as wa
+from geoguessr_ai_torch.ops.window_attention import (
+    window_partition,
+    window_unpartition,
+)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -56,6 +68,11 @@ class TinyViTConfig:
     pallas_attention_stages: Tuple[int, ...] = (3,)
     fused_block_stages: Tuple[int, ...] = (1,)
     fused_block_noproj_stages: Tuple[int, ...] = (2,)
+    #: Eval-mode stage-0 MBConv as one kernel (K10) with folded BatchNorm.
+    fused_mbconv: bool = False
+    #: Multi-window ``fused_block_stages`` stages (stage 1 at 64x64, w=16)
+    #: through the 4D fused block (K9) on the raw map.
+    fused_block_4d: bool = False
 
     @staticmethod
     def tiny_vit_21m_512(**overrides) -> "TinyViTConfig":
@@ -107,6 +124,11 @@ class _BN(nn.Module):
         mul = torch.rsqrt(var + 1e-5) * self.weight
         return ((xf - mean) * mul + self.bias).to(dtype)
 
+    def folded(self):
+        """Eval BatchNorm as f32 (scale, bias) from the running statistics."""
+        return mbconv.fold_bn(self.weight, self.bias, self.running_mean,
+                              self.running_var)
+
 
 class DropPath(nn.Module):
     """Stochastic depth: zeroes a whole sample's residual branch with
@@ -147,10 +169,12 @@ class ConvBN(nn.Module):
 
 
 class MBConv(nn.Module):
-    def __init__(self, dim, expand_ratio, exact_gelu, drop_path=0.0):
+    def __init__(self, dim, expand_ratio, exact_gelu, drop_path=0.0,
+                 fused=False):
         super().__init__()
         hidden = int(dim * expand_ratio)
         self.exact_gelu = exact_gelu
+        self.fused = fused
         self.conv1 = ConvBN(dim, hidden, 1)
         self.conv2 = ConvBN(hidden, hidden, 3, groups=hidden)
         self.conv3 = ConvBN(hidden, dim, 1)
@@ -158,6 +182,16 @@ class MBConv(nn.Module):
 
     def forward(self, x, dtype, train: bool = False, generator=None):
         g = self.exact_gelu
+        # The JAX gate also requires that no int8 conv site is active; the
+        # port has no quantization, so that part is always true.
+        if self.fused and not train:
+            c1, c2, c3 = self.conv1, self.conv2, self.conv3
+            return mbconv.fused_mbconv(
+                x.to(dtype),
+                c1.conv.weight[:, :, 0, 0].t(), *c1.bn.folded(),
+                c2.conv.weight[:, 0].permute(1, 2, 0), *c2.bn.folded(),
+                c3.conv.weight[:, :, 0, 0].t(), *c3.bn.folded(),
+                exact_gelu=g)
         y = _gelu(self.conv1(x, dtype, train), g)
         y = _gelu(self.conv2(y, dtype, train), g)
         y = self.drop_path(self.conv3(y, dtype, train), train, generator)
@@ -227,6 +261,17 @@ class WindowAttention(nn.Module):
         self.register_buffer("bias_idx", torch.from_numpy(idx),
                              persistent=False)
 
+    def forward_map(self, x, dtype, window):
+        """The fused block over the raw (B, H, W, C) map (the JAX module's
+        ``four_d``): K9 on the card.  -> (B, H, W, C)."""
+        C = x.shape[-1]
+        H = self.num_heads
+        n, q, p = self.norm, self.qkv, self.proj
+        return wa.fused_block_attention_4d(
+            x.to(dtype), n.weight, n.bias, q.weight.t(), q.bias,
+            p.weight.t(), p.bias, self.attention_biases[:, self.bias_idx],
+            (C // H) ** -0.5, H, window)
+
     def forward(self, x, dtype):
         B, N, C = x.shape
         H = self.num_heads
@@ -267,28 +312,15 @@ class Mlp(nn.Module):
         return _linear(x, self.fc2, dtype)
 
 
-def window_partition(x: torch.Tensor, window: int) -> torch.Tensor:
-    """(B, H, W, C) -> (B*nH*nW, window*window, C)."""
-    B, H, W, C = x.shape
-    x = x.reshape(B, H // window, window, W // window, window, C)
-    return x.permute(0, 1, 3, 2, 4, 5).reshape(-1, window * window, C)
-
-
-def window_unpartition(x: torch.Tensor, window: int, hw) -> torch.Tensor:
-    H, W = hw
-    B = x.shape[0] // ((H // window) * (W // window))
-    x = x.reshape(B, H // window, W // window, window, window, -1)
-    return x.permute(0, 1, 3, 2, 4, 5).reshape(B, H, W, -1)
-
-
 class TinyViTBlock(nn.Module):
     """Window attention -> depthwise local conv -> MLP, all residual."""
 
     def __init__(self, dim, num_heads, window, mlp_ratio, exact_gelu,
                  use_kernel_qkv, fused_block, fused_block_noproj,
-                 drop_path=0.0):
+                 drop_path=0.0, fused_block_4d=False):
         super().__init__()
         self.window = window
+        self.four_d = fused_block_4d and fused_block and not fused_block_noproj
         self.attn = WindowAttention(dim, num_heads, window, use_kernel_qkv,
                                     fused_block, fused_block_noproj)
         self.local_conv = ConvBN(dim, dim, 3, groups=dim)
@@ -301,6 +333,8 @@ class TinyViTBlock(nn.Module):
         if (H, W) == (w, w):
             attn_out = self.attn(x.reshape(B, H * W, C), dtype)
             attn_out = attn_out.reshape(B, H, W, C)
+        elif self.four_d and H % w == 0 and W % w == 0 and (w * w) % 128 == 0:
+            attn_out = self.attn.forward_map(x, dtype, w)
         else:
             pad_h, pad_w = (-H) % w, (-W) % w
             xp = F.pad(x, (0, 0, 0, pad_w, 0, pad_h))
@@ -324,21 +358,27 @@ class TinyViT(nn.Module):
         self._order = ["patch_embed"]
         dpr = iter(np.linspace(0.0, cfg.drop_path_rate,
                                sum(cfg.depths)).tolist())
+        res = -(-cfg.image_size // 4)  # the stem's two stride-2 convs
         for stage, depth in enumerate(cfg.depths):
             dim = cfg.embed_dims[stage]
+            # a window larger than the map shrinks to it, as the JAX block's
+            # w = min(window, H, W) does; its bias table follows
+            window = min(cfg.window_sizes[stage], res)
             for d in range(depth):
                 name = f"stage{stage}_block{d}"
                 if stage == 0:
-                    block = MBConv(dim, cfg.mbconv_expand_ratio, g, next(dpr))
+                    block = MBConv(dim, cfg.mbconv_expand_ratio, g, next(dpr),
+                                   fused=cfg.fused_mbconv)
                 else:
                     block = TinyViTBlock(
-                        dim, cfg.num_heads[stage], cfg.window_sizes[stage],
+                        dim, cfg.num_heads[stage], window,
                         cfg.mlp_ratio, g,
                         use_kernel_qkv=stage in cfg.pallas_attention_stages,
                         fused_block=stage in cfg.fused_block_stages,
                         fused_block_noproj=(
                             stage in cfg.fused_block_noproj_stages),
                         drop_path=next(dpr),
+                        fused_block_4d=cfg.fused_block_4d,
                     )
                 self.add_module(name, block)
                 self._order.append(name)
@@ -347,6 +387,7 @@ class TinyViT(nn.Module):
                 self.add_module(name, PatchMerging(
                     dim, cfg.embed_dims[stage + 1], g))
                 self._order.append(name)
+                res = -(-res // 2)
         self.norm_head = nn.LayerNorm(cfg.embed_dims[-1], eps=1e-5)
 
     def cast_weights_(self) -> "TinyViT":

@@ -50,6 +50,15 @@ SIGNATURES: Dict[str, tuple] = {
         "attention_bwd_merged_bf16",
         (_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _P),
     ),
+    "fb4d": (
+        "fb4d_bf16",
+        (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+         _I, _I, _I, _I, _I, _I, _F, _F, _P),
+    ),
+    "mbconv": (
+        "mbconv_bf16",
+        (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    ),
     "clip_flash": ("clip_flash_bf16", (_P, _P, _I, _I, _I, _F, _P)),
     "clip_flash_proj": (
         "clip_flash_proj_bf16",

@@ -1,5 +1,5 @@
-// Device code shared by the three window-attention kernels of the port
-// (K1 fused_block.cu, K2 fb_s2.cu, K3 attention_qkv.cu).  Each .cu file is
+// Device code shared by the window-attention kernels of the port (K1
+// fused_block.cu, K2 fb_s2.cu, K3 attention_qkv.cu, K9 fb4d.cu).  Each .cu file is
 // compiled on its own into its own shared library, so the __global__
 // templates below are instantiated once per library.
 //
@@ -62,10 +62,38 @@ __device__ __forceinline__ void mma_bf16_16816(float c[4], const uint32_t a[4],
 }
 
 // ---------------------------------------------------------------------------
+// Where token n of window w lives: the row of the qkv tensor (row stride 3D)
+// and of the output (row stride D).
+// ---------------------------------------------------------------------------
+
+// Windows stored one after another, (W, N, .): row w * N + n.
+struct WindowRows {
+  __device__ __forceinline__ long operator()(int w, int n, int N) const {
+    return (long)w * N + n;
+  }
+};
+
+// Windows of side ws cut from a (B, nwh * ws, nww * ws, .) map in raster
+// order (the order window_partition gives them): window w = (b, i, j),
+// token n = (r, c) lives at map row (b, i * ws + r, j * ws + c).  This is
+// the whole of the window partition on the card: no copy is made.
+struct MapRows {
+  int ws, nwh, nww;
+  __device__ __forceinline__ long operator()(int w, int n, int /*N*/) const {
+    const int per_image = nwh * nww;
+    const int b = w / per_image, rem = w - b * per_image;
+    const int i = rem / nww, j = rem - i * nww;
+    const int r = n / ws, c = n - r * ws;
+    const long map_w = (long)nww * ws;
+    return ((long)b * nwh * ws + (long)i * ws + r) * map_w + (long)j * ws + c;
+  }
+};
+
+// ---------------------------------------------------------------------------
 // Window attention over the interleaved qkv tensor.
 //
 // One block of 4 warps per (q-tile of 64 rows, head, window); each warp owns
-// 16 query rows.  k and v stream through shared memory in tiles of 64 keys
+// 16 query rows.  ROWS maps (window, token) to the row of qkv and out.  k and v stream through shared memory in tiles of 64 keys
 // and the softmax is the online (running max / running sum) form, kept in
 // f32.  p is rounded to bf16 before the p.v product, as the Pallas kernels
 // round it before their MXU dot; the row sum uses the unrounded p, as the
@@ -78,9 +106,10 @@ constexpr int kBk = 64;            // keys per tile
 constexpr int kKPad = kHd + 8;     // K tile row pitch (bf16): conflict-free b-fragment reads
 constexpr int kVPad = kBk + 8;     // V^T tile row pitch (bf16)
 
+template <class ROWS>
 __global__ void __launch_bounds__(128)
 window_attention_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ bias,
-                        bf16* __restrict__ out, int N, int H, float scale) {
+                        bf16* __restrict__ out, int N, int H, float scale, ROWS rows) {
   __shared__ __align__(16) bf16 ks[kBk * kKPad];
   __shared__ __align__(16) bf16 vt[kHd * kVPad];
 
@@ -91,15 +120,16 @@ window_attention_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ b
   const int g = lane >> 2, c = lane & 3;
   const int D = H * kHd;
   const long row_stride = 3L * D;
-  const bf16* base = qkv + (long)w * N * row_stride + (long)h * 3 * kHd;
+  const bf16* base = qkv + (long)h * 3 * kHd;
   const int q0 = blockIdx.x * kBq + warp * 16;
+  const long qrow0 = rows(w, q0 + g, N), qrow1 = rows(w, q0 + g + 8, N);
 
   // This warp's 16 query rows as two A fragments (dims 0-15, 16-31).
   uint32_t qa[2][4];
 #pragma unroll
   for (int s = 0; s < 2; ++s) {
-    const bf16* r0 = base + (long)(q0 + g) * row_stride + s * 16 + 2 * c;
-    const bf16* r1 = r0 + 8 * row_stride;
+    const bf16* r0 = base + qrow0 * row_stride + s * 16 + 2 * c;
+    const bf16* r1 = base + qrow1 * row_stride + s * 16 + 2 * c;
     qa[s][0] = ld32(r0);
     qa[s][1] = ld32(r1);
     qa[s][2] = ld32(r0 + 8);
@@ -122,7 +152,7 @@ window_attention_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ b
     __syncthreads();  // previous tile fully consumed
     for (int i = tid; i < kBk * 4; i += 128) {
       const int key = i >> 2, ch = i & 3;
-      const bf16* src = base + (long)(k0 + key) * row_stride + ch * 8;
+      const bf16* src = base + rows(w, k0 + key, N) * row_stride + ch * 8;
       const uint4 kv = *reinterpret_cast<const uint4*>(src + kHd);
       *reinterpret_cast<uint4*>(&ks[key * kKPad + ch * 8]) = kv;
       uint4 vv = *reinterpret_cast<const uint4*>(src + 2 * kHd);
@@ -208,8 +238,8 @@ window_attention_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ b
   l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
   l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
   const float inv0 = 1.f / l0, inv1 = 1.f / l1;
-  bf16* orow0 = out + ((long)w * N + q0 + g) * D + h * kHd + 2 * c;
-  bf16* orow1 = orow0 + 8L * D;
+  bf16* orow0 = out + qrow0 * D + h * kHd + 2 * c;
+  bf16* orow1 = out + qrow1 * D + h * kHd + 2 * c;
 #pragma unroll
   for (int d = 0; d < 4; ++d) {
     *reinterpret_cast<uint32_t*>(orow0 + d * 8) = pack_bf16(o[d][0] * inv0, o[d][1] * inv0);
@@ -217,11 +247,12 @@ window_attention_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ b
   }
 }
 
+template <class ROWS = WindowRows>
 inline cudaError_t launch_window_attention(const bf16* qkv, const bf16* bias, bf16* out,
                                            int W, int N, int H, float scale,
-                                           cudaStream_t stream) {
+                                           cudaStream_t stream, ROWS rows = ROWS()) {
   dim3 grid(N / kBq, H, W);
-  window_attention_kernel<<<grid, 128, 0, stream>>>(qkv, bias, out, N, H, scale);
+  window_attention_kernel<ROWS><<<grid, 128, 0, stream>>>(qkv, bias, out, N, H, scale, rows);
   return cudaGetLastError();
 }
 

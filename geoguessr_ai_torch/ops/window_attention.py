@@ -8,7 +8,8 @@ plain PyTorch versions, a CUDA tensor launches the hand-written kernels
 (``csrc/``) or raises.  Signatures and layouts are those of the JAX
 package:
 
-* x is (W, N, C) window tokens;
+* x is (W, N, C) window tokens, or the raw (B, H, W, C) map for the 4D
+  block;
 * w_qkv is (C, 3D) and its output channels are interleaved per head:
   head h owns [h*3hd, (h+1)*3hd), with q|k|v slots of hd inside;
 * bias is the (H, N, N) additive attention bias.
@@ -17,12 +18,14 @@ Kernels:
 
 * K1 ``_fused_block_cuda``, K2 ``_fb_s2_cuda`` and K3
   ``_attention_qkv_fused_cuda``: the forwards;
+* K9 ``_fb4d_cuda``: K1 over the raw map, the window partition done by
+  index arithmetic in the attention launch;
 * K4 ``_attention_qkv_bwd_cuda`` and K5 ``_attention_bwd_merged_cuda``:
   the attention backward, K4 when the all-heads f32 score footprint
   H * N^2 * 4 is at most 6 MB (stages 1 and 3), else K5 (stage 2).
 
 The kernels take bf16 activations and weights; the bias travels bf16 into
-K1-K4, as it does into the Pallas kernels, and f32 into K5.  Every
+K1-K4 and K9, as it does into the Pallas kernels, and f32 into K5.  Every
 wrapper adds one to its entry in ``LAUNCHES`` each time it launches its
 kernel.
 """
@@ -38,6 +41,7 @@ LAUNCHES = {
     "_attention_qkv_fused_cuda": 0,
     "_attention_qkv_bwd_cuda": 0,
     "_attention_bwd_merged_cuda": 0,
+    "_fb4d_cuda": 0,
 }
 
 #: The only head dim the kernels are built for (every TinyViT stage).
@@ -90,11 +94,37 @@ def _ln_qkv_plain(x, ln_scale, ln_bias, w_qkv, b_qkv, eps):
 
 
 def _fused_block_plain(x, ln_scale, ln_bias, w_qkv, b_qkv, w_proj, b_proj,
-                       bias, scale, num_heads, eps):
-    """Mirror of ``_fused_block_xla``."""
+                       bias, scale, num_heads, eps,
+                       attn_fn=_attention_qkv_fused_plain):
+    """Mirror of ``_fused_block_xla``; ``attn_fn`` computes the attention
+    from qkv (the backwards pass ``_WindowAttentionQKV.apply``)."""
     qkv = _ln_qkv_plain(x, ln_scale, ln_bias, w_qkv, b_qkv, eps)
-    o = _attention_qkv_fused_plain(qkv, bias, scale, num_heads)
+    o = attn_fn(qkv, bias, scale, num_heads)
     return o @ w_proj.to(x.dtype) + b_proj.to(x.dtype)
+
+
+def window_partition(x: torch.Tensor, window: int) -> torch.Tensor:
+    """(B, H, W, C) -> (B*nH*nW, window*window, C)."""
+    B, H, W, C = x.shape
+    x = x.reshape(B, H // window, window, W // window, window, C)
+    return x.permute(0, 1, 3, 2, 4, 5).reshape(-1, window * window, C)
+
+
+def window_unpartition(x: torch.Tensor, window: int, hw) -> torch.Tensor:
+    H, W = hw
+    B = x.shape[0] // ((H // window) * (W // window))
+    x = x.reshape(B, H // window, W // window, window, window, -1)
+    return x.permute(0, 1, 3, 2, 4, 5).reshape(B, H, W, -1)
+
+
+def _fb4d_plain(x, ln_scale, ln_bias, w_qkv, b_qkv, w_proj, b_proj, bias,
+                scale, num_heads, window, eps,
+                attn_fn=_attention_qkv_fused_plain):
+    """Mirror of ``_fb4d_xla``: partition, the fused block, unpartition."""
+    out = _fused_block_plain(window_partition(x, window), ln_scale, ln_bias,
+                             w_qkv, b_qkv, w_proj, b_proj, bias, scale,
+                             num_heads, eps, attn_fn)
+    return window_unpartition(out, window, x.shape[1:3])
 
 
 def _fb_s2_plain(x, ln_scale, ln_bias, w_qkv, b_qkv, bias, scale,
@@ -238,31 +268,69 @@ def _fb_s2_cuda(x, ln_scale, ln_bias, w_qkv, b_qkv, bias, scale,
     return out
 
 
-def _fused_block_cuda(x, ln_scale, ln_bias, w_qkv, b_qkv, w_proj, b_proj,
-                      bias, scale, num_heads, eps):
+def _fused_block_launch(lib, x, ln_scale, ln_bias, w_qkv, b_qkv, w_proj,
+                        b_proj, bias, num_heads, N, tail):
+    """K1 and K9's shared launch: converts the operands to what the
+    kernels read, allocates qkv and the attention output as scratch in
+    x's row order, and calls ``lib``'s entry with ``tail`` (the geometry,
+    scale, eps) before the stream.  Returns (the entry's error code, the
+    output shaped like x)."""
     from geoguessr_ai_torch.ops import _build
 
-    W, N, C = x.shape
+    C = x.shape[-1]
     D = w_proj.shape[0]
-    _check_geometry(W, N, C, D, num_heads)
-    _check("x", x, (W, N, C))
+    rows = x.shape[:-1]
     ls = _vec_f32(ln_scale, C, "ln_scale")
     lb = _vec_f32(ln_bias, C, "ln_bias")
     wq = _weight_t(w_qkv, 3 * D, C)
+    # the qkv GEMM adds a bf16 bias, as the TPU kernel does
     bq = _vec_f32(b_qkv.to(torch.bfloat16), 3 * D, "b_qkv")
     wp = _weight_t(w_proj, C, D)
     bp = _vec_f32(b_proj, C, "b_proj")
     bias = _bias_bf16(bias, num_heads, N)
-    qkv = torch.empty((W, N, 3 * D), dtype=x.dtype, device=x.device)
-    attn = torch.empty((W, N, D), dtype=x.dtype, device=x.device)
-    out = torch.empty((W, N, C), dtype=x.dtype, device=x.device)
-    fn = _build.entry("fused_block")
-    err = fn(x.data_ptr(), ls.data_ptr(), lb.data_ptr(), wq.data_ptr(),
-             bq.data_ptr(), wp.data_ptr(), bp.data_ptr(), bias.data_ptr(),
-             qkv.data_ptr(), attn.data_ptr(), out.data_ptr(),
-             W, N, C, num_heads, float(scale), float(eps), _stream())
+    qkv = torch.empty((*rows, 3 * D), dtype=x.dtype, device=x.device)
+    attn = torch.empty((*rows, D), dtype=x.dtype, device=x.device)
+    out = torch.empty_like(x)
+    err = _build.entry(lib)(
+        x.data_ptr(), ls.data_ptr(), lb.data_ptr(), wq.data_ptr(),
+        bq.data_ptr(), wp.data_ptr(), bp.data_ptr(), bias.data_ptr(),
+        qkv.data_ptr(), attn.data_ptr(), out.data_ptr(), *tail, _stream())
+    return err, out
+
+
+def _fused_block_cuda(x, ln_scale, ln_bias, w_qkv, b_qkv, w_proj, b_proj,
+                      bias, scale, num_heads, eps):
+    W, N, C = x.shape
+    _check_geometry(W, N, C, w_proj.shape[0], num_heads)
+    _check("x", x, (W, N, C))
+    err, out = _fused_block_launch(
+        "fused_block", x, ln_scale, ln_bias, w_qkv, b_qkv, w_proj, b_proj,
+        bias, num_heads, N,
+        (W, N, C, num_heads, float(scale), float(eps)))
     _raise_on(err, "_fused_block_cuda")
     LAUNCHES["_fused_block_cuda"] += 1
+    return out
+
+
+def _fb4d_cuda(x, ln_scale, ln_bias, w_qkv, b_qkv, w_proj, b_proj, bias,
+               scale, num_heads, window, eps):
+    if x.dim() != 4:
+        raise ValueError(f"x must be (B, H, W, C), got {tuple(x.shape)}")
+    B, Hm, Wm, C = x.shape
+    N = window * window
+    if Hm % window or Wm % window:
+        raise ValueError(f"the map {Hm}x{Wm} is not a whole number of "
+                         f"{window}x{window} windows")
+    _check_geometry(B * (Hm // window) * (Wm // window), N, C,
+                    w_proj.shape[0], num_heads)
+    _check("x", x, (B, Hm, Wm, C))
+    # qkv and the attention output stay in map order, like x and out
+    err, out = _fused_block_launch(
+        "fb4d", x, ln_scale, ln_bias, w_qkv, b_qkv, w_proj, b_proj, bias,
+        num_heads, N,
+        (B, Hm, Wm, C, num_heads, window, float(scale), float(eps)))
+    _raise_on(err, "_fb4d_cuda")
+    LAUNCHES["_fb4d_cuda"] += 1
     return out
 
 
@@ -367,12 +435,34 @@ class _FusedBlockAttention(torch.autograd.Function):
     def backward(ctx, g):
         scale, num_heads, eps = ctx.args
         inputs = _grad_inputs(ctx.saved_tensors)
-        x, ln_scale, ln_bias, w_qkv, b_qkv, w_proj, b_proj, bias = inputs
         with torch.enable_grad():
-            qkv = _ln_qkv_plain(x, ln_scale, ln_bias, w_qkv, b_qkv, eps)
-            o = _WindowAttentionQKV.apply(qkv, bias, scale, num_heads)
-            out = o @ w_proj.to(x.dtype) + b_proj.to(x.dtype)
+            out = _fused_block_plain(*inputs, scale, num_heads, eps,
+                                     _WindowAttentionQKV.apply)
         return (*torch.autograd.grad(out, inputs, g), None, None, None)
+
+
+class _FusedBlockAttention4D(torch.autograd.Function):
+    """``fused_block_attention_4d``'s custom VJP (``_fb4d_fwd`` /
+    ``_fb4d_bwd``): the forward is K9 on the card; the backward recomputes
+    through the partition path with ``window_attention_qkv`` as the
+    attention (K3 and K4 on the card) and differentiates the rest, the
+    partition copies included, with autograd."""
+
+    @staticmethod
+    def forward(ctx, x, ln_scale, ln_bias, w_qkv, b_qkv, w_proj, b_proj, bias,
+                scale, num_heads, window, eps):
+        args = (x, ln_scale, ln_bias, w_qkv, b_qkv, w_proj, b_proj, bias)
+        ctx.save_for_backward(*args)
+        ctx.args = (scale, num_heads, window, eps)
+        fn = _fb4d_cuda if x.is_cuda else _fb4d_plain
+        return fn(*args, scale, num_heads, window, eps)
+
+    @staticmethod
+    def backward(ctx, g):
+        inputs = _grad_inputs(ctx.saved_tensors)
+        with torch.enable_grad():
+            out = _fb4d_plain(*inputs, *ctx.args, _WindowAttentionQKV.apply)
+        return (*torch.autograd.grad(out, inputs, g), None, None, None, None)
 
 
 class _FusedBlockAttentionNoproj(torch.autograd.Function):
@@ -416,6 +506,17 @@ def fused_block_attention(x, ln_scale, ln_bias, w_qkv, b_qkv, w_proj, b_proj,
     return _FusedBlockAttention.apply(x, ln_scale, ln_bias, w_qkv, b_qkv,
                                       w_proj, b_proj, bias, scale, num_heads,
                                       eps)
+
+
+def fused_block_attention_4d(x, ln_scale, ln_bias, w_qkv, b_qkv, w_proj,
+                             b_proj, bias, scale: float, num_heads: int,
+                             window: int, eps: float = 1e-5):
+    """``fused_block_attention`` over the raw (B, H, W, C) map cut into
+    window x window windows, H and W multiples of the window; the residual
+    add stays with the caller.  -> (B, H, W, C)."""
+    return _FusedBlockAttention4D.apply(x, ln_scale, ln_bias, w_qkv, b_qkv,
+                                        w_proj, b_proj, bias, scale,
+                                        num_heads, window, eps)
 
 
 def fused_block_attention_noproj(x, ln_scale, ln_bias, w_qkv, b_qkv, bias,

@@ -3,13 +3,18 @@
     python -m geoguessr_ai_torch.profile_forward [--bucket 16] [--steps 5] [--trace PATH]
     python -m geoguessr_ai_torch.profile_forward --backbone clip [--bucket 16]
     python -m geoguessr_ai_torch.profile_forward --train [--bucket 16] [--steps 3]
+    python -m geoguessr_ai_torch.profile_forward --embed [--bucket 512] [--no-knobs]
 
 Builds the full-width model (TinyViT-21M-512, or CLIP ViT-L/14-336 with
 ``--backbone clip``; bf16, 12647 cells, seeded random weights) on the GPU.
 By default it serves the fixture panorama at one bucket size through the
 ServingEngine; with ``--train`` (TinyViT only) it runs
 ``train_step`` on a fixed batch of ``--bucket`` fixture panoramas (f32
-master weights, the default freeze and optimizer).  Under
+master weights, the default freeze and optimizer); with ``--embed`` it runs
+the bulk-embedding ``Embedder`` on a fixed host batch of ``--bucket``
+decoded fixture images (default 512) in the embed configuration
+(``data.embed_builder.bulk_embed_config``: K1 at stage 3, K10 at stage 0
+and K9 at stage 1; ``--no-knobs`` turns K10 and K9 off).  Under
 ``torch.profiler`` it prints per forward or step: the host wall time, the
 device's busy time and idle share, device time by group and the kernels by
 device time.  The last line is the same as one JSON object.  Needs a GPU.
@@ -27,8 +32,9 @@ import torch
 
 #: Kernel-name substrings -> the port's layer they belong to, first match.
 GROUPS = (
-    ("window_attention_kernel", "attention (K1/K2/K3 CUDA)"),
-    ("ln_gemm_kernel", "LN+GEMM (K1/K2 CUDA)"),
+    ("window_attention_kernel", "attention (K1/K2/K3/K9 CUDA)"),
+    ("ln_gemm_kernel", "LN+GEMM (K1/K2/K9 CUDA)"),
+    ("mbconv_kernel", "fused MBConv (K10 CUDA)"),
     ("attn_bwd_", "attention backward (K4/K5 CUDA)"),
     ("clip_flash", "CLIP attention (K6/K11 CUDA)"),
     ("conv", "convolution (cuDNN)"),
@@ -79,10 +85,30 @@ def _train_runner(bucket: int):
     return run
 
 
+def _embed_runner(batch: int, knobs: bool):
+    from geoguessr_ai_torch.config import BackboneConfig
+    from geoguessr_ai_torch.data.embed_builder import (
+        Embedder,
+        bulk_embed_config,
+    )
+    from geoguessr_ai_torch.data.pipeline import decode_jpeg
+    from geoguessr_ai_torch.inference import fixture_panorama
+
+    emb = Embedder(BackboneConfig.tinyvit(),
+                   model_config=bulk_embed_config(knobs))  # the GPU
+    views = []
+    for p in fixture_panorama():
+        with open(p, "rb") as f:
+            views.append(decode_jpeg(f.read(), emb.image_size))
+    images = np.stack(views)[np.arange(batch) % len(views)]
+    return lambda: emb(images)  # ends with the embeddings on the host
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__)
-    ap.add_argument("--bucket", type=int, default=16,
-                    help="panoramas per forward or train step")
+    ap.add_argument("--bucket", type=int, default=None,
+                    help="panoramas per forward or train step (16), or "
+                         "images per batch with --embed (512)")
     ap.add_argument("--steps", type=int, default=None,
                     help="forwards or steps profiled (5, or 3 with --train)")
     ap.add_argument("--backbone", default="tinyvit",
@@ -90,16 +116,29 @@ def main(argv=None) -> None:
                     help="the served backbone (--train: tinyvit only)")
     ap.add_argument("--train", action="store_true",
                     help="profile train_step instead of the guess path")
+    ap.add_argument("--embed", action="store_true",
+                    help="profile the bulk-embedding Embedder instead")
+    ap.add_argument("--no-knobs", action="store_true",
+                    help="with --embed: fused_mbconv and fused_block_4d off")
     ap.add_argument("--trace", default=None,
                     help="also write a Chrome trace to this path")
     args = ap.parse_args(argv)
     steps = args.steps or (3 if args.train else 5)
     unit = "step" if args.train else "forward"
+    mode = "train" if args.train else "embed" if args.embed else "serve"
+    if args.bucket is None:
+        args.bucket = 512 if args.embed else 16
 
-    if args.train and args.backbone != "tinyvit":
-        ap.error("--train profiles the TinyViT train step only")
-    run = (_train_runner(args.bucket) if args.train
-           else _serve_runner(args.bucket, args.backbone))
+    if (args.train or args.embed) and args.backbone != "tinyvit":
+        ap.error("--train and --embed profile TinyViT only")
+    if args.train and args.embed:
+        ap.error("--train and --embed exclude each other")
+    if mode == "train":
+        run = _train_runner(args.bucket)
+    elif mode == "embed":
+        run = _embed_runner(args.bucket, knobs=not args.no_knobs)
+    else:
+        run = _serve_runner(args.bucket, args.backbone)
     for _ in range(2):
         run()
     torch.cuda.synchronize()
@@ -131,6 +170,9 @@ def main(argv=None) -> None:
 
     card = torch.cuda.get_device_name(0)
     what = "train steps" if args.train else "forwards"
+    if mode == "embed":
+        what += (", embed config, knobs "
+                 + ("off" if args.no_knobs else "on"))
     print(f"{card}: {args.backbone}, bucket {args.bucket}, {steps} {what} "
           "profiled")
     print(f"wall_ms_per_{unit} {wall_ms:.3f}")
@@ -143,7 +185,8 @@ def main(argv=None) -> None:
     for n, (c, ms) in top:
         print(f"  {ms:9.3f} ms  x{c:5.1f}  {n[:110]}")
     print(json.dumps({
-        "device": card, "mode": "train" if args.train else "serve",
+        "device": card, "mode": mode,
+        "knobs": None if mode != "embed" else not args.no_knobs,
         "backbone": args.backbone,
         "bucket": args.bucket, "wall_ms": wall_ms,
         "device_busy_ms": busy_ms, "idle_share": 1 - busy_ms / wall_ms,

@@ -339,3 +339,142 @@ def test_narrow_clip_engine_on_the_card_matches_the_cpu(cuda_device,
                              * np.linalg.norm(b, axis=-1))
     assert cos.min() >= 0.999, cos
     assert got.top_ids[0] == ref.top_ids[0]
+
+
+# ---------------------------------------------------------------------------
+# The bulk-embedding kernels: K9 (the 4D fused block) and K10 (the fused
+# MBConv).
+# ---------------------------------------------------------------------------
+
+#: (B, Hm, Wm, C, H): stage 1 of TinyViT-21M-512 (a 64x64 map of 16x16
+#: windows) at 2 images, and a narrow 32x32 map; window 16, hd=32.
+FB4D_SHAPES = [(2, 64, 64, 192, 6), (1, 32, 32, 64, 2)]
+
+
+def _fb4d_args(B, Hm, Wm, C, H, device, seed=0):
+    a = _inputs(B * Hm * Wm // 256, 256, C, H, device, seed)
+    a["x"] = a["x"].reshape(B, Hm, Wm, C)
+    return [a[k] for k in _K1_KEYS], (C // H) ** -0.5, H
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,Hm,Wm,C,H", FB4D_SHAPES)
+def test_cuda_fb4d_matches_plain(cuda_device, B, Hm, Wm, C, H):
+    args, scale, H = _fb4d_args(B, Hm, Wm, C, H, cuda_device)
+    before = wa.LAUNCHES["_fb4d_cuda"]
+    got = wa._fb4d_cuda(*args, scale, H, 16, 1e-5)
+    torch.cuda.synchronize()
+    assert wa.LAUNCHES["_fb4d_cuda"] == before + 1
+    want = wa._fb4d_plain(*args, scale, H, 16, 1e-5)
+    assert got.shape == want.shape == (B, Hm, Wm, C)
+    assert got.dtype == torch.bfloat16 and bool(torch.isfinite(got).all())
+    assert _rel_err(got, want) < KERNEL_REL_TOL
+
+
+@pytest.mark.cuda
+def test_cuda_fb4d_gradients_match_plain_autograd(cuda_device):
+    """K9 forward, then the partition-path recompute with K3 and K4, against
+    autograd through the plain version, at 1 image of stage 1."""
+    args, scale, H = _fb4d_args(1, 64, 64, 192, 6, cuda_device, seed=2)
+    leaves = [t.detach().requires_grad_() for t in args]
+    out = wa.fused_block_attention_4d(*leaves, scale, H, 16)
+    assert out.grad_fn is not None
+    gout = torch.randn(out.shape, device=cuda_device).to(out.dtype)
+    got = torch.autograd.grad(out, leaves, gout)
+    want = torch.autograd.grad(wa._fb4d_plain(*leaves, scale, H, 16, 1e-5),
+                               leaves, gout)
+    for i, (a, b) in enumerate(zip(got, want)):
+        assert a.shape == b.shape and a.dtype == b.dtype
+        assert _rel_err(a, b) < GRAD_REL_TOL, (i, _rel_err(a, b))
+
+
+def _mbconv_args(B, H, W, C, E, device, seed=0):
+    """bf16 x, f32 conv weights in the JAX layouts and folded BN pairs."""
+    from geoguessr_ai_torch.ops.mbconv import fold_bn
+
+    rng = np.random.default_rng(seed)
+
+    def t(*shape, std=1.0, mean=0.0):
+        a = rng.normal(mean, std, shape).astype(np.float32)
+        return torch.from_numpy(a).to(device)
+
+    def folded(n):
+        var = torch.from_numpy(rng.uniform(0.5, 2.0, n).astype(np.float32))
+        return fold_bn(t(n, mean=1.0, std=0.1), t(n, std=0.1),
+                       t(n, std=0.1), var.to(device))
+
+    return (t(B, H, W, C).bfloat16(), t(C, E, std=C ** -0.5), *folded(E),
+            t(3, 3, E, std=3 ** -1), *folded(E), t(E, C, std=E ** -0.5),
+            *folded(C))
+
+
+#: (B, H, W, C, E): stage 0 of TinyViT-21M-512 at 2 images, and a narrow
+#: map whose sides are no multiple of the 8 x 16 output tile.
+MBCONV_SHAPES = [(2, 128, 128, 96, 384), (3, 20, 24, 32, 128)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("exact", [False, True])
+@pytest.mark.parametrize("B,H,W,C,E", MBCONV_SHAPES)
+def test_cuda_mbconv_matches_plain(cuda_device, B, H, W, C, E, exact):
+    from geoguessr_ai_torch.ops import mbconv
+
+    args = _mbconv_args(B, H, W, C, E, cuda_device)
+    before = mbconv.LAUNCHES["_mbconv_cuda"]
+    got = mbconv._mbconv_cuda(*args, exact)
+    torch.cuda.synchronize()
+    assert mbconv.LAUNCHES["_mbconv_cuda"] == before + 1
+    want = mbconv._mbconv_plain(*args, exact)
+    assert got.shape == want.shape == (B, H, W, C)
+    assert got.dtype == torch.bfloat16 and bool(torch.isfinite(got).all())
+    assert _rel_err(got, want) < KERNEL_REL_TOL
+
+
+@pytest.mark.cuda
+def test_cuda_fused_mbconv_refuses_autograd_and_odd_shapes(cuda_device):
+    from geoguessr_ai_torch.ops import mbconv
+
+    args = list(_mbconv_args(1, 16, 16, 32, 128, cuda_device))
+    args[1] = args[1].requires_grad_()
+    with pytest.raises(RuntimeError, match="no backward"):
+        mbconv.fused_mbconv(*args)
+    with torch.no_grad():
+        assert mbconv.fused_mbconv(*args).shape == (1, 16, 16, 32)
+    with pytest.raises(ValueError, match="C in"):
+        mbconv._mbconv_cuda(args[0][..., :16].contiguous(), args[1][:16],
+                            *args[2:7], args[7][:, :16], *(a[:16] for a in
+                                                            args[8:]), False)
+    with pytest.raises(ValueError, match="bfloat16"):
+        mbconv._mbconv_cuda(args[0].float(), *args[1:], False)
+
+
+@pytest.mark.cuda
+def test_narrow_engine_with_both_knobs_on_the_card_matches_the_cpu(
+        cuda_device):
+    """fused_mbconv and fused_block_4d on the card (K10 at stage 0, K9 at
+    stage 1) vs f32 on the CPU (plain path), on the fixture panorama."""
+    from geoguessr_ai_torch.models.tinyvit import TinyViTConfig
+    from geoguessr_ai_torch.ops import mbconv
+    from geoguessr_ai_torch.serving.engine import ServingEngine
+
+    knobs = dict(fused_mbconv=True, fused_block_4d=True, **NARROW)
+    paths = sorted(glob.glob(os.path.join(FIXTURES, "heading=*.jpg")))
+    gpu = ServingEngine(seed=1, backbone_config=TinyViTConfig(**knobs))
+    wa.reset_launches()
+    mbconv.reset_launches()
+    got = gpu.predict_images(paths)
+    torch.cuda.synchronize()
+    assert mbconv.LAUNCHES["_mbconv_cuda"] == 1
+    assert wa.LAUNCHES == dict(wa.LAUNCHES, _fb4d_cuda=1, _fb_s2_cuda=1,
+                               _attention_qkv_fused_cuda=1,
+                               _fused_block_cuda=0)
+    assert sum(wa.LAUNCHES.values()) == 3, wa.LAUNCHES
+
+    cpu = ServingEngine(device="cpu", seed=1, backbone_config=TinyViTConfig(
+        dtype=torch.float32, **knobs))
+    want = cpu.predict_images(paths)
+    a, b = got.embedding.astype(np.float64), want.embedding.astype(np.float64)
+    cos = (a * b).sum(-1) / (np.linalg.norm(a, axis=-1)
+                             * np.linalg.norm(b, axis=-1))
+    assert cos.min() >= 0.999, cos
+    assert got.top_ids[0] == want.top_ids[0]

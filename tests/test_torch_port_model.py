@@ -199,7 +199,7 @@ def test_port_config_mirrors_jax_defaults():
     with pytest.raises(TypeError):  # options outside the slice do not exist
         ttv.TinyViTConfig(quant_mode="static")
     with pytest.raises(TypeError):
-        ttv.TinyViTConfig(fused_mbconv=True)
+        ttv.TinyViTConfig(remat_stages=(1,))
 
 
 def test_cast_weights_keeps_norms_and_biases_f32():

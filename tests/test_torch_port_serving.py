@@ -290,7 +290,10 @@ def test_port_imports_no_jax_flax_or_the_jax_package():
             "geoguessr_ai_torch/train/steps.py",
             "geoguessr_ai_torch/utils/logging.py",
             "geoguessr_ai_torch/models/clip_vit.py",
-            "geoguessr_ai_torch/ops/clip_attention.py"} <= rel
+            "geoguessr_ai_torch/ops/clip_attention.py",
+            "geoguessr_ai_torch/ops/mbconv.py",
+            "geoguessr_ai_torch/data/embed_builder.py",
+            "geoguessr_ai_torch/data/sqlite_dataset.py"} <= rel
     for path in files:
         tree = ast.parse(open(path).read(), filename=path)
         for node in ast.walk(tree):
@@ -318,6 +321,9 @@ def test_serving_engine_imports_with_jax_blocked():
         "import geoguessr_ai_torch.models.clip_vit\n"
         "import geoguessr_ai_torch.ops.clip_attention\n"
         "import geoguessr_ai_torch.profile_forward\n"
+        "import geoguessr_ai_torch.ops.mbconv\n"
+        "import geoguessr_ai_torch.data.embed_builder\n"
+        "import geoguessr_ai_torch.data.sqlite_dataset\n"
         "print('ok')\n"
     )
     env = dict(os.environ, PYTHONPATH=REPO + os.pathsep
