@@ -63,7 +63,27 @@ Phases, in order; any failure exits non-zero:
 15. serve the fixture panorama through a TinyViT engine with both knobs
     on (K10 2, K9 2, K2 6, K3 2, K1 0 launches a forward) against the
     default engine of phase 4, and its bucket-16 p50;
-16. print the kernel JSON line, then ``{"ok": true, "device": ...}`` last.
+16. hold the head-major attention kernels (K8a, K8b) against
+    ``_attention_plain`` at the head-major serving shapes and the
+    two-kernel backward (K7) at the B=16 train shape against its plain
+    version and against K5 on the same inputs, K7's outputs bitwise equal
+    over two calls; time kernel, plain version, SDPA (forward, or its
+    backward for K7) and the bound;
+17. with ``QKV_KERNEL_MIN_N`` raised, serve the head-major engine (every
+    attention stage through ``window_attention``): exact launches of one
+    forward at bucket 1 (K8b 2, K8a 8) and 16 (K8b 4, K8a 6), no other
+    TinyViT kernel, against the default engine of phase 4, and its p50s;
+    then phase 9's train step on the card against the CPU in the same
+    configuration;
+18. with ``BWD_MERGED`` False, ``train()`` at full width for 3 steps of 16
+    panoramas: K7 exactly 6 launches a step, K5 none; one train step from
+    the same seeded state and batch with K5 and with K7 (loss, the whole
+    gradient's cosine and each stage-2 attention leaf's) and both
+    train_step p50s;
+19. one B=16 train step with remat off, "full" and "dots" from the same
+    state and batch: loss, gradient cosine, running statistics moved once,
+    peak device memory;
+20. print the kernel JSON line, then ``{"ok": true, "device": ...}`` last.
 """
 
 from __future__ import annotations
@@ -143,6 +163,14 @@ def cuda_time_ms(fn, iters: int = 10) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def _bound(flops, nbytes):
+    """(the least time in ms for ``flops`` bf16 operations and ``nbytes``
+    bytes at the card's published peaks, which of the two bounds it)."""
+    t_bytes = nbytes / PEAK_BYTES_S * 1e3
+    t_ops = flops / PEAK_BF16_FLOP_S * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
 # ---------------------------------------------------------------------------
@@ -239,9 +267,7 @@ def _bound_ms(kernel, W, N, C, H):
         flops = 2.0 * W * N * C * 3 * D + attn_flops + 2.0 * W * N * D * C
         nbytes = (x_bytes + C * 3 * D * 2 + D * C * 2 + bias_bytes
                   + W * N * C * 2)
-    t_bytes = nbytes / PEAK_BYTES_S * 1e3
-    t_ops = flops / PEAK_BF16_FLOP_S * 1e3
-    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+    return _bound(flops, nbytes)
 
 
 def _sdpa_ms(qkv, bias, scale, H):
@@ -456,15 +482,15 @@ BWD_META = {
 def _bwd_bound_ms(kernel, W, N, H):
     """Five N x N x hd products per (window, head): s, dp, dv, dq, dk.
     Bytes: qkv and g read once, the bias read once (bf16 into K4, f32 into
-    K5), d_qkv (bf16) and d_bias (f32) written once."""
+    K5 and K7), d_qkv (bf16) and d_bias (f32) written once.  K7 computes
+    K5's function, so it has K5's bound: the products its d_bias launch
+    computes again are its design's, not work the function needs."""
     hd = 32
     D = H * hd
     flops = 10.0 * W * H * N * N * hd
     nbytes = (2 * W * N * 3 * D * 2 + W * N * D * 2
               + H * N * N * (2 if kernel == "K4" else 4) + H * N * N * 4)
-    t_bytes = nbytes / PEAK_BYTES_S * 1e3
-    t_ops = flops / PEAK_BF16_FLOP_S * 1e3
-    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+    return _bound(flops, nbytes)
 
 
 def _sdpa_bwd_ms(qkv, bias, g, scale, H):
@@ -783,15 +809,20 @@ def _cosine(a, b):
     return float((a @ b) / max(float(a.norm() * b.norm()), 1e-300))
 
 
-def _train_step_grads(device, dtype):
+def _train_step_grads(device, dtype, fields=None):
     """One train step of the fixture batch at CPU_TRAIN_BATCH: (loss, the
     gradients handed to the optimizer, the updated running statistics),
-    all on the host in f32."""
+    all on the host in f32.  ``fields`` are TinyViTConfig fields over
+    TinyViT-21M-512's."""
+    from geoguessr_ai_torch.models.tinyvit import TinyViTConfig
     from geoguessr_ai_torch.train.fixtures import fixture_train_setup
     from geoguessr_ai_torch.train.steps import train_step
 
+    config = None if fields is None else TinyViTConfig(
+        dtype=getattr(torch, dtype), **fields)
     state, batch, centroids = fixture_train_setup(
-        CPU_TRAIN_BATCH, device=device, seed=SEED, dtype=dtype)
+        CPU_TRAIN_BATCH, device=device, seed=SEED, dtype=dtype,
+        model_config=config)
     grads = {}
     step = state.optimizer.step
 
@@ -811,10 +842,10 @@ def _train_step_grads(device, dtype):
     return loss, grads, stats
 
 
-def phase_train_vs_cpu():
-    gl, gg, gs = _train_step_grads("cuda", "bfloat16")
-    cl, cg, cs = _train_step_grads("cpu", "float32")
-    bl, bg, bs = _train_step_grads("cpu", "bfloat16")
+def phase_train_vs_cpu(fields=None):
+    gl, gg, gs = _train_step_grads("cuda", "bfloat16", fields)
+    cl, cg, cs = _train_step_grads("cpu", "float32", fields)
+    bl, bg, bs = _train_step_grads("cpu", "bfloat16", fields)
     rel = abs(gl - cl) / abs(cl)
     log(f"  loss gpu {gl:.6f} cpu f32 {cl:.6f} rel {rel:.3g} "
         f"(tolerance {TRAIN_LOSS_RTOL}); cpu bf16 {bl:.6f}")
@@ -877,9 +908,7 @@ def _clip_bound_ms(kernel, B, N, D, H):
     if kernel == "K11":
         flops += 2.0 * B * N * D * D
         nbytes += D * D * 2
-    t_bytes = nbytes / PEAK_BYTES_S * 1e3
-    t_ops = flops / PEAK_BF16_FLOP_S * 1e3
-    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+    return _bound(flops, nbytes)
 
 
 def phase_clip_kernels():
@@ -1127,9 +1156,7 @@ def _mbconv_bound_ms(B):
     px = B * MB_MAP * MB_MAP
     flops = px * (4.0 * MB_C * MB_E + 18.0 * MB_E)
     nbytes = 2 * px * MB_C * 2 + 2 * MB_C * MB_E * 2 + 9 * MB_E * 4
-    t_bytes = nbytes / PEAK_BYTES_S * 1e3
-    t_ops = flops / PEAK_BF16_FLOP_S * 1e3
-    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+    return _bound(flops, nbytes)
 
 
 def _mbconv_cudnn_ms(args, exact=False):
@@ -1416,7 +1443,426 @@ def phase_knob_serve(paths, default_result):
 
 
 # ---------------------------------------------------------------------------
-# Phase 16: the kernels line
+# Phase 16: the head-major attention kernels (K8a, K8b) and the two-kernel
+# large-N backward (K7) against their plain versions
+# ---------------------------------------------------------------------------
+
+#: (kernel, label, W, H, N): the shapes the head-major serving path gives
+#: K8b (stage 1 and stage 3 at bucket 16) and K8a (stage 2 at bucket 16,
+#: stage 3 at bucket 1: W=4 is no multiple of BLOCK_W).
+HEADMAJOR_CASES = (
+    ("K8b", "stage1_bucket16", 1024, 6, 256),
+    ("K8b", "stage3_bucket16", 64, 18, 256),
+    ("K8a", "stage2_bucket16", 64, 12, 1024),
+    ("K8a", "stage3_bucket1", 4, 18, 256),
+)
+HEADMAJOR_META = {
+    "K8a": ("_attention_qtiled_cuda",
+            "geoguessr_ai_torch/ops/csrc/attention_headmajor.cu",
+            "geoguessr_ai_tpu/ops/window_attention.py:97"),
+    "K8b": ("_attention_batched_cuda",
+            "geoguessr_ai_torch/ops/csrc/attention_headmajor.cu",
+            "geoguessr_ai_tpu/ops/window_attention.py:165"),
+}
+K7_META = ("_attention_bwd_qtiled_cuda",
+           "geoguessr_ai_torch/ops/csrc/attention_bwd_qtiled.cu",
+           "geoguessr_ai_tpu/ops/window_attention.py:694")
+#: K7 at stage 2 of a TRAIN_BATCH train step.
+K7_CASE = (64, 1024, 12)
+
+
+def _headmajor_bound_ms(W, H, N):
+    """Two N x N x 32 products per (window, head); q, k, v read and the
+    output written once (bf16), the f32 bias read once."""
+    return _bound(4.0 * W * H * N * N * 32,
+                  4 * W * H * N * 32 * 2 + H * N * N * 4)
+
+
+def _headmajor_sdpa_ms(q, k, v, bias, scale):
+    """One scaled_dot_product_attention call on the same q, k, v with the
+    f32 bias as a float mask (the yardstick only; the port never calls
+    it).  Returns (ms, what was timed)."""
+    import torch.nn.functional as F
+
+    for mask, what in ((bias[None], "f32 bias as a float mask"),
+                       (bias.to(q.dtype)[None], "bias cast to bf16 (no "
+                        "SDPA backend takes an f32 mask with bf16 q)")):
+        try:
+            return cuda_time_ms(lambda: F.scaled_dot_product_attention(
+                q, k, v, attn_mask=mask, scale=scale)), what
+        except RuntimeError:
+            continue
+    return None, "no SDPA backend takes this mask"
+
+
+def phase_headmajor_kernels():
+    from geoguessr_ai_torch.ops import window_attention as wa
+
+    rows = {}
+    gen = torch.Generator().manual_seed(SEED + 5)
+    scale = 32 ** -0.5
+    for kernel, label, W, H, N in HEADMAJOR_CASES:
+        q, k, v = (torch.randn(W, H, N, 32, generator=gen).to(
+            "cuda", torch.bfloat16) for _ in range(3))
+        bias = (torch.randn(H, N, N, generator=gen) * 0.5).to("cuda")
+        kern = getattr(wa, HEADMAJOR_META[kernel][0])
+        args = (q, k, v, bias, scale)
+        got = kern(*args)
+        torch.cuda.synchronize()
+        want = wa._attention_plain(*args)
+        max_abs, rel = _rel_err(got, want)
+        finite = bool(torch.isfinite(got).all())
+        del got, want
+        ms = cuda_time_ms(lambda: kern(*args))
+        plain_ms = cuda_time_ms(lambda: wa._attention_plain(*args), iters=3)
+        lib_ms, lib_what = _headmajor_sdpa_ms(*args)
+        bound, bound_by = _headmajor_bound_ms(W, H, N)
+        log(f"{kernel} {label} W={W} H={H} N={N} (f32 bias)")
+        log(f"  max_abs_err {max_abs:.6g}")
+        log(f"  max_rel_err {rel:.6g} (tolerance {KERNEL_REL_TOL})")
+        log(f"  kernel_ms {ms:.4f}")
+        log(f"  plain_ms {plain_ms:.4f}")
+        log(f"  library_ms {'null' if lib_ms is None else f'{lib_ms:.4f}'} "
+            f"(scaled_dot_product_attention, {lib_what})")
+        log(f"  bound_ms {bound:.4f} ({bound_by})")
+        if not (finite and rel <= KERNEL_REL_TOL):
+            fail(f"{kernel} {label}: kernel disagrees with its plain version "
+                 f"(rel {rel:.3g}, finite {finite})")
+        rows[(kernel, label)] = dict(
+            max_abs_err=max_abs, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+            bound_ms=bound, bound_by=bound_by)
+        del q, k, v, bias, args
+        torch.cuda.empty_cache()
+
+    W, N, H = K7_CASE
+    D = H * 32
+    qkv = torch.randn(W, N, 3 * D, generator=gen).to("cuda", torch.bfloat16)
+    bias = (torch.randn(H, N, N, generator=gen) * 0.5).to("cuda")
+    g = torch.randn(W, N, D, generator=gen).to("cuda", torch.bfloat16)
+    args = (qkv, bias, g, scale, H)
+    got = wa._attention_bwd_qtiled_cuda(*args)
+    again = wa._attention_bwd_qtiled_cuda(*args)
+    torch.cuda.synchronize()
+    log(f"K7 stage2 W={W} N={N} H={H} (f32 bias; two launches a call)")
+    stable = torch.equal(got[1], again[1]) and torch.equal(got[0], again[0])
+    log(f"  d_bias and d_qkv bitwise equal over two calls: {stable}")
+    if not stable:
+        fail("K7: two calls on the same inputs gave different bits")
+    del again
+    errs = {}
+    for ref_name, ref in (("plain", wa._attention_bwd_qtiled_plain),
+                          ("K5", wa._attention_bwd_merged_cuda)):
+        want = ref(*args)
+        torch.cuda.synchronize()
+        for out, a, b in (("d_qkv", got[0], want[0]),
+                          ("d_bias", got[1], want[1])):
+            abs_err, rel = _rel_err(a, b)
+            finite = bool(torch.isfinite(a).all())
+            log(f"  {out} vs {ref_name} max_abs_err {abs_err:.6g} "
+                f"max_rel_err {rel:.6g} (tolerance {KERNEL_REL_TOL})")
+            if a.shape != b.shape or a.dtype != b.dtype or not finite \
+                    or rel > KERNEL_REL_TOL:
+                fail(f"K7: {out} disagrees with {ref_name} (rel {rel:.3g}, "
+                     f"finite {finite})")
+            errs.setdefault(out, abs_err)
+        del want
+    del got
+    ms = cuda_time_ms(lambda: wa._attention_bwd_qtiled_cuda(*args))
+    k5_ms = cuda_time_ms(lambda: wa._attention_bwd_merged_cuda(*args))
+    plain_ms = cuda_time_ms(lambda: wa._attention_bwd_qtiled_plain(*args),
+                            iters=3)
+    lib_ms, lib_note = _sdpa_bwd_ms(qkv, bias, g, scale, H)
+    bound, bound_by = _bwd_bound_ms("K7", W, N, H)
+    log(f"  kernel_ms {ms:.4f} (K5 on the same inputs {k5_ms:.4f})")
+    log(f"  plain_ms {plain_ms:.4f}")
+    log(f"  library_ms {'null' if lib_ms is None else f'{lib_ms:.4f}'} "
+        f"({lib_note})")
+    log(f"  bound_ms {bound:.4f} ({bound_by})")
+    rows[("K7", "stage2")] = dict(
+        max_abs_err=errs["d_qkv"], max_abs_err_dbias=errs["d_bias"], ms=ms,
+        k5_ms=k5_ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound,
+        bound_by=bound_by)
+    del qkv, bias, g, args
+    torch.cuda.empty_cache()
+    _reset_all_launches()
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# Phase 17: the head-major guess path
+# ---------------------------------------------------------------------------
+
+#: Launches of one head-major forward (QKV_KERNEL_MIN_N raised): stage 1
+#: (W = 16 windows an image) and stage 3 (one window an image) take K8b
+#: when W is a multiple of BLOCK_W, stage 2 (N=1024) K8a.
+HEADMAJOR_LAUNCHES = {
+    1: {"K8b": 2, "K8a": 8},   # 4 images: stage 3's W=4 takes K8a
+    16: {"K8b": 4, "K8a": 6},  # 64 images
+}
+
+
+def _headmajor_launches():
+    from geoguessr_ai_torch.ops import window_attention as wa
+
+    out = {k: wa.LAUNCHES[m[0]] for k, m in HEADMAJOR_META.items()}
+    out.update(_tinyvit_launches())
+    return out
+
+
+def phase_headmajor_serve(paths, default_result):
+    from geoguessr_ai_torch.models.tinyvit import TinyViTConfig
+    from geoguessr_ai_torch.ops import window_attention as wa
+    from geoguessr_ai_torch.profile_forward import HEAD_MAJOR, HEAD_MAJOR_MIN_N
+    from geoguessr_ai_torch.serving.engine import ServingEngine
+
+    saved = wa.QKV_KERNEL_MIN_N
+    wa.QKV_KERNEL_MIN_N = HEAD_MAJOR_MIN_N
+    try:
+        engine = ServingEngine(seed=SEED,
+                               backbone_config=TinyViTConfig(**HEAD_MAJOR))
+        _, views = _fixture_views(engine)
+        result = engine.predict_images(paths)  # warm-up, before the counters
+        torch.cuda.synchronize()
+        total = dict.fromkeys(HEADMAJOR_META, 0)
+        for bucket, want in HEADMAJOR_LAUNCHES.items():
+            batch = np.repeat(views[None], bucket, axis=0)
+            engine.predict_batch(batch)  # this bucket's warm-up
+            torch.cuda.synchronize()
+            _reset_all_launches()
+            engine.predict_batch(batch)
+            torch.cuda.synchronize()
+            launches = _headmajor_launches()
+            want = {k: want.get(k, 0) for k in launches}
+            log(f"head-major engine bucket {bucket}: launches in one forward "
+                f"{launches} (expected {want})")
+            if launches != want:
+                fail(f"head-major engine bucket {bucket}: launches "
+                     f"{launches}, expected {want}")
+            for k in total:
+                total[k] += launches[k]
+        cos = _view_cosines(result.embedding, default_result.embedding)
+        log(f"head-major engine vs default engine: min view cosine "
+            f"{cos.min():.6f} (>= {MIN_COSINE}), top-1 cell "
+            f"{result.top_ids[0]} / {default_result.top_ids[0]}")
+        if cos.min() < MIN_COSINE or \
+                result.top_ids[0] != default_result.top_ids[0]:
+            fail("the head-major engine disagrees with the default engine")
+        if not np.isfinite(result.embedding).all():
+            fail("non-finite output from the head-major engine")
+        for bucket in (1, 16):
+            batch = np.repeat(views[None], bucket, axis=0)
+            p50 = _p50_ms(lambda: engine.predict_batch(batch), reps=10)
+            log(f"head-major engine bucket {bucket}: p50 {p50:.2f} ms, "
+                f"{bucket / p50 * 1e3:.2f} panos/s")
+        del engine
+    finally:
+        wa.QKV_KERNEL_MIN_N = saved
+    gc.collect()
+    torch.cuda.empty_cache()
+    return total
+
+
+def phase_headmajor_train_vs_cpu():
+    from geoguessr_ai_torch.ops import window_attention as wa
+    from geoguessr_ai_torch.profile_forward import HEAD_MAJOR, HEAD_MAJOR_MIN_N
+
+    saved = wa.QKV_KERNEL_MIN_N
+    wa.QKV_KERNEL_MIN_N = HEAD_MAJOR_MIN_N
+    try:
+        log("head-major train step (QKV_KERNEL_MIN_N raised, every stage "
+            "through window_attention):")
+        phase_train_vs_cpu(HEAD_MAJOR)
+    finally:
+        wa.QKV_KERNEL_MIN_N = saved
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# Phase 18: the two-kernel backward (K7) in train() and in train_step
+# ---------------------------------------------------------------------------
+
+K7_TRAIN_STEPS = 3
+#: K7 at the 6 stage-2 blocks of every step; K5 not at all.
+K7_LAUNCHES_PER_STEP = {"K7": 6, "K5": 0}
+#: The same step with K5 and with K7: relative loss difference, the cosine
+#: of the whole flattened gradient, and the cosine of each leaf that K7's
+#: cotangents reach first, the attention leaves of the stage-2 blocks (both
+#: compute the same cotangents in f32 and round them to bf16 once; only
+#: sum orders differ).
+K7_LOSS_RTOL = 1e-3
+K7_GRAD_MIN_COSINE = 0.9999
+K7_STAGE2_LEAVES = ("stage2_block", ".attn.")
+#: Timed steps after the compared one.
+K7_STEP_REPS = 5
+
+
+def _k7_k5_launches():
+    from geoguessr_ai_torch.ops import window_attention as wa
+
+    return {"K7": wa.LAUNCHES[K7_META[0]], "K5": wa.LAUNCHES[BWD_META["K5"][0]]}
+
+
+def _step_grads_and_p50(fields=None, reps=5):
+    """(loss, flattened f32 gradient on the host, running statistics,
+    train_step p50 ms over ``reps`` more steps, peak device memory GB of
+    the first step, the gradients by name) of one TRAIN_BATCH train step of
+    the fixture batch from the seeded state."""
+    from geoguessr_ai_torch.models.tinyvit import TinyViTConfig
+    from geoguessr_ai_torch.train.fixtures import fixture_train_setup
+    from geoguessr_ai_torch.train.steps import train_step
+
+    config = None if fields is None else TinyViTConfig(**fields)
+    state, batch, centroids = fixture_train_setup(TRAIN_BATCH, seed=SEED,
+                                                  model_config=config)
+    grads = {}
+    step = state.optimizer.step
+
+    def capture(params, g):
+        if not grads:
+            grads.update({n: t.detach().float().cpu() for n, t in g.items()})
+        return step(params, g)
+
+    state.optimizer.step = capture
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _, metrics = train_step(state, batch, centroids)
+    loss = float(metrics["loss"])
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    stats = {n: b.detach().float().cpu()
+             for n, b in state.model.named_buffers()
+             if n.endswith(("running_mean", "running_var"))}
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        train_step(state, batch, centroids)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    flat = torch.cat([grads[n].flatten() for n in sorted(grads)])
+    del state, batch, centroids
+    gc.collect()
+    torch.cuda.empty_cache()
+    return loss, flat, stats, float(np.median(times)), peak_gb, grads
+
+
+def phase_k7_train():
+    from geoguessr_ai_torch import config as C
+    from geoguessr_ai_torch.config import TrainConfig
+    from geoguessr_ai_torch.geocells.manager import CentroidTable
+    from geoguessr_ai_torch.ops import window_attention as wa
+    from geoguessr_ai_torch.train.coordinator import train
+    from geoguessr_ai_torch.train.fixtures import fixture_records
+
+    saved = wa.BWD_MERGED
+    wa.BWD_MERGED = False
+    try:
+        cfg = TrainConfig(batch_size=TRAIN_BATCH, log_every_steps=1,
+                          seed=SEED)
+        records = fixture_records(TRAIN_BATCH * (K7_TRAIN_STEPS + 1),
+                                  seed=SEED)
+        split = TRAIN_BATCH * K7_TRAIN_STEPS
+        table = CentroidTable.load(C.CENTROID_TABLE_PATH)
+        torch.cuda.synchronize()
+        _reset_all_launches()
+        summary = train(cfg, records[:split], records[split:], table,
+                        max_steps=K7_TRAIN_STEPS)
+        torch.cuda.synchronize()
+        launches = _k7_k5_launches()
+        log(f"train() with BWD_MERGED=False: {K7_TRAIN_STEPS} steps of "
+            f"{TRAIN_BATCH} panoramas, val_loss {summary['val_loss']:.6f}, "
+            f"launches {launches}")
+        if not math.isfinite(summary.get("val_loss", float("nan"))):
+            fail(f"train() with BWD_MERGED=False: no finite val_loss "
+                 f"{summary}")
+        for k, per in K7_LAUNCHES_PER_STEP.items():
+            if launches[k] != per * K7_TRAIN_STEPS:
+                fail(f"train() with BWD_MERGED=False: {k} launched "
+                     f"{launches[k]} times, expected {per} per step x "
+                     f"{K7_TRAIN_STEPS}")
+        del summary
+        gc.collect()
+        torch.cuda.empty_cache()
+        _reset_all_launches()
+        two = _step_grads_and_p50(reps=K7_STEP_REPS)
+        two_launches = _k7_k5_launches()
+    finally:
+        wa.BWD_MERGED = saved
+    _reset_all_launches()
+    merged = _step_grads_and_p50(reps=K7_STEP_REPS)
+    merged_launches = _k7_k5_launches()
+    steps = 1 + K7_STEP_REPS
+    log(f"  launches over the {steps} steps of each: K7 step "
+        f"{two_launches}, K5 step {merged_launches}")
+    if two_launches != {"K7": 6 * steps, "K5": 0} or \
+            merged_launches != {"K7": 0, "K5": 6 * steps}:
+        fail("the K5-vs-K7 comparison did not run K7 and K5 as configured")
+    rel = abs(two[0] - merged[0]) / abs(merged[0])
+    cos = _cosine(two[1], merged[1])
+    log(f"train_step BWD_MERGED=True (K5) vs False (K7), same state and "
+        f"batch: loss {merged[0]:.6f} / {two[0]:.6f} rel {rel:.3g} "
+        f"(tolerance {K7_LOSS_RTOL}); gradient cosine {cos:.8f} "
+        f"(>= {K7_GRAD_MIN_COSINE})")
+    log(f"  train_step p50 K5 {merged[3]:.2f} ms, K7 {two[3]:.2f} ms "
+        f"({TRAIN_BATCH} panoramas, fixed device batch)")
+    leaves = sorted(n for n in merged[5]
+                    if all(part in n for part in K7_STAGE2_LEAVES))
+    if not leaves:
+        fail("the train step has no stage-2 attention gradients")
+    worst = 1.0
+    for n in leaves:
+        a, b = two[5][n], merged[5][n]
+        leaf_cos = _cosine(a, b)
+        worst = min(worst, leaf_cos)
+        _, leaf_rel = _rel_err(a, b)
+        log(f"  {n}: cosine {leaf_cos:.8f} max_rel_err {leaf_rel:.3g} "
+            f"bitwise equal {torch.equal(a, b)}")
+    log(f"  stage-2 attention leaves: {len(leaves)}, lowest cosine "
+        f"{worst:.8f} (>= {K7_GRAD_MIN_COSINE})")
+    if rel > K7_LOSS_RTOL or cos < K7_GRAD_MIN_COSINE \
+            or worst < K7_GRAD_MIN_COSINE:
+        fail("the K7 train step disagrees with the K5 one")
+    return launches["K7"]
+
+
+# ---------------------------------------------------------------------------
+# Phase 19: remat
+# ---------------------------------------------------------------------------
+
+#: remat off, "full" and "dots" from the same state and batch: the forward
+#: is the same computation, so the loss agrees to f32 noise and the running
+#: statistics (moved once, by the forward) to f32 noise; the gradients
+#: agree as the recompute repeats the same kernels.
+REMAT_LOSS_RTOL = 1e-6
+REMAT_GRAD_MIN_COSINE = 0.9999
+REMAT_STATS_RTOL = 1e-5
+
+
+def phase_remat():
+    base = _step_grads_and_p50(reps=3)
+    log(f"remat off: train_step B={TRAIN_BATCH} loss {base[0]:.6f}, p50 "
+        f"{base[3]:.2f} ms, peak device memory {base[4]:.3f} GB")
+    for policy in ("full", "dots"):
+        got = _step_grads_and_p50(dict(remat=True, remat_policy=policy),
+                                  reps=3)
+        rel = abs(got[0] - base[0]) / abs(base[0])
+        cos = _cosine(got[1], base[1])
+        worst = max(float((got[2][n] - base[2][n]).abs().max()
+                          / base[2][n].abs().max().clamp_min(1e-30))
+                    for n in base[2])
+        log(f"remat {policy}: loss {got[0]:.6f} rel {rel:.3g} (<= "
+            f"{REMAT_LOSS_RTOL}); gradient cosine {cos:.8f} (>= "
+            f"{REMAT_GRAD_MIN_COSINE}); running statistics max rel diff "
+            f"{worst:.3g} (<= {REMAT_STATS_RTOL}); p50 {got[3]:.2f} ms; peak "
+            f"device memory {got[4]:.3f} GB ({got[4] / base[4]:.3f} of "
+            f"remat off)")
+        if rel > REMAT_LOSS_RTOL or cos < REMAT_GRAD_MIN_COSINE \
+                or worst > REMAT_STATS_RTOL:
+            fail(f"remat {policy} disagrees with remat off")
+
+
+# ---------------------------------------------------------------------------
+# Phase 20: the kernels line
 # ---------------------------------------------------------------------------
 
 
@@ -1442,6 +1888,11 @@ def main():
     embed_rows = phase_embed_kernels()
     embed_launches = phase_embed(paths)
     knob_launches = phase_knob_serve(paths, result)
+    hm_rows = phase_headmajor_kernels()
+    hm_launches = phase_headmajor_serve(paths, result)
+    phase_headmajor_train_vs_cpu()
+    k7_launches = phase_k7_train()
+    phase_remat()
 
     main_case = {"K1": "stage1", "K2": "stage2", "K3": "stage3",
                  "K4": "stage1", "K5": "stage2"}
@@ -1497,6 +1948,33 @@ def main():
                 row["lib_ms"],
             "bucket16_ms": embed_rows[(k, 64)]["ms"],
         })
+    for k, (name, source, replaces) in HEADMAJOR_META.items():
+        main_label = ("stage2_bucket16" if k == "K8a"
+                      else "stage1_bucket16")
+        row = hm_rows[(k, main_label)]
+        kernels.append({
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": hm_launches[k],
+            "max_abs_err": row["max_abs_err"], "ms": row["ms"],
+            "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"],
+            # SDPA with the bias as a float mask computes the function
+            "library_ms": row["library_ms"],
+            "other_shapes_ms": {label: r["ms"] for (kk, label), r
+                                in hm_rows.items()
+                                if kk == k and label != main_label},
+        })
+    row = hm_rows[("K7", "stage2")]
+    kernels.append({
+        "name": K7_META[0], "route": "cuda", "source": K7_META[1],
+        "replaces": K7_META[2], "launches": k7_launches,
+        "max_abs_err": row["max_abs_err"],
+        "max_abs_err_dbias": row["max_abs_err_dbias"], "ms": row["ms"],
+        "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+        "bound_by": row["bound_by"],
+        # SDPA's backward computes K7's function (as K4's and K5's)
+        "library_ms": row["library_ms"], "k5_same_inputs_ms": row["k5_ms"],
+    })
     log(card)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

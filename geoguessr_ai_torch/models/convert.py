@@ -16,6 +16,13 @@ name; only leaf names and layouts change:
   (D,) biases; channel h*hd + d is head h's dim d.  Going back needs the
   head count (``to_jax_variables(..., num_heads=H)``).
 
+A TinyViT stage that the JAX package scans (``TinyViTConfig.scan_stages``)
+keeps its blocks' leaves stacked along axis 0 under ``stage{N}_scan/block``;
+``from_jax_variables`` unstacks them into the port's ``stage{N}_block{d}``
+modules, and ``to_jax_variables(..., scan_stages=...)`` stacks them back
+for the listed stages that have more than one block, stage 0 (the MBConv
+stage) excepted: the JAX package scans no other.
+
 ``from_jax_variables`` takes ``{"params": ..., "batch_stats": ...}`` as
 nested dicts of numpy arrays; ``to_jax_variables`` is its inverse, so that
 gradients, updated parameters and running statistics of the port can be
@@ -24,7 +31,9 @@ compared with the JAX tree leaf by leaf.  Nothing here sees JAX.
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+import collections
+import re
+from typing import Dict, Iterable, Optional
 
 import numpy as np
 import torch
@@ -36,6 +45,23 @@ def _flatten(tree, prefix=()):
             yield from _flatten(v, prefix + (str(k),))
         else:
             yield prefix + (str(k),), np.asarray(v)
+
+
+_SCAN = re.compile(r"stage(\d+)_scan$")
+
+
+def _unstacked(leaves):
+    """(path, value) leaves with every ``stage{N}_scan/block`` leaf split
+    along axis 0 into its ``stage{N}_block{d}`` leaves."""
+    for path, value in leaves:
+        i = next((i for i, k in enumerate(path[:-1])
+                  if _SCAN.match(k) and path[i + 1] == "block"), None)
+        if i is None:
+            yield path, value
+            continue
+        stage = _SCAN.match(path[i]).group(1)
+        for d, v in enumerate(value):
+            yield path[:i] + (f"stage{stage}_block{d}",) + path[i + 2:], v
 
 
 #: Leaves that keep their name and layout.
@@ -78,10 +104,11 @@ _STATS = {"mean": "running_mean", "var": "running_var"}
 def from_jax_variables(variables) -> Dict[str, torch.Tensor]:
     """Flax ``{"params", "batch_stats"}`` (numpy leaves) -> state dict."""
     out = {}
-    for path, value in _flatten(variables["params"]):
+    for path, value in _unstacked(_flatten(variables["params"])):
         name, value = _param(path, value)
         out[name] = torch.from_numpy(np.ascontiguousarray(value, np.float32))
-    for path, value in _flatten(variables.get("batch_stats", {})):
+    for path, value in _unstacked(_flatten(variables.get("batch_stats",
+                                                         {}))):
         *mods, leaf = path
         if leaf not in _STATS:
             raise ValueError(f"unknown batch stat {'/'.join(path)}")
@@ -99,14 +126,44 @@ def _put(tree, path, value):
 _STATS_BACK = {v: k for k, v in _STATS.items()}
 
 
+_BLOCK = re.compile(r"stage(\d+)_block(\d+)$")
+
+
+def _stack_leaves(trees):
+    if isinstance(trees[0], dict):
+        return {k: _stack_leaves([t[k] for t in trees]) for k in trees[0]}
+    return np.stack(trees)
+
+
+def _stack_scanned(tree, scan_stages):
+    """Under every dict of a flax tree, the ``stage{N}_block{d}`` subtrees
+    of each stage N > 0 in ``scan_stages`` that has more than one block
+    become ``stage{N}_scan/block``, their leaves stacked along axis 0."""
+    if not isinstance(tree, dict):
+        return tree
+    tree = {k: _stack_scanned(v, scan_stages) for k, v in tree.items()}
+    by_stage = collections.defaultdict(dict)
+    for k in tree:
+        m = _BLOCK.match(k)
+        if m and int(m.group(1)) in scan_stages - {0}:
+            by_stage[m.group(1)][int(m.group(2))] = k
+    for stage, blocks in by_stage.items():
+        if len(blocks) > 1:
+            subtrees = [tree.pop(blocks[d]) for d in sorted(blocks)]
+            tree[f"stage{stage}_scan"] = {"block": _stack_leaves(subtrees)}
+    return tree
+
+
 def to_jax_variables(named: Dict[str, torch.Tensor],
-                     num_heads: Optional[int] = None):
+                     num_heads: Optional[int] = None,
+                     scan_stages: Iterable[int] = ()):
     """Port state dict (or any name -> tensor dict with its names, such as
     gradients) -> ``{"params": ..., "batch_stats": ...}`` of f32 numpy
     arrays in flax layout; ``batch_stats`` only when running statistics are
     among the names.  ``num_heads`` splits CLIP's attention projections
     back into their DenseGeneral shapes; it is needed only when they are
-    among the names."""
+    among the names.  ``scan_stages`` (a TinyViT config's) stacks those
+    stages' blocks in the scanned layout."""
     params, stats = {}, {}
     for name, t in named.items():
         *mods, leaf = name.split(".")
@@ -137,7 +194,8 @@ def to_jax_variables(named: Dict[str, torch.Tensor],
         elif leaf not in _AS_IS:
             raise ValueError(f"unknown parameter {name}")
         _put(params, mods + [leaf], np.ascontiguousarray(value))
-    out = {"params": params}
+    scan_stages = set(scan_stages)
+    out = {"params": _stack_scanned(params, scan_stages)}
     if stats:
-        out["batch_stats"] = stats
+        out["batch_stats"] = _stack_scanned(stats, scan_stages)
     return out

@@ -12,9 +12,15 @@ exactly as the JAX ``WindowAttention`` selects them:
 * ``fused_block_noproj_stages`` and N % 128 == 0: K2
   (``fused_block_attention_noproj``), then the out-projection;
 * ``fused_block_stages`` and N % 128 == 0: K1 (``fused_block_attention``);
-* ``pallas_attention_stages`` and N % 128 == 0: LN and qkv GEMM, K3
+* ``pallas_attention_stages``, N % 128 == 0 and N >= the module constant
+  ``ops.window_attention.QKV_KERNEL_MIN_N``: LN and qkv GEMM, K3
   (``window_attention_qkv``), out-projection;
-* otherwise the plain attention.
+* ``pallas_attention_stages`` and N % 128 == 0 (N below that constant):
+  the head-major route, q, k and v emitted (W, H, N, hd) by the projection
+  einsums, K8a/K8b (``window_attention``), the back-projection consuming
+  head-major;
+* otherwise the plain attention forward with the kernel backward
+  (``window_attention_qkv_xla``: K4, or K5/K7, on the card).
 
 Two opt-in knobs of the JAX config, both off by default and both turned on
 by the bulk-embedding configuration, route through further kernels under
@@ -28,19 +34,36 @@ the batch statistics and updates the running ones, and applies DropPath
 with the caller's ``torch.Generator``.  Training keeps the parameters in
 f32 and casts them per use; ``TinyViT.cast_weights_`` is for serving.
 
-Quantization, remat and scan of the JAX config are not ported; the config
-has no such fields.
+The memory knobs of the JAX config: ``remat`` checkpoints each MBConv and
+TinyViTBlock of ``remat_stages`` (all when None) with
+``torch.utils.checkpoint`` ("full" recomputes everything; "dots" keeps the
+outputs of the plain GEMMs, as ``dots_with_no_batch_dims_saveable``).  The
+recompute draws DropPath's masks again from the generator state the
+forward drew them from, and leaves the BatchNorm running statistics as the
+forward moved them.  ``scan_stages`` runs as the unrolled loop it computes
+the same as (``scan_remat`` checkpoints each block), with the JAX
+package's checks and its silent fallback for a stage of depth 1; its flax
+parameter layout, ``stage{N}_scan/block/...`` stacked along axis 0, is
+mapped to and from the per-block modules by ``models/convert.py``.
+Quantization is not ported; the config has no such field.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+import functools
+import threading
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
 from geoguessr_ai_torch.ops import mbconv
 from geoguessr_ai_torch.ops import window_attention as wa
@@ -73,6 +96,20 @@ class TinyViTConfig:
     #: Multi-window ``fused_block_stages`` stages (stage 1 at 64x64, w=16)
     #: through the 4D fused block (K9) on the raw map.
     fused_block_4d: bool = False
+    #: Checkpoint the blocks of ``remat_stages`` (None: every stage) in the
+    #: backward, trading a second forward for their activation memory.
+    remat: bool = False
+    remat_stages: Optional[Tuple[int, ...]] = None
+    #: "full" recomputes everything; "dots" keeps the plain GEMM outputs.
+    remat_policy: str = "full"
+    #: Stages whose blocks the JAX package runs under ``lax.scan`` (a stage
+    #: of depth > 1 other than stage 0; drop_path_rate 0, no remat_stages
+    #: overlap).  Kept for parity with the JAX config: here a scanned stage
+    #: is the unrolled loop and the field only runs the JAX checks; the
+    #: stacked flax layout is read and written by ``models/convert.py``.
+    scan_stages: Tuple[int, ...] = ()
+    #: remat "full" on the blocks of the scanned stages (``_stage_remat``).
+    scan_remat: bool = False
 
     @staticmethod
     def tiny_vit_21m_512(**overrides) -> "TinyViTConfig":
@@ -89,6 +126,50 @@ def _gelu(x, exact: bool):
 
 def _linear(x, lin: nn.Linear, dtype):
     return F.linear(x, lin.weight.to(dtype), lin.bias.to(dtype))
+
+
+#: ``active`` while a checkpointed block recomputes its forward.
+_RECOMPUTE = threading.local()
+
+#: The GEMMs whose outputs remat_policy="dots" keeps: plain products, not
+#: batched ones, not convolutions.
+_SAVED_GEMMS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in _SAVED_GEMMS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _checkpointed(block, x, dtype, train, generator, policy):
+    """``block(x, dtype, train, generator)`` under
+    ``torch.utils.checkpoint``: the backward runs the block again, with a
+    generator restored to the state the forward drew from (``checkpoint``
+    restores only the global generators) and with the BatchNorm running
+    statistics left as the forward moved them."""
+    state = None if generator is None else generator.get_state()
+    calls = []
+
+    def run(x):
+        if not calls:
+            calls.append(1)
+            return block(x, dtype, train, generator)
+        gen = None
+        if generator is not None:
+            gen = torch.Generator(device=generator.device)
+            gen.set_state(state)
+        _RECOMPUTE.active = True
+        try:
+            return block(x, dtype, train, gen)
+        finally:
+            _RECOMPUTE.active = False
+
+    kw = {}
+    if policy == "dots":
+        kw["context_fn"] = functools.partial(
+            create_selective_checkpoint_contexts, _dots_policy)
+    return checkpoint(run, x, use_reentrant=False, preserve_rng_state=False,
+                      **kw)
 
 
 class _BN(nn.Module):
@@ -109,16 +190,20 @@ class _BN(nn.Module):
         with the running statistics.  Train normalises with the batch mean
         and flax's fast variance max(E[x^2] - E[x]^2, 0), both f32 over
         (N, H, W), and moves the running statistics 0.1 of the way to them
-        (the biased variance, unlike ``F.batch_norm``)."""
+        (the biased variance, unlike ``F.batch_norm``), except in a remat
+        recompute."""
         xf = x.float()
         if train:
             dims = tuple(range(x.ndim - 1))
             mean = xf.mean(dims)
             var = torch.clamp((xf * xf).mean(dims) - mean * mean, min=0.0)
             m = self.MOMENTUM
-            with torch.no_grad():
-                self.running_mean.copy_(m * self.running_mean + (1 - m) * mean)
-                self.running_var.copy_(m * self.running_var + (1 - m) * var)
+            if not getattr(_RECOMPUTE, "active", False):
+                with torch.no_grad():
+                    self.running_mean.copy_(
+                        m * self.running_mean + (1 - m) * mean)
+                    self.running_var.copy_(
+                        m * self.running_var + (1 - m) * var)
         else:
             mean, var = self.running_mean, self.running_var
         mul = torch.rsqrt(var + 1e-5) * self.weight
@@ -288,12 +373,34 @@ class WindowAttention(nn.Module):
                 x, n.weight, n.bias, q.weight.t(), q.bias, p.weight.t(),
                 p.bias, bias, scale, H)
         x = F.layer_norm(x.float(), (C,), n.weight, n.bias, 1e-5).to(dtype)
+        kernel = self.use_kernel_qkv and N % 128 == 0
+        if kernel and N < wa.QKV_KERNEL_MIN_N:
+            return self._head_major(x, dtype, bias, scale)
         qkv = _linear(x, q, dtype)
-        if self.use_kernel_qkv and N % 128 == 0:
+        if kernel:
             out = wa.window_attention_qkv(qkv, bias, scale, H)
         else:
-            out = wa._attention_qkv_fused_plain(qkv, bias, scale, H)
+            out = wa.window_attention_qkv_xla(qkv, bias, scale, H)
         return _linear(out, p, dtype)
+
+    def _head_major(self, x, dtype, bias, scale):
+        """The JAX module's head-major branch: q, k, v (B, H, N, hd), each
+        product rounded to the compute dtype and its bias slice added in
+        it, ``window_attention``, and the back-projection from head-major
+        plus the proj bias in the compute dtype."""
+        C = x.shape[-1]
+        H = self.num_heads
+        hd = C // H
+        # qkv output channel c -> (head c // 3hd, q|k|v slot, dim)
+        wk = self.qkv.weight.t().reshape(C, H, 3, hd).to(dtype)
+        wb = self.qkv.bias.reshape(H, 3, 1, hd).to(dtype)
+        q, k, v = (
+            (torch.einsum("bnc,chd->bhnd", x, wk[:, :, i]) + wb[:, i])
+            .contiguous() for i in range(3))
+        out = wa.window_attention(q, k, v, bias, scale)
+        wp = self.proj.weight.t().reshape(H, hd, C).to(dtype)
+        return (torch.einsum("bhnd,hdc->bnc", out, wp)
+                + self.proj.bias.to(dtype))
 
 
 class Mlp(nn.Module):
@@ -359,8 +466,11 @@ class TinyViT(nn.Module):
         dpr = iter(np.linspace(0.0, cfg.drop_path_rate,
                                sum(cfg.depths)).tolist())
         res = -(-cfg.image_size // 4)  # the stem's two stride-2 convs
+        #: block name -> remat policy, for the blocks run under checkpoint
+        self._remat = {}
         for stage, depth in enumerate(cfg.depths):
             dim = cfg.embed_dims[stage]
+            policy = self._stage_remat(stage)
             # a window larger than the map shrinks to it, as the JAX block's
             # w = min(window, H, W) does; its bias table follows
             window = min(cfg.window_sizes[stage], res)
@@ -382,6 +492,8 @@ class TinyViT(nn.Module):
                     )
                 self.add_module(name, block)
                 self._order.append(name)
+                if policy is not None:
+                    self._remat[name] = policy
             if stage < len(cfg.depths) - 1:
                 name = f"downsample{stage}"
                 self.add_module(name, PatchMerging(
@@ -389,6 +501,29 @@ class TinyViT(nn.Module):
                 self._order.append(name)
                 res = -(-res // 2)
         self.norm_head = nn.LayerNorm(cfg.embed_dims[-1], eps=1e-5)
+
+    def _stage_remat(self, stage: int) -> Optional[str]:
+        """The remat policy of a stage's blocks, or None, with the JAX
+        module's checks on a scanned stage.  A listed stage of depth 1, or
+        stage 0, is not scanned (the JAX package falls back to the unrolled
+        loop without a word); quantization, which a scanned stage must not
+        use, is not ported."""
+        cfg = self.config
+        remat_stages = (set(range(len(cfg.depths)))
+                        if cfg.remat_stages is None else set(cfg.remat_stages))
+        if stage > 0 and stage in cfg.scan_stages and cfg.depths[stage] > 1:
+            if cfg.drop_path_rate != 0.0:
+                raise ValueError("scan_stages needs homogeneous blocks "
+                                 "(drop_path_rate == 0)")
+            if cfg.remat and stage in remat_stages:
+                raise ValueError(
+                    "a scanned stage cannot also be remat'd via "
+                    "remat_stages: use scan_remat (per-block checkpoint "
+                    "inside the scan body) instead")
+            return "full" if cfg.scan_remat else None
+        if cfg.remat and stage in remat_stages:
+            return "dots" if cfg.remat_policy == "dots" else "full"
+        return None
 
     def cast_weights_(self) -> "TinyViT":
         """Stores conv and linear weights in the compute dtype once, so the
@@ -406,7 +541,12 @@ class TinyViT(nn.Module):
         dtype = self.config.dtype
         x = pixel_values.to(dtype)
         for name in self._order:
-            x = getattr(self, name)(x, dtype, train, generator)
+            block = getattr(self, name)
+            policy = self._remat.get(name)
+            if policy is not None and torch.is_grad_enabled():
+                x = _checkpointed(block, x, dtype, train, generator, policy)
+            else:
+                x = block(x, dtype, train, generator)
         x = x.reshape(x.shape[0], -1, x.shape[-1]).float().mean(dim=1)
         n = self.norm_head
         return F.layer_norm(x, n.normalized_shape, n.weight, n.bias, 1e-5)

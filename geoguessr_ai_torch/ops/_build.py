@@ -18,7 +18,7 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Dict, Iterable
+from typing import Dict, Iterable, Optional
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
@@ -30,40 +30,33 @@ NVCC_FLAGS = (
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
-#: C signature of every entry point, by library name.
-SIGNATURES: Dict[str, tuple] = {
-    "attention_qkv": ("attention_qkv_bf16", (_P, _P, _P, _I, _I, _I, _F, _P)),
-    "fb_s2": (
-        "fb_s2_bf16",
-        (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _P),
-    ),
-    "fused_block": (
-        "fused_block_bf16",
-        (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-         _I, _I, _I, _I, _F, _F, _P),
-    ),
-    "attention_qkv_bwd": (
-        "attention_qkv_bwd_bf16",
-        (_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _P),
-    ),
-    "attention_bwd_merged": (
-        "attention_bwd_merged_bf16",
-        (_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _P),
-    ),
-    "fb4d": (
-        "fb4d_bf16",
-        (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-         _I, _I, _I, _I, _I, _I, _F, _F, _P),
-    ),
-    "mbconv": (
-        "mbconv_bf16",
-        (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
-    ),
-    "clip_flash": ("clip_flash_bf16", (_P, _P, _I, _I, _I, _F, _P)),
-    "clip_flash_proj": (
-        "clip_flash_proj_bf16",
-        (_P, _P, _P, _I, _I, _I, _F, _P),
-    ),
+#: Entry points of every library, by library name: C name -> argtypes.
+SIGNATURES: Dict[str, Dict[str, tuple]] = {
+    "attention_qkv": {"attention_qkv_bf16": (_P, _P, _P, _I, _I, _I, _F, _P)},
+    "fb_s2": {"fb_s2_bf16": (
+        _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _P)},
+    "fused_block": {"fused_block_bf16": (
+        _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+        _I, _I, _I, _I, _F, _F, _P)},
+    "attention_qkv_bwd": {"attention_qkv_bwd_bf16": (
+        _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _P)},
+    "attention_bwd_merged": {"attention_bwd_merged_bf16": (
+        _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _P)},
+    "attention_bwd_qtiled": {"attention_bwd_qtiled_bf16": (
+        _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _P)},
+    "attention_headmajor": {
+        "attention_qtiled_bf16": (_P, _P, _P, _P, _P, _I, _I, _I, _F, _P),
+        "attention_batched_bf16": (
+            _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P),
+    },
+    "fb4d": {"fb4d_bf16": (
+        _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+        _I, _I, _I, _I, _I, _I, _F, _F, _P)},
+    "mbconv": {"mbconv_bf16": (
+        _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P)},
+    "clip_flash": {"clip_flash_bf16": (_P, _P, _I, _I, _I, _F, _P)},
+    "clip_flash_proj": {"clip_flash_proj_bf16": (
+        _P, _P, _P, _I, _I, _I, _F, _P)},
 }
 
 
@@ -123,17 +116,20 @@ def build_log(name: str) -> str:
 
 @functools.cache
 def library(name: str) -> ctypes.CDLL:
-    """The loaded library ``name`` with its entry point's argtypes set;
+    """The loaded library ``name`` with its entry points' argtypes set;
     builds it first when needed."""
     build((name,))
     lib = ctypes.CDLL(str(_target(name)))
-    fn_name, argtypes = SIGNATURES[name]
-    fn = getattr(lib, fn_name)
-    fn.argtypes = list(argtypes)
-    fn.restype = ctypes.c_int
+    for fn_name, argtypes in SIGNATURES[name].items():
+        fn = getattr(lib, fn_name)
+        fn.argtypes = list(argtypes)
+        fn.restype = ctypes.c_int
     return lib
 
 
-def entry(name: str):
-    """The C entry point of library ``name``."""
-    return getattr(library(name), SIGNATURES[name][0])
+def entry(name: str, fn_name: Optional[str] = None):
+    """The C entry point ``fn_name`` of library ``name``; the library's
+    only one when ``fn_name`` is None."""
+    if fn_name is None:
+        (fn_name,) = SIGNATURES[name]
+    return getattr(library(name), fn_name)

@@ -1,0 +1,265 @@
+// K8a and K8b: head-major window attention
+//
+//     out[w, h] = softmax(q[w, h] k[w, h]^T * scale + bias[h]) v[w, h]
+//
+// q, k, v, out (W, H, N, 32) bf16, bias (H, N, N) f32.  Replaces the two
+// Pallas kernels behind the JAX package's window_attention
+// (geoguessr_ai_tpu/ops/window_attention.py): K8a _attention_qtiled
+// (_qtiled_kernel), chosen at N >= 512 or when W is not a multiple of
+// BLOCK_W, and K8b _attention_batched (_batched_kernel), BLOCK_W windows of
+// one head per grid cell.  Numerics as there: f32 scores plus the f32 bias
+// (unlike K1-K4, which round the bias to bf16), f32 softmax, p rounded to
+// bf16 before the p.v product, f32 accumulation.
+//
+// What bounds it on an H100: at stage 2 of a serving bucket of 16
+// (W=64, H=12, N=1024) the 1.03e11 flops of the two products (0.104 ms at
+// the bf16 peak); at stage 1 (W=1024, H=6, N=256) the 403 MB of q, k, v and
+// out (0.120 ms at 3.35 TB/s).  Beside those sits the f32 bias: 50 MB at
+// stage 2, the whole L2.  The Pallas grid (head, q-tile, window) keeps one
+// (head, q-tile) bias block resident across the windows; a block per
+// (window, head, q-tile) launched window-major would fetch it once per
+// window, 64 x 50 MB.  So:
+//
+// * K8a launches its blocks window-fastest (grid (W, N/64, H)): blocks
+//   scheduled together share one (head, q-tile) and its 64 x N f32 bias
+//   rows, read from device memory once and then from L2;
+// * K8b gives one block a (q-tile, head) and BW windows, and stages the
+//   block's 64 x N f32 bias rows in shared memory once for all of them
+//   (64 KB at N=256; K8b only takes N < 512).
+//
+// Both run one core per 64-row q-tile: 4 warps of 16 query rows, k and v^T
+// in tiles of 64 keys through shared memory, the one-pass online softmax
+// (running max and sum in f32, log2 domain) of common.cuh's
+// window_attention_kernel on mma.sync.m16n8k16.  A row of N=1024 f32
+// scores does not fit beside the rest, as it did in VMEM, so p is rounded
+// relative to the running max, not the final one: a few bf16 ulps.
+#include "common.cuh"
+
+namespace gg {
+namespace {
+
+constexpr int kBiasPad = 8;  // f32 pitch padding of K8b's staged bias rows
+
+// The bias as each kernel reads it: a pair of f32 values of query row
+// `row`, key columns col, col + 1.
+struct GlobalBias {  // K8a: (N, N) of one head, in device memory
+  const float* base;
+  int ld;
+  __device__ __forceinline__ float2 pair(int row, int col) const {
+    return *reinterpret_cast<const float2*>(base + (long)row * ld + col);
+  }
+};
+
+struct SharedBias {  // K8b: the block's 64 query rows, in shared memory
+  const float* base;
+  int ld, row0;
+  __device__ __forceinline__ float2 pair(int row, int col) const {
+    return *reinterpret_cast<const float2*>(base + (long)(row - row0) * ld + col);
+  }
+};
+
+// One 64-row q-tile of one (window, head): q, k, v and out point at that
+// pair's (N, 32) slab.
+template <class BIAS>
+__device__ __forceinline__ void attend_tile(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                                            const bf16* __restrict__ v, bf16* __restrict__ out,
+                                            const BIAS& bias, int N, int q0, float scale,
+                                            bf16* ks, bf16* vt) {
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, c = lane & 3;
+  const int r0 = q0 + warp * 16 + g, r1 = r0 + 8;
+
+  uint32_t qa[2][4];
+#pragma unroll
+  for (int s = 0; s < 2; ++s) {
+    const bf16* p0 = q + (long)r0 * kHd + s * 16 + 2 * c;
+    const bf16* p1 = q + (long)r1 * kHd + s * 16 + 2 * c;
+    qa[s][0] = ld32(p0);
+    qa[s][1] = ld32(p1);
+    qa[s][2] = ld32(p0 + 8);
+    qa[s][3] = ld32(p1 + 8);
+  }
+
+  float o[4][4];
+#pragma unroll
+  for (int d = 0; d < 4; ++d)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) o[d][i] = 0.f;
+  float m0 = -INFINITY, m1 = -INFINITY;  // running max, log2 domain
+  float l0 = 0.f, l1 = 0.f;              // this thread's share of the row sums
+  const float sl2 = scale * kLog2e;
+
+  for (int k0 = 0; k0 < N; k0 += kBk) {
+    __syncthreads();  // previous tile consumed (and K8b's bias staged)
+    for (int i = tid; i < kBk * 4; i += 128) {
+      const int key = i >> 2, ch = i & 3;
+      const long off = (long)(k0 + key) * kHd + ch * 8;
+      *reinterpret_cast<uint4*>(&ks[key * kKPad + ch * 8]) =
+          *reinterpret_cast<const uint4*>(k + off);
+      uint4 vv = *reinterpret_cast<const uint4*>(v + off);
+      const bf16* ve = reinterpret_cast<const bf16*>(&vv);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) vt[(ch * 8 + j) * kVPad + key] = ve[j];
+    }
+    __syncthreads();
+
+    float s[8][4];
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) s[nt][i] = 0.f;
+      const bf16* kr = &ks[(nt * 8 + g) * kKPad + 2 * c];
+#pragma unroll
+      for (int st = 0; st < 2; ++st)
+        mma_bf16_16816(s[nt], qa[st], ld32(kr + st * 16), ld32(kr + st * 16 + 8));
+    }
+
+    float mx0 = m0, mx1 = m1;
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt) {
+      const int col = k0 + nt * 8 + 2 * c;
+      const float2 b0 = bias.pair(r0, col);
+      const float2 b1 = bias.pair(r1, col);
+      s[nt][0] = s[nt][0] * sl2 + b0.x * kLog2e;
+      s[nt][1] = s[nt][1] * sl2 + b0.y * kLog2e;
+      s[nt][2] = s[nt][2] * sl2 + b1.x * kLog2e;
+      s[nt][3] = s[nt][3] * sl2 + b1.y * kLog2e;
+      mx0 = fmaxf(mx0, fmaxf(s[nt][0], s[nt][1]));
+      mx1 = fmaxf(mx1, fmaxf(s[nt][2], s[nt][3]));
+    }
+    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
+    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
+    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
+    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
+    const float alpha0 = exp2f(m0 - mx0), alpha1 = exp2f(m1 - mx1);
+    m0 = mx0;
+    m1 = mx1;
+
+    float rs0 = 0.f, rs1 = 0.f;
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt) {
+      s[nt][0] = exp2f(s[nt][0] - m0);
+      s[nt][1] = exp2f(s[nt][1] - m0);
+      s[nt][2] = exp2f(s[nt][2] - m1);
+      s[nt][3] = exp2f(s[nt][3] - m1);
+      rs0 += s[nt][0] + s[nt][1];
+      rs1 += s[nt][2] + s[nt][3];
+    }
+    l0 = l0 * alpha0 + rs0;
+    l1 = l1 * alpha1 + rs1;
+#pragma unroll
+    for (int d = 0; d < 4; ++d) {
+      o[d][0] *= alpha0;
+      o[d][1] *= alpha0;
+      o[d][2] *= alpha1;
+      o[d][3] *= alpha1;
+    }
+
+    // o += bf16(p) v: the s accumulators of n-tiles 2kk and 2kk+1 are the
+    // A fragment of k-step kk.
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      uint32_t pa[4];
+      pa[0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
+      pa[1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
+      pa[2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
+      pa[3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
+#pragma unroll
+      for (int d = 0; d < 4; ++d) {
+        const bf16* vr = &vt[(d * 8 + g) * kVPad + kk * 16 + 2 * c];
+        mma_bf16_16816(o[d], pa, ld32(vr), ld32(vr + 8));
+      }
+    }
+  }
+
+  l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
+  l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
+  l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
+  l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
+  const float inv0 = 1.f / l0, inv1 = 1.f / l1;
+  bf16* orow0 = out + (long)r0 * kHd + 2 * c;
+  bf16* orow1 = out + (long)r1 * kHd + 2 * c;
+#pragma unroll
+  for (int d = 0; d < 4; ++d) {
+    *reinterpret_cast<uint32_t*>(orow0 + d * 8) = pack_bf16(o[d][0] * inv0, o[d][1] * inv0);
+    *reinterpret_cast<uint32_t*>(orow1 + d * 8) = pack_bf16(o[d][2] * inv1, o[d][3] * inv1);
+  }
+}
+
+// K8a: grid (W, N/64, H), the window fastest.
+__global__ void __launch_bounds__(128)
+attention_qtiled_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                        const bf16* __restrict__ v, const float* __restrict__ bias,
+                        bf16* __restrict__ out, int H, int N, float scale) {
+  __shared__ __align__(16) bf16 ks[kBk * kKPad];
+  __shared__ __align__(16) bf16 vt[kHd * kVPad];
+  const int w = blockIdx.x, h = blockIdx.z;
+  const long slab = ((long)w * H + h) * N * kHd;
+  attend_tile(q + slab, k + slab, v + slab, out + slab,
+              GlobalBias{bias + (long)h * N * N, N}, N, blockIdx.y * kBq, scale, ks, vt);
+}
+
+// K8b: grid (N/64, H, W / bw); the block stages its 64 bias rows once and
+// walks its bw windows in order.
+__global__ void __launch_bounds__(128)
+attention_batched_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                         const bf16* __restrict__ v, const float* __restrict__ bias,
+                         bf16* __restrict__ out, int H, int N, int bw, float scale) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int ld = N + kBiasPad;
+  float* bs = reinterpret_cast<float*>(smem);
+  bf16* ks = reinterpret_cast<bf16*>(bs + kBq * ld);
+  bf16* vt = ks + kBk * kKPad;
+  const int q0 = blockIdx.x * kBq, h = blockIdx.y;
+
+  const float* src = bias + ((long)h * N + q0) * N;
+  const int quads = N / 4;
+  for (int i = threadIdx.x; i < kBq * quads; i += 128) {
+    const int r = i / quads, c4 = i - r * quads;
+    *reinterpret_cast<float4*>(&bs[r * ld + c4 * 4]) =
+        *reinterpret_cast<const float4*>(src + (long)r * N + c4 * 4);
+  }
+  const SharedBias sb{bs, ld, q0};
+  const int w0 = blockIdx.z * bw;
+  for (int w = w0; w < w0 + bw; ++w) {
+    const long slab = ((long)w * H + h) * N * kHd;
+    attend_tile(q + slab, k + slab, v + slab, out + slab, sb, N, q0, scale, ks, vt);
+  }
+}
+
+size_t batched_smem_bytes(int N) {
+  return sizeof(float) * kBq * (N + kBiasPad) + sizeof(bf16) * (kBk * kKPad + kHd * kVPad);
+}
+
+}  // namespace
+}  // namespace gg
+
+// C entry points: shapes validated by the Python wrapper (N a multiple of
+// 64, head dim 32).  Return cudaGetLastError() after the launch.
+extern "C" int attention_qtiled_bf16(const void* q, const void* k, const void* v,
+                                     const void* bias, void* out, int W, int H, int N,
+                                     float scale, cudaStream_t stream) {
+  using namespace gg;
+  const dim3 grid(W, N / kBq, H);
+  attention_qtiled_kernel<<<grid, 128, 0, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      static_cast<const float*>(bias), static_cast<bf16*>(out), H, N, scale);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int attention_batched_bf16(const void* q, const void* k, const void* v,
+                                      const void* bias, void* out, int W, int H, int N,
+                                      int block_w, float scale, cudaStream_t stream) {
+  using namespace gg;
+  if (block_w < 1 || W % block_w) return (int)cudaErrorInvalidValue;
+  const size_t smem = batched_smem_bytes(N);
+  cudaError_t e = cudaFuncSetAttribute(attention_batched_kernel,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  const dim3 grid(N / kBq, H, W / block_w);
+  attention_batched_kernel<<<grid, 128, smem, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      static_cast<const float*>(bias), static_cast<bf16*>(out), H, N, block_w, scale);
+  return (int)cudaGetLastError();
+}

@@ -12,7 +12,8 @@ package:
   block;
 * w_qkv is (C, 3D) and its output channels are interleaved per head:
   head h owns [h*3hd, (h+1)*3hd), with q|k|v slots of hd inside;
-* bias is the (H, N, N) additive attention bias.
+* bias is the (H, N, N) additive attention bias;
+* the head-major op ``window_attention`` takes q, k, v as (W, H, N, hd).
 
 Kernels:
 
@@ -20,14 +21,21 @@ Kernels:
   ``_attention_qkv_fused_cuda``: the forwards;
 * K9 ``_fb4d_cuda``: K1 over the raw map, the window partition done by
   index arithmetic in the attention launch;
-* K4 ``_attention_qkv_bwd_cuda`` and K5 ``_attention_bwd_merged_cuda``:
-  the attention backward, K4 when the all-heads f32 score footprint
-  H * N^2 * 4 is at most 6 MB (stages 1 and 3), else K5 (stage 2).
+* K4 ``_attention_qkv_bwd_cuda``, K5 ``_attention_bwd_merged_cuda`` and
+  K7 ``_attention_bwd_qtiled_cuda``: the attention backward, K4 when the
+  all-heads f32 score footprint H * N^2 * 4 is at most 6 MB (stages 1 and
+  3), else K5, or K7 when ``BWD_MERGED`` is False (stage 2);
+* K8a ``_attention_qtiled_cuda`` and K8b ``_attention_batched_cuda``: the
+  head-major ``window_attention``, chosen as ``_attention_pallas`` chooses.
 
 The kernels take bf16 activations and weights; the bias travels bf16 into
-K1-K4 and K9, as it does into the Pallas kernels, and f32 into K5.  Every
-wrapper adds one to its entry in ``LAUNCHES`` each time it launches its
-kernel.
+K1-K4 and K9, as it does into the Pallas kernels, and f32 into K5, K7 and
+K8.  Every wrapper adds one to its entry in ``LAUNCHES`` each time it
+launches its kernel.
+
+The module constants below are the JAX module's, with its defaults.  The
+JAX package reads them when it traces; the port reads them at each call,
+so a caller sets one before building or calling, as the JAX tools do.
 """
 
 from __future__ import annotations
@@ -42,6 +50,9 @@ LAUNCHES = {
     "_attention_qkv_bwd_cuda": 0,
     "_attention_bwd_merged_cuda": 0,
     "_fb4d_cuda": 0,
+    "_attention_bwd_qtiled_cuda": 0,
+    "_attention_qtiled_cuda": 0,
+    "_attention_batched_cuda": 0,
 }
 
 #: The only head dim the kernels are built for (every TinyViT stage).
@@ -51,6 +62,23 @@ KERNEL_HEAD_DIM = 32
 #: small-N backward (K4); above it the large-N one (K5).  The JAX
 #: package's _BWD_MAX_SCORE_BYTES.
 BWD_MAX_SCORE_BYTES = 6 * 1024 * 1024
+
+#: q-tile rows of the Pallas large-N head-major kernel, with the JAX
+#: default.  K8a's q-tile is the 64 rows of its mma.sync layout, so the
+#: card's dispatch refuses any other value rather than ignore it.
+BLOCK_Q = 256
+#: Minimum window size N at which ``WindowAttention`` takes the qkv-fused
+#: kernel (K3) over the head-major ``window_attention`` (K8a/K8b).  0 sends
+#: every kernel stage to K3; raise it above a stage's N to route that stage
+#: head-major.
+QKV_KERNEL_MIN_N = 0
+#: Windows of one head per K8b block.  ``window_attention`` takes K8b when
+#: N < 512 and W is a multiple of it, else K8a.
+BLOCK_W = 8
+#: Large-N attention backward: the merged one (K5) when True, the
+#: two-kernel one (K7) when False.  Both compute the same cotangents from
+#: the f32 bias.
+BWD_MERGED = True
 
 
 def reset_launches() -> None:
@@ -86,6 +114,16 @@ def _attention_qkv_fused_plain(qkv, bias, scale, num_heads):
     p = torch.softmax(s, dim=-1).to(v.dtype)
     o = torch.einsum("whnm,wmhd->wnhd", p, v)
     return o.reshape(W, N, num_heads * hd)
+
+
+def _attention_plain(q, k, v, bias, scale):
+    """Mirror of ``_attention_xla``: (W, H, N, hd) q, k, v, f32 scores plus
+    the bias in f32, f32 softmax, probabilities cast to the value dtype
+    before p.v.  -> (W, H, N, hd) in the value dtype."""
+    s = torch.einsum("whnd,whmd->whnm", q.float(), k.float())
+    s = s * scale + bias[None].float()
+    p = torch.softmax(s, dim=-1).to(v.dtype)
+    return torch.einsum("whnm,whmd->whnd", p, v)
 
 
 def _ln_qkv_plain(x, ln_scale, ln_bias, w_qkv, b_qkv, eps):
@@ -169,6 +207,15 @@ def _attention_bwd_merged_plain(qkv, bias, g, scale, num_heads):
     """Mirror of ``_bwd_tile_math`` over whole rows with the staging of
     ``_attention_qkv_bwd_large`` (K5): the bias in f32, dq/dk/dv in f32
     and cast once to the qkv dtype."""
+    return _attention_bwd_plain(qkv, bias.float(), g, scale, num_heads)
+
+
+def _attention_bwd_qtiled_plain(qkv, bias, g, scale, num_heads):
+    """Mirror of ``_bwd_k1_kernel`` (dq, dk, dv) and ``_bwd_k2_kernel``
+    (d_bias) with the staging of ``_attention_qkv_bwd_large`` (K7): both
+    run ``_bwd_tile_math``, as K5 does, so the f32-bias numerics of K5's
+    mirror; dq/dk/dv summed in f32 and cast once to the qkv dtype, d_bias
+    summed over the windows in f32."""
     return _attention_bwd_plain(qkv, bias.float(), g, scale, num_heads)
 
 
@@ -334,29 +381,57 @@ def _fb4d_cuda(x, ln_scale, ln_bias, w_qkv, b_qkv, w_proj, b_proj, bias,
     return out
 
 
+#: The bias from every query to a padding key: its exp underflows to 0 in
+#: f32 (and it is finite in bf16), so no query attends to a padding key.
+PAD_KEY_BIAS = -1e30
+
+
+def _pad_tokens(qkv, bias, g, pad):
+    """(qkv, bias, g) with ``pad`` zero tokens after each window's N, for
+    the backward kernels, which tile N by 64.  A padding key has bias
+    PAD_KEY_BIAS, so p is 0 there and it adds nothing to the real rows; a
+    padding query has g = 0, so dp and ds are 0 on its row and it adds
+    nothing to dk, dv or d_bias.  The caller cuts the padding off the
+    cotangents."""
+    F = torch.nn.functional
+    N = qkv.shape[1]
+    bias = F.pad(bias, (0, pad, 0, pad))
+    bias[:, :, N:] = PAD_KEY_BIAS
+    return F.pad(qkv, (0, 0, 0, pad)), bias, F.pad(g, (0, 0, 0, pad))
+
+
 def _attention_bwd_cuda(name, lib, qkv, bias, g, scale, num_heads,
                         bias_dtype):
+    """K4, K5 or K7's launch; an N that is not a multiple of 64 (a ragged
+    window such as 14x14 or 28x28) runs padded (``_pad_tokens``)."""
     from geoguessr_ai_torch.ops import _build
 
-    W, N, D3 = qkv.shape
+    N = qkv.shape[1]
+    pad = -N % 64
+    if pad:
+        qkv, bias, g = _pad_tokens(qkv, bias.to(bias_dtype), g, pad)
+    W, Np, D3 = qkv.shape
     D = D3 // 3
-    _check_geometry(W, N, 64, D, num_heads)
-    _check("qkv", qkv, (W, N, D3))
-    _check("g", g, (W, N, D))
-    bias = _check("bias", bias.to(bias_dtype).contiguous(), (num_heads, N, N),
-                  bias_dtype)
+    _check_geometry(W, Np, 64, D, num_heads)
+    _check("qkv", qkv, (W, Np, D3))
+    _check("g", g, (W, Np, D))
+    bias = _check("bias", bias.to(bias_dtype).contiguous(),
+                  (num_heads, Np, Np), bias_dtype)
     dqkv = torch.empty_like(qkv)
-    dbias = torch.empty((num_heads, N, N), dtype=torch.float32,
+    dbias = torch.empty((num_heads, Np, Np), dtype=torch.float32,
                         device=qkv.device)
     # row max, 1 / row sum and t per (window, head, query)
-    stats = torch.empty((3, W, num_heads, N), dtype=torch.float32,
+    stats = torch.empty((3, W, num_heads, Np), dtype=torch.float32,
                         device=qkv.device)
     fn = _build.entry(lib)
     err = fn(qkv.data_ptr(), bias.data_ptr(), g.data_ptr(), dqkv.data_ptr(),
-             dbias.data_ptr(), stats.data_ptr(), W, N, num_heads,
+             dbias.data_ptr(), stats.data_ptr(), W, Np, num_heads,
              float(scale), _stream())
     _raise_on(err, name)
     LAUNCHES[name] += 1
+    if pad:
+        return (dqkv[:, :N].contiguous(),
+                dbias[:, :N, :N].contiguous())
     return dqkv, dbias
 
 
@@ -373,21 +448,94 @@ def _attention_bwd_merged_cuda(qkv, bias, g, scale, num_heads):
                                num_heads, torch.float32)
 
 
+def _attention_bwd_qtiled_cuda(qkv, bias, g, scale, num_heads):
+    """K7: (d_qkv bf16, d_bias f32) with the bias in f32, two launches,
+    d_bias summed over the windows in order (bitwise reproducible)."""
+    return _attention_bwd_cuda("_attention_bwd_qtiled_cuda",
+                               "attention_bwd_qtiled", qkv, bias, g, scale,
+                               num_heads, torch.float32)
+
+
+def _headmajor_operands(q, k, v, bias):
+    """Checks the head-major operands; returns (W, H, N, the f32 bias)."""
+    W, H, N, hd = q.shape
+    if hd != KERNEL_HEAD_DIM:
+        raise ValueError(
+            f"the kernels take head dim {KERNEL_HEAD_DIM}, got {hd}")
+    if N % 64 or not 1 <= W <= 65535 or H > 65535:
+        raise ValueError(f"the kernels take N a multiple of 64, "
+                         f"1 <= W <= 65535 and H <= 65535, got W={W}, "
+                         f"N={N}, H={H}")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        _check(name, t, (W, H, N, hd))
+    bias = _check("bias", bias.float().contiguous(), (H, N, N), torch.float32)
+    return W, H, N, bias
+
+
+def _attention_qtiled_cuda(q, k, v, bias, scale):
+    """K8a: (W, H, N, 32) bf16 q, k, v and an f32 bias -> (W, H, N, 32)."""
+    from geoguessr_ai_torch.ops import _build
+
+    W, H, N, bias = _headmajor_operands(q, k, v, bias)
+    out = torch.empty_like(q)
+    err = _build.entry("attention_headmajor", "attention_qtiled_bf16")(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
+        out.data_ptr(), W, H, N, float(scale), _stream())
+    _raise_on(err, "_attention_qtiled_cuda")
+    LAUNCHES["_attention_qtiled_cuda"] += 1
+    return out
+
+
+def _attention_batched_cuda(q, k, v, bias, scale):
+    """K8b: as K8a, BLOCK_W windows of one head per block; W must be a
+    multiple of BLOCK_W and N below 512 (the bias rows of a q-tile staged
+    in shared memory)."""
+    from geoguessr_ai_torch.ops import _build
+
+    W, H, N, bias = _headmajor_operands(q, k, v, bias)
+    block_w = min(BLOCK_W, W)
+    if W % block_w or N >= 512:
+        raise ValueError(f"K8b takes W a multiple of BLOCK_W={BLOCK_W} and "
+                         f"N < 512, got W={W}, N={N}")
+    out = torch.empty_like(q)
+    err = _build.entry("attention_headmajor", "attention_batched_bf16")(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
+        out.data_ptr(), W, H, N, block_w, float(scale), _stream())
+    _raise_on(err, "_attention_batched_cuda")
+    LAUNCHES["_attention_batched_cuda"] += 1
+    return out
+
+
 # ---------------------------------------------------------------------------
 # Public ops: autograd Functions that dispatch on the input's device.
 # ---------------------------------------------------------------------------
 
 
 def _attention_bwd(qkv, bias, g, scale, num_heads):
-    """The attention cotangent rule (``_qkv_bwd``): K4 or K5 by the score
-    footprint on a CUDA tensor, their plain mirrors on a CPU one.
-    Returns (d_qkv, d_bias f32)."""
-    small = num_heads * qkv.shape[1] ** 2 * 4 <= BWD_MAX_SCORE_BYTES
-    if qkv.is_cuda:
-        fn = _attention_qkv_bwd_cuda if small else _attention_bwd_merged_cuda
+    """The attention cotangent rule (``_qkv_bwd``): K4 when the score
+    footprint is small, else K5, or K7 when ``BWD_MERGED`` is False, on a
+    CUDA tensor; their plain mirrors on a CPU one.  Returns (d_qkv,
+    d_bias f32)."""
+    if num_heads * qkv.shape[1] ** 2 * 4 <= BWD_MAX_SCORE_BYTES:
+        fns = (_attention_qkv_bwd_cuda, _attention_qkv_bwd_plain)
+    elif BWD_MERGED:
+        fns = (_attention_bwd_merged_cuda, _attention_bwd_merged_plain)
     else:
-        fn = _attention_qkv_bwd_plain if small else _attention_bwd_merged_plain
+        fns = (_attention_bwd_qtiled_cuda, _attention_bwd_qtiled_plain)
+    fn = fns[0] if qkv.is_cuda else fns[1]
     return fn(qkv, bias, g.contiguous(), scale, num_heads)
+
+
+def _attention_headmajor_cuda(q, k, v, bias, scale):
+    """``_attention_pallas``'s choice: K8a at N >= 512, else K8b when W is
+    a multiple of BLOCK_W, else K8a."""
+    if BLOCK_Q != 256:
+        raise ValueError(f"BLOCK_Q={BLOCK_Q}: K8a tiles q by the 64 rows of "
+                         "its mma.sync layout and takes only the default 256")
+    W, _, N, _ = q.shape
+    if N < 512 and W % BLOCK_W == 0:
+        return _attention_batched_cuda(q, k, v, bias, scale)
+    return _attention_qtiled_cuda(q, k, v, bias, scale)
 
 
 def _grad_inputs(tensors):
@@ -412,6 +560,39 @@ class _WindowAttentionQKV(torch.autograd.Function):
         qkv, bias = ctx.saved_tensors
         dqkv, dbias = _attention_bwd(qkv, bias, g, *ctx.args)
         return dqkv, dbias.to(bias.dtype), None, None
+
+
+class _WindowAttentionQKVXla(_WindowAttentionQKV):
+    """``window_attention_qkv_xla``'s custom VJP: the plain forward on every
+    device, the attention backward of ``window_attention_qkv`` (K4, or
+    K5/K7, on the card)."""
+
+    @staticmethod
+    def forward(ctx, qkv, bias, scale, num_heads):
+        ctx.save_for_backward(qkv, bias)
+        ctx.args = (scale, num_heads)
+        return _attention_qkv_fused_plain(qkv, bias, scale, num_heads)
+
+
+class _WindowAttention(torch.autograd.Function):
+    """``window_attention``'s custom VJP: K8a/K8b forward on the card; the
+    backward differentiates ``_attention_plain`` recomputed from the saved
+    inputs (``_bwd``: the JAX package has no backward kernel here)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, bias, scale):
+        ctx.save_for_backward(q, k, v, bias)
+        ctx.scale = scale
+        if q.is_cuda:
+            return _attention_headmajor_cuda(q, k, v, bias, scale)
+        return _attention_plain(q, k, v, bias, scale)
+
+    @staticmethod
+    def backward(ctx, g):
+        inputs = _grad_inputs(ctx.saved_tensors)
+        with torch.enable_grad():
+            out = _attention_plain(*inputs, ctx.scale)
+        return (*torch.autograd.grad(out, inputs, g), None)
 
 
 class _FusedBlockAttention(torch.autograd.Function):
@@ -496,6 +677,18 @@ class _FusedBlockAttentionNoproj(torch.autograd.Function):
 def window_attention_qkv(qkv, bias, scale: float, num_heads: int):
     """Window attention over a fused (W, N, 3D) qkv tensor -> (W, N, D)."""
     return _WindowAttentionQKV.apply(qkv, bias, scale, num_heads)
+
+
+def window_attention_qkv_xla(qkv, bias, scale: float, num_heads: int):
+    """``window_attention_qkv`` with the plain forward on every device and
+    the kernel backward: (W, N, 3D) -> (W, N, D)."""
+    return _WindowAttentionQKVXla.apply(qkv, bias, scale, num_heads)
+
+
+def window_attention(q, k, v, bias, scale: float):
+    """softmax(q k^T * scale + bias) v over independent windows: q, k, v
+    (W, H, N, hd), bias (H, N, N) -> (W, H, N, hd) in q's dtype."""
+    return _WindowAttention.apply(q, k, v, bias, scale)
 
 
 def fused_block_attention(x, ln_scale, ln_bias, w_qkv, b_qkv, w_proj, b_proj,

@@ -4,6 +4,8 @@
     python -m geoguessr_ai_torch.profile_forward --backbone clip [--bucket 16]
     python -m geoguessr_ai_torch.profile_forward --train [--bucket 16] [--steps 3]
     python -m geoguessr_ai_torch.profile_forward --embed [--bucket 512] [--no-knobs]
+    python -m geoguessr_ai_torch.profile_forward --head-major [--bucket 16]
+    python -m geoguessr_ai_torch.profile_forward --bwd-two-kernel [--bucket 16]
 
 Builds the full-width model (TinyViT-21M-512, or CLIP ViT-L/14-336 with
 ``--backbone clip``; bf16, 12647 cells, seeded random weights) on the GPU.
@@ -14,7 +16,12 @@ master weights, the default freeze and optimizer); with ``--embed`` it runs
 the bulk-embedding ``Embedder`` on a fixed host batch of ``--bucket``
 decoded fixture images (default 512) in the embed configuration
 (``data.embed_builder.bulk_embed_config``: K1 at stage 3, K10 at stage 0
-and K9 at stage 1; ``--no-knobs`` turns K10 and K9 off).  Under
+and K9 at stage 1; ``--no-knobs`` turns K10 and K9 off).  ``--head-major``
+serves the head-major configuration (``HEAD_MAJOR``: every attention stage
+a ``pallas_attention_stages`` stage, no fused-block stage, and
+``QKV_KERNEL_MIN_N`` raised above every N, so K8a/K8b run where K1-K3
+did); ``--bwd-two-kernel`` is ``--train`` with ``BWD_MERGED`` False (K7 in
+place of K5).  Under
 ``torch.profiler`` it prints per forward or step: the host wall time, the
 device's busy time and idle share, device time by group and the kernels by
 device time.  The last line is the same as one JSON object.  Needs a GPU.
@@ -36,6 +43,9 @@ GROUPS = (
     ("ln_gemm_kernel", "LN+GEMM (K1/K2/K9 CUDA)"),
     ("mbconv_kernel", "fused MBConv (K10 CUDA)"),
     ("attn_bwd_", "attention backward (K4/K5 CUDA)"),
+    ("bwd_qtiled_", "attention backward (K7 CUDA)"),
+    ("attention_qtiled_kernel", "head-major attention (K8a CUDA)"),
+    ("attention_batched_kernel", "head-major attention (K8b CUDA)"),
     ("clip_flash", "CLIP attention (K6/K11 CUDA)"),
     ("conv", "convolution (cuDNN)"),
     ("cudnn", "convolution (cuDNN)"),
@@ -49,6 +59,14 @@ GROUPS = (
 )
 
 
+#: The head-major configuration's TinyViTConfig fields (with
+#: ops.window_attention.QKV_KERNEL_MIN_N = HEAD_MAJOR_MIN_N).
+HEAD_MAJOR = dict(pallas_attention_stages=(1, 2, 3), fused_block_stages=(),
+                  fused_block_noproj_stages=())
+#: Above every TinyViT-21M-512 window (N <= 1024).
+HEAD_MAJOR_MIN_N = 2048
+
+
 def _group(name: str) -> str:
     low = name.lower()
     for key, group in GROUPS:
@@ -57,13 +75,19 @@ def _group(name: str) -> str:
     return "elementwise, copies and reductions"
 
 
-def _serve_runner(bucket: int, backbone: str):
+def _serve_runner(bucket: int, backbone: str, head_major: bool = False):
     from geoguessr_ai_torch.data.pipeline import decode_jpeg
     from geoguessr_ai_torch.inference import fixture_panorama
+    from geoguessr_ai_torch.models.tinyvit import TinyViTConfig
+    from geoguessr_ai_torch.ops import window_attention as wa
     from geoguessr_ai_torch.serving.engine import ServingEngine
 
+    config = None
+    if head_major:
+        wa.QKV_KERNEL_MIN_N = HEAD_MAJOR_MIN_N
+        config = TinyViTConfig(**HEAD_MAJOR)
     # the GPU; raises without one
-    engine = ServingEngine(backbone=backbone, seed=0)
+    engine = ServingEngine(backbone=backbone, seed=0, backbone_config=config)
     views = []
     for p in fixture_panorama():
         with open(p, "rb") as f:
@@ -120,9 +144,18 @@ def main(argv=None) -> None:
                     help="profile the bulk-embedding Embedder instead")
     ap.add_argument("--no-knobs", action="store_true",
                     help="with --embed: fused_mbconv and fused_block_4d off")
+    ap.add_argument("--head-major", action="store_true",
+                    help="serve the head-major configuration (K8a/K8b)")
+    ap.add_argument("--bwd-two-kernel", action="store_true",
+                    help="--train with BWD_MERGED=False (K7, not K5)")
     ap.add_argument("--trace", default=None,
                     help="also write a Chrome trace to this path")
     args = ap.parse_args(argv)
+    if args.bwd_two_kernel:
+        from geoguessr_ai_torch.ops import window_attention as wa
+
+        wa.BWD_MERGED = False
+        args.train = True
     steps = args.steps or (3 if args.train else 5)
     unit = "step" if args.train else "forward"
     mode = "train" if args.train else "embed" if args.embed else "serve"
@@ -133,12 +166,14 @@ def main(argv=None) -> None:
         ap.error("--train and --embed profile TinyViT only")
     if args.train and args.embed:
         ap.error("--train and --embed exclude each other")
+    if args.head_major and (mode != "serve" or args.backbone != "tinyvit"):
+        ap.error("--head-major serves TinyViT only")
     if mode == "train":
         run = _train_runner(args.bucket)
     elif mode == "embed":
         run = _embed_runner(args.bucket, knobs=not args.no_knobs)
     else:
-        run = _serve_runner(args.bucket, args.backbone)
+        run = _serve_runner(args.bucket, args.backbone, args.head_major)
     for _ in range(2):
         run()
     torch.cuda.synchronize()
@@ -173,6 +208,10 @@ def main(argv=None) -> None:
     if mode == "embed":
         what += (", embed config, knobs "
                  + ("off" if args.no_knobs else "on"))
+    if args.head_major:
+        what += ", head-major config"
+    if args.bwd_two_kernel:
+        what += ", BWD_MERGED=False"
     print(f"{card}: {args.backbone}, bucket {args.bucket}, {steps} {what} "
           "profiled")
     print(f"wall_ms_per_{unit} {wall_ms:.3f}")
@@ -187,6 +226,7 @@ def main(argv=None) -> None:
     print(json.dumps({
         "device": card, "mode": mode,
         "knobs": None if mode != "embed" else not args.no_knobs,
+        "head_major": args.head_major, "bwd_two_kernel": args.bwd_two_kernel,
         "backbone": args.backbone,
         "bucket": args.bucket, "wall_ms": wall_ms,
         "device_busy_ms": busy_ms, "idle_share": 1 - busy_ms / wall_ms,

@@ -70,12 +70,14 @@ def build_backbone(cfg: BackboneConfig, model_config=None):
     raise ValueError(f"unknown backbone {cfg.name!r}")
 
 
-def build_model(cfg: TrainConfig, num_cells: int):
-    """Returns (SuperGuessr, norm_mean, norm_std, image_size)."""
+def build_model(cfg: TrainConfig, num_cells: int, model_config=None):
+    """Returns (SuperGuessr, norm_mean, norm_std, image_size);
+    ``model_config`` as for ``build_backbone``."""
     if not cfg.model.panorama:
         raise NotImplementedError(
             "single-image (panorama=False) SuperGuessr is not ported yet")
-    backbone, mean, std, image_size = build_backbone(cfg.model.backbone)
+    backbone, mean, std, image_size = build_backbone(cfg.model.backbone,
+                                                     model_config)
     model = SuperGuessr(num_cells, backbone,
                         embed_dim=cfg.model.backbone.embed_dim,
                         hierarchical=cfg.model.hierarchical)
@@ -83,16 +85,17 @@ def build_model(cfg: TrainConfig, num_cells: int):
 
 
 def create_state(cfg: TrainConfig, num_cells: int, steps_per_epoch: int,
-                 device=None):
-    """The model of ``cfg`` with seeded random weights (``cfg.seed``) on
-    ``device``, under the freeze policy of ``cfg.model.backbone``, in a
-    fresh TrainState.  Returns (state, norm_mean, norm_std, image_size)."""
+                 device=None, model_config=None):
+    """The model of ``cfg`` (its TinyViT replaced by ``model_config`` when
+    given) with seeded random weights (``cfg.seed``) on ``device``, under
+    the freeze policy of ``cfg.model.backbone``, in a fresh TrainState.
+    Returns (state, norm_mean, norm_std, image_size)."""
     if cfg.model.backbone.name != "tinyvit":
         raise NotImplementedError(
             f"training the {cfg.model.backbone.name!r} backbone is not ported "
             "yet: its freeze rule (layer{max} + post_layernorm trainable) and "
             "the CLIP train slice come later (ROADMAP Queue 1 item 9)")
-    model, mean, std, image_size = build_model(cfg, num_cells)
+    model, mean, std, image_size = build_model(cfg, num_cells, model_config)
     init_parameters_(model, cfg.seed)
     model.to(C.resolve_device(device))
     bb = cfg.model.backbone

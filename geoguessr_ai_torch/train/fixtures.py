@@ -30,17 +30,19 @@ def fixture_records(n: int, seed: int = 0):
 
 
 def fixture_train_setup(batch_size: int = 16, device=None, seed: int = 0,
-                        dtype: str = "bfloat16"):
+                        dtype: str = "bfloat16", model_config=None):
     """A full-width TrainState (default TrainConfig: f32 master weights,
-    freeze_all_but_last_stage, AdamW) and one device batch of
-    ``batch_size`` fixture panoramas.  The pixels are normalised in f32 on
-    the host, so a bf16 and an f32 model see the same input.  Returns
-    (state, batch, centroids)."""
+    freeze_all_but_last_stage, AdamW; ``model_config``, a TinyViTConfig,
+    replaces TinyViT-21M-512's) and one device batch of ``batch_size``
+    fixture panoramas.  The pixels are normalised in f32 on the host, so a
+    bf16 and an f32 model see the same input.  Returns (state, batch,
+    centroids)."""
     cfg = TrainConfig(batch_size=batch_size, seed=seed, model=ModelConfig(
         backbone=BackboneConfig(dtype=dtype)))
     table = CentroidTable.load(C.CENTROID_TABLE_PATH)
     dev = C.resolve_device(device)
-    state, mean, std, size = create_state(cfg, table.num_cells, 1, dev)
+    state, mean, std, size = create_state(cfg, table.num_cells, 1, dev,
+                                          model_config)
     host = next(iter(PanoramaBatchIterator(fixture_records(batch_size, seed),
                                            batch_size, size)))
     pixels = fused_preprocess(torch.from_numpy(host["pixel_values"]), mean,

@@ -478,3 +478,173 @@ def test_narrow_engine_with_both_knobs_on_the_card_matches_the_cpu(
                              * np.linalg.norm(b, axis=-1))
     assert cos.min() >= 0.999, cos
     assert got.top_ids[0] == want.top_ids[0]
+
+
+# ---------------------------------------------------------------------------
+# The head-major window attention (K8a, K8b), the two-kernel large-N
+# backward (K7) and the plain-forward / kernel-backward route.
+# ---------------------------------------------------------------------------
+
+#: (kernel, W, H, N): the shapes the head-major serving path gives K8b
+#: (stage 1 at bucket 16, stage 3 at bucket 16) and K8a (stage 2 at bucket
+#: 16, stage 3 at bucket 1, W=4 not a multiple of BLOCK_W).
+HEADMAJOR_SHAPES = [("K8b", 1024, 6, 256), ("K8b", 64, 18, 256),
+                    ("K8a", 64, 12, 1024), ("K8a", 4, 18, 256)]
+
+
+def _headmajor_inputs(W, H, N, device, seed=0):
+    rng = np.random.default_rng(seed)
+
+    def t(*shape, std=1.0):
+        return torch.from_numpy(rng.normal(0, std, shape).astype(np.float32)
+                                ).to(device)
+
+    q, k, v = (t(W, H, N, 32).bfloat16() for _ in range(3))
+    return q, k, v, t(H, N, N, std=0.5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel,W,H,N", HEADMAJOR_SHAPES)
+def test_cuda_headmajor_kernel_matches_plain(cuda_device, kernel, W, H, N):
+    """K8a and K8b against ``_attention_plain``, called directly and
+    through ``window_attention``'s dispatch."""
+    q, k, v, bias = _headmajor_inputs(W, H, N, cuda_device)
+    name = {"K8a": "_attention_qtiled_cuda",
+            "K8b": "_attention_batched_cuda"}[kernel]
+    scale = 32 ** -0.5
+    want = wa._attention_plain(q, k, v, bias, scale)
+    before = dict(wa.LAUNCHES)
+    got = getattr(wa, name)(q, k, v, bias, scale)
+    routed = wa.window_attention(q, k, v, bias, scale)
+    torch.cuda.synchronize()
+    assert wa.LAUNCHES[name] == before[name] + 2
+    assert sum(wa.LAUNCHES.values()) == sum(before.values()) + 2
+    assert torch.equal(got, routed)
+    assert got.shape == want.shape and got.dtype == torch.bfloat16
+    assert bool(torch.isfinite(got).all())
+    assert _rel_err(got, want) < KERNEL_REL_TOL
+
+
+@pytest.mark.cuda
+def test_cuda_window_attention_gradients_match_plain_autograd(cuda_device):
+    """K8a forward, the plain-autograd backward (the JAX package's own
+    recompute), against autograd through the plain version."""
+    leaves = [t.requires_grad_() for t in
+              _headmajor_inputs(2, 12, 1024, cuda_device, seed=1)]
+    scale = 32 ** -0.5
+    out = wa.window_attention(*leaves, scale)
+    assert out.grad_fn is not None
+    gout = torch.randn(out.shape, device=cuda_device).to(out.dtype)
+    got = torch.autograd.grad(out, leaves, gout)
+    want = torch.autograd.grad(wa._attention_plain(*leaves, scale), leaves,
+                               gout)
+    for i, (a, b) in enumerate(zip(got, want)):
+        assert a.shape == b.shape and a.dtype == b.dtype
+        assert _rel_err(a, b) < GRAD_REL_TOL, (i, _rel_err(a, b))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("W,N,H", [(64, 1024, 12), (2, 1024, 2), (3, 512, 6)])
+def test_cuda_bwd_qtiled_matches_plain_and_k5(cuda_device, W, N, H):
+    """K7 against its plain mirror and against K5 on the same inputs, and
+    its d_bias (and d_qkv) bitwise the same over two calls."""
+    qkv, bias, g = _bwd_inputs(W, N, H, cuda_device)
+    scale = wa.KERNEL_HEAD_DIM ** -0.5
+    before = wa.LAUNCHES["_attention_bwd_qtiled_cuda"]
+    dqkv, dbias = wa._attention_bwd_qtiled_cuda(qkv, bias, g, scale, H)
+    again = wa._attention_bwd_qtiled_cuda(qkv, bias, g, scale, H)
+    torch.cuda.synchronize()
+    assert wa.LAUNCHES["_attention_bwd_qtiled_cuda"] == before + 2
+    assert torch.equal(dbias, again[1]) and torch.equal(dqkv, again[0])
+    assert dqkv.dtype == torch.bfloat16 and dbias.dtype == torch.float32
+    for want in (wa._attention_bwd_qtiled_plain(qkv, bias, g, scale, H),
+                 wa._attention_bwd_merged_cuda(qkv, bias, g, scale, H)):
+        assert _rel_err(dqkv, want[0]) < KERNEL_REL_TOL
+        assert _rel_err(dbias, want[1]) < KERNEL_REL_TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N,H,kernel", [
+    (256, 6, "_attention_qkv_bwd_cuda"),
+    (1024, 2, "_attention_bwd_merged_cuda"),
+])
+def test_cuda_qkv_xla_route_backward_launches_the_kernel(cuda_device, N, H,
+                                                         kernel):
+    """``window_attention_qkv_xla`` (a stage that takes no kernel): the
+    plain forward launches nothing; its backward launches K4 at N=256 and
+    K5 at N=1024, and its gradients match autograd through the plain
+    version."""
+    qkv, bias, g = _bwd_inputs(2, N, H, cuda_device, seed=2)
+    qkv.requires_grad_()
+    bias.requires_grad_()
+    scale = wa.KERNEL_HEAD_DIM ** -0.5
+    wa.reset_launches()
+    out = wa.window_attention_qkv_xla(qkv, bias, scale, H)
+    torch.cuda.synchronize()
+    assert sum(wa.LAUNCHES.values()) == 0
+    got = torch.autograd.grad(out, (qkv, bias), g)
+    torch.cuda.synchronize()
+    assert wa.LAUNCHES[kernel] == 1 and sum(wa.LAUNCHES.values()) == 1
+    want = torch.autograd.grad(wa._attention_qkv_fused_plain(qkv, bias,
+                                                             scale, H),
+                               (qkv, bias), g)
+    for a, b in zip(got, want):
+        assert a.shape == b.shape and a.dtype == b.dtype
+        assert _rel_err(a, b) < GRAD_REL_TOL
+
+
+@pytest.mark.cuda
+def test_cuda_headmajor_wrappers_refuse_what_the_kernels_do_not_take(
+        cuda_device):
+    q, k, v, bias = _headmajor_inputs(8, 2, 256, cuda_device)
+    with pytest.raises(ValueError, match="bfloat16"):
+        wa._attention_qtiled_cuda(q.float(), k, v, bias, 0.18)
+    with pytest.raises(ValueError, match="head dim"):
+        wa._attention_qtiled_cuda(q[..., :16], k[..., :16], v[..., :16],
+                                  bias, 0.25)
+    with pytest.raises(ValueError, match="contiguous"):
+        wa._attention_qtiled_cuda(q.transpose(0, 1), k, v, bias, 0.18)
+    twelve = _headmajor_inputs(12, 2, 256, cuda_device)
+    with pytest.raises(ValueError, match="BLOCK_W"):  # 12 % 8 != 0
+        wa._attention_batched_cuda(*twelve, 0.18)
+    big = _headmajor_inputs(8, 2, 512, cuda_device)
+    with pytest.raises(ValueError, match="N < 512"):
+        wa._attention_batched_cuda(*big, 0.18)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,mirror,W,N,H", [
+    # stage 3 and stage 2 of TinyViT at 448 px: 14x14 and 28x28 windows
+    ("_attention_qkv_bwd_cuda", "_attention_qkv_bwd_plain", 4, 196, 18),
+    ("_attention_bwd_merged_cuda", "_attention_bwd_merged_plain", 2, 784, 12),
+    ("_attention_bwd_qtiled_cuda", "_attention_bwd_qtiled_plain", 2, 784, 12),
+])
+def test_cuda_bwd_kernels_take_ragged_n(cuda_device, name, mirror, W, N, H):
+    """K4, K5 and K7 at an N that is not a multiple of 64 (run padded)
+    against their plain mirrors: one launch each, N-sized cotangents."""
+    qkv, bias, g = _bwd_inputs(W, N, H, cuda_device, seed=3)
+    scale = wa.KERNEL_HEAD_DIM ** -0.5
+    before = wa.LAUNCHES[name]
+    dqkv, dbias = getattr(wa, name)(qkv, bias, g, scale, H)
+    torch.cuda.synchronize()
+    assert wa.LAUNCHES[name] == before + 1
+    want = getattr(wa, mirror)(qkv, bias, g, scale, H)
+    assert dqkv.shape == qkv.shape and dbias.shape == (H, N, N)
+    assert bool(torch.isfinite(dqkv).all()) and bool(torch.isfinite(dbias).all())
+    assert _rel_err(dqkv, want[0]) < KERNEL_REL_TOL
+    assert _rel_err(dbias, want[1]) < KERNEL_REL_TOL
+
+
+@pytest.mark.cuda
+def test_cuda_qkv_xla_route_backward_raises_off_head_dim_32(cuda_device):
+    """The kernels are built for hd = 32 (every TinyViT preset): a stage of
+    another head dim runs the plain forward and its backward raises on the
+    card, where the JAX package's Pallas backward takes it."""
+    rng = np.random.default_rng(4)
+    W, N, H, hd = 2, 256, 2, 16
+    qkv = torch.from_numpy(rng.normal(0, 1, (W, N, 3 * H * hd)).astype(
+        np.float32)).to(cuda_device, torch.bfloat16).requires_grad_()
+    bias = torch.zeros(H, N, N, device=cuda_device, requires_grad=True)
+    out = wa.window_attention_qkv_xla(qkv, bias, hd ** -0.5, H)
+    with pytest.raises(ValueError, match="head dim"):
+        torch.autograd.grad(out, (qkv, bias), torch.ones_like(out))

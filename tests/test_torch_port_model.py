@@ -198,8 +198,9 @@ def test_port_config_mirrors_jax_defaults():
     assert pcfg.dtype == torch.bfloat16
     with pytest.raises(TypeError):  # options outside the slice do not exist
         ttv.TinyViTConfig(quant_mode="static")
-    with pytest.raises(TypeError):
-        ttv.TinyViTConfig(remat_stages=(1,))
+    for name in ("remat", "remat_stages", "remat_policy", "scan_stages",
+                 "scan_remat"):
+        assert name in {f.name for f in dataclasses.fields(pcfg)}, name
 
 
 def test_cast_weights_keeps_norms_and_biases_f32():
@@ -210,3 +211,113 @@ def test_cast_weights_keeps_norms_and_biases_f32():
         want = (torch.bfloat16 if name.endswith("weight") and p.ndim >= 2
                 else torch.float32)
         assert p.dtype == want, name
+
+
+# ---------------------------------------------------------------------------
+# scan_stages: the flax scanned layout through the converter
+# ---------------------------------------------------------------------------
+
+#: test_tiny: stage 2 is the only stage of depth > 1.
+SCAN_TINY = dict(image_size=64, embed_dims=(16, 32, 64, 80),
+                 depths=(1, 1, 2, 1), num_heads=(1, 2, 4, 5),
+                 window_sizes=(2, 2, 4, 2))
+
+
+def _scan_pair(seed=0, **fields):
+    """(flax TinyViT, its seeded variables, the port TinyViT loaded with
+    them through from_jax_variables), f32."""
+    jm = jtv.TinyViT(jtv.TinyViTConfig(dtype=jnp.float32, **SCAN_TINY,
+                                       **fields))
+    x0 = jnp.zeros((1, 64, 64, 3))
+    variables = _randomise(
+        jax.jit(lambda k, v: jm.init(k, v))(jax.random.PRNGKey(0), x0), seed)
+    pm = ttv.TinyViT(ttv.TinyViTConfig(dtype=torch.float32, **SCAN_TINY,
+                                       **fields))
+    pm.load_state_dict(from_jax_variables(variables), strict=True)
+    return jm, variables, pm
+
+
+def test_scan_stage_loads_runs_and_round_trips_the_flax_scanned_tree():
+    """scan_stages=(2,): the flax tree holds stage2_scan/block stacked;
+    the port loads it (strict), matches the flax scanned forward in eval
+    and train mode (and the running statistics the train forward leaves),
+    and to_jax_variables gives the scanned tree back."""
+    from geoguessr_ai_torch.models.convert import to_jax_variables
+
+    jm, variables, pm = _scan_pair(seed=7, scan_stages=(2,))
+    assert "stage2_scan" in variables["params"]
+    assert "stage2_block0" not in variables["params"]
+    x = np.random.default_rng(8).normal(0, 1, (2, 64, 64, 3)).astype(
+        np.float32)
+    want = np.asarray(jax.jit(jm.apply)(variables, jnp.asarray(x)))
+    np.testing.assert_allclose(pm(torch.from_numpy(x)).detach().numpy(),
+                               want, atol=ATOL, rtol=RTOL)
+    want_t, mutated = jax.jit(lambda v, x: jm.apply(
+        v, x, train=True, mutable=["batch_stats"]))(variables, jnp.asarray(x))
+    got_t = pm(torch.from_numpy(x), train=True)
+    np.testing.assert_allclose(got_t.detach().numpy(), np.asarray(want_t),
+                               atol=ATOL, rtol=RTOL)
+    back = to_jax_variables(pm.state_dict(), scan_stages=(2,))
+    for col, tree in (("params", variables["params"]),
+                      ("batch_stats", mutated["batch_stats"])):
+        want_leaves = jax.tree_util.tree_leaves_with_path(_numpy_tree(tree))
+        got_leaves = dict(jax.tree_util.tree_leaves_with_path(back[col]))
+        assert len(got_leaves) == len(want_leaves), col
+        for path, w in want_leaves:
+            np.testing.assert_allclose(got_leaves[path], w, rtol=1e-5,
+                                       atol=1e-6, err_msg=str(path))
+
+
+def test_scan_remat_gradients_match_the_flax_scanned_model():
+    """scan_remat checkpoints each scanned block: the parameter gradients
+    of sum(out^2) match flax's (scan of remat) in the stacked layout."""
+    from geoguessr_ai_torch.models.convert import to_jax_variables
+
+    jm, variables, pm = _scan_pair(seed=9, scan_stages=(2,), scan_remat=True)
+    assert pm._remat == {"stage2_block0": "full", "stage2_block1": "full"}
+    x = np.random.default_rng(10).normal(0, 1, (2, 64, 64, 3)).astype(
+        np.float32)
+    want = jax.jit(jax.grad(lambda p: jnp.sum(jm.apply(
+        {**variables, "params": p}, jnp.asarray(x)) ** 2)))(
+            variables["params"])
+    names = [n for n, _ in pm.named_parameters()]
+    grads = torch.autograd.grad(pm(torch.from_numpy(x)).pow(2).sum(),
+                                list(pm.parameters()))
+    got = dict(jax.tree_util.tree_leaves_with_path(to_jax_variables(
+        dict(zip(names, grads)), scan_stages=(2,))["params"]))
+    for path, w in jax.tree_util.tree_leaves_with_path(_numpy_tree(want)):
+        np.testing.assert_allclose(got[path], w, rtol=1e-3,
+                                   atol=1e-4 * float(np.abs(w).max()),
+                                   err_msg=str(path))
+
+
+@pytest.mark.parametrize("fields,raises", [
+    (dict(scan_stages=(2,), drop_path_rate=0.1), "drop_path_rate"),
+    (dict(scan_stages=(2,), remat=True), "remat"),
+    (dict(scan_stages=(2,), remat=True, remat_stages=(2, 3)), "remat"),
+    (dict(scan_stages=(2,), remat=True, remat_stages=(1,)), None),
+    (dict(scan_stages=(1,)), None),    # depth 1: the unrolled loop
+    (dict(scan_stages=(0, 2), depths=(2, 1, 2, 1)), None),  # never stage 0
+    (dict(scan_stages=(1,), drop_path_rate=0.1), None),  # no check either
+])
+def test_scan_checks_and_fallback_mirror_jax(fields, raises):
+    """The port refuses what the JAX package's asserts refuse, and where a
+    listed stage is not scanned (depth 1, stage 0) both keep the unrolled
+    layout without a word."""
+    from geoguessr_ai_torch.models.convert import to_jax_variables
+
+    fields = {**SCAN_TINY, **fields}
+    jm = jtv.TinyViT(jtv.TinyViTConfig(dtype=jnp.float32, **fields))
+    x0 = jnp.zeros((1, 64, 64, 3))
+    if raises:
+        with pytest.raises(AssertionError):
+            jax.eval_shape(lambda: jm.init(jax.random.PRNGKey(0), x0))
+        with pytest.raises(ValueError, match=raises):
+            ttv.TinyViT(ttv.TinyViTConfig(**fields))
+        return
+    shapes = jax.eval_shape(lambda: jm.init(jax.random.PRNGKey(0), x0))
+    pm = ttv.TinyViT(ttv.TinyViTConfig(**fields))
+    back = to_jax_variables(pm.state_dict(), scan_stages=fields["scan_stages"])
+    assert sorted(back["params"]) == sorted(shapes["params"])
+    assert jax.tree_util.tree_structure(back) == \
+        jax.tree_util.tree_structure(_numpy_tree(shapes))

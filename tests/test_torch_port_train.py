@@ -200,23 +200,24 @@ def _randomise(variables, seed):
     rng = np.random.default_rng(seed)
 
     def leaf(path, v):
-        v = np.asarray(v)
+        shape = np.shape(v)  # an array, or the shape struct of one
         name = jax.tree_util.keystr(path)
         if "'var'" in name:
-            return rng.uniform(0.5, 1.5, v.shape).astype(np.float32)
-        if v.ndim >= 2 and "attention_biases" not in name:
-            fan_in = int(np.prod(v.shape[:-1]))
-            return rng.normal(0, fan_in ** -0.5, v.shape).astype(np.float32)
-        return rng.normal(0, 0.2, v.shape).astype(np.float32)
+            return rng.uniform(0.5, 1.5, shape).astype(np.float32)
+        if len(shape) >= 2 and "attention_biases" not in name:
+            fan_in = int(np.prod(shape[:-1]))
+            return rng.normal(0, fan_in ** -0.5, shape).astype(np.float32)
+        return rng.normal(0, 0.2, shape).astype(np.float32)
 
     return jax.tree_util.tree_map_with_path(leaf, variables)
 
 
 def _tiny_pair(num_cells=8, seed=0, dtype="float32", variables=None,
-               depths=None):
+               depths=None, **fields):
     """(flax SuperGuessr, its variables, the port model loaded with them)
-    at TinyViTConfig.test_tiny (with ``depths`` if given) computing in
-    ``dtype``; the variables are seeded random ones unless given."""
+    at TinyViTConfig.test_tiny (with ``depths`` and the TinyViTConfig
+    ``fields`` if given) computing in ``dtype``; the variables are seeded
+    random ones unless given."""
     from geoguessr_ai_tpu.models import SuperGuessr as JaxSuperGuessr
     from geoguessr_ai_tpu.models import TinyViT as JaxTinyViT
     from geoguessr_ai_tpu.models import TinyViTConfig as JaxConfig
@@ -228,16 +229,17 @@ def _tiny_pair(num_cells=8, seed=0, dtype="float32", variables=None,
     jcfg = JaxConfig.test_tiny(dtype=jdtype)
     if depths is not None:
         jcfg = dataclasses.replace(jcfg, depths=depths)
+    jcfg = dataclasses.replace(jcfg, **fields)
     jm = JaxSuperGuessr(num_cells=num_cells, backbone=JaxTinyViT(jcfg),
                         panorama=True, embed_dim=jcfg.embed_dim, dtype=jdtype)
+    size = jcfg.image_size
     if variables is None:
-        dummy = jnp.zeros((1, 4, 64, 64, 3), jnp.float32)
+        dummy = jnp.zeros((1, 4, size, size, 3), jnp.float32)
         variables = _randomise(
-            jax.jit(jm.init)(jax.random.PRNGKey(0), dummy), seed)
-    pcfg = TinyViTConfig(image_size=64, embed_dims=jcfg.embed_dims,
-                         depths=jcfg.depths, num_heads=jcfg.num_heads,
-                         window_sizes=jcfg.window_sizes,
-                         dtype=getattr(torch, dtype))
+            jax.eval_shape(jm.init, jax.random.PRNGKey(0), dummy), seed)
+    shared = {f.name: getattr(jcfg, f.name)
+              for f in dataclasses.fields(TinyViTConfig) if f.name != "dtype"}
+    pcfg = TinyViTConfig(dtype=getattr(torch, dtype), **shared)
     pm = SuperGuessr(num_cells, TinyViT(pcfg), embed_dim=jcfg.embed_dim)
     pm.load_state_dict(from_jax_variables(variables), strict=True)
     return jm, variables, pm
@@ -585,9 +587,9 @@ def _port_train_step(pm, x, coords, cells, opt, grad_accum_steps=1):
     return state, met, grads
 
 
-def _step_inputs(B, num_cells, seed):
+def _step_inputs(B, num_cells, seed, size=64):
     rng = np.random.default_rng(seed)
-    x = rng.normal(0, 1, (B, 4, 64, 64, 3)).astype(np.float32)
+    x = rng.normal(0, 1, (B, 4, size, size, 3)).astype(np.float32)
     coords = np.stack([rng.uniform(-170, 170, B), rng.uniform(-60, 60, B)],
                       -1).astype(np.float32)
     cells = np.stack([rng.uniform(-170, 170, num_cells),
@@ -650,6 +652,111 @@ def test_train_step_matches_jax_train_step(grad_accum_steps):
         assert (np.abs(d).max() > 0) == bool(trainable[key]), key
     _assert_trees_close(new["batch_stats"], jnew.batch_stats, rtol=1e-5,
                         rel_atol=1e-6)
+
+
+#: The head-major configuration at 512 px with test_tiny's depths and
+#: narrow widths of head dim 32: every stage's window has N % 128 == 0
+#: (256, 256, 1024, 256), so with QKV_KERNEL_MIN_N raised every attention
+#: stage takes window_attention.
+HEAD_MAJOR_FIELDS = dict(image_size=512, embed_dims=(32, 64, 64, 96),
+                         depths=(1, 1, 1, 1), num_heads=(1, 2, 2, 3),
+                         window_sizes=(16, 16, 32, 16),
+                         pallas_attention_stages=(1, 2, 3),
+                         fused_block_stages=(), fused_block_noproj_stages=())
+
+
+def test_head_major_train_step_matches_jax_train_step(monkeypatch):
+    """One train step of the head-major configuration (QKV_KERNEL_MIN_N
+    raised on both packages) against the JAX train_step: loss, grad_norm,
+    every gradient and batch_stats, with the tolerances of
+    test_train_step_matches_jax_train_step."""
+    from geoguessr_ai_tpu.ops import window_attention as jwa
+
+    monkeypatch.setattr(jwa, "QKV_KERNEL_MIN_N", 2048)
+    monkeypatch.setattr(wa, "QKV_KERNEL_MIN_N", 2048)
+    jm, variables, pm = _tiny_pair(seed=13, **HEAD_MAJOR_FIELDS)
+    x, coords, cells = _step_inputs(B=2, num_cells=8, seed=14, size=512)
+    opt = dict(learning_rate=0.1, eps=1.0)
+    jnew, jmet, jgrads = _jax_train_step(jm, variables, x, coords, cells, opt)
+    calls = []
+    real = wa.window_attention
+    monkeypatch.setattr(wa, "window_attention", lambda *a: (
+        calls.append(1), real(*a))[1])
+    _, met, port_grads = _port_train_step(pm, x, coords, cells, opt)
+    assert len(calls) == 3  # stages 1-3, one block each
+    for key in ("loss", "grad_norm", "param_norm"):
+        np.testing.assert_allclose(float(met[key]), float(jmet[key]),
+                                   rtol=1e-5, err_msg=key)
+    _assert_trees_close(to_jax_variables(port_grads)["params"], jgrads,
+                        rtol=STEP_RTOL[1], rel_atol=1e-4,
+                        atol=STEP_NORM_ATOL * float(jmet["grad_norm"]))
+    _assert_trees_close(to_jax_variables(pm.state_dict())["batch_stats"],
+                        jnew.batch_stats, rtol=1e-5, rel_atol=1e-6)
+
+
+# ---------------------------------------------------------------------------
+# remat
+# ---------------------------------------------------------------------------
+
+#: Four stages with a stage of depth 2, DropPath at a rate that drops
+#: samples (its masks must be drawn again the same under recompute).
+REMAT_TINY = dict(image_size=64, embed_dims=(16, 32, 64, 80),
+                  depths=(1, 1, 2, 1), num_heads=(1, 2, 4, 5),
+                  window_sizes=(2, 2, 4, 2), drop_path_rate=0.4,
+                  dtype=torch.float32)
+
+
+def _remat_step(state_dict, **fields):
+    """sum(out^2) of a train-mode TinyViT forward from ``state_dict`` with
+    DropPath drawn from a seeded generator: (gradients, running statistics,
+    the generator's state afterwards)."""
+    from geoguessr_ai_torch.models.tinyvit import TinyViT, TinyViTConfig
+
+    m = TinyViT(TinyViTConfig(**REMAT_TINY, **fields))
+    m.load_state_dict(state_dict)
+    x = torch.from_numpy(np.random.default_rng(15).normal(
+        0, 1, (8, 64, 64, 3)).astype(np.float32))
+    gen = torch.Generator().manual_seed(16)
+    out = m(x, train=True, generator=gen)
+    grads = torch.autograd.grad(out.pow(2).sum(), list(m.parameters()))
+    stats = {k: v.clone() for k, v in m.state_dict().items()
+             if k.endswith(("running_mean", "running_var"))}
+    return grads, stats, gen.get_state()
+
+
+@pytest.mark.parametrize("fields", [
+    dict(remat=True),
+    dict(remat=True, remat_policy="dots"),
+    dict(remat=True, remat_stages=(0, 2)),
+    dict(remat=True, remat_stages=(1, 3), remat_policy="dots"),
+], ids=["full", "dots", "full_stages_0_2", "dots_stages_1_3"])
+def test_remat_gradients_statistics_and_drop_path_match_remat_off(
+        fields, monkeypatch):
+    """remat "full" and "dots" (all stages or some) against remat off, in
+    f32 on the CPU: the same gradients (the recompute repeats the same
+    arithmetic, so to f32 noise of 1e-6), the running statistics moved
+    once (equal), DropPath's masks drawn the same under recompute (the
+    gradients would differ at rate 0.4 otherwise) and the caller's
+    generator advanced only by the forward."""
+    from geoguessr_ai_torch.models import tinyvit
+
+    torch.manual_seed(0)
+    sd = tinyvit.TinyViT(tinyvit.TinyViTConfig(**REMAT_TINY)).state_dict()
+    want = _remat_step(sd)
+    calls = []
+    real = tinyvit._checkpointed
+    monkeypatch.setattr(tinyvit, "_checkpointed", lambda *a: (
+        calls.append(a[-1]), real(*a))[1])
+    got = _remat_step(sd, **fields)
+    stages = fields.get("remat_stages", (0, 1, 2, 3))
+    assert calls == [fields.get("remat_policy", "full")] * sum(
+        REMAT_TINY["depths"][st] for st in stages)
+    for a, b in zip(got[0], want[0]):
+        torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-6)
+    assert got[1].keys() == want[1].keys()
+    for k in want[1]:
+        assert torch.equal(got[1][k], want[1][k]), k
+    assert torch.equal(got[2], want[2])
 
 
 #: Per top-level module, 1 - cosine of its flattened gradient to the f32
@@ -784,7 +891,7 @@ def _tiny_backbone(monkeypatch):
     from geoguessr_ai_torch.models.tinyvit import TinyViT, TinyViTConfig
     from geoguessr_ai_torch.train import coordinator
 
-    monkeypatch.setattr(coordinator, "build_backbone", lambda cfg: (
+    monkeypatch.setattr(coordinator, "build_backbone", lambda cfg, _=None: (
         TinyViT(TinyViTConfig(image_size=64, embed_dims=(16, 32, 64, 80),
                               depths=(1, 1, 2, 1), num_heads=(1, 2, 4, 5),
                               window_sizes=(2, 2, 4, 2),
