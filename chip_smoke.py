@@ -83,7 +83,28 @@ Phases, in order; any failure exits non-zero:
 19. one B=16 train step with remat off, "full" and "dots" from the same
     state and batch: loss, gradient cosine, running statistics moved once,
     peak device memory;
-20. print the kernel JSON line, then ``{"ok": true, "device": ...}`` last.
+20. every TinyViT attention kernel (K1-K5, K7, K8a, K8b, K9) at head dims
+    16 and 64 and CLIP's (K6, K11) at 16 and 32 against their plain
+    versions; K4's and K5's d_bias and d_qkv bitwise equal over two calls
+    at the B=16 train shapes;
+21. the experimental kernels: K12a and K12b against their plain mirror at
+    64 and 256 images of (128, 128, 96), E=384 (K12b bitwise equal to
+    K12a; the cuDNN conv chain as the yardstick), K13 at the JAX tool's
+    four shapes in int8 (exactly the plain product) and bf16, with TOPS,
+    the bound and what sets it, the library call and the int8/bf16 rate
+    ratios; then, with the counters at 0, the entry points that run them
+    (``ops.experimental.fused_mbconv``'s benchmark and
+    ``tools.exp_int8_gemm``);
+22. the static-int8 embed path: ``Embedder(quant_mode="static")`` at
+    B=512 (calibrated on the first batch): exact launches of one forward
+    (K1 4, K2 6, no K3, K9, K10), cosine to the unquantized CPU f32 forward
+    of the same weights (>= 0.99, the JAX gate) and to the port's static
+    CPU forward with the same scales (>= 0.999, 8 images), p50 beside
+    quant_mode "none", peak memory; then ``build_embedding_sqlite`` with
+    the default ``EmbedBuildConfig()`` over the 1100 fixture rows;
+23. the CLIP engine with ``quantize_gemms``: K6 exactly 24 launches a
+    forward, cosine >= 0.99 to the K6 engine of phase 11, bucket-16 p50;
+24. print the kernel JSON line, then ``{"ok": true, "device": ...}`` last.
 """
 
 from __future__ import annotations
@@ -1862,7 +1883,500 @@ def phase_remat():
 
 
 # ---------------------------------------------------------------------------
-# Phase 20: the kernels line
+# Phase 20: the attention kernels at head dims 16 and 64 (CLIP's at 16 and
+# 32), and K4's / K5's d_bias bitwise stable at the train shapes
+# ---------------------------------------------------------------------------
+
+#: (kernel, hd, W, N, C, H): each TinyViT attention kernel at head dims 16
+#: and 64, with D = C a multiple of 64 for the fused kernels' GEMMs.
+HEAD_DIM_CASES = tuple(
+    (k, hd, W, N, C, H)
+    for hd, C, H in ((16, 128, 8), (64, 384, 6))
+    for k, W, N in (("K1", 64, 256), ("K2", 16, 1024), ("K3", 64, 256),
+                    ("K9", 64, 256), ("K4", 64, 256), ("K5", 16, 1024),
+                    ("K7", 16, 1024), ("K8a", 16, 1024), ("K8b", 64, 256)))
+#: (kernel, hd, B, N, H): CLIP's kernels at CLIP test_tiny's head dim 32
+#: and at 16, N=577 as ViT-L/14-336's.
+CLIP_HEAD_DIM_CASES = (("K6", 32, 16, 577, 8), ("K11", 32, 16, 577, 8),
+                       ("K6", 16, 16, 577, 16), ("K11", 16, 16, 577, 16))
+
+
+def _head_dim_case(kernel, hd, W, N, C, H, gen):
+    """(kernel fn, plain fn, args) for one case of HEAD_DIM_CASES."""
+    from geoguessr_ai_torch.ops import window_attention as wa
+
+    scale = hd ** -0.5
+    if kernel in ("K4", "K5", "K7"):
+        D = H * hd
+        qkv = torch.randn(W, N, 3 * D, generator=gen).to("cuda",
+                                                         torch.bfloat16)
+        bias = (torch.randn(H, N, N, generator=gen) * 0.5).to("cuda")
+        g = torch.randn(W, N, D, generator=gen).to("cuda", torch.bfloat16)
+        name, plain = {"K4": ("_attention_qkv_bwd_cuda",
+                              wa._attention_qkv_bwd_plain),
+                       "K5": ("_attention_bwd_merged_cuda",
+                              wa._attention_bwd_merged_plain),
+                       "K7": ("_attention_bwd_qtiled_cuda",
+                              wa._attention_bwd_qtiled_plain)}[kernel]
+        return getattr(wa, name), plain, (qkv, bias, g, scale, H)
+    if kernel in ("K8a", "K8b"):
+        q, k, v = (torch.randn(W, H, N, hd, generator=gen).to(
+            "cuda", torch.bfloat16) for _ in range(3))
+        bias = (torch.randn(H, N, N, generator=gen) * 0.5).to("cuda")
+        fn = (wa._attention_qtiled_cuda if kernel == "K8a"
+              else wa._attention_batched_cuda)
+        return fn, wa._attention_plain, (q, k, v, bias, scale)
+    a = _case_inputs(W, N, C, H, gen)
+    if kernel == "K1":
+        args = (a["x"], a["ln_scale"], a["ln_bias"], a["w_qkv"], a["b_qkv"],
+                a["w_proj"], a["b_proj"], a["bias"], scale, H, 1e-5)
+        return wa._fused_block_cuda, wa._fused_block_plain, args
+    if kernel == "K2":
+        args = (a["x"], a["ln_scale"], a["ln_bias"], a["w_qkv"], a["b_qkv"],
+                a["bias"], scale, H, 1e-5)
+        return wa._fb_s2_cuda, wa._fb_s2_plain, args
+    if kernel == "K9":
+        side = int(round((W * N) ** 0.5))
+        x4 = a["x"].reshape(1, side, side, C)
+        args = (x4, a["ln_scale"], a["ln_bias"], a["w_qkv"], a["b_qkv"],
+                a["w_proj"], a["b_proj"], a["bias"], scale, H,
+                int(round(N ** 0.5)), 1e-5)
+        return wa._fb4d_cuda, wa._fb4d_plain, args
+    qkv = wa._ln_qkv_plain(a["x"], a["ln_scale"], a["ln_bias"], a["w_qkv"],
+                           a["b_qkv"], 1e-5)
+    return (wa._attention_qkv_fused_cuda, wa._attention_qkv_fused_plain,
+            (qkv, a["bias"], scale, H))
+
+
+def phase_head_dims():
+    from geoguessr_ai_torch.ops import clip_attention as ca
+    from geoguessr_ai_torch.ops import window_attention as wa
+
+    gen = torch.Generator().manual_seed(SEED + 7)
+    worst = {}
+    for kernel, hd, W, N, C, H in HEAD_DIM_CASES:
+        kern, plain, args = _head_dim_case(kernel, hd, W, N, C, H, gen)
+        got, want = kern(*args), plain(*args)
+        torch.cuda.synchronize()
+        pairs = zip(got, want) if isinstance(got, tuple) else [(got, want)]
+        for a, b in pairs:
+            _, rel = _rel_err(a, b)
+            finite = bool(torch.isfinite(a).all())
+            worst[(kernel, hd)] = max(worst.get((kernel, hd), 0.0), rel)
+            if a.shape != b.shape or not finite or rel > KERNEL_REL_TOL:
+                fail(f"{kernel} at head dim {hd} disagrees with its plain "
+                     f"version (rel {rel:.3g}, finite {finite})")
+        del got, want, args
+    for kernel, hd, B, N, H in CLIP_HEAD_DIM_CASES:
+        D = H * hd
+        qkv = torch.randn(B, N, 3 * D, generator=gen).to("cuda",
+                                                         torch.bfloat16)
+        w = (torch.randn(D, D, generator=gen) * D ** -0.5).to(
+            "cuda", torch.bfloat16)
+        args = (qkv, hd ** -0.5, H) if kernel == "K6" else \
+            (qkv, w, hd ** -0.5, H)
+        kern, plain = ((ca._flash_cuda, ca._flash_plain) if kernel == "K6"
+                       else (ca._flash_proj_cuda, ca._flash_proj_plain))
+        _, rel = _rel_err(kern(*args), plain(*args))
+        worst[(kernel, hd)] = rel
+        if rel > KERNEL_REL_TOL:
+            fail(f"{kernel} at head dim {hd} disagrees with its plain "
+                 f"version (rel {rel:.3g})")
+    log("head dims: max_rel_err against the plain versions (tolerance "
+        f"{KERNEL_REL_TOL}): " + ", ".join(
+            f"{k}@hd{hd} {r:.4g}" for (k, hd), r in sorted(worst.items())))
+    for kernel, label, W, N, H in BWD_CASES:
+        D = H * 32
+        qkv = torch.randn(W, N, 3 * D, generator=gen).to("cuda",
+                                                         torch.bfloat16)
+        bias = (torch.randn(H, N, N, generator=gen) * 0.5).to("cuda")
+        g = torch.randn(W, N, D, generator=gen).to("cuda", torch.bfloat16)
+        fn = getattr(wa, BWD_META[kernel][0])
+        first = fn(qkv, bias, g, 32 ** -0.5, H)
+        second = fn(qkv, bias, g, 32 ** -0.5, H)
+        same = (torch.equal(first[1], second[1]),
+                torch.equal(first[0], second[0]))
+        log(f"{kernel} {label} W={W}: d_bias bitwise equal over two calls "
+            f"{same[0]}, d_qkv {same[1]}")
+        if not all(same):
+            fail(f"{kernel} {label}: the backward is not bitwise stable")
+        del qkv, bias, g, first, second
+    wa.reset_launches()
+    ca.reset_launches()
+    torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# Phase 21: the experimental kernels (K12a, K12b, K13) against their plain
+# versions, then the entry points that run them
+# ---------------------------------------------------------------------------
+
+EXP_META = {
+    "K12a": ("_fused_mbconv_cuda",
+             "geoguessr_ai_torch/ops/csrc/fused_mbconv_exp.cu",
+             "geoguessr_ai_tpu/ops/experimental/fused_mbconv.py:68"),
+    "K12b": ("_fused_mbconv_v2_cuda",
+             "geoguessr_ai_torch/ops/csrc/fused_mbconv_exp.cu",
+             "geoguessr_ai_tpu/ops/experimental/fused_mbconv.py:199"),
+    "K13": ("_tiled_matmul_cuda",
+            "geoguessr_ai_torch/ops/csrc/tiled_gemm.cu",
+            "tools/exp_int8_pallas.py:43"),
+}
+#: Images of the K12 checks: the bucket-16 stage-0 batch and the JAX
+#: module's benchmark batch.
+EXP_MBCONV_IMAGES = (64, 256)
+#: The JAX tool's (M, K, N) shapes.
+K13_SHAPES = ((4096, 2048, 4096), (4096, 4096, 4096), (131072, 384, 1536),
+              (131072, 1536, 384))
+PEAK_INT8_OPS_S = 1979e12
+
+
+def _exp_mbconv_inputs(B, gen):
+    """The JAX benchmark's inputs: x * 0.5, weights and biases * 0.1."""
+    def t(shape, scale, dtype):
+        return (torch.randn(*shape, generator=gen) * scale).to("cuda", dtype)
+
+    C, E = MB_C, MB_E
+    bf, f32 = torch.bfloat16, torch.float32
+    return (t((B, MB_MAP, MB_MAP, C), 0.5, bf), t((C, E), 0.1, bf),
+            t((E,), 0.1, f32), t((3, 3, E), 0.1, f32), t((E,), 0.1, f32),
+            t((E, C), 0.1, bf), t((C,), 0.1, f32))
+
+
+def _exp_chain_ms(args):
+    """conv 1x1 -> GELU -> depthwise -> GELU -> conv 1x1 -> GELU with the
+    plain biases, as cuDNN convolutions in bf16: the yardstick only."""
+    import torch.nn.functional as F
+
+    x, w1, b1, wdw, b2, w3, b3 = args
+    bf = torch.bfloat16
+    E = w1.shape[1]
+    xc = x.permute(0, 3, 1, 2)
+    k1 = w1.t().contiguous()[:, :, None, None]
+    k2 = wdw.to(bf).permute(2, 0, 1).contiguous()[:, None]
+    k3 = w3.t().contiguous()[:, :, None, None]
+    bb = [b.to(bf)[None, :, None, None] for b in (b1, b2, b3)]
+
+    def chain():
+        h = F.gelu(F.conv2d(xc, k1) + bb[0], approximate="tanh")
+        h = F.gelu(F.conv2d(h, k2, padding=1, groups=E) + bb[1],
+                   approximate="tanh")
+        return F.gelu(xc + F.conv2d(h, k3) + bb[2], approximate="tanh")
+
+    return cuda_time_ms(chain, iters=5)
+
+
+def _k13_bound_ms(M, K, N, int8):
+    ops = 2.0 * M * K * N
+    elem = 1 if int8 else 2
+    nbytes = (M * K + K * N) * elem + 4 * M * N
+    t_bytes = nbytes / PEAK_BYTES_S * 1e3
+    t_ops = ops / (PEAK_INT8_OPS_S if int8 else PEAK_BF16_FLOP_S) * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                 else "operations"), t_bytes, t_ops
+
+
+def _k13_library(a, b, int8):
+    """One PyTorch call: torch._int_mm for int8; for bf16 torch.mm with an
+    f32 output where this PyTorch has out_dtype, else torch.matmul (bf16
+    out).  Returns (fn, what)."""
+    if int8:
+        return (lambda: torch._int_mm(a, b)), "torch._int_mm (int32 out)"
+    try:
+        torch.mm(a[:16, :16], b[:16, :16], out_dtype=torch.float32)
+        return ((lambda: torch.mm(a, b, out_dtype=torch.float32)),
+                "torch.mm(out_dtype=float32)")
+    except (TypeError, RuntimeError):
+        return (lambda: torch.matmul(a, b)), "torch.matmul (bf16 out)"
+
+
+def phase_experimental():
+    from geoguessr_ai_torch.ops.experimental import fused_mbconv as fm
+    from geoguessr_ai_torch.ops.experimental import tiled_gemm as tg
+    from geoguessr_ai_torch.tools import exp_int8_gemm
+
+    rows = {}
+    gen = torch.Generator().manual_seed(SEED + 8)
+    for images in EXP_MBCONV_IMAGES:
+        args = _exp_mbconv_inputs(images, gen)
+        with torch.inference_mode():
+            got = fm._fused_mbconv_cuda(*args)
+            got2 = fm._fused_mbconv_cuda(*args, v2=True)
+            torch.cuda.synchronize()
+            want = _sliced(fm._fused_mbconv_plain, args, images)
+            max_abs, rel = _rel_err(got, want)
+            same = torch.equal(got, got2)
+            finite = bool(torch.isfinite(got).all())
+            del got, got2, want
+            ms_a = cuda_time_ms(lambda: fm._fused_mbconv_cuda(*args))
+            ms_b = cuda_time_ms(lambda: fm._fused_mbconv_cuda(*args,
+                                                               v2=True))
+            plain_ms = cuda_time_ms(
+                lambda: _sliced(fm._fused_mbconv_plain, args, images),
+                iters=2)
+            chain_ms = _exp_chain_ms(args)
+        bound, bound_by = _mbconv_bound_ms(images)
+        log(f"K12a / K12b {images} images, x {tuple(args[0].shape)}, E "
+            f"{MB_E}: max_abs_err {max_abs:.6g} max_rel_err {rel:.6g} "
+            f"(tolerance {KERNEL_REL_TOL}); K12b bitwise equal to K12a "
+            f"{same}")
+        log(f"  K12a kernel_ms {ms_a:.4f}, K12b kernel_ms {ms_b:.4f}, "
+            f"plain_ms {plain_ms:.4f}, cudnn_chain_ms {chain_ms:.4f}, "
+            f"bound_ms {bound:.4f} ({bound_by})")
+        if not (finite and rel <= KERNEL_REL_TOL and same):
+            fail(f"K12 {images} images: rel {rel:.3g}, finite {finite}, "
+                 f"K12b equal to K12a {same}")
+        for k, ms in (("K12a", ms_a), ("K12b", ms_b)):
+            rows[(k, images)] = dict(max_abs_err=max_abs, ms=ms,
+                                     plain_ms=plain_ms, bound_ms=bound,
+                                     bound_by=bound_by, lib_ms=chain_ms)
+        del args
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    gen = torch.Generator().manual_seed(SEED + 9)
+    for M, K, N in K13_SHAPES:
+        tops = {}
+        for int8 in (True, False):
+            if int8:
+                a = torch.randint(-127, 128, (M, K), generator=gen,
+                                  dtype=torch.int8).cuda()
+                b = torch.randint(-127, 128, (K, N), generator=gen,
+                                  dtype=torch.int8).cuda()
+                out_dtype = torch.int32
+            else:
+                a = torch.randn(M, K, generator=gen).to("cuda",
+                                                        torch.bfloat16)
+                b = torch.randn(K, N, generator=gen).to("cuda",
+                                                        torch.bfloat16)
+                out_dtype = torch.float32
+            got = tg._tiled_matmul_cuda(a, b, out_dtype)
+            want = tg._tiled_matmul_plain(a, b, out_dtype)
+            torch.cuda.synchronize()
+            if int8:
+                exact = torch.equal(got, want)
+                max_abs, rel = _rel_err(got, want)
+                ok = exact
+            else:
+                max_abs, rel = _rel_err(got, want)
+                ok = rel <= KERNEL_REL_TOL and bool(torch.isfinite(got).all())
+            del got, want
+            kind = "int8" if int8 else "bf16"
+            ms = cuda_time_ms(lambda: tg._tiled_matmul_cuda(a, b, out_dtype))
+            plain_ms = cuda_time_ms(
+                lambda: tg._tiled_matmul_plain(a, b, out_dtype), iters=2)
+            lib, lib_what = _k13_library(a, b, int8)
+            lib_ms = cuda_time_ms(lib)
+            bound, bound_by, t_bytes, t_ops = _k13_bound_ms(M, K, N, int8)
+            ops = 2.0 * M * K * N
+            tops[kind] = (ops / ms / 1e9, ops / lib_ms / 1e9)
+            log(f"K13 {kind} (M, K, N) = ({M}, {K}, {N}): "
+                + (f"int32 exactly equal to the plain product {ok}"
+                   if int8 else f"max_rel_err {rel:.6g} (tolerance "
+                                f"{KERNEL_REL_TOL})"))
+            log(f"  kernel_ms {ms:.4f} ({tops[kind][0]:.1f} TOPS), plain_ms "
+                f"{plain_ms:.4f}, library_ms {lib_ms:.4f} ({lib_what}, "
+                f"{tops[kind][1]:.1f} TOPS), bound_ms {bound:.4f} "
+                f"({bound_by}: bytes {t_bytes:.4f} ms, operations "
+                f"{t_ops:.4f} ms)")
+            if not ok:
+                fail(f"K13 {kind} ({M}, {K}, {N}) disagrees with its plain "
+                     f"version (rel {rel:.3g})")
+            rows[("K13", kind, (M, K, N))] = dict(
+                max_abs_err=max_abs, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound, bound_by=bound_by, lib_ms=lib_ms,
+                lib_what=lib_what, tops=tops[kind][0])
+            del a, b
+            torch.cuda.empty_cache()
+        log(f"  int8 / bf16 rate at ({M}, {K}, {N}): K13 "
+            f"{tops['int8'][0] / tops['bf16'][0]:.3f}, library "
+            f"{tops['int8'][1] / tops['bf16'][1]:.3f}")
+
+    # the entry points, with the counters at 0 just before each
+    fm.reset_launches()
+    fm._bench(reps=2)
+    launches = dict(fm.LAUNCHES)
+    tg.reset_launches()
+    exp_int8_gemm.main(["--reps", "2"])
+    launches.update(tg.LAUNCHES)
+    log(f"experimental entry points: launches {launches}")
+    for k in ("K12a", "K12b", "K13"):
+        if not launches[EXP_META[k][0]]:
+            fail(f"{k} was not launched by its entry point")
+    torch.cuda.empty_cache()
+    return rows, {k: launches[m[0]] for k, m in EXP_META.items()}
+
+
+# ---------------------------------------------------------------------------
+# Phase 22: the static-int8 embed path (the default EmbedBuildConfig)
+# ---------------------------------------------------------------------------
+
+#: Launches of one B=512 forward of the static config (JAX's static
+#: Embedder): K1 at the 2 blocks of each of stages 1 and 3, K2 at the 6
+#: stage-2 blocks; no K3, K9 or K10.
+STATIC_LAUNCHES_PER_FORWARD = {"K1": 4, "K2": 6, "K3": 0, "K9": 0, "K10": 0,
+                               "K4": 0, "K5": 0}
+#: The JAX gate of the int8 path against the unquantized f32 forward
+#: (tests/test_quant.py), and the static forward on the card against the
+#: same static forward on the CPU with the same weights and scales.
+STATIC_MIN_COSINE = 0.99
+STATIC_SELF_MIN_COSINE = 0.999
+STATIC_SELF_IMAGES = 8
+
+
+def phase_static_embed(paths):
+    import dataclasses
+
+    from geoguessr_ai_torch.config import BackboneConfig, EmbedBuildConfig
+    from geoguessr_ai_torch.data.embed_builder import (
+        Embedder,
+        build_embedding_sqlite,
+        static_config,
+    )
+    from geoguessr_ai_torch.data.pipeline import decode_jpeg
+    from geoguessr_ai_torch.data.sqlite_dataset import (
+        create_sqlite_from_records,
+        read_embeddings,
+    )
+
+    bb = BackboneConfig.tinyvit()
+    blobs = [open(p, "rb").read() for p in paths]
+    emb = Embedder(bb, quant_mode="static", seed=SEED)
+    views = np.stack([decode_jpeg(b, emb.image_size) for b in blobs])
+    batch = views[np.arange(EMBED_BATCH) % 4]
+    emb(batch)  # calibrates on the first batch, as the builder's first call
+    torch.cuda.synchronize()
+    _reset_all_launches()
+    out = emb(batch)
+    torch.cuda.synchronize()
+    launches = _tinyvit_launches()
+    log(f"static Embedder B={EMBED_BATCH}: {len(emb.model.act_scales)} "
+        f"calibrated sites, launches of one forward "
+        f"{ {k: launches[k] for k in STATIC_LAUNCHES_PER_FORWARD} }")
+    if out.shape != (EMBED_BATCH, 576) or not np.isfinite(out).all():
+        fail(f"static embeddings {out.shape}, finite "
+             f"{np.isfinite(out).all()}")
+    for k, per in STATIC_LAUNCHES_PER_FORWARD.items():
+        if launches[k] != per:
+            fail(f"static embed: {k} launched {launches[k]} times in one "
+                 f"forward, expected {per}")
+
+    t0 = time.perf_counter()
+    cpu = Embedder(bb, device="cpu", seed=SEED, model_config=dataclasses.replace(
+        static_config()[0], dtype=torch.float32, quant_mode="none"))
+    ref = cpu(views)
+    del cpu
+    cos = _view_cosines(out[:4], ref)
+    log(f"static gpu vs unquantized cpu f32 on the fixture images: min "
+        f"cosine {cos.min():.6f} (>= {STATIC_MIN_COSINE}; "
+        f"{', '.join(f'{c:.6f}' for c in cos)}) "
+        f"({time.perf_counter() - t0:.1f} s)")
+    if cos.min() < STATIC_MIN_COSINE:
+        fail(f"static embed cosine {cos.min():.6f} < {STATIC_MIN_COSINE}")
+    t0 = time.perf_counter()
+    cpu_static = Embedder(bb, quant_mode="static", device="cpu", seed=SEED,
+                          model_config=dataclasses.replace(
+                              static_config()[0], dtype=torch.float32))
+    cpu_static.model.act_scales = {k: v.cpu() for k, v in
+                                   emb.model.act_scales.items()}
+    n = STATIC_SELF_IMAGES
+    cos = _view_cosines(out[:n], cpu_static(batch[:n]))
+    del cpu_static
+    log(f"static gpu vs the port's static cpu forward (f32, same weights and "
+        f"scales) on {n} images: min cosine {cos.min():.6f} (>= "
+        f"{STATIC_SELF_MIN_COSINE}) ({time.perf_counter() - t0:.1f} s)")
+    if cos.min() < STATIC_SELF_MIN_COSINE:
+        fail(f"static gpu vs static cpu cosine {cos.min():.6f}")
+
+    static = _embedder_p50(emb, batch, "static int8 (PROD_QUANT_SITES)")
+    del emb
+    gc.collect()
+    torch.cuda.empty_cache()
+    none_emb = Embedder(bb, seed=SEED, model_config=dataclasses.replace(
+        static_config()[0], quant_mode="none"))
+    none = _embedder_p50(none_emb, batch, "the same config, quant_mode none")
+    log(f"  static vs none: p50 {static[0]:.2f} vs {none[0]:.2f} ms "
+        f"({none[0] / static[0]:.3f}x), peak {static[1]:.3f} vs "
+        f"{none[1]:.3f} GB")
+    del none_emb
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    rng = np.random.default_rng(SEED)
+    coords = rng.uniform((-60.0, -180.0), (70.0, 180.0),
+                         (EMBED_ROWS // 4 + 1, 2))
+    with tempfile.TemporaryDirectory() as tmp:
+        src = os.path.join(tmp, "raw.sqlite")
+        dst = os.path.join(tmp, "emb.sqlite")
+        create_sqlite_from_records(src, (
+            {"location_id": f"loc{i // 4:05d}", "lat": coords[i // 4, 0],
+             "lon": coords[i // 4, 1], "heading": 90 * (i % 4),
+             "image": blobs[i % 4]} for i in range(EMBED_ROWS)))
+        torch.cuda.synchronize()
+        _reset_all_launches()
+        t0 = time.perf_counter()
+        written = build_embedding_sqlite(src, dst)  # EmbedBuildConfig()
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        build_launches = _tinyvit_launches()
+        rows = read_embeddings(dst)
+    forwards = -(-EMBED_ROWS // EMBED_BATCH)
+    table = np.stack([r.embedding for r in rows]) if rows else np.zeros(0)
+    log(f"build_embedding_sqlite with the default EmbedBuildConfig() "
+        f"(quant_mode {EmbedBuildConfig().quant_mode!r}): {written} rows in "
+        f"{wall_s:.2f} s, launches {build_launches}")
+    if written != EMBED_ROWS or table.shape != (EMBED_ROWS, 576) or \
+            not np.isfinite(table).all():
+        fail(f"default-config build wrote {written} rows, table "
+             f"{table.shape}")
+    for k, per in STATIC_LAUNCHES_PER_FORWARD.items():
+        if build_launches[k] != per * forwards:
+            fail(f"default-config build: {k} launched {build_launches[k]} "
+                 f"times, expected {per} x {forwards}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {k: launches[k] + build_launches[k] for k in launches}
+
+
+# ---------------------------------------------------------------------------
+# Phase 23: CLIP with quantize_gemms
+# ---------------------------------------------------------------------------
+
+#: The JAX gate of CLIP's int8 path against its unquantized forward
+#: (tests/test_quant.py).
+CLIP_INT8_MIN_COSINE = 0.99
+
+
+def phase_clip_int8(paths, clip_result):
+    from geoguessr_ai_torch.models.clip_vit import CLIPVisionConfig
+    from geoguessr_ai_torch.serving.engine import ServingEngine
+
+    engine = ServingEngine(backbone="clip", seed=SEED,
+                           backbone_config=CLIPVisionConfig.vit_l_14_336(
+                               quantize_gemms=True))
+    _, views = _fixture_views(engine)
+    result, forwards, clip, tinyvit = _clip_serve_launches(
+        engine, paths, views, burst=False)
+    _check_clip_launches("CLIP int8 engine (quantize_gemms)", forwards, clip,
+                         tinyvit, "K6")
+    cos = _view_cosines(result.embedding, clip_result.embedding)
+    log(f"CLIP int8 engine vs the K6 engine: min view cosine {cos.min():.6f} "
+        f"(>= {CLIP_INT8_MIN_COSINE}), top-1 cell {result.top_ids[0]} / "
+        f"{clip_result.top_ids[0]}")
+    if cos.min() < CLIP_INT8_MIN_COSINE:
+        fail(f"CLIP int8 cosine {cos.min():.6f} < {CLIP_INT8_MIN_COSINE}")
+    batch = np.repeat(views[None], 16, axis=0)
+    p50 = _p50_ms(lambda: engine.predict_batch(batch), reps=5)
+    log(f"CLIP int8 bucket 16: p50 {p50:.2f} ms, {16 / p50 * 1e3:.2f} "
+        f"panos/s")
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    return clip[CLIP_META["K6"][0]]
+
+
+# ---------------------------------------------------------------------------
+# Phase 24: the kernels line
 # ---------------------------------------------------------------------------
 
 
@@ -1893,6 +2407,10 @@ def main():
     phase_headmajor_train_vs_cpu()
     k7_launches = phase_k7_train()
     phase_remat()
+    phase_head_dims()
+    exp_rows, exp_launches = phase_experimental()
+    static_launches = phase_static_embed(paths)
+    clip_int8_launches = phase_clip_int8(clip_paths, clip_result)
 
     main_case = {"K1": "stage1", "K2": "stage2", "K3": "stage3",
                  "K4": "stage1", "K5": "stage2"}
@@ -1908,7 +2426,8 @@ def main():
         entry = {
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces,
-            "launches": serve_launches.get(k, 0) + train_launches[k],
+            "launches": (serve_launches.get(k, 0) + train_launches[k]
+                         + static_launches.get(k, 0)),
             "max_abs_err": row["max_abs_err"], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": library,
@@ -1922,7 +2441,9 @@ def main():
         row = clip_rows[(k, "vit_l14_bucket16")]
         entry = {
             "name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": clip_launches[k],
+            "replaces": replaces,
+            "launches": clip_launches[k] + (clip_int8_launches
+                                            if k == "K6" else 0),
             "max_abs_err": row["max_abs_err"], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"],
@@ -1974,6 +2495,34 @@ def main():
         "bound_by": row["bound_by"],
         # SDPA's backward computes K7's function (as K4's and K5's)
         "library_ms": row["library_ms"], "k5_same_inputs_ms": row["k5_ms"],
+    })
+    for k in ("K12a", "K12b"):
+        name, source, replaces = EXP_META[k]
+        row = exp_rows[(k, EXP_MBCONV_IMAGES[-1])]  # the JAX benchmark's batch
+        kernels.append({
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": exp_launches[k],
+            "max_abs_err": row["max_abs_err"], "ms": row["ms"],
+            "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"],
+            # no one PyTorch call computes the function
+            "library_ms": None, "cudnn_chain_ms": row["lib_ms"],
+            "bucket16_ms": exp_rows[(k, EXP_MBCONV_IMAGES[0])]["ms"],
+        })
+    name, source, replaces = EXP_META["K13"]
+    main_shape = K13_SHAPES[1]  # (4096, 4096, 4096): the int8 rate shows
+    row = exp_rows[("K13", "int8", main_shape)]
+    kernels.append({
+        "name": name, "route": "cuda", "source": source,
+        "replaces": replaces, "launches": exp_launches["K13"],
+        "max_abs_err": row["max_abs_err"], "ms": row["ms"],
+        "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+        "bound_by": row["bound_by"], "library_ms": row["lib_ms"],
+        "main_case": f"int8 {main_shape}",
+        "other_cases": {f"{key[1]} {key[2]}": {
+            "ms": r["ms"], "tops": r["tops"], "bound_ms": r["bound_ms"],
+            "library_ms": r["lib_ms"]}
+            for key, r in exp_rows.items() if key[0] == "K13"},
     })
     log(card)
     log(json.dumps({"kernels": kernels}))

@@ -173,7 +173,7 @@ class EmbedBuildConfig:
     fetch_threads: int = 64
     backbone: BackboneConfig = BackboneConfig()
     #: "none" (the backbone's own dtype) or "static" (static-calibrated int8
-    #: MLP GEMMs, TinyViT only: not ported yet, ``Embedder`` raises).
+    #: MLP GEMMs and int8 storage sites, TinyViT only).
     quant_mode: str = "static"
     #: 0 or 1: one device.  More (or -1, all devices) shards each batch over
     #: a data-parallel mesh: not ported yet, the builder raises.

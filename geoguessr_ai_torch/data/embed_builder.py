@@ -5,18 +5,21 @@ A thread pool decodes JPEGs into a bounded queue while the device embeds
 fixed-size batches; one writer inserts the float32 embedding rows.  This is
 the bulk-embedding workload, whose metric is panoramas per second per card
 (4 images a panorama) at ``EmbedBuildConfig.batch_size`` = 512.  The
-configuration that turns on K9 and K10 is ``bulk_embed_config()``,
-passed as ``Embedder(model_config=...)``.
+default ``EmbedBuildConfig`` embeds through the static-int8 TinyViT
+(``quant_mode="static"``: int8 MLP GEMMs and int8 storage at
+``PROD_QUANT_SITES``, calibrated on the first batch); the configuration
+that turns on K9 and K10 is ``bulk_embed_config()``, passed as
+``Embedder(model_config=...)``.
 
-Not ported yet, and raising ``NotImplementedError``: the static-int8
-TinyViT (``quant_mode="static"``, the config's default; ROADMAP Queue 1
-item 7) and a data-parallel mesh (``mesh``, ``data_parallel`` > 1; item 11).
-The builder runs as one process: there is no per-host row sharding.
+Not ported yet, and raising ``NotImplementedError``: a data-parallel mesh
+(``mesh``, ``data_parallel`` > 1; ROADMAP Queue 1 item 11).  The builder
+runs as one process: there is no per-host row sharding.
 """
 
 from __future__ import annotations
 
 import concurrent.futures as cf
+import dataclasses
 import os
 import queue
 import sqlite3
@@ -55,11 +58,15 @@ class Embedder:
 
     Args:
       backbone_cfg: which backbone (``BackboneConfig.name``).
-      quant_mode: "none"; "static" raises for TinyViT (not ported yet) and
-        is ignored for the other backbones, as in the JAX package.
+      quant_mode: "none", or "static" (TinyViT; ignored for the other
+        backbones, as in the JAX package): the int8 model of
+        ``static_config``, whose activation scales come from one f32
+        forward on the host CPU (``_calibrate``) over the first images of
+        the first batch, and again after every ``load_params``.
       device: None means the GPU; raises without one.
       model_config: a TinyViTConfig (or CLIPVisionConfig) replacing the
-        backbone's preset, e.g. the bulk-embedding configuration.
+        backbone's preset, e.g. the bulk-embedding configuration; with
+        "static" its quant fields are set as ``static_config`` sets them.
       state_dict: backbone weights (e.g. from ``models.convert``); seeded
         random weights when None.
       seed: seed of the random weights.
@@ -79,36 +86,95 @@ class Embedder:
                 "Queue 1 item 11)")
         self.quant_mode = quant_mode if backbone_cfg.name == "tinyvit" \
             else "none"
-        if self.quant_mode == "static":
-            raise NotImplementedError(
-                "quant_mode='static' (static-int8 MLP GEMMs and their "
-                "calibration, ops/quant.py) is not ported yet (ROADMAP Queue "
-                "1 item 7); use quant_mode='none'")
         self.device = C.resolve_device(device)
+        self._cal_config = None
+        if self.quant_mode == "static":
+            model_config, self._cal_config = static_config(model_config)
         model, mean, std, self.image_size = build_backbone(backbone_cfg,
                                                            model_config)
         self.embed_dim = model.config.embed_dim
         self._norm = (mean, std)
         if state_dict is None:
             init_parameters_(model, seed)
+            if self._cal_config is not None:  # the f32 weights to calibrate
+                state_dict = model.state_dict()
         self.model = model
         self.load_params(state_dict)
 
     def load_params(self, state_dict: Optional[Dict[str, torch.Tensor]]
                     ) -> None:
         """Loads backbone weights (strict; None keeps the current ones) and
-        moves the model to the device in its compute dtype."""
+        moves the model to the device in its compute dtype.  A static
+        Embedder keeps the f32 weights on the host for its calibration and
+        recalibrates at its next call."""
         if state_dict is not None:
             self.model.load_state_dict(state_dict, strict=True)
+            if self._cal_config is not None:
+                self._host_state = {k: v.detach().float().cpu().clone()
+                                    for k, v in state_dict.items()}
+        if self._cal_config is not None:
+            self.model.act_scales = {}
         self.model.cast_weights_()
         self.model.to(self.device).eval()
 
+    def _calibrate(self, images_u8: np.ndarray) -> None:
+        """One f32 forward on the host CPU of the calibrate model over the
+        first min(8, B) images, normalised as (u8 / 255 - mean) / std,
+        records each site's activation abs-max: the static scales."""
+        from geoguessr_ai_torch.models.tinyvit import TinyViT
+        from geoguessr_ai_torch.ops.quant import calibrate_act_stats
+
+        n = min(8, images_u8.shape[0])
+        mean, std = self._norm
+        x = (images_u8[:n].astype(np.float32) / 255.0
+             - np.asarray(mean, np.float32)) / np.asarray(std, np.float32)
+        cal = TinyViT(self._cal_config)
+        cal.load_state_dict(self._host_state, strict=True)
+        cal.eval()
+
+        def apply_calibrate(variables, xx):
+            cal.act_stats = variables.get("act_stats", {})
+            with torch.inference_mode():
+                out = cal(xx)
+            return out, {"act_stats": dict(cal.act_stats)}
+
+        stats = calibrate_act_stats(apply_calibrate, {},
+                                    [torch.from_numpy(x)])
+        self.model.act_scales = {k: v.to(self.device)
+                                 for k, v in stats.items()}
+
     @torch.inference_mode()
     def __call__(self, images_u8: np.ndarray) -> np.ndarray:
+        if self._cal_config is not None and not self.model.act_scales:
+            self._calibrate(images_u8)
         x = torch.from_numpy(np.ascontiguousarray(images_u8)).to(self.device)
         x = fused_preprocess(x, *self._norm, self.image_size,
                              dtype=self.model.config.dtype)
         return self.model(x).float().cpu().numpy()
+
+
+def static_config(model_config=None):
+    """(the static model's TinyViTConfig, the calibration model's), as the
+    JAX static ``Embedder`` builds them: with no ``model_config``,
+    TinyViT-21M-512 with the fused block at stages 1 and 3 and no K3 stage,
+    quant_mode "static" at ``PROD_QUANT_SITES``, calibrated by the f32
+    "calibrate" model of the plain preset; otherwise ``model_config`` with
+    those quant fields, calibrated by itself in f32."""
+    from geoguessr_ai_torch.models.tinyvit import (
+        PROD_QUANT_SITES,
+        TinyViTConfig,
+    )
+
+    if model_config is None:
+        base = TinyViTConfig.tiny_vit_21m_512()
+        static = dataclasses.replace(base, fused_block_stages=(1, 3),
+                                     pallas_attention_stages=())
+    else:
+        base = static = model_config
+    return (dataclasses.replace(static, quant_mode="static",
+                                quant_sites=PROD_QUANT_SITES),
+            dataclasses.replace(base, dtype=torch.float32,
+                                quant_mode="calibrate"))
 
 
 def _done_keys(out_sqlite: str) -> set:

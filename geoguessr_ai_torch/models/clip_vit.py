@@ -16,9 +16,14 @@ and the position-embedding add in the compute dtype.  Self-attention is
 one fused qkv GEMM into ``ops.clip_attention`` (K6 on the card), or with
 ``pallas_fuse_proj`` K11 with the out-projection inside.
 
+``quantize_gemms`` (inference only) runs the qkv projection, the
+out-projection and the MLP's fc1 / fc2 through the dynamic per-row int8
+GEMM (``ops.quant.int8_einsum_nc_cd``), as the JAX module does: the qkv
+weight and bias arrive rounded to the compute dtype, the others f32; the
+attention stays K6 (``pallas_fuse_proj`` is skipped while quantizing).
+
 Not ported: ``pallas_attention=False`` (flax MultiHeadDotProductAttention)
-and ``quantize_gemms=True`` (ops/quant.py); both raise
-``NotImplementedError``.
+raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -31,6 +36,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from geoguessr_ai_torch.ops import clip_attention as ca
+from geoguessr_ai_torch.ops.quant import int8_einsum_nc_cd
 
 
 @dataclasses.dataclass(frozen=True)
@@ -50,7 +56,8 @@ class CLIPVisionConfig:
     #: heads per Pallas grid cell, lowered until it divides num_heads (the
     #: CUDA kernels' result does not depend on it).
     pallas_head_block: int = 4
-    #: int8 GEMMs (ops/quant.py); not ported.
+    #: Dynamic per-row int8 GEMMs (ops/quant.py) at qkv, the
+    #: out-projection and the MLP; inference only.
     quantize_gemms: bool = False
 
     @staticmethod
@@ -108,11 +115,12 @@ class CLIPSelfAttention(nn.Module):
     run as one fused qkv GEMM into the CLIP attention op."""
 
     def __init__(self, dim: int, num_heads: int, head_block: int,
-                 fuse_proj: bool):
+                 fuse_proj: bool, quantize: bool = False):
         super().__init__()
         self.num_heads = num_heads
         self.head_block = head_block
         self.fuse_proj = fuse_proj
+        self.quantize = quantize
         self.query = nn.Linear(dim, dim)
         self.key = nn.Linear(dim, dim)
         self.value = nn.Linear(dim, dim)
@@ -127,6 +135,12 @@ class CLIPSelfAttention(nn.Module):
                            self.value.weight]).to(dtype)
         b_qkv = torch.cat([self.query.bias, self.key.bias,
                            self.value.bias]).to(dtype)
+        if self.quantize:
+            qkv = int8_einsum_nc_cd(x, w_qkv.t().float(), bias=b_qkv,
+                                    out_dtype=dtype)
+            o = ca.clip_attention(qkv, scale, H, self.head_block)
+            return int8_einsum_nc_cd(o, self.out.weight.t(),
+                                     bias=self.out.bias, out_dtype=dtype)
         qkv = F.linear(x, w_qkv) + b_qkv
         if self.fuse_proj:
             o = ca.clip_attention_proj(qkv, self.out.weight.to(dtype).t(),
@@ -149,7 +163,9 @@ class CLIPEncoderLayer(nn.Module):
         eps = cfg.layer_norm_eps
         self.layer_norm1 = nn.LayerNorm(D, eps=eps)
         self.self_attn = CLIPSelfAttention(D, cfg.num_heads, hb,
-                                           cfg.pallas_fuse_proj)
+                                           cfg.pallas_fuse_proj,
+                                           cfg.quantize_gemms)
+        self.quantize = cfg.quantize_gemms
         self.layer_norm2 = nn.LayerNorm(D, eps=eps)
         self.mlp_fc1 = nn.Linear(D, cfg.mlp_dim)
         self.mlp_fc2 = nn.Linear(cfg.mlp_dim, D)
@@ -157,6 +173,12 @@ class CLIPEncoderLayer(nn.Module):
     def forward(self, x, dtype):
         x = x + self.self_attn(_layer_norm(x, self.layer_norm1, dtype), dtype)
         h = _layer_norm(x, self.layer_norm2, dtype)
+        if self.quantize:
+            fc1, fc2 = self.mlp_fc1, self.mlp_fc2
+            h = quick_gelu(int8_einsum_nc_cd(h, fc1.weight.t(), bias=fc1.bias,
+                                             out_dtype=dtype))
+            return x + int8_einsum_nc_cd(h, fc2.weight.t(), bias=fc2.bias,
+                                         out_dtype=dtype)
         h = quick_gelu(_dense(h, self.mlp_fc1, dtype))
         return x + _dense(h, self.mlp_fc2, dtype)
 
@@ -173,10 +195,6 @@ class CLIPVisionTower(nn.Module):
             raise NotImplementedError(
                 "pallas_attention=False (flax MultiHeadDotProductAttention) "
                 "is not ported; the CLIP tower runs the fused attention op")
-        if cfg.quantize_gemms:
-            raise NotImplementedError(
-                "quantize_gemms (int8 GEMMs, ops/quant.py) is not ported yet "
-                "(ROADMAP Queue 1 item 7)")
         D, p = cfg.hidden_size, cfg.patch_size
         # the flax (p, p, 3, D) kernel, converted to (D, 3, p, p)
         self.patch_embedding = nn.Conv2d(3, D, p, stride=p, bias=False)
@@ -191,9 +209,16 @@ class CLIPVisionTower(nn.Module):
         """Stores the patch and linear weights in the compute dtype once, so
         the forward's per-use casts are no-ops.  Norm parameters, biases and
         the class and position embeddings stay f32, as the JAX forward
-        reads them."""
+        reads them, and so do the weights that ``quantize_gemms`` quantizes
+        from f32 (the out-projection, fc1, fc2; the qkv weights are
+        quantized from their compute-dtype values)."""
+        keep = set()
+        if self.config.quantize_gemms:
+            for i in range(self.config.num_layers):
+                layer = getattr(self, f"layer{i}")
+                keep |= {layer.self_attn.out, layer.mlp_fc1, layer.mlp_fc2}
         for m in self.modules():
-            if isinstance(m, (nn.Conv2d, nn.Linear)):
+            if isinstance(m, (nn.Conv2d, nn.Linear)) and m not in keep:
                 m.weight.data = m.weight.data.to(self.config.dtype)
         return self
 

@@ -23,8 +23,15 @@ modules, and ``to_jax_variables(..., scan_stages=...)`` stacks them back
 for the listed stages that have more than one block, stage 0 (the MBConv
 stage) excepted: the JAX package scans no other.
 
-``from_jax_variables`` takes ``{"params": ..., "batch_stats": ...}`` as
-nested dicts of numpy arrays; ``to_jax_variables`` is its inverse, so that
+TinyViT's per-site activation abs-max, the flax collections ``act_scales``
+(read by quant_mode="static") and ``act_stats`` (written by "calibrate"),
+travel by flax path as ``act_scales.<path>`` / ``act_stats.<path>``
+entries, the names ``TinyViT`` loads them under; below a module of the
+tree (SuperGuessr's ``backbone``) the collection name follows the module's.
+
+``from_jax_variables`` takes ``{"params": ..., "batch_stats": ...}`` (and
+the two act collections when present) as nested dicts of numpy arrays;
+``to_jax_variables`` is its inverse, so that
 gradients, updated parameters and running statistics of the port can be
 compared with the JAX tree leaf by leaf.  Nothing here sees JAX.
 """
@@ -101,8 +108,20 @@ def _param(path, value):
 _STATS = {"mean": "running_mean", "var": "running_var"}
 
 
+#: Flax collections of per-site activation abs-max (TinyViT quantization).
+ACT_COLLECTIONS = ("act_scales", "act_stats")
+#: Modules a TinyViT may sit under in a flax tree (SuperGuessr's backbone).
+_ACT_ROOTS = ("backbone",)
+
+
+def _act_name(col, path):
+    head = path[:1] if path[0] in _ACT_ROOTS else ()
+    return ".".join(head + (col,) + path[len(head):])
+
+
 def from_jax_variables(variables) -> Dict[str, torch.Tensor]:
-    """Flax ``{"params", "batch_stats"}`` (numpy leaves) -> state dict."""
+    """Flax ``{"params", "batch_stats"}`` (numpy leaves), and
+    ``act_scales`` / ``act_stats`` when present -> state dict."""
     out = {}
     for path, value in _unstacked(_flatten(variables["params"])):
         name, value = _param(path, value)
@@ -114,6 +133,10 @@ def from_jax_variables(variables) -> Dict[str, torch.Tensor]:
             raise ValueError(f"unknown batch stat {'/'.join(path)}")
         out[".".join(mods + [_STATS[leaf]])] = torch.from_numpy(
             np.ascontiguousarray(value, np.float32))
+    for col in ACT_COLLECTIONS:
+        for path, value in _flatten(variables.get(col, {})):
+            out[_act_name(col, path)] = torch.from_numpy(
+                np.array(value, np.float32))
     return out
 
 
@@ -160,14 +183,21 @@ def to_jax_variables(named: Dict[str, torch.Tensor],
     """Port state dict (or any name -> tensor dict with its names, such as
     gradients) -> ``{"params": ..., "batch_stats": ...}`` of f32 numpy
     arrays in flax layout; ``batch_stats`` only when running statistics are
-    among the names.  ``num_heads`` splits CLIP's attention projections
+    among the names, ``act_scales`` / ``act_stats`` when theirs are.
+    ``num_heads`` splits CLIP's attention projections
     back into their DenseGeneral shapes; it is needed only when they are
     among the names.  ``scan_stages`` (a TinyViT config's) stacks those
     stages' blocks in the scanned layout."""
     params, stats = {}, {}
+    acts = {col: {} for col in ACT_COLLECTIONS}
     for name, t in named.items():
         *mods, leaf = name.split(".")
         value = t.detach().float().cpu().numpy()
+        col = next((c for c in ACT_COLLECTIONS if c in mods), None)
+        if col is not None:
+            i = mods.index(col)
+            _put(acts[col], mods[:i] + mods[i + 1:] + [leaf], value)
+            continue
         if leaf in _STATS_BACK:
             _put(stats, mods + [_STATS_BACK[leaf]], value)
             continue
@@ -198,4 +228,5 @@ def to_jax_variables(named: Dict[str, torch.Tensor],
     out = {"params": _stack_scanned(params, scan_stages)}
     if stats:
         out["batch_stats"] = _stack_scanned(stats, scan_stages)
+    out.update((col, tree) for col, tree in acts.items() if tree)
     return out

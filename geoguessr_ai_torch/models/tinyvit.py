@@ -45,7 +45,29 @@ the same as (``scan_remat`` checkpoints each block), with the JAX
 package's checks and its silent fallback for a stage of depth 1; its flax
 parameter layout, ``stage{N}_scan/block/...`` stacked along axis 0, is
 mapped to and from the per-block modules by ``models/convert.py``.
-Quantization is not ported; the config has no such field.
+
+Quantization (``quant_mode``, ``quant_sites``, ``quant_stages``; inference
+only, ``ops/quant.py``), site for site as the JAX module:
+
+* int8 GEMM sites, through ``_quant_gemm``: "conv" (the 1x1 convs of
+  MBConv, PatchMerging), "qkv" and "proj" (the attention projections of the
+  branches that have them) and "fc1" / "fc2" (the MLP);
+* int8 storage sites (``fake_quant_static_ste``, static mode only), through
+  ``_maybe_quant_store``: "dw" (the tensor feeding each depthwise conv),
+  "dwout" (the depthwise output), "stem" (patch_embed conv1's output) and
+  "localdw" (the attention residual feeding local_conv);
+* ``CONV_INT8_EMITTER`` sends the "conv" site of the convs the JAX package
+  lowers as convolutions (the stem's 3x3s, MBConv / PatchMerging conv1)
+  through ``int8_static_conv``.
+
+"calibrate" runs the exact forward and records each site's running
+activation abs-max into ``act_stats``; "static" reads them back from
+``act_scales``.  Both are flat dicts of f32 scalars keyed by the flax path
+(``stage1_block0.mlp.fc1_in_amax``), kept beside the parameters: state
+dicts carry them as ``act_scales.<path>`` / ``act_stats.<path>`` and
+``models/convert.py`` maps them to the flax collections.  The int8 sites
+keep their weights f32 through ``cast_weights_`` (they are quantized per
+output channel from f32 at each call, as the JAX forward does).
 """
 
 from __future__ import annotations
@@ -66,11 +88,28 @@ from torch.utils.checkpoint import (
 )
 
 from geoguessr_ai_torch.ops import mbconv
+from geoguessr_ai_torch.ops import quant as Q
 from geoguessr_ai_torch.ops import window_attention as wa
 from geoguessr_ai_torch.ops.window_attention import (
     window_partition,
     window_unpartition,
 )
+
+
+_ALL_QUANT_SITES = ("conv", "qkv", "proj", "fc1", "fc2")
+#: The static-int8 sites of the production embed path: the MLP GEMMs in
+#: int8 and int8 storage of the tensors feeding the depthwise convs, the
+#: stem's conv1 output and the local_conv input.
+PROD_QUANT_SITES = ("fc1", "fc2", "dw", "stem", "localdw")
+#: The storage sites a train step can use (their STE passes gradients).
+TRAIN_QUANT_SITES = ("dw", "stem", "localdw")
+
+#: Conv sites whose JAX lowering is a convolution (the stem's 3x3s,
+#: MBConv / PatchMerging conv1) quantize through ``int8_static_conv`` in
+#: the static and calibrate modes, as the JAX module constant of the same
+#: name; read at each call.  Calibration must run with the value the static
+#: forward uses: the recorded paths differ.
+CONV_INT8_EMITTER = False
 
 
 @dataclasses.dataclass(frozen=True)
@@ -110,6 +149,17 @@ class TinyViTConfig:
     scan_stages: Tuple[int, ...] = ()
     #: remat "full" on the blocks of the scanned stages (``_stage_remat``).
     scan_remat: bool = False
+    #: Legacy alias: True selects quant_mode="dynamic".
+    quantize_gemms: bool = False
+    #: "none"; "dynamic" (per-row activation scales at each GEMM);
+    #: "static" (calibrated scales from ``act_scales``); "calibrate" (the
+    #: exact forward, recording each site's abs-max into ``act_stats``).
+    quant_mode: str = "none"
+    #: Sites the int8 modes apply to (calibration records every site).
+    quant_sites: Tuple[str, ...] = _ALL_QUANT_SITES
+    #: Stages that quantize (0 is the MBConv stage; patch_embed and each
+    #: downsample follow the stage they feed).
+    quant_stages: Tuple[int, ...] = (0, 1, 2, 3)
 
     @staticmethod
     def tiny_vit_21m_512(**overrides) -> "TinyViTConfig":
@@ -119,6 +169,12 @@ class TinyViTConfig:
     def embed_dim(self) -> int:
         return self.embed_dims[-1]
 
+    @property
+    def effective_quant_mode(self) -> str:
+        if self.quant_mode != "none":
+            return self.quant_mode
+        return "dynamic" if self.quantize_gemms else "none"
+
 
 def _gelu(x, exact: bool):
     return F.gelu(x, approximate="none" if exact else "tanh")
@@ -126,6 +182,86 @@ def _gelu(x, exact: bool):
 
 def _linear(x, lin: nn.Linear, dtype):
     return F.linear(x, lin.weight.to(dtype), lin.bias.to(dtype))
+
+
+class _ActScales:
+    """A TinyViT's per-site activation abs-max: ``scales`` (read by the
+    static mode) and ``stats`` (recorded by the calibrate mode), flat dicts
+    of f32 scalars keyed by flax path.  Shared by the model's quantizing
+    modules; not parameters or buffers."""
+
+    def __init__(self):
+        self.scales = {}
+        self.stats = {}
+
+
+class _Quant(nn.Module):
+    """A module with quantization sites: its stage's mode (``quant``), the
+    config's sites, its flax path and the model's ``_ActScales``, set by
+    ``TinyViT.__init__``."""
+
+    quant = "none"
+    quant_sites = _ALL_QUANT_SITES
+    _qpath = ""
+    _act = None
+
+    def _key(self, name):
+        return f"{self._qpath}.{name}" if self._qpath else name
+
+    def _record(self, x, name):
+        """calibrate: the running max of |x| (f32) under ``name``."""
+        key = self._key(name)
+        amax = x.detach().float().abs().max()
+        prev = self._act.stats.get(key)
+        self._act.stats[key] = (amax if prev is None else
+                                torch.maximum(prev.to(amax.device), amax))
+
+    def _amax(self, name, device):
+        """static: the calibrated abs-max of ``name``, on ``device``."""
+        key = self._key(name)
+        try:
+            t = self._act.scales[key]
+        except KeyError:
+            raise KeyError(f"no act_scales entry {key!r}: the static mode "
+                           "reads scales recorded by a calibrate forward") \
+                from None
+        if t.device != device:
+            t = self._act.scales[key] = t.to(device)
+        return t
+
+    def _quant_gemm(self, x, lin: nn.Linear, dtype, name, site):
+        """The JAX ``_quant_gemm``: ``x @ lin`` in the int8 modes when
+        ``site`` is one of the sites (the weight quantized from f32),
+        recording the input's abs-max in calibrate, plain otherwise."""
+        quant = self.quant
+        if quant in ("dynamic", "static") and site not in self.quant_sites:
+            quant = "none"
+        if quant == "dynamic":
+            return Q.int8_einsum_nc_cd(x, lin.weight.t(), bias=lin.bias,
+                                       out_dtype=dtype)
+        if quant == "static":
+            return Q.int8_static_einsum_nc_cd(
+                x, lin.weight.t(), self._amax(name, x.device), bias=lin.bias,
+                out_dtype=dtype)
+        if quant == "calibrate":
+            self._record(x, name)
+        return _linear(x, lin, dtype)
+
+    def _maybe_quant_store(self, x, site, name):
+        """The JAX ``_maybe_quant_store``: int8 storage of x with its
+        static scale (straight-through gradient) in static mode at a listed
+        site; calibrate records."""
+        if self.quant == "calibrate":
+            self._record(x, name)
+            return x
+        if self.quant == "static" and site in self.quant_sites:
+            return Q.fake_quant_static_ste(x, self._amax(name, x.device))
+        return x
+
+    def _conv_quant_active(self):
+        return self.quant == "calibrate" or (
+            self.quant in ("dynamic", "static")
+            and "conv" in self.quant_sites)
 
 
 #: ``active`` while a checkpointed block recomputes its forward.
@@ -237,39 +373,71 @@ class DropPath(nn.Module):
                            torch.zeros((), dtype=x.dtype, device=x.device))
 
 
-class ConvBN(nn.Module):
-    """Conv (no bias, padding k // 2 as flax) + BatchNorm, on NHWC."""
+class ConvBN(_Quant):
+    """Conv (no bias, padding k // 2 as flax) + BatchNorm, on NHWC.
+    ``pointwise_lowering`` is the JAX module's: "conv" for the 1x1 convs
+    it lowers as convolutions (MBConv / PatchMerging conv1), which
+    ``CONV_INT8_EMITTER`` sends through ``int8_static_conv``."""
 
-    def __init__(self, cin, cout, kernel=1, stride=1, groups=1):
+    def __init__(self, cin, cout, kernel=1, stride=1, groups=1,
+                 pointwise_lowering="einsum"):
         super().__init__()
         self.conv = nn.Conv2d(cin, cout, kernel, stride, kernel // 2,
                               groups=groups, bias=False)
         self.bn = _BN(cout)
+        self.pointwise_lowering = pointwise_lowering
 
     def forward(self, x, dtype, train: bool = False):
         c = self.conv
+        k, stride = c.kernel_size[0], c.stride[0]
+        active = self._conv_quant_active()
+        if (CONV_INT8_EMITTER and active and c.groups == 1
+                and self.quant in ("static", "calibrate")
+                and (k > 1 or self.pointwise_lowering == "conv")):
+            if self.quant == "static":
+                y = Q.int8_static_conv(
+                    x, c.weight.permute(2, 3, 1, 0),
+                    self._amax("in_amax", x.device), stride=stride,
+                    padding=k // 2, out_dtype=dtype)
+                return self.bn(y, dtype, train)
+            self._record(x, "in_amax")
+        elif active and k == 1 and stride == 1 and c.groups == 1:
+            # the JAX _PointwiseConv named "conv": a GEMM site
+            lin = _PointwiseLinear(c.weight)
+            if self.quant != "calibrate":
+                return self.bn(self._quant_gemm(x, lin, dtype, "conv.in_amax",
+                                                "conv"), dtype, train)
+            self._record(x, "conv.in_amax")
         y = F.conv2d(x.permute(0, 3, 1, 2), c.weight.to(dtype), None,
                      c.stride, c.padding, c.dilation, c.groups)
         return self.bn(y.permute(0, 2, 3, 1), dtype, train)
 
 
-class MBConv(nn.Module):
+class _PointwiseLinear:
+    """A 1x1 conv weight (out, in, 1, 1) seen as a bias-free Linear."""
+
+    def __init__(self, conv_weight):
+        self.weight = conv_weight[:, :, 0, 0]
+        self.bias = None
+
+
+class MBConv(_Quant):
     def __init__(self, dim, expand_ratio, exact_gelu, drop_path=0.0,
                  fused=False):
         super().__init__()
         hidden = int(dim * expand_ratio)
         self.exact_gelu = exact_gelu
         self.fused = fused
-        self.conv1 = ConvBN(dim, hidden, 1)
+        self.conv1 = ConvBN(dim, hidden, 1, pointwise_lowering="conv")
         self.conv2 = ConvBN(hidden, hidden, 3, groups=hidden)
         self.conv3 = ConvBN(hidden, dim, 1)
         self.drop_path = DropPath(drop_path)
 
     def forward(self, x, dtype, train: bool = False, generator=None):
         g = self.exact_gelu
-        # The JAX gate also requires that no int8 conv site is active; the
-        # port has no quantization, so that part is always true.
-        if self.fused and not train:
+        # K10 engages only while no conv site quantizes and not in
+        # calibration (which records the conv sites), as the JAX gate.
+        if self.fused and not train and not self._conv_quant_active():
             c1, c2, c3 = self.conv1, self.conv2, self.conv3
             return mbconv.fused_mbconv(
                 x.to(dtype),
@@ -278,12 +446,14 @@ class MBConv(nn.Module):
                 c3.conv.weight[:, :, 0, 0].t(), *c3.bn.folded(),
                 exact_gelu=g)
         y = _gelu(self.conv1(x, dtype, train), g)
+        y = self._maybe_quant_store(y, "dw", "dw_in_amax")
         y = _gelu(self.conv2(y, dtype, train), g)
+        y = self._maybe_quant_store(y, "dwout", "dwout_amax")
         y = self.drop_path(self.conv3(y, dtype, train), train, generator)
         return _gelu(x + y, g)
 
 
-class PatchEmbed(nn.Module):
+class PatchEmbed(_Quant):
     def __init__(self, cin, dim, exact_gelu):
         super().__init__()
         self.exact_gelu = exact_gelu
@@ -292,23 +462,26 @@ class PatchEmbed(nn.Module):
 
     def forward(self, x, dtype, train: bool = False, generator=None):
         x = _gelu(self.conv1(x, dtype, train), self.exact_gelu)
+        x = self._maybe_quant_store(x, "stem", "stem_amax")
         return self.conv2(x, dtype, train)
 
 
-class PatchMerging(nn.Module):
+class PatchMerging(_Quant):
     """1x1 -> depthwise 3x3 stride 2 -> 1x1, BN and GELU between."""
 
     def __init__(self, cin, cout, exact_gelu):
         super().__init__()
         self.exact_gelu = exact_gelu
-        self.conv1 = ConvBN(cin, cout, 1)
+        self.conv1 = ConvBN(cin, cout, 1, pointwise_lowering="conv")
         self.conv2 = ConvBN(cout, cout, 3, stride=2, groups=cout)
         self.conv3 = ConvBN(cout, cout, 1)
 
     def forward(self, x, dtype, train: bool = False, generator=None):
         g = self.exact_gelu
         x = _gelu(self.conv1(x, dtype, train), g)
+        x = self._maybe_quant_store(x, "dw", "dw_in_amax")
         x = _gelu(self.conv2(x, dtype, train), g)
+        x = self._maybe_quant_store(x, "dwout", "dwout_amax")
         return self.conv3(x, dtype, train)
 
 
@@ -326,9 +499,11 @@ def _relative_bias_index(window: int) -> np.ndarray:
     return inv.reshape(offsets.shape).astype(np.int64)
 
 
-class WindowAttention(nn.Module):
+class WindowAttention(_Quant):
     """LeViT-style attention with learned relative biases; (B, N, C)
-    window tokens in, its own pre-LayerNorm inside."""
+    window tokens in, its own pre-LayerNorm inside.  The qkv and proj
+    GEMMs of the K3 and plain branches, and the proj after K2, are int8
+    sites; the K1, K9 and head-major branches have none."""
 
     def __init__(self, dim, num_heads, window, use_kernel_qkv=False,
                  fused_block=False, fused_block_noproj=False):
@@ -367,7 +542,7 @@ class WindowAttention(nn.Module):
         if self.fused_block_noproj and N % 128 == 0:
             out = wa.fused_block_attention_noproj(
                 x, n.weight, n.bias, q.weight.t(), q.bias, bias, scale, H)
-            return _linear(out, p, dtype)
+            return self._quant_gemm(out, p, dtype, "proj_in_amax", "proj")
         if self.fused_block and N % 128 == 0:
             return wa.fused_block_attention(
                 x, n.weight, n.bias, q.weight.t(), q.bias, p.weight.t(),
@@ -376,12 +551,12 @@ class WindowAttention(nn.Module):
         kernel = self.use_kernel_qkv and N % 128 == 0
         if kernel and N < wa.QKV_KERNEL_MIN_N:
             return self._head_major(x, dtype, bias, scale)
-        qkv = _linear(x, q, dtype)
+        qkv = self._quant_gemm(x, q, dtype, "qkv_in_amax", "qkv")
         if kernel:
             out = wa.window_attention_qkv(qkv, bias, scale, H)
         else:
             out = wa.window_attention_qkv_xla(qkv, bias, scale, H)
-        return _linear(out, p, dtype)
+        return self._quant_gemm(out, p, dtype, "proj_in_amax", "proj")
 
     def _head_major(self, x, dtype, bias, scale):
         """The JAX module's head-major branch: q, k, v (B, H, N, hd), each
@@ -403,7 +578,7 @@ class WindowAttention(nn.Module):
                 + self.proj.bias.to(dtype))
 
 
-class Mlp(nn.Module):
+class Mlp(_Quant):
     def __init__(self, dim, hidden, exact_gelu):
         super().__init__()
         self.exact_gelu = exact_gelu
@@ -415,11 +590,12 @@ class Mlp(nn.Module):
         n = self.norm
         x = F.layer_norm(x.float(), n.normalized_shape, n.weight, n.bias,
                          1e-5).to(dtype)
-        x = _gelu(_linear(x, self.fc1, dtype), self.exact_gelu)
-        return _linear(x, self.fc2, dtype)
+        x = _gelu(self._quant_gemm(x, self.fc1, dtype, "fc1_in_amax", "fc1"),
+                  self.exact_gelu)
+        return self._quant_gemm(x, self.fc2, dtype, "fc2_in_amax", "fc2")
 
 
-class TinyViTBlock(nn.Module):
+class TinyViTBlock(_Quant):
     """Window attention -> depthwise local conv -> MLP, all residual."""
 
     def __init__(self, dim, num_heads, window, mlp_ratio, exact_gelu,
@@ -449,6 +625,7 @@ class TinyViTBlock(nn.Module):
             attn_out = window_unpartition(win, w, (H + pad_h, W + pad_w))
             attn_out = attn_out[:, :H, :W, :]
         x = x + self.drop_path(attn_out, train, generator)
+        x = self._maybe_quant_store(x, "localdw", "localdw_in_amax")
         x = self.local_conv(x, dtype, train)
         mlp_out = self.mlp(x.reshape(B, H * W, C), dtype).reshape(B, H, W, C)
         return x + self.drop_path(mlp_out, train, generator)
@@ -501,17 +678,105 @@ class TinyViT(nn.Module):
                 self._order.append(name)
                 res = -(-res // 2)
         self.norm_head = nn.LayerNorm(cfg.embed_dims[-1], eps=1e-5)
+        self._act = _ActScales()
+        for name in self._order:
+            if name == "patch_embed":
+                stage = 0
+            elif name.startswith("downsample"):
+                stage = int(name[len("downsample"):]) + 1
+            else:
+                stage = int(name[len("stage"):name.index("_")])
+            for sub, m in getattr(self, name).named_modules(prefix=name):
+                if isinstance(m, _Quant):
+                    m.quant = self._stage_quant(stage)
+                    m.quant_sites = tuple(cfg.quant_sites)
+                    m._qpath = sub
+                    m._act = self._act
+
+    def _stage_quant(self, stage: int) -> str:
+        """A stage's quant mode: the int8 modes honor quant_stages;
+        calibration records every stage."""
+        mode = self.config.effective_quant_mode
+        if mode in ("static", "dynamic") and \
+                stage not in self.config.quant_stages:
+            return "none"
+        return mode
+
+    @property
+    def act_scales(self):
+        """The calibrated abs-max per site that the static mode reads."""
+        return self._act.scales
+
+    @act_scales.setter
+    def act_scales(self, scales):
+        self._act.scales = dict(scales)
+
+    @property
+    def act_stats(self):
+        """The abs-max per site that the calibrate mode records."""
+        return self._act.stats
+
+    @act_stats.setter
+    def act_stats(self, stats):
+        self._act.stats = dict(stats)
+
+    _ACT_COLLECTIONS = ("act_scales", "act_stats")
+
+    def _save_to_state_dict(self, destination, prefix, keep_vars):
+        super()._save_to_state_dict(destination, prefix, keep_vars)
+        for col in self._ACT_COLLECTIONS:
+            for k, v in getattr(self, col).items():
+                destination[f"{prefix}{col}.{k}"] = v if keep_vars \
+                    else v.detach()
+
+    def _load_from_state_dict(self, state_dict, prefix, local_metadata,
+                              strict, missing_keys, unexpected_keys,
+                              error_msgs):
+        """Takes ``act_scales.<path>`` / ``act_stats.<path>`` entries into
+        the two dicts (replacing them when any is given)."""
+        super()._load_from_state_dict(state_dict, prefix, local_metadata,
+                                      strict, missing_keys, unexpected_keys,
+                                      error_msgs)
+        for col in self._ACT_COLLECTIONS:
+            head = f"{prefix}{col}."
+            got = {k[len(head):]: v.detach().clone().float()
+                   for k, v in state_dict.items() if k.startswith(head)}
+            if got:
+                setattr(self, col, got)
+            unexpected_keys[:] = [k for k in unexpected_keys
+                                  if not k.startswith(head)]
+
+    def _int8_weight_modules(self):
+        """The Linear / Conv2d modules whose weight feeds an int8 GEMM
+        under the config (kept f32 by ``cast_weights_``)."""
+        out = set()
+        for m in self.modules():
+            if not isinstance(m, _Quant) or m.quant not in ("dynamic",
+                                                            "static"):
+                continue
+            if isinstance(m, Mlp):
+                pairs = (("fc1", m.fc1), ("fc2", m.fc2))
+            elif isinstance(m, WindowAttention):
+                pairs = (("qkv", m.qkv), ("proj", m.proj))
+            elif isinstance(m, ConvBN) and m.conv.groups == 1:
+                pairs = (("conv", m.conv),)
+            else:
+                pairs = ()
+            out.update(mod for site, mod in pairs if site in m.quant_sites)
+        return out
 
     def _stage_remat(self, stage: int) -> Optional[str]:
         """The remat policy of a stage's blocks, or None, with the JAX
         module's checks on a scanned stage.  A listed stage of depth 1, or
         stage 0, is not scanned (the JAX package falls back to the unrolled
-        loop without a word); quantization, which a scanned stage must not
-        use, is not ported."""
+        loop without a word); a scanned stage must not quantize."""
         cfg = self.config
         remat_stages = (set(range(len(cfg.depths)))
                         if cfg.remat_stages is None else set(cfg.remat_stages))
         if stage > 0 and stage in cfg.scan_stages and cfg.depths[stage] > 1:
+            if self._stage_quant(stage) != "none":
+                raise ValueError("scan_stages: per-block act_scales don't "
+                                 "stack")
             if cfg.drop_path_rate != 0.0:
                 raise ValueError("scan_stages needs homogeneous blocks "
                                  "(drop_path_rate == 0)")
@@ -528,9 +793,12 @@ class TinyViT(nn.Module):
     def cast_weights_(self) -> "TinyViT":
         """Stores conv and linear weights in the compute dtype once, so the
         forward's per-use casts are no-ops.  Norm parameters, biases and
-        attention biases stay f32, as the JAX forward reads them."""
+        attention biases stay f32, as the JAX forward reads them, and so do
+        the weights of int8 GEMM sites, which are quantized per output
+        channel from f32."""
+        keep = self._int8_weight_modules()
         for m in self.modules():
-            if isinstance(m, (nn.Conv2d, nn.Linear)):
+            if isinstance(m, (nn.Conv2d, nn.Linear)) and m not in keep:
                 m.weight.data = m.weight.data.to(self.config.dtype)
         return self
 

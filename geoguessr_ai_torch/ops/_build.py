@@ -32,31 +32,43 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 #: Entry points of every library, by library name: C name -> argtypes.
 SIGNATURES: Dict[str, Dict[str, tuple]] = {
-    "attention_qkv": {"attention_qkv_bf16": (_P, _P, _P, _I, _I, _I, _F, _P)},
+    "attention_qkv": {"attention_qkv_bf16": (
+        _P, _P, _P, _I, _I, _I, _I, _F, _P)},
     "fb_s2": {"fb_s2_bf16": (
-        _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _P)},
+        _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _P)},
     "fused_block": {"fused_block_bf16": (
         _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-        _I, _I, _I, _I, _F, _F, _P)},
+        _I, _I, _I, _I, _I, _F, _F, _P)},
     "attention_qkv_bwd": {"attention_qkv_bwd_bf16": (
-        _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _P)},
+        _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P)},
     "attention_bwd_merged": {"attention_bwd_merged_bf16": (
-        _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _P)},
+        _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P)},
     "attention_bwd_qtiled": {"attention_bwd_qtiled_bf16": (
-        _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _P)},
+        _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P)},
     "attention_headmajor": {
-        "attention_qtiled_bf16": (_P, _P, _P, _P, _P, _I, _I, _I, _F, _P),
-        "attention_batched_bf16": (
+        "attention_qtiled_bf16": (
             _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P),
+        "attention_batched_bf16": (
+            _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P),
     },
     "fb4d": {"fb4d_bf16": (
         _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-        _I, _I, _I, _I, _I, _I, _F, _F, _P)},
+        _I, _I, _I, _I, _I, _I, _I, _F, _F, _P)},
     "mbconv": {"mbconv_bf16": (
         _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P)},
-    "clip_flash": {"clip_flash_bf16": (_P, _P, _I, _I, _I, _F, _P)},
+    "fused_mbconv_exp": {
+        "fused_mbconv_bf16": (_P, _P, _P, _P, _P, _P, _P, _P,
+                              _I, _I, _I, _I, _P),
+        "fused_mbconv_v2_bf16": (_P, _P, _P, _P, _P, _P, _P, _P,
+                                 _I, _I, _I, _I, _P),
+    },
+    "tiled_gemm": {
+        "tiled_gemm_bf16": (_P, _P, _P, _I, _I, _I, _P),
+        "tiled_gemm_s8": (_P, _P, _P, _I, _I, _I, _P),
+    },
+    "clip_flash": {"clip_flash_bf16": (_P, _P, _I, _I, _I, _I, _F, _P)},
     "clip_flash_proj": {"clip_flash_proj_bf16": (
-        _P, _P, _P, _I, _I, _I, _F, _P)},
+        _P, _P, _P, _I, _I, _I, _I, _F, _P)},
 }
 
 

@@ -15,7 +15,8 @@ package's:
 * w_proj is the (D, D) out-projection in (in, out) layout, its rows in the
   same h*hd + d order.
 
-Kernels (hd=64 only, the head dim of ViT-L/14 and ViT-B/32):
+Kernels (a head dim in ``KERNEL_HEAD_DIMS``; ViT-L/14 and ViT-B/32 have
+64):
 
 * K6 ``_flash_cuda``: softmax(q k^T * scale) v -> (B, N, D);
 * K11 ``_flash_proj_cuda``: the same, then o @ w_proj inside the kernel.
@@ -39,8 +40,9 @@ LAUNCHES = {
 #: The JAX package's default heads per Pallas grid cell.
 HEAD_BLOCK = 2
 
-#: The only head dim the kernels are built for.
-KERNEL_HEAD_DIM = 64
+#: Head dims the kernels are built for: the multiples of mma.sync's k-step
+#: of 16 up to 64.
+KERNEL_HEAD_DIMS = (16, 32, 64)
 
 #: Query rows per K11 block; its shared memory holds their (rows, D)
 #: attention output in bf16 beside two (64, 64) k/v tiles per head pair.
@@ -86,7 +88,7 @@ def _flash_proj_plain(qkv, w_proj, scale, num_heads):
 
 
 def _check_qkv(qkv, num_heads):
-    """Returns (B, N, D) after checking what the kernels take."""
+    """Returns (B, N, D, hd) after checking what the kernels take."""
     if not qkv.is_cuda:
         raise ValueError(f"qkv must be a CUDA tensor, got {qkv.device}")
     if qkv.dtype != torch.bfloat16:
@@ -95,16 +97,17 @@ def _check_qkv(qkv, num_heads):
         raise ValueError(f"qkv must be (B, N, 3D), got {tuple(qkv.shape)}")
     B, N, D3 = qkv.shape
     D = D3 // 3
-    if D != num_heads * KERNEL_HEAD_DIM:
+    hd = D // num_heads
+    if hd * num_heads != D or hd not in KERNEL_HEAD_DIMS:
         raise ValueError(
-            f"the kernels take head dim {KERNEL_HEAD_DIM}, got D={D}, "
+            f"the kernels take a head dim in {KERNEL_HEAD_DIMS}, got D={D}, "
             f"H={num_heads}")
     if not 1 <= B <= 65535 or N < 1:
         raise ValueError(f"the kernels take 1 <= B <= 65535 and N >= 1, got "
                          f"B={B}, N={N}")
     if not qkv.is_contiguous() or qkv.data_ptr() % 16:
         raise ValueError("qkv must be contiguous and 16-byte aligned")
-    return B, N, D
+    return B, N, D, hd
 
 
 def _stream():
@@ -120,28 +123,30 @@ def _flash_cuda(qkv, scale, num_heads):
     """K6: (B, N, D) in the qkv dtype."""
     from geoguessr_ai_torch.ops import _build
 
-    B, N, D = _check_qkv(qkv, num_heads)
+    B, N, D, hd = _check_qkv(qkv, num_heads)
     out = torch.empty((B, N, D), dtype=qkv.dtype, device=qkv.device)
     fn = _build.entry("clip_flash")
-    err = fn(qkv.data_ptr(), out.data_ptr(), B, N, num_heads, float(scale),
-             _stream())
+    err = fn(qkv.data_ptr(), out.data_ptr(), B, N, num_heads, hd,
+             float(scale), _stream())
     _raise_on(err, "_flash_cuda")
     LAUNCHES["_flash_cuda"] += 1
     return out
 
 
-def _flash_proj_smem_bytes(D):
-    """Dynamic shared memory of one K11 block: two (64, 64+8) k tiles and
-    two (64, 64+8) v^T tiles, and the (64, D+8) bf16 attention output."""
-    return 4 * 64 * 72 * 2 + _PROJ_ROWS * (D + 8) * 2
+def _flash_proj_smem_bytes(D, hd):
+    """Dynamic shared memory of one K11 block: two (64, hd+8) k tiles and
+    two (hd, 64+8) v^T tiles, or the (128, 64+8) W tile where that is
+    larger, and the (64, D+8) bf16 attention output."""
+    tiles = max(2 * (64 * (hd + 8) + hd * 72) * 2, 128 * 72 * 2)
+    return tiles + _PROJ_ROWS * (D + 8) * 2
 
 
 def _flash_proj_cuda(qkv, w_proj, scale, num_heads):
     """K11: (B, N, D) in the qkv dtype."""
     from geoguessr_ai_torch.ops import _build
 
-    B, N, D = _check_qkv(qkv, num_heads)
-    if D % 128 or _flash_proj_smem_bytes(D) > _SMEM_LIMIT:
+    B, N, D, hd = _check_qkv(qkv, num_heads)
+    if D % 128 or _flash_proj_smem_bytes(D, hd) > _SMEM_LIMIT:
         raise ValueError(
             f"the out-projection kernel takes D a multiple of 128 whose "
             f"attention rows fit in shared memory, got D={D}")
@@ -156,7 +161,7 @@ def _flash_proj_cuda(qkv, w_proj, scale, num_heads):
     out = torch.empty((B, N, D), dtype=qkv.dtype, device=qkv.device)
     fn = _build.entry("clip_flash_proj")
     err = fn(qkv.data_ptr(), wt.data_ptr(), out.data_ptr(), B, N, num_heads,
-             float(scale), _stream())
+             hd, float(scale), _stream())
     _raise_on(err, "_flash_proj_cuda")
     LAUNCHES["_flash_proj_cuda"] += 1
     return out

@@ -30,16 +30,17 @@
 //      t = sum_row dp * p (two passes over the k-tiles);
 //   2. dk, dv, per (k-tile, head, window): loops over the q-tiles;
 //   3. dq, per (q-tile, head, window): loops over the k-tiles;
-//   4. d_bias, per (k-tile, q-tile, head, window group): loops over the
-//      windows of its group and sums ds in registers; groups are added with
-//      f32 atomicAdd into a zeroed d_bias (one group per head and tile when
-//      the grid is large enough: then the sum is deterministic).
+//   4. d_bias, per (k-tile, q-tile, head): walks all W windows in order and
+//      sums ds in registers, then stores its tile.  No atomics, so d_bias
+//      is bitwise the same from run to run, as the Pallas kernels' sum in
+//      grid order is (K7's second launch is this kernel too).
 //
 // Every launch is one block of 4 warps; a warp owns 16 rows of a 64-row
 // tile and uses mma.sync.m16n8k16 (bf16 in, f32 accumulate).  Tiles of
-// 64 rows x 32 dims go through shared memory either row-major (pitch
-// kKPad, the B operand of a product over dims) or transposed (pitch
-// kVPad, the B operand of a product over rows), as in common.cuh.
+// 64 rows x HD dims (HD = 16, 32 or 64, common.cuh HeadDim) go through
+// shared memory either row-major (pitch HD + 8, the B operand of a product
+// over dims) or transposed (pitch kVPad, the B operand of a product over
+// rows), as in common.cuh.
 #pragma once
 
 #include "common.cuh"
@@ -56,12 +57,13 @@ __device__ __forceinline__ float2 bias_pair(const float* p) {
 __device__ __forceinline__ float bias_one(const bf16* p) { return __bfloat162float(*p); }
 __device__ __forceinline__ float bias_one(const float* p) { return *p; }
 
-// 16 rows x 32 dims of a row-major bf16 matrix (row pitch ld) as the A
-// fragments of the two k-steps over dims 0-15 and 16-31.
-__device__ __forceinline__ void load_a16x32(uint32_t a[2][4], const bf16* p, long ld, int g,
-                                            int c) {
+// 16 rows x HD dims of a row-major bf16 matrix (row pitch ld) as the A
+// fragments of the k-steps over dims 0-15, 16-31, ...
+template <int HD>
+__device__ __forceinline__ void load_a16(uint32_t a[HeadDim<HD>::kSteps][4], const bf16* p,
+                                         long ld, int g, int c) {
 #pragma unroll
-  for (int s = 0; s < 2; ++s) {
+  for (int s = 0; s < HeadDim<HD>::kSteps; ++s) {
     const bf16* r0 = p + (long)g * ld + s * 16 + 2 * c;
     const bf16* r1 = r0 + 8 * ld;
     a[s][0] = ld32(r0);
@@ -71,15 +73,16 @@ __device__ __forceinline__ void load_a16x32(uint32_t a[2][4], const bf16* p, lon
   }
 }
 
-// Copies 64 rows x 32 dims (row pitch ld) into shared memory: row-major
-// into rowt (pitch kKPad) and/or transposed into trt (pitch kVPad).
-template <bool ROW, bool TRANS>
-__device__ __forceinline__ void stage64x32(bf16* rowt, bf16* trt, const bf16* src, long ld,
-                                           int tid) {
-  for (int i = tid; i < kBwdTile * 4; i += 128) {
-    const int r = i >> 2, ch = i & 3;
+// Copies 64 rows x HD dims (row pitch ld) into shared memory: row-major
+// into rowt (pitch HD + 8) and/or transposed into trt (pitch kVPad).
+template <int HD, bool ROW, bool TRANS>
+__device__ __forceinline__ void stage64(bf16* rowt, bf16* trt, const bf16* src, long ld,
+                                        int tid) {
+  using T = HeadDim<HD>;
+  for (int i = tid; i < kBwdTile * T::kVecs; i += 128) {
+    const int r = i / T::kVecs, ch = i % T::kVecs;
     const uint4 v = *reinterpret_cast<const uint4*>(src + (long)r * ld + ch * 8);
-    if (ROW) *reinterpret_cast<uint4*>(&rowt[r * kKPad + ch * 8]) = v;
+    if (ROW) *reinterpret_cast<uint4*>(&rowt[r * T::kPad + ch * 8]) = v;
     if (TRANS) {
       const bf16* e = reinterpret_cast<const bf16*>(&v);
 #pragma unroll
@@ -88,24 +91,29 @@ __device__ __forceinline__ void stage64x32(bf16* rowt, bf16* trt, const bf16* sr
   }
 }
 
-// acc (16 x 64) = A (16 x 32) . B^T, B the 64 row-major rows of rowt.
-__device__ __forceinline__ void mma_16x64_k32(float acc[8][4], const uint32_t a[2][4],
-                                              const bf16* rowt, int g, int c) {
+// acc (16 x 64) = A (16 x HD) . B^T, B the 64 row-major rows of rowt.
+template <int HD>
+__device__ __forceinline__ void mma_16x64(float acc[8][4],
+                                          const uint32_t a[HeadDim<HD>::kSteps][4],
+                                          const bf16* rowt, int g, int c) {
 #pragma unroll
   for (int nt = 0; nt < 8; ++nt) {
 #pragma unroll
     for (int i = 0; i < 4; ++i) acc[nt][i] = 0.f;
-    const bf16* r = &rowt[(nt * 8 + g) * kKPad + 2 * c];
+    const bf16* r = &rowt[(nt * 8 + g) * HeadDim<HD>::kPad + 2 * c];
 #pragma unroll
-    for (int st = 0; st < 2; ++st) mma_bf16_16816(acc[nt], a[st], ld32(r + st * 16), ld32(r + st * 16 + 8));
+    for (int st = 0; st < HeadDim<HD>::kSteps; ++st)
+      mma_bf16_16816(acc[nt], a[st], ld32(r + st * 16), ld32(r + st * 16 + 8));
   }
 }
 
-// acc (16 x 32) += bf16(x) (16 x 64, an accumulator tile) . B (64 x 32),
+// acc (16 x HD) += bf16(x) (16 x 64, an accumulator tile) . B (64 x HD),
 // B held transposed in trt.  The accumulators of n-tiles 2kk and 2kk+1 are
 // exactly the A fragment of k-step kk.
-__device__ __forceinline__ void mma_16x32_k64(float acc[4][4], const float x[8][4],
-                                              const bf16* trt, int g, int c) {
+template <int HD>
+__device__ __forceinline__ void mma_16xhd_k64(float acc[HeadDim<HD>::kTiles][4],
+                                              const float x[8][4], const bf16* trt, int g,
+                                              int c) {
 #pragma unroll
   for (int kk = 0; kk < 4; ++kk) {
     uint32_t a[4];
@@ -114,7 +122,7 @@ __device__ __forceinline__ void mma_16x32_k64(float acc[4][4], const float x[8][
     a[2] = pack_bf16(x[2 * kk + 1][0], x[2 * kk + 1][1]);
     a[3] = pack_bf16(x[2 * kk + 1][2], x[2 * kk + 1][3]);
 #pragma unroll
-    for (int d = 0; d < 4; ++d) {
+    for (int d = 0; d < HeadDim<HD>::kTiles; ++d) {
       const bf16* r = &trt[(d * 8 + g) * kVPad + kk * 16 + 2 * c];
       mma_bf16_16816(acc[d], a, ld32(r), ld32(r + 8));
     }
@@ -131,7 +139,7 @@ __device__ __forceinline__ float quad_sum(float v) {
   return v + __shfl_xor_sync(0xffffffffu, v, 2);
 }
 
-// Shape of one call: qkv (W, N, 3D), g (W, N, D), D = H * kHd; stats are
+// Shape of one call: qkv (W, N, 3D), g (W, N, D), D = H * HD; stats are
 // three (W, H, N) f32 planes: row max, 1 / row sum, t.
 struct BwdArgs {
   const bf16* qkv;
@@ -163,25 +171,38 @@ __device__ __forceinline__ void add_bias(float s[8][4], const BiasT* brow0, cons
   }
 }
 
+// Bytes of dynamic shared memory of the dk/dv phase (K4/K5's launch 2, K7's
+// launch 1): q and g row-major and transposed, a 64 x 64 f32 bias tile and
+// the 64 rows' statistics; 55 KB at HD = 64, over the 48 KB a block gets
+// without cudaFuncAttributeMaxDynamicSharedMemorySize.
+template <int HD>
+struct DkdvSmem {
+  static constexpr int kRowTile = kBwdTile * HeadDim<HD>::kPad * 2;  // a row-major 64 x HD tile
+  static constexpr int kTrTile = HD * kVPad * 2;                     // a transposed one
+  static constexpr int bytes =
+      2 * kRowTile + 2 * kTrTile + kBwdTile * kBiasPitch * 4 + 3 * kBwdTile * 4;
+};
+
 // ---------------------------------------------------------------------------
 // 1. Row statistics.  grid (N/64, H, W).
 // ---------------------------------------------------------------------------
-template <typename BiasT>
+template <int HD, typename BiasT>
 __global__ void __launch_bounds__(128)
 attn_bwd_stats_kernel(BwdArgs a, const BiasT* __restrict__ bias) {
-  __shared__ __align__(16) bf16 ks[kBwdTile * kKPad];
-  __shared__ __align__(16) bf16 vs[kBwdTile * kKPad];
+  using T = HeadDim<HD>;
+  __shared__ __align__(16) bf16 ks[kBwdTile * T::kPad];
+  __shared__ __align__(16) bf16 vs[kBwdTile * T::kPad];
   const int h = blockIdx.y, w = blockIdx.z;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, c = lane & 3;
-  const int N = a.N, D = a.H * kHd;
+  const int N = a.N, D = a.H * HD;
   const long ld = 3L * D;
-  const bf16* base = a.qkv + (long)w * N * ld + (long)h * 3 * kHd;
+  const bf16* base = a.qkv + (long)w * N * ld + (long)h * 3 * HD;
   const int q0 = blockIdx.x * kBwdTile + warp * 16;
 
-  uint32_t qa[2][4], ga[2][4];
-  load_a16x32(qa, base + (long)q0 * ld, ld, g, c);
-  load_a16x32(ga, a.g + ((long)w * N + q0) * D + h * kHd, D, g, c);
+  uint32_t qa[T::kSteps][4], ga[T::kSteps][4];
+  load_a16<HD>(qa, base + (long)q0 * ld, ld, g, c);
+  load_a16<HD>(ga, a.g + ((long)w * N + q0) * D + h * HD, D, g, c);
   const BiasT* brow0 = bias + ((long)h * N + q0 + g) * N;
   const BiasT* brow1 = brow0 + 8L * N;
 
@@ -190,9 +211,9 @@ attn_bwd_stats_kernel(BwdArgs a, const BiasT* __restrict__ bias) {
   float s[8][4], dp[8][4];
   for (int k0 = 0; k0 < N; k0 += kBwdTile) {
     __syncthreads();
-    stage64x32<true, false>(ks, nullptr, base + (long)k0 * ld + kHd, ld, tid);
+    stage64<HD, true, false>(ks, nullptr, base + (long)k0 * ld + HD, ld, tid);
     __syncthreads();
-    mma_16x64_k32(s, qa, ks, g, c);
+    mma_16x64<HD>(s, qa, ks, g, c);
     add_bias(s, brow0, brow1, k0, a.scale, c);
     float mx0 = m0, mx1 = m1;
 #pragma unroll
@@ -219,11 +240,11 @@ attn_bwd_stats_kernel(BwdArgs a, const BiasT* __restrict__ bias) {
   float t0 = 0.f, t1 = 0.f;
   for (int k0 = 0; k0 < N; k0 += kBwdTile) {
     __syncthreads();
-    stage64x32<true, false>(ks, nullptr, base + (long)k0 * ld + kHd, ld, tid);
-    stage64x32<true, false>(vs, nullptr, base + (long)k0 * ld + 2 * kHd, ld, tid);
+    stage64<HD, true, false>(ks, nullptr, base + (long)k0 * ld + HD, ld, tid);
+    stage64<HD, true, false>(vs, nullptr, base + (long)k0 * ld + 2 * HD, ld, tid);
     __syncthreads();
-    mma_16x64_k32(s, qa, ks, g, c);
-    mma_16x64_k32(dp, ga, vs, g, c);
+    mma_16x64<HD>(s, qa, ks, g, c);
+    mma_16x64<HD>(dp, ga, vs, g, c);
     add_bias(s, brow0, brow1, k0, a.scale, c);
 #pragma unroll
     for (int nt = 0; nt < 8; ++nt) {
@@ -247,43 +268,49 @@ attn_bwd_stats_kernel(BwdArgs a, const BiasT* __restrict__ bias) {
 
 // ---------------------------------------------------------------------------
 // 2. dk and dv.  grid (N/64, H, W); a warp owns 16 keys and loops over all
-// q-tiles, so its dk and dv rows are complete in registers.
+// q-tiles, so its dk and dv rows are complete in registers.  Dynamic shared
+// memory of DkdvSmem<HD>::bytes.
 // ---------------------------------------------------------------------------
-template <typename BiasT>
+template <int HD, typename BiasT>
 __global__ void __launch_bounds__(128)
 attn_bwd_dkdv_kernel(BwdArgs a, const BiasT* __restrict__ bias) {
-  __shared__ __align__(16) bf16 qs[kBwdTile * kKPad];
-  __shared__ __align__(16) bf16 gs[kBwdTile * kKPad];
-  __shared__ __align__(16) bf16 qt[kHd * kVPad];
-  __shared__ __align__(16) bf16 gt[kHd * kVPad];
-  __shared__ float bsm[kBwdTile * kBiasPitch];
-  __shared__ float ms[kBwdTile], ils[kBwdTile], ts[kBwdTile];
+  using T = HeadDim<HD>;
+  using S = DkdvSmem<HD>;
+  extern __shared__ __align__(16) unsigned char smem[];
+  bf16* qs = reinterpret_cast<bf16*>(smem);
+  bf16* gs = reinterpret_cast<bf16*>(smem + S::kRowTile);
+  bf16* qt = reinterpret_cast<bf16*>(smem + 2 * S::kRowTile);
+  bf16* gt = reinterpret_cast<bf16*>(smem + 2 * S::kRowTile + S::kTrTile);
+  float* bsm = reinterpret_cast<float*>(smem + 2 * S::kRowTile + 2 * S::kTrTile);
+  float* ms = bsm + kBwdTile * kBiasPitch;
+  float* ils = ms + kBwdTile;
+  float* ts = ils + kBwdTile;
   const int h = blockIdx.y, w = blockIdx.z;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, c = lane & 3;
-  const int N = a.N, D = a.H * kHd;
+  const int N = a.N, D = a.H * HD;
   const long ld = 3L * D;
-  const bf16* base = a.qkv + (long)w * N * ld + (long)h * 3 * kHd;
-  const bf16* gbase = a.g + (long)w * N * D + h * kHd;
+  const bf16* base = a.qkv + (long)w * N * ld + (long)h * 3 * HD;
+  const bf16* gbase = a.g + (long)w * N * D + h * HD;
   const int kb = blockIdx.x * kBwdTile;     // the block's first key
   const int kr = warp * 16;                 // the warp's first key within the tile
   const long plane = (long)a.W * a.H * N;
   const float* st = a.stats + stat_index(a, w, h, 0);
 
-  uint32_t ka[2][4], va[2][4];
-  load_a16x32(ka, base + (long)(kb + kr) * ld + kHd, ld, g, c);
-  load_a16x32(va, base + (long)(kb + kr) * ld + 2 * kHd, ld, g, c);
-  float dk[4][4], dv[4][4];
+  uint32_t ka[T::kSteps][4], va[T::kSteps][4];
+  load_a16<HD>(ka, base + (long)(kb + kr) * ld + HD, ld, g, c);
+  load_a16<HD>(va, base + (long)(kb + kr) * ld + 2 * HD, ld, g, c);
+  float dk[T::kTiles][4], dv[T::kTiles][4];
 #pragma unroll
-  for (int d = 0; d < 4; ++d)
+  for (int d = 0; d < T::kTiles; ++d)
 #pragma unroll
     for (int i = 0; i < 4; ++i) dk[d][i] = dv[d][i] = 0.f;
 
   float s[8][4], dp[8][4];
   for (int q0 = 0; q0 < N; q0 += kBwdTile) {
     __syncthreads();
-    stage64x32<true, true>(qs, qt, base + (long)q0 * ld, ld, tid);
-    stage64x32<true, true>(gs, gt, gbase + (long)q0 * D, D, tid);
+    stage64<HD, true, true>(qs, qt, base + (long)q0 * ld, ld, tid);
+    stage64<HD, true, true>(gs, gt, gbase + (long)q0 * D, D, tid);
     for (int i = tid; i < kBwdTile * kBwdTile; i += 128) {
       const int r = i >> 6, col = i & 63;
       bsm[r * kBiasPitch + col] = bias_one(bias + ((long)h * N + q0 + r) * N + kb + col);
@@ -295,8 +322,8 @@ attn_bwd_dkdv_kernel(BwdArgs a, const BiasT* __restrict__ bias) {
     }
     __syncthreads();
     // s^T (16 keys x 64 queries) and dp^T.
-    mma_16x64_k32(s, ka, qs, g, c);
-    mma_16x64_k32(dp, va, gs, g, c);
+    mma_16x64<HD>(s, ka, qs, g, c);
+    mma_16x64<HD>(dp, va, gs, g, c);
 #pragma unroll
     for (int nt = 0; nt < 8; ++nt) {
 #pragma unroll
@@ -308,37 +335,38 @@ attn_bwd_dkdv_kernel(BwdArgs a, const BiasT* __restrict__ bias) {
         dp[nt][i] = p * (dp[nt][i] - ts[q]);
       }
     }
-    mma_16x32_k64(dv, s, gt, g, c);
-    mma_16x32_k64(dk, dp, qt, g, c);
+    mma_16xhd_k64<HD>(dv, s, gt, g, c);
+    mma_16xhd_k64<HD>(dk, dp, qt, g, c);
   }
 
-  bf16* out0 = a.dqkv + ((long)w * N + kb + kr + g) * ld + (long)h * 3 * kHd + 2 * c;
+  bf16* out0 = a.dqkv + ((long)w * N + kb + kr + g) * ld + (long)h * 3 * HD + 2 * c;
   bf16* out1 = out0 + 8 * ld;
 #pragma unroll
-  for (int d = 0; d < 4; ++d) {
+  for (int d = 0; d < T::kTiles; ++d) {
     const float sc = a.scale;
-    *reinterpret_cast<uint32_t*>(out0 + kHd + d * 8) = pack_bf16(dk[d][0] * sc, dk[d][1] * sc);
-    *reinterpret_cast<uint32_t*>(out1 + kHd + d * 8) = pack_bf16(dk[d][2] * sc, dk[d][3] * sc);
-    *reinterpret_cast<uint32_t*>(out0 + 2 * kHd + d * 8) = pack_bf16(dv[d][0], dv[d][1]);
-    *reinterpret_cast<uint32_t*>(out1 + 2 * kHd + d * 8) = pack_bf16(dv[d][2], dv[d][3]);
+    *reinterpret_cast<uint32_t*>(out0 + HD + d * 8) = pack_bf16(dk[d][0] * sc, dk[d][1] * sc);
+    *reinterpret_cast<uint32_t*>(out1 + HD + d * 8) = pack_bf16(dk[d][2] * sc, dk[d][3] * sc);
+    *reinterpret_cast<uint32_t*>(out0 + 2 * HD + d * 8) = pack_bf16(dv[d][0], dv[d][1]);
+    *reinterpret_cast<uint32_t*>(out1 + 2 * HD + d * 8) = pack_bf16(dv[d][2], dv[d][3]);
   }
 }
 
 // ---------------------------------------------------------------------------
 // 3. dq.  grid (N/64, H, W); a warp owns 16 queries and loops over k-tiles.
 // ---------------------------------------------------------------------------
-template <typename BiasT>
+template <int HD, typename BiasT>
 __global__ void __launch_bounds__(128)
 attn_bwd_dq_kernel(BwdArgs a, const BiasT* __restrict__ bias) {
-  __shared__ __align__(16) bf16 ks[kBwdTile * kKPad];
-  __shared__ __align__(16) bf16 vs[kBwdTile * kKPad];
-  __shared__ __align__(16) bf16 kt[kHd * kVPad];
+  using T = HeadDim<HD>;
+  __shared__ __align__(16) bf16 ks[kBwdTile * T::kPad];
+  __shared__ __align__(16) bf16 vs[kBwdTile * T::kPad];
+  __shared__ __align__(16) bf16 kt[HD * kVPad];
   const int h = blockIdx.y, w = blockIdx.z;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, c = lane & 3;
-  const int N = a.N, D = a.H * kHd;
+  const int N = a.N, D = a.H * HD;
   const long ld = 3L * D;
-  const bf16* base = a.qkv + (long)w * N * ld + (long)h * 3 * kHd;
+  const bf16* base = a.qkv + (long)w * N * ld + (long)h * 3 * HD;
   const int q0 = blockIdx.x * kBwdTile + warp * 16;
   const long plane = (long)a.W * a.H * N;
   const long i0 = stat_index(a, w, h, q0 + g), i1 = i0 + 8;
@@ -346,25 +374,25 @@ attn_bwd_dq_kernel(BwdArgs a, const BiasT* __restrict__ bias) {
   const float il0 = a.stats[plane + i0], il1 = a.stats[plane + i1];
   const float t0 = a.stats[2 * plane + i0], t1 = a.stats[2 * plane + i1];
 
-  uint32_t qa[2][4], ga[2][4];
-  load_a16x32(qa, base + (long)q0 * ld, ld, g, c);
-  load_a16x32(ga, a.g + ((long)w * N + q0) * D + h * kHd, D, g, c);
+  uint32_t qa[T::kSteps][4], ga[T::kSteps][4];
+  load_a16<HD>(qa, base + (long)q0 * ld, ld, g, c);
+  load_a16<HD>(ga, a.g + ((long)w * N + q0) * D + h * HD, D, g, c);
   const BiasT* brow0 = bias + ((long)h * N + q0 + g) * N;
   const BiasT* brow1 = brow0 + 8L * N;
-  float dq[4][4];
+  float dq[T::kTiles][4];
 #pragma unroll
-  for (int d = 0; d < 4; ++d)
+  for (int d = 0; d < T::kTiles; ++d)
 #pragma unroll
     for (int i = 0; i < 4; ++i) dq[d][i] = 0.f;
 
   float s[8][4], dp[8][4];
   for (int k0 = 0; k0 < N; k0 += kBwdTile) {
     __syncthreads();
-    stage64x32<true, true>(ks, kt, base + (long)k0 * ld + kHd, ld, tid);
-    stage64x32<true, false>(vs, nullptr, base + (long)k0 * ld + 2 * kHd, ld, tid);
+    stage64<HD, true, true>(ks, kt, base + (long)k0 * ld + HD, ld, tid);
+    stage64<HD, true, false>(vs, nullptr, base + (long)k0 * ld + 2 * HD, ld, tid);
     __syncthreads();
-    mma_16x64_k32(s, qa, ks, g, c);
-    mma_16x64_k32(dp, ga, vs, g, c);
+    mma_16x64<HD>(s, qa, ks, g, c);
+    mma_16x64<HD>(dp, ga, vs, g, c);
     add_bias(s, brow0, brow1, k0, a.scale, c);
 #pragma unroll
     for (int nt = 0; nt < 8; ++nt) {
@@ -378,38 +406,38 @@ attn_bwd_dq_kernel(BwdArgs a, const BiasT* __restrict__ bias) {
       p = __expf(s[nt][3] - m1) * il1;
       s[nt][3] = p * (dp[nt][3] - t1);
     }
-    mma_16x32_k64(dq, s, kt, g, c);
+    mma_16xhd_k64<HD>(dq, s, kt, g, c);
   }
 
-  bf16* out0 = a.dqkv + ((long)w * N + q0 + g) * ld + (long)h * 3 * kHd + 2 * c;
+  bf16* out0 = a.dqkv + ((long)w * N + q0 + g) * ld + (long)h * 3 * HD + 2 * c;
   bf16* out1 = out0 + 8 * ld;
 #pragma unroll
-  for (int d = 0; d < 4; ++d) {
+  for (int d = 0; d < T::kTiles; ++d) {
     *reinterpret_cast<uint32_t*>(out0 + d * 8) = pack_bf16(dq[d][0] * a.scale, dq[d][1] * a.scale);
     *reinterpret_cast<uint32_t*>(out1 + d * 8) = pack_bf16(dq[d][2] * a.scale, dq[d][3] * a.scale);
   }
 }
 
 // ---------------------------------------------------------------------------
-// 4. d_bias.  grid (N/64 k-tiles, N/64 q-tiles, H * groups); the block sums
-// ds of one 64x64 tile over the windows of its group in registers.
+// 4. d_bias.  grid (N/64 k-tiles, N/64 q-tiles, H); the block sums ds of its
+// 64 x 64 tile over all W windows, in window order, and stores it.
 // ---------------------------------------------------------------------------
-template <typename BiasT>
+template <int HD, typename BiasT>
 __global__ void __launch_bounds__(128)
-attn_bwd_dbias_kernel(BwdArgs a, const BiasT* __restrict__ bias, int per_group) {
-  __shared__ __align__(16) bf16 ks[kBwdTile * kKPad];
-  __shared__ __align__(16) bf16 vs[kBwdTile * kKPad];
-  const int h = blockIdx.z % a.H, grp = blockIdx.z / a.H;
+attn_bwd_dbias_kernel(BwdArgs a, const BiasT* __restrict__ bias) {
+  using T = HeadDim<HD>;
+  __shared__ __align__(16) bf16 ks[kBwdTile * T::kPad];
+  __shared__ __align__(16) bf16 vs[kBwdTile * T::kPad];
+  const int h = blockIdx.z;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, c = lane & 3;
-  const int N = a.N, D = a.H * kHd;
+  const int N = a.N, D = a.H * HD;
   const long ld = 3L * D;
   const int k0 = blockIdx.x * kBwdTile;
   const int q0 = blockIdx.y * kBwdTile + warp * 16;
   const long plane = (long)a.W * a.H * N;
   const BiasT* brow0 = bias + ((long)h * N + q0 + g) * N;
   const BiasT* brow1 = brow0 + 8L * N;
-  const int w_end = min(a.W, (grp + 1) * per_group);
 
   float acc[8][4];
 #pragma unroll
@@ -418,21 +446,21 @@ attn_bwd_dbias_kernel(BwdArgs a, const BiasT* __restrict__ bias, int per_group) 
     for (int i = 0; i < 4; ++i) acc[nt][i] = 0.f;
 
   float s[8][4], dp[8][4];
-  for (int w = grp * per_group; w < w_end; ++w) {
-    const bf16* base = a.qkv + (long)w * N * ld + (long)h * 3 * kHd;
+  for (int w = 0; w < a.W; ++w) {
+    const bf16* base = a.qkv + (long)w * N * ld + (long)h * 3 * HD;
     __syncthreads();
-    stage64x32<true, false>(ks, nullptr, base + (long)k0 * ld + kHd, ld, tid);
-    stage64x32<true, false>(vs, nullptr, base + (long)k0 * ld + 2 * kHd, ld, tid);
+    stage64<HD, true, false>(ks, nullptr, base + (long)k0 * ld + HD, ld, tid);
+    stage64<HD, true, false>(vs, nullptr, base + (long)k0 * ld + 2 * HD, ld, tid);
     __syncthreads();
-    uint32_t qa[2][4], ga[2][4];
-    load_a16x32(qa, base + (long)q0 * ld, ld, g, c);
-    load_a16x32(ga, a.g + ((long)w * N + q0) * D + h * kHd, D, g, c);
+    uint32_t qa[T::kSteps][4], ga[T::kSteps][4];
+    load_a16<HD>(qa, base + (long)q0 * ld, ld, g, c);
+    load_a16<HD>(ga, a.g + ((long)w * N + q0) * D + h * HD, D, g, c);
     const long i0 = stat_index(a, w, h, q0 + g), i1 = i0 + 8;
     const float m0 = a.stats[i0], m1 = a.stats[i1];
     const float il0 = a.stats[plane + i0], il1 = a.stats[plane + i1];
     const float t0 = a.stats[2 * plane + i0], t1 = a.stats[2 * plane + i1];
-    mma_16x64_k32(s, qa, ks, g, c);
-    mma_16x64_k32(dp, ga, vs, g, c);
+    mma_16x64<HD>(s, qa, ks, g, c);
+    mma_16x64<HD>(dp, ga, vs, g, c);
     add_bias(s, brow0, brow1, k0, a.scale, c);
 #pragma unroll
     for (int nt = 0; nt < 8; ++nt) {
@@ -447,37 +475,40 @@ attn_bwd_dbias_kernel(BwdArgs a, const BiasT* __restrict__ bias, int per_group) 
   float* d1 = d0 + 8L * N;
 #pragma unroll
   for (int nt = 0; nt < 8; ++nt) {
-    atomicAdd(d0 + nt * 8, acc[nt][0]);
-    atomicAdd(d0 + nt * 8 + 1, acc[nt][1]);
-    atomicAdd(d1 + nt * 8, acc[nt][2]);
-    atomicAdd(d1 + nt * 8 + 1, acc[nt][3]);
+    *reinterpret_cast<float2*>(d0 + nt * 8) = make_float2(acc[nt][0], acc[nt][1]);
+    *reinterpret_cast<float2*>(d1 + nt * 8) = make_float2(acc[nt][2], acc[nt][3]);
   }
 }
 
-// d_bias blocks the launcher aims for (8 per SM of an H100's 132).
-constexpr int kDbiasTargetBlocks = 1056;
+template <int HD, typename BiasT>
+inline cudaError_t launch_dbias(const BwdArgs& a, const BiasT* bias, cudaStream_t stream) {
+  attn_bwd_dbias_kernel<HD, BiasT>
+      <<<dim3(a.N / kBwdTile, a.N / kBwdTile, a.H), 128, 0, stream>>>(a, bias);
+  return cudaGetLastError();
+}
 
-template <typename BiasT>
-inline cudaError_t launch_attention_bwd(const BwdArgs& a, const BiasT* bias,
-                                        cudaStream_t stream) {
+template <int HD, typename BiasT>
+inline cudaError_t launch_attention_bwd_hd(const BwdArgs& a, const BiasT* bias,
+                                           cudaStream_t stream) {
   const dim3 rows(a.N / kBwdTile, a.H, a.W);
-  attn_bwd_stats_kernel<BiasT><<<rows, 128, 0, stream>>>(a, bias);
+  attn_bwd_stats_kernel<HD, BiasT><<<rows, 128, 0, stream>>>(a, bias);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return e;
-  attn_bwd_dkdv_kernel<BiasT><<<rows, 128, 0, stream>>>(a, bias);
-  if ((e = cudaGetLastError()) != cudaSuccess) return e;
-  attn_bwd_dq_kernel<BiasT><<<rows, 128, 0, stream>>>(a, bias);
-  if ((e = cudaGetLastError()) != cudaSuccess) return e;
-  e = cudaMemsetAsync(a.dbias, 0, sizeof(float) * a.H * a.N * a.N, stream);
+  constexpr int smem = DkdvSmem<HD>::bytes;
+  e = cudaFuncSetAttribute(attn_bwd_dkdv_kernel<HD, BiasT>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return e;
-  const int tiles = (a.N / kBwdTile) * (a.N / kBwdTile) * a.H;
-  int groups = (kDbiasTargetBlocks + tiles - 1) / tiles;
-  groups = groups < 1 ? 1 : (groups > a.W ? a.W : groups);
-  const int per_group = (a.W + groups - 1) / groups;
-  groups = (a.W + per_group - 1) / per_group;
-  const dim3 tiles_grid(a.N / kBwdTile, a.N / kBwdTile, a.H * groups);
-  attn_bwd_dbias_kernel<BiasT><<<tiles_grid, 128, 0, stream>>>(a, bias, per_group);
-  return cudaGetLastError();
+  attn_bwd_dkdv_kernel<HD, BiasT><<<rows, 128, smem, stream>>>(a, bias);
+  if ((e = cudaGetLastError()) != cudaSuccess) return e;
+  attn_bwd_dq_kernel<HD, BiasT><<<rows, 128, 0, stream>>>(a, bias);
+  if ((e = cudaGetLastError()) != cudaSuccess) return e;
+  return launch_dbias<HD>(a, bias, stream);
+}
+
+template <typename BiasT>
+inline cudaError_t launch_attention_bwd(const BwdArgs& a, const BiasT* bias, int hd,
+                                        cudaStream_t stream) {
+  GG_HEAD_DIM_SWITCH(hd, { return launch_attention_bwd_hd<HD>(a, bias, stream); })
 }
 
 }  // namespace gg

@@ -23,12 +23,12 @@
 
 extern "C" int attention_bwd_merged_bf16(const void* qkv, const void* bias, const void* g,
                                          void* dqkv, void* dbias, void* stats, int W, int N,
-                                         int H, float scale, void* stream) {
+                                         int H, int hd, float scale, void* stream) {
   const gg::BwdArgs a{static_cast<const gg::bf16*>(qkv), static_cast<const gg::bf16*>(g),
                       static_cast<gg::bf16*>(dqkv),      static_cast<float*>(dbias),
                       static_cast<float*>(stats),        W,
                       N,                                 H,
                       scale};
   return (int)gg::launch_attention_bwd(a, static_cast<const float*>(bias),
-                                       static_cast<cudaStream_t>(stream));
+                                       hd, static_cast<cudaStream_t>(stream));
 }

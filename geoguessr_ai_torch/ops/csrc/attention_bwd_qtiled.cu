@@ -16,16 +16,17 @@
 //     dk and dv per 64-key tile over all q-tiles, then dq per 64-query tile
 //     over all k-tiles, each sum complete in registers and written once;
 //   launch 2, one block per (k-tile, q-tile, head) of d_bias: walks the W
-//     windows in order and sums ds in registers, then stores its tile.  No
-//     atomics, so d_bias (and d_qkv) is bitwise the same from run to run
-//     (K5 sums d_bias over window groups with f32 atomicAdd).
+//     windows in order and sums ds in registers, then stores its tile
+//     (attention_bwd.cuh attn_bwd_dbias_kernel, K4's and K5's d_bias launch
+//     too).  No atomics, so d_bias (and d_qkv) is bitwise the same from run
+//     to run.
 //
 // Two launches per call.  The staging of _attention_qkv_bwd_large (:802)
 // is index arithmetic: qkv and g are read interleaved and d_qkv written so,
 // each f32 sum rounded to bf16 once as the staging's final cast does.
 //
 // What bounds it on the H100: the tensor cores.  The minimum is the five
-// N x N x 32 products of the dq/dk/dv side plus the two of the d_bias side
+// N x N x hd products of the dq/dk/dv side plus the two of the d_bias side
 // (s and dp again), 14 N^2 hd flops a (window, head): 0.365 ms at the bf16
 // peak at W=64, H=12, N=1024.  Every product here runs on 64 x 64 tiles
 // with mma.sync.m16n8k16 (the building blocks of attention_bwd.cuh), and
@@ -36,26 +37,25 @@
 namespace gg {
 namespace {
 
-// Shared memory of launch 1, one buffer reused by its three phases: the
-// dk/dv phase needs the most (q and g row-major and transposed, a 64 x 64
-// f32 bias tile, the 64 rows' statistics).
-constexpr int kRowTile = kBwdTile * kKPad * 2;  // bytes of a row-major 64 x 32 tile
-constexpr int kTrTile = kHd * kVPad * 2;        // bytes of a transposed one
-constexpr int kK1Smem = 2 * kRowTile + 2 * kTrTile + kBwdTile * kBiasPitch * 4 + 3 * kBwdTile * 4;
-
+// Shared memory of launch 1 is one dynamic buffer reused by its three
+// phases: the dk/dv phase needs the most (DkdvSmem, attention_bwd.cuh).
+template <int HD>
 __global__ void __launch_bounds__(128)
 bwd_qtiled_k1_kernel(BwdArgs a, const float* __restrict__ bias) {
-  __shared__ __align__(16) unsigned char smem[kK1Smem];
+  using T = HeadDim<HD>;
+  constexpr int kRowTile = DkdvSmem<HD>::kRowTile;
+  constexpr int kTrTile = DkdvSmem<HD>::kTrTile;
+  extern __shared__ __align__(16) unsigned char smem[];
   const int h = blockIdx.x, w = blockIdx.y;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, c = lane & 3;
-  const int N = a.N, D = a.H * kHd;
+  const int N = a.N, D = a.H * HD;
   const long ld = 3L * D;
-  const bf16* base = a.qkv + (long)w * N * ld + (long)h * 3 * kHd;
-  const bf16* gbase = a.g + (long)w * N * D + h * kHd;
+  const bf16* base = a.qkv + (long)w * N * ld + (long)h * 3 * HD;
+  const bf16* gbase = a.g + (long)w * N * D + h * HD;
   const long plane = (long)a.W * a.H * N;
   float* st = a.stats + stat_index(a, w, h, 0);  // query r: st[r], st[plane + r], st[2 plane + r]
-  bf16* out = a.dqkv + (long)w * N * ld + (long)h * 3 * kHd;
+  bf16* out = a.dqkv + (long)w * N * ld + (long)h * 3 * HD;
   float s[8][4], dp[8][4];
 
   // 1. Row statistics, per 64-query tile: two passes over the k-tiles.
@@ -64,17 +64,17 @@ bwd_qtiled_k1_kernel(BwdArgs a, const float* __restrict__ bias) {
     bf16* vs = reinterpret_cast<bf16*>(smem + kRowTile);
     for (int qt0 = 0; qt0 < N; qt0 += kBwdTile) {
       const int q0 = qt0 + warp * 16;
-      uint32_t qa[2][4], ga[2][4];
-      load_a16x32(qa, base + (long)q0 * ld, ld, g, c);
-      load_a16x32(ga, gbase + (long)q0 * D, D, g, c);
+      uint32_t qa[T::kSteps][4], ga[T::kSteps][4];
+      load_a16<HD>(qa, base + (long)q0 * ld, ld, g, c);
+      load_a16<HD>(ga, gbase + (long)q0 * D, D, g, c);
       const float* brow0 = bias + ((long)h * N + q0 + g) * N;
       const float* brow1 = brow0 + 8L * N;
       float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;
       for (int k0 = 0; k0 < N; k0 += kBwdTile) {
         __syncthreads();
-        stage64x32<true, false>(ks, nullptr, base + (long)k0 * ld + kHd, ld, tid);
+        stage64<HD, true, false>(ks, nullptr, base + (long)k0 * ld + HD, ld, tid);
         __syncthreads();
-        mma_16x64_k32(s, qa, ks, g, c);
+        mma_16x64<HD>(s, qa, ks, g, c);
         add_bias(s, brow0, brow1, k0, a.scale, c);
         float mx0 = m0, mx1 = m1;
 #pragma unroll
@@ -99,11 +99,11 @@ bwd_qtiled_k1_kernel(BwdArgs a, const float* __restrict__ bias) {
       float t0 = 0.f, t1 = 0.f;
       for (int k0 = 0; k0 < N; k0 += kBwdTile) {
         __syncthreads();
-        stage64x32<true, false>(ks, nullptr, base + (long)k0 * ld + kHd, ld, tid);
-        stage64x32<true, false>(vs, nullptr, base + (long)k0 * ld + 2 * kHd, ld, tid);
+        stage64<HD, true, false>(ks, nullptr, base + (long)k0 * ld + HD, ld, tid);
+        stage64<HD, true, false>(vs, nullptr, base + (long)k0 * ld + 2 * HD, ld, tid);
         __syncthreads();
-        mma_16x64_k32(s, qa, ks, g, c);
-        mma_16x64_k32(dp, ga, vs, g, c);
+        mma_16x64<HD>(s, qa, ks, g, c);
+        mma_16x64<HD>(dp, ga, vs, g, c);
         add_bias(s, brow0, brow1, k0, a.scale, c);
 #pragma unroll
         for (int nt = 0; nt < 8; ++nt) {
@@ -139,18 +139,18 @@ bwd_qtiled_k1_kernel(BwdArgs a, const float* __restrict__ bias) {
     float* ts = ils + kBwdTile;
     const int kr = warp * 16;
     for (int kb = 0; kb < N; kb += kBwdTile) {
-      uint32_t ka[2][4], va[2][4];
-      load_a16x32(ka, base + (long)(kb + kr) * ld + kHd, ld, g, c);
-      load_a16x32(va, base + (long)(kb + kr) * ld + 2 * kHd, ld, g, c);
-      float dk[4][4], dv[4][4];
+      uint32_t ka[T::kSteps][4], va[T::kSteps][4];
+      load_a16<HD>(ka, base + (long)(kb + kr) * ld + HD, ld, g, c);
+      load_a16<HD>(va, base + (long)(kb + kr) * ld + 2 * HD, ld, g, c);
+      float dk[T::kTiles][4], dv[T::kTiles][4];
 #pragma unroll
-      for (int d = 0; d < 4; ++d)
+      for (int d = 0; d < T::kTiles; ++d)
 #pragma unroll
         for (int i = 0; i < 4; ++i) dk[d][i] = dv[d][i] = 0.f;
       for (int q0 = 0; q0 < N; q0 += kBwdTile) {
         __syncthreads();
-        stage64x32<true, true>(qs, qt, base + (long)q0 * ld, ld, tid);
-        stage64x32<true, true>(gs, gt, gbase + (long)q0 * D, D, tid);
+        stage64<HD, true, true>(qs, qt, base + (long)q0 * ld, ld, tid);
+        stage64<HD, true, true>(gs, gt, gbase + (long)q0 * D, D, tid);
         for (int i = tid; i < kBwdTile * kBwdTile; i += 128) {
           const int r = i >> 6, col = i & 63;
           bsm[r * kBiasPitch + col] = bias[((long)h * N + q0 + r) * N + kb + col];
@@ -162,8 +162,8 @@ bwd_qtiled_k1_kernel(BwdArgs a, const float* __restrict__ bias) {
         }
         __syncthreads();
         // s^T (16 keys x 64 queries) and dp^T
-        mma_16x64_k32(s, ka, qs, g, c);
-        mma_16x64_k32(dp, va, gs, g, c);
+        mma_16x64<HD>(s, ka, qs, g, c);
+        mma_16x64<HD>(dp, va, gs, g, c);
 #pragma unroll
         for (int nt = 0; nt < 8; ++nt) {
 #pragma unroll
@@ -175,18 +175,18 @@ bwd_qtiled_k1_kernel(BwdArgs a, const float* __restrict__ bias) {
             dp[nt][i] = p * (dp[nt][i] - ts[q]);
           }
         }
-        mma_16x32_k64(dv, s, gt, g, c);
-        mma_16x32_k64(dk, dp, qt, g, c);
+        mma_16xhd_k64<HD>(dv, s, gt, g, c);
+        mma_16xhd_k64<HD>(dk, dp, qt, g, c);
       }
       bf16* out0 = out + (long)(kb + kr + g) * ld + 2 * c;
       bf16* out1 = out0 + 8 * ld;
       const float sc = a.scale;
 #pragma unroll
-      for (int d = 0; d < 4; ++d) {
-        *reinterpret_cast<uint32_t*>(out0 + kHd + d * 8) = pack_bf16(dk[d][0] * sc, dk[d][1] * sc);
-        *reinterpret_cast<uint32_t*>(out1 + kHd + d * 8) = pack_bf16(dk[d][2] * sc, dk[d][3] * sc);
-        *reinterpret_cast<uint32_t*>(out0 + 2 * kHd + d * 8) = pack_bf16(dv[d][0], dv[d][1]);
-        *reinterpret_cast<uint32_t*>(out1 + 2 * kHd + d * 8) = pack_bf16(dv[d][2], dv[d][3]);
+      for (int d = 0; d < T::kTiles; ++d) {
+        *reinterpret_cast<uint32_t*>(out0 + HD + d * 8) = pack_bf16(dk[d][0] * sc, dk[d][1] * sc);
+        *reinterpret_cast<uint32_t*>(out1 + HD + d * 8) = pack_bf16(dk[d][2] * sc, dk[d][3] * sc);
+        *reinterpret_cast<uint32_t*>(out0 + 2 * HD + d * 8) = pack_bf16(dv[d][0], dv[d][1]);
+        *reinterpret_cast<uint32_t*>(out1 + 2 * HD + d * 8) = pack_bf16(dv[d][2], dv[d][3]);
       }
     }
   }
@@ -203,23 +203,23 @@ bwd_qtiled_k1_kernel(BwdArgs a, const float* __restrict__ bias) {
       const float m0 = st[r], m1 = st[r + 8];
       const float il0 = st[plane + r], il1 = st[plane + r + 8];
       const float t0 = st[2 * plane + r], t1 = st[2 * plane + r + 8];
-      uint32_t qa[2][4], ga[2][4];
-      load_a16x32(qa, base + (long)q0 * ld, ld, g, c);
-      load_a16x32(ga, gbase + (long)q0 * D, D, g, c);
+      uint32_t qa[T::kSteps][4], ga[T::kSteps][4];
+      load_a16<HD>(qa, base + (long)q0 * ld, ld, g, c);
+      load_a16<HD>(ga, gbase + (long)q0 * D, D, g, c);
       const float* brow0 = bias + ((long)h * N + r) * N;
       const float* brow1 = brow0 + 8L * N;
-      float dq[4][4];
+      float dq[T::kTiles][4];
 #pragma unroll
-      for (int d = 0; d < 4; ++d)
+      for (int d = 0; d < T::kTiles; ++d)
 #pragma unroll
         for (int i = 0; i < 4; ++i) dq[d][i] = 0.f;
       for (int k0 = 0; k0 < N; k0 += kBwdTile) {
         __syncthreads();
-        stage64x32<true, true>(ks, kt, base + (long)k0 * ld + kHd, ld, tid);
-        stage64x32<true, false>(vs, nullptr, base + (long)k0 * ld + 2 * kHd, ld, tid);
+        stage64<HD, true, true>(ks, kt, base + (long)k0 * ld + HD, ld, tid);
+        stage64<HD, true, false>(vs, nullptr, base + (long)k0 * ld + 2 * HD, ld, tid);
         __syncthreads();
-        mma_16x64_k32(s, qa, ks, g, c);
-        mma_16x64_k32(dp, ga, vs, g, c);
+        mma_16x64<HD>(s, qa, ks, g, c);
+        mma_16x64<HD>(dp, ga, vs, g, c);
         add_bias(s, brow0, brow1, k0, a.scale, c);
 #pragma unroll
         for (int nt = 0; nt < 8; ++nt) {
@@ -228,12 +228,12 @@ bwd_qtiled_k1_kernel(BwdArgs a, const float* __restrict__ bias) {
           s[nt][2] = __expf(s[nt][2] - m1) * il1 * (dp[nt][2] - t1);
           s[nt][3] = __expf(s[nt][3] - m1) * il1 * (dp[nt][3] - t1);
         }
-        mma_16x32_k64(dq, s, kt, g, c);
+        mma_16xhd_k64<HD>(dq, s, kt, g, c);
       }
       bf16* out0 = out + (long)r * ld + 2 * c;
       bf16* out1 = out0 + 8 * ld;
 #pragma unroll
-      for (int d = 0; d < 4; ++d) {
+      for (int d = 0; d < T::kTiles; ++d) {
         *reinterpret_cast<uint32_t*>(out0 + d * 8) = pack_bf16(dq[d][0] * a.scale, dq[d][1] * a.scale);
         *reinterpret_cast<uint32_t*>(out1 + d * 8) = pack_bf16(dq[d][2] * a.scale, dq[d][3] * a.scale);
       }
@@ -241,73 +241,26 @@ bwd_qtiled_k1_kernel(BwdArgs a, const float* __restrict__ bias) {
   }
 }
 
-// Launch 2: d_bias, grid (N/64 k-tiles, N/64 q-tiles, H).  The block sums
-// ds of its 64 x 64 tile over all W windows, in window order, and stores it.
-__global__ void __launch_bounds__(128)
-bwd_qtiled_k2_kernel(BwdArgs a, const float* __restrict__ bias) {
-  __shared__ __align__(16) bf16 ks[kBwdTile * kKPad];
-  __shared__ __align__(16) bf16 vs[kBwdTile * kKPad];
-  const int h = blockIdx.z;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, c = lane & 3;
-  const int N = a.N, D = a.H * kHd;
-  const long ld = 3L * D;
-  const int k0 = blockIdx.x * kBwdTile;
-  const int q0 = blockIdx.y * kBwdTile + warp * 16;
-  const long plane = (long)a.W * a.H * N;
-  const float* brow0 = bias + ((long)h * N + q0 + g) * N;
-  const float* brow1 = brow0 + 8L * N;
-
-  float acc[8][4];
-#pragma unroll
-  for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) acc[nt][i] = 0.f;
-
-  float s[8][4], dp[8][4];
-  for (int w = 0; w < a.W; ++w) {
-    const bf16* base = a.qkv + (long)w * N * ld + (long)h * 3 * kHd;
-    __syncthreads();
-    stage64x32<true, false>(ks, nullptr, base + (long)k0 * ld + kHd, ld, tid);
-    stage64x32<true, false>(vs, nullptr, base + (long)k0 * ld + 2 * kHd, ld, tid);
-    __syncthreads();
-    uint32_t qa[2][4], ga[2][4];
-    load_a16x32(qa, base + (long)q0 * ld, ld, g, c);
-    load_a16x32(ga, a.g + ((long)w * N + q0) * D + h * kHd, D, g, c);
-    const long i0 = stat_index(a, w, h, q0 + g), i1 = i0 + 8;
-    const float m0 = a.stats[i0], m1 = a.stats[i1];
-    const float il0 = a.stats[plane + i0], il1 = a.stats[plane + i1];
-    const float t0 = a.stats[2 * plane + i0], t1 = a.stats[2 * plane + i1];
-    mma_16x64_k32(s, qa, ks, g, c);
-    mma_16x64_k32(dp, ga, vs, g, c);
-    add_bias(s, brow0, brow1, k0, a.scale, c);
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
-      acc[nt][0] += __expf(s[nt][0] - m0) * il0 * (dp[nt][0] - t0);
-      acc[nt][1] += __expf(s[nt][1] - m0) * il0 * (dp[nt][1] - t0);
-      acc[nt][2] += __expf(s[nt][2] - m1) * il1 * (dp[nt][2] - t1);
-      acc[nt][3] += __expf(s[nt][3] - m1) * il1 * (dp[nt][3] - t1);
-    }
-  }
-
-  float* d0 = a.dbias + ((long)h * N + q0 + g) * N + k0 + 2 * c;
-  float* d1 = d0 + 8L * N;
-#pragma unroll
-  for (int nt = 0; nt < 8; ++nt) {
-    *reinterpret_cast<float2*>(d0 + nt * 8) = make_float2(acc[nt][0], acc[nt][1]);
-    *reinterpret_cast<float2*>(d1 + nt * 8) = make_float2(acc[nt][2], acc[nt][3]);
-  }
+template <int HD>
+cudaError_t launch(const BwdArgs& a, const float* bias, cudaStream_t s) {
+  constexpr int smem = DkdvSmem<HD>::bytes;
+  cudaError_t e = cudaFuncSetAttribute(bwd_qtiled_k1_kernel<HD>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return e;
+  bwd_qtiled_k1_kernel<HD><<<dim3(a.H, a.W), 128, smem, s>>>(a, bias);
+  if ((e = cudaGetLastError()) != cudaSuccess) return e;
+  return launch_dbias<HD>(a, bias, s);  // launch 2, attention_bwd.cuh
 }
 
 }  // namespace
 }  // namespace gg
 
-// Shapes validated by the Python wrapper (N a multiple of 64, head dim 32,
-// W <= 65535).  stats is (3, W, H, N) f32 scratch; every element of dqkv
-// and dbias is written.
+// Shapes validated by the Python wrapper (N a multiple of 64, head dim 16,
+// 32 or 64, W <= 65535).  stats is (3, W, H, N) f32 scratch; every element
+// of dqkv and dbias is written.
 extern "C" int attention_bwd_qtiled_bf16(const void* qkv, const void* bias, const void* g,
                                          void* dqkv, void* dbias, void* stats, int W, int N,
-                                         int H, float scale, void* stream) {
+                                         int H, int hd, float scale, void* stream) {
   using namespace gg;
   const BwdArgs a{static_cast<const bf16*>(qkv), static_cast<const bf16*>(g),
                   static_cast<bf16*>(dqkv),      static_cast<float*>(dbias),
@@ -316,9 +269,5 @@ extern "C" int attention_bwd_qtiled_bf16(const void* qkv, const void* bias, cons
                   scale};
   const float* b = static_cast<const float*>(bias);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  bwd_qtiled_k1_kernel<<<dim3(H, W), 128, 0, s>>>(a, b);
-  const cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
-  bwd_qtiled_k2_kernel<<<dim3(N / kBwdTile, N / kBwdTile, H), 128, 0, s>>>(a, b);
-  return (int)cudaGetLastError();
+  GG_HEAD_DIM_SWITCH(hd, { return (int)launch<HD>(a, b, s); })
 }

@@ -2,7 +2,7 @@
 //
 //     out[w, h] = softmax(q[w, h] k[w, h]^T * scale + bias[h]) v[w, h]
 //
-// q, k, v, out (W, H, N, 32) bf16, bias (H, N, N) f32.  Replaces the two
+// q, k, v, out (W, H, N, hd) bf16 with hd 16, 32 or 64, bias (H, N, N) f32.  Replaces the two
 // Pallas kernels behind the JAX package's window_attention
 // (geoguessr_ai_tpu/ops/window_attention.py): K8a _attention_qtiled
 // (_qtiled_kernel), chosen at N >= 512 or when W is not a multiple of
@@ -59,8 +59,8 @@ struct SharedBias {  // K8b: the block's 64 query rows, in shared memory
 };
 
 // One 64-row q-tile of one (window, head): q, k, v and out point at that
-// pair's (N, 32) slab.
-template <class BIAS>
+// pair's (N, HD) slab.
+template <int HD, class BIAS>
 __device__ __forceinline__ void attend_tile(const bf16* __restrict__ q, const bf16* __restrict__ k,
                                             const bf16* __restrict__ v, bf16* __restrict__ out,
                                             const BIAS& bias, int N, int q0, float scale,
@@ -69,21 +69,23 @@ __device__ __forceinline__ void attend_tile(const bf16* __restrict__ q, const bf
   const int warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, c = lane & 3;
   const int r0 = q0 + warp * 16 + g, r1 = r0 + 8;
+  using T = HeadDim<HD>;
+  constexpr int KP = T::kPad;
 
-  uint32_t qa[2][4];
+  uint32_t qa[T::kSteps][4];
 #pragma unroll
-  for (int s = 0; s < 2; ++s) {
-    const bf16* p0 = q + (long)r0 * kHd + s * 16 + 2 * c;
-    const bf16* p1 = q + (long)r1 * kHd + s * 16 + 2 * c;
+  for (int s = 0; s < T::kSteps; ++s) {
+    const bf16* p0 = q + (long)r0 * HD + s * 16 + 2 * c;
+    const bf16* p1 = q + (long)r1 * HD + s * 16 + 2 * c;
     qa[s][0] = ld32(p0);
     qa[s][1] = ld32(p1);
     qa[s][2] = ld32(p0 + 8);
     qa[s][3] = ld32(p1 + 8);
   }
 
-  float o[4][4];
+  float o[T::kTiles][4];
 #pragma unroll
-  for (int d = 0; d < 4; ++d)
+  for (int d = 0; d < T::kTiles; ++d)
 #pragma unroll
     for (int i = 0; i < 4; ++i) o[d][i] = 0.f;
   float m0 = -INFINITY, m1 = -INFINITY;  // running max, log2 domain
@@ -92,10 +94,10 @@ __device__ __forceinline__ void attend_tile(const bf16* __restrict__ q, const bf
 
   for (int k0 = 0; k0 < N; k0 += kBk) {
     __syncthreads();  // previous tile consumed (and K8b's bias staged)
-    for (int i = tid; i < kBk * 4; i += 128) {
-      const int key = i >> 2, ch = i & 3;
-      const long off = (long)(k0 + key) * kHd + ch * 8;
-      *reinterpret_cast<uint4*>(&ks[key * kKPad + ch * 8]) =
+    for (int i = tid; i < kBk * T::kVecs; i += 128) {
+      const int key = i / T::kVecs, ch = i % T::kVecs;
+      const long off = (long)(k0 + key) * HD + ch * 8;
+      *reinterpret_cast<uint4*>(&ks[key * KP + ch * 8]) =
           *reinterpret_cast<const uint4*>(k + off);
       uint4 vv = *reinterpret_cast<const uint4*>(v + off);
       const bf16* ve = reinterpret_cast<const bf16*>(&vv);
@@ -109,9 +111,9 @@ __device__ __forceinline__ void attend_tile(const bf16* __restrict__ q, const bf
     for (int nt = 0; nt < 8; ++nt) {
 #pragma unroll
       for (int i = 0; i < 4; ++i) s[nt][i] = 0.f;
-      const bf16* kr = &ks[(nt * 8 + g) * kKPad + 2 * c];
+      const bf16* kr = &ks[(nt * 8 + g) * KP + 2 * c];
 #pragma unroll
-      for (int st = 0; st < 2; ++st)
+      for (int st = 0; st < T::kSteps; ++st)
         mma_bf16_16816(s[nt], qa[st], ld32(kr + st * 16), ld32(kr + st * 16 + 8));
     }
 
@@ -149,7 +151,7 @@ __device__ __forceinline__ void attend_tile(const bf16* __restrict__ q, const bf
     l0 = l0 * alpha0 + rs0;
     l1 = l1 * alpha1 + rs1;
 #pragma unroll
-    for (int d = 0; d < 4; ++d) {
+    for (int d = 0; d < T::kTiles; ++d) {
       o[d][0] *= alpha0;
       o[d][1] *= alpha0;
       o[d][2] *= alpha1;
@@ -166,7 +168,7 @@ __device__ __forceinline__ void attend_tile(const bf16* __restrict__ q, const bf
       pa[2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
       pa[3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
 #pragma unroll
-      for (int d = 0; d < 4; ++d) {
+      for (int d = 0; d < T::kTiles; ++d) {
         const bf16* vr = &vt[(d * 8 + g) * kVPad + kk * 16 + 2 * c];
         mma_bf16_16816(o[d], pa, ld32(vr), ld32(vr + 8));
       }
@@ -178,30 +180,32 @@ __device__ __forceinline__ void attend_tile(const bf16* __restrict__ q, const bf
   l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
   l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
   const float inv0 = 1.f / l0, inv1 = 1.f / l1;
-  bf16* orow0 = out + (long)r0 * kHd + 2 * c;
-  bf16* orow1 = out + (long)r1 * kHd + 2 * c;
+  bf16* orow0 = out + (long)r0 * HD + 2 * c;
+  bf16* orow1 = out + (long)r1 * HD + 2 * c;
 #pragma unroll
-  for (int d = 0; d < 4; ++d) {
+  for (int d = 0; d < T::kTiles; ++d) {
     *reinterpret_cast<uint32_t*>(orow0 + d * 8) = pack_bf16(o[d][0] * inv0, o[d][1] * inv0);
     *reinterpret_cast<uint32_t*>(orow1 + d * 8) = pack_bf16(o[d][2] * inv1, o[d][3] * inv1);
   }
 }
 
 // K8a: grid (W, N/64, H), the window fastest.
+template <int HD>
 __global__ void __launch_bounds__(128)
 attention_qtiled_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                         const bf16* __restrict__ v, const float* __restrict__ bias,
                         bf16* __restrict__ out, int H, int N, float scale) {
-  __shared__ __align__(16) bf16 ks[kBk * kKPad];
-  __shared__ __align__(16) bf16 vt[kHd * kVPad];
+  __shared__ __align__(16) bf16 ks[kBk * HeadDim<HD>::kPad];
+  __shared__ __align__(16) bf16 vt[HD * kVPad];
   const int w = blockIdx.x, h = blockIdx.z;
-  const long slab = ((long)w * H + h) * N * kHd;
-  attend_tile(q + slab, k + slab, v + slab, out + slab,
+  const long slab = ((long)w * H + h) * N * HD;
+  attend_tile<HD>(q + slab, k + slab, v + slab, out + slab,
               GlobalBias{bias + (long)h * N * N, N}, N, blockIdx.y * kBq, scale, ks, vt);
 }
 
 // K8b: grid (N/64, H, W / bw); the block stages its 64 bias rows once and
 // walks its bw windows in order.
+template <int HD>
 __global__ void __launch_bounds__(128)
 attention_batched_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                          const bf16* __restrict__ v, const float* __restrict__ bias,
@@ -210,7 +214,7 @@ attention_batched_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int ld = N + kBiasPad;
   float* bs = reinterpret_cast<float*>(smem);
   bf16* ks = reinterpret_cast<bf16*>(bs + kBq * ld);
-  bf16* vt = ks + kBk * kKPad;
+  bf16* vt = ks + kBk * HeadDim<HD>::kPad;
   const int q0 = blockIdx.x * kBq, h = blockIdx.y;
 
   const float* src = bias + ((long)h * N + q0) * N;
@@ -223,43 +227,49 @@ attention_batched_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const SharedBias sb{bs, ld, q0};
   const int w0 = blockIdx.z * bw;
   for (int w = w0; w < w0 + bw; ++w) {
-    const long slab = ((long)w * H + h) * N * kHd;
-    attend_tile(q + slab, k + slab, v + slab, out + slab, sb, N, q0, scale, ks, vt);
+    const long slab = ((long)w * H + h) * N * HD;
+    attend_tile<HD>(q + slab, k + slab, v + slab, out + slab, sb, N, q0, scale, ks, vt);
   }
 }
 
+template <int HD>
 size_t batched_smem_bytes(int N) {
-  return sizeof(float) * kBq * (N + kBiasPad) + sizeof(bf16) * (kBk * kKPad + kHd * kVPad);
+  return sizeof(float) * kBq * (N + kBiasPad) +
+         sizeof(bf16) * (kBk * HeadDim<HD>::kPad + HD * kVPad);
 }
 
 }  // namespace
 }  // namespace gg
 
 // C entry points: shapes validated by the Python wrapper (N a multiple of
-// 64, head dim 32).  Return cudaGetLastError() after the launch.
+// 64, head dim 16, 32 or 64).  Return cudaGetLastError() after the launch.
 extern "C" int attention_qtiled_bf16(const void* q, const void* k, const void* v,
-                                     const void* bias, void* out, int W, int H, int N,
+                                     const void* bias, void* out, int W, int H, int N, int hd,
                                      float scale, cudaStream_t stream) {
   using namespace gg;
   const dim3 grid(W, N / kBq, H);
-  attention_qtiled_kernel<<<grid, 128, 0, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<const float*>(bias), static_cast<bf16*>(out), H, N, scale);
-  return (int)cudaGetLastError();
+  GG_HEAD_DIM_SWITCH(hd, {
+    attention_qtiled_kernel<HD><<<grid, 128, 0, stream>>>(
+        static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+        static_cast<const float*>(bias), static_cast<bf16*>(out), H, N, scale);
+    return (int)cudaGetLastError();
+  })
 }
 
 extern "C" int attention_batched_bf16(const void* q, const void* k, const void* v,
-                                      const void* bias, void* out, int W, int H, int N,
+                                      const void* bias, void* out, int W, int H, int N, int hd,
                                       int block_w, float scale, cudaStream_t stream) {
   using namespace gg;
   if (block_w < 1 || W % block_w) return (int)cudaErrorInvalidValue;
-  const size_t smem = batched_smem_bytes(N);
-  cudaError_t e = cudaFuncSetAttribute(attention_batched_kernel,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e != cudaSuccess) return (int)e;
   const dim3 grid(N / kBq, H, W / block_w);
-  attention_batched_kernel<<<grid, 128, smem, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<const float*>(bias), static_cast<bf16*>(out), H, N, block_w, scale);
-  return (int)cudaGetLastError();
+  GG_HEAD_DIM_SWITCH(hd, {
+    const size_t smem = batched_smem_bytes<HD>(N);
+    cudaError_t e = cudaFuncSetAttribute(attention_batched_kernel<HD>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+    attention_batched_kernel<HD><<<grid, 128, smem, stream>>>(
+        static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+        static_cast<const float*>(bias), static_cast<bf16*>(out), H, N, block_w, scale);
+    return (int)cudaGetLastError();
+  })
 }

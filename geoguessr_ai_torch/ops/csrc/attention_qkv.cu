@@ -16,8 +16,8 @@
 #include "common.cuh"
 
 extern "C" int attention_qkv_bf16(const void* qkv, const void* bias, void* out, int W,
-                                  int N, int H, float scale, void* stream) {
+                                  int N, int H, int hd, float scale, void* stream) {
   return (int)gg::launch_window_attention(
       static_cast<const gg::bf16*>(qkv), static_cast<const gg::bf16*>(bias),
-      static_cast<gg::bf16*>(out), W, N, H, scale, static_cast<cudaStream_t>(stream));
+      static_cast<gg::bf16*>(out), W, N, H, hd, scale, static_cast<cudaStream_t>(stream));
 }

@@ -16,17 +16,19 @@
 // per byte ridge, so bytes bound it (~0.7 GB).  This first design
 // (attention_bwd.cuh) recomputes the scores in each of its four launches
 // instead of keeping them on chip: about 2.4x the minimal tensor-core work
-// and 5 exponentials per score, the gap for a later change.
+// and 5 exponentials per score, the gap for a later change.  d_bias is
+// summed over the windows in order by one block per 64 x 64 tile and head,
+// so it is bitwise the same from run to run.
 #include "attention_bwd.cuh"
 
 extern "C" int attention_qkv_bwd_bf16(const void* qkv, const void* bias, const void* g,
                                       void* dqkv, void* dbias, void* stats, int W, int N,
-                                      int H, float scale, void* stream) {
+                                      int H, int hd, float scale, void* stream) {
   const gg::BwdArgs a{static_cast<const gg::bf16*>(qkv), static_cast<const gg::bf16*>(g),
                       static_cast<gg::bf16*>(dqkv),      static_cast<float*>(dbias),
                       static_cast<float*>(stats),        W,
                       N,                                 H,
                       scale};
   return (int)gg::launch_attention_bwd(a, static_cast<const gg::bf16*>(bias),
-                                       static_cast<cudaStream_t>(stream));
+                                       hd, static_cast<cudaStream_t>(stream));
 }

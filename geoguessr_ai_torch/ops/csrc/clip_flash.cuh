@@ -3,9 +3,10 @@
 //
 // Layouts follow the JAX package (geoguessr_ai_tpu/ops/clip_attention.py):
 //   qkv (B, N, 3D) bf16, token-major, channels in q|k|v blocks of D:
-//       q = [0, D), k = [D, 2D), v = [2D, 3D); head h at [h*64, (h+1)*64)
-//       of each block (hd = 64: ViT-L/14 and ViT-B/32)
-//   out (B, N, D) bf16, head h at channels [h*64, (h+1)*64)
+//       q = [0, D), k = [D, 2D), v = [2D, 3D); head h at [h*hd, (h+1)*hd)
+//       of each block (hd = 64 for ViT-L/14 and ViT-B/32; 16 and 32 too,
+//       the HD template parameter)
+//   out (B, N, D) bf16, head h at channels [h*hd, (h+1)*hd)
 // N need not be a multiple of anything: ViT-L/14-336 has N = 577 = 9*64 + 1.
 // Query rows >= N read as zero and are never written; key columns >= N
 // score -inf and their v rows read as zero.
@@ -25,34 +26,37 @@
 namespace gg {
 namespace clip {
 
-constexpr int kHd = 64;          // head dim
 constexpr int kRows = 64;        // query rows per group of 4 warps
 constexpr int kBk = 64;          // keys per tile
-constexpr int kPitch = kHd + 8;  // row pitch (bf16) of the k and v^T tiles: conflict-free reads
+constexpr int kVtPitch = kBk + 8;  // row pitch (bf16) of the v^T tile: conflict-free reads
 
+template <int HD>
 struct KVTile {
-  bf16 k[kBk * kPitch];   // k rows: [key][dim]
-  bf16 vt[kHd * kPitch];  // v transposed: [dim][key]
+  bf16 k[kBk * HeadDim<HD>::kPad];  // k rows: [key][dim]
+  bf16 vt[HD * kVtPitch];           // v transposed: [dim][key]
 };
 
-// o (16 x 64, f32, normalised) for rows q_row0 .. q_row0+15 of one head, in
+// o (16 x HD, f32, normalised) for rows q_row0 .. q_row0+15 of one head, in
 // the mma C layout: o[d][0..1] = row g, cols d*8+2c..; o[d][2..3] = row g+8.
-//   head: qkv + b*N*3D + h*64 (this image's token 0, this head's q column 0)
+//   head: qkv + b*N*3D + h*HD (this image's token 0, this head's q column 0)
 //   gtid: the thread's index 0..127 inside its group of four warps
 // Every thread of the block must call this the same number of times: it
 // synchronises the block around each k/v tile.
+template <int HD>
 __device__ __forceinline__ void attend_rows(const bf16* __restrict__ head, int D, int N,
-                                            int q_row0, float sl2, KVTile& t, int gtid,
-                                            float o[8][4]) {
+                                            int q_row0, float sl2, KVTile<HD>& t, int gtid,
+                                            float o[HeadDim<HD>::kTiles][4]) {
+  using T = HeadDim<HD>;
+  constexpr int KP = T::kPad;
   const int lane = threadIdx.x & 31;
   const int g = lane >> 2, c = lane & 3;
   const long rs = 3L * D;
 
-  // This warp's 16 query rows as four A fragments (dims 0-15, ..., 48-63).
-  uint32_t qa[4][4];
+  // This warp's 16 query rows as A fragments, one per 16 dims.
+  uint32_t qa[T::kSteps][4];
   const int r0 = q_row0 + g, r1 = r0 + 8;
 #pragma unroll
-  for (int s = 0; s < 4; ++s) {
+  for (int s = 0; s < T::kSteps; ++s) {
     const int col = s * 16 + 2 * c;
     qa[s][0] = r0 < N ? ld32(head + r0 * rs + col) : 0u;
     qa[s][1] = r1 < N ? ld32(head + r1 * rs + col) : 0u;
@@ -61,7 +65,7 @@ __device__ __forceinline__ void attend_rows(const bf16* __restrict__ head, int D
   }
 
 #pragma unroll
-  for (int d = 0; d < 8; ++d)
+  for (int d = 0; d < T::kTiles; ++d)
 #pragma unroll
     for (int i = 0; i < 4; ++i) o[d][i] = 0.f;
   float m0 = -INFINITY, m1 = -INFINITY;  // running max, log2 domain, rows g / g+8
@@ -69,9 +73,9 @@ __device__ __forceinline__ void attend_rows(const bf16* __restrict__ head, int D
 
   for (int k0 = 0; k0 < N; k0 += kBk) {
     __syncthreads();  // the previous tile is consumed
-    // 64 keys x 8 chunks of 8 dims; a warp takes 32 keys of one chunk, so
-    // the v^T scatter hits 32 distinct banks.
-    for (int i = gtid; i < kBk * 8; i += 128) {
+    // 64 keys x HD/8 chunks of 8 dims; a warp takes 32 keys of one chunk,
+    // so the v^T scatter hits 32 distinct banks.
+    for (int i = gtid; i < kBk * T::kVecs; i += 128) {
       const int key = i & (kBk - 1), ch = i >> 6;
       uint4 kv = make_uint4(0u, 0u, 0u, 0u), vv = kv;
       if (k0 + key < N) {
@@ -79,22 +83,22 @@ __device__ __forceinline__ void attend_rows(const bf16* __restrict__ head, int D
         kv = *reinterpret_cast<const uint4*>(src + D);
         vv = *reinterpret_cast<const uint4*>(src + 2 * D);
       }
-      *reinterpret_cast<uint4*>(&t.k[key * kPitch + ch * 8]) = kv;
+      *reinterpret_cast<uint4*>(&t.k[key * KP + ch * 8]) = kv;
       const bf16* ve = reinterpret_cast<const bf16*>(&vv);
 #pragma unroll
-      for (int j = 0; j < 8; ++j) t.vt[(ch * 8 + j) * kPitch + key] = ve[j];
+      for (int j = 0; j < 8; ++j) t.vt[(ch * 8 + j) * kVtPitch + key] = ve[j];
     }
     __syncthreads();
 
-    // s = q k^T for 64 keys: 8 n-tiles of 8 keys, 4 k-steps of 16 dims.
+    // s = q k^T for 64 keys: 8 n-tiles of 8 keys, HD/16 k-steps of 16 dims.
     float s[8][4];
 #pragma unroll
     for (int nt = 0; nt < 8; ++nt) {
 #pragma unroll
       for (int i = 0; i < 4; ++i) s[nt][i] = 0.f;
-      const bf16* kr = &t.k[(nt * 8 + g) * kPitch + 2 * c];
+      const bf16* kr = &t.k[(nt * 8 + g) * KP + 2 * c];
 #pragma unroll
-      for (int st = 0; st < 4; ++st)
+      for (int st = 0; st < T::kSteps; ++st)
         mma_bf16_16816(s[nt], qa[st], ld32(kr + st * 16), ld32(kr + st * 16 + 8));
     }
 
@@ -132,7 +136,7 @@ __device__ __forceinline__ void attend_rows(const bf16* __restrict__ head, int D
     l0 = l0 * alpha0 + rs0;
     l1 = l1 * alpha1 + rs1;
 #pragma unroll
-    for (int d = 0; d < 8; ++d) {
+    for (int d = 0; d < T::kTiles; ++d) {
       o[d][0] *= alpha0;
       o[d][1] *= alpha0;
       o[d][2] *= alpha1;
@@ -149,8 +153,8 @@ __device__ __forceinline__ void attend_rows(const bf16* __restrict__ head, int D
       pa[2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
       pa[3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
 #pragma unroll
-      for (int d = 0; d < 8; ++d) {
-        const bf16* vr = &t.vt[(d * 8 + g) * kPitch + kk * 16 + 2 * c];
+      for (int d = 0; d < T::kTiles; ++d) {
+        const bf16* vr = &t.vt[(d * 8 + g) * kVtPitch + kk * 16 + 2 * c];
         mma_bf16_16816(o[d], pa, ld32(vr), ld32(vr + 8));
       }
     }
@@ -162,7 +166,7 @@ __device__ __forceinline__ void attend_rows(const bf16* __restrict__ head, int D
   l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
   const float inv0 = 1.f / l0, inv1 = 1.f / l1;
 #pragma unroll
-  for (int d = 0; d < 8; ++d) {
+  for (int d = 0; d < T::kTiles; ++d) {
     o[d][0] *= inv0;
     o[d][1] *= inv0;
     o[d][2] *= inv1;

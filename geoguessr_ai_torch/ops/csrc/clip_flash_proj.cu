@@ -1,6 +1,6 @@
 // K11: K6 with CLIP's attention out-projection inside the kernel:
-// out = softmax(q k^T * scale) v @ W_out, hd = 64, no bias (the bias add and
-// the residual stay outside, as in the JAX package).
+// out = softmax(q k^T * scale) v @ W_out, hd = 64 (and 16 or 32), no bias
+// (the bias add and the residual stay outside, as in the JAX package).
 //
 // Replaces geoguessr_ai_tpu/ops/clip_attention.py:247 _flash_proj_pallas
 // (kernel _flash_proj_kernel, the out-projection at :224-244), which every
@@ -33,13 +33,23 @@ namespace clip {
 constexpr int kProjCols = 128;  // output columns per slab
 constexpr int kProjK = 64;      // input channels per W tile
 constexpr int kWPitch = kProjK + 8;
+constexpr size_t kWTileBytes = kProjCols * kWPitch * sizeof(bf16);
 
+// Bytes of the shared-memory region that holds the two k/v tiles during the
+// attention and the W tile during the projection.
+template <int HD>
+struct TilesBytes {
+  static constexpr size_t value =
+      2 * sizeof(KVTile<HD>) > kWTileBytes ? 2 * sizeof(KVTile<HD>) : kWTileBytes;
+};
+
+template <int HD>
 __global__ void __launch_bounds__(256)
 clip_flash_proj_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ wt,
                        bf16* __restrict__ out, int N, int H, float sl2) {
   extern __shared__ __align__(16) unsigned char smem[];
-  KVTile* tiles = reinterpret_cast<KVTile*>(smem);  // one per group of 4 warps
-  bf16* os = reinterpret_cast<bf16*>(smem + 2 * sizeof(KVTile));
+  KVTile<HD>* tiles = reinterpret_cast<KVTile<HD>*>(smem);  // one per group of 4 warps
+  bf16* os = reinterpret_cast<bf16*>(smem + TilesBytes<HD>::value);
   bf16* ws = reinterpret_cast<bf16*>(smem);  // the W tile reuses the k/v tiles
 
   const int b = blockIdx.y;
@@ -47,7 +57,7 @@ clip_flash_proj_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ wt
   const int warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, c = lane & 3;
   const int grp = warp >> 2, gw = warp & 3;
-  const int D = H * kHd;
+  const int D = H * HD;
   const int o_pitch = D + 8;  // conflict-free A-fragment reads
   const int row0 = blockIdx.x * kRows;
   const bf16* image = qkv + (long)b * N * 3 * D;
@@ -55,11 +65,11 @@ clip_flash_proj_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ wt
   // 1. attention, two heads at a time, into os (bf16).
   for (int h0 = 0; h0 < H; h0 += 2) {
     const int h = h0 + grp;
-    float o[8][4];
-    attend_rows(image + h * kHd, D, N, row0 + gw * 16, sl2, tiles[grp], tid & 127, o);
-    bf16* orow = os + (gw * 16 + g) * o_pitch + h * kHd + 2 * c;
+    float o[HeadDim<HD>::kTiles][4];
+    attend_rows<HD>(image + h * HD, D, N, row0 + gw * 16, sl2, tiles[grp], tid & 127, o);
+    bf16* orow = os + (gw * 16 + g) * o_pitch + h * HD + 2 * c;
 #pragma unroll
-    for (int d = 0; d < 8; ++d) {
+    for (int d = 0; d < HeadDim<HD>::kTiles; ++d) {
       *reinterpret_cast<uint32_t*>(orow + d * 8) = pack_bf16(o[d][0], o[d][1]);
       *reinterpret_cast<uint32_t*>(orow + 8 * o_pitch + d * 8) = pack_bf16(o[d][2], o[d][3]);
     }
@@ -115,17 +125,19 @@ clip_flash_proj_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ wt
 }  // namespace gg
 
 // wt is W_out transposed, (D_out, D_in) row-major: PyTorch's Linear layout.
+// D = H * hd a multiple of 128 (so H is even).
 extern "C" int clip_flash_proj_bf16(const void* qkv, const void* wt, void* out, int B, int N,
-                                    int H, float scale, void* stream) {
+                                    int H, int hd, float scale, void* stream) {
   using namespace gg::clip;
-  const int D = H * kHd;
-  const size_t smem = 2 * sizeof(KVTile) + (size_t)kRows * (D + 8) * sizeof(gg::bf16);
-  cudaError_t err = cudaFuncSetAttribute(
-      clip_flash_proj_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid((N + kRows - 1) / kRows, B);
-  clip_flash_proj_kernel<<<grid, 256, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const gg::bf16*>(qkv), static_cast<const gg::bf16*>(wt),
-      static_cast<gg::bf16*>(out), N, H, scale * gg::kLog2e);
-  return (int)cudaGetLastError();
+  const dim3 grid((N + kRows - 1) / kRows, B);
+  GG_HEAD_DIM_SWITCH(hd, {
+    const size_t smem = TilesBytes<HD>::value + (size_t)kRows * (H * HD + 8) * sizeof(gg::bf16);
+    cudaError_t err = cudaFuncSetAttribute(
+        clip_flash_proj_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    clip_flash_proj_kernel<HD><<<grid, 256, smem, static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const gg::bf16*>(qkv), static_cast<const gg::bf16*>(wt),
+        static_cast<gg::bf16*>(out), N, H, scale * gg::kLog2e);
+    return (int)cudaGetLastError();
+  })
 }

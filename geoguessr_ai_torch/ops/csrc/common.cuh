@@ -1,5 +1,6 @@
 // Device code shared by the window-attention kernels of the port (K1
-// fused_block.cu, K2 fb_s2.cu, K3 attention_qkv.cu, K9 fb4d.cu).  Each .cu file is
+// fused_block.cu, K2 fb_s2.cu, K3 attention_qkv.cu, K9 fb4d.cu) and the
+// head-dim dispatch every attention kernel uses.  Each .cu file is
 // compiled on its own into its own shared library, so the __global__
 // templates below are instantiated once per library.
 //
@@ -7,6 +8,7 @@
 //   x    (W, N, C) bf16 window tokens, row-major
 //   qkv  (W, N, 3D) bf16, TinyViT channel layout: head h owns channels
 //        [h*3*hd, (h+1)*3*hd), with q|k|v slots of hd channels inside
+//        (hd 16, 32 or 64)
 //   bias (H, N, N) bf16 additive attention bias
 //   out  (W, N, D) bf16, head h at channels [h*hd, (h+1)*hd)
 // Weights arrive in PyTorch's (out, in) layout, which is the column-major
@@ -90,6 +92,43 @@ struct MapRows {
 };
 
 // ---------------------------------------------------------------------------
+// Head dims.  Every attention kernel is a template over the head dim HD, a
+// multiple of the 16 that one mma.sync.m16n8k16 k-step covers, and is
+// instantiated for 16, 32 and 64 (TinyViT uses 32 at every stage, CLIP
+// ViT-L/14 and ViT-B/32 use 64).  GG_HEAD_DIM_SWITCH picks the instance.
+// ---------------------------------------------------------------------------
+
+template <int HD>
+struct HeadDim {
+  static_assert(HD == 16 || HD == 32 || HD == 64, "head dims 16, 32, 64");
+  static constexpr int kSteps = HD / 16;  // mma k-steps over the head dim
+  static constexpr int kTiles = HD / 8;   // mma n-tiles of 8 dims
+  static constexpr int kVecs = HD / 8;    // 16-byte vectors per head row
+  static constexpr int kPad = HD + 8;     // row pitch (bf16) of a (rows, HD) tile:
+                                          // conflict-free fragment reads
+};
+
+// The body runs with HD a constant for hd in {16, 32, 64} and must return;
+// another hd returns cudaErrorInvalidValue.
+#define GG_HEAD_DIM_SWITCH(hd, ...)      \
+  switch (hd) {                          \
+    case 16: {                           \
+      constexpr int HD = 16;             \
+      __VA_ARGS__                        \
+    }                                    \
+    case 32: {                           \
+      constexpr int HD = 32;             \
+      __VA_ARGS__                        \
+    }                                    \
+    case 64: {                           \
+      constexpr int HD = 64;             \
+      __VA_ARGS__                        \
+    }                                    \
+    default:                             \
+      return cudaErrorInvalidValue;      \
+  }
+
+// ---------------------------------------------------------------------------
 // Window attention over the interleaved qkv tensor.
 //
 // One block of 4 warps per (q-tile of 64 rows, head, window); each warp owns
@@ -100,34 +139,34 @@ struct MapRows {
 // Pallas kernels' f32 denominator does.
 // ---------------------------------------------------------------------------
 
-constexpr int kHd = 32;            // head dim; TinyViT uses 32 at every stage
 constexpr int kBq = 64;            // query rows per block
 constexpr int kBk = 64;            // keys per tile
-constexpr int kKPad = kHd + 8;     // K tile row pitch (bf16): conflict-free b-fragment reads
 constexpr int kVPad = kBk + 8;     // V^T tile row pitch (bf16)
 
-template <class ROWS>
+template <int HD, class ROWS>
 __global__ void __launch_bounds__(128)
 window_attention_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ bias,
                         bf16* __restrict__ out, int N, int H, float scale, ROWS rows) {
-  __shared__ __align__(16) bf16 ks[kBk * kKPad];
-  __shared__ __align__(16) bf16 vt[kHd * kVPad];
+  using T = HeadDim<HD>;
+  constexpr int KP = T::kPad;
+  __shared__ __align__(16) bf16 ks[kBk * KP];
+  __shared__ __align__(16) bf16 vt[HD * kVPad];
 
   const int h = blockIdx.y;
   const int w = blockIdx.z;
   const int tid = threadIdx.x;
   const int warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, c = lane & 3;
-  const int D = H * kHd;
+  const int D = H * HD;
   const long row_stride = 3L * D;
-  const bf16* base = qkv + (long)h * 3 * kHd;
+  const bf16* base = qkv + (long)h * 3 * HD;
   const int q0 = blockIdx.x * kBq + warp * 16;
   const long qrow0 = rows(w, q0 + g, N), qrow1 = rows(w, q0 + g + 8, N);
 
-  // This warp's 16 query rows as two A fragments (dims 0-15, 16-31).
-  uint32_t qa[2][4];
+  // This warp's 16 query rows as A fragments, one per 16 dims.
+  uint32_t qa[T::kSteps][4];
 #pragma unroll
-  for (int s = 0; s < 2; ++s) {
+  for (int s = 0; s < T::kSteps; ++s) {
     const bf16* r0 = base + qrow0 * row_stride + s * 16 + 2 * c;
     const bf16* r1 = base + qrow1 * row_stride + s * 16 + 2 * c;
     qa[s][0] = ld32(r0);
@@ -136,9 +175,9 @@ window_attention_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ b
     qa[s][3] = ld32(r1 + 8);
   }
 
-  float o[4][4];
+  float o[T::kTiles][4];
 #pragma unroll
-  for (int d = 0; d < 4; ++d)
+  for (int d = 0; d < T::kTiles; ++d)
 #pragma unroll
     for (int i = 0; i < 4; ++i) o[d][i] = 0.f;
   float m0 = -INFINITY, m1 = -INFINITY;  // running max, log2 domain, rows g / g+8
@@ -150,12 +189,12 @@ window_attention_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ b
 
   for (int k0 = 0; k0 < N; k0 += kBk) {
     __syncthreads();  // previous tile fully consumed
-    for (int i = tid; i < kBk * 4; i += 128) {
-      const int key = i >> 2, ch = i & 3;
+    for (int i = tid; i < kBk * T::kVecs; i += 128) {
+      const int key = i / T::kVecs, ch = i % T::kVecs;
       const bf16* src = base + rows(w, k0 + key, N) * row_stride + ch * 8;
-      const uint4 kv = *reinterpret_cast<const uint4*>(src + kHd);
-      *reinterpret_cast<uint4*>(&ks[key * kKPad + ch * 8]) = kv;
-      uint4 vv = *reinterpret_cast<const uint4*>(src + 2 * kHd);
+      const uint4 kv = *reinterpret_cast<const uint4*>(src + HD);
+      *reinterpret_cast<uint4*>(&ks[key * KP + ch * 8]) = kv;
+      uint4 vv = *reinterpret_cast<const uint4*>(src + 2 * HD);
       const bf16* ve = reinterpret_cast<const bf16*>(&vv);
 #pragma unroll
       for (int j = 0; j < 8; ++j) vt[(ch * 8 + j) * kVPad + key] = ve[j];
@@ -168,9 +207,9 @@ window_attention_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ b
     for (int nt = 0; nt < 8; ++nt) {
 #pragma unroll
       for (int i = 0; i < 4; ++i) s[nt][i] = 0.f;
-      const bf16* kr = &ks[(nt * 8 + g) * kKPad + 2 * c];
+      const bf16* kr = &ks[(nt * 8 + g) * KP + 2 * c];
 #pragma unroll
-      for (int st = 0; st < 2; ++st)
+      for (int st = 0; st < T::kSteps; ++st)
         mma_bf16_16816(s[nt], qa[st], ld32(kr + st * 16), ld32(kr + st * 16 + 8));
     }
 
@@ -209,7 +248,7 @@ window_attention_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ b
     l0 = l0 * alpha0 + rs0;
     l1 = l1 * alpha1 + rs1;
 #pragma unroll
-    for (int d = 0; d < 4; ++d) {
+    for (int d = 0; d < T::kTiles; ++d) {
       o[d][0] *= alpha0;
       o[d][1] *= alpha0;
       o[d][2] *= alpha1;
@@ -226,7 +265,7 @@ window_attention_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ b
       pa[2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
       pa[3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
 #pragma unroll
-      for (int d = 0; d < 4; ++d) {
+      for (int d = 0; d < T::kTiles; ++d) {
         const bf16* vr = &vt[(d * 8 + g) * kVPad + kk * 16 + 2 * c];
         mma_bf16_16816(o[d], pa, ld32(vr), ld32(vr + 8));
       }
@@ -238,10 +277,10 @@ window_attention_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ b
   l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
   l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
   const float inv0 = 1.f / l0, inv1 = 1.f / l1;
-  bf16* orow0 = out + qrow0 * D + h * kHd + 2 * c;
-  bf16* orow1 = out + qrow1 * D + h * kHd + 2 * c;
+  bf16* orow0 = out + qrow0 * D + h * HD + 2 * c;
+  bf16* orow1 = out + qrow1 * D + h * HD + 2 * c;
 #pragma unroll
-  for (int d = 0; d < 4; ++d) {
+  for (int d = 0; d < T::kTiles; ++d) {
     *reinterpret_cast<uint32_t*>(orow0 + d * 8) = pack_bf16(o[d][0] * inv0, o[d][1] * inv0);
     *reinterpret_cast<uint32_t*>(orow1 + d * 8) = pack_bf16(o[d][2] * inv1, o[d][3] * inv1);
   }
@@ -249,11 +288,14 @@ window_attention_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ b
 
 template <class ROWS = WindowRows>
 inline cudaError_t launch_window_attention(const bf16* qkv, const bf16* bias, bf16* out,
-                                           int W, int N, int H, float scale,
+                                           int W, int N, int H, int hd, float scale,
                                            cudaStream_t stream, ROWS rows = ROWS()) {
-  dim3 grid(N / kBq, H, W);
-  window_attention_kernel<ROWS><<<grid, 128, 0, stream>>>(qkv, bias, out, N, H, scale, rows);
-  return cudaGetLastError();
+  const dim3 grid(N / kBq, H, W);
+  GG_HEAD_DIM_SWITCH(hd, {
+    window_attention_kernel<HD, ROWS><<<grid, 128, 0, stream>>>(qkv, bias, out, N, H, scale,
+                                                                rows);
+    return cudaGetLastError();
+  })
 }
 
 // ---------------------------------------------------------------------------

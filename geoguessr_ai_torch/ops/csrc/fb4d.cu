@@ -29,9 +29,10 @@ extern "C" int fb4d_bf16(const void* x, const void* ln_scale, const void* ln_bia
                          const void* w_qkv_t, const void* b_qkv, const void* w_proj_t,
                          const void* b_proj, const void* bias, void* qkv_scratch,
                          void* attn_scratch, void* out, int B, int Hm, int Wm, int C, int H,
+                         int hd,
                          int window, float scale, float eps, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int D = H * gg::kHd;
+  const int D = H * hd;
   const int M = B * Hm * Wm;
   const int N = window * window;
   const gg::MapRows rows{window, Hm / window, Wm / window};
@@ -44,7 +45,7 @@ extern "C" int fb4d_bf16(const void* x, const void* ln_scale, const void* ln_bia
   if (e != cudaSuccess) return (int)e;
   e = gg::launch_window_attention(static_cast<const gg::bf16*>(qkv_scratch),
                                   static_cast<const gg::bf16*>(bias),
-                                  static_cast<gg::bf16*>(attn_scratch), num_windows, N, H,
+                                  static_cast<gg::bf16*>(attn_scratch), num_windows, N, H, hd,
                                   scale, s, rows);
   if (e != cudaSuccess) return (int)e;
   return (int)gg::launch_ln_gemm<false, false>(

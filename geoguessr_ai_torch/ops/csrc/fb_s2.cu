@@ -19,9 +19,10 @@
 extern "C" int fb_s2_bf16(const void* x, const void* ln_scale, const void* ln_bias,
                           const void* w_qkv_t, const void* b_qkv, const void* bias,
                           void* qkv_scratch, void* out, int W, int N, int C, int H,
+                          int hd,
                           float scale, float eps, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int D = H * gg::kHd;
+  const int D = H * hd;
   cudaError_t e = gg::launch_ln_gemm<true, true>(
       static_cast<const gg::bf16*>(x), static_cast<const float*>(ln_scale),
       static_cast<const float*>(ln_bias), static_cast<const gg::bf16*>(w_qkv_t),
@@ -30,5 +31,5 @@ extern "C" int fb_s2_bf16(const void* x, const void* ln_scale, const void* ln_bi
   if (e != cudaSuccess) return (int)e;
   return (int)gg::launch_window_attention(
       static_cast<const gg::bf16*>(qkv_scratch), static_cast<const gg::bf16*>(bias),
-      static_cast<gg::bf16*>(out), W, N, H, scale, s);
+      static_cast<gg::bf16*>(out), W, N, H, hd, scale, s);
 }

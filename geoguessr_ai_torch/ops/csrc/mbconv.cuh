@@ -1,0 +1,292 @@
+// Device code of the fused MBConv kernels: K10 (mbconv.cu, folded
+// BatchNorm, TinyViT's stage 0) and the experimental K12a / K12b
+// (fused_mbconv_exp.cu, plain biases).  The design is K10's, described in
+// mbconv.cu: one (image, 8 x 16 output tile) at a time, its (10, 18, C)
+// halo of x in shared memory, E walked in chunks of 64 channels through the
+// expand GEMM, the depthwise MACs and the project GEMM, the 4x-expanded
+// tensor never in device memory.
+#pragma once
+
+#include "common.cuh"
+
+namespace gg {
+namespace mb {
+
+constexpr int kTh = 8;                  // output tile rows: one per warp
+constexpr int kTw = 16;                 // output tile cols: one m16 row tile
+constexpr int kHw = kTw + 2;            // halo cols
+constexpr int kHalo = (kTh + 2) * kHw;  // 180 halo pixels
+constexpr int kHaloRows = 192;          // 12 m-tiles of the expand GEMM
+constexpr int kEc = 64;                 // expanded channels per chunk
+constexpr int kHPitch = kEc + 8;        // bf16 pitch of the expanded chunk and w3 chunk
+constexpr int kThreads = 256;
+
+// Byte offsets into dynamic shared memory.  Row pitches of C + 8 and 72
+// bf16 make every fragment read and write below free of bank conflicts.
+template <int C>
+struct Smem {
+  static constexpr int kXPitch = C + 8;
+  static constexpr size_t xs = 0;                               // bf16 [kHaloRows][kXPitch]
+  static constexpr size_t w1s = xs + kHaloRows * kXPitch * 2;   // bf16 [kEc][kXPitch]
+  static constexpr size_t hs = w1s + kEc * kXPitch * 2;         // bf16 [kHalo][kHPitch]
+  static constexpr size_t w3s = hs + kHalo * kHPitch * 2;       // bf16 [C][kHPitch]
+  static constexpr size_t w2s = w3s + C * kHPitch * 2;          // f32 [9][kEc]
+  static constexpr size_t sb12 = w2s + 9 * kEc * 4;             // f32 [4][kEc]: s1 b1 s2 b2
+  static constexpr size_t sb3 = sb12 + 4 * kEc * 4;             // f32 [2][C]
+  static constexpr size_t bytes = sb3 + 2 * C * 4;
+};
+
+template <bool EXACT>
+__device__ __forceinline__ float gelu(float x) {
+  if (EXACT) return 0.5f * x * (1.f + erff(x * 0.70710678118654752f));
+  // 0.5 x (1 + tanh(u)) = x * sigmoid(2u), u = sqrt(2/pi) (x + 0.044715 x^3)
+  const float u = 0.7978845608028654f * (x + 0.044715f * x * x * x);
+  return x / (1.f + __expf(-2.f * u));
+}
+
+template <bool PLAIN>
+__device__ __forceinline__ float round_unless(float v) {
+  return PLAIN ? v : round_bf16(v);
+}
+
+// Loads the (10, 18) halo of x around the output tile at (ty0, tx0) into
+// xs, zero outside the image and in the 12 pad rows.
+template <int C>
+__device__ __forceinline__ void load_halo(bf16* xs, const bf16* __restrict__ ximg, int ty0,
+                                          int tx0, int H, int W) {
+  constexpr int XP = Smem<C>::kXPitch;
+  constexpr int kVec = C / 8;  // 16-byte vectors per pixel of x
+  for (int i = threadIdx.x; i < kHaloRows * kVec; i += kThreads) {
+    const int row = i / kVec, v = i - row * kVec;
+    uint4 val = make_uint4(0u, 0u, 0u, 0u);
+    if (row < kHalo) {
+      const int hy = row / kHw, hx = row - hy * kHw;
+      const int iy = ty0 - 1 + hy, ix = tx0 - 1 + hx;
+      if (iy >= 0 && iy < H && ix >= 0 && ix < W)
+        val = *reinterpret_cast<const uint4*>(ximg + ((long)iy * W + ix) * C + v * 8);
+    }
+    *reinterpret_cast<uint4*>(xs + row * XP + v * 8) = val;
+  }
+}
+
+// The same halo through cp.async (16 bytes a thread, zero-filled where the
+// source size is 0); the caller commits and waits.
+template <int C>
+__device__ __forceinline__ void load_halo_async(bf16* xs, const bf16* __restrict__ ximg, int ty0,
+                                                int tx0, int H, int W) {
+  constexpr int XP = Smem<C>::kXPitch;
+  constexpr int kVec = C / 8;
+  for (int i = threadIdx.x; i < kHaloRows * kVec; i += kThreads) {
+    const int row = i / kVec, v = i - row * kVec;
+    const bf16* src = ximg;
+    int bytes = 0;
+    if (row < kHalo) {
+      const int hy = row / kHw, hx = row - hy * kHw;
+      const int iy = ty0 - 1 + hy, ix = tx0 - 1 + hx;
+      if (iy >= 0 && iy < H && ix >= 0 && ix < W) {
+        src = ximg + ((long)iy * W + ix) * C + v * 8;
+        bytes = 16;
+      }
+    }
+    const unsigned dst = (unsigned)__cvta_generic_to_shared(xs + row * XP + v * 8);
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
+                 "r"(bytes));
+  }
+}
+
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n"); }
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// One (8 x 16) output tile from the halo in xs: the chunk loop over E and
+// the epilogue.  Every thread of the block calls it; it synchronises the
+// block before its first shared-memory write, so xs must be complete and
+// visible when it is called.
+//   PLAIN = false (K10): (s, b) pairs are folded BatchNorms; each is applied
+//     in f32 and rounded to bf16 before its GELU, and the residual add
+//     rounds to bf16 before the last GELU.
+//   PLAIN = true (K12): the scales are 1 and the biases plain; GELU reads
+//     the f32 sums unrounded, and the residual is added in f32 to the
+//     unrounded projection.  Only GELU's output is rounded.
+template <int C, bool EXACT, bool PLAIN>
+__device__ __forceinline__ void mbconv_tile(unsigned char* smem, const bf16* xs,
+                                            const bf16* __restrict__ w1t,
+                                            const float* __restrict__ sb1,
+                                            const float* __restrict__ w2,
+                                            const float* __restrict__ sb2,
+                                            const bf16* __restrict__ w3t,
+                                            const float* __restrict__ sb3,
+                                            bf16* __restrict__ out_img, int ty0, int tx0, int H,
+                                            int W, int E) {
+  using S = Smem<C>;
+  constexpr int XP = S::kXPitch;
+  constexpr int kVec = C / 8;
+  bf16* w1s = reinterpret_cast<bf16*>(smem + S::w1s);
+  bf16* hs = reinterpret_cast<bf16*>(smem + S::hs);
+  bf16* w3s = reinterpret_cast<bf16*>(smem + S::w3s);
+  float* w2s = reinterpret_cast<float*>(smem + S::w2s);
+  float* sb12s = reinterpret_cast<float*>(smem + S::sb12);
+  float* sb3s = reinterpret_cast<float*>(smem + S::sb3);
+
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, c = lane & 3;
+
+  float acc3[C / 8][4];
+#pragma unroll
+  for (int nt = 0; nt < C / 8; ++nt)
+#pragma unroll
+    for (int t = 0; t < 4; ++t) acc3[nt][t] = 0.f;
+
+  // Expand roles: warp pairs split the chunk's 64 channels in halves of 32,
+  // and the 12 m-tiles of halo pixels 3 to a pair.
+  const int nh = warp & 1;
+  const int m_first = warp >> 1;
+
+  for (int e0 = 0; e0 < E; e0 += kEc) {
+    __syncthreads();  // the previous chunk (or tile) is consumed
+    if (e0 == 0)
+      for (int i = tid; i < 2 * C; i += kThreads) sb3s[i] = sb3[i];
+    for (int i = tid; i < kEc * kVec; i += kThreads) {
+      const int n = i / kVec, v = i - n * kVec;
+      *reinterpret_cast<uint4*>(w1s + n * XP + v * 8) =
+          *reinterpret_cast<const uint4*>(w1t + (long)(e0 + n) * C + v * 8);
+    }
+    for (int i = tid; i < C * (kEc / 8); i += kThreads) {
+      const int n = i / (kEc / 8), v = i - n * (kEc / 8);
+      *reinterpret_cast<uint4*>(w3s + n * kHPitch + v * 8) =
+          *reinterpret_cast<const uint4*>(w3t + (long)n * E + e0 + v * 8);
+    }
+    for (int i = tid; i < 9 * kEc; i += kThreads) {
+      const int t = i / kEc, e = i - t * kEc;
+      w2s[i] = w2[(long)t * E + e0 + e];
+    }
+    if (tid < kEc) {
+      sb12s[tid] = sb1[e0 + tid];
+      sb12s[kEc + tid] = sb1[E + e0 + tid];
+      sb12s[2 * kEc + tid] = sb2[e0 + tid];
+      sb12s[3 * kEc + tid] = sb2[E + e0 + tid];
+    }
+    __syncthreads();
+
+    // 1. Expand the halo, (192 x C) . (C x 64), then (s1, b1), GELU and the
+    //    image-padding mask, into hs.
+#pragma unroll 1
+    for (int mi = 0; mi < 3; ++mi) {
+      const int mt = m_first + 4 * mi;
+      float acc[4][4];
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+        for (int t = 0; t < 4; ++t) acc[nt][t] = 0.f;
+#pragma unroll
+      for (int ks = 0; ks < C / 16; ++ks) {
+        uint32_t a[4];
+        const bf16* ar = xs + (mt * 16 + g) * XP + ks * 16 + 2 * c;
+        a[0] = ld32(ar);
+        a[1] = ld32(ar + 8 * XP);
+        a[2] = ld32(ar + 8);
+        a[3] = ld32(ar + 8 * XP + 8);
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt) {
+          const bf16* br = w1s + (nh * 32 + nt * 8 + g) * XP + ks * 16 + 2 * c;
+          mma_bf16_16816(acc[nt], a, ld32(br), ld32(br + 8));
+        }
+      }
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int row = mt * 16 + g + 8 * half;
+        if (row >= kHalo) continue;
+        const int hy = row / kHw, hx = row - hy * kHw;
+        const int iy = ty0 - 1 + hy, ix = tx0 - 1 + hx;
+        const bool inside = iy >= 0 && iy < H && ix >= 0 && ix < W;
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt) {
+          const int ch = nh * 32 + nt * 8 + 2 * c;
+          float v0 = 0.f, v1 = 0.f;
+          if (inside) {
+            v0 = gelu<EXACT>(round_unless<PLAIN>(acc[nt][2 * half] * sb12s[ch] + sb12s[kEc + ch]));
+            v1 = gelu<EXACT>(round_unless<PLAIN>(acc[nt][2 * half + 1] * sb12s[ch + 1] + sb12s[kEc + ch + 1]));
+          }
+          *reinterpret_cast<uint32_t*>(hs + row * kHPitch + ch) = pack_bf16(v0, v1);
+        }
+      }
+    }
+    __syncthreads();
+
+    // 2. Depthwise 3x3, (s2, b2) and GELU for this warp's 16 pixels, built
+    //    as the A fragments of
+    // 3. the project GEMM, (16 x 64) . (64 x C), summed into acc3.
+#pragma unroll
+    for (int ks = 0; ks < kEc / 16; ++ks) {
+      uint32_t a[4];
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const int px = g + 8 * (q & 1);
+        const int ch = ks * 16 + 8 * (q >> 1) + 2 * c;
+        float s0 = 0.f, s1 = 0.f;
+#pragma unroll
+        for (int di = 0; di < 3; ++di)
+#pragma unroll
+          for (int dj = 0; dj < 3; ++dj) {
+            const float2 hv =
+                unpack_bf16(ld32(hs + ((warp + di) * kHw + px + dj) * kHPitch + ch));
+            const float2 wv = *reinterpret_cast<const float2*>(w2s + (di * 3 + dj) * kEc + ch);
+            s0 += hv.x * wv.x;
+            s1 += hv.y * wv.y;
+          }
+        const float y0 = gelu<EXACT>(round_unless<PLAIN>(s0 * sb12s[2 * kEc + ch] + sb12s[3 * kEc + ch]));
+        const float y1 =
+            gelu<EXACT>(round_unless<PLAIN>(s1 * sb12s[2 * kEc + ch + 1] + sb12s[3 * kEc + ch + 1]));
+        a[q] = pack_bf16(y0, y1);
+      }
+#pragma unroll
+      for (int nt = 0; nt < C / 8; ++nt) {
+        const bf16* br = w3s + (nt * 8 + g) * kHPitch + ks * 16 + 2 * c;
+        mma_bf16_16816(acc3[nt], a, ld32(br), ld32(br + 8));
+      }
+    }
+  }
+
+  // 4. (s3, b3), the residual from the halo centre, GELU.
+  const int oy = ty0 + warp;
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int px = g + 8 * half;
+    const int ox = tx0 + px;
+    if (oy >= H || ox >= W) continue;
+    const bf16* xc = xs + ((warp + 1) * kHw + px + 1) * XP;
+    bf16* orow = out_img + ((long)oy * W + ox) * C;
+#pragma unroll
+    for (int nt = 0; nt < C / 8; ++nt) {
+      const int ch = nt * 8 + 2 * c;
+      const float p0 = round_unless<PLAIN>(acc3[nt][2 * half] * sb3s[ch] + sb3s[C + ch]);
+      const float p1 = round_unless<PLAIN>(acc3[nt][2 * half + 1] * sb3s[ch + 1] + sb3s[C + ch + 1]);
+      const float2 xv = unpack_bf16(ld32(xc + ch));
+      *reinterpret_cast<uint32_t*>(orow + ch) =
+          pack_bf16(gelu<EXACT>(round_unless<PLAIN>(xv.x + p0)), gelu<EXACT>(round_unless<PLAIN>(xv.y + p1)));
+    }
+  }
+}
+
+// One block of 8 warps per (image, 8 x 16 output tile): the halo, then the
+// tile.  K10 and K12a.
+template <int C, bool EXACT, bool PLAIN>
+__global__ void __launch_bounds__(kThreads, 2)
+mbconv_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w1t,
+              const float* __restrict__ sb1, const float* __restrict__ w2,
+              const float* __restrict__ sb2, const bf16* __restrict__ w3t,
+              const float* __restrict__ sb3, bf16* __restrict__ out, int H, int W, int E) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  bf16* xs = reinterpret_cast<bf16*>(smem + Smem<C>::xs);
+  const int ty0 = blockIdx.y * kTh, tx0 = blockIdx.x * kTw;
+  const long img = (long)blockIdx.z * H * W * C;
+  load_halo<C>(xs, x + img, ty0, tx0, H, W);
+  mbconv_tile<C, EXACT, PLAIN>(smem, xs, w1t, sb1, w2, sb2, w3t, sb3, out + img, ty0, tx0, H, W,
+                               E);
+}
+}  // namespace mb
+}  // namespace gg

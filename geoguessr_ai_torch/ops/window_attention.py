@@ -28,7 +28,8 @@ Kernels:
 * K8a ``_attention_qtiled_cuda`` and K8b ``_attention_batched_cuda``: the
   head-major ``window_attention``, chosen as ``_attention_pallas`` chooses.
 
-The kernels take bf16 activations and weights; the bias travels bf16 into
+The kernels take bf16 activations and weights and a head dim in
+``KERNEL_HEAD_DIMS``; the bias travels bf16 into
 K1-K4 and K9, as it does into the Pallas kernels, and f32 into K5, K7 and
 K8.  Every wrapper adds one to its entry in ``LAUNCHES`` each time it
 launches its kernel.
@@ -55,8 +56,9 @@ LAUNCHES = {
     "_attention_batched_cuda": 0,
 }
 
-#: The only head dim the kernels are built for (every TinyViT stage).
-KERNEL_HEAD_DIM = 32
+#: Head dims the kernels are built for: the multiples of mma.sync's k-step
+#: of 16 up to 64 (every TinyViT stage has 32).
+KERNEL_HEAD_DIMS = (16, 32, 64)
 
 #: Largest all-heads f32 score footprint H * N^2 * 4 that takes the
 #: small-N backward (K4); above it the large-N one (K5).  The JAX
@@ -236,17 +238,27 @@ def _check(name, t, shape, dtype=torch.bfloat16):
     return t
 
 
-def _check_geometry(W, N, C, D, H):
+def _head_dim(D, H):
+    """The head dim D / H, which must be one of KERNEL_HEAD_DIMS."""
     hd = D // H
-    if hd * H != D or hd != KERNEL_HEAD_DIM:
+    if hd * H != D or hd not in KERNEL_HEAD_DIMS:
         raise ValueError(
-            f"the kernels take head dim {KERNEL_HEAD_DIM}, got D={D}, H={H}"
-        )
-    if N % 64 or C % 64 or W < 1 or W > 65535:
+            f"the kernels take a head dim in {KERNEL_HEAD_DIMS}, got D={D}, "
+            f"H={H}")
+    return hd
+
+
+def _check_geometry(W, N, C, D, H, gemm=False):
+    """Returns the head dim.  ``gemm``: the kernel also runs the qkv GEMM
+    (3D output columns) and the out-projection (D input channels) on 64-wide
+    tiles, so D must be a multiple of 64 too."""
+    hd = _head_dim(D, H)
+    if N % 64 or C % 64 or W < 1 or W > 65535 or (gemm and D % 64):
         raise ValueError(
-            f"the kernels take N and C multiples of 64 and 1 <= W <= 65535, "
-            f"got W={W}, N={N}, C={C}"
-        )
+            f"the kernels take N and C multiples of 64, 1 <= W <= 65535"
+            f"{' and D a multiple of 64' if gemm else ''}, got W={W}, N={N}, "
+            f"C={C}, D={D}")
+    return hd
 
 
 def _stream():
@@ -278,13 +290,13 @@ def _attention_qkv_fused_cuda(qkv, bias, scale, num_heads):
 
     W, N, D3 = qkv.shape
     D = D3 // 3
-    _check_geometry(W, N, 64, D, num_heads)
+    hd = _check_geometry(W, N, 64, D, num_heads)
     _check("qkv", qkv, (W, N, D3))
     bias = _bias_bf16(bias, num_heads, N)
     out = torch.empty((W, N, D), dtype=qkv.dtype, device=qkv.device)
     fn = _build.entry("attention_qkv")
     err = fn(qkv.data_ptr(), bias.data_ptr(), out.data_ptr(), W, N,
-             num_heads, float(scale), _stream())
+             num_heads, hd, float(scale), _stream())
     _raise_on(err, "_attention_qkv_fused_cuda")
     LAUNCHES["_attention_qkv_fused_cuda"] += 1
     return out
@@ -296,7 +308,7 @@ def _fb_s2_cuda(x, ln_scale, ln_bias, w_qkv, b_qkv, bias, scale,
 
     W, N, C = x.shape
     D = w_qkv.shape[1] // 3
-    _check_geometry(W, N, C, D, num_heads)
+    hd = _check_geometry(W, N, C, D, num_heads, gemm=True)
     _check("x", x, (W, N, C))
     ls = _vec_f32(ln_scale, C, "ln_scale")
     lb = _vec_f32(ln_bias, C, "ln_bias")
@@ -309,7 +321,7 @@ def _fb_s2_cuda(x, ln_scale, ln_bias, w_qkv, b_qkv, bias, scale,
     fn = _build.entry("fb_s2")
     err = fn(x.data_ptr(), ls.data_ptr(), lb.data_ptr(), wq.data_ptr(),
              bq.data_ptr(), bias.data_ptr(), qkv.data_ptr(), out.data_ptr(),
-             W, N, C, num_heads, float(scale), float(eps), _stream())
+             W, N, C, num_heads, hd, float(scale), float(eps), _stream())
     _raise_on(err, "_fb_s2_cuda")
     LAUNCHES["_fb_s2_cuda"] += 1
     return out
@@ -348,12 +360,12 @@ def _fused_block_launch(lib, x, ln_scale, ln_bias, w_qkv, b_qkv, w_proj,
 def _fused_block_cuda(x, ln_scale, ln_bias, w_qkv, b_qkv, w_proj, b_proj,
                       bias, scale, num_heads, eps):
     W, N, C = x.shape
-    _check_geometry(W, N, C, w_proj.shape[0], num_heads)
+    hd = _check_geometry(W, N, C, w_proj.shape[0], num_heads, gemm=True)
     _check("x", x, (W, N, C))
     err, out = _fused_block_launch(
         "fused_block", x, ln_scale, ln_bias, w_qkv, b_qkv, w_proj, b_proj,
         bias, num_heads, N,
-        (W, N, C, num_heads, float(scale), float(eps)))
+        (W, N, C, num_heads, hd, float(scale), float(eps)))
     _raise_on(err, "_fused_block_cuda")
     LAUNCHES["_fused_block_cuda"] += 1
     return out
@@ -368,14 +380,14 @@ def _fb4d_cuda(x, ln_scale, ln_bias, w_qkv, b_qkv, w_proj, b_proj, bias,
     if Hm % window or Wm % window:
         raise ValueError(f"the map {Hm}x{Wm} is not a whole number of "
                          f"{window}x{window} windows")
-    _check_geometry(B * (Hm // window) * (Wm // window), N, C,
-                    w_proj.shape[0], num_heads)
+    hd = _check_geometry(B * (Hm // window) * (Wm // window), N, C,
+                         w_proj.shape[0], num_heads, gemm=True)
     _check("x", x, (B, Hm, Wm, C))
     # qkv and the attention output stay in map order, like x and out
     err, out = _fused_block_launch(
         "fb4d", x, ln_scale, ln_bias, w_qkv, b_qkv, w_proj, b_proj, bias,
         num_heads, N,
-        (B, Hm, Wm, C, num_heads, window, float(scale), float(eps)))
+        (B, Hm, Wm, C, num_heads, hd, window, float(scale), float(eps)))
     _raise_on(err, "_fb4d_cuda")
     LAUNCHES["_fb4d_cuda"] += 1
     return out
@@ -412,7 +424,7 @@ def _attention_bwd_cuda(name, lib, qkv, bias, g, scale, num_heads,
         qkv, bias, g = _pad_tokens(qkv, bias.to(bias_dtype), g, pad)
     W, Np, D3 = qkv.shape
     D = D3 // 3
-    _check_geometry(W, Np, 64, D, num_heads)
+    hd = _check_geometry(W, Np, 64, D, num_heads)
     _check("qkv", qkv, (W, Np, D3))
     _check("g", g, (W, Np, D))
     bias = _check("bias", bias.to(bias_dtype).contiguous(),
@@ -425,7 +437,7 @@ def _attention_bwd_cuda(name, lib, qkv, bias, g, scale, num_heads,
                         device=qkv.device)
     fn = _build.entry(lib)
     err = fn(qkv.data_ptr(), bias.data_ptr(), g.data_ptr(), dqkv.data_ptr(),
-             dbias.data_ptr(), stats.data_ptr(), W, Np, num_heads,
+             dbias.data_ptr(), stats.data_ptr(), W, Np, num_heads, hd,
              float(scale), _stream())
     _raise_on(err, name)
     LAUNCHES[name] += 1
@@ -436,13 +448,15 @@ def _attention_bwd_cuda(name, lib, qkv, bias, g, scale, num_heads,
 
 
 def _attention_qkv_bwd_cuda(qkv, bias, g, scale, num_heads):
-    """K4: (d_qkv bf16, d_bias f32) with the bias rounded to bf16."""
+    """K4: (d_qkv bf16, d_bias f32) with the bias rounded to bf16, d_bias
+    summed over the windows in order (bitwise reproducible)."""
     return _attention_bwd_cuda("_attention_qkv_bwd_cuda", "attention_qkv_bwd",
                                qkv, bias, g, scale, num_heads, torch.bfloat16)
 
 
 def _attention_bwd_merged_cuda(qkv, bias, g, scale, num_heads):
-    """K5: (d_qkv bf16, d_bias f32) with the bias in f32."""
+    """K5: (d_qkv bf16, d_bias f32) with the bias in f32, d_bias summed over
+    the windows in order (bitwise reproducible)."""
     return _attention_bwd_cuda("_attention_bwd_merged_cuda",
                                "attention_bwd_merged", qkv, bias, g, scale,
                                num_heads, torch.float32)
@@ -457,11 +471,10 @@ def _attention_bwd_qtiled_cuda(qkv, bias, g, scale, num_heads):
 
 
 def _headmajor_operands(q, k, v, bias):
-    """Checks the head-major operands; returns (W, H, N, the f32 bias)."""
+    """Checks the head-major operands; returns (W, H, N, hd, the f32
+    bias)."""
     W, H, N, hd = q.shape
-    if hd != KERNEL_HEAD_DIM:
-        raise ValueError(
-            f"the kernels take head dim {KERNEL_HEAD_DIM}, got {hd}")
+    _head_dim(H * hd, H)
     if N % 64 or not 1 <= W <= 65535 or H > 65535:
         raise ValueError(f"the kernels take N a multiple of 64, "
                          f"1 <= W <= 65535 and H <= 65535, got W={W}, "
@@ -469,18 +482,18 @@ def _headmajor_operands(q, k, v, bias):
     for name, t in (("q", q), ("k", k), ("v", v)):
         _check(name, t, (W, H, N, hd))
     bias = _check("bias", bias.float().contiguous(), (H, N, N), torch.float32)
-    return W, H, N, bias
+    return W, H, N, hd, bias
 
 
 def _attention_qtiled_cuda(q, k, v, bias, scale):
-    """K8a: (W, H, N, 32) bf16 q, k, v and an f32 bias -> (W, H, N, 32)."""
+    """K8a: (W, H, N, hd) bf16 q, k, v and an f32 bias -> (W, H, N, hd)."""
     from geoguessr_ai_torch.ops import _build
 
-    W, H, N, bias = _headmajor_operands(q, k, v, bias)
+    W, H, N, hd, bias = _headmajor_operands(q, k, v, bias)
     out = torch.empty_like(q)
     err = _build.entry("attention_headmajor", "attention_qtiled_bf16")(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
-        out.data_ptr(), W, H, N, float(scale), _stream())
+        out.data_ptr(), W, H, N, hd, float(scale), _stream())
     _raise_on(err, "_attention_qtiled_cuda")
     LAUNCHES["_attention_qtiled_cuda"] += 1
     return out
@@ -492,7 +505,7 @@ def _attention_batched_cuda(q, k, v, bias, scale):
     in shared memory)."""
     from geoguessr_ai_torch.ops import _build
 
-    W, H, N, bias = _headmajor_operands(q, k, v, bias)
+    W, H, N, hd, bias = _headmajor_operands(q, k, v, bias)
     block_w = min(BLOCK_W, W)
     if W % block_w or N >= 512:
         raise ValueError(f"K8b takes W a multiple of BLOCK_W={BLOCK_W} and "
@@ -500,7 +513,7 @@ def _attention_batched_cuda(q, k, v, bias, scale):
     out = torch.empty_like(q)
     err = _build.entry("attention_headmajor", "attention_batched_bf16")(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
-        out.data_ptr(), W, H, N, block_w, float(scale), _stream())
+        out.data_ptr(), W, H, N, hd, block_w, float(scale), _stream())
     _raise_on(err, "_attention_batched_cuda")
     LAUNCHES["_attention_batched_cuda"] += 1
     return out

@@ -3,7 +3,7 @@
     python -m geoguessr_ai_torch.profile_forward [--bucket 16] [--steps 5] [--trace PATH]
     python -m geoguessr_ai_torch.profile_forward --backbone clip [--bucket 16]
     python -m geoguessr_ai_torch.profile_forward --train [--bucket 16] [--steps 3]
-    python -m geoguessr_ai_torch.profile_forward --embed [--bucket 512] [--no-knobs]
+    python -m geoguessr_ai_torch.profile_forward --embed [--bucket 512] [--no-knobs | --static]
     python -m geoguessr_ai_torch.profile_forward --head-major [--bucket 16]
     python -m geoguessr_ai_torch.profile_forward --bwd-two-kernel [--bucket 16]
 
@@ -16,7 +16,9 @@ master weights, the default freeze and optimizer); with ``--embed`` it runs
 the bulk-embedding ``Embedder`` on a fixed host batch of ``--bucket``
 decoded fixture images (default 512) in the embed configuration
 (``data.embed_builder.bulk_embed_config``: K1 at stage 3, K10 at stage 0
-and K9 at stage 1; ``--no-knobs`` turns K10 and K9 off).  ``--head-major``
+and K9 at stage 1; ``--no-knobs`` turns K10 and K9 off; ``--static`` runs
+the default bulk-embedding configuration instead, the static-int8 TinyViT
+of ``embed_builder.static_config``, calibrated in the warm-up).  ``--head-major``
 serves the head-major configuration (``HEAD_MAJOR``: every attention stage
 a ``pallas_attention_stages`` stage, no fused-block stage, and
 ``QKV_KERNEL_MIN_N`` raised above every N, so K8a/K8b run where K1-K3
@@ -42,6 +44,10 @@ GROUPS = (
     ("window_attention_kernel", "attention (K1/K2/K3/K9 CUDA)"),
     ("ln_gemm_kernel", "LN+GEMM (K1/K2/K9 CUDA)"),
     ("mbconv_kernel", "fused MBConv (K10 CUDA)"),
+    # torch._int_mm's kernels (cutlass_80_tensorop_i16832gemm_s8_... on
+    # the H100 with torch 2.11)
+    ("gemm_s8", "int8 GEMM (torch._int_mm)"),
+    ("imma", "int8 GEMM (torch._int_mm)"),
     ("attn_bwd_", "attention backward (K4/K5 CUDA)"),
     ("bwd_qtiled_", "attention backward (K7 CUDA)"),
     ("attention_qtiled_kernel", "head-major attention (K8a CUDA)"),
@@ -109,7 +115,7 @@ def _train_runner(bucket: int):
     return run
 
 
-def _embed_runner(batch: int, knobs: bool):
+def _embed_runner(batch: int, knobs: bool, static: bool = False):
     from geoguessr_ai_torch.config import BackboneConfig
     from geoguessr_ai_torch.data.embed_builder import (
         Embedder,
@@ -118,8 +124,11 @@ def _embed_runner(batch: int, knobs: bool):
     from geoguessr_ai_torch.data.pipeline import decode_jpeg
     from geoguessr_ai_torch.inference import fixture_panorama
 
-    emb = Embedder(BackboneConfig.tinyvit(),
-                   model_config=bulk_embed_config(knobs))  # the GPU
+    if static:
+        emb = Embedder(BackboneConfig.tinyvit(), quant_mode="static")
+    else:
+        emb = Embedder(BackboneConfig.tinyvit(),
+                       model_config=bulk_embed_config(knobs))  # the GPU
     views = []
     for p in fixture_panorama():
         with open(p, "rb") as f:
@@ -144,6 +153,9 @@ def main(argv=None) -> None:
                     help="profile the bulk-embedding Embedder instead")
     ap.add_argument("--no-knobs", action="store_true",
                     help="with --embed: fused_mbconv and fused_block_4d off")
+    ap.add_argument("--static", action="store_true",
+                    help="with --embed: the static-int8 Embedder (the "
+                         "default EmbedBuildConfig's)")
     ap.add_argument("--head-major", action="store_true",
                     help="serve the head-major configuration (K8a/K8b)")
     ap.add_argument("--bwd-two-kernel", action="store_true",
@@ -168,10 +180,13 @@ def main(argv=None) -> None:
         ap.error("--train and --embed exclude each other")
     if args.head_major and (mode != "serve" or args.backbone != "tinyvit"):
         ap.error("--head-major serves TinyViT only")
+    if args.static and (mode != "embed" or args.no_knobs):
+        ap.error("--static goes with --embed, without --no-knobs")
     if mode == "train":
         run = _train_runner(args.bucket)
     elif mode == "embed":
-        run = _embed_runner(args.bucket, knobs=not args.no_knobs)
+        run = _embed_runner(args.bucket, knobs=not args.no_knobs,
+                            static=args.static)
     else:
         run = _serve_runner(args.bucket, args.backbone, args.head_major)
     for _ in range(2):
@@ -206,8 +221,8 @@ def main(argv=None) -> None:
     card = torch.cuda.get_device_name(0)
     what = "train steps" if args.train else "forwards"
     if mode == "embed":
-        what += (", embed config, knobs "
-                 + ("off" if args.no_knobs else "on"))
+        what += (", static-int8 embed config" if args.static else
+                 ", embed config, knobs " + ("off" if args.no_knobs else "on"))
     if args.head_major:
         what += ", head-major config"
     if args.bwd_two_kernel:
@@ -225,7 +240,9 @@ def main(argv=None) -> None:
         print(f"  {ms:9.3f} ms  x{c:5.1f}  {n[:110]}")
     print(json.dumps({
         "device": card, "mode": mode,
-        "knobs": None if mode != "embed" else not args.no_knobs,
+        "knobs": None if mode != "embed" or args.static
+        else not args.no_knobs,
+        "static": args.static,
         "head_major": args.head_major, "bwd_two_kernel": args.bwd_two_kernel,
         "backbone": args.backbone,
         "bucket": args.bucket, "wall_ms": wall_ms,

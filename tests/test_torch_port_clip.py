@@ -314,8 +314,15 @@ def test_convert_carries_the_clip_tree_both_ways():
 
 @pytest.mark.parametrize("option", ["pallas_attention", "quantize_gemms"])
 def test_unported_clip_options_raise(option):
+    """pallas_attention=False is not ported and raises; quantize_gemms is
+    ported (tests/test_torch_port_quant.py) and builds."""
     value = option == "quantize_gemms"
     cfg = tcv.CLIPVisionConfig.test_tiny(**{option: value})
+    if option == "quantize_gemms":
+        tower = tcv.CLIPVisionTower(cfg).cast_weights_()
+        assert tower.layer0.mlp_fc1.weight.dtype == torch.float32
+        assert tower.layer0.self_attn.query.weight.dtype == torch.bfloat16
+        return
     with pytest.raises(NotImplementedError, match=option):
         tcv.CLIPVisionTower(cfg)
 

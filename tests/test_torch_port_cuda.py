@@ -29,6 +29,10 @@ KERNEL_REL_TOL = 2e-2
 #: dp = g.v and the bf16 GEMM cotangents at other points (as chip_smoke.py).
 GRAD_REL_TOL = 2e-2
 
+#: TinyViT's head dim (every stage), which the tests below use unless they
+#: name another.
+HD = 32
+
 #: The narrow TinyViT of tests/test_torch_port_serving.py: hd=32 at every
 #: stage, so K1 (stage 1), K2 (stage 2) and K3 (stage 3) all run.
 NARROW = dict(image_size=512, embed_dims=(32, 64, 64, 96), depths=(1, 1, 1, 1),
@@ -98,11 +102,11 @@ def _rel_err(got, want):
     return float((got.float() - want).abs().max() / want.abs().max())
 
 
-def _bwd_inputs(W, N, H, device, seed=0):
+def _bwd_inputs(W, N, H, device, seed=0, hd=HD):
     """qkv and the cotangent g in bf16, an f32 bias: as the train path
     hands them to the attention backward."""
     rng = np.random.default_rng(seed)
-    D = H * wa.KERNEL_HEAD_DIM
+    D = H * hd
 
     def t(*shape, std=1.0):
         return torch.from_numpy(rng.normal(0, std, shape).astype(np.float32)
@@ -118,7 +122,7 @@ def test_cuda_backward_kernel_matches_plain(cuda_device, kernel, W, N, H):
     """K4 and K5 against their plain mirrors: d_qkv and d_bias each within
     KERNEL_REL_TOL of the mirror's range."""
     qkv, bias, g = _bwd_inputs(W, N, H, cuda_device)
-    scale = wa.KERNEL_HEAD_DIM ** -0.5
+    scale = HD ** -0.5
     if kernel == "K4":
         kern, plain = wa._attention_qkv_bwd_cuda, wa._attention_qkv_bwd_plain
         name = "_attention_qkv_bwd_cuda"
@@ -294,7 +298,7 @@ def test_cuda_clip_wrappers_refuse_what_the_kernels_do_not_take(cuda_device):
     with pytest.raises(ValueError, match="bfloat16"):
         ca._flash_cuda(qkv.float(), 0.125, 2)
     with pytest.raises(ValueError, match="head dim"):
-        ca._flash_cuda(qkv, 0.125, 4)
+        ca._flash_cuda(qkv, 0.125, 3)  # D=128 is no whole number of heads
     with pytest.raises(ValueError, match="w_proj"):
         ca._flash_proj_cuda(qkv, w[:64], 0.125, 2)
     odd, _ = _clip_inputs(2, 50, 192, cuda_device)  # H=3: D not a multiple of 128
@@ -492,14 +496,14 @@ HEADMAJOR_SHAPES = [("K8b", 1024, 6, 256), ("K8b", 64, 18, 256),
                     ("K8a", 64, 12, 1024), ("K8a", 4, 18, 256)]
 
 
-def _headmajor_inputs(W, H, N, device, seed=0):
+def _headmajor_inputs(W, H, N, device, seed=0, hd=HD):
     rng = np.random.default_rng(seed)
 
     def t(*shape, std=1.0):
         return torch.from_numpy(rng.normal(0, std, shape).astype(np.float32)
                                 ).to(device)
 
-    q, k, v = (t(W, H, N, 32).bfloat16() for _ in range(3))
+    q, k, v = (t(W, H, N, hd).bfloat16() for _ in range(3))
     return q, k, v, t(H, N, N, std=0.5)
 
 
@@ -549,7 +553,7 @@ def test_cuda_bwd_qtiled_matches_plain_and_k5(cuda_device, W, N, H):
     """K7 against its plain mirror and against K5 on the same inputs, and
     its d_bias (and d_qkv) bitwise the same over two calls."""
     qkv, bias, g = _bwd_inputs(W, N, H, cuda_device)
-    scale = wa.KERNEL_HEAD_DIM ** -0.5
+    scale = HD ** -0.5
     before = wa.LAUNCHES["_attention_bwd_qtiled_cuda"]
     dqkv, dbias = wa._attention_bwd_qtiled_cuda(qkv, bias, g, scale, H)
     again = wa._attention_bwd_qtiled_cuda(qkv, bias, g, scale, H)
@@ -577,7 +581,7 @@ def test_cuda_qkv_xla_route_backward_launches_the_kernel(cuda_device, N, H,
     qkv, bias, g = _bwd_inputs(2, N, H, cuda_device, seed=2)
     qkv.requires_grad_()
     bias.requires_grad_()
-    scale = wa.KERNEL_HEAD_DIM ** -0.5
+    scale = HD ** -0.5
     wa.reset_launches()
     out = wa.window_attention_qkv_xla(qkv, bias, scale, H)
     torch.cuda.synchronize()
@@ -599,9 +603,10 @@ def test_cuda_headmajor_wrappers_refuse_what_the_kernels_do_not_take(
     q, k, v, bias = _headmajor_inputs(8, 2, 256, cuda_device)
     with pytest.raises(ValueError, match="bfloat16"):
         wa._attention_qtiled_cuda(q.float(), k, v, bias, 0.18)
-    with pytest.raises(ValueError, match="head dim"):
-        wa._attention_qtiled_cuda(q[..., :16], k[..., :16], v[..., :16],
-                                  bias, 0.25)
+    with pytest.raises(ValueError, match="head dim"):  # hd 8
+        wa._attention_qtiled_cuda(q[..., :8].contiguous(),
+                                  k[..., :8].contiguous(),
+                                  v[..., :8].contiguous(), bias, 0.35)
     with pytest.raises(ValueError, match="contiguous"):
         wa._attention_qtiled_cuda(q.transpose(0, 1), k, v, bias, 0.18)
     twelve = _headmajor_inputs(12, 2, 256, cuda_device)
@@ -623,7 +628,7 @@ def test_cuda_bwd_kernels_take_ragged_n(cuda_device, name, mirror, W, N, H):
     """K4, K5 and K7 at an N that is not a multiple of 64 (run padded)
     against their plain mirrors: one launch each, N-sized cotangents."""
     qkv, bias, g = _bwd_inputs(W, N, H, cuda_device, seed=3)
-    scale = wa.KERNEL_HEAD_DIM ** -0.5
+    scale = HD ** -0.5
     before = wa.LAUNCHES[name]
     dqkv, dbias = getattr(wa, name)(qkv, bias, g, scale, H)
     torch.cuda.synchronize()
@@ -636,15 +641,226 @@ def test_cuda_bwd_kernels_take_ragged_n(cuda_device, name, mirror, W, N, H):
 
 
 @pytest.mark.cuda
-def test_cuda_qkv_xla_route_backward_raises_off_head_dim_32(cuda_device):
-    """The kernels are built for hd = 32 (every TinyViT preset): a stage of
-    another head dim runs the plain forward and its backward raises on the
-    card, where the JAX package's Pallas backward takes it."""
-    rng = np.random.default_rng(4)
-    W, N, H, hd = 2, 256, 2, 16
-    qkv = torch.from_numpy(rng.normal(0, 1, (W, N, 3 * H * hd)).astype(
-        np.float32)).to(cuda_device, torch.bfloat16).requires_grad_()
-    bias = torch.zeros(H, N, N, device=cuda_device, requires_grad=True)
-    out = wa.window_attention_qkv_xla(qkv, bias, hd ** -0.5, H)
-    with pytest.raises(ValueError, match="head dim"):
-        torch.autograd.grad(out, (qkv, bias), torch.ones_like(out))
+@pytest.mark.parametrize("hd,N,H,kernel", [
+    (16, 256, 2, "_attention_qkv_bwd_cuda"),
+    (64, 256, 2, "_attention_qkv_bwd_cuda"),
+    (16, 1024, 2, "_attention_bwd_merged_cuda"),
+    (64, 1024, 2, "_attention_bwd_merged_cuda"),
+])
+def test_cuda_qkv_xla_route_backward_takes_head_dims_16_and_64(
+        cuda_device, hd, N, H, kernel):
+    """A stage of head dim 16 or 64 on ``window_attention_qkv_xla``: the
+    plain forward, and the backward through K4 (N=256) or K5 (N=1024),
+    against autograd through the plain version."""
+    qkv, bias, g = _bwd_inputs(2, N, H, cuda_device, seed=4, hd=hd)
+    qkv.requires_grad_()
+    bias.requires_grad_()
+    scale = hd ** -0.5
+    wa.reset_launches()
+    out = wa.window_attention_qkv_xla(qkv, bias, scale, H)
+    got = torch.autograd.grad(out, (qkv, bias), g)
+    torch.cuda.synchronize()
+    assert wa.LAUNCHES[kernel] == 1 and sum(wa.LAUNCHES.values()) == 1
+    want = torch.autograd.grad(wa._attention_qkv_fused_plain(qkv, bias,
+                                                             scale, H),
+                               (qkv, bias), g)
+    for a, b in zip(got, want):
+        assert a.shape == b.shape and a.dtype == b.dtype
+        assert _rel_err(a, b) < GRAD_REL_TOL
+
+
+#: hd -> (C, H) with D = C a multiple of 64, as the fused kernels' GEMMs
+#: need.
+HEAD_DIM_WIDTHS = {16: (64, 4), 64: (128, 2)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd", [16, 64])
+@pytest.mark.parametrize("kernel", ["K1", "K2", "K3", "K9", "K8a", "K8b"])
+def test_cuda_forward_kernels_take_head_dims_16_and_64(cuda_device, hd,
+                                                       kernel):
+    """Each TinyViT forward kernel at head dim 16 and 64 against its plain
+    version."""
+    C, H = HEAD_DIM_WIDTHS[hd]
+    scale = hd ** -0.5
+    if kernel in ("K8a", "K8b"):
+        W, N = (2, 1024) if kernel == "K8a" else (8, 256)
+        q, k, v, bias = _headmajor_inputs(W, H, N, cuda_device, hd=hd)
+        name = {"K8a": "_attention_qtiled_cuda",
+                "K8b": "_attention_batched_cuda"}[kernel]
+        args = (q, k, v, bias, scale)
+        kern, plain = getattr(wa, name), wa._attention_plain
+    elif kernel == "K9":
+        B, Hm, window = 2, 32, 16
+        args = _fb4d_args(B, Hm, Hm, C, H, cuda_device)[0] + [
+            scale, H, window, 1e-5]
+        name, kern, plain = "_fb4d_cuda", wa._fb4d_cuda, wa._fb4d_plain
+    else:
+        a = _inputs(4, 256, C, H, cuda_device)
+        if kernel == "K1":
+            args = [a[k] for k in _K1_KEYS] + [scale, H, 1e-5]
+            name, kern = "_fused_block_cuda", wa._fused_block_cuda
+            plain = wa._fused_block_plain
+        elif kernel == "K2":
+            args = [a[k] for k in _K2_KEYS] + [scale, H, 1e-5]
+            name, kern, plain = "_fb_s2_cuda", wa._fb_s2_cuda, wa._fb_s2_plain
+        else:
+            qkv = wa._ln_qkv_plain(a["x"], a["ln_scale"], a["ln_bias"],
+                                   a["w_qkv"], a["b_qkv"], 1e-5)
+            args = [qkv, a["bias"], scale, H]
+            name = "_attention_qkv_fused_cuda"
+            kern = wa._attention_qkv_fused_cuda
+            plain = wa._attention_qkv_fused_plain
+    before = wa.LAUNCHES[name]
+    got = kern(*args)
+    torch.cuda.synchronize()
+    assert wa.LAUNCHES[name] == before + 1
+    want = plain(*args)
+    assert got.shape == want.shape and got.dtype == torch.bfloat16
+    assert bool(torch.isfinite(got).all())
+    assert _rel_err(got, want) < KERNEL_REL_TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd", [16, 64])
+@pytest.mark.parametrize("name,mirror,W,N", [
+    ("_attention_qkv_bwd_cuda", "_attention_qkv_bwd_plain", 4, 256),
+    ("_attention_bwd_merged_cuda", "_attention_bwd_merged_plain", 2, 1024),
+    ("_attention_bwd_qtiled_cuda", "_attention_bwd_qtiled_plain", 2, 1024),
+])
+def test_cuda_backward_kernels_take_head_dims_16_and_64(cuda_device, hd,
+                                                        name, mirror, W, N):
+    """K4, K5 and K7 at head dim 16 and 64 against their plain mirrors."""
+    H = 2
+    qkv, bias, g = _bwd_inputs(W, N, H, cuda_device, seed=5, hd=hd)
+    scale = hd ** -0.5
+    before = wa.LAUNCHES[name]
+    dqkv, dbias = getattr(wa, name)(qkv, bias, g, scale, H)
+    torch.cuda.synchronize()
+    assert wa.LAUNCHES[name] == before + 1
+    want = getattr(wa, mirror)(qkv, bias, g, scale, H)
+    assert bool(torch.isfinite(dqkv).all()) and bool(torch.isfinite(dbias).all())
+    assert _rel_err(dqkv, want[0]) < KERNEL_REL_TOL
+    assert _rel_err(dbias, want[1]) < KERNEL_REL_TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel,B,N,D,H", [
+    ("K6", 2, 50, 64, 2),     # CLIP test_tiny's width: hd 32
+    ("K6", 2, 577, 128, 8),   # hd 16
+    ("K11", 2, 50, 128, 4),   # hd 32
+    ("K11", 2, 577, 128, 8),  # hd 16
+])
+def test_cuda_clip_kernels_take_head_dims_16_and_32(cuda_device, kernel, B,
+                                                    N, D, H):
+    qkv, w = _clip_inputs(B, N, D, cuda_device)
+    scale = (D // H) ** -0.5
+    if kernel == "K6":
+        name, run = "_flash_cuda", lambda f: f(qkv, scale, H)
+        kern, plain = ca._flash_cuda, ca._flash_plain
+    else:
+        name, run = "_flash_proj_cuda", lambda f: f(qkv, w, scale, H)
+        kern, plain = ca._flash_proj_cuda, ca._flash_proj_plain
+    before = ca.LAUNCHES[name]
+    got = run(kern)
+    torch.cuda.synchronize()
+    assert ca.LAUNCHES[name] == before + 1
+    assert bool(torch.isfinite(got).all())
+    assert _rel_err(got, run(plain)) < KERNEL_REL_TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,W,N,H", [
+    ("_attention_qkv_bwd_cuda", 1024, 256, 6),    # K4, stage 1 at B=16
+    ("_attention_bwd_merged_cuda", 64, 1024, 12),  # K5, stage 2 at B=16
+])
+def test_cuda_backward_dbias_is_bitwise_stable(cuda_device, name, W, N, H):
+    """K4's and K5's d_bias (and d_qkv) are the same bits over two calls:
+    one block per d_bias tile walks the windows in order, no atomics."""
+    qkv, bias, g = _bwd_inputs(W, N, H, cuda_device, seed=6)
+    fn = getattr(wa, name)
+    first = fn(qkv, bias, g, HD ** -0.5, H)
+    second = fn(qkv, bias, g, HD ** -0.5, H)
+    torch.cuda.synchronize()
+    assert torch.equal(first[1], second[1])
+    assert torch.equal(first[0], second[0])
+
+
+# ---------------------------------------------------------------------------
+# K12a / K12b (ops/experimental/fused_mbconv.py) and K13
+# (ops/experimental/tiled_gemm.py)
+
+
+def _exp_mbconv_args(B, H, W, device, seed=0, C=96, E=384):
+    rng = np.random.default_rng(seed)
+
+    def t(shape, scale, dtype):
+        return torch.from_numpy(rng.normal(size=shape) * scale).to(device,
+                                                                   dtype)
+
+    return (t((B, H, W, C), 0.5, torch.bfloat16),
+            t((C, E), 0.1, torch.bfloat16), t((E,), 0.1, torch.float32),
+            t((3, 3, E), 0.1, torch.float32), t((E,), 0.1, torch.float32),
+            t((E, C), 0.1, torch.bfloat16), t((C,), 0.1, torch.float32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,H,W", [(2, 32, 24), (4, 128, 128)])
+def test_cuda_fused_mbconv_exp_matches_plain(cuda_device, B, H, W):
+    """K12a against its plain mirror, and K12b bitwise equal to K12a."""
+    from geoguessr_ai_torch.ops.experimental import fused_mbconv as fm
+
+    args = _exp_mbconv_args(B, H, W, cuda_device)
+    before = dict(fm.LAUNCHES)
+    got = fm.fused_mbconv(*args)
+    got2 = fm.fused_mbconv_v2(*args)
+    torch.cuda.synchronize()
+    assert fm.LAUNCHES["_fused_mbconv_cuda"] == before["_fused_mbconv_cuda"] + 1
+    assert (fm.LAUNCHES["_fused_mbconv_v2_cuda"]
+            == before["_fused_mbconv_v2_cuda"] + 1)
+    want = fm._fused_mbconv_plain(*args)
+    assert got.shape == want.shape and got.dtype == torch.bfloat16
+    assert _rel_err(got, want) < KERNEL_REL_TOL
+    assert torch.equal(got, got2)
+
+
+@pytest.mark.cuda
+def test_cuda_fused_mbconv_exp_refuses_what_the_kernels_do_not_take(
+        cuda_device):
+    from geoguessr_ai_torch.ops.experimental import fused_mbconv as fm
+
+    args = _exp_mbconv_args(1, 24, 16, cuda_device)
+    with pytest.raises(ValueError, match="multiple of 16"):
+        fm.fused_mbconv(*args)
+    narrow = _exp_mbconv_args(1, 16, 16, cuda_device, C=64)
+    with pytest.raises(ValueError, match="C=96"):
+        fm.fused_mbconv_v2(*narrow)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,K,N", [(256, 384, 256), (128, 64, 384)])
+def test_cuda_tiled_matmul_matches_plain(cuda_device, M, K, N):
+    """K13: int8 -> int32 exactly the plain product, bf16 -> f32 within
+    KERNEL_REL_TOL."""
+    from geoguessr_ai_torch.ops.experimental import tiled_gemm as tg
+
+    rng = np.random.default_rng(7)
+    a8 = torch.from_numpy(rng.integers(-127, 128, (M, K), dtype=np.int8)
+                          ).to(cuda_device)
+    b8 = torch.from_numpy(rng.integers(-127, 128, (K, N), dtype=np.int8)
+                          ).to(cuda_device)
+    before = tg.LAUNCHES["_tiled_matmul_cuda"]
+    got8 = tg.tiled_matmul(a8, b8, torch.int32)
+    a = torch.from_numpy(rng.normal(size=(M, K))).to(cuda_device,
+                                                    torch.bfloat16)
+    b = torch.from_numpy(rng.normal(size=(K, N))).to(cuda_device,
+                                                    torch.bfloat16)
+    got = tg.tiled_matmul(a, b, torch.float32)
+    torch.cuda.synchronize()
+    assert tg.LAUNCHES["_tiled_matmul_cuda"] == before + 2
+    assert got8.dtype == torch.int32 and got.dtype == torch.float32
+    assert torch.equal(got8, tg._tiled_matmul_plain(a8, b8, torch.int32))
+    assert _rel_err(got, tg._tiled_matmul_plain(a, b, torch.float32)) \
+        < KERNEL_REL_TOL
+    with pytest.raises(ValueError, match="multiples of 128"):
+        tg.tiled_matmul(a[:100], b, torch.float32)

@@ -489,8 +489,15 @@ def test_unported_embed_options_raise(raw_sqlite, tmp_path):
         build_embedding_sqlite,
     )
 
-    with pytest.raises(NotImplementedError, match="item 7"):
-        Embedder(BackboneConfig.tinyvit(), quant_mode="static", device="cpu")
+    # quant_mode="static" is ported (tests/test_torch_port_quant.py)
+    from geoguessr_ai_torch.models.tinyvit import TinyViTConfig
+
+    static = Embedder(BackboneConfig.tinyvit(), quant_mode="static",
+                      device="cpu", model_config=TinyViTConfig(
+                          image_size=64, embed_dims=(16, 32, 64, 80),
+                          depths=(1, 1, 1, 1), num_heads=(1, 2, 4, 5),
+                          window_sizes=(2, 2, 4, 2)))
+    assert static.model.config.quant_mode == "static"
     with pytest.raises(NotImplementedError, match="item 11"):
         Embedder(BackboneConfig.tinyvit(), device="cpu", mesh=object())
     with pytest.raises(NotImplementedError, match="item 11"):

@@ -1,0 +1,195 @@
+"""The port's experimental kernels' plain versions held against the JAX
+package's Pallas kernels, run in interpret mode on the CPU.
+
+K12a / K12b (``ops/experimental/fused_mbconv.py``) against
+``fused_mbconv`` / ``fused_mbconv_v2`` under
+``pltpu.force_tpu_interpret_mode()``, as tests/test_experimental_kernels.py
+runs them, and the unfused ``xla_mbconv`` of both packages; K13
+(``ops/experimental/tiled_gemm.py``) against the tool's ``pallas_matmul``,
+taken from tools/exp_int8_pallas.py's syntax tree (it is nested in the
+tool's ``main()``) without editing the tool.  Inputs come from numpy seeds.
+"""
+
+import ast
+import functools
+import os
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+from jax.experimental import pallas as pl
+from jax.experimental.pallas import tpu as pltpu
+
+from geoguessr_ai_tpu.ops.experimental import fused_mbconv as JM
+
+from geoguessr_ai_torch.ops.experimental import fused_mbconv as TM
+from geoguessr_ai_torch.ops.experimental import tiled_gemm as TG
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+#: (B, H, W, C), E: W + 2 = 26 is not a multiple of the Pallas kernel's 8.
+SHAPE, E = (2, 32, 24, 96), 384
+
+
+def _mbconv_args(seed=0):
+    """x, w1, b1, wdw, b2, w3, b3 as f32 numpy, normal * 0.3."""
+    rng = np.random.default_rng(seed)
+    B, H, W, C = SHAPE
+    shapes = [(B, H, W, C), (C, E), (E,), (3, 3, E), (E,), (E, C), (C,)]
+    arrs = [(rng.normal(size=s) * 0.3).astype(np.float32) for s in shapes]
+    return arrs
+
+
+def _both(arrs, low):
+    """The same values as (jax arrays, torch tensors); with ``low``, x and
+    the 1x1 weights in bf16, the taps and biases f32."""
+    low_idx = (0, 1, 5) if low else ()
+    j = [jnp.asarray(a, jnp.bfloat16 if i in low_idx else jnp.float32)
+         for i, a in enumerate(arrs)]
+    t = [torch.from_numpy(a).to(torch.bfloat16 if i in low_idx
+                                else torch.float32)
+         for i, a in enumerate(arrs)]
+    return j, t
+
+
+#: The bf16 comparisons count ulps at each element's magnitude, floored at
+#: 0.5 (the outputs' scale is ~1): GELU's negative tail turns a one-ulp
+#: flip of a hidden value upstream into many ulps of a near-zero output.
+ULP_FLOOR = 0.5
+
+
+def _ulps(got, want):
+    """|got - want| in bf16 ulps of the larger magnitude (at least
+    ULP_FLOOR)."""
+    got, want = np.asarray(got, np.float32), np.asarray(want, np.float32)
+    mag = np.maximum(np.maximum(np.abs(got), np.abs(want)), ULP_FLOOR)
+    ulp = np.exp2(np.floor(np.log2(mag)) - 7)
+    return np.abs(got - want) / ulp
+
+
+@pytest.fixture(scope="module")
+def pallas_outputs():
+    """fused_mbconv and fused_mbconv_v2 in interpret mode, f32 and bf16."""
+    out = {}
+    for low in (False, True):
+        j, _ = _both(_mbconv_args(), low)
+        with pltpu.force_tpu_interpret_mode():
+            out[low] = (np.asarray(JM.fused_mbconv(*j).astype(jnp.float32)),
+                        np.asarray(JM.fused_mbconv_v2(*j).astype(jnp.float32)))
+    return out
+
+
+@pytest.mark.parametrize("low", [False, True], ids=["f32", "bf16"])
+def test_fused_mbconv_plain_matches_the_pallas_kernels(pallas_outputs, low):
+    """The plain mirror against K12a's and K12b's Pallas kernels: f32
+    within 1e-5, bf16 within one bf16 ulp (``_ulps``)."""
+    _, t = _both(_mbconv_args(), low)
+    got = TM.fused_mbconv(*t)
+    assert torch.equal(got, TM.fused_mbconv_v2(*t))  # one plain version
+    got = got.float().numpy()
+    for want in pallas_outputs[low]:
+        if low:
+            assert _ulps(got, want).max() <= 1.0
+        else:
+            np.testing.assert_allclose(got, want, atol=1e-5, rtol=1e-5)
+    np.testing.assert_array_equal(*pallas_outputs[low])  # v1 == v2
+
+
+@pytest.mark.parametrize("low", [False, True], ids=["f32", "bf16"])
+def test_xla_mbconv_matches_the_jax_reference(low):
+    j, t = _both(_mbconv_args(seed=1), low)
+    want = np.asarray(JM.xla_mbconv(*j).astype(jnp.float32))
+    got = TM.xla_mbconv(*t).float().numpy()
+    if low:
+        assert _ulps(got, want).max() <= 1.0
+    else:
+        np.testing.assert_allclose(got, want, atol=1e-5, rtol=1e-5)
+
+
+def test_bf16_gap_between_the_kernel_and_the_unfused_reference():
+    """The kernels keep the taps f32 and the depthwise sum unrounded, the
+    unfused reference rounds both to bf16: in bf16 the two differ (max
+    0.0625 at this shape and seed), in f32 they agree."""
+    _, t = _both(_mbconv_args(), True)
+    gap = (TM.fused_mbconv(*t).float() - TM.xla_mbconv(*t).float()).abs()
+    assert 0.0 < float(gap.max()) <= 0.125
+    _, t32 = _both(_mbconv_args(), False)
+    np.testing.assert_allclose(TM.fused_mbconv(*t32).numpy(),
+                               TM.xla_mbconv(*t32).numpy(), atol=1e-5,
+                               rtol=1e-4)
+
+
+def test_fused_mbconv_refuses_rows_off_the_strip():
+    _, t = _both(_mbconv_args(), False)
+    t[0] = t[0][:, :24]
+    for fn in (TM.fused_mbconv, TM.fused_mbconv_v2):
+        with pytest.raises(ValueError, match="multiple of 16"):
+            fn(*t)
+    assert TM.LAUNCHES == {"_fused_mbconv_cuda": 0,
+                           "_fused_mbconv_v2_cuda": 0}
+
+
+def _pallas_matmul():
+    """The tool's nested ``matmul_kernel`` and ``pallas_matmul``, compiled
+    from its syntax tree into a namespace of jax, jnp, pl, pltpu and
+    functools."""
+    path = os.path.join(REPO, "tools", "exp_int8_pallas.py")
+    tree = ast.parse(open(path).read())
+    main = next(n for n in tree.body
+                if isinstance(n, ast.FunctionDef) and n.name == "main")
+    defs = [n for n in main.body if isinstance(n, ast.FunctionDef)
+            and n.name in ("matmul_kernel", "pallas_matmul")]
+    assert len(defs) == 2
+    ns = {"jax": jax, "jnp": jnp, "pl": pl, "pltpu": pltpu,
+          "functools": functools}
+    exec(compile(ast.Module(body=defs, type_ignores=[]), path, "exec"), ns)
+    return ns["pallas_matmul"]
+
+
+@pytest.mark.parametrize("kind", ["int8", "bf16"])
+def test_tiled_matmul_plain_matches_the_pallas_gemm(kind):
+    """K13's plain version against ``pallas_matmul`` in interpret mode at
+    (256, 384, 256) with 128 x 128 blocks: int8 -> int32 equal (and equal
+    to an int64 product), bf16 -> f32 within 2e-5 of its scale."""
+    pallas_matmul = _pallas_matmul()
+    rng = np.random.default_rng(2)
+    M, K, N = 256, 384, 256
+    if kind == "int8":
+        a = rng.integers(-127, 128, (M, K), dtype=np.int8)
+        b = rng.integers(-127, 128, (K, N), dtype=np.int8)
+        with pltpu.force_tpu_interpret_mode():
+            want = np.asarray(pallas_matmul(jnp.asarray(a), jnp.asarray(b),
+                                            128, 128, jnp.int32))
+        got = TG.tiled_matmul(torch.from_numpy(a), torch.from_numpy(b),
+                              torch.int32)
+        assert got.dtype == torch.int32
+        np.testing.assert_array_equal(got.numpy(), want)
+        np.testing.assert_array_equal(got.numpy(),
+                                      a.astype(np.int64) @ b.astype(np.int64))
+    else:
+        a = rng.normal(size=(M, K)).astype(np.float32)
+        b = rng.normal(size=(K, N)).astype(np.float32)
+        ja, jb = jnp.asarray(a, jnp.bfloat16), jnp.asarray(b, jnp.bfloat16)
+        with pltpu.force_tpu_interpret_mode():
+            want = np.asarray(pallas_matmul(ja, jb, 128, 128, jnp.float32))
+        ta = torch.from_numpy(a).bfloat16()
+        tb = torch.from_numpy(b).bfloat16()
+        got = TG.tiled_matmul(ta, tb, torch.float32)
+        assert got.dtype == torch.float32
+        exact = ta.double().numpy() @ tb.double().numpy()
+        scale = np.abs(exact).max()
+        assert np.abs(got.numpy() - want).max() <= 2e-5 * scale
+        assert np.abs(got.numpy() - exact).max() <= 2e-5 * scale
+
+
+def test_tiled_matmul_refuses_mixed_or_wrong_types():
+    a8 = torch.zeros(128, 64, dtype=torch.int8)
+    with pytest.raises(ValueError, match="int32"):
+        TG.tiled_matmul(a8, a8.t().contiguous(), torch.float32)
+    with pytest.raises(ValueError, match="both"):
+        TG.tiled_matmul(a8, torch.zeros(64, 128), torch.int32)
+    with pytest.raises(ValueError, match="a \\(M, K\\)"):
+        TG.tiled_matmul(a8, a8, torch.int32)

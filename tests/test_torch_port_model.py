@@ -196,11 +196,17 @@ def test_port_config_mirrors_jax_defaults():
         if f.name != "dtype":
             assert getattr(pcfg, f.name) == getattr(jcfg, f.name), f.name
     assert pcfg.dtype == torch.bfloat16
-    with pytest.raises(TypeError):  # options outside the slice do not exist
-        ttv.TinyViTConfig(quant_mode="static")
     for name in ("remat", "remat_stages", "remat_policy", "scan_stages",
-                 "scan_remat"):
+                 "scan_remat", "quantize_gemms", "quant_mode", "quant_sites",
+                 "quant_stages"):
         assert name in {f.name for f in dataclasses.fields(pcfg)}, name
+    for fields in ({}, dict(quantize_gemms=True),
+                   dict(quantize_gemms=True, quant_mode="static")):
+        assert (ttv.TinyViTConfig(**fields).effective_quant_mode
+                == jtv.TinyViTConfig(**fields).effective_quant_mode)
+    assert ttv.PROD_QUANT_SITES == jtv.PROD_QUANT_SITES
+    assert ttv.TRAIN_QUANT_SITES == jtv.TRAIN_QUANT_SITES
+    assert ttv.CONV_INT8_EMITTER == jtv.CONV_INT8_EMITTER
 
 
 def test_cast_weights_keeps_norms_and_biases_f32():
