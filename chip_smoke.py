@@ -104,7 +104,26 @@ Phases, in order; any failure exits non-zero:
     the default ``EmbedBuildConfig()`` over the 1100 fixture rows;
 23. the CLIP engine with ``quantize_gemms``: K6 exactly 24 launches a
     forward, cosine >= 0.99 to the K6 engine of phase 11, bucket-16 p50;
-24. print the kernel JSON line, then ``{"ok": true, "device": ...}`` last.
+24. the f32 compute dtype (``BackboneConfig(dtype="float32")``): every
+    f32 entry of K1-K11 against its plain f32 version at the shapes of
+    phases 3, 6, 10, 13 and 16 (max |err| / max |ref| <= 1e-3, which bf16
+    operands would not meet), timed beside the f32 library call and the f32
+    bound (4 bytes an element at 3.35 TB/s, products at the 495 TFLOP/s
+    TF32 peak);
+25. the f32 engines at bucket 16 (TinyViT default, head-major and with
+    both knobs; CLIP-L with K6 and with K11) and the f32 ``Embedder`` of
+    ``bulk_embed_config()`` at 64 images: exact launches of one forward,
+    every panorama's views at cosine >= 0.9999 to the CPU f32 engine of
+    phase 5 or 12 (or the CPU f32 embed forward of phase 14), the same
+    top-1 cell, p50;
+26. phase 9's B=2 train step in f32 on the card, with K5 and with K7,
+    against the CPU f32 step: loss within 1e-4, every gradient leaf and the
+    running statistics at cosine >= 0.9999, exact launches;
+27. K14: the port's ``tools.exp_r4_vmem`` runs ``probe_default`` (must
+    crash: no shared-memory opt-in) and ``probe_v64`` (must print s = 21.0
+    after one launch) in subprocesses; then the kernel against its plain
+    version, timed beside ``torch.mul`` and its 2.50 us bound;
+28. print the kernel JSON line, then ``{"ok": true, "device": ...}`` last.
 """
 
 from __future__ import annotations
@@ -129,6 +148,8 @@ sys.path.insert(0, HERE)
 #: Published H100 SXM peaks (NVIDIA data sheet), used for the bound.
 PEAK_BYTES_S = 3.35e12
 PEAK_BF16_FLOP_S = 989e12
+PEAK_TF32_FLOP_S = 495e12
+PEAK_F32_FLOP_S = 67e12
 #: Kernel vs plain version, both bf16 on the card: max |k - p| over
 #: max |p|.  Both round q/k/v and p to bf16 at different points (the kernel
 #: also rounds unnormalised p and sums in another order), so a few bf16
@@ -186,12 +207,19 @@ def cuda_time_ms(fn, iters: int = 10) -> float:
     return start.elapsed_time(end) / iters
 
 
-def _bound(flops, nbytes):
-    """(the least time in ms for ``flops`` bf16 operations and ``nbytes``
-    bytes at the card's published peaks, which of the two bounds it)."""
+def _bound(flops, nbytes, peak=PEAK_BF16_FLOP_S):
+    """(the least time in ms for ``flops`` operations at ``peak`` (bf16 by
+    default) and ``nbytes`` bytes at the card's published peaks, which of
+    the two bounds it)."""
     t_bytes = nbytes / PEAK_BYTES_S * 1e3
-    t_ops = flops / PEAK_BF16_FLOP_S * 1e3
+    t_ops = flops / peak * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def _peak(elem):
+    """The tensor-core peak of a call whose operands take ``elem`` bytes:
+    bf16, or TF32 for f32 (the card's f32 tensor-core rate)."""
+    return PEAK_BF16_FLOP_S if elem == 2 else PEAK_TF32_FLOP_S
 
 
 # ---------------------------------------------------------------------------
@@ -250,13 +278,13 @@ KERNEL_META = {
 }
 
 
-def _case_inputs(W, N, C, H, gen):
-    """Inputs as the model hands them over: bf16 activations, bias and
-    weights (the (in, out) weight a transposed view of the stored (out, in)
-    one), f32 LayerNorm parameters and biases."""
+def _case_inputs(W, N, C, H, gen, dtype=torch.bfloat16):
+    """Inputs as the model hands them over: activations, bias and weights
+    in the compute dtype (the (in, out) weight a transposed view of the
+    stored (out, in) one), f32 LayerNorm parameters and biases."""
     dev = "cuda"
     D = C
-    bf = torch.bfloat16
+    bf = dtype
 
     def randn(*shape, std=1.0, mean=0.0):
         return (torch.randn(*shape, generator=gen) * std + mean).to(dev)
@@ -273,22 +301,24 @@ def _case_inputs(W, N, C, H, gen):
     )
 
 
-def _bound_ms(kernel, W, N, C, H):
-    D, hd = C, 32
+def _bound_ms(kernel, W, N, C, H, elem=2):
+    """K1-K3 (and K9 as K1): ``elem`` bytes an activation, weight and bias
+    element; an f32 call's products against the TF32 peak."""
+    D, hd, e = C, 32, elem
     attn_flops = 4.0 * W * H * N * N * hd
-    bias_bytes = H * N * N * 2
-    x_bytes = W * N * C * 2
+    bias_bytes = H * N * N * e
+    x_bytes = W * N * C * e
     if kernel == "K3":
         flops = attn_flops
-        nbytes = W * N * 3 * D * 2 + bias_bytes + W * N * D * 2
+        nbytes = W * N * 3 * D * e + bias_bytes + W * N * D * e
     elif kernel == "K2":
         flops = 2.0 * W * N * C * 3 * D + attn_flops
-        nbytes = x_bytes + C * 3 * D * 2 + bias_bytes + W * N * D * 2
+        nbytes = x_bytes + C * 3 * D * e + bias_bytes + W * N * D * e
     else:
         flops = 2.0 * W * N * C * 3 * D + attn_flops + 2.0 * W * N * D * C
-        nbytes = (x_bytes + C * 3 * D * 2 + D * C * 2 + bias_bytes
-                  + W * N * C * 2)
-    return _bound(flops, nbytes)
+        nbytes = (x_bytes + C * 3 * D * e + D * C * e + bias_bytes
+                  + W * N * C * e)
+    return _bound(flops, nbytes, _peak(elem))
 
 
 def _sdpa_ms(qkv, bias, scale, H):
@@ -477,6 +507,7 @@ def phase_cpu_reference(paths, gpu_result):
         fail(f"embedding cosine {cos.min():.6f} < {MIN_COSINE}")
     if ref.top_ids[0] != gpu_result.top_ids[0]:
         fail("top-1 cell differs between the CPU and the GPU")
+    return ref
 
 
 # ---------------------------------------------------------------------------
@@ -500,18 +531,19 @@ BWD_META = {
 }
 
 
-def _bwd_bound_ms(kernel, W, N, H):
+def _bwd_bound_ms(kernel, W, N, H, elem=2):
     """Five N x N x hd products per (window, head): s, dp, dv, dq, dk.
-    Bytes: qkv and g read once, the bias read once (bf16 into K4, f32 into
-    K5 and K7), d_qkv (bf16) and d_bias (f32) written once.  K7 computes
-    K5's function, so it has K5's bound: the products its d_bias launch
-    computes again are its design's, not work the function needs."""
+    Bytes: qkv and g read once, the bias read once (in the activations'
+    ``elem`` bytes into K4, f32 into K5 and K7), d_qkv and d_bias (f32)
+    written once.  K7 computes K5's function, so it has K5's bound: the
+    products its d_bias launch computes again are its design's, not work
+    the function needs."""
     hd = 32
     D = H * hd
     flops = 10.0 * W * H * N * N * hd
-    nbytes = (2 * W * N * 3 * D * 2 + W * N * D * 2
-              + H * N * N * (2 if kernel == "K4" else 4) + H * N * N * 4)
-    return _bound(flops, nbytes)
+    nbytes = (2 * W * N * 3 * D * elem + W * N * D * elem
+              + H * N * N * (elem if kernel == "K4" else 4) + H * N * N * 4)
+    return _bound(flops, nbytes, _peak(elem))
 
 
 def _sdpa_bwd_ms(qkv, bias, g, scale, H):
@@ -898,6 +930,7 @@ def phase_train_vs_cpu(fields=None):
             bad.append(kind)
     if bad:
         fail(f"train step on the card disagrees with the CPU steps: {bad}")
+    return cl, cg, cs
 
 
 # ---------------------------------------------------------------------------
@@ -921,15 +954,15 @@ CLIP_META = {
 }
 
 
-def _clip_bound_ms(kernel, B, N, D, H):
+def _clip_bound_ms(kernel, B, N, D, H, elem=2):
     """4 B H N^2 hd attention flops (+ 2 B N D^2 for K11's projection);
     bytes: qkv read once, the output written once (+ K11's weight)."""
     flops = 4.0 * B * H * N * N * (D // H)
-    nbytes = B * N * 3 * D * 2 + B * N * D * 2
+    nbytes = B * N * 3 * D * elem + B * N * D * elem
     if kernel == "K11":
         flops += 2.0 * B * N * D * D
-        nbytes += D * D * 2
-    return _bound(flops, nbytes)
+        nbytes += D * D * elem
+    return _bound(flops, nbytes, _peak(elem))
 
 
 def phase_clip_kernels():
@@ -1124,6 +1157,7 @@ def phase_clip_cpu_reference(paths, gpu_result):
         fail(f"CLIP embedding cosine {cos.min():.6f} < {MIN_COSINE}")
     if ref.top_ids[0] != gpu_result.top_ids[0]:
         fail("CLIP top-1 cell differs between the CPU and the GPU")
+    return ref
 
 
 # ---------------------------------------------------------------------------
@@ -1151,9 +1185,10 @@ def _sliced(fn, args, images):
                       for i in range(0, images, PLAIN_SLICE)])
 
 
-def _mbconv_inputs(B, gen):
-    """bf16 x, bf16 conv weights in the JAX layouts (transposed views of the
-    stored OI ones, as the model passes them) and folded BN pairs."""
+def _mbconv_inputs(B, gen, dtype=torch.bfloat16):
+    """x and conv weights in the compute dtype, in the JAX layouts
+    (transposed views of the stored OI ones, as the model passes them) and
+    folded BN pairs."""
     from geoguessr_ai_torch.ops.mbconv import fold_bn
 
     def randn(*shape, std=1.0, mean=0.0):
@@ -1164,20 +1199,20 @@ def _mbconv_inputs(B, gen):
                        randn(n, std=0.1), randn(n, std=0.1, mean=1.0).abs())
 
     C, E = MB_C, MB_E
-    bf = torch.bfloat16
+    bf = dtype
     return (randn(B, MB_MAP, MB_MAP, C).to(bf),
             randn(E, C, std=C ** -0.5).to(bf).t(), *folded(E),
             randn(3, 3, E, std=1 / 3).to(bf), *folded(E),
             randn(C, E, std=E ** -0.5).to(bf).t(), *folded(C))
 
 
-def _mbconv_bound_ms(B):
+def _mbconv_bound_ms(B, elem=2):
     """Two 1x1 GEMMs (2 C E flops a pixel each) and 9 depthwise MACs a
     pixel and expanded channel; bytes: x in, out, the weights once."""
     px = B * MB_MAP * MB_MAP
     flops = px * (4.0 * MB_C * MB_E + 18.0 * MB_E)
-    nbytes = 2 * px * MB_C * 2 + 2 * MB_C * MB_E * 2 + 9 * MB_E * 4
-    return _bound(flops, nbytes)
+    nbytes = 2 * px * MB_C * elem + 2 * MB_C * MB_E * elem + 9 * MB_E * 4
+    return _bound(flops, nbytes, _peak(elem))
 
 
 def _mbconv_cudnn_ms(args, exact=False):
@@ -1205,27 +1240,28 @@ def _mbconv_cudnn_ms(args, exact=False):
     return cuda_time_ms(chain, iters=5)
 
 
-def _embed_kernel_case(kernel, images, gen):
+def _embed_kernel_case(kernel, images, gen, dtype=torch.bfloat16):
     """(kernel fn, plain fn, args, bound, bound_by, library ms, what the
-    library call is) at ``images`` images."""
+    library call is) at ``images`` images, in ``dtype``."""
     from geoguessr_ai_torch.ops import mbconv
     from geoguessr_ai_torch.ops import window_attention as wa
 
+    elem = torch.finfo(dtype).bits // 8
     if kernel == "K10":
-        args = _mbconv_inputs(images, gen)
-        bound, bound_by = _mbconv_bound_ms(images)
+        args = _mbconv_inputs(images, gen, dtype)
+        bound, bound_by = _mbconv_bound_ms(images, elem)
         return (lambda *a: mbconv._mbconv_cuda(*a, False),
                 lambda *a: mbconv._mbconv_plain(*a, False), args, bound,
                 bound_by, _mbconv_cudnn_ms(args),
                 "cuDNN conv2d 1x1, depthwise, 1x1 with folded BN and GELU")
     C, H, N = 192, 6, STAGE1_WINDOW ** 2
     W = images * (STAGE1_MAP // STAGE1_WINDOW) ** 2
-    a = _case_inputs(W, N, C, H, gen)
+    a = _case_inputs(W, N, C, H, gen, dtype)
     x4 = a["x"].reshape(images, STAGE1_MAP, STAGE1_MAP, C)
     scale = (C // H) ** -0.5
     args = (x4, a["ln_scale"], a["ln_bias"], a["w_qkv"], a["b_qkv"],
             a["w_proj"], a["b_proj"], a["bias"])
-    bound, bound_by = _bound_ms("K1", W, N, C, H)
+    bound, bound_by = _bound_ms("K1", W, N, C, H, elem)
     qkv = wa._ln_qkv_plain(a["x"], a["ln_scale"], a["ln_bias"], a["w_qkv"],
                            a["b_qkv"], 1e-5)
     sdpa = _sdpa_ms(qkv, a["bias"], scale, H)
@@ -1400,6 +1436,7 @@ def phase_embed(paths):
     if cos.min() < MIN_COSINE:
         fail(f"embed cosine {cos.min():.6f} < {MIN_COSINE}")
     del cpu
+    embed_ref = ref
 
     batch = views[np.arange(EMBED_BATCH) % 4]
     on = _embedder_p50(emb, batch, "embed config, fused_mbconv and "
@@ -1418,7 +1455,7 @@ def phase_embed(paths):
     del off_emb
     gc.collect()
     torch.cuda.empty_cache()
-    return launches
+    return launches, embed_ref
 
 
 # ---------------------------------------------------------------------------
@@ -1492,11 +1529,12 @@ K7_META = ("_attention_bwd_qtiled_cuda",
 K7_CASE = (64, 1024, 12)
 
 
-def _headmajor_bound_ms(W, H, N):
+def _headmajor_bound_ms(W, H, N, elem=2):
     """Two N x N x 32 products per (window, head); q, k, v read and the
-    output written once (bf16), the f32 bias read once."""
+    output written once (``elem`` bytes an element), the f32 bias read
+    once."""
     return _bound(4.0 * W * H * N * N * 32,
-                  4 * W * H * N * 32 * 2 + H * N * N * 4)
+                  4 * W * H * N * 32 * elem + H * N * N * 4, _peak(elem))
 
 
 def _headmajor_sdpa_ms(q, k, v, bias, scale):
@@ -2376,7 +2414,433 @@ def phase_clip_int8(paths, clip_result):
 
 
 # ---------------------------------------------------------------------------
-# Phase 24: the kernels line
+# Phase 24: every f32 entry against its plain f32 version at the main
+# path's shapes
+# ---------------------------------------------------------------------------
+
+#: f32 kernel vs its plain f32 version on the card: max |k - p| / max |p|.
+#: The f32 entries split each operand into a bf16 (hi, lo) pair (about
+#: 2^-17 of error a product); bf16 operands, at 2^-9 each (about 4e-3),
+#: would not meet it.
+F32_REL_TOL = 1e-3
+#: The f32 main paths against the CPU f32 ones (phases 5, 9, 12, 14): the
+#: same arithmetic to the kernels' split products and sum orders.
+F32_MIN_COSINE = 0.9999
+F32_TRAIN_LOSS_RTOL = 1e-4
+F32_TRAIN_GRAD_MIN_COSINE = 0.9999
+#: Gradient leaves below this share of the largest leaf norm are at the
+#: rounding-noise floor of a step (phase 26).
+F32_NOISE_FLOOR = 1e-6
+#: (kernel, label, shape): each K1-K11 kernel at the shape its main path
+#: gives it (serving bucket 16, the B=16 train shapes, CLIP-L bucket 16,
+#: the embed batch of 512 images), as the bf16 phases run it.
+F32_CASES = (
+    ("K1", "stage1", (1024, 256, 192, 6)),
+    ("K1", "embed_stage3", (64, 256, 576, 18)),
+    ("K2", "stage2", (64, 1024, 384, 12)),
+    ("K3", "stage3", (64, 256, 576, 18)),
+    ("K4", "stage1", (1024, 256, 6)),
+    ("K4", "stage3", (64, 256, 18)),
+    ("K5", "stage2", (64, 1024, 12)),
+    ("K7", "stage2", (64, 1024, 12)),
+    ("K8a", "stage2_bucket16", (64, 12, 1024)),
+    ("K8b", "stage1_bucket16", (1024, 6, 256)),
+    ("K9", "embed", (EMBED_BATCH,)),
+    ("K10", "embed", (EMBED_BATCH,)),
+    ("K6", "vit_l14_bucket16", (64, 577, 1024, 16)),
+    ("K11", "vit_l14_bucket16", (64, 577, 1024, 16)),
+)
+F32_META = {**ALL_META, **CLIP_META, **EMBED_META, **HEADMAJOR_META,
+            "K7": K7_META}
+
+
+def _f32_case(kernel, shape, gen):
+    """(kernel fn, plain fn, args, bound, bound_by, library) of one
+    F32_CASES case, every operand f32; library is None or a function that
+    times one PyTorch call of the same function: (ms or None, what)."""
+    import torch.nn.functional as F
+
+    from geoguessr_ai_torch.ops import clip_attention as ca
+    from geoguessr_ai_torch.ops import window_attention as wa
+
+    f32 = torch.float32
+    if kernel in ("K9", "K10"):
+        kern, plain, args, bound, bound_by, ms, what = _embed_kernel_case(
+            kernel, shape[0], gen, f32)
+        # no one PyTorch call computes either function: the yardstick
+        return (kern, lambda *a: _sliced(plain, a, shape[0]), args, bound,
+                bound_by, lambda: (None, f"[{what} in f32 {ms:.4f}]"))
+    kern = getattr(ca if kernel in CLIP_META else wa, F32_META[kernel][0])
+    if kernel in ("K6", "K11"):
+        B, N, D, H = shape
+        hd = D // H
+        qkv = torch.randn(B, N, 3 * D, generator=gen).to("cuda")
+        w = (torch.randn(D, D, generator=gen) * D ** -0.5).to("cuda")
+        q, k, v = (t.contiguous() for t in
+                   qkv.view(B, N, 3, H, hd).permute(2, 0, 3, 1, 4))
+        bound, bound_by = _clip_bound_ms(kernel, B, N, D, H, 4)
+        if kernel == "K6":
+            return (kern, ca._flash_plain, (qkv, hd ** -0.5, H), bound,
+                    bound_by, lambda: (cuda_time_ms(
+                        lambda: F.scaled_dot_product_attention(
+                            q, k, v, scale=hd ** -0.5)),
+                        "scaled_dot_product_attention in f32"))
+        return (kern, ca._flash_proj_plain, (qkv, w, hd ** -0.5, H), bound,
+                bound_by, None)
+    if kernel in ("K8a", "K8b"):
+        W, H, N = shape
+        q, k, v = (torch.randn(W, H, N, 32, generator=gen).to("cuda")
+                   for _ in range(3))
+        bias = (torch.randn(H, N, N, generator=gen) * 0.5).to("cuda")
+        bound, bound_by = _headmajor_bound_ms(W, H, N, 4)
+        return (kern, wa._attention_plain, (q, k, v, bias, 32 ** -0.5),
+                bound, bound_by,
+                lambda: _headmajor_sdpa_ms(q, k, v, bias, 32 ** -0.5))
+    if kernel in ("K4", "K5", "K7"):
+        W, N, H = shape
+        D = H * 32
+        qkv = torch.randn(W, N, 3 * D, generator=gen).to("cuda")
+        bias = (torch.randn(H, N, N, generator=gen) * 0.5).to("cuda")
+        g = torch.randn(W, N, D, generator=gen).to("cuda")
+        plain = {"K4": wa._attention_qkv_bwd_plain,
+                 "K5": wa._attention_bwd_merged_plain,
+                 "K7": wa._attention_bwd_qtiled_plain}[kernel]
+        bound, bound_by = _bwd_bound_ms(kernel, W, N, H, 4)
+        args = (qkv, bias, g, 32 ** -0.5, H)
+        return (kern, plain, args, bound, bound_by,
+                lambda: _sdpa_bwd_ms(qkv, bias, g, 32 ** -0.5, H))
+    W, N, C, H = shape
+    a = _case_inputs(W, N, C, H, gen, f32)
+    scale = (C // H) ** -0.5
+    bound, bound_by = _bound_ms(kernel, W, N, C, H, 4)
+    if kernel == "K3":
+        qkv = wa._ln_qkv_plain(a["x"], a["ln_scale"], a["ln_bias"],
+                               a["w_qkv"], a["b_qkv"], 1e-5)
+        return (kern, wa._attention_qkv_fused_plain,
+                (qkv, a["bias"], scale, H), bound, bound_by,
+                lambda: (_sdpa_ms(qkv, a["bias"], scale, H),
+                         "scaled_dot_product_attention in f32"))
+    if kernel == "K2":
+        return (kern, wa._fb_s2_plain,
+                (a["x"], a["ln_scale"], a["ln_bias"], a["w_qkv"],
+                 a["b_qkv"], a["bias"], scale, H, 1e-5), bound, bound_by,
+                None)
+    return (kern, wa._fused_block_plain,
+            (a["x"], a["ln_scale"], a["ln_bias"], a["w_qkv"], a["b_qkv"],
+             a["w_proj"], a["b_proj"], a["bias"], scale, H, 1e-5), bound,
+            bound_by, None)
+
+
+def phase_f32_kernels():
+    rows = {}
+    gen = torch.Generator().manual_seed(SEED + 10)
+    for kernel, label, shape in F32_CASES:
+        kern, plain, args, bound, bound_by, lib = _f32_case(kernel, shape,
+                                                            gen)
+        got = kern(*args)
+        torch.cuda.synchronize()
+        want = plain(*args)
+        torch.cuda.synchronize()
+        pairs = zip(got, want) if isinstance(got, tuple) else [(got, want)]
+        errs = []
+        for a, b in pairs:
+            if a.shape != b.shape or {a.dtype, b.dtype} != {torch.float32}:
+                fail(f"{kernel} f32 {label}: {tuple(a.shape)} {a.dtype} != "
+                     f"{tuple(b.shape)} {b.dtype}")
+            errs.append((*_rel_err(a, b), bool(torch.isfinite(a).all())))
+        del got, want
+        ms = cuda_time_ms(lambda: kern(*args), iters=5)
+        plain_ms = cuda_time_ms(lambda: plain(*args), iters=2)
+        lib_ms, lib_what = (None, "") if lib is None else lib()
+        log(f"{kernel} f32 {label} {shape}: max_abs_err "
+            + ", ".join(f"{e[0]:.6g}" for e in errs) + " max_rel_err "
+            + ", ".join(f"{e[1]:.6g}" for e in errs)
+            + f" (tolerance {F32_REL_TOL})")
+        log(f"  kernel_ms {ms:.4f}, plain_ms {plain_ms:.4f}, library_ms "
+            f"{'null' if lib_ms is None else f'{lib_ms:.4f}'}"
+            f"{f' ({lib_what})' if lib_what else ''}, bound_ms {bound:.4f} "
+            f"({bound_by}: f32 bytes at 3.35 TB/s, products at the TF32 "
+            f"peak)")
+        if not all(fin and rel <= F32_REL_TOL for _, rel, fin in errs):
+            fail(f"{kernel} f32 {label}: kernel disagrees with its plain "
+                 f"f32 version ({errs})")
+        rows[(kernel, label)] = dict(
+            max_abs_err=errs[0][0], max_rel_err=max(e[1] for e in errs),
+            ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound,
+            bound_by=bound_by)
+        del args
+        gc.collect()
+        torch.cuda.empty_cache()
+    _reset_all_launches()
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# Phase 25: the f32 guess path: every engine, and the f32 Embedder
+# ---------------------------------------------------------------------------
+
+F32_BUCKET = 16
+#: One bucket-16 forward of each f32 TinyViT engine: the default stages,
+#: the head-major engine (QKV_KERNEL_MIN_N raised) and both knobs.
+F32_TINYVIT_ENGINES = (
+    ("default", {}, LAUNCHES_PER_FORWARD),
+    ("head-major", "HEAD_MAJOR", HEADMAJOR_LAUNCHES[16]),
+    ("knobs", {"fused_mbconv": True, "fused_block_4d": True},
+     KNOB_SERVE_LAUNCHES),
+)
+#: The f32 Embedder of bulk_embed_config() at 64 images a forward (the
+#: bf16 batch of 512 would need ~2x its 26 GB).
+F32_EMBED_BATCH = 64
+
+
+def _all_launches():
+    """Every K1-K11 kernel's launches since the last reset, by id."""
+    from geoguessr_ai_torch.ops import clip_attention as ca
+    from geoguessr_ai_torch.ops import window_attention as wa
+
+    out = _headmajor_launches()
+    out["K7"] = wa.LAUNCHES[K7_META[0]]
+    out.update({k: ca.LAUNCHES[m[0]] for k, m in CLIP_META.items()})
+    return out
+
+
+def _f32_serve(label, engine, views, cpu_ref, want, total):
+    """Serves a bucket of F32_BUCKET fixture panoramas (after a warm-up)
+    with every counter at 0: exact launches ``want`` of one forward, no
+    other kernel; every panorama against the CPU f32 result; p50."""
+    batch = np.repeat(views[None], F32_BUCKET, axis=0)
+    engine.predict_batch(batch)  # warm-up
+    torch.cuda.synchronize()
+    _reset_all_launches()
+    results = engine.predict_batch(batch)
+    torch.cuda.synchronize()
+    launches = _all_launches()
+    want = {k: want.get(k, 0) for k in launches}
+    cos = min(float(_view_cosines(r.embedding, cpu_ref.embedding).min())
+              for r in results)
+    same_top1 = all(r.top_ids[0] == cpu_ref.top_ids[0] for r in results)
+    finite = all(np.isfinite(r.embedding).all() for r in results)
+    p50 = _p50_ms(lambda: engine.predict_batch(batch), reps=5)
+    log(f"f32 {label} engine, bucket {F32_BUCKET}: launches {launches}; min "
+        f"view cosine to the CPU f32 engine {cos:.8f} (>= {F32_MIN_COSINE}), "
+        f"same top-1 cell {same_top1}; p50 {p50:.2f} ms, "
+        f"{F32_BUCKET / p50 * 1e3:.2f} panos/s")
+    if launches != want:
+        fail(f"f32 {label} engine: launches {launches}, expected {want}")
+    if not (finite and cos >= F32_MIN_COSINE and same_top1):
+        fail(f"f32 {label} engine disagrees with the CPU f32 engine")
+    for k, n in launches.items():
+        total[k] = total.get(k, 0) + n
+
+
+def phase_f32_serve(tinyvit_ref, clip_ref, embed_ref):
+    from geoguessr_ai_torch.config import BackboneConfig
+    from geoguessr_ai_torch.data.embed_builder import (
+        Embedder,
+        bulk_embed_config,
+    )
+    from geoguessr_ai_torch.models.clip_vit import CLIPVisionConfig
+    from geoguessr_ai_torch.models.tinyvit import TinyViTConfig
+    from geoguessr_ai_torch.ops import window_attention as wa
+    from geoguessr_ai_torch.profile_forward import HEAD_MAJOR, HEAD_MAJOR_MIN_N
+    from geoguessr_ai_torch.serving.engine import ServingEngine
+
+    f32 = torch.float32
+    total = {}
+    for label, fields, want in F32_TINYVIT_ENGINES:
+        head_major = fields == "HEAD_MAJOR"
+        fields = HEAD_MAJOR if head_major else fields
+        saved = wa.QKV_KERNEL_MIN_N
+        if head_major:
+            wa.QKV_KERNEL_MIN_N = HEAD_MAJOR_MIN_N
+        try:
+            engine = ServingEngine(seed=SEED, backbone_config=TinyViTConfig(
+                dtype=f32, **fields))
+            _, views = _fixture_views(engine)
+            _f32_serve(f"TinyViT {label}", engine, views, tinyvit_ref, want,
+                       total)
+            del engine
+        finally:
+            wa.QKV_KERNEL_MIN_N = saved
+        gc.collect()
+        torch.cuda.empty_cache()
+    for fuse in (False, True):
+        engine = ServingEngine(backbone="clip", seed=SEED,
+                               backbone_config=CLIPVisionConfig.vit_l_14_336(
+                                   dtype=f32, pallas_fuse_proj=fuse))
+        _, views = _fixture_views(engine)
+        kernel = "K11" if fuse else "K6"
+        _f32_serve(f"CLIP {kernel}", engine, views, clip_ref,
+                   {kernel: CLIP_LAUNCHES_PER_FORWARD}, total)
+        del engine
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    emb = Embedder(BackboneConfig.tinyvit(), seed=SEED,
+                   model_config=bulk_embed_config(dtype=f32))
+    _, images = _fixture_views(emb)
+    batch = images[np.arange(F32_EMBED_BATCH) % 4]
+    emb(batch)  # warm-up
+    torch.cuda.synchronize()
+    _reset_all_launches()
+    out = emb(batch)
+    torch.cuda.synchronize()
+    launches = _all_launches()
+    want = {k: EMBED_LAUNCHES_PER_FORWARD.get(k, 0) for k in launches}
+    cos = float(_view_cosines(out[:4], embed_ref).min())
+    p50, peak = _embedder_p50(emb, batch, "f32, embed config with both "
+                                          "knobs")
+    log(f"f32 Embedder B={F32_EMBED_BATCH}: launches {launches}; min "
+        f"cosine to the CPU f32 forward {cos:.8f} (>= {F32_MIN_COSINE})")
+    if launches != want:
+        fail(f"f32 Embedder: launches {launches}, expected {want}")
+    if not (np.isfinite(out).all() and cos >= F32_MIN_COSINE):
+        fail("the f32 Embedder disagrees with the CPU f32 forward")
+    for k, n in launches.items():
+        total[k] = total.get(k, 0) + n
+    del emb
+    gc.collect()
+    torch.cuda.empty_cache()
+    return total
+
+
+# ---------------------------------------------------------------------------
+# Phase 26: an f32 train step on the card against the CPU's
+# ---------------------------------------------------------------------------
+
+
+def phase_f32_train(cpu_step):
+    """The B=2 train step of phase 9 in f32 on the card, with K5 and with
+    K7 (BWD_MERGED False), each against phase 9's CPU f32 step: loss, every
+    gradient leaf's cosine, the running statistics; exact launches."""
+    from geoguessr_ai_torch.ops import window_attention as wa
+
+    cl, cg, cs = cpu_step
+    total = {}
+    for merged in (True, False):
+        saved = wa.BWD_MERGED
+        wa.BWD_MERGED = merged
+        try:
+            _reset_all_launches()
+            gl, gg, gs = _train_step_grads("cuda", "float32")
+            torch.cuda.synchronize()
+            launches = _all_launches()
+        finally:
+            wa.BWD_MERGED = saved
+        want = dict(LAUNCHES_PER_TRAIN_STEP)
+        if not merged:
+            want["K7"], want["K5"] = want.pop("K5"), 0
+        want = {k: want.get(k, 0) for k in launches}
+        label = "K5" if merged else "K7"
+        rel = abs(gl - cl) / abs(cl)
+        modules = sorted({_top_module(n) for n in cg})
+        mod_cos = {m: _cosine(*(torch.cat([g[n].flatten() for n in cg
+                                           if _top_module(n) == m])
+                                for g in (gg, cg))) for m in modules}
+        # A leaf whose gradient is zero in exact arithmetic (a bias that
+        # reaches the loss only through a batch-statistics BatchNorm, which
+        # removes any per-channel constant) holds rounding noise on both
+        # sides: its cosine says nothing.  Those leaves are the ones below
+        # F32_NOISE_FLOOR of the largest gradient norm, listed with it.
+        top = max(float(cg[n].norm()) for n in cg)
+        leaves = [n for n in cg if float(cg[n].norm()) > F32_NOISE_FLOOR * top]
+        floor = sorted(set(cg) - set(leaves))
+        cos = {n: _cosine(gg[n], cg[n]) for n in leaves}
+        worst = min(cos, key=cos.get)
+        worst_mod = min(mod_cos, key=mod_cos.get)
+        stats = min(_cosine(gs[n], cs[n]) for n in cs)
+        log(f"f32 train step ({label}) on the card vs the CPU f32 step: loss "
+            f"{gl:.8f} / {cl:.8f} rel {rel:.3g} (<= {F32_TRAIN_LOSS_RTOL}); "
+            f"lowest module gradient cosine {mod_cos[worst_mod]:.8f} "
+            f"({worst_mod}); {len(leaves)} gradient leaves, lowest cosine "
+            f"{cos[worst]:.8f} ({worst}; >= {F32_TRAIN_GRAD_MIN_COSINE}); "
+            f"lowest running statistics cosine {stats:.8f}; launches "
+            f"{launches}")
+        log(f"  {len(floor)} leaves at the noise floor (norm < "
+            f"{F32_NOISE_FLOOR} x {top:.4g}): " + ", ".join(
+                f"{n} {float(cg[n].norm()):.3g}/{float(gg[n].norm()):.3g}"
+                for n in floor))
+        if launches != want:
+            fail(f"f32 train step ({label}): launches {launches}, expected "
+                 f"{want}")
+        if rel > F32_TRAIN_LOSS_RTOL or cos[worst] < F32_TRAIN_GRAD_MIN_COSINE \
+                or mod_cos[worst_mod] < F32_TRAIN_GRAD_MIN_COSINE \
+                or stats < F32_TRAIN_GRAD_MIN_COSINE:
+            fail(f"the f32 train step ({label}) disagrees with the CPU f32 "
+                 "step")
+        for k, n in launches.items():
+            total[k] = total.get(k, 0) + n
+        gc.collect()
+        torch.cuda.empty_cache()
+    return total
+
+
+# ---------------------------------------------------------------------------
+# Phase 27: K14, the shared-memory opt-in, and its tool
+# ---------------------------------------------------------------------------
+
+K14_META = ("_smem_probe_cuda", "geoguessr_ai_torch/ops/csrc/smem_probe.cu",
+            "tools/exp_r4_vmem.py:35")
+#: K14 against its plain version on a seeded normal x: six f32 products
+#: summed in the same order, so equal; the tolerance allows another order.
+K14_REL_TOL = 1e-6
+
+
+def phase_smem_probe():
+    """The port's exp_r4_vmem tool runs both probe cases in subprocesses:
+    probe_default must crash (the launch over 48 KB is refused) and
+    probe_v64 print s = 21.0 with one launch; then the kernel against its
+    plain version, timed beside torch.mul and its bound."""
+    from geoguessr_ai_torch.ops.experimental import smem_probe as sp
+    from geoguessr_ai_torch.tools import exp_r4_vmem
+
+    records = exp_r4_vmem.main(["probe_default,probe_v64"])
+    by_case = {}
+    for r in records:
+        by_case.setdefault(r["case"], []).append(r)
+    crashed = any(r.get("result") == "CRASH"
+                  for r in by_case.get("probe_default", []))
+    ok = [r for r in by_case.get("probe_v64", []) if r.get("result") == "ok"]
+    launches = ok[0]["launches"] if ok else 0
+    log(f"exp_r4_vmem: probe_default crashed {crashed}; probe_v64 "
+        f"{ok[0] if ok else by_case.get('probe_v64')}")
+    if not crashed:
+        fail("probe_default did not crash: the probe does not exercise the "
+             "shared-memory limit")
+    if not ok or ok[0]["s"] != 21.0 or launches != 1:
+        fail(f"probe_v64 did not give s = 21.0 with one launch: {ok}")
+
+    optin = torch.cuda.get_device_properties(0).shared_memory_per_block_optin
+    gen = torch.Generator().manual_seed(SEED + 11)
+    ones = torch.ones(1, 1024, 1024, device="cuda")
+    x = torch.randn(1, 1024, 1024, generator=gen).to("cuda")
+    exact = torch.equal(sp._smem_probe_cuda(ones, optin),
+                        torch.full((1024, 1024), 21.0, device="cuda"))
+    got = sp._smem_probe_cuda(x, optin)
+    want = sp._smem_probe_plain(x)
+    max_abs, rel = _rel_err(got, want)
+    ms = cuda_time_ms(lambda: sp._smem_probe_cuda(x, optin), iters=50)
+    plain_ms = cuda_time_ms(lambda: sp._smem_probe_plain(x), iters=50)
+    lib_ms = cuda_time_ms(lambda: torch.mul(x, 21.0), iters=50)
+    bound, bound_by = _bound(11.0 * x.numel(), 2 * 4 * x.numel(),
+                             PEAK_F32_FLOP_S)
+    log(f"K14 (1, 1024, 1024) f32, {sp.smem_bytes(1024)} B of shared memory "
+        f"a block (opt-in {optin}): 21.0 exactly at x = ones {exact}; "
+        f"max_abs_err {max_abs:.6g} max_rel_err {rel:.6g} (tolerance "
+        f"{K14_REL_TOL})")
+    log(f"  kernel_ms {ms:.4f}, plain_ms {plain_ms:.4f}, library_ms "
+        f"{lib_ms:.4f} (torch.mul(x, 21.0)), bound_ms {bound:.4f} "
+        f"({bound_by})")
+    if not (exact and rel <= K14_REL_TOL):
+        fail("K14 disagrees with its plain version")
+    sp.reset_launches()
+    return dict(max_abs_err=max_abs, ms=ms, plain_ms=plain_ms,
+                library_ms=lib_ms, bound_ms=bound, bound_by=bound_by,
+                launches=launches)
+
+
+# ---------------------------------------------------------------------------
+# Phase 28: the kernels line
 # ---------------------------------------------------------------------------
 
 
@@ -2385,22 +2849,22 @@ def main():
     phase_build()
     rows = phase_kernels()
     _, paths, result, serve_launches = phase_serve()
-    phase_cpu_reference(paths, result)
+    tinyvit_ref = phase_cpu_reference(paths, result)
     gc.collect()
     torch.cuda.empty_cache()
     rows.update(phase_backward_kernels())
     phase_op_gradients()
     train_launches = phase_train()
-    phase_train_vs_cpu()
+    cpu_step = phase_train_vs_cpu()
     gc.collect()
     torch.cuda.empty_cache()
     clip_rows = phase_clip_kernels()
     clip_paths, clip_result, clip_launches = phase_clip_serve()
-    phase_clip_cpu_reference(clip_paths, clip_result)
+    clip_ref = phase_clip_cpu_reference(clip_paths, clip_result)
     gc.collect()
     torch.cuda.empty_cache()
     embed_rows = phase_embed_kernels()
-    embed_launches = phase_embed(paths)
+    embed_launches, embed_ref = phase_embed(paths)
     knob_launches = phase_knob_serve(paths, result)
     hm_rows = phase_headmajor_kernels()
     hm_launches = phase_headmajor_serve(paths, result)
@@ -2411,6 +2875,11 @@ def main():
     exp_rows, exp_launches = phase_experimental()
     static_launches = phase_static_embed(paths)
     clip_int8_launches = phase_clip_int8(clip_paths, clip_result)
+    f32_rows = phase_f32_kernels()
+    f32_launches = phase_f32_serve(tinyvit_ref, clip_ref, embed_ref)
+    for k, n in phase_f32_train(cpu_step).items():
+        f32_launches[k] += n
+    k14 = phase_smem_probe()
 
     main_case = {"K1": "stage1", "K2": "stage2", "K3": "stage3",
                  "K4": "stage1", "K5": "stage2"}
@@ -2523,6 +2992,26 @@ def main():
             "ms": r["ms"], "tops": r["tops"], "bound_ms": r["bound_ms"],
             "library_ms": r["lib_ms"]}
             for key, r in exp_rows.items() if key[0] == "K13"},
+    })
+    # the f32 entries: launches over the f32 main paths (phases 25-26)
+    for (k, label), row in f32_rows.items():
+        name, source, replaces = F32_META[k]
+        kernels.append({
+            "name": f"{name}[f32 {label}]", "route": "cuda",
+            "source": source, "replaces": replaces,
+            "launches": f32_launches[k], "max_abs_err": row["max_abs_err"],
+            "max_rel_err": row["max_rel_err"], "ms": row["ms"],
+            "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"], "library_ms": row["library_ms"],
+        })
+    kernels.append({
+        "name": K14_META[0], "route": "cuda", "source": K14_META[1],
+        "replaces": K14_META[2], "launches": k14["launches"],
+        "max_abs_err": k14["max_abs_err"], "ms": k14["ms"],
+        "plain_ms": k14["plain_ms"], "bound_ms": k14["bound_ms"],
+        "bound_by": k14["bound_by"],
+        # torch.mul(x, 21.0) computes the same function in one call
+        "library_ms": k14["library_ms"],
     })
     log(card)
     log(json.dumps({"kernels": kernels}))

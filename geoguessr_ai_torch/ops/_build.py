@@ -30,32 +30,40 @@ NVCC_FLAGS = (
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+
+
+def _twins(name: str, argtypes: tuple) -> Dict[str, tuple]:
+    """An entry point and its f32 twin: ``<name>_bf16`` and ``<name>_f32``
+    take the same arguments, their tensors in bf16 and in f32."""
+    return {f"{name}_bf16": argtypes, f"{name}_f32": argtypes}
+
+
 #: Entry points of every library, by library name: C name -> argtypes.
 SIGNATURES: Dict[str, Dict[str, tuple]] = {
-    "attention_qkv": {"attention_qkv_bf16": (
-        _P, _P, _P, _I, _I, _I, _I, _F, _P)},
-    "fb_s2": {"fb_s2_bf16": (
-        _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _P)},
-    "fused_block": {"fused_block_bf16": (
+    "attention_qkv": _twins("attention_qkv", (
+        _P, _P, _P, _I, _I, _I, _I, _F, _P)),
+    "fb_s2": _twins("fb_s2", (
+        _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _P)),
+    "fused_block": _twins("fused_block", (
         _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-        _I, _I, _I, _I, _I, _F, _F, _P)},
-    "attention_qkv_bwd": {"attention_qkv_bwd_bf16": (
-        _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P)},
-    "attention_bwd_merged": {"attention_bwd_merged_bf16": (
-        _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P)},
-    "attention_bwd_qtiled": {"attention_bwd_qtiled_bf16": (
-        _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P)},
+        _I, _I, _I, _I, _I, _F, _F, _P)),
+    "attention_qkv_bwd": _twins("attention_qkv_bwd", (
+        _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P)),
+    "attention_bwd_merged": _twins("attention_bwd_merged", (
+        _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P)),
+    "attention_bwd_qtiled": _twins("attention_bwd_qtiled", (
+        _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P)),
     "attention_headmajor": {
-        "attention_qtiled_bf16": (
-            _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P),
-        "attention_batched_bf16": (
-            _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P),
+        **_twins("attention_qtiled", (
+            _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P)),
+        **_twins("attention_batched", (
+            _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P)),
     },
-    "fb4d": {"fb4d_bf16": (
+    "fb4d": _twins("fb4d", (
         _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-        _I, _I, _I, _I, _I, _I, _I, _F, _F, _P)},
-    "mbconv": {"mbconv_bf16": (
-        _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P)},
+        _I, _I, _I, _I, _I, _I, _I, _F, _F, _P)),
+    "mbconv": _twins("mbconv", (
+        _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P)),
     "fused_mbconv_exp": {
         "fused_mbconv_bf16": (_P, _P, _P, _P, _P, _P, _P, _P,
                               _I, _I, _I, _I, _P),
@@ -66,9 +74,10 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
         "tiled_gemm_bf16": (_P, _P, _P, _I, _I, _I, _P),
         "tiled_gemm_s8": (_P, _P, _P, _I, _I, _I, _P),
     },
-    "clip_flash": {"clip_flash_bf16": (_P, _P, _I, _I, _I, _I, _F, _P)},
-    "clip_flash_proj": {"clip_flash_proj_bf16": (
-        _P, _P, _P, _I, _I, _I, _I, _F, _P)},
+    "clip_flash": _twins("clip_flash", (_P, _P, _I, _I, _I, _I, _F, _P)),
+    "clip_flash_proj": _twins("clip_flash_proj", (
+        _P, _P, _P, _I, _I, _I, _I, _F, _P)),
+    "smem_probe": {"smem_probe_f32": (_P, _P, _I, _I, _I, _P)},
 }
 
 
@@ -145,3 +154,17 @@ def entry(name: str, fn_name: Optional[str] = None):
     if fn_name is None:
         (fn_name,) = SIGNATURES[name]
     return getattr(library(name), fn_name)
+
+
+#: The C entry suffix of each activation dtype the kernels take.
+ENTRY_SUFFIX = {"torch.bfloat16": "bf16", "torch.float32": "f32"}
+
+
+def typed_entry(name: str, fn: str, dtype):
+    """The entry ``<fn>_bf16`` or ``<fn>_f32`` of library ``name`` for
+    tensors of ``dtype``; raises ValueError for any other dtype."""
+    suffix = ENTRY_SUFFIX.get(str(dtype))
+    if suffix is None:
+        raise ValueError(f"the kernels take torch.bfloat16 or torch.float32, "
+                         f"got {dtype}")
+    return entry(name, f"{fn}_{suffix}")

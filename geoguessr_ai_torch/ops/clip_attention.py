@@ -15,8 +15,9 @@ package's:
 * w_proj is the (D, D) out-projection in (in, out) layout, its rows in the
   same h*hd + d order.
 
-Kernels (a head dim in ``KERNEL_HEAD_DIMS``; ViT-L/14 and ViT-B/32 have
-64):
+Kernels (a head dim in ``KERNEL_HEAD_DIMS``, ViT-L/14 and ViT-B/32 have
+64; qkv in bf16 or f32, the compute dtype, each with its C entry, and
+w_proj cast to qkv's dtype as the plain version casts it):
 
 * K6 ``_flash_cuda``: softmax(q k^T * scale) v -> (B, N, D);
 * K11 ``_flash_proj_cuda``: the same, then o @ w_proj inside the kernel.
@@ -31,6 +32,8 @@ from __future__ import annotations
 
 import torch
 
+from geoguessr_ai_torch.ops.window_attention import _act_dtype, _raise_on
+
 #: Launches of each kernel wrapper since the last ``reset_launches()``.
 LAUNCHES = {
     "_flash_cuda": 0,
@@ -44,8 +47,10 @@ HEAD_BLOCK = 2
 #: of 16 up to 64.
 KERNEL_HEAD_DIMS = (16, 32, 64)
 
-#: Query rows per K11 block; its shared memory holds their (rows, D)
-#: attention output in bf16 beside two (64, 64) k/v tiles per head pair.
+#: Query rows per K11 block; its shared memory holds their (rows, Dc)
+#: attention output beside two (64, hd) k/v tiles per head pair, Dc = D in
+#: bf16 and in f32 the widest head chunk that fits
+#: (``_flash_proj_chunk``).
 _PROJ_ROWS = 64
 _SMEM_LIMIT = 232448
 
@@ -89,10 +94,9 @@ def _flash_proj_plain(qkv, w_proj, scale, num_heads):
 
 def _check_qkv(qkv, num_heads):
     """Returns (B, N, D, hd) after checking what the kernels take."""
+    _act_dtype(qkv=qkv)
     if not qkv.is_cuda:
         raise ValueError(f"qkv must be a CUDA tensor, got {qkv.device}")
-    if qkv.dtype != torch.bfloat16:
-        raise ValueError(f"qkv must be torch.bfloat16, got {qkv.dtype}")
     if qkv.ndim != 3 or qkv.shape[-1] % 3:
         raise ValueError(f"qkv must be (B, N, 3D), got {tuple(qkv.shape)}")
     B, N, D3 = qkv.shape
@@ -114,18 +118,13 @@ def _stream():
     return torch.cuda.current_stream().cuda_stream
 
 
-def _raise_on(err, name):
-    if err:
-        raise RuntimeError(f"{name}: CUDA launch failed with error {err}")
-
-
 def _flash_cuda(qkv, scale, num_heads):
     """K6: (B, N, D) in the qkv dtype."""
     from geoguessr_ai_torch.ops import _build
 
     B, N, D, hd = _check_qkv(qkv, num_heads)
     out = torch.empty((B, N, D), dtype=qkv.dtype, device=qkv.device)
-    fn = _build.entry("clip_flash")
+    fn = _build.typed_entry("clip_flash", "clip_flash", qkv.dtype)
     err = fn(qkv.data_ptr(), out.data_ptr(), B, N, num_heads, hd,
              float(scale), _stream())
     _raise_on(err, "_flash_cuda")
@@ -133,12 +132,27 @@ def _flash_cuda(qkv, scale, num_heads):
     return out
 
 
-def _flash_proj_smem_bytes(D, hd):
+def _flash_proj_smem_bytes(dc, hd, elem=2):
     """Dynamic shared memory of one K11 block: two (64, hd+8) k tiles and
     two (hd, 64+8) v^T tiles, or the (128, 64+8) W tile where that is
-    larger, and the (64, D+8) bf16 attention output."""
-    tiles = max(2 * (64 * (hd + 8) + hd * 72) * 2, 128 * 72 * 2)
-    return tiles + _PROJ_ROWS * (D + 8) * 2
+    larger, and the (64, dc+8) attention output, in elements of ``elem``
+    bytes."""
+    tiles = max(2 * (64 * (hd + 8) + hd * 72) * elem, 128 * 72 * elem)
+    return tiles + _PROJ_ROWS * (dc + 8) * elem
+
+
+def _flash_proj_chunk(D, hd, dtype):
+    """The channels of one K11 head chunk, as the kernel picks them: D in
+    bf16; in f32 the widest whole number of head pairs that divides D, is a
+    multiple of 64 and fits in shared memory.  None when none fits."""
+    elem = torch.finfo(dtype).bits // 8
+    H = D // hd
+    for n in range(1, H // 2 + 1) if elem == 4 else (1,):
+        dc = D // n
+        if (H // 2) % n == 0 and dc % 64 == 0 and \
+                _flash_proj_smem_bytes(dc, hd, elem) <= _SMEM_LIMIT:
+            return dc
+    return None
 
 
 def _flash_proj_cuda(qkv, w_proj, scale, num_heads):
@@ -146,20 +160,21 @@ def _flash_proj_cuda(qkv, w_proj, scale, num_heads):
     from geoguessr_ai_torch.ops import _build
 
     B, N, D, hd = _check_qkv(qkv, num_heads)
-    if D % 128 or _flash_proj_smem_bytes(D, hd) > _SMEM_LIMIT:
+    if D % 128 or _flash_proj_chunk(D, hd, qkv.dtype) is None:
         raise ValueError(
             f"the out-projection kernel takes D a multiple of 128 whose "
             f"attention rows fit in shared memory, got D={D}")
     if tuple(w_proj.shape) != (D, D):
         raise ValueError(f"w_proj must be ({D}, {D}), got "
                          f"{tuple(w_proj.shape)}")
-    # (in, out) -> the (out, in) rows the kernel reads; no copy when w_proj
-    # is the transpose view of a contiguous bf16 (out, in) weight
-    wt = w_proj.t().to(torch.bfloat16).contiguous()
+    # (in, out) -> the (out, in) rows the kernel reads, in qkv's dtype; no
+    # copy when w_proj is the transpose view of a contiguous (out, in)
+    # weight of that dtype
+    wt = w_proj.t().to(qkv.dtype).contiguous()
     if not wt.is_cuda or wt.data_ptr() % 16:
         raise ValueError("w_proj must be a 16-byte aligned CUDA tensor")
     out = torch.empty((B, N, D), dtype=qkv.dtype, device=qkv.device)
-    fn = _build.entry("clip_flash_proj")
+    fn = _build.typed_entry("clip_flash_proj", "clip_flash_proj", qkv.dtype)
     err = fn(qkv.data_ptr(), wt.data_ptr(), out.data_ptr(), B, N, num_heads,
              hd, float(scale), _stream())
     _raise_on(err, "_flash_proj_cuda")

@@ -16,8 +16,11 @@
 //   dv = bf16(p)^T g,  dq = (bf16(ds) k) * scale,  dk = (bf16(ds)^T q) * scale
 //   d_bias[h] = sum over windows of ds                         (f32)
 //
-// The two kernels differ only in the bias type: K4 reads it as bf16 (the
-// Pallas call casts it), K5 as f32.
+// The two kernels differ only in the bias type: K4 reads it in the
+// activations' type (the Pallas call casts it), K5 as f32.  Every kernel
+// here is a template over that type E (common.cuh "Element types"): in
+// f32, qkv, g and d_qkv are f32, the products split their operands into
+// bf16 (hi, lo) pairs, and p and ds are split, not rounded.
 //
 // A Pallas kernel walks its grid in order on one core and can keep a whole
 // (N, N) score row and a d_bias block resident in VMEM.  On Hopper the
@@ -50,81 +53,77 @@ namespace gg {
 constexpr int kBwdTile = 64;       // rows of a q-tile and of a k-tile
 constexpr int kBiasPitch = 68;     // f32 pitch of the staged bias tile
 
-__device__ __forceinline__ float2 bias_pair(const bf16* p) { return unpack_bf16(ld32(p)); }
-__device__ __forceinline__ float2 bias_pair(const float* p) {
-  return *reinterpret_cast<const float2*>(p);
-}
-__device__ __forceinline__ float bias_one(const bf16* p) { return __bfloat162float(*p); }
-__device__ __forceinline__ float bias_one(const float* p) { return *p; }
-
-// 16 rows x HD dims of a row-major bf16 matrix (row pitch ld) as the A
+// 16 rows x HD dims of a row-major matrix (row pitch ld) as the A
 // fragments of the k-steps over dims 0-15, 16-31, ...
-template <int HD>
-__device__ __forceinline__ void load_a16(uint32_t a[HeadDim<HD>::kSteps][4], const bf16* p,
-                                         long ld, int g, int c) {
+template <class E, int HD>
+__device__ __forceinline__ void load_a16(Frag<E> a[HeadDim<HD>::kSteps][4], const E* p, long ld,
+                                         int g, int c) {
 #pragma unroll
   for (int s = 0; s < HeadDim<HD>::kSteps; ++s) {
-    const bf16* r0 = p + (long)g * ld + s * 16 + 2 * c;
-    const bf16* r1 = r0 + 8 * ld;
-    a[s][0] = ld32(r0);
-    a[s][1] = ld32(r1);
-    a[s][2] = ld32(r0 + 8);
-    a[s][3] = ld32(r1 + 8);
+    const E* r0 = p + (long)g * ld + s * 16 + 2 * c;
+    const E* r1 = r0 + 8 * ld;
+    a[s][0] = frag(r0);
+    a[s][1] = frag(r1);
+    a[s][2] = frag(r0 + 8);
+    a[s][3] = frag(r1 + 8);
   }
 }
 
 // Copies 64 rows x HD dims (row pitch ld) into shared memory: row-major
 // into rowt (pitch HD + 8) and/or transposed into trt (pitch kVPad).
-template <int HD, bool ROW, bool TRANS>
-__device__ __forceinline__ void stage64(bf16* rowt, bf16* trt, const bf16* src, long ld,
-                                        int tid) {
+template <class T>
+struct NonDeduced {
+  using type = T;
+};
+
+template <int HD, bool ROW, bool TRANS, class E>
+__device__ __forceinline__ void stage64(E* rowt, typename NonDeduced<E>::type* trt, const E* src,
+                                        long ld, int tid) {
   using T = HeadDim<HD>;
   for (int i = tid; i < kBwdTile * T::kVecs; i += 128) {
     const int r = i / T::kVecs, ch = i % T::kVecs;
-    const uint4 v = *reinterpret_cast<const uint4*>(src + (long)r * ld + ch * 8);
-    if (ROW) *reinterpret_cast<uint4*>(&rowt[r * T::kPad + ch * 8]) = v;
+    const Vec8<E> v = load8(src + (long)r * ld + ch * 8);
+    if (ROW) store8(&rowt[r * T::kPad + ch * 8], v);
     if (TRANS) {
-      const bf16* e = reinterpret_cast<const bf16*>(&v);
 #pragma unroll
-      for (int j = 0; j < 8; ++j) trt[(ch * 8 + j) * kVPad + r] = e[j];
+      for (int j = 0; j < 8; ++j) trt[(ch * 8 + j) * kVPad + r] = v[j];
     }
   }
 }
 
 // acc (16 x 64) = A (16 x HD) . B^T, B the 64 row-major rows of rowt.
-template <int HD>
+template <int HD, class E>
 __device__ __forceinline__ void mma_16x64(float acc[8][4],
-                                          const uint32_t a[HeadDim<HD>::kSteps][4],
-                                          const bf16* rowt, int g, int c) {
+                                          const Frag<E> a[HeadDim<HD>::kSteps][4],
+                                          const E* rowt, int g, int c) {
 #pragma unroll
   for (int nt = 0; nt < 8; ++nt) {
 #pragma unroll
     for (int i = 0; i < 4; ++i) acc[nt][i] = 0.f;
-    const bf16* r = &rowt[(nt * 8 + g) * HeadDim<HD>::kPad + 2 * c];
+    const E* r = &rowt[(nt * 8 + g) * HeadDim<HD>::kPad + 2 * c];
 #pragma unroll
     for (int st = 0; st < HeadDim<HD>::kSteps; ++st)
-      mma_bf16_16816(acc[nt], a[st], ld32(r + st * 16), ld32(r + st * 16 + 8));
+      mma(acc[nt], a[st], frag(r + st * 16), frag(r + st * 16 + 8));
   }
 }
 
-// acc (16 x HD) += bf16(x) (16 x 64, an accumulator tile) . B (64 x HD),
-// B held transposed in trt.  The accumulators of n-tiles 2kk and 2kk+1 are
-// exactly the A fragment of k-step kk.
-template <int HD>
+// acc (16 x HD) += bf16(x) (16 x 64, an accumulator tile; split in f32) .
+// B (64 x HD), B held transposed in trt.  The accumulators of n-tiles 2kk
+// and 2kk+1 are exactly the A fragment of k-step kk.
+template <int HD, class E>
 __device__ __forceinline__ void mma_16xhd_k64(float acc[HeadDim<HD>::kTiles][4],
-                                              const float x[8][4], const bf16* trt, int g,
-                                              int c) {
+                                              const float x[8][4], const E* trt, int g, int c) {
 #pragma unroll
   for (int kk = 0; kk < 4; ++kk) {
-    uint32_t a[4];
-    a[0] = pack_bf16(x[2 * kk][0], x[2 * kk][1]);
-    a[1] = pack_bf16(x[2 * kk][2], x[2 * kk][3]);
-    a[2] = pack_bf16(x[2 * kk + 1][0], x[2 * kk + 1][1]);
-    a[3] = pack_bf16(x[2 * kk + 1][2], x[2 * kk + 1][3]);
+    Frag<E> a[4];
+    a[0] = pack_frag<E>(x[2 * kk][0], x[2 * kk][1]);
+    a[1] = pack_frag<E>(x[2 * kk][2], x[2 * kk][3]);
+    a[2] = pack_frag<E>(x[2 * kk + 1][0], x[2 * kk + 1][1]);
+    a[3] = pack_frag<E>(x[2 * kk + 1][2], x[2 * kk + 1][3]);
 #pragma unroll
     for (int d = 0; d < HeadDim<HD>::kTiles; ++d) {
-      const bf16* r = &trt[(d * 8 + g) * kVPad + kk * 16 + 2 * c];
-      mma_bf16_16816(acc[d], a, ld32(r), ld32(r + 8));
+      const E* r = &trt[(d * 8 + g) * kVPad + kk * 16 + 2 * c];
+      mma(acc[d], a, frag(r), frag(r + 8));
     }
   }
 }
@@ -141,17 +140,19 @@ __device__ __forceinline__ float quad_sum(float v) {
 
 // Shape of one call: qkv (W, N, 3D), g (W, N, D), D = H * HD; stats are
 // three (W, H, N) f32 planes: row max, 1 / row sum, t.
+template <class E>
 struct BwdArgs {
-  const bf16* qkv;
-  const bf16* g;
-  bf16* dqkv;
+  const E* qkv;
+  const E* g;
+  E* dqkv;
   float* dbias;
   float* stats;
   int W, N, H;
   float scale;
 };
 
-__device__ __forceinline__ long stat_index(const BwdArgs& a, int w, int h, int row) {
+template <class E>
+__device__ __forceinline__ long stat_index(const BwdArgs<E>& a, int w, int h, int row) {
   return ((long)w * a.H + h) * a.N + row;
 }
 
@@ -162,8 +163,8 @@ __device__ __forceinline__ void add_bias(float s[8][4], const BiasT* brow0, cons
 #pragma unroll
   for (int nt = 0; nt < 8; ++nt) {
     const int col = k0 + nt * 8 + 2 * c;
-    const float2 b0 = bias_pair(brow0 + col);
-    const float2 b1 = bias_pair(brow1 + col);
+    const float2 b0 = load2(brow0 + col);
+    const float2 b1 = load2(brow1 + col);
     s[nt][0] = s[nt][0] * scale + b0.x;
     s[nt][1] = s[nt][1] * scale + b0.y;
     s[nt][2] = s[nt][2] * scale + b1.x;
@@ -173,36 +174,46 @@ __device__ __forceinline__ void add_bias(float s[8][4], const BiasT* brow0, cons
 
 // Bytes of dynamic shared memory of the dk/dv phase (K4/K5's launch 2, K7's
 // launch 1): q and g row-major and transposed, a 64 x 64 f32 bias tile and
-// the 64 rows' statistics; 55 KB at HD = 64, over the 48 KB a block gets
-// without cudaFuncAttributeMaxDynamicSharedMemorySize.
-template <int HD>
+// the 64 rows' statistics; 55 KB at HD = 64 in bf16 and 92 KB in f32,
+// over the 48 KB a block gets without
+// cudaFuncAttributeMaxDynamicSharedMemorySize.
+template <class E, int HD>
 struct DkdvSmem {
-  static constexpr int kRowTile = kBwdTile * HeadDim<HD>::kPad * 2;  // a row-major 64 x HD tile
-  static constexpr int kTrTile = HD * kVPad * 2;                     // a transposed one
+  static constexpr int kRowTile =
+      kBwdTile * HeadDim<HD>::kPad * sizeof(E);                 // a row-major 64 x HD tile
+  static constexpr int kTrTile = HD * kVPad * sizeof(E);        // a transposed one
   static constexpr int bytes =
       2 * kRowTile + 2 * kTrTile + kBwdTile * kBiasPitch * 4 + 3 * kBwdTile * 4;
+};
+
+// Bytes of shared memory of the dq phase: k row-major and transposed, v
+// row-major; 55 KB at HD = 64 in f32, so the dq kernel takes it dynamic.
+template <class E, int HD>
+struct DqSmem {
+  static constexpr int bytes =
+      2 * DkdvSmem<E, HD>::kRowTile + DkdvSmem<E, HD>::kTrTile;
 };
 
 // ---------------------------------------------------------------------------
 // 1. Row statistics.  grid (N/64, H, W).
 // ---------------------------------------------------------------------------
-template <int HD, typename BiasT>
+template <class E, int HD, typename BiasT>
 __global__ void __launch_bounds__(128)
-attn_bwd_stats_kernel(BwdArgs a, const BiasT* __restrict__ bias) {
+attn_bwd_stats_kernel(BwdArgs<E> a, const BiasT* __restrict__ bias) {
   using T = HeadDim<HD>;
-  __shared__ __align__(16) bf16 ks[kBwdTile * T::kPad];
-  __shared__ __align__(16) bf16 vs[kBwdTile * T::kPad];
+  __shared__ __align__(16) E ks[kBwdTile * T::kPad];
+  __shared__ __align__(16) E vs[kBwdTile * T::kPad];
   const int h = blockIdx.y, w = blockIdx.z;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, c = lane & 3;
   const int N = a.N, D = a.H * HD;
   const long ld = 3L * D;
-  const bf16* base = a.qkv + (long)w * N * ld + (long)h * 3 * HD;
+  const E* base = a.qkv + (long)w * N * ld + (long)h * 3 * HD;
   const int q0 = blockIdx.x * kBwdTile + warp * 16;
 
-  uint32_t qa[T::kSteps][4], ga[T::kSteps][4];
-  load_a16<HD>(qa, base + (long)q0 * ld, ld, g, c);
-  load_a16<HD>(ga, a.g + ((long)w * N + q0) * D + h * HD, D, g, c);
+  Frag<E> qa[T::kSteps][4], ga[T::kSteps][4];
+  load_a16<E, HD>(qa, base + (long)q0 * ld, ld, g, c);
+  load_a16<E, HD>(ga, a.g + ((long)w * N + q0) * D + h * HD, D, g, c);
   const BiasT* brow0 = bias + ((long)h * N + q0 + g) * N;
   const BiasT* brow1 = brow0 + 8L * N;
 
@@ -271,16 +282,16 @@ attn_bwd_stats_kernel(BwdArgs a, const BiasT* __restrict__ bias) {
 // q-tiles, so its dk and dv rows are complete in registers.  Dynamic shared
 // memory of DkdvSmem<HD>::bytes.
 // ---------------------------------------------------------------------------
-template <int HD, typename BiasT>
+template <class E, int HD, typename BiasT>
 __global__ void __launch_bounds__(128)
-attn_bwd_dkdv_kernel(BwdArgs a, const BiasT* __restrict__ bias) {
+attn_bwd_dkdv_kernel(BwdArgs<E> a, const BiasT* __restrict__ bias) {
   using T = HeadDim<HD>;
-  using S = DkdvSmem<HD>;
+  using S = DkdvSmem<E, HD>;
   extern __shared__ __align__(16) unsigned char smem[];
-  bf16* qs = reinterpret_cast<bf16*>(smem);
-  bf16* gs = reinterpret_cast<bf16*>(smem + S::kRowTile);
-  bf16* qt = reinterpret_cast<bf16*>(smem + 2 * S::kRowTile);
-  bf16* gt = reinterpret_cast<bf16*>(smem + 2 * S::kRowTile + S::kTrTile);
+  E* qs = reinterpret_cast<E*>(smem);
+  E* gs = reinterpret_cast<E*>(smem + S::kRowTile);
+  E* qt = reinterpret_cast<E*>(smem + 2 * S::kRowTile);
+  E* gt = reinterpret_cast<E*>(smem + 2 * S::kRowTile + S::kTrTile);
   float* bsm = reinterpret_cast<float*>(smem + 2 * S::kRowTile + 2 * S::kTrTile);
   float* ms = bsm + kBwdTile * kBiasPitch;
   float* ils = ms + kBwdTile;
@@ -290,16 +301,16 @@ attn_bwd_dkdv_kernel(BwdArgs a, const BiasT* __restrict__ bias) {
   const int g = lane >> 2, c = lane & 3;
   const int N = a.N, D = a.H * HD;
   const long ld = 3L * D;
-  const bf16* base = a.qkv + (long)w * N * ld + (long)h * 3 * HD;
-  const bf16* gbase = a.g + (long)w * N * D + h * HD;
+  const E* base = a.qkv + (long)w * N * ld + (long)h * 3 * HD;
+  const E* gbase = a.g + (long)w * N * D + h * HD;
   const int kb = blockIdx.x * kBwdTile;     // the block's first key
   const int kr = warp * 16;                 // the warp's first key within the tile
   const long plane = (long)a.W * a.H * N;
   const float* st = a.stats + stat_index(a, w, h, 0);
 
-  uint32_t ka[T::kSteps][4], va[T::kSteps][4];
-  load_a16<HD>(ka, base + (long)(kb + kr) * ld + HD, ld, g, c);
-  load_a16<HD>(va, base + (long)(kb + kr) * ld + 2 * HD, ld, g, c);
+  Frag<E> ka[T::kSteps][4], va[T::kSteps][4];
+  load_a16<E, HD>(ka, base + (long)(kb + kr) * ld + HD, ld, g, c);
+  load_a16<E, HD>(va, base + (long)(kb + kr) * ld + 2 * HD, ld, g, c);
   float dk[T::kTiles][4], dv[T::kTiles][4];
 #pragma unroll
   for (int d = 0; d < T::kTiles; ++d)
@@ -313,7 +324,7 @@ attn_bwd_dkdv_kernel(BwdArgs a, const BiasT* __restrict__ bias) {
     stage64<HD, true, true>(gs, gt, gbase + (long)q0 * D, D, tid);
     for (int i = tid; i < kBwdTile * kBwdTile; i += 128) {
       const int r = i >> 6, col = i & 63;
-      bsm[r * kBiasPitch + col] = bias_one(bias + ((long)h * N + q0 + r) * N + kb + col);
+      bsm[r * kBiasPitch + col] = to_f(bias[((long)h * N + q0 + r) * N + kb + col]);
     }
     if (tid < kBwdTile) {
       ms[tid] = st[q0 + tid];
@@ -339,34 +350,37 @@ attn_bwd_dkdv_kernel(BwdArgs a, const BiasT* __restrict__ bias) {
     mma_16xhd_k64<HD>(dk, dp, qt, g, c);
   }
 
-  bf16* out0 = a.dqkv + ((long)w * N + kb + kr + g) * ld + (long)h * 3 * HD + 2 * c;
-  bf16* out1 = out0 + 8 * ld;
+  E* out0 = a.dqkv + ((long)w * N + kb + kr + g) * ld + (long)h * 3 * HD + 2 * c;
+  E* out1 = out0 + 8 * ld;
 #pragma unroll
   for (int d = 0; d < T::kTiles; ++d) {
     const float sc = a.scale;
-    *reinterpret_cast<uint32_t*>(out0 + HD + d * 8) = pack_bf16(dk[d][0] * sc, dk[d][1] * sc);
-    *reinterpret_cast<uint32_t*>(out1 + HD + d * 8) = pack_bf16(dk[d][2] * sc, dk[d][3] * sc);
-    *reinterpret_cast<uint32_t*>(out0 + 2 * HD + d * 8) = pack_bf16(dv[d][0], dv[d][1]);
-    *reinterpret_cast<uint32_t*>(out1 + 2 * HD + d * 8) = pack_bf16(dv[d][2], dv[d][3]);
+    store2(out0 + HD + d * 8, dk[d][0] * sc, dk[d][1] * sc);
+    store2(out1 + HD + d * 8, dk[d][2] * sc, dk[d][3] * sc);
+    store2(out0 + 2 * HD + d * 8, dv[d][0], dv[d][1]);
+    store2(out1 + 2 * HD + d * 8, dv[d][2], dv[d][3]);
   }
 }
 
 // ---------------------------------------------------------------------------
 // 3. dq.  grid (N/64, H, W); a warp owns 16 queries and loops over k-tiles.
+// Dynamic shared memory of DqSmem<E, HD>::bytes.
 // ---------------------------------------------------------------------------
-template <int HD, typename BiasT>
+template <class E, int HD, typename BiasT>
 __global__ void __launch_bounds__(128)
-attn_bwd_dq_kernel(BwdArgs a, const BiasT* __restrict__ bias) {
+attn_bwd_dq_kernel(BwdArgs<E> a, const BiasT* __restrict__ bias) {
   using T = HeadDim<HD>;
-  __shared__ __align__(16) bf16 ks[kBwdTile * T::kPad];
-  __shared__ __align__(16) bf16 vs[kBwdTile * T::kPad];
-  __shared__ __align__(16) bf16 kt[HD * kVPad];
+  constexpr int kRowTile = DkdvSmem<E, HD>::kRowTile;
+  extern __shared__ __align__(16) unsigned char smem[];
+  E* ks = reinterpret_cast<E*>(smem);
+  E* vs = reinterpret_cast<E*>(smem + kRowTile);
+  E* kt = reinterpret_cast<E*>(smem + 2 * kRowTile);
   const int h = blockIdx.y, w = blockIdx.z;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, c = lane & 3;
   const int N = a.N, D = a.H * HD;
   const long ld = 3L * D;
-  const bf16* base = a.qkv + (long)w * N * ld + (long)h * 3 * HD;
+  const E* base = a.qkv + (long)w * N * ld + (long)h * 3 * HD;
   const int q0 = blockIdx.x * kBwdTile + warp * 16;
   const long plane = (long)a.W * a.H * N;
   const long i0 = stat_index(a, w, h, q0 + g), i1 = i0 + 8;
@@ -374,9 +388,9 @@ attn_bwd_dq_kernel(BwdArgs a, const BiasT* __restrict__ bias) {
   const float il0 = a.stats[plane + i0], il1 = a.stats[plane + i1];
   const float t0 = a.stats[2 * plane + i0], t1 = a.stats[2 * plane + i1];
 
-  uint32_t qa[T::kSteps][4], ga[T::kSteps][4];
-  load_a16<HD>(qa, base + (long)q0 * ld, ld, g, c);
-  load_a16<HD>(ga, a.g + ((long)w * N + q0) * D + h * HD, D, g, c);
+  Frag<E> qa[T::kSteps][4], ga[T::kSteps][4];
+  load_a16<E, HD>(qa, base + (long)q0 * ld, ld, g, c);
+  load_a16<E, HD>(ga, a.g + ((long)w * N + q0) * D + h * HD, D, g, c);
   const BiasT* brow0 = bias + ((long)h * N + q0 + g) * N;
   const BiasT* brow1 = brow0 + 8L * N;
   float dq[T::kTiles][4];
@@ -409,12 +423,12 @@ attn_bwd_dq_kernel(BwdArgs a, const BiasT* __restrict__ bias) {
     mma_16xhd_k64<HD>(dq, s, kt, g, c);
   }
 
-  bf16* out0 = a.dqkv + ((long)w * N + q0 + g) * ld + (long)h * 3 * HD + 2 * c;
-  bf16* out1 = out0 + 8 * ld;
+  E* out0 = a.dqkv + ((long)w * N + q0 + g) * ld + (long)h * 3 * HD + 2 * c;
+  E* out1 = out0 + 8 * ld;
 #pragma unroll
   for (int d = 0; d < T::kTiles; ++d) {
-    *reinterpret_cast<uint32_t*>(out0 + d * 8) = pack_bf16(dq[d][0] * a.scale, dq[d][1] * a.scale);
-    *reinterpret_cast<uint32_t*>(out1 + d * 8) = pack_bf16(dq[d][2] * a.scale, dq[d][3] * a.scale);
+    store2(out0 + d * 8, dq[d][0] * a.scale, dq[d][1] * a.scale);
+    store2(out1 + d * 8, dq[d][2] * a.scale, dq[d][3] * a.scale);
   }
 }
 
@@ -422,12 +436,12 @@ attn_bwd_dq_kernel(BwdArgs a, const BiasT* __restrict__ bias) {
 // 4. d_bias.  grid (N/64 k-tiles, N/64 q-tiles, H); the block sums ds of its
 // 64 x 64 tile over all W windows, in window order, and stores it.
 // ---------------------------------------------------------------------------
-template <int HD, typename BiasT>
+template <class E, int HD, typename BiasT>
 __global__ void __launch_bounds__(128)
-attn_bwd_dbias_kernel(BwdArgs a, const BiasT* __restrict__ bias) {
+attn_bwd_dbias_kernel(BwdArgs<E> a, const BiasT* __restrict__ bias) {
   using T = HeadDim<HD>;
-  __shared__ __align__(16) bf16 ks[kBwdTile * T::kPad];
-  __shared__ __align__(16) bf16 vs[kBwdTile * T::kPad];
+  __shared__ __align__(16) E ks[kBwdTile * T::kPad];
+  __shared__ __align__(16) E vs[kBwdTile * T::kPad];
   const int h = blockIdx.z;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, c = lane & 3;
@@ -447,14 +461,14 @@ attn_bwd_dbias_kernel(BwdArgs a, const BiasT* __restrict__ bias) {
 
   float s[8][4], dp[8][4];
   for (int w = 0; w < a.W; ++w) {
-    const bf16* base = a.qkv + (long)w * N * ld + (long)h * 3 * HD;
+    const E* base = a.qkv + (long)w * N * ld + (long)h * 3 * HD;
     __syncthreads();
     stage64<HD, true, false>(ks, nullptr, base + (long)k0 * ld + HD, ld, tid);
     stage64<HD, true, false>(vs, nullptr, base + (long)k0 * ld + 2 * HD, ld, tid);
     __syncthreads();
-    uint32_t qa[T::kSteps][4], ga[T::kSteps][4];
-    load_a16<HD>(qa, base + (long)q0 * ld, ld, g, c);
-    load_a16<HD>(ga, a.g + ((long)w * N + q0) * D + h * HD, D, g, c);
+    Frag<E> qa[T::kSteps][4], ga[T::kSteps][4];
+    load_a16<E, HD>(qa, base + (long)q0 * ld, ld, g, c);
+    load_a16<E, HD>(ga, a.g + ((long)w * N + q0) * D + h * HD, D, g, c);
     const long i0 = stat_index(a, w, h, q0 + g), i1 = i0 + 8;
     const float m0 = a.stats[i0], m1 = a.stats[i1];
     const float il0 = a.stats[plane + i0], il1 = a.stats[plane + i1];
@@ -480,33 +494,37 @@ attn_bwd_dbias_kernel(BwdArgs a, const BiasT* __restrict__ bias) {
   }
 }
 
-template <int HD, typename BiasT>
-inline cudaError_t launch_dbias(const BwdArgs& a, const BiasT* bias, cudaStream_t stream) {
-  attn_bwd_dbias_kernel<HD, BiasT>
+template <int HD, class E, typename BiasT>
+inline cudaError_t launch_dbias(const BwdArgs<E>& a, const BiasT* bias, cudaStream_t stream) {
+  attn_bwd_dbias_kernel<E, HD, BiasT>
       <<<dim3(a.N / kBwdTile, a.N / kBwdTile, a.H), 128, 0, stream>>>(a, bias);
   return cudaGetLastError();
 }
 
-template <int HD, typename BiasT>
-inline cudaError_t launch_attention_bwd_hd(const BwdArgs& a, const BiasT* bias,
+template <int HD, class E, typename BiasT>
+inline cudaError_t launch_attention_bwd_hd(const BwdArgs<E>& a, const BiasT* bias,
                                            cudaStream_t stream) {
   const dim3 rows(a.N / kBwdTile, a.H, a.W);
-  attn_bwd_stats_kernel<HD, BiasT><<<rows, 128, 0, stream>>>(a, bias);
+  attn_bwd_stats_kernel<E, HD, BiasT><<<rows, 128, 0, stream>>>(a, bias);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return e;
-  constexpr int smem = DkdvSmem<HD>::bytes;
-  e = cudaFuncSetAttribute(attn_bwd_dkdv_kernel<HD, BiasT>,
+  constexpr int smem = DkdvSmem<E, HD>::bytes;
+  e = cudaFuncSetAttribute(attn_bwd_dkdv_kernel<E, HD, BiasT>,
                            cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return e;
-  attn_bwd_dkdv_kernel<HD, BiasT><<<rows, 128, smem, stream>>>(a, bias);
+  attn_bwd_dkdv_kernel<E, HD, BiasT><<<rows, 128, smem, stream>>>(a, bias);
   if ((e = cudaGetLastError()) != cudaSuccess) return e;
-  attn_bwd_dq_kernel<HD, BiasT><<<rows, 128, 0, stream>>>(a, bias);
+  constexpr int dq_smem = DqSmem<E, HD>::bytes;
+  e = cudaFuncSetAttribute(attn_bwd_dq_kernel<E, HD, BiasT>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize, dq_smem);
+  if (e != cudaSuccess) return e;
+  attn_bwd_dq_kernel<E, HD, BiasT><<<rows, 128, dq_smem, stream>>>(a, bias);
   if ((e = cudaGetLastError()) != cudaSuccess) return e;
   return launch_dbias<HD>(a, bias, stream);
 }
 
-template <typename BiasT>
-inline cudaError_t launch_attention_bwd(const BwdArgs& a, const BiasT* bias, int hd,
+template <class E, typename BiasT>
+inline cudaError_t launch_attention_bwd(const BwdArgs<E>& a, const BiasT* bias, int hd,
                                         cudaStream_t stream) {
   GG_HEAD_DIM_SWITCH(hd, { return launch_attention_bwd_hd<HD>(a, bias, stream); })
 }

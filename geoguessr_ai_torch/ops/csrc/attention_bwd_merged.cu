@@ -19,16 +19,33 @@
 // Hopper SM's shared memory beside the rest, so the design
 // (attention_bwd.cuh) recomputes scores per 64x64 tile in four launches:
 // about 2.4x the minimal tensor-core work, the gap for a later change.
+// The _f32 twin takes qkv, g and d_qkv in f32 (attention_bwd.cuh).
 #include "attention_bwd.cuh"
 
-extern "C" int attention_bwd_merged_bf16(const void* qkv, const void* bias, const void* g,
-                                         void* dqkv, void* dbias, void* stats, int W, int N,
-                                         int H, int hd, float scale, void* stream) {
-  const gg::BwdArgs a{static_cast<const gg::bf16*>(qkv), static_cast<const gg::bf16*>(g),
-                      static_cast<gg::bf16*>(dqkv),      static_cast<float*>(dbias),
-                      static_cast<float*>(stats),        W,
-                      N,                                 H,
-                      scale};
-  return (int)gg::launch_attention_bwd(a, static_cast<const float*>(bias),
-                                       hd, static_cast<cudaStream_t>(stream));
+namespace {
+
+template <class E>
+int run(const void* qkv, const void* bias, const void* g, void* dqkv, void* dbias, void* stats,
+        int W, int N, int H, int hd, float scale, void* stream) {
+  const gg::BwdArgs<E> a{static_cast<const E*>(qkv), static_cast<const E*>(g),
+                         static_cast<E*>(dqkv),        static_cast<float*>(dbias),
+                         static_cast<float*>(stats),   W,
+                         N,                            H,
+                         scale};
+  return (int)gg::launch_attention_bwd(a, static_cast<const float*>(bias), hd,
+                                       static_cast<cudaStream_t>(stream));
+}
+
+}  // namespace
+
+extern "C" int attention_bwd_merged_bf16(const void* qkv, const void* bias, const void* g, void* dqkv,
+                void* dbias, void* stats, int W, int N, int H, int hd, float scale,
+                void* stream) {
+  return run<gg::bf16>(qkv, bias, g, dqkv, dbias, stats, W, N, H, hd, scale, stream);
+}
+
+extern "C" int attention_bwd_merged_f32(const void* qkv, const void* bias, const void* g, void* dqkv,
+                void* dbias, void* stats, int W, int N, int H, int hd, float scale,
+                void* stream) {
+  return run<float>(qkv, bias, g, dqkv, dbias, stats, W, N, H, hd, scale, stream);
 }

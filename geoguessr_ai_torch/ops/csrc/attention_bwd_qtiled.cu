@@ -32,6 +32,8 @@
 // with mma.sync.m16n8k16 (the building blocks of attention_bwd.cuh), and
 // the scores are recomputed per tile in each phase, since an f32 row of
 // 1024 scores does not fit beside the rest.
+// The _f32 twin takes qkv, g and d_qkv in f32 (attention_bwd.cuh); its
+// dk/dv phase then needs 92 KB of shared memory at head dim 64.
 #include "attention_bwd.cuh"
 
 namespace gg {
@@ -39,34 +41,34 @@ namespace {
 
 // Shared memory of launch 1 is one dynamic buffer reused by its three
 // phases: the dk/dv phase needs the most (DkdvSmem, attention_bwd.cuh).
-template <int HD>
+template <class E, int HD>
 __global__ void __launch_bounds__(128)
-bwd_qtiled_k1_kernel(BwdArgs a, const float* __restrict__ bias) {
+bwd_qtiled_k1_kernel(BwdArgs<E> a, const float* __restrict__ bias) {
   using T = HeadDim<HD>;
-  constexpr int kRowTile = DkdvSmem<HD>::kRowTile;
-  constexpr int kTrTile = DkdvSmem<HD>::kTrTile;
+  constexpr int kRowTile = DkdvSmem<E, HD>::kRowTile;
+  constexpr int kTrTile = DkdvSmem<E, HD>::kTrTile;
   extern __shared__ __align__(16) unsigned char smem[];
   const int h = blockIdx.x, w = blockIdx.y;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, c = lane & 3;
   const int N = a.N, D = a.H * HD;
   const long ld = 3L * D;
-  const bf16* base = a.qkv + (long)w * N * ld + (long)h * 3 * HD;
-  const bf16* gbase = a.g + (long)w * N * D + h * HD;
+  const E* base = a.qkv + (long)w * N * ld + (long)h * 3 * HD;
+  const E* gbase = a.g + (long)w * N * D + h * HD;
   const long plane = (long)a.W * a.H * N;
   float* st = a.stats + stat_index(a, w, h, 0);  // query r: st[r], st[plane + r], st[2 plane + r]
-  bf16* out = a.dqkv + (long)w * N * ld + (long)h * 3 * HD;
+  E* out = a.dqkv + (long)w * N * ld + (long)h * 3 * HD;
   float s[8][4], dp[8][4];
 
   // 1. Row statistics, per 64-query tile: two passes over the k-tiles.
   {
-    bf16* ks = reinterpret_cast<bf16*>(smem);
-    bf16* vs = reinterpret_cast<bf16*>(smem + kRowTile);
+    E* ks = reinterpret_cast<E*>(smem);
+    E* vs = reinterpret_cast<E*>(smem + kRowTile);
     for (int qt0 = 0; qt0 < N; qt0 += kBwdTile) {
       const int q0 = qt0 + warp * 16;
-      uint32_t qa[T::kSteps][4], ga[T::kSteps][4];
-      load_a16<HD>(qa, base + (long)q0 * ld, ld, g, c);
-      load_a16<HD>(ga, gbase + (long)q0 * D, D, g, c);
+      Frag<E> qa[T::kSteps][4], ga[T::kSteps][4];
+      load_a16<E, HD>(qa, base + (long)q0 * ld, ld, g, c);
+      load_a16<E, HD>(ga, gbase + (long)q0 * D, D, g, c);
       const float* brow0 = bias + ((long)h * N + q0 + g) * N;
       const float* brow1 = brow0 + 8L * N;
       float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;
@@ -129,19 +131,19 @@ bwd_qtiled_k1_kernel(BwdArgs a, const float* __restrict__ bias) {
   // 2. dk and dv, per 64-key tile: a warp owns 16 keys and loops over all
   // q-tiles, so its rows are complete in registers.
   {
-    bf16* qs = reinterpret_cast<bf16*>(smem);
-    bf16* gs = reinterpret_cast<bf16*>(smem + kRowTile);
-    bf16* qt = reinterpret_cast<bf16*>(smem + 2 * kRowTile);
-    bf16* gt = reinterpret_cast<bf16*>(smem + 2 * kRowTile + kTrTile);
+    E* qs = reinterpret_cast<E*>(smem);
+    E* gs = reinterpret_cast<E*>(smem + kRowTile);
+    E* qt = reinterpret_cast<E*>(smem + 2 * kRowTile);
+    E* gt = reinterpret_cast<E*>(smem + 2 * kRowTile + kTrTile);
     float* bsm = reinterpret_cast<float*>(smem + 2 * kRowTile + 2 * kTrTile);
     float* ms = bsm + kBwdTile * kBiasPitch;
     float* ils = ms + kBwdTile;
     float* ts = ils + kBwdTile;
     const int kr = warp * 16;
     for (int kb = 0; kb < N; kb += kBwdTile) {
-      uint32_t ka[T::kSteps][4], va[T::kSteps][4];
-      load_a16<HD>(ka, base + (long)(kb + kr) * ld + HD, ld, g, c);
-      load_a16<HD>(va, base + (long)(kb + kr) * ld + 2 * HD, ld, g, c);
+      Frag<E> ka[T::kSteps][4], va[T::kSteps][4];
+      load_a16<E, HD>(ka, base + (long)(kb + kr) * ld + HD, ld, g, c);
+      load_a16<E, HD>(va, base + (long)(kb + kr) * ld + 2 * HD, ld, g, c);
       float dk[T::kTiles][4], dv[T::kTiles][4];
 #pragma unroll
       for (int d = 0; d < T::kTiles; ++d)
@@ -178,15 +180,15 @@ bwd_qtiled_k1_kernel(BwdArgs a, const float* __restrict__ bias) {
         mma_16xhd_k64<HD>(dv, s, gt, g, c);
         mma_16xhd_k64<HD>(dk, dp, qt, g, c);
       }
-      bf16* out0 = out + (long)(kb + kr + g) * ld + 2 * c;
-      bf16* out1 = out0 + 8 * ld;
+      E* out0 = out + (long)(kb + kr + g) * ld + 2 * c;
+      E* out1 = out0 + 8 * ld;
       const float sc = a.scale;
 #pragma unroll
       for (int d = 0; d < T::kTiles; ++d) {
-        *reinterpret_cast<uint32_t*>(out0 + HD + d * 8) = pack_bf16(dk[d][0] * sc, dk[d][1] * sc);
-        *reinterpret_cast<uint32_t*>(out1 + HD + d * 8) = pack_bf16(dk[d][2] * sc, dk[d][3] * sc);
-        *reinterpret_cast<uint32_t*>(out0 + 2 * HD + d * 8) = pack_bf16(dv[d][0], dv[d][1]);
-        *reinterpret_cast<uint32_t*>(out1 + 2 * HD + d * 8) = pack_bf16(dv[d][2], dv[d][3]);
+        store2(out0 + HD + d * 8, dk[d][0] * sc, dk[d][1] * sc);
+        store2(out1 + HD + d * 8, dk[d][2] * sc, dk[d][3] * sc);
+        store2(out0 + 2 * HD + d * 8, dv[d][0], dv[d][1]);
+        store2(out1 + 2 * HD + d * 8, dv[d][2], dv[d][3]);
       }
     }
   }
@@ -194,18 +196,18 @@ bwd_qtiled_k1_kernel(BwdArgs a, const float* __restrict__ bias) {
   // 3. dq, per 64-query tile: a warp owns 16 queries and loops over the
   // k-tiles.
   {
-    bf16* ks = reinterpret_cast<bf16*>(smem);
-    bf16* vs = reinterpret_cast<bf16*>(smem + kRowTile);
-    bf16* kt = reinterpret_cast<bf16*>(smem + 2 * kRowTile);
+    E* ks = reinterpret_cast<E*>(smem);
+    E* vs = reinterpret_cast<E*>(smem + kRowTile);
+    E* kt = reinterpret_cast<E*>(smem + 2 * kRowTile);
     for (int qt0 = 0; qt0 < N; qt0 += kBwdTile) {
       const int q0 = qt0 + warp * 16;
       const int r = q0 + g;
       const float m0 = st[r], m1 = st[r + 8];
       const float il0 = st[plane + r], il1 = st[plane + r + 8];
       const float t0 = st[2 * plane + r], t1 = st[2 * plane + r + 8];
-      uint32_t qa[T::kSteps][4], ga[T::kSteps][4];
-      load_a16<HD>(qa, base + (long)q0 * ld, ld, g, c);
-      load_a16<HD>(ga, gbase + (long)q0 * D, D, g, c);
+      Frag<E> qa[T::kSteps][4], ga[T::kSteps][4];
+      load_a16<E, HD>(qa, base + (long)q0 * ld, ld, g, c);
+      load_a16<E, HD>(ga, gbase + (long)q0 * D, D, g, c);
       const float* brow0 = bias + ((long)h * N + r) * N;
       const float* brow1 = brow0 + 8L * N;
       float dq[T::kTiles][4];
@@ -230,26 +232,39 @@ bwd_qtiled_k1_kernel(BwdArgs a, const float* __restrict__ bias) {
         }
         mma_16xhd_k64<HD>(dq, s, kt, g, c);
       }
-      bf16* out0 = out + (long)r * ld + 2 * c;
-      bf16* out1 = out0 + 8 * ld;
+      E* out0 = out + (long)r * ld + 2 * c;
+      E* out1 = out0 + 8 * ld;
 #pragma unroll
       for (int d = 0; d < T::kTiles; ++d) {
-        *reinterpret_cast<uint32_t*>(out0 + d * 8) = pack_bf16(dq[d][0] * a.scale, dq[d][1] * a.scale);
-        *reinterpret_cast<uint32_t*>(out1 + d * 8) = pack_bf16(dq[d][2] * a.scale, dq[d][3] * a.scale);
+        store2(out0 + d * 8, dq[d][0] * a.scale, dq[d][1] * a.scale);
+        store2(out1 + d * 8, dq[d][2] * a.scale, dq[d][3] * a.scale);
       }
     }
   }
 }
 
-template <int HD>
-cudaError_t launch(const BwdArgs& a, const float* bias, cudaStream_t s) {
-  constexpr int smem = DkdvSmem<HD>::bytes;
-  cudaError_t e = cudaFuncSetAttribute(bwd_qtiled_k1_kernel<HD>,
+template <int HD, class E>
+cudaError_t launch(const BwdArgs<E>& a, const float* bias, cudaStream_t s) {
+  constexpr int smem = DkdvSmem<E, HD>::bytes;
+  cudaError_t e = cudaFuncSetAttribute(bwd_qtiled_k1_kernel<E, HD>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return e;
-  bwd_qtiled_k1_kernel<HD><<<dim3(a.H, a.W), 128, smem, s>>>(a, bias);
+  bwd_qtiled_k1_kernel<E, HD><<<dim3(a.H, a.W), 128, smem, s>>>(a, bias);
   if ((e = cudaGetLastError()) != cudaSuccess) return e;
   return launch_dbias<HD>(a, bias, s);  // launch 2, attention_bwd.cuh
+}
+
+template <class E>
+int run(const void* qkv, const void* bias, const void* g, void* dqkv, void* dbias, void* stats,
+        int W, int N, int H, int hd, float scale, void* stream) {
+  const BwdArgs<E> a{static_cast<const E*>(qkv), static_cast<const E*>(g),
+                     static_cast<E*>(dqkv),        static_cast<float*>(dbias),
+                     static_cast<float*>(stats),   W,
+                     N,                            H,
+                     scale};
+  const float* b = static_cast<const float*>(bias);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  GG_HEAD_DIM_SWITCH(hd, { return (int)launch<HD>(a, b, s); })
 }
 
 }  // namespace
@@ -257,17 +272,16 @@ cudaError_t launch(const BwdArgs& a, const float* bias, cudaStream_t s) {
 
 // Shapes validated by the Python wrapper (N a multiple of 64, head dim 16,
 // 32 or 64, W <= 65535).  stats is (3, W, H, N) f32 scratch; every element
-// of dqkv and dbias is written.
+// of dqkv and dbias is written.  qkv, g and dqkv bf16 (or f32 for the _f32
+// twin); bias and dbias f32.
 extern "C" int attention_bwd_qtiled_bf16(const void* qkv, const void* bias, const void* g,
                                          void* dqkv, void* dbias, void* stats, int W, int N,
                                          int H, int hd, float scale, void* stream) {
-  using namespace gg;
-  const BwdArgs a{static_cast<const bf16*>(qkv), static_cast<const bf16*>(g),
-                  static_cast<bf16*>(dqkv),      static_cast<float*>(dbias),
-                  static_cast<float*>(stats),    W,
-                  N,                             H,
-                  scale};
-  const float* b = static_cast<const float*>(bias);
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  GG_HEAD_DIM_SWITCH(hd, { return (int)launch<HD>(a, b, s); })
+  return gg::run<gg::bf16>(qkv, bias, g, dqkv, dbias, stats, W, N, H, hd, scale, stream);
+}
+
+extern "C" int attention_bwd_qtiled_f32(const void* qkv, const void* bias, const void* g,
+                                        void* dqkv, void* dbias, void* stats, int W, int N,
+                                        int H, int hd, float scale, void* stream) {
+  return gg::run<float>(qkv, bias, g, dqkv, dbias, stats, W, N, H, hd, scale, stream);
 }

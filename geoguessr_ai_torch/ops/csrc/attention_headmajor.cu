@@ -2,14 +2,15 @@
 //
 //     out[w, h] = softmax(q[w, h] k[w, h]^T * scale + bias[h]) v[w, h]
 //
-// q, k, v, out (W, H, N, hd) bf16 with hd 16, 32 or 64, bias (H, N, N) f32.  Replaces the two
+// q, k, v, out (W, H, N, hd) bf16 (or f32, the _f32 twins) with hd 16, 32
+// or 64, bias (H, N, N) f32.  Replaces the two
 // Pallas kernels behind the JAX package's window_attention
 // (geoguessr_ai_tpu/ops/window_attention.py): K8a _attention_qtiled
 // (_qtiled_kernel), chosen at N >= 512 or when W is not a multiple of
 // BLOCK_W, and K8b _attention_batched (_batched_kernel), BLOCK_W windows of
 // one head per grid cell.  Numerics as there: f32 scores plus the f32 bias
 // (unlike K1-K4, which round the bias to bf16), f32 softmax, p rounded to
-// bf16 before the p.v product, f32 accumulation.
+// bf16 before the p.v product (split in f32), f32 accumulation.
 //
 // What bounds it on an H100: at stage 2 of a serving bucket of 16
 // (W=64, H=12, N=1024) the 1.03e11 flops of the two products (0.104 ms at
@@ -60,11 +61,11 @@ struct SharedBias {  // K8b: the block's 64 query rows, in shared memory
 
 // One 64-row q-tile of one (window, head): q, k, v and out point at that
 // pair's (N, HD) slab.
-template <int HD, class BIAS>
-__device__ __forceinline__ void attend_tile(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                                            const bf16* __restrict__ v, bf16* __restrict__ out,
-                                            const BIAS& bias, int N, int q0, float scale,
-                                            bf16* ks, bf16* vt) {
+template <int HD, class E, class BIAS>
+__device__ __forceinline__ void attend_tile(const E* __restrict__ q, const E* __restrict__ k,
+                                            const E* __restrict__ v, E* __restrict__ out,
+                                            const BIAS& bias, int N, int q0, float scale, E* ks,
+                                            E* vt) {
   const int tid = threadIdx.x;
   const int warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, c = lane & 3;
@@ -72,15 +73,15 @@ __device__ __forceinline__ void attend_tile(const bf16* __restrict__ q, const bf
   using T = HeadDim<HD>;
   constexpr int KP = T::kPad;
 
-  uint32_t qa[T::kSteps][4];
+  Frag<E> qa[T::kSteps][4];
 #pragma unroll
   for (int s = 0; s < T::kSteps; ++s) {
-    const bf16* p0 = q + (long)r0 * HD + s * 16 + 2 * c;
-    const bf16* p1 = q + (long)r1 * HD + s * 16 + 2 * c;
-    qa[s][0] = ld32(p0);
-    qa[s][1] = ld32(p1);
-    qa[s][2] = ld32(p0 + 8);
-    qa[s][3] = ld32(p1 + 8);
+    const E* p0 = q + (long)r0 * HD + s * 16 + 2 * c;
+    const E* p1 = q + (long)r1 * HD + s * 16 + 2 * c;
+    qa[s][0] = frag(p0);
+    qa[s][1] = frag(p1);
+    qa[s][2] = frag(p0 + 8);
+    qa[s][3] = frag(p1 + 8);
   }
 
   float o[T::kTiles][4];
@@ -97,12 +98,10 @@ __device__ __forceinline__ void attend_tile(const bf16* __restrict__ q, const bf
     for (int i = tid; i < kBk * T::kVecs; i += 128) {
       const int key = i / T::kVecs, ch = i % T::kVecs;
       const long off = (long)(k0 + key) * HD + ch * 8;
-      *reinterpret_cast<uint4*>(&ks[key * KP + ch * 8]) =
-          *reinterpret_cast<const uint4*>(k + off);
-      uint4 vv = *reinterpret_cast<const uint4*>(v + off);
-      const bf16* ve = reinterpret_cast<const bf16*>(&vv);
+      store8(&ks[key * KP + ch * 8], load8(k + off));
+      const Vec8<E> vv = load8(v + off);
 #pragma unroll
-      for (int j = 0; j < 8; ++j) vt[(ch * 8 + j) * kVPad + key] = ve[j];
+      for (int j = 0; j < 8; ++j) vt[(ch * 8 + j) * kVPad + key] = vv[j];
     }
     __syncthreads();
 
@@ -111,10 +110,10 @@ __device__ __forceinline__ void attend_tile(const bf16* __restrict__ q, const bf
     for (int nt = 0; nt < 8; ++nt) {
 #pragma unroll
       for (int i = 0; i < 4; ++i) s[nt][i] = 0.f;
-      const bf16* kr = &ks[(nt * 8 + g) * KP + 2 * c];
+      const E* kr = &ks[(nt * 8 + g) * KP + 2 * c];
 #pragma unroll
       for (int st = 0; st < T::kSteps; ++st)
-        mma_bf16_16816(s[nt], qa[st], ld32(kr + st * 16), ld32(kr + st * 16 + 8));
+        mma(s[nt], qa[st], frag(kr + st * 16), frag(kr + st * 16 + 8));
     }
 
     float mx0 = m0, mx1 = m1;
@@ -158,19 +157,19 @@ __device__ __forceinline__ void attend_tile(const bf16* __restrict__ q, const bf
       o[d][3] *= alpha1;
     }
 
-    // o += bf16(p) v: the s accumulators of n-tiles 2kk and 2kk+1 are the
-    // A fragment of k-step kk.
+    // o += bf16(p) v (p split in f32): the s accumulators of n-tiles 2kk
+    // and 2kk+1 are the A fragment of k-step kk.
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk) {
-      uint32_t pa[4];
-      pa[0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
-      pa[1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
-      pa[2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-      pa[3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
+      Frag<E> pa[4];
+      pa[0] = pack_frag<E>(s[2 * kk][0], s[2 * kk][1]);
+      pa[1] = pack_frag<E>(s[2 * kk][2], s[2 * kk][3]);
+      pa[2] = pack_frag<E>(s[2 * kk + 1][0], s[2 * kk + 1][1]);
+      pa[3] = pack_frag<E>(s[2 * kk + 1][2], s[2 * kk + 1][3]);
 #pragma unroll
       for (int d = 0; d < T::kTiles; ++d) {
-        const bf16* vr = &vt[(d * 8 + g) * kVPad + kk * 16 + 2 * c];
-        mma_bf16_16816(o[d], pa, ld32(vr), ld32(vr + 8));
+        const E* vr = &vt[(d * 8 + g) * kVPad + kk * 16 + 2 * c];
+        mma(o[d], pa, frag(vr), frag(vr + 8));
       }
     }
   }
@@ -180,23 +179,23 @@ __device__ __forceinline__ void attend_tile(const bf16* __restrict__ q, const bf
   l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
   l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
   const float inv0 = 1.f / l0, inv1 = 1.f / l1;
-  bf16* orow0 = out + (long)r0 * HD + 2 * c;
-  bf16* orow1 = out + (long)r1 * HD + 2 * c;
+  E* orow0 = out + (long)r0 * HD + 2 * c;
+  E* orow1 = out + (long)r1 * HD + 2 * c;
 #pragma unroll
   for (int d = 0; d < T::kTiles; ++d) {
-    *reinterpret_cast<uint32_t*>(orow0 + d * 8) = pack_bf16(o[d][0] * inv0, o[d][1] * inv0);
-    *reinterpret_cast<uint32_t*>(orow1 + d * 8) = pack_bf16(o[d][2] * inv1, o[d][3] * inv1);
+    store2(orow0 + d * 8, o[d][0] * inv0, o[d][1] * inv0);
+    store2(orow1 + d * 8, o[d][2] * inv1, o[d][3] * inv1);
   }
 }
 
 // K8a: grid (W, N/64, H), the window fastest.
-template <int HD>
+template <class E, int HD>
 __global__ void __launch_bounds__(128)
-attention_qtiled_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                        const bf16* __restrict__ v, const float* __restrict__ bias,
-                        bf16* __restrict__ out, int H, int N, float scale) {
-  __shared__ __align__(16) bf16 ks[kBk * HeadDim<HD>::kPad];
-  __shared__ __align__(16) bf16 vt[HD * kVPad];
+attention_qtiled_kernel(const E* __restrict__ q, const E* __restrict__ k,
+                        const E* __restrict__ v, const float* __restrict__ bias,
+                        E* __restrict__ out, int H, int N, float scale) {
+  __shared__ __align__(16) E ks[kBk * HeadDim<HD>::kPad];
+  __shared__ __align__(16) E vt[HD * kVPad];
   const int w = blockIdx.x, h = blockIdx.z;
   const long slab = ((long)w * H + h) * N * HD;
   attend_tile<HD>(q + slab, k + slab, v + slab, out + slab,
@@ -205,16 +204,16 @@ attention_qtiled_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
 // K8b: grid (N/64, H, W / bw); the block stages its 64 bias rows once and
 // walks its bw windows in order.
-template <int HD>
+template <class E, int HD>
 __global__ void __launch_bounds__(128)
-attention_batched_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                         const bf16* __restrict__ v, const float* __restrict__ bias,
-                         bf16* __restrict__ out, int H, int N, int bw, float scale) {
+attention_batched_kernel(const E* __restrict__ q, const E* __restrict__ k,
+                         const E* __restrict__ v, const float* __restrict__ bias,
+                         E* __restrict__ out, int H, int N, int bw, float scale) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int ld = N + kBiasPad;
   float* bs = reinterpret_cast<float*>(smem);
-  bf16* ks = reinterpret_cast<bf16*>(bs + kBq * ld);
-  bf16* vt = ks + kBk * HeadDim<HD>::kPad;
+  E* ks = reinterpret_cast<E*>(bs + kBq * ld);
+  E* vt = ks + kBk * HeadDim<HD>::kPad;
   const int q0 = blockIdx.x * kBq, h = blockIdx.y;
 
   const float* src = bias + ((long)h * N + q0) * N;
@@ -232,44 +231,67 @@ attention_batched_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
-template <int HD>
+template <class E, int HD>
 size_t batched_smem_bytes(int N) {
   return sizeof(float) * kBq * (N + kBiasPad) +
-         sizeof(bf16) * (kBk * HeadDim<HD>::kPad + HD * kVPad);
+         sizeof(E) * (kBk * HeadDim<HD>::kPad + HD * kVPad);
+}
+
+template <class E>
+int qtiled(const void* q, const void* k, const void* v, const void* bias, void* out, int W,
+           int H, int N, int hd, float scale, cudaStream_t stream) {
+  const dim3 grid(W, N / kBq, H);
+  GG_HEAD_DIM_SWITCH(hd, {
+    attention_qtiled_kernel<E, HD><<<grid, 128, 0, stream>>>(
+        static_cast<const E*>(q), static_cast<const E*>(k), static_cast<const E*>(v),
+        static_cast<const float*>(bias), static_cast<E*>(out), H, N, scale);
+    return (int)cudaGetLastError();
+  })
+}
+
+template <class E>
+int batched(const void* q, const void* k, const void* v, const void* bias, void* out, int W,
+            int H, int N, int hd, int block_w, float scale, cudaStream_t stream) {
+  if (block_w < 1 || W % block_w) return (int)cudaErrorInvalidValue;
+  const dim3 grid(N / kBq, H, W / block_w);
+  GG_HEAD_DIM_SWITCH(hd, {
+    const size_t smem = batched_smem_bytes<E, HD>(N);
+    cudaError_t e = cudaFuncSetAttribute(attention_batched_kernel<E, HD>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+    attention_batched_kernel<E, HD><<<grid, 128, smem, stream>>>(
+        static_cast<const E*>(q), static_cast<const E*>(k), static_cast<const E*>(v),
+        static_cast<const float*>(bias), static_cast<E*>(out), H, N, block_w, scale);
+    return (int)cudaGetLastError();
+  })
 }
 
 }  // namespace
 }  // namespace gg
 
 // C entry points: shapes validated by the Python wrapper (N a multiple of
-// 64, head dim 16, 32 or 64).  Return cudaGetLastError() after the launch.
+// 64, head dim 16, 32 or 64).  q, k, v and out bf16 (or f32 for the _f32
+// twins), bias f32.  Return cudaGetLastError() after the launch.
 extern "C" int attention_qtiled_bf16(const void* q, const void* k, const void* v,
                                      const void* bias, void* out, int W, int H, int N, int hd,
                                      float scale, cudaStream_t stream) {
-  using namespace gg;
-  const dim3 grid(W, N / kBq, H);
-  GG_HEAD_DIM_SWITCH(hd, {
-    attention_qtiled_kernel<HD><<<grid, 128, 0, stream>>>(
-        static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-        static_cast<const float*>(bias), static_cast<bf16*>(out), H, N, scale);
-    return (int)cudaGetLastError();
-  })
+  return gg::qtiled<gg::bf16>(q, k, v, bias, out, W, H, N, hd, scale, stream);
+}
+
+extern "C" int attention_qtiled_f32(const void* q, const void* k, const void* v,
+                                    const void* bias, void* out, int W, int H, int N, int hd,
+                                    float scale, cudaStream_t stream) {
+  return gg::qtiled<float>(q, k, v, bias, out, W, H, N, hd, scale, stream);
 }
 
 extern "C" int attention_batched_bf16(const void* q, const void* k, const void* v,
                                       const void* bias, void* out, int W, int H, int N, int hd,
                                       int block_w, float scale, cudaStream_t stream) {
-  using namespace gg;
-  if (block_w < 1 || W % block_w) return (int)cudaErrorInvalidValue;
-  const dim3 grid(N / kBq, H, W / block_w);
-  GG_HEAD_DIM_SWITCH(hd, {
-    const size_t smem = batched_smem_bytes<HD>(N);
-    cudaError_t e = cudaFuncSetAttribute(attention_batched_kernel<HD>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return (int)e;
-    attention_batched_kernel<HD><<<grid, 128, smem, stream>>>(
-        static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-        static_cast<const float*>(bias), static_cast<bf16*>(out), H, N, block_w, scale);
-    return (int)cudaGetLastError();
-  })
+  return gg::batched<gg::bf16>(q, k, v, bias, out, W, H, N, hd, block_w, scale, stream);
+}
+
+extern "C" int attention_batched_f32(const void* q, const void* k, const void* v,
+                                     const void* bias, void* out, int W, int H, int N, int hd,
+                                     int block_w, float scale, cudaStream_t stream) {
+  return gg::batched<float>(q, k, v, bias, out, W, H, N, hd, block_w, scale, stream);
 }

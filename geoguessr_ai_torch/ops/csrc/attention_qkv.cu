@@ -13,6 +13,8 @@
 // and reads each bias element once per window; the bias (2.4 MB at stage
 // 3) stays in the 50 MB L2 across windows.  See common.cuh for the tile
 // math.
+// The _f32 twin takes qkv, the bias and out in f32 (common.cuh "Element
+// types").
 #include "common.cuh"
 
 extern "C" int attention_qkv_bf16(const void* qkv, const void* bias, void* out, int W,
@@ -20,4 +22,11 @@ extern "C" int attention_qkv_bf16(const void* qkv, const void* bias, void* out, 
   return (int)gg::launch_window_attention(
       static_cast<const gg::bf16*>(qkv), static_cast<const gg::bf16*>(bias),
       static_cast<gg::bf16*>(out), W, N, H, hd, scale, static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int attention_qkv_f32(const void* qkv, const void* bias, void* out, int W, int N,
+                                 int H, int hd, float scale, void* stream) {
+  return (int)gg::launch_window_attention(
+      static_cast<const float*>(qkv), static_cast<const float*>(bias), static_cast<float*>(out),
+      W, N, H, hd, scale, static_cast<cudaStream_t>(stream));
 }

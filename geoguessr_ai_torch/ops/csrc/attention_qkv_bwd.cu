@@ -19,16 +19,34 @@
 // and 5 exponentials per score, the gap for a later change.  d_bias is
 // summed over the windows in order by one block per 64 x 64 tile and head,
 // so it is bitwise the same from run to run.
+// The _f32 twin takes qkv, the bias, g and d_qkv in f32
+// (attention_bwd.cuh).
 #include "attention_bwd.cuh"
 
-extern "C" int attention_qkv_bwd_bf16(const void* qkv, const void* bias, const void* g,
-                                      void* dqkv, void* dbias, void* stats, int W, int N,
-                                      int H, int hd, float scale, void* stream) {
-  const gg::BwdArgs a{static_cast<const gg::bf16*>(qkv), static_cast<const gg::bf16*>(g),
-                      static_cast<gg::bf16*>(dqkv),      static_cast<float*>(dbias),
-                      static_cast<float*>(stats),        W,
-                      N,                                 H,
-                      scale};
-  return (int)gg::launch_attention_bwd(a, static_cast<const gg::bf16*>(bias),
-                                       hd, static_cast<cudaStream_t>(stream));
+namespace {
+
+template <class E>
+int run(const void* qkv, const void* bias, const void* g, void* dqkv, void* dbias, void* stats,
+        int W, int N, int H, int hd, float scale, void* stream) {
+  const gg::BwdArgs<E> a{static_cast<const E*>(qkv), static_cast<const E*>(g),
+                         static_cast<E*>(dqkv),        static_cast<float*>(dbias),
+                         static_cast<float*>(stats),   W,
+                         N,                            H,
+                         scale};
+  return (int)gg::launch_attention_bwd(a, static_cast<const E*>(bias), hd,
+                                       static_cast<cudaStream_t>(stream));
+}
+
+}  // namespace
+
+extern "C" int attention_qkv_bwd_bf16(const void* qkv, const void* bias, const void* g, void* dqkv,
+                void* dbias, void* stats, int W, int N, int H, int hd, float scale,
+                void* stream) {
+  return run<gg::bf16>(qkv, bias, g, dqkv, dbias, stats, W, N, H, hd, scale, stream);
+}
+
+extern "C" int attention_qkv_bwd_f32(const void* qkv, const void* bias, const void* g, void* dqkv,
+                void* dbias, void* stats, int W, int N, int H, int hd, float scale,
+                void* stream) {
+  return run<float>(qkv, bias, g, dqkv, dbias, stats, W, N, H, hd, scale, stream);
 }

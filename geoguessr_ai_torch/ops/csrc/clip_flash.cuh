@@ -2,11 +2,12 @@
 // clip_flash.cu, K11 clip_flash_proj.cu).
 //
 // Layouts follow the JAX package (geoguessr_ai_tpu/ops/clip_attention.py):
-//   qkv (B, N, 3D) bf16, token-major, channels in q|k|v blocks of D:
+//   qkv (B, N, 3D) bf16 (or f32, the _f32 twins: common.cuh "Element
+//       types"), token-major, channels in q|k|v blocks of D:
 //       q = [0, D), k = [D, 2D), v = [2D, 3D); head h at [h*hd, (h+1)*hd)
 //       of each block (hd = 64 for ViT-L/14 and ViT-B/32; 16 and 32 too,
 //       the HD template parameter)
-//   out (B, N, D) bf16, head h at channels [h*hd, (h+1)*hd)
+//   out (B, N, D) in qkv's type, head h at channels [h*hd, (h+1)*hd)
 // N need not be a multiple of anything: ViT-L/14-336 has N = 577 = 9*64 + 1.
 // Query rows >= N read as zero and are never written; key columns >= N
 // score -inf and their v rows read as zero.
@@ -15,8 +16,8 @@
 // (running max / running sum) softmax over 64-key tiles staged through
 // shared memory by the warp's group of four warps, in f32, with
 // mma.sync.m16n8k16 (bf16 in, f32 accumulate) for q.k^T and p.v.  p is
-// rounded to bf16 before p.v as the Pallas kernel rounds it before its
-// MXU dot; unlike the Pallas kernel (which normalises first) the rounded
+// rounded to bf16 (split in f32) before p.v as the Pallas kernel rounds it
+// before its MXU dot; unlike the Pallas kernel (which normalises first) the rounded
 // p is relative to the running max and the row sum is applied at the end,
 // so the two round p at different scales: a relative 2^-9 each way.
 #pragma once
@@ -28,12 +29,12 @@ namespace clip {
 
 constexpr int kRows = 64;        // query rows per group of 4 warps
 constexpr int kBk = 64;          // keys per tile
-constexpr int kVtPitch = kBk + 8;  // row pitch (bf16) of the v^T tile: conflict-free reads
+constexpr int kVtPitch = kBk + 8;  // row pitch (elements) of the v^T tile: conflict-free reads
 
-template <int HD>
+template <class E, int HD>
 struct KVTile {
-  bf16 k[kBk * HeadDim<HD>::kPad];  // k rows: [key][dim]
-  bf16 vt[HD * kVtPitch];           // v transposed: [dim][key]
+  E k[kBk * HeadDim<HD>::kPad];  // k rows: [key][dim]
+  E vt[HD * kVtPitch];           // v transposed: [dim][key]
 };
 
 // o (16 x HD, f32, normalised) for rows q_row0 .. q_row0+15 of one head, in
@@ -42,9 +43,9 @@ struct KVTile {
 //   gtid: the thread's index 0..127 inside its group of four warps
 // Every thread of the block must call this the same number of times: it
 // synchronises the block around each k/v tile.
-template <int HD>
-__device__ __forceinline__ void attend_rows(const bf16* __restrict__ head, int D, int N,
-                                            int q_row0, float sl2, KVTile<HD>& t, int gtid,
+template <int HD, class E>
+__device__ __forceinline__ void attend_rows(const E* __restrict__ head, int D, int N, int q_row0,
+                                            float sl2, KVTile<E, HD>& t, int gtid,
                                             float o[HeadDim<HD>::kTiles][4]) {
   using T = HeadDim<HD>;
   constexpr int KP = T::kPad;
@@ -53,15 +54,15 @@ __device__ __forceinline__ void attend_rows(const bf16* __restrict__ head, int D
   const long rs = 3L * D;
 
   // This warp's 16 query rows as A fragments, one per 16 dims.
-  uint32_t qa[T::kSteps][4];
+  Frag<E> qa[T::kSteps][4];
   const int r0 = q_row0 + g, r1 = r0 + 8;
 #pragma unroll
   for (int s = 0; s < T::kSteps; ++s) {
     const int col = s * 16 + 2 * c;
-    qa[s][0] = r0 < N ? ld32(head + r0 * rs + col) : 0u;
-    qa[s][1] = r1 < N ? ld32(head + r1 * rs + col) : 0u;
-    qa[s][2] = r0 < N ? ld32(head + r0 * rs + col + 8) : 0u;
-    qa[s][3] = r1 < N ? ld32(head + r1 * rs + col + 8) : 0u;
+    qa[s][0] = r0 < N ? frag(head + r0 * rs + col) : Frag<E>{};
+    qa[s][1] = r1 < N ? frag(head + r1 * rs + col) : Frag<E>{};
+    qa[s][2] = r0 < N ? frag(head + r0 * rs + col + 8) : Frag<E>{};
+    qa[s][3] = r1 < N ? frag(head + r1 * rs + col + 8) : Frag<E>{};
   }
 
 #pragma unroll
@@ -77,16 +78,15 @@ __device__ __forceinline__ void attend_rows(const bf16* __restrict__ head, int D
     // so the v^T scatter hits 32 distinct banks.
     for (int i = gtid; i < kBk * T::kVecs; i += 128) {
       const int key = i & (kBk - 1), ch = i >> 6;
-      uint4 kv = make_uint4(0u, 0u, 0u, 0u), vv = kv;
+      Vec8<E> kv{}, vv{};
       if (k0 + key < N) {
-        const bf16* src = head + (k0 + key) * rs + ch * 8;
-        kv = *reinterpret_cast<const uint4*>(src + D);
-        vv = *reinterpret_cast<const uint4*>(src + 2 * D);
+        const E* src = head + (k0 + key) * rs + ch * 8;
+        kv = load8(src + D);
+        vv = load8(src + 2 * D);
       }
-      *reinterpret_cast<uint4*>(&t.k[key * KP + ch * 8]) = kv;
-      const bf16* ve = reinterpret_cast<const bf16*>(&vv);
+      store8(&t.k[key * KP + ch * 8], kv);
 #pragma unroll
-      for (int j = 0; j < 8; ++j) t.vt[(ch * 8 + j) * kVtPitch + key] = ve[j];
+      for (int j = 0; j < 8; ++j) t.vt[(ch * 8 + j) * kVtPitch + key] = vv[j];
     }
     __syncthreads();
 
@@ -96,10 +96,10 @@ __device__ __forceinline__ void attend_rows(const bf16* __restrict__ head, int D
     for (int nt = 0; nt < 8; ++nt) {
 #pragma unroll
       for (int i = 0; i < 4; ++i) s[nt][i] = 0.f;
-      const bf16* kr = &t.k[(nt * 8 + g) * KP + 2 * c];
+      const E* kr = &t.k[(nt * 8 + g) * KP + 2 * c];
 #pragma unroll
       for (int st = 0; st < T::kSteps; ++st)
-        mma_bf16_16816(s[nt], qa[st], ld32(kr + st * 16), ld32(kr + st * 16 + 8));
+        mma(s[nt], qa[st], frag(kr + st * 16), frag(kr + st * 16 + 8));
     }
 
     // scale into the log2 domain, mask the ragged keys, running max.
@@ -143,19 +143,20 @@ __device__ __forceinline__ void attend_rows(const bf16* __restrict__ head, int D
       o[d][3] *= alpha1;
     }
 
-    // o += bf16(p) v: 4 k-steps of 16 keys; the s accumulators of n-tiles
-    // 2kk and 2kk+1 are exactly the A fragment of k-step kk.
+    // o += bf16(p) v (p split in f32): 4 k-steps of 16 keys; the s
+    // accumulators of n-tiles 2kk and 2kk+1 are exactly the A fragment of
+    // k-step kk.
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk) {
-      uint32_t pa[4];
-      pa[0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
-      pa[1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
-      pa[2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-      pa[3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
+      Frag<E> pa[4];
+      pa[0] = pack_frag<E>(s[2 * kk][0], s[2 * kk][1]);
+      pa[1] = pack_frag<E>(s[2 * kk][2], s[2 * kk][3]);
+      pa[2] = pack_frag<E>(s[2 * kk + 1][0], s[2 * kk + 1][1]);
+      pa[3] = pack_frag<E>(s[2 * kk + 1][2], s[2 * kk + 1][3]);
 #pragma unroll
       for (int d = 0; d < T::kTiles; ++d) {
-        const bf16* vr = &t.vt[(d * 8 + g) * kVtPitch + kk * 16 + 2 * c];
-        mma_bf16_16816(o[d], pa, ld32(vr), ld32(vr + 8));
+        const E* vr = &t.vt[(d * 8 + g) * kVtPitch + kk * 16 + 2 * c];
+        mma(o[d], pa, frag(vr), frag(vr + 8));
       }
     }
   }

@@ -22,6 +22,15 @@
 // one block (8 warps) per SM, ceil(N/64) * B = 640 blocks at bucket 16,
 // and W_out (2 MB) is re-read from L2 by every block.
 //
+// The _f32 twin (common.cuh "Element types") keeps the attention rows in
+// f32, and a (64, 1024) f32 tile beside the k/v tiles is over the 227 KB a
+// block may have.  So it walks the heads in chunks of Dc channels: the
+// attention of a chunk's heads into a (64, Dc) tile, then that tile's
+// share of the projection, out = sum over chunks of o[:, chunk] @
+// W[chunk, :], added in f32 into the output rows the block owns (the first
+// chunk stores them).  At D = 1024 that is two chunks of 512 channels and
+// 202 KB.  The bf16 entry takes one chunk of D: the design above.
+//
 // What bounds it on the H100: K6's work plus 2*N*D*D flops per image for
 // the projection, about 1.65e11 flops against K6's ~303 MB at B = 64: the
 // tensor cores (~0.17 ms).
@@ -33,24 +42,45 @@ namespace clip {
 constexpr int kProjCols = 128;  // output columns per slab
 constexpr int kProjK = 64;      // input channels per W tile
 constexpr int kWPitch = kProjK + 8;
-constexpr size_t kWTileBytes = kProjCols * kWPitch * sizeof(bf16);
+constexpr size_t kSmemLimit = 232448;  // the most a block may opt into
 
 // Bytes of the shared-memory region that holds the two k/v tiles during the
 // attention and the W tile during the projection.
-template <int HD>
+template <class E, int HD>
 struct TilesBytes {
-  static constexpr size_t value =
-      2 * sizeof(KVTile<HD>) > kWTileBytes ? 2 * sizeof(KVTile<HD>) : kWTileBytes;
+  static constexpr size_t kW = kProjCols * kWPitch * sizeof(E);
+  static constexpr size_t value = 2 * sizeof(KVTile<E, HD>) > kW ? 2 * sizeof(KVTile<E, HD>) : kW;
 };
 
-template <int HD>
+// Dynamic shared memory of a block whose attention tile holds dc channels.
+template <class E, int HD>
+size_t smem_bytes(int dc) {
+  return TilesBytes<E, HD>::value + (size_t)kRows * (dc + 8) * sizeof(E);
+}
+
+// The channels of one head chunk: D for bf16; for f32 the widest whole
+// number of head pairs that divides D, is a multiple of kProjK and fits
+// in shared memory.  0 when none does.
+template <class E, int HD>
+int chunk_channels(int H) {
+  const int D = H * HD;
+  if (sizeof(E) == 2) return D;
+  for (int n = 1; n <= H / 2; ++n) {
+    if ((H / 2) % n) continue;
+    const int dc = D / n;
+    if (dc % kProjK == 0 && smem_bytes<E, HD>(dc) <= kSmemLimit) return dc;
+  }
+  return 0;
+}
+
+template <class E, int HD>
 __global__ void __launch_bounds__(256)
-clip_flash_proj_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ wt,
-                       bf16* __restrict__ out, int N, int H, float sl2) {
+clip_flash_proj_kernel(const E* __restrict__ qkv, const E* __restrict__ wt, E* __restrict__ out,
+                       int N, int H, int dc, float sl2) {
   extern __shared__ __align__(16) unsigned char smem[];
-  KVTile<HD>* tiles = reinterpret_cast<KVTile<HD>*>(smem);  // one per group of 4 warps
-  bf16* os = reinterpret_cast<bf16*>(smem + TilesBytes<HD>::value);
-  bf16* ws = reinterpret_cast<bf16*>(smem);  // the W tile reuses the k/v tiles
+  KVTile<E, HD>* tiles = reinterpret_cast<KVTile<E, HD>*>(smem);  // one per group of 4 warps
+  E* os = reinterpret_cast<E*>(smem + TilesBytes<E, HD>::value);
+  E* ws = reinterpret_cast<E*>(smem);  // the W tile reuses the k/v tiles
 
   const int b = blockIdx.y;
   const int tid = threadIdx.x;
@@ -58,86 +88,113 @@ clip_flash_proj_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ wt
   const int g = lane >> 2, c = lane & 3;
   const int grp = warp >> 2, gw = warp & 3;
   const int D = H * HD;
-  const int o_pitch = D + 8;  // conflict-free A-fragment reads
+  const int o_pitch = dc + 8;  // conflict-free A-fragment reads
   const int row0 = blockIdx.x * kRows;
-  const bf16* image = qkv + (long)b * N * 3 * D;
-
-  // 1. attention, two heads at a time, into os (bf16).
-  for (int h0 = 0; h0 < H; h0 += 2) {
-    const int h = h0 + grp;
-    float o[HeadDim<HD>::kTiles][4];
-    attend_rows<HD>(image + h * HD, D, N, row0 + gw * 16, sl2, tiles[grp], tid & 127, o);
-    bf16* orow = os + (gw * 16 + g) * o_pitch + h * HD + 2 * c;
-#pragma unroll
-    for (int d = 0; d < HeadDim<HD>::kTiles; ++d) {
-      *reinterpret_cast<uint32_t*>(orow + d * 8) = pack_bf16(o[d][0], o[d][1]);
-      *reinterpret_cast<uint32_t*>(orow + 8 * o_pitch + d * 8) = pack_bf16(o[d][2], o[d][3]);
-    }
-  }
-
-  // 2. out[64, D] = os[64, D] @ W: per slab of 128 columns, warp (wr, wc)
-  // owns rows wr*16.. and columns wc*64.. of the slab.
+  const E* image = qkv + (long)b * N * 3 * D;
   const int wr = warp & 3, wc = warp >> 2;
   const int r0 = row0 + wr * 16 + g, r1 = r0 + 8;
-  for (int n0 = 0; n0 < D; n0 += kProjCols) {
-    float acc[8][4];
+
+  for (int c0 = 0; c0 < D; c0 += dc) {
+    // 1. attention of the chunk's heads, two at a time, into os (in E).
+    for (int h0 = c0 / HD; h0 < (c0 + dc) / HD; h0 += 2) {
+      const int h = h0 + grp;
+      float o[HeadDim<HD>::kTiles][4];
+      attend_rows<HD>(image + h * HD, D, N, row0 + gw * 16, sl2, tiles[grp], tid & 127, o);
+      E* orow = os + (gw * 16 + g) * o_pitch + h * HD - c0 + 2 * c;
 #pragma unroll
-    for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) acc[nt][i] = 0.f;
-    for (int k0 = 0; k0 < D; k0 += kProjK) {
-      __syncthreads();  // os complete / the previous W tile consumed
-      for (int i = tid; i < kProjCols * (kProjK / 8); i += 256) {
-        const int r = i >> 3, ch = i & 7;
-        *reinterpret_cast<uint4*>(&ws[r * kWPitch + ch * 8]) =
-            *reinterpret_cast<const uint4*>(wt + (long)(n0 + r) * D + k0 + ch * 8);
+      for (int d = 0; d < HeadDim<HD>::kTiles; ++d) {
+        store2(orow + d * 8, o[d][0], o[d][1]);
+        store2(orow + 8 * o_pitch + d * 8, o[d][2], o[d][3]);
       }
-      __syncthreads();
+    }
+
+    // 2. out[64, D] (+)= os[64, dc] @ W[c0:c0+dc, :]: per slab of 128
+    // columns, warp (wr, wc) owns rows wr*16.. and columns wc*64.. of the
+    // slab.
+    for (int n0 = 0; n0 < D; n0 += kProjCols) {
+      float acc[8][4];
 #pragma unroll
-      for (int st = 0; st < kProjK / 16; ++st) {
-        const bf16* ar = os + (wr * 16 + g) * o_pitch + k0 + st * 16 + 2 * c;
-        uint32_t a[4];
-        a[0] = ld32(ar);
-        a[1] = ld32(ar + 8 * o_pitch);
-        a[2] = ld32(ar + 8);
-        a[3] = ld32(ar + 8 * o_pitch + 8);
+      for (int nt = 0; nt < 8; ++nt)
 #pragma unroll
-        for (int nt = 0; nt < 8; ++nt) {
-          const bf16* br = &ws[(wc * 64 + nt * 8 + g) * kWPitch + st * 16 + 2 * c];
-          mma_bf16_16816(acc[nt], a, ld32(br), ld32(br + 8));
+        for (int i = 0; i < 4; ++i) acc[nt][i] = 0.f;
+      for (int k0 = 0; k0 < dc; k0 += kProjK) {
+        __syncthreads();  // os complete / the previous W tile consumed
+        for (int i = tid; i < kProjCols * (kProjK / 8); i += 256) {
+          const int r = i >> 3, ch = i & 7;
+          store8(&ws[r * kWPitch + ch * 8], load8(wt + (long)(n0 + r) * D + c0 + k0 + ch * 8));
+        }
+        __syncthreads();
+#pragma unroll
+        for (int st = 0; st < kProjK / 16; ++st) {
+          const E* ar = os + (wr * 16 + g) * o_pitch + k0 + st * 16 + 2 * c;
+          Frag<E> a[4];
+          a[0] = frag(ar);
+          a[1] = frag(ar + 8 * o_pitch);
+          a[2] = frag(ar + 8);
+          a[3] = frag(ar + 8 * o_pitch + 8);
+#pragma unroll
+          for (int nt = 0; nt < 8; ++nt) {
+            const E* br = &ws[(wc * 64 + nt * 8 + g) * kWPitch + st * 16 + 2 * c];
+            mma(acc[nt], a, frag(br), frag(br + 8));
+          }
         }
       }
-    }
 #pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
-      const int col = n0 + wc * 64 + nt * 8 + 2 * c;
-      if (r0 < N)
-        *reinterpret_cast<uint32_t*>(out + ((long)b * N + r0) * D + col) =
-            pack_bf16(acc[nt][0], acc[nt][1]);
-      if (r1 < N)
-        *reinterpret_cast<uint32_t*>(out + ((long)b * N + r1) * D + col) =
-            pack_bf16(acc[nt][2], acc[nt][3]);
+      for (int nt = 0; nt < 8; ++nt) {
+        const int col = n0 + wc * 64 + nt * 8 + 2 * c;
+        E* p0 = out + ((long)b * N + r0) * D + col;
+        E* p1 = out + ((long)b * N + r1) * D + col;
+        float2 v0 = make_float2(acc[nt][0], acc[nt][1]);
+        float2 v1 = make_float2(acc[nt][2], acc[nt][3]);
+        if (c0 > 0) {  // a later chunk: add to the earlier chunks' sum
+          if (r0 < N) {
+            const float2 s = load2(p0);
+            v0.x += s.x;
+            v0.y += s.y;
+          }
+          if (r1 < N) {
+            const float2 s = load2(p1);
+            v1.x += s.x;
+            v1.y += s.y;
+          }
+        }
+        if (r0 < N) store2(p0, v0.x, v0.y);
+        if (r1 < N) store2(p1, v1.x, v1.y);
+      }
     }
   }
+}
+
+template <class E>
+int run(const void* qkv, const void* wt, void* out, int B, int N, int H, int hd, float scale,
+        void* stream) {
+  const dim3 grid((N + kRows - 1) / kRows, B);
+  GG_HEAD_DIM_SWITCH(hd, {
+    const int dc = chunk_channels<E, HD>(H);
+    if (dc == 0) return (int)cudaErrorInvalidValue;
+    const size_t smem = smem_bytes<E, HD>(dc);
+    cudaError_t err = cudaFuncSetAttribute(
+        clip_flash_proj_kernel<E, HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    clip_flash_proj_kernel<E, HD><<<grid, 256, smem, static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const E*>(qkv), static_cast<const E*>(wt), static_cast<E*>(out), N, H, dc,
+        scale * kLog2e);
+    return (int)cudaGetLastError();
+  })
 }
 
 }  // namespace clip
 }  // namespace gg
 
 // wt is W_out transposed, (D_out, D_in) row-major: PyTorch's Linear layout.
-// D = H * hd a multiple of 128 (so H is even).
+// D = H * hd a multiple of 128 (so H is even).  qkv, wt and out bf16 (or
+// f32 for the _f32 twin).
 extern "C" int clip_flash_proj_bf16(const void* qkv, const void* wt, void* out, int B, int N,
                                     int H, int hd, float scale, void* stream) {
-  using namespace gg::clip;
-  const dim3 grid((N + kRows - 1) / kRows, B);
-  GG_HEAD_DIM_SWITCH(hd, {
-    const size_t smem = TilesBytes<HD>::value + (size_t)kRows * (H * HD + 8) * sizeof(gg::bf16);
-    cudaError_t err = cudaFuncSetAttribute(
-        clip_flash_proj_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-    clip_flash_proj_kernel<HD><<<grid, 256, smem, static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const gg::bf16*>(qkv), static_cast<const gg::bf16*>(wt),
-        static_cast<gg::bf16*>(out), N, H, scale * gg::kLog2e);
-    return (int)cudaGetLastError();
-  })
+  return gg::clip::run<gg::bf16>(qkv, wt, out, B, N, H, hd, scale, stream);
+}
+
+extern "C" int clip_flash_proj_f32(const void* qkv, const void* wt, void* out, int B, int N,
+                                   int H, int hd, float scale, void* stream) {
+  return gg::clip::run<float>(qkv, wt, out, B, N, H, hd, scale, stream);
 }

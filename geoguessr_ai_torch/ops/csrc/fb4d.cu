@@ -23,14 +23,17 @@
 // 805 MB in and 805 MB out.  What it saves over K1 on the partitioned path
 // is the two partition copies (a read and a write of the map each); qkv and
 // the attention output still make one round trip through device memory.
+// The _f32 twin runs the same launches in f32 (common.cuh "Element
+// types").
 #include "common.cuh"
 
-extern "C" int fb4d_bf16(const void* x, const void* ln_scale, const void* ln_bias,
-                         const void* w_qkv_t, const void* b_qkv, const void* w_proj_t,
-                         const void* b_proj, const void* bias, void* qkv_scratch,
-                         void* attn_scratch, void* out, int B, int Hm, int Wm, int C, int H,
-                         int hd,
-                         int window, float scale, float eps, void* stream) {
+namespace {
+
+template <class E>
+int fb4d(const void* x, const void* ln_scale, const void* ln_bias, const void* w_qkv_t,
+         const void* b_qkv, const void* w_proj_t, const void* b_proj, const void* bias,
+         void* qkv_scratch, void* attn_scratch, void* out, int B, int Hm, int Wm, int C, int H,
+         int hd, int window, float scale, float eps, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int D = H * hd;
   const int M = B * Hm * Wm;
@@ -38,18 +41,36 @@ extern "C" int fb4d_bf16(const void* x, const void* ln_scale, const void* ln_bia
   const gg::MapRows rows{window, Hm / window, Wm / window};
   const int num_windows = B * rows.nwh * rows.nww;
   cudaError_t e = gg::launch_ln_gemm<true, true>(
-      static_cast<const gg::bf16*>(x), static_cast<const float*>(ln_scale),
-      static_cast<const float*>(ln_bias), static_cast<const gg::bf16*>(w_qkv_t),
-      static_cast<const float*>(b_qkv), static_cast<gg::bf16*>(qkv_scratch), M, C, 3 * D, eps,
-      s);
+      static_cast<const E*>(x), static_cast<const float*>(ln_scale),
+      static_cast<const float*>(ln_bias), static_cast<const E*>(w_qkv_t),
+      static_cast<const float*>(b_qkv), static_cast<E*>(qkv_scratch), M, C, 3 * D, eps, s);
   if (e != cudaSuccess) return (int)e;
-  e = gg::launch_window_attention(static_cast<const gg::bf16*>(qkv_scratch),
-                                  static_cast<const gg::bf16*>(bias),
-                                  static_cast<gg::bf16*>(attn_scratch), num_windows, N, H, hd,
-                                  scale, s, rows);
+  e = gg::launch_window_attention(static_cast<const E*>(qkv_scratch),
+                                  static_cast<const E*>(bias), static_cast<E*>(attn_scratch),
+                                  num_windows, N, H, hd, scale, s, rows);
   if (e != cudaSuccess) return (int)e;
   return (int)gg::launch_ln_gemm<false, false>(
-      static_cast<const gg::bf16*>(attn_scratch), nullptr, nullptr,
-      static_cast<const gg::bf16*>(w_proj_t), static_cast<const float*>(b_proj),
-      static_cast<gg::bf16*>(out), M, D, C, eps, s);
+      static_cast<const E*>(attn_scratch), nullptr, nullptr, static_cast<const E*>(w_proj_t),
+      static_cast<const float*>(b_proj), static_cast<E*>(out), M, D, C, eps, s);
+}
+
+}  // namespace
+
+extern "C" int fb4d_bf16(const void* x, const void* ln_scale, const void* ln_bias,
+                         const void* w_qkv_t, const void* b_qkv, const void* w_proj_t,
+                         const void* b_proj, const void* bias, void* qkv_scratch,
+                         void* attn_scratch, void* out, int B, int Hm, int Wm, int C, int H,
+                         int hd, int window, float scale, float eps, void* stream) {
+  return fb4d<gg::bf16>(x, ln_scale, ln_bias, w_qkv_t, b_qkv, w_proj_t, b_proj, bias,
+                        qkv_scratch, attn_scratch, out, B, Hm, Wm, C, H, hd, window, scale, eps,
+                        stream);
+}
+
+extern "C" int fb4d_f32(const void* x, const void* ln_scale, const void* ln_bias,
+                        const void* w_qkv_t, const void* b_qkv, const void* w_proj_t,
+                        const void* b_proj, const void* bias, void* qkv_scratch,
+                        void* attn_scratch, void* out, int B, int Hm, int Wm, int C, int H,
+                        int hd, int window, float scale, float eps, void* stream) {
+  return fb4d<float>(x, ln_scale, ln_bias, w_qkv_t, b_qkv, w_proj_t, b_proj, bias, qkv_scratch,
+                     attn_scratch, out, B, Hm, Wm, C, H, hd, window, scale, eps, stream);
 }

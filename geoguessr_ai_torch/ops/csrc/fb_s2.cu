@@ -14,22 +14,42 @@
 // attention kernel keeps scores and probabilities in registers.  The qkv
 // tensor's round trip through device memory (W*N*3D*2 bytes each way) is
 // the known gap against the TPU kernel, which kept qkv in VMEM.
+// The _f32 twin runs the same two launches in f32 (common.cuh "Element
+// types").
 #include "common.cuh"
 
-extern "C" int fb_s2_bf16(const void* x, const void* ln_scale, const void* ln_bias,
-                          const void* w_qkv_t, const void* b_qkv, const void* bias,
-                          void* qkv_scratch, void* out, int W, int N, int C, int H,
-                          int hd,
-                          float scale, float eps, void* stream) {
+namespace {
+
+template <class E>
+int fb_s2(const void* x, const void* ln_scale, const void* ln_bias, const void* w_qkv_t,
+          const void* b_qkv, const void* bias, void* qkv_scratch, void* out, int W, int N, int C,
+          int H, int hd, float scale, float eps, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int D = H * hd;
   cudaError_t e = gg::launch_ln_gemm<true, true>(
-      static_cast<const gg::bf16*>(x), static_cast<const float*>(ln_scale),
-      static_cast<const float*>(ln_bias), static_cast<const gg::bf16*>(w_qkv_t),
-      static_cast<const float*>(b_qkv), static_cast<gg::bf16*>(qkv_scratch), W * N, C, 3 * D,
-      eps, s);
+      static_cast<const E*>(x), static_cast<const float*>(ln_scale),
+      static_cast<const float*>(ln_bias), static_cast<const E*>(w_qkv_t),
+      static_cast<const float*>(b_qkv), static_cast<E*>(qkv_scratch), W * N, C, 3 * D, eps, s);
   if (e != cudaSuccess) return (int)e;
-  return (int)gg::launch_window_attention(
-      static_cast<const gg::bf16*>(qkv_scratch), static_cast<const gg::bf16*>(bias),
-      static_cast<gg::bf16*>(out), W, N, H, hd, scale, s);
+  return (int)gg::launch_window_attention(static_cast<const E*>(qkv_scratch),
+                                          static_cast<const E*>(bias), static_cast<E*>(out), W,
+                                          N, H, hd, scale, s);
+}
+
+}  // namespace
+
+extern "C" int fb_s2_bf16(const void* x, const void* ln_scale, const void* ln_bias,
+                          const void* w_qkv_t, const void* b_qkv, const void* bias,
+                          void* qkv_scratch, void* out, int W, int N, int C, int H, int hd,
+                          float scale, float eps, void* stream) {
+  return fb_s2<gg::bf16>(x, ln_scale, ln_bias, w_qkv_t, b_qkv, bias, qkv_scratch, out, W, N, C,
+                         H, hd, scale, eps, stream);
+}
+
+extern "C" int fb_s2_f32(const void* x, const void* ln_scale, const void* ln_bias,
+                         const void* w_qkv_t, const void* b_qkv, const void* bias,
+                         void* qkv_scratch, void* out, int W, int N, int C, int H, int hd,
+                         float scale, float eps, void* stream) {
+  return fb_s2<float>(x, ln_scale, ln_bias, w_qkv_t, b_qkv, bias, qkv_scratch, out, W, N, C, H,
+                      hd, scale, eps, stream);
 }

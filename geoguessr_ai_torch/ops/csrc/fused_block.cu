@@ -17,28 +17,52 @@
 // qkv tensor and the attention output each make one round trip through
 // device memory, which the TPU kernel kept in VMEM: that is the known gap
 // for a later change.
+// The _f32 twin runs the same three launches in f32 (common.cuh "Element
+// types"): no rounding between them, split operands in every product.
 #include "common.cuh"
 
+namespace {
+
+template <class E>
+int fused_block(const void* x, const void* ln_scale, const void* ln_bias, const void* w_qkv_t,
+                const void* b_qkv, const void* w_proj_t, const void* b_proj, const void* bias,
+                void* qkv_scratch, void* attn_scratch, void* out, int W, int N, int C, int H,
+                int hd, float scale, float eps, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int D = H * hd;
+  cudaError_t e = gg::launch_ln_gemm<true, true>(
+      static_cast<const E*>(x), static_cast<const float*>(ln_scale),
+      static_cast<const float*>(ln_bias), static_cast<const E*>(w_qkv_t),
+      static_cast<const float*>(b_qkv), static_cast<E*>(qkv_scratch), W * N, C, 3 * D, eps, s);
+  if (e != cudaSuccess) return (int)e;
+  e = gg::launch_window_attention(static_cast<const E*>(qkv_scratch),
+                                  static_cast<const E*>(bias), static_cast<E*>(attn_scratch), W,
+                                  N, H, hd, scale, s);
+  if (e != cudaSuccess) return (int)e;
+  return (int)gg::launch_ln_gemm<false, false>(
+      static_cast<const E*>(attn_scratch), nullptr, nullptr, static_cast<const E*>(w_proj_t),
+      static_cast<const float*>(b_proj), static_cast<E*>(out), W * N, D, C, eps, s);
+}
+
+}  // namespace
+
+// x, the weights, bias, the scratch and out in bf16 (or f32 for the _f32
+// twin); ln_scale, ln_bias, b_qkv and b_proj f32.
 extern "C" int fused_block_bf16(const void* x, const void* ln_scale, const void* ln_bias,
                                 const void* w_qkv_t, const void* b_qkv, const void* w_proj_t,
                                 const void* b_proj, const void* bias, void* qkv_scratch,
                                 void* attn_scratch, void* out, int W, int N, int C, int H,
-                                int hd,
-                                float scale, float eps, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int D = H * hd;
-  cudaError_t e = gg::launch_ln_gemm<true, true>(
-      static_cast<const gg::bf16*>(x), static_cast<const float*>(ln_scale),
-      static_cast<const float*>(ln_bias), static_cast<const gg::bf16*>(w_qkv_t),
-      static_cast<const float*>(b_qkv), static_cast<gg::bf16*>(qkv_scratch), W * N, C, 3 * D,
-      eps, s);
-  if (e != cudaSuccess) return (int)e;
-  e = gg::launch_window_attention(static_cast<const gg::bf16*>(qkv_scratch),
-                                  static_cast<const gg::bf16*>(bias),
-                                  static_cast<gg::bf16*>(attn_scratch), W, N, H, hd, scale, s);
-  if (e != cudaSuccess) return (int)e;
-  return (int)gg::launch_ln_gemm<false, false>(
-      static_cast<const gg::bf16*>(attn_scratch), nullptr, nullptr,
-      static_cast<const gg::bf16*>(w_proj_t), static_cast<const float*>(b_proj),
-      static_cast<gg::bf16*>(out), W * N, D, C, eps, s);
+                                int hd, float scale, float eps, void* stream) {
+  return fused_block<gg::bf16>(x, ln_scale, ln_bias, w_qkv_t, b_qkv, w_proj_t, b_proj, bias,
+                               qkv_scratch, attn_scratch, out, W, N, C, H, hd, scale, eps,
+                               stream);
+}
+
+extern "C" int fused_block_f32(const void* x, const void* ln_scale, const void* ln_bias,
+                               const void* w_qkv_t, const void* b_qkv, const void* w_proj_t,
+                               const void* b_proj, const void* bias, void* qkv_scratch,
+                               void* attn_scratch, void* out, int W, int N, int C, int H, int hd,
+                               float scale, float eps, void* stream) {
+  return fused_block<float>(x, ln_scale, ln_bias, w_qkv_t, b_qkv, w_proj_t, b_proj, bias,
+                            qkv_scratch, attn_scratch, out, W, N, C, H, hd, scale, eps, stream);
 }

@@ -43,55 +43,72 @@
 // rounded to bf16; the depthwise MACs are f32 over bf16 taps, in the same
 // (di, dj) order; the residual add rounds to bf16 before the last GELU.
 // The Pallas kernel instead rounds each GEMM output to bf16 before applying
-// BN in bf16.
+// BN in bf16.  The _f32 twin (BackboneConfig dtype "float32") rounds
+// nothing: f32 x, weights, taps, hidden chunk and output, its products on
+// split operands (common.cuh "Element types"), in 190 KB of shared memory
+// (one block an SM).
 #include "mbconv.cuh"
 
 namespace gg {
 namespace mb {
 
-template <int C, bool EXACT>
+template <class ET, int C, bool EXACT>
 cudaError_t launch(const void* x, const void* w1t, const void* sb1, const void* w2,
                    const void* sb2, const void* w3t, const void* sb3, void* out, int B, int H,
                    int W, int E, cudaStream_t stream) {
-  const int smem = (int)Smem<C>::bytes;
-  cudaError_t e = cudaFuncSetAttribute(mbconv_kernel<C, EXACT, false>,
+  const int smem = (int)Smem<C, ET>::bytes;
+  cudaError_t e = cudaFuncSetAttribute(mbconv_kernel<C, EXACT, false, ET>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return e;
   dim3 grid((W + kTw - 1) / kTw, (H + kTh - 1) / kTh, B);
-  mbconv_kernel<C, EXACT, false><<<grid, kThreads, smem, stream>>>(
-      static_cast<const bf16*>(x), static_cast<const bf16*>(w1t),
-      static_cast<const float*>(sb1), static_cast<const float*>(w2),
-      static_cast<const float*>(sb2), static_cast<const bf16*>(w3t),
-      static_cast<const float*>(sb3), static_cast<bf16*>(out), H, W, E);
+  mbconv_kernel<C, EXACT, false, ET><<<grid, kThreads, smem, stream>>>(
+      static_cast<const ET*>(x), static_cast<const ET*>(w1t), static_cast<const float*>(sb1),
+      static_cast<const float*>(w2), static_cast<const float*>(sb2),
+      static_cast<const ET*>(w3t), static_cast<const float*>(sb3), static_cast<ET*>(out), H, W,
+      E);
   return cudaGetLastError();
 }
 
-template <int C>
+template <class ET, int C>
 cudaError_t launch_c(bool exact, const void* x, const void* w1t, const void* sb1,
                      const void* w2, const void* sb2, const void* w3t, const void* sb3,
                      void* out, int B, int H, int W, int E, cudaStream_t stream) {
-  return exact ? launch<C, true>(x, w1t, sb1, w2, sb2, w3t, sb3, out, B, H, W, E, stream)
-               : launch<C, false>(x, w1t, sb1, w2, sb2, w3t, sb3, out, B, H, W, E, stream);
+  return exact ? launch<ET, C, true>(x, w1t, sb1, w2, sb2, w3t, sb3, out, B, H, W, E, stream)
+               : launch<ET, C, false>(x, w1t, sb1, w2, sb2, w3t, sb3, out, B, H, W, E, stream);
+}
+
+template <class ET>
+int run(const void* x, const void* w1t, const void* sb1, const void* w2, const void* sb2,
+        const void* w3t, const void* sb3, void* out, int B, int H, int W, int C, int E,
+        int exact, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (E % kEc || B < 1 || B > 65535 || H < 1 || W < 1) return (int)cudaErrorInvalidValue;
+  switch (C) {
+    case 32:
+      return (int)launch_c<ET, 32>(exact, x, w1t, sb1, w2, sb2, w3t, sb3, out, B, H, W, E, s);
+    case 64:
+      return (int)launch_c<ET, 64>(exact, x, w1t, sb1, w2, sb2, w3t, sb3, out, B, H, W, E, s);
+    case 96:
+      return (int)launch_c<ET, 96>(exact, x, w1t, sb1, w2, sb2, w3t, sb3, out, B, H, W, E, s);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace mb
 }  // namespace gg
 
-// C in {32, 64, 96}, E a multiple of 64, 1 <= B <= 65535.
+// C in {32, 64, 96}, E a multiple of 64, 1 <= B <= 65535.  x, w1t, w3t and
+// out bf16 (or f32 for the _f32 twin, with the taps unrounded).
 extern "C" int mbconv_bf16(const void* x, const void* w1t, const void* sb1, const void* w2,
                            const void* sb2, const void* w3t, const void* sb3, void* out, int B,
                            int H, int W, int C, int E, int exact, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (E % gg::mb::kEc || B < 1 || B > 65535 || H < 1 || W < 1)
-    return (int)cudaErrorInvalidValue;
-  switch (C) {
-    case 32:
-      return (int)gg::mb::launch_c<32>(exact, x, w1t, sb1, w2, sb2, w3t, sb3, out, B, H, W, E, s);
-    case 64:
-      return (int)gg::mb::launch_c<64>(exact, x, w1t, sb1, w2, sb2, w3t, sb3, out, B, H, W, E, s);
-    case 96:
-      return (int)gg::mb::launch_c<96>(exact, x, w1t, sb1, w2, sb2, w3t, sb3, out, B, H, W, E, s);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
+  return gg::mb::run<gg::bf16>(x, w1t, sb1, w2, sb2, w3t, sb3, out, B, H, W, C, E, exact,
+                               stream);
+}
+
+extern "C" int mbconv_f32(const void* x, const void* w1t, const void* sb1, const void* w2,
+                          const void* sb2, const void* w3t, const void* sb3, void* out, int B,
+                          int H, int W, int C, int E, int exact, void* stream) {
+  return gg::mb::run<float>(x, w1t, sb1, w2, sb2, w3t, sb3, out, B, H, W, C, E, exact, stream);
 }

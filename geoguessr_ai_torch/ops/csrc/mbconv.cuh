@@ -4,7 +4,9 @@
 // mbconv.cu: one (image, 8 x 16 output tile) at a time, its (10, 18, C)
 // halo of x in shared memory, E walked in chunks of 64 channels through the
 // expand GEMM, the depthwise MACs and the project GEMM, the 4x-expanded
-// tensor never in device memory.
+// tensor never in device memory.  The tile is a template over the element
+// type ET of x, the 1x1 weights, the expanded chunk and out (common.cuh
+// "Element types"): bf16 for K10 and K12, float for K10's _f32 twin.
 #pragma once
 
 #include "common.cuh"
@@ -18,19 +20,21 @@ constexpr int kHw = kTw + 2;            // halo cols
 constexpr int kHalo = (kTh + 2) * kHw;  // 180 halo pixels
 constexpr int kHaloRows = 192;          // 12 m-tiles of the expand GEMM
 constexpr int kEc = 64;                 // expanded channels per chunk
-constexpr int kHPitch = kEc + 8;        // bf16 pitch of the expanded chunk and w3 chunk
+constexpr int kHPitch = kEc + 8;        // pitch (elements) of the expanded chunk and w3 chunk
 constexpr int kThreads = 256;
 
-// Byte offsets into dynamic shared memory.  Row pitches of C + 8 and 72
-// bf16 make every fragment read and write below free of bank conflicts.
-template <int C>
+// Byte offsets into dynamic shared memory (190 KB at C = 96 in f32).  Row
+// pitches of C + 8 and 72 elements make every fragment read and write below
+// free of bank conflicts.
+template <int C, class ET = bf16>
 struct Smem {
   static constexpr int kXPitch = C + 8;
-  static constexpr size_t xs = 0;                               // bf16 [kHaloRows][kXPitch]
-  static constexpr size_t w1s = xs + kHaloRows * kXPitch * 2;   // bf16 [kEc][kXPitch]
-  static constexpr size_t hs = w1s + kEc * kXPitch * 2;         // bf16 [kHalo][kHPitch]
-  static constexpr size_t w3s = hs + kHalo * kHPitch * 2;       // bf16 [C][kHPitch]
-  static constexpr size_t w2s = w3s + C * kHPitch * 2;          // f32 [9][kEc]
+  static constexpr size_t kE = sizeof(ET);
+  static constexpr size_t xs = 0;                                // ET [kHaloRows][kXPitch]
+  static constexpr size_t w1s = xs + kHaloRows * kXPitch * kE;   // ET [kEc][kXPitch]
+  static constexpr size_t hs = w1s + kEc * kXPitch * kE;         // ET [kHalo][kHPitch]
+  static constexpr size_t w3s = hs + kHalo * kHPitch * kE;       // ET [C][kHPitch]
+  static constexpr size_t w2s = w3s + C * kHPitch * kE;          // f32 [9][kEc]
   static constexpr size_t sb12 = w2s + 9 * kEc * 4;             // f32 [4][kEc]: s1 b1 s2 b2
   static constexpr size_t sb3 = sb12 + 4 * kEc * 4;             // f32 [2][C]
   static constexpr size_t bytes = sb3 + 2 * C * 4;
@@ -44,33 +48,34 @@ __device__ __forceinline__ float gelu(float x) {
   return x / (1.f + __expf(-2.f * u));
 }
 
-template <bool PLAIN>
+// K10's bf16 rounding points: none in K12 (PLAIN) or in f32.
+template <bool PLAIN, class ET>
 __device__ __forceinline__ float round_unless(float v) {
-  return PLAIN ? v : round_bf16(v);
+  return PLAIN ? v : round_e<ET>(v);
 }
 
 // Loads the (10, 18) halo of x around the output tile at (ty0, tx0) into
 // xs, zero outside the image and in the 12 pad rows.
-template <int C>
-__device__ __forceinline__ void load_halo(bf16* xs, const bf16* __restrict__ ximg, int ty0,
-                                          int tx0, int H, int W) {
-  constexpr int XP = Smem<C>::kXPitch;
-  constexpr int kVec = C / 8;  // 16-byte vectors per pixel of x
+template <int C, class ET>
+__device__ __forceinline__ void load_halo(ET* xs, const ET* __restrict__ ximg, int ty0, int tx0,
+                                          int H, int W) {
+  constexpr int XP = Smem<C, ET>::kXPitch;
+  constexpr int kVec = C / 8;  // vectors of 8 channels per pixel of x
   for (int i = threadIdx.x; i < kHaloRows * kVec; i += kThreads) {
     const int row = i / kVec, v = i - row * kVec;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
+    Vec8<ET> val{};
     if (row < kHalo) {
       const int hy = row / kHw, hx = row - hy * kHw;
       const int iy = ty0 - 1 + hy, ix = tx0 - 1 + hx;
       if (iy >= 0 && iy < H && ix >= 0 && ix < W)
-        val = *reinterpret_cast<const uint4*>(ximg + ((long)iy * W + ix) * C + v * 8);
+        val = load8(ximg + ((long)iy * W + ix) * C + v * 8);
     }
-    *reinterpret_cast<uint4*>(xs + row * XP + v * 8) = val;
+    store8(xs + row * XP + v * 8, val);
   }
 }
 
-// The same halo through cp.async (16 bytes a thread, zero-filled where the
-// source size is 0); the caller commits and waits.
+// The same halo in bf16 through cp.async (16 bytes a thread, zero-filled
+// where the source size is 0); the caller commits and waits.
 template <int C>
 __device__ __forceinline__ void load_halo_async(bf16* xs, const bf16* __restrict__ ximg, int ty0,
                                                 int tx0, int H, int W) {
@@ -111,22 +116,24 @@ __device__ __forceinline__ void cp_async_wait() {
 //   PLAIN = true (K12): the scales are 1 and the biases plain; GELU reads
 //     the f32 sums unrounded, and the residual is added in f32 to the
 //     unrounded projection.  Only GELU's output is rounded.
-template <int C, bool EXACT, bool PLAIN>
-__device__ __forceinline__ void mbconv_tile(unsigned char* smem, const bf16* xs,
-                                            const bf16* __restrict__ w1t,
+// In f32 (ET = float) nothing is rounded, and the expanded chunk and the
+// project GEMM's A fragments are split (common.cuh "Element types").
+template <int C, bool EXACT, bool PLAIN, class ET>
+__device__ __forceinline__ void mbconv_tile(unsigned char* smem, const ET* xs,
+                                            const ET* __restrict__ w1t,
                                             const float* __restrict__ sb1,
                                             const float* __restrict__ w2,
                                             const float* __restrict__ sb2,
-                                            const bf16* __restrict__ w3t,
+                                            const ET* __restrict__ w3t,
                                             const float* __restrict__ sb3,
-                                            bf16* __restrict__ out_img, int ty0, int tx0, int H,
+                                            ET* __restrict__ out_img, int ty0, int tx0, int H,
                                             int W, int E) {
-  using S = Smem<C>;
+  using S = Smem<C, ET>;
   constexpr int XP = S::kXPitch;
   constexpr int kVec = C / 8;
-  bf16* w1s = reinterpret_cast<bf16*>(smem + S::w1s);
-  bf16* hs = reinterpret_cast<bf16*>(smem + S::hs);
-  bf16* w3s = reinterpret_cast<bf16*>(smem + S::w3s);
+  ET* w1s = reinterpret_cast<ET*>(smem + S::w1s);
+  ET* hs = reinterpret_cast<ET*>(smem + S::hs);
+  ET* w3s = reinterpret_cast<ET*>(smem + S::w3s);
   float* w2s = reinterpret_cast<float*>(smem + S::w2s);
   float* sb12s = reinterpret_cast<float*>(smem + S::sb12);
   float* sb3s = reinterpret_cast<float*>(smem + S::sb3);
@@ -152,13 +159,11 @@ __device__ __forceinline__ void mbconv_tile(unsigned char* smem, const bf16* xs,
       for (int i = tid; i < 2 * C; i += kThreads) sb3s[i] = sb3[i];
     for (int i = tid; i < kEc * kVec; i += kThreads) {
       const int n = i / kVec, v = i - n * kVec;
-      *reinterpret_cast<uint4*>(w1s + n * XP + v * 8) =
-          *reinterpret_cast<const uint4*>(w1t + (long)(e0 + n) * C + v * 8);
+      store8(w1s + n * XP + v * 8, load8(w1t + (long)(e0 + n) * C + v * 8));
     }
     for (int i = tid; i < C * (kEc / 8); i += kThreads) {
       const int n = i / (kEc / 8), v = i - n * (kEc / 8);
-      *reinterpret_cast<uint4*>(w3s + n * kHPitch + v * 8) =
-          *reinterpret_cast<const uint4*>(w3t + (long)n * E + e0 + v * 8);
+      store8(w3s + n * kHPitch + v * 8, load8(w3t + (long)n * E + e0 + v * 8));
     }
     for (int i = tid; i < 9 * kEc; i += kThreads) {
       const int t = i / kEc, e = i - t * kEc;
@@ -184,16 +189,16 @@ __device__ __forceinline__ void mbconv_tile(unsigned char* smem, const bf16* xs,
         for (int t = 0; t < 4; ++t) acc[nt][t] = 0.f;
 #pragma unroll
       for (int ks = 0; ks < C / 16; ++ks) {
-        uint32_t a[4];
-        const bf16* ar = xs + (mt * 16 + g) * XP + ks * 16 + 2 * c;
-        a[0] = ld32(ar);
-        a[1] = ld32(ar + 8 * XP);
-        a[2] = ld32(ar + 8);
-        a[3] = ld32(ar + 8 * XP + 8);
+        Frag<ET> a[4];
+        const ET* ar = xs + (mt * 16 + g) * XP + ks * 16 + 2 * c;
+        a[0] = frag(ar);
+        a[1] = frag(ar + 8 * XP);
+        a[2] = frag(ar + 8);
+        a[3] = frag(ar + 8 * XP + 8);
 #pragma unroll
         for (int nt = 0; nt < 4; ++nt) {
-          const bf16* br = w1s + (nh * 32 + nt * 8 + g) * XP + ks * 16 + 2 * c;
-          mma_bf16_16816(acc[nt], a, ld32(br), ld32(br + 8));
+          const ET* br = w1s + (nh * 32 + nt * 8 + g) * XP + ks * 16 + 2 * c;
+          mma(acc[nt], a, frag(br), frag(br + 8));
         }
       }
 #pragma unroll
@@ -208,10 +213,12 @@ __device__ __forceinline__ void mbconv_tile(unsigned char* smem, const bf16* xs,
           const int ch = nh * 32 + nt * 8 + 2 * c;
           float v0 = 0.f, v1 = 0.f;
           if (inside) {
-            v0 = gelu<EXACT>(round_unless<PLAIN>(acc[nt][2 * half] * sb12s[ch] + sb12s[kEc + ch]));
-            v1 = gelu<EXACT>(round_unless<PLAIN>(acc[nt][2 * half + 1] * sb12s[ch + 1] + sb12s[kEc + ch + 1]));
+            v0 = gelu<EXACT>(
+                round_unless<PLAIN, ET>(acc[nt][2 * half] * sb12s[ch] + sb12s[kEc + ch]));
+            v1 = gelu<EXACT>(round_unless<PLAIN, ET>(acc[nt][2 * half + 1] * sb12s[ch + 1] +
+                                                     sb12s[kEc + ch + 1]));
           }
-          *reinterpret_cast<uint32_t*>(hs + row * kHPitch + ch) = pack_bf16(v0, v1);
+          store2(hs + row * kHPitch + ch, v0, v1);
         }
       }
     }
@@ -222,7 +229,7 @@ __device__ __forceinline__ void mbconv_tile(unsigned char* smem, const bf16* xs,
     // 3. the project GEMM, (16 x 64) . (64 x C), summed into acc3.
 #pragma unroll
     for (int ks = 0; ks < kEc / 16; ++ks) {
-      uint32_t a[4];
+      Frag<ET> a[4];
 #pragma unroll
       for (int q = 0; q < 4; ++q) {
         const int px = g + 8 * (q & 1);
@@ -232,21 +239,21 @@ __device__ __forceinline__ void mbconv_tile(unsigned char* smem, const bf16* xs,
         for (int di = 0; di < 3; ++di)
 #pragma unroll
           for (int dj = 0; dj < 3; ++dj) {
-            const float2 hv =
-                unpack_bf16(ld32(hs + ((warp + di) * kHw + px + dj) * kHPitch + ch));
+            const float2 hv = load2(hs + ((warp + di) * kHw + px + dj) * kHPitch + ch);
             const float2 wv = *reinterpret_cast<const float2*>(w2s + (di * 3 + dj) * kEc + ch);
             s0 += hv.x * wv.x;
             s1 += hv.y * wv.y;
           }
-        const float y0 = gelu<EXACT>(round_unless<PLAIN>(s0 * sb12s[2 * kEc + ch] + sb12s[3 * kEc + ch]));
-        const float y1 =
-            gelu<EXACT>(round_unless<PLAIN>(s1 * sb12s[2 * kEc + ch + 1] + sb12s[3 * kEc + ch + 1]));
-        a[q] = pack_bf16(y0, y1);
+        const float y0 =
+            gelu<EXACT>(round_unless<PLAIN, ET>(s0 * sb12s[2 * kEc + ch] + sb12s[3 * kEc + ch]));
+        const float y1 = gelu<EXACT>(
+            round_unless<PLAIN, ET>(s1 * sb12s[2 * kEc + ch + 1] + sb12s[3 * kEc + ch + 1]));
+        a[q] = pack_frag<ET>(y0, y1);
       }
 #pragma unroll
       for (int nt = 0; nt < C / 8; ++nt) {
-        const bf16* br = w3s + (nt * 8 + g) * kHPitch + ks * 16 + 2 * c;
-        mma_bf16_16816(acc3[nt], a, ld32(br), ld32(br + 8));
+        const ET* br = w3s + (nt * 8 + g) * kHPitch + ks * 16 + 2 * c;
+        mma(acc3[nt], a, frag(br), frag(br + 8));
       }
     }
   }
@@ -258,30 +265,31 @@ __device__ __forceinline__ void mbconv_tile(unsigned char* smem, const bf16* xs,
     const int px = g + 8 * half;
     const int ox = tx0 + px;
     if (oy >= H || ox >= W) continue;
-    const bf16* xc = xs + ((warp + 1) * kHw + px + 1) * XP;
-    bf16* orow = out_img + ((long)oy * W + ox) * C;
+    const ET* xc = xs + ((warp + 1) * kHw + px + 1) * XP;
+    ET* orow = out_img + ((long)oy * W + ox) * C;
 #pragma unroll
     for (int nt = 0; nt < C / 8; ++nt) {
       const int ch = nt * 8 + 2 * c;
-      const float p0 = round_unless<PLAIN>(acc3[nt][2 * half] * sb3s[ch] + sb3s[C + ch]);
-      const float p1 = round_unless<PLAIN>(acc3[nt][2 * half + 1] * sb3s[ch + 1] + sb3s[C + ch + 1]);
-      const float2 xv = unpack_bf16(ld32(xc + ch));
-      *reinterpret_cast<uint32_t*>(orow + ch) =
-          pack_bf16(gelu<EXACT>(round_unless<PLAIN>(xv.x + p0)), gelu<EXACT>(round_unless<PLAIN>(xv.y + p1)));
+      const float p0 = round_unless<PLAIN, ET>(acc3[nt][2 * half] * sb3s[ch] + sb3s[C + ch]);
+      const float p1 =
+          round_unless<PLAIN, ET>(acc3[nt][2 * half + 1] * sb3s[ch + 1] + sb3s[C + ch + 1]);
+      const float2 xv = load2(xc + ch);
+      store2(orow + ch, gelu<EXACT>(round_unless<PLAIN, ET>(xv.x + p0)),
+             gelu<EXACT>(round_unless<PLAIN, ET>(xv.y + p1)));
     }
   }
 }
 
 // One block of 8 warps per (image, 8 x 16 output tile): the halo, then the
-// tile.  K10 and K12a.
-template <int C, bool EXACT, bool PLAIN>
-__global__ void __launch_bounds__(kThreads, 2)
-mbconv_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w1t,
+// tile.  K10 and K12a: two blocks an SM in bf16, one in f32.
+template <int C, bool EXACT, bool PLAIN, class ET = bf16>
+__global__ void __launch_bounds__(kThreads, sizeof(ET) == 2 ? 2 : 1)
+mbconv_kernel(const ET* __restrict__ x, const ET* __restrict__ w1t,
               const float* __restrict__ sb1, const float* __restrict__ w2,
-              const float* __restrict__ sb2, const bf16* __restrict__ w3t,
-              const float* __restrict__ sb3, bf16* __restrict__ out, int H, int W, int E) {
+              const float* __restrict__ sb2, const ET* __restrict__ w3t,
+              const float* __restrict__ sb3, ET* __restrict__ out, int H, int W, int E) {
   extern __shared__ __align__(16) unsigned char smem[];
-  bf16* xs = reinterpret_cast<bf16*>(smem + Smem<C>::xs);
+  ET* xs = reinterpret_cast<ET*>(smem + Smem<C, ET>::xs);
   const int ty0 = blockIdx.y * kTh, tx0 = blockIdx.x * kTw;
   const long img = (long)blockIdx.z * H * W * C;
   load_halo<C>(xs, x + img, ty0, tx0, H, W);

@@ -13,7 +13,9 @@ package's ``_mbconv_xla``), a CUDA tensor launches the hand-written kernel
 ``csrc/mbconv.cu`` or raises.  Inference only, as in the JAX package: BN
 folds into per-channel (scale, bias) from the running statistics
 (``fold_bn``), and there is no backward.  Layouts are the JAX package's:
-x (B, H, W, C), w1 (C, E), w2 (3, 3, E) depthwise, w3 (E, C).  The wrapper
+x (B, H, W, C), w1 (C, E), w2 (3, 3, E) depthwise, w3 (E, C).  x is bf16
+or f32 (the compute dtype; the kernel has an entry for each) and the
+weights are cast to it, as the plain version casts them.  The wrapper
 ``_mbconv_cuda`` adds one to ``LAUNCHES`` each time it launches the kernel.
 """
 
@@ -22,7 +24,12 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from geoguessr_ai_torch.ops.window_attention import _check, _raise_on, _stream
+from geoguessr_ai_torch.ops.window_attention import (
+    _act_dtype,
+    _check,
+    _raise_on,
+    _stream,
+)
 
 #: Launches of the kernel wrapper since the last ``reset_launches()``.
 LAUNCHES = {"_mbconv_cuda": 0}
@@ -85,14 +92,15 @@ def _mbconv_cuda(x, w1, s1, b1, w2, s2, b2, w3, s3, b3, exact: bool):
         raise ValueError(
             f"the kernel takes C in {KERNEL_CHANNELS}, E a multiple of "
             f"{E_CHUNK} and 1 <= B <= 65535, got B={B}, C={C}, E={E}")
-    _check("x", x, (B, H, W, C))
-    bf = torch.bfloat16
+    dt = _act_dtype(x=x)
+    _check("x", x, (B, H, W, C), dt)
     # the kernel reads the 1x1 weights (out, in); no copy when w1 / w3 are
-    # the transposed views of contiguous bf16 conv weights the model passes
-    w1t = _check("w1", w1.t().to(bf).contiguous(), (E, C))
-    w3t = _check("w3", w3.t().to(bf).contiguous(), (C, E))
-    # depthwise taps rounded to bf16, then widened for the f32 MACs
-    w2r = _check("w2", w2.reshape(9, E).to(bf).float().contiguous(), (9, E),
+    # the transposed views of contiguous conv weights of x's dtype, as the
+    # model passes them
+    w1t = _check("w1", w1.t().to(dt).contiguous(), (E, C), dt)
+    w3t = _check("w3", w3.t().to(dt).contiguous(), (C, E), dt)
+    # depthwise taps rounded to x's dtype, then widened for the f32 MACs
+    w2r = _check("w2", w2.reshape(9, E).to(dt).float().contiguous(), (9, E),
                  torch.float32)
 
     def pair(s, b, n, name):
@@ -102,7 +110,7 @@ def _mbconv_cuda(x, w1, s1, b1, w2, s2, b2, w3, s3, b3, exact: bool):
     sb1, sb2, sb3 = pair(s1, b1, E, "s1/b1"), pair(s2, b2, E, "s2/b2"), \
         pair(s3, b3, C, "s3/b3")
     out = torch.empty_like(x)
-    fn = _build.entry("mbconv")
+    fn = _build.typed_entry("mbconv", "mbconv", dt)
     err = fn(x.data_ptr(), w1t.data_ptr(), sb1.data_ptr(), w2r.data_ptr(),
              sb2.data_ptr(), w3t.data_ptr(), sb3.data_ptr(), out.data_ptr(),
              B, H, W, C, E, int(exact), _stream())

@@ -28,11 +28,15 @@ Kernels:
 * K8a ``_attention_qtiled_cuda`` and K8b ``_attention_batched_cuda``: the
   head-major ``window_attention``, chosen as ``_attention_pallas`` chooses.
 
-The kernels take bf16 activations and weights and a head dim in
-``KERNEL_HEAD_DIMS``; the bias travels bf16 into
-K1-K4 and K9, as it does into the Pallas kernels, and f32 into K5, K7 and
-K8.  Every wrapper adds one to its entry in ``LAUNCHES`` each time it
-launches its kernel.
+The kernels take activations in one of ``KERNEL_DTYPES``, the compute
+dtype (``BackboneConfig.dtype``): each C entry has a bf16 and an f32 twin,
+and a CUDA tensor of another dtype, or operands of two dtypes, raises.
+Weights, the qkv bias and the attention bias are cast to the activations'
+dtype as the plain versions cast them; the attention bias travels in that
+dtype into K1-K4 and K9, as it does into the Pallas kernels, and f32 into
+K5, K7 and K8.  The head dim is one of ``KERNEL_HEAD_DIMS``.  Every
+wrapper adds one to its entry in ``LAUNCHES`` each time it launches its
+kernel.
 
 The module constants below are the JAX module's, with its defaults.  The
 JAX package reads them when it traces; the port reads them at each call,
@@ -59,6 +63,8 @@ LAUNCHES = {
 #: Head dims the kernels are built for: the multiples of mma.sync's k-step
 #: of 16 up to 64 (every TinyViT stage has 32).
 KERNEL_HEAD_DIMS = (16, 32, 64)
+#: Activation dtypes the kernels take (``_build.typed_entry``).
+KERNEL_DTYPES = (torch.bfloat16, torch.float32)
 
 #: Largest all-heads f32 score footprint H * N^2 * 4 that takes the
 #: small-N backward (K4); above it the large-N one (K5).  The JAX
@@ -238,6 +244,21 @@ def _check(name, t, shape, dtype=torch.bfloat16):
     return t
 
 
+def _act_dtype(**operands):
+    """The one dtype of the activation operands, one of KERNEL_DTYPES;
+    raises ValueError on another dtype or on operands of two dtypes."""
+    dtypes = {t.dtype for t in operands.values()}
+    if len(dtypes) > 1:
+        raise ValueError("the kernels take operands of one dtype, got mixed "
+                         + ", ".join(f"{n} {t.dtype}"
+                                     for n, t in operands.items()))
+    (dtype,) = dtypes
+    if dtype not in KERNEL_DTYPES:
+        raise ValueError(f"the kernels take torch.bfloat16 or torch.float32, "
+                         f"got {dtype}")
+    return dtype
+
+
 def _head_dim(D, H):
     """The head dim D / H, which must be one of KERNEL_HEAD_DIMS."""
     hd = D // H
@@ -267,18 +288,19 @@ def _stream():
 
 def _raise_on(err, name):
     if err:
-        raise RuntimeError(f"{name}: CUDA launch failed with error {err}")
+        raise RuntimeError(f"{name}: CUDA launch failed with error {err} "
+                           f"({torch.cuda.CudaError(err)})")
 
 
-def _bias_bf16(bias, H, N):
-    return _check("bias", bias.to(torch.bfloat16).contiguous(), (H, N, N))
+def _bias_as(bias, H, N, dtype):
+    return _check("bias", bias.to(dtype).contiguous(), (H, N, N), dtype)
 
 
-def _weight_t(w, rows, cols):
-    """(in, out) JAX-layout weight -> the (out, in) bf16 rows the kernel
-    reads.  No copy when w is the transpose view of a contiguous bf16
-    (out, in) weight, as the model passes it."""
-    return _check("weight", w.t().to(torch.bfloat16).contiguous(), (rows, cols))
+def _weight_t(w, rows, cols, dtype):
+    """(in, out) JAX-layout weight -> the (out, in) rows in ``dtype`` the
+    kernel reads.  No copy when w is the transpose view of a contiguous
+    (out, in) weight of that dtype, as the model passes it."""
+    return _check("weight", w.t().to(dtype).contiguous(), (rows, cols), dtype)
 
 
 def _vec_f32(v, n, name):
@@ -291,10 +313,11 @@ def _attention_qkv_fused_cuda(qkv, bias, scale, num_heads):
     W, N, D3 = qkv.shape
     D = D3 // 3
     hd = _check_geometry(W, N, 64, D, num_heads)
-    _check("qkv", qkv, (W, N, D3))
-    bias = _bias_bf16(bias, num_heads, N)
+    dt = _act_dtype(qkv=qkv)
+    _check("qkv", qkv, (W, N, D3), dt)
+    bias = _bias_as(bias, num_heads, N, dt)
     out = torch.empty((W, N, D), dtype=qkv.dtype, device=qkv.device)
-    fn = _build.entry("attention_qkv")
+    fn = _build.typed_entry("attention_qkv", "attention_qkv", dt)
     err = fn(qkv.data_ptr(), bias.data_ptr(), out.data_ptr(), W, N,
              num_heads, hd, float(scale), _stream())
     _raise_on(err, "_attention_qkv_fused_cuda")
@@ -309,16 +332,17 @@ def _fb_s2_cuda(x, ln_scale, ln_bias, w_qkv, b_qkv, bias, scale,
     W, N, C = x.shape
     D = w_qkv.shape[1] // 3
     hd = _check_geometry(W, N, C, D, num_heads, gemm=True)
-    _check("x", x, (W, N, C))
+    dt = _act_dtype(x=x)
+    _check("x", x, (W, N, C), dt)
     ls = _vec_f32(ln_scale, C, "ln_scale")
     lb = _vec_f32(ln_bias, C, "ln_bias")
-    wq = _weight_t(w_qkv, 3 * D, C)
-    # the qkv GEMM adds a bf16 bias, as the TPU kernel does
-    bq = _vec_f32(b_qkv.to(torch.bfloat16), 3 * D, "b_qkv")
-    bias = _bias_bf16(bias, num_heads, N)
+    wq = _weight_t(w_qkv, 3 * D, C, dt)
+    # the qkv GEMM adds its bias in x's dtype, as the TPU kernel does
+    bq = _vec_f32(b_qkv.to(dt), 3 * D, "b_qkv")
+    bias = _bias_as(bias, num_heads, N, dt)
     qkv = torch.empty((W, N, 3 * D), dtype=x.dtype, device=x.device)
     out = torch.empty((W, N, D), dtype=x.dtype, device=x.device)
-    fn = _build.entry("fb_s2")
+    fn = _build.typed_entry("fb_s2", "fb_s2", dt)
     err = fn(x.data_ptr(), ls.data_ptr(), lb.data_ptr(), wq.data_ptr(),
              bq.data_ptr(), bias.data_ptr(), qkv.data_ptr(), out.data_ptr(),
              W, N, C, num_heads, hd, float(scale), float(eps), _stream())
@@ -339,18 +363,19 @@ def _fused_block_launch(lib, x, ln_scale, ln_bias, w_qkv, b_qkv, w_proj,
     C = x.shape[-1]
     D = w_proj.shape[0]
     rows = x.shape[:-1]
+    dt = x.dtype
     ls = _vec_f32(ln_scale, C, "ln_scale")
     lb = _vec_f32(ln_bias, C, "ln_bias")
-    wq = _weight_t(w_qkv, 3 * D, C)
-    # the qkv GEMM adds a bf16 bias, as the TPU kernel does
-    bq = _vec_f32(b_qkv.to(torch.bfloat16), 3 * D, "b_qkv")
-    wp = _weight_t(w_proj, C, D)
+    wq = _weight_t(w_qkv, 3 * D, C, dt)
+    # the qkv GEMM adds its bias in x's dtype, as the TPU kernel does
+    bq = _vec_f32(b_qkv.to(dt), 3 * D, "b_qkv")
+    wp = _weight_t(w_proj, C, D, dt)
     bp = _vec_f32(b_proj, C, "b_proj")
-    bias = _bias_bf16(bias, num_heads, N)
+    bias = _bias_as(bias, num_heads, N, dt)
     qkv = torch.empty((*rows, 3 * D), dtype=x.dtype, device=x.device)
     attn = torch.empty((*rows, D), dtype=x.dtype, device=x.device)
     out = torch.empty_like(x)
-    err = _build.entry(lib)(
+    err = _build.typed_entry(lib, lib, dt)(
         x.data_ptr(), ls.data_ptr(), lb.data_ptr(), wq.data_ptr(),
         bq.data_ptr(), wp.data_ptr(), bp.data_ptr(), bias.data_ptr(),
         qkv.data_ptr(), attn.data_ptr(), out.data_ptr(), *tail, _stream())
@@ -361,7 +386,7 @@ def _fused_block_cuda(x, ln_scale, ln_bias, w_qkv, b_qkv, w_proj, b_proj,
                       bias, scale, num_heads, eps):
     W, N, C = x.shape
     hd = _check_geometry(W, N, C, w_proj.shape[0], num_heads, gemm=True)
-    _check("x", x, (W, N, C))
+    _check("x", x, (W, N, C), _act_dtype(x=x))
     err, out = _fused_block_launch(
         "fused_block", x, ln_scale, ln_bias, w_qkv, b_qkv, w_proj, b_proj,
         bias, num_heads, N,
@@ -382,7 +407,7 @@ def _fb4d_cuda(x, ln_scale, ln_bias, w_qkv, b_qkv, w_proj, b_proj, bias,
                          f"{window}x{window} windows")
     hd = _check_geometry(B * (Hm // window) * (Wm // window), N, C,
                          w_proj.shape[0], num_heads, gemm=True)
-    _check("x", x, (B, Hm, Wm, C))
+    _check("x", x, (B, Hm, Wm, C), _act_dtype(x=x))
     # qkv and the attention output stay in map order, like x and out
     err, out = _fused_block_launch(
         "fb4d", x, ln_scale, ln_bias, w_qkv, b_qkv, w_proj, b_proj, bias,
@@ -413,11 +438,14 @@ def _pad_tokens(qkv, bias, g, pad):
 
 
 def _attention_bwd_cuda(name, lib, qkv, bias, g, scale, num_heads,
-                        bias_dtype):
-    """K4, K5 or K7's launch; an N that is not a multiple of 64 (a ragged
-    window such as 14x14 or 28x28) runs padded (``_pad_tokens``)."""
+                        bias_dtype=None):
+    """K4, K5 or K7's launch, the bias in ``bias_dtype`` (None: qkv's
+    dtype); an N that is not a multiple of 64 (a ragged window such as
+    14x14 or 28x28) runs padded (``_pad_tokens``)."""
     from geoguessr_ai_torch.ops import _build
 
+    dt = _act_dtype(qkv=qkv, g=g)
+    bias_dtype = bias_dtype or dt
     N = qkv.shape[1]
     pad = -N % 64
     if pad:
@@ -425,8 +453,8 @@ def _attention_bwd_cuda(name, lib, qkv, bias, g, scale, num_heads,
     W, Np, D3 = qkv.shape
     D = D3 // 3
     hd = _check_geometry(W, Np, 64, D, num_heads)
-    _check("qkv", qkv, (W, Np, D3))
-    _check("g", g, (W, Np, D))
+    _check("qkv", qkv, (W, Np, D3), dt)
+    _check("g", g, (W, Np, D), dt)
     bias = _check("bias", bias.to(bias_dtype).contiguous(),
                   (num_heads, Np, Np), bias_dtype)
     dqkv = torch.empty_like(qkv)
@@ -435,7 +463,7 @@ def _attention_bwd_cuda(name, lib, qkv, bias, g, scale, num_heads,
     # row max, 1 / row sum and t per (window, head, query)
     stats = torch.empty((3, W, num_heads, Np), dtype=torch.float32,
                         device=qkv.device)
-    fn = _build.entry(lib)
+    fn = _build.typed_entry(lib, lib, dt)
     err = fn(qkv.data_ptr(), bias.data_ptr(), g.data_ptr(), dqkv.data_ptr(),
              dbias.data_ptr(), stats.data_ptr(), W, Np, num_heads, hd,
              float(scale), _stream())
@@ -448,23 +476,25 @@ def _attention_bwd_cuda(name, lib, qkv, bias, g, scale, num_heads,
 
 
 def _attention_qkv_bwd_cuda(qkv, bias, g, scale, num_heads):
-    """K4: (d_qkv bf16, d_bias f32) with the bias rounded to bf16, d_bias
-    summed over the windows in order (bitwise reproducible)."""
+    """K4: (d_qkv in qkv's dtype, d_bias f32) with the bias in qkv's dtype
+    (rounded to bf16 in bf16), d_bias summed over the windows in order
+    (bitwise reproducible)."""
     return _attention_bwd_cuda("_attention_qkv_bwd_cuda", "attention_qkv_bwd",
-                               qkv, bias, g, scale, num_heads, torch.bfloat16)
+                               qkv, bias, g, scale, num_heads)
 
 
 def _attention_bwd_merged_cuda(qkv, bias, g, scale, num_heads):
-    """K5: (d_qkv bf16, d_bias f32) with the bias in f32, d_bias summed over
-    the windows in order (bitwise reproducible)."""
+    """K5: (d_qkv in qkv's dtype, d_bias f32) with the bias in f32, d_bias
+    summed over the windows in order (bitwise reproducible)."""
     return _attention_bwd_cuda("_attention_bwd_merged_cuda",
                                "attention_bwd_merged", qkv, bias, g, scale,
                                num_heads, torch.float32)
 
 
 def _attention_bwd_qtiled_cuda(qkv, bias, g, scale, num_heads):
-    """K7: (d_qkv bf16, d_bias f32) with the bias in f32, two launches,
-    d_bias summed over the windows in order (bitwise reproducible)."""
+    """K7: (d_qkv in qkv's dtype, d_bias f32) with the bias in f32, two
+    launches, d_bias summed over the windows in order (bitwise
+    reproducible)."""
     return _attention_bwd_cuda("_attention_bwd_qtiled_cuda",
                                "attention_bwd_qtiled", qkv, bias, g, scale,
                                num_heads, torch.float32)
@@ -472,26 +502,28 @@ def _attention_bwd_qtiled_cuda(qkv, bias, g, scale, num_heads):
 
 def _headmajor_operands(q, k, v, bias):
     """Checks the head-major operands; returns (W, H, N, hd, the f32
-    bias)."""
+    bias, their dtype)."""
     W, H, N, hd = q.shape
     _head_dim(H * hd, H)
     if N % 64 or not 1 <= W <= 65535 or H > 65535:
         raise ValueError(f"the kernels take N a multiple of 64, "
                          f"1 <= W <= 65535 and H <= 65535, got W={W}, "
                          f"N={N}, H={H}")
+    dt = _act_dtype(q=q, k=k, v=v)
     for name, t in (("q", q), ("k", k), ("v", v)):
-        _check(name, t, (W, H, N, hd))
+        _check(name, t, (W, H, N, hd), dt)
     bias = _check("bias", bias.float().contiguous(), (H, N, N), torch.float32)
-    return W, H, N, hd, bias
+    return W, H, N, hd, bias, dt
 
 
 def _attention_qtiled_cuda(q, k, v, bias, scale):
-    """K8a: (W, H, N, hd) bf16 q, k, v and an f32 bias -> (W, H, N, hd)."""
+    """K8a: (W, H, N, hd) q, k, v (bf16 or f32) and an f32 bias ->
+    (W, H, N, hd) in q's dtype."""
     from geoguessr_ai_torch.ops import _build
 
-    W, H, N, hd, bias = _headmajor_operands(q, k, v, bias)
+    W, H, N, hd, bias, dt = _headmajor_operands(q, k, v, bias)
     out = torch.empty_like(q)
-    err = _build.entry("attention_headmajor", "attention_qtiled_bf16")(
+    err = _build.typed_entry("attention_headmajor", "attention_qtiled", dt)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
         out.data_ptr(), W, H, N, hd, float(scale), _stream())
     _raise_on(err, "_attention_qtiled_cuda")
@@ -505,13 +537,13 @@ def _attention_batched_cuda(q, k, v, bias, scale):
     in shared memory)."""
     from geoguessr_ai_torch.ops import _build
 
-    W, H, N, hd, bias = _headmajor_operands(q, k, v, bias)
+    W, H, N, hd, bias, dt = _headmajor_operands(q, k, v, bias)
     block_w = min(BLOCK_W, W)
     if W % block_w or N >= 512:
         raise ValueError(f"K8b takes W a multiple of BLOCK_W={BLOCK_W} and "
                          f"N < 512, got W={W}, N={N}")
     out = torch.empty_like(q)
-    err = _build.entry("attention_headmajor", "attention_batched_bf16")(
+    err = _build.typed_entry("attention_headmajor", "attention_batched", dt)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
         out.data_ptr(), W, H, N, hd, block_w, float(scale), _stream())
     _raise_on(err, "_attention_batched_cuda")

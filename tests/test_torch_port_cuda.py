@@ -49,14 +49,14 @@ def cuda_device():
     return torch.device("cuda")
 
 
-def _inputs(W, N, C, H, device, seed=0):
+def _inputs(W, N, C, H, device, seed=0, dtype=torch.bfloat16):
     rng = np.random.default_rng(seed)
 
     def t(*shape, mean=0.0, std=0.1):
         a = rng.normal(mean, std, shape).astype(np.float32)
         return torch.from_numpy(a).to(device)
 
-    return dict(x=t(W, N, C, std=1.0).bfloat16(), ln_scale=t(C, mean=1.0),
+    return dict(x=t(W, N, C, std=1.0).to(dtype), ln_scale=t(C, mean=1.0),
                 ln_bias=t(C), w_qkv=t(C, 3 * C), b_qkv=t(3 * C),
                 w_proj=t(C, C), b_proj=t(C), bias=t(H, N, N, std=0.5))
 
@@ -102,9 +102,9 @@ def _rel_err(got, want):
     return float((got.float() - want).abs().max() / want.abs().max())
 
 
-def _bwd_inputs(W, N, H, device, seed=0, hd=HD):
-    """qkv and the cotangent g in bf16, an f32 bias: as the train path
-    hands them to the attention backward."""
+def _bwd_inputs(W, N, H, device, seed=0, hd=HD, dtype=torch.bfloat16):
+    """qkv and the cotangent g in ``dtype``, an f32 bias: as the train
+    path hands them to the attention backward."""
     rng = np.random.default_rng(seed)
     D = H * hd
 
@@ -112,7 +112,8 @@ def _bwd_inputs(W, N, H, device, seed=0, hd=HD):
         return torch.from_numpy(rng.normal(0, std, shape).astype(np.float32)
                                 ).to(device)
 
-    return t(W, N, 3 * D).bfloat16(), t(H, N, N, std=0.5), t(W, N, D).bfloat16()
+    return (t(W, N, 3 * D).to(dtype), t(H, N, N, std=0.5),
+            t(W, N, D).to(dtype))
 
 
 @pytest.mark.cuda
@@ -193,8 +194,11 @@ def test_cuda_op_gradients_match_plain_autograd(cuda_device, op):
 def test_cuda_wrappers_refuse_what_the_kernels_do_not_take(cuda_device):
     a = _inputs(2, 256, 192, 6, cuda_device)
     args = [a[k] for k in _K2_KEYS]
-    with pytest.raises(ValueError, match="bfloat16"):
-        wa._fb_s2_cuda(args[0].float(), *args[1:], 0.18, 6, 1e-5)
+    with pytest.raises(ValueError, match="bfloat16 or torch.float32"):
+        wa._fb_s2_cuda(args[0].half(), *args[1:], 0.18, 6, 1e-5)
+    qkv, bias, g = _bwd_inputs(2, 256, 6, cuda_device)
+    with pytest.raises(ValueError, match="mixed"):
+        wa._attention_qkv_bwd_cuda(qkv, bias, g.float(), 0.18, 6)
     with pytest.raises(ValueError, match="head dim"):
         wa._fb_s2_cuda(*args[:-1], a["bias"][:4], 0.18, 4, 1e-5)
     qkv = torch.zeros(2, 100, 576, dtype=torch.bfloat16, device=cuda_device)
@@ -238,14 +242,14 @@ def test_narrow_engine_on_the_card_matches_the_cpu(cuda_device):
 CLIP_SHAPES = [(2, 577, 256, 4), (3, 50, 128, 2)]
 
 
-def _clip_inputs(B, N, D, device, seed=0):
-    """qkv as the fused GEMM hands it over (bf16), and a (D, D) out-proj
-    weight in (in, out) layout."""
+def _clip_inputs(B, N, D, device, seed=0, dtype=torch.bfloat16):
+    """qkv as the fused GEMM hands it over (in ``dtype``), and a (D, D)
+    out-proj weight in (in, out) layout."""
     rng = np.random.default_rng(seed)
     qkv = rng.normal(0, 1, (B, N, 3 * D)).astype(np.float32)
     w = rng.normal(0, D ** -0.5, (D, D)).astype(np.float32)
-    return (torch.from_numpy(qkv).to(device).bfloat16(),
-            torch.from_numpy(w).to(device).bfloat16())
+    return (torch.from_numpy(qkv).to(device, dtype),
+            torch.from_numpy(w).to(device, dtype))
 
 
 @pytest.mark.cuda
@@ -295,8 +299,10 @@ def test_cuda_clip_op_gradients_match_plain_autograd(cuda_device, op):
 @pytest.mark.cuda
 def test_cuda_clip_wrappers_refuse_what_the_kernels_do_not_take(cuda_device):
     qkv, w = _clip_inputs(2, 50, 128, cuda_device)
-    with pytest.raises(ValueError, match="bfloat16"):
-        ca._flash_cuda(qkv.float(), 0.125, 2)
+    with pytest.raises(ValueError, match="bfloat16 or torch.float32"):
+        ca._flash_cuda(qkv.half(), 0.125, 2)
+    with pytest.raises(ValueError, match="bfloat16 or torch.float32"):
+        ca._flash_proj_cuda(qkv.half(), w, 0.125, 2)
     with pytest.raises(ValueError, match="head dim"):
         ca._flash_cuda(qkv, 0.125, 3)  # D=128 is no whole number of heads
     with pytest.raises(ValueError, match="w_proj"):
@@ -355,8 +361,8 @@ def test_narrow_clip_engine_on_the_card_matches_the_cpu(cuda_device,
 FB4D_SHAPES = [(2, 64, 64, 192, 6), (1, 32, 32, 64, 2)]
 
 
-def _fb4d_args(B, Hm, Wm, C, H, device, seed=0):
-    a = _inputs(B * Hm * Wm // 256, 256, C, H, device, seed)
+def _fb4d_args(B, Hm, Wm, C, H, device, seed=0, dtype=torch.bfloat16):
+    a = _inputs(B * Hm * Wm // 256, 256, C, H, device, seed, dtype)
     a["x"] = a["x"].reshape(B, Hm, Wm, C)
     return [a[k] for k in _K1_KEYS], (C // H) ** -0.5, H
 
@@ -392,8 +398,9 @@ def test_cuda_fb4d_gradients_match_plain_autograd(cuda_device):
         assert _rel_err(a, b) < GRAD_REL_TOL, (i, _rel_err(a, b))
 
 
-def _mbconv_args(B, H, W, C, E, device, seed=0):
-    """bf16 x, f32 conv weights in the JAX layouts and folded BN pairs."""
+def _mbconv_args(B, H, W, C, E, device, seed=0, dtype=torch.bfloat16):
+    """x in ``dtype``, f32 conv weights in the JAX layouts and folded BN
+    pairs."""
     from geoguessr_ai_torch.ops.mbconv import fold_bn
 
     rng = np.random.default_rng(seed)
@@ -407,7 +414,7 @@ def _mbconv_args(B, H, W, C, E, device, seed=0):
         return fold_bn(t(n, mean=1.0, std=0.1), t(n, std=0.1),
                        t(n, std=0.1), var.to(device))
 
-    return (t(B, H, W, C).bfloat16(), t(C, E, std=C ** -0.5), *folded(E),
+    return (t(B, H, W, C).to(dtype), t(C, E, std=C ** -0.5), *folded(E),
             t(3, 3, E, std=3 ** -1), *folded(E), t(E, C, std=E ** -0.5),
             *folded(C))
 
@@ -448,8 +455,8 @@ def test_cuda_fused_mbconv_refuses_autograd_and_odd_shapes(cuda_device):
         mbconv._mbconv_cuda(args[0][..., :16].contiguous(), args[1][:16],
                             *args[2:7], args[7][:, :16], *(a[:16] for a in
                                                             args[8:]), False)
-    with pytest.raises(ValueError, match="bfloat16"):
-        mbconv._mbconv_cuda(args[0].float(), *args[1:], False)
+    with pytest.raises(ValueError, match="bfloat16 or torch.float32"):
+        mbconv._mbconv_cuda(args[0].half(), *args[1:], False)
 
 
 @pytest.mark.cuda
@@ -496,14 +503,14 @@ HEADMAJOR_SHAPES = [("K8b", 1024, 6, 256), ("K8b", 64, 18, 256),
                     ("K8a", 64, 12, 1024), ("K8a", 4, 18, 256)]
 
 
-def _headmajor_inputs(W, H, N, device, seed=0, hd=HD):
+def _headmajor_inputs(W, H, N, device, seed=0, hd=HD, dtype=torch.bfloat16):
     rng = np.random.default_rng(seed)
 
     def t(*shape, std=1.0):
         return torch.from_numpy(rng.normal(0, std, shape).astype(np.float32)
                                 ).to(device)
 
-    q, k, v = (t(W, H, N, hd).bfloat16() for _ in range(3))
+    q, k, v = (t(W, H, N, hd).to(dtype) for _ in range(3))
     return q, k, v, t(H, N, N, std=0.5)
 
 
@@ -601,7 +608,9 @@ def test_cuda_qkv_xla_route_backward_launches_the_kernel(cuda_device, N, H,
 def test_cuda_headmajor_wrappers_refuse_what_the_kernels_do_not_take(
         cuda_device):
     q, k, v, bias = _headmajor_inputs(8, 2, 256, cuda_device)
-    with pytest.raises(ValueError, match="bfloat16"):
+    with pytest.raises(ValueError, match="bfloat16 or torch.float32"):
+        wa._attention_qtiled_cuda(q.half(), k.half(), v.half(), bias, 0.18)
+    with pytest.raises(ValueError, match="mixed"):
         wa._attention_qtiled_cuda(q.float(), k, v, bias, 0.18)
     with pytest.raises(ValueError, match="head dim"):  # hd 8
         wa._attention_qtiled_cuda(q[..., :8].contiguous(),
@@ -864,3 +873,177 @@ def test_cuda_tiled_matmul_matches_plain(cuda_device, M, K, N):
         < KERNEL_REL_TOL
     with pytest.raises(ValueError, match="multiples of 128"):
         tg.tiled_matmul(a[:100], b, torch.float32)
+
+
+# ---------------------------------------------------------------------------
+# The f32 compute dtype: every f32 entry against its plain f32 version, the
+# autograd ops' f32 gradients, and K14 (ops/experimental/smem_probe.py)
+
+#: f32 kernel vs its plain f32 version on the card: max |k - p| / max |p|.
+#: The kernels split each f32 operand into a bf16 (hi, lo) pair (about
+#: 2^-17 of error a product, common.cuh "Element types"); bf16 operands,
+#: at 2^-9 each, would miss this bound.
+F32_REL_TOL = 1e-3
+#: hd -> (C = D, H) of the f32 cases: D a multiple of 64, as the fused
+#: kernels' GEMMs need.
+F32_WIDTHS = {16: (64, 4), 32: (64, 2), 64: (128, 2)}
+F32 = torch.float32
+
+
+def _f32_case(kernel, hd, device):
+    """(name, kernel fn, plain fn, args, launch counters) at a narrow
+    width and head dim ``hd``, every operand in f32."""
+    from geoguessr_ai_torch.ops import mbconv
+
+    C, H = F32_WIDTHS[hd]
+    scale = hd ** -0.5
+    if kernel in ("K4", "K5", "K7"):
+        W, N = (4, 256) if kernel == "K4" else (2, 1024)
+        name, plain = {
+            "K4": ("_attention_qkv_bwd_cuda", wa._attention_qkv_bwd_plain),
+            "K5": ("_attention_bwd_merged_cuda",
+                   wa._attention_bwd_merged_plain),
+            "K7": ("_attention_bwd_qtiled_cuda",
+                   wa._attention_bwd_qtiled_plain)}[kernel]
+        qkv, bias, g = _bwd_inputs(W, N, H, device, seed=8, hd=hd, dtype=F32)
+        return (name, getattr(wa, name), plain, (qkv, bias, g, scale, H),
+                wa.LAUNCHES)
+    if kernel in ("K8a", "K8b"):
+        W, N = (2, 1024) if kernel == "K8a" else (8, 256)
+        name = {"K8a": "_attention_qtiled_cuda",
+                "K8b": "_attention_batched_cuda"}[kernel]
+        args = (*_headmajor_inputs(W, H, N, device, seed=8, hd=hd,
+                                   dtype=F32), scale)
+        return name, getattr(wa, name), wa._attention_plain, args, wa.LAUNCHES
+    if kernel in ("K6", "K11"):
+        Hc = {16: 8, 32: 4, 64: 2}[hd]
+        qkv, w = _clip_inputs(2, 577, Hc * hd, device, seed=8, dtype=F32)
+        if kernel == "K6":
+            return ("_flash_cuda", ca._flash_cuda, ca._flash_plain,
+                    (qkv, scale, Hc), ca.LAUNCHES)
+        return ("_flash_proj_cuda", ca._flash_proj_cuda, ca._flash_proj_plain,
+                (qkv, w, scale, Hc), ca.LAUNCHES)
+    if kernel == "K10":
+        args = (*_mbconv_args(2, 20, 24, 32, 128, device, seed=8, dtype=F32),
+                False)
+        return ("_mbconv_cuda", mbconv._mbconv_cuda, mbconv._mbconv_plain,
+                args, mbconv.LAUNCHES)
+    if kernel == "K9":
+        args = _fb4d_args(2, 32, 32, C, H, device, seed=8, dtype=F32)[0] + [
+            scale, H, 16, 1e-5]
+        return "_fb4d_cuda", wa._fb4d_cuda, wa._fb4d_plain, args, wa.LAUNCHES
+    a = _inputs(4, 256, C, H, device, seed=8, dtype=F32)
+    if kernel == "K1":
+        return ("_fused_block_cuda", wa._fused_block_cuda,
+                wa._fused_block_plain,
+                [a[k] for k in _K1_KEYS] + [scale, H, 1e-5], wa.LAUNCHES)
+    if kernel == "K2":
+        return ("_fb_s2_cuda", wa._fb_s2_cuda, wa._fb_s2_plain,
+                [a[k] for k in _K2_KEYS] + [scale, H, 1e-5], wa.LAUNCHES)
+    qkv = wa._ln_qkv_plain(a["x"], a["ln_scale"], a["ln_bias"], a["w_qkv"],
+                           a["b_qkv"], 1e-5)
+    return ("_attention_qkv_fused_cuda", wa._attention_qkv_fused_cuda,
+            wa._attention_qkv_fused_plain, (qkv, a["bias"], scale, H),
+            wa.LAUNCHES)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd", [16, 32, 64])
+@pytest.mark.parametrize("kernel", ["K1", "K2", "K3", "K9", "K4", "K5", "K7",
+                                    "K8a", "K8b", "K6", "K11"])
+def test_cuda_f32_entries_match_plain(cuda_device, kernel, hd):
+    """Each kernel's f32 entry (the f32 twin of its bf16 one) at head dims
+    16, 32 and 64 against its plain f32 version, within F32_REL_TOL."""
+    name, kern, plain, args, launches = _f32_case(kernel, hd, cuda_device)
+    before = launches[name]
+    got = kern(*args)
+    torch.cuda.synchronize()
+    assert launches[name] == before + 1
+    want = plain(*args)
+    pairs = zip(got, want) if isinstance(got, tuple) else [(got, want)]
+    for a, b in pairs:
+        assert a.shape == b.shape and a.dtype == b.dtype == F32
+        assert bool(torch.isfinite(a).all())
+        assert _rel_err(a, b) < F32_REL_TOL, _rel_err(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D,H", [(768, 12), (1024, 16)])
+def test_cuda_f32_flash_proj_walks_head_chunks(cuda_device, D, H):
+    """K11's f32 entry at ViT-B/32's and ViT-L/14's widths, whose (64, D)
+    f32 attention rows do not fit beside the k/v tiles: two head chunks,
+    the second added into the first's output, against the plain version."""
+    qkv, w = _clip_inputs(1, 197, D, cuda_device, seed=10, dtype=F32)
+    assert ca._flash_proj_chunk(D, 64, F32) == D // 2
+    got = ca._flash_proj_cuda(qkv, w, 0.125, H)
+    torch.cuda.synchronize()
+    assert _rel_err(got, ca._flash_proj_plain(qkv, w, 0.125, H)) < F32_REL_TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("exact", [False, True])
+@pytest.mark.parametrize("B,H,W,C,E", MBCONV_SHAPES)
+def test_cuda_f32_mbconv_matches_plain(cuda_device, B, H, W, C, E, exact):
+    """K10's f32 entry against its plain f32 version (no rounding point of
+    the bf16 path), within F32_REL_TOL."""
+    from geoguessr_ai_torch.ops import mbconv
+
+    args = _mbconv_args(B, H, W, C, E, cuda_device, seed=3, dtype=F32)
+    before = mbconv.LAUNCHES["_mbconv_cuda"]
+    got = mbconv._mbconv_cuda(*args, exact)
+    torch.cuda.synchronize()
+    assert mbconv.LAUNCHES["_mbconv_cuda"] == before + 1
+    want = mbconv._mbconv_plain(*args, exact)
+    assert got.dtype == F32 and bool(torch.isfinite(got).all())
+    assert _rel_err(got, want) < F32_REL_TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("op", list(OP_SHAPES))
+def test_cuda_f32_op_gradients_match_plain_autograd(cuda_device, op):
+    """Each autograd op in f32 (K1/K2/K3 forward, K3 and K4/K5 in the
+    backward): its input gradients against autograd through the plain f32
+    version, within F32_REL_TOL."""
+    W, N, C, H = OP_SHAPES[op]
+    a = _inputs(W, N, C, H, cuda_device, seed=9, dtype=F32)
+    if op == "window_attention_qkv":
+        args = [wa._ln_qkv_plain(a["x"], a["ln_scale"], a["ln_bias"],
+                                 a["w_qkv"], a["b_qkv"], 1e-5), a["bias"]]
+    else:
+        args = [a[k] for k in (_K1_KEYS if op == "fused_block_attention"
+                               else _K2_KEYS)]
+    args = [t.detach().requires_grad_() for t in args]
+    scale = (C // H) ** -0.5
+    wa.reset_launches()
+    out = getattr(wa, op)(*args, scale, H)
+    gout = torch.randn(out.shape, device=cuda_device, dtype=F32)
+    got = torch.autograd.grad(out, args, gout)
+    torch.cuda.synchronize()
+    assert sum(wa.LAUNCHES.values()) >= 2  # a forward and a backward kernel
+    want = torch.autograd.grad(_PLAIN_OPS[op](*args, scale, H), args, gout)
+    for i, (a_, b) in enumerate(zip(got, want)):
+        assert a_.shape == b.shape and a_.dtype == b.dtype
+        assert _rel_err(a_, b) < F32_REL_TOL, (i, _rel_err(a_, b))
+
+
+@pytest.mark.cuda
+def test_cuda_smem_probe_needs_the_opt_in(cuda_device):
+    """K14: with no opt-in its 192 KiB launch is refused (and runs
+    nothing); with the card's opt-in it equals its plain version, 21 x."""
+    from geoguessr_ai_torch.ops.experimental import smem_probe as sp
+
+    optin = torch.cuda.get_device_properties(0).shared_memory_per_block_optin
+    assert sp.smem_bytes(1024) > 48 * 1024
+    ones = torch.ones(1, 1024, 1024, device=cuda_device)
+    sp.reset_launches()
+    with pytest.raises(RuntimeError, match="CUDA launch failed"):
+        sp.smem_probe(ones, None)
+    assert sp.LAUNCHES["_smem_probe_cuda"] == 0
+    got = sp.smem_probe(ones, optin)
+    torch.cuda.synchronize()
+    assert sp.LAUNCHES["_smem_probe_cuda"] == 1
+    assert bool((got == 21.0).all())
+    x = torch.randn(1, 1024, 1024, device=cuda_device)
+    assert torch.equal(sp.smem_probe(x, optin), sp._smem_probe_plain(x))
+    with pytest.raises(RuntimeError, match="CUDA launch failed"):
+        sp.smem_probe(x, None)  # None sets the opt-in back first

@@ -7,12 +7,19 @@ K12a / K12b (``ops/experimental/fused_mbconv.py``) against
 runs them, and the unfused ``xla_mbconv`` of both packages; K13
 (``ops/experimental/tiled_gemm.py``) against the tool's ``pallas_matmul``,
 taken from tools/exp_int8_pallas.py's syntax tree (it is nested in the
-tool's ``main()``) without editing the tool.  Inputs come from numpy seeds.
+tool's ``main()``) without editing the tool; K14
+(``ops/experimental/smem_probe.py``) against tools/exp_r4_vmem.py's
+``probe`` and its kernel ``kern`` in interpret mode, and the port's tool
+against the JAX tool's cases.  Inputs come from numpy seeds.
 """
 
 import ast
 import functools
+import importlib.util
+import json
 import os
+import subprocess
+import sys
 
 import numpy as np
 import pytest
@@ -26,7 +33,9 @@ from jax.experimental.pallas import tpu as pltpu
 from geoguessr_ai_tpu.ops.experimental import fused_mbconv as JM
 
 from geoguessr_ai_torch.ops.experimental import fused_mbconv as TM
+from geoguessr_ai_torch.ops.experimental import smem_probe as SP
 from geoguessr_ai_torch.ops.experimental import tiled_gemm as TG
+from geoguessr_ai_torch.tools import exp_r4_vmem as TV
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -193,3 +202,98 @@ def test_tiled_matmul_refuses_mixed_or_wrong_types():
         TG.tiled_matmul(a8, torch.zeros(64, 128), torch.int32)
     with pytest.raises(ValueError, match="a \\(M, K\\)"):
         TG.tiled_matmul(a8, a8, torch.int32)
+
+
+def _jax_vmem_tool():
+    """tools/exp_r4_vmem.py, loaded by path (its top level imports no
+    JAX)."""
+    path = os.path.join(REPO, "tools", "exp_r4_vmem.py")
+    spec = importlib.util.spec_from_file_location("jax_exp_r4_vmem", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.fixture
+def interpret_pallas(monkeypatch):
+    """Every pl.pallas_call in interpret mode, as the tool cannot ask."""
+    monkeypatch.setattr(pl, "pallas_call",
+                        functools.partial(pl.pallas_call, interpret=True))
+
+
+def test_smem_probe_plain_matches_the_jax_probe(interpret_pallas, capsys):
+    """The JAX probe (no vmem_limit_bytes) in interpret mode prints s =
+    21.0 for x = ones; K14's plain version gives 21 x exactly there."""
+    _jax_vmem_tool().probe(None)
+    line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert line == {"result": "ok", "s": 21.0}
+    got = SP.smem_probe(torch.ones(1, 1024, 1024))
+    assert got.shape == (1024, 1024)
+    assert torch.equal(got, torch.full((1024, 1024), 21.0))
+    assert SP.LAUNCHES == {"_smem_probe_cuda": 0}
+
+
+def _probe_kern():
+    """The probe's nested kernel ``kern``, compiled from the tool's syntax
+    tree."""
+    path = os.path.join(REPO, "tools", "exp_r4_vmem.py")
+    tree = ast.parse(open(path).read())
+    probe = next(n for n in tree.body
+                 if isinstance(n, ast.FunctionDef) and n.name == "probe")
+    (kern,) = [n for n in probe.body
+               if isinstance(n, ast.FunctionDef) and n.name == "kern"]
+    ns = {}
+    exec(compile(ast.Module(body=[kern], type_ignores=[]), path, "exec"), ns)
+    return ns["kern"]
+
+
+def test_smem_probe_plain_matches_the_pallas_kernel_on_normal_x():
+    """``kern`` through its 24 MiB scratch in interpret mode against K14's
+    plain version on a seeded normal x: within 1e-6 of max |ref| (six f32
+    products summed in another order)."""
+    x = np.random.default_rng(3).normal(size=(1, 1024, 1024)).astype(
+        np.float32)
+    f = pl.pallas_call(
+        _probe_kern(),
+        out_shape=jax.ShapeDtypeStruct((1024, 1024), jnp.float32),
+        scratch_shapes=[pltpu.VMEM((6, 1024, 1024), jnp.float32)],
+        interpret=True)
+    want = np.asarray(f(jnp.asarray(x)))
+    got = SP.smem_probe(torch.from_numpy(x)).numpy()
+    assert np.abs(got - want).max() <= 1e-6 * np.abs(want).max()
+
+
+def test_smem_probe_refuses_what_the_kernel_does_not_take():
+    for bad in (torch.ones(1, 1020, 1024), torch.ones(2, 1024, 16),
+                torch.ones(1, 1024, 16, dtype=torch.float64)):
+        with pytest.raises(ValueError, match="multiple of 8"):
+            SP.smem_probe(bad)
+    assert SP.smem_bytes(1024) == 6 * 8 * 1024 * 4 > 48 * 1024
+
+
+def test_vmem_tool_has_the_jax_tools_cases():
+    """The port's tool names the JAX tool's cases; the seven that set JAX
+    window-attention tile knobs raise NotImplementedError citing the
+    ROADMAP item of their counterparts."""
+    assert list(TV.CASES) == list(_jax_vmem_tool().CASES)
+    assert set(TV.KNOB_CASES) == set(TV.CASES) - {"probe_default",
+                                                  "probe_v64"}
+    for name in TV.KNOB_CASES:
+        with pytest.raises(NotImplementedError, match="Queue 1 item 16"):
+            TV.CASES[name]()
+
+
+def test_vmem_tool_needs_a_gpu():
+    """Without a card the probe and the tool exit non-zero and run nothing
+    on the CPU."""
+    for run in (lambda: TV.probe(None), lambda: TV.main(["probe_v64"])):
+        with pytest.raises(SystemExit):
+            run()
+    out = subprocess.run(
+        [sys.executable, "-m", "geoguessr_ai_torch.tools.exp_r4_vmem",
+         "probe_default,probe_v64"], cwd=REPO, capture_output=True,
+        text=True, timeout=120,
+        env=dict(os.environ, PYTHONPATH=REPO + os.pathsep
+                 + os.environ.get("PYTHONPATH", "")))
+    assert out.returncode != 0
+    assert '"result"' not in out.stdout

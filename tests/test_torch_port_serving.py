@@ -293,7 +293,9 @@ def test_port_imports_no_jax_flax_or_the_jax_package():
             "geoguessr_ai_torch/ops/clip_attention.py",
             "geoguessr_ai_torch/ops/mbconv.py",
             "geoguessr_ai_torch/data/embed_builder.py",
-            "geoguessr_ai_torch/data/sqlite_dataset.py"} <= rel
+            "geoguessr_ai_torch/data/sqlite_dataset.py",
+            "geoguessr_ai_torch/ops/experimental/smem_probe.py",
+            "geoguessr_ai_torch/tools/exp_r4_vmem.py"} <= rel
     for path in files:
         tree = ast.parse(open(path).read(), filename=path)
         for node in ast.walk(tree):
