@@ -19,8 +19,14 @@ Kernels (a head dim in ``KERNEL_HEAD_DIMS``, ViT-L/14 and ViT-B/32 have
 64; qkv in bf16 or f32, the compute dtype, each with its C entry, and
 w_proj cast to qkv's dtype as the plain version casts it):
 
-* K6 ``_flash_cuda``: softmax(q k^T * scale) v -> (B, N, D);
+* K6 ``_flash_cuda``: softmax(q k^T * scale) v -> (B, N, D); in bf16 the
+  Hopper kernel (TMA loads, wgmma products, warp-specialised), in f32 the
+  mma.sync twin;
 * K11 ``_flash_proj_cuda``: the same, then o @ w_proj inside the kernel.
+
+qkv must be contiguous with a 16-byte aligned base (``_qkv_layout``): the
+bf16 K6 kernel reads it through one TMA tensor map, which needs that base
+and a row pitch that is a multiple of 16 bytes.
 
 ``head_block`` is the Pallas kernels' heads per grid cell; the result does
 not depend on it and the CUDA kernels take no such parameter.  Every
@@ -43,8 +49,8 @@ LAUNCHES = {
 #: The JAX package's default heads per Pallas grid cell.
 HEAD_BLOCK = 2
 
-#: Head dims the kernels are built for: the multiples of mma.sync's k-step
-#: of 16 up to 64.
+#: Head dims the kernels are built for: the multiples of the mma k-step of
+#: 16 up to 64 (one swizzled row of 32, 64 or 128 bytes in the bf16 K6).
 KERNEL_HEAD_DIMS = (16, 32, 64)
 
 #: Query rows per K11 block; its shared memory holds their (rows, Dc)
@@ -92,14 +98,15 @@ def _flash_proj_plain(qkv, w_proj, scale, num_heads):
 # ---------------------------------------------------------------------------
 
 
-def _check_qkv(qkv, num_heads):
-    """Returns (B, N, D, hd) after checking what the kernels take."""
-    _act_dtype(qkv=qkv)
-    if not qkv.is_cuda:
-        raise ValueError(f"qkv must be a CUDA tensor, got {qkv.device}")
-    if qkv.ndim != 3 or qkv.shape[-1] % 3:
-        raise ValueError(f"qkv must be (B, N, 3D), got {tuple(qkv.shape)}")
-    B, N, D3 = qkv.shape
+def _qkv_layout(shape, strides, data_ptr, elem_size, num_heads):
+    """Returns (B, N, D, hd) for a qkv of this shape, element strides,
+    address and element size when the kernels can read it, else raises
+    ValueError naming the rule it breaks.  The C entries take no strides,
+    so qkv is contiguous; the bf16 K6 kernel's tensor map also needs a
+    16-byte aligned base and rows a multiple of 16 bytes apart (TMA)."""
+    if len(shape) != 3 or shape[-1] % 3:
+        raise ValueError(f"qkv must be (B, N, 3D), got {tuple(shape)}")
+    B, N, D3 = shape
     D = D3 // 3
     hd = D // num_heads
     if hd * num_heads != D or hd not in KERNEL_HEAD_DIMS:
@@ -109,9 +116,26 @@ def _check_qkv(qkv, num_heads):
     if not 1 <= B <= 65535 or N < 1:
         raise ValueError(f"the kernels take 1 <= B <= 65535 and N >= 1, got "
                          f"B={B}, N={N}")
-    if not qkv.is_contiguous() or qkv.data_ptr() % 16:
-        raise ValueError("qkv must be contiguous and 16-byte aligned")
+    if data_ptr % 16:
+        raise ValueError(f"qkv must have a 16-byte aligned base, got address "
+                         f"{data_ptr:#x}")
+    if strides[-1] != 1 or (N > 1 and strides[1] * elem_size % 16):
+        raise ValueError(f"qkv rows must be a multiple of 16 bytes apart, "
+                         f"got strides {tuple(strides)} of {elem_size} bytes")
+    want = (N * D3, D3, 1)
+    if any(n > 1 and st != w for n, st, w in zip(shape, strides, want)):
+        raise ValueError(f"qkv must be contiguous, got strides "
+                         f"{tuple(strides)} for shape {tuple(shape)}")
     return B, N, D, hd
+
+
+def _check_qkv(qkv, num_heads):
+    """Returns (B, N, D, hd) after checking what the kernels take."""
+    _act_dtype(qkv=qkv)
+    if not qkv.is_cuda:
+        raise ValueError(f"qkv must be a CUDA tensor, got {qkv.device}")
+    return _qkv_layout(tuple(qkv.shape), qkv.stride(), qkv.data_ptr(),
+                       qkv.element_size(), num_heads)
 
 
 def _stream():

@@ -10,8 +10,8 @@ gets unless the kernel opts into more (``csrc/smem_probe.cu``: 192 KiB a
 block).  Nothing in either package's models calls it;
 ``python -m geoguessr_ai_torch.tools.exp_r4_vmem`` runs the probe.
 
-``smem_probe(x, limit)``: x (1, R, C) f32 with R a multiple of 8 ->
-(R, C) f32.  A CPU tensor takes the plain version, a CUDA tensor launches
+``smem_probe(x, limit)``: x (1, R, C) f32 with R a multiple of 8 and C
+of 4 (the kernel moves float4) -> (R, C) f32.  A CPU tensor takes the plain version, a CUDA tensor launches
 the kernel or raises.  ``limit`` is the counterpart of
 ``vmem_limit_bytes``: None launches without the opt-in, so the launch is
 refused and ``smem_probe`` raises the CUDA error; a number of bytes is
@@ -68,8 +68,8 @@ def _smem_probe_cuda(x, limit=None):
 def smem_probe(x, limit=None):
     """sum over i = 1..6 of i * x[0] -> (R, C) f32, x (1, R, C) f32."""
     if x.dim() != 3 or x.shape[0] != 1 or x.shape[1] % ROWS or \
-            x.dtype != torch.float32:
+            x.shape[2] % 4 or x.dtype != torch.float32:
         raise ValueError(f"x must be (1, R, C) float32 with R a multiple of "
-                         f"{ROWS}, got {tuple(x.shape)} {x.dtype}")
+                         f"{ROWS} and C of 4, got {tuple(x.shape)} {x.dtype}")
     fn = _smem_probe_cuda if x.is_cuda else _smem_probe_plain
     return fn(x, limit)

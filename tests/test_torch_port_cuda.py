@@ -778,6 +778,74 @@ def test_cuda_clip_kernels_take_head_dims_16_and_32(cuda_device, kernel, B,
     assert _rel_err(got, run(plain)) < KERNEL_REL_TOL
 
 
+def _flash_once(qkv, scale, H):
+    """K6 on qkv with its launch counted: exactly one a call."""
+    before = ca.LAUNCHES["_flash_cuda"]
+    got = ca._flash_cuda(qkv, scale, H)
+    torch.cuda.synchronize()
+    assert ca.LAUNCHES["_flash_cuda"] == before + 1
+    return got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [1, 3])
+@pytest.mark.parametrize("N", [1, 50, 63, 64, 65, 127, 128, 129, 577])
+@pytest.mark.parametrize("hd", [16, 32, 64])
+def test_cuda_flash_sm90_matches_plain(cuda_device, hd, N, B):
+    """The bf16 K6 (TMA + wgmma) at every head dim, at token counts around
+    its 128-row query and key tiles, one image and three."""
+    H = 2
+    qkv, _ = _clip_inputs(B, N, H * hd, cuda_device, seed=N + hd)
+    got = _flash_once(qkv, hd ** -0.5, H)
+    want = ca._flash_plain(qkv, hd ** -0.5, H)
+    assert got.shape == want.shape == (B, N, H * hd)
+    assert got.dtype == torch.bfloat16
+    assert bool(torch.isfinite(got).all())
+    assert _rel_err(got, want) < KERNEL_REL_TOL
+
+
+def _qkv_in(buf, offset, B, N, D):
+    """A contiguous (B, N, 3D) qkv at ``offset`` elements into ``buf``,
+    filled from seeded normals; the rest of ``buf`` keeps its NaNs."""
+    n = B * N * 3 * D
+    qkv = buf[offset:offset + n].view(B, N, 3 * D)
+    qkv.copy_(_clip_inputs(B, N, D, buf.device, seed=7)[0])
+    return qkv
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", [0, 8], ids=["at_start", "16_bytes_in"])
+def test_cuda_flash_sm90_reads_nothing_past_qkv(cuda_device, offset):
+    """qkv a 16-byte aligned slice of a NaN buffer with nothing after it:
+    the last image's last tile is ragged (N = 129 = 128 + 1), so its k/v
+    boxes reach past the tensor's end, where TMA must fill zeros and not
+    read the NaNs that follow."""
+    B, N, D, H = 3, 129, 128, 2
+    buf = torch.full((offset + B * N * 3 * D + 4096,), float("nan"),
+                     dtype=torch.bfloat16, device=cuda_device)
+    qkv = _qkv_in(buf, offset, B, N, D)
+    assert (qkv.data_ptr() - buf.data_ptr()) == 2 * offset
+    got = _flash_once(qkv, 64 ** -0.5, H)
+    assert bool(torch.isfinite(got).all())
+    assert _rel_err(got, ca._flash_plain(qkv, 64 ** -0.5, H)) < KERNEL_REL_TOL
+
+
+@pytest.mark.cuda
+def test_cuda_flash_sm90_refuses_a_misaligned_base_or_pitch(cuda_device):
+    B, N, D, H = 2, 50, 128, 2
+    buf = torch.zeros(1 + B * N * 3 * D, dtype=torch.bfloat16,
+                      device=cuda_device)
+    odd = buf[1:].view(B, N, 3 * D)  # 2 bytes past a 16-byte boundary
+    before = ca.LAUNCHES["_flash_cuda"]
+    with pytest.raises(ValueError, match="16-byte aligned base"):
+        ca._flash_cuda(odd, 0.125, H)
+    wide = torch.zeros(B, N, 3 * D + 4, dtype=torch.bfloat16,
+                       device=cuda_device)[..., :3 * D]  # rows 776 bytes apart
+    with pytest.raises(ValueError, match="16 bytes apart"):
+        ca._flash_cuda(wide, 0.125, H)
+    assert ca.LAUNCHES["_flash_cuda"] == before
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("name,W,N,H", [
     ("_attention_qkv_bwd_cuda", 1024, 256, 6),    # K4, stage 1 at B=16

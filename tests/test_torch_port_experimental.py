@@ -271,6 +271,14 @@ def test_smem_probe_refuses_what_the_kernel_does_not_take():
     assert SP.smem_bytes(1024) == 6 * 8 * 1024 * 4 > 48 * 1024
 
 
+def test_smem_probe_refuses_rows_of_no_whole_float4():
+    """K14 moves x in float4: C must be a multiple of 4, on the CPU too."""
+    for cols in (1022, 3):
+        with pytest.raises(ValueError, match="C of 4"):
+            SP.smem_probe(torch.ones(1, 8, cols))
+    assert SP.smem_probe(torch.ones(1, 8, 4)).shape == (8, 4)
+
+
 def test_vmem_tool_has_the_jax_tools_cases():
     """The port's tool names the JAX tool's cases; the seven that set JAX
     window-attention tile knobs raise NotImplementedError citing the
