@@ -22,6 +22,8 @@ Phases, in order; any failure exits non-zero:
 6. hold the attention backward kernels (K4, K5) against their plain
    versions at the shapes a B=16 train step gives them, d_qkv and d_bias
    each, and time kernel, plain version, SDPA's backward and the bound;
+   for K4 (bf16: the Hopper core) also its window groups, grids and the
+   device time of each of its launches (torch.profiler), and K7's;
 7. for each autograd op (fused_block_attention, _noproj,
    window_attention_qkv) at its train shape: the input gradients through
    the kernels against autograd through the plain version;
@@ -69,7 +71,7 @@ Phases, in order; any failure exits non-zero:
     two-kernel backward (K7) at the B=16 train shape against its plain
     version and against K5 on the same inputs, K7's outputs bitwise equal
     over two calls; time kernel, plain version, SDPA (forward, or its
-    backward for K7) and the bound;
+    backward for K7) and the bound; K7's window groups and grids;
 17. with ``QKV_KERNEL_MIN_N`` raised, serve the head-major engine (every
     attention stage through ``window_attention``): exact launches of one
     forward at bucket 1 (K8b 2, K8a 8) and 16 (K8b 4, K8a 6), no other
@@ -631,6 +633,72 @@ def _rel_err(got, want):
     return err, err / max(float(want.float().abs().max()), 1e-30)
 
 
+def _bwd_plan(kernel, W, N, H, dtype=torch.bfloat16):
+    """What one K4 or K7 call launches at (W, N, H), as a log line: in
+    bf16 the Hopper core's window groups G (``_bwd_groups``), the items of
+    each of its persistent launches and their grid (one block of 384
+    threads an SM at most); in f32 the first design's grids, which the
+    twins keep."""
+    from geoguessr_ai_torch.ops import window_attention as wa
+
+    Np = -(-N // 64) * 64
+    if dtype == torch.bfloat16:
+        G = wa._bwd_groups(W, Np, H)
+        sms = torch.cuda.get_device_properties(0).multi_processor_count
+        items = wa._bwd_items(W, Np, H, G)
+        grid = {k: min(n, sms) for k, n in items.items()}
+        return (f"bf16 core: G={G} window groups; items {items}; grid "
+                f"{grid} x 384 threads" + (" + the sum of the G partials"
+                                           if G > 1 else ""))
+    rows = f"({Np // 64}, {H}, {W})"
+    dbias = f"({Np // 64}, {Np // 64}, {H})"
+    if kernel == "K7":
+        return (f"f32 twin: grids ({H}, {W}) and {dbias} x 128 threads, "
+                f"d_bias over all {W} windows in one block a tile")
+    return (f"f32 twin: grids {rows} x 3 and {dbias} x 128 threads, d_bias "
+            f"over all {W} windows in one block a tile")
+
+
+#: The launches of K4's and K7's bf16 core by kernel name.
+_BWD_LAUNCH_NAMES = ("stats", "dkdv", "dq", "dbias")
+
+
+def _launch_ms(fn, calls=3):
+    """Device ms a call of each kernel that fn() launches, read from a
+    torch.profiler trace of ``calls`` calls after a warm-up (its device
+    events, as profile_forward reads them): the bf16 core's launches by
+    role (``attn_bwd_sm90<HD, MODE, ...>``), the sum of the d_bias
+    partials, and any other kernel by its name.  None when the trace
+    holds no device kernels."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for evt in prof.events():
+        if evt.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        key = evt.name
+        if "attn_bwd_sm90<" in key:
+            key = _BWD_LAUNCH_NAMES[int(key.split("<")[1].split(",")[1])]
+        elif "dbias_reduce" in key:
+            key = "dbias_sum"
+        else:
+            key = key.split("(")[0].split("<")[0].replace("void ", "")
+        out[key] = out.get(key, 0.0) + evt.time_range.elapsed_us() / calls / 1e3
+    return out or None
+
+
+def _log_launch_ms(launch_ms):
+    log("  launch_ms (device, torch.profiler) " + (
+        ", ".join(f"{k} {v:.4f}" for k, v in launch_ms.items())
+        if launch_ms else "not measured (the trace holds no device kernels)"))
+
+
 def phase_backward_kernels():
     from geoguessr_ai_torch.ops import window_attention as wa
 
@@ -652,6 +720,8 @@ def phase_backward_kernels():
         want = plain(*args)
         torch.cuda.synchronize()
         log(f"{kernel} {label} W={W} N={N} H={H} (bias {'bf16' if kernel == 'K4' else 'f32'})")
+        if kernel == "K4":
+            log(f"  {_bwd_plan(kernel, W, N, H)}")
         errs = {}
         for out, a, b in (("d_qkv", got[0], want[0]), ("d_bias", got[1], want[1])):
             if a.shape != b.shape or a.dtype != b.dtype:
@@ -675,12 +745,29 @@ def phase_backward_kernels():
         log(f"  library_ms {'null' if lib_ms is None else f'{lib_ms:.4f}'} "
             f"({lib_note})")
         log(f"  bound_ms {bound:.4f} ({bound_by})")
+        launch_ms = _launch_ms(lambda: kern(*args))
+        _log_launch_ms(launch_ms)
         rows[(kernel, label)] = dict(
             max_abs_err=errs["d_qkv"], max_abs_err_dbias=errs["d_bias"],
             ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-            library_note=lib_note, bound_ms=bound, bound_by=bound_by)
+            library_note=lib_note, bound_ms=bound, bound_by=bound_by,
+            launch_ms=launch_ms)
         del qkv, bias, g, args
         torch.cuda.empty_cache()
+    # K7's launches at its train shape (phase 16 holds K7 itself): read
+    # here, where the traces have come back whole; in phase 16 one came
+    # back short of the event timer's total
+    W, N, H = K7_CASE
+    qkv = torch.randn(W, N, 3 * H * 32, generator=gen).to("cuda",
+                                                          torch.bfloat16)
+    bias = (torch.randn(H, N, N, generator=gen) * 0.5).to("cuda")
+    g = torch.randn(W, N, H * 32, generator=gen).to("cuda", torch.bfloat16)
+    log(f"K7 stage2 W={W} N={N} H={H}: its launches")
+    rows[("K7", "launch_ms")] = _launch_ms(
+        lambda: wa._attention_bwd_qtiled_cuda(qkv, bias, g, 32 ** -0.5, H))
+    _log_launch_ms(rows[("K7", "launch_ms")])
+    del qkv, bias, g
+    torch.cuda.empty_cache()
     wa.reset_launches()
     return rows
 
@@ -1653,7 +1740,9 @@ def phase_headmajor_kernels():
     got = wa._attention_bwd_qtiled_cuda(*args)
     again = wa._attention_bwd_qtiled_cuda(*args)
     torch.cuda.synchronize()
-    log(f"K7 stage2 W={W} N={N} H={H} (f32 bias; two launches a call)")
+    log(f"K7 stage2 W={W} N={N} H={H} (f32 bias; the d_qkv side and the "
+        f"d_bias side as separate launches)")
+    log(f"  {_bwd_plan('K7', W, N, H)}")
     stable = torch.equal(got[1], again[1]) and torch.equal(got[0], again[0])
     log(f"  d_bias and d_qkv bitwise equal over two calls: {stable}")
     if not stable:
@@ -2044,6 +2133,9 @@ def phase_head_dims():
     gen = torch.Generator().manual_seed(SEED + 7)
     worst = {}
     for kernel, hd, W, N, C, H in HEAD_DIM_CASES:
+        if kernel in ("K4", "K7"):
+            log(f"{kernel}@hd{hd} W={W} N={N} H={H}: "
+                f"{_bwd_plan(kernel, W, N, H)}")
         kern, plain, args = _head_dim_case(kernel, hd, W, N, C, H, gen)
         got, want = kern(*args), plain(*args)
         torch.cuda.synchronize()
@@ -2086,7 +2178,8 @@ def phase_head_dims():
         same = (torch.equal(first[1], second[1]),
                 torch.equal(first[0], second[0]))
         log(f"{kernel} {label} W={W}: d_bias bitwise equal over two calls "
-            f"{same[0]}, d_qkv {same[1]}")
+            f"{same[0]}, d_qkv {same[1]}"
+            + (f" ({_bwd_plan(kernel, W, N, H)})" if kernel == "K4" else ""))
         if not all(same):
             fail(f"{kernel} {label}: the backward is not bitwise stable")
         del qkv, bias, g, first, second
@@ -2607,6 +2700,8 @@ def phase_f32_kernels():
             + ", ".join(f"{e[0]:.6g}" for e in errs) + " max_rel_err "
             + ", ".join(f"{e[1]:.6g}" for e in errs)
             + f" (tolerance {F32_REL_TOL})")
+        if kernel in ("K4", "K7"):
+            log(f"  {_bwd_plan(kernel, shape[0], shape[1], shape[2], torch.float32)}")
         log(f"  kernel_ms {ms:.4f}, plain_ms {plain_ms:.4f}, library_ms "
             f"{'null' if lib_ms is None else f'{lib_ms:.4f}'}"
             f"{f' ({lib_what})' if lib_what else ''}, bound_ms {bound:.4f} "
@@ -2956,6 +3051,11 @@ def main():
             entry["sdpa_attention_ms"] = row["sdpa_ms"]
         if k in BWD_META:
             entry["max_abs_err_dbias"] = row["max_abs_err_dbias"]
+        if k == "K4":
+            entry["launch_ms"] = row["launch_ms"]
+            stage3 = rows[("K4", "stage3")]
+            entry["stage3"] = {key: stage3[key] for key in (
+                "ms", "plain_ms", "bound_ms", "library_ms", "launch_ms")}
         kernels.append(entry)
     for k, (name, source, replaces) in CLIP_META.items():
         row = clip_rows[(k, "vit_l14_bucket16")]
@@ -3015,6 +3115,7 @@ def main():
         "bound_by": row["bound_by"],
         # SDPA's backward computes K7's function (as K4's and K5's)
         "library_ms": row["library_ms"], "k5_same_inputs_ms": row["k5_ms"],
+        "launch_ms": rows[("K7", "launch_ms")],
     })
     for k in ("K12a", "K12b"):
         name, source, replaces = EXP_META[k]

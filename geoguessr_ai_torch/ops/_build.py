@@ -48,11 +48,11 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
         _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
         _I, _I, _I, _I, _I, _F, _F, _P)),
     "attention_qkv_bwd": _twins("attention_qkv_bwd", (
-        _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P)),
+        _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P)),
     "attention_bwd_merged": _twins("attention_bwd_merged", (
         _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P)),
     "attention_bwd_qtiled": _twins("attention_bwd_qtiled", (
-        _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P)),
+        _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P)),
     "attention_headmajor": {
         **_twins("attention_qtiled", (
             _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P)),

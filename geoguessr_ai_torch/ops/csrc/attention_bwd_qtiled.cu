@@ -9,32 +9,33 @@
 // in place of the merged backward (K5) when BWD_MERGED is False.  The TPU
 // needs two kernels because its two sums run in opposite grid orders: dk/dv
 // over the q-tiles of one (head, window), d_bias over the windows of one
-// (head, q-tile).  So does this port, and for the same reason:
-//
-//   launch 1, one block per (head, window): the row statistics of every
-//     query (row max, 1 / row sum, t = sum_row dp * p) into `stats`, then
-//     dk and dv per 64-key tile over all q-tiles, then dq per 64-query tile
-//     over all k-tiles, each sum complete in registers and written once;
-//   launch 2, one block per (k-tile, q-tile, head) of d_bias: walks the W
-//     windows in order and sums ds in registers, then stores its tile
-//     (attention_bwd.cuh attn_bwd_dbias_kernel, K4's and K5's d_bias launch
-//     too).  No atomics, so d_bias (and d_qkv) is bitwise the same from run
-//     to run.
-//
-// Two launches per call.  The staging of _attention_qkv_bwd_large (:802)
-// is index arithmetic: qkv and g are read interleaved and d_qkv written so,
-// each f32 sum rounded to bf16 once as the staging's final cast does.
+// (head, q-tile).  So does this port, and for the same reason.  The
+// staging of _attention_qkv_bwd_large (:802) is index arithmetic: qkv and
+// g are read interleaved and d_qkv written so, each f32 sum rounded to
+// bf16 once as the staging's final cast does.
 //
 // What bounds it on the H100: the tensor cores.  The minimum is the five
 // N x N x hd products of the dq/dk/dv side plus the two of the d_bias side
 // (s and dp again), 14 N^2 hd flops a (window, head): 0.365 ms at the bf16
-// peak at W=64, H=12, N=1024.  Every product here runs on 64 x 64 tiles
-// with mma.sync.m16n8k16 (the building blocks of attention_bwd.cuh), and
-// the scores are recomputed per tile in each phase, since an f32 row of
-// 1024 scores does not fit beside the rest.
-// The _f32 twin takes qkv, g and d_qkv in f32 (attention_bwd.cuh); its
-// dk/dv phase then needs 92 KB of shared memory at head dim 64.
-#include "attention_bwd.cuh"
+// peak at W=64, H=12, N=1024.
+//
+// The bf16 entry runs the Hopper core of attention_bwd_sm90.cuh, which
+// K4's bf16 entry shares: the d_qkv side as three persistent launches
+// (the row statistics, dk/dv per 128-key tile, dq per 128-query tile, each
+// over (tile, window, head) items spread evenly over the SMs), the d_bias
+// side as a fourth that sums ds of one (128-query, 64-key) tile over the
+// windows in order; every product is a wgmma on tiles that a producer
+// warpgroup brought in ahead by TMA, the f32 bias tiles included.  Its row
+// statistics take two passes over the keys, t in the second, exactly as
+// the first design and K5 compute them, so its d_qkv and d_bias are K5's
+// bit for bit (a one-pass t rounds otherwise, and six blocks of bf16
+// backward amplify an ulp past chip_smoke.py's K5-vs-K7 train-step gate).
+// The first design (the _f32 twin below) ran the three d_qkv phases in
+// series in one block per (head, window), 768 blocks each carrying a
+// chain of ~800 mma.sync tile steps, at about 6 % of the bf16 peak.
+// The _f32 twin takes qkv, g and d_qkv in f32; its dk/dv phase needs 92 KB
+// of shared memory at head dim 64.
+#include "attention_bwd_sm90.cuh"
 
 namespace gg {
 namespace {
@@ -255,13 +256,18 @@ cudaError_t launch(const BwdArgs<E>& a, const float* bias, cudaStream_t s) {
 }
 
 template <class E>
-int run(const void* qkv, const void* bias, const void* g, void* dqkv, void* dbias, void* stats,
-        int W, int N, int H, int hd, float scale, void* stream) {
-  const BwdArgs<E> a{static_cast<const E*>(qkv), static_cast<const E*>(g),
-                     static_cast<E*>(dqkv),        static_cast<float*>(dbias),
-                     static_cast<float*>(stats),   W,
-                     N,                            H,
-                     scale};
+BwdArgs<E> args(const void* qkv, const void* g, void* dqkv, void* dbias, void* stats, int W, int N,
+                int H, float scale) {
+  return BwdArgs<E>{static_cast<const E*>(qkv), static_cast<const E*>(g),
+                    static_cast<E*>(dqkv),        static_cast<float*>(dbias),
+                    static_cast<float*>(stats),   W,
+                    N,                            H,
+                    scale};
+}
+
+int run_f32(const void* qkv, const void* bias, const void* g, void* dqkv, void* dbias, void* stats,
+            int W, int N, int H, int hd, float scale, void* stream) {
+  const BwdArgs<float> a = args<float>(qkv, g, dqkv, dbias, stats, W, N, H, scale);
   const float* b = static_cast<const float*>(bias);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   GG_HEAD_DIM_SWITCH(hd, { return (int)launch<HD>(a, b, s); })
@@ -271,17 +277,22 @@ int run(const void* qkv, const void* bias, const void* g, void* dqkv, void* dbia
 }  // namespace gg
 
 // Shapes validated by the Python wrapper (N a multiple of 64, head dim 16,
-// 32 or 64, W <= 65535).  stats is (3, W, H, N) f32 scratch; every element
-// of dqkv and dbias is written.  qkv, g and dqkv bf16 (or f32 for the _f32
-// twin); bias and dbias f32.
+// 32 or 64, 1 <= W <= 65535, 1 <= G <= W).  stats is (3, W, H, N) f32
+// scratch and partial (G, H, N, N) f32 scratch when the bf16 entry runs
+// with G > 1; every element of dqkv and dbias is written.  qkv, g and dqkv
+// bf16 (or f32 for the _f32 twin, which takes no groups); bias and dbias
+// f32.
 extern "C" int attention_bwd_qtiled_bf16(const void* qkv, const void* bias, const void* g,
-                                         void* dqkv, void* dbias, void* stats, int W, int N,
-                                         int H, int hd, float scale, void* stream) {
-  return gg::run<gg::bf16>(qkv, bias, g, dqkv, dbias, stats, W, N, H, hd, scale, stream);
+                                         void* dqkv, void* dbias, void* stats, void* partial,
+                                         int W, int N, int H, int hd, int G, float scale,
+                                         void* stream) {
+  return (int)gg::bwd90::launch(gg::args<gg::bf16>(qkv, g, dqkv, dbias, stats, W, N, H, scale),
+                                static_cast<const float*>(bias), static_cast<float*>(partial), G,
+                                hd, 2, static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int attention_bwd_qtiled_f32(const void* qkv, const void* bias, const void* g,
-                                        void* dqkv, void* dbias, void* stats, int W, int N,
-                                        int H, int hd, float scale, void* stream) {
-  return gg::run<float>(qkv, bias, g, dqkv, dbias, stats, W, N, H, hd, scale, stream);
+                                        void* dqkv, void* dbias, void* stats, void* partial, int W,
+                                        int N, int H, int hd, int G, float scale, void* stream) {
+  return gg::run_f32(qkv, bias, g, dqkv, dbias, stats, W, N, H, hd, scale, stream);
 }

@@ -13,40 +13,60 @@
 // the minimal work is five N x N x 32 products per (window, head), 10 N^2
 // hd flops, against reading qkv and g and writing d_qkv once, 14 N hd
 // bytes: about 183 flops per byte at N=256, under the card's ~295 flops
-// per byte ridge, so bytes bound it (~0.7 GB).  This first design
-// (attention_bwd.cuh) recomputes the scores in each of its four launches
-// instead of keeping them on chip: about 2.4x the minimal tensor-core work
-// and 5 exponentials per score, the gap for a later change.  d_bias is
-// summed over the windows in order by one block per 64 x 64 tile and head,
-// so it is bitwise the same from run to run.
-// The _f32 twin takes qkv, the bias, g and d_qkv in f32
-// (attention_bwd.cuh).
-#include "attention_bwd.cuh"
+// per byte ridge, so bytes bound it (~0.7 GB).
+//
+// The bf16 entry runs the Hopper core of attention_bwd_sm90.cuh (K7's
+// too): TMA loads through rings of shared memory kept full by a producer
+// warpgroup, wgmma products, persistent blocks.  What it does about the
+// first design's time (attention_bwd.cuh, which the _f32 twin keeps), whose
+// d_bias launch walked all 1024 windows in 96 blocks one after the other
+// and whose four launches recomputed twelve N x N products a (window, head)
+// on mma.sync from synchronously staged tiles:
+//   * d_bias is summed per window group: G groups (a function of W, N and
+//     H, 21 at stage 1) in G times as many items, each summing its group's
+//     windows in order in registers, then the G partials in group order;
+//   * the row statistics take one online pass (t's sum rescaled with the
+//     max as the row sum is), so eleven products a (window, head), each a
+//     wgmma on tiles that TMA brought in ahead;
+//   * the bias tiles come through shared memory with a swizzle instead of
+//     scattered loads, and every launch spreads its items over all SMs:
+//     12288 items of four 64-key steps at stage 1.
+// The TPU kernel keeps a whole (N, N) score row in VMEM; here the scores
+// of a 64 x 64 tile live only in registers, and only the three row
+// statistics go through device memory.
+#include "attention_bwd_sm90.cuh"
 
 namespace {
 
+// qkv, g, dqkv bf16 (or f32 for the twin); bias in the same type; dbias
+// and stats f32; partial (G, H, N, N) f32 scratch when the bf16 entry runs
+// with G > 1.
 template <class E>
-int run(const void* qkv, const void* bias, const void* g, void* dqkv, void* dbias, void* stats,
-        int W, int N, int H, int hd, float scale, void* stream) {
-  const gg::BwdArgs<E> a{static_cast<const E*>(qkv), static_cast<const E*>(g),
-                         static_cast<E*>(dqkv),        static_cast<float*>(dbias),
-                         static_cast<float*>(stats),   W,
-                         N,                            H,
-                         scale};
-  return (int)gg::launch_attention_bwd(a, static_cast<const E*>(bias), hd,
-                                       static_cast<cudaStream_t>(stream));
+gg::BwdArgs<E> args(const void* qkv, const void* g, void* dqkv, void* dbias, void* stats, int W,
+                    int N, int H, float scale) {
+  return gg::BwdArgs<E>{static_cast<const E*>(qkv), static_cast<const E*>(g),
+                        static_cast<E*>(dqkv),        static_cast<float*>(dbias),
+                        static_cast<float*>(stats),   W,
+                        N,                            H,
+                        scale};
 }
 
 }  // namespace
 
 extern "C" int attention_qkv_bwd_bf16(const void* qkv, const void* bias, const void* g, void* dqkv,
-                void* dbias, void* stats, int W, int N, int H, int hd, float scale,
-                void* stream) {
-  return run<gg::bf16>(qkv, bias, g, dqkv, dbias, stats, W, N, H, hd, scale, stream);
+                                      void* dbias, void* stats, void* partial, int W, int N, int H,
+                                      int hd, int G, float scale, void* stream) {
+  return (int)gg::bwd90::launch(args<gg::bf16>(qkv, g, dqkv, dbias, stats, W, N, H, scale),
+                                static_cast<const gg::bf16*>(bias), static_cast<float*>(partial), G,
+                                hd, 1, static_cast<cudaStream_t>(stream));
 }
 
+// The f32 twin keeps the four launches of attention_bwd.cuh (G and
+// partial unused: its d_bias launch sums all W windows in order).
 extern "C" int attention_qkv_bwd_f32(const void* qkv, const void* bias, const void* g, void* dqkv,
-                void* dbias, void* stats, int W, int N, int H, int hd, float scale,
-                void* stream) {
-  return run<float>(qkv, bias, g, dqkv, dbias, stats, W, N, H, hd, scale, stream);
+                                     void* dbias, void* stats, void* partial, int W, int N, int H,
+                                     int hd, int G, float scale, void* stream) {
+  return (int)gg::launch_attention_bwd(args<float>(qkv, g, dqkv, dbias, stats, W, N, H, scale),
+                                       static_cast<const float*>(bias), hd,
+                                       static_cast<cudaStream_t>(stream));
 }

@@ -24,7 +24,11 @@ Kernels:
 * K4 ``_attention_qkv_bwd_cuda``, K5 ``_attention_bwd_merged_cuda`` and
   K7 ``_attention_bwd_qtiled_cuda``: the attention backward, K4 when the
   all-heads f32 score footprint H * N^2 * 4 is at most 6 MB (stages 1 and
-  3), else K5, or K7 when ``BWD_MERGED`` is False (stage 2);
+  3), else K5, or K7 when ``BWD_MERGED`` is False (stage 2).  In bf16, K4
+  and K7 run the Hopper core ``csrc/attention_bwd_sm90.cuh`` (TMA loads
+  through tensor maps over qkv and g, wgmma, persistent blocks; d_bias
+  summed per group of windows, ``_bwd_groups``), which reads qkv and g in
+  place and so needs their TMA layout (``_bwd_layout``);
 * K8a ``_attention_qtiled_cuda`` and K8b ``_attention_batched_cuda``: the
   head-major ``window_attention``, chosen as ``_attention_pallas`` chooses.
 
@@ -87,6 +91,11 @@ BLOCK_W = 8
 #: two-kernel one (K7) when False.  Both compute the same cotangents from
 #: the f32 bias.
 BWD_MERGED = True
+#: Work items the d_bias launch of K4's and K7's bf16 core aims at: it
+#: sums ds over the windows per (128-query tile, 64-key tile, head) item,
+#: and cuts the windows into as many groups as bring the items up to this
+#: many (``_bwd_groups``), about 8 an SM of an H100.
+_BWD_DBIAS_ITEMS = 1024
 
 
 def reset_launches() -> None:
@@ -437,11 +446,79 @@ def _pad_tokens(qkv, bias, g, pad):
     return F.pad(qkv, (0, 0, 0, pad)), bias, F.pad(g, (0, 0, 0, pad))
 
 
+def _bwd_groups(W, N, H):
+    """The window groups G of the d_bias launch of K4's and K7's bf16
+    core, a function of (W, N, H) only (never of the card): enough groups
+    that its (128-query tile, 64-key tile, head, group) items number about
+    _BWD_DBIAS_ITEMS, at most one a window; group i sums windows
+    [i W // G, (i + 1) W // G) in order.  21 at K4's stage 1 (W=1024,
+    N=256, H=6), 7 at stage 3 (W=64, H=18), 1 at K7's (W=64, N=1024,
+    H=12)."""
+    tiles = _bwd_items(W, N, H, 1)["dbias"]
+    return max(1, min(W, _BWD_DBIAS_ITEMS // tiles))
+
+
+def _bwd_items(W, N, H, G):
+    """Work items of each launch of the bf16 core: the row statistics, dk
+    and dv, dq (a 128-row tile of one window and head each) and d_bias (a
+    128 x 64 tile of one head over one group of windows)."""
+    rows = -(-N // 128) * W * H
+    return {"stats": rows, "dkdv": rows, "dq": rows,
+            "dbias": (N // 64) * -(-N // 128) * G * H}
+
+
+def _bwd_scratch_shapes(W, N, H, G):
+    """Scratch the wrapper allocates for one call: the (3, W, H, N) f32
+    row statistics, and the (G, H, N, N) f32 d_bias partials when G > 1
+    (None: the d_bias launch writes d_bias itself)."""
+    return {"stats": (3, W, H, N),
+            "partial": (G, H, N, N) if G > 1 else None}
+
+
+def _bwd_layout(qkv_shape, qkv_strides, qkv_ptr, g_shape, g_strides, g_ptr,
+                elem_size, num_heads):
+    """Returns (W, N, D, hd) when the bf16 core's two tensor maps can read
+    qkv (W, N, 3D) and g (W, N, D) in place, else raises ValueError
+    naming the rule it breaks.  TMA reads boxes of (hd, 64 rows) of bf16
+    from a 16-byte aligned base with rows a multiple of 16 bytes apart, and
+    the C entries take no strides: both tensors contiguous bf16, N a
+    multiple of 64 (the caller pads it), a head dim in KERNEL_HEAD_DIMS."""
+    if elem_size != 2:
+        raise ValueError(f"the bf16 core reads 2-byte elements, got "
+                         f"{elem_size}")
+    if len(qkv_shape) != 3 or qkv_shape[-1] % 3:
+        raise ValueError(f"qkv must be (W, N, 3D), got {tuple(qkv_shape)}")
+    W, N, D3 = qkv_shape
+    D = D3 // 3
+    hd = _head_dim(D, num_heads)
+    if tuple(g_shape) != (W, N, D):
+        raise ValueError(f"g must be {(W, N, D)}, got {tuple(g_shape)}")
+    if not 1 <= W <= 65535 or N < 64 or N % 64:
+        raise ValueError(f"the kernels take 1 <= W <= 65535 and N a "
+                         f"multiple of 64, got W={W}, N={N}")
+    for name, shape, strides, ptr in (("qkv", qkv_shape, qkv_strides,
+                                       qkv_ptr),
+                                      ("g", g_shape, g_strides, g_ptr)):
+        if ptr % 16:
+            raise ValueError(f"{name} must have a 16-byte aligned base, got "
+                             f"address {ptr:#x}")
+        if strides[-1] != 1 or strides[1] * elem_size % 16:
+            raise ValueError(f"{name} rows must be a multiple of 16 bytes "
+                             f"apart, got strides {tuple(strides)}")
+        want = (shape[1] * shape[2], shape[2], 1)
+        if any(n > 1 and st != w for n, st, w in zip(shape, strides, want)):
+            raise ValueError(f"{name} must be contiguous, got strides "
+                             f"{tuple(strides)} for shape {tuple(shape)}")
+    return W, N, D, hd
+
+
 def _attention_bwd_cuda(name, lib, qkv, bias, g, scale, num_heads,
                         bias_dtype=None):
     """K4, K5 or K7's launch, the bias in ``bias_dtype`` (None: qkv's
     dtype); an N that is not a multiple of 64 (a ragged window such as
-    14x14 or 28x28) runs padded (``_pad_tokens``)."""
+    14x14 or 28x28) runs padded (``_pad_tokens``).  K4 and K7 also take
+    the d_bias partials of their bf16 core (``_bwd_groups``); their f32
+    twins take no groups."""
     from geoguessr_ai_torch.ops import _build
 
     dt = _act_dtype(qkv=qkv, g=g)
@@ -460,13 +537,26 @@ def _attention_bwd_cuda(name, lib, qkv, bias, g, scale, num_heads,
     dqkv = torch.empty_like(qkv)
     dbias = torch.empty((num_heads, Np, Np), dtype=torch.float32,
                         device=qkv.device)
+    grouped = lib != "attention_bwd_merged"
+    G = 1
+    if grouped and dt == torch.bfloat16:
+        _bwd_layout(qkv.shape, qkv.stride(), qkv.data_ptr(), g.shape,
+                    g.stride(), g.data_ptr(), qkv.element_size(), num_heads)
+        G = _bwd_groups(W, Np, num_heads)
+    shapes = _bwd_scratch_shapes(W, Np, num_heads, G)
     # row max, 1 / row sum and t per (window, head, query)
-    stats = torch.empty((3, W, num_heads, Np), dtype=torch.float32,
+    stats = torch.empty(shapes["stats"], dtype=torch.float32,
                         device=qkv.device)
+    partial = None if shapes["partial"] is None else torch.empty(
+        shapes["partial"], dtype=torch.float32, device=qkv.device)
     fn = _build.typed_entry(lib, lib, dt)
-    err = fn(qkv.data_ptr(), bias.data_ptr(), g.data_ptr(), dqkv.data_ptr(),
-             dbias.data_ptr(), stats.data_ptr(), W, Np, num_heads, hd,
-             float(scale), _stream())
+    ptrs = (qkv.data_ptr(), bias.data_ptr(), g.data_ptr(), dqkv.data_ptr(),
+            dbias.data_ptr(), stats.data_ptr())
+    if grouped:
+        err = fn(*ptrs, 0 if partial is None else partial.data_ptr(), W, Np,
+                 num_heads, hd, G, float(scale), _stream())
+    else:
+        err = fn(*ptrs, W, Np, num_heads, hd, float(scale), _stream())
     _raise_on(err, name)
     LAUNCHES[name] += 1
     if pad:
@@ -477,8 +567,8 @@ def _attention_bwd_cuda(name, lib, qkv, bias, g, scale, num_heads,
 
 def _attention_qkv_bwd_cuda(qkv, bias, g, scale, num_heads):
     """K4: (d_qkv in qkv's dtype, d_bias f32) with the bias in qkv's dtype
-    (rounded to bf16 in bf16), d_bias summed over the windows in order
-    (bitwise reproducible)."""
+    (rounded to bf16 in bf16), d_bias summed over the windows in an order
+    fixed by the shape (bitwise reproducible)."""
     return _attention_bwd_cuda("_attention_qkv_bwd_cuda", "attention_qkv_bwd",
                                qkv, bias, g, scale, num_heads)
 
@@ -492,9 +582,9 @@ def _attention_bwd_merged_cuda(qkv, bias, g, scale, num_heads):
 
 
 def _attention_bwd_qtiled_cuda(qkv, bias, g, scale, num_heads):
-    """K7: (d_qkv in qkv's dtype, d_bias f32) with the bias in f32, two
-    launches, d_bias summed over the windows in order (bitwise
-    reproducible)."""
+    """K7: (d_qkv in qkv's dtype, d_bias f32) with the bias in f32, the
+    d_qkv side and the d_bias side as separate launches, d_bias summed over
+    the windows in an order fixed by the shape (bitwise reproducible)."""
     return _attention_bwd_cuda("_attention_bwd_qtiled_cuda",
                                "attention_bwd_qtiled", qkv, bias, g, scale,
                                num_heads, torch.float32)

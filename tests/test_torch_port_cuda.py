@@ -574,6 +574,109 @@ def test_cuda_bwd_qtiled_matches_plain_and_k5(cuda_device, W, N, H):
         assert _rel_err(dbias, want[1]) < KERNEL_REL_TOL
 
 
+#: (W, N, H) of the bf16 core's cases at each head dim: one window at
+#: N=64 (half a 128-row tile), three at N=128, 17 at a ragged N=196 (padded
+#: to 256, 17 window groups), N=256 and N=1024.
+SM90_SHAPES = ((1, 64, 2), (3, 128, 2), (17, 196, 2), (3, 256, 3),
+               (2, 1024, 2))
+#: The train shapes: K4 at stages 1 and 3, K7 at stage 2 (hd 32).
+SM90_TRAIN_SHAPES = (("K4", 1024, 256, 6), ("K4", 64, 256, 18),
+                     ("K7", 64, 1024, 12))
+SM90_KERNELS = {
+    "K4": ("_attention_qkv_bwd_cuda", wa._attention_qkv_bwd_plain),
+    "K7": ("_attention_bwd_qtiled_cuda", wa._attention_bwd_qtiled_plain),
+}
+#: NaN elements on each side of every buffer a wrapper allocates in
+#: ``_nan_fenced_buffers`` (128 bytes of bf16, so views stay aligned).
+FENCE = 64
+
+
+def _nan_fenced_buffers(monkeypatch):
+    """Makes torch.empty and torch.empty_like return views into NaN-filled
+    buffers with FENCE NaN elements before and after; returns the list of
+    (buffer, elements) made, for ``_check_fenced``."""
+    made = []
+    real_empty = torch.empty
+
+    def fenced(shape, dtype, device):
+        n = int(np.prod(shape))
+        buf = real_empty(n + 2 * FENCE, dtype=dtype, device=device)
+        buf.fill_(float("nan"))
+        made.append((buf, n))
+        return buf[FENCE:FENCE + n].view(shape)
+
+    def empty(*shape, dtype=torch.float32, device=None, **kwargs):
+        if len(shape) == 1 and not isinstance(shape[0], int):
+            shape = shape[0]
+        return fenced(tuple(shape), dtype, device)
+
+    monkeypatch.setattr(torch, "empty", empty)
+    monkeypatch.setattr(torch, "empty_like",
+                        lambda t, **kw: fenced(tuple(t.shape), t.dtype,
+                                               t.device))
+    return made
+
+
+def _check_fenced(made):
+    """Every element of every buffer was written (no NaN left) and no
+    element around one was (the fences still NaN)."""
+    assert made
+    for buf, n in made:
+        assert bool(torch.isnan(buf[:FENCE]).all()
+                    and torch.isnan(buf[FENCE + n:]).all())
+        assert bool(torch.isfinite(buf[FENCE:FENCE + n]).all())
+
+
+def _sm90_case(monkeypatch, kernel, W, N, H, hd):
+    """One bf16 K4 or K7 call in NaN-fenced outputs and scratch, a second
+    call, and the plain version: every element written and none outside,
+    one launch a call, bitwise equal calls, d_qkv and d_bias within
+    KERNEL_REL_TOL of the plain version."""
+    name, plain = SM90_KERNELS[kernel]
+    qkv, bias, g = _bwd_inputs(W, N, H, torch.device("cuda"), hd=hd)
+    scale = hd ** -0.5
+    kern = getattr(wa, name)
+    before = wa.LAUNCHES[name]
+    made = _nan_fenced_buffers(monkeypatch)
+    dqkv, dbias = kern(qkv, bias, g, scale, H)
+    torch.cuda.synchronize()
+    monkeypatch.undo()
+    _check_fenced(made)
+    # stats, d_qkv and d_bias, and the partials when G > 1
+    G = wa._bwd_groups(W, -(-N // 64) * 64, H)
+    assert len(made) >= 3 + (G > 1)
+    again = kern(qkv, bias, g, scale, H)
+    torch.cuda.synchronize()
+    assert wa.LAUNCHES[name] == before + 2
+    assert torch.equal(dqkv, again[0]) and torch.equal(dbias, again[1])
+    assert dqkv.shape == qkv.shape and dqkv.dtype == torch.bfloat16
+    assert dbias.shape == (H, N, N) and dbias.dtype == torch.float32
+    want_dqkv, want_dbias = plain(qkv, bias, g, scale, H)
+    assert _rel_err(dqkv, want_dqkv) < KERNEL_REL_TOL
+    assert _rel_err(dbias, want_dbias) < KERNEL_REL_TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("W,N,H", SM90_SHAPES)
+@pytest.mark.parametrize("hd", [16, 32, 64])
+@pytest.mark.parametrize("kernel", ["K4", "K7"])
+def test_cuda_bwd_sm90_matches_plain_and_writes_every_element(
+        cuda_device, monkeypatch, kernel, hd, W, N, H):
+    """The bf16 core of K4 and K7 (``csrc/attention_bwd_sm90.cuh``) at
+    head dims 16, 32 and 64, N from half a row tile to 1024, ragged N and
+    W of 1, 3 and 17 (window groups of one and of several windows)."""
+    _sm90_case(monkeypatch, kernel, W, N, H, hd)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel,W,N,H", SM90_TRAIN_SHAPES)
+def test_cuda_bwd_sm90_at_the_train_shapes(cuda_device, monkeypatch, kernel,
+                                           W, N, H):
+    """As above at the shapes a B=16 train step gives K4 (21 and 7 window
+    groups) and K7 (one group of 64 windows)."""
+    _sm90_case(monkeypatch, kernel, W, N, H, HD)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("N,H,kernel", [
     (256, 6, "_attention_qkv_bwd_cuda"),
