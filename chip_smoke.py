@@ -22,8 +22,9 @@ Phases, in order; any failure exits non-zero:
 6. hold the attention backward kernels (K4, K5) against their plain
    versions at the shapes a B=16 train step gives them, d_qkv and d_bias
    each, and time kernel, plain version, SDPA's backward and the bound;
-   for K4 (bf16: the Hopper core) also its window groups, grids and the
-   device time of each of its launches (torch.profiler), and K7's;
+   for each (bf16: the Hopper core, K5 with one window group) also its
+   window groups, grids and the device time of each of its launches
+   (torch.profiler), and K7's;
 7. for each autograd op (fused_block_attention, _noproj,
    window_attention_qkv) at its train shape: the input gradients through
    the kernels against autograd through the plain version;
@@ -67,11 +68,14 @@ Phases, in order; any failure exits non-zero:
     on (K10 2, K9 2, K2 6, K3 2, K1 0 launches a forward) against the
     default engine of phase 4, and its bucket-16 p50;
 16. hold the head-major attention kernels (K8a, K8b) against
-    ``_attention_plain`` at the head-major serving shapes and the
-    two-kernel backward (K7) at the B=16 train shape against its plain
-    version and against K5 on the same inputs, K7's outputs bitwise equal
-    over two calls; time kernel, plain version, SDPA (forward, or its
-    backward for K7) and the bound; K7's window groups and grids;
+    ``_attention_plain`` at the head-major serving shapes (K8b in bf16:
+    the Hopper kernel, whose window groups, items and grid are logged)
+    and the two-kernel backward (K7) at the B=16 train shape against its
+    plain version and against K5 on the same inputs, whose d_qkv and
+    d_bias K7's must equal bit for bit (the same core, one window group),
+    K7's outputs bitwise equal over two calls; time kernel, plain version,
+    SDPA (forward, or its backward for K7) and the bound; K7's window
+    groups and grids;
 17. with ``QKV_KERNEL_MIN_N`` raised, serve the head-major engine (every
     attention stage through ``window_attention``): exact launches of one
     forward at bucket 1 (K8b 2, K8a 8) and 16 (K8b 4, K8a 6), no other
@@ -81,8 +85,9 @@ Phases, in order; any failure exits non-zero:
 18. with ``BWD_MERGED`` False, ``train()`` at full width for 3 steps of 16
     panoramas: K7 exactly 6 launches a step, K5 none; one train step from
     the same seeded state and batch with K5 and with K7 (loss, the whole
-    gradient's cosine and each stage-2 attention leaf's) and both
-    train_step p50s;
+    gradient's cosine and each stage-2 attention leaf's, which must be
+    bitwise equal: in bf16 both run the same core at one window group)
+    and both train_step p50s;
 19. one B=16 train step with remat off, "full" and "dots" from the same
     state and batch: loss, gradient cosine, running statistics moved once,
     peak device memory;
@@ -634,16 +639,16 @@ def _rel_err(got, want):
 
 
 def _bwd_plan(kernel, W, N, H, dtype=torch.bfloat16):
-    """What one K4 or K7 call launches at (W, N, H), as a log line: in
-    bf16 the Hopper core's window groups G (``_bwd_groups``), the items of
-    each of its persistent launches and their grid (one block of 384
-    threads an SM at most); in f32 the first design's grids, which the
-    twins keep."""
+    """What one K4, K5 or K7 call launches at (W, N, H), as a log line: in
+    bf16 the Hopper core's window groups G (``_bwd_groups``; one for K5),
+    the items of each of its persistent launches and their grid (one
+    block of 384 threads an SM at most); in f32 the first design's grids,
+    which the twins keep."""
     from geoguessr_ai_torch.ops import window_attention as wa
 
     Np = -(-N // 64) * 64
     if dtype == torch.bfloat16:
-        G = wa._bwd_groups(W, Np, H)
+        G = 1 if kernel == "K5" else wa._bwd_groups(W, Np, H)
         sms = torch.cuda.get_device_properties(0).multi_processor_count
         items = wa._bwd_items(W, Np, H, G)
         grid = {k: min(n, sms) for k, n in items.items()}
@@ -720,8 +725,7 @@ def phase_backward_kernels():
         want = plain(*args)
         torch.cuda.synchronize()
         log(f"{kernel} {label} W={W} N={N} H={H} (bias {'bf16' if kernel == 'K4' else 'f32'})")
-        if kernel == "K4":
-            log(f"  {_bwd_plan(kernel, W, N, H)}")
+        log(f"  {_bwd_plan(kernel, W, N, H)}")
         errs = {}
         for out, a, b in (("d_qkv", got[0], want[0]), ("d_bias", got[1], want[1])):
             if a.shape != b.shape or a.dtype != b.dtype:
@@ -1692,6 +1696,22 @@ def _headmajor_sdpa_ms(q, k, v, bias, scale):
     return None, "no SDPA backend takes this mask"
 
 
+def _headmajor_plan(W, H, N):
+    """What one bf16 K8b call launches at (W, H, N), as a log line: the
+    Hopper kernel's window groups G (``_headmajor_groups``), the windows
+    an item walks, its (64-query tile, group, head) items and its grid
+    (one block of 384 threads an SM at most)."""
+    from geoguessr_ai_torch.ops import window_attention as wa
+
+    G = wa._headmajor_groups(W, H, N)
+    items = wa._headmajor_items(W, H, N, G)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return (f"bf16 Hopper kernel: G={G} window groups of {W // G}-"
+            f"{-(-W // G)} windows; {items} items (64-query tile, group, "
+            f"head); grid {min(items, sms)} x 384 threads, "
+            f"{items / min(items, sms):.2f} items a block")
+
+
 def phase_headmajor_kernels():
     from geoguessr_ai_torch.ops import window_attention as wa
 
@@ -1715,6 +1735,8 @@ def phase_headmajor_kernels():
         lib_ms, lib_what = _headmajor_sdpa_ms(*args)
         bound, bound_by = _headmajor_bound_ms(W, H, N)
         log(f"{kernel} {label} W={W} H={H} N={N} (f32 bias)")
+        if kernel == "K8b":
+            log(f"  {_headmajor_plan(W, H, N)}")
         log(f"  max_abs_err {max_abs:.6g}")
         log(f"  max_rel_err {rel:.6g} (tolerance {KERNEL_REL_TOL})")
         log(f"  kernel_ms {ms:.4f}")
@@ -1764,6 +1786,13 @@ def phase_headmajor_kernels():
                 fail(f"K7: {out} disagrees with {ref_name} (rel {rel:.3g}, "
                      f"finite {finite})")
             errs.setdefault(out, abs_err)
+        if ref_name == "K5":
+            # one window group here, so K7 runs K5's launches
+            same = torch.equal(got[0], want[0]) and torch.equal(got[1],
+                                                                want[1])
+            log(f"  d_qkv and d_bias bitwise equal to K5's: {same}")
+            if not same:
+                fail("K7: d_qkv or d_bias differs from K5's bits")
         del want
     del got
     ms = cuda_time_ms(lambda: wa._attention_bwd_qtiled_cuda(*args))
@@ -2008,19 +2037,24 @@ def phase_k7_train():
                     if all(part in n for part in K7_STAGE2_LEAVES))
     if not leaves:
         fail("the train step has no stage-2 attention gradients")
-    worst = 1.0
+    worst, equal = 1.0, 0
     for n in leaves:
         a, b = two[5][n], merged[5][n]
         leaf_cos = _cosine(a, b)
         worst = min(worst, leaf_cos)
+        equal += torch.equal(a, b)
         _, leaf_rel = _rel_err(a, b)
         log(f"  {n}: cosine {leaf_cos:.8f} max_rel_err {leaf_rel:.3g} "
             f"bitwise equal {torch.equal(a, b)}")
     log(f"  stage-2 attention leaves: {len(leaves)}, lowest cosine "
-        f"{worst:.8f} (>= {K7_GRAD_MIN_COSINE})")
+        f"{worst:.8f} (>= {K7_GRAD_MIN_COSINE}), bitwise equal {equal} "
+        f"(all: K5 and K7 run the same core at one window group)")
     if rel > K7_LOSS_RTOL or cos < K7_GRAD_MIN_COSINE \
             or worst < K7_GRAD_MIN_COSINE:
         fail("the K7 train step disagrees with the K5 one")
+    if equal != len(leaves):
+        fail("the K7 train step's stage-2 attention leaves are not the K5 "
+             "step's bits")
     return launches["K7"]
 
 
@@ -2133,7 +2167,7 @@ def phase_head_dims():
     gen = torch.Generator().manual_seed(SEED + 7)
     worst = {}
     for kernel, hd, W, N, C, H in HEAD_DIM_CASES:
-        if kernel in ("K4", "K7"):
+        if kernel in ("K4", "K5", "K7"):
             log(f"{kernel}@hd{hd} W={W} N={N} H={H}: "
                 f"{_bwd_plan(kernel, W, N, H)}")
         kern, plain, args = _head_dim_case(kernel, hd, W, N, C, H, gen)
@@ -2179,7 +2213,7 @@ def phase_head_dims():
                 torch.equal(first[0], second[0]))
         log(f"{kernel} {label} W={W}: d_bias bitwise equal over two calls "
             f"{same[0]}, d_qkv {same[1]}"
-            + (f" ({_bwd_plan(kernel, W, N, H)})" if kernel == "K4" else ""))
+            + f" ({_bwd_plan(kernel, W, N, H)})")
         if not all(same):
             fail(f"{kernel} {label}: the backward is not bitwise stable")
         del qkv, bias, g, first, second
@@ -2589,6 +2623,7 @@ F32_CASES = (
     ("K7", "stage2", (64, 1024, 12)),
     ("K8a", "stage2_bucket16", (64, 12, 1024)),
     ("K8b", "stage1_bucket16", (1024, 6, 256)),
+    ("K8b", "stage3_bucket16", (64, 18, 256)),
     ("K9", "embed", (EMBED_BATCH,)),
     ("K10", "embed", (EMBED_BATCH,)),
     ("K6", "vit_l14_bucket16", (64, 577, 1024, 16)),
@@ -3051,8 +3086,8 @@ def main():
             entry["sdpa_attention_ms"] = row["sdpa_ms"]
         if k in BWD_META:
             entry["max_abs_err_dbias"] = row["max_abs_err_dbias"]
-        if k == "K4":
             entry["launch_ms"] = row["launch_ms"]
+        if k == "K4":
             stage3 = rows[("K4", "stage3")]
             entry["stage3"] = {key: stage3[key] for key in (
                 "ms", "plain_ms", "bound_ms", "library_ms", "launch_ms")}

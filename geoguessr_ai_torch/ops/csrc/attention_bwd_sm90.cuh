@@ -1,6 +1,6 @@
 // The Hopper core of the bf16 window-attention backwards K4
-// (attention_qkv_bwd.cu, a bf16 bias) and K7 (attention_bwd_qtiled.cu, an
-// f32 bias).  It computes what attention_bwd.cuh computes, with the same
+// (attention_qkv_bwd.cu, a bf16 bias), K5 (attention_bwd_merged.cu, an f32
+// bias, one window group) and K7 (attention_bwd_qtiled.cu, an f32 bias).  It computes what attention_bwd.cuh computes, with the same
 // numerics (that file's head comment): s in f32 from bf16 products plus
 // the bias, the row softmax in f32, t = sum_row dp * p, ds = p * (dp - t),
 // dv from bf16(p), dq and dk from bf16(ds) times scale, d_bias the f32 sum
@@ -13,8 +13,8 @@
 //          and t of each query, from one online pass over the 64-key tiles
 //          (t's sum rescaled with the max as the row sum is: K4) or from
 //          two, the first on the scores alone and t in the second, as
-//          attention_bwd.cuh computes them (so K7 rounds as K5 does, bit for
-//          bit);
+//          attention_bwd.cuh computes them (K5 and K7: their first design's
+//          rounding, bit for bit);
 //   dkdv   item (128-key tile, window, head): s^T = k q^T and dp^T = v g^T
 //          per 64-query tile, then dv += bf16(p^T) g and dk += bf16(ds^T) q;
 //   dq     item (128-query tile, window, head): s, dp per 64-key tile, then
@@ -611,8 +611,12 @@ constexpr CUtensorMapDataType map_type() {
   return sizeof(BiasT) == 4 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
 }
 
+// static: its opt-in flag must be this library's.  The flag of a function
+// with external linkage is one object process-wide (a GNU unique symbol),
+// so K7's library setting it would leave K5's kernels, which are the same
+// instances, without their shared-memory opt-in.
 template <int HD, int MODE, class BiasT, int PASSES = 1>
-cudaError_t launch_mode(const CUtensorMap& qmap, const CUtensorMap& gmap, const BwdArgs<bf16>& a,
+static cudaError_t launch_mode(const CUtensorMap& qmap, const CUtensorMap& gmap, const BwdArgs<bf16>& a,
                         const BiasT* bias, float* dst, const Geometry& geo, int sms,
                         cudaStream_t stream) {
   using S = Smem<HD, MODE, BiasT>;
@@ -671,7 +675,7 @@ cudaError_t launch_hd(const BwdArgs<bf16>& a, const BiasT* bias, float* partial,
   return e;
 }
 
-// Entry of K4's and K7's bf16 calls: N a multiple of 64, hd 16, 32 or 64,
+// Entry of K4's, K5's and K7's bf16 calls: N a multiple of 64, hd 16, 32 or 64,
 // 1 <= G <= W, qkv and g 16-byte aligned (validated by the wrapper).
 // stat_passes 1 takes t in the same online pass as the row max and sum
 // (rescaled with them; eleven N x N products a window and head), 2 in a

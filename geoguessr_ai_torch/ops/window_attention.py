@@ -24,13 +24,21 @@ Kernels:
 * K4 ``_attention_qkv_bwd_cuda``, K5 ``_attention_bwd_merged_cuda`` and
   K7 ``_attention_bwd_qtiled_cuda``: the attention backward, K4 when the
   all-heads f32 score footprint H * N^2 * 4 is at most 6 MB (stages 1 and
-  3), else K5, or K7 when ``BWD_MERGED`` is False (stage 2).  In bf16, K4
-  and K7 run the Hopper core ``csrc/attention_bwd_sm90.cuh`` (TMA loads
+  3), else K5, or K7 when ``BWD_MERGED`` is False (stage 2).  In bf16 all
+  three run the Hopper core ``csrc/attention_bwd_sm90.cuh`` (TMA loads
   through tensor maps over qkv and g, wgmma, persistent blocks; d_bias
   summed per group of windows, ``_bwd_groups``), which reads qkv and g in
-  place and so needs their TMA layout (``_bwd_layout``);
+  place and so needs their TMA layout (``_bwd_layout``).  K5 and K7 then
+  run the same launches: K5 with one window group, K7 with
+  ``_bwd_groups`` (also one at stage 2), both with t in a second pass, so
+  at one group their bits are equal; ``BWD_MERGED`` still picks the
+  wrapper, and each counts its own launches;
 * K8a ``_attention_qtiled_cuda`` and K8b ``_attention_batched_cuda``: the
   head-major ``window_attention``, chosen as ``_attention_pallas`` chooses.
+  In bf16 K8b is a Hopper kernel (TMA, wgmma, persistent blocks that keep
+  a (head, q-tile) bias tile resident over a group of windows,
+  ``_headmajor_groups``), which needs the TMA layout of its operands
+  (``_headmajor_layout``).
 
 The kernels take activations in one of ``KERNEL_DTYPES``, the compute
 dtype (``BackboneConfig.dtype``): each C entry has a bf16 and an f32 twin,
@@ -48,6 +56,8 @@ so a caller sets one before building or calling, as the JAX tools do.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -96,6 +106,11 @@ BWD_MERGED = True
 #: and cuts the windows into as many groups as bring the items up to this
 #: many (``_bwd_groups``), about 8 an SM of an H100.
 _BWD_DBIAS_ITEMS = 1024
+#: Work items K8b's bf16 kernel aims at: an item is one (64-query tile,
+#: window group, head) with its bias tile resident, and the windows are cut
+#: into as many groups as bring the items up to this many
+#: (``_headmajor_groups``), about 8 an SM of an H100.
+_HEADMAJOR_ITEMS = 1024
 
 
 def reset_launches() -> None:
@@ -516,9 +531,10 @@ def _attention_bwd_cuda(name, lib, qkv, bias, g, scale, num_heads,
                         bias_dtype=None):
     """K4, K5 or K7's launch, the bias in ``bias_dtype`` (None: qkv's
     dtype); an N that is not a multiple of 64 (a ragged window such as
-    14x14 or 28x28) runs padded (``_pad_tokens``).  K4 and K7 also take
-    the d_bias partials of their bf16 core (``_bwd_groups``); their f32
-    twins take no groups."""
+    14x14 or 28x28) runs padded (``_pad_tokens``).  In bf16 all three run
+    the Hopper core, which needs ``_bwd_layout``; K4 and K7 also take the
+    d_bias partials of its window groups (``_bwd_groups``), while K5 sums
+    all windows in one group, and the f32 twins take no groups."""
     from geoguessr_ai_torch.ops import _build
 
     dt = _act_dtype(qkv=qkv, g=g)
@@ -537,12 +553,14 @@ def _attention_bwd_cuda(name, lib, qkv, bias, g, scale, num_heads,
     dqkv = torch.empty_like(qkv)
     dbias = torch.empty((num_heads, Np, Np), dtype=torch.float32,
                         device=qkv.device)
+    # K5 sums d_bias over the windows in one group and takes no partials
     grouped = lib != "attention_bwd_merged"
     G = 1
-    if grouped and dt == torch.bfloat16:
+    if dt == torch.bfloat16:
         _bwd_layout(qkv.shape, qkv.stride(), qkv.data_ptr(), g.shape,
                     g.stride(), g.data_ptr(), qkv.element_size(), num_heads)
-        G = _bwd_groups(W, Np, num_heads)
+        if grouped:
+            G = _bwd_groups(W, Np, num_heads)
     shapes = _bwd_scratch_shapes(W, Np, num_heads, G)
     # row max, 1 / row sum and t per (window, head, query)
     stats = torch.empty(shapes["stats"], dtype=torch.float32,
@@ -575,7 +593,9 @@ def _attention_qkv_bwd_cuda(qkv, bias, g, scale, num_heads):
 
 def _attention_bwd_merged_cuda(qkv, bias, g, scale, num_heads):
     """K5: (d_qkv in qkv's dtype, d_bias f32) with the bias in f32, d_bias
-    summed over the windows in order (bitwise reproducible)."""
+    summed over the windows in order (bitwise reproducible).  In bf16 it
+    runs K7's Hopper core with one window group, so its bits are K7's
+    wherever ``_bwd_groups`` is one."""
     return _attention_bwd_cuda("_attention_bwd_merged_cuda",
                                "attention_bwd_merged", qkv, bias, g, scale,
                                num_heads, torch.float32)
@@ -606,6 +626,68 @@ def _headmajor_operands(q, k, v, bias):
     return W, H, N, hd, bias, dt
 
 
+def _headmajor_groups(W, H, N):
+    """The window groups G of K8b's bf16 kernel, a function of (W, H, N)
+    only (never of the card): enough groups that its (64-query tile,
+    group, head) items number about _HEADMAJOR_ITEMS, at most one a
+    window; group i holds windows [i W // G, (i + 1) W // G), walked in
+    order by the block that owns the item.  42 at stage 1 of a serving
+    bucket of 16 (W=1024, H=6, N=256), 14 at stage 3 (W=64, H=18)."""
+    tiles = (N // 64) * H
+    return max(1, min(W, _HEADMAJOR_ITEMS // tiles))
+
+
+def _headmajor_items(W, H, N, G):
+    """Work items of K8b's bf16 kernel: (64-query tile, window group,
+    head), the q-tile fastest, so the items of one (group, head) run side
+    by side and share each window's k and v in L2."""
+    return (N // 64) * G * H
+
+
+def _headmajor_layout(q, k, v, bias):
+    """Returns (W, H, N, hd) when the tensor maps of K8b's bf16 kernel can
+    read q, k, v and the bias in place, else raises ValueError naming the
+    rule it breaks.  Each argument is a tensor's (shape, strides, base
+    address, element size).  TMA reads boxes of (hd, 64 rows) of bf16 from
+    q, k, v, seen as (W H, N, hd) rows, and boxes of (32, 64 rows) of f32
+    from the (H, N, N) bias, each from a 16-byte aligned base with rows a
+    multiple of 16 bytes apart, and the C entry takes no strides: all four
+    contiguous, q, k, v bf16 of one (W, H, N, hd) shape with a head dim in
+    KERNEL_HEAD_DIMS and N a multiple of 64 below 512, the bias f32 (H, N,
+    N), and W H below 2^31 (the maps' int coordinates)."""
+    shape = tuple(q[0])
+    if len(shape) != 4:
+        raise ValueError(f"q must be (W, H, N, hd), got {shape}")
+    W, H, N, hd = shape
+    if hd not in KERNEL_HEAD_DIMS:
+        raise ValueError(f"the kernels take a head dim in {KERNEL_HEAD_DIMS}, "
+                         f"got {hd}")
+    if W < 1 or H < 1 or W * H >= 2 ** 31 or N < 64 or N % 64 or N >= 512:
+        raise ValueError(f"K8b takes N a multiple of 64 below 512 and "
+                         f"1 <= W H < 2^31, got W={W}, H={H}, N={N}")
+    want = {"q": (shape, 2), "k": (shape, 2), "v": (shape, 2),
+            "bias": ((H, N, N), 4)}
+    for name, (t_shape, strides, ptr, elem) in zip(want, (q, k, v, bias)):
+        w_shape, w_elem = want[name]
+        if elem != w_elem:
+            raise ValueError(f"{name} must have {w_elem}-byte elements, got "
+                             f"{elem}")
+        if tuple(t_shape) != w_shape:
+            raise ValueError(f"{name} must be {w_shape}, got {tuple(t_shape)}")
+        if ptr % 16:
+            raise ValueError(f"{name} must have a 16-byte aligned base, got "
+                             f"address {ptr:#x}")
+        if strides[-1] != 1 or strides[-2] * elem % 16:
+            raise ValueError(f"{name} rows must be a multiple of 16 bytes "
+                             f"apart, got strides {tuple(strides)}")
+        dense = tuple(math.prod(w_shape[i + 1:])
+                      for i in range(len(w_shape)))
+        if any(n > 1 and st != d for n, st, d in zip(w_shape, strides, dense)):
+            raise ValueError(f"{name} must be contiguous, got strides "
+                             f"{tuple(strides)} for shape {w_shape}")
+    return W, H, N, hd
+
+
 def _attention_qtiled_cuda(q, k, v, bias, scale):
     """K8a: (W, H, N, hd) q, k, v (bf16 or f32) and an f32 bias ->
     (W, H, N, hd) in q's dtype."""
@@ -622,9 +704,11 @@ def _attention_qtiled_cuda(q, k, v, bias, scale):
 
 
 def _attention_batched_cuda(q, k, v, bias, scale):
-    """K8b: as K8a, BLOCK_W windows of one head per block; W must be a
-    multiple of BLOCK_W and N below 512 (the bias rows of a q-tile staged
-    in shared memory)."""
+    """K8b: as K8a for N below 512, a q-tile's bias rows resident in shared
+    memory while a block walks several windows of one head; W must be a
+    multiple of BLOCK_W (the JAX dispatch rule) and N below 512.  The bf16
+    kernel walks ``_headmajor_groups`` groups of windows and needs
+    ``_headmajor_layout``; the f32 twin walks BLOCK_W windows a block."""
     from geoguessr_ai_torch.ops import _build
 
     W, H, N, hd, bias, dt = _headmajor_operands(q, k, v, bias)
@@ -633,9 +717,14 @@ def _attention_batched_cuda(q, k, v, bias, scale):
         raise ValueError(f"K8b takes W a multiple of BLOCK_W={BLOCK_W} and "
                          f"N < 512, got W={W}, N={N}")
     out = torch.empty_like(q)
+    windows = block_w
+    if dt == torch.bfloat16:
+        _headmajor_layout(*((t.shape, t.stride(), t.data_ptr(),
+                             t.element_size()) for t in (q, k, v, bias)))
+        windows = _headmajor_groups(W, H, N)
     err = _build.typed_entry("attention_headmajor", "attention_batched", dt)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
-        out.data_ptr(), W, H, N, hd, block_w, float(scale), _stream())
+        out.data_ptr(), W, H, N, hd, windows, float(scale), _stream())
     _raise_on(err, "_attention_batched_cuda")
     LAUNCHES["_attention_batched_cuda"] += 1
     return out

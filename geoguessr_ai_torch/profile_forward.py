@@ -48,13 +48,14 @@ GROUPS = (
     # the H100 with torch 2.11)
     ("gemm_s8", "int8 GEMM (torch._int_mm)"),
     ("imma", "int8 GEMM (torch._int_mm)"),
-    # the sum of the d_bias partials of K4's and K7's bf16 core, whose
-    # launches _group tells apart by their bias type
+    # the sum of the d_bias partials of the bf16 backward core (K4, K5,
+    # K7), whose launches _group tells apart by their bias type
     ("dbias_reduce", "attention backward (K4/K7 CUDA)"),
-    ("attn_bwd_", "attention backward (K5, f32 K4 CUDA)"),
+    ("attn_bwd_", "attention backward (f32 K4/K5 CUDA)"),
     ("bwd_qtiled_", "attention backward (f32 K7 CUDA)"),
     ("attention_qtiled_kernel", "head-major attention (K8a CUDA)"),
-    ("attention_batched_kernel", "head-major attention (K8b CUDA)"),
+    # the bf16 Hopper kernel and the f32 twin
+    ("attention_batched", "head-major attention (K8b CUDA)"),
     ("clip_flash", "CLIP attention (K6/K11 CUDA)"),
     ("conv", "convolution (cuDNN)"),
     ("cudnn", "convolution (cuDNN)"),
@@ -79,10 +80,11 @@ HEAD_MAJOR_MIN_N = 2048
 def _group(name: str) -> str:
     low = name.lower()
     if "attn_bwd_sm90<" in low:
-        # attn_bwd_sm90<HD, MODE, bias type>: bf16 in K4, f32 in K7
+        # attn_bwd_sm90<HD, MODE, bias type>: bf16 in K4; f32 in K5 and K7,
+        # which run the same launches (BWD_MERGED picks which)
         bias = low.split("<", 1)[1].split(">", 1)[0]
         return ("attention backward (K4 CUDA)" if "bfloat16" in bias
-                else "attention backward (K7 CUDA)")
+                else "attention backward (K5/K7 CUDA)")
     for key, group in GROUPS:
         if key in low:
             return group

@@ -1,10 +1,12 @@
 #!/bin/bash
-# Times the bf16 kernels, the TinyViT engine and the CLIP engine of two
+# Times the bf16 kernels, the TinyViT engines and the CLIP engine of two
 # trees on one GPU, in turns PARENT, THIS, THIS, PARENT, through
 # chip_smoke.py's own phases (kernels vs plain versions with their times;
 # the default B=16 train_step p50 of phase 8 and the K5 and K7 step p50s
-# of phase 18; the guess paths' p50s), and K6 and K11 at CLIP
-# ViT-L/14-336's bucket 16 by one timer for both trees (below):
+# of phase 18; the guess paths' p50s, the head-major engine's too), and
+# by one timer for both trees (below) K6 and K11 at CLIP ViT-L/14-336's
+# bucket 16, K5 at the B=16 train shape of stage 2 and K8b at the
+# head-major serving shapes of stages 1 and 3 at bucket 16:
 #
 #     git archive <parent-commit> | (mkdir -p build/ab_parent && tar -x -C build/ab_parent)
 #     bash scripts/chip_ab.sh build/ab_parent
@@ -30,17 +32,22 @@ import chip_smoke as cs
 
 cs.phase_device(); cs.phase_build()
 if os.environ.get("AB_PHASES") == "serve":
-    cs.phase_serve(); cs.phase_clip_serve()
+    _, paths, result, _ = cs.phase_serve()
+    cs.phase_headmajor_serve(paths, result); cs.phase_clip_serve()
     sys.exit(0)
 cs.phase_kernels(); cs.phase_backward_kernels(); cs.phase_clip_kernels()
 cs.phase_embed_kernels(); cs.phase_headmajor_kernels()
-cs.phase_train(); cs.phase_k7_train(); cs.phase_serve()
+cs.phase_train(); cs.phase_k7_train()
+_, paths, result, _ = cs.phase_serve()
+cs.phase_headmajor_serve(paths, result)
 cs.phase_clip_serve()
 
-# K6 and K11 at CLIP-L bucket 16 by the same two timers in either tree:
-# 20 launches between two events, and 20 launches captured in one CUDA
-# graph replayed 5 times (device time only).
+# K6 and K11 at CLIP-L bucket 16, K5 and K8b at their main shapes, by
+# the same two timers in either tree: 20 launches between two events, and
+# 20 launches captured in one CUDA graph replayed 5 times (device time
+# only).
 from geoguessr_ai_torch.ops import clip_attention as ca
+from geoguessr_ai_torch.ops import window_attention as wa
 
 
 def graph_ms(fn, iters=20, reps=5):
@@ -72,10 +79,25 @@ for name, fn in (("K6", lambda: ca._flash_cuda(qkv, 0.125, 16)),
                  ("K11", lambda: ca._flash_proj_cuda(qkv, w, 0.125, 16))):
     print(f"AB {name} (64, 577, 3072) H=16 events_ms "
           f"{cs.cuda_time_ms(fn, iters=20):.4f} graph_ms {graph_ms(fn):.4f}")
+del qkv, w
+bq = torch.randn(64, 1024, 1152, generator=gen).to("cuda", torch.bfloat16)
+bb = (torch.randn(12, 1024, 1024, generator=gen) * 0.5).to("cuda")
+bg = torch.randn(64, 1024, 384, generator=gen).to("cuda", torch.bfloat16)
+fn = lambda: wa._attention_bwd_merged_cuda(bq, bb, bg, 32 ** -0.5, 12)
+print(f"AB K5 (64, 1024) H=12 events_ms {cs.cuda_time_ms(fn, iters=20):.4f} "
+      f"graph_ms {graph_ms(fn):.4f}")
+del bq, bb, bg
+for W, H in ((1024, 6), (64, 18)):
+    q, k, v = (torch.randn(W, H, 256, 32, generator=gen).to(
+        "cuda", torch.bfloat16) for _ in range(3))
+    hb = (torch.randn(H, 256, 256, generator=gen) * 0.5).to("cuda")
+    fn = lambda: wa._attention_batched_cuda(q, k, v, hb, 32 ** -0.5)
+    print(f"AB K8b ({W}, {H}, 256) events_ms "
+          f"{cs.cuda_time_ms(fn, iters=20):.4f} graph_ms {graph_ms(fn):.4f}")
 PY
   ) > "$out/ab_$2.log" 2>&1
   echo "== $2 rc=$?"
-  grep -E "^K[0-9]+[ab]? |kernel_ms|launch_ms|train_step p50|^bucket|^CLIP bucket|^CLIP pallas|^AB |FAIL" \
+  grep -E "^K[0-9]+[ab]? |kernel_ms|launch_ms|train_step p50|^bucket|^head-major engine bucket|^CLIP bucket|^CLIP pallas|^AB |FAIL" \
     "$out/ab_$2.log"
 }
 run "$parent" parent1

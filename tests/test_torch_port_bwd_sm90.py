@@ -1,16 +1,18 @@
-"""The bf16 entries of K4 and K7, the Hopper backward core, on the CPU: the
-window groups of its d_bias launch, its scratch, its layout rules, its
-routing, and Python mirrors of the d_bias sum it takes in another order
-than the first design and of its row statistics.
+"""The bf16 entries of K4, K5 and K7, the Hopper backward core, on the
+CPU: the window groups of its d_bias launch, its scratch, its layout
+rules, its routing, and Python mirrors of the d_bias sum it takes in
+another order than the first design and of its row statistics.
 
-In bf16 ``_attention_qkv_bwd_cuda`` (K4) and ``_attention_bwd_qtiled_cuda``
-(K7) launch ``attention_qkv_bwd_bf16`` and ``attention_bwd_qtiled_bf16``,
-which run ``csrc/attention_bwd_sm90.cuh``: TMA loads through tensor maps
-over qkv and g (so both must be 16-byte aligned with rows a multiple of 16
-bytes apart, ``_bwd_layout``), and a d_bias launch that sums ds over
-``_bwd_groups`` groups of windows into (G, H, N, N) partials, then sums
-the partials in group order.  The f32 entries keep the first design
-(``attention_bwd.cuh``) and K5 keeps its entry.  What is checked here,
+In bf16 ``_attention_qkv_bwd_cuda`` (K4), ``_attention_bwd_merged_cuda``
+(K5) and ``_attention_bwd_qtiled_cuda`` (K7) launch
+``attention_qkv_bwd_bf16``, ``attention_bwd_merged_bf16`` and
+``attention_bwd_qtiled_bf16``, which run ``csrc/attention_bwd_sm90.cuh``:
+TMA loads through tensor maps over qkv and g (so both must be 16-byte
+aligned with rows a multiple of 16 bytes apart, ``_bwd_layout``), and a
+d_bias launch that sums ds over ``_bwd_groups`` groups of windows (K5:
+one group) into (G, H, N, N) partials, then sums the partials in group
+order.  The f32 entries keep the first design (``attention_bwd.cuh``).
+What is checked here,
 where there is no ``nvcc`` and no card: the grouping, the scratch shapes,
 every layout rule, which entry each call reaches with which arguments,
 and that the group-ordered sums and the row statistics (one pass in K4,
@@ -171,15 +173,17 @@ def _c_body(lib, entry):
 @pytest.mark.parametrize("kernel,lib", [
     ("_attention_qkv_bwd_cuda", "attention_qkv_bwd"),
     ("_attention_bwd_qtiled_cuda", "attention_bwd_qtiled"),
-], ids=["K4", "K7"])
+    ("_attention_bwd_merged_cuda", "attention_bwd_merged"),
+], ids=["K4", "K7", "K5"])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
                          ids=["bf16", "f32"])
 def test_k4_k7_route_bf16_to_the_core_and_f32_to_the_twin(
         monkeypatch, kernel, lib, dtype):
-    """A bf16 call reaches the ``_bf16`` entry with the d_bias partials and
-    G = ``_bwd_groups``; an f32 call reaches the ``_f32`` twin with no
-    partials and G = 1; one launch counted either way.  The bf16 entry's
-    body runs the Hopper core, the f32 one the first design."""
+    """A bf16 call of K4 or K7 reaches the ``_bf16`` entry with the d_bias
+    partials and G = ``_bwd_groups``; an f32 call reaches the ``_f32`` twin
+    with no partials and G = 1; K5 takes neither (one window group) in
+    either dtype; one launch counted either way.  Every bf16 entry's body
+    runs the Hopper core, every f32 one the first design."""
     calls = _fake_card(monkeypatch)
     W, N, H, hd = 17, 128, 2, 32
     qkv = torch.zeros(W, N, 3 * H * hd, dtype=dtype)
@@ -193,11 +197,14 @@ def test_k4_k7_route_bf16_to_the_core_and_f32_to_the_twin(
     suffix = "bf16" if dtype == torch.bfloat16 else "f32"
     ((got_lib, entry, tail),) = calls
     assert (got_lib, entry) == (lib, f"{lib}_{suffix}")
-    partial, rest = tail[0], tail[1:]
-    G = wa._bwd_groups(W, N, H) if suffix == "bf16" else 1
-    assert G == (17 if suffix == "bf16" else 1)
-    assert rest[:5] == (W, N, H, hd, G) and rest[5] == 0.25
-    assert (partial != 0) == (G > 1)
+    if lib == "attention_bwd_merged":
+        assert tail == (W, N, H, hd, 0.25, 0)
+    else:
+        partial, rest = tail[0], tail[1:]
+        G = wa._bwd_groups(W, N, H) if suffix == "bf16" else 1
+        assert G == (17 if suffix == "bf16" else 1)
+        assert rest[:5] == (W, N, H, hd, G) and rest[5] == 0.25
+        assert (partial != 0) == (G > 1)
     body = _c_body(lib, entry)
     if suffix == "bf16":
         assert "gg::bwd90::launch(" in body
@@ -207,9 +214,17 @@ def test_k4_k7_route_bf16_to_the_core_and_f32_to_the_twin(
 
 
 def test_k5_keeps_its_entry_and_its_core(monkeypatch):
-    """K5 (``attention_bwd_merged``) takes no partials or groups and its
-    source is the first design's: no Hopper core."""
+    """K5 (``attention_bwd_merged``) keeps its entry, which takes no
+    partials or groups; in bf16 the entry runs the Hopper core with one
+    window group (G = 1: d_bias summed over all windows in order) and t in
+    two passes, as K7's does, so the two give equal bits at one group; its
+    f32 twin keeps the first design.  A bf16 call checks the core's TMA
+    layout (``_bwd_layout``) first."""
     calls = _fake_card(monkeypatch)
+    checked = []
+    real_layout = wa._bwd_layout
+    monkeypatch.setattr(wa, "_bwd_layout",
+                        lambda *a: checked.append(a) or real_layout(*a))
     W, N, H = 2, 1024, 2
     qkv = torch.zeros(W, N, 3 * H * 32, dtype=torch.bfloat16)
     g = torch.zeros(W, N, H * 32, dtype=torch.bfloat16)
@@ -218,9 +233,18 @@ def test_k5_keeps_its_entry_and_its_core(monkeypatch):
     assert (lib, entry) == ("attention_bwd_merged",
                             "attention_bwd_merged_bf16")
     assert tail == (W, N, H, 32, 0.25, 0)
+    assert len(checked) == 1
     assert len(_build.SIGNATURES[lib][entry]) == 12
+    bf16 = _c_body(lib, "attention_bwd_merged_bf16")
+    assert "gg::bwd90::launch(" in bf16
+    # the f32 bias, no partials, one group, hd, two passes
+    assert re.search(r"launch\(a, b, nullptr, 1, hd, 2, static_cast<cudaStream_t>",
+                     bf16)
+    assert "const float* b = static_cast<const float*>(bias)" in bf16
+    f32 = _c_body(lib, "attention_bwd_merged_f32")
+    assert "bwd90" not in f32 and "launch_attention_bwd(" in f32
     src = open(_build.CSRC / "attention_bwd_merged.cu").read()
-    assert "sm90" not in src and "launch_attention_bwd" in src
+    assert '#include "attention_bwd_sm90.cuh"' in src
     for k in ("attention_qkv_bwd", "attention_bwd_qtiled"):
         assert all(len(a) == 14 for a in _build.SIGNATURES[k].values())
 
@@ -279,11 +303,13 @@ def test_group_ordered_dbias_sum_matches_the_plain_sum(W, N, H):
 
 
 @pytest.mark.parametrize("lib,passes", [("attention_qkv_bwd", 1),
-                                         ("attention_bwd_qtiled", 2)],
-                         ids=["K4", "K7"])
+                                         ("attention_bwd_qtiled", 2),
+                                         ("attention_bwd_merged", 2)],
+                         ids=["K4", "K7", "K5"])
 def test_stats_passes_of_each_entry(lib, passes):
     """K4's bf16 entry takes t in the online pass of the row statistics;
-    K7's in a second pass, as K5 does, so that K7 rounds as K5."""
+    K7's and K5's in a second pass, as K5's first design did, so that K7
+    rounds as K5."""
     body = _c_body(lib, f"{lib}_bf16")
     assert re.search(r"hd, %d, static_cast<cudaStream_t>" % passes, body)
 
@@ -321,3 +347,30 @@ def test_the_row_statistics_passes_match_softmax(passes):
     want = (dp * torch.softmax(s, dim=-1)).sum(-1)
     assert torch.allclose(t, want, rtol=1e-4, atol=1e-5 * float(
         want.abs().max()))
+
+
+@pytest.mark.parametrize("kernel_name,group", [
+    ("void gg::bwd90::attn_bwd_sm90<32, 0, float, 2>(CUtensorMap_st, "
+     "CUtensorMap_st, CUtensorMap_st, gg::BwdArgs<__nv_bfloat16>)",
+     "attention backward (K5/K7 CUDA)"),
+    ("void gg::bwd90::attn_bwd_sm90<32, 3, float, 1>(CUtensorMap_st)",
+     "attention backward (K5/K7 CUDA)"),
+    ("void gg::bwd90::attn_bwd_sm90<32, 1, __nv_bfloat16, 1>(CUtensorMap_st)",
+     "attention backward (K4 CUDA)"),
+    ("gg::bwd90::dbias_reduce(float4 const*, float4*, long, int)",
+     "attention backward (K4/K7 CUDA)"),
+    ("void gg::hm90::attention_batched_sm90<32, 4>(CUtensorMap_st, "
+     "CUtensorMap_st, CUtensorMap_st, CUtensorMap_st, __nv_bfloat16*)",
+     "head-major attention (K8b CUDA)"),
+    ("void gg::(anonymous namespace)::attention_batched_kernel<float, 32>("
+     "float const*)", "head-major attention (K8b CUDA)"),
+], ids=["core_stats_f32_bias", "core_dbias_f32_bias", "core_bf16_bias",
+        "partials_sum", "k8b_bf16", "k8b_f32"])
+def test_profile_groups_name_the_core_launches_by_their_kernels(kernel_name,
+                                                                group):
+    """``profile_forward`` counts the f32-bias launches of the core as K5/K7
+    (the default train step's K5 runs them since K5 moved onto the core)
+    and both of K8b's kernels as K8b."""
+    from geoguessr_ai_torch import profile_forward
+
+    assert profile_forward._group(kernel_name) == group

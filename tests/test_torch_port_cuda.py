@@ -579,12 +579,13 @@ def test_cuda_bwd_qtiled_matches_plain_and_k5(cuda_device, W, N, H):
 #: to 256, 17 window groups), N=256 and N=1024.
 SM90_SHAPES = ((1, 64, 2), (3, 128, 2), (17, 196, 2), (3, 256, 3),
                (2, 1024, 2))
-#: The train shapes: K4 at stages 1 and 3, K7 at stage 2 (hd 32).
+#: The train shapes: K4 at stages 1 and 3, K5 and K7 at stage 2 (hd 32).
 SM90_TRAIN_SHAPES = (("K4", 1024, 256, 6), ("K4", 64, 256, 18),
-                     ("K7", 64, 1024, 12))
+                     ("K7", 64, 1024, 12), ("K5", 64, 1024, 12))
 SM90_KERNELS = {
     "K4": ("_attention_qkv_bwd_cuda", wa._attention_qkv_bwd_plain),
     "K7": ("_attention_bwd_qtiled_cuda", wa._attention_bwd_qtiled_plain),
+    "K5": ("_attention_bwd_merged_cuda", wa._attention_bwd_merged_plain),
 }
 #: NaN elements on each side of every buffer a wrapper allocates in
 #: ``_nan_fenced_buffers`` (128 bytes of bf16, so views stay aligned).
@@ -628,7 +629,7 @@ def _check_fenced(made):
 
 
 def _sm90_case(monkeypatch, kernel, W, N, H, hd):
-    """One bf16 K4 or K7 call in NaN-fenced outputs and scratch, a second
+    """One bf16 K4, K5 or K7 call in NaN-fenced outputs and scratch, a second
     call, and the plain version: every element written and none outside,
     one launch a call, bitwise equal calls, d_qkv and d_bias within
     KERNEL_REL_TOL of the plain version."""
@@ -642,8 +643,8 @@ def _sm90_case(monkeypatch, kernel, W, N, H, hd):
     torch.cuda.synchronize()
     monkeypatch.undo()
     _check_fenced(made)
-    # stats, d_qkv and d_bias, and the partials when G > 1
-    G = wa._bwd_groups(W, -(-N // 64) * 64, H)
+    # stats, d_qkv and d_bias, and the partials when G > 1 (K5: one group)
+    G = 1 if kernel == "K5" else wa._bwd_groups(W, -(-N // 64) * 64, H)
     assert len(made) >= 3 + (G > 1)
     again = kern(qkv, bias, g, scale, H)
     torch.cuda.synchronize()
@@ -659,12 +660,13 @@ def _sm90_case(monkeypatch, kernel, W, N, H, hd):
 @pytest.mark.cuda
 @pytest.mark.parametrize("W,N,H", SM90_SHAPES)
 @pytest.mark.parametrize("hd", [16, 32, 64])
-@pytest.mark.parametrize("kernel", ["K4", "K7"])
+@pytest.mark.parametrize("kernel", ["K4", "K7", "K5"])
 def test_cuda_bwd_sm90_matches_plain_and_writes_every_element(
         cuda_device, monkeypatch, kernel, hd, W, N, H):
-    """The bf16 core of K4 and K7 (``csrc/attention_bwd_sm90.cuh``) at
+    """The bf16 core of K4, K5 and K7 (``csrc/attention_bwd_sm90.cuh``) at
     head dims 16, 32 and 64, N from half a row tile to 1024, ragged N and
-    W of 1, 3 and 17 (window groups of one and of several windows)."""
+    W of 1, 3 and 17 (window groups of one and of several windows; K5
+    always one)."""
     _sm90_case(monkeypatch, kernel, W, N, H, hd)
 
 
@@ -673,8 +675,67 @@ def test_cuda_bwd_sm90_matches_plain_and_writes_every_element(
 def test_cuda_bwd_sm90_at_the_train_shapes(cuda_device, monkeypatch, kernel,
                                            W, N, H):
     """As above at the shapes a B=16 train step gives K4 (21 and 7 window
-    groups) and K7 (one group of 64 windows)."""
+    groups), K7 and K5 (one group of 64 windows)."""
     _sm90_case(monkeypatch, kernel, W, N, H, HD)
+
+
+@pytest.mark.cuda
+def test_cuda_bwd_sm90_k5_and_k7_give_equal_bits(cuda_device):
+    """At one window group K7 runs K5's launches: d_qkv and d_bias equal
+    bit for bit (W=8 at stage 2's N and H)."""
+    W, N, H = 8, 1024, 12
+    assert wa._bwd_groups(W, N, H) == 1
+    qkv, bias, g = _bwd_inputs(W, N, H, cuda_device, seed=4)
+    k7 = wa._attention_bwd_qtiled_cuda(qkv, bias, g, HD ** -0.5, H)
+    k5 = wa._attention_bwd_merged_cuda(qkv, bias, g, HD ** -0.5, H)
+    torch.cuda.synchronize()
+    assert torch.equal(k7[0], k5[0]) and torch.equal(k7[1], k5[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("W", [8, 64, 1024])
+@pytest.mark.parametrize("N", [64, 128, 192, 256, 448])
+@pytest.mark.parametrize("hd", [16, 32, 64])
+def test_cuda_headmajor_sm90_matches_plain_and_writes_every_element(
+        cuda_device, monkeypatch, hd, N, W):
+    """K8b's bf16 kernel (TMA + wgmma, ``csrc/attention_headmajor.cu``) at
+    head dims 16, 32 and 64, N from one 64-key tile to 448 (the whole row
+    in one chunk up to 256, several above) and W from one group of
+    BLOCK_W=8 windows to 1024: the output in a NaN-fenced buffer (every
+    element written, none around it), one launch a call, two calls
+    bitwise equal, within KERNEL_REL_TOL of ``_attention_plain``."""
+    assert wa.BLOCK_W == 8
+    H = 2
+    q, k, v, bias = _headmajor_inputs(W, H, N, cuda_device, seed=N + hd,
+                                      hd=hd)
+    scale = hd ** -0.5
+    name = "_attention_batched_cuda"
+    before = wa.LAUNCHES[name]
+    made = _nan_fenced_buffers(monkeypatch)
+    got = wa._attention_batched_cuda(q, k, v, bias, scale)
+    torch.cuda.synchronize()
+    monkeypatch.undo()
+    _check_fenced(made)
+    again = wa._attention_batched_cuda(q, k, v, bias, scale)
+    torch.cuda.synchronize()
+    assert wa.LAUNCHES[name] == before + 2
+    assert torch.equal(got, again)
+    want = wa._attention_plain(q, k, v, bias, scale)
+    assert got.shape == want.shape and got.dtype == torch.bfloat16
+    assert _rel_err(got, want) < KERNEL_REL_TOL
+
+
+@pytest.mark.cuda
+def test_cuda_headmajor_sm90_refuses_a_misaligned_base(cuda_device):
+    """q 2 bytes past a 16-byte boundary: refused before any launch."""
+    q, k, v, bias = _headmajor_inputs(8, 2, 64, cuda_device)
+    buf = torch.zeros(1 + q.numel(), dtype=torch.bfloat16,
+                      device=cuda_device)
+    odd = buf[1:].view(q.shape)
+    before = wa.LAUNCHES["_attention_batched_cuda"]
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        wa._attention_batched_cuda(odd, k, v, bias, 0.18)
+    assert wa.LAUNCHES["_attention_batched_cuda"] == before
 
 
 @pytest.mark.cuda
