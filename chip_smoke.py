@@ -9,10 +9,13 @@ Phases, in order; any failure exits non-zero:
 
 1. print the card (``nvidia-smi`` name and power limit) and the versions;
 2. build the CUDA kernels from ``geoguessr_ai_torch/ops/csrc`` and print
-   the build seconds;
+   the build seconds; fail if a library exports a GNU-unique symbol
+   (``nm -D``: a function-local static shared by every library of the
+   process);
 3. hold each kernel (K1, K2, K3) against its plain PyTorch version on the
    card, in bf16, at the shapes the serving path gives it at bucket 16,
-   and time kernel, plain version, SDPA and the bound;
+   and time kernel, plain version, SDPA and the bound; K3 (the Hopper
+   forward core) bitwise equal over two calls;
 4. build the full-width ServingEngine (TinyViT-21M-512, 12647 cells,
    seeded random weights) on the card, serve the fixture panorama and 32
    concurrent MicroBatcher requests with every launch counter set to 0
@@ -68,14 +71,16 @@ Phases, in order; any failure exits non-zero:
     on (K10 2, K9 2, K2 6, K3 2, K1 0 launches a forward) against the
     default engine of phase 4, and its bucket-16 p50;
 16. hold the head-major attention kernels (K8a, K8b) against
-    ``_attention_plain`` at the head-major serving shapes (K8b in bf16:
-    the Hopper kernel, whose window groups, items and grid are logged)
-    and the two-kernel backward (K7) at the B=16 train shape against its
-    plain version and against K5 on the same inputs, whose d_qkv and
-    d_bias K7's must equal bit for bit (the same core, one window group),
-    K7's outputs bitwise equal over two calls; time kernel, plain version,
-    SDPA (forward, or its backward for K7) and the bound; K7's window
-    groups and grids;
+    ``_attention_plain`` at the head-major serving shapes (in bf16 both run
+    the Hopper forward core, K8b's window groups, items and grid logged),
+    each bitwise equal over two calls, and K8b's output bits on seeded
+    inputs equal to its bits before K3 and K8a shared its core
+    (``K8B_BITS``); then the two-kernel backward (K7) at the B=16 train
+    shape against its plain version and against K5 on the same inputs,
+    whose d_qkv and d_bias K7's must equal bit for bit (the same core, one
+    window group), K7's outputs bitwise equal over two calls; time kernel,
+    plain version, SDPA (forward, or its backward for K7) and the bound;
+    K7's window groups and grids;
 17. with ``QKV_KERNEL_MIN_N`` raised, serve the head-major engine (every
     attention stage through ``window_attention``): exact launches of one
     forward at bucket 1 (K8b 2, K8a 8) and 16 (K8b 4, K8a 6), no other
@@ -311,6 +316,29 @@ def phase_build() -> None:
         for line in _build.build_log(name).splitlines():
             if "registers" in line or "spill" in line:
                 log(f"ptxas {name}: {line.strip()}")
+    unique = {}
+    for name in _build.SIGNATURES:
+        unique[name] = _gnu_unique_symbols(_build.library_path(name))
+        if unique[name]:
+            log(f"GNU-unique symbols of {name}: {unique[name]}")
+    log(f"GNU-unique symbols exported: {sum(map(len, unique.values()))} in "
+        f"{len(unique)} libraries")
+    if any(unique.values()):
+        fail("a library exports GNU-unique symbols: one object across the "
+             "libraries of a process (give the function internal linkage)")
+
+
+def _gnu_unique_symbols(path):
+    """The symbols ``nm -D --defined-only`` marks ``u`` (GNU unique) in the
+    shared library at ``path``: a function-local static of an inline or
+    template function with external linkage, which the dynamic linker makes
+    one object across every library of the process that defines it."""
+    out = subprocess.run(["nm", "-D", "--defined-only", "-C", str(path)],
+                         capture_output=True, text=True, timeout=60)
+    if out.returncode:
+        fail(f"nm failed on {path}: {out.stderr.strip()}")
+    return [line.split(" ", 2)[2] for line in out.stdout.splitlines()
+            if line.split(" ")[1:2] == ["u"]]
 
 
 # ---------------------------------------------------------------------------
@@ -418,6 +446,13 @@ def phase_kernels():
             kern, plain = wa._fused_block_cuda, wa._fused_block_plain
         got = kern(*args)
         torch.cuda.synchronize()
+        if kernel == "K3":
+            # the forward core: every output element from one thread in an
+            # order fixed by the shape
+            stable = torch.equal(got, kern(*args))
+            log(f"K3 {label}: bitwise equal over two calls {stable}")
+            if not stable:
+                fail("K3: two calls on the same inputs gave different bits")
         want = plain(*args)
         torch.cuda.synchronize()
         if got.shape != want.shape:
@@ -1669,6 +1704,30 @@ K7_META = ("_attention_bwd_qtiled_cuda",
            "geoguessr_ai_tpu/ops/window_attention.py:694")
 #: K7 at stage 2 of a TRAIN_BATCH train step.
 K7_CASE = (64, 1024, 12)
+#: K8b's bf16 output bits (``k8b_bits``) at stages 1 and 3 of the
+#: head-major serving path at a bucket of 16, as the kernel gave them
+#: before K3 and K8a shared its core (commit cb69073, on the H100).
+K8B_BITS = {(1024, 6, 256): "4e27000f462493e8",
+            (64, 18, 256): "9c4ce39319439d49"}
+
+
+def k8b_bits(W, H, N, seed=11):
+    """The first 16 hex digits of the SHA-256 of K8b's bf16 output on q, k,
+    v and an f32 bias made by numpy from ``seed`` (hd 32)."""
+    import hashlib
+
+    from geoguessr_ai_torch.ops import window_attention as wa
+
+    rng = np.random.default_rng(seed)
+    q, k, v = (torch.from_numpy(rng.standard_normal((W, H, N, 32),
+                                                    dtype=np.float32))
+               .to("cuda", torch.bfloat16) for _ in range(3))
+    bias = torch.from_numpy(rng.standard_normal(
+        (H, N, N), dtype=np.float32) * 0.5).to("cuda")
+    out = wa._attention_batched_cuda(q, k, v, bias, 32 ** -0.5)
+    torch.cuda.synchronize()
+    return hashlib.sha256(
+        out.view(torch.int16).cpu().numpy().tobytes()).hexdigest()[:16]
 
 
 def _headmajor_bound_ms(W, H, N, elem=2):
@@ -1726,6 +1785,11 @@ def phase_headmajor_kernels():
         args = (q, k, v, bias, scale)
         got = kern(*args)
         torch.cuda.synchronize()
+        stable = torch.equal(got, kern(*args))
+        log(f"{kernel} {label}: bitwise equal over two calls {stable}")
+        if not stable:
+            fail(f"{kernel} {label}: two calls on the same inputs gave "
+                 "different bits")
         want = wa._attention_plain(*args)
         max_abs, rel = _rel_err(got, want)
         finite = bool(torch.isfinite(got).all())
@@ -1752,6 +1816,13 @@ def phase_headmajor_kernels():
             bound_ms=bound, bound_by=bound_by)
         del q, k, v, bias, args
         torch.cuda.empty_cache()
+
+    for (W, H, N), want in K8B_BITS.items():
+        got = k8b_bits(W, H, N)
+        log(f"K8b W={W} H={H} N={N}: output bits {got} (expected {want}, "
+            "its bits before the forward core was shared)")
+        if got != want:
+            fail(f"K8b W={W} H={H} N={N}: its output bits changed")
 
     W, N, H = K7_CASE
     D = H * 32

@@ -41,7 +41,7 @@ def _twins(name: str, argtypes: tuple) -> Dict[str, tuple]:
 #: Entry points of every library, by library name: C name -> argtypes.
 SIGNATURES: Dict[str, Dict[str, tuple]] = {
     "attention_qkv": _twins("attention_qkv", (
-        _P, _P, _P, _I, _I, _I, _I, _F, _P)),
+        _P, _P, _P, _I, _I, _I, _I, _I, _F, _P)),
     "fb_s2": _twins("fb_s2", (
         _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _P)),
     "fused_block": _twins("fused_block", (
@@ -55,7 +55,7 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
         _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P)),
     "attention_headmajor": {
         **_twins("attention_qtiled", (
-            _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P)),
+            _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P)),
         **_twins("attention_batched", (
             _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P)),
     },
@@ -135,12 +135,18 @@ def build_log(name: str) -> str:
     return log.read_text() if log.exists() else ""
 
 
+def library_path(name: str) -> Path:
+    """The shared library of ``name`` from this checkout's sources, built
+    first when needed."""
+    build((name,))
+    return _target(name)
+
+
 @functools.cache
 def library(name: str) -> ctypes.CDLL:
     """The loaded library ``name`` with its entry points' argtypes set;
     builds it first when needed."""
-    build((name,))
-    lib = ctypes.CDLL(str(_target(name)))
+    lib = ctypes.CDLL(str(library_path(name)))
     for fn_name, argtypes in SIGNATURES[name].items():
         fn = getattr(lib, fn_name)
         fn.argtypes = list(argtypes)

@@ -56,6 +56,7 @@
 #include <cuda.h>
 
 #include "clip_flash.cuh"
+#include "sm90.cuh"
 
 namespace gg {
 namespace clip {
@@ -487,57 +488,25 @@ clip_flash_sm90(const __grid_constant__ CUtensorMap qkv_map, bf16* __restrict__ 
   }
 }
 
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled from the driver the runtime already loaded, so
-// the library needs no -lcuda.
-static EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (!fn) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    cudaError_t e = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                                     cudaEnableDefault, &found);
-#else
-    cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    if (e == cudaSuccess && found == cudaDriverEntryPointSuccess) fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
+// static: its opt-in flag must be this library's own (a function-local
+// static of a function with external linkage is one GNU-unique object
+// across the libraries of a process).
 template <int HD>
-int run(const void* qkv, void* out, int B, int N, int H, float scale, cudaStream_t stream) {
+static int run(const void* qkv, void* out, int B, int N, int H, float scale, cudaStream_t stream) {
   using T = Tile<HD>;
-  const EncodeTiled encode = encode_tiled();
-  if (!encode) return (int)cudaErrorNotSupported;
-  // qkv (B, N, 3D) bf16, innermost first; rows 6D bytes apart (a multiple
-  // of 16 as TMA needs: D is a multiple of 16), images 6DN.
-  const cuuint64_t D3 = 3ull * H * HD;
-  const cuuint64_t dims[3] = {D3, (cuuint64_t)N, (cuuint64_t)B};
-  const cuuint64_t strides[2] = {D3 * 2, D3 * 2 * N};
-  const cuuint32_t box[3] = {HD, kKeys, 1};
-  const cuuint32_t elem[3] = {1, 1, 1};
+  // qkv (B, N, 3D) bf16, innermost first, in boxes of (HD, kKeys rows);
+  // rows 6D bytes apart (a multiple of 16 as TMA needs: D is a multiple of
+  // 16), images 6DN.
   CUtensorMap map;
-  if (encode(&map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(qkv), dims, strides, box,
-             elem, CU_TENSOR_MAP_INTERLEAVE_NONE, T::kSwizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
-    return (int)cudaErrorInvalidValue;
-  static int sms = 0;  // the card's SMs: one persistent block on each
-  if (!sms) {
-    int dev = 0;
-    cudaError_t e = cudaGetDevice(&dev);
-    if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    if (e != cudaSuccess) return (int)e;
-  }
+  cudaError_t e = ::gg::sm90::encode_3d(&map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, qkv, 3L * H * HD,
+                                        N, B, HD, kKeys, T::kSwizzle);
+  int sms = 0;  // the card's SMs: one persistent block on each
+  if (e == cudaSuccess) e = ::gg::sm90::sm_count(&sms);
+  if (e != cudaSuccess) return (int)e;
   static bool opted_in = false;  // one per head dim
   if (!opted_in) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        clip_flash_sm90<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, T::kSmem);
+    e = cudaFuncSetAttribute(clip_flash_sm90<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             T::kSmem);
     if (e != cudaSuccess) return (int)e;
     opted_in = true;
   }

@@ -1,9 +1,16 @@
 // Hopper (sm_90a) building blocks of the port's warp-specialised kernels:
 // mbarriers, TMA loads (tiled tensor maps and 1D bulk copies), wgmma
-// shared-memory descriptors and the wgmma shapes the attention backwards
-// use (attention_bwd_sm90.cuh).  They are the pieces of K6's kernel
-// (clip_flash.cu, which keeps its own copy), for tiles of bf16 rows of
+// shared-memory descriptors and the wgmma shapes of the attention cores
+// (attention_bwd_sm90.cuh, attention_fwd_sm90.cuh).  They are the pieces of
+// K6's kernel (clip_flash.cu, which takes its tensor maps and SM count from
+// here and keeps its own device helpers), for tiles of bf16 rows of
 // HD = 16, 32 or 64 elements swizzled over one row's bytes.
+//
+// Everything here has internal linkage (the unnamed namespace below), so
+// each library that includes this header keeps its own copy of the
+// function-local statics of encode_tiled and sm_count: a function-local
+// static of a function with external linkage is one GNU-unique object
+// across the libraries of a process.
 #pragma once
 
 #include <cuda.h>
@@ -12,6 +19,7 @@
 
 namespace gg {
 namespace sm90 {
+namespace {
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -224,7 +232,7 @@ typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, v
 
 // cuTensorMapEncodeTiled looked up through the CUDA runtime, which has
 // already loaded it, so the library needs no -lcuda.
-inline EncodeTiled encode_tiled() {
+EncodeTiled encode_tiled() {
   static EncodeTiled fn = nullptr;
   if (!fn) {
     void* p = nullptr;
@@ -243,7 +251,7 @@ inline EncodeTiled encode_tiled() {
 // A 3D tensor map over a contiguous (d2, d1, d0) tensor of `elem` bytes an
 // element, d0 innermost, with boxes of (b0, b1, 1) and the given swizzle.
 // The base and the row pitch d0 * elem must be multiples of 16 bytes.
-inline cudaError_t encode_3d(CUtensorMap* map, CUtensorMapDataType type, int elem, const void* base,
+cudaError_t encode_3d(CUtensorMap* map, CUtensorMapDataType type, int elem, const void* base,
                              long d0, long d1, long d2, int b0, int b1, CUtensorMapSwizzle swizzle) {
   const EncodeTiled encode = encode_tiled();
   if (!encode) return cudaErrorNotSupported;
@@ -261,7 +269,7 @@ inline cudaError_t encode_3d(CUtensorMap* map, CUtensorMapDataType type, int ele
 // A tensor map over (windows, rows, cols) bf16 rows of `cols` elements:
 // boxes of (HD, box_rows, 1) in the swizzle the wgmma descriptors name.
 template <int HD>
-inline cudaError_t encode_rows(CUtensorMap* map, const void* base, long cols, long rows,
+cudaError_t encode_rows(CUtensorMap* map, const void* base, long cols, long rows,
                                long windows, int box_rows) {
   return encode_3d(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, base, cols, rows, windows, HD,
                    box_rows, Swizzled<HD>::kSwizzle);
@@ -274,7 +282,7 @@ __device__ __forceinline__ int swizzle128(int row, int byte) {
 }
 
 // The card's SM count, read once.
-inline cudaError_t sm_count(int* sms) {
+cudaError_t sm_count(int* sms) {
   static int n = 0;
   if (!n) {
     int dev = 0;
@@ -286,5 +294,6 @@ inline cudaError_t sm_count(int* sms) {
   return cudaSuccess;
 }
 
+}  // namespace
 }  // namespace sm90
 }  // namespace gg

@@ -35,10 +35,12 @@ Kernels:
   wrapper, and each counts its own launches;
 * K8a ``_attention_qtiled_cuda`` and K8b ``_attention_batched_cuda``: the
   head-major ``window_attention``, chosen as ``_attention_pallas`` chooses.
-  In bf16 K8b is a Hopper kernel (TMA, wgmma, persistent blocks that keep
+  In bf16 both, and K3, run one Hopper forward core
+  (``csrc/attention_fwd_sm90.cuh``: TMA, wgmma, persistent blocks that keep
   a (head, q-tile) bias tile resident over a group of windows,
-  ``_headmajor_groups``), which needs the TMA layout of its operands
-  (``_headmajor_layout``).
+  ``_headmajor_groups``, or for K8a's f32 tile at large N stream it in
+  chunks over four windows), which needs the TMA layout of its operands
+  (``_headmajor_layout``, ``_qkv_layout``).
 
 The kernels take activations in one of ``KERNEL_DTYPES``, the compute
 dtype (``BackboneConfig.dtype``): each C entry has a bf16 and an f32 twin,
@@ -86,8 +88,8 @@ KERNEL_DTYPES = (torch.bfloat16, torch.float32)
 BWD_MAX_SCORE_BYTES = 6 * 1024 * 1024
 
 #: q-tile rows of the Pallas large-N head-major kernel, with the JAX
-#: default.  K8a's q-tile is the 64 rows of its mma.sync layout, so the
-#: card's dispatch refuses any other value rather than ignore it.
+#: default.  K8a's q-tile is the 64 rows of the forward core's wgmma, so
+#: the card's dispatch refuses any other value rather than ignore it.
 BLOCK_Q = 256
 #: Minimum window size N at which ``WindowAttention`` takes the qkv-fused
 #: kernel (K3) over the head-major ``window_attention`` (K8a/K8b).  0 sends
@@ -331,7 +333,53 @@ def _vec_f32(v, n, name):
     return _check(name, v.float().contiguous(), (n,), torch.float32)
 
 
+def _qkv_layout(qkv, bias, num_heads):
+    """Returns (W, N, D, hd) when the tensor maps of K3's bf16 kernel can
+    read qkv and the bias in place, else raises ValueError naming the rule
+    it breaks.  Each argument is a tensor's (shape, strides, base address,
+    element size).  TMA reads boxes of (hd, 64 rows) of bf16 from the (W,
+    N, 3D) qkv at column (3 h + slot) hd and boxes of (64, 64 rows) of bf16
+    from the (H, N, N) bias, each from a 16-byte aligned base with rows a
+    multiple of 16 bytes apart, and the C entry takes no strides: both
+    contiguous bf16, a head dim in KERNEL_HEAD_DIMS, N a multiple of 64 and
+    1 <= W <= 65535."""
+    shape = tuple(qkv[0])
+    if len(shape) != 3 or shape[-1] % 3:
+        raise ValueError(f"qkv must be (W, N, 3D), got {shape}")
+    W, N, D3 = shape
+    D = D3 // 3
+    hd = _head_dim(D, num_heads)
+    if not 1 <= W <= 65535 or N < 64 or N % 64:
+        raise ValueError(f"K3 takes N a multiple of 64 and 1 <= W <= 65535, "
+                         f"got W={W}, N={N}")
+    want = {"qkv": shape, "bias": (num_heads, N, N)}
+    for name, (t_shape, strides, ptr, elem) in zip(want, (qkv, bias)):
+        w_shape = want[name]
+        if elem != 2:
+            raise ValueError(f"{name} must have 2-byte elements, got {elem}")
+        if tuple(t_shape) != w_shape:
+            raise ValueError(f"{name} must be {w_shape}, got {tuple(t_shape)}")
+        if ptr % 16:
+            raise ValueError(f"{name} must have a 16-byte aligned base, got "
+                             f"address {ptr:#x}")
+        if strides[-1] != 1 or strides[-2] * elem % 16:
+            raise ValueError(f"{name} rows must be a multiple of 16 bytes "
+                             f"apart, got strides {tuple(strides)}")
+        dense = (w_shape[1] * w_shape[2], w_shape[2], 1)
+        if any(n > 1 and st != d for n, st, d in zip(w_shape, strides, dense)):
+            raise ValueError(f"{name} must be contiguous, got strides "
+                             f"{tuple(strides)} for shape {w_shape}")
+    return W, N, D, hd
+
+
 def _attention_qkv_fused_cuda(qkv, bias, scale, num_heads):
+    """K3: (W, N, 3D) qkv and the bias in qkv's dtype -> (W, N, D).  The
+    bf16 kernel is the Hopper forward core in the interleaved layout, which
+    needs ``_qkv_layout`` and walks ``_headmajor_groups`` window groups
+    with the item's 64 x N bias tile resident: it takes every N (a multiple
+    of 64) up to 1024 at every head dim, and raises where no ring fits
+    beside that tile (first at N = 1280 with hd 64).  The f32 twin runs
+    the first design."""
     from geoguessr_ai_torch.ops import _build
 
     W, N, D3 = qkv.shape
@@ -340,10 +388,15 @@ def _attention_qkv_fused_cuda(qkv, bias, scale, num_heads):
     dt = _act_dtype(qkv=qkv)
     _check("qkv", qkv, (W, N, D3), dt)
     bias = _bias_as(bias, num_heads, N, dt)
+    groups = 1
+    if dt == torch.bfloat16:
+        _qkv_layout(*((t.shape, t.stride(), t.data_ptr(), t.element_size())
+                      for t in (qkv, bias)), num_heads)
+        groups = _headmajor_groups(W, num_heads, N)
     out = torch.empty((W, N, D), dtype=qkv.dtype, device=qkv.device)
     fn = _build.typed_entry("attention_qkv", "attention_qkv", dt)
     err = fn(qkv.data_ptr(), bias.data_ptr(), out.data_ptr(), W, N,
-             num_heads, hd, float(scale), _stream())
+             num_heads, hd, groups, float(scale), _stream())
     _raise_on(err, "_attention_qkv_fused_cuda")
     LAUNCHES["_attention_qkv_fused_cuda"] += 1
     return out
@@ -627,14 +680,19 @@ def _headmajor_operands(q, k, v, bias):
 
 
 def _headmajor_groups(W, H, N):
-    """The window groups G of K8b's bf16 kernel, a function of (W, H, N)
-    only (never of the card): enough groups that its (64-query tile,
-    group, head) items number about _HEADMAJOR_ITEMS, at most one a
-    window; group i holds windows [i W // G, (i + 1) W // G), walked in
-    order by the block that owns the item.  42 at stage 1 of a serving
-    bucket of 16 (W=1024, H=6, N=256), 14 at stage 3 (W=64, H=18)."""
+    """The window groups G of the bf16 forward core (K3, K8a, K8b) where it
+    keeps the bias tile resident, a function of (W, H, N) only (never of
+    the card): enough groups that its (64-query tile, group, head) items
+    number about _HEADMAJOR_ITEMS, at most one a pair of windows, so that
+    both consumer warpgroups of an item have a window; group i holds
+    windows [i W // G, (i + 1) W // G), walked in order by the block that
+    owns the item.  42 at stage 1 of a serving bucket of 16 (W=1024, H=6,
+    N=256), 14 at stage 3 (W=64, H=18), 2 at stage 3 of a bucket of 1
+    (W=4).  Where K8a streams the bias (its f32 tile does not fit), the
+    core takes groups of at most four windows instead, ceil(W / 4) of
+    them, whatever G it is given."""
     tiles = (N // 64) * H
-    return max(1, min(W, _HEADMAJOR_ITEMS // tiles))
+    return max(1, min(-(-W // 2), _HEADMAJOR_ITEMS // tiles))
 
 
 def _headmajor_items(W, H, N, G):
@@ -644,17 +702,18 @@ def _headmajor_items(W, H, N, G):
     return (N // 64) * G * H
 
 
-def _headmajor_layout(q, k, v, bias):
-    """Returns (W, H, N, hd) when the tensor maps of K8b's bf16 kernel can
-    read q, k, v and the bias in place, else raises ValueError naming the
-    rule it breaks.  Each argument is a tensor's (shape, strides, base
-    address, element size).  TMA reads boxes of (hd, 64 rows) of bf16 from
-    q, k, v, seen as (W H, N, hd) rows, and boxes of (32, 64 rows) of f32
-    from the (H, N, N) bias, each from a 16-byte aligned base with rows a
-    multiple of 16 bytes apart, and the C entry takes no strides: all four
-    contiguous, q, k, v bf16 of one (W, H, N, hd) shape with a head dim in
-    KERNEL_HEAD_DIMS and N a multiple of 64 below 512, the bias f32 (H, N,
-    N), and W H below 2^31 (the maps' int coordinates)."""
+def _headmajor_layout(q, k, v, bias, max_n=512):
+    """Returns (W, H, N, hd) when the tensor maps of K8a's and K8b's bf16
+    kernel can read q, k, v and the bias in place, else raises ValueError
+    naming the rule it breaks.  Each argument is a tensor's (shape,
+    strides, base address, element size).  TMA reads boxes of (hd, 64 rows)
+    of bf16 from q, k, v, seen as (W H, N, hd) rows, and boxes of (32, 64
+    rows) of f32 from the (H, N, N) bias, each from a 16-byte aligned base
+    with rows a multiple of 16 bytes apart, and the C entry takes no
+    strides: all four contiguous, q, k, v bf16 of one (W, H, N, hd) shape
+    with a head dim in KERNEL_HEAD_DIMS and N a multiple of 64 (below
+    ``max_n``, K8b's 512, when given), the bias f32 (H, N, N), and W H
+    below 2^31 (the maps' int coordinates)."""
     shape = tuple(q[0])
     if len(shape) != 4:
         raise ValueError(f"q must be (W, H, N, hd), got {shape}")
@@ -662,8 +721,10 @@ def _headmajor_layout(q, k, v, bias):
     if hd not in KERNEL_HEAD_DIMS:
         raise ValueError(f"the kernels take a head dim in {KERNEL_HEAD_DIMS}, "
                          f"got {hd}")
-    if W < 1 or H < 1 or W * H >= 2 ** 31 or N < 64 or N % 64 or N >= 512:
-        raise ValueError(f"K8b takes N a multiple of 64 below 512 and "
+    if W < 1 or H < 1 or W * H >= 2 ** 31 or N < 64 or N % 64 or (
+            max_n is not None and N >= max_n):
+        below = "" if max_n is None else f" below {max_n}"
+        raise ValueError(f"the kernel takes N a multiple of 64{below} and "
                          f"1 <= W H < 2^31, got W={W}, H={H}, N={N}")
     want = {"q": (shape, 2), "k": (shape, 2), "v": (shape, 2),
             "bias": ((H, N, N), 4)}
@@ -690,14 +751,24 @@ def _headmajor_layout(q, k, v, bias):
 
 def _attention_qtiled_cuda(q, k, v, bias, scale):
     """K8a: (W, H, N, hd) q, k, v (bf16 or f32) and an f32 bias ->
-    (W, H, N, hd) in q's dtype."""
+    (W, H, N, hd) in q's dtype, any N a multiple of 64.  The bf16 kernel is
+    K8b's Hopper core, which needs ``_headmajor_layout``: the bias tile
+    resident over ``_headmajor_groups`` window groups where it fits, else
+    streamed in chunks over groups of four windows; the f32 twin runs the
+    first design."""
     from geoguessr_ai_torch.ops import _build
 
     W, H, N, hd, bias, dt = _headmajor_operands(q, k, v, bias)
     out = torch.empty_like(q)
+    groups = 1
+    if dt == torch.bfloat16:
+        _headmajor_layout(*((t.shape, t.stride(), t.data_ptr(),
+                             t.element_size()) for t in (q, k, v, bias)),
+                          max_n=None)
+        groups = _headmajor_groups(W, H, N)
     err = _build.typed_entry("attention_headmajor", "attention_qtiled", dt)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
-        out.data_ptr(), W, H, N, hd, float(scale), _stream())
+        out.data_ptr(), W, H, N, hd, groups, float(scale), _stream())
     _raise_on(err, "_attention_qtiled_cuda")
     LAUNCHES["_attention_qtiled_cuda"] += 1
     return out
@@ -754,8 +825,9 @@ def _attention_headmajor_cuda(q, k, v, bias, scale):
     """``_attention_pallas``'s choice: K8a at N >= 512, else K8b when W is
     a multiple of BLOCK_W, else K8a."""
     if BLOCK_Q != 256:
-        raise ValueError(f"BLOCK_Q={BLOCK_Q}: K8a tiles q by the 64 rows of "
-                         "its mma.sync layout and takes only the default 256")
+        raise ValueError(f"BLOCK_Q={BLOCK_Q}: K8a's q-tile is the 64 rows of "
+                         "the forward core's wgmma, fixed by its plan, so "
+                         "the card takes only the default 256")
     W, _, N, _ = q.shape
     if N < 512 and W % BLOCK_W == 0:
         return _attention_batched_cuda(q, k, v, bias, scale)

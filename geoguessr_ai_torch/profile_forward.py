@@ -41,6 +41,8 @@ import torch
 
 #: Kernel-name substrings -> the port's layer they belong to, first match.
 GROUPS = (
+    # the first design: K1, K2, K9 and K3's f32 twin (K3 in bf16 runs the
+    # forward core, which _group tells apart by its template arguments)
     ("window_attention_kernel", "attention (K1/K2/K3/K9 CUDA)"),
     ("ln_gemm_kernel", "LN+GEMM (K1/K2/K9 CUDA)"),
     ("mbconv_kernel", "fused MBConv (K10 CUDA)"),
@@ -53,8 +55,8 @@ GROUPS = (
     ("dbias_reduce", "attention backward (K4/K7 CUDA)"),
     ("attn_bwd_", "attention backward (f32 K4/K5 CUDA)"),
     ("bwd_qtiled_", "attention backward (f32 K7 CUDA)"),
+    # the f32 twins (in bf16 both run the forward core)
     ("attention_qtiled_kernel", "head-major attention (K8a CUDA)"),
-    # the bf16 Hopper kernel and the f32 twin
     ("attention_batched", "head-major attention (K8b CUDA)"),
     ("clip_flash", "CLIP attention (K6/K11 CUDA)"),
     ("conv", "convolution (cuDNN)"),
@@ -85,6 +87,15 @@ def _group(name: str) -> str:
         bias = low.split("<", 1)[1].split(">", 1)[0]
         return ("attention backward (K4 CUDA)" if "bfloat16" in bias
                 else "attention backward (K5/K7 CUDA)")
+    if "attention_fwd_sm90<" in low:
+        # attention_fwd_sm90<layout, bias type, HD, NT, streamed>: the
+        # interleaved qkv in K3; head-major with the bias streamed in K8a
+        # where its tile does not fit, resident in K8b and in K8a below
+        args = low.split("<", 1)[1].split(">", 1)[0].split(",")
+        if args[0].strip() == "1":
+            return "attention (K3 CUDA)"
+        return ("head-major attention (K8a CUDA)" if args[-1].strip() == "true"
+                else "head-major attention (K8b, K8a resident; CUDA)")
     for key, group in GROUPS:
         if key in low:
             return group

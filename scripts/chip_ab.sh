@@ -5,8 +5,13 @@
 # the default B=16 train_step p50 of phase 8 and the K5 and K7 step p50s
 # of phase 18; the guess paths' p50s, the head-major engine's too), and
 # by one timer for both trees (below) K6 and K11 at CLIP ViT-L/14-336's
-# bucket 16, K5 at the B=16 train shape of stage 2 and K8b at the
-# head-major serving shapes of stages 1 and 3 at bucket 16:
+# bucket 16, K5 at the B=16 train shape of stage 2, K8b at the head-major
+# serving shapes of stages 1 and 3 at bucket 16, K8a at stage 2 of bucket
+# 16 and stage 3 of bucket 1, and K3 at stage 3 of bucket 16, each K8a and
+# K3 shape with its exponentials' floor on a line of its own (one
+# exponential a score at 16 a clock an SM, at the card's clocks.max.sm),
+# and a hash of K8b's output on seeded inputs (equal in both trees when
+# its bits did not change):
 #
 #     git archive <parent-commit> | (mkdir -p build/ab_parent && tar -x -C build/ab_parent)
 #     bash scripts/chip_ab.sh build/ab_parent
@@ -94,10 +99,54 @@ for W, H in ((1024, 6), (64, 18)):
     fn = lambda: wa._attention_batched_cuda(q, k, v, hb, 32 ** -0.5)
     print(f"AB K8b ({W}, {H}, 256) events_ms "
           f"{cs.cuda_time_ms(fn, iters=20):.4f} graph_ms {graph_ms(fn):.4f}")
+    out = fn()
+    torch.cuda.synchronize()
+    del q, k, v, hb, out
+
+import hashlib
+import subprocess
+
+import numpy as np
+
+mhz = float(subprocess.run(
+    ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+    capture_output=True, text=True).stdout.split()[0])
+sms = torch.cuda.get_device_properties(0).multi_processor_count
+
+
+def floor_line(name, shape, scores):
+    print(f"AB exp_floor {name} {shape} {scores / (16 * sms * mhz * 1e6) * 1e3:.4f} ms "
+          f"({scores:.3g} exponentials, 16 a clock an SM at {mhz:.0f} MHz)")
+
+
+for W, H, N in ((64, 12, 1024), (4, 18, 256)):
+    q, k, v = (torch.randn(W, H, N, 32, generator=gen).to(
+        "cuda", torch.bfloat16) for _ in range(3))
+    hb = (torch.randn(H, N, N, generator=gen) * 0.5).to("cuda")
+    fn = lambda: wa._attention_qtiled_cuda(q, k, v, hb, 32 ** -0.5)
+    print(f"AB K8a ({W}, {H}, {N}) events_ms "
+          f"{cs.cuda_time_ms(fn, iters=20):.4f} graph_ms {graph_ms(fn):.4f}")
+    floor_line("K8a", (W, H, N), W * H * N * N)
+    del q, k, v, hb
+qkv = torch.randn(64, 256, 1728, generator=gen).to("cuda", torch.bfloat16)
+b3 = (torch.randn(18, 256, 256, generator=gen) * 0.5).to("cuda", torch.bfloat16)
+fn = lambda: wa._attention_qkv_fused_cuda(qkv, b3, 32 ** -0.5, 18)
+print(f"AB K3 (64, 256, 1728) H=18 events_ms "
+      f"{cs.cuda_time_ms(fn, iters=20):.4f} graph_ms {graph_ms(fn):.4f}")
+floor_line("K3", (64, 256, 1728), 64 * 18 * 256 * 256)
+for W, H, N in ((1024, 6, 256), (64, 18, 256)):
+    rng = np.random.default_rng(11)
+    q, k, v = (torch.from_numpy(rng.standard_normal((W, H, N, 32), dtype=np.float32))
+               .to("cuda", torch.bfloat16) for _ in range(3))
+    hb = torch.from_numpy(rng.standard_normal((H, N, N), dtype=np.float32) * 0.5).to("cuda")
+    out = wa._attention_batched_cuda(q, k, v, hb, 32 ** -0.5)
+    torch.cuda.synchronize()
+    print(f"AB K8b bits ({W}, {H}, {N}) "
+          f"{hashlib.sha256(out.view(torch.int16).cpu().numpy().tobytes()).hexdigest()[:16]}")
 PY
   ) > "$out/ab_$2.log" 2>&1
   echo "== $2 rc=$?"
-  grep -E "^K[0-9]+[ab]? |kernel_ms|launch_ms|train_step p50|^bucket|^head-major engine bucket|^CLIP bucket|^CLIP pallas|^AB |FAIL" \
+  grep -E "^K[0-9]+[ab]? |kernel_ms|library_ms|launch_ms|train_step p50|^bucket|^head-major engine bucket|^CLIP bucket|^CLIP pallas|^AB |FAIL" \
     "$out/ab_$2.log"
 }
 run "$parent" parent1

@@ -62,7 +62,7 @@ def test_flash_wrapper_routes_each_dtype_to_its_entry(monkeypatch, dtype,
 
 def test_only_the_bf16_entry_reads_through_a_tensor_map():
     src = open(_build.CSRC / "clip_flash.cu").read()
-    kernel = src[src.index("clip_flash_sm90("):src.index("typedef CUresult")]
+    kernel = src[src.index("clip_flash_sm90("):src.index("static int run(")]
     assert "cp.async.bulk.tensor.3d" in src and "tma_load(" in kernel
     for feature in ("setmaxnreg.dec", "setmaxnreg.inc", "mbar_wait(full_k",
                     "mbar_wait(empty", "wgmma_s<HD>(", "wgmma_pv<HD>("):

@@ -739,6 +739,89 @@ def test_cuda_headmajor_sm90_refuses_a_misaligned_base(cuda_device):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("W,H,N,hd", [
+    (64, 12, 1024, 32), (4, 18, 256, 32), (16, 8, 1024, 16),
+    (16, 6, 1024, 64), (8, 2, 512, 32), (6, 2, 768, 32), (5, 2, 832, 64),
+    (1, 3, 1024, 32), (3, 2, 576, 16), (7, 2, 2048, 32)])
+def test_cuda_fwd_sm90_k8a_matches_plain_and_writes_every_element(
+        cuda_device, monkeypatch, W, H, N, hd):
+    """K8a's bf16 entry (the forward core, ``csrc/attention_fwd_sm90.cuh``)
+    at the head-major serving shapes (stage 2 of bucket 16, stage 3 of
+    bucket 1), at head dims 16 and 64, with the f32 bias resident (N up to
+    704 at hd 32) and streamed (two-tile chunks, one-tile chunks at an odd
+    C, item window groups cut short, one window): the output in a
+    NaN-fenced buffer, one launch a call, two calls bitwise equal, within
+    KERNEL_REL_TOL of ``_attention_plain``."""
+    q, k, v, bias = _headmajor_inputs(W, H, N, cuda_device, seed=N + hd,
+                                      hd=hd)
+    scale = hd ** -0.5
+    name = "_attention_qtiled_cuda"
+    before = wa.LAUNCHES[name]
+    made = _nan_fenced_buffers(monkeypatch)
+    got = wa._attention_qtiled_cuda(q, k, v, bias, scale)
+    torch.cuda.synchronize()
+    monkeypatch.undo()
+    _check_fenced(made)
+    again = wa._attention_qtiled_cuda(q, k, v, bias, scale)
+    torch.cuda.synchronize()
+    assert wa.LAUNCHES[name] == before + 2
+    assert torch.equal(got, again)
+    want = wa._attention_plain(q, k, v, bias, scale)
+    assert got.shape == want.shape and got.dtype == torch.bfloat16
+    assert _rel_err(got, want) < KERNEL_REL_TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("W,N,H,hd", [
+    (64, 256, 18, 32), (4, 256, 18, 32), (8, 64, 2, 16), (8, 320, 2, 64),
+    (16, 1024, 12, 32), (3, 1024, 2, 64), (1, 512, 4, 16)])
+def test_cuda_fwd_sm90_k3_matches_plain_and_writes_every_element(
+        cuda_device, monkeypatch, W, N, H, hd):
+    """K3's bf16 entry (the forward core in the interleaved layout, the
+    bf16 bias resident) at the stage-3 serving shapes of buckets 16 and 1,
+    at head dims 16, 32 and 64 and N from 64 to 1024: the output in a
+    NaN-fenced buffer, one launch a call, two calls bitwise equal, within
+    KERNEL_REL_TOL of ``_attention_qkv_fused_plain``."""
+    qkv, bias, _ = _bwd_inputs(W, N, H, cuda_device, seed=N + hd, hd=hd)
+    scale = hd ** -0.5
+    name = "_attention_qkv_fused_cuda"
+    before = wa.LAUNCHES[name]
+    made = _nan_fenced_buffers(monkeypatch)
+    got = wa._attention_qkv_fused_cuda(qkv, bias, scale, H)
+    torch.cuda.synchronize()
+    monkeypatch.undo()
+    _check_fenced(made)
+    again = wa._attention_qkv_fused_cuda(qkv, bias, scale, H)
+    torch.cuda.synchronize()
+    assert wa.LAUNCHES[name] == before + 2
+    assert torch.equal(got, again)
+    want = wa._attention_qkv_fused_plain(qkv, bias, scale, H)
+    assert got.shape == want.shape == (W, N, H * hd)
+    assert _rel_err(got, want) < KERNEL_REL_TOL
+
+
+@pytest.mark.cuda
+def test_cuda_fwd_sm90_k3_refuses_a_misaligned_base_and_an_n_with_no_plan(
+        cuda_device):
+    """qkv 2 bytes past a 16-byte boundary is refused before any launch; at
+    N = 1280 with hd 64 the resident bf16 bias tile leaves no room for a
+    ring, so the entry returns an error and the wrapper raises, counting
+    no launch."""
+    qkv, bias, _ = _bwd_inputs(2, 64, 2, cuda_device)
+    buf = torch.zeros(1 + qkv.numel(), dtype=torch.bfloat16,
+                      device=cuda_device)
+    odd = buf[1:].view(qkv.shape)
+    name = "_attention_qkv_fused_cuda"
+    before = wa.LAUNCHES[name]
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        wa._attention_qkv_fused_cuda(odd, bias, 0.18, 2)
+    qkv, bias, _ = _bwd_inputs(1, 1280, 2, cuda_device, hd=64)
+    with pytest.raises(RuntimeError, match="CUDA launch failed"):
+        wa._attention_qkv_fused_cuda(qkv, bias, 0.125, 2)
+    assert wa.LAUNCHES[name] == before
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("N,H,kernel", [
     (256, 6, "_attention_qkv_bwd_cuda"),
     (1024, 2, "_attention_bwd_merged_cuda"),

@@ -3,7 +3,8 @@ groups and items, its layout rules, its routing, its shared-memory plan
 and a Python mirror of its chunked softmax.
 
 In bf16 ``_attention_batched_cuda`` launches ``attention_batched_bf16``,
-whose kernel (``csrc/attention_headmajor.cu``, namespace hm90) reads q, k,
+whose kernel (the forward core ``csrc/attention_fwd_sm90.cuh``, which K3 and
+K8a share; tests/test_torch_port_fwd_sm90.py holds what they add) reads q, k,
 v and the bias through TMA tensor maps (so all four must be contiguous
 with a 16-byte aligned base and rows a multiple of 16 bytes apart,
 ``_headmajor_layout``), walks items of (64-query tile, window group, head)
@@ -32,6 +33,7 @@ from geoguessr_ai_torch.ops import window_attention as wa
 #: stage 3.
 SERVING_SHAPES = ((1024, 6, 256), (64, 18, 256))
 SOURCE = _build.CSRC / "attention_headmajor.cu"
+CORE = _build.CSRC / "attention_fwd_sm90.cuh"
 
 
 def _decode(it, W, H, N, G):
@@ -50,7 +52,9 @@ def test_the_schedule_covers_every_window_once_in_order(W, H, N):
     """Every (head, q-tile) walks all W windows once, in window order,
     over its G items; inside an item the two consumer groups take the
     windows in turns (w0, w0 + 2, ... and w0 + 1, ...), so each window is
-    one group's.  About _HEADMAJOR_ITEMS items unless W caps G."""
+    one group's, and each group has one when W > 1.  About
+    _HEADMAJOR_ITEMS items unless W caps G at one group a pair of
+    windows."""
     G = wa._headmajor_groups(W, H, N)
     assert 1 <= G <= W
     items = wa._headmajor_items(W, H, N, G)
@@ -66,7 +70,9 @@ def test_the_schedule_covers_every_window_once_in_order(W, H, N):
     assert all(ws == list(range(W)) for ws in walked.values())
     tiles = (N // 64) * H
     assert items <= max(wa._HEADMAJOR_ITEMS, tiles)
-    assert G == W or items + tiles > wa._HEADMAJOR_ITEMS
+    assert G == -(-W // 2) or items + tiles > wa._HEADMAJOR_ITEMS
+    assert W == 1 or all(w1 - w0 >= 2 for _, _, w0, w1 in
+                         (_decode(it, W, H, N, G) for it in range(items)))
 
 
 def test_the_groups_at_the_serving_shapes_and_only_from_the_shape(
@@ -214,14 +220,16 @@ def test_k8b_routes_bf16_to_the_hopper_entry_and_f32_to_the_twin(
     assert len(checked) == (suffix == "bf16")
     body = _c_body(entry)
     if suffix == "bf16":
-        assert "hm90::run<HD>(" in body and "groups" in body
+        assert "run<kHeadMajor, float, HD, false>(" in body and "groups" in body
     else:
-        assert "hm90" not in body and "batched<float>(" in body
+        assert "fwd90" not in body and "batched<float>(" in body
 
 
 def _hm90_source():
-    src = SOURCE.read_text()
-    return src[src.index("namespace hm90 {"):src.index("}  // namespace hm90")]
+    """The forward core that K8b's bf16 entry runs (shared with K3 and
+    K8a)."""
+    src = CORE.read_text()
+    return src[src.index("namespace fwd90 {"):src.index("}  // namespace fwd90")]
 
 
 def test_the_k8b_entry_is_hopper_code():
@@ -239,7 +247,8 @@ def test_the_k8b_entry_is_hopper_code():
         assert feature in core, feature
     atomics = re.compile(r"\batomic[A-Z]\w*\(|\batom\.|\bred\.")
     assert not atomics.search(SOURCE.read_text())
-    assert '#include "sm90.cuh"' in SOURCE.read_text()
+    assert '#include "attention_fwd_sm90.cuh"' in SOURCE.read_text()
+    assert '#include "sm90.cuh"' in CORE.read_text()
     assert "mma(" not in core and "attend_tile" not in core
 
 
@@ -280,7 +289,7 @@ def test_every_accepted_shape_has_a_shared_memory_plan(hd, N):
     two q buffers and a ring that holds a chunk's k tiles for each
     consumer group; two bias buffers where they fit beside a ring of two
     chunks (the serving shapes at hd 32)."""
-    src = SOURCE.read_text()
+    src = CORE.read_text()
     assert "C % 4 == 0 ? 4 : C % 3 == 0 ? 3 : C % 2 == 0 ? 2 : 1" in src
     plan = _plan(N, hd)
     assert plan is not None
