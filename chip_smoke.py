@@ -14,8 +14,10 @@ Phases, in order; any failure exits non-zero:
    process);
 3. hold each kernel (K1, K2, K3) against its plain PyTorch version on the
    card, in bf16, at the shapes the serving path gives it at bucket 16,
-   and time kernel, plain version, SDPA and the bound; K3 (the Hopper
-   forward core) bitwise equal over two calls;
+   and time kernel, plain version, SDPA and the bound; K2 (the Hopper
+   LayerNorm + GEMM core, then the forward core) and K3 (the forward core)
+   bitwise equal over two calls; K2's two launches' device time
+   (torch.profiler) on a line of their own;
 4. build the full-width ServingEngine (TinyViT-21M-512, 12647 cells,
    seeded random weights) on the card, serve the fixture panorama and 32
    concurrent MicroBatcher requests with every launch counter set to 0
@@ -57,7 +59,9 @@ Phases, in order; any failure exits non-zero:
     MBConv) against their plain versions in bf16 at the serving bucket-16
     shapes (64 images) and at the embed batch (512 images), and time
     kernel, plain version, the library yardstick (SDPA on K9's q, k, v; the
-    cuDNN conv2d composition for K10) and the bound;
+    cuDNN conv2d composition for K10) and the bound; K10 (the Hopper
+    kernel) bitwise equal over two calls, and also at C = 64 and C = 32
+    (four images each) against its plain version;
 14. the bulk-embedding path: ``build_embedding_sqlite`` over a source
     SQLite of the four fixture JPEGs repeated to 1100 rows, through an
     ``Embedder`` in the embed configuration (TinyViT-21M-512 bf16, K1 at
@@ -446,13 +450,21 @@ def phase_kernels():
             kern, plain = wa._fused_block_cuda, wa._fused_block_plain
         got = kern(*args)
         torch.cuda.synchronize()
-        if kernel == "K3":
-            # the forward core: every output element from one thread in an
+        launch_ms = None
+        if kernel in ("K2", "K3"):
+            # the Hopper cores: every output element from one thread in an
             # order fixed by the shape
             stable = torch.equal(got, kern(*args))
-            log(f"K3 {label}: bitwise equal over two calls {stable}")
+            log(f"{kernel} {label}: bitwise equal over two calls {stable}")
             if not stable:
-                fail("K3: two calls on the same inputs gave different bits")
+                fail(f"{kernel}: two calls on the same inputs gave different "
+                     f"bits")
+        if kernel == "K2":
+            launch_ms = _launch_ms(lambda: kern(*args))
+            log(f"K2 {label} launch_ms (device, torch.profiler) " + (
+                ", ".join(f"{k} {v:.4f}" for k, v in launch_ms.items())
+                if launch_ms else "not measured (the trace holds no device "
+                "kernels)"))
         want = plain(*args)
         torch.cuda.synchronize()
         if got.shape != want.shape:
@@ -482,7 +494,7 @@ def phase_kernels():
                  f"(rel {rel:.3g}, finite {finite})")
         rows[(kernel, label)] = dict(
             max_abs_err=max_abs, ms=ms, plain_ms=plain_ms, sdpa_ms=sdpa_ms,
-            bound_ms=bound, bound_by=bound_by)
+            bound_ms=bound, bound_by=bound_by, launch_ms=launch_ms)
         del a, args, got, want, qkv_in
         torch.cuda.empty_cache()
     wa.reset_launches()
@@ -1362,10 +1374,10 @@ def _sliced(fn, args, images):
                       for i in range(0, images, PLAIN_SLICE)])
 
 
-def _mbconv_inputs(B, gen, dtype=torch.bfloat16):
+def _mbconv_inputs(B, gen, dtype=torch.bfloat16, C=MB_C, E=MB_E):
     """x and conv weights in the compute dtype, in the JAX layouts
     (transposed views of the stored OI ones, as the model passes them) and
-    folded BN pairs."""
+    folded BN pairs; stage 0's C and E unless given."""
     from geoguessr_ai_torch.ops.mbconv import fold_bn
 
     def randn(*shape, std=1.0, mean=0.0):
@@ -1375,7 +1387,6 @@ def _mbconv_inputs(B, gen, dtype=torch.bfloat16):
         return fold_bn(randn(n, std=0.1, mean=1.0), randn(n, std=0.1),
                        randn(n, std=0.1), randn(n, std=0.1, mean=1.0).abs())
 
-    C, E = MB_C, MB_E
     bf = dtype
     return (randn(B, MB_MAP, MB_MAP, C).to(bf),
             randn(E, C, std=C ** -0.5).to(bf).t(), *folded(E),
@@ -1458,6 +1469,15 @@ def phase_embed_kernels():
                 _embed_kernel_case(kernel, images, gen)
             got = kern(*args)
             torch.cuda.synchronize()
+            if kernel == "K10":
+                # the Hopper kernel: every output element from one thread in
+                # an order fixed by the shape
+                stable = torch.equal(got, kern(*args))
+                log(f"K10 {images} images: bitwise equal over two calls "
+                    f"{stable}")
+                if not stable:
+                    fail("K10: two calls on the same inputs gave different "
+                         "bits")
             want = _sliced(plain, args, images)
             torch.cuda.synchronize()
             if got.shape != want.shape:
@@ -1485,8 +1505,38 @@ def phase_embed_kernels():
             del args
             gc.collect()
             torch.cuda.empty_cache()
+    _mbconv_other_channels(gen)
     _reset_all_launches()
     return rows
+
+
+#: (C, E) of K10's other channel counts, at MB_OTHER_IMAGES images.
+MB_OTHER_CHANNELS = ((64, 256), (32, 128))
+MB_OTHER_IMAGES = 4
+
+
+def _mbconv_other_channels(gen):
+    """K10 at C = 64 and 32 against its plain version (the kernel's other
+    instances: one 64-channel box, one 32-channel box with the 64-byte
+    swizzle)."""
+    from geoguessr_ai_torch.ops import mbconv
+
+    for C, E in MB_OTHER_CHANNELS:
+        args = _mbconv_inputs(MB_OTHER_IMAGES, gen, C=C, E=E)
+        got = mbconv._mbconv_cuda(*args, False)
+        again = mbconv._mbconv_cuda(*args, False)
+        torch.cuda.synchronize()
+        want = mbconv._mbconv_plain(*args, False)
+        max_abs, rel = _rel_err(got, want)
+        finite = bool(torch.isfinite(got).all())
+        stable = torch.equal(got, again)
+        log(f"K10 C={C} E={E} {MB_OTHER_IMAGES} images: max_abs_err "
+            f"{max_abs:.6g} max_rel_err {rel:.6g} (tolerance "
+            f"{KERNEL_REL_TOL}), bitwise equal over two calls {stable}")
+        if not (finite and stable and rel <= KERNEL_REL_TOL):
+            fail(f"K10 C={C}: kernel disagrees with its plain version (rel "
+                 f"{rel:.3g}, finite {finite}, stable {stable})")
+        del args, got, again, want
 
 
 def _reset_all_launches():
@@ -3155,6 +3205,8 @@ def main():
         }
         if k in ("K1", "K2"):
             entry["sdpa_attention_ms"] = row["sdpa_ms"]
+        if k == "K2":
+            entry["launch_ms"] = row["launch_ms"]
         if k in BWD_META:
             entry["max_abs_err_dbias"] = row["max_abs_err_dbias"]
             entry["launch_ms"] = row["launch_ms"]

@@ -43,7 +43,7 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
     "attention_qkv": _twins("attention_qkv", (
         _P, _P, _P, _I, _I, _I, _I, _I, _F, _P)),
     "fb_s2": _twins("fb_s2", (
-        _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _P)),
+        _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _P)),
     "fused_block": _twins("fused_block", (
         _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
         _I, _I, _I, _I, _I, _F, _F, _P)),

@@ -128,7 +128,7 @@ __device__ __forceinline__ float2 bias_pair(const uint8_t* p, float) {
   return *reinterpret_cast<const float2*>(p);
 }
 __device__ __forceinline__ float2 bias_pair(const uint8_t* p, bf16) {
-  return unpack_bf16(*reinterpret_cast<const uint32_t*>(p));
+  return widen2(*reinterpret_cast<const uint32_t*>(p));
 }
 
 // The work of one call and its shared memory, from (W, H, N, G), the head
@@ -254,25 +254,6 @@ __device__ __forceinline__ float ex2(float x) {
   float y;
   asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
   return y;
-}
-
-// A position in a ring of S slots: the slot and the parity of its phase,
-// advanced without a division.
-struct RingPos {
-  int slot = 0;
-  uint32_t phase = 0;
-  __device__ __forceinline__ void next(int S) {
-    if (++slot == S) {
-      slot = 0;
-      phase ^= 1;
-    }
-  }
-};
-
-// The warp's arrival on an empty barrier, once its reads are done.
-__device__ __forceinline__ void release(uint32_t bar) {
-  __syncwarp();
-  if ((threadIdx.x & 31) == 0) mbar_arrive(bar);
 }
 
 // A producer's load of the next slot of a ring: waits for its release once

@@ -9,16 +9,22 @@
 // (B, 128, 128, 96), E = 384.  Inference only: each BN arrives folded into a
 // per-channel f32 (scale, bias) pair from the running statistics.
 //
+// The bf16 entry runs the Hopper kernel of mbconv_sm90.cuh (TMA, wgmma,
+// persistent warp-specialised blocks over 16 x 16 tiles; its note says
+// what bounds it).  The f32 twin keeps the first design below, which the
+// experimental K12a / K12b share (mbconv.cuh).
+//
 // Layouts: x and out (B, H, W, C) bf16; w1t (E, C) bf16 (the 1x1 expand
 // conv's OI weight, the column-major B operand mma.sync wants); w2 (9, E) f32
 // holding the depthwise taps already rounded to bf16; w3t (C, E) bf16; sb1,
 // sb2 (2, E) and sb3 (2, C) f32, scale row then bias row.
 //
-// What bounds it on the H100: 2.53e9 flops per image (two 1.21e9 GEMMs and
-// 1.1e8 of depthwise MACs) against 6.3 MB of x in and out: 400 flops per
-// byte, above the card's ~295 ridge, so the tensor cores bound it, and the
-// 4x-expanded tensor (25 MB per image) must never reach device memory.  The
-// design: one block of 8 warps per (image, 8 x 16 output tile).  The block
+// The first design.  What bounds it on the H100: 2.53e9 flops per image
+// (two 1.21e9 GEMMs and 1.1e8 of depthwise MACs) against 6.3 MB of x in
+// and out: 400 flops per byte, above the card's ~295 ridge, so the tensor
+// cores bound it, and the 4x-expanded tensor (25 MB per image) must never
+// reach device memory.  The design: one block of 8 warps per (image, 8 x
+// 16 output tile).  The block
 // holds the (10, 18, C) halo of x in shared memory and walks E in chunks of
 // 64 channels.  For each chunk it
 //   1. expands the 180 halo pixels with mma.sync (f32 accumulate), applies
@@ -48,6 +54,7 @@
 // split operands (common.cuh "Element types"), in 190 KB of shared memory
 // (one block an SM).
 #include "mbconv.cuh"
+#include "mbconv_sm90.cuh"
 
 namespace gg {
 namespace mb {
@@ -99,12 +106,24 @@ int run(const void* x, const void* w1t, const void* sb1, const void* w2, const v
 }  // namespace gg
 
 // C in {32, 64, 96}, E a multiple of 64, 1 <= B <= 65535.  x, w1t, w3t and
-// out bf16 (or f32 for the _f32 twin, with the taps unrounded).
+// out bf16 (or f32 for the _f32 twin, with the taps unrounded).  The bf16
+// entry runs the Hopper kernel (mbconv_sm90.cuh); the f32 twin the design
+// described above.
 extern "C" int mbconv_bf16(const void* x, const void* w1t, const void* sb1, const void* w2,
                            const void* sb2, const void* w3t, const void* sb3, void* out, int B,
                            int H, int W, int C, int E, int exact, void* stream) {
-  return gg::mb::run<gg::bf16>(x, w1t, sb1, w2, sb2, w3t, sb3, out, B, H, W, C, E, exact,
-                               stream);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (B < 1 || B > 65535 || H < 1 || W < 1) return (int)cudaErrorInvalidValue;
+  switch (C) {
+    case 32:
+      return (int)gg::mb90::run<32>(x, w1t, sb1, w2, sb2, w3t, sb3, out, B, H, W, E, exact, s);
+    case 64:
+      return (int)gg::mb90::run<64>(x, w1t, sb1, w2, sb2, w3t, sb3, out, B, H, W, E, exact, s);
+    case 96:
+      return (int)gg::mb90::run<96>(x, w1t, sb1, w2, sb2, w3t, sb3, out, B, H, W, E, exact, s);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }
 
 extern "C" int mbconv_f32(const void* x, const void* w1t, const void* sb1, const void* w2,

@@ -1,7 +1,9 @@
 // Hopper (sm_90a) building blocks of the port's warp-specialised kernels:
-// mbarriers, TMA loads (tiled tensor maps and 1D bulk copies), wgmma
-// shared-memory descriptors and the wgmma shapes of the attention cores
-// (attention_bwd_sm90.cuh, attention_fwd_sm90.cuh).  They are the pieces of
+// mbarriers, ring positions and warpgroup barriers, TMA loads (tiled
+// tensor maps and 1D bulk copies), wgmma shared-memory descriptors and the
+// wgmma shapes of the attention cores (attention_bwd_sm90.cuh,
+// attention_fwd_sm90.cuh), the LayerNorm + GEMM core (ln_gemm_sm90.cuh)
+// and K10's kernel (mbconv_sm90.cuh).  They are the pieces of
 // K6's kernel (clip_flash.cu, which takes its tensor maps and SM count from
 // here and keeps its own device helpers), for tiles of bf16 rows of
 // HD = 16, 32 or 64 elements swizzled over one row's bytes.
@@ -85,6 +87,42 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
     if (done) return;
     if (tries == (1u << 26)) __trap();
   }
+}
+
+// A position in a ring of S slots: the slot and the parity of its phase,
+// advanced without a division.
+struct RingPos {
+  int slot = 0;
+  uint32_t phase = 0;
+  __device__ __forceinline__ void next(int S) {
+    if (++slot == S) {
+      slot = 0;
+      phase ^= 1;
+    }
+  }
+};
+
+// A bf16 pair as two floats by two integer operations (exact, as
+// unpack_bf16, whose compiled form takes three: a PRMT and two shifts).
+__device__ __forceinline__ float2 widen2(uint32_t w) {
+  return make_float2(__uint_as_float(w << 16), __uint_as_float(w & 0xffff0000u));
+}
+
+// The warp's arrival on an empty barrier, once its reads are done.
+__device__ __forceinline__ void release(uint32_t bar) {
+  __syncwarp();
+  if ((threadIdx.x & 31) == 0) mbar_arrive(bar);
+}
+
+// The 128 threads of consumer warpgroup c (named barrier 1 + c).
+__device__ __forceinline__ void group_sync(int c) {
+  asm volatile("bar.sync %0, 128;\n" ::"r"(1 + c) : "memory");
+}
+
+// Makes this thread's shared-memory writes visible to the async proxy
+// (the tensor cores' and TMA's reads) that follows a barrier.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
 // One TMA load of the box at (c0 columns, c1 rows, c2 window) into dst,

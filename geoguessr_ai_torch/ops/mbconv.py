@@ -10,7 +10,8 @@ Counterpart of geoguessr_ai_tpu/ops/mbconv.py:
 ``fused_mbconv`` dispatches on the device of its input: a CPU tensor takes
 the plain PyTorch version (``_mbconv_plain``, the mirror of the JAX
 package's ``_mbconv_xla``), a CUDA tensor launches the hand-written kernel
-``csrc/mbconv.cu`` or raises.  Inference only, as in the JAX package: BN
+``csrc/mbconv.cu`` (in bf16 the Hopper kernel of ``csrc/mbconv_sm90.cuh``)
+or raises.  Inference only, as in the JAX package: BN
 folds into per-channel (scale, bias) from the running statistics
 (``fold_bn``), and there is no backward.  Layouts are the JAX package's:
 x (B, H, W, C), w1 (C, E), w2 (3, 3, E) depthwise, w3 (E, C).  x is bf16

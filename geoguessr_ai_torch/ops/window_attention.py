@@ -18,7 +18,9 @@ package:
 Kernels:
 
 * K1 ``_fused_block_cuda``, K2 ``_fb_s2_cuda`` and K3
-  ``_attention_qkv_fused_cuda``: the forwards;
+  ``_attention_qkv_fused_cuda``: the forwards (K2's bf16 entry: the Hopper
+  LayerNorm + GEMM core ``csrc/ln_gemm_sm90.cuh``, then the forward core
+  below as K3 runs it);
 * K9 ``_fb4d_cuda``: K1 over the raw map, the window partition done by
   index arithmetic in the attention launch;
 * K4 ``_attention_qkv_bwd_cuda``, K5 ``_attention_bwd_merged_cuda`` and
@@ -402,8 +404,22 @@ def _attention_qkv_fused_cuda(qkv, bias, scale, num_heads):
     return out
 
 
+#: Largest window size and channel count K2's bf16 entry takes: the
+#: attention's resident bf16 64 x N bias tile fits beside a ring up to
+#: N = 1024 at every head dim, and the LayerNorm + GEMM core keeps a
+#: 128-row tile of x (C columns) in shared memory, built for C up to 448.
+FB_S2_MAX_N = 1024
+FB_S2_MAX_C = 448
+
+
 def _fb_s2_cuda(x, ln_scale, ln_bias, w_qkv, b_qkv, bias, scale,
                 num_heads, eps):
+    """K2: (W, N, C) x -> (W, N, D), LayerNorm, the qkv GEMM into a (W, N,
+    3D) scratch and the attention.  The bf16 entry runs the Hopper
+    LayerNorm + GEMM core and then the forward core in its interleaved
+    layout over ``_headmajor_groups`` window groups (as K3), which takes N
+    up to FB_S2_MAX_N and C up to FB_S2_MAX_C; the f32 twin runs the first
+    design."""
     from geoguessr_ai_torch.ops import _build
 
     W, N, C = x.shape
@@ -419,10 +435,19 @@ def _fb_s2_cuda(x, ln_scale, ln_bias, w_qkv, b_qkv, bias, scale,
     bias = _bias_as(bias, num_heads, N, dt)
     qkv = torch.empty((W, N, 3 * D), dtype=x.dtype, device=x.device)
     out = torch.empty((W, N, D), dtype=x.dtype, device=x.device)
+    groups = 1
+    if dt == torch.bfloat16:
+        if N > FB_S2_MAX_N or C > FB_S2_MAX_C:
+            raise ValueError(f"K2 takes N up to {FB_S2_MAX_N} and C up to "
+                             f"{FB_S2_MAX_C} in bf16, got N={N}, C={C}")
+        _qkv_layout(*((t.shape, t.stride(), t.data_ptr(), t.element_size())
+                      for t in (qkv, bias)), num_heads)
+        groups = _headmajor_groups(W, num_heads, N)
     fn = _build.typed_entry("fb_s2", "fb_s2", dt)
     err = fn(x.data_ptr(), ls.data_ptr(), lb.data_ptr(), wq.data_ptr(),
              bq.data_ptr(), bias.data_ptr(), qkv.data_ptr(), out.data_ptr(),
-             W, N, C, num_heads, hd, float(scale), float(eps), _stream())
+             W, N, C, num_heads, hd, groups, float(scale), float(eps),
+             _stream())
     _raise_on(err, "_fb_s2_cuda")
     LAUNCHES["_fb_s2_cuda"] += 1
     return out

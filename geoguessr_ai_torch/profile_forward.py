@@ -46,6 +46,9 @@ GROUPS = (
     ("window_attention_kernel", "attention (K1/K2/K3/K9 CUDA)"),
     ("ln_gemm_kernel", "LN+GEMM (K1/K2/K9 CUDA)"),
     ("mbconv_kernel", "fused MBConv (K10 CUDA)"),
+    # K2's and K10's bf16 Hopper kernels
+    ("ln_gemm_sm90", "LN+GEMM (K2 CUDA)"),
+    ("mbconv_sm90", "fused MBConv (K10 CUDA)"),
     # torch._int_mm's kernels (cutlass_80_tensorop_i16832gemm_s8_... on
     # the H100 with torch 2.11)
     ("gemm_s8", "int8 GEMM (torch._int_mm)"),
@@ -89,11 +92,12 @@ def _group(name: str) -> str:
                 else "attention backward (K5/K7 CUDA)")
     if "attention_fwd_sm90<" in low:
         # attention_fwd_sm90<layout, bias type, HD, NT, streamed>: the
-        # interleaved qkv in K3; head-major with the bias streamed in K8a
-        # where its tile does not fit, resident in K8b and in K8a below
+        # interleaved qkv in K2 and K3 (the same instances); head-major with
+        # the bias streamed in K8a where its tile does not fit, resident in
+        # K8b and in K8a below
         args = low.split("<", 1)[1].split(">", 1)[0].split(",")
         if args[0].strip() == "1":
-            return "attention (K3 CUDA)"
+            return "attention (K2/K3 CUDA)"
         return ("head-major attention (K8a CUDA)" if args[-1].strip() == "true"
                 else "head-major attention (K8b, K8a resident; CUDA)")
     for key, group in GROUPS:

@@ -11,7 +11,12 @@
 # K3 shape with its exponentials' floor on a line of its own (one
 # exponential a score at 16 a clock an SM, at the card's clocks.max.sm),
 # and a hash of K8b's output on seeded inputs (equal in both trees when
-# its bits did not change):
+# its bits did not change); K10 (the fused stage-0 MBConv) at 64 and 512
+# images by events and K2 (the stage-2 no-proj fused block) at bucket 16 as
+# device time (each launch's device time: phase 3's launch_ms line); and
+# the embed phase (Embedder p50 at B=512 with both knobs on and off) and
+# the knob-serve phase (bucket-16 p50 of the engine with fused_mbconv and
+# fused_block_4d):
 #
 #     git archive <parent-commit> | (mkdir -p build/ab_parent && tar -x -C build/ab_parent)
 #     bash scripts/chip_ab.sh build/ab_parent
@@ -46,6 +51,8 @@ cs.phase_train(); cs.phase_k7_train()
 _, paths, result, _ = cs.phase_serve()
 cs.phase_headmajor_serve(paths, result)
 cs.phase_clip_serve()
+cs.phase_embed(paths)
+cs.phase_knob_serve(paths, result)
 
 # K6 and K11 at CLIP-L bucket 16, K5 and K8b at their main shapes, by
 # the same two timers in either tree: 20 launches between two events, and
@@ -103,6 +110,22 @@ for W, H in ((1024, 6), (64, 18)):
     torch.cuda.synchronize()
     del q, k, v, hb, out
 
+gen = torch.Generator().manual_seed(5)
+for images in (64, 512):
+    margs = cs._mbconv_inputs(images, gen)
+    from geoguessr_ai_torch.ops import mbconv
+    fn = lambda: mbconv._mbconv_cuda(*margs, False)
+    print(f"AB K10 {images} images events_ms {cs.cuda_time_ms(fn):.4f}")
+    del margs
+a = cs._case_inputs(64, 1024, 384, 12, gen)
+k2 = (a["x"], a["ln_scale"], a["ln_bias"], a["w_qkv"], a["b_qkv"], a["bias"],
+      32 ** -0.5, 12, 1e-5)
+fn = lambda: wa._fb_s2_cuda(*k2)
+# each launch's device time: phase 3's "K2 stage2 launch_ms" line (a trace
+# taken this late in the process held one of its three calls)
+print(f"AB K2 (64, 1024, 384) H=12 graph_ms {graph_ms(fn):.4f}")
+del a, k2
+
 import hashlib
 import subprocess
 
@@ -146,7 +169,7 @@ for W, H, N in ((1024, 6, 256), (64, 18, 256)):
 PY
   ) > "$out/ab_$2.log" 2>&1
   echo "== $2 rc=$?"
-  grep -E "^K[0-9]+[ab]? |kernel_ms|library_ms|launch_ms|train_step p50|^bucket|^head-major engine bucket|^CLIP bucket|^CLIP pallas|^AB |FAIL" \
+  grep -E "^K[0-9]+[ab]? |kernel_ms|library_ms|launch_ms|train_step p50|^bucket|^head-major engine bucket|^CLIP bucket|^CLIP pallas|^AB |^Embedder|^knob engine bucket|FAIL" \
     "$out/ab_$2.log"
 }
 run "$parent" parent1

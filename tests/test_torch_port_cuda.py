@@ -1362,3 +1362,87 @@ def test_cuda_smem_probe_needs_the_opt_in(cuda_device):
     assert torch.equal(sp.smem_probe(x, optin), sp._smem_probe_plain(x))
     with pytest.raises(RuntimeError, match="CUDA launch failed"):
         sp.smem_probe(x, None)  # None sets the opt-in back first
+
+
+#: (B, H, W, C, E) of K10's bf16 Hopper kernel: stage 0 of TinyViT-21M-512,
+#: the other channel counts, and maps whose sides are no multiple of its
+#: 16 x 16 tile (one smaller than a tile).
+MBCONV_SM90_SHAPES = [(2, 128, 128, 96, 384), (3, 128, 128, 64, 256),
+                      (3, 128, 128, 32, 128), (2, 7, 9, 96, 384),
+                      (2, 17, 33, 32, 192), (1, 112, 112, 64, 256)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("exact", [False, True])
+@pytest.mark.parametrize("B,H,W,C,E", MBCONV_SM90_SHAPES)
+def test_cuda_mbconv_sm90_matches_plain_and_writes_every_element(
+        cuda_device, monkeypatch, B, H, W, C, E, exact):
+    """K10's bf16 entry (mbconv_sm90.cuh): the output in a NaN-fenced
+    buffer, one launch a call, two calls bitwise equal, within
+    KERNEL_REL_TOL of ``_mbconv_plain``."""
+    from geoguessr_ai_torch.ops import mbconv
+
+    args = _mbconv_args(B, H, W, C, E, cuda_device, seed=C + E)
+    before = mbconv.LAUNCHES["_mbconv_cuda"]
+    made = _nan_fenced_buffers(monkeypatch)
+    got = mbconv._mbconv_cuda(*args, exact)
+    torch.cuda.synchronize()
+    monkeypatch.undo()
+    _check_fenced(made)
+    again = mbconv._mbconv_cuda(*args, exact)
+    torch.cuda.synchronize()
+    assert mbconv.LAUNCHES["_mbconv_cuda"] == before + 2
+    assert torch.equal(got, again)
+    want = mbconv._mbconv_plain(*args, exact)
+    assert got.shape == want.shape == (B, H, W, C)
+    assert _rel_err(got, want) < KERNEL_REL_TOL
+
+
+#: (W, N, C, H) of K2's bf16 entry: stage 2 of a serving bucket of 16, head
+#: dims 16 and 64 at N = 1024, a row count W N that is no multiple of the
+#: GEMM's 128-row tile, and smaller windows.
+FB_S2_SM90_SHAPES = [(64, 1024, 384, 12), (16, 1024, 128, 8),
+                     (4, 1024, 384, 6), (7, 64, 192, 6), (5, 256, 384, 12),
+                     (1, 1024, 384, 12)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("W,N,C,H", FB_S2_SM90_SHAPES)
+def test_cuda_fb_s2_sm90_matches_plain_and_writes_every_element(
+        cuda_device, monkeypatch, W, N, C, H):
+    """K2's bf16 entry (ln_gemm_sm90.cuh, then the forward core): qkv
+    scratch and output in NaN-fenced buffers, one launch a call, two calls
+    bitwise equal, within KERNEL_REL_TOL of ``_fb_s2_plain``."""
+    a = _inputs(W, N, C, H, cuda_device, seed=N + C)
+    args = [a[k] for k in _K2_KEYS] + [(C // H) ** -0.5, H, 1e-5]
+    before = wa.LAUNCHES["_fb_s2_cuda"]
+    made = _nan_fenced_buffers(monkeypatch)
+    got = wa._fb_s2_cuda(*args)
+    torch.cuda.synchronize()
+    monkeypatch.undo()
+    _check_fenced(made)
+    again = wa._fb_s2_cuda(*args)
+    torch.cuda.synchronize()
+    assert wa.LAUNCHES["_fb_s2_cuda"] == before + 2
+    assert torch.equal(got, again)
+    want = wa._fb_s2_plain(*args)
+    assert got.shape == want.shape == (W, N, C)
+    assert _rel_err(got, want) < KERNEL_REL_TOL
+
+
+@pytest.mark.cuda
+def test_cuda_fb_s2_refuses_what_its_bf16_entry_cannot_plan(cuda_device):
+    """N above FB_S2_MAX_N or C above FB_S2_MAX_C is refused in bf16 before
+    any launch; the f32 twin (the first design) still takes them."""
+    before = wa.LAUNCHES["_fb_s2_cuda"]
+    for W, N, C, H in ((1, 1088, 64, 2), (2, 64, 512, 8)):
+        a = _inputs(W, N, C, H, cuda_device)
+        args = [a[k] for k in _K2_KEYS] + [(C // H) ** -0.5, H, 1e-5]
+        with pytest.raises(ValueError, match="K2 takes N up to"):
+            wa._fb_s2_cuda(*args)
+        assert wa.LAUNCHES["_fb_s2_cuda"] == before
+        f32 = [t.float() if isinstance(t, torch.Tensor) else t for t in args]
+        got = wa._fb_s2_cuda(*f32)
+        torch.cuda.synchronize()
+        assert _rel_err(got, wa._fb_s2_plain(*f32)) < KERNEL_REL_TOL
+        before += 1

@@ -115,6 +115,24 @@ def test_every_accepted_shape_has_a_shared_memory_plan(kernel, hd, N):
         assert (plan["NB"], plan["S"], plan["NT"]) == (2, 16, 4)
 
 
+@pytest.mark.parametrize("hd,W,H", [(16, 16, 8), (32, 64, 12), (64, 16, 6),
+                                     (32, 512, 12)])
+def test_k2_attention_has_a_resident_plan_at_n_1024(hd, W, H):
+    """K2's bf16 attention is the core as K3 runs it (no streaming) at its
+    stage-2 N = 1024 with the bf16 bias: a resident 128 KB tile, one bias
+    buffer and a ring of at least one four-tile chunk at head dims 16, 32
+    and 64 (chip_smoke.py's HEAD_DIM_CASES, serving bucket 16 and the B=512
+    embed), over ``_headmajor_groups`` window groups; any N above 1024 the
+    wrapper refuses (FB_S2_MAX_N)."""
+    plan = _plan(W, 1024, hd, 2, may_stream=False)
+    assert plan is not None and not plan["stream"]
+    assert plan["smem"] <= SMEM_MAX
+    assert (plan["NB"], plan["NT"]) == (1, 4) and plan["S"] >= plan["NT"]
+    assert wa.FB_S2_MAX_N == 1024
+    G = wa._headmajor_groups(W, H, 1024)
+    assert 1 <= G <= W and wa._headmajor_items(W, H, 1024, G) >= 16 * H
+
+
 def test_k3_refuses_only_where_no_ring_fits_beside_its_tile():
     """Where K3's resident bf16 tile leaves no room for a ring (the entry
     returns an error and the wrapper raises): first at N = 1280 with hd 64,
@@ -426,7 +444,7 @@ def test_the_headers_host_code_has_internal_linkage():
     ("void gg::fwd90::(anonymous namespace)::attention_fwd_sm90<1, "
      "__nv_bfloat16, 32, 4, false>(CUtensorMap, CUtensorMap, CUtensorMap, "
      "CUtensorMap, __nv_bfloat16*, gg::fwd90::(anonymous namespace)::Plan, "
-     "float)", "attention (K3 CUDA)"),
+     "float)", "attention (K2/K3 CUDA)"),
     ("void gg::fwd90::(anonymous namespace)::attention_fwd_sm90<0, float, "
      "32, 2, true>(CUtensorMap, CUtensorMap, CUtensorMap, CUtensorMap, "
      "__nv_bfloat16*, gg::fwd90::(anonymous namespace)::Plan, float)",
