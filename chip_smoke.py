@@ -13,11 +13,13 @@ Phases, in order; any failure exits non-zero:
    (``nm -D``: a function-local static shared by every library of the
    process);
 3. hold each kernel (K1, K2, K3) against its plain PyTorch version on the
-   card, in bf16, at the shapes the serving path gives it at bucket 16,
-   and time kernel, plain version, SDPA and the bound; K2 (the Hopper
-   LayerNorm + GEMM core, then the forward core) and K3 (the forward core)
-   bitwise equal over two calls; K2's two launches' device time
-   (torch.profiler) on a line of their own;
+   card, in bf16, at the shapes the serving path gives it at bucket 16
+   (K1 also at the embed configuration's stage 3, C = 576), and time
+   kernel, plain version, SDPA and the bound; K1 and K2 (the Hopper
+   LayerNorm + GEMM core, then the forward core; K1's out-projection on
+   the GEMM core again) and K3 (the forward core) bitwise equal over two
+   calls; K1's three and K2's two launches' device time (torch.profiler)
+   on a line of their own;
 4. build the full-width ServingEngine (TinyViT-21M-512, 12647 cells,
    seeded random weights) on the card, serve the fixture panorama and 32
    concurrent MicroBatcher requests with every launch counter set to 0
@@ -59,9 +61,11 @@ Phases, in order; any failure exits non-zero:
     MBConv) against their plain versions in bf16 at the serving bucket-16
     shapes (64 images) and at the embed batch (512 images), and time
     kernel, plain version, the library yardstick (SDPA on K9's q, k, v; the
-    cuDNN conv2d composition for K10) and the bound; K10 (the Hopper
-    kernel) bitwise equal over two calls, and also at C = 64 and C = 32
-    (four images each) against its plain version;
+    cuDNN conv2d composition for K10) and the bound; K9 and K10 (the
+    Hopper kernels) bitwise equal over two calls, K9 equal to K1 on the
+    partitioned map bit for bit at 64 images, K9's three launches' device
+    time, and K10 also at C = 64 and C = 32 (four images each) against its
+    plain version;
 14. the bulk-embedding path: ``build_embedding_sqlite`` over a source
     SQLite of the four fixture JPEGs repeated to 1100 rows, through an
     ``Embedder`` in the embed configuration (TinyViT-21M-512 bf16, K1 at
@@ -102,8 +106,9 @@ Phases, in order; any failure exits non-zero:
     peak device memory;
 20. every TinyViT attention kernel (K1-K5, K7, K8a, K8b, K9) at head dims
     16 and 64 and CLIP's (K6, K11) at 16 and 32 against their plain
-    versions; K4's and K5's d_bias and d_qkv bitwise equal over two calls
-    at the B=16 train shapes;
+    versions, K9 equal to K1 on the partitioned map bit for bit at both;
+    K4's and K5's d_bias and d_qkv bitwise equal over two calls at the
+    B=16 train shapes;
 21. the experimental kernels: K12a and K12b against their plain mirror at
     64 and 256 images of (128, 128, 96), E=384 (K12b bitwise equal to
     K12a; the cuDNN conv chain as the yardstick), K13 at the JAX tool's
@@ -451,17 +456,16 @@ def phase_kernels():
         got = kern(*args)
         torch.cuda.synchronize()
         launch_ms = None
-        if kernel in ("K2", "K3"):
-            # the Hopper cores: every output element from one thread in an
-            # order fixed by the shape
-            stable = torch.equal(got, kern(*args))
-            log(f"{kernel} {label}: bitwise equal over two calls {stable}")
-            if not stable:
-                fail(f"{kernel}: two calls on the same inputs gave different "
-                     f"bits")
-        if kernel == "K2":
+        # the Hopper cores: every output element from one thread in an
+        # order fixed by the shape
+        stable = torch.equal(got, kern(*args))
+        log(f"{kernel} {label}: bitwise equal over two calls {stable}")
+        if not stable:
+            fail(f"{kernel} {label}: two calls on the same inputs gave "
+                 f"different bits")
+        if kernel in ("K1", "K2"):
             launch_ms = _launch_ms(lambda: kern(*args))
-            log(f"K2 {label} launch_ms (device, torch.profiler) " + (
+            log(f"{kernel} {label} launch_ms (device, torch.profiler) " + (
                 ", ".join(f"{k} {v:.4f}" for k, v in launch_ms.items())
                 if launch_ms else "not measured (the trace holds no device "
                 "kernels)"))
@@ -718,9 +722,12 @@ _BWD_LAUNCH_NAMES = ("stats", "dkdv", "dq", "dbias")
 def _launch_ms(fn, calls=3):
     """Device ms a call of each kernel that fn() launches, read from a
     torch.profiler trace of ``calls`` calls after a warm-up (its device
-    events, as profile_forward reads them): the bf16 core's launches by
-    role (``attn_bwd_sm90<HD, MODE, ...>``), the sum of the d_bias
-    partials, and any other kernel by its name.  None when the trace
+    events, as profile_forward reads them): the bf16 backward core's
+    launches by role (``attn_bwd_sm90<HD, MODE, ...>``), the sum of the
+    d_bias partials, the LayerNorm + GEMM core's by kind
+    (``ln_gemm_sm90<KB, KIND, MAP>``: the qkv GEMM or the out-projection),
+    the forward core's as the attention, and any other kernel by its name;
+    each a call's, over the calls the trace holds.  None when the trace
     holds no device kernels."""
     from torch.profiler import ProfilerActivity, profile
 
@@ -730,7 +737,7 @@ def _launch_ms(fn, calls=3):
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
-    out = {}
+    out, counts = {}, {}
     for evt in prof.events():
         if evt.device_type != torch.autograd.DeviceType.CUDA:
             continue
@@ -739,10 +746,21 @@ def _launch_ms(fn, calls=3):
             key = _BWD_LAUNCH_NAMES[int(key.split("<")[1].split(",")[1])]
         elif "dbias_reduce" in key:
             key = "dbias_sum"
+        elif "ln_gemm_sm90<" in key:
+            key = ("qkv_gemm", "proj_gemm")[
+                int(key.split("<")[1].split(",")[1])]
+        elif "attention_fwd_sm90<" in key:
+            key = "attention"
         else:
             key = key.split("(")[0].split("<")[0].replace("void ", "")
-        out[key] = out.get(key, 0.0) + evt.time_range.elapsed_us() / calls / 1e3
-    return out or None
+        out[key] = out.get(key, 0.0) + evt.time_range.elapsed_us() / 1e3
+        counts[key] = counts.get(key, 0) + 1
+    if not out:
+        return None
+    # a trace can come back holding fewer than ``calls`` calls: divide by
+    # the calls it holds, the fewest launches of any one kernel
+    traced = min(min(counts.values()), calls)
+    return {k: v / traced for k, v in out.items()}
 
 
 def _log_launch_ms(launch_ms):
@@ -837,6 +855,8 @@ OP_CASES = (
     ("fused_block_attention_4d", 1024, 256, 192, 6),
 )
 STAGE1_MAP, STAGE1_WINDOW = 64, 16
+#: Stage 1's channels and heads (hd 32).
+STAGE1_C, STAGE1_HEADS = 192, 6
 
 
 def _op_leaves(op, W, N, C, H, gen):
@@ -1442,7 +1462,7 @@ def _embed_kernel_case(kernel, images, gen, dtype=torch.bfloat16):
                 lambda *a: mbconv._mbconv_plain(*a, False), args, bound,
                 bound_by, _mbconv_cudnn_ms(args),
                 "cuDNN conv2d 1x1, depthwise, 1x1 with folded BN and GELU")
-    C, H, N = 192, 6, STAGE1_WINDOW ** 2
+    C, H, N = STAGE1_C, STAGE1_HEADS, STAGE1_WINDOW ** 2
     W = images * (STAGE1_MAP // STAGE1_WINDOW) ** 2
     a = _case_inputs(W, N, C, H, gen, dtype)
     x4 = a["x"].reshape(images, STAGE1_MAP, STAGE1_MAP, C)
@@ -1460,6 +1480,25 @@ def _embed_kernel_case(kernel, images, gen, dtype=torch.bfloat16):
             sdpa, "scaled_dot_product_attention on its q, k, v and bias")
 
 
+def _k9_equals_k1(got, args, label=""):
+    """Fails unless K9's output ``got`` on ``args`` (``_fb4d_cuda``'s)
+    equals K1's on the partitioned map bit for bit: in bf16 both run the
+    same GEMM and attention instances over the same window-ordered rows and
+    window groups."""
+    from geoguessr_ai_torch.ops import window_attention as wa
+
+    x4, weights, (scale, heads, window, eps) = args[0], args[1:8], args[8:]
+    k1 = wa.window_unpartition(
+        wa._fused_block_cuda(wa.window_partition(x4, window), *weights,
+                             scale, heads, eps), window, x4.shape[1:3])
+    same = torch.equal(got, k1)
+    log(f"K9 {tuple(x4.shape)}{label}: equal to K1 on the partitioned map "
+        f"bit for bit {same}")
+    if not same:
+        fail(f"K9 {tuple(x4.shape)}{label}: differs from K1 on the "
+             f"partitioned map")
+
+
 def phase_embed_kernels():
     rows = {}
     gen = torch.Generator().manual_seed(SEED + 4)
@@ -1469,15 +1508,25 @@ def phase_embed_kernels():
                 _embed_kernel_case(kernel, images, gen)
             got = kern(*args)
             torch.cuda.synchronize()
-            if kernel == "K10":
-                # the Hopper kernel: every output element from one thread in
-                # an order fixed by the shape
-                stable = torch.equal(got, kern(*args))
-                log(f"K10 {images} images: bitwise equal over two calls "
-                    f"{stable}")
-                if not stable:
-                    fail("K10: two calls on the same inputs gave different "
-                         "bits")
+            # the Hopper kernels: every output element from one thread in an
+            # order fixed by the shape
+            stable = torch.equal(got, kern(*args))
+            log(f"{kernel} {images} images: bitwise equal over two calls "
+                f"{stable}")
+            if not stable:
+                fail(f"{kernel} {images} images: two calls on the same "
+                     f"inputs gave different bits")
+            launch_ms = None
+            if kernel == "K9":
+                if images == EMBED_KERNEL_IMAGES[0]:
+                    scale = (STAGE1_C // STAGE1_HEADS) ** -0.5
+                    _k9_equals_k1(got, (*args, scale, STAGE1_HEADS,
+                                        STAGE1_WINDOW, 1e-5))
+                launch_ms = _launch_ms(lambda: kern(*args))
+                log(f"K9 {images} images launch_ms (device, torch.profiler) "
+                    + (", ".join(f"{k} {v:.4f}" for k, v in launch_ms.items())
+                       if launch_ms else "not measured (the trace holds no "
+                       "device kernels)"))
             want = _sliced(plain, args, images)
             torch.cuda.synchronize()
             if got.shape != want.shape:
@@ -1501,7 +1550,8 @@ def phase_embed_kernels():
                      f"plain version (rel {rel:.3g}, finite {finite})")
             rows[(kernel, images)] = dict(
                 max_abs_err=max_abs, ms=ms, plain_ms=plain_ms,
-                lib_ms=lib_ms, bound_ms=bound, bound_by=bound_by)
+                lib_ms=lib_ms, bound_ms=bound, bound_by=bound_by,
+                launch_ms=launch_ms)
             del args
             gc.collect()
             torch.cuda.empty_cache()
@@ -2294,6 +2344,8 @@ def phase_head_dims():
         kern, plain, args = _head_dim_case(kernel, hd, W, N, C, H, gen)
         got, want = kern(*args), plain(*args)
         torch.cuda.synchronize()
+        if kernel == "K9":
+            _k9_equals_k1(got, args, f" at head dim {hd}")
         pairs = zip(got, want) if isinstance(got, tuple) else [(got, want)]
         for a, b in pairs:
             _, rel = _rel_err(a, b)
@@ -3205,7 +3257,7 @@ def main():
         }
         if k in ("K1", "K2"):
             entry["sdpa_attention_ms"] = row["sdpa_ms"]
-        if k == "K2":
+        if k in ("K1", "K2"):
             entry["launch_ms"] = row["launch_ms"]
         if k in BWD_META:
             entry["max_abs_err_dbias"] = row["max_abs_err_dbias"]
@@ -3246,6 +3298,7 @@ def main():
             ("sdpa_attention_ms" if k == "K9" else "cudnn_chain_ms"):
                 row["lib_ms"],
             "bucket16_ms": embed_rows[(k, 64)]["ms"],
+            **({"launch_ms": row["launch_ms"]} if k == "K9" else {}),
         })
     for k, (name, source, replaces) in HEADMAJOR_META.items():
         main_label = ("stage2_bucket16" if k == "K8a"

@@ -46,7 +46,7 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
         _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _P)),
     "fused_block": _twins("fused_block", (
         _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-        _I, _I, _I, _I, _I, _F, _F, _P)),
+        _I, _I, _I, _I, _I, _I, _F, _F, _P)),
     "attention_qkv_bwd": _twins("attention_qkv_bwd", (
         _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P)),
     "attention_bwd_merged": _twins("attention_bwd_merged", (
@@ -61,7 +61,7 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
     },
     "fb4d": _twins("fb4d", (
         _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-        _I, _I, _I, _I, _I, _I, _I, _F, _F, _P)),
+        _I, _I, _I, _I, _I, _I, _I, _I, _F, _F, _P)),
     "mbconv": _twins("mbconv", (
         _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P)),
     "fused_mbconv_exp": {

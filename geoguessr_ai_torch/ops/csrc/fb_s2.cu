@@ -42,10 +42,11 @@ extern "C" int fb_s2_bf16(const void* x, const void* ln_scale, const void* ln_bi
                           int groups, float scale, float eps, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int D = H * hd;
-  cudaError_t e = gg::lng90::run(x, static_cast<const float*>(ln_scale),
-                                 static_cast<const float*>(ln_bias), w_qkv_t,
-                                 static_cast<const float*>(b_qkv), qkv_scratch, W * N, C, 3 * D,
-                                 eps, s);
+  using gg::lng90::kQkvGemm;
+  cudaError_t e = gg::lng90::run<kQkvGemm, false>(x, static_cast<const float*>(ln_scale),
+                                                  static_cast<const float*>(ln_bias), w_qkv_t,
+                                                  static_cast<const float*>(b_qkv), qkv_scratch,
+                                                  W * N, C, 3 * D, eps, s);
   if (e != cudaSuccess) return (int)e;
   using namespace gg::fwd90;
   GG_HEAD_DIM_SWITCH(hd, {

@@ -18,11 +18,13 @@ package:
 Kernels:
 
 * K1 ``_fused_block_cuda``, K2 ``_fb_s2_cuda`` and K3
-  ``_attention_qkv_fused_cuda``: the forwards (K2's bf16 entry: the Hopper
-  LayerNorm + GEMM core ``csrc/ln_gemm_sm90.cuh``, then the forward core
-  below as K3 runs it);
+  ``_attention_qkv_fused_cuda``: the forwards (K1's and K2's bf16 entries:
+  the Hopper LayerNorm + GEMM core ``csrc/ln_gemm_sm90.cuh``, then the
+  forward core below as K3 runs it, and K1's out-projection on the GEMM
+  core again);
 * K9 ``_fb4d_cuda``: K1 over the raw map, the window partition done by
-  index arithmetic in the attention launch;
+  tensor maps in K1's GEMM launches (in bf16; the f32 twin by index
+  arithmetic in its attention launch);
 * K4 ``_attention_qkv_bwd_cuda``, K5 ``_attention_bwd_merged_cuda`` and
   K7 ``_attention_bwd_qtiled_cuda``: the attention backward, K4 when the
   all-heads f32 score footprint H * N^2 * 4 is at most 6 MB (stages 1 and
@@ -406,10 +408,16 @@ def _attention_qkv_fused_cuda(qkv, bias, scale, num_heads):
 
 #: Largest window size and channel count K2's bf16 entry takes: the
 #: attention's resident bf16 64 x N bias tile fits beside a ring up to
-#: N = 1024 at every head dim, and the LayerNorm + GEMM core keeps a
-#: 128-row tile of x (C columns) in shared memory, built for C up to 448.
+#: N = 1024 at every head dim, and K2 takes C up to 448 (TinyViT's stage-2
+#: widths; the GEMM core itself takes K up to LN_GEMM_MAX_K).
 FB_S2_MAX_N = 1024
 FB_S2_MAX_C = 448
+#: Largest K the Hopper LayerNorm + GEMM core (``csrc/ln_gemm_sm90.cuh``)
+#: takes: it keeps a 128-row tile of K columns in shared memory beside a
+#: ring of four 64 x 64 weight boxes, built for K up to 576 (kMaxKB boxes).
+#: K1's and K9's bf16 entries run it with K = C (the qkv GEMM) and K = D
+#: (the out-projection).
+LN_GEMM_MAX_K = 576
 
 
 def _fb_s2_cuda(x, ln_scale, ln_bias, w_qkv, b_qkv, bias, scale,
@@ -453,18 +461,36 @@ def _fb_s2_cuda(x, ln_scale, ln_bias, w_qkv, b_qkv, bias, scale,
     return out
 
 
+def _fused_block_plan(N, C, D, window=None):
+    """Raises ValueError where K1's bf16 entry (or, given the ``window``
+    side, K9's) has no plan: the attention keeps a bf16 64 x N bias tile
+    resident (N up to FB_S2_MAX_N), the GEMM core takes K up to
+    LN_GEMM_MAX_K (C for the qkv GEMM, D for the out-projection), and K9's
+    window map reads 128-row tiles of one window in boxes of whole window
+    rows (a side dividing 64, N a multiple of 128: 16 or 32)."""
+    name = "K1" if window is None else "K9"
+    if N > FB_S2_MAX_N or C > LN_GEMM_MAX_K or D > LN_GEMM_MAX_K:
+        raise ValueError(f"{name} takes N up to {FB_S2_MAX_N} and C, D up to "
+                         f"{LN_GEMM_MAX_K} in bf16, got N={N}, C={C}, D={D}")
+    if window is not None and (64 % window or N % 128):
+        raise ValueError(f"K9 takes a window side dividing 64 with N a "
+                         f"multiple of 128 in bf16 (16 or 32), got {window}")
+
+
 def _fused_block_launch(lib, x, ln_scale, ln_bias, w_qkv, b_qkv, w_proj,
-                        b_proj, bias, num_heads, N, tail):
+                        b_proj, bias, num_heads, W, N, geometry, scale, eps):
     """K1 and K9's shared launch: converts the operands to what the
-    kernels read, allocates qkv and the attention output as scratch in
-    x's row order, and calls ``lib``'s entry with ``tail`` (the geometry,
-    scale, eps) before the stream.  Returns (the entry's error code, the
-    output shaped like x)."""
+    kernels read, allocates qkv (W, N, 3D) and the attention output (W, N,
+    D) as scratch, and calls ``lib``'s entry with ``geometry``, the window
+    groups, scale and eps before the stream.  In bf16 the entry runs the
+    Hopper cores, whose attention reads qkv through a tensor map
+    (``_qkv_layout``) over ``_headmajor_groups`` window groups; the f32
+    twin ignores the groups.  Returns (the entry's error code, the output
+    shaped like x)."""
     from geoguessr_ai_torch.ops import _build
 
     C = x.shape[-1]
     D = w_proj.shape[0]
-    rows = x.shape[:-1]
     dt = x.dtype
     ls = _vec_f32(ln_scale, C, "ln_scale")
     lb = _vec_f32(ln_bias, C, "ln_bias")
@@ -474,25 +500,40 @@ def _fused_block_launch(lib, x, ln_scale, ln_bias, w_qkv, b_qkv, w_proj,
     wp = _weight_t(w_proj, C, D, dt)
     bp = _vec_f32(b_proj, C, "b_proj")
     bias = _bias_as(bias, num_heads, N, dt)
-    qkv = torch.empty((*rows, 3 * D), dtype=x.dtype, device=x.device)
-    attn = torch.empty((*rows, D), dtype=x.dtype, device=x.device)
+    qkv = torch.empty((W, N, 3 * D), dtype=x.dtype, device=x.device)
+    attn = torch.empty((W, N, D), dtype=x.dtype, device=x.device)
     out = torch.empty_like(x)
+    groups = 1
+    if dt == torch.bfloat16:
+        _qkv_layout(*((t.shape, t.stride(), t.data_ptr(), t.element_size())
+                      for t in (qkv, bias)), num_heads)
+        groups = _headmajor_groups(W, num_heads, N)
     err = _build.typed_entry(lib, lib, dt)(
         x.data_ptr(), ls.data_ptr(), lb.data_ptr(), wq.data_ptr(),
         bq.data_ptr(), wp.data_ptr(), bp.data_ptr(), bias.data_ptr(),
-        qkv.data_ptr(), attn.data_ptr(), out.data_ptr(), *tail, _stream())
+        qkv.data_ptr(), attn.data_ptr(), out.data_ptr(), *geometry, groups,
+        float(scale), float(eps), _stream())
     return err, out
 
 
 def _fused_block_cuda(x, ln_scale, ln_bias, w_qkv, b_qkv, w_proj, b_proj,
                       bias, scale, num_heads, eps):
+    """K1: (W, N, C) x -> (W, N, C).  The bf16 entry runs the Hopper
+    LayerNorm + GEMM core (the qkv GEMM), the forward core in its
+    interleaved layout over ``_headmajor_groups`` window groups, and the
+    core again without LayerNorm (the out-projection); it takes N up to
+    FB_S2_MAX_N and C, D up to LN_GEMM_MAX_K and raises above
+    (``_fused_block_plan``).  The f32 twin runs the first design."""
     W, N, C = x.shape
-    hd = _check_geometry(W, N, C, w_proj.shape[0], num_heads, gemm=True)
-    _check("x", x, (W, N, C), _act_dtype(x=x))
+    D = w_proj.shape[0]
+    hd = _check_geometry(W, N, C, D, num_heads, gemm=True)
+    dt = _act_dtype(x=x)
+    _check("x", x, (W, N, C), dt)
+    if dt == torch.bfloat16:
+        _fused_block_plan(N, C, D)
     err, out = _fused_block_launch(
         "fused_block", x, ln_scale, ln_bias, w_qkv, b_qkv, w_proj, b_proj,
-        bias, num_heads, N,
-        (W, N, C, num_heads, hd, float(scale), float(eps)))
+        bias, num_heads, W, N, (W, N, C, num_heads, hd), scale, eps)
     _raise_on(err, "_fused_block_cuda")
     LAUNCHES["_fused_block_cuda"] += 1
     return out
@@ -500,6 +541,12 @@ def _fused_block_cuda(x, ln_scale, ln_bias, w_qkv, b_qkv, w_proj, b_proj,
 
 def _fb4d_cuda(x, ln_scale, ln_bias, w_qkv, b_qkv, w_proj, b_proj, bias,
                scale, num_heads, window, eps):
+    """K9: the (B, Hm, Wm, C) map -> the same shape, K1 over its windows.
+    The bf16 entry runs K1's three launches with the partition in tensor
+    maps: the qkv GEMM reads x and the out-projection writes out in window
+    order through a 5D map over the map, so qkv and the attention output
+    are K1's window-ordered scratch (``_fused_block_plan`` with the window
+    side).  The f32 twin runs the first design, its scratch in map order."""
     if x.dim() != 4:
         raise ValueError(f"x must be (B, H, W, C), got {tuple(x.shape)}")
     B, Hm, Wm, C = x.shape
@@ -507,14 +554,16 @@ def _fb4d_cuda(x, ln_scale, ln_bias, w_qkv, b_qkv, w_proj, b_proj, bias,
     if Hm % window or Wm % window:
         raise ValueError(f"the map {Hm}x{Wm} is not a whole number of "
                          f"{window}x{window} windows")
-    hd = _check_geometry(B * (Hm // window) * (Wm // window), N, C,
-                         w_proj.shape[0], num_heads, gemm=True)
-    _check("x", x, (B, Hm, Wm, C), _act_dtype(x=x))
-    # qkv and the attention output stay in map order, like x and out
+    W = B * (Hm // window) * (Wm // window)
+    D = w_proj.shape[0]
+    hd = _check_geometry(W, N, C, D, num_heads, gemm=True)
+    dt = _act_dtype(x=x)
+    _check("x", x, (B, Hm, Wm, C), dt)
+    if dt == torch.bfloat16:
+        _fused_block_plan(N, C, D, window)
     err, out = _fused_block_launch(
         "fb4d", x, ln_scale, ln_bias, w_qkv, b_qkv, w_proj, b_proj, bias,
-        num_heads, N,
-        (B, Hm, Wm, C, num_heads, hd, window, float(scale), float(eps)))
+        num_heads, W, N, (B, Hm, Wm, C, num_heads, hd, window), scale, eps)
     _raise_on(err, "_fb4d_cuda")
     LAUNCHES["_fb4d_cuda"] += 1
     return out

@@ -41,13 +41,15 @@ import torch
 
 #: Kernel-name substrings -> the port's layer they belong to, first match.
 GROUPS = (
-    # the first design: K1, K2, K9 and K3's f32 twin (K3 in bf16 runs the
-    # forward core, which _group tells apart by its template arguments)
-    ("window_attention_kernel", "attention (K1/K2/K3/K9 CUDA)"),
-    ("ln_gemm_kernel", "LN+GEMM (K1/K2/K9 CUDA)"),
+    # the first design, which only the f32 twins of K1, K2, K3 and K9 run
+    # (in bf16 their attention runs the forward core, which _group tells
+    # apart by its template arguments)
+    ("window_attention_kernel", "attention (f32 K1/K2/K3/K9 CUDA)"),
+    ("ln_gemm_kernel", "LN+GEMM (f32 K1/K2/K9 CUDA)"),
     ("mbconv_kernel", "fused MBConv (K10 CUDA)"),
-    # K2's and K10's bf16 Hopper kernels
-    ("ln_gemm_sm90", "LN+GEMM (K2 CUDA)"),
+    # the bf16 Hopper kernels: the LayerNorm + GEMM core (K1's and K9's qkv
+    # GEMM and out-projection, K2's qkv GEMM) and K10's
+    ("ln_gemm_sm90", "LN+GEMM (K1/K2/K9 CUDA)"),
     ("mbconv_sm90", "fused MBConv (K10 CUDA)"),
     # torch._int_mm's kernels (cutlass_80_tensorop_i16832gemm_s8_... on
     # the H100 with torch 2.11)
@@ -92,12 +94,12 @@ def _group(name: str) -> str:
                 else "attention backward (K5/K7 CUDA)")
     if "attention_fwd_sm90<" in low:
         # attention_fwd_sm90<layout, bias type, HD, NT, streamed>: the
-        # interleaved qkv in K2 and K3 (the same instances); head-major with
-        # the bias streamed in K8a where its tile does not fit, resident in
-        # K8b and in K8a below
+        # interleaved qkv in K1, K2, K3 and K9 (the same instances);
+        # head-major with the bias streamed in K8a where its tile does not
+        # fit, resident in K8b and in K8a below
         args = low.split("<", 1)[1].split(">", 1)[0].split(",")
         if args[0].strip() == "1":
-            return "attention (K2/K3 CUDA)"
+            return "attention (K1/K2/K3/K9 CUDA)"
         return ("head-major attention (K8a CUDA)" if args[-1].strip() == "true"
                 else "head-major attention (K8b, K8a resident; CUDA)")
     for key, group in GROUPS:

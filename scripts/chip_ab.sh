@@ -13,7 +13,8 @@
 # and a hash of K8b's output on seeded inputs (equal in both trees when
 # its bits did not change); K10 (the fused stage-0 MBConv) at 64 and 512
 # images by events and K2 (the stage-2 no-proj fused block) at bucket 16 as
-# device time (each launch's device time: phase 3's launch_ms line); and
+# device time (each launch's device time: phase 3's launch_ms lines, K1's
+# too; K9's in phase 13's); and
 # the embed phase (Embedder p50 at B=512 with both knobs on and off) and
 # the knob-serve phase (bucket-16 p50 of the engine with fused_mbconv and
 # fused_block_4d):

@@ -1446,3 +1446,101 @@ def test_cuda_fb_s2_refuses_what_its_bf16_entry_cannot_plan(cuda_device):
         torch.cuda.synchronize()
         assert _rel_err(got, wa._fb_s2_plain(*f32)) < KERNEL_REL_TOL
         before += 1
+
+
+#: (W, N, C, H) of K1's bf16 entry: stage 1 of a serving bucket of 16 and
+#: the embed configuration's stage 3 (C = 576: nine k-boxes, one x buffer),
+#: head dims 16 and 64, a row count W N that is no multiple of the GEMMs'
+#: 128-row tile, and N = 1024.
+FUSED_BLOCK_SM90_SHAPES = [(1024, 256, 192, 6), (64, 256, 576, 18),
+                           (64, 256, 128, 8), (64, 256, 384, 6),
+                           (5, 64, 192, 6), (3, 128, 576, 18),
+                           (2, 1024, 64, 2)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("W,N,C,H", FUSED_BLOCK_SM90_SHAPES)
+def test_cuda_fused_block_sm90_matches_plain_and_writes_every_element(
+        cuda_device, monkeypatch, W, N, C, H):
+    """K1's bf16 entry (the GEMM core's two kinds around the forward core):
+    qkv and attention scratch and the output in NaN-fenced buffers, one
+    launch a call, two calls bitwise equal, within KERNEL_REL_TOL of
+    ``_fused_block_plain``."""
+    a = _inputs(W, N, C, H, cuda_device, seed=N + C)
+    args = [a[k] for k in _K1_KEYS] + [(C // H) ** -0.5, H, 1e-5]
+    before = wa.LAUNCHES["_fused_block_cuda"]
+    made = _nan_fenced_buffers(monkeypatch)
+    got = wa._fused_block_cuda(*args)
+    torch.cuda.synchronize()
+    monkeypatch.undo()
+    _check_fenced(made)
+    assert len(made) == 3
+    again = wa._fused_block_cuda(*args)
+    torch.cuda.synchronize()
+    assert wa.LAUNCHES["_fused_block_cuda"] == before + 2
+    assert torch.equal(got, again)
+    want = wa._fused_block_plain(*args)
+    assert got.shape == want.shape == (W, N, C)
+    assert _rel_err(got, want) < KERNEL_REL_TOL
+
+
+#: (B, Hm, Wm, C, H, window) of K9's bf16 entry: stage 1 at 4 images, head
+#: dims 16 and 64, a map that is not square, and 32 x 32 windows.
+FB4D_SM90_SHAPES = [(4, 64, 64, 192, 6, 16), (1, 128, 128, 128, 8, 16),
+                    (1, 128, 128, 384, 6, 16), (2, 32, 48, 64, 2, 16),
+                    (2, 64, 64, 64, 2, 32)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,Hm,Wm,C,H,window", FB4D_SM90_SHAPES)
+def test_cuda_fb4d_sm90_equals_k1_and_writes_every_element(
+        cuda_device, monkeypatch, B, Hm, Wm, C, H, window):
+    """K9's bf16 entry (K1's launches with the window map): scratch and
+    output in NaN-fenced buffers, one launch a call, two calls bitwise
+    equal, equal to K1 on the partitioned map bit for bit, within
+    KERNEL_REL_TOL of ``_fb4d_plain``."""
+    N = window * window
+    a = _inputs(B * Hm * Wm // N, N, C, H, cuda_device, seed=C + window)
+    x4 = a["x"].reshape(B, Hm, Wm, C)
+    rest = [a[k] for k in _K1_KEYS[1:]] + [(C // H) ** -0.5, H]
+    args = [x4] + rest + [window, 1e-5]
+    before = wa.LAUNCHES["_fb4d_cuda"]
+    made = _nan_fenced_buffers(monkeypatch)
+    got = wa._fb4d_cuda(*args)
+    torch.cuda.synchronize()
+    monkeypatch.undo()
+    _check_fenced(made)
+    assert len(made) == 3
+    again = wa._fb4d_cuda(*args)
+    torch.cuda.synchronize()
+    assert wa.LAUNCHES["_fb4d_cuda"] == before + 2
+    assert torch.equal(got, again)
+    k1 = wa._fused_block_cuda(wa.window_partition(x4, window), *rest, 1e-5)
+    assert torch.equal(got, wa.window_unpartition(k1, window, (Hm, Wm)))
+    want = wa._fb4d_plain(*args)
+    assert got.shape == want.shape == (B, Hm, Wm, C)
+    assert _rel_err(got, want) < KERNEL_REL_TOL
+
+
+@pytest.mark.cuda
+def test_cuda_fused_block_sm90_refuses_what_its_bf16_entries_cannot_plan(
+        cuda_device):
+    """C above LN_GEMM_MAX_K (K1) and a window of 8 (K9: its 128-row tiles
+    would straddle windows) are refused in bf16 before any launch; the f32
+    twins (the first design) still take them."""
+    a = _inputs(2, 256, 640, 10, cuda_device)
+    k1 = [a[k] for k in _K1_KEYS] + [64 ** -0.5, 10, 1e-5]
+    b = _inputs(4, 64, 64, 2, cuda_device)
+    b["x"] = b["x"].reshape(1, 16, 16, 64)
+    k9 = [b[k] for k in _K1_KEYS] + [32 ** -0.5, 2, 8, 1e-5]
+    for fn, plain, args, match in (
+            (wa._fused_block_cuda, wa._fused_block_plain, k1, "K1 takes N"),
+            (wa._fb4d_cuda, wa._fb4d_plain, k9, "K9 takes a window side")):
+        before = dict(wa.LAUNCHES)
+        with pytest.raises(ValueError, match=match):
+            fn(*args)
+        assert wa.LAUNCHES == before
+        f32 = [t.float() if isinstance(t, torch.Tensor) else t for t in args]
+        got = fn(*f32)
+        torch.cuda.synchronize()
+        assert _rel_err(got, plain(*f32)) < KERNEL_REL_TOL

@@ -444,7 +444,7 @@ def test_the_headers_host_code_has_internal_linkage():
     ("void gg::fwd90::(anonymous namespace)::attention_fwd_sm90<1, "
      "__nv_bfloat16, 32, 4, false>(CUtensorMap, CUtensorMap, CUtensorMap, "
      "CUtensorMap, __nv_bfloat16*, gg::fwd90::(anonymous namespace)::Plan, "
-     "float)", "attention (K2/K3 CUDA)"),
+     "float)", "attention (K1/K2/K3/K9 CUDA)"),
     ("void gg::fwd90::(anonymous namespace)::attention_fwd_sm90<0, float, "
      "32, 2, true>(CUtensorMap, CUtensorMap, CUtensorMap, CUtensorMap, "
      "__nv_bfloat16*, gg::fwd90::(anonymous namespace)::Plan, float)",
@@ -455,7 +455,7 @@ def test_the_headers_host_code_has_internal_linkage():
      "head-major attention (K8b, K8a resident; CUDA)"),
     ("void gg::(anonymous namespace)::window_attention_kernel<float, 32, "
      "gg::WindowRows>(float const*, float const*, float*, int, int, float, "
-     "gg::WindowRows)", "attention (K1/K2/K3/K9 CUDA)"),
+     "gg::WindowRows)", "attention (f32 K1/K2/K3/K9 CUDA)"),
 ])
 def test_profile_groups_name_the_forward_core_by_its_kernels(kernel_name,
                                                              group):

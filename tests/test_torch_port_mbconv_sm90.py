@@ -222,7 +222,7 @@ def test_k2_routes_bf16_to_the_hopper_cores_with_the_groups(monkeypatch,
     assert len(checked) == (suffix == "bf16")
     body = _c_body(lib, entry)
     if suffix == "bf16":
-        assert "gg::lng90::run(" in body
+        assert "gg::lng90::run<kQkvGemm, false>(" in body
         assert "run<kQkv, gg::bf16, HD, false>(qkv_scratch, qkv_scratch, qkv_scratch" in body
     else:
         assert "lng90" not in body and "fwd90" not in body
@@ -246,23 +246,35 @@ def test_k2_refuses_what_its_bf16_entry_cannot_plan(monkeypatch):
     assert [c[1] for c in calls] == ["fb_s2_f32", "fb_s2_f32"]
 
 
-def _gemm_plan(M, K, Nout):
-    """A mirror of ``ln_gemm_sm90.cuh``'s make_plan: the 128-row x tile,
-    the four 64 x 64 output staging tiles and a ring of 64-column B boxes
-    that holds two k-boxes of both tiles of a step (at least 4 slots), K a
-    multiple of 64 up to the kernel's instances (KB <= 7)."""
+def _gemm_plan(M, K, Nout, ws=0, Wm=0):
+    """A mirror of ``ln_gemm_sm90.cuh``'s make_plan: AB 128-row x tiles
+    (two where they leave a ring of kMinSlots, else one), the four 64 x 64
+    output staging tiles and a ring of 64-column B boxes that holds two
+    k-boxes of both tiles of a step (at least kMinSlots), K a multiple of
+    64 up to the kernel's instances (kMaxKB boxes); a window map (ws > 0)
+    takes ws dividing 64 with ws * ws a multiple of 128 over a map of whole
+    windows."""
     rows, cols, box_k = _int(LNG90, "kRows"), _int(LNG90, "kCols"), _int(LNG90, "kBoxK")
     max_slots, smem = _int(LNG90, "kMaxSlots"), _int(LNG90, "kSmemMax")
-    if K % box_k or Nout % cols or M < 1:
+    min_slots, max_kb = _int(LNG90, "kMinSlots"), _int(LNG90, "kMaxKB")
+    if K % box_k or K > max_kb * box_k or Nout % cols or M < 1:
+        return None
+    if ws and (64 % ws or ws * ws % rows or Wm % ws or M % (ws * Wm)):
         return None
     KB, box_a, box_b = K // box_k, rows * 128, cols * 128
     stage = 4 * box_b
-    S = min((smem - 1024 - 8 * (2 + 2 * max_slots) - KB * box_a - stage) // box_b,
-            max_slots)
-    if S < 4 or KB > 7:
+
+    def slots(AB):
+        return min((smem - 1024 - 8 * (2 * AB + 2 * max_slots)
+                    - AB * KB * box_a - stage) // box_b, max_slots)
+
+    AB = 2 if slots(2) >= min_slots else 1
+    S = slots(AB)
+    if S < min_slots:
         return None
-    return dict(S=S, tiles=-(-M // rows), ncol=Nout // cols,
-                bytes=1024 + KB * box_a + stage + S * box_b + 8 * (2 + 2 * S))
+    return dict(S=S, AB=AB, tiles=-(-M // rows), ncol=Nout // cols,
+                bytes=1024 + AB * KB * box_a + stage + S * box_b
+                + 8 * (2 * AB + 2 * S))
 
 
 @pytest.mark.parametrize("M,K,Nout", [(65536, 384, 1152), (524288, 384, 1152),
@@ -279,10 +291,12 @@ def test_k2_gemm_plan_fits_at_the_shapes_it_is_given(M, K, Nout):
 
 
 def test_k2_gemm_takes_every_c_up_to_the_wrappers_limit():
-    """The GEMM core plans every C (a multiple of 64) up to FB_S2_MAX_C and
-    none above, the limit the wrapper enforces in bf16."""
+    """The GEMM core plans every C (a multiple of 64) up to LN_GEMM_MAX_K
+    and none above, so every C up to FB_S2_MAX_C, the limit K2's wrapper
+    enforces in bf16."""
     ok = [K for K in range(64, 1025, 64) if _gemm_plan(1024, K, 3 * K)]
-    assert ok == list(range(64, wa.FB_S2_MAX_C + 1, 64))
+    assert ok == list(range(64, wa.LN_GEMM_MAX_K + 1, 64))
+    assert wa.FB_S2_MAX_C in ok
 
 
 @pytest.mark.parametrize("name,ns", [("mbconv_sm90.cuh", "mb90"),
@@ -393,9 +407,24 @@ def test_k10_gelu_form_is_torchs_tanh_gelu():
 
 
 @pytest.mark.parametrize("kernel_name,group", [
-    ("void gg::lng90::(anonymous namespace)::ln_gemm_sm90<6>(CUtensorMap, "
-     "CUtensorMap, CUtensorMap, float const*, float const*, float const*, "
-     "gg::lng90::(anonymous namespace)::Plan, float)", "LN+GEMM (K2 CUDA)"),
+    ("void gg::lng90::(anonymous namespace)::ln_gemm_sm90<6, 0, false>("
+     "CUtensorMap, CUtensorMap, CUtensorMap, float const*, float const*, "
+     "float const*, gg::lng90::(anonymous namespace)::Plan, float)",
+     "LN+GEMM (K1/K2/K9 CUDA)"),
+    # K1's and K9's: the qkv kind through the window map, the projection
+    # kind at the embed stage 3's D = 576
+    ("void gg::lng90::(anonymous namespace)::ln_gemm_sm90<3, 0, true>("
+     "CUtensorMap, CUtensorMap, CUtensorMap, float const*, float const*, "
+     "float const*, gg::lng90::(anonymous namespace)::Plan, float)",
+     "LN+GEMM (K1/K2/K9 CUDA)"),
+    ("void gg::lng90::(anonymous namespace)::ln_gemm_sm90<9, 1, false>("
+     "CUtensorMap, CUtensorMap, CUtensorMap, float const*, float const*, "
+     "float const*, gg::lng90::(anonymous namespace)::Plan, float)",
+     "LN+GEMM (K1/K2/K9 CUDA)"),
+    # the first design's GEMM, which only the f32 twins run
+    ("void gg::(anonymous namespace)::ln_gemm_kernel<float, false, false>("
+     "float const*, float const*, float const*, float const*, float const*, "
+     "float*, int, int, int, float)", "LN+GEMM (f32 K1/K2/K9 CUDA)"),
     ("void gg::mb90::(anonymous namespace)::mbconv_sm90<96, false>("
      "CUtensorMap, CUtensorMap, CUtensorMap, CUtensorMap, CUtensorMap, "
      "CUtensorMap, CUtensorMap, CUtensorMap, __nv_bfloat16 const*, float "
@@ -403,8 +432,10 @@ def test_k10_gelu_form_is_torchs_tanh_gelu():
      "int)", "fused MBConv (K10 CUDA)"),
 ])
 def test_profile_groups_name_the_new_kernels(kernel_name, group):
-    """``profile_forward`` puts K2's GEMM core and K10's Hopper kernel in
-    their layers (not cuBLAS's GEMM group, which "gemm" would match)."""
+    """``profile_forward`` puts the GEMM core (both kinds: K1's and K9's qkv
+    GEMM and out-projection, K2's qkv GEMM) and K10's Hopper kernel in
+    their layers (not cuBLAS's GEMM group, which "gemm" would match), and
+    the first design's GEMM in the f32 twins' layer."""
     from geoguessr_ai_torch import profile_forward
 
     assert profile_forward._group(kernel_name) == group
