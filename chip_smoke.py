@@ -48,7 +48,11 @@ Phases, in order; any failure exits non-zero:
     in bf16 at the shapes the CLIP ViT-L/14-336 serving path gives them at
     bucket 16 and at ViT-B/32's N=50, and time kernel, plain version,
     SDPA and the bound (K6's bf16 entry is the Hopper kernel: TMA loads,
-    wgmma products, warp-specialised, persistent);
+    wgmma products, warp-specialised, persistent; K11's bf16 entry runs it
+    and then the Hopper GEMM core on its output: K11 bitwise equal to the
+    core applied to K6's output and over two calls, its two launches'
+    device time, traced in a fresh process and required, beside cuBLAS's
+    o @ w);
 11. build the full-width CLIP ViT-L/14-336 ServingEngine (12647 cells,
     seeded random weights) on the card, serve the fixture panorama and 32
     concurrent MicroBatcher requests with every launch counter set to 0
@@ -111,10 +115,13 @@ Phases, in order; any failure exits non-zero:
     B=16 train shapes;
 21. the experimental kernels: K12a and K12b against their plain mirror at
     64 and 256 images of (128, 128, 96), E=384 (K12b bitwise equal to
-    K12a; the cuDNN conv chain as the yardstick), K13 at the JAX tool's
-    four shapes in int8 (exactly the plain product) and bf16, with TOPS,
-    the bound and what sets it, the library call and the int8/bf16 rate
-    ratios; then, with the counters at 0, the entry points that run them
+    K12a; the cuDNN conv chain as the yardstick), K13 (the Hopper GEMM
+    core) at the JAX tool's four shapes in int8 (exactly the plain
+    product) and bf16, each bitwise equal over two calls, with TOPS (b
+    K-major, as the kernel reads it; also from a (K, N) b, whose transpose
+    the wrapper copies at every call), the bound and what sets it, the
+    library call and the int8/bf16 rate ratios; then, with the counters at
+    0, the entry points that run them
     (``ops.experimental.fused_mbconv``'s benchmark and
     ``tools.exp_int8_gemm``);
 22. the static-int8 embed path: ``Embedder(quant_mode="static")`` at
@@ -726,7 +733,9 @@ def _launch_ms(fn, calls=3):
     launches by role (``attn_bwd_sm90<HD, MODE, ...>``), the sum of the
     d_bias partials, the LayerNorm + GEMM core's by kind
     (``ln_gemm_sm90<KB, KIND, MAP>``: the qkv GEMM or the out-projection),
-    the forward core's as the attention, and any other kernel by its name;
+    the GEMM core's (``gemm_sm90<KIND, BN>``, K11's out-projection) as
+    proj_gemm, the forward core's and K6's kernel as the attention, and
+    any other kernel by its name;
     each a call's, over the calls the trace holds.  None when the trace
     holds no device kernels."""
     from torch.profiler import ProfilerActivity, profile
@@ -749,7 +758,9 @@ def _launch_ms(fn, calls=3):
         elif "ln_gemm_sm90<" in key:
             key = ("qkv_gemm", "proj_gemm")[
                 int(key.split("<")[1].split(",")[1])]
-        elif "attention_fwd_sm90<" in key:
+        elif "gemm_sm90<" in key:  # the GEMM core: K11's projection
+            key = "proj_gemm"
+        elif "attention_fwd_sm90<" in key or "clip_flash_sm90<" in key:
             key = "attention"
         else:
             key = key.split("(")[0].split("<")[0].replace("void ", "")
@@ -1174,6 +1185,59 @@ def _clip_bound_ms(kernel, B, N, D, H, elem=2):
     return _bound(flops, nbytes, _peak(elem))
 
 
+def _core_of_k6(qkv, w, scale, H):
+    """The GEMM core applied to K6's output: K13's bf16 kind (K11's
+    mainloop, an f32 output) on ``_flash_cuda``'s o, padded with zero rows
+    to whole 128-row tiles as K13 takes them, rounded to bf16 as the core's
+    bf16 kind rounds; the rows past B N add nothing to the others."""
+    from geoguessr_ai_torch.ops import clip_attention as ca
+    from geoguessr_ai_torch.ops.experimental import tiled_gemm as tg
+
+    B, N, D = qkv.shape[0], qkv.shape[1], qkv.shape[2] // 3
+    o = ca._flash_cuda(qkv, scale, H).reshape(B * N, D)
+    padded = torch.zeros(-(-(B * N) // 128) * 128, D, dtype=o.dtype,
+                         device=o.device)
+    padded[:B * N] = o
+    c = tg._tiled_matmul_cuda(padded, w.to(o.dtype), torch.float32)
+    return c[:B * N].to(torch.bfloat16).reshape(B, N, D)
+
+
+def _k11_trace(B, N, D, H, tries=3):
+    """K11's launches at (B, N, D, H) by device time (``_launch_ms``), on
+    seeded inputs: the first of ``tries`` traces that holds both its
+    launches, or the last one."""
+    from geoguessr_ai_torch.ops import clip_attention as ca
+
+    gen = torch.Generator().manual_seed(SEED + 3)
+    qkv = torch.randn(B, N, 3 * D, generator=gen).to("cuda", torch.bfloat16)
+    w = (torch.randn(D, D, generator=gen) * D ** -0.5).to(
+        "cuda", torch.bfloat16).t().contiguous().t()
+    for _ in range(tries):
+        split = _launch_ms(
+            lambda: ca._flash_proj_cuda(qkv, w, (D // H) ** -0.5, H))
+        if split and {"attention", "proj_gemm"} <= set(split):
+            break
+    return split
+
+
+def _k11_launch_split(case):
+    """K11's two launches, the attention and the projection, by device time
+    at ``case`` (B, N, D, H), traced in a process of its own: torch.profiler
+    traces of K11 taken late in a run of every phase, or after another
+    trace of it in the same process, have come back empty.  Fails unless
+    the trace holds both launches."""
+    code = ("import json, chip_smoke as cs; "
+            f"print(json.dumps(cs._k11_trace(*{tuple(case)!r})))")
+    out = subprocess.run([sys.executable, "-c", code], cwd=HERE,
+                         capture_output=True, text=True, timeout=300)
+    if out.returncode:
+        fail(f"K11 {case}: its launch trace failed:\n{out.stderr[-3000:]}")
+    split = json.loads(out.stdout.strip().splitlines()[-1])
+    if not split or not {"attention", "proj_gemm"} <= set(split):
+        fail(f"K11 {case}: the trace holds not both its launches: {split}")
+    return split
+
+
 def phase_clip_kernels():
     import torch.nn.functional as F
 
@@ -1185,8 +1249,10 @@ def phase_clip_kernels():
         hd = D // H
         scale = hd ** -0.5
         qkv = torch.randn(B, N, 3 * D, generator=gen).to("cuda", torch.bfloat16)
+        # w_proj in (in, out) layout as the CLIP tower hands it over: the
+        # transpose view of the (out, in) weight, which K11 reads as it is
         w = (torch.randn(D, D, generator=gen) * D ** -0.5).to(
-            "cuda", torch.bfloat16)
+            "cuda", torch.bfloat16).t().contiguous().t()
         if kernel == "K6":
             args = (qkv, scale, H)
             kern, plain = ca._flash_cuda, ca._flash_plain
@@ -1202,6 +1268,17 @@ def phase_clip_kernels():
                  f"{tuple(want.shape)}")
         max_abs, rel = _rel_err(got, want)
         finite = bool(torch.isfinite(got).all())
+        extra = {}
+        if kernel == "K11":
+            # K6's kernel, then the GEMM core on its output: bit for bit
+            # the core applied to K6's output, and the same bits twice
+            stable = torch.equal(got, kern(*args))
+            same = torch.equal(got, _core_of_k6(qkv, w, scale, H))
+            log(f"K11 {label}: bitwise equal over two calls {stable}, "
+                f"bitwise equal to the GEMM core on K6's output {same}")
+            if not (stable and same):
+                fail(f"K11 {label}: stable {stable}, equal to the core on "
+                     f"K6's output {same}")
         del got, want
         ms = kernel_ms(lambda: kern(*args))
         plain_ms = cuda_time_ms(lambda: plain(*args), iters=3)
@@ -1213,7 +1290,8 @@ def phase_clip_kernels():
             lambda: F.scaled_dot_product_attention(q, k, v, scale=scale))
         o = F.scaled_dot_product_attention(q, k, v, scale=scale).transpose(
             1, 2).reshape(B, N, D)
-        sdpa_mm_ms = sdpa_ms + kernel_ms(lambda: o @ w)
+        mm_ms = kernel_ms(lambda: o @ w)
+        sdpa_mm_ms = sdpa_ms + mm_ms
         bound, bound_by = _clip_bound_ms(kernel, B, N, D, H)
         log(f"{kernel} {label} B={B} N={N} D={D} H={H} hd={hd}")
         log(f"  max_abs_err {max_abs:.6g}")
@@ -1226,14 +1304,27 @@ def phase_clip_kernels():
         else:
             log(f"  library_ms null [SDPA + matmul {sdpa_mm_ms:.4f}]")
         log(f"  bound_ms {bound:.4f} ({bound_by})")
+        if kernel == "K11":
+            # cuBLAS's o @ w as the projection's yardstick (the port never
+            # calls it)
+            extra["matmul_ms"] = mm_ms
+            log(f"  yardstick: cuBLAS o @ w {mm_ms:.4f} ms (SDPA "
+                f"{sdpa_ms:.4f} ms)")
         if not (finite and rel <= KERNEL_REL_TOL):
             fail(f"{kernel} {label}: kernel disagrees with its plain version "
                  f"(rel {rel:.3g}, finite {finite})")
         rows[(kernel, label)] = dict(
             max_abs_err=max_abs, ms=ms, plain_ms=plain_ms, sdpa_ms=sdpa_ms,
-            sdpa_mm_ms=sdpa_mm_ms, bound_ms=bound, bound_by=bound_by)
+            sdpa_mm_ms=sdpa_mm_ms, bound_ms=bound, bound_by=bound_by, **extra)
         del qkv, w, args, q, k, v, o
         torch.cuda.empty_cache()
+    for kernel, label, B, N, D, H in CLIP_CASES:
+        if kernel == "K11":
+            split = _k11_launch_split((B, N, D, H))
+            log(f"K11 {label} launch_ms (device, torch.profiler, a process "
+                "of its own) " + ", ".join(f"{k} {v:.4f}"
+                                           for k, v in split.items()))
+            rows[("K11", label)]["launch_ms"] = split
     ca.reset_launches()
     return rows
 
@@ -2539,8 +2630,13 @@ def phase_experimental():
                 b = torch.randn(K, N, generator=gen).to("cuda",
                                                         torch.bfloat16)
                 out_dtype = torch.float32
-            got = tg._tiled_matmul_cuda(a, b, out_dtype)
+            # b as the kernel reads it, K-major (the transpose view of an
+            # (N, K) tensor), made once outside the timing; from the (K, N)
+            # b the wrapper makes that copy at every call
+            bk = b.t().contiguous().t()
+            got = tg._tiled_matmul_cuda(a, bk, out_dtype)
             want = tg._tiled_matmul_plain(a, b, out_dtype)
+            stable = torch.equal(got, tg._tiled_matmul_cuda(a, bk, out_dtype))
             torch.cuda.synchronize()
             if int8:
                 exact = torch.equal(got, want)
@@ -2551,31 +2647,35 @@ def phase_experimental():
                 ok = rel <= KERNEL_REL_TOL and bool(torch.isfinite(got).all())
             del got, want
             kind = "int8" if int8 else "bf16"
-            ms = cuda_time_ms(lambda: tg._tiled_matmul_cuda(a, b, out_dtype))
+            ms = kernel_ms(lambda: tg._tiled_matmul_cuda(a, bk, out_dtype))
+            kn_ms = kernel_ms(lambda: tg._tiled_matmul_cuda(a, b, out_dtype))
             plain_ms = cuda_time_ms(
                 lambda: tg._tiled_matmul_plain(a, b, out_dtype), iters=2)
             lib, lib_what = _k13_library(a, b, int8)
-            lib_ms = cuda_time_ms(lib)
+            lib_ms = kernel_ms(lib)
             bound, bound_by, t_bytes, t_ops = _k13_bound_ms(M, K, N, int8)
             ops = 2.0 * M * K * N
             tops[kind] = (ops / ms / 1e9, ops / lib_ms / 1e9)
             log(f"K13 {kind} (M, K, N) = ({M}, {K}, {N}): "
                 + (f"int32 exactly equal to the plain product {ok}"
                    if int8 else f"max_rel_err {rel:.6g} (tolerance "
-                                f"{KERNEL_REL_TOL})"))
+                                f"{KERNEL_REL_TOL})")
+                + f"; bitwise equal over two calls {stable}")
             log(f"  kernel_ms {ms:.4f} ({tops[kind][0]:.1f} TOPS), plain_ms "
                 f"{plain_ms:.4f}, library_ms {lib_ms:.4f} ({lib_what}, "
                 f"{tops[kind][1]:.1f} TOPS), bound_ms {bound:.4f} "
                 f"({bound_by}: bytes {t_bytes:.4f} ms, operations "
-                f"{t_ops:.4f} ms)")
-            if not ok:
+                f"{t_ops:.4f} ms); from the (K, N) b, with the wrapper's "
+                f"transpose copy, {kn_ms:.4f}")
+            if not (ok and stable):
                 fail(f"K13 {kind} ({M}, {K}, {N}) disagrees with its plain "
-                     f"version (rel {rel:.3g})")
+                     f"version (rel {rel:.3g}) or between two calls "
+                     f"(stable {stable})")
             rows[("K13", kind, (M, K, N))] = dict(
                 max_abs_err=max_abs, ms=ms, plain_ms=plain_ms,
                 bound_ms=bound, bound_by=bound_by, lib_ms=lib_ms,
-                lib_what=lib_what, tops=tops[kind][0])
-            del a, b
+                lib_what=lib_what, tops=tops[kind][0], kn_ms=kn_ms)
+            del a, b, bk
             torch.cuda.empty_cache()
         log(f"  int8 / bf16 rate at ({M}, {K}, {N}): K13 "
             f"{tops['int8'][0] / tops['bf16'][0]:.3f}, library "
@@ -2588,12 +2688,18 @@ def phase_experimental():
     tg.reset_launches()
     exp_int8_gemm.main(["--reps", "2"])
     launches.update(tg.LAUNCHES)
+    launches.update({f"K13 {k}": n for k, n in tg.LAUNCHES_BY_TYPE.items()})
     log(f"experimental entry points: launches {launches}")
     for k in ("K12a", "K12b", "K13"):
         if not launches[EXP_META[k][0]]:
             fail(f"{k} was not launched by its entry point")
+    for k in ("K13 int8", "K13 bf16"):
+        if not launches[k]:
+            fail(f"{k} was not launched by its entry point")
     torch.cuda.empty_cache()
-    return rows, {k: launches[m[0]] for k, m in EXP_META.items()}
+    return rows, {**{k: launches[m[0]] for k, m in EXP_META.items()},
+                  **{k: n for k, n in launches.items()
+                     if k.startswith("K13 ")}}
 
 
 # ---------------------------------------------------------------------------
@@ -3283,6 +3389,8 @@ def main():
         }
         if k == "K11":
             entry["sdpa_matmul_ms"] = row["sdpa_mm_ms"]
+            entry["matmul_ms"] = row["matmul_ms"]
+            entry["launch_ms"] = row["launch_ms"]
         kernels.append(entry)
     for k, (name, source, replaces) in EMBED_META.items():
         row = embed_rows[(k, EMBED_BATCH)]  # the embed batch: the main path
@@ -3343,19 +3451,26 @@ def main():
         })
     name, source, replaces = EXP_META["K13"]
     main_shape = K13_SHAPES[1]  # (4096, 4096, 4096): the int8 rate shows
-    row = exp_rows[("K13", "int8", main_shape)]
-    kernels.append({
-        "name": name, "route": "cuda", "source": source,
-        "replaces": replaces, "launches": exp_launches["K13"],
-        "max_abs_err": row["max_abs_err"], "ms": row["ms"],
-        "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
-        "bound_by": row["bound_by"], "library_ms": row["lib_ms"],
-        "main_case": f"int8 {main_shape}",
-        "other_cases": {f"{key[1]} {key[2]}": {
-            "ms": r["ms"], "tops": r["tops"], "bound_ms": r["bound_ms"],
-            "library_ms": r["lib_ms"]}
-            for key, r in exp_rows.items() if key[0] == "K13"},
-    })
+    for kind in ("int8", "bf16"):
+        row = exp_rows[("K13", kind, main_shape)]
+        kernels.append({
+            "name": name if kind == "int8" else f"{name}[bf16]",
+            "route": "cuda", "source": source, "replaces": replaces,
+            # the tool's launches of this type (the wrapper's count is
+            # exp_launches["K13"], both types)
+            "launches": exp_launches[f"K13 {kind}"],
+            "max_abs_err": row["max_abs_err"], "ms": row["ms"],
+            "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"], "library_ms": row["lib_ms"],
+            "library": row["lib_what"], "tops": row["tops"],
+            "from_kn_b_ms": row["kn_ms"],
+            "main_case": f"{kind} {main_shape}",
+            "other_cases": {f"{key[2]}": {
+                "ms": r["ms"], "tops": r["tops"], "bound_ms": r["bound_ms"],
+                "library_ms": r["lib_ms"]}
+                for key, r in exp_rows.items()
+                if key[0] == "K13" and key[1] == kind and key[2] != main_shape},
+        })
     # the f32 entries: launches over the f32 main paths (phases 25-26)
     for (k, label), row in f32_rows.items():
         name, source, replaces = F32_META[k]

@@ -73,10 +73,11 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
     "tiled_gemm": {
         "tiled_gemm_bf16": (_P, _P, _P, _I, _I, _I, _P),
         "tiled_gemm_s8": (_P, _P, _P, _I, _I, _I, _P),
+        "tiled_gemm_plan": (_I, _I, _I, _I, _P),
     },
     "clip_flash": _twins("clip_flash", (_P, _P, _I, _I, _I, _I, _F, _P)),
     "clip_flash_proj": _twins("clip_flash_proj", (
-        _P, _P, _P, _I, _I, _I, _I, _F, _P)),
+        _P, _P, _P, _P, _I, _I, _I, _I, _F, _P)),
     "smem_probe": {"smem_probe_f32": (_P, _P, _I, _I, _I, _P)},
 }
 

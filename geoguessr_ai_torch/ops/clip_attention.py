@@ -22,7 +22,10 @@ w_proj cast to qkv's dtype as the plain version casts it):
 * K6 ``_flash_cuda``: softmax(q k^T * scale) v -> (B, N, D); in bf16 the
   Hopper kernel (TMA loads, wgmma products, warp-specialised), in f32 the
   mma.sync twin;
-* K11 ``_flash_proj_cuda``: the same, then o @ w_proj inside the kernel.
+* K11 ``_flash_proj_cuda``: the same, then o @ w_proj; in bf16 K6's
+  Hopper kernel into a scratch and the Hopper GEMM core on it (two
+  launches of one C call, counted as one), in f32 the first design (one
+  mma.sync kernel that keeps o in shared memory).
 
 qkv must be contiguous with a 16-byte aligned base (``_qkv_layout``): the
 bf16 K6 kernel reads it through one TMA tensor map, which needs that base
@@ -53,10 +56,9 @@ HEAD_BLOCK = 2
 #: 16 up to 64 (one swizzled row of 32, 64 or 128 bytes in the bf16 K6).
 KERNEL_HEAD_DIMS = (16, 32, 64)
 
-#: Query rows per K11 block; its shared memory holds their (rows, Dc)
-#: attention output beside two (64, hd) k/v tiles per head pair, Dc = D in
-#: bf16 and in f32 the widest head chunk that fits
-#: (``_flash_proj_chunk``).
+#: Query rows per block of K11's f32 twin; its shared memory holds their
+#: (rows, Dc) attention output beside two (64, hd) k/v tiles per head pair,
+#: Dc the widest head chunk that fits (``_flash_proj_chunk``).
 _PROJ_ROWS = 64
 _SMEM_LIMIT = 232448
 
@@ -157,37 +159,41 @@ def _flash_cuda(qkv, scale, num_heads):
 
 
 def _flash_proj_smem_bytes(dc, hd, elem=2):
-    """Dynamic shared memory of one K11 block: two (64, hd+8) k tiles and
-    two (hd, 64+8) v^T tiles, or the (128, 64+8) W tile where that is
-    larger, and the (64, dc+8) attention output, in elements of ``elem``
-    bytes."""
+    """Dynamic shared memory of one block of K11's first design (the f32
+    twin): two (64, hd+8) k tiles and two (hd, 64+8) v^T tiles, or the
+    (128, 64+8) W tile where that is larger, and the (64, dc+8) attention
+    output, in elements of ``elem`` bytes."""
     tiles = max(2 * (64 * (hd + 8) + hd * 72) * elem, 128 * 72 * elem)
     return tiles + _PROJ_ROWS * (dc + 8) * elem
 
 
 def _flash_proj_chunk(D, hd, dtype):
-    """The channels of one K11 head chunk, as the kernel picks them: D in
-    bf16; in f32 the widest whole number of head pairs that divides D, is a
-    multiple of 64 and fits in shared memory.  None when none fits."""
-    elem = torch.finfo(dtype).bits // 8
+    """The channels of one K11 head chunk: D in bf16 (the GEMM core streams
+    all D input channels of o from device memory); in f32 the widest whole
+    number of head pairs that divides D, is a multiple of 64 and fits in
+    shared memory, as the first design picks it.  None when none fits."""
+    if torch.finfo(dtype).bits == 16:
+        return D
     H = D // hd
-    for n in range(1, H // 2 + 1) if elem == 4 else (1,):
+    for n in range(1, H // 2 + 1):
         dc = D // n
         if (H // 2) % n == 0 and dc % 64 == 0 and \
-                _flash_proj_smem_bytes(dc, hd, elem) <= _SMEM_LIMIT:
+                _flash_proj_smem_bytes(dc, hd, 4) <= _SMEM_LIMIT:
             return dc
     return None
 
 
 def _flash_proj_cuda(qkv, w_proj, scale, num_heads):
-    """K11: (B, N, D) in the qkv dtype."""
+    """K11: (B, N, D) in the qkv dtype.  In bf16 the C entry writes K6's
+    output into a (B, N, D) scratch and multiplies it by w_proj on the
+    GEMM core; the f32 twin takes no scratch."""
     from geoguessr_ai_torch.ops import _build
 
     B, N, D, hd = _check_qkv(qkv, num_heads)
     if D % 128 or _flash_proj_chunk(D, hd, qkv.dtype) is None:
         raise ValueError(
-            f"the out-projection kernel takes D a multiple of 128 whose "
-            f"attention rows fit in shared memory, got D={D}")
+            f"the out-projection kernel takes D a multiple of 128 (in f32 "
+            f"one whose attention rows fit in shared memory), got D={D}")
     if tuple(w_proj.shape) != (D, D):
         raise ValueError(f"w_proj must be ({D}, {D}), got "
                          f"{tuple(w_proj.shape)}")
@@ -198,9 +204,12 @@ def _flash_proj_cuda(qkv, w_proj, scale, num_heads):
     if not wt.is_cuda or wt.data_ptr() % 16:
         raise ValueError("w_proj must be a 16-byte aligned CUDA tensor")
     out = torch.empty((B, N, D), dtype=qkv.dtype, device=qkv.device)
+    attn = (torch.empty((B, N, D), dtype=qkv.dtype, device=qkv.device)
+            if qkv.dtype == torch.bfloat16 else None)
     fn = _build.typed_entry("clip_flash_proj", "clip_flash_proj", qkv.dtype)
-    err = fn(qkv.data_ptr(), wt.data_ptr(), out.data_ptr(), B, N, num_heads,
-             hd, float(scale), _stream())
+    err = fn(qkv.data_ptr(), wt.data_ptr(),
+             None if attn is None else attn.data_ptr(), out.data_ptr(), B, N,
+             num_heads, hd, float(scale), _stream())
     _raise_on(err, "_flash_proj_cuda")
     LAUNCHES["_flash_proj_cuda"] += 1
     return out

@@ -1,4 +1,4 @@
-// K11: K6 with CLIP's attention out-projection inside the kernel:
+// K11: K6 with CLIP's attention out-projection:
 // out = softmax(q k^T * scale) v @ W_out, hd = 64 (and 16 or 32), no bias
 // (the bias add and the residual stay outside, as in the JAX package).
 //
@@ -8,19 +8,26 @@
 //
 // The TPU grid runs in order, so the Pallas kernel adds each head chunk's
 // partial o_chunk @ W[chunk rows] into one f32 VMEM accumulator and writes
-// it on the last chunk.  Hopper's blocks run in parallel, so this kernel
-// takes the first of the three ways around that: ONE block owns a 64-query
-// tile of one image and loops over ALL heads.  Its 8 warps run two heads at
-// a time (warps 0-3 the even head, 4-7 the odd one; attend_rows in
-// clip_flash.cuh), and each head's normalised output is rounded to bf16
-// (as the Pallas kernel rounds o_chunk before its dot) into a (64, D)
-// shared-memory tile: 129 KB at D = 1024.  Then the same block multiplies
-// that tile by W_out in slabs of 128 output columns, summing over all D
-// input channels in f32 registers and rounding each output once.  Cost of
-// the choice: no atomics, no partial sums in device memory and no
-// recomputed attention; but each block's 169 KB of shared memory allows
-// one block (8 warps) per SM, ceil(N/64) * B = 640 blocks at bucket 16,
-// and W_out (2 MB) is re-read from L2 by every block.
+// it on the last chunk.  Hopper's blocks run in parallel and a block has
+// 227 KB of shared memory: a 128-row tile's attention output over all D
+// channels (256 KB at D = 1024) does not fit beside K6's k/v ring.
+//
+// What bounds it on the H100: K6's work plus 2*N*D*D flops per image for
+// the projection, about 1.65e11 flops against K6's ~303 MB at B = 64: the
+// tensor cores (~0.17 ms).
+//
+// The bf16 entry is two launches of the port's Hopper kernels, in one C
+// call: K6's kernel (clip_flash_sm90.cuh, unchanged: K6's bits) writes the
+// attention output o (B, N, D) in bf16, rounded as the Pallas kernel
+// rounds o_chunk before its dot, into a scratch the wrapper allocates;
+// then the GEMM core (gemm_sm90.cuh, kBf16Bf16: TMA ring of o and W_out
+// k-boxes, wgmma.m64n256k16 on two consumer warpgroups, persistent blocks)
+// computes o @ W_out summed in f32 and rounded once.  o's round trip
+// through device memory costs about 151 MB (0.045 ms at 3.35 TB/s) at
+// CLIP-L bucket 16, and W_out (2 MB) is read once from device memory into
+// L2.  The first design (one block a 64-query tile looping over all heads
+// with mma.sync, the projection from a (64, D) shared-memory tile) read
+// 2.07 ms there on an H100, 12.4x its bound; its f32 twin keeps it.
 //
 // The _f32 twin (common.cuh "Element types") keeps the attention rows in
 // f32, and a (64, 1024) f32 tile beside the k/v tiles is over the 227 KB a
@@ -29,12 +36,13 @@
 // share of the projection, out = sum over chunks of o[:, chunk] @
 // W[chunk, :], added in f32 into the output rows the block owns (the first
 // chunk stores them).  At D = 1024 that is two chunks of 512 channels and
-// 202 KB.  The bf16 entry takes one chunk of D: the design above.
-//
-// What bounds it on the H100: K6's work plus 2*N*D*D flops per image for
-// the projection, about 1.65e11 flops against K6's ~303 MB at B = 64: the
-// tensor cores (~0.17 ms).
+// 202 KB.  One block owns a 64-query tile of one image and loops over all
+// heads, two at a time (warps 0-3 the even head, 4-7 the odd one;
+// attend_rows in clip_flash.cuh), then multiplies its tile by W_out in
+// slabs of 128 output columns with mma.sync.
 #include "clip_flash.cuh"
+#include "clip_flash_sm90.cuh"
+#include "gemm_sm90.cuh"
 
 namespace gg {
 namespace clip {
@@ -58,13 +66,12 @@ size_t smem_bytes(int dc) {
   return TilesBytes<E, HD>::value + (size_t)kRows * (dc + 8) * sizeof(E);
 }
 
-// The channels of one head chunk: D for bf16; for f32 the widest whole
-// number of head pairs that divides D, is a multiple of kProjK and fits
-// in shared memory.  0 when none does.
+// The channels of one head chunk: the widest whole number of head pairs
+// that divides D, is a multiple of kProjK and fits in shared memory.  0
+// when none does.
 template <class E, int HD>
 int chunk_channels(int H) {
   const int D = H * HD;
-  if (sizeof(E) == 2) return D;
   for (int n = 1; n <= H / 2; ++n) {
     if ((H / 2) % n) continue;
     const int dc = D / n;
@@ -187,14 +194,25 @@ int run(const void* qkv, const void* wt, void* out, int B, int N, int H, int hd,
 }  // namespace gg
 
 // wt is W_out transposed, (D_out, D_in) row-major: PyTorch's Linear layout.
-// D = H * hd a multiple of 128 (so H is even).  qkv, wt and out bf16 (or
-// f32 for the _f32 twin).
-extern "C" int clip_flash_proj_bf16(const void* qkv, const void* wt, void* out, int B, int N,
-                                    int H, int hd, float scale, void* stream) {
-  return gg::clip::run<gg::bf16>(qkv, wt, out, B, N, H, hd, scale, stream);
+// D = H * hd a multiple of 128 (so H is even).  qkv, wt and out bf16 with
+// 16-byte aligned bases; attn a (B, N, D) bf16 scratch for K6's output.
+extern "C" int clip_flash_proj_bf16(const void* qkv, const void* wt, void* attn, void* out, int B,
+                                    int N, int H, int hd, float scale, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int D = H * hd;
+  if (D % 128) return (int)cudaErrorInvalidValue;
+  int e = (int)cudaErrorInvalidValue;
+  GG_HEAD_DIM_SWITCH(hd, {
+    e = gg::clip::sm90::run<HD>(qkv, attn, B, N, H, scale, s);
+    break;
+  })
+  if (e != (int)cudaSuccess) return e;
+  return (int)gg::gemm90::run<gg::gemm90::kBf16Bf16>(attn, wt, out, B * N, D, D, s);
 }
 
-extern "C" int clip_flash_proj_f32(const void* qkv, const void* wt, void* out, int B, int N,
-                                   int H, int hd, float scale, void* stream) {
+// The f32 twin: qkv, wt and out f32; attn is not read (the first design
+// keeps its attention rows in shared memory).
+extern "C" int clip_flash_proj_f32(const void* qkv, const void* wt, void* /*attn*/, void* out,
+                                   int B, int N, int H, int hd, float scale, void* stream) {
   return gg::clip::run<float>(qkv, wt, out, B, N, H, hd, scale, stream);
 }

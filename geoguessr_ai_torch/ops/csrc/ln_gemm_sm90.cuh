@@ -263,47 +263,6 @@ __device__ __forceinline__ void layer_norm_group(uint8_t* tile, int c, const flo
   }
 }
 
-__device__ __forceinline__ void arrive_nb(uint32_t bar) {
-  __syncwarp();
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.eq.u32 p, %1, 0;\n@p mbarrier.arrive.shared::cta.b64 _, [%0];\n}\n" ::"r"(bar),
-      "r"(threadIdx.x & 31)
-      : "memory");
-}
-
-// Waits (a loop inside the asm) until the phase of parity `parity` has
-// completed; traps after 2^26 tries, as sm90.cuh's mbar_wait does.
-__device__ __forceinline__ void wait_phase(uint32_t bar, uint32_t parity) {
-  asm volatile(
-      "{\n.reg .pred p;\n.reg .u32 n;\nmov.u32 n, 0;\nWAIT_%=:\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
-      "@p bra DONE_%=;\nadd.u32 n, n, 1;\nsetp.lt.u32 p, n, 67108864;\n@p bra WAIT_%=;\n"
-      "trap;\nDONE_%=:\n}\n" ::"r"(bar),
-      "r"(parity)
-      : "memory");
-}
-
-// The group's leader thread (lane 0 of its first warp) waits until at most
-// PENDING of its output stores still read shared memory.
-template <int PENDING>
-__device__ __forceinline__ void store_wait_read(bool leader) {
-  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %0, 0;\n@p cp.async.bulk.wait_group.read %1;\n}\n" ::"r"(
-                   (int)leader), "n"(PENDING)
-               : "memory");
-}
-
-// The leader's TMA store of a 64 x 64 output tile at (c0, rows from c1)
-// (rows past M are not written).
-__device__ __forceinline__ void store_tile_tma(bool leader, const CUtensorMap* map, uint32_t src, int c0,
-                                               int c1) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %0, 0;\n"
-      "@p cp.async.bulk.tensor.3d.global.shared::cta.bulk_group [%1, {%3, %4, %5}], [%2];\n"
-      "@p cp.async.bulk.commit_group;\n}\n" ::"r"((int)leader),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(src), "r"(c0), "r"(c1), "r"(0)
-      : "memory");
-}
-
 // The same through the window map.
 __device__ __forceinline__ void store_tile_tma_5d(bool leader, const CUtensorMap* map, uint32_t src,
                                                   int c0, const WinCoords& w) {

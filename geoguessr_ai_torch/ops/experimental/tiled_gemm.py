@@ -10,7 +10,13 @@ runs the probe.
 ``tiled_matmul(a, b, out_dtype)``: (M, K) @ (K, N), bf16 -> f32 or
 int8 -> int32 (exact).  A CPU tensor takes the plain version, a CUDA
 tensor launches ``csrc/tiled_gemm.cu`` or raises; the kernel takes M and
-N multiples of 128 and K a multiple of 64 bytes of a row.
+N multiples of 128 and K a multiple of 64 bytes of a row.  Both types run
+the Hopper GEMM core ``csrc/gemm_sm90.cuh`` (a TMA ring of A and B
+k-boxes, B shared by the two CTAs of a cluster, wgmma on two consumer
+warpgroups, persistent blocks), whose bf16 -> bf16 kind is K11's
+out-projection.  The kernel reads b K-major: a b that is the transpose
+view of an (N, K) tensor goes over as it is, any other b is copied
+transposed at every call (0.12 ms of a (4096, 4096) b on an H100).
 """
 
 from __future__ import annotations
@@ -21,6 +27,8 @@ from geoguessr_ai_torch.ops.window_attention import _check, _raise_on, _stream
 
 #: Launches of the kernel wrapper since the last ``reset_launches()``.
 LAUNCHES = {"_tiled_matmul_cuda": 0}
+#: The same launches by operand type.
+LAUNCHES_BY_TYPE = {"int8": 0, "bf16": 0}
 
 #: Input dtype -> the product's dtype.
 OUT_DTYPES = {torch.bfloat16: torch.float32, torch.int8: torch.int32}
@@ -28,8 +36,9 @@ TILE = 128
 
 
 def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    for counts in (LAUNCHES, LAUNCHES_BY_TYPE):
+        for k in counts:
+            counts[k] = 0
 
 
 def _tiled_matmul_plain(a, b, out_dtype):
@@ -58,7 +67,27 @@ def _tiled_matmul_cuda(a, b, out_dtype):
     err = fn(a.data_ptr(), bt.data_ptr(), out.data_ptr(), M, N, K, _stream())
     _raise_on(err, "_tiled_matmul_cuda")
     LAUNCHES["_tiled_matmul_cuda"] += 1
+    LAUNCHES_BY_TYPE["int8" if a.dtype == torch.int8 else "bf16"] += 1
     return out
+
+
+def core_plan(M, K, N, dtype):
+    """The GEMM core's plan of an (M, K) @ (K, N) call with operands of
+    ``dtype``, as its C code makes it: dict of k-boxes, tile columns, ring
+    stages, row and column tiles, shared-memory bytes a block and the CTAs
+    a launch takes (the card's answer); None where the core has no plan.  Builds the library (on a machine with
+    ``nvcc``); the CPU tests hold a mirror of it."""
+    import ctypes
+
+    from geoguessr_ai_torch.ops import _build
+
+    out = (ctypes.c_int * 7)()
+    in_bytes = torch.finfo(dtype).bits // 8 if dtype.is_floating_point \
+        else torch.iinfo(dtype).bits // 8
+    if _build.entry("tiled_gemm", "tiled_gemm_plan")(M, K, N, in_bytes, out):
+        return None
+    return dict(zip(("KB", "BN", "S", "mtiles", "ntiles", "bytes", "grid"),
+                    out))
 
 
 def tiled_matmul(a, b, out_dtype):

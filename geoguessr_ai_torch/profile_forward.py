@@ -51,6 +51,8 @@ GROUPS = (
     # GEMM and out-projection, K2's qkv GEMM) and K10's
     ("ln_gemm_sm90", "LN+GEMM (K1/K2/K9 CUDA)"),
     ("mbconv_sm90", "fused MBConv (K10 CUDA)"),
+    # the GEMM core with A streamed along K (K11's out-projection, K13)
+    ("gemm_sm90", "GEMM core (K11/K13 CUDA)"),
     # torch._int_mm's kernels (cutlass_80_tensorop_i16832gemm_s8_... on
     # the H100 with torch 2.11)
     ("gemm_s8", "int8 GEMM (torch._int_mm)"),

@@ -6,8 +6,10 @@ The port of tools/exp_int8_pallas.py.  At the tool's four (M, K, N) shapes
 (two square deep-K products and TinyViT's stage-2 MLP GEMMs at 131072
 tokens) it runs the tool's chain of R=16 products accumulated into one
 resident sum, in bf16 (f32 sum) and in int8 (int32 sum), through the
-hand-written tiled GEMM (K13, ``ops.experimental.tiled_gemm``) and through
-the library call (``torch.matmul`` / ``torch._int_mm``).  It prints one
+hand-written tiled GEMM (K13, ``ops.experimental.tiled_gemm``, on the
+Hopper GEMM core; b handed over K-major, as the kernel reads it, copied
+once before the timing) and through the library call (``torch.matmul`` /
+``torch._int_mm``, b as it is).  It prints one
 JSON line per case with its mean ms and TOPS (2 M K N R operations over
 the time), then one line per shape with the int8/bf16 rate ratio of K13
 and of the library, and the card's name and power limit first and last.
@@ -93,16 +95,22 @@ def main(argv=None):
                                            dtype=np.int8)).to(dev)
         b8s = torch.from_numpy(rng.integers(-127, 127, (R, K, N),
                                             dtype=np.int8)).to(dev)
+        # K13 reads b K-major: the transpose views of (N, K) copies, made
+        # once here (the library calls take the (K, N) b as it is)
+        k_major = {"int8": b8s.transpose(1, 2).contiguous().transpose(1, 2),
+                   "bf16": bbs.transpose(1, 2).contiguous().transpose(1, 2)}
         tops = {}
         for name, (mm, acc_dtype) in mms.items():
             a, bs = (a8, b8s) if name.endswith("int8") else (ab, bbs)
+            if name.startswith("k13"):
+                bs = k_major[name[-4:]]
             ms = time_ms(lambda: chain(mm, a, bs, acc_dtype), args.reps)
             tops[name] = ops / (ms * 1e-3) / 1e12
             log(probe=f"{name}_M{M}_K{K}_N{N}", ms=ms, tops=tops[name])
         log(shape=[M, K, N],
             k13_int8_over_bf16=tops["k13_int8"] / tops["k13_bf16"],
             lib_int8_over_bf16=tops["lib_int8"] / tops["lib_bf16"])
-        del ab, bbs, a8, b8s
+        del ab, bbs, a8, b8s, k_major
         torch.cuda.empty_cache()
     print(card, flush=True)
 

@@ -14,7 +14,8 @@
 # its bits did not change); K10 (the fused stage-0 MBConv) at 64 and 512
 # images by events and K2 (the stage-2 no-proj fused block) at bucket 16 as
 # device time (each launch's device time: phase 3's launch_ms lines, K1's
-# too; K9's in phase 13's); and
+# too; K9's in phase 13's); K13 (the int8 / bf16 tiled GEMM) at the JAX
+# tool's four shapes as device time with its int8 / bf16 rate; and
 # the embed phase (Embedder p50 at B=512 with both knobs on and off) and
 # the knob-serve phase (bucket-16 p50 of the engine with fused_mbconv and
 # fused_block_4d):
@@ -93,6 +94,33 @@ for name, fn in (("K6", lambda: ca._flash_cuda(qkv, 0.125, 16)),
     print(f"AB {name} (64, 577, 3072) H=16 events_ms "
           f"{cs.cuda_time_ms(fn, iters=20):.4f} graph_ms {graph_ms(fn):.4f}")
 del qkv, w
+# K13 at the JAX tool's four (M, K, N), b handed over K-major as the
+# kernel reads it (so neither tree's time holds the wrapper's transpose copy
+# of a (K, N) b), as device time; its int8 / bf16 rate at each
+from geoguessr_ai_torch.ops.experimental import tiled_gemm as tg
+for M, K, N in ((4096, 2048, 4096), (4096, 4096, 4096), (131072, 384, 1536),
+                (131072, 1536, 384)):
+    rates = {}
+    for kind in ("int8", "bf16"):
+        if kind == "int8":
+            a = torch.randint(-127, 128, (M, K), generator=gen, dtype=torch.int8).cuda()
+            b = torch.randint(-127, 128, (K, N), generator=gen, dtype=torch.int8).cuda()
+            out = torch.int32
+        else:
+            a = torch.randn(M, K, generator=gen).to("cuda", torch.bfloat16)
+            b = torch.randn(K, N, generator=gen).to("cuda", torch.bfloat16)
+            out = torch.float32
+        bk = b.t().contiguous().t()
+        fn = lambda: tg._tiled_matmul_cuda(a, bk, out)
+        ms = graph_ms(fn)
+        rates[kind] = 2 * M * K * N / ms / 1e9
+        print(f"AB K13 {kind} ({M}, {K}, {N}) graph_ms {ms:.4f} "
+              f"({rates[kind]:.1f} TOPS); from a (K, N) b events_ms "
+              f"{cs.cuda_time_ms(lambda: tg._tiled_matmul_cuda(a, b, out), iters=20):.4f}")
+        del a, b, bk
+        torch.cuda.empty_cache()
+    print(f"AB K13 int8 / bf16 rate ({M}, {K}, {N}) "
+          f"{rates['int8'] / rates['bf16']:.3f}")
 bq = torch.randn(64, 1024, 1152, generator=gen).to("cuda", torch.bfloat16)
 bb = (torch.randn(12, 1024, 1024, generator=gen) * 0.5).to("cuda")
 bg = torch.randn(64, 1024, 384, generator=gen).to("cuda", torch.bfloat16)

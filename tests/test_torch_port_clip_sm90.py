@@ -3,7 +3,8 @@ layout rules.
 
 In bf16 ``_flash_cuda`` launches ``clip_flash_bf16``, the kernel that
 reads qkv through one TMA tensor map and multiplies with wgmma
-(``ops/csrc/clip_flash.cu``, ``sm90``); in f32 it launches
+(``ops/csrc/clip_flash_sm90.cuh``, ``sm90``, which K11's bf16 entry
+launches too); in f32 it launches
 ``clip_flash_f32``, the mma.sync twin.  The tensor map needs a 16-byte
 aligned base and rows a multiple of 16 bytes apart, and the C entries
 take no strides, so ``_qkv_layout`` (a pure function of shape, strides,
@@ -61,8 +62,10 @@ def test_flash_wrapper_routes_each_dtype_to_its_entry(monkeypatch, dtype,
 
 
 def test_only_the_bf16_entry_reads_through_a_tensor_map():
-    src = open(_build.CSRC / "clip_flash.cu").read()
-    kernel = src[src.index("clip_flash_sm90("):src.index("static int run(")]
+    src = open(_build.CSRC / "clip_flash_sm90.cuh").read()
+    kernel = src[src.index("clip_flash_sm90("):src.index("int run(")]
+    assert '#include "clip_flash_sm90.cuh"' in open(
+        _build.CSRC / "clip_flash.cu").read()
     assert "cp.async.bulk.tensor.3d" in src and "tma_load(" in kernel
     for feature in ("setmaxnreg.dec", "setmaxnreg.inc", "mbar_wait(full_k",
                     "mbar_wait(empty", "wgmma_s<HD>(", "wgmma_pv<HD>("):
@@ -71,6 +74,7 @@ def test_only_the_bf16_entry_reads_through_a_tensor_map():
                "wgmma_m64n32k16_rs", "wgmma_m64n16k16_rs"):
         assert f"wgmma.mma_async.sync.aligned.{fn[6:-3]}.f32.bf16.bf16" in src
     assert "attend_rows" not in kernel
+    # the first design, which K11's f32 twin keeps
     assert "attend_rows" in open(_build.CSRC / "clip_flash_proj.cu").read()
 
 

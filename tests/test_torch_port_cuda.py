@@ -1544,3 +1544,204 @@ def test_cuda_fused_block_sm90_refuses_what_its_bf16_entries_cannot_plan(
         got = fn(*f32)
         torch.cuda.synchronize()
         assert _rel_err(got, plain(*f32)) < KERNEL_REL_TOL
+
+
+# ---------------------------------------------------------------------------
+# The Hopper GEMM core (csrc/gemm_sm90.cuh): K11's bf16 entry (K6's kernel,
+# then the core's bf16 kind on its output) and K13 (its int8 and bf16
+# kinds).  Run with -k gemm_sm90.
+
+
+def _k13_operands(M, K, N, int8, device, seed=0):
+    """a (M, K) and b (K, N) from numpy seeds; b also as the kernel reads
+    it, K-major (the transpose view of an (N, K) tensor)."""
+    rng = np.random.default_rng(seed)
+    if int8:
+        a = torch.from_numpy(rng.integers(-127, 128, (M, K), dtype=np.int8))
+        b = torch.from_numpy(rng.integers(-127, 128, (K, N), dtype=np.int8))
+    else:
+        a = torch.from_numpy(rng.normal(size=(M, K)).astype(np.float32)
+                             ).bfloat16()
+        b = torch.from_numpy(rng.normal(size=(K, N)).astype(np.float32)
+                             ).bfloat16()
+    a, b = a.to(device), b.to(device)
+    return a, b, b.t().contiguous().t()
+
+
+def _k13_check(got, a, b, int8):
+    from geoguessr_ai_torch.ops.experimental import tiled_gemm as tg
+
+    want = tg._tiled_matmul_plain(a, b, torch.int32 if int8 else torch.float32)
+    assert got.shape == want.shape and got.dtype == want.dtype
+    if int8:
+        assert torch.equal(got, want)
+    else:
+        assert bool(torch.isfinite(got).all())
+        assert _rel_err(got, want) < KERNEL_REL_TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [1, 3])
+@pytest.mark.parametrize("N", [1, 50, 63, 64, 65, 127, 128, 129, 577])
+@pytest.mark.parametrize("hd", [16, 32, 64])
+def test_cuda_gemm_sm90_k11_matches_plain(cuda_device, hd, N, B):
+    """K11 in bf16 (K6's kernel, then the core) at every head dim, at
+    token counts around K6's 128-row tiles and the core's 128-row tiles,
+    one image and three; one K11 launch counted a call, no K6 launch."""
+    H = 128 // hd
+    qkv, w = _clip_inputs(B, N, 128, cuda_device, seed=N + hd)
+    before = dict(ca.LAUNCHES)
+    got = ca._flash_proj_cuda(qkv, w, hd ** -0.5, H)
+    torch.cuda.synchronize()
+    assert ca.LAUNCHES == {**before, "_flash_proj_cuda":
+                           before["_flash_proj_cuda"] + 1}
+    want = ca._flash_proj_plain(qkv, w, hd ** -0.5, H)
+    assert got.shape == want.shape == (B, N, 128)
+    assert got.dtype == torch.bfloat16
+    assert bool(torch.isfinite(got).all())
+    assert _rel_err(got, want) < KERNEL_REL_TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,N,D,H", [(2, 577, 256, 4), (3, 50, 768, 12),
+                                     (1, 129, 128, 8), (4, 577, 1024, 16)])
+def test_cuda_gemm_sm90_k11_is_the_core_on_k6_and_bitwise_stable(
+        cuda_device, B, N, D, H):
+    """K11's bf16 output equals, bit for bit, the core applied to K6's
+    output (chip_smoke.py's ``_core_of_k6``: K13's bf16 kind on K6's
+    output, rounded once), and itself over two calls."""
+    from geoguessr_ai_torch.ops.experimental import tiled_gemm as tg
+
+    from chip_smoke import _core_of_k6
+
+    qkv, w = _clip_inputs(B, N, D, cuda_device, seed=D)
+    scale = (D // H) ** -0.5
+    got = ca._flash_proj_cuda(qkv, w, scale, H)
+    again = ca._flash_proj_cuda(qkv, w, scale, H)
+    core = _core_of_k6(qkv, w, scale, H)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    assert torch.equal(got, core)
+    assert tg.core_plan(B * N, D, D, torch.bfloat16)["BN"] == (
+        256 if D % 256 == 0 else 128)
+
+
+#: (M, K, N, int8) of K13's card checks: the edges (M = N = 128 with K
+#: one 64-byte box; a 64-byte K tail; 128-column tiles) in each type, and
+#: the JAX tool's four shapes in both.
+K13_CASES = [(128, 64, 128, True), (128, 32, 128, False),
+             (128, 192, 256, True), (256, 96, 384, False)] + [
+    (M, K, N, int8) for M, K, N in ((4096, 2048, 4096), (4096, 4096, 4096),
+                                    (131072, 384, 1536), (131072, 1536, 384))
+    for int8 in (True, False)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,K,N,int8", K13_CASES)
+def test_cuda_gemm_sm90_k13_matches_plain(cuda_device, M, K, N, int8):
+    """K13: int8 -> int32 exactly the plain product, bf16 -> f32 within
+    KERNEL_REL_TOL, from b K-major and from b (K, N) (which the wrapper
+    transposes), the same bits both ways and over two calls; one launch
+    counted a call."""
+    from geoguessr_ai_torch.ops.experimental import tiled_gemm as tg
+
+    a, b, bk = _k13_operands(M, K, N, int8, cuda_device, seed=K)
+    out_dtype = torch.int32 if int8 else torch.float32
+    before = tg.LAUNCHES["_tiled_matmul_cuda"]
+    got = tg.tiled_matmul(a, bk, out_dtype)
+    again = tg.tiled_matmul(a, bk, out_dtype)
+    from_kn = tg.tiled_matmul(a, b, out_dtype)
+    torch.cuda.synchronize()
+    assert tg.LAUNCHES["_tiled_matmul_cuda"] == before + 3
+    assert torch.equal(got, again) and torch.equal(got, from_kn)
+    _k13_check(got, a, b, int8)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("int8", [True, False], ids=["int8", "bf16"])
+def test_cuda_gemm_sm90_k13_reads_nothing_past_its_operands(cuda_device, int8):
+    """a and b^T (K-major) each the last bytes of a buffer whose rest is
+    a fence (NaN in bf16, 127 in int8), with a K that ends half a 128-byte
+    box in: the last k-box of the last row reaches past both tensors' ends,
+    where TMA must fill zeros and read nothing of the fence."""
+    M, N = 256, 384
+    K = 192 if int8 else 96
+    a0, b0, _ = _k13_operands(M, K, N, int8, cuda_device, seed=5)
+    fence = 127 if int8 else float("nan")
+
+    def fenced(t):
+        buf = torch.full((t.numel() + 4096,), fence, dtype=t.dtype,
+                         device=cuda_device)
+        view = buf[:t.numel()].view(t.shape)
+        view.copy_(t)
+        return view
+
+    a = fenced(a0)
+    bk = fenced(b0.t().contiguous()).t()
+    from geoguessr_ai_torch.ops.experimental import tiled_gemm as tg
+
+    got = tg.tiled_matmul(a, bk, torch.int32 if int8 else torch.float32)
+    torch.cuda.synchronize()
+    _k13_check(got, a0, b0, int8)
+
+
+@pytest.mark.cuda
+def test_cuda_gemm_sm90_k11_reads_nothing_past_its_operands(cuda_device):
+    """qkv and W_out (given as the transpose view of its (out, in) rows,
+    which the wrapper then reads without a copy) each at the end of a NaN
+    buffer; N = 129 leaves a ragged 128-row tile for K6 and for the core."""
+    B, N, D, H = 3, 129, 256, 4
+    qkv0, w0 = _clip_inputs(B, N, D, cuda_device, seed=9)
+    buf = torch.full((B * N * 3 * D + 4096,), float("nan"),
+                     dtype=torch.bfloat16, device=cuda_device)
+    qkv = buf[:B * N * 3 * D].view(B, N, 3 * D)
+    qkv.copy_(qkv0)
+    wbuf = torch.full((D * D + 4096,), float("nan"), dtype=torch.bfloat16,
+                      device=cuda_device)
+    wt = wbuf[:D * D].view(D, D)
+    wt.copy_(w0.t())
+    got = ca._flash_proj_cuda(qkv, wt.t(), 64 ** -0.5, H)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(got).all())
+    assert _rel_err(got, ca._flash_proj_plain(qkv0, w0, 64 ** -0.5, H)) \
+        < KERNEL_REL_TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,K,N,dtype,want", [
+    (64 * 577, 1024, 1024, torch.bfloat16,
+     dict(KB=16, BN=256, S=4, mtiles=289, ntiles=4)),
+    (64 * 50, 768, 768, torch.bfloat16,
+     dict(KB=12, BN=256, S=4, mtiles=25, ntiles=3)),
+    (4096, 4096, 4096, torch.int8, dict(KB=32, BN=256, S=4, mtiles=32,
+                                        ntiles=16)),
+    (131072, 1536, 384, torch.bfloat16,
+     dict(KB=24, BN=128, S=6, mtiles=1024, ntiles=3)),
+    (128, 64, 128, torch.int8, dict(KB=1, BN=128, S=6, mtiles=1, ntiles=1)),
+])
+def test_cuda_gemm_sm90_plan_agrees_with_its_mirror(cuda_device, M, K, N,
+                                                    dtype, want):
+    """The C plan (``tiled_gemm_plan``) is what the CPU tests' mirror
+    (tests/test_torch_port_gemm_sm90.py) gives at the same shapes, within
+    the 232,448 bytes a block may opt in to; it refuses K off 64 bytes and
+    N off 128."""
+    from geoguessr_ai_torch.ops.experimental import tiled_gemm as tg
+
+    plan = tg.core_plan(M, K, N, dtype)
+    assert {k: plan[k] for k in want} == want
+    assert plan["bytes"] <= 232448
+    assert tg.core_plan(128, 48, 128, torch.bfloat16) is None
+    assert tg.core_plan(128, 64, 192, torch.int8) is None
+
+
+@pytest.mark.cuda
+def test_cuda_gemm_sm90_k13_refuses_a_misaligned_operand(cuda_device):
+    from geoguessr_ai_torch.ops.experimental import tiled_gemm as tg
+
+    buf = torch.zeros(128 * 64 + 8, dtype=torch.int8, device=cuda_device)
+    a = buf[8:].view(128, 64)  # 8 bytes past a 16-byte boundary
+    b = torch.zeros(64, 128, dtype=torch.int8, device=cuda_device)
+    before = tg.LAUNCHES["_tiled_matmul_cuda"]
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        tg.tiled_matmul(a, b, torch.int32)
+    assert tg.LAUNCHES["_tiled_matmul_cuda"] == before

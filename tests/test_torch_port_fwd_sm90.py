@@ -426,18 +426,24 @@ def test_every_function_local_static_has_internal_linkage(name):
 
 
 def test_the_headers_host_code_has_internal_linkage():
-    """The forward core and sm90.cuh put everything in an unnamed
-    namespace; clip_flash.cu takes its tensor map and SM count from
-    sm90.cuh and its launcher is static."""
-    for name, ns in (("attention_fwd_sm90.cuh", "fwd90"), ("sm90.cuh", "sm90")):
+    """The forward core, the GEMM core and sm90.cuh put everything in an
+    unnamed namespace; K6's kernel (clip_flash_sm90.cuh, which K6's and
+    K11's libraries include) takes its tensor map and SM count from
+    sm90.cuh and sits in an unnamed namespace too."""
+    for name, ns in (("attention_fwd_sm90.cuh", "fwd90"), ("sm90.cuh", "sm90"),
+                     ("gemm_sm90.cuh", "gemm90")):
         src = (_build.CSRC / name).read_text()
         assert f"namespace gg {{\nnamespace {ns} {{\nnamespace {{\n" in src
         assert f"}}  // namespace\n}}  // namespace {ns}\n}}  // namespace gg" in src
-    clip = (_build.CSRC / "clip_flash.cu").read_text()
+    clip = (_build.CSRC / "clip_flash_sm90.cuh").read_text()
     assert '#include "sm90.cuh"' in clip
     assert "::gg::sm90::encode_3d(" in clip and "::gg::sm90::sm_count(" in clip
     assert "typedef CUresult" not in clip
-    assert "static int run(" in clip
+    assert "namespace gg {\nnamespace clip {\nnamespace sm90 {\nnamespace {\n" in clip
+    assert "int run(" in clip
+    for lib in ("clip_flash", "clip_flash_proj"):
+        assert '#include "clip_flash_sm90.cuh"' in (
+            _build.CSRC / f"{lib}.cu").read_text()
 
 
 @pytest.mark.parametrize("kernel_name,group", [
