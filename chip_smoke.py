@@ -113,9 +113,11 @@ Phases, in order; any failure exits non-zero:
     versions, K9 equal to K1 on the partitioned map bit for bit at both;
     K4's and K5's d_bias and d_qkv bitwise equal over two calls at the
     B=16 train shapes;
-21. the experimental kernels: K12a and K12b against their plain mirror at
-    64 and 256 images of (128, 128, 96), E=384 (K12b bitwise equal to
-    K12a; the cuDNN conv chain as the yardstick), K13 (the Hopper GEMM
+21. the experimental kernels: K12a and K12b (the PLAIN kind of K10's
+    Hopper kernel) against their plain mirror at 64 and 256 images of
+    (128, 128, 96), E=384, and at C = 32, 64 and 96 on a ragged 48 x 40
+    map, each bitwise equal over two calls and K12b bitwise equal to K12a
+    (the cuDNN conv chain as the yardstick), K13 (the Hopper GEMM
     core) at the JAX tool's four shapes in int8 (exactly the plain
     product) and bf16, each bitwise equal over two calls, with TOPS (b
     K-major, as the kernel reads it; also from a (K, N) b, whose transpose
@@ -2511,14 +2513,18 @@ K13_SHAPES = ((4096, 2048, 4096), (4096, 4096, 4096), (131072, 384, 1536),
 PEAK_INT8_OPS_S = 1979e12
 
 
-def _exp_mbconv_inputs(B, gen):
+#: K12 at its other channel counts on a ragged map: (C, E), then (B, H, W).
+EXP_OTHER_CHANNELS = ((32, 128), (64, 256), (96, 384))
+EXP_OTHER_SHAPE = (3, 48, 40)
+
+
+def _exp_mbconv_inputs(B, gen, C=MB_C, E=MB_E, H=MB_MAP, W=MB_MAP):
     """The JAX benchmark's inputs: x * 0.5, weights and biases * 0.1."""
     def t(shape, scale, dtype):
         return (torch.randn(*shape, generator=gen) * scale).to("cuda", dtype)
 
-    C, E = MB_C, MB_E
     bf, f32 = torch.bfloat16, torch.float32
-    return (t((B, MB_MAP, MB_MAP, C), 0.5, bf), t((C, E), 0.1, bf),
+    return (t((B, H, W, C), 0.5, bf), t((C, E), 0.1, bf),
             t((E,), 0.1, f32), t((3, 3, E), 0.1, f32), t((E,), 0.1, f32),
             t((E, C), 0.1, bf), t((C,), 0.1, f32))
 
@@ -2570,6 +2576,35 @@ def _k13_library(a, b, int8):
         return (lambda: torch.matmul(a, b)), "torch.matmul (bf16 out)"
 
 
+def _exp_mbconv_check(what, args, images):
+    """K12a and K12b on args against the plain mirror: each bitwise equal
+    over two calls, K12b bitwise equal to K12a.  Returns (max_abs_err,
+    max_rel_err) of K12a."""
+    from geoguessr_ai_torch.ops.experimental import fused_mbconv as fm
+
+    got = fm._fused_mbconv_cuda(*args)
+    again = fm._fused_mbconv_cuda(*args)
+    got2 = fm._fused_mbconv_cuda(*args, v2=True)
+    again2 = fm._fused_mbconv_cuda(*args, v2=True)
+    torch.cuda.synchronize()
+    stable_a, stable_b = torch.equal(got, again), torch.equal(got2, again2)
+    same = torch.equal(got, got2)
+    del again, again2, got2
+    want = _sliced(fm._fused_mbconv_plain, args, images)
+    max_abs, rel = _rel_err(got, want)
+    finite = bool(torch.isfinite(got).all())
+    del got, want
+    log(f"K12a / K12b {what}: max_abs_err {max_abs:.6g} max_rel_err "
+        f"{rel:.6g} (tolerance {KERNEL_REL_TOL}); bitwise equal over two "
+        f"calls: K12a {stable_a}, K12b {stable_b}; K12b bitwise equal to "
+        f"K12a {same}")
+    if not (finite and rel <= KERNEL_REL_TOL and stable_a and stable_b
+            and same):
+        fail(f"K12 {what}: rel {rel:.3g}, finite {finite}, stable K12a "
+             f"{stable_a} K12b {stable_b}, K12b equal to K12a {same}")
+    return max_abs, rel
+
+
 def phase_experimental():
     from geoguessr_ai_torch.ops.experimental import fused_mbconv as fm
     from geoguessr_ai_torch.ops.experimental import tiled_gemm as tg
@@ -2577,17 +2612,15 @@ def phase_experimental():
 
     rows = {}
     gen = torch.Generator().manual_seed(SEED + 8)
+    for C, E in EXP_OTHER_CHANNELS:
+        B, H, W = EXP_OTHER_SHAPE
+        with torch.inference_mode():
+            _exp_mbconv_check(f"C={C} E={E} x {(B, H, W, C)}",
+                              _exp_mbconv_inputs(B, gen, C, E, H, W), B)
     for images in EXP_MBCONV_IMAGES:
         args = _exp_mbconv_inputs(images, gen)
         with torch.inference_mode():
-            got = fm._fused_mbconv_cuda(*args)
-            got2 = fm._fused_mbconv_cuda(*args, v2=True)
-            torch.cuda.synchronize()
-            want = _sliced(fm._fused_mbconv_plain, args, images)
-            max_abs, rel = _rel_err(got, want)
-            same = torch.equal(got, got2)
-            finite = bool(torch.isfinite(got).all())
-            del got, got2, want
+            max_abs, rel = _exp_mbconv_check(f"{images} images", args, images)
             ms_a = cuda_time_ms(lambda: fm._fused_mbconv_cuda(*args))
             ms_b = cuda_time_ms(lambda: fm._fused_mbconv_cuda(*args,
                                                                v2=True))
@@ -2596,16 +2629,9 @@ def phase_experimental():
                 iters=2)
             chain_ms = _exp_chain_ms(args)
         bound, bound_by = _mbconv_bound_ms(images)
-        log(f"K12a / K12b {images} images, x {tuple(args[0].shape)}, E "
-            f"{MB_E}: max_abs_err {max_abs:.6g} max_rel_err {rel:.6g} "
-            f"(tolerance {KERNEL_REL_TOL}); K12b bitwise equal to K12a "
-            f"{same}")
         log(f"  K12a kernel_ms {ms_a:.4f}, K12b kernel_ms {ms_b:.4f}, "
             f"plain_ms {plain_ms:.4f}, cudnn_chain_ms {chain_ms:.4f}, "
             f"bound_ms {bound:.4f} ({bound_by})")
-        if not (finite and rel <= KERNEL_REL_TOL and same):
-            fail(f"K12 {images} images: rel {rel:.3g}, finite {finite}, "
-                 f"K12b equal to K12a {same}")
         for k, ms in (("K12a", ms_a), ("K12b", ms_b)):
             rows[(k, images)] = dict(max_abs_err=max_abs, ms=ms,
                                      plain_ms=plain_ms, bound_ms=bound,

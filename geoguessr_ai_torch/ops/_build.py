@@ -66,9 +66,9 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
         _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P)),
     "fused_mbconv_exp": {
         "fused_mbconv_bf16": (_P, _P, _P, _P, _P, _P, _P, _P,
-                              _I, _I, _I, _I, _P),
+                              _I, _I, _I, _I, _I, _P),
         "fused_mbconv_v2_bf16": (_P, _P, _P, _P, _P, _P, _P, _P,
-                                 _I, _I, _I, _I, _P),
+                                 _I, _I, _I, _I, _I, _P),
     },
     "tiled_gemm": {
         "tiled_gemm_bf16": (_P, _P, _P, _I, _I, _I, _P),

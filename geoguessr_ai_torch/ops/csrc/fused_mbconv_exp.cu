@@ -5,127 +5,67 @@
 //   1x1 project (E -> C) + b3, the residual added in f32, GELU, rounded.
 //
 // Replaces geoguessr_ai_tpu/ops/experimental/fused_mbconv.py:68
-// fused_mbconv (K12a, kernel body `kernel`, :23) and :199 fused_mbconv_v2
-// (K12b, body `_kernel_v2`, :131), the same function with the next grid
-// cell's halo DMA in flight while the current cell computes.  Neither is
-// wired into the JAX model; both run at stage 0's shapes, x (B, 128, 128,
-// 96), E = 384.
+// fused_mbconv (K12a, kernel body `kernel`, :23: a blocking halo DMA per
+// grid cell) and :199 fused_mbconv_v2 (K12b, body `_kernel_v2`, :131: the
+// next grid cell's halo DMA in flight while the current cell computes).
+// Neither is wired into the JAX model; both run at stage 0's shapes, x
+// (B, 128, 128, 96), E = 384.
 //
-// Layouts: x and out (B, H, W, C) bf16, C = 96; w1t (E, C) bf16 (w1
-// transposed); w2 (9, E) f32 taps in (dy, dx) order; w3t (C, E) bf16;
-// sb1, sb2 (2, E) and sb3 (2, C) f32: a row of ones, then the bias.
+// Layouts: x and out (B, H, W, C) bf16, C in {32, 64, 96}; w1t (E, C) bf16
+// (w1 transposed); w2 (9, E) f32 taps in (dy, dx) order; w3t (C, E) bf16;
+// sb1, sb2 (2, E) and sb3 (2, C) f32: a row of ones, then the bias.  Each
+// contiguous with a 16-byte aligned base; E a multiple of 64, at most
+// 2^31 - 1 16 x 16 tiles.
 //
-// What bounds it on the H100: as K10 (mbconv.cu), the two GEMMs' 2.4e9
-// flops per image against 6.3 MB of x in and out, so the tensor cores;
-// in practice the GELU and depthwise ALU work between them.  The design is
-// K10's tile (mbconv.cuh): the Pallas kernel's TH=16 full-width row strips
-// and its C -> 128 and W+2 -> 8 padding are Mosaic's tiling, not the
-// function.  The numerics differ from K10 in two places, as the JAX kernel
-// differs from _mbconv_xla: the taps stay f32, and GELU and the residual
-// read the f32 sums unrounded (mbconv_tile<..., PLAIN = true>).
-//
-// K12a: one block per (image, 8 x 16 tile), 2 blocks an SM.
-// K12b: one persistent block per SM walks the tiles blockIdx.x,
-// blockIdx.x + gridDim.x, ...; the next tile's halo is copied with cp.async
-// into a second buffer while the current tile computes.  Both run the same
-// tile code on the same halo values, so their outputs are bitwise equal.
-#include "mbconv.cuh"
+// Both run K10's Hopper kernel (mbconv_sm90.cuh) in its PLAIN kind: the
+// numerics differ from K10 as the JAX kernel differs from _mbconv_xla
+// (plain biases, f32 taps, GELU and the residual reading the f32 sums
+// unrounded).  The Pallas kernels' TH = 16 full-width row strips and their
+// C -> 128 and W + 2 -> 8 padding are Mosaic's tiling, not the function.
+// The two entries differ only in the grid, which keeps the JAX v1 / v2
+// contrast on one kernel:
+//   K12a: one block for each 16 x 16 tile; it loads its halo by TMA, waits
+//     and computes.
+//   K12b: persistent blocks, one an SM, walk the tiles; the next tile's
+//     halo loads by TMA under this tile's last depthwise.
+// Every tile runs the same code in the same order, so K12b is bitwise K12a.
+#include "mbconv_sm90.cuh"
 
-namespace gg {
-namespace mb {
 namespace {
 
-constexpr int kC = 96;
-constexpr size_t kHaloBytes = kHaloRows * Smem<kC>::kXPitch * sizeof(bf16);
-
-__global__ void __launch_bounds__(kThreads, 1)
-mbconv_pipelined_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w1t,
-                        const float* __restrict__ sb1, const float* __restrict__ w2,
-                        const float* __restrict__ sb2, const bf16* __restrict__ w3t,
-                        const float* __restrict__ sb3, bf16* __restrict__ out, int B, int H,
-                        int W, int E) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  // Smem<kC> as K12a has it, then the second halo buffer.
-  bf16* halo[2] = {reinterpret_cast<bf16*>(smem + Smem<kC>::xs),
-                   reinterpret_cast<bf16*>(smem + Smem<kC>::bytes)};
-  const int tiles_x = (W + kTw - 1) / kTw, tiles_y = (H + kTh - 1) / kTh;
-  const int per_image = tiles_x * tiles_y;
-  const long total = (long)B * per_image;
-
-  auto where = [&](long t, int& ty0, int& tx0) {
-    const int b = (int)(t / per_image), r = (int)(t - (long)b * per_image);
-    ty0 = (r / tiles_x) * kTh;
-    tx0 = (r % tiles_x) * kTw;
-    return (long)b * H * W * kC;
-  };
-
-  long t = blockIdx.x;
-  if (t >= total) return;
-  int ty0, tx0;
-  long img = where(t, ty0, tx0);
-  load_halo_async<kC>(halo[0], x + img, ty0, tx0, H, W);
-  cp_async_commit();
-  for (int cur = 0; t < total; t += gridDim.x, cur ^= 1) {
-    __syncthreads();  // the previous tile no longer reads halo[cur ^ 1]
-    const long next = t + gridDim.x;
-    int ny0 = 0, nx0 = 0;
-    if (next < total) {
-      const long nimg = where(next, ny0, nx0);
-      load_halo_async<kC>(halo[cur ^ 1], x + nimg, ny0, nx0, H, W);
-    }
-    cp_async_commit();  // an empty group when there is no next tile
-    cp_async_wait<1>();  // this tile's halo has landed
-    mbconv_tile<kC, false, true>(smem, halo[cur], w1t, sb1, w2, sb2, w3t, sb3, out + img, ty0,
-                                 tx0, H, W, E);
-    img = where(next, ty0, tx0);
+int run_k12(const void* x, const void* w1t, const void* sb1, const void* w2, const void* sb2,
+            const void* w3t, const void* sb3, void* out, int B, int H, int W, int C, int E,
+            bool one_tile_a_block, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (B < 1 || H < 1 || W < 1) return (int)cudaErrorInvalidValue;
+  switch (C) {
+    case 32:
+      return (int)gg::mb90::run<32, true>(x, w1t, sb1, w2, sb2, w3t, sb3, out, B, H, W, E, false,
+                                          s, one_tile_a_block);
+    case 64:
+      return (int)gg::mb90::run<64, true>(x, w1t, sb1, w2, sb2, w3t, sb3, out, B, H, W, E, false,
+                                          s, one_tile_a_block);
+    case 96:
+      return (int)gg::mb90::run<96, true>(x, w1t, sb1, w2, sb2, w3t, sb3, out, B, H, W, E, false,
+                                          s, one_tile_a_block);
+    default:
+      return (int)cudaErrorInvalidValue;
   }
-  cp_async_wait<0>();
 }
 
 }  // namespace
-}  // namespace mb
-}  // namespace gg
 
-// K12a.  C = 96, E a multiple of 64, 1 <= B <= 65535.
+// K12a: a block for each tile.
 extern "C" int fused_mbconv_bf16(const void* x, const void* w1t, const void* sb1, const void* w2,
                                  const void* sb2, const void* w3t, const void* sb3, void* out,
-                                 int B, int H, int W, int E, void* stream) {
-  using namespace gg::mb;
-  if (E % kEc || B < 1 || B > 65535 || H < 1 || W < 1) return (int)cudaErrorInvalidValue;
-  const int smem = (int)Smem<kC>::bytes;
-  cudaError_t e = cudaFuncSetAttribute(mbconv_kernel<kC, false, true>,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (e != cudaSuccess) return (int)e;
-  const dim3 grid((W + kTw - 1) / kTw, (H + kTh - 1) / kTh, B);
-  mbconv_kernel<kC, false, true><<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const gg::bf16*>(x), static_cast<const gg::bf16*>(w1t),
-      static_cast<const float*>(sb1), static_cast<const float*>(w2),
-      static_cast<const float*>(sb2), static_cast<const gg::bf16*>(w3t),
-      static_cast<const float*>(sb3), static_cast<gg::bf16*>(out), H, W, E);
-  return (int)cudaGetLastError();
+                                 int B, int H, int W, int C, int E, void* stream) {
+  return run_k12(x, w1t, sb1, w2, sb2, w3t, sb3, out, B, H, W, C, E, true, stream);
 }
 
-// K12b.  The same arguments as K12a.
+// K12b: persistent blocks.  The same arguments as K12a.
 extern "C" int fused_mbconv_v2_bf16(const void* x, const void* w1t, const void* sb1,
                                     const void* w2, const void* sb2, const void* w3t,
-                                    const void* sb3, void* out, int B, int H, int W, int E,
+                                    const void* sb3, void* out, int B, int H, int W, int C, int E,
                                     void* stream) {
-  using namespace gg::mb;
-  if (E % kEc || B < 1 || H < 1 || W < 1) return (int)cudaErrorInvalidValue;
-  const int smem = (int)(Smem<kC>::bytes + kHaloBytes);
-  cudaError_t e = cudaFuncSetAttribute(mbconv_pipelined_kernel,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (e != cudaSuccess) return (int)e;
-  int dev = 0, sms = 0;
-  if ((e = cudaGetDevice(&dev)) != cudaSuccess) return (int)e;
-  if ((e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
-    return (int)e;
-  const long tiles = (long)B * ((H + kTh - 1) / kTh) * ((W + kTw - 1) / kTw);
-  const int grid = (int)(tiles < sms ? tiles : sms);
-  mbconv_pipelined_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const gg::bf16*>(x), static_cast<const gg::bf16*>(w1t),
-      static_cast<const float*>(sb1), static_cast<const float*>(w2),
-      static_cast<const float*>(sb2), static_cast<const gg::bf16*>(w3t),
-      static_cast<const float*>(sb3), static_cast<gg::bf16*>(out), B, H, W, E);
-  return (int)cudaGetLastError();
+  return run_k12(x, w1t, sb1, w2, sb2, w3t, sb3, out, B, H, W, C, E, false, stream);
 }

@@ -11,8 +11,8 @@
 //
 // The bf16 entry runs the Hopper kernel of mbconv_sm90.cuh (TMA, wgmma,
 // persistent warp-specialised blocks over 16 x 16 tiles; its note says
-// what bounds it).  The f32 twin keeps the first design below, which the
-// experimental K12a / K12b share (mbconv.cuh).
+// what bounds it), as the experimental K12a / K12b do in its PLAIN kind.
+// The f32 twin keeps the first design below (mbconv.cuh).
 //
 // Layouts: x and out (B, H, W, C) bf16; w1t (E, C) bf16 (the 1x1 expand
 // conv's OI weight, the column-major B operand mma.sync wants); w2 (9, E) f32
@@ -64,11 +64,11 @@ cudaError_t launch(const void* x, const void* w1t, const void* sb1, const void* 
                    const void* sb2, const void* w3t, const void* sb3, void* out, int B, int H,
                    int W, int E, cudaStream_t stream) {
   const int smem = (int)Smem<C, ET>::bytes;
-  cudaError_t e = cudaFuncSetAttribute(mbconv_kernel<C, EXACT, false, ET>,
+  cudaError_t e = cudaFuncSetAttribute(mbconv_kernel<C, EXACT, ET>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return e;
   dim3 grid((W + kTw - 1) / kTw, (H + kTh - 1) / kTh, B);
-  mbconv_kernel<C, EXACT, false, ET><<<grid, kThreads, smem, stream>>>(
+  mbconv_kernel<C, EXACT, ET><<<grid, kThreads, smem, stream>>>(
       static_cast<const ET*>(x), static_cast<const ET*>(w1t), static_cast<const float*>(sb1),
       static_cast<const float*>(w2), static_cast<const float*>(sb2),
       static_cast<const ET*>(w3t), static_cast<const float*>(sb3), static_cast<ET*>(out), H, W,

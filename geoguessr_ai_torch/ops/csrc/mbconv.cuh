@@ -1,12 +1,13 @@
-// Device code of the fused MBConv kernels: K10 (mbconv.cu, folded
-// BatchNorm, TinyViT's stage 0) and the experimental K12a / K12b
-// (fused_mbconv_exp.cu, plain biases).  The design is K10's, described in
-// mbconv.cu: one (image, 8 x 16 output tile) at a time, its (10, 18, C)
-// halo of x in shared memory, E walked in chunks of 64 channels through the
-// expand GEMM, the depthwise MACs and the project GEMM, the 4x-expanded
-// tensor never in device memory.  The tile is a template over the element
-// type ET of x, the 1x1 weights, the expanded chunk and out (common.cuh
-// "Element types"): bf16 for K10 and K12, float for K10's _f32 twin.
+// Device code of the first design of the fused MBConv, which only K10's
+// f32 twin (mbconv.cu, folded BatchNorm, TinyViT's stage 0) runs now: K10's
+// bf16 entry and the experimental K12a / K12b run the Hopper kernel of
+// mbconv_sm90.cuh.  The design is described in mbconv.cu: one (image, 8 x
+// 16 output tile) at a time, its (10, 18, C) halo of x in shared memory, E
+// walked in chunks of 64 channels through the expand GEMM, the depthwise
+// MACs and the project GEMM, the 4x-expanded tensor never in device memory.
+// The tile is a template over the element type ET of x, the 1x1 weights,
+// the expanded chunk and out (common.cuh "Element types"); K10's twin
+// instantiates it in f32, where round_e rounds nothing.
 #pragma once
 
 #include "common.cuh"
@@ -26,7 +27,7 @@ constexpr int kThreads = 256;
 // Byte offsets into dynamic shared memory (190 KB at C = 96 in f32).  Row
 // pitches of C + 8 and 72 elements make every fragment read and write below
 // free of bank conflicts.
-template <int C, class ET = bf16>
+template <int C, class ET>
 struct Smem {
   static constexpr int kXPitch = C + 8;
   static constexpr size_t kE = sizeof(ET);
@@ -46,12 +47,6 @@ __device__ __forceinline__ float gelu(float x) {
   // 0.5 x (1 + tanh(u)) = x * sigmoid(2u), u = sqrt(2/pi) (x + 0.044715 x^3)
   const float u = 0.7978845608028654f * (x + 0.044715f * x * x * x);
   return x / (1.f + __expf(-2.f * u));
-}
-
-// K10's bf16 rounding points: none in K12 (PLAIN) or in f32.
-template <bool PLAIN, class ET>
-__device__ __forceinline__ float round_unless(float v) {
-  return PLAIN ? v : round_e<ET>(v);
 }
 
 // Loads the (10, 18) halo of x around the output tile at (ty0, tx0) into
@@ -74,51 +69,15 @@ __device__ __forceinline__ void load_halo(ET* xs, const ET* __restrict__ ximg, i
   }
 }
 
-// The same halo in bf16 through cp.async (16 bytes a thread, zero-filled
-// where the source size is 0); the caller commits and waits.
-template <int C>
-__device__ __forceinline__ void load_halo_async(bf16* xs, const bf16* __restrict__ ximg, int ty0,
-                                                int tx0, int H, int W) {
-  constexpr int XP = Smem<C>::kXPitch;
-  constexpr int kVec = C / 8;
-  for (int i = threadIdx.x; i < kHaloRows * kVec; i += kThreads) {
-    const int row = i / kVec, v = i - row * kVec;
-    const bf16* src = ximg;
-    int bytes = 0;
-    if (row < kHalo) {
-      const int hy = row / kHw, hx = row - hy * kHw;
-      const int iy = ty0 - 1 + hy, ix = tx0 - 1 + hx;
-      if (iy >= 0 && iy < H && ix >= 0 && ix < W) {
-        src = ximg + ((long)iy * W + ix) * C + v * 8;
-        bytes = 16;
-      }
-    }
-    const unsigned dst = (unsigned)__cvta_generic_to_shared(xs + row * XP + v * 8);
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
-                 "r"(bytes));
-  }
-}
-
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n"); }
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
 // One (8 x 16) output tile from the halo in xs: the chunk loop over E and
 // the epilogue.  Every thread of the block calls it; it synchronises the
 // block before its first shared-memory write, so xs must be complete and
-// visible when it is called.
-//   PLAIN = false (K10): (s, b) pairs are folded BatchNorms; each is applied
-//     in f32 and rounded to bf16 before its GELU, and the residual add
-//     rounds to bf16 before the last GELU.
-//   PLAIN = true (K12): the scales are 1 and the biases plain; GELU reads
-//     the f32 sums unrounded, and the residual is added in f32 to the
-//     unrounded projection.  Only GELU's output is rounded.
-// In f32 (ET = float) nothing is rounded, and the expanded chunk and the
-// project GEMM's A fragments are split (common.cuh "Element types").
-template <int C, bool EXACT, bool PLAIN, class ET>
+// visible when it is called.  The (s, b) pairs are folded BatchNorms; each
+// is applied in f32 and rounded to ET before its GELU, and the residual add
+// rounds to ET before the last GELU.  In f32 (ET = float) nothing is
+// rounded, and the expanded chunk and the project GEMM's A fragments are
+// split (common.cuh "Element types").
+template <int C, bool EXACT, class ET>
 __device__ __forceinline__ void mbconv_tile(unsigned char* smem, const ET* xs,
                                             const ET* __restrict__ w1t,
                                             const float* __restrict__ sb1,
@@ -213,10 +172,9 @@ __device__ __forceinline__ void mbconv_tile(unsigned char* smem, const ET* xs,
           const int ch = nh * 32 + nt * 8 + 2 * c;
           float v0 = 0.f, v1 = 0.f;
           if (inside) {
-            v0 = gelu<EXACT>(
-                round_unless<PLAIN, ET>(acc[nt][2 * half] * sb12s[ch] + sb12s[kEc + ch]));
-            v1 = gelu<EXACT>(round_unless<PLAIN, ET>(acc[nt][2 * half + 1] * sb12s[ch + 1] +
-                                                     sb12s[kEc + ch + 1]));
+            v0 = gelu<EXACT>(round_e<ET>(acc[nt][2 * half] * sb12s[ch] + sb12s[kEc + ch]));
+            v1 = gelu<EXACT>(
+                round_e<ET>(acc[nt][2 * half + 1] * sb12s[ch + 1] + sb12s[kEc + ch + 1]));
           }
           store2(hs + row * kHPitch + ch, v0, v1);
         }
@@ -245,9 +203,9 @@ __device__ __forceinline__ void mbconv_tile(unsigned char* smem, const ET* xs,
             s1 += hv.y * wv.y;
           }
         const float y0 =
-            gelu<EXACT>(round_unless<PLAIN, ET>(s0 * sb12s[2 * kEc + ch] + sb12s[3 * kEc + ch]));
+            gelu<EXACT>(round_e<ET>(s0 * sb12s[2 * kEc + ch] + sb12s[3 * kEc + ch]));
         const float y1 = gelu<EXACT>(
-            round_unless<PLAIN, ET>(s1 * sb12s[2 * kEc + ch + 1] + sb12s[3 * kEc + ch + 1]));
+            round_e<ET>(s1 * sb12s[2 * kEc + ch + 1] + sb12s[3 * kEc + ch + 1]));
         a[q] = pack_frag<ET>(y0, y1);
       }
 #pragma unroll
@@ -270,20 +228,19 @@ __device__ __forceinline__ void mbconv_tile(unsigned char* smem, const ET* xs,
 #pragma unroll
     for (int nt = 0; nt < C / 8; ++nt) {
       const int ch = nt * 8 + 2 * c;
-      const float p0 = round_unless<PLAIN, ET>(acc3[nt][2 * half] * sb3s[ch] + sb3s[C + ch]);
-      const float p1 =
-          round_unless<PLAIN, ET>(acc3[nt][2 * half + 1] * sb3s[ch + 1] + sb3s[C + ch + 1]);
+      const float p0 = round_e<ET>(acc3[nt][2 * half] * sb3s[ch] + sb3s[C + ch]);
+      const float p1 = round_e<ET>(acc3[nt][2 * half + 1] * sb3s[ch + 1] + sb3s[C + ch + 1]);
       const float2 xv = load2(xc + ch);
-      store2(orow + ch, gelu<EXACT>(round_unless<PLAIN, ET>(xv.x + p0)),
-             gelu<EXACT>(round_unless<PLAIN, ET>(xv.y + p1)));
+      store2(orow + ch, gelu<EXACT>(round_e<ET>(xv.x + p0)),
+             gelu<EXACT>(round_e<ET>(xv.y + p1)));
     }
   }
 }
 
 // One block of 8 warps per (image, 8 x 16 output tile): the halo, then the
-// tile.  K10 and K12a: two blocks an SM in bf16, one in f32.
-template <int C, bool EXACT, bool PLAIN, class ET = bf16>
-__global__ void __launch_bounds__(kThreads, sizeof(ET) == 2 ? 2 : 1)
+// tile, one block an SM (190 KB of shared memory at C = 96 in f32).
+template <int C, bool EXACT, class ET>
+__global__ void __launch_bounds__(kThreads, 1)
 mbconv_kernel(const ET* __restrict__ x, const ET* __restrict__ w1t,
               const float* __restrict__ sb1, const float* __restrict__ w2,
               const float* __restrict__ sb2, const ET* __restrict__ w3t,
@@ -293,8 +250,7 @@ mbconv_kernel(const ET* __restrict__ x, const ET* __restrict__ w1t,
   const int ty0 = blockIdx.y * kTh, tx0 = blockIdx.x * kTw;
   const long img = (long)blockIdx.z * H * W * C;
   load_halo<C>(xs, x + img, ty0, tx0, H, W);
-  mbconv_tile<C, EXACT, PLAIN>(smem, xs, w1t, sb1, w2, sb2, w3t, sb3, out + img, ty0, tx0, H, W,
-                               E);
+  mbconv_tile<C, EXACT>(smem, xs, w1t, sb1, w2, sb2, w3t, sb3, out + img, ty0, tx0, H, W, E);
 }
 }  // namespace mb
 }  // namespace gg

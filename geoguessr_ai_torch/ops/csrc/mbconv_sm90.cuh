@@ -10,7 +10,10 @@
 // any H and W.  Rounding as mbconv.cu lists it (_mbconv_xla's order): each
 // GEMM sums in f32, BN in f32 then rounded to bf16, GELU in f32 on that
 // bf16 value then rounded, the depthwise MACs f32 over bf16 taps in (di,
-// dj) order, the residual rounded before the last GELU.  The tanh GELU is
+// dj) order, the residual rounded before the last GELU.  Its PLAIN kind
+// is the experimental K12a / K12b (fused_mbconv_exp.cu): plain biases in
+// place of each BN, f32 taps, and only GELU's outputs rounded (run<>'s
+// note).  The tanh GELU is
 // 0.5 x (1 + tanh(u)) with tanh.approx.f32, one MUFU operation (the first
 // design's x / (1 + exp(-2u)) took two and a division's refinement); the
 // erf GELU keeps erff.
@@ -202,10 +205,13 @@ __device__ __forceinline__ float gelu(float x) {
 // Two f32 values rounded to bf16 (one conversion for both), back in f32.
 __device__ __forceinline__ float2 round2(float a, float b) { return widen2(pack_bf16(a, b)); }
 
-// gelu(bf16(v * s + b)) of a pair, packed as bf16.
-template <bool EXACT>
+// gelu(bf16(v * s + b)) of a pair, packed as bf16; in the PLAIN kind
+// (s = 1) GELU reads v + b unrounded.
+template <bool EXACT, bool PLAIN>
 __device__ __forceinline__ uint32_t bn_gelu2(float v0, float v1, float2 s, float2 b) {
-  const float2 r = round2(fmaf(v0, s.x, b.x), fmaf(v1, s.y, b.y));
+  float2 r;
+  if constexpr (PLAIN) r = make_float2(v0 + b.x, v1 + b.y);
+  else r = round2(fmaf(v0, s.x, b.x), fmaf(v1, s.y, b.y));
   return pack_bf16(gelu<EXACT>(r.x), gelu<EXACT>(r.y));
 }
 
@@ -213,7 +219,7 @@ __device__ __forceinline__ uint32_t bn_gelu2(float v0, float v1, float2 s, float
 // thread's rows lr, lr + 8 of it): BN1, GELU, zero where the halo pixel is
 // image padding (in[j]), stored as bf16 pairs into the group's chunk (rows
 // past its 180 pixels are not stored).
-template <bool EXACT>
+template <bool EXACT, bool PLAIN>
 __device__ __forceinline__ void expand_epilogue(const float (&d)[32], uint32_t hbuf, int lr,
                                                 const bool (&in)[2], const float* sb1, int cc) {
 #pragma unroll
@@ -224,7 +230,7 @@ __device__ __forceinline__ void expand_epilogue(const float (&d)[32], uint32_t h
 #pragma unroll
     for (int j = 0; j < 2; ++j) {
       const int row = lr + 8 * j;
-      const uint32_t v = bn_gelu2<EXACT>(d[4 * t + 2 * j], d[4 * t + 2 * j + 1], s, b);
+      const uint32_t v = bn_gelu2<EXACT, PLAIN>(d[4 * t + 2 * j], d[4 * t + 2 * j + 1], s, b);
       st_shared_if(hbuf + (row * kHPitch + ch) * 2, in[j] ? v : 0u, row < kGroupHalo);
     }
   }
@@ -235,7 +241,7 @@ __device__ __forceinline__ void expand_epilogue(const float (&d)[32], uint32_t h
 // columns ox, ox + 1), as the A fragments a[mt] of the project GEMM's two
 // m-tiles: a[mt][0] = (pixel (oy + mt, ox), channels 2cc, +1), a[mt][1] =
 // (oy + mt, ox + 1), a[mt][2], a[mt][3] the same 8 channels further.
-template <bool EXACT>
+template <bool EXACT, bool PLAIN>
 __device__ __forceinline__ void depthwise_ks(const bf16* hg, const float* w2, const float* sb2,
                                              int oy, int ox, int ks, int cc,
                                              uint32_t (&a)[2][4]) {
@@ -266,7 +272,7 @@ __device__ __forceinline__ void depthwise_ks(const bf16* hg, const float* w2, co
             s0 = fmaf(h.x, tap[di * 3 + dj].x, s0);
             s1 = fmaf(h.y, tap[di * 3 + dj].y, s1);
           }
-        a[mt][2 * hh + j] = bn_gelu2<EXACT>(s0, s1, s, b);
+        a[mt][2 * hh + j] = bn_gelu2<EXACT, PLAIN>(s0, s1, s, b);
       }
   }
 }
@@ -294,7 +300,7 @@ struct Tiles {
   }
 };
 
-template <int C, bool EXACT>
+template <int C, bool EXACT, bool PLAIN>
 __global__ void __launch_bounds__(kThreads, 1)
 mbconv_sm90(const __grid_constant__ CUtensorMap x0_map, const __grid_constant__ CUtensorMap x1_map,
             const __grid_constant__ CUtensorMap w10_map, const __grid_constant__ CUtensorMap w11_map,
@@ -416,17 +422,17 @@ mbconv_sm90(const __grid_constant__ CUtensorMap x0_map, const __grid_constant__ 
       issue(d1, 1);
       wgmma_wait<1>();
       fence_regs(d0);
-      expand_epilogue<EXACT>(d0, hbuf, 16 * warp + g, in[0], sb1, cc);
+      expand_epilogue<EXACT, PLAIN>(d0, hbuf, 16 * warp + g, in[0], sb1, cc);
       zero(d0);
       fence_regs(d0);
       wgmma_fence();
       issue(d0, 2);
       wgmma_wait<1>();
       fence_regs(d1);
-      expand_epilogue<EXACT>(d1, hbuf, 64 + 16 * warp + g, in[1], sb1, cc);
+      expand_epilogue<EXACT, PLAIN>(d1, hbuf, 64 + 16 * warp + g, in[1], sb1, cc);
       wgmma_wait<0>();
       fence_regs(d0);
-      expand_epilogue<EXACT>(d0, hbuf, 128 + 16 * warp + g, in[2], sb1, cc);
+      expand_epilogue<EXACT, PLAIN>(d0, hbuf, 128 + 16 * warp + g, in[2], sb1, cc);
       if (e == chunks - 1) release(halo_empty);
       group_sync(c);  // the chunk is complete in shared memory
 
@@ -436,7 +442,7 @@ mbconv_sm90(const __grid_constant__ CUtensorMap x0_map, const __grid_constant__ 
       uint32_t a[4][2][4];
 #pragma unroll
       for (int ks = 0; ks < 4; ++ks) {
-        depthwise_ks<EXACT>(hg, w2, sb2, oy, ox, ks, cc, a[ks]);
+        depthwise_ks<EXACT, PLAIN>(hg, w2, sb2, oy, ox, ks, cc, a[ks]);
         wgmma_fence();
 #pragma unroll
         for (int mt = 0; mt < 2; ++mt) wgmma_rs_k<C>(acc[mt], a[ks][mt], w3d + 2 * ks);
@@ -462,10 +468,14 @@ mbconv_sm90(const __grid_constant__ CUtensorMap x0_map, const __grid_constant__ 
         for (int u = 0; u < C / 8; ++u) {
           const float2 s3 = __ldg(reinterpret_cast<const float2*>(sb3 + 8 * u + 2 * cc));
           const float2 b3 = __ldg(reinterpret_cast<const float2*>(sb3 + C + 8 * u + 2 * cc));
-          const float2 p = round2(fmaf(acc[mt][4 * u + 2 * j], s3.x, b3.x),
-                                  fmaf(acc[mt][4 * u + 2 * j + 1], s3.y, b3.y));
+          const float v0 = acc[mt][4 * u + 2 * j], v1 = acc[mt][4 * u + 2 * j + 1];
+          float2 p;  // PLAIN: s3 (ones) unread, nothing rounded before the GELU
+          if constexpr (PLAIN) p = make_float2(v0 + b3.x, v1 + b3.y);
+          else p = round2(fmaf(v0, s3.x, b3.x), fmaf(v1, s3.y, b3.y));
           const float2 xv = widen2(__ldg(reinterpret_cast<const unsigned int*>(x + at + 8 * u)));
-          const float2 r = round2(xv.x + p.x, xv.y + p.y);
+          float2 r;
+          if constexpr (PLAIN) r = make_float2(xv.x + p.x, xv.y + p.y);
+          else r = round2(xv.x + p.x, xv.y + p.y);
           *reinterpret_cast<uint32_t*>(out + at + 8 * u) =
               pack_bf16(gelu<EXACT>(r.x), gelu<EXACT>(r.y));
         }
@@ -490,18 +500,18 @@ cudaError_t encode_halo(CUtensorMap* map, const void* x, int B, int H, int W, in
   return cudaSuccess;
 }
 
-template <int C, bool EXACT>
+template <int C, bool EXACT, bool PLAIN>
 cudaError_t launch(const CUtensorMap (&maps)[8], const void* x, const void* sb3, void* out,
-                   const Tiles& tl, int tiles, int E, int sms, cudaStream_t stream) {
+                   const Tiles& tl, int tiles, int E, int grid, cudaStream_t stream) {
   static bool opted_in = false;  // one per instance, and this library's own
   if (!opted_in) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        mbconv_sm90<C, EXACT>, cudaFuncAttributeMaxDynamicSharedMemorySize, Layout<C>::bytes);
+    const cudaError_t e = cudaFuncSetAttribute(mbconv_sm90<C, EXACT, PLAIN>,
+                                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                               Layout<C>::bytes);
     if (e != cudaSuccess) return e;
     opted_in = true;
   }
-  const int grid = tiles < sms ? tiles : sms;
-  mbconv_sm90<C, EXACT><<<grid, kThreads, Layout<C>::bytes, stream>>>(
+  mbconv_sm90<C, EXACT, PLAIN><<<grid, kThreads, Layout<C>::bytes, stream>>>(
       maps[0], maps[1], maps[2], maps[3], maps[4], maps[5], maps[6], maps[7],
       static_cast<const bf16*>(x), static_cast<const float*>(sb3), static_cast<bf16*>(out), tl,
       tiles, E);
@@ -510,15 +520,26 @@ cudaError_t launch(const CUtensorMap (&maps)[8], const void* x, const void* sb3,
 
 // One call: x and out (B, H, W, C) bf16, w1t (E, C) and w3t (C, E) bf16,
 // w2 (9, E), sb1, sb2 (2, E) and sb3 (2, C) f32, each contiguous with a
-// 16-byte aligned base; E a multiple of 64.
-template <int C>
+// 16-byte aligned base; E a multiple of 64, at most 2^31 - 1 tiles.
+//   PLAIN = false (K10): (s, b) pairs are folded BatchNorms, rounded as
+//     the note above says; exact picks the erf GELU.
+//   PLAIN = true (K12): the scales are ones and are not read; GELU reads
+//     the f32 sums + b unrounded, the residual is added in f32 to the
+//     unrounded projection, and only GELU's outputs are rounded; the taps
+//     are used as given (f32).  The tanh GELU only.
+// The grid: persistent blocks, one an SM, each loading its next tile's
+// halo under this one's last depthwise (K10, K12b); or, with
+// one_tile_a_block, a block for each tile, which loads its halo, waits and
+// computes (K12a).  Every tile is computed by the same code in the same
+// order either way, so the two grids give the same bits.
+template <int C, bool PLAIN = false>
 cudaError_t run(const void* x, const void* w1t, const void* sb1, const void* w2, const void* sb2,
                 const void* w3t, const void* sb3, void* out, int B, int H, int W, int E,
-                bool exact, cudaStream_t stream) {
+                bool exact, cudaStream_t stream, bool one_tile_a_block = false) {
   using X = Boxes<C>;
   Tiles tl{H, W, (H + kTile - 1) / kTile, (W + kTile - 1) / kTile};
   const long tiles = tl.count(B);
-  if (tiles > 0x7fffffffL || E < kEc || E % kEc) return cudaErrorInvalidValue;
+  if (tiles > 0x7fffffffL || E < kEc || E % kEc || (PLAIN && exact)) return cudaErrorInvalidValue;
   const CUtensorMapDataType BF = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, F32 = CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
   auto sw = [](int width) { return width == 64 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B; };
   CUtensorMap maps[8];  // x box 0, x box 1, w1 box 0, w1 box 1, w3, w2, sb1, sb2
@@ -535,11 +556,18 @@ cudaError_t run(const void* x, const void* w1t, const void* sb1, const void* w2,
     maps[1] = maps[0];
     maps[3] = maps[2];
   }
-  int sms = 0;
-  if (e == cudaSuccess) e = sm_count(&sms);
+  int grid = (int)tiles;
+  if (!one_tile_a_block) {
+    int sms = 0;
+    if (e == cudaSuccess) e = sm_count(&sms);
+    grid = tiles < sms ? (int)tiles : sms;
+  }
   if (e != cudaSuccess) return e;
-  return exact ? launch<C, true>(maps, x, sb3, out, tl, (int)tiles, E, sms, stream)
-               : launch<C, false>(maps, x, sb3, out, tl, (int)tiles, E, sms, stream);
+  if constexpr (PLAIN)
+    return launch<C, false, true>(maps, x, sb3, out, tl, (int)tiles, E, grid, stream);
+  else
+    return exact ? launch<C, true, false>(maps, x, sb3, out, tl, (int)tiles, E, grid, stream)
+                 : launch<C, false, false>(maps, x, sb3, out, tl, (int)tiles, E, grid, stream);
 }
 
 }  // namespace

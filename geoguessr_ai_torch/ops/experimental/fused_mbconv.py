@@ -8,17 +8,20 @@ not wired into the JAX model either.  Per output pixel:
         with the f32 taps wdw, + b2, GELU, rounded
     1x1 project (E -> C) + b3, the residual added in f32, GELU, rounded.
 
-``fused_mbconv`` (K12a) and ``fused_mbconv_v2`` (K12b, the next tile's
-halo copied while the current one computes) compute the same function and
-give the same bits.  Each dispatches on the device of its input: a CPU
-tensor takes the plain version (``_fused_mbconv_plain``, the mirror of the
-Pallas kernel body), a CUDA tensor launches the hand-written kernel in
-``csrc/fused_mbconv_exp.cu`` or raises.  ``xla_mbconv`` is the JAX
-module's unfused reference (bf16 taps, a rounded depthwise output), in
-plain PyTorch.  Layouts are the JAX module's: x (B, H, W, C), w1 (C, E),
-wdw (3, 3, E), w3 (E, C); H must be a multiple of 16, the Pallas kernel's
-row strip.  The kernels take bf16 x and weights, f32 taps and biases, and
-C = 96.
+``fused_mbconv`` (K12a: a block for each 16 x 16 tile, which loads its
+halo, waits and computes) and ``fused_mbconv_v2`` (K12b: persistent
+blocks, the next tile's halo loaded while the current one computes) run
+K10's Hopper kernel (``csrc/mbconv_sm90.cuh``) in its PLAIN kind through
+``csrc/fused_mbconv_exp.cu``; they compute the same function and give the
+same bits.  Each dispatches on the device of its input: a CPU tensor takes
+the plain version (``_fused_mbconv_plain``, the mirror of the Pallas
+kernel body), a CUDA tensor launches the kernel or raises.
+``xla_mbconv`` is the JAX module's unfused reference (bf16 taps, a rounded
+depthwise output), in plain PyTorch.  Layouts are the JAX module's: x (B,
+H, W, C), w1 (C, E), wdw (3, 3, E), w3 (E, C); H must be a multiple of 16,
+the Pallas kernel's row strip.  The kernels take bf16 x and weights, f32
+taps and biases, C in ``KERNEL_CHANNELS`` and E a multiple of ``E_CHUNK``
+(``_check_kernel_shapes``).
 
     python -m geoguessr_ai_torch.ops.experimental.fused_mbconv
 
@@ -38,9 +41,13 @@ LAUNCHES = {"_fused_mbconv_cuda": 0, "_fused_mbconv_v2_cuda": 0}
 
 #: Rows of the Pallas kernel's strip: H must be a multiple of it.
 TH = 16
-#: The kernels' channel count and expanded-channel chunk.
-KERNEL_CHANNELS = 96
+#: The kernels' channel counts and expanded-channel chunk.
+KERNEL_CHANNELS = (32, 64, 96)
 E_CHUNK = 64
+#: The kernels' output tile (rows and columns); a launch takes at most
+#: MAX_TILES of them.
+TILE = 16
+MAX_TILES = 2 ** 31 - 1
 
 
 def reset_launches() -> None:
@@ -58,6 +65,22 @@ def _check_rows(x):
     if x.shape[1] % TH:
         raise ValueError(f"H must be a multiple of {TH} (the Pallas kernel's "
                          f"row strip), got H={x.shape[1]}")
+
+
+def _check_kernel_shapes(B, H, W, C, E):
+    """Raises ValueError for a shape the kernels do not take: H off the
+    Pallas kernel's row strip, C outside KERNEL_CHANNELS, E not a positive
+    multiple of E_CHUNK, more than MAX_TILES 16 x 16 tiles."""
+    if H % TH:
+        raise ValueError(f"H must be a multiple of {TH} (the Pallas kernel's "
+                         f"row strip), got H={H}")
+    tiles = B * -(-H // TILE) * -(-W // TILE)
+    if C not in KERNEL_CHANNELS or E < E_CHUNK or E % E_CHUNK or B < 1 \
+            or W < 1 or tiles > MAX_TILES:
+        raise ValueError(
+            f"the kernels take C in {KERNEL_CHANNELS}, E a multiple of "
+            f"{E_CHUNK} and 1 to {MAX_TILES} tiles of {TILE} x {TILE}, got "
+            f"B={B}, H={H}, W={W}, C={C}, E={E}")
 
 
 def _fused_mbconv_plain(x, w1, b1, wdw, b2, w3, b3):
@@ -106,10 +129,7 @@ def _fused_mbconv_cuda(x, w1, b1, wdw, b2, w3, b3, v2=False):
 
     B, H, W, C = x.shape
     E = w1.shape[1]
-    if C != KERNEL_CHANNELS or E % E_CHUNK or not 1 <= B <= 65535:
-        raise ValueError(
-            f"the kernels take C={KERNEL_CHANNELS}, E a multiple of "
-            f"{E_CHUNK} and 1 <= B <= 65535, got B={B}, C={C}, E={E}")
+    _check_kernel_shapes(B, H, W, C, E)
     _check("x", x, (B, H, W, C))
     bf, f32 = torch.bfloat16, torch.float32
     w1t = _check("w1", w1.t().to(bf).contiguous(), (E, C))
@@ -128,7 +148,7 @@ def _fused_mbconv_cuda(x, w1, b1, wdw, b2, w3, b3, v2=False):
                       "fused_mbconv_v2_bf16" if v2 else "fused_mbconv_bf16")
     err = fn(x.data_ptr(), w1t.data_ptr(), sb1.data_ptr(), taps.data_ptr(),
              sb2.data_ptr(), w3t.data_ptr(), sb3.data_ptr(), out.data_ptr(),
-             B, H, W, E, _stream())
+             B, H, W, C, E, _stream())
     _raise_on(err, name)
     LAUNCHES[name] += 1
     return out
@@ -143,7 +163,8 @@ def fused_mbconv(x, w1, b1, wdw, b2, w3, b3):
 
 
 def fused_mbconv_v2(x, w1, b1, wdw, b2, w3, b3):
-    """K12b: the same function with the halo copy double-buffered."""
+    """K12b: the same function on persistent blocks, the next tile's halo
+    loaded under the current one."""
     _check_rows(x)
     if x.is_cuda:
         return _fused_mbconv_cuda(x, w1, b1, wdw, b2, w3, b3, v2=True)

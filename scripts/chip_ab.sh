@@ -12,7 +12,10 @@
 # exponential a score at 16 a clock an SM, at the card's clocks.max.sm),
 # and a hash of K8b's output on seeded inputs (equal in both trees when
 # its bits did not change); K10 (the fused stage-0 MBConv) at 64 and 512
-# images by events and K2 (the stage-2 no-proj fused block) at bucket 16 as
+# images by events with a hash of its output at 64 images on a fixed seed,
+# K12a and K12b (the experimental fused MBConv) at 64 and 256 images by
+# events beside the cuDNN chain of the same function, and K2 (the stage-2
+# no-proj fused block) at bucket 16 as
 # device time (each launch's device time: phase 3's launch_ms lines, K1's
 # too; K9's in phase 13's); K13 (the int8 / bf16 tiled GEMM) at the JAX
 # tool's four shapes as device time with its int8 / bf16 rate; and
@@ -27,7 +30,8 @@
 # run's whole output goes to $AB_OUT/ab_<run>.log (default build/ab_logs);
 # the kernel times and p50s of each are printed.  AB_PHASES=serve runs
 # only the two engines' serving phases (their p50s, which the host's noise
-# moves most), in the same turns.
+# moves most), in the same turns; AB_PHASES=mbconv only the K10 and K12
+# lines.
 set -u
 parent=${1:?usage: chip_ab.sh PARENT_DIR}
 out=$(pwd)/${AB_OUT:-build/ab_logs}
@@ -42,7 +46,49 @@ import torch
 
 import chip_smoke as cs
 
+
+
+def sha(t):
+    import hashlib
+    return hashlib.sha256(t.view(torch.int16).cpu().numpy().tobytes()).hexdigest()[:16]
+
+
+def mbconv_ab():
+    """K10 at 64 and 512 images by events, with a hash of its output at 64
+    images on a fixed seed (equal in both trees when its bits did not
+    change); K12a and K12b at 64 and 256 images of the JAX benchmark's
+    inputs by events, with the cuDNN chain of the same function."""
+    from geoguessr_ai_torch.ops import mbconv
+    from geoguessr_ai_torch.ops.experimental import fused_mbconv as fm
+
+    gen = torch.Generator().manual_seed(5)
+    for images in (64, 512):
+        margs = cs._mbconv_inputs(images, gen)
+        fn = lambda: mbconv._mbconv_cuda(*margs, False)
+        print(f"AB K10 {images} images events_ms {cs.cuda_time_ms(fn):.4f}")
+        if images == 64:
+            out = fn()
+            torch.cuda.synchronize()
+            print(f"AB K10 bits 64 images {sha(out)}")
+            del out
+        del margs
+    gen = torch.Generator().manual_seed(6)
+    for images in (64, 256):
+        args = cs._exp_mbconv_inputs(images, gen)
+        with torch.inference_mode():
+            ms = {k: cs.cuda_time_ms(lambda: fm._fused_mbconv_cuda(*args, v2=v2))
+                  for k, v2 in (("K12a", False), ("K12b", True))}
+            ms["K12 cuDNN chain"] = cs._exp_chain_ms(args)
+        for k, t in ms.items():
+            print(f"AB {k} {images} images events_ms {t:.4f}")
+        del args
+        torch.cuda.empty_cache()
+
+
 cs.phase_device(); cs.phase_build()
+if os.environ.get("AB_PHASES") == "mbconv":
+    mbconv_ab()
+    sys.exit(0)
 if os.environ.get("AB_PHASES") == "serve":
     _, paths, result, _ = cs.phase_serve()
     cs.phase_headmajor_serve(paths, result); cs.phase_clip_serve()
@@ -139,13 +185,8 @@ for W, H in ((1024, 6), (64, 18)):
     torch.cuda.synchronize()
     del q, k, v, hb, out
 
+mbconv_ab()
 gen = torch.Generator().manual_seed(5)
-for images in (64, 512):
-    margs = cs._mbconv_inputs(images, gen)
-    from geoguessr_ai_torch.ops import mbconv
-    fn = lambda: mbconv._mbconv_cuda(*margs, False)
-    print(f"AB K10 {images} images events_ms {cs.cuda_time_ms(fn):.4f}")
-    del margs
 a = cs._case_inputs(64, 1024, 384, 12, gen)
 k2 = (a["x"], a["ln_scale"], a["ln_bias"], a["w_qkv"], a["b_qkv"], a["bias"],
       32 ** -0.5, 12, 1e-5)
@@ -155,7 +196,6 @@ fn = lambda: wa._fb_s2_cuda(*k2)
 print(f"AB K2 (64, 1024, 384) H=12 graph_ms {graph_ms(fn):.4f}")
 del a, k2
 
-import hashlib
 import subprocess
 
 import numpy as np
@@ -193,8 +233,7 @@ for W, H, N in ((1024, 6, 256), (64, 18, 256)):
     hb = torch.from_numpy(rng.standard_normal((H, N, N), dtype=np.float32) * 0.5).to("cuda")
     out = wa._attention_batched_cuda(q, k, v, hb, 32 ** -0.5)
     torch.cuda.synchronize()
-    print(f"AB K8b bits ({W}, {H}, {N}) "
-          f"{hashlib.sha256(out.view(torch.int16).cpu().numpy().tobytes()).hexdigest()[:16]}")
+    print(f"AB K8b bits ({W}, {H}, {N}) {sha(out)}")
 PY
   ) > "$out/ab_$2.log" 2>&1
   echo "== $2 rc=$?"
@@ -205,3 +244,32 @@ run "$parent" parent1
 run . change1
 run . change2
 run "$parent" parent2
+# K10's bf16 kernels (mbconv_sm90<C, EXACT[, PLAIN = false]>) in both trees'
+# libraries, instruction by instruction (cuobjdump's SASS without the
+# addresses): "identical True" when the change compiled K10 to the same code
+python3 - "$parent" <<'PY'
+import glob
+import re
+import subprocess
+import sys
+
+
+def kernels(tree):
+    lib = glob.glob(f"{tree}/build/kernels/mbconv-*.so")[0]
+    sass = subprocess.run(["/usr/local/cuda/bin/cuobjdump", "-sass", lib],
+                          capture_output=True, text=True).stdout
+    parts = re.split(r"\n\s*Function : (\S+)\n", sass)
+    out = {}
+    for name, body in zip(parts[1::2], parts[2::2]):
+        m = re.search(r"mbconv_sm90ILi(\d+)ELb([01])E(?:Lb0E)?E", name)
+        if m:
+            out[m.groups()] = [re.sub(r"/\*[0-9a-f]+\*/", "", l).split(";")[0].strip()
+                               for l in body.splitlines() if re.match(r"\s*/\*[0-9a-f]+\*/", l)]
+    return out
+
+
+old, new = kernels(sys.argv[1]), kernels(".")
+for key in sorted(old):
+    print(f"AB K10 SASS C={key[0]} exact={key[1]}: {len(old[key])} / "
+          f"{len(new.get(key, []))} instructions, identical {old[key] == new.get(key)}")
+PY

@@ -29,7 +29,7 @@ from geoguessr_ai_torch.ops import _build, mbconv  # noqa: E402
 
 _PROJECT = """#pragma unroll
       for (int ks = 0; ks < 4; ++ks) {
-        depthwise_ks<EXACT>(hg, w2, sb2, oy, ox, ks, cc, a[ks]);
+        depthwise_ks<EXACT, PLAIN>(hg, w2, sb2, oy, ox, ks, cc, a[ks]);
         wgmma_fence();
 #pragma unroll
         for (int mt = 0; mt < 2; ++mt) wgmma_rs_k<C>(acc[mt], a[ks][mt], w3d + 2 * ks);
@@ -46,17 +46,17 @@ _EXPAND = """      float d0[32], d1[32];
       issue(d1, 1);
       wgmma_wait<1>();
       fence_regs(d0);
-      expand_epilogue<EXACT>(d0, hbuf, 16 * warp + g, in[0], sb1, cc);
+      expand_epilogue<EXACT, PLAIN>(d0, hbuf, 16 * warp + g, in[0], sb1, cc);
       zero(d0);
       fence_regs(d0);
       wgmma_fence();
       issue(d0, 2);
       wgmma_wait<1>();
       fence_regs(d1);
-      expand_epilogue<EXACT>(d1, hbuf, 64 + 16 * warp + g, in[1], sb1, cc);
+      expand_epilogue<EXACT, PLAIN>(d1, hbuf, 64 + 16 * warp + g, in[1], sb1, cc);
       wgmma_wait<0>();
       fence_regs(d0);
-      expand_epilogue<EXACT>(d0, hbuf, 128 + 16 * warp + g, in[2], sb1, cc);"""
+      expand_epilogue<EXACT, PLAIN>(d0, hbuf, 128 + 16 * warp + g, in[2], sb1, cc);"""
 
 #: name -> (edits of mbconv_sm90.cuh as (old, new), whether the variant
 #: must give the kernel's bits).
@@ -70,7 +70,7 @@ VARIANTS = {
               s1 = h.y * tap[4].y;
             }""")], False),
     "no_expand_bn_gelu": ([(
-        "const uint32_t v = bn_gelu2<EXACT>(d[4 * t + 2 * j], d[4 * t + 2 * j + 1], s, b);",
+        "const uint32_t v = bn_gelu2<EXACT, PLAIN>(d[4 * t + 2 * j], d[4 * t + 2 * j + 1], s, b);",
         "const uint32_t v = pack_bf16(d[4 * t + 2 * j] * s.x, d[4 * t + 2 * j + 1] + b.y);")],
         False),
     "no_project_wgmma": ([(
@@ -80,7 +80,7 @@ VARIANTS = {
     "no_chunk_barrier": ([(
         "      group_sync(c);  // the group's reads of the last chunk are done\n", "")], False),
     "project_once": ([(_PROJECT, """#pragma unroll
-      for (int ks = 0; ks < 4; ++ks) depthwise_ks<EXACT>(hg, w2, sb2, oy, ox, ks, cc, a[ks]);
+      for (int ks = 0; ks < 4; ++ks) depthwise_ks<EXACT, PLAIN>(hg, w2, sb2, oy, ox, ks, cc, a[ks]);
       wgmma_fence();
 #pragma unroll
       for (int ks = 0; ks < 4; ++ks)
@@ -101,13 +101,13 @@ VARIANTS = {
       issue(d2, 2);
       wgmma_wait<2>();
       fence_regs(d0);
-      expand_epilogue<EXACT>(d0, hbuf, 16 * warp + g, in[0], sb1, cc);
+      expand_epilogue<EXACT, PLAIN>(d0, hbuf, 16 * warp + g, in[0], sb1, cc);
       wgmma_wait<1>();
       fence_regs(d1);
-      expand_epilogue<EXACT>(d1, hbuf, 64 + 16 * warp + g, in[1], sb1, cc);
+      expand_epilogue<EXACT, PLAIN>(d1, hbuf, 64 + 16 * warp + g, in[1], sb1, cc);
       wgmma_wait<0>();
       fence_regs(d2);
-      expand_epilogue<EXACT>(d2, hbuf, 128 + 16 * warp + g, in[2], sb1, cc);""")], True),
+      expand_epilogue<EXACT, PLAIN>(d2, hbuf, 128 + 16 * warp + g, in[2], sb1, cc);""")], True),
 }
 
 

@@ -1129,22 +1129,32 @@ def _exp_mbconv_args(B, H, W, device, seed=0, C=96, E=384):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("B,H,W", [(2, 32, 24), (4, 128, 128)])
-def test_cuda_fused_mbconv_exp_matches_plain(cuda_device, B, H, W):
-    """K12a against its plain mirror, and K12b bitwise equal to K12a."""
+@pytest.mark.parametrize("B,H,W,C,E", [(2, 32, 24, 96, 384),
+                                       (4, 128, 128, 96, 384),
+                                       (3, 16, 40, 32, 128),
+                                       (2, 48, 20, 64, 256),
+                                       (1, 16, 10, 32, 64)])
+def test_cuda_fused_mbconv_exp_matches_plain(cuda_device, B, H, W, C, E):
+    """K12a and K12b (the PLAIN kind of K10's Hopper kernel) against their
+    plain mirror at each channel count they take, ragged widths (W not a
+    multiple of the 16-column tile) among them; each bitwise stable over
+    two calls, and K12b bitwise equal to K12a."""
     from geoguessr_ai_torch.ops.experimental import fused_mbconv as fm
 
-    args = _exp_mbconv_args(B, H, W, cuda_device)
+    args = _exp_mbconv_args(B, H, W, cuda_device, C=C, E=E)
     before = dict(fm.LAUNCHES)
     got = fm.fused_mbconv(*args)
     got2 = fm.fused_mbconv_v2(*args)
+    again = fm.fused_mbconv(*args)
+    again2 = fm.fused_mbconv_v2(*args)
     torch.cuda.synchronize()
-    assert fm.LAUNCHES["_fused_mbconv_cuda"] == before["_fused_mbconv_cuda"] + 1
+    assert fm.LAUNCHES["_fused_mbconv_cuda"] == before["_fused_mbconv_cuda"] + 2
     assert (fm.LAUNCHES["_fused_mbconv_v2_cuda"]
-            == before["_fused_mbconv_v2_cuda"] + 1)
+            == before["_fused_mbconv_v2_cuda"] + 2)
     want = fm._fused_mbconv_plain(*args)
     assert got.shape == want.shape and got.dtype == torch.bfloat16
     assert _rel_err(got, want) < KERNEL_REL_TOL
+    assert torch.equal(got, again) and torch.equal(got2, again2)
     assert torch.equal(got, got2)
 
 
@@ -1156,9 +1166,11 @@ def test_cuda_fused_mbconv_exp_refuses_what_the_kernels_do_not_take(
     args = _exp_mbconv_args(1, 24, 16, cuda_device)
     with pytest.raises(ValueError, match="multiple of 16"):
         fm.fused_mbconv(*args)
-    narrow = _exp_mbconv_args(1, 16, 16, cuda_device, C=64)
-    with pytest.raises(ValueError, match="C=96"):
+    before = dict(fm.LAUNCHES)
+    narrow = _exp_mbconv_args(1, 16, 16, cuda_device, C=48, E=192)
+    with pytest.raises(ValueError, match="C in"):
         fm.fused_mbconv_v2(*narrow)
+    assert fm.LAUNCHES == before
 
 
 @pytest.mark.cuda

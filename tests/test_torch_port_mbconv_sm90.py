@@ -7,10 +7,14 @@ against the plain version and the JAX kernel in interpret mode.
 In bf16 ``_mbconv_cuda`` (K10) launches a kernel of persistent blocks over
 16 x 16 output tiles whose two consumer warpgroups each take 8 rows, and
 ``_fb_s2_cuda`` (K2) runs the LayerNorm + GEMM core and then the forward
-core as K3 does.  The f32 twins and the experimental K12a / K12b keep the
-first designs.  The kernels themselves are held against the plain versions
-on the card by tests/test_torch_port_cuda.py (``-k "mbconv_sm90 or
-fb_s2"``) and chip_smoke.py.
+core as K3 does.  The f32 twins keep the first designs.  The experimental
+K12a / K12b run K10's kernel in its PLAIN kind (plain biases, f32 taps,
+only GELU's outputs rounded): their routing, their shape checks and a
+torch emulation of that rounding order against the plain version and the
+JAX kernels in interpret mode are here too.  The kernels themselves are
+held against the plain versions on the card by
+tests/test_torch_port_cuda.py (``-k "mbconv_sm90 or fb_s2 or
+fused_mbconv_exp"``) and chip_smoke.py.
 """
 
 import re
@@ -26,6 +30,7 @@ from geoguessr_ai_tpu.ops import mbconv as jmb
 from geoguessr_ai_torch.ops import _build
 from geoguessr_ai_torch.ops import mbconv as tmb
 from geoguessr_ai_torch.ops import window_attention as wa
+from geoguessr_ai_torch.ops.experimental import fused_mbconv as tfm
 
 MB90 = _build.CSRC / "mbconv_sm90.cuh"
 LNG90 = _build.CSRC / "ln_gemm_sm90.cuh"
@@ -179,13 +184,38 @@ def test_k10_routes_bf16_to_the_hopper_kernel_and_f32_to_the_twin(
         assert "gg::mb::run<float>(" in body and "mb90" not in body
 
 
-def test_k12_entries_keep_the_first_design():
-    """K12a and K12b share mbconv.cuh with K10's f32 twin and do not
-    include the Hopper kernel; K10's library includes both headers."""
+def _entry_body(src, entry):
+    """An extern "C" entry's parameters and body with its whitespace
+    collapsed."""
+    m = re.search(r'extern "C" int ' + entry + r"\((.*?)\n\}", src, re.S)
+    assert m, entry
+    return " ".join(m.group(1).split())
+
+
+def test_k12_entries_run_the_plain_kind_of_the_hopper_kernel():
+    """K12a and K12b include K10's Hopper kernel and not the first design;
+    their two entries differ only in the grid (K12a a block a tile, K12b
+    persistent blocks), each channel count running the PLAIN kind with the
+    tanh GELU; the first design's header has no K12 path left and its
+    pipelined kernel is gone."""
     exp = (_build.CSRC / "fused_mbconv_exp.cu").read_text()
-    assert '#include "mbconv.cuh"' in exp and "mbconv_sm90" not in exp
-    for entry in ("fused_mbconv_bf16", "fused_mbconv_v2_bf16"):
-        assert re.search(r'extern "C" int ' + entry + r"\(", exp)
+    assert '#include "mbconv_sm90.cuh"' in exp
+    assert '#include "mbconv.cuh"' not in exp
+    a = _entry_body(exp, "fused_mbconv_bf16")
+    b = _entry_body(exp, "fused_mbconv_v2_bf16")
+    assert a.endswith("W, C, E, true, stream);")
+    assert b.endswith("W, C, E, false, stream);")
+    assert a[:-len("true, stream);")] == b[:-len("false, stream);")]
+    for c in (32, 64, 96):
+        assert re.search(r"gg::mb90::run<%d, true>\(.*?, false,\s+s, one_tile_a_block\)" % c,
+                         exp, re.S), c
+    old = (_build.CSRC / "mbconv.cuh").read_text()
+    assert "PLAIN" not in old and "round_unless" not in old
+    assert not any("mbconv_pipelined_kernel" in f.read_text()
+                   for f in _build.CSRC.iterdir())
+    mb90 = MB90.read_text()
+    assert "template <int C, bool EXACT, bool PLAIN>\n__global__" in mb90
+    assert "return launch<C, false, true>(" in mb90
     k10 = (_build.CSRC / "mbconv.cu").read_text()
     assert '#include "mbconv.cuh"' in k10 and '#include "mbconv_sm90.cuh"' in k10
 
@@ -425,7 +455,7 @@ def test_k10_gelu_form_is_torchs_tanh_gelu():
     ("void gg::(anonymous namespace)::ln_gemm_kernel<float, false, false>("
      "float const*, float const*, float const*, float const*, float const*, "
      "float*, int, int, int, float)", "LN+GEMM (f32 K1/K2/K9 CUDA)"),
-    ("void gg::mb90::(anonymous namespace)::mbconv_sm90<96, false>("
+    ("void gg::mb90::(anonymous namespace)::mbconv_sm90<96, false, false>("
      "CUtensorMap, CUtensorMap, CUtensorMap, CUtensorMap, CUtensorMap, "
      "CUtensorMap, CUtensorMap, CUtensorMap, __nv_bfloat16 const*, float "
      "const*, __nv_bfloat16*, gg::mb90::(anonymous namespace)::Tiles, int, "
@@ -439,3 +469,146 @@ def test_profile_groups_name_the_new_kernels(kernel_name, group):
     from geoguessr_ai_torch import profile_forward
 
     assert profile_forward._group(kernel_name) == group
+
+
+# ---------------------------------------------------------------------------
+# K12a / K12b: the PLAIN kind of K10's kernel
+# ---------------------------------------------------------------------------
+
+
+def _emulate_k12(x, w1, b1, wdw, b2, w3, b3):
+    """The PLAIN kind's rounding order on bf16 x with the kernel's GELU:
+    the expand summed in f32 + b1, GELU, rounded, zero where the halo pixel
+    is padding; the depthwise MACs in f32 over the f32 taps in (di, dj)
+    order, + b2, GELU, rounded; the project in f32 + b3, the residual
+    added in f32, GELU, rounded once."""
+    B, H, W, C = x.shape
+    E = w1.shape[1]
+    xf = x.float()
+    h = _bf(_gelu_kernel(xf @ _bf(w1) + b1, False))
+    hp = torch.nn.functional.pad(h, (0, 0, 1, 1, 1, 1))
+    taps = wdw.reshape(9, E).float()
+    acc = torch.zeros(B, H, W, E)
+    for di in range(3):
+        for dj in range(3):
+            acc = acc + hp[:, di:di + H, dj:dj + W] * taps[3 * di + dj]
+    y = _bf(_gelu_kernel(acc + b2, False))
+    return _bf(_gelu_kernel(xf + (y @ _bf(w3) + b3), False))
+
+
+def _k12_case(seed, C, B=1, H=16, W=10, E=64):
+    """x, w1, b1, wdw, b2, w3, b3 as f32 numpy: a 16 x 10 map (a ragged
+    column tile), x * 0.5, the rest scaled as the JAX benchmark's."""
+    rng = np.random.default_rng(seed)
+
+    def n(*shape, std):
+        return rng.normal(0, std, shape).astype(np.float32)
+
+    return [n(B, H, W, C, std=0.5), n(C, E, std=C ** -0.5), n(E, std=0.1),
+            n(3, 3, E, std=1 / 3), n(E, std=0.1), n(E, C, std=E ** -0.5),
+            n(C, std=0.1)]
+
+
+def _k12_torch(arrs):
+    """x and the 1x1 weights in bf16, the taps and biases f32, as the JAX
+    benchmark holds them."""
+    return [torch.from_numpy(a).to(torch.bfloat16 if i in (0, 1, 5)
+                                   else torch.float32)
+            for i, a in enumerate(arrs)]
+
+
+@pytest.mark.parametrize("C", [32, 96])
+def test_k12_emulation_matches_plain_and_the_jax_kernels(C):
+    """On one seeded bf16 input (a 16 x 10 map, E = 64) the emulation of
+    the PLAIN kind's rounding order with the kernel's GELU against
+    ``_fused_mbconv_plain`` and the JAX ``fused_mbconv`` / ``fused_mbconv_v2``
+    in interpret mode, within the card tests' 2e-2 of the output's range."""
+    from jax.experimental.pallas import tpu as pltpu
+
+    from geoguessr_ai_tpu.ops.experimental import fused_mbconv as jfm
+
+    arrs = _k12_case(7, C)
+    targs = _k12_torch(arrs)
+    got = _emulate_k12(*targs)
+    plain = tfm._fused_mbconv_plain(*targs).float()
+    jargs = [jnp.asarray(a, jnp.bfloat16 if i in (0, 1, 5) else jnp.float32)
+             for i, a in enumerate(arrs)]
+    with pltpu.force_tpu_interpret_mode():
+        wants = [np.asarray(f(*jargs).astype(jnp.float32))
+                 for f in (jfm.fused_mbconv, jfm.fused_mbconv_v2)]
+
+    def rel(a, b):
+        a, b = np.asarray(a, np.float32), np.asarray(b, np.float32)
+        return float(np.abs(a - b).max() / np.abs(b).max())
+
+    assert got.shape == plain.shape == wants[0].shape == arrs[0].shape
+    assert rel(got, plain) < KERNEL_REL_TOL
+    for want in wants:
+        assert rel(got, want) < KERNEL_REL_TOL
+        assert rel(plain, want) < KERNEL_REL_TOL
+
+
+@pytest.mark.parametrize("v2", [False, True], ids=["K12a", "K12b"])
+@pytest.mark.parametrize("C", [32, 64, 96])
+def test_k12_routes_to_its_entry_with_f32_taps_and_ones(monkeypatch, C, v2):
+    """A bf16 call reaches ``fused_mbconv_bf16`` (K12a) or
+    ``fused_mbconv_v2_bf16`` (K12b) with (B, H, W, C, E, stream) after the
+    pointers and one launch of its own; the taps go as given in f32 (not
+    rounded to bf16, as K10's wrapper rounds them) and each bias as a row
+    of ones over the bias."""
+    calls = _fake_card(monkeypatch, tfm)
+    checked = {}
+    host_check = tfm._check
+    monkeypatch.setattr(tfm, "_check", lambda name, t, *a: checked.setdefault(
+        name, host_check(name, t, *a)))
+    B, H, W, E = 2, 32, 20, 128
+    targs = _k12_torch(_k12_case(3, C, B=B, H=H, W=W, E=E))
+    tfm.reset_launches()
+    out = tfm._fused_mbconv_cuda(*targs, v2=v2)
+    assert out.shape == (B, H, W, C) and out.dtype == torch.bfloat16
+    name = "_fused_mbconv_v2_cuda" if v2 else "_fused_mbconv_cuda"
+    assert tfm.LAUNCHES == {**{k: 0 for k in tfm.LAUNCHES}, name: 1}
+    ((lib, entry, tail),) = calls
+    assert lib == "fused_mbconv_exp"
+    assert entry == ("fused_mbconv_v2_bf16" if v2 else "fused_mbconv_bf16")
+    assert tail == (B, H, W, C, E, 0)
+    taps = targs[3].reshape(9, E)
+    assert torch.equal(checked["wdw"], taps)
+    assert not torch.equal(checked["wdw"], taps.to(torch.bfloat16).float())
+    for key, bias in (("b1", targs[2]), ("b2", targs[4]), ("b3", targs[6])):
+        assert torch.equal(checked[key], torch.stack([torch.ones_like(bias),
+                                                      bias]))
+    assert torch.equal(checked["w1"], targs[1].t())
+    assert torch.equal(checked["w3"], targs[5].t())
+
+
+@pytest.mark.parametrize("B,H,W,C,E,match", [
+    (1, 16, 16, 48, 192, "C in"),      # a channel count the kernel has no box for
+    (1, 16, 16, 96, 96, "E a multiple"),  # E off the 64-channel chunk
+    (1, 24, 16, 96, 384, "multiple of 16"),  # H off the Pallas row strip
+])
+def test_k12_refuses_what_the_kernels_do_not_take(monkeypatch, B, H, W, C,
+                                                  E, match):
+    """``_check_kernel_shapes`` refuses C = 48, E = 96 and H = 24 without a
+    card, and the wrapper raises before any launch."""
+    with pytest.raises(ValueError, match=match):
+        tfm._check_kernel_shapes(B, H, W, C, E)
+    calls = _fake_card(monkeypatch, tfm)
+    targs = _k12_torch(_k12_case(1, C, B=B, H=H, W=W, E=E))
+    tfm.reset_launches()
+    for v2 in (False, True):
+        with pytest.raises(ValueError, match=match):
+            tfm._fused_mbconv_cuda(*targs, v2=v2)
+    assert not calls and not any(tfm.LAUNCHES.values())
+
+
+def test_k12_takes_every_shape_of_its_contract():
+    """Each C of KERNEL_CHANNELS, E from 64, ragged H (a multiple of 16)
+    and W pass the shape check, up to 2^31 - 1 tiles and not beyond."""
+    for C in tfm.KERNEL_CHANNELS:
+        for E in (64, 128, 384):
+            tfm._check_kernel_shapes(2, 32, 10, C, E)
+    assert tfm.MAX_TILES == 2 ** 31 - 1
+    tfm._check_kernel_shapes(tfm.MAX_TILES, 16, 16, 32, 64)
+    with pytest.raises(ValueError, match="tiles"):
+        tfm._check_kernel_shapes(tfm.MAX_TILES, 16, 17, 32, 64)
