@@ -154,7 +154,20 @@ Phases, in order; any failure exits non-zero:
     crash: no shared-memory opt-in) and ``probe_v64`` (must print s = 21.0
     after one launch) in subprocesses; then the kernel against its plain
     version, timed beside ``torch.mul`` and its 2.50 us bound;
-28. print the kernel JSON line, then ``{"ok": true, "device": ...}`` last.
+28. the rest of the guess path: (a) the seeded engine's weights written
+    as a reference .pt by the port's exporters and served by
+    ``ServingEngine(checkpoint=)`` (backbone loaded), bitwise equal to the
+    seeded engine on the fixture panorama; (c) fixture views decoded at
+    640 and 384 px and resized on the card against the CPU f32 engine, and
+    the resize's cost at 16 panoramas; (b) the hierarchical engine (16
+    heads at D = 576): exact K1-K3 launches of phase 4 over two forwards,
+    logits against its CPU f32 twin with and without masks, p50s at
+    buckets 1 and 16 beside mean fusion; (d) ProtoRefiner at full scale
+    (12647 cells x 8 prototypes x 576, 16 f16 members of 64 dims each) at
+    B = 16, card against CPU, with and without members, timed; (e)
+    ``run_benchmark`` with the .pt on a fixture SQLite; (f) the HTTP
+    handlers serving 8 concurrent submissions through the MicroBatcher;
+29. print the kernel JSON line, then ``{"ok": true, "device": ...}`` last.
 
 Times: ``kernel_ms`` times a kernel or a library call by 10 (or 50)
 launches between two CUDA events; where that reads under SHORT_MS (0.5
@@ -1715,6 +1728,21 @@ EMBED_LAUNCHES_PER_FORWARD = {"K10": 2, "K9": 2, "K1": 2, "K2": 6, "K3": 0,
                               "K4": 0, "K5": 0}
 
 
+def _write_fixture_sqlite(path, blobs, rows):
+    """A raw SQLite dataset of ``rows`` images: the four fixture JPEGs
+    repeated, four headings a location at seeded coordinates."""
+    from geoguessr_ai_torch.data.sqlite_dataset import (
+        create_sqlite_from_records,
+    )
+
+    rng = np.random.default_rng(SEED)
+    coords = rng.uniform((-60.0, -180.0), (70.0, 180.0), (rows // 4 + 1, 2))
+    create_sqlite_from_records(path, (
+        {"location_id": f"loc{i // 4:05d}", "lat": coords[i // 4, 0],
+         "lon": coords[i // 4, 1], "heading": 90 * (i % 4),
+         "image": blobs[i % 4]} for i in range(rows)))
+
+
 def _embedder_p50(emb, images, label):
     """p50 of Embedder.__call__ on a fixed host batch (1 warm-up, 5 timed),
     and the peak device memory over those calls."""
@@ -1737,27 +1765,18 @@ def phase_embed(paths):
         bulk_embed_config,
     )
     from geoguessr_ai_torch.data.pipeline import decode_jpeg
-    from geoguessr_ai_torch.data.sqlite_dataset import (
-        create_sqlite_from_records,
-        read_embeddings,
-    )
+    from geoguessr_ai_torch.data.sqlite_dataset import read_embeddings
 
     blobs = []
     for p in paths:
         with open(p, "rb") as f:
             blobs.append(f.read())
-    rng = np.random.default_rng(SEED)
-    coords = rng.uniform((-60.0, -180.0), (70.0, 180.0),
-                         (EMBED_ROWS // 4 + 1, 2))
     bb = BackboneConfig.tinyvit()
     emb = Embedder(bb, model_config=bulk_embed_config(), seed=SEED)
     with tempfile.TemporaryDirectory() as tmp:
         src = os.path.join(tmp, "raw.sqlite")
         out = os.path.join(tmp, "emb.sqlite")
-        create_sqlite_from_records(src, (
-            {"location_id": f"loc{i // 4:05d}", "lat": coords[i // 4, 0],
-             "lon": coords[i // 4, 1], "heading": 90 * (i % 4),
-             "image": blobs[i % 4]} for i in range(EMBED_ROWS)))
+        _write_fixture_sqlite(src, blobs, EMBED_ROWS)
         telemetry = []
         torch.cuda.synchronize()
         _reset_all_launches()
@@ -2755,10 +2774,7 @@ def phase_static_embed(paths):
         static_config,
     )
     from geoguessr_ai_torch.data.pipeline import decode_jpeg
-    from geoguessr_ai_torch.data.sqlite_dataset import (
-        create_sqlite_from_records,
-        read_embeddings,
-    )
+    from geoguessr_ai_torch.data.sqlite_dataset import read_embeddings
 
     bb = BackboneConfig.tinyvit()
     blobs = [open(p, "rb").read() for p in paths]
@@ -2823,16 +2839,10 @@ def phase_static_embed(paths):
     gc.collect()
     torch.cuda.empty_cache()
 
-    rng = np.random.default_rng(SEED)
-    coords = rng.uniform((-60.0, -180.0), (70.0, 180.0),
-                         (EMBED_ROWS // 4 + 1, 2))
     with tempfile.TemporaryDirectory() as tmp:
         src = os.path.join(tmp, "raw.sqlite")
         dst = os.path.join(tmp, "emb.sqlite")
-        create_sqlite_from_records(src, (
-            {"location_id": f"loc{i // 4:05d}", "lat": coords[i // 4, 0],
-             "lon": coords[i // 4, 1], "heading": 90 * (i % 4),
-             "image": blobs[i % 4]} for i in range(EMBED_ROWS)))
+        _write_fixture_sqlite(src, blobs, EMBED_ROWS)
         torch.cuda.synchronize()
         _reset_all_launches()
         t0 = time.perf_counter()
@@ -3326,7 +3336,365 @@ def phase_smem_probe():
 
 
 # ---------------------------------------------------------------------------
-# Phase 28: the kernels line
+# Phase 28: the rest of the guess path: checkpoint, resize, hierarchical
+# fusion, member-bank refinement, the benchmark and the HTTP handlers
+# ---------------------------------------------------------------------------
+
+#: The full-scale refinement bank: the repo's 12647 cells, 8 prototypes a
+#: cell at D = 576 (f32), 16 members a prototype reduced to 64 dims (f16).
+BANK_PROTOS, BANK_MEMBERS, BANK_REDUCED = 8, 16, 64
+REFINE_BATCH = 16
+#: Concurrent submissions through the HTTP handlers.
+API_SUBMISSIONS = 8
+#: Panoramas benchmarked from the fixture SQLite's test split.
+BENCH_SAMPLES = 16
+
+
+def _export_reference_pt(model, config, path):
+    """Writes a SuperGuessr's weights as the reference .pt layout through
+    the port's exporters: the head by super_guessr_head_to_reference, the
+    TinyViT by tinyvit_to_timm under ``base_model.backbone.``."""
+    from geoguessr_ai_torch import config as C
+    from geoguessr_ai_torch.models.convert import to_jax_variables
+    from geoguessr_ai_torch.models.torch_convert import (
+        super_guessr_head_to_reference,
+        tinyvit_to_timm,
+    )
+
+    v = to_jax_variables(model.state_dict(), num_heads=C.NUM_ATTENTION_HEADS)
+    sd = super_guessr_head_to_reference(v["params"], C.NUM_ATTENTION_HEADS)
+    bb = tinyvit_to_timm({"params": v["params"]["backbone"],
+                          "batch_stats": v["batch_stats"]["backbone"]},
+                         config)
+    sd.update({f"base_model.backbone.{k}": a for k, a in bb.items()})
+    torch.save({"model_state_dict": {k: torch.from_numpy(a)
+                                     for k, a in sd.items()}}, path)
+    return len(sd)
+
+
+def _same_results(a, b):
+    return all(np.array_equal(x.embedding, y.embedding)
+               and (x.lat, x.lon, x.top_ids, x.top_probs)
+               == (y.lat, y.lon, y.top_ids, y.top_probs)
+               for x, y in zip(a, b))
+
+
+def _model_logits(engine, views, mask):
+    """The engine's model on (B, V, H, W, 3) views: f32 logits."""
+    dev = engine.device
+    pixels = _preprocess(engine, views)
+    with torch.inference_mode():
+        _, logits = engine.model(
+            pixels, view_mask=None if mask is None
+            else torch.from_numpy(mask).to(dev))
+    return logits.float().cpu().numpy()
+
+
+def _preprocess(engine, views):
+    from geoguessr_ai_torch.ops.preprocess import fused_preprocess
+
+    return fused_preprocess(torch.from_numpy(views).to(engine.device),
+                            *engine.norm, engine.image_size,
+                            dtype=engine.config.dtype)
+
+
+def _guess_checkpoint(tmp, paths):
+    """(a) A .pt of the seeded weights, loaded into an engine of another
+    seed, answers bitwise as the seeded engine does."""
+    from geoguessr_ai_torch.models.tinyvit import TinyViTConfig
+    from geoguessr_ai_torch.serving.engine import ServingEngine
+
+    cpu = ServingEngine(device="cpu", seed=SEED,
+                        backbone_config=TinyViTConfig(dtype=torch.float32))
+    pt = os.path.join(tmp, "model.pt")
+    n = _export_reference_pt(cpu.model, cpu.config, pt)
+    t0 = time.perf_counter()
+    engine = ServingEngine(checkpoint=pt, seed=SEED + 1)
+    load_s = time.perf_counter() - t0
+    seeded = ServingEngine(seed=SEED)
+    _, views = _fixture_views(engine)
+    batch = np.repeat(views[None], 16, axis=0)
+    mask = np.ones((16, 4), np.float32)
+    mask[1::2, 2:] = 0.0
+    same = (_same_results([engine.predict_images(paths)],
+                          [seeded.predict_images(paths)])
+            and _same_results(engine.predict_batch(batch, mask),
+                              seeded.predict_batch(batch, mask)))
+    log(f"(a) checkpoint: {n} tensors written by tinyvit_to_timm and "
+        f"super_guessr_head_to_reference ({os.path.getsize(pt) / 1e6:.1f} "
+        f"MB), ServingEngine(checkpoint=) built in {load_s:.2f} s, loaded "
+        f"{engine.loaded}; fixture outputs bitwise equal to the seeded "
+        f"engine's (bucket 1, and 16 with masks) {same}")
+    if engine.loaded != {"head": 1, "backbone": True}:
+        fail(f"checkpoint engine loaded {engine.loaded}")
+    if not same:
+        fail("the checkpoint engine's outputs differ from the seeded engine's")
+    del seeded
+    return engine, cpu, pt
+
+
+def _guess_resize(engine, cpu, blobs):
+    """(c) Views decoded at 640 and 384 px, resized on the device, against
+    the CPU f32 engine resizing the same views; the resize's cost."""
+    from geoguessr_ai_torch.data.pipeline import decode_jpeg
+    from geoguessr_ai_torch.ops.preprocess import fused_preprocess
+
+    for size in (640, 384):
+        views = np.stack([decode_jpeg(b, size) for b in blobs])[None]
+        got = engine.predict_batch(views)[0]
+        ref = cpu.predict_batch(views)[0]
+        cos = _view_cosines(got.embedding, ref.embedding)
+        log(f"(c) views decoded at {size} x {size}, resized to 512 on the "
+            f"device: min view cosine to the CPU f32 engine {cos.min():.6f} "
+            f"(>= {MIN_COSINE}), top-1 cell gpu {got.top_ids[0]} cpu "
+            f"{ref.top_ids[0]}")
+        if cos.min() < MIN_COSINE or got.top_ids[0] != ref.top_ids[0]:
+            fail(f"resized {size} px views disagree with the CPU f32 engine")
+    host = {size: np.repeat(np.stack([decode_jpeg(b, size) for b in blobs])
+                            [None], 16, axis=0) for size in (640, 512)}
+    dev = {size: torch.from_numpy(v).cuda() for size, v in host.items()}
+    mean, std = engine.norm
+    resize_ms = cuda_time_ms(lambda: fused_preprocess(dev[640], mean, std,
+                                                      512))
+    same_ms = cuda_time_ms(lambda: fused_preprocess(dev[512], mean, std, 512))
+    p640 = _p50_ms(lambda: engine.predict_batch(host[640]), reps=10)
+    p512 = _p50_ms(lambda: engine.predict_batch(host[512]), reps=10)
+    log(f"(c) fused_preprocess of 16 panoramas (64 views): 640 -> 512 "
+        f"{resize_ms:.4f} ms, 512 (no resize) {same_ms:.4f} ms; "
+        f"predict_batch p50 at 640 px {p640:.2f} ms, at 512 px {p512:.2f} ms")
+    return {"resize_ms": resize_ms, "same_size_ms": same_ms,
+            "p50_640_ms": p640, "p50_512_ms": p512}
+
+
+def _guess_hierarchical(paths, views, mean_engine):
+    """(b) The hierarchical engine (D = 576, 16 heads) against its CPU f32
+    twin, its exact K1-K3 launches and its p50s beside mean fusion."""
+    from geoguessr_ai_torch.models.tinyvit import TinyViTConfig
+    from geoguessr_ai_torch.ops import window_attention as wa
+    from geoguessr_ai_torch.serving.engine import ServingEngine
+
+    hier = ServingEngine(seed=SEED, hierarchical=True)
+    cpu = ServingEngine(device="cpu", seed=SEED, hierarchical=True,
+                        backbone_config=TinyViTConfig(dtype=torch.float32))
+    batch = np.repeat(views[None], 16, axis=0)
+    mask16 = np.ones((16, 4), np.float32)
+    mask16[1::2, 2:] = 0.0
+    hier.predict_batch(batch, mask16)  # warm-up
+    torch.cuda.synchronize()
+    wa.reset_launches()
+    one = hier.predict_images(paths)  # no mask: token 0
+    sixteen = hier.predict_batch(batch, mask16)
+    torch.cuda.synchronize()
+    launches = {k: wa.LAUNCHES[KERNEL_META[k][0]] for k in KERNEL_META}
+    want = {k: 2 * n for k, n in LAUNCHES_PER_FORWARD.items()}
+    finite = all(np.isfinite(r.embedding).all() and np.isfinite(r.top_probs)
+                 .all() for r in [one] + sixteen)
+    log(f"(b) hierarchical engine: launches over predict_images and one "
+        f"bucket-16 predict_batch {launches} (expected {want}); finite "
+        f"{finite}")
+    if launches != want or not finite:
+        fail("hierarchical engine: wrong launches or non-finite output")
+    # three fusion cases: every view, two real views, one real view; and
+    # predict_images' unmasked token 0
+    rows = np.repeat(views[None], 3, axis=0)
+    mask3 = np.array([[1, 1, 1, 1], [1, 1, 0, 0], [1, 0, 0, 0]], np.float32)
+    t0 = time.perf_counter()
+    cases = [(rows, mask3), (views[None], None)]
+    worst, same_top1 = 1.0, True
+    for v, m in cases:
+        g, c = _model_logits(hier, v, m), _model_logits(cpu, v, m)
+        for gi, ci in zip(g, c):
+            worst = min(worst, float(_view_cosines(gi[None], ci[None])[0]))
+            same_top1 &= int(gi.argmax()) == int(ci.argmax())
+    same_top1 &= one.top_ids[0] == int(c[0].argmax())
+    log(f"(b) hierarchical gpu bf16 vs cpu f32 logits: min cosine "
+        f"{worst:.6f} (>= {MIN_COSINE}) over 4 views, 2 views, 1 view and "
+        f"unmasked token 0; same top-1 {same_top1} "
+        f"({time.perf_counter() - t0:.1f} s)")
+    if worst < MIN_COSINE or not same_top1:
+        fail("the hierarchical engine disagrees with its CPU f32 twin")
+    p50 = {}
+    for bucket in (1, 16):
+        b = np.repeat(views[None], bucket, axis=0)
+        for label, eng in (("hierarchical", hier), ("mean", mean_engine)):
+            p50[(label, bucket)] = _p50_ms(lambda: eng.predict_batch(b),
+                                           reps=10)
+        log(f"(b) bucket {bucket}: p50 hierarchical "
+            f"{p50[('hierarchical', bucket)]:.2f} ms, mean fusion "
+            f"{p50[('mean', bucket)]:.2f} ms")
+    del hier, cpu
+    return launches, p50
+
+
+def _guess_refine():
+    """(d) ProtoRefiner at full scale, B = 16, with and without the member
+    bank, on the card and on the CPU: equal cells and choices; times."""
+    from geoguessr_ai_torch import config as C
+    from geoguessr_ai_torch.geocells.manager import CentroidTable
+    from geoguessr_ai_torch.models import proto_refiner as pr
+
+    cells = CentroidTable.load(C.CENTROID_TABLE_PATH).num_cells
+    D, P, M, R, B = 576, BANK_PROTOS, BANK_MEMBERS, BANK_REDUCED, REFINE_BATCH
+    rng = np.random.default_rng(SEED + 16)
+    t0 = time.perf_counter()
+    emb = rng.standard_normal((cells, P, D), np.float32)
+    centre = rng.uniform((-170.0, -55.0), (170.0, 70.0), (cells, 1, 2))
+    coords = (centre + rng.uniform(-1, 1, (cells, P, 2))).astype(np.float32)
+    mask = (rng.random((cells, P)) > 0.25).astype(np.float32)
+    proj = pr.make_projection(D, R, seed=SEED)
+    members = rng.standard_normal((cells, P, M, R), np.float32).astype(
+        np.float16)
+    mcoords = (coords[:, :, None] + rng.uniform(-0.3, 0.3, (cells, P, M, 2))
+               ).astype(np.float32)
+    mmask = (rng.random((cells, P, M)) > 0.2).astype(np.float32)
+    ids = np.stack([rng.choice(cells, 5, replace=False) for _ in range(B)])
+    probs = rng.dirichlet(np.ones(5), B).astype(np.float32)
+    query = (emb[ids[:, 1], 0] + rng.normal(0, 0.3, (B, D))).astype(np.float32)
+    # the guess sits near the candidate the query resembles: the
+    # refinement moves it there unless candidate 1 was already top-1
+    init = (centre[ids[:, 1], 0] + rng.uniform(-2, 2, (B, 2))).astype(
+        np.float32)
+    # how far apart the nearest and second nearest members are, in the
+    # projected f32 distances of each candidate's best prototype
+    d = np.linalg.norm(emb[ids] - query[:, None, None], axis=-1)
+    best_p = np.where(mask[ids] > 0, d, np.inf).argmin(-1)
+    q = query.astype(np.float64) @ proj
+    gaps = []
+    for b in range(B):
+        for k in range(5):
+            sel = mmask[ids[b, k], best_p[b, k]] > 0
+            md2 = np.sort(((members[ids[b, k], best_p[b, k]].astype(
+                np.float64) - q[b]) ** 2).sum(-1)[sel])
+            if len(md2) > 1:
+                gaps.append((md2[1] - md2[0]) / md2[1])
+    bank = pr.PrototypeBank(emb, coords, mask)
+    mbank = pr.MemberBank(members, mcoords, mmask, proj)
+    mb = (emb.nbytes + coords.nbytes + mask.nbytes) / 1e6
+    mmb = (members.nbytes + mcoords.nbytes + mmask.nbytes) / 1e6
+    log(f"(d) bank {cells} cells x {P} prototypes x {D} f32 ({mb:.0f} MB), "
+        f"members {M} x {R} f16 ({mmb:.0f} MB), made in "
+        f"{time.perf_counter() - t0:.1f} s; nearest members ahead of the "
+        f"second by at least {min(gaps):.3g} of the squared distance")
+    out = {}
+    for label, members_ in (("prototypes", None), ("members", mbank)):
+        gpu = pr.ProtoRefiner(bank, member_bank=members_)
+        cpu = pr.ProtoRefiner(bank, member_bank=members_, device="cpu")
+        g = gpu(query, ids, probs, init)
+        c = cpu(query, ids, probs, init)
+        equal = (np.array_equal(g[1], c[1]) and np.array_equal(g[2], c[2]))
+        dc = float(np.abs(g[0] - c[0]).max())
+        args = [torch.as_tensor(a, device="cuda") for a in (
+            query, ids.astype(np.int64), probs, init)]
+
+        def call(gpu=gpu, args=args):
+            return pr.refine(gpu._emb, gpu._coords, gpu._mask, *args,
+                             **gpu._members)
+
+        ms = cuda_time_ms(call, iters=20)
+        p50 = _p50_ms(lambda gpu=gpu: gpu(query, ids, probs, init), reps=20)
+        log(f"(d) refine B={B} with {label}: cells and choices equal to the "
+            f"CPU {equal} ({int(g[2].sum())} of {B} changed), max |coords "
+            f"gpu - cpu| {dc:.3g} deg; refine {ms:.4f} ms on the device, "
+            f"ProtoRefiner call p50 {p50:.3f} ms (numpy in and out)")
+        if not equal or dc > 1e-3 or not g[2].any():
+            fail(f"refine with {label}: the card and the CPU disagree, or "
+                 "no guess changed")
+        out[label] = {"refine_ms": ms, "call_p50_ms": p50,
+                      "changed": int(g[2].sum())}
+        del gpu, cpu
+    return out
+
+
+def _guess_benchmark(tmp, blobs, pt):
+    """(e) run_benchmark on a fixture SQLite with the checkpoint."""
+    from geoguessr_ai_torch.run_benchmark import run_benchmark
+
+    src = os.path.join(tmp, "raw.sqlite")
+    _write_fixture_sqlite(src, blobs, EMBED_ROWS)
+    out = os.path.join(tmp, "bench.json")
+    t0 = time.perf_counter()
+    summary = run_benchmark(num_samples=BENCH_SAMPLES, sqlite_path=src,
+                            output_path=out, checkpoint=pt)
+    wall = time.perf_counter() - t0
+    with open(out) as f:
+        records = json.load(f)
+    log(f"(e) run_benchmark: {summary} in {wall:.2f} s (engine build and "
+        f"{len(records) - 1} records included)")
+    if summary["num_samples"] != BENCH_SAMPLES or not all(
+            np.isfinite(summary[k]) for k in (
+                "avg_distance_km", "median_distance_km", "avg_score",
+                "avg_top1_prob")):
+        fail(f"run_benchmark summary {summary}")
+    return wall
+
+
+def _guess_api(engine, blobs, paths):
+    """(f) The HTTP handlers: API_SUBMISSIONS concurrent submissions of the
+    fixture panorama through the MicroBatcher on the card."""
+    from geoguessr_ai_torch.ops import window_attention as wa
+    from geoguessr_ai_torch.serving.api import GuessApi
+
+    api = GuessApi(engine=engine)
+    batcher = api.get_batcher()
+    api.warmup_thread.join()
+    before = dict(batcher.batch_sizes)
+    sids = [api.submit_image(list(blobs))["submission_id"]
+            for _ in range(API_SUBMISSIONS)]
+    torch.cuda.synchronize()
+    wa.reset_launches()
+    t0 = time.perf_counter()
+    with cf.ThreadPoolExecutor(API_SUBMISSIONS) as pool:
+        preds = list(pool.map(api.prediction, sids))
+    wall = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    launches = {k: wa.LAUNCHES[KERNEL_META[k][0]] for k in KERNEL_META}
+    batches = sum(batcher.batch_sizes.values()) - sum(before.values())
+    want = engine.predict_images(paths)
+    cached = all(api.prediction(s) is p for s, p in zip(sids, preds))
+    same = all(p["top"][0]["geocell_index"] == want.top_ids[0]
+               for p in preds)
+    finite = all(np.isfinite([p["lat"], p["lon"]]).all() for p in preds)
+    log(f"(f) API: {API_SUBMISSIONS} concurrent submissions answered in "
+        f"{wall:.3f} s in {batches} batches ({batcher.batch_sizes}); "
+        f"launches {launches}; top-1 as predict_images {same}; cached on a "
+        f"second poll {cached}; finite {finite}")
+    if not (same and cached and finite and batches >= 1):
+        fail("the HTTP handlers' predictions are wrong")
+    for k, per in LAUNCHES_PER_FORWARD.items():
+        if launches[k] != per * batches:
+            fail(f"API path: {k} launched {launches[k]} times, expected "
+                 f"{per} per forward x {batches}")
+    return launches
+
+
+def phase_guess_path(paths):
+    blobs = []
+    for p in paths:
+        with open(p, "rb") as f:
+            blobs.append(f.read())
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        engine, cpu, pt = _guess_checkpoint(tmp, paths)
+        _, views = _fixture_views(engine)
+        resize = _guess_resize(engine, cpu, blobs)
+        del cpu
+        launches, p50 = _guess_hierarchical(paths, views, engine)
+        gc.collect()
+        torch.cuda.empty_cache()
+        refine = _guess_refine()
+        gc.collect()
+        _guess_benchmark(tmp, blobs, pt)
+        for k, n in _guess_api(engine, blobs, paths).items():
+            launches[k] += n
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"phase 28 in {time.perf_counter() - t0:.1f} s")
+    return launches, {"resize": resize, "p50": p50, "refine": refine}
+
+
+# ---------------------------------------------------------------------------
+# Phase 29: the kernels line
 # ---------------------------------------------------------------------------
 
 
@@ -3366,6 +3734,7 @@ def main():
     for k, n in phase_f32_train(cpu_step).items():
         f32_launches[k] += n
     k14 = phase_smem_probe()
+    guess_launches, _ = phase_guess_path(paths)
 
     main_case = {"K1": "stage1", "K2": "stage2", "K3": "stage3",
                  "K4": "stage1", "K5": "stage2"}
@@ -3382,7 +3751,8 @@ def main():
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces,
             "launches": (serve_launches.get(k, 0) + train_launches[k]
-                         + static_launches.get(k, 0)),
+                         + static_launches.get(k, 0)
+                         + guess_launches.get(k, 0)),
             "max_abs_err": row["max_abs_err"], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": library,

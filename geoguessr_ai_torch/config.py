@@ -9,6 +9,8 @@ from typing import Optional
 
 #: Earth radius of the model-side haversine (m), WGS84 semi-major axis.
 EARTH_RADIUS_MODEL_M = 6378137.0
+#: Earth radius of the benchmark's scoring haversine (m), the mean radius.
+EARTH_RADIUS_BENCH_M = 6371000.0
 
 #: Haversine label-smoothing constant (km).
 LABEL_SMOOTHING_CONSTANT_KM = 65.0
@@ -33,6 +35,9 @@ NUM_PANORAMA_VIEWS = 4
 
 #: Default top-k geocell candidates handed to the refiner.
 NUM_CANDIDATES = 5
+
+#: Heads of the hierarchical view fusion's self-attention.
+NUM_ATTENTION_HEADS = 16
 
 #: Paths, with the JAX package's environment overrides.
 REPO_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))

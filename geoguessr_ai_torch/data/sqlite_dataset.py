@@ -1,6 +1,6 @@
-"""The SQLite panorama and embedding datasets: reader and writer
-(counterpart of the parts of geoguessr_ai_tpu/data/sqlite_dataset.py that
-the embedding builder needs).
+"""The SQLite panorama and embedding datasets: reader, panorama grouping,
+train/val split and writer (counterpart of
+geoguessr_ai_tpu/data/sqlite_dataset.py).
 
 One ``samples`` table keyed (location_id, heading): JPEG blobs in a raw
 dataset, float32 embedding blobs with their ``embedding_dim`` in an
@@ -68,6 +68,51 @@ def load_sqlite_dataset(path: str) -> List[tuple]:
                       for v in r)) for r in cur]
     finally:
         conn.close()
+
+
+#: One location's panorama: heading-sorted views and their blobs.
+Panorama = collections.namedtuple(
+    "Panorama", ["location_id", "lat", "lon", "headings", "images"])
+
+
+def build_panorama_table(rows: Sequence) -> List[Panorama]:
+    """Per-image rows (namedtuples or dicts with ``location_id``, ``lat``,
+    ``lon``, ``heading`` and an ``image`` or ``embedding`` blob) -> one
+    Panorama per location, in location order, views sorted by heading;
+    rows without a blob are left out, and so is a location with none."""
+    rows = [r._asdict() if hasattr(r, "_asdict") else dict(r) for r in rows]
+    if not rows:
+        raise ValueError("no panorama records in dataset")
+    missing = {"location_id", "lat", "lon", "heading"}.difference(rows[0])
+    if missing:
+        raise ValueError(f"missing columns: {missing}")
+    blob = "image" if "image" in rows[0] else "embedding"
+    by_location: Dict[str, List[Dict]] = collections.defaultdict(list)
+    for r in rows:
+        if r.get(blob) is not None:
+            by_location[r["location_id"]].append(r)
+    out = []
+    for location_id in sorted(by_location):
+        group = sorted(by_location[location_id], key=lambda r: r["heading"])
+        out.append(Panorama(location_id, float(group[0]["lat"]),
+                            float(group[0]["lon"]),
+                            [r["heading"] for r in group],
+                            [r[blob] for r in group]))
+    if not out:
+        raise ValueError("no panorama records in dataset")
+    return out
+
+
+def load_sqlite_panorama_dataset(path: str) -> List[Panorama]:
+    """The panoramas of a SQLite dataset (``build_panorama_table``)."""
+    return build_panorama_table(load_sqlite_dataset(path))
+
+
+def split_train_val(panoramas: Sequence, val_fraction: float = 0.1):
+    """(train, val): the first int(n * (1 - f)) panoramas and the rest, in
+    order, unshuffled; val is also the benchmark's test split."""
+    n_train = int(len(panoramas) * (1.0 - val_fraction))
+    return panoramas[:n_train], panoramas[n_train:]
 
 
 def create_sqlite_from_records(

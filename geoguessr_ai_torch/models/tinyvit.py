@@ -165,6 +165,13 @@ class TinyViTConfig:
     def tiny_vit_21m_512(**overrides) -> "TinyViTConfig":
         return TinyViTConfig(**overrides)
 
+    @staticmethod
+    def test_tiny(**overrides) -> "TinyViTConfig":
+        """The JAX package's miniature config for fast CPU tests."""
+        return TinyViTConfig(image_size=64, embed_dims=(16, 32, 64, 80),
+                             depths=(1, 1, 2, 1), num_heads=(1, 2, 4, 5),
+                             window_sizes=(2, 2, 4, 2), **overrides)
+
     @property
     def embed_dim(self) -> int:
         return self.embed_dims[-1]

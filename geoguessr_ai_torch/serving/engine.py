@@ -5,6 +5,7 @@ from __future__ import annotations
 
 import concurrent.futures
 import dataclasses
+import os
 import queue
 import threading
 import time
@@ -18,14 +19,22 @@ from geoguessr_ai_torch.config import BackboneConfig
 from geoguessr_ai_torch.data.pipeline import decode_jpeg
 from geoguessr_ai_torch.geocells.manager import CentroidTable
 from geoguessr_ai_torch.models.clip_vit import CLIPVisionConfig
+from geoguessr_ai_torch.models.convert import from_jax_variables
 from geoguessr_ai_torch.models.super_guessr import (
     SuperGuessr,
     decode_predictions,
     init_parameters_,
 )
 from geoguessr_ai_torch.models.tinyvit import TinyViTConfig
+from geoguessr_ai_torch.models.torch_convert import (
+    clip_vision_from_hf,
+    super_guessr_head_from_reference,
+    tinyvit_from_timm,
+)
 from geoguessr_ai_torch.ops.preprocess import fused_preprocess
+from geoguessr_ai_torch.train.checkpoints import load_torch_checkpoint
 from geoguessr_ai_torch.train.coordinator import build_backbone
+from geoguessr_ai_torch.utils.logging import logger
 
 
 @dataclasses.dataclass
@@ -47,6 +56,8 @@ class ServingEngine:
         the mean-token embedding).
       centroid_table: defaults to the repo's table (12647 cells).
       device: None means "cuda"; raises when no GPU is present.
+      checkpoint: a reference or timm ``.pt`` file (``load_checkpoint``)
+        loaded over the seeded weights; an orbax directory raises.
       state_dict: SuperGuessr weights (e.g. from models.convert); seeded
         random weights when None.
       backbone_config: replaces the backbone's preset: a TinyViTConfig, or
@@ -61,6 +72,7 @@ class ServingEngine:
         num_candidates: int = C.NUM_CANDIDATES,
         hierarchical: bool = False,
         device=None,
+        checkpoint: Optional[str] = None,
         state_dict: Optional[Dict[str, torch.Tensor]] = None,
         backbone_config: Optional[Union[TinyViTConfig,
                                         CLIPVisionConfig]] = None,
@@ -85,17 +97,90 @@ class ServingEngine:
         self.config = bb.config
         self.norm = (mean, std)
         self.num_candidates = min(num_candidates, self.table.num_cells)
+        self.backbone_name = backbone
         model = SuperGuessr(self.table.num_cells, bb,
                             embed_dim=self.config.embed_dim,
-                            hierarchical=hierarchical)
+                            hierarchical=hierarchical,
+                            dtype=self.config.dtype)
         if state_dict is None:
             init_parameters_(model, seed)
         else:
             model.load_state_dict(state_dict, strict=True)
+        self.model = model
+        #: what ``load_checkpoint`` took: head subtrees and the backbone
+        self.loaded = {"head": 0, "backbone": False}
+        if checkpoint:
+            self.load_checkpoint(checkpoint)
         model.backbone.cast_weights_()
+        if hierarchical:
+            model.self_attn.cast_weights_()
         self.model = model.to(self.device).eval()
         self.centroids = torch.as_tensor(self.table.centroids,
                                          device=self.device)
+
+    def load_checkpoint(self, path: str) -> None:
+        """Loads a reference SuperGuessr ``.pt`` over the current weights.
+
+        The head (``cell_layer`` when its cell count matches the table,
+        ``self_attn`` of a hierarchical model) comes through
+        ``super_guessr_head_from_reference``; backbone entries under
+        ``base_model.`` (then ``backbone.``) through ``tinyvit_from_timm``
+        or ``clip_vision_from_hf``.  A backbone whose conversion misses a
+        key is skipped with a warning, as the JAX engine does, and so is
+        one that does not fill every backbone entry in its shape (a
+        checkpoint of another width): the model never serves a backbone
+        that is part checkpoint, part seed.  The flax trees reach the
+        model through ``convert.from_jax_variables``; head entries the
+        model lacks or holds in another shape are skipped.
+        ``self.loaded`` records the head subtrees and whether the backbone
+        was loaded."""
+        if os.path.isdir(path):
+            raise NotImplementedError(
+                f"{path} is a directory: orbax checkpoint directories are "
+                "not ported yet (ROADMAP Queue 1 item 8); pass a .pt file")
+        sd = load_torch_checkpoint(path)
+        overlay = super_guessr_head_from_reference(
+            sd, num_cells=self.table.num_cells,
+            num_attention_heads=C.NUM_ATTENTION_HEADS)
+        if not self.model.hierarchical:
+            overlay.pop("self_attn", None)
+        tree = {"params": dict(overlay)}
+        bb_sd = {k.split("base_model.", 1)[1]: v for k, v in sd.items()
+                 if k.startswith("base_model.")}
+        backbone = False
+        if bb_sd:
+            try:
+                if self.backbone_name == "tinyvit":
+                    strip = {k.split("backbone.", 1)[-1]: v
+                             for k, v in bb_sd.items()}
+                    conv = tinyvit_from_timm(strip, self.config)
+                    tree["params"]["backbone"] = conv["params"]
+                    tree["batch_stats"] = {"backbone": conv["batch_stats"]}
+                else:
+                    tree["params"]["backbone"] = clip_vision_from_hf(
+                        bb_sd, self.config)
+                backbone = True
+            except KeyError as e:
+                logger.warning(f"backbone conversion skipped ({e})")
+        own = self.model.state_dict()
+        entries = {k: v for k, v in from_jax_variables(tree).items()
+                   if k in own and own[k].shape == v.shape}
+        if backbone:
+            missing = [k for k in own if k.startswith("backbone.")
+                       and ".act_" not in k and k not in entries]
+            if missing:
+                logger.warning(f"backbone of {path} lacks {len(missing)} "
+                               f"entries or holds them in another shape "
+                               f"(e.g. {missing[0]}); backbone skipped")
+                backbone = False
+        if not backbone:  # the whole converted backbone, or none of it
+            entries = {k: v for k, v in entries.items()
+                       if not k.startswith("backbone.")}
+        self.model.load_state_dict(entries, strict=False)
+        self.loaded = {"head": sum(
+            any(k.startswith(f"{name}.") for k in entries)
+            for name in overlay), "backbone": backbone}
+        logger.info(f"loaded reference checkpoint {path} ({self.loaded})")
 
     @torch.inference_mode()
     def predict_batch(
@@ -103,8 +188,9 @@ class ServingEngine:
         panoramas_u8: np.ndarray,
         view_mask: Optional[np.ndarray] = None,
     ) -> List[InferenceResult]:
-        """panoramas_u8: (B, V, H, W, 3) uint8 at self.image_size;
-        view_mask: optional (B, V) 1/0 mask of real views."""
+        """panoramas_u8: (B, V, H, W, 3) uint8, resized on the device
+        when H x W is not image_size x image_size; view_mask: optional
+        (B, V) 1/0 mask of real views."""
         dev = self.device
         pixels = fused_preprocess(
             torch.from_numpy(np.ascontiguousarray(panoramas_u8)).to(dev),

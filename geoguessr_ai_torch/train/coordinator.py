@@ -4,23 +4,27 @@ records on one device, with periodic validation, early stopping and a
 returned summary.
 
 ``build_backbone`` also builds the CLIP towers ("clip": ViT-L/14-336,
-"clip_b32": ViT-B/32-224) that the serving engine runs.
+"clip_b32": ViT-B/32-224) that the serving engine runs;
+``discover_sqlite`` finds the newest SQLite dataset.
 
 Not ported yet, and raising ``NotImplementedError`` when asked for:
 checkpoints (``checkpoint_dir``, ``resume_path``: orbax directories become
 torch files later, ROADMAP Queue 1 item 8), QAT activation storage
-(``qat_storage``, item 8), training a CLIP backbone (its freeze rule keeps
-``layer{max}`` and ``post_layernorm`` trainable; item 9), the
-embedding-only backbone, hierarchical view fusion and a mesh of more than
-one device (item 11).
+(``qat_storage``, item 8), training hierarchical view fusion or a
+single-image model (item 8; the serving engine runs hierarchical fusion),
+training a CLIP backbone (its freeze rule keeps ``layer{max}`` and
+``post_layernorm`` trainable; item 9), the embedding-only backbone and a
+mesh of more than one device (item 11).
 The SQLite and object-store entry points (``main``, ``main_streaming``)
 wait for the port of the data modules they read.
 """
 
 from __future__ import annotations
 
+import glob
+import os
 import time
-from typing import Dict, Optional
+from typing import Dict, Iterable, List, Optional
 
 import numpy as np
 import torch
@@ -42,6 +46,31 @@ from geoguessr_ai_torch.train.state import (
 )
 from geoguessr_ai_torch.train.steps import eval_step, train_step
 from geoguessr_ai_torch.utils.logging import MetricsLogger, StepTimer, logger
+
+
+def default_sqlite_dirs() -> List[str]:
+    """Where ``discover_sqlite`` looks when it is given no directories."""
+    return [C.REPO_ROOT, C.DATA_DIR]
+
+
+def discover_sqlite(search_dirs: Optional[Iterable[str]] = None) -> str:
+    """The newest ``dataset_sqlite*.sqlite`` in ``search_dirs``, by default
+    the repo's root and its data directory; ``DATASET_SQLITE_PATH``
+    overrides the search.  Unlike the JAX package's search, the default
+    does not look in the directory around the repo: a file there belongs
+    to no checkout of this one."""
+    env = os.environ.get("DATASET_SQLITE_PATH")
+    if env:
+        return env
+    if search_dirs is None:
+        search_dirs = default_sqlite_dirs()
+    candidates = []
+    for d in search_dirs:
+        candidates.extend(glob.glob(os.path.join(d, "dataset_sqlite*.sqlite")))
+    if not candidates:
+        raise FileNotFoundError(
+            f"no dataset_sqlite*.sqlite found in {list(search_dirs)}")
+    return max(candidates, key=os.path.getmtime)
 
 
 def build_backbone(cfg: BackboneConfig, model_config=None):
@@ -75,12 +104,16 @@ def build_model(cfg: TrainConfig, num_cells: int, model_config=None):
     ``model_config`` as for ``build_backbone``."""
     if not cfg.model.panorama:
         raise NotImplementedError(
-            "single-image (panorama=False) SuperGuessr is not ported yet")
+            "training a single-image (panorama=False) SuperGuessr is not "
+            "ported yet (ROADMAP Queue 1 item 8)")
+    if cfg.model.hierarchical:
+        raise NotImplementedError(
+            "training hierarchical view fusion is not ported yet (ROADMAP "
+            "Queue 1 item 8); the serving engine runs it")
     backbone, mean, std, image_size = build_backbone(cfg.model.backbone,
                                                      model_config)
     model = SuperGuessr(num_cells, backbone,
-                        embed_dim=cfg.model.backbone.embed_dim,
-                        hierarchical=cfg.model.hierarchical)
+                        embed_dim=cfg.model.backbone.embed_dim)
     return model, mean, std, image_size
 
 

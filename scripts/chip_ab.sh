@@ -31,7 +31,8 @@
 # the kernel times and p50s of each are printed.  AB_PHASES=serve runs
 # only the two engines' serving phases (their p50s, which the host's noise
 # moves most), in the same turns; AB_PHASES=mbconv only the K10 and K12
-# lines.
+# lines; AB_PHASES=fusion only the hierarchical engine's fusion beside
+# mean fusion (fusion_ab below).
 set -u
 parent=${1:?usage: chip_ab.sh PARENT_DIR}
 out=$(pwd)/${AB_OUT:-build/ab_logs}
@@ -85,7 +86,73 @@ def mbconv_ab():
         torch.cuda.empty_cache()
 
 
+def fusion_ab():
+    """The hierarchical engine (D = 576, 16 heads) beside the mean-fusion
+    engine at full width: predict_batch p50s at buckets 1 and 16, the two
+    engines in turns (40 calls each after a warm-up); the fusion alone
+    (pos_encoder + self_attn on (16, 4, 576) f32 with a mask) as host ms
+    a call to its end and as events; and how long the fusion takes to
+    return to the host behind a queued 50 ms kernel (about 50 when it
+    waits for the card, under 1 when it only queues its launches)."""
+    import time
+
+    import numpy as np
+
+    from geoguessr_ai_torch.serving.engine import ServingEngine
+
+    hier = ServingEngine(seed=cs.SEED, hierarchical=True)
+    mean = ServingEngine(seed=cs.SEED)
+    views = np.random.default_rng(0).integers(0, 256, (4, 512, 512, 3),
+                                              dtype=np.uint8)
+    for bucket in (1, 16):
+        b = np.repeat(views[None], bucket, axis=0)
+        times = {"hierarchical": [], "mean": []}
+        for eng in (hier, mean):
+            eng.predict_batch(b)
+        for _ in range(40):
+            for label, eng in (("hierarchical", hier), ("mean", mean)):
+                t0 = time.perf_counter()
+                eng.predict_batch(b)
+                times[label].append((time.perf_counter() - t0) * 1e3)
+        h, m = (float(np.median(times[k])) for k in ("hierarchical", "mean"))
+        print(f"AB fusion bucket {bucket} p50 hierarchical {h:.4f} mean "
+              f"{m:.4f} difference {h - m:.4f} ms")
+    model = hier.model
+    x = torch.randn(16, 4, 576,
+                    generator=torch.Generator().manual_seed(1)).cuda()
+    mask = torch.ones(16, 4, dtype=torch.bool, device="cuda")
+    mask[1::2, 2:] = False
+    fuse = lambda: model.self_attn(model.pos_encoder(x), mask)
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    torch.cuda._sleep(10 ** 7)
+    end.record()
+    torch.cuda.synchronize()
+    cycles_50ms = int(10 ** 7 * 50 / start.elapsed_time(end))
+    with torch.inference_mode():
+        fuse()
+        torch.cuda.synchronize()
+        host = []
+        for _ in range(50):
+            t0 = time.perf_counter()
+            fuse()
+            torch.cuda.synchronize()
+            host.append((time.perf_counter() - t0) * 1e3)
+        events = cs.cuda_time_ms(fuse, iters=50)
+        torch.cuda._sleep(cycles_50ms)
+        t0 = time.perf_counter()
+        fuse()
+        behind = (time.perf_counter() - t0) * 1e3
+        torch.cuda.synchronize()
+    print(f"AB fusion alone (16, 4, 576) host_ms {np.median(host):.4f} "
+          f"events_ms {events:.4f}; returns behind a queued 50 ms kernel "
+          f"in {behind:.3f} ms")
+
+
 cs.phase_device(); cs.phase_build()
+if os.environ.get("AB_PHASES") == "fusion":
+    fusion_ab()
+    sys.exit(0)
 if os.environ.get("AB_PHASES") == "mbconv":
     mbconv_ab()
     sys.exit(0)

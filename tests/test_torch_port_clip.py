@@ -471,7 +471,7 @@ def test_clip_cli_serves_through_the_engine(clip_slice, monkeypatch, capsys):
     _, variables, table, _, paths = clip_slice
     built = []
 
-    def engine(backbone, device, centroid_table):
+    def engine(backbone, device, centroid_table, checkpoint=None):
         built.append((backbone, device))
         return ServingEngine(
             backbone=backbone, device=device, centroid_table=table,

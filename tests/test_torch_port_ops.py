@@ -214,11 +214,29 @@ def test_fused_preprocess_matches_jax():
 
 
 def test_fused_preprocess_resize_is_not_ported():
+    """The resize branch, once refused here, against jax.image.resize:
+    upscaling 32 x 48 and downscaling 80 x 96 (antialiased) to 64, with and
+    without antialias, in f32 and as bf16."""
+    from geoguessr_ai_tpu.ops.preprocess import fused_preprocess as jax_pre
+
     from geoguessr_ai_torch.ops.preprocess import fused_preprocess
 
-    u8 = torch.zeros(1, 32, 48, 3, dtype=torch.uint8)
-    with pytest.raises(NotImplementedError, match="resiz"):
-        fused_preprocess(u8, (0.5,) * 3, (0.5,) * 3, 64)
+    rng = np.random.default_rng(6)
+    for h, w in ((32, 48), (80, 96)):
+        u8 = rng.integers(0, 256, (2, 3, h, w, 3), dtype=np.uint8)
+        for antialias in (False, True):  # True last: bf16 below uses it
+            want = np.asarray(jax_pre(jnp.asarray(u8), (0.5,) * 3, (0.5,) * 3,
+                                      64, dtype=jnp.float32,
+                                      antialias=antialias))
+            got = fused_preprocess(torch.from_numpy(u8), (0.5,) * 3,
+                                   (0.5,) * 3, 64, dtype=torch.float32,
+                                   antialias=antialias)
+            assert got.shape == (2, 3, 64, 64, 3)
+            np.testing.assert_allclose(got.numpy(), want, atol=2e-5, rtol=0)
+        bf16 = fused_preprocess(torch.from_numpy(u8), (0.5,) * 3, (0.5,) * 3,
+                                64)
+        assert bf16.dtype == torch.bfloat16
+        np.testing.assert_allclose(bf16.float().numpy(), want, atol=1e-2)
 
 
 def test_decode_jpeg_is_byte_equal_to_jax_pil_decode(fixtures_dir):

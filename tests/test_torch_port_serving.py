@@ -146,7 +146,8 @@ def test_cli_main_prints_lat_lon(slice_pair, monkeypatch, capsys):
     from geoguessr_ai_torch import inference
 
     _, engine, _, paths = slice_pair
-    monkeypatch.setattr(inference, "_get_engine", lambda *a: engine)
+    monkeypatch.setattr(inference, "_get_engine",
+                        lambda *a, **k: engine)
     inference.main(["--device", "cpu"])  # no images: the fixture panorama
     lat, lon = map(float, capsys.readouterr().out.split())
     want = engine.predict_images(paths)
@@ -268,10 +269,7 @@ def test_unported_options_raise():
     with pytest.raises(ValueError, match="CLIPVisionConfig"):
         ServingEngine(backbone="clip", device="cpu",
                       backbone_config=TinyViTConfig(**NARROW))
-    with pytest.raises(NotImplementedError, match="hierarchical"):
-        from geoguessr_ai_torch.models.super_guessr import SuperGuessr
-
-        SuperGuessr(10, torch.nn.Identity(), embed_dim=4, hierarchical=True)
+    # hierarchical fusion serves: tests/test_torch_port_guess_path.py
 
 
 def _port_sources():
@@ -295,7 +293,13 @@ def test_port_imports_no_jax_flax_or_the_jax_package():
             "geoguessr_ai_torch/data/embed_builder.py",
             "geoguessr_ai_torch/data/sqlite_dataset.py",
             "geoguessr_ai_torch/ops/experimental/smem_probe.py",
-            "geoguessr_ai_torch/tools/exp_r4_vmem.py"} <= rel
+            "geoguessr_ai_torch/tools/exp_r4_vmem.py",
+            "geoguessr_ai_torch/models/positional.py",
+            "geoguessr_ai_torch/models/torch_convert.py",
+            "geoguessr_ai_torch/train/checkpoints.py",
+            "geoguessr_ai_torch/eval/metrics.py",
+            "geoguessr_ai_torch/run_benchmark.py",
+            "geoguessr_ai_torch/serving/api.py"} <= rel
     for path in files:
         tree = ast.parse(open(path).read(), filename=path)
         for node in ast.walk(tree):
@@ -314,7 +318,8 @@ def test_port_imports_no_jax_flax_or_the_jax_package():
 def test_serving_engine_imports_with_jax_blocked():
     code = (
         "import sys\n"
-        "for m in ('jax', 'flax', 'geoguessr_ai_tpu'):\n"
+        "for m in ('jax', 'flax', 'geoguessr_ai_tpu', 'pandas', 'orbax',\n"
+        "          'fastapi'):\n"
         "    sys.modules[m] = None\n"
         "import geoguessr_ai_torch.serving.engine\n"
         "import geoguessr_ai_torch.inference\n"
@@ -326,6 +331,10 @@ def test_serving_engine_imports_with_jax_blocked():
         "import geoguessr_ai_torch.ops.mbconv\n"
         "import geoguessr_ai_torch.data.embed_builder\n"
         "import geoguessr_ai_torch.data.sqlite_dataset\n"
+        "import geoguessr_ai_torch.models.torch_convert\n"
+        "import geoguessr_ai_torch.train.checkpoints\n"
+        "import geoguessr_ai_torch.run_benchmark\n"
+        "import geoguessr_ai_torch.serving.api\n"
         "print('ok')\n"
     )
     env = dict(os.environ, PYTHONPATH=REPO + os.pathsep
