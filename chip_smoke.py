@@ -167,7 +167,29 @@ Phases, in order; any failure exits non-zero:
     B = 16, card against CPU, with and without members, timed; (e)
     ``run_benchmark`` with the .pt on a fixture SQLite; (f) the HTTP
     handlers serving 8 concurrent submissions through the MicroBatcher;
-29. print the kernel JSON line, then ``{"ok": true, "device": ...}`` last.
+29. training up to the coordinator's surface (all at full width, 12647
+    cells, fixture panoramas; temp directories): (a) the decoder that runs
+    (native libjpeg, built into build/native/, or PIL and why), native
+    against PIL at 512 from the 640 px views (mean |diff| < 4.0, the JAX
+    gate), a corrupt blob in ``decode_batch`` decoded to zeros, ms a view
+    and ``PanoramaBatchIterator`` panos/s both ways; (b) ``train()`` for 3
+    epochs of 2 steps of 16 with ``keep_last_n=2``, and again for 2 epochs
+    then resumed for the third: the third epoch's losses within 1e-5
+    relative, every parameter at cosine >= 0.99999, each store holding
+    last, best and 2 epoch directories, exact K1-K5 launches; the
+    checkpoint's size and save seconds, sync and async; (c)
+    ``ServingEngine(checkpoint=<run>/best)`` bitwise equal to the engine on
+    the weights the run held at that epoch; (d) ``qat_storage``: one
+    calibration, every amax finite and positive, exact launches, the loop
+    p50 beside phase 8's; (e) the head alone (backbone "none") for 20 steps
+    on an embedding SQLite that ``build_embedding_sqlite`` wrote: no
+    TinyViT launch, the loss falling; (f) hierarchical fusion: exact
+    launches, nonzero self-attention gradients; (g) ``main()`` in a fresh
+    process on a fixture SQLite (``DATASET_SQLITE_PATH``,
+    ``GEO_TPU_CKPT_DIR``) for one epoch, then phase (b)'s ``train()`` under
+    a ``StepProfiler`` whose trace must hold the LN + GEMM, forward and
+    backward cores' kernels;
+30. print the kernel JSON line, then ``{"ok": true, "device": ...}`` last.
 
 Times: ``kernel_ms`` times a kernel or a library call by 10 (or 50)
 launches between two CUDA events; where that reads under SHORT_MS (0.5
@@ -1056,6 +1078,7 @@ def phase_train():
                  f"{per} per step x {TRAIN_STEPS} + "
                  f"{LAUNCHES_PER_FORWARD.get(k, 0)} per validation forward "
                  f"x {val_forwards} = {want}")
+    loop_p50 = float(np.median(loop_ms))
     del summary
     gc.collect()
     torch.cuda.empty_cache()
@@ -1077,7 +1100,7 @@ def phase_train():
     del state, batch, centroids
     gc.collect()
     torch.cuda.empty_cache()
-    return launches
+    return launches, loop_p50
 
 
 # ---------------------------------------------------------------------------
@@ -3694,7 +3717,578 @@ def phase_guess_path(paths):
 
 
 # ---------------------------------------------------------------------------
-# Phase 29: the kernels line
+# Phase 29: training up to the coordinator's surface, and the native decoder
+# ---------------------------------------------------------------------------
+
+#: Phase 29's train runs: batches of 16 fixture panoramas, 2 steps an
+#: epoch, 3 epochs (resume after 2), keep_last_n 2 so that pruning runs.
+SURFACE_BATCH = 16
+SURFACE_EPOCHS = 3
+SURFACE_STEPS = 2
+#: The JAX gate of native against PIL decode (tests/test_data_pipeline.py).
+DECODE_MAX_MEAN_DIFF = 4.0
+#: The resumed third epoch against the uninterrupted one: step losses to a
+#: relative 1e-5, every parameter at cosine >= 0.99999 (cuBLAS and cuDNN
+#: need not sum in the same order twice; the CPU is bitwise).
+RESUME_LOSS_RTOL = 1e-5
+RESUME_MIN_COSINE = 0.99999
+#: Embedding-only steps.
+EMBED_TRAIN_STEPS = 20
+#: The device kernels of (g)'s traced window (the first epoch's validation
+#: forward and the third train step), by family, and their launches there:
+#: the LN + GEMM core (K1's qkv and out-projection GEMMs, K2's qkv GEMM: 10
+#: a forward), the forward core (K1, K2, K3: 10 a forward, 12 a train
+#: step) and the backward core (K4, K5: four launches each of their 10
+#: calls a step).
+TRACE_KERNELS = {"ln_gemm_sm90": 20, "attention_fwd_sm90": 22,
+                 "attn_bwd_sm90": 40}
+
+
+class _TrainRecorder:
+    """A metrics logger keeping every row with its host time (logging reads
+    the device scalars, so a train row marks the end of its step); calls
+    ``on_step`` after each train row."""
+
+    def __init__(self, on_step=None):
+        self.rows = []
+        self.on_step = on_step
+
+    def log(self, metrics, step):
+        row = {k: float(v) for k, v in metrics.items()}
+        self.rows.append((time.perf_counter(), step, row))
+        if self.on_step is not None and "train/loss" in row:
+            self.on_step()
+
+    def summary(self, key, value):
+        pass
+
+    def finish(self):
+        pass
+
+    def losses(self):
+        return [m["train/loss"] for _, _, m in self.rows if "train/loss" in m]
+
+    def loop_p50_ms(self):
+        t = [t for t, _, m in self.rows if "train/loss" in m]
+        gaps = [(b - a) * 1e3 for a, b in zip(t, t[1:])]
+        return float(np.median(gaps)) if gaps else float("nan")
+
+
+def _surface_cfg(**changes):
+    from geoguessr_ai_torch.config import TrainConfig
+
+    return TrainConfig(**{"batch_size": SURFACE_BATCH,
+                          "num_epochs": SURFACE_EPOCHS, "log_every_steps": 1,
+                          "keep_last_n": 2, "seed": SEED, **changes})
+
+
+def _surface_records(n_train):
+    from geoguessr_ai_torch.train.fixtures import fixture_records
+
+    records = fixture_records(n_train + SURFACE_BATCH, seed=SEED)
+    return records[:n_train], records[n_train:]
+
+
+def _expect_launches(label, steps, val_forwards, want_zero=False):
+    """Fails unless K1-K5 launched exactly phase 8's counts for ``steps``
+    train steps and ``val_forwards`` validation forwards since the last
+    reset; returns the counts."""
+    from geoguessr_ai_torch.ops import window_attention as wa
+
+    launches = {k: wa.LAUNCHES[m[0]] for k, m in ALL_META.items()}
+    want = {k: per * steps + LAUNCHES_PER_FORWARD.get(k, 0) * val_forwards
+            for k, per in LAUNCHES_PER_TRAIN_STEP.items()}
+    log(f"  {label}: launches {launches} (expected {want}: {steps} steps, "
+        f"{val_forwards} validation forwards)")
+    if launches != want:
+        fail(f"{label}: K1-K5 launched {launches}, expected {want}")
+    return launches
+
+
+def _surface_decode(paths):
+    """(a) The decoder that runs, native against PIL."""
+    from geoguessr_ai_torch.data import pipeline
+    from geoguessr_ai_torch.data.native import jpeg
+    from geoguessr_ai_torch.data.pipeline import PanoramaBatchIterator
+    from geoguessr_ai_torch.train.fixtures import fixture_records
+
+    blobs = [open(p, "rb").read() for p in paths]
+    native = jpeg.available()
+    if native:
+        log(f"(a) decoder: native ({jpeg.SO_PATH})")
+        diffs = [float(np.abs(jpeg.decode_resize(b, 512).astype(np.int16)
+                              - pipeline._pil_decode(b, 512)).mean())
+                 for b in blobs]
+        log(f"  native vs PIL at 512 from the 640 px views: mean |diff| "
+            f"{', '.join(f'{d:.4f}' for d in diffs)} (gate < "
+            f"{DECODE_MAX_MEAN_DIFF})")
+        if max(diffs) >= DECODE_MAX_MEAN_DIFF:
+            fail(f"native decode differs from PIL by {max(diffs)} levels")
+        batch = jpeg.decode_batch(blobs + [b"corrupt" * 64], 512)
+        if batch[-1].any() or not all(batch[i].any() for i in range(4)):
+            fail("decode_batch: the corrupt blob is not zeros, or a view is")
+        log("  decode_batch: the corrupt blob decodes to zeros")
+    else:
+        lines = (jpeg.build_error() or "").strip().splitlines()
+        why = [x for x in lines if "error" in x][-1:] or lines[-1:]
+        log(f"(a) decoder: pil ({' '.join(why).strip()}); PIL's rates alone")
+    reps = 10
+    ms = {}
+    decoders = ((("native", jpeg.decode_resize),) if native else ()) + (
+        ("pil", pipeline._pil_decode),)
+    for name, fn in decoders:
+        fn(blobs[0], 512)
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            for b in blobs:
+                fn(b, 512)
+        ms[name] = (time.perf_counter() - t0) * 1e3 / (reps * len(blobs))
+    log("  ms a view, 640 -> 512, one thread: " + ", ".join(
+        f"{k} {v:.3f}" for k, v in ms.items()))
+    records = fixture_records(4 * SURFACE_BATCH, seed=SEED)
+    rate = {"native": [], "pil": []}
+    native_decode = pipeline.decode_jpeg
+    # a warm-up pass, then the two decoders in turns
+    for name in (("native", "native", "pil", "pil", "native") if native
+                 else ("pil", "pil", "pil")):
+        pipeline.decode_jpeg = (native_decode if name == "native"
+                                else pipeline._pil_decode)
+        try:
+            it = PanoramaBatchIterator(records, SURFACE_BATCH, 512,
+                                       decode_threads=8)
+            t0 = time.perf_counter()
+            n = sum(b["num_real"] for b in it)
+            rate[name].append(n / (time.perf_counter() - t0))
+        finally:
+            pipeline.decode_jpeg = native_decode
+    rate["native" if native else "pil"].pop(0)  # the warm-up pass
+    log(f"  PanoramaBatchIterator B={SURFACE_BATCH}, decode_threads=8, "
+        f"{len(records)} panoramas a pass, panos/s: " + "; ".join(
+            f"{k} {', '.join(f'{r:.2f}' for r in v)}"
+            for k, v in rate.items() if v) + f" ({os.cpu_count()} host cores)")
+
+
+def _param_cosines(a, b):
+    """Every parameter of two model state dicts: (min cosine, name,
+    bitwise equal)."""
+    worst, name, same = 1.0, None, True
+    for k, x in a.items():
+        y = b[k]
+        same &= torch.equal(x, y)
+        if not torch.is_floating_point(x) or torch.equal(x, y):
+            continue
+        x, y = x.double().flatten(), y.double().flatten()
+        cos = float(x @ y / (x.norm() * y.norm()))
+        if cos < worst:
+            worst, name = cos, k
+    return worst, name, same
+
+
+def _surface_resume(tmp):
+    """(b) 3 epochs straight, then 2 and a resume for the third, at full
+    width; the save's cost."""
+    from geoguessr_ai_torch.ops import window_attention as wa
+    from geoguessr_ai_torch.train import checkpoints as ck
+    from geoguessr_ai_torch.train.coordinator import train
+    from geoguessr_ai_torch.geocells.manager import CentroidTable
+    from geoguessr_ai_torch import config as C
+
+    table = CentroidTable.load(C.CENTROID_TABLE_PATH)
+    train_recs, val_recs = _surface_records(SURFACE_BATCH * SURFACE_STEPS)
+    snapshots, saves, live = {}, [], {}
+    real_save = ck.CheckpointStore.save_epoch
+
+    def spy(store, state, epoch, *args, **kw):
+        # the uninterrupted run's weights in memory at each epoch's save
+        # (for (c)), and the sync save's wall time
+        if store.cfg.directory == straight_dir:
+            snapshots[epoch] = {k: v.detach().to("cpu", copy=True)
+                                for k, v in state.model.state_dict().items()}
+        live["state"] = state
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = real_save(store, state, epoch, *args, **kw)
+        saves.append(time.perf_counter() - t0)
+        return out
+
+    straight_dir = os.path.join(tmp, "straight")
+    resumed_dir = os.path.join(tmp, "resumed")
+    ck.CheckpointStore.save_epoch = spy
+    try:
+        wa.reset_launches()
+        straight = _TrainRecorder()
+        train(_surface_cfg(), train_recs, val_recs, table,
+              checkpoint_dir=straight_dir, metrics_logger=straight)
+        torch.cuda.synchronize()
+        launches = _expect_launches(
+            "(b) uninterrupted", SURFACE_EPOCHS * SURFACE_STEPS,
+            SURFACE_EPOCHS)
+        first = _TrainRecorder()
+        train(_surface_cfg(num_epochs=SURFACE_EPOCHS - 1), train_recs,
+              val_recs, table, checkpoint_dir=resumed_dir,
+              metrics_logger=first)
+        resumed = _TrainRecorder()
+        train(_surface_cfg(), train_recs, val_recs, table,
+              checkpoint_dir=resumed_dir, metrics_logger=resumed)
+    finally:
+        ck.CheckpointStore.save_epoch = real_save
+    state = live.pop("state")
+    want = straight.losses()[-SURFACE_STEPS:]
+    got = resumed.losses()
+    log(f"(b) train() {SURFACE_EPOCHS} epochs x {SURFACE_STEPS} steps of "
+        f"{SURFACE_BATCH}: losses {', '.join(f'{x:.6f}' for x in straight.losses())}")
+    log(f"  resumed third epoch: {', '.join(f'{x:.6f}' for x in got)} "
+        f"(first run: {', '.join(f'{x:.6f}' for x in first.losses())})")
+    if len(got) != SURFACE_STEPS or not np.allclose(got, want,
+                                                    rtol=RESUME_LOSS_RTOL,
+                                                    atol=0.0):
+        fail(f"the resumed epoch's losses {got} differ from the "
+             f"uninterrupted run's {want} beyond {RESUME_LOSS_RTOL}")
+    a = ck.read_checkpoint(os.path.join(straight_dir, "last"))
+    b = ck.read_checkpoint(os.path.join(resumed_dir, "last"))
+    cos, name, same = _param_cosines(a["state"]["model"], b["state"]["model"])
+    moments = all(torch.equal(a["state"]["optimizer"][m][k],
+                              b["state"]["optimizer"][m][k])
+                  for m in ("mu", "nu") for k in a["state"]["optimizer"][m])
+    log(f"  resumed vs uninterrupted last: parameters min cosine {cos:.9f}"
+        f"{f' ({name})' if name else ''}, bitwise equal: parameters {same}, "
+        f"moments {moments}, losses {got == want}; meta {b['meta']}")
+    if cos < RESUME_MIN_COSINE:
+        fail(f"resumed parameter {name} at cosine {cos} < {RESUME_MIN_COSINE}")
+    for d in (straight_dir, resumed_dir):
+        names = sorted(os.listdir(d))
+        epochs = [n for n in names if n.startswith("epoch_")]
+        if "last" not in names or "best" not in names or len(epochs) != 2:
+            fail(f"{d} holds {names}: expected last, best and 2 epochs")
+    log(f"  store: {sorted(os.listdir(straight_dir))}")
+    size = os.path.getsize(os.path.join(straight_dir, "last", ck.STATE_FILE))
+    per_step = {k: n // (SURFACE_EPOCHS * SURFACE_STEPS)
+                for k, n in launches.items()}
+    timed = {}
+    for mode in ("sync", "async"):
+        store = ck.CheckpointStore(ck.CheckpointConfig(
+            os.path.join(tmp, f"timed_{mode}"), async_save=mode == "async"))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        store.save_epoch(state, 0, 1.0, None, extra={"global_step": 0})
+        returned = time.perf_counter() - t0
+        store.wait_until_finished()
+        timed[mode] = (returned, time.perf_counter() - t0)
+    log(f"  checkpoint {size / 1e6:.1f} MB on disk; save_epoch in train(): "
+        f"{', '.join(f'{s:.3f}' for s in saves)} s (sync); timed alone: sync "
+        f"{timed['sync'][1]:.3f} s, async returns in {timed['async'][0]:.3f} "
+        f"s and commits in {timed['async'][1]:.3f} s; launches a step "
+        f"{per_step}")
+    best_epoch = int(ck.read_checkpoint(os.path.join(straight_dir, "best"))
+                     ["meta"]["epoch"])
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"launches": launches, "best": os.path.join(straight_dir, "best"),
+            "best_weights": snapshots[best_epoch], "best_epoch": best_epoch}
+
+
+def _surface_serve(resume, paths):
+    """(c) The engine on the store's best against the weights it held in
+    memory."""
+    from geoguessr_ai_torch.serving.engine import ServingEngine
+
+    t0 = time.perf_counter()
+    served = ServingEngine(checkpoint=resume["best"], seed=SEED + 1)
+    load_s = time.perf_counter() - t0
+    in_memory = ServingEngine(state_dict=resume["best_weights"])
+    same = _same_results([served.predict_images(paths)],
+                         [in_memory.predict_images(paths)])
+    log(f"(c) ServingEngine(checkpoint=<run>/best) (epoch "
+        f"{resume['best_epoch']}) built in {load_s:.2f} s, loaded "
+        f"{served.loaded}; fixture panorama bitwise equal to the engine on "
+        f"the same weights in memory: {same}")
+    if not same:
+        fail("the engine on <run>/best answers otherwise than the weights "
+             "in memory")
+    del served, in_memory
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _surface_qat(loop_p50_ms):
+    """(d) qat_storage at full width: one calibration, the kernels as in
+    phase 8."""
+    from geoguessr_ai_torch import config as C
+    from geoguessr_ai_torch.config import BackboneConfig, ModelConfig
+    from geoguessr_ai_torch.geocells.manager import CentroidTable
+    from geoguessr_ai_torch.ops import window_attention as wa
+    from geoguessr_ai_torch.train import coordinator
+
+    steps = 4
+    calls = []
+    real = coordinator.calibrate_qat_
+
+    def spy(model, *args):
+        t0 = time.perf_counter()
+        real(model, *args)
+        calls.append((model, time.perf_counter() - t0))
+
+    coordinator.calibrate_qat_ = spy
+    try:
+        table = CentroidTable.load(C.CENTROID_TABLE_PATH)
+        train_recs, _ = _surface_records(SURFACE_BATCH * steps)
+        rec = _TrainRecorder()
+        cfg = _surface_cfg(num_epochs=1, model=ModelConfig(
+            backbone=BackboneConfig(qat_storage=True)))
+        wa.reset_launches()
+        coordinator.train(cfg, train_recs, [], table, metrics_logger=rec)
+        torch.cuda.synchronize()
+    finally:
+        coordinator.calibrate_qat_ = real
+    if len(calls) != 1:
+        fail(f"qat_storage calibrated {len(calls)} times, expected once")
+    model, cal_s = calls[0]
+    amax = torch.stack([v.float().cpu() for v in
+                        model.backbone.act_scales.values()])
+    log(f"(d) qat_storage: {len(amax)} sites calibrated once in {cal_s:.2f} s "
+        f"(CPU, f32), amax {float(amax.min()):.4f} - {float(amax.max()):.4f}; "
+        f"sites {model.backbone.config.quant_sites}")
+    if not (torch.isfinite(amax).all() and (amax > 0).all()):
+        fail("a QAT amax is not finite and positive")
+    losses = rec.losses()
+    log(f"  losses {', '.join(f'{x:.6f}' for x in losses)}; train() loop p50 "
+        f"{rec.loop_p50_ms():.2f} ms (steps 2-{steps}) against phase 8's "
+        f"{loop_p50_ms:.2f}")
+    if len(losses) != steps or not np.all(np.isfinite(losses)):
+        fail(f"qat_storage train() logged {losses}")
+    launches = _expect_launches("(d) qat_storage", steps, 0)
+    del model, calls
+    p50 = _qat_step_p50(cfg, table)
+    log(f"  train_step p50 on one fixed batch of {SURFACE_BATCH}, in turns: "
+        f"qat_storage {p50['qat']:.2f} ms, default {p50['default']:.2f} ms "
+        f"({p50['qat'] / p50['default'] - 1:+.1%})")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _qat_step_p50(cfg, table):
+    """train_step p50 of a qat_storage state and of the default one on the
+    same fixed device batch: a warm-up step each, then blocks of 3 steps in
+    turns (default, qat, qat, default)."""
+    from geoguessr_ai_torch.train.coordinator import create_state
+    from geoguessr_ai_torch.train.fixtures import fixture_train_setup
+    from geoguessr_ai_torch.train.steps import train_step
+
+    states = {}
+    states["default"], batch, centroids = fixture_train_setup(SURFACE_BATCH,
+                                                              seed=SEED)
+    states["qat"] = create_state(cfg, table.num_cells, 1)[0]
+    times = {k: [] for k in states}
+    # a warm-up step each, then blocks of 3 in turns
+    order = ("default", "qat", "default", "qat", "qat", "default")
+    for i, name in enumerate(order):
+        for _ in range(1 if i < 2 else 3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            train_step(states[name], batch, centroids)
+            torch.cuda.synchronize()
+            times[name].append((time.perf_counter() - t0) * 1e3)
+    return {k: float(np.median(v[1:])) for k, v in times.items()}
+
+
+def _surface_embedding(tmp, paths):
+    """(e) The head alone on an embedding SQLite the builder wrote."""
+    from geoguessr_ai_torch import config as C
+    from geoguessr_ai_torch.config import (
+        BackboneConfig,
+        EmbedBuildConfig,
+        ModelConfig,
+        OptimizerConfig,
+    )
+    from geoguessr_ai_torch.data.embed_builder import (
+        Embedder,
+        build_embedding_sqlite,
+        bulk_embed_config,
+    )
+    from geoguessr_ai_torch.data.sqlite_dataset import (
+        load_sqlite_panorama_dataset,
+    )
+    from geoguessr_ai_torch.geocells.manager import CentroidTable
+    from geoguessr_ai_torch.train.coordinator import train
+
+    blobs = [open(p, "rb").read() for p in paths]
+    src = os.path.join(tmp, "raw.sqlite")
+    out = os.path.join(tmp, "emb.sqlite")
+    _write_fixture_sqlite(src, blobs, EMBED_ROWS)
+    emb = Embedder(BackboneConfig.tinyvit(), model_config=bulk_embed_config(),
+                   seed=SEED)
+    build_embedding_sqlite(src, out, EmbedBuildConfig(quant_mode="none"),
+                           embedder=emb, predecoded=True)
+    del emb
+    gc.collect()
+    torch.cuda.empty_cache()
+    panos = load_sqlite_panorama_dataset(out)
+    n_train = len(panos) - SURFACE_BATCH
+    cfg = _surface_cfg(num_epochs=-(-EMBED_TRAIN_STEPS * SURFACE_BATCH
+                                    // n_train),
+                       optimizer=OptimizerConfig(learning_rate=1e-3),
+                       model=ModelConfig(backbone=BackboneConfig(name="none")))
+    table = CentroidTable.load(C.CENTROID_TABLE_PATH)
+    rec = _TrainRecorder()
+    _reset_all_launches()
+    summary = train(cfg, panos[:n_train], panos[n_train:], table,
+                    metrics_logger=rec, max_steps=EMBED_TRAIN_STEPS)
+    torch.cuda.synchronize()
+    tinyvit = _tinyvit_launches()
+    losses = rec.losses()
+    log(f"(e) embedding-only: {len(panos)} panoramas of {EMBED_ROWS} rows "
+        f"written by build_embedding_sqlite; {len(losses)} steps of "
+        f"{SURFACE_BATCH}, loss {losses[0]:.6f} -> {losses[-1]:.6f}, val_loss "
+        f"{summary.get('val_loss', float('nan')):.6f}; train() loop p50 "
+        f"{rec.loop_p50_ms():.3f} ms; TinyViT launches {tinyvit}")
+    if len(losses) != EMBED_TRAIN_STEPS or not losses[-1] < losses[0]:
+        fail(f"embedding-only train() losses {losses}: expected "
+             f"{EMBED_TRAIN_STEPS} falling")
+    if any(tinyvit.values()):
+        fail(f"embedding-only train() launched TinyViT kernels: {tinyvit}")
+
+
+def _surface_hierarchical():
+    """(f) Hierarchical fusion trained at full width."""
+    from geoguessr_ai_torch import config as C
+    from geoguessr_ai_torch.config import ModelConfig
+    from geoguessr_ai_torch.geocells.manager import CentroidTable
+    from geoguessr_ai_torch.ops import window_attention as wa
+    from geoguessr_ai_torch.train import state as tstate
+    from geoguessr_ai_torch.train.coordinator import train
+
+    steps = 2
+    table = CentroidTable.load(C.CENTROID_TABLE_PATH)
+    train_recs, _ = _surface_records(SURFACE_BATCH * steps)
+    grads = []
+    real_step = tstate.AdamW.step
+
+    def spy(opt, params, g):
+        grads.append({n: float(t.float().norm()) for n, t in g.items()
+                      if n.startswith(("self_attn.", "backbone.stage3"))})
+        return real_step(opt, params, g)
+
+    tstate.AdamW.step = spy
+    try:
+        rec = _TrainRecorder()
+        wa.reset_launches()
+        train(_surface_cfg(num_epochs=1,
+                           model=ModelConfig(hierarchical=True)),
+              train_recs, [], table, metrics_logger=rec)
+        torch.cuda.synchronize()
+    finally:
+        tstate.AdamW.step = real_step
+    losses = rec.losses()
+    attn = {n: v for n, v in grads[-1].items() if n.startswith("self_attn.")}
+    stage3 = sum(v for n, v in grads[-1].items() if n.startswith("backbone."))
+    log(f"(f) hierarchical: losses {', '.join(f'{x:.6f}' for x in losses)}; "
+        f"self_attn gradient norms "
+        f"{', '.join(f'{n[10:]} {v:.3e}' for n, v in attn.items())}; the "
+        f"positional encoder holds no parameters (a fixed sinusoidal table, "
+        f"as in the JAX package): the gradient through it reaches the "
+        f"backbone's stage 3, norm {stage3:.3e}; single-image training is "
+        f"refused (the JAX train() fails on it)")
+    if len(losses) != steps or not np.all(np.isfinite(losses)):
+        fail(f"hierarchical train() logged {losses}")
+    if len(attn) != 8 or not all(v > 0 for v in attn.values()) \
+            or not stage3 > 0:
+        fail(f"hierarchical gradients are zero: {attn}, stage 3 {stage3}")
+    return _expect_launches("(f) hierarchical", steps, 0)
+
+
+#: Run in a fresh process (phase 29 (g)): ``main()`` on a fixture SQLite,
+#: then phase (b)'s train() for 3 steps under a StepProfiler whose trace
+#: spans the third step.  torch.profiler traces taken late in the long
+#: smoke process have come back empty (phase 10), hence the process.
+_SURFACE_MAIN = """
+import glob, json, os, sys
+import chip_smoke as cs
+from geoguessr_ai_torch import config as C
+from geoguessr_ai_torch.geocells.manager import CentroidTable
+from geoguessr_ai_torch.train.coordinator import main, train
+from geoguessr_ai_torch.utils.profiling import ProfileSchedule, StepProfiler
+
+summary = main(cs._surface_cfg(num_epochs=1, val_fraction=0.25))
+trace_dir = sys.argv[1]
+prof = StepProfiler(trace_dir, ProfileSchedule(wait=0, warmup=1, active=2,
+                                               repeat=1))
+train_recs, val_recs = cs._surface_records(cs.SURFACE_BATCH * cs.SURFACE_STEPS)
+train(cs._surface_cfg(), train_recs, val_recs,
+      CentroidTable.load(C.CENTROID_TABLE_PATH), max_steps=3,
+      metrics_logger=cs._TrainRecorder(on_step=prof.step))
+prof.close()
+print(json.dumps({"epoch": summary["epoch"],
+                  "global_step": summary["global_step"],
+                  "val_loss": summary.get("val_loss"),
+                  "traces": glob.glob(os.path.join(trace_dir, "*.json"))}))
+"""
+
+
+def _surface_main(tmp, paths):
+    """(g) main() and the profiler's trace, in a fresh process."""
+    blobs = [open(p, "rb").read() for p in paths]
+    db = os.path.join(tmp, "dataset_sqlite_surface.sqlite")
+    _write_fixture_sqlite(db, blobs, 4 * 4 * SURFACE_BATCH)
+    ckpt = os.path.join(tmp, "main_ckpt")
+    trace_dir = os.path.join(tmp, "trace")
+    env = dict(os.environ, DATASET_SQLITE_PATH=db, GEO_TPU_CKPT_DIR=ckpt)
+    # the fresh process trains at full width (phase 8's ~42 GB peak):
+    # hand back what this one's allocator keeps cached
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, "-c", _SURFACE_MAIN, trace_dir],
+                         cwd=HERE, env=env, capture_output=True, text=True,
+                         timeout=600)
+    wall_s = time.perf_counter() - t0
+    if out.returncode:
+        fail(f"main() failed:\n{out.stderr[-3000:]}")
+    result = json.loads(out.stdout.strip().splitlines()[-1])
+    names = sorted(os.listdir(ckpt)) if os.path.isdir(ckpt) else []
+    log(f"(g) main() in a fresh process ({wall_s:.1f} s): epoch "
+        f"{result['epoch']}, {result['global_step']} steps, val_loss "
+        f"{result['val_loss']}; {ckpt}: {names}")
+    if (result["epoch"] != 0 or result["val_loss"] is None
+            or not {"last", "best"} <= set(names)):
+        fail(f"main() did not run its epoch to the end: {result}, {names}")
+    if len(result["traces"]) != 1:
+        fail(f"the StepProfiler wrote {result['traces']}, expected one trace")
+    with open(result["traces"][0]) as f:
+        events = json.load(f).get("traceEvents", [])
+    kernels = {}
+    for e in events:
+        if e.get("cat") == "kernel":
+            for family in TRACE_KERNELS:
+                if family in e.get("name", ""):
+                    kernels[family] = kernels.get(family, 0) + 1
+    log(f"  StepProfiler trace ({os.path.getsize(result['traces'][0]) / 1e6:.1f}"
+        f" MB) device kernels by family: {kernels} (a validation forward and "
+        f"a train step launch {TRACE_KERNELS}: K1/K2 LN + GEMM core, "
+        f"K1/K2/K3 forward core, K4/K5 backward core)")
+    if set(kernels) != set(TRACE_KERNELS):
+        fail(f"the profiler's trace lacks {set(TRACE_KERNELS) - set(kernels)}")
+
+
+def phase_train_surface(paths, loop_p50_ms):
+    """Phase 29; returns K1-K5's launches over its train runs."""
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        _surface_decode(paths)
+        resume = _surface_resume(tmp)
+        _surface_serve(resume, paths)
+        parts = [resume.pop("launches"), _surface_qat(loop_p50_ms)]
+        del resume
+        _surface_embedding(tmp, paths)
+        parts.append(_surface_hierarchical())
+        _surface_main(tmp, paths)
+    log(f"phase 29 in {time.perf_counter() - t0:.1f} s")
+    return {k: sum(p[k] for p in parts) for k in LAUNCHES_PER_TRAIN_STEP}
+
+
+# ---------------------------------------------------------------------------
+# Phase 30: the kernels line
 # ---------------------------------------------------------------------------
 
 
@@ -3708,7 +4302,7 @@ def main():
     torch.cuda.empty_cache()
     rows.update(phase_backward_kernels())
     phase_op_gradients()
-    train_launches = phase_train()
+    train_launches, train_loop_p50 = phase_train()
     cpu_step = phase_train_vs_cpu()
     gc.collect()
     torch.cuda.empty_cache()
@@ -3735,6 +4329,9 @@ def main():
         f32_launches[k] += n
     k14 = phase_smem_probe()
     guess_launches, _ = phase_guess_path(paths)
+    gc.collect()
+    torch.cuda.empty_cache()
+    surface_launches = phase_train_surface(paths, train_loop_p50)
 
     main_case = {"K1": "stage1", "K2": "stage2", "K3": "stage3",
                  "K4": "stage1", "K5": "stage2"}
@@ -3752,7 +4349,8 @@ def main():
             "replaces": replaces,
             "launches": (serve_launches.get(k, 0) + train_launches[k]
                          + static_launches.get(k, 0)
-                         + guess_launches.get(k, 0)),
+                         + guess_launches.get(k, 0)
+                         + surface_launches.get(k, 0)),
             "max_abs_err": row["max_abs_err"], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": library,

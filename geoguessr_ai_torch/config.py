@@ -49,6 +49,10 @@ GEOCELL_DIR = os.environ.get(
 CENTROID_TABLE_PATH = os.environ.get(
     "GEO_TPU_CENTROIDS", os.path.join(GEOCELL_DIR, "centroid_table.npz")
 )
+#: Where ``train.coordinator.main`` keeps its checkpoints.
+CHECKPOINT_DIR = os.environ.get(
+    "GEO_TPU_CKPT_DIR", os.path.join(REPO_ROOT, "checkpoints")
+)
 
 
 def resolve_device(device=None):
@@ -87,7 +91,8 @@ class MeshConfig:
 @dataclasses.dataclass(frozen=True)
 class BackboneConfig:
     """Which vision tower feeds SuperGuessr: "tinyvit" (serve and train),
-    "clip" or "clip_b32" (serve only)."""
+    "clip" or "clip_b32" (serve only), or "none" (train the head on
+    precomputed embeddings)."""
 
     name: str = "tinyvit"  # "tinyvit" | "clip" | "none" (raw embeddings)
     image_size: int = TINYVIT_IMAGE_SIZE
@@ -96,7 +101,9 @@ class BackboneConfig:
     #: Freeze all but the last stage (the reference TinyViT finetune recipe).
     freeze_all_but_last_stage: bool = True
     dtype: str = "bfloat16"  # compute dtype
-    #: QAT int8 activation storage in the train step (not ported).
+    #: QAT int8 activation storage in the train step: TinyViT's
+    #: TRAIN_QUANT_SITES through fake_quant_static_ste, calibrated once at
+    #: start-up.
     qat_storage: bool = False
 
     @staticmethod
@@ -153,11 +160,17 @@ class TrainConfig:
     num_epochs: int = 1000
     eval_every_steps: int = 1000
     log_every_steps: int = 10
+    #: Checkpoint retention: keep last + best + top-K epoch checkpoints.
+    keep_last_n: int = 3
+    #: Write checkpoints on a background thread after a synchronous copy
+    #: to the host (train.checkpoints).
+    async_checkpoints: bool = False
     early_stop_patience: int = 10
     monitored_metric: str = "val_loss"
     monitored_mode: str = "min"
-    #: Checkpoints are not ported yet: train() raises when this is set.
+    #: A checkpoint directory to resume from (e.g. <run>/last).
     resume_path: Optional[str] = None
+    val_fraction: float = 0.1
     optimizer: OptimizerConfig = OptimizerConfig()
     mesh: MeshConfig = MeshConfig()
     model: ModelConfig = ModelConfig()

@@ -1,6 +1,9 @@
 """Host input pipeline: JPEG decode -> panorama batches -> the device
-(counterpart of geoguessr_ai_tpu/data/pipeline.py).  Decodes with PIL; the
-native libjpeg decoder of the JAX package is not ported yet."""
+(counterpart of geoguessr_ai_tpu/data/pipeline.py).
+
+Decode backend: the native libjpeg decoder (``data/native``, built at first
+use) when it loads, otherwise PIL.  Both decode straight to the model's
+square target size."""
 
 from __future__ import annotations
 
@@ -18,9 +21,9 @@ import torch
 from geoguessr_ai_torch.config import NUM_PANORAMA_VIEWS
 
 
-def decode_jpeg(blob: bytes, size: int) -> np.ndarray:
-    """Decode one JPEG to (size, size, 3) uint8 RGB, resized bilinearly
-    when it is not already size x size."""
+def _pil_decode(blob: bytes, size: int) -> np.ndarray:
+    """PIL's decode to (size, size, 3) uint8 RGB, resized bilinearly when
+    it is not already size x size."""
     from PIL import Image
 
     with Image.open(io.BytesIO(blob)) as im:
@@ -28,6 +31,22 @@ def decode_jpeg(blob: bytes, size: int) -> np.ndarray:
         if im.size != (size, size):
             im = im.resize((size, size), Image.BILINEAR)
         return np.asarray(im, dtype=np.uint8)
+
+
+def decode_jpeg(blob: bytes, size: int) -> np.ndarray:
+    """Decode one JPEG to (size, size, 3) uint8 RGB.
+
+    Native libjpeg first; a native failure (no library, a grayscale, CMYK
+    or corrupt stream) falls back to PIL, which converts exotic color
+    spaces, as the JAX package does."""
+    from geoguessr_ai_torch.data.native import jpeg as native_jpeg
+
+    if native_jpeg.available():
+        try:
+            return native_jpeg.decode_resize(blob, size)
+        except ValueError:
+            pass
+    return _pil_decode(blob, size)
 
 
 def _rows(records) -> list:
@@ -40,7 +59,55 @@ def _rows(records) -> list:
             for r in records]
 
 
-class PanoramaBatchIterator:
+class _RecordBatches:
+    """What the batch iterators share: the records, their order (shuffled
+    with ``seed`` + epoch when ``shuffle``), and the last short batch
+    padded up to batch_size by repeating the last record, or dropped when
+    ``drop_remainder``."""
+
+    def __init__(self, records, batch_size: int, num_views: int,
+                 shuffle: bool, seed: int, drop_remainder: bool):
+        self.rows = _rows(records)
+        self.batch_size = batch_size
+        self.num_views = num_views
+        self.shuffle = shuffle
+        self.seed = seed
+        self.drop_remainder = drop_remainder
+        self._epoch = 0
+
+    def __len__(self) -> int:
+        n = len(self.rows)
+        if self.drop_remainder:
+            return n // self.batch_size
+        return (n + self.batch_size - 1) // self.batch_size
+
+    def _row_batches(self):
+        """One epoch's (records, true count) batches."""
+        order = np.arange(len(self.rows))
+        if self.shuffle:
+            rng = np.random.default_rng(self.seed + self._epoch)
+            rng.shuffle(order)
+        self._epoch += 1
+        for start in range(0, len(order), self.batch_size):
+            idx = order[start: start + self.batch_size]
+            num_real = len(idx)
+            if num_real < self.batch_size:
+                if self.drop_remainder:
+                    break
+                idx = np.concatenate(
+                    [idx, np.repeat(idx[-1:], self.batch_size - num_real)])
+            yield [self.rows[i] for i in idx], num_real
+
+    @staticmethod
+    def _batch(rows, num_real, **arrays) -> Dict:
+        return {**arrays,
+                "coords": np.array([[r.lon, r.lat] for r in rows],
+                                   dtype=np.float32),
+                "location_id": [r.location_id for r in rows],
+                "num_real": num_real}
+
+
+class PanoramaBatchIterator(_RecordBatches):
     """Yields host batches from panorama records.
 
     Each batch dict:
@@ -61,22 +128,11 @@ class PanoramaBatchIterator:
                  drop_remainder: bool = False, fetch_fn=None):
         """fetch_fn maps an entry of a record's ``images`` to JPEG bytes
         (None: the entries are the bytes)."""
-        self.rows = _rows(records)
-        self.batch_size = batch_size
+        super().__init__(records, batch_size, num_views, shuffle, seed,
+                         drop_remainder)
         self.image_size = image_size
-        self.num_views = num_views
-        self.shuffle = shuffle
-        self.seed = seed
         self.decode_threads = decode_threads
-        self.drop_remainder = drop_remainder
         self.fetch_fn = fetch_fn
-        self._epoch = 0
-
-    def __len__(self) -> int:
-        n = len(self.rows)
-        if self.drop_remainder:
-            return n // self.batch_size
-        return (n + self.batch_size - 1) // self.batch_size
 
     def _decode_row(self, row):
         views = np.zeros(
@@ -95,43 +151,68 @@ class PanoramaBatchIterator:
         return views, mask
 
     def __iter__(self) -> Iterator[Dict[str, np.ndarray]]:
-        order = np.arange(len(self.rows))
-        if self.shuffle:
-            rng = np.random.default_rng(self.seed + self._epoch)
-            rng.shuffle(order)
-        self._epoch += 1
-
         with cf.ThreadPoolExecutor(self.decode_threads) as pool:
-            for start in range(0, len(order), self.batch_size):
-                idx = order[start: start + self.batch_size]
-                num_real = len(idx)
-                if num_real < self.batch_size:
-                    if self.drop_remainder:
-                        break
-                    idx = np.concatenate(
-                        [idx, np.repeat(idx[-1:], self.batch_size - num_real)])
-                rows = [self.rows[i] for i in idx]
+            for rows, num_real in self._row_batches():
                 decoded = list(pool.map(self._decode_row, rows))
-                yield {
-                    "pixel_values": np.stack([d[0] for d in decoded]),
-                    "view_mask": np.stack([d[1] for d in decoded]),
-                    "coords": np.array([[r.lon, r.lat] for r in rows],
-                                       dtype=np.float32),
-                    "location_id": [r.location_id for r in rows],
-                    "num_real": num_real,
-                }
+                yield self._batch(
+                    rows, num_real,
+                    pixel_values=np.stack([d[0] for d in decoded]),
+                    view_mask=np.stack([d[1] for d in decoded]))
+
+
+class EmbeddingBatchIterator(_RecordBatches):
+    """Yields host batches from panorama records whose ``images`` entries
+    are float32 embedding blobs (an embedding SQLite grouped by
+    ``sqlite_dataset.build_panorama_table``): the input of embedding-only
+    head training.
+
+    Each batch dict:
+      embedding:   (B, V, D) float32, zero rows for missing views
+      view_mask:   (B, V) float32
+      coords:      (B, 2) float32 (lng, lat)
+      location_id: list[str]
+      num_real:    the true count before the last batch's padding
+    The order, the shuffle and the padding are PanoramaBatchIterator's.
+    """
+
+    def __init__(self, records, batch_size: int, embed_dim: int,
+                 num_views: int = NUM_PANORAMA_VIEWS, shuffle: bool = False,
+                 seed: int = 0, drop_remainder: bool = False):
+        super().__init__(records, batch_size, num_views, shuffle, seed,
+                         drop_remainder)
+        self.embed_dim = embed_dim
+
+    def _row(self, row):
+        emb = np.zeros((self.num_views, self.embed_dim), np.float32)
+        mask = np.zeros((self.num_views,), np.float32)
+        for v, blob in enumerate(row.images[: self.num_views]):
+            if blob is None:
+                continue
+            vec = (np.frombuffer(blob, np.float32)
+                   if isinstance(blob, (bytes, memoryview))
+                   else np.asarray(blob, np.float32))
+            emb[v, : vec.shape[-1]] = vec[: self.embed_dim]
+            mask[v] = 1.0
+        return emb, mask
+
+    def __iter__(self) -> Iterator[Dict[str, np.ndarray]]:
+        for rows, num_real in self._row_batches():
+            packed = [self._row(r) for r in rows]
+            yield self._batch(rows, num_real,
+                              embedding=np.stack([p[0] for p in packed]),
+                              view_mask=np.stack([p[1] for p in packed]))
 
 
 def prefetch_to_device(iterator, device, depth: int = 2):
     """Keeps the next ``depth`` batches' copies to ``device`` in flight:
-    the pixel, mask and coordinate arrays go to pinned host memory and
-    over with ``non_blocking`` copies on a CUDA device; other entries stay
-    on the host."""
+    the pixel (or embedding), mask and coordinate arrays go to pinned host
+    memory and over with ``non_blocking`` copies on a CUDA device; other
+    entries stay on the host."""
     device = torch.device(device)
 
     def transfer(batch):
         out = dict(batch)
-        for k in ("pixel_values", "view_mask", "coords"):
+        for k in ("pixel_values", "embedding", "view_mask", "coords"):
             if k in out:
                 t = torch.from_numpy(np.ascontiguousarray(out[k]))
                 if device.type == "cuda":

@@ -1,12 +1,14 @@
 """Guess the location of a street-view panorama with the PyTorch port.
 
     python -m geoguessr_ai_torch.inference [1 or 4 images] [--use-refiner]
-        [--backbone tinyvit|clip] [--checkpoint MODEL.pt]
+        [--backbone tinyvit|clip] [--checkpoint MODEL.pt | RUN/best]
         [--centroid-table PATH] [--device cuda|cpu]
 
 With no images it uses the bundled fixture panorama
 (tests/fixtures/heading=*.jpg).  Without ``--checkpoint`` the weights are
-seeded random.  A checkpoint's cell order travels with its own centroid
+seeded random; a checkpoint is a reference ``.pt`` file or a directory of
+the port's CheckpointStore (``train()`` writes ``RUN/best``, ``RUN/last``).
+A checkpoint's cell order travels with its own centroid
 table: ``MODEL.pt_centroids.npz`` beside it is used when
 ``--centroid-table`` is not given.
 """
@@ -98,7 +100,8 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     ap.add_argument("--backbone", default="tinyvit",
                     choices=("tinyvit", "clip"))
     ap.add_argument("--checkpoint", default=None,
-                    help="a reference or timm .pt file")
+                    help="a reference or timm .pt file, or a checkpoint "
+                    "directory written by train() (e.g. RUN/best)")
     ap.add_argument("--centroid-table", default=None,
                     help="centroid .npz matching the checkpoint's cell order "
                     "(default: the checkpoint's _centroids.npz sidecar)")

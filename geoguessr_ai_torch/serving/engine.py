@@ -32,7 +32,11 @@ from geoguessr_ai_torch.models.torch_convert import (
     tinyvit_from_timm,
 )
 from geoguessr_ai_torch.ops.preprocess import fused_preprocess
-from geoguessr_ai_torch.train.checkpoints import load_torch_checkpoint
+from geoguessr_ai_torch.train.checkpoints import (
+    STATE_FILE,
+    load_torch_checkpoint,
+    read_checkpoint,
+)
 from geoguessr_ai_torch.train.coordinator import build_backbone
 from geoguessr_ai_torch.utils.logging import logger
 
@@ -56,8 +60,10 @@ class ServingEngine:
         the mean-token embedding).
       centroid_table: defaults to the repo's table (12647 cells).
       device: None means "cuda"; raises when no GPU is present.
-      checkpoint: a reference or timm ``.pt`` file (``load_checkpoint``)
-        loaded over the seeded weights; an orbax directory raises.
+      checkpoint: a checkpoint directory of the port's CheckpointStore
+        (e.g. ``<run>/best``), or a reference or timm ``.pt`` file,
+        loaded over the seeded weights (``load_checkpoint``); an orbax
+        directory raises.
       state_dict: SuperGuessr weights (e.g. from models.convert); seeded
         random weights when None.
       backbone_config: replaces the backbone's preset: a TinyViTConfig, or
@@ -119,9 +125,13 @@ class ServingEngine:
                                          device=self.device)
 
     def load_checkpoint(self, path: str) -> None:
-        """Loads a reference SuperGuessr ``.pt`` over the current weights.
+        """Loads a checkpoint over the current weights.
 
-        The head (``cell_layer`` when its cell count matches the table,
+        A directory holding ``state.pt`` (written by the port's
+        CheckpointStore) gives the whole model by name
+        (``_load_store_checkpoint``).  Any other directory (an orbax one of
+        the JAX package) raises NotImplementedError.  A file is a reference
+        SuperGuessr ``.pt``: its head (``cell_layer`` when its cell count matches the table,
         ``self_attn`` of a hierarchical model) comes through
         ``super_guessr_head_from_reference``; backbone entries under
         ``base_model.`` (then ``backbone.``) through ``tinyvit_from_timm``
@@ -135,9 +145,14 @@ class ServingEngine:
         ``self.loaded`` records the head subtrees and whether the backbone
         was loaded."""
         if os.path.isdir(path):
+            if os.path.exists(os.path.join(path, STATE_FILE)):
+                self._load_store_checkpoint(path)
+                return
             raise NotImplementedError(
-                f"{path} is a directory: orbax checkpoint directories are "
-                "not ported yet (ROADMAP Queue 1 item 8); pass a .pt file")
+                f"{path} is a directory without {STATE_FILE}: orbax "
+                "checkpoint directories (the JAX package's) are not read, "
+                "since orbax is not installed where the port runs; pass a "
+                "CheckpointStore directory or a .pt file")
         sd = load_torch_checkpoint(path)
         overlay = super_guessr_head_from_reference(
             sd, num_cells=self.table.num_cells,
@@ -181,6 +196,36 @@ class ServingEngine:
             any(k.startswith(f"{name}.") for k in entries)
             for name in overlay), "backbone": backbone}
         logger.info(f"loaded reference checkpoint {path} ({self.loaded})")
+
+    def _load_store_checkpoint(self, path: str) -> None:
+        """Loads the model of a CheckpointStore directory (``state.pt``'s
+        ``state["model"]``) by name, every entry (strict).  A checkpoint of
+        another model (cell count, width, fusion or backbone) raises
+        ValueError naming the entries that differ, before any weight
+        changes."""
+        tree = read_checkpoint(path)
+        sd = tree["state"]["model"]
+        act = tuple(f"backbone.{c}." for c in ("act_scales", "act_stats"))
+        own = {k: v for k, v in self.model.state_dict().items()
+               if not k.startswith(act)}
+        theirs = {k: v for k, v in sd.items() if not k.startswith(act)}
+        diff = [f"{k} missing" for k in sorted(set(own) - set(theirs))]
+        diff += [f"{k} unexpected" for k in sorted(set(theirs) - set(own))]
+        diff += [f"{k}: checkpoint {tuple(theirs[k].shape)}, model "
+                 f"{tuple(own[k].shape)}" for k in sorted(own)
+                 if k in theirs and theirs[k].shape != own[k].shape]
+        if diff:
+            raise ValueError(
+                f"{path} holds another model than this engine's "
+                f"({self.table.num_cells} cells, {self.backbone_name} "
+                f"width {self.config.embed_dim}, hierarchical="
+                f"{self.model.hierarchical}): {len(diff)} entries differ, "
+                f"e.g. {'; '.join(diff[:4])}")
+        self.model.load_state_dict(sd, strict=True)
+        self.loaded = {"head": len({k.split(".")[0] for k in own}
+                                   - {"backbone"}),
+                       "backbone": True}
+        logger.info(f"loaded checkpoint {path} (meta {tree['meta']})")
 
     @torch.inference_mode()
     def predict_batch(

@@ -145,6 +145,28 @@ class AdamW:
             p.add_(-lr * update)
         return lr
 
+    def state_dict(self) -> Dict:
+        """The moments and the update count (the config and schedule come
+        from the caller)."""
+        return {"mu": dict(self.mu), "nu": dict(self.nu),
+                "count": self.count}
+
+    def load_state_dict(self, sd: Dict) -> None:
+        """Copies moments of the same names and shapes into place."""
+        for key in ("mu", "nu"):
+            mine, theirs = getattr(self, key), sd[key]
+            if set(theirs) != set(mine):
+                raise KeyError(
+                    f"optimizer {key} holds {sorted(set(theirs) ^ set(mine))}"
+                    " where this optimizer's trainable parameters differ")
+            for n, t in theirs.items():
+                if t.shape != mine[n].shape:
+                    raise ValueError(f"optimizer {key}[{n!r}] has shape "
+                                     f"{tuple(t.shape)}, expected "
+                                     f"{tuple(mine[n].shape)}")
+                mine[n] = t.to(mine[n].device, mine[n].dtype).clone()
+        self.count = int(sd["count"])
+
 
 def make_optimizer(params: Dict[str, torch.Tensor], cfg: OptimizerConfig,
                    steps_per_epoch: int,
@@ -172,6 +194,23 @@ class TrainState:
     optimizer: AdamW
     generator: torch.Generator
     step: int = 0
+
+    def state_dict(self) -> Dict:
+        """Everything a resume needs, as tensors, numbers and plain
+        containers (loadable with ``torch.load(..., weights_only=True)``):
+        the model's state dict, the optimizer's moments and count, the
+        generator's state and the step."""
+        return {"model": self.model.state_dict(),
+                "optimizer": self.optimizer.state_dict(),
+                "generator": self.generator.get_state(),
+                "step": self.step}
+
+    def load_state_dict(self, sd: Dict) -> None:
+        """Loads ``state_dict()``'s form in place (the model strictly)."""
+        self.model.load_state_dict(sd["model"], strict=True)
+        self.optimizer.load_state_dict(sd["optimizer"])
+        self.generator.set_state(sd["generator"].cpu())
+        self.step = int(sd["step"])
 
 
 def create_train_state(model: torch.nn.Module, optimizer_cfg: OptimizerConfig,

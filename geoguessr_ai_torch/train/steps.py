@@ -1,7 +1,10 @@
 """Train and eval steps (counterpart of geoguessr_ai_tpu/train/steps.py).
 
 Batches are dicts of tensors on the model's device:
-  pixel_values: (B, V, H, W, C) preprocessed panoramas
+  pixel_values: (B, V, H, W, C) preprocessed panoramas, or (B, H, W, C)
+                for a single-image model
+  embedding:    (B, V, D) or (B, D) precomputed embeddings, in place of
+                pixel_values when the model has no backbone
   view_mask:    optional (B, V) 1/0 mask of real views
   coords:       (B, 2) f32 (lng, lat) ground truth
 """
@@ -53,10 +56,15 @@ def _metrics(logits, coords, centroids, loss, with_distances=False
     return out
 
 
+def _forward(model, batch, train, generator=None):
+    """The model on the batch's pixel_values or embedding."""
+    return model(batch.get("pixel_values"), view_mask=batch.get("view_mask"),
+                 train=train, generator=generator,
+                 embedding=batch.get("embedding"))
+
+
 def _loss(state: TrainState, batch, centroids, should_smooth_labels):
-    _, logits = state.model(batch["pixel_values"],
-                            view_mask=batch.get("view_mask"), train=True,
-                            generator=state.generator)
+    _, logits = _forward(state.model, batch, True, state.generator)
     if should_smooth_labels:
         loss = smoothed_soft_ce(logits, batch["coords"], centroids)
     else:
@@ -123,8 +131,7 @@ def train_step(
 def eval_step(state: TrainState, batch: Dict[str, torch.Tensor],
               centroids: torch.Tensor) -> Dict[str, torch.Tensor]:
     """Validation forward (running-statistics BatchNorm, no DropPath)."""
-    _, logits = state.model(batch["pixel_values"],
-                            view_mask=batch.get("view_mask"), train=False)
+    _, logits = _forward(state.model, batch, False)
     loss = smoothed_soft_ce(logits, batch["coords"], centroids)
     return _metrics(logits, batch["coords"], centroids, loss,
                     with_distances=True)

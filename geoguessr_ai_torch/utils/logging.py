@@ -7,7 +7,7 @@ import json
 import logging
 import sys
 import time
-from typing import Dict
+from typing import Dict, Optional
 
 logger = logging.getLogger("geoguessr_ai_torch")
 
@@ -23,10 +23,16 @@ def _ensure_handler() -> None:
 
 class MetricsLogger:
     """Writes metrics as one JSON object per line through the
-    ``geoguessr_ai_torch`` logger."""
+    ``geoguessr_ai_torch`` logger, and the run's ``project`` and
+    ``run_config`` once at the start (the JAX package also sends them to
+    W&B and TensorBoard, which the port leaves out)."""
 
-    def __init__(self):
+    def __init__(self, project: str = "geoguessr-tpu",
+                 run_config: Optional[dict] = None):
         _ensure_handler()
+        if run_config is not None:
+            logger.info(json.dumps({"run": project, "config": run_config},
+                                   default=str))
 
     def log(self, metrics: Dict[str, float], step: int) -> None:
         scalars = {k: float(v) for k, v in metrics.items()
@@ -35,6 +41,10 @@ class MetricsLogger:
 
     def summary(self, key: str, value) -> None:
         logger.info(json.dumps({"summary": {key: value}}))
+
+    def finish(self) -> None:
+        """Ends the run (the JAX package closes its W&B run and TensorBoard
+        writer here; stdout needs nothing)."""
 
 
 class StepTimer:

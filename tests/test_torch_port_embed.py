@@ -30,6 +30,7 @@ from geoguessr_ai_tpu.ops import mbconv as jmb
 from geoguessr_ai_tpu.ops import window_attention as jwa
 
 from geoguessr_ai_torch.models import tinyvit as ttv
+from test_torch_port_train import _same_decoder
 from geoguessr_ai_torch.models.convert import from_jax_variables
 from geoguessr_ai_torch.ops import mbconv as tmb
 from geoguessr_ai_torch.ops import window_attention as twa
@@ -371,20 +372,20 @@ def test_build_embedding_sqlite_matches_jax(raw_sqlite, embedders, tmp_path,
                                            monkeypatch):
     """Same rows, columns and embeddings as the JAX builder on the same
     weights, with 10 rows in batches of 4 (the last one padded); the JAX
-    reader reads the port's file.  Both builders decode with the port's
-    PIL decoder (the JAX package's native libjpeg resize is not what this
-    holds)."""
+    reader reads the port's file.  Both builders decode with their native
+    libjpeg decoders (the same source), or with PIL where either is
+    absent."""
     from geoguessr_ai_tpu.config import EmbedBuildConfig as JaxCfg
     from geoguessr_ai_tpu.data import embed_builder as jeb
     from geoguessr_ai_tpu.data.sqlite_dataset import (
         read_embeddings as jax_read,
     )
 
-    from geoguessr_ai_torch.data import pipeline
+    from geoguessr_ai_torch.data import embed_builder as teb
     from geoguessr_ai_torch.data.embed_builder import build_embedding_sqlite
     from geoguessr_ai_torch.data.sqlite_dataset import read_embeddings
 
-    monkeypatch.setattr(jeb, "decode_jpeg", pipeline.decode_jpeg)
+    _same_decoder(monkeypatch, jeb, teb)
     jemb, port = embedders
     out_j, out_p = str(tmp_path / "jax.sqlite"), str(tmp_path / "port.sqlite")
     assert jeb.build_embedding_sqlite(

@@ -1085,13 +1085,19 @@ def test_deferred_parts_raise_citing_their_roadmap_item(tmp_path):
 
     orbax_dir = tmp_path / "best"
     orbax_dir.mkdir()
-    with pytest.raises(NotImplementedError, match="orbax.*item 8"):
+    with pytest.raises(NotImplementedError, match="orbax"):
         _tiny_engine(_table(), checkpoint=str(orbax_dir))
     with pytest.raises(NotImplementedError, match="registry.*item 8"):
         rb.run_benchmark(clip_checkpoint_index=0, sqlite_path="unused")
+    # since the train slice, both models build; train() refuses the
+    # single-image one (tests/test_torch_port_train_loop.py)
+    from geoguessr_ai_torch.models.tinyvit import TinyViTConfig
+
     for model in (ModelConfig(hierarchical=True), ModelConfig(panorama=False)):
-        with pytest.raises(NotImplementedError, match="item 8"):
-            coordinator.build_model(TrainConfig(model=model), 8)
+        built, _, _, _ = coordinator.build_model(TrainConfig(model=model), 8,
+                                                 TinyViTConfig.test_tiny())
+        assert built.hierarchical == model.hierarchical
+        assert built.panorama == model.panorama
 
 
 def test_discover_sqlite_finds_the_newest(tmp_path, monkeypatch):

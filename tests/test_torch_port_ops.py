@@ -240,18 +240,23 @@ def test_fused_preprocess_resize_is_not_ported():
 
 
 def test_decode_jpeg_is_byte_equal_to_jax_pil_decode(fixtures_dir):
-    from geoguessr_ai_tpu.data.pipeline import _pil_decode
+    """The port's PIL decode against the JAX package's, and each package's
+    ``decode_jpeg`` (native libjpeg first, PIL where it is absent) against
+    the other's."""
+    from geoguessr_ai_tpu.data import pipeline as jax_pipeline
 
-    from geoguessr_ai_torch.data.pipeline import decode_jpeg
+    from geoguessr_ai_torch.data import pipeline
 
     path = os.path.join(fixtures_dir, "heading=000.jpg")
     with open(path, "rb") as f:
         blob = f.read()
     for size in (512, 96):  # straight decode, and the bilinear resize
-        got = decode_jpeg(blob, size)
-        want = _pil_decode(blob, size)
+        got = pipeline._pil_decode(blob, size)
+        want = jax_pipeline._pil_decode(blob, size)
         assert got.dtype == np.uint8 and got.shape == (size, size, 3)
         np.testing.assert_array_equal(got, want)
+        np.testing.assert_array_equal(pipeline.decode_jpeg(blob, size),
+                                      jax_pipeline.decode_jpeg(blob, size))
 
 
 def test_haversine_matches_jax():

@@ -845,6 +845,22 @@ def _records(fixtures_dir, n=12, views=4):
             for i in range(n)]
 
 
+def _same_decoder(monkeypatch, jax_module, port_module):
+    """Leaves both packages on their native decoders when both load;
+    otherwise pins ``decode_jpeg`` of ``jax_module`` and of
+    ``port_module`` to each package's PIL decode."""
+    from geoguessr_ai_tpu.data import pipeline as jax_pipeline
+    from geoguessr_ai_tpu.data.native import jpeg as jax_jpeg
+
+    from geoguessr_ai_torch.data import pipeline
+    from geoguessr_ai_torch.data.native import jpeg
+
+    if jpeg.available() and jax_jpeg.available():
+        return
+    monkeypatch.setattr(jax_module, "decode_jpeg", jax_pipeline._pil_decode)
+    monkeypatch.setattr(port_module, "decode_jpeg", pipeline._pil_decode)
+
+
 def test_panorama_batches_match_jax(fixtures_dir, monkeypatch):
     """Records as dicts (the port) and as a DataFrame (the JAX package),
     shuffled, with a short panorama (mask 0 view) and a padded last
@@ -861,9 +877,11 @@ def test_panorama_batches_match_jax(fixtures_dir, monkeypatch):
         prefetch_to_device,
     )
 
-    # the port decodes with PIL: hold it against the JAX package's PIL
-    # decode, not its native libjpeg one
-    monkeypatch.setattr(jax_pipeline, "decode_jpeg", jax_pipeline._pil_decode)
+    # native libjpeg against native where both packages built it; PIL on
+    # both sides where either lacks it
+    from geoguessr_ai_torch.data import pipeline
+
+    _same_decoder(monkeypatch, jax_pipeline, pipeline)
     records = _records(fixtures_dir, n=7)
     kw = dict(batch_size=3, image_size=32, shuffle=True, seed=4)
     got = list(PanoramaBatchIterator(records, **kw))
@@ -945,11 +963,7 @@ def test_train_runs_steps_validation_and_summary(fixtures_dir, monkeypatch):
 
 
 @pytest.mark.parametrize("change,match", [
-    (dict(checkpoint_dir="ckpt"), "checkpoints"),
-    (dict(resume_path="ckpt/last"), "checkpoints"),
-    (dict(backbone=dict(qat_storage=True)), "qat_storage"),
     (dict(backbone=dict(name="clip")), "clip"),
-    (dict(model=dict(hierarchical=True)), "hierarchical"),
     (dict(mesh=dict(data_parallel=4)), "one device"),
 ])
 def test_train_raises_for_what_is_not_ported(change, match, tmp_path):
@@ -962,13 +976,10 @@ def test_train_raises_for_what_is_not_ported(change, match, tmp_path):
     from geoguessr_ai_torch.train import coordinator
 
     cfg = TrainConfig(
-        resume_path=change.get("resume_path"),
         mesh=MeshConfig(**change.get("mesh", {})),
-        model=ModelConfig(backbone=BackboneConfig(**change.get("backbone", {})),
-                          **change.get("model", {})))
+        model=ModelConfig(backbone=BackboneConfig(**change.get("backbone", {}))))
     with pytest.raises(NotImplementedError, match=match):
-        coordinator.train(cfg, [], [], _tiny_table(), device="cpu",
-                          checkpoint_dir=change.get("checkpoint_dir"))
+        coordinator.train(cfg, [], [], _tiny_table(), device="cpu")
 
 
 def test_train_entry_point_needs_cuda_unless_told_cpu():
@@ -988,6 +999,10 @@ def test_train_modules_import_with_jax_blocked():
         "for m in ('jax', 'flax', 'optax', 'geoguessr_ai_tpu'):\n"
         "    sys.modules[m] = None\n"
         "import geoguessr_ai_torch.train.coordinator\n"
+        "import geoguessr_ai_torch.train.checkpoints\n"
+        "import geoguessr_ai_torch.train.train_eval_loop\n"
+        "import geoguessr_ai_torch.utils.profiling\n"
+        "import geoguessr_ai_torch.data.native.jpeg\n"
         "import geoguessr_ai_torch.train.fixtures\n"
         "import geoguessr_ai_torch.profile_forward\n"
         "print('ok')\n"
