@@ -189,7 +189,26 @@ Phases, in order; any failure exits non-zero:
     ``GEO_TPU_CKPT_DIR``) for one epoch, then phase (b)'s ``train()`` under
     a ``StepProfiler`` whose trace must hold the LN + GEMM, forward and
     backward cores' kernels;
-30. print the kernel JSON line, then ``{"ok": true, "device": ...}`` last.
+30. CLIP training and contrastive pretraining (full width, 12647 cells,
+    temp directories): (a) ``train()`` on CLIP ViT-L/14-336 for 2 epochs
+    of 2 steps of 16 fixture panoramas: K6 exactly 24 launches in each
+    train and validation forward and none in the backward, no other
+    kernel, finite losses, every leaf outside ``layer23``,
+    ``post_layernorm`` and the head bitwise unchanged and every leaf
+    inside them moved; loop p50 and peak memory; (b) one B=2 train step
+    at full width and 2 layers on the card in bf16 against the CPU in f32:
+    loss, the whole gradient's cosine, the trainable set; (c) ``train()``
+    with ``pallas_fuse_proj``: K11 24 a forward, K6 none; (d)
+    ``ServingEngine(backbone="clip", checkpoint=<run>/best)`` bitwise
+    equal to the engine on the weights the run held; (e) ``pretrain()``
+    (the vision tower, the 12-layer text tower, the vendored BPE) over 64
+    captioned fixture rows, batches of 16, two micro-batches an update,
+    4 micro-steps: K6 exactly 24 a micro-step, only ``visual_projection``
+    and ``logit_scale`` moved, ``step_0000002`` and ``last`` written and
+    reloaded; ``pretrain_step`` p50 and peak memory; (f) the port's
+    tokenizer (a stdlib word scanner) gives the JAX tokenizer's recorded
+    ids (``BPE_GOLDEN``);
+31. print the kernel JSON line, then ``{"ok": true, "device": ...}`` last.
 
 Times: ``kernel_ms`` times a kernel or a library call by 10 (or 50)
 launches between two CUDA events; where that reads under SHORT_MS (0.5
@@ -4288,7 +4307,414 @@ def phase_train_surface(paths, loop_p50_ms):
 
 
 # ---------------------------------------------------------------------------
-# Phase 30: the kernels line
+# Phase 30: CLIP training and contrastive pretraining
+# ---------------------------------------------------------------------------
+
+#: (a), (c): train() on the CLIP ViT-L/14-336 backbone over batches of 16
+#: fixture panoramas (64 images a step), 2 steps an epoch, a validation
+#: forward of 16 at each epoch's end; (a) 2 epochs, (c) 1.
+CLIP_TRAIN_BATCH = 16
+CLIP_TRAIN_STEPS = 2
+CLIP_TRAIN_EPOCHS = 2
+#: (b): the card's bf16 step against the CPU f32 step, full width at this
+#: depth, CPU_TRAIN_BATCH panoramas.
+CLIP_STEP_LAYERS = 2
+#: (e): pretrain() over 64 captioned fixture rows, batches of 16, the
+#: mean of two micro-batches an update: 4 micro-steps, 2 updates (the
+#: first at the warm-up's rate of 0), checkpoints every 2 micro-steps.
+PRETRAIN_ROWS = 64
+PRETRAIN_BATCH = 16
+PRETRAIN_ACCUM = 2
+#: (f): ids of the JAX package's CLIPBPETokenizer (``encode``, unpadded)
+#: over data/clip_bpe/, recorded where the ``regex`` package is installed;
+#: non-ASCII letters, digits, "²", "½", "٣" and an upper-case contraction
+#: show that the port's stdlib scanner splits words as that pattern does.
+BPE_GOLDEN = (
+    ("A Street View photo close to the town of Tromsø in the region of "
+     "Troms og Finnmark in Norway. The photo was taken in March.",
+     [2604, 320, 527, 525, 519, 66, 533, 1022, 517, 528, 783, 86, 333, 536,
+      636, 76, 802, 372, 513, 528, 546, 536, 636, 76, 338, 1582, 69, 572,
+      77, 887, 513, 1160, 269, 528, 519, 573, 543, 513, 833, 269, 2605]),
+    ("Côte d'Ivoire, İstanbul, São Paulo: x² ½ ٣ 12,345 — ǅemal'S 東京!!",
+     [2604, 66, 926, 966, 323, 262, 72, 1922, 793, 324, 267, 328, 136, 485,
+      1526, 681, 331, 267, 910, 2173, 281, 343, 126, 366, 126, 377, 149,
+      352, 272, 273, 267, 274, 275, 276, 158, 222, 498, 131, 228, 588, 598,
+      2603, 162, 251, 365, 160, 118, 361, 0, 256, 2605]),
+    ("IT'S 1970 ÅÄÖ naïve café Zürich (really)...",
+     [2604, 72, 339, 2603, 272, 280, 278, 271, 1456, 797, 127, 370, 690, 127,
+      107, 85, 324, 668, 69, 839, 89, 901, 2122, 263, 512, 576, 680, 8, 13,
+      1251, 2605]),
+)
+#: The CLIP backbone's top-level modules that train under the default
+#: freeze rule at ViT-L/14's depth.
+CLIP_TRAINABLE = ("layer23", "post_layernorm")
+
+
+def _clip_launches():
+    """K6's and K11's launches since the last reset, and the sum of the
+    TinyViT kernels'."""
+    from geoguessr_ai_torch.ops import clip_attention as ca
+
+    out = {k: ca.LAUNCHES[m[0]] for k, m in CLIP_META.items()}
+    return out, sum(_tinyvit_launches().values())
+
+
+def _expect_clip_launches(label, forwards, kernel):
+    """Fails unless ``kernel`` launched exactly 24 times for each of
+    ``forwards`` CLIP forwards since the last reset and no other kernel
+    did; returns the K6 / K11 counts."""
+    got, tinyvit = _clip_launches()
+    want = {k: 0 for k in CLIP_META}
+    want[kernel] = CLIP_LAUNCHES_PER_FORWARD * forwards
+    log(f"  {label}: launches {got}, TinyViT kernels {tinyvit} (expected "
+        f"{want}: {CLIP_LAUNCHES_PER_FORWARD} {kernel} in each of {forwards} "
+        "forwards, none in a backward)")
+    if got != want or tinyvit:
+        fail(f"{label}: CLIP launches {got} (TinyViT {tinyvit}), expected "
+             f"{want}")
+    return got
+
+
+def _clip_train_cfg(epochs):
+    from geoguessr_ai_torch.config import (
+        BackboneConfig,
+        ModelConfig,
+        TrainConfig,
+    )
+
+    return TrainConfig(batch_size=CLIP_TRAIN_BATCH, num_epochs=epochs,
+                       log_every_steps=1, keep_last_n=1, seed=SEED,
+                       model=ModelConfig(backbone=BackboneConfig.clip()))
+
+
+def _clip_trainable(name):
+    parts = name.split(".")
+    return parts[0] != "backbone" or parts[1] in CLIP_TRAINABLE
+
+
+def _clip_train(tmp, table):
+    """(a) train() at full width: exact K6 launches, frozen leaves
+    bitwise, every trainable leaf moved; the weights at each epoch's save
+    for (d)."""
+    from geoguessr_ai_torch.train import checkpoints as ck
+    from geoguessr_ai_torch.train import coordinator
+
+    records = _surface_records(CLIP_TRAIN_BATCH * CLIP_TRAIN_STEPS)
+    init, snapshots = {}, {}
+    real_create, real_save = coordinator.create_state, \
+        ck.CheckpointStore.save_epoch
+
+    def spy_create(*args, **kw):
+        out = real_create(*args, **kw)
+        init.update({k: v.detach().to("cpu", copy=True)
+                     for k, v in out[0].model.state_dict().items()})
+        return out
+
+    def spy_save(store, state, epoch, *args, **kw):
+        snapshots[epoch] = {k: v.detach().to("cpu", copy=True)
+                            for k, v in state.model.state_dict().items()}
+        return real_save(store, state, epoch, *args, **kw)
+
+    step_ms = []
+    real_step = coordinator.train_step
+
+    def timed_step(*args, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = real_step(*args, **kw)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    run_dir = os.path.join(tmp, "clip_run")
+    coordinator.create_state = spy_create
+    coordinator.train_step = timed_step
+    ck.CheckpointStore.save_epoch = spy_save
+    try:
+        _reset_all_launches()
+        torch.cuda.reset_peak_memory_stats()
+        rec = _TrainRecorder()
+        t0 = time.perf_counter()
+        summary = coordinator.train(_clip_train_cfg(CLIP_TRAIN_EPOCHS),
+                                    *records, table, checkpoint_dir=run_dir,
+                                    metrics_logger=rec)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        coordinator.create_state = real_create
+        coordinator.train_step = real_step
+        ck.CheckpointStore.save_epoch = real_save
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    steps = CLIP_TRAIN_EPOCHS * CLIP_TRAIN_STEPS
+    launches = _expect_clip_launches(
+        "(a) train()", steps + CLIP_TRAIN_EPOCHS, "K6")
+    losses = rec.losses()
+    log(f"(a) train() CLIP ViT-L/14-336, {CLIP_TRAIN_EPOCHS} epochs x "
+        f"{CLIP_TRAIN_STEPS} steps of {CLIP_TRAIN_BATCH} panoramas "
+        f"({4 * CLIP_TRAIN_BATCH} images), {table.num_cells} cells: losses "
+        f"{', '.join(f'{x:.6f}' for x in losses)}; val_loss "
+        f"{summary.get('val_loss', float('nan')):.6f}; loop p50 "
+        f"{rec.loop_p50_ms():.2f} ms; train_step ms "
+        f"{', '.join(f'{x:.2f}' for x in step_ms)} (p50 after the first "
+        f"{float(np.median(step_ms[1:])):.2f}); peak memory {peak:.2f} GB; "
+        f"wall {wall:.1f} s")
+    if len(losses) != steps or not np.isfinite(losses).all():
+        fail(f"(a) losses {losses}")
+    final = snapshots[CLIP_TRAIN_EPOCHS - 1]
+    changed = [n for n in final if not _clip_trainable(n)
+               and not torch.equal(final[n], init[n])]
+    still = [n for n in final if _clip_trainable(n)
+             and torch.equal(final[n], init[n])]
+    trained = sorted({_top_module(n) for n in final if _clip_trainable(n)})
+    log(f"  frozen leaves changed: {len(changed)} of "
+        f"{sum(not _clip_trainable(n) for n in final)}; trainable modules "
+        f"{trained}, leaves unmoved: {still}")
+    if changed or still:
+        fail(f"(a) frozen leaves changed {changed[:4]}, trainable leaves "
+             f"unmoved {still[:4]}")
+    best_epoch = int(ck.read_checkpoint(os.path.join(run_dir, "best"))
+                     ["meta"]["epoch"])
+    init.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, rec.loop_p50_ms(), {
+        "best": os.path.join(run_dir, "best"), "epoch": best_epoch,
+        "weights": snapshots[best_epoch]}
+
+
+def _clip_step_vs_cpu():
+    """(b) One train step at full width and CLIP_STEP_LAYERS layers, B=2:
+    the card in bf16 against the CPU in f32."""
+    from geoguessr_ai_torch.models.clip_vit import CLIPVisionConfig
+    from geoguessr_ai_torch.train.fixtures import fixture_train_setup
+    from geoguessr_ai_torch.train.steps import train_step
+
+    out = {}
+    for device, dtype in (("cuda", "bfloat16"), ("cpu", "float32")):
+        config = CLIPVisionConfig.vit_l_14_336(
+            num_layers=CLIP_STEP_LAYERS, dtype=getattr(torch, dtype))
+        state, batch, centroids = fixture_train_setup(
+            CPU_TRAIN_BATCH, device=device, seed=SEED, dtype=dtype,
+            model_config=config, backbone="clip")
+        grads = {}
+        step = state.optimizer.step
+
+        def capture(params, g, step=step, grads=grads):
+            grads.update({n: t.detach().float().cpu() for n, t in g.items()})
+            return step(params, g)
+
+        state.optimizer.step = capture
+        _reset_all_launches()
+        t0 = time.perf_counter()
+        _, metrics = train_step(state, batch, centroids)
+        loss = float(metrics["loss"])
+        log(f"(b) CLIP train step {device} {dtype}: {CPU_TRAIN_BATCH} "
+            f"panoramas, {CLIP_STEP_LAYERS} layers, loss {loss:.6f}, "
+            f"{time.perf_counter() - t0:.2f} s, K6/K11 launches "
+            f"{_clip_launches()[0]}")
+        out[device] = (loss, grads, list(state.optimizer.names))
+        del state, batch
+    (gl, gg, gn), (cl, cg, cn) = out["cuda"], out["cpu"]
+    rel = abs(gl - cl) / abs(cl)
+    names = sorted(cg)
+    cos = _cosine(torch.cat([gg[n].flatten() for n in names]),
+                  torch.cat([cg[n].flatten() for n in names]))
+    by_module = {}
+    for mod in sorted({_top_module(n) for n in names}):
+        sub = [n for n in names if _top_module(n) == mod]
+        by_module[mod] = round(_cosine(
+            torch.cat([gg[n].flatten() for n in sub]),
+            torch.cat([cg[n].flatten() for n in sub])), 6)
+    trainable = sorted({_top_module(n) for n in gn})
+    log(f"  loss rel {rel:.3g} (<= {TRAIN_LOSS_RTOL}); whole gradient cosine "
+        f"{cos:.6f} (>= {TRAIN_GRAD_MIN_COSINE}); by module {by_module}; "
+        f"trainable {trainable}, same set on both: {gn == cn}")
+    want = sorted({"cell_layer", f"layer{CLIP_STEP_LAYERS - 1}",
+                   "post_layernorm"})
+    if rel > TRAIN_LOSS_RTOL or cos < TRAIN_GRAD_MIN_COSINE or gn != cn \
+            or trainable != want:
+        fail(f"(b) the card's CLIP step disagrees with the CPU's: loss rel "
+             f"{rel}, gradient cosine {cos}, trainable {trainable}")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _clip_train_fused_proj(table):
+    """(c) train() with pallas_fuse_proj: K11 in every forward, K6 none."""
+    from geoguessr_ai_torch.models.clip_vit import CLIPVisionConfig
+    from geoguessr_ai_torch.train import coordinator
+
+    records = _surface_records(CLIP_TRAIN_BATCH * CLIP_TRAIN_STEPS)
+    _reset_all_launches()
+    rec = _TrainRecorder()
+    coordinator.train(_clip_train_cfg(1), *records, table,
+                      metrics_logger=rec,
+                      model_config=CLIPVisionConfig.vit_l_14_336(
+                          pallas_fuse_proj=True))
+    torch.cuda.synchronize()
+    launches = _expect_clip_launches("(c) train() pallas_fuse_proj",
+                                     CLIP_TRAIN_STEPS + 1, "K11")
+    losses = rec.losses()
+    log(f"(c) losses {', '.join(f'{x:.6f}' for x in losses)}; loop p50 "
+        f"{rec.loop_p50_ms():.2f} ms")
+    if len(losses) != CLIP_TRAIN_STEPS or not np.isfinite(losses).all():
+        fail(f"(c) losses {losses}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _clip_serve_best(best, paths):
+    """(d) ServingEngine(backbone="clip", checkpoint=<run>/best) against
+    the engine on the weights the run held at that epoch."""
+    from geoguessr_ai_torch.serving.engine import ServingEngine
+
+    t0 = time.perf_counter()
+    served = ServingEngine(backbone="clip", checkpoint=best["best"],
+                           seed=SEED + 1)
+    load_s = time.perf_counter() - t0
+    in_memory = ServingEngine(backbone="clip", state_dict=best["weights"])
+    same = _same_results([served.predict_images(paths)],
+                         [in_memory.predict_images(paths)])
+    log(f"(d) ServingEngine(backbone='clip', checkpoint=<run>/best) (epoch "
+        f"{best['epoch']}) built in {load_s:.2f} s, loaded {served.loaded}; "
+        f"bitwise equal to the engine on the run's weights: {same}")
+    if not same:
+        fail("(d) the CLIP engine on <run>/best answers otherwise than the "
+             "weights the run held")
+    del served, in_memory
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _pretrain_rows():
+    from geoguessr_ai_torch.inference import fixture_panorama
+    from geoguessr_ai_torch.train.captions import enrich_rows
+
+    blobs = []
+    for path in fixture_panorama():
+        with open(path, "rb") as f:
+            blobs.append(f.read())
+    rng = np.random.default_rng(SEED)
+    countries = ("Norway", "Japan", "Netherlands", "United States Of America")
+    return enrich_rows({
+        "image": blobs[i % 4], "lat": float(rng.uniform(-60, 70)),
+        "lon": float(rng.uniform(-180, 180)),
+        "country": countries[i % 4], "region": f"region {i % 7}",
+        "capture_date": f"20{10 + i % 14}-{1 + i % 12:02d}-01",
+        "drive_right": countries[i % 4] != "Japan",
+    } for i in range(PRETRAIN_ROWS))
+
+
+def _clip_pretrain(tmp):
+    """(e) pretrain() at full width with the vendored BPE."""
+    from geoguessr_ai_torch.config import PretrainConfig
+    from geoguessr_ai_torch.models.clip_text import CLIPModel, CLIPTextConfig
+    from geoguessr_ai_torch.models.clip_vit import CLIPVisionConfig
+    from geoguessr_ai_torch.train import pretrain_clip as pc
+    from geoguessr_ai_torch.train.clip_bpe import load_default_tokenizer
+
+    cfg = PretrainConfig(batch_size=PRETRAIN_BATCH,
+                         grad_accum_steps=PRETRAIN_ACCUM, num_epochs=1,
+                         save_every_steps=2, seed=SEED)
+    steps = PRETRAIN_ROWS // PRETRAIN_BATCH
+    times = []
+    real_step = pc.pretrain_step
+
+    def timed(*args, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = real_step(*args, **kw)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    ckpt = os.path.join(tmp, "pretrain")
+    pc.pretrain_step = timed
+    try:
+        _reset_all_launches()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        out = pc.pretrain(_pretrain_rows(), load_default_tokenizer(), cfg,
+                          checkpoint_dir=ckpt)
+        wall = time.perf_counter() - t0
+    finally:
+        pc.pretrain_step = real_step
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    launches = _expect_clip_launches("(e) pretrain()", steps, "K6")
+    losses = out["losses"]
+    log(f"(e) pretrain() CLIP-L/14-336 + text tower, {steps} micro-steps of "
+        f"{PRETRAIN_BATCH}, {PRETRAIN_ACCUM} a update: losses "
+        f"{', '.join(f'{x:.6f}' for x in losses)}; pretrain_step ms "
+        f"{', '.join(f'{x:.2f}' for x in times)} (p50 after the first "
+        f"{float(np.median(times[1:])):.2f}); peak memory {peak:.2f} GB; "
+        f"wall {wall:.1f} s")
+    if len(losses) != steps or not np.isfinite(losses).all():
+        fail(f"(e) losses {losses}")
+    init = CLIPModel(CLIPVisionConfig.vit_l_14_336(),
+                     CLIPTextConfig.vit_l_text())
+    pc.init_clip_model_(init, cfg.seed)
+    init = init.state_dict()
+    params = out["params"]
+    moved = sorted(n for n in params if not torch.equal(params[n], init[n]))
+    want = sorted(n for n in params if n.startswith(pc.TRAINABLE_SUBTREES))
+    names = sorted(os.listdir(ckpt))
+    step2 = pc.read_pretrain_checkpoint(os.path.join(ckpt, "step_0000002"))
+    last = pc.read_pretrain_checkpoint(os.path.join(ckpt, "last"))
+    last_same = all(torch.equal(last[n], params[n]) for n in params)
+    step2_init = all(torch.equal(step2[n], init[n]) for n in params)
+    log(f"  moved: {moved} (expected {want}); logit_scale "
+        f"{float(init['logit_scale']):.9f} -> "
+        f"{float(params['logit_scale']):.9f}; checkpoints {names}: "
+        f"last reloads bitwise {last_same}, step_0000002 (after the update "
+        f"at rate 0) equals the initial weights {step2_init}")
+    if moved != want or not last_same or not step2_init or \
+            not {"step_0000002", "last"} <= set(names):
+        fail(f"(e) pretraining moved {moved}, checkpoints {names}")
+    del out, init, params, step2, last
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _clip_tokenizer():
+    """(f) The port's tokenizer against the JAX tokenizer's recorded ids."""
+    from geoguessr_ai_torch.train.clip_bpe import load_default_tokenizer
+
+    tok = load_default_tokenizer()
+    bad = [text for text, ids in BPE_GOLDEN if tok.encode(text) != ids]
+    log(f"(f) BPE tokenizer ({tok.vocab_size} tokens, stdlib word scanner): "
+        f"{len(BPE_GOLDEN) - len(bad)} of {len(BPE_GOLDEN)} captions give "
+        "the recorded ids")
+    if bad:
+        fail(f"(f) the tokenizer's ids differ for {bad}")
+
+
+def phase_clip_train(paths):
+    """Phase 30; returns K6's and K11's launches over its runs."""
+    from geoguessr_ai_torch import config as C
+    from geoguessr_ai_torch.geocells.manager import CentroidTable
+
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    table = CentroidTable.load(C.CENTROID_TABLE_PATH)
+    with tempfile.TemporaryDirectory() as tmp:
+        parts = []
+        launches, _, best = _clip_train(tmp, table)
+        parts.append(launches)
+        _clip_step_vs_cpu()
+        parts.append(_clip_train_fused_proj(table))
+        _clip_serve_best(best, paths)
+        del best
+        parts.append(_clip_pretrain(tmp))
+        _clip_tokenizer()
+    log(f"phase 30 in {time.perf_counter() - t0:.1f} s")
+    return {k: sum(p[k] for p in parts) for k in CLIP_META}
+
+
+# ---------------------------------------------------------------------------
+# Phase 31: the kernels line
 # ---------------------------------------------------------------------------
 
 
@@ -4332,6 +4758,7 @@ def main():
     gc.collect()
     torch.cuda.empty_cache()
     surface_launches = phase_train_surface(paths, train_loop_p50)
+    clip_train_launches = phase_clip_train(paths)
 
     main_case = {"K1": "stage1", "K2": "stage2", "K3": "stage3",
                  "K4": "stage1", "K5": "stage2"}
@@ -4372,8 +4799,8 @@ def main():
         entry = {
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces,
-            "launches": clip_launches[k] + (clip_int8_launches
-                                            if k == "K6" else 0),
+            "launches": (clip_launches[k] + clip_train_launches[k]
+                         + (clip_int8_launches if k == "K6" else 0)),
             "max_abs_err": row["max_abs_err"], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"],

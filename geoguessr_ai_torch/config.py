@@ -71,8 +71,8 @@ def resolve_device(device=None):
 
 # ---------------------------------------------------------------------------
 # Typed configs: the JAX package's MeshConfig, BackboneConfig, ModelConfig,
-# OptimizerConfig, TrainConfig and EmbedBuildConfig with the same fields and
-# defaults.
+# OptimizerConfig, TrainConfig, PretrainConfig and EmbedBuildConfig with the
+# same fields and defaults.
 # ---------------------------------------------------------------------------
 
 
@@ -90,9 +90,9 @@ class MeshConfig:
 
 @dataclasses.dataclass(frozen=True)
 class BackboneConfig:
-    """Which vision tower feeds SuperGuessr: "tinyvit" (serve and train),
-    "clip" or "clip_b32" (serve only), or "none" (train the head on
-    precomputed embeddings)."""
+    """Which vision tower feeds SuperGuessr: "tinyvit", "clip" (ViT-L/14-336)
+    or "clip_b32" (ViT-B/32-224), each served and trained, or "none"
+    (train the head on precomputed embeddings)."""
 
     name: str = "tinyvit"  # "tinyvit" | "clip" | "none" (raw embeddings)
     image_size: int = TINYVIT_IMAGE_SIZE
@@ -180,6 +180,27 @@ class TrainConfig:
     #: Host pipeline
     prefetch_depth: int = 2
     decode_threads: int = 8
+
+
+@dataclasses.dataclass(frozen=True)
+class PretrainConfig:
+    """CLIP contrastive pretraining (``train.pretrain_clip.pretrain``)."""
+
+    seed: int = 42
+    batch_size: int = 960
+    grad_accum_steps: int = 8
+    learning_rate: float = 1e-6
+    weight_decay: float = 0.001
+    beta1: float = 0.9
+    beta2: float = 0.98
+    eps: float = 1e-6
+    max_grad_norm: float = 1.0
+    num_epochs: int = 20
+    warmup_ratio: float = 0.2
+    lr_schedule: str = "linear"
+    eval_every_steps: int = 50
+    save_every_steps: int = 50
+    mesh: MeshConfig = MeshConfig()
 
 
 @dataclasses.dataclass(frozen=True)

@@ -22,14 +22,18 @@ GEMM (``ops.quant.int8_einsum_nc_cd``), as the JAX module does: the qkv
 weight and bias arrive rounded to the compute dtype, the others f32; the
 attention stays K6 (``pallas_fuse_proj`` is skipped while quantizing).
 
-Not ported: ``pallas_attention=False`` (flax MultiHeadDotProductAttention)
-raises ``NotImplementedError``.
+``pallas_attention=False`` runs flax's ``MultiHeadDotProductAttention``
+on the same parameters in plain PyTorch (``dot_product_attention``: the
+query pre-scaled, the softmax in the compute dtype); only the MLP is
+quantized then, as in the JAX module.  The CLIP text tower
+(``models.clip_text``) runs its causal attention the same way.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import NamedTuple
+import math
+from typing import NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
@@ -49,7 +53,8 @@ class CLIPVisionConfig:
     mlp_dim: int = 4096
     layer_norm_eps: float = 1e-5
     dtype: torch.dtype = torch.bfloat16
-    #: the fused qkv GEMM into clip_attention (K6); False is not ported.
+    #: the fused qkv GEMM into clip_attention (K6); False runs flax's
+    #: MultiHeadDotProductAttention in plain PyTorch.
     pallas_attention: bool = True
     #: the out-projection inside the attention kernel (K11).
     pallas_fuse_proj: bool = False
@@ -110,23 +115,55 @@ def _dense(x, lin: nn.Linear, dtype):
     return F.linear(x, lin.weight.to(dtype)) + lin.bias.to(dtype)
 
 
+def dot_product_attention(q, k, v, mask: Optional[torch.Tensor] = None):
+    """flax's ``dot_product_attention`` on (B, N, H, hd) q, k, v, all in
+    their dtype as flax computes it: q divided by sqrt(hd) (rounded to the
+    dtype), the logits in the dtype, masked positions (``mask`` False,
+    broadcast to (B, H, N, N)) filled with ``finfo(dtype).min``, the
+    softmax in the dtype (``force_fp32_for_softmax`` is off: the max
+    subtracted, exp, the sum and the division each rounded), then p @ v.
+    Plain PyTorch by design, not SDPA: it mirrors what XLA computes."""
+    dtype = q.dtype
+    depth = torch.tensor(math.sqrt(q.shape[-1]), dtype=torch.float32)
+    q = q / depth.to(dtype)
+    logits = torch.einsum("bqhd,bkhd->bhqk", q, k)
+    if mask is not None:
+        logits = logits.masked_fill(~mask, torch.finfo(dtype).min)
+    e = torch.exp(logits - logits.amax(dim=-1, keepdim=True))
+    p = e / e.sum(dim=-1, keepdim=True)
+    return torch.einsum("bhqk,bkhd->bqhd", p, v)
+
+
 class CLIPSelfAttention(nn.Module):
     """nn.MultiHeadDotProductAttention's parameters (query, key, value, out)
-    run as one fused qkv GEMM into the CLIP attention op."""
+    run as one fused qkv GEMM into the CLIP attention op, or with
+    ``fused=False`` as flax's module computes them (``dot_product_attention``
+    over three projections, an optional mask)."""
 
     def __init__(self, dim: int, num_heads: int, head_block: int,
-                 fuse_proj: bool, quantize: bool = False):
+                 fuse_proj: bool, quantize: bool = False,
+                 fused: bool = True):
         super().__init__()
         self.num_heads = num_heads
         self.head_block = head_block
         self.fuse_proj = fuse_proj
         self.quantize = quantize
+        self.fused = fused
         self.query = nn.Linear(dim, dim)
         self.key = nn.Linear(dim, dim)
         self.value = nn.Linear(dim, dim)
         self.out = nn.Linear(dim, dim)
 
-    def forward(self, x, dtype):
+    def _plain(self, x, dtype, mask):
+        B, N, D = x.shape
+        q, k, v = (_dense(x, lin, dtype).reshape(B, N, self.num_heads, -1)
+                   for lin in (self.query, self.key, self.value))
+        o = dot_product_attention(q, k, v, mask)
+        return _dense(o.reshape(B, N, D), self.out, dtype)
+
+    def forward(self, x, dtype, mask: Optional[torch.Tensor] = None):
+        if not self.fused:
+            return self._plain(x, dtype, mask)
         D = x.shape[-1]
         H = self.num_heads
         scale = (D // H) ** -0.5
@@ -151,7 +188,9 @@ class CLIPSelfAttention(nn.Module):
 
 
 class CLIPEncoderLayer(nn.Module):
-    """Pre-LN transformer layer: x + attn(LN1(x)), then + mlp(LN2(x))."""
+    """Pre-LN transformer layer: x + attn(LN1(x)), then + mlp(LN2(x)).
+    ``mask`` (the text tower's causal mask) reaches flax's attention
+    (``pallas_attention=False``); the fused op takes none."""
 
     def __init__(self, config: CLIPVisionConfig):
         super().__init__()
@@ -162,16 +201,17 @@ class CLIPEncoderLayer(nn.Module):
             hb -= 1
         eps = cfg.layer_norm_eps
         self.layer_norm1 = nn.LayerNorm(D, eps=eps)
-        self.self_attn = CLIPSelfAttention(D, cfg.num_heads, hb,
-                                           cfg.pallas_fuse_proj,
-                                           cfg.quantize_gemms)
+        self.self_attn = CLIPSelfAttention(
+            D, cfg.num_heads, hb, cfg.pallas_fuse_proj, cfg.quantize_gemms,
+            fused=cfg.pallas_attention)
         self.quantize = cfg.quantize_gemms
         self.layer_norm2 = nn.LayerNorm(D, eps=eps)
         self.mlp_fc1 = nn.Linear(D, cfg.mlp_dim)
         self.mlp_fc2 = nn.Linear(cfg.mlp_dim, D)
 
-    def forward(self, x, dtype):
-        x = x + self.self_attn(_layer_norm(x, self.layer_norm1, dtype), dtype)
+    def forward(self, x, dtype, mask: Optional[torch.Tensor] = None):
+        x = x + self.self_attn(_layer_norm(x, self.layer_norm1, dtype), dtype,
+                               mask)
         h = _layer_norm(x, self.layer_norm2, dtype)
         if self.quantize:
             fc1, fc2 = self.mlp_fc1, self.mlp_fc2
@@ -191,10 +231,6 @@ class CLIPVisionTower(nn.Module):
     def __init__(self, config: CLIPVisionConfig):
         super().__init__()
         cfg = self.config = config
-        if not cfg.pallas_attention:
-            raise NotImplementedError(
-                "pallas_attention=False (flax MultiHeadDotProductAttention) "
-                "is not ported; the CLIP tower runs the fused attention op")
         D, p = cfg.hidden_size, cfg.patch_size
         # the flax (p, p, 3, D) kernel, converted to (D, 3, p, p)
         self.patch_embedding = nn.Conv2d(3, D, p, stride=p, bias=False)

@@ -14,7 +14,12 @@ name; only leaf names and layouts change:
   (kernel (D, H, hd), bias (H, hd)) and ``self_attn/out`` (kernel
   (H, hd, D), bias (D,)) -> (D, D) Linear weights in (out, in) layout and
   (D,) biases; channel h*hd + d is head h's dim d.  Going back needs the
-  head count (``to_jax_variables(..., num_heads=H)``).
+  head count (``to_jax_variables(..., num_heads=H)``, or a mapping from
+  the top-level module to its count where two towers differ, as in the
+  full-width ``CLIPModel``: ``{"vision_model": 16, "text_model": 12}``);
+* the CLIP text tower's ``token_embedding`` ``embedding`` (V, D) ->
+  ``nn.Embedding`` ``weight`` (V, D), and ``CLIPModel``'s scalar
+  ``logit_scale`` stays.
 
 A TinyViT stage that the JAX package scans (``TinyViTConfig.scan_stages``)
 keeps its blocks' leaves stacked along axis 0 under ``stage{N}_scan/block``;
@@ -40,7 +45,7 @@ from __future__ import annotations
 
 import collections
 import re
-from typing import Dict, Iterable, Optional
+from typing import Dict, Iterable, Mapping, Optional, Union
 
 import numpy as np
 import torch
@@ -72,8 +77,18 @@ def _unstacked(leaves):
 
 
 #: Leaves that keep their name and layout.
-_AS_IS = ("bias", "attention_biases", "class_embedding", "position_embedding")
+_AS_IS = ("bias", "attention_biases", "class_embedding", "position_embedding",
+          "logit_scale")
 _HEAD_PROJS = ("query", "key", "value", "out")
+#: Modules that are flax ``nn.Embed`` (leaf ``embedding``) in the JAX tree
+#: and ``nn.Embedding`` (leaf ``weight``, the same layout) in the port.
+_EMBEDS = ("token_embedding",)
+
+
+def _array(value, dtype=None) -> np.ndarray:
+    """A C-contiguous copy of ``value`` that keeps its shape (0-d too,
+    which ``np.ascontiguousarray`` would make 1-d)."""
+    return np.array(value, dtype=dtype, order="C")
 
 
 def _is_head_proj(mods) -> bool:
@@ -90,6 +105,8 @@ def _param(path, value):
             d_in = int(np.prod(value.shape[:n_in]))
             return ".".join(mods + ["weight"]), value.reshape(d_in, -1).T
         return ".".join(mods + [leaf]), value.reshape(-1)
+    if leaf == "embedding" and mods and mods[-1] in _EMBEDS:
+        return ".".join(mods + ["weight"]), value
     if leaf == "kernel":
         if value.ndim == 4:
             value = value.transpose(3, 2, 0, 1)
@@ -125,7 +142,7 @@ def from_jax_variables(variables) -> Dict[str, torch.Tensor]:
     out = {}
     for path, value in _unstacked(_flatten(variables["params"])):
         name, value = _param(path, value)
-        out[name] = torch.from_numpy(np.ascontiguousarray(value, np.float32))
+        out[name] = torch.from_numpy(_array(value, np.float32))
     for path, value in _unstacked(_flatten(variables.get("batch_stats",
                                                          {}))):
         *mods, leaf = path
@@ -178,15 +195,16 @@ def _stack_scanned(tree, scan_stages):
 
 
 def to_jax_variables(named: Dict[str, torch.Tensor],
-                     num_heads: Optional[int] = None,
+                     num_heads: Union[int, Mapping[str, int], None] = None,
                      scan_stages: Iterable[int] = ()):
     """Port state dict (or any name -> tensor dict with its names, such as
     gradients) -> ``{"params": ..., "batch_stats": ...}`` of f32 numpy
     arrays in flax layout; ``batch_stats`` only when running statistics are
     among the names, ``act_scales`` / ``act_stats`` when theirs are.
     ``num_heads`` splits CLIP's attention projections
-    back into their DenseGeneral shapes; it is needed only when they are
-    among the names.  ``scan_stages`` (a TinyViT config's) stacks those
+    back into their DenseGeneral shapes (an int, or top-level module name
+    -> int); it is needed only when they are among the names.
+    ``scan_stages`` (a TinyViT config's) stacks those
     stages' blocks in the scanned layout."""
     params, stats = {}, {}
     acts = {col: {} for col in ACT_COLLECTIONS}
@@ -202,19 +220,23 @@ def to_jax_variables(named: Dict[str, torch.Tensor],
             _put(stats, mods + [_STATS_BACK[leaf]], value)
             continue
         if _is_head_proj(mods):
-            if num_heads is None:
+            heads = (num_heads.get(mods[0]) if isinstance(num_heads, Mapping)
+                     else num_heads)
+            if heads is None:
                 raise ValueError(f"{name}: the head split needs num_heads")
             out = mods[-1] == "out"
             if leaf == "weight":
                 value, leaf = value.T, "kernel"
-                shape = ((num_heads, -1, value.shape[1]) if out
-                         else (value.shape[0], num_heads, -1))
+                shape = ((heads, -1, value.shape[1]) if out
+                         else (value.shape[0], heads, -1))
                 value = value.reshape(shape)
             elif not out:
-                value = value.reshape(num_heads, -1)
+                value = value.reshape(heads, -1)
             _put(params, mods + [leaf], np.ascontiguousarray(value))
             continue
-        if leaf == "weight":
+        if leaf == "weight" and mods and mods[-1] in _EMBEDS:
+            leaf = "embedding"
+        elif leaf == "weight":
             if value.ndim == 4:
                 value, leaf = value.transpose(2, 3, 1, 0), "kernel"
             elif value.ndim == 2:
@@ -223,7 +245,7 @@ def to_jax_variables(named: Dict[str, torch.Tensor],
                 leaf = "scale"
         elif leaf not in _AS_IS:
             raise ValueError(f"unknown parameter {name}")
-        _put(params, mods + [leaf], np.ascontiguousarray(value))
+        _put(params, mods + [leaf], _array(value))
     scan_stages = set(scan_stages)
     out = {"params": _stack_scanned(params, scan_stages)}
     if stats:

@@ -1,7 +1,7 @@
 """PyTorch checkpoint layouts <-> flax-shaped parameter trees (the port's
 own copy of geoguessr_ai_tpu/models/torch_convert.py, numpy only).
 
-  * HF ``CLIPVisionModel`` state dicts -> the CLIP tower's tree.
+  * HF ``CLIPVisionModel`` state dicts <-> the CLIP tower's tree.
   * timm TinyViT state dicts -> TinyViT's ``params`` and ``batch_stats``.
   * Reference SuperGuessr ``.pt`` checkpoints -> the head's tree
     (cell_layer, the hierarchical fusion's self_attn), shape-filtered as
@@ -32,6 +32,11 @@ def _conv(w: np.ndarray) -> np.ndarray:
     # (O, I, kH, kW) -> (kH, kW, I, O); a depthwise (C, 1, kH, kW) becomes
     # flax's feature_group_count=C layout (kH, kW, 1, C)
     return np.ascontiguousarray(np.transpose(w, (2, 3, 1, 0)))
+
+
+def _conv_inv(w: np.ndarray) -> np.ndarray:
+    # flax (kH, kW, I, O) -> torch (O, I, kH, kW)
+    return np.ascontiguousarray(np.transpose(w, (3, 2, 0, 1)))
 
 
 # ---------------------------------------------------------------------------
@@ -128,6 +133,51 @@ def clip_vision_from_hf(
             },
         }
     return params
+
+
+def clip_vision_to_hf(params: Dict, cfg: CLIPVisionConfig,
+                      prefix: str = "vision_model.") -> Dict[str, np.ndarray]:
+    """The CLIP tower's tree -> an HF CLIPVisionModel state dict (keys
+    under ``prefix``), the inverse of ``clip_vision_from_hf``, so a tower
+    trained here loads into transformers."""
+    D = cfg.hidden_size
+    sd: Dict[str, np.ndarray] = {}
+
+    def put(key: str, value) -> None:
+        sd[prefix + key] = np.ascontiguousarray(value)
+
+    def put_norm(key: str, p: Dict) -> None:
+        put(f"{key}.weight", p["scale"])
+        put(f"{key}.bias", p["bias"])
+
+    def put_linear(key: str, kernel, bias, n_in: int = 1) -> None:
+        # a flax kernel whose first n_in axes are fan-in -> (out, in)
+        kernel = np.asarray(kernel)
+        put(f"{key}.weight",
+            kernel.reshape(int(np.prod(kernel.shape[:n_in])), -1).T)
+        put(f"{key}.bias", np.asarray(bias).reshape(-1))
+
+    put("embeddings.patch_embedding.weight",
+        _conv_inv(np.asarray(params["patch_embedding"]["kernel"])))
+    put("embeddings.class_embedding", np.asarray(params["class_embedding"])
+        .reshape(D))
+    put("embeddings.position_embedding.weight",
+        params["position_embedding"])
+    put_norm("pre_layrnorm", params["pre_layrnorm"])
+    put_norm("post_layernorm", params["post_layernorm"])
+    for i in range(cfg.num_layers):
+        layer, pre = params[f"layer{i}"], f"encoder.layers.{i}."
+        for flax_name, hf_name in (("query", "q_proj"), ("key", "k_proj"),
+                                   ("value", "v_proj"), ("out", "out_proj")):
+            a = layer["self_attn"][flax_name]
+            put_linear(f"{pre}self_attn.{hf_name}", a["kernel"], a["bias"],
+                       n_in=2 if flax_name == "out" else 1)
+        put_norm(pre + "layer_norm1", layer["layer_norm1"])
+        put_norm(pre + "layer_norm2", layer["layer_norm2"])
+        for name in ("fc1", "fc2"):
+            m = layer[f"mlp_{name}"]
+            put_linear(f"{pre}mlp.{name}", m["kernel"], m["bias"])
+    return sd
 
 
 # ---------------------------------------------------------------------------
@@ -336,11 +386,6 @@ def super_guessr_head_to_reference(
         out["self_attn.out_proj.weight"] = _t(ok.reshape(D, D))
         out["self_attn.out_proj.bias"] = np.asarray(sa["out"]["bias"])
     return out
-
-
-def _conv_inv(w: np.ndarray) -> np.ndarray:
-    # flax (kH, kW, I, O) -> torch (O, I, kH, kW)
-    return np.ascontiguousarray(np.transpose(w, (3, 2, 0, 1)))
 
 
 def tinyvit_to_timm(

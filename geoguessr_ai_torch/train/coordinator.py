@@ -1,23 +1,24 @@
 """Training coordinator (counterpart of geoguessr_ai_tpu/train/coordinator.py
-``train`` and ``main``): SuperGuessr over TinyViT-21M-512, or the head alone
-on precomputed embeddings (backbone "none"), trained on panorama records on
+``train`` and ``main``): SuperGuessr over TinyViT-21M-512 or a CLIP tower
+("clip": ViT-L/14-336, "clip_b32": ViT-B/32-224), or the head alone on
+precomputed embeddings (backbone "none"), trained on panorama records on
 one device, with periodic validation, last/best/top-K checkpoints and
 resume (``train.checkpoints``), early stopping and a returned summary.
-``main`` is the production entry: the newest SQLite dataset, split by
-``val_fraction``, checkpoints under ``CHECKPOINT_DIR``.
+``freeze_all_but_last_stage`` keeps TinyViT's last stage, or a CLIP
+tower's last layer and ``post_layernorm``, trainable
+(``train.state.backbone_freeze_mask``).  ``main`` is the production
+entry: the newest SQLite dataset, split by ``val_fraction``, checkpoints
+under ``CHECKPOINT_DIR``.  A CLIP run's checkpoint directories serve
+through ``ServingEngine(backbone="clip", checkpoint=<run>/best)``.
 
-``build_backbone`` also builds the CLIP towers ("clip": ViT-L/14-336,
-"clip_b32": ViT-B/32-224) that the serving engine runs;
 ``discover_sqlite`` finds the newest SQLite dataset.
 
-Not ported, and raising ``NotImplementedError`` when asked for: training a
-CLIP backbone (its freeze rule keeps ``layer{max}`` and ``post_layernorm``
-trainable; ROADMAP Queue 1 item 9) and a mesh of more than one device
-(item 11).  ``main_streaming`` (training off the object store) waits for
-the port of ``data/s3.py`` and ``data/streaming.py`` (item 8).  A
-single-image model (``panorama=False``) is refused with a ValueError, as
-the JAX ``train()`` fails on it: its batch iterators always yield a view
-axis.
+Not ported, and raising ``NotImplementedError`` when asked for: a mesh of
+more than one device (ROADMAP Queue 1 item 11).  ``main_streaming``
+(training off the object store) waits for the port of ``data/s3.py`` and
+``data/streaming.py`` (item 8).  A single-image model (``panorama=False``)
+is refused with a ValueError, as the JAX ``train()`` fails on it: its
+batch iterators always yield a view axis.
 """
 
 from __future__ import annotations
@@ -161,17 +162,12 @@ def calibrate_qat_(model: SuperGuessr, seed: int, image_size: int) -> None:
 
 def create_state(cfg: TrainConfig, num_cells: int, steps_per_epoch: int,
                  device=None, model_config=None):
-    """The model of ``cfg`` (its TinyViT replaced by ``model_config`` when
-    given) with seeded random weights (``cfg.seed``), its QAT scales
-    calibrated when ``qat_storage``, on ``device``, under the freeze policy
-    of ``cfg.model.backbone``, in a fresh TrainState.  Returns (state,
-    norm_mean, norm_std, image_size); image_size falls back to the
-    backbone config's for embedding-only training."""
-    if cfg.model.backbone.name not in ("tinyvit", "none"):
-        raise NotImplementedError(
-            f"training the {cfg.model.backbone.name!r} backbone is not ported "
-            "yet: its freeze rule (layer{max} + post_layernorm trainable) and "
-            "the CLIP train slice come later (ROADMAP Queue 1 item 9)")
+    """The model of ``cfg`` (its backbone's preset replaced by
+    ``model_config`` when given) with seeded random weights (``cfg.seed``),
+    its QAT scales calibrated when ``qat_storage``, on ``device``, under the
+    freeze policy of ``cfg.model.backbone``, in a fresh TrainState.
+    Returns (state, norm_mean, norm_std, image_size); image_size falls back
+    to the backbone config's for embedding-only training."""
     model, mean, std, image_size = build_model(cfg, num_cells, model_config)
     if image_size is None:
         image_size = cfg.model.backbone.image_size
@@ -193,7 +189,9 @@ def create_state(cfg: TrainConfig, num_cells: int, steps_per_epoch: int,
     return state, mean, std, image_size
 
 
-def _check_single_device(cfg: TrainConfig) -> None:
+def _check_single_device(cfg) -> None:
+    """Refuses a ``cfg.mesh`` (a TrainConfig's or PretrainConfig's) of more
+    than one device."""
     mesh = cfg.mesh
     if mesh.model_parallel != 1 or mesh.data_parallel not in (-1, 1):
         raise NotImplementedError(
@@ -234,6 +232,7 @@ def train(
     max_steps: Optional[int] = None,
     fetch_fn=None,
     device=None,
+    model_config=None,
 ) -> Dict:
     """The train loop over panorama records (see
     ``data.pipeline.PanoramaBatchIterator``; with backbone "none", records
@@ -248,7 +247,9 @@ def train(
     it has one (epoch, best value and global step too).
 
     ``device``: None means the GPU (raises without one); "cpu" runs the
-    plain PyTorch path.  Returns a summary dict with the last epoch's and
+    plain PyTorch path.  ``model_config`` replaces the backbone's preset
+    (``build_backbone``), e.g. a CLIPVisionConfig with
+    ``pallas_fuse_proj``.  Returns a summary dict with the last epoch's and
     the best metrics.
     """
     _check_single_device(cfg)
@@ -257,7 +258,7 @@ def train(
     dev = C.resolve_device(device)
     steps_per_epoch = max(1, len(pano_train) // cfg.batch_size)
     state, mean, std, image_size = create_state(
-        cfg, centroid_table.num_cells, steps_per_epoch, dev)
+        cfg, centroid_table.num_cells, steps_per_epoch, dev, model_config)
     centroids = torch.as_tensor(centroid_table.centroids, device=dev)
 
     store = None

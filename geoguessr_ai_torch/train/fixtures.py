@@ -4,6 +4,8 @@ runs, profiling and examples that need no dataset."""
 
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import torch
 
@@ -30,15 +32,19 @@ def fixture_records(n: int, seed: int = 0):
 
 
 def fixture_train_setup(batch_size: int = 16, device=None, seed: int = 0,
-                        dtype: str = "bfloat16", model_config=None):
+                        dtype: str = "bfloat16", model_config=None,
+                        backbone: str = "tinyvit"):
     """A full-width TrainState (default TrainConfig: f32 master weights,
-    freeze_all_but_last_stage, AdamW; ``model_config``, a TinyViTConfig,
-    replaces TinyViT-21M-512's) and one device batch of ``batch_size``
-    fixture panoramas.  The pixels are normalised in f32 on the host, so a
-    bf16 and an f32 model see the same input.  Returns (state, batch,
-    centroids)."""
-    cfg = TrainConfig(batch_size=batch_size, seed=seed, model=ModelConfig(
-        backbone=BackboneConfig(dtype=dtype)))
+    freeze_all_but_last_stage, AdamW) over ``backbone`` ("tinyvit",
+    "clip" or "clip_b32"; ``model_config``, a TinyViTConfig or a
+    CLIPVisionConfig, replaces its preset) and one device batch of
+    ``batch_size`` fixture panoramas.  The pixels are normalised in f32 on
+    the host, so a bf16 and an f32 model see the same input.  Returns
+    (state, batch, centroids)."""
+    bb = dataclasses.replace(getattr(BackboneConfig, backbone)(),
+                             dtype=dtype)
+    cfg = TrainConfig(batch_size=batch_size, seed=seed,
+                      model=ModelConfig(backbone=bb))
     table = CentroidTable.load(C.CENTROID_TABLE_PATH)
     dev = C.resolve_device(device)
     state, mean, std, size = create_state(cfg, table.num_cells, 1, dev,

@@ -20,6 +20,7 @@ import bisect
 import dataclasses
 import itertools
 import math
+import re
 from typing import Callable, Dict, Iterable, Optional
 
 import numpy as np
@@ -33,6 +34,21 @@ from geoguessr_ai_torch.config import OptimizerConfig
 #: into it and the head norm.
 LAST_STAGE_PREFIXES = ("stage3", "downsample2", "norm_head")
 
+_LAYER = re.compile(r"layer(\d+)")
+
+
+def last_stage_prefixes(backbone_children: Iterable[str]) -> tuple:
+    """The top-level backbone modules that stay trainable under
+    freeze_all_but_last_stage, read from the backbone's own names as the
+    JAX ``_last_stage_prefixes`` reads them: a tower of ``layer0`` ..
+    ``layerN`` (CLIP) keeps ``layerN`` and ``post_layernorm``; anything
+    else is TinyViT (``LAST_STAGE_PREFIXES``)."""
+    ids = [int(m.group(1)) for n in backbone_children
+           if (m := _LAYER.fullmatch(n))]
+    if ids:
+        return (f"layer{max(ids)}", "post_layernorm")
+    return LAST_STAGE_PREFIXES
+
 
 def backbone_freeze_mask(names: Iterable[str], freeze_base: bool = False,
                          freeze_all_but_last_stage: bool = False
@@ -40,12 +56,17 @@ def backbone_freeze_mask(names: Iterable[str], freeze_base: bool = False,
     """Parameter name -> trainable, for the names of a SuperGuessr state
     dict ("backbone.stage3_block0.attn.qkv.weight", "cell_layer.bias").
     freeze_base freezes the whole backbone; freeze_all_but_last_stage
-    keeps its last stage trainable.  Everything outside the backbone always
+    keeps its last stage trainable (``last_stage_prefixes``; a prefix
+    match, as in the JAX mask).  Everything outside the backbone always
     trains.  Raises if freeze_all_but_last_stage would freeze the whole
-    backbone."""
+    backbone.
+
+    Under CLIP's rule ``post_layernorm`` is trainable though SuperGuessr's
+    mean-token embedding never reads it: its gradient is zero, and
+    AdamW's weight decay still moves it, as in the JAX step."""
     names = list(names)
-    children = {n.split(".")[1] for n in names
-                if n.startswith("backbone.") and n.count(".") >= 2}
+    children = {n.split(".")[1] for n in names if n.startswith("backbone.")}
+    prefixes = last_stage_prefixes(children)
     mask = {}
     any_trainable = False
     for name in names:
@@ -55,7 +76,7 @@ def backbone_freeze_mask(names: Iterable[str], freeze_base: bool = False,
         elif freeze_base:
             mask[name] = False
         elif freeze_all_but_last_stage:
-            keep = parts[1].startswith(LAST_STAGE_PREFIXES)
+            keep = parts[1].startswith(prefixes)
             any_trainable |= keep
             mask[name] = keep
         else:
@@ -65,7 +86,7 @@ def backbone_freeze_mask(names: Iterable[str], freeze_base: bool = False,
         raise ValueError(
             "freeze_all_but_last_stage matched no backbone params "
             f"(children={sorted(children)}, wanted prefixes "
-            f"{LAST_STAGE_PREFIXES}): the whole backbone would be frozen")
+            f"{prefixes}): the whole backbone would be frozen")
     return mask
 
 

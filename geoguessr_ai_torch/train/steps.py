@@ -73,6 +73,13 @@ def _loss(state: TrainState, batch, centroids, should_smooth_labels):
     return loss, logits
 
 
+def _grads(loss, leaves):
+    """d loss / d leaf for every leaf; a leaf the loss never reads (CLIP's
+    post_layernorm under the mean-token embedding) gets zeros, as
+    jax.grad gives it."""
+    return torch.autograd.grad(loss, leaves, materialize_grads=True)
+
+
 def train_step(
     state: TrainState,
     batch: Dict[str, torch.Tensor],
@@ -95,7 +102,7 @@ def train_step(
     leaves = [params[n] for n in names]
     if grad_accum_steps <= 1:
         loss, logits = _loss(state, batch, centroids, should_smooth_labels)
-        grads = torch.autograd.grad(loss, leaves)
+        grads = _grads(loss, leaves)
     else:
         k = grad_accum_steps
         b = batch["coords"].shape[0]
@@ -111,7 +118,7 @@ def train_step(
                   if isinstance(v, torch.Tensor)}
             mb_loss, mb_logits = _loss(state, mb, centroids,
                                        should_smooth_labels)
-            for a, g in zip(acc, torch.autograd.grad(mb_loss, leaves)):
+            for a, g in zip(acc, _grads(mb_loss, leaves)):
                 a += g.to(ACCUM_DTYPE)
             losses.append(mb_loss.detach())
             logits_k.append(mb_logits.detach())

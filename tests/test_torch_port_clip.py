@@ -314,17 +314,28 @@ def test_convert_carries_the_clip_tree_both_ways():
 
 @pytest.mark.parametrize("option", ["pallas_attention", "quantize_gemms"])
 def test_unported_clip_options_raise(option):
-    """pallas_attention=False is not ported and raises; quantize_gemms is
-    ported (tests/test_torch_port_quant.py) and builds."""
-    value = option == "quantize_gemms"
-    cfg = tcv.CLIPVisionConfig.test_tiny(**{option: value})
+    """Both options are ported now and build: quantize_gemms
+    (tests/test_torch_port_quant.py) keeps its f32 weights where it
+    quantizes from them; pallas_attention=False runs flax's
+    MultiHeadDotProductAttention, here one NARROW64 layer (hd=64) against
+    the flax layer in f32."""
     if option == "quantize_gemms":
+        cfg = tcv.CLIPVisionConfig.test_tiny(quantize_gemms=True)
         tower = tcv.CLIPVisionTower(cfg).cast_weights_()
         assert tower.layer0.mlp_fc1.weight.dtype == torch.float32
         assert tower.layer0.self_attn.query.weight.dtype == torch.bfloat16
         return
-    with pytest.raises(NotImplementedError, match=option):
-        tcv.CLIPVisionTower(cfg)
+    kw = dict(NARROW64, pallas_attention=False)
+    x = np.random.default_rng(4).normal(0, 1, (2, 37, 128)).astype(np.float32)
+    variables = _narrow_layer_variables()
+    want = _np(jax.jit(jcv.CLIPEncoderLayer(_jax_cfg("f32", **kw)).apply)(
+        variables, jnp.asarray(x)))
+    layer = tcv.CLIPEncoderLayer(_port_cfg("f32", **kw))
+    assert not layer.self_attn.fused
+    layer.load_state_dict(from_jax_variables(variables), strict=True)
+    with torch.no_grad():
+        got = layer(torch.from_numpy(x), torch.float32).numpy()
+    assert np.abs(got - want).max() <= 1e-5 * np.abs(want).max()
 
 
 def test_presets_and_backbones_match_the_jax_package():
@@ -360,18 +371,24 @@ def test_presets_and_backbones_match_the_jax_package():
 
 
 def test_clip_training_is_refused_until_its_slice():
-    from geoguessr_ai_torch import config as C
+    """The CLIP train slice is ported: create_state builds the CLIP-L model
+    (on the meta device: shapes only) under the JAX freeze rule, layer23
+    and post_layernorm trainable, and train() takes the CLIP backbone
+    (tests/test_torch_port_clip_train.py trains one)."""
     from geoguessr_ai_torch.config import BackboneConfig, ModelConfig, TrainConfig
-    from geoguessr_ai_torch.geocells.manager import CentroidTable
-    from geoguessr_ai_torch.train.coordinator import create_state, train
+    from geoguessr_ai_torch.train import coordinator
 
     cfg = TrainConfig(model=ModelConfig(backbone=BackboneConfig.clip(),
                                         embed_dim=1024))
-    with pytest.raises(NotImplementedError, match="post_layernorm"):
-        create_state(cfg, 10, 1, device="cpu")
-    table = CentroidTable.load(C.CENTROID_TABLE_PATH)
-    with pytest.raises(NotImplementedError, match="post_layernorm"):
-        train(cfg, [], [], table, device="cpu")
+    with torch.device("meta"):
+        model = coordinator.build_model(cfg, 10)[0]
+    mask = coordinator.backbone_freeze_mask(
+        [n for n, _ in model.named_parameters()],
+        freeze_all_but_last_stage=True)
+    kept = {n.split(".")[1] for n, m in mask.items()
+            if m and n.startswith("backbone.")}
+    assert kept == {"layer23", "post_layernorm"}
+    assert isinstance(model.backbone, tcv.CLIPEmbed)
 
 
 def test_init_gives_the_clip_embeddings_flax_scale():

@@ -963,7 +963,6 @@ def test_train_runs_steps_validation_and_summary(fixtures_dir, monkeypatch):
 
 
 @pytest.mark.parametrize("change,match", [
-    (dict(backbone=dict(name="clip")), "clip"),
     (dict(mesh=dict(data_parallel=4)), "one device"),
 ])
 def test_train_raises_for_what_is_not_ported(change, match, tmp_path):
