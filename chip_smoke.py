@@ -208,7 +208,26 @@ Phases, in order; any failure exits non-zero:
     reloaded; ``pretrain_step`` p50 and peak memory; (f) the port's
     tokenizer (a stdlib word scanner) gives the JAX tokenizer's recorded
     ids (``BPE_GOLDEN``);
-31. print the kernel JSON line, then ``{"ok": true, "device": ...}`` last.
+31. the TinyViT country finetune at TinyViT-5M-224 (temp directories;
+    no pandas): (a) seeded geocell pickles of three countries loaded by
+    the port's ``GeocellManager`` and its ``build_centroid_table`` tool;
+    (b) 321 fixture rows labelled by ``prepare_country_dataset`` (256
+    train, 64 validation); (c) ``finetune()`` at full width (bf16 compute,
+    f32 master weights) for 4 steps of 64 with every launch counter at 0
+    first: finite losses, K4 exactly 10 launches a step and no other
+    kernel, none in the validation forward, finite top-1 / top-5,
+    ``best/`` and ``class_map.json`` written and ``best`` reloaded giving
+    the in-memory model's eval logits bit for bit; the step's p50
+    (synchronised), the loop's p50 and peak memory; (d) one B=4 finetune
+    step on the card in bf16 against the CPU in f32 and bf16 under phase
+    9's gates; (e) K4 at the finetune's three ragged shapes (W, N, H) =
+    (1024, 49, 4), (64, 196, 5), (64, 49, 10) against its plain version,
+    timed beside SDPA's backward, with the bound of the real and of the
+    padded work; (f) ``extract_embeddings`` on the card against the CPU
+    f32 forward (cosine >= 0.999 a row), the ``build_prototype_bank``
+    tool's bank functions on them, ``extract_embeddings_parquet``'s ImportError
+    where pandas is absent; the phase under 90 s;
+32. print the kernel JSON line, then ``{"ok": true, "device": ...}`` last.
 
 Times: ``kernel_ms`` times a kernel or a library call by 10 (or 50)
 launches between two CUDA events; where that reads under SHORT_MS (0.5
@@ -1172,14 +1191,26 @@ def _train_step_grads(device, dtype, fields=None):
     return loss, grads, stats
 
 
-def phase_train_vs_cpu(fields=None):
-    gl, gg, gs = _train_step_grads("cuda", "bfloat16", fields)
-    cl, cg, cs = _train_step_grads("cpu", "float32", fields)
-    bl, bg, bs = _train_step_grads("cpu", "bfloat16", fields)
+def _step_disagreements(gl, gg, cl, cg, bl, bg, loss_drift=False):
+    """The loss and each top-level module's gradient of a train step on
+    the card in bf16 (gl, gg) against the CPU's in f32 (cl, cg) and in
+    bf16 (bl, bg), logged, under TRAIN_LOSS_RTOL and the gradient gates;
+    returns what fails them.  ``loss_drift`` gates the loss as the
+    gradients are gated: within TRAIN_LOSS_RTOL of the CPU's bf16 loss,
+    and of the f32 loss or, where the plain bf16 path itself drifts
+    further from f32, within that drift plus TRAIN_LOSS_RTOL."""
     rel = abs(gl - cl) / abs(cl)
-    log(f"  loss gpu {gl:.6f} cpu f32 {cl:.6f} rel {rel:.3g} "
-        f"(tolerance {TRAIN_LOSS_RTOL}); cpu bf16 {bl:.6f}")
-    bad = [] if rel <= TRAIN_LOSS_RTOL else ["loss"]
+    if loss_drift:
+        rel_bf = abs(gl - bl) / abs(bl)
+        want = max(TRAIN_LOSS_RTOL, abs(bl - cl) / abs(cl) + TRAIN_LOSS_RTOL)
+        log(f"  loss gpu {gl:.6f} cpu bf16 {bl:.6f} rel {rel_bf:.3g} "
+            f"(tolerance {TRAIN_LOSS_RTOL}); cpu f32 {cl:.6f} rel {rel:.3g} "
+            f"(tolerance {want:.3g})")
+        bad = [] if rel_bf <= TRAIN_LOSS_RTOL and rel <= want else ["loss"]
+    else:
+        log(f"  loss gpu {gl:.6f} cpu f32 {cl:.6f} rel {rel:.3g} "
+            f"(tolerance {TRAIN_LOSS_RTOL}); cpu bf16 {bl:.6f}")
+        bad = [] if rel <= TRAIN_LOSS_RTOL else ["loss"]
     modules = sorted({_top_module(n) for n in cg})
     for mod in modules:
         names = [n for n in cg if _top_module(n) == mod]
@@ -1196,6 +1227,14 @@ def phase_train_vs_cpu(fields=None):
             f"(>= {want:.6f}); cpu bf16 vs cpu f32 {cos_bf:.6f}")
         if not (cos_plain >= TRAIN_GRAD_MIN_COSINE and cos >= want):
             bad.append(f"grad {mod}")
+    return bad
+
+
+def phase_train_vs_cpu(fields=None):
+    gl, gg, gs = _train_step_grads("cuda", "bfloat16", fields)
+    cl, cg, cs = _train_step_grads("cpu", "float32", fields)
+    bl, bg, bs = _train_step_grads("cpu", "bfloat16", fields)
+    bad = _step_disagreements(gl, gg, cl, cg, bl, bg)
     for kind in ("running_mean", "running_var"):
         names = [n for n in cs if n.endswith(kind)]
         cos = _cosine(torch.cat([gs[n] for n in names]),
@@ -4714,7 +4753,431 @@ def phase_clip_train(paths):
 
 
 # ---------------------------------------------------------------------------
-# Phase 31: the kernels line
+# Phase 31: the TinyViT country finetune at TinyViT-5M-224
+# ---------------------------------------------------------------------------
+
+#: The synthetic world: (country, admin areas, rows) with 20 % of each
+#: country's rows to validation: 64 validation rows (one batch of
+#: FT_BATCH) and 256 train rows (4 steps).
+FT_COUNTRIES = (("Arland", 2, 100), ("Borland", 3, 110), ("Corland", 2, 110))
+FT_VAL_FRACTION = 0.2
+FT_BATCH = 64
+#: K4 launches of one finetune train step: the backward of each of
+#: TinyViT-5M-224's ten attention blocks (2 + 6 + 2); none in an eval
+#: forward, and no other kernel.
+FT_K4_PER_STEP = 10
+#: (label, W, N, H) of K4 in a B=64 step at 224 px; hd=32, N padded to 64
+#: or 256 inside the wrapper.
+FT_K4_CASES = (("stage1", 1024, 49, 4), ("stage2", 64, 196, 5),
+               ("stage3", 64, 49, 10))
+#: Batch of the card-against-CPU step, and rows embedded in (f).
+FT_CPU_BATCH = 4
+FT_EMBED_ROWS = 16
+#: Embeddings on the card (bf16) against the CPU (f32), per row.
+FT_EMBED_MIN_COSINE = 0.999
+#: The phase's time limit (s).
+FT_PHASE_S = 90.0
+
+
+def _ft_world(tmp):
+    """(a) Seeded geocell pickles of FT_COUNTRIES (cells as
+    SimpleNamespace records: id, admin_1, points, clusters with hashes,
+    geom_centroid) loaded by the port's GeocellManager, and the port's
+    build_centroid_table tool run on them.  Returns (manager, the points
+    by country)."""
+    import pickle
+    import types
+
+    from geoguessr_ai_torch.geocells.manager import (
+        CentroidTable,
+        GeocellManager,
+    )
+    from geoguessr_ai_torch.tools import build_centroid_table
+
+    rng = np.random.default_rng(SEED)
+    geo = os.path.join(tmp, "geocells")
+    os.makedirs(geo)
+    points = {}
+    for c, (country, areas, _) in enumerate(FT_COUNTRIES):
+        inner, points[country] = {}, []
+        for a in range(areas):
+            lng0, lat0 = -60.0 + 40 * c + 8 * a, -20.0 + 10 * a
+            pts = [{"latitude": float(lat0 + rng.uniform(0, 5)),
+                    "longitude": float(lng0 + rng.uniform(0, 5))}
+                   for _ in range(24)]
+            clusters = {k: {"points": pts[k::2], "hashes": {
+                hash((p["latitude"], p["longitude"])) for p in pts[k::2]}}
+                for k in range(2)}
+            inner[f"{country}_admin{a}"] = [types.SimpleNamespace(
+                id=f"{country}_{a}", admin_1=f"admin{a}", points=pts,
+                clusters=clusters, geom_centroid=[lng0 + 2.5, lat0 + 2.5])]
+            points[country] += pts
+        with open(os.path.join(geo, f"geocells_{country}.pickle"), "wb") as f:
+            pickle.dump(inner, f)
+    mgr = GeocellManager(geo)
+    npz = os.path.join(tmp, "centroid_table.npz")
+    build_centroid_table.main(["--geocell-dir", geo, "--out-npz", npz,
+                               "--out-csv", os.path.join(tmp, "proto.csv")])
+    table = CentroidTable.load(npz)
+    cells = sum(areas for _, areas, _ in FT_COUNTRIES)
+    log(f"(a) geocells: {mgr.num_cells} cells, {len(mgr.point_info)} points; "
+        f"centroid table {table.centroids.shape}")
+    if mgr.num_cells != cells or table.num_cells != cells:
+        fail(f"the geocell manager or the centroid table holds "
+             f"{mgr.num_cells} / {table.num_cells} cells, expected {cells}")
+    return mgr, points
+
+
+def _ft_rows(mgr, points, paths):
+    """(b) FT_COUNTRIES' rows at points of their cells, images cycling the
+    fixture JPEGs, labelled and split by prepare_country_dataset."""
+    from geoguessr_ai_torch.train.finetune_tinyvit import (
+        prepare_country_dataset,
+    )
+
+    blobs = []
+    for p in paths:
+        with open(p, "rb") as f:
+            blobs.append(f.read())
+    rows = []
+    for country, _, n in FT_COUNTRIES:
+        pts = points[country]
+        rows += [{"location_id": f"{country}{i}",
+                  "lat": pts[i % len(pts)]["latitude"],
+                  "lon": pts[i % len(pts)]["longitude"],
+                  "image": blobs[len(rows) % len(blobs)]} for i in range(n)]
+    rows.append({"location_id": "nowhere", "lat": 80.0, "lon": 170.0,
+                 "image": blobs[0]})
+    train, val, class_map = prepare_country_dataset(
+        rows, mgr, val_fraction=FT_VAL_FRACTION, seed=SEED)
+    log(f"(b) {len(rows)} rows -> {len(train)} train, {len(val)} validation,"
+        f" classes {class_map}")
+    if len(val) != FT_BATCH or len(train) != 4 * FT_BATCH or \
+            len(class_map) != len(FT_COUNTRIES):
+        fail("prepare_country_dataset gave another split than expected")
+    return train, val, class_map
+
+
+def _ft_kernel_total():
+    from geoguessr_ai_torch.ops import clip_attention as ca
+    from geoguessr_ai_torch.ops import mbconv
+    from geoguessr_ai_torch.ops import window_attention as wa
+
+    return sum(sum(m.LAUNCHES.values()) for m in (wa, mbconv, ca))
+
+
+def _ft_finetune(tmp, train, val, class_map):
+    """(c) finetune() at TinyViT-5M-224 full width (bf16 compute, f32
+    master weights) for one epoch of 4 steps of FT_BATCH, every launch
+    counter at 0 first; returns (K4 launches, the summary)."""
+    from geoguessr_ai_torch.ops import window_attention as wa
+    from geoguessr_ai_torch.train import finetune_tinyvit as ft
+
+    records = {"train": [], "eval": []}
+    step, evaluate = ft.finetune_train_step, ft.finetune_eval_step
+
+    def timed_step(model, optimizer, images, labels, generator=None):
+        k4, total = wa.LAUNCHES[BWD_META["K4"][0]], _ft_kernel_total()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss, logits = step(model, optimizer, images, labels, generator)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        records["train"].append(dict(
+            t0=t0, t1=t1, loss=float(loss),
+            k4=wa.LAUNCHES[BWD_META["K4"][0]] - k4,
+            total=_ft_kernel_total() - total))
+        return loss, logits
+
+    def counted_eval(model, images, labels, num_classes):
+        total = _ft_kernel_total()
+        out = evaluate(model, images, labels, num_classes)
+        records["eval"].append(dict(model=model, images=images,
+                                    launches=_ft_kernel_total() - total))
+        return out
+
+    cfg = ft.FinetuneConfig(seed=SEED, batch_size=FT_BATCH, num_epochs=1,
+                            warmup_steps=2, image_size=224)
+    ckpt = os.path.join(tmp, "finetune")
+    os.makedirs(ckpt)
+    ft.finetune_train_step, ft.finetune_eval_step = timed_step, counted_eval
+    _reset_all_launches()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    try:
+        summary = ft.finetune(train, val, len(class_map), cfg,
+                              checkpoint_dir=ckpt, class_map=class_map)
+    finally:
+        ft.finetune_train_step, ft.finetune_eval_step = step, evaluate
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    steps = records["train"]
+    k4 = wa.LAUNCHES[BWD_META["K4"][0]]
+    log(f"(c) finetune(): TinyViT-5M-224 bf16 compute, f32 master weights, "
+        f"{len(class_map)} classes, batch {FT_BATCH}, {len(steps)} steps + "
+        f"{len(records['eval'])} validation forwards in {wall:.2f} s")
+    for i, r in enumerate(steps):
+        log(f"  step {i + 1}: loss {r['loss']:.6f}, K4 {r['k4']} launches, "
+            f"{r['total']} kernel launches in all")
+    if len(steps) != 4 or not all(math.isfinite(r["loss"]) for r in steps):
+        fail(f"finetune ran {len(steps)} steps, losses "
+             f"{[r['loss'] for r in steps]}")
+    if any(r["k4"] != FT_K4_PER_STEP or r["total"] != FT_K4_PER_STEP
+           for r in steps):
+        fail(f"a finetune step launched other than K4 exactly "
+             f"{FT_K4_PER_STEP} times and no other kernel")
+    if [r["launches"] for r in records["eval"]] != [0]:
+        fail(f"the validation forwards launched "
+             f"{[r['launches'] for r in records['eval']]} kernels, expected "
+             f"one forward and none")
+    if k4 != FT_K4_PER_STEP * len(steps) or _ft_kernel_total() != k4:
+        fail(f"finetune launched K4 {k4} times and "
+             f"{_ft_kernel_total()} kernels in all")
+    log(f"  top1 {summary['top1']:.4f} top5 {summary['top5']:.4f} (k = "
+        f"{min(5, len(class_map))}) after step {summary['step']}")
+    if not (math.isfinite(summary["top1"]) and math.isfinite(summary["top5"])):
+        fail(f"finetune gave no finite top-1 / top-5: {summary}")
+    step_ms = [(r["t1"] - r["t0"]) * 1e3 for r in steps[1:]]
+    loop_ms = [(b["t1"] - a["t1"]) * 1e3 for a, b in zip(steps, steps[1:])]
+    log(f"  finetune_train_step p50 {float(np.median(step_ms)):.2f} ms "
+        f"(synchronised around each call; steps 2-{len(steps)}: "
+        f"{', '.join(f'{t:.2f}' for t in step_ms)}), "
+        f"{FT_BATCH / float(np.median(step_ms)) * 1e3:.1f} img/s")
+    log(f"  loop p50 {float(np.median(loop_ms)):.2f} ms per step (host "
+        f"decode, flips and upload included)")
+    log(f"  peak device memory {peak_gb:.3f} GB (torch.cuda.max_memory_"
+        f"allocated)")
+    best = summary["best_checkpoint"]
+    with open(os.path.join(ckpt, "class_map.json")) as f:
+        if json.load(f) != class_map:
+            fail("class_map.json holds another map")
+    if best != os.path.join(ckpt, "best"):
+        fail(f"finetune saved no best checkpoint: {best}")
+    saved = ft.read_finetune_checkpoint(best)
+    live, images = records["eval"][0]["model"], records["eval"][0]["images"]
+    model = ft.Classifier(live.backbone.config, len(class_map))
+    model.load_state_dict({**saved["params"], **saved["batch_stats"]},
+                          strict=True)
+    model.to("cuda")
+    with torch.no_grad():
+        same = torch.equal(model(images), live(images))
+    mb = sum(os.path.getsize(os.path.join(best, n))
+             for n in os.listdir(best)) / 1e6
+    log(f"  best/ ({mb:.1f} MB) reloaded: eval logits bitwise equal to the "
+        f"in-memory model's {same}")
+    if not same:
+        fail("the reloaded best checkpoint gives other eval logits")
+    del model, live, images, records
+    return k4, summary
+
+
+def _ft_step_grads(device, dtype, state, batch):
+    """One finetune train step of ``state`` on ``batch`` (uint8 images,
+    labels) at TinyViT-5M-224 in ``dtype``: (loss, the gradients handed to
+    the optimizer), on the host in f32."""
+    from geoguessr_ai_torch import config as C
+    from geoguessr_ai_torch.config import OptimizerConfig
+    from geoguessr_ai_torch.models.tinyvit import TinyViTConfig
+    from geoguessr_ai_torch.ops.preprocess import fused_preprocess
+    from geoguessr_ai_torch.train import finetune_tinyvit as ft
+    from geoguessr_ai_torch.train.state import AdamW, warmup_cosine_decay
+
+    config = TinyViTConfig.tiny_vit_5m_224(dtype=getattr(torch, dtype))
+    model = ft.Classifier(config, len(FT_COUNTRIES))
+    model.load_state_dict(state, strict=True)
+    model.to(device)
+    params = dict(model.named_parameters())
+    opt = AdamW(params, OptimizerConfig(max_grad_norm=None),
+                warmup_cosine_decay(1e-4, 1, 10))
+    grads = {}
+    inner = opt.step
+
+    def capture(p, g):
+        grads.update({n: t.detach().float().cpu() for n, t in g.items()})
+        return inner(p, g)
+
+    opt.step = capture
+    imgs, labels = batch
+    px = fused_preprocess(torch.from_numpy(imgs).to(device),
+                          C.TINYVIT_NORM_MEAN, C.TINYVIT_NORM_STD,
+                          config.image_size, dtype=config.dtype)
+    t0 = time.perf_counter()
+    loss, _ = ft.finetune_train_step(model, opt, px,
+                                     torch.from_numpy(labels).to(device))
+    loss = float(loss)
+    log(f"finetune step {device} {dtype}: batch {FT_CPU_BATCH}, loss "
+        f"{loss:.6f}, {time.perf_counter() - t0:.2f} s")
+    return loss, grads
+
+
+def _ft_step_vs_cpu(train):
+    """(d) One finetune train step of seeded weights on FT_CPU_BATCH train
+    rows: the card in bf16 against the port on the CPU in f32 and in bf16,
+    under phase 9's gates."""
+    from geoguessr_ai_torch.models.super_guessr import init_parameters_
+    from geoguessr_ai_torch.models.tinyvit import TinyViTConfig
+    from geoguessr_ai_torch.train import finetune_tinyvit as ft
+
+    model = ft.Classifier(TinyViTConfig.tiny_vit_5m_224(), len(FT_COUNTRIES))
+    init_parameters_(model, SEED + 19)
+    state = model.state_dict()
+    rows = train[:FT_CPU_BATCH]
+    batch = (ft._decode(rows, 224),
+             np.array([r["label"] for r in rows], np.int64))
+    gl, gg = _ft_step_grads("cuda", "bfloat16", state, batch)
+    cl, cg = _ft_step_grads("cpu", "float32", state, batch)
+    bl, bg = _ft_step_grads("cpu", "bfloat16", state, batch)
+    log("(d) finetune step, card bf16 against CPU f32 and bf16:")
+    # three classes at seeded weights: the plain bf16 path's own loss
+    # drifts 0.1-4 % from f32 over seeds, as its gradients drift
+    bad = _step_disagreements(gl, gg, cl, cg, bl, bg, loss_drift=True)
+    if bad:
+        fail(f"the finetune step on the card disagrees with the CPU: {bad}")
+
+
+def _ft_k4_cases():
+    """(e) K4 at the finetune's three shapes against its plain version,
+    with its times beside SDPA's backward and the bounds of the real
+    (unpadded) and the padded work."""
+    from geoguessr_ai_torch.ops import window_attention as wa
+
+    rows = {}
+    gen = torch.Generator().manual_seed(SEED + 19)
+    for label, W, N, H in FT_K4_CASES:
+        D = H * 32
+        scale = 32 ** -0.5
+        qkv = torch.randn(W, N, 3 * D, generator=gen).to("cuda",
+                                                         torch.bfloat16)
+        bias = (torch.randn(H, N, N, generator=gen) * 0.5).to("cuda")
+        g = torch.randn(W, N, D, generator=gen).to("cuda", torch.bfloat16)
+        args = (qkv, bias, g, scale, H)
+        got = wa._attention_qkv_bwd_cuda(*args)
+        want = wa._attention_qkv_bwd_plain(*args)
+        torch.cuda.synchronize()
+        Np = -(-N // 64) * 64
+        log(f"(e) K4 {label} W={W} N={N} (padded {Np}) H={H}")
+        log(f"  {_bwd_plan('K4', W, N, H)}")
+        errs = {}
+        for out, a, b in (("d_qkv", got[0], want[0]),
+                          ("d_bias", got[1], want[1])):
+            abs_err, rel = _rel_err(a, b)
+            finite = bool(torch.isfinite(a).all())
+            log(f"  {out} max_abs_err {abs_err:.6g} max_rel_err {rel:.6g} "
+                f"(tolerance {KERNEL_REL_TOL}) finite {finite}")
+            if a.shape != b.shape or not finite or rel > KERNEL_REL_TOL:
+                fail(f"K4 {label}: {out} disagrees with the plain version "
+                     f"(rel {rel:.3g}, finite {finite})")
+            errs[out] = abs_err
+        del got, want
+        ms = kernel_ms(lambda: wa._attention_qkv_bwd_cuda(*args))
+        plain_ms = cuda_time_ms(lambda: wa._attention_qkv_bwd_plain(*args),
+                                iters=3)
+        lib_ms, lib_note = _sdpa_bwd_ms(qkv, bias, g, scale, H)
+        bound, bound_by = _bwd_bound_ms("K4", W, N, H)
+        padded, padded_by = _bwd_bound_ms("K4", W, Np, H)
+        log(f"  kernel_ms {ms:.4f} plain_ms {plain_ms:.4f} library_ms "
+            f"{'null' if lib_ms is None else f'{lib_ms:.4f}'} ({lib_note})")
+        log(f"  bound_ms {bound:.4f} ({bound_by}, N={N}); padded "
+            f"{padded:.4f} ({padded_by}, N={Np}); kernel at "
+            f"{bound / ms:.1%} of the unpadded bound")
+        rows[label] = dict(W=W, N=N, H=H, max_abs_err=errs["d_qkv"],
+                           max_abs_err_dbias=errs["d_bias"], ms=ms,
+                           plain_ms=plain_ms, library_ms=lib_ms,
+                           bound_ms=bound, bound_by=bound_by,
+                           bound_ms_padded=padded)
+        del qkv, bias, g, args
+    torch.cuda.empty_cache()
+    return rows
+
+
+def _ft_embeddings(tmp, mgr, train, summary):
+    """(f) extract_embeddings from the finetuned backbone on the card
+    against the CPU in f32, the build_prototype_bank tool's bank functions on
+    them, and the Parquet writer's ImportError without pandas."""
+    import importlib.util
+    import types
+
+    from geoguessr_ai_torch.models.tinyvit import TinyViTConfig
+    from geoguessr_ai_torch.tools import build_prototype_bank as tool
+    from geoguessr_ai_torch.train import finetune_tinyvit as ft
+
+    rows = train[:FT_EMBED_ROWS]
+    params, stats = summary["params"], summary["batch_stats"]
+    t0 = time.perf_counter()
+    gpu = ft.extract_embeddings(rows, params=params, batch_stats=stats)
+    t1 = time.perf_counter()
+    cpu = ft.extract_embeddings(
+        rows, TinyViTConfig.tiny_vit_5m_224(dtype=torch.float32),
+        {k: v.cpu() for k, v in params.items()},
+        {k: v.cpu() for k, v in stats.items()}, device="cpu")
+    cos = [_cosine(torch.from_numpy(a), torch.from_numpy(b))
+           for a, b in zip(gpu, cpu)]
+    log(f"(f) extract_embeddings: {gpu.shape} on the card in {t1 - t0:.2f} "
+        f"s; cosine to the CPU f32 forward, lowest row {min(cos):.6f} "
+        f"(>= {FT_EMBED_MIN_COSINE})")
+    dim = TinyViTConfig.tiny_vit_5m_224().embed_dim
+    if gpu.shape != (len(rows), dim) or not np.isfinite(gpu).all() or \
+            min(cos) < FT_EMBED_MIN_COSINE:
+        fail("extract_embeddings on the card disagrees with the CPU")
+    emb_rows = [types.SimpleNamespace(lat=r["lat"], lon=r["lon"],
+                                      embedding=e) for r, e in zip(rows, gpu)]
+    bank = tool.build_bank_from_manager(mgr, emb_rows, max_protos=2)
+    members = tool.build_member_bank_from_manager(mgr, emb_rows, max_protos=2,
+                                                  max_members=4, reduce_dim=64)
+    log(f"  prototype bank {bank.embeddings.shape}, {int(bank.mask.sum())} "
+        f"prototypes; member bank {members.embeddings.shape} "
+        f"({int(members.mask.sum())} members, projection "
+        f"{members.projection.shape})")
+    if bank.mask.sum() < 1 or members.mask.sum() < 1 or \
+            not np.isfinite(bank.embeddings).all():
+        fail("the bank functions joined no embedding to a cluster")
+    found = {m: importlib.util.find_spec(m) is not None
+             for m in ("pandas", "pyarrow", "fsspec")}
+    # pandas absent (hidden from the import system where it is installed)
+    hidden = sys.modules.get("pandas")
+    sys.modules["pandas"] = None
+    try:
+        ft.extract_embeddings_parquet(rows, os.path.join(tmp, "e.parquet"),
+                                      params=params, batch_stats=stats)
+    except ImportError as e:
+        log(f"  extract_embeddings_parquet without pandas: ImportError "
+            f"({e}); installed here: {found}")
+    else:
+        fail("extract_embeddings_parquet ran without pandas")
+    finally:
+        if hidden is None:
+            del sys.modules["pandas"]
+        else:
+            sys.modules["pandas"] = hidden
+
+
+def phase_finetune(paths):
+    """Phase 31; returns (K4's launches in the finetune, K4's rows at the
+    finetune's shapes)."""
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        mgr, points = _ft_world(tmp)
+        train, val, class_map = _ft_rows(mgr, points, paths)
+        launches, summary = _ft_finetune(tmp, train, val, class_map)
+        _ft_step_vs_cpu(train)
+        rows = _ft_k4_cases()
+        _ft_embeddings(tmp, mgr, train, summary)
+        del summary
+    gc.collect()
+    torch.cuda.empty_cache()
+    took = time.perf_counter() - t0
+    log(f"phase 31 in {took:.1f} s (limit {FT_PHASE_S:.0f} s)")
+    if took > FT_PHASE_S:
+        fail(f"phase 31 took {took:.1f} s, over its {FT_PHASE_S:.0f} s")
+    return launches, rows
+
+
+# ---------------------------------------------------------------------------
+# Phase 32: the kernels line
 # ---------------------------------------------------------------------------
 
 
@@ -4759,6 +5222,7 @@ def main():
     torch.cuda.empty_cache()
     surface_launches = phase_train_surface(paths, train_loop_p50)
     clip_train_launches = phase_clip_train(paths)
+    finetune_launches, finetune_rows = phase_finetune(paths)
 
     main_case = {"K1": "stage1", "K2": "stage2", "K3": "stage3",
                  "K4": "stage1", "K5": "stage2"}
@@ -4777,7 +5241,8 @@ def main():
             "launches": (serve_launches.get(k, 0) + train_launches[k]
                          + static_launches.get(k, 0)
                          + guess_launches.get(k, 0)
-                         + surface_launches.get(k, 0)),
+                         + surface_launches.get(k, 0)
+                         + (finetune_launches if k == "K4" else 0)),
             "max_abs_err": row["max_abs_err"], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": library,
@@ -4793,6 +5258,9 @@ def main():
             stage3 = rows[("K4", "stage3")]
             entry["stage3"] = {key: stage3[key] for key in (
                 "ms", "plain_ms", "bound_ms", "library_ms", "launch_ms")}
+            # phase 31: TinyViT-5M-224's ragged windows at B=64
+            entry["finetune_224"] = finetune_rows
+            entry["finetune_launches"] = finetune_launches
         kernels.append(entry)
     for k, (name, source, replaces) in CLIP_META.items():
         row = clip_rows[(k, "vit_l14_bucket16")]

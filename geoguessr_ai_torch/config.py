@@ -11,6 +11,8 @@ from typing import Optional
 EARTH_RADIUS_MODEL_M = 6378137.0
 #: Earth radius of the benchmark's scoring haversine (m), the mean radius.
 EARTH_RADIUS_BENCH_M = 6371000.0
+#: WGS84 flattening factor.
+WGS84_FLATTENING = 1.0 / 298.257223563
 
 #: Haversine label-smoothing constant (km).
 LABEL_SMOOTHING_CONSTANT_KM = 65.0
@@ -144,7 +146,9 @@ class OptimizerConfig:
     beta1: float = 0.9
     beta2: float = 0.999
     eps: float = 1e-8
-    max_grad_norm: float = 1.0
+    #: Global-norm clipping threshold; None clips nothing (the country
+    #: finetune's bare adamw).
+    max_grad_norm: Optional[float] = 1.0
     #: CosineAnnealingWarmRestarts T_0 (in epochs).
     cosine_t0: int = 1
     cosine_t_mult: int = 2

@@ -10,6 +10,7 @@ from geoguessr_ai_torch.config import (
     EARTH_RADIUS_MODEL_M,
     GEOGUESSR_DECAY_CONSTANT_KM,
     LABEL_SMOOTHING_CONSTANT_KM,
+    WGS84_FLATTENING,
 )
 
 
@@ -43,6 +44,53 @@ def smooth_labels(distances: torch.Tensor,
     adj = distances - distances.min(dim=-1, keepdim=True).values
     return torch.nan_to_num(torch.exp(-adj / smoothing_km), nan=0.0,
                             posinf=0.0, neginf=0.0)
+
+
+def lla2ecef(coords: torch.Tensor,
+             radius_m: float = EARTH_RADIUS_MODEL_M) -> torch.Tensor:
+    """(..., 2) (lon, lat) degrees -> (..., 3) ECEF (x, y, z) meters on the
+    WGS84 ellipsoid."""
+    rad = coords * (math.pi / 180.0)
+    cos_lat = torch.cos(rad[..., 1])
+    sin_lat = torch.sin(rad[..., 1])
+    ff = (1.0 - WGS84_FLATTENING) ** 2
+    c = 1.0 / torch.sqrt(cos_lat ** 2 + ff * sin_lat ** 2)
+    s = c * ff
+    x = radius_m * c * cos_lat * torch.cos(rad[..., 0])
+    y = radius_m * c * cos_lat * torch.sin(rad[..., 0])
+    z = radius_m * s * sin_lat
+    return torch.stack([x, y, z], dim=-1)
+
+
+def ecef2lla(coords: torch.Tensor, radius_m: float = EARTH_RADIUS_MODEL_M,
+             num_iters: int = 5) -> torch.Tensor:
+    """(..., 3) ECEF meters -> (..., 2) (lon, lat) degrees by Bowring's
+    fixed-point iteration, ``num_iters`` rounds from Bowring's 1985
+    starting values (the JAX package's static count)."""
+    a = radius_m
+    f = WGS84_FLATTENING
+    b = (1.0 - f) * a
+    e2 = f * (2.0 - f)
+    ae2 = a * e2
+    bep2 = b * e2 / (1.0 - e2)
+
+    x, y, z = coords[..., 0], coords[..., 1], coords[..., 2]
+    lon = torch.atan2(y, x)
+    rho = torch.sqrt(x ** 2 + y ** 2)
+    r = torch.sqrt(rho ** 2 + z ** 2)
+
+    def norm_cs(u, v):
+        # (cos, sin) of the angle whose tangent is v / u, sign-correct
+        hyp = torch.clamp(torch.sqrt(u ** 2 + v ** 2), min=1e-30)
+        return u / hyp, v / hyp
+
+    cosb, sinb = norm_cs(a * rho,
+                         b * z * (1.0 + bep2 / torch.clamp(r, min=1e-9)))
+    for _ in range(num_iters):
+        cosb, sinb = norm_cs(a * (rho - ae2 * cosb ** 3),
+                             b * (z + bep2 * sinb ** 3))
+    lat = torch.atan2(z + bep2 * sinb ** 3, rho - ae2 * cosb ** 3)
+    return torch.stack([lon, lat], dim=-1) * (180.0 / math.pi)
 
 
 def geoguessr_score(distance_km: torch.Tensor,

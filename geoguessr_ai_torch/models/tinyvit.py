@@ -166,6 +166,27 @@ class TinyViTConfig:
         return TinyViTConfig(**overrides)
 
     @staticmethod
+    def tiny_vit_21m_224(**overrides) -> "TinyViTConfig":
+        return TinyViTConfig(image_size=224, window_sizes=(7, 7, 14, 7),
+                             **overrides)
+
+    @staticmethod
+    def tiny_vit_5m_224(**overrides) -> "TinyViTConfig":
+        """timm ``tiny_vit_5m_224``: the country finetune's default
+        backbone.  Every window is ragged (N = 49, 196, 49), so each stage
+        takes the plain forward and K4's backward."""
+        return TinyViTConfig(image_size=224, embed_dims=(64, 128, 160, 320),
+                             depths=(2, 2, 6, 2), num_heads=(2, 4, 5, 10),
+                             window_sizes=(7, 7, 14, 7), **overrides)
+
+    @staticmethod
+    def tiny_vit_11m_224(**overrides) -> "TinyViTConfig":
+        """timm ``tiny_vit_11m_224``."""
+        return TinyViTConfig(image_size=224, embed_dims=(64, 128, 256, 448),
+                             depths=(2, 2, 6, 2), num_heads=(2, 4, 8, 14),
+                             window_sizes=(7, 7, 14, 7), **overrides)
+
+    @staticmethod
     def test_tiny(**overrides) -> "TinyViTConfig":
         """The JAX package's miniature config for fast CPU tests."""
         return TinyViTConfig(image_size=64, embed_dims=(16, 32, 64, 80),

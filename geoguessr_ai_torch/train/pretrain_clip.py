@@ -49,7 +49,7 @@ from geoguessr_ai_torch.models.super_guessr import init_parameters_
 from geoguessr_ai_torch.ops.preprocess import fused_preprocess
 from geoguessr_ai_torch.train.captions import select_caption
 from geoguessr_ai_torch.train.coordinator import _check_single_device
-from geoguessr_ai_torch.train.state import AdamW
+from geoguessr_ai_torch.train.state import AdamW, linear_value
 from geoguessr_ai_torch.utils.logging import MetricsLogger
 
 TRAINABLE_SUBTREES = ("visual_projection", "logit_scale")
@@ -65,14 +65,6 @@ def trainable_mask(names: Iterable[str]) -> Dict[str, bool]:
             for n in names}
 
 
-def _linear(init: float, end: float, steps: int, count: int) -> float:
-    """optax.linear_schedule(init, end, steps)(count), in f32 as optax
-    computes it."""
-    c = np.float32(min(max(count, 0), steps))
-    frac = np.float32(1) - c / np.float32(steps)
-    return float(np.float32(init - end) * frac + np.float32(end))
-
-
 def pretrain_schedule(cfg: PretrainConfig, total_steps: int
                       ) -> Callable[[int], float]:
     """Linear warm-up from 0 over ``warmup_ratio * total_steps`` steps,
@@ -83,8 +75,8 @@ def pretrain_schedule(cfg: PretrainConfig, total_steps: int
 
     def sched(step: int) -> float:
         if step < warmup:
-            return _linear(0.0, cfg.learning_rate, warmup, step)
-        return _linear(cfg.learning_rate, 0.0, decay, step - warmup)
+            return linear_value(0.0, cfg.learning_rate, warmup, step)
+        return linear_value(cfg.learning_rate, 0.0, decay, step - warmup)
 
     return sched
 

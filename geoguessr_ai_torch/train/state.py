@@ -7,7 +7,8 @@ of named parameters, in the same order of f32 operations:
 
 * the global norm for clipping covers the trainable parameters only (the
   inner chain of ``multi_transform`` sees only its own leaves), and the
-  gradients are scaled by max_norm / norm only when norm >= max_norm;
+  gradients are scaled by max_norm / norm only when norm >= max_norm; a
+  ``max_grad_norm`` of None clips nothing (a bare ``optax.adamw``);
 * Adam moments with bias correction, eps outside the square root, then
   decoupled weight decay: ``p - lr * (adam + wd * p)``;
 * frozen parameters get no update, no decay and no moments;
@@ -116,6 +117,37 @@ def cosine_warm_restarts(base_lr: float, steps_per_cycle: int,
     return sched
 
 
+def linear_value(init: float, end: float, steps: int, count: int) -> float:
+    """optax.linear_schedule(init, end, steps)(count), in f32 as optax
+    computes it."""
+    c = np.float32(min(max(count, 0), steps))
+    frac = np.float32(1) - c / np.float32(steps)
+    return float(np.float32(init - end) * frac + np.float32(end))
+
+
+def warmup_cosine_decay(peak: float, warmup_steps: int, decay_steps: int
+                        ) -> Callable[[int], float]:
+    """optax.warmup_cosine_decay_schedule(0, peak, warmup_steps,
+    decay_steps) in f32: a linear warm-up from 0 (none when warmup_steps
+    is 0), then a cosine from ``peak`` to 0 over ``decay_steps -
+    warmup_steps`` steps (``decay_steps`` counts the warm-up).  Step ->
+    learning rate."""
+    span = decay_steps - warmup_steps
+    if span <= 0:
+        raise ValueError(f"the cosine needs decay_steps > warmup_steps, got "
+                         f"{decay_steps} and {warmup_steps}")
+
+    def sched(step: int) -> float:
+        if step < warmup_steps:
+            return linear_value(0.0, peak, warmup_steps, step)
+        c = np.float32(min(step - warmup_steps, span))
+        cos = np.float32(0.5) * (np.float32(1) + np.cos(
+            np.float32(np.pi) * c / np.float32(span)))
+        return float(np.float32(peak) * cos)
+
+    return sched
+
+
 def global_norm(tensors: Iterable[torch.Tensor]) -> torch.Tensor:
     """sqrt of the sum of squares of every element, in f32."""
     return torch.sqrt(sum((t.float() ** 2).sum() for t in tensors))
@@ -148,10 +180,11 @@ class AdamW:
         rate used."""
         cfg = self.cfg
         g = {n: grads[n].float() for n in self.names}
-        norm = global_norm(g.values())
-        clip = norm >= cfg.max_grad_norm  # a device scalar: no host sync
-        g = {n: torch.where(clip, (t / norm) * cfg.max_grad_norm, t)
-             for n, t in g.items()}
+        if cfg.max_grad_norm is not None:
+            norm = global_norm(g.values())
+            clip = norm >= cfg.max_grad_norm  # a device scalar: no host sync
+            g = {n: torch.where(clip, (t / norm) * cfg.max_grad_norm, t)
+                 for n, t in g.items()}
         lr = self.schedule(self.count)
         self.count += 1
         bc1 = self._bias_correction(cfg.beta1, self.count)

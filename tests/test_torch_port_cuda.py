@@ -897,6 +897,31 @@ def test_cuda_bwd_kernels_take_ragged_n(cuda_device, name, mirror, W, N, H):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("W,N,H", [
+    # TinyViT-5M-224's attention at B=64: stage 1 (7x7 windows), stage 2
+    # (one 14x14 window), stage 3 (7x7); every one padded to 64 or 256
+    (1024, 49, 4), (64, 196, 5), (64, 49, 10),
+])
+def test_cuda_k4_takes_the_tinyvit_5m_224_shapes(cuda_device, W, N, H):
+    """K4 at the finetune's three shapes (odd and small head counts, 1024
+    windows of 49 tokens) against its plain mirror, one launch a call, and
+    bitwise equal over two calls."""
+    qkv, bias, g = _bwd_inputs(W, N, H, cuda_device, seed=5)
+    scale = HD ** -0.5
+    before = wa.LAUNCHES["_attention_qkv_bwd_cuda"]
+    dqkv, dbias = wa._attention_qkv_bwd_cuda(qkv, bias, g, scale, H)
+    torch.cuda.synchronize()
+    assert wa.LAUNCHES["_attention_qkv_bwd_cuda"] == before + 1
+    want = wa._attention_qkv_bwd_plain(qkv, bias, g, scale, H)
+    assert dqkv.shape == qkv.shape and dbias.shape == (H, N, N)
+    assert bool(torch.isfinite(dqkv).all()) and bool(torch.isfinite(dbias).all())
+    assert _rel_err(dqkv, want[0]) < KERNEL_REL_TOL
+    assert _rel_err(dbias, want[1]) < KERNEL_REL_TOL
+    again = wa._attention_qkv_bwd_cuda(qkv, bias, g, scale, H)
+    assert torch.equal(again[0], dqkv) and torch.equal(again[1], dbias)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("hd,N,H,kernel", [
     (16, 256, 2, "_attention_qkv_bwd_cuda"),
     (64, 256, 2, "_attention_qkv_bwd_cuda"),
