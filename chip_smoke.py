@@ -1191,26 +1191,15 @@ def _train_step_grads(device, dtype, fields=None):
     return loss, grads, stats
 
 
-def _step_disagreements(gl, gg, cl, cg, bl, bg, loss_drift=False):
+def _step_disagreements(gl, gg, cl, cg, bl, bg):
     """The loss and each top-level module's gradient of a train step on
     the card in bf16 (gl, gg) against the CPU's in f32 (cl, cg) and in
     bf16 (bl, bg), logged, under TRAIN_LOSS_RTOL and the gradient gates;
-    returns what fails them.  ``loss_drift`` gates the loss as the
-    gradients are gated: within TRAIN_LOSS_RTOL of the CPU's bf16 loss,
-    and of the f32 loss or, where the plain bf16 path itself drifts
-    further from f32, within that drift plus TRAIN_LOSS_RTOL."""
+    returns what fails them."""
     rel = abs(gl - cl) / abs(cl)
-    if loss_drift:
-        rel_bf = abs(gl - bl) / abs(bl)
-        want = max(TRAIN_LOSS_RTOL, abs(bl - cl) / abs(cl) + TRAIN_LOSS_RTOL)
-        log(f"  loss gpu {gl:.6f} cpu bf16 {bl:.6f} rel {rel_bf:.3g} "
-            f"(tolerance {TRAIN_LOSS_RTOL}); cpu f32 {cl:.6f} rel {rel:.3g} "
-            f"(tolerance {want:.3g})")
-        bad = [] if rel_bf <= TRAIN_LOSS_RTOL and rel <= want else ["loss"]
-    else:
-        log(f"  loss gpu {gl:.6f} cpu f32 {cl:.6f} rel {rel:.3g} "
-            f"(tolerance {TRAIN_LOSS_RTOL}); cpu bf16 {bl:.6f}")
-        bad = [] if rel <= TRAIN_LOSS_RTOL else ["loss"]
+    log(f"  loss gpu {gl:.6f} cpu f32 {cl:.6f} rel {rel:.3g} "
+        f"(tolerance {TRAIN_LOSS_RTOL}); cpu bf16 {bl:.6f}")
+    bad = [] if rel <= TRAIN_LOSS_RTOL else ["loss"]
     modules = sorted({_top_module(n) for n in cg})
     for mod in modules:
         names = [n for n in cg if _top_module(n) == mod]
@@ -4977,10 +4966,8 @@ def _ft_step_grads(device, dtype, state, batch):
     """One finetune train step of ``state`` on ``batch`` (uint8 images,
     labels) at TinyViT-5M-224 in ``dtype``: (loss, the gradients handed to
     the optimizer), on the host in f32."""
-    from geoguessr_ai_torch import config as C
     from geoguessr_ai_torch.config import OptimizerConfig
     from geoguessr_ai_torch.models.tinyvit import TinyViTConfig
-    from geoguessr_ai_torch.ops.preprocess import fused_preprocess
     from geoguessr_ai_torch.train import finetune_tinyvit as ft
     from geoguessr_ai_torch.train.state import AdamW, warmup_cosine_decay
 
@@ -5000,9 +4987,7 @@ def _ft_step_grads(device, dtype, state, batch):
 
     opt.step = capture
     imgs, labels = batch
-    px = fused_preprocess(torch.from_numpy(imgs).to(device),
-                          C.TINYVIT_NORM_MEAN, C.TINYVIT_NORM_STD,
-                          config.image_size, dtype=config.dtype)
+    px = ft.pixels(imgs, config, device)
     t0 = time.perf_counter()
     loss, _ = ft.finetune_train_step(model, opt, px,
                                      torch.from_numpy(labels).to(device))
@@ -5030,9 +5015,7 @@ def _ft_step_vs_cpu(train):
     cl, cg = _ft_step_grads("cpu", "float32", state, batch)
     bl, bg = _ft_step_grads("cpu", "bfloat16", state, batch)
     log("(d) finetune step, card bf16 against CPU f32 and bf16:")
-    # three classes at seeded weights: the plain bf16 path's own loss
-    # drifts 0.1-4 % from f32 over seeds, as its gradients drift
-    bad = _step_disagreements(gl, gg, cl, cg, bl, bg, loss_drift=True)
+    bad = _step_disagreements(gl, gg, cl, cg, bl, bg)
     if bad:
         fail(f"the finetune step on the card disagrees with the CPU: {bad}")
 

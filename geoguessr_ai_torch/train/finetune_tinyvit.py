@@ -192,11 +192,17 @@ def _batches(rows, cfg: FinetuneConfig, size: int, shuffle: bool,
         yield imgs, np.array([rows[i]["label"] for i in idx], np.int64)
 
 
+def pixels(imgs: np.ndarray, config: TinyViTConfig, dev) -> torch.Tensor:
+    """uint8 (B, H, W, 3) host images as the backbone's input on ``dev``:
+    resized to ``config.image_size``, ImageNet-normalised, in
+    ``config.dtype``."""
+    return fused_preprocess(torch.from_numpy(imgs).to(dev),
+                            C.TINYVIT_NORM_MEAN, C.TINYVIT_NORM_STD,
+                            config.image_size, dtype=config.dtype)
+
+
 def _to_device(imgs, labels, config: TinyViTConfig, dev):
-    px = fused_preprocess(torch.from_numpy(imgs).to(dev),
-                          C.TINYVIT_NORM_MEAN, C.TINYVIT_NORM_STD,
-                          config.image_size, dtype=config.dtype)
-    return px, torch.from_numpy(labels).to(dev)
+    return pixels(imgs, config, dev), torch.from_numpy(labels).to(dev)
 
 
 def read_finetune_checkpoint(path: str) -> Dict[str, Dict[str, torch.Tensor]]:
@@ -345,10 +351,7 @@ def extract_embeddings(
     with torch.no_grad():
         for s in range(0, len(rows), batch_size):
             imgs = _decode(rows[s:s + batch_size], tv_cfg.image_size)
-            px = fused_preprocess(torch.from_numpy(imgs).to(dev),
-                                  C.TINYVIT_NORM_MEAN, C.TINYVIT_NORM_STD,
-                                  tv_cfg.image_size, dtype=tv_cfg.dtype)
-            out.append(model(px).float().cpu().numpy())
+            out.append(model(pixels(imgs, tv_cfg, dev)).float().cpu().numpy())
     if not out:
         return np.zeros((0, tv_cfg.embed_dim), np.float32)
     return np.concatenate(out)

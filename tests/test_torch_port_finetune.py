@@ -41,7 +41,9 @@ from geoguessr_ai_tpu.train import finetune_tinyvit as jft
 from geoguessr_ai_torch.data import pipeline
 from geoguessr_ai_torch.geocells.manager import GeocellManager
 from geoguessr_ai_torch.models import tinyvit as ttv
-from geoguessr_ai_torch.models.convert import from_jax_variables
+from geoguessr_ai_torch.models.convert import (from_jax_variables,
+                                               to_jax_variables)
+from geoguessr_ai_torch.models.super_guessr import init_parameters_
 from geoguessr_ai_torch.train import finetune_tinyvit as tft
 
 from test_torch_port_geocells import make_geocell_pickles
@@ -108,15 +110,6 @@ def _jax_classifier(tv_cfg, num_classes):
             return nn.Dense(num_classes, dtype=jnp.float32, name="head")(emb)
 
     return Classifier()
-
-
-def _jax_init(tv_cfg, num_classes, seed):
-    """The JAX finetune's initial variables: ``model.init(PRNGKey(seed),
-    zeros)`` (jitted: the same bits, one compile), as numpy."""
-    model = _jax_classifier(tv_cfg, num_classes)
-    variables = jax.jit(model.init)(jax.random.PRNGKey(seed), jnp.zeros(
-        (1, tv_cfg.image_size, tv_cfg.image_size, 3)))
-    return model, jax.tree_util.tree_map(np.array, variables)
 
 
 def _tiny_configs():
@@ -388,11 +381,14 @@ def test_5m_224_forward_and_train_step_match():
         ttv.TinyViTConfig.tiny_vit_5m_224(dtype=torch.float32),
         depths=(1, 1, 1, 1))
     classes = 7
-    model, variables = _jax_init(jcfg, classes, 3)
+    # the port's seeded weights carried to flax (no JAX init to compile)
+    port = tft.Classifier(tcfg, classes)
+    init_parameters_(port, 3)
+    model = _jax_classifier(jcfg, classes)
+    variables = to_jax_variables(port.state_dict())
     rng = np.random.default_rng(1)
     x = rng.normal(0, 1, (2, 224, 224, 3)).astype(np.float32)
     labels = np.array([3, 5], np.int32)
-    want_logits = np.asarray(jax.jit(model.apply)(variables, jnp.asarray(x)))
 
     def loss_fn(p):
         logits, _ = model.apply({"params": p,
@@ -404,13 +400,15 @@ def test_5m_224_forward_and_train_step_match():
         return -jnp.mean(jnp.take_along_axis(logp, jnp.asarray(labels)[:, None],
                                              axis=-1))
 
-    want_loss, want_grads = jax.jit(jax.value_and_grad(loss_fn))(
-        variables["params"])
+    @jax.jit
+    def reference(v):  # one compile: the eval logits, the train loss, grad
+        return model.apply(v, jnp.asarray(x)), jax.value_and_grad(loss_fn)(
+            v["params"])
+
+    want_logits, (want_loss, want_grads) = reference(variables)
     want_g = from_jax_variables(
         {"params": jax.tree_util.tree_map(np.array, want_grads)})
 
-    port = tft.Classifier(tcfg, classes)
-    port.load_state_dict(from_jax_variables(variables), strict=True)
     with torch.no_grad():
         logits = port(torch.from_numpy(x))
     assert _close(logits.numpy(), want_logits, F32_REL)
