@@ -227,7 +227,31 @@ Phases, in order; any failure exits non-zero:
     f32 forward (cosine >= 0.999 a row), the ``build_prototype_bank``
     tool's bank functions on them, ``extract_embeddings_parquet``'s ImportError
     where pandas is absent; the phase under 90 s;
-32. print the kernel JSON line, then ``{"ok": true, "device": ...}`` last.
+32. training off the object store, in a temp directory holding a file://
+    bucket (``GEO_TPU_STORE_URL``), ``GEO_TPU_CKPT_DIR`` and the fetch
+    cache; no network: (a) ``collect_points`` over 48 seeded points in two
+    polygons with a fetch function answering the fixture JPEGs, into a
+    ledger, 16 holdout panoramas by ``ingest_local_folder``, both
+    snapshots merged, the same points again collecting none; (b)
+    ``build_sqlite_from_snapshot`` of both: the snapshots' keys with the
+    store's bytes; (c) ``main_streaming`` at full width (TinyViT-21M-512
+    bf16, B=16, one epoch of 3 steps, the holdout validating) against
+    ``train()`` on (b)'s SQLites: K1-K5 exactly phase 8's counts for 3
+    steps and a validation forward and no other kernel in each, the same
+    step and validation losses to RESUME_LOSS_RTOL, the fetch cache one
+    file a snapshot key, ``last`` and ``best`` written; both runs' step
+    p50 (synchronised), loop p50 and peak memory beside phase 8's loop
+    p50; (d) ``best`` uploaded to the registry: ``run_benchmark(
+    clip_checkpoint_index=0)`` gives ``run_benchmark(checkpoint=best)``'s
+    guesses bit for bit; after a newer upload, index 1 gives ``best``
+    again; (e) ``PanoramaStream`` over the holdout snapshot bitwise
+    ``PanoramaBatchIterator`` over its SQLite rows, and host panos/s with
+    the cache cold, warm and from the SQLite; (f)
+    ``download_random_panorama(seed=)`` guessed by the TinyViT engine
+    bitwise as the ingested files, and the inference entry point's
+    fallback (no images, no fixture) printing the guess of the panorama it
+    downloaded; the phase under 60 s;
+33. print the kernel JSON line, then ``{"ok": true, "device": ...}`` last.
 
 Times: ``kernel_ms`` times a kernel or a library call by 10 (or 50)
 launches between two CUDA events; where that reads under SHORT_MS (0.5
@@ -737,11 +761,32 @@ def _bwd_bound_ms(kernel, W, N, H, elem=2):
     return _bound(flops, nbytes, _peak(elem))
 
 
+def profiled_ms(fn, calls: int = 5):
+    """Device time of one fn() call as the sum of the device kernels'
+    times in a torch.profiler trace of ``calls`` calls (after a warm-up),
+    over the calls; None when the trace holds no device kernels."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(evt.time_range.elapsed_us() for evt in prof.events()
+             if evt.device_type == torch.autograd.DeviceType.CUDA)
+    return us / 1e3 / calls if us else None
+
+
 def _sdpa_bwd_ms(qkv, bias, g, scale, H):
     """The backward of one scaled_dot_product_attention call on the same
-    q, k, v and an (H, N, N) bias that requires grad, timed as
-    forward+backward minus forward (the yardstick only; the port never
-    calls it).  Returns (ms or None, what was timed or why not)."""
+    q, k, v and an (H, N, N) bias that requires grad, as device time:
+    forward+backward minus forward, each by ``device_time_ms`` (calls
+    captured in one CUDA graph and replayed, so the host's launch rate
+    stays outside the timed window), or where capture fails by the sum of
+    the profiler's device kernel times (``profiled_ms``).  The yardstick
+    only; the port never calls it.  Returns (ms or None, what was timed or
+    why not)."""
     import torch.nn.functional as F
 
     W, N, D3 = qkv.shape
@@ -755,15 +800,29 @@ def _sdpa_bwd_ms(qkv, bias, g, scale, H):
         return F.scaled_dot_product_attention(q, k, v, attn_mask=b[None],
                                               scale=scale)
 
+    def both():
+        return torch.autograd.grad(fwd(), (q, k, v, b), go)
+
     try:
-        both = cuda_time_ms(lambda: torch.autograd.grad(fwd(), (q, k, v, b),
-                                                        go), iters=5)
+        both()
     except RuntimeError as e:
         return None, ("no SDPA backend takes a bias gradient here: "
                       + str(e).splitlines()[0][:160])
-    return both - cuda_time_ms(fwd, iters=5), (
-        "scaled_dot_product_attention forward+backward minus forward, bias "
-        "requires grad")
+    what = ("scaled_dot_product_attention forward+backward minus forward, "
+            "bias requires grad, device time")
+    try:
+        return (device_time_ms(both, iters=5) - device_time_ms(fwd, iters=5),
+                what + " (one CUDA graph of 5 calls, replayed 5 times)")
+    except RuntimeError as e:
+        torch.cuda.synchronize()
+        fb, f = profiled_ms(both), profiled_ms(fwd)
+        if fb is None or f is None:
+            return None, ("not measured: graph capture failed ("
+                          + str(e).splitlines()[0][:120] + ") and the "
+                          "profiler's trace holds no device kernels")
+        return fb - f, what + (" (torch.profiler's kernel sum; graph capture "
+                               "failed: " + str(e).splitlines()[0][:120]
+                               + ")")
 
 
 def _rel_err(got, want):
@@ -5160,7 +5219,404 @@ def phase_finetune(paths):
 
 
 # ---------------------------------------------------------------------------
-# Phase 32: the kernels line
+# Phase 32: training off the object store
+# ---------------------------------------------------------------------------
+
+#: Phase 32's store: 48 collected training panoramas (one epoch of 3 steps
+#: of SURFACE_BATCH) and 16 ingested holdout panoramas (one validation
+#: forward), every one inside two small (lon, lat) polygons.
+STORE_STEPS = 3
+STORE_HOLDOUT = 16
+STORE_POLYGONS = (((10.0, 59.0), (11.5, 59.0), (11.5, 60.2), (10.0, 60.2)),
+                  ((5.0, 60.0), (6.0, 60.0), (5.5, 61.0)))
+#: The phase's limit, the object store's path with its two full-width
+#: train runs included.
+STORE_PHASE_S = 60.0
+
+
+def _store_collect(tmp, paths):
+    """(a) Seeded points in two polygons; ``collect_points`` with a fetch
+    function that answers the four fixture JPEGs, into a ledger; 16
+    holdout panoramas (each view re-encoded at the panorama's own JPEG
+    quality, so no two are alike) ingested from a folder; both snapshots
+    merged; the same points collected again give none."""
+    import io
+
+    from PIL import Image
+
+    from geoguessr_ai_torch.acquisition.collect import collect_points
+    from geoguessr_ai_torch.acquisition.sampling import (
+        CollectionLedger,
+        sample_points_in_polygons,
+    )
+    from geoguessr_ai_torch.data.s3 import ObjectStore
+
+    blobs = [open(p, "rb").read() for p in paths]
+    store = ObjectStore()
+    n_train = SURFACE_BATCH * STORE_STEPS
+    pts = sample_points_in_polygons([np.array(p) for p in STORE_POLYGONS],
+                                    n_train + STORE_HOLDOUT,
+                                    rng=np.random.default_rng(SEED))
+
+    def fetch(lat, lon, api_key, secret=None, yaw_seed=0.0, session=None):
+        return {"status": "OK"}, [((yaw_seed + 90.0 * k) % 360.0, blobs[k])
+                                  for k in range(4)]
+
+    ledger = CollectionLedger(os.path.join(tmp, "collected.txt"),
+                              os.path.join(tmp, "failed.txt"))
+    kw = dict(ledger=ledger, batch_size=n_train, seed=SEED, fetch_fn=fetch)
+    got = collect_points(pts[:n_train], store, "offline", **kw)
+    folder = os.path.join(tmp, "holdout_images")
+    os.makedirs(folder)
+    views = [Image.open(p).convert("RGB") for p in paths]
+    for i, (lon, lat) in enumerate(pts[n_train:]):
+        for h, im in zip((0, 90, 180, 270), views):
+            buf = io.BytesIO()
+            im.save(buf, "JPEG", quality=60 + 2 * i)
+            name = f"streetview_{lat:.6f}_{lon:.6f}_heading_{h}.jpg"
+            with open(os.path.join(folder, name), "wb") as f:
+                f.write(buf.getvalue())
+    ingested = store.ingest_local_folder(folder, holdout=True)
+    store.merge_snapshot()
+    store.merge_snapshot(holdout=True)
+    again = collect_points(pts[:n_train], store, "offline", **kw)
+    train_rows = store.load_latest_snapshot()
+    hold_rows = store.load_latest_snapshot(holdout=True)
+    log(f"(a) collect_points: {got}; ingest_local_folder(holdout=True): "
+        f"{ingested} images; snapshots: {len(train_rows)} training rows, "
+        f"{len(hold_rows)} holdout rows; the same points again: {again}")
+    if (got != {"collected": n_train, "failed": 0, "batches": 1}
+            or ingested != 4 * STORE_HOLDOUT
+            or len(train_rows) != 4 * n_train
+            or len(hold_rows) != 4 * STORE_HOLDOUT
+            or again != {"collected": 0, "failed": 0, "batches": 0}):
+        fail("the collection did not fill the store as expected")
+    return store, folder
+
+
+def _store_sqlite(tmp, store):
+    """(b) build_sqlite_from_snapshot of both snapshots: the snapshot's
+    keys, with the store's bytes."""
+    from geoguessr_ai_torch.data.s3 import image_key
+    from geoguessr_ai_torch.data.sqlite_dataset import load_sqlite_dataset
+
+    dbs = []
+    for holdout in (False, True):
+        db = os.path.join(tmp, f"store_{'holdout' if holdout else 'train'}"
+                          ".sqlite")
+        t0 = time.perf_counter()
+        n = store.build_sqlite_from_snapshot(db, holdout=holdout,
+                                             fetch_threads=16)
+        took = time.perf_counter() - t0
+        rows = {(r.location_id, r.heading): r.image
+                for r in load_sqlite_dataset(db)}
+        snap = store.load_latest_snapshot(holdout)
+        same = (n == len(snap) == len(rows)
+                and set(rows) == {(r["location_id"], r["heading"])
+                                  for r in snap}
+                and all(blob == store.read_bytes(image_key(*key))
+                        for key, blob in rows.items()))
+        log(f"(b) build_sqlite_from_snapshot(holdout={holdout}): {n} rows "
+            f"in {took:.2f} s; keys and bytes equal to the snapshot's and "
+            f"the store's: {same}")
+        if not same:
+            fail(f"the SQLite built from the {'holdout' if holdout else 'training'}"
+                 " snapshot differs from it")
+        dbs.append(db)
+    return dbs
+
+
+def _store_run(label, run):
+    """Runs ``run()`` (a train() call) with each train_step timed
+    (synchronised) and the metrics kept; every launch counter at 0 first;
+    fails unless K1-K5 launched exactly STORE_STEPS steps' and one
+    validation forward's counts and no other kernel ran.  Returns
+    (summary, recorder, step ms, wall s, peak GB, K1-K5 launches)."""
+    from geoguessr_ai_torch.train import coordinator
+
+    times, recorders = [], []
+    real_step, real_logger = coordinator.train_step, coordinator.MetricsLogger
+
+    def timed_step(*a, **k):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = real_step(*a, **k)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    coordinator.train_step = timed_step
+    coordinator.MetricsLogger = lambda **kw: (
+        recorders.append(_TrainRecorder()) or recorders[-1])
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_all_launches()
+    try:
+        t0 = time.perf_counter()
+        summary = run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        coordinator.train_step = real_step
+        coordinator.MetricsLogger = real_logger
+    launches = _expect_launches(label, STORE_STEPS, 1)
+    total = _ft_kernel_total()
+    if total != sum(launches.values()):
+        fail(f"{label}: {total - sum(launches.values())} launches of kernels "
+             "other than K1-K5")
+    # prefetch_to_device asks for batch k + 2 before step k, so with
+    # three batches every fetch and decode falls before the first step:
+    # the time to it holds the data path, the loop p50 none of it
+    first = next(t for t, _, m in recorders[0].rows if "train/loss" in m)
+    return (summary, recorders[0], times, (wall, first - t0),
+            torch.cuda.max_memory_allocated() / 1e9, launches)
+
+
+def _store_train(tmp, store, dbs, loop_p50_ms):
+    """(c) main_streaming at full width against train() on (b)'s SQLites."""
+    import hashlib
+
+    from geoguessr_ai_torch import config as C
+    from geoguessr_ai_torch.data.s3 import image_key
+    from geoguessr_ai_torch.data.sqlite_dataset import (
+        load_sqlite_panorama_dataset,
+    )
+    from geoguessr_ai_torch.geocells.manager import CentroidTable
+    from geoguessr_ai_torch.train.coordinator import main_streaming, train
+
+    cfg = _surface_cfg(num_epochs=1)
+    ckpt = os.environ["GEO_TPU_CKPT_DIR"]
+    cwd = os.getcwd()
+    os.chdir(tmp)  # the fetch cache: ./.s3cache
+    try:
+        streamed = _store_run("(c) main_streaming",
+                              lambda: main_streaming(cfg))
+    finally:
+        os.chdir(cwd)
+    table = CentroidTable.load(C.CENTROID_TABLE_PATH)
+    direct = _store_run("(c) train() on the SQLites", lambda: train(
+        cfg, load_sqlite_panorama_dataset(dbs[0]),
+        load_sqlite_panorama_dataset(dbs[1]), table))
+    for label, (summary, rec, times, (wall, first), peak, _) in (
+            ("main_streaming", streamed), ("train() on (b)'s SQLite", direct)):
+        log(f"  {label}: losses {', '.join(f'{x:.6f}' for x in rec.losses())}"
+            f", val_loss {summary.get('val_loss', float('nan')):.6f}; "
+            f"train_step (synchronised) {', '.join(f'{t:.2f}' for t in times)}"
+            f" ms, p50 {float(np.median(times)):.2f}; loop p50 "
+            f"{rec.loop_p50_ms():.2f} ms; to the end of the first step "
+            f"{first:.2f} s (the state built, the table read, all "
+            f"{STORE_STEPS} batches fetched and decoded); {wall:.2f} s in "
+            f"all; peak device memory {peak:.3f} GB")
+    log(f"  phase 8's train() loop p50 {loop_p50_ms:.2f} ms (SQLite-free "
+        "fixture records)")
+    got, want = streamed[1].losses(), direct[1].losses()
+    vals = [s[0].get("val_loss", float("nan")) for s in (streamed, direct)]
+    if (len(got) != STORE_STEPS or not np.allclose(
+            got + vals[:1], want + vals[1:], rtol=RESUME_LOSS_RTOL, atol=0.0)):
+        fail(f"main_streaming's losses {got} (val {vals[0]}) differ from "
+             f"train()'s on the SQLites {want} (val {vals[1]}) beyond "
+             f"{RESUME_LOSS_RTOL}")
+    keys = {image_key(r["location_id"], r["heading"])
+            for h in (False, True) for r in store.load_latest_snapshot(h)}
+    cache = os.path.join(tmp, ".s3cache")
+    files = sorted(os.listdir(cache))
+    want_files = sorted(hashlib.sha1(k.encode()).hexdigest() for k in keys)
+    names = sorted(os.listdir(ckpt))
+    log(f"  fetch cache: {len(files)} files for the {len(keys)} image keys "
+        f"of the training and holdout snapshots (one a key: "
+        f"{files == want_files}); {ckpt}: {names}")
+    if files != want_files:
+        fail("the fetch cache does not hold exactly one file a snapshot key")
+    if not {"last", "best"} <= set(names):
+        fail(f"main_streaming left {names} in GEO_TPU_CKPT_DIR")
+    return ckpt, streamed[0], {k: streamed[5][k] + direct[5][k]
+                               for k in streamed[5]}
+
+
+def _store_registry(tmp, store, ckpt, db, summary):
+    """(d) the registry: run_benchmark on the N-th newest checkpoint
+    against run_benchmark on the directory; index 1 the older upload."""
+    from geoguessr_ai_torch.data.s3 import download_nth_model_checkpoint
+    from geoguessr_ai_torch.run_benchmark import run_benchmark
+
+    best = os.path.join(ckpt, "best")
+    first = store.upload_model_checkpoint(best)
+    records = []
+    for kw in (dict(clip_checkpoint_index=0), dict(checkpoint=best)):
+        out = os.path.join(tmp, f"bench_{len(records)}.json")
+        t0 = time.perf_counter()
+        run_benchmark(num_samples=BENCH_SAMPLES, sqlite_path=db,
+                      output_path=out, **kw)
+        log(f"(d) run_benchmark({', '.join(kw)}) in "
+            f"{time.perf_counter() - t0:.2f} s")
+        with open(out) as f:
+            records.append(json.load(f))
+    same = records[0] == records[1]
+    log(f"  registry checkpoint {first}: {len(records[0]) - 1} guesses equal "
+        f"to those of the directory bit for bit: {same}")
+    if not same or len(records[0]) < 2:
+        fail("run_benchmark on the registry's checkpoint differs from "
+             "run_benchmark on the checkpoint directory")
+    while time.strftime("%Y%m%dT%H%M%S") == first.split("=")[-1]:
+        time.sleep(0.05)  # a new second: a new registry prefix
+    note = os.path.join(tmp, "run_summary.json")
+    with open(note, "w") as f:
+        json.dump({k: v for k, v in summary.items()
+                   if isinstance(v, (int, float, str))}, f)
+    second = store.upload_model_checkpoint(note)
+    runs = store.list_model_checkpoints()
+    newest = download_nth_model_checkpoint(0, os.path.join(tmp, "nth0"))
+    older = download_nth_model_checkpoint(1, os.path.join(tmp, "nth1"))
+    ok = (runs == [second.split("/")[-1], first.split("/")[-1]]
+          and os.listdir(newest) == ["run_summary.json"]
+          and os.listdir(older) == ["state.pt"]
+          and open(os.path.join(older, "state.pt"), "rb").read()
+          == open(os.path.join(best, "state.pt"), "rb").read())
+    log(f"  two uploads: {runs}; index 0 {os.listdir(newest)}, index 1 "
+        f"{os.listdir(older)} (best's state.pt bit for bit): {ok}")
+    if not ok:
+        fail("the registry does not give the older upload at index 1")
+
+
+def _store_streams(tmp, store, hold_db):
+    """(e) PanoramaStream over the holdout snapshot against
+    PanoramaBatchIterator over the same rows, and the host rates."""
+    from geoguessr_ai_torch.data.pipeline import PanoramaBatchIterator
+    from geoguessr_ai_torch.data.sqlite_dataset import (
+        load_sqlite_panorama_dataset,
+    )
+    from geoguessr_ai_torch.data.streaming import PanoramaStream
+
+    cache = os.path.join(tmp, "stream_cache")
+    passes, rates = {}, {}
+    for name in ("cold", "warm"):
+        t0 = time.perf_counter()
+        passes[name] = list(PanoramaStream(store, 512, holdout=True,
+                                           cache_dir=cache))
+        rates[f"stream, cache {name}"] = (len(passes[name])
+                                          / (time.perf_counter() - t0))
+    rows = load_sqlite_panorama_dataset(hold_db)
+    t0 = time.perf_counter()
+    batches = list(PanoramaBatchIterator(rows, SURFACE_BATCH, 512,
+                                         decode_threads=8))
+    rates[f"SQLite iterator B={SURFACE_BATCH}, 8 threads"] = (
+        sum(b["num_real"] for b in batches) / (time.perf_counter() - t0))
+    views = np.concatenate([b["pixel_values"][:b["num_real"]]
+                            for b in batches])
+    ids = [i for b in batches for i in b["location_id"][:b["num_real"]]]
+    same = (len(passes["cold"]) == len(views) == STORE_HOLDOUT
+            and ids == [t["location_id"] for _, t in passes["cold"]]
+            and all(np.array_equal(v, w) and np.array_equal(v, u)
+                    for (v, _), (u, _), w in zip(passes["cold"],
+                                                 passes["warm"], views)))
+    log(f"(e) PanoramaStream over the holdout snapshot against "
+        f"PanoramaBatchIterator over its SQLite rows: {len(views)} "
+        f"panoramas bitwise equal: {same}; host panos/s at 512 px: "
+        + "; ".join(f"{k} {v:.2f}" for k, v in rates.items())
+        + f" ({os.cpu_count()} host cores)")
+    if not same:
+        fail("PanoramaStream differs from PanoramaBatchIterator")
+
+
+def _store_random_panorama(tmp, store, folder):
+    """(f) A random holdout panorama, downloaded by seed and by the
+    inference entry point's fallback, served by the TinyViT engine."""
+    import contextlib
+    import io
+
+    from geoguessr_ai_torch import inference
+    from geoguessr_ai_torch.serving.engine import ServingEngine
+
+    engine = ServingEngine(seed=SEED)
+
+    def sources(lat, lon):
+        return [os.path.join(folder, f"streetview_{lat:.6f}_{lon:.6f}_"
+                             f"heading_{h}.jpg") for h in (0, 90, 180, 270)]
+
+    paths, lat, lon = store.download_random_panorama(
+        os.path.join(tmp, "random_pano"), seed=SEED)
+    same = _same_results([engine.predict_images(paths)],
+                         [engine.predict_images(sources(lat, lon))])
+    log(f"(f) download_random_panorama(seed={SEED}): ({lat}, {lon}); the "
+        f"engine's guess bitwise that of the ingested files: {same}")
+    if not same:
+        fail("the downloaded panorama is guessed otherwise than its files")
+    real_fixture, real_engine = inference.fixture_panorama, inference._get_engine
+    inference.fixture_panorama = lambda: []
+    inference._get_engine = lambda *a, **k: engine
+    served, predict = [], engine.predict_images
+    engine.predict_images = lambda p: served.append(predict(p)) or served[-1]
+    out = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(out):
+            inference.main([])
+    finally:
+        inference.fixture_panorama = real_fixture
+        inference._get_engine = real_engine
+        engine.predict_images = predict
+    printed = out.getvalue().split()
+    got = sorted(glob.glob(os.path.join(tempfile.gettempdir(),
+                                        "geo_tpu_pano", "heading=*.jpg")))
+    blobs = [open(p, "rb").read() for p in got]
+    match = [sources(r["lat"], r["lon"])
+             for r in store.load_latest_snapshot(holdout=True)
+             if r["heading"] == 0]
+    match = [s for s in match if [open(p, "rb").read() for p in s] == blobs]
+    r = engine.predict_images(match[0]) if len(match) == 1 else None
+    ok = (r is not None and _same_results(served, [r]) and len(served) == 1
+          and printed == [f"{r.lat:.6f}", f"{r.lon:.6f}"])
+    log(f"  inference with no images and no fixture: printed {printed}; its "
+        f"guess (embedding included) bitwise that of the ingested files of "
+        f"the one panorama whose bytes it downloaded: {ok}")
+    if not ok:
+        fail("the inference fallback's guess is not that of the panorama it "
+             "downloaded")
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def phase_store(paths, loop_p50_ms):
+    """Phase 32; returns K1-K5's launches in its two train runs."""
+    from geoguessr_ai_torch import config as C
+
+    t0 = time.perf_counter()
+    saved = {k: os.environ.get(k) for k in ("GEO_TPU_STORE_URL",
+                                            "GEO_TPU_CKPT_DIR")}
+    saved_ckpt, saved_tmp = C.CHECKPOINT_DIR, tempfile.tempdir
+    with tempfile.TemporaryDirectory() as tmp:
+        os.environ["GEO_TPU_STORE_URL"] = f"file://{tmp}/bucket"
+        os.environ["GEO_TPU_CKPT_DIR"] = C.CHECKPOINT_DIR = os.path.join(
+            tmp, "ckpt")
+        tempfile.tempdir = os.path.join(tmp, "tmp")
+        os.makedirs(tempfile.tempdir)
+        try:
+            store, folder = _store_collect(tmp, paths)
+            dbs = _store_sqlite(tmp, store)
+            ckpt, summary, launches = _store_train(tmp, store, dbs,
+                                                   loop_p50_ms)
+            _store_registry(tmp, store, ckpt, dbs[0], summary)
+            _store_streams(tmp, store, dbs[1])
+            _store_random_panorama(tmp, store, folder)
+        finally:
+            for k, v in saved.items():
+                if v is None:
+                    os.environ.pop(k, None)
+                else:
+                    os.environ[k] = v
+            C.CHECKPOINT_DIR, tempfile.tempdir = saved_ckpt, saved_tmp
+    gc.collect()
+    torch.cuda.empty_cache()
+    took = time.perf_counter() - t0
+    log(f"phase 32 in {took:.1f} s (limit {STORE_PHASE_S:.0f} s)")
+    if took > STORE_PHASE_S:
+        fail(f"phase 32 took {took:.1f} s, over its {STORE_PHASE_S:.0f} s")
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# Phase 33: the kernels line
 # ---------------------------------------------------------------------------
 
 
@@ -5206,6 +5662,7 @@ def main():
     surface_launches = phase_train_surface(paths, train_loop_p50)
     clip_train_launches = phase_clip_train(paths)
     finetune_launches, finetune_rows = phase_finetune(paths)
+    store_launches = phase_store(paths, train_loop_p50)
 
     main_case = {"K1": "stage1", "K2": "stage2", "K3": "stage3",
                  "K4": "stage1", "K5": "stage2"}
@@ -5225,6 +5682,7 @@ def main():
                          + static_launches.get(k, 0)
                          + guess_launches.get(k, 0)
                          + surface_launches.get(k, 0)
+                         + store_launches.get(k, 0)
                          + (finetune_launches if k == "K4" else 0)),
             "max_abs_err": row["max_abs_err"], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],

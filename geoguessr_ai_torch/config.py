@@ -55,6 +55,9 @@ CENTROID_TABLE_PATH = os.environ.get(
 CHECKPOINT_DIR = os.environ.get(
     "GEO_TPU_CKPT_DIR", os.path.join(REPO_ROOT, "checkpoints")
 )
+#: The object store's bucket (``data.s3.ObjectStore`` opens
+#: ``s3://{S3_BUCKET}`` unless ``GEO_TPU_STORE_URL`` names another store).
+S3_BUCKET = os.environ.get("GEO_TPU_S3_BUCKET", "cogito-geoguessr")
 
 
 def resolve_device(device=None):

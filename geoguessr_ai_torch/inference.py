@@ -5,9 +5,12 @@
         [--centroid-table PATH] [--device cuda|cpu]
 
 With no images it uses the bundled fixture panorama
-(tests/fixtures/heading=*.jpg).  Without ``--checkpoint`` the weights are
-seeded random; a checkpoint is a reference ``.pt`` file or a directory of
-the port's CheckpointStore (``train()`` writes ``RUN/best``, ``RUN/last``).
+(tests/fixtures/heading=*.jpg), and without that a random holdout
+panorama of the object store (``data.s3.download_random_panorama``: the
+store at ``GEO_TPU_STORE_URL``, else the S3 bucket).  Without
+``--checkpoint`` the weights are seeded random; a checkpoint is a
+reference ``.pt`` file or a directory of the port's CheckpointStore
+(``train()`` writes ``RUN/best``, ``RUN/last``).
 A checkpoint's cell order travels with its own centroid
 table: ``MODEL.pt_centroids.npz`` beside it is used when
 ``--centroid-table`` is not given.
@@ -110,9 +113,18 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
                     help="cuda (the default) or cpu")
     args = ap.parse_args(argv)
     logging.basicConfig(level=logging.INFO, format="%(message)s")
-    paths = args.images or fixture_panorama()
-    if not args.images:
-        logger.info("no images supplied; using the bundled fixture panorama")
+    paths = args.images
+    if not paths:
+        paths = fixture_panorama()
+        if len(paths) >= 4:
+            logger.info("no images supplied; using the bundled fixture "
+                        "panorama")
+        else:
+            from geoguessr_ai_torch.data.s3 import download_random_panorama
+
+            logger.info("no images supplied and no fixture panorama; "
+                        "fetching a random panorama from the object store")
+            paths = download_random_panorama()
     lat, lon, _, _ = run_inference(
         paths, backbone=args.backbone, use_refiner=args.use_refiner,
         device=args.device, centroid_table=args.centroid_table,

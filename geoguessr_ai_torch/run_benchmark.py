@@ -3,8 +3,9 @@ the repo's root run_benchmark.py).
 
     python -m geoguessr_ai_torch.run_benchmark [--num-samples N]
         [--sqlite-path PATH] [--output-path PATH] [--backbone tinyvit|clip]
-        [--checkpoint MODEL.pt] [--centroid-table PATH] [--batch-size B]
-        [--seed S] [--device cuda|cpu]
+        [--checkpoint MODEL.pt | --clip-checkpoint-index N]
+        [--centroid-table PATH] [--batch-size B] [--seed S]
+        [--device cuda|cpu]
 
 Samples N panoramas from the test split (the last 10 %, unshuffled) with
 numpy's ``default_rng(seed)``, predicts them in batches through one
@@ -68,18 +69,20 @@ def run_benchmark(
     """Returns the summary record (also appended to the output JSON).
 
     ``sqlite_path`` None: ``train.coordinator.discover_sqlite``.
-    ``checkpoint``: a ``.pt`` file, served with the centroid table given,
-    else its ``_centroids.npz`` sidecar.  ``clip_checkpoint_index`` (the
-    N-th newest checkpoint of the object-store registry) is not ported.
+    ``checkpoint``: a ``.pt`` file or a checkpoint directory, served with
+    the centroid table given, else its ``_centroids.npz`` sidecar.
+    ``clip_checkpoint_index``: with no ``checkpoint``, the N-th newest
+    checkpoint of the object store's registry (0 the newest;
+    ``data.s3.download_nth_model_checkpoint``), downloaded and served.
     """
-    if checkpoint is None and clip_checkpoint_index is not None:
-        raise NotImplementedError(
-            "clip_checkpoint_index (the object-store checkpoint registry) is "
-            "not ported yet (ROADMAP Queue 1 item 8); pass --checkpoint")
     if sqlite_path is None:
         from geoguessr_ai_torch.train.coordinator import discover_sqlite
 
         sqlite_path = discover_sqlite()
+    if checkpoint is None and clip_checkpoint_index is not None:
+        from geoguessr_ai_torch.data.s3 import download_nth_model_checkpoint
+
+        checkpoint = download_nth_model_checkpoint(clip_checkpoint_index)
     sample = sample_panoramas(load_sqlite_panorama_dataset(sqlite_path),
                               num_samples, seed)
     centroid_table = checkpoint_centroid_table(checkpoint, centroid_table,
@@ -124,7 +127,9 @@ def run_benchmark(
 def main(argv: Optional[Sequence[str]] = None) -> None:
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("--num-samples", type=int, default=100)
-    ap.add_argument("--clip-checkpoint-index", type=int, default=None)
+    ap.add_argument("--clip-checkpoint-index", type=int, default=None,
+                    help="serve the N-th newest checkpoint of the object "
+                    "store's registry (0 the newest)")
     ap.add_argument("--sqlite-path", default=None)
     ap.add_argument("--output-path", default=DEFAULT_OUTPUT)
     ap.add_argument("--backbone", default="tinyvit",

@@ -8,17 +8,17 @@ resume (``train.checkpoints``), early stopping and a returned summary.
 tower's last layer and ``post_layernorm``, trainable
 (``train.state.backbone_freeze_mask``).  ``main`` is the production
 entry: the newest SQLite dataset, split by ``val_fraction``, checkpoints
-under ``CHECKPOINT_DIR``.  A CLIP run's checkpoint directories serve
-through ``ServingEngine(backbone="clip", checkpoint=<run>/best)``.
+under ``CHECKPOINT_DIR``.  ``main_streaming`` trains straight off the
+object store's snapshot (``data.s3``, ``data.streaming``).  A CLIP run's
+checkpoint directories serve through ``ServingEngine(backbone="clip",
+checkpoint=<run>/best)``.
 
 ``discover_sqlite`` finds the newest SQLite dataset.
 
 Not ported, and raising ``NotImplementedError`` when asked for: a mesh of
-more than one device (ROADMAP Queue 1 item 11).  ``main_streaming``
-(training off the object store) waits for the port of ``data/s3.py`` and
-``data/streaming.py`` (item 8).  A single-image model (``panorama=False``)
-is refused with a ValueError, as the JAX ``train()`` fails on it: its
-batch iterators always yield a view axis.
+more than one device (ROADMAP Queue 1 item 11).  A single-image model
+(``panorama=False``) is refused with a ValueError, as the JAX ``train()``
+fails on it: its batch iterators always yield a view axis.
 """
 
 from __future__ import annotations
@@ -39,10 +39,12 @@ from geoguessr_ai_torch.data.pipeline import (
     PanoramaBatchIterator,
     prefetch_to_device,
 )
+from geoguessr_ai_torch.data.s3 import ObjectStore
 from geoguessr_ai_torch.data.sqlite_dataset import (
     load_sqlite_panorama_dataset,
     split_train_val,
 )
+from geoguessr_ai_torch.data.streaming import snapshot_panorama_table
 from geoguessr_ai_torch.geocells.manager import CentroidTable
 from geoguessr_ai_torch.models.clip_vit import CLIPEmbed, CLIPVisionConfig
 from geoguessr_ai_torch.models.super_guessr import SuperGuessr, init_parameters_
@@ -412,6 +414,28 @@ def main(cfg: Optional[TrainConfig] = None, device=None) -> Dict:
     table = CentroidTable.load(C.CENTROID_TABLE_PATH)
     return train(cfg, pano_train, pano_val, table,
                  checkpoint_dir=C.CHECKPOINT_DIR, device=device)
+
+
+def main_streaming(cfg: Optional[TrainConfig] = None, device=None) -> Dict:
+    """``train()`` straight off the object store (``ObjectStore()``: the
+    store at ``GEO_TPU_STORE_URL``, else the S3 bucket): the latest
+    training snapshot's panoramas, fetched through the file cache at
+    ``./.s3cache``, validated on the holdout snapshot; without one, the
+    first 90 % trains and the rest validates (a fixed 0.9, whatever
+    ``cfg.val_fraction`` says, as in the JAX package).  Checkpoints in
+    ``CHECKPOINT_DIR``."""
+    cfg = cfg or TrainConfig()
+    store = ObjectStore()
+    pano_train, fetch_fn = snapshot_panorama_table(store)
+    try:
+        pano_val, _ = snapshot_panorama_table(store, holdout=True)
+    except FileNotFoundError:
+        n_train = int(len(pano_train) * 0.9)
+        pano_train, pano_val = pano_train[:n_train], pano_train[n_train:]
+    table = CentroidTable.load(C.CENTROID_TABLE_PATH)
+    return train(cfg, pano_train, pano_val, table,
+                 checkpoint_dir=C.CHECKPOINT_DIR, fetch_fn=fetch_fn,
+                 device=device)
 
 
 if __name__ == "__main__":

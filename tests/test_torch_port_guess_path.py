@@ -1078,7 +1078,8 @@ def test_create_app_needs_fastapi():
 # ---------------------------------------------------------------------------
 
 
-def test_deferred_parts_raise_citing_their_roadmap_item(tmp_path):
+def test_deferred_parts_raise_citing_their_roadmap_item(tmp_path,
+                                                        monkeypatch):
     from geoguessr_ai_torch import run_benchmark as rb
     from geoguessr_ai_torch.config import ModelConfig, TrainConfig
     from geoguessr_ai_torch.train import coordinator
@@ -1087,7 +1088,11 @@ def test_deferred_parts_raise_citing_their_roadmap_item(tmp_path):
     orbax_dir.mkdir()
     with pytest.raises(NotImplementedError, match="orbax"):
         _tiny_engine(_table(), checkpoint=str(orbax_dir))
-    with pytest.raises(NotImplementedError, match="registry.*item 8"):
+    # since the object-store slice the registry is ported: the default
+    # store is the S3 bucket, which needs s3fs, and nothing falls back
+    # (tests/test_torch_port_store.py serves a registry checkpoint)
+    monkeypatch.delenv("GEO_TPU_STORE_URL", raising=False)
+    with pytest.raises(ImportError, match="s3fs"):
         rb.run_benchmark(clip_checkpoint_index=0, sqlite_path="unused")
     # since the train slice, both models build; train() refuses the
     # single-image one (tests/test_torch_port_train_loop.py)

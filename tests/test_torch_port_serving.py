@@ -315,7 +315,13 @@ def test_port_imports_no_jax_flax_or_the_jax_package():
             "geoguessr_ai_torch/tools/build_centroid_table.py",
             "geoguessr_ai_torch/tools/build_prototype_bank.py",
             "geoguessr_ai_torch/geo/polygon.py",
-            "geoguessr_ai_torch/data/preprocessing.py"} <= rel
+            "geoguessr_ai_torch/data/preprocessing.py",
+            "geoguessr_ai_torch/data/s3.py",
+            "geoguessr_ai_torch/data/streaming.py",
+            "geoguessr_ai_torch/acquisition/street_view.py",
+            "geoguessr_ai_torch/acquisition/sampling.py",
+            "geoguessr_ai_torch/acquisition/collect.py",
+            "geoguessr_ai_torch/tools/upload_checkpoint.py"} <= rel
     # the one exception, as in the JAX package: the Parquet writer imports
     # pandas inside itself
     pandas_ok = ("geoguessr_ai_torch/train/finetune_tinyvit.py",
@@ -371,6 +377,13 @@ def test_serving_engine_imports_with_jax_blocked():
         "import geoguessr_ai_torch.tools.build_centroid_table\n"
         "import geoguessr_ai_torch.tools.build_prototype_bank\n"
         "import geoguessr_ai_torch.data.preprocessing\n"
+        "import geoguessr_ai_torch.data.s3\n"
+        "import geoguessr_ai_torch.data.streaming\n"
+        "import geoguessr_ai_torch.acquisition.street_view\n"
+        "import geoguessr_ai_torch.acquisition.sampling\n"
+        "import geoguessr_ai_torch.acquisition.collect\n"
+        "import geoguessr_ai_torch.tools.upload_checkpoint\n"
+        "from geoguessr_ai_torch.train.coordinator import main_streaming\n"
         "from geoguessr_ai_torch.train import clip_bpe\n"
         "ids = clip_bpe.load_default_tokenizer(16)(['x² ½ ٣ İstanbul'])\n"
         "assert ids.shape == (1, 16), ids.shape\n"
