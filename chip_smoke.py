@@ -251,7 +251,25 @@ Phases, in order; any failure exits non-zero:
     bitwise as the ingested files, and the inference entry point's
     fallback (no images, no fixture) printing the guess of the panorama it
     downloaded; the phase under 60 s;
-33. print the kernel JSON line, then ``{"ok": true, "device": ...}`` last.
+33. two ranks on the one card over gloo (``parallel.launch``, a
+    ``file://`` rendezvous; NCCL refuses two ranks on one device), each
+    driving the full-width TinyViT-21M-512 (seeded weights): (a) MESH_STEPS
+    data-axis ``train_step``s of its 8 panoramas of the 16-panorama
+    fixture batch with the launch counters at 0 first: K1-K5 exactly
+    LAUNCHES_PER_TRAIN_STEP a step and no other kernel, each step's loss
+    equal on both ranks and within TRAIN_LOSS_RTOL of one process's on
+    the whole batch on the same card, the first step's averaged gradient
+    at cosine >= TRAIN_GRAD_MIN_COSINE to one process's in every
+    top-level module, BatchNorm's running statistics bitwise equal across
+    the ranks; the gradient all-reduce timed alone; (b) a dp=2
+    ``Embedder`` (``bulk_embed_config()``) over 2 x 64 seeded images
+    against one process's at cosine >= 0.999 a row; (c) one model-axis
+    step (mp=2: the cell layer split, fc1 / fc2 a Megatron pair, qkv /
+    proj gathered before K1-K3; all collectives are all-reduces, which
+    gloo carries on CUDA tensors) at B=4 with exact launches, against one
+    process under (a)'s gates; the phase under 60 s.  Its times are two
+    ranks sharing one card, not a multi-card measurement;
+34. print the kernel JSON line, then ``{"ok": true, "device": ...}`` last.
 
 Times: ``kernel_ms`` times a kernel or a library call by 10 (or 50)
 launches between two CUDA events; where that reads under SHORT_MS (0.5
@@ -5616,7 +5634,304 @@ def phase_store(paths, loop_p50_ms):
 
 
 # ---------------------------------------------------------------------------
-# Phase 33: the kernels line
+# Phase 33: two ranks on one card (parallel/mesh.py over gloo)
+# ---------------------------------------------------------------------------
+
+#: The global batch of the data-axis steps (8 panoramas a rank) and of the
+#: one-process reference; the model-axis step's batch (every rank the
+#: whole of it: two full-width ranks of B=16 would not fit on one card),
+#: which runs in f32 (K1-K5's f32 twins): its split GEMMs round in another
+#: order, and a bf16 step's gradient moves by that through the batch
+#: statistics (below phase 9's 0.99 in a CPU rehearsal at narrow widths),
+#: while in f32 it is held to phase 26's gates.
+MESH_BATCH = 16
+MESH_STEPS = 3
+MESH_MP_BATCH = 4
+MESH_EMBED_IMAGES = 128
+MESH_EMBED_MIN_COSINE = 0.999
+MESH_PHASE_S = 60.0
+
+
+def _mesh_launches():
+    """K1-K5's launches since the last reset, and every other launch of
+    the TinyViT, CLIP and MBConv kernels."""
+    from geoguessr_ai_torch.ops import clip_attention as ca
+    from geoguessr_ai_torch.ops import mbconv
+    from geoguessr_ai_torch.ops import window_attention as wa
+
+    k1_5 = {k: wa.LAUNCHES[m[0]] for k, m in ALL_META.items()}
+    total = sum(sum(mod.LAUNCHES.values()) for mod in (wa, mbconv, ca))
+    return k1_5, total - sum(k1_5.values())
+
+
+def _mesh_embed_images():
+    return np.random.default_rng(SEED).integers(
+        0, 256, (MESH_EMBED_IMAGES, 512, 512, 3), dtype=np.uint8)
+
+
+def _mesh_steps(state, batch, centroids, steps, mesh=None):
+    """``steps`` train_steps on ``batch``: (losses, grad norms, the first
+    step's gradients on the host, each step's synchronised ms)."""
+    from geoguessr_ai_torch.train.steps import train_step
+
+    first = {}
+    real = state.optimizer.step
+
+    def capture(params, g, **kw):
+        if not first:
+            first.update({n: t.detach().float().cpu() for n, t in g.items()})
+        return real(params, g, **kw)
+
+    state.optimizer.step = capture
+    losses, norms, ms = [], [], []
+    for _ in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, metrics = train_step(state, batch, centroids, mesh=mesh)
+        losses.append(float(metrics["loss"]))
+        norms.append(float(metrics["grad_norm"]))
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    state.optimizer.step = real
+    return losses, norms, first, ms
+
+
+def _mesh_rank(out):
+    """One rank of phase 33, started by ``parallel.launch`` on cuda:0 over
+    gloo: its data-axis state, its model-axis state (f32) and its
+    ``Embedder`` built, then (once ``out/go`` exists) MESH_STEPS data-axis
+    train_steps of its half of the fixture batch at full width with the
+    launch counters at 0 first, the gradient all-reduce timed alone, a
+    dp=2 ``Embedder`` call and one model-axis step; writes what it saw to
+    ``out/rank<r>.pt``."""
+    import torch.distributed as dist
+
+    from geoguessr_ai_torch.config import BackboneConfig, MeshConfig
+    from geoguessr_ai_torch.data.embed_builder import (
+        Embedder,
+        bulk_embed_config,
+    )
+    from geoguessr_ai_torch.parallel.mesh import batch_slice, create_mesh
+    from geoguessr_ai_torch.train.fixtures import fixture_train_setup
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    rank = dist.get_rank()
+    res = {}
+    dp = create_mesh(MeshConfig(data_parallel=2), device=dev)
+    mp = create_mesh(MeshConfig(data_parallel=1, model_parallel=2),
+                     device=dev)
+    state, batch, centroids = fixture_train_setup(MESH_BATCH, device=dev,
+                                                  seed=SEED, mesh=dp)
+    local = batch_slice(batch, dp)
+    mp_state, mp_batch, _ = fixture_train_setup(
+        MESH_MP_BATCH, device=dev, seed=SEED, dtype="float32", mesh=mp)
+    emb = Embedder(BackboneConfig.tinyvit(), device=dev,
+                   model_config=bulk_embed_config(), seed=SEED, mesh=dp)
+    images = _mesh_embed_images()
+    go = os.path.join(out, "go")
+    deadline = time.monotonic() + 2 * MESH_PHASE_S
+    while not os.path.exists(go):  # the one-process references are done
+        if time.monotonic() > deadline:
+            raise TimeoutError("phase 33's one-process references never ended")
+        time.sleep(0.05)
+
+    _reset_all_launches()
+    res["losses"], res["grad_norms"], grads, res["step_ms"] = _mesh_steps(
+        state, local, centroids, MESH_STEPS, dp)
+    res["launches"], res["other_launches"] = _mesh_launches()
+    res["bn"] = {n: b.detach().cpu().clone()
+                 for n, b in state.model.named_buffers()
+                 if n.endswith(("running_mean", "running_var"))}
+    if rank == 0:
+        res["grads"] = grads
+    # what each step all-reduces: one f32 gradient a parameter
+    flat = [torch.zeros_like(p) for p in state.model.parameters()]
+    res["allreduce_numel"] = sum(t.numel() for t in flat)
+    res["allreduce_ms"] = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        dp.average_gradients(flat)
+        torch.cuda.synchronize()
+        res["allreduce_ms"].append((time.perf_counter() - t0) * 1e3)
+    del state, batch, local, grads, flat
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    res["embed"] = emb(images)
+    del emb
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    res["mp_cell_layer"] = tuple(mp_state.model.cell_layer.weight.shape)
+    _reset_all_launches()
+    res["mp_losses"], _, mp_grads, res["mp_step_ms"] = _mesh_steps(
+        mp_state, mp_batch, centroids, 1, mp)
+    res["mp_launches"], res["mp_other_launches"] = _mesh_launches()
+    mp_grads = mp.unshard(mp_grads)  # a collective: both ranks
+    if rank == 0:
+        res["mp_grads"] = mp_grads
+    torch.save(res, os.path.join(out, f"rank{rank}.pt"))
+
+
+def _mesh_gates(label, got_loss, want_loss, got, want,
+                loss_rtol=TRAIN_LOSS_RTOL, min_cos=TRAIN_GRAD_MIN_COSINE):
+    """A card step against another card step (by default phase 9's gates):
+    the loss within ``loss_rtol``, every top-level module's gradient at
+    cosine >= ``min_cos``; returns what fails."""
+    rel = abs(got_loss - want_loss) / abs(want_loss)
+    log(f"  {label}: loss {got_loss:.8f} vs one process {want_loss:.8f} "
+        f"(rel {rel:.3g}, <= {loss_rtol})")
+    bad = [] if rel <= loss_rtol else [f"{label} loss"]
+    worst = (1.0, "")
+    for mod in sorted({_top_module(n) for n in want}):
+        names = [n for n in want if _top_module(n) == mod]
+        cos = _cosine(torch.cat([got[n].flatten() for n in names]),
+                      torch.cat([want[n].flatten() for n in names]))
+        worst = min(worst, (cos, mod))
+        if cos < min_cos:
+            bad.append(f"{label} grad {mod} cosine {cos:.8f}")
+    log(f"  {label}: lowest module gradient cosine {worst[0]:.8f} "
+        f"({worst[1]}; >= {min_cos})")
+    return bad
+
+
+def _mesh_references():
+    """One process's side of phase 33 on the card, on the ranks' seeded
+    inputs: (the MESH_STEPS losses, the first step's gradients and the
+    steps' ms at MESH_BATCH; the f32 step's loss and gradients at
+    MESH_MP_BATCH with the cell count; the Embedder's rows)."""
+    from geoguessr_ai_torch.config import BackboneConfig
+    from geoguessr_ai_torch.data.embed_builder import (
+        Embedder,
+        bulk_embed_config,
+    )
+    from geoguessr_ai_torch.train.fixtures import fixture_train_setup
+
+    state, batch, centroids = fixture_train_setup(MESH_BATCH, seed=SEED)
+    dp = _mesh_steps(state, batch, centroids, MESH_STEPS)
+    del state, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    state, batch, centroids = fixture_train_setup(MESH_MP_BATCH, seed=SEED,
+                                                  dtype="float32")
+    mp = _mesh_steps(state, batch, centroids, 1)
+    cells = state.model.cell_layer.weight.shape[0]
+    del state, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    emb = Embedder(BackboneConfig.tinyvit(), model_config=bulk_embed_config(),
+                   seed=SEED)
+    rows = torch.from_numpy(emb(_mesh_embed_images()))
+    del emb
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dp, mp, cells, rows
+
+
+def phase_mesh():
+    """Phase 33: two ranks sharing the card over gloo (the card's machine
+    has one card; NCCL refuses two ranks on one device).  The ranks start
+    and build their states while this process computes the one-process
+    references on the card; they run their steps once it has freed the
+    card (the ``go`` file).  The numbers are two ranks on one card, not a
+    multi-card measurement."""
+    import threading
+
+    from geoguessr_ai_torch.parallel.launch import spawn
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        failed = []
+
+        def run_ranks():
+            try:
+                spawn("chip_smoke:_mesh_rank", 2,
+                      f"file://{os.path.join(tmp, 'rendezvous')}", [tmp],
+                      cwd=HERE, timeout=3 * MESH_PHASE_S)
+            except RuntimeError as e:
+                failed.append(e)
+
+        ranks_thread = threading.Thread(target=run_ranks)
+        ranks_thread.start()
+        try:
+            (losses, _, grads, ms), (mp_losses, _, mp_grads, _), cells, \
+                want_rows = _mesh_references()
+        finally:
+            with open(os.path.join(tmp, "go"), "w"):
+                pass
+        t_go = time.perf_counter()
+        ranks_thread.join()
+        if failed:
+            fail(f"phase 33: the ranks failed: {failed[0]}")
+        ranks = [torch.load(os.path.join(tmp, f"rank{r}.pt"),
+                            weights_only=False) for r in (0, 1)]
+    refs_s, ranks_s = t_go - t0, time.perf_counter() - t_go
+    bad = []
+    per = LAUNCHES_PER_TRAIN_STEP
+    for r, res in enumerate(ranks):
+        want = {k: n * MESH_STEPS for k, n in per.items()}
+        log(f"  rank {r}: launches over {MESH_STEPS} dp=2 steps "
+            f"{res['launches']} (expected {want}), other kernels "
+            f"{res['other_launches']}; model-axis step {res['mp_launches']}"
+            f" (expected {per}), other {res['mp_other_launches']}")
+        if (res["launches"] != want or res["other_launches"]
+                or res["mp_launches"] != per or res["mp_other_launches"]):
+            bad.append(f"rank {r} launches")
+    bn0, bn1 = ranks[0]["bn"], ranks[1]["bn"]
+    equal = all(torch.equal(bn0[n], bn1[n]) for n in bn0)
+    log(f"  BatchNorm running statistics bitwise equal across the ranks: "
+        f"{equal} ({len(bn0)} buffers)")
+    if not equal:
+        bad.append("running statistics differ between the ranks")
+    for i, (a, b) in enumerate(zip(ranks[0]["losses"], losses)):
+        rel = abs(a - b) / abs(b)
+        log(f"  dp=2 step {i + 1}: loss {a:.6f} (rank 1 "
+            f"{ranks[1]['losses'][i]:.6f}) vs one process {b:.6f}, rel "
+            f"{rel:.3g}")
+        if rel > TRAIN_LOSS_RTOL or ranks[1]["losses"][i] != a:
+            bad.append(f"dp=2 step {i + 1} loss")
+    bad += _mesh_gates("dp=2 step 1", ranks[0]["losses"][0], losses[0],
+                       ranks[0]["grads"], grads)
+    log(f"  model axis: the cell layer's local weight "
+        f"{ranks[0]['mp_cell_layer']} of {cells} cells (ceil(n / 2) rows, "
+        f"rank 1's last padded)")
+    if ranks[0]["mp_cell_layer"][0] != -(-cells // 2):
+        bad.append("the cell layer is not sharded")
+    bad += _mesh_gates(f"mp=2 f32 step (B={MESH_MP_BATCH})",
+                       ranks[0]["mp_losses"][0], mp_losses[0],
+                       ranks[0]["mp_grads"], mp_grads,
+                       F32_TRAIN_LOSS_RTOL, F32_TRAIN_GRAD_MIN_COSINE)
+    worst = min(_cosine(torch.from_numpy(res["embed"][i]), want_rows[i])
+                for res in ranks for i in range(MESH_EMBED_IMAGES))
+    log(f"  dp=2 Embedder over 2 x {MESH_EMBED_IMAGES // 2} images: lowest "
+        f"row cosine to one process {worst:.6f} (>= {MESH_EMBED_MIN_COSINE})")
+    if worst < MESH_EMBED_MIN_COSINE:
+        bad.append("dp=2 Embedder")
+
+    numel = ranks[0]["allreduce_numel"]
+    ar = [float(np.median(res["allreduce_ms"])) for res in ranks]
+    dp_ms = [float(np.median(res["step_ms"][1:])) for res in ranks]
+    took = time.perf_counter() - t0
+    log(f"  two ranks sharing one card over gloo (not a multi-card figure): "
+        f"gradient all-reduce of {numel} f32 ({numel * 4 / 1e6:.1f} MB) "
+        f"p50 {ar[0]:.2f} / {ar[1]:.2f} ms a step (ranks 0 / 1); dp=2 "
+        f"train_step p50 {dp_ms[0]:.2f} / {dp_ms[1]:.2f} ms (8 panoramas a "
+        f"rank) beside one process's {float(np.median(ms[1:])):.2f} ms "
+        f"(16); model-axis f32 step {ranks[0]['mp_step_ms'][0]:.2f} ms")
+    log(f"phase 33 in {took:.1f} s (references {refs_s:.1f} s while the "
+        f"ranks start, then the ranks {ranks_s:.1f} s; limit "
+        f"{MESH_PHASE_S:.0f} s)")
+    if bad:
+        fail(f"phase 33: {bad}")
+    if took > MESH_PHASE_S:
+        fail(f"phase 33 took {took:.1f} s, over its {MESH_PHASE_S:.0f} s")
+
+
+# ---------------------------------------------------------------------------
+# Phase 34: the kernels line
 # ---------------------------------------------------------------------------
 
 
@@ -5663,6 +5978,9 @@ def main():
     clip_train_launches = phase_clip_train(paths)
     finetune_launches, finetune_rows = phase_finetune(paths)
     store_launches = phase_store(paths, train_loop_p50)
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_mesh()
 
     main_case = {"K1": "stage1", "K2": "stage2", "K3": "stage3",
                  "K4": "stage1", "K5": "stage2"}

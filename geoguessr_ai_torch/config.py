@@ -83,8 +83,10 @@ def resolve_device(device=None):
 
 @dataclasses.dataclass(frozen=True)
 class MeshConfig:
-    """Device layout.  The port trains on one device: data_parallel and
-    model_parallel must resolve to 1 (``train.coordinator.train``)."""
+    """Device layout: a (data, model) mesh over the ranks of the process
+    group, one rank a card (``parallel.mesh.create_mesh``).  dp * mp must
+    equal the number of ranks (ValueError otherwise); one process is the
+    1 x 1 mesh."""
 
     data_axis: str = "data"
     model_axis: str = "model"
@@ -221,6 +223,7 @@ class EmbedBuildConfig:
     #: "none" (the backbone's own dtype) or "static" (static-calibrated int8
     #: MLP GEMMs and int8 storage sites, TinyViT only).
     quant_mode: str = "static"
-    #: 0 or 1: one device.  More (or -1, all devices) shards each batch over
-    #: a data-parallel mesh: not ported yet, the builder raises.
+    #: 0 or 1: one device.  More (or -1, all ranks) embeds on a data axis
+    #: over the process group: each rank its share of the rows, one SQLite
+    #: written by rank 0 (``data.embed_builder``).
     data_parallel: int = 0

@@ -11,15 +11,24 @@ default ``EmbedBuildConfig`` embeds through the static-int8 TinyViT
 that turns on K9 and K10 is ``bulk_embed_config()``, passed as
 ``Embedder(model_config=...)``.
 
-Not ported yet, and raising ``NotImplementedError``: a data-parallel mesh
-(``mesh``, ``data_parallel`` > 1; ROADMAP Queue 1 item 11).  The builder
-runs as one process: there is no per-host row sharding.
+On a data axis (``Embedder(mesh=...)``, or ``EmbedBuildConfig.
+data_parallel`` > 1 or -1 over a process group of that many ranks) each
+rank embeds ``host_shard_range`` of the rows, in batches of ``batch_size``
+in lockstep (a rank out of rows runs no forward and sends none), and the
+embeddings are gathered to rank 0 (``Mesh.gather_rows``: ragged shards
+padded for the collective, with their true counts), which alone writes.
+The result is **one** SQLite holding the rows of the one-process build;
+on disk they follow the steps, and within a step the ranks in order
+(rank 0's j-th batch, then rank 1's, ...).  Resume reads the keys already
+present on every rank before anything is written and shards the rows
+left, so a killed build restarts where it stopped whatever the rank count.
 """
 
 from __future__ import annotations
 
 import concurrent.futures as cf
 import dataclasses
+import itertools
 import os
 import queue
 import sqlite3
@@ -30,13 +39,18 @@ import numpy as np
 import torch
 
 from geoguessr_ai_torch import config as C
-from geoguessr_ai_torch.config import BackboneConfig, EmbedBuildConfig
+from geoguessr_ai_torch.config import (
+    BackboneConfig,
+    EmbedBuildConfig,
+    MeshConfig,
+)
 from geoguessr_ai_torch.data.pipeline import ThroughputMeter, decode_jpeg
 from geoguessr_ai_torch.data.sqlite_dataset import (
     create_sqlite_from_records,
     load_sqlite_dataset,
 )
 from geoguessr_ai_torch.ops.preprocess import fused_preprocess
+from geoguessr_ai_torch.parallel.mesh import Mesh, host_shard_range, mesh_for
 from geoguessr_ai_torch.utils.logging import logger
 
 
@@ -70,23 +84,24 @@ class Embedder:
       state_dict: backbone weights (e.g. from ``models.convert``); seeded
         random weights when None.
       seed: seed of the random weights.
-      mesh: data-parallel embedding is not ported yet; must be None.
+      mesh: a data-axis ``parallel.mesh.Mesh``: a call embeds this rank's
+        rows of the batch (``Mesh.eval_rows``) on the mesh's device and
+        returns every rank's, gathered (the JAX Embedder's batch sharding);
+        every rank must call it with the same batch.
     """
 
     def __init__(self, backbone_cfg: BackboneConfig, quant_mode: str = "none",
                  device=None, model_config=None,
                  state_dict: Optional[Dict[str, torch.Tensor]] = None,
-                 seed: int = 0, mesh=None):
+                 seed: int = 0, mesh: Optional[Mesh] = None):
         from geoguessr_ai_torch.models.super_guessr import init_parameters_
         from geoguessr_ai_torch.train.coordinator import build_backbone
 
-        if mesh is not None:
-            raise NotImplementedError(
-                "a data-parallel embedding mesh is not ported yet (ROADMAP "
-                "Queue 1 item 11)")
         self.quant_mode = quant_mode if backbone_cfg.name == "tinyvit" \
             else "none"
-        self.device = C.resolve_device(device)
+        self.mesh = mesh
+        self.device = (C.resolve_device(device) if mesh is None
+                       else mesh.device)
         self._cal_config = None
         if self.quant_mode == "static":
             model_config, self._cal_config = static_config(model_config)
@@ -143,14 +158,30 @@ class Embedder:
         self.model.act_scales = {k: v.to(self.device)
                                  for k, v in stats.items()}
 
+    @property
+    def needs_calibration(self) -> bool:
+        return self._cal_config is not None and not self.model.act_scales
+
     @torch.inference_mode()
-    def __call__(self, images_u8: np.ndarray) -> np.ndarray:
-        if self._cal_config is not None and not self.model.act_scales:
+    def embed_local(self, images_u8: np.ndarray) -> torch.Tensor:
+        """This process's images embedded: (B, embed_dim) f32 on the
+        device, with no collective (a static Embedder calibrates on them
+        first)."""
+        if self.needs_calibration:
             self._calibrate(images_u8)
         x = torch.from_numpy(np.ascontiguousarray(images_u8)).to(self.device)
         x = fused_preprocess(x, *self._norm, self.image_size,
                              dtype=self.model.config.dtype)
-        return self.model(x).float().cpu().numpy()
+        return self.model(x).float()
+
+    def __call__(self, images_u8: np.ndarray) -> np.ndarray:
+        if self.mesh is None:
+            return self.embed_local(images_u8).cpu().numpy()
+        if self.needs_calibration:  # on the batch's first images, as one
+            self._calibrate(images_u8)  # process calibrates
+        mine = self.embed_local(images_u8[self.mesh.eval_rows(
+            images_u8.shape[0])])
+        return self.mesh.gather_rows(mine).cpu().numpy()
 
 
 def static_config(model_config=None):
@@ -206,6 +237,9 @@ def build_embedding_sqlite(
     predecoded=True decodes the whole source up front and then streams
     in-memory batches, so that the device-limited rate is measurable on a
     host with few cores.
+
+    On a data axis (the module docstring) every rank calls this with the
+    same arguments, and each returns the rows written by rank 0.
     """
     rows = load_sqlite_dataset(src_sqlite)
     if limit:
@@ -221,35 +255,55 @@ def build_embedding_sqlite(
             rows = keep
     total = len(rows)
     if embedder is None:
+        mesh = None
         if cfg.data_parallel not in (0, 1):
-            raise NotImplementedError(
-                f"data_parallel={cfg.data_parallel}: a data-parallel "
-                "embedding mesh is not ported yet (ROADMAP Queue 1 item 11)")
-        embedder = Embedder(cfg.backbone, quant_mode=cfg.quant_mode)
+            mesh = mesh_for(MeshConfig(data_parallel=cfg.data_parallel))
+        embedder = Embedder(cfg.backbone, quant_mode=cfg.quant_mode,
+                            mesh=mesh)
+    mesh = embedder.mesh
+    B = cfg.batch_size
+    size = embedder.image_size
+    if mesh is None:
+        shards = [(0, total)]
+    else:
+        mesh.barrier()  # nobody writes before every rank has read the keys
+        shards = [host_shard_range(total, r, mesh.dp)
+                  for r in range(mesh.dp)]
+        if total and embedder.needs_calibration:
+            # the first batch's first images (zeros past the last row), as
+            # one process calibrates: every rank gets the same scales
+            head = np.zeros((min(8, B), size, size, 3), np.uint8)
+            for i, r in enumerate(rows[:len(head)]):
+                head[i] = decode_jpeg(r.image, size)
+            embedder._calibrate(head)
+    lo, hi = shards[0 if mesh is None else mesh.data_index]
+    steps = -(-max(b - a for a, b in shards) // B)
+    mine = rows[lo:hi]
+    writer = mesh is None or mesh.rank == 0
     meter = ThroughputMeter(mode=f"embed_{cfg.backbone.name}", total=total,
                             log_fn=log_fn)
 
     decoded_q: "queue.Queue" = queue.Queue(maxsize=4)
-    B = cfg.batch_size
-    size = embedder.image_size
     producer_error: list = []  # surfaced to the consumer after the sentinel
 
     def decode_all(pool, batch_rows):
+        if not batch_rows:  # a rank out of rows on a data axis
+            return np.zeros((0, size, size, 3), np.uint8)
         return np.stack(list(pool.map(lambda r: decode_jpeg(r.image, size),
                                       batch_rows)))
 
     def producer_predecoded():
         with cf.ThreadPoolExecutor(cfg.fetch_threads) as pool:
-            all_imgs = (decode_all(pool, rows) if rows
+            all_imgs = (decode_all(pool, mine) if mine
                         else np.zeros((0, size, size, 3), np.uint8))
         meter.update(0, phase="predecode_done")
-        for start in range(0, len(rows), B):
-            decoded_q.put((rows[start:start + B], all_imgs[start:start + B]))
+        for start in range(0, steps * B, B):
+            decoded_q.put((mine[start:start + B], all_imgs[start:start + B]))
 
     def producer_streaming():
         with cf.ThreadPoolExecutor(cfg.fetch_threads) as pool:
-            for start in range(0, len(rows), B):
-                batch_rows = rows[start:start + B]
+            for start in range(0, steps * B, B):
+                batch_rows = mine[start:start + B]
                 decoded_q.put((batch_rows, decode_all(pool, batch_rows)))
 
     def producer():
@@ -266,7 +320,7 @@ def build_embedding_sqlite(
     t.start()
 
     def record_stream() -> Iterable[Dict]:
-        while True:
+        for step in itertools.count():
             item = decoded_q.get()
             if item is None:
                 if producer_error:
@@ -275,12 +329,22 @@ def build_embedding_sqlite(
                 break
             batch_rows, imgs = item
             n_real = len(batch_rows)
-            if n_real < B:  # pad to the fixed batch shape
-                imgs = np.concatenate(
-                    [imgs, np.zeros((B - n_real,) + imgs.shape[1:],
-                                    imgs.dtype)])
-            embs = embedder(imgs)[:n_real]
-            meter.update(n_real, phase="embed")
+            if n_real == 0:
+                embs = torch.zeros((0, embedder.embed_dim),
+                                   device=embedder.device)
+            else:
+                if n_real < B:  # pad to the fixed batch shape
+                    imgs = np.concatenate(
+                        [imgs, np.zeros((B - n_real,) + imgs.shape[1:],
+                                        imgs.dtype)])
+                embs = embedder.embed_local(imgs)[:n_real]
+            if mesh is not None:  # every rank's j-th batch, rank 0's first
+                embs = mesh.gather_rows(embs)
+                batch_rows = [r for a, b in shards
+                              for r in rows[a + step * B:
+                                            min(a + (step + 1) * B, b)]]
+            embs = embs.cpu().numpy()
+            meter.update(len(batch_rows), phase="embed")
             for row, emb in zip(batch_rows, embs):
                 yield {
                     "location_id": row.location_id,
@@ -294,8 +358,11 @@ def build_embedding_sqlite(
                     "embedding_dim": int(emb.shape[-1]),
                 }
 
-    written = create_sqlite_from_records(out_sqlite, record_stream(),
-                                         embedding=True)
+    if writer:
+        written = create_sqlite_from_records(out_sqlite, record_stream(),
+                                             embedding=True)
+    else:
+        written = sum(1 for _ in record_stream())
     t.join()
     logger.info(f"embedded {written}/{total} rows -> {out_sqlite} "
                 f"({meter.update(0)['throughput_img_per_s']:.0f} img/s)")

@@ -61,13 +61,18 @@ def _rows(records) -> list:
 
 class _RecordBatches:
     """What the batch iterators share: the records, their order (shuffled
-    with ``seed`` + epoch when ``shuffle``), and the last short batch
-    padded up to batch_size by repeating the last record, or dropped when
-    ``drop_remainder``."""
+    with ``seed`` + epoch when ``shuffle``), the last short batch padded up
+    to batch_size by repeating the last record, or dropped when
+    ``drop_remainder``, and ``batch_rows``: the positions within each
+    batch that this iterator yields (one rank's rows of the global batch,
+    ``parallel.mesh.Mesh.batch_rows``; None: all), so that a rank decodes
+    only its own and ``num_real`` counts its real ones."""
 
     def __init__(self, records, batch_size: int, num_views: int,
-                 shuffle: bool, seed: int, drop_remainder: bool):
+                 shuffle: bool, seed: int, drop_remainder: bool,
+                 batch_rows=None):
         self.rows = _rows(records)
+        self.batch_rows = batch_rows
         self.batch_size = batch_size
         self.num_views = num_views
         self.shuffle = shuffle
@@ -96,6 +101,9 @@ class _RecordBatches:
                     break
                 idx = np.concatenate(
                     [idx, np.repeat(idx[-1:], self.batch_size - num_real)])
+            if self.batch_rows is not None:
+                num_real = int((self.batch_rows < num_real).sum())
+                idx = idx[self.batch_rows]
             yield [self.rows[i] for i in idx], num_real
 
     @staticmethod
@@ -119,17 +127,19 @@ class PanoramaBatchIterator(_RecordBatches):
     Panoramas with fewer than V views, or with views that fail to fetch or
     decode, get black views with mask 0.  The final short batch is padded
     up to batch_size by repeating the last record, or dropped when
-    ``drop_remainder``.
+    ``drop_remainder``.  ``batch_rows`` selects one rank's rows of each
+    batch (see ``_RecordBatches``).
     """
 
     def __init__(self, records, batch_size: int, image_size: int,
                  num_views: int = NUM_PANORAMA_VIEWS, shuffle: bool = False,
                  seed: int = 0, decode_threads: int = 8,
-                 drop_remainder: bool = False, fetch_fn=None):
+                 drop_remainder: bool = False, fetch_fn=None,
+                 batch_rows=None):
         """fetch_fn maps an entry of a record's ``images`` to JPEG bytes
         (None: the entries are the bytes)."""
         super().__init__(records, batch_size, num_views, shuffle, seed,
-                         drop_remainder)
+                         drop_remainder, batch_rows)
         self.image_size = image_size
         self.decode_threads = decode_threads
         self.fetch_fn = fetch_fn
@@ -177,9 +187,10 @@ class EmbeddingBatchIterator(_RecordBatches):
 
     def __init__(self, records, batch_size: int, embed_dim: int,
                  num_views: int = NUM_PANORAMA_VIEWS, shuffle: bool = False,
-                 seed: int = 0, drop_remainder: bool = False):
+                 seed: int = 0, drop_remainder: bool = False,
+                 batch_rows=None):
         super().__init__(records, batch_size, num_views, shuffle, seed,
-                         drop_remainder)
+                         drop_remainder, batch_rows)
         self.embed_dim = embed_dim
 
     def _row(self, row):

@@ -54,7 +54,7 @@ class _CachedFetcher:
         for attempt in range(self.retries):
             try:
                 blob = self.store.read_bytes(key)
-                tmp = cpath + ".tmp"
+                tmp = f"{cpath}.{os.getpid()}.tmp"  # ranks share the cache
                 with open(tmp, "wb") as f:
                     f.write(blob)
                 os.replace(tmp, cpath)  # a reader never sees half a file

@@ -145,16 +145,22 @@ class CLIPModel(nn.Module):
         _, text_pooled = self.text_model(input_ids)
         image_embeds = _normalise(self.visual_projection(vis.pooler_output))
         text_embeds = _normalise(self.text_projection(text_pooled))
-        scale = torch.exp(self.logit_scale)
-        logits_per_text = text_embeds @ image_embeds.t() * scale
-        logits_per_image = logits_per_text.t()
-        loss = None
-        if return_loss:
-            labels = torch.arange(logits_per_text.shape[0],
-                                  device=logits_per_text.device)
-            li = F.cross_entropy(logits_per_image, labels)
-            lt = F.cross_entropy(logits_per_text, labels)
-            loss = (li + lt) / 2.0
-        return CLIPOutput(loss=loss, logits_per_image=logits_per_image,
+        logits_per_text, loss = contrastive_loss(image_embeds, text_embeds,
+                                                 self.logit_scale, return_loss)
+        return CLIPOutput(loss=loss, logits_per_image=logits_per_text.t(),
                           logits_per_text=logits_per_text,
                           image_embeds=image_embeds, text_embeds=text_embeds)
+
+
+def contrastive_loss(image_embeds: torch.Tensor, text_embeds: torch.Tensor,
+                     logit_scale: torch.Tensor, return_loss: bool = True):
+    """(logits_per_text, the symmetric InfoNCE loss or None) of normalised
+    embeddings, row i of each the pair of the other's row i."""
+    logits_per_text = text_embeds @ image_embeds.t() * torch.exp(logit_scale)
+    if not return_loss:
+        return logits_per_text, None
+    labels = torch.arange(logits_per_text.shape[0],
+                          device=logits_per_text.device)
+    li = F.cross_entropy(logits_per_text.t(), labels)
+    lt = F.cross_entropy(logits_per_text, labels)
+    return logits_per_text, (li + lt) / 2.0

@@ -9,6 +9,8 @@ from typing import Optional
 import torch
 from torch import nn
 
+from geoguessr_ai_torch.parallel.mesh import rand_rows
+
 
 def sinusoidal_table(max_len: int, d_model: int,
                      dtype: torch.dtype = torch.float32,
@@ -33,7 +35,11 @@ class PositionalEncoder(nn.Module):
 
     The f32 table is built once, on the CPU, and kept as a buffer that
     moves with the module and is not part of its state dict.  Dropout
-    applies in train mode only, drawn from the caller's ``generator``."""
+    applies in train mode only, drawn from the caller's ``generator`` (on
+    a data axis for the global batch, this rank's rows kept)."""
+
+    #: a data-axis ``parallel.mesh.Mesh`` (``shard_module_``)
+    mesh = None
 
     def __init__(self, d_model: int, dropout_rate: float = 0.1,
                  max_len: int = 1000):
@@ -48,21 +54,22 @@ class PositionalEncoder(nn.Module):
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
         seq_len = x.shape[1]
         x = x + self.table[None, :seq_len, :].to(x.dtype)
-        return dropout(x, self.dropout_rate, train, generator)
+        return dropout(x, self.dropout_rate, train, generator,
+                       mesh=self.mesh)
 
 
 def dropout(x: torch.Tensor, rate: float, train: bool,
             generator: Optional[torch.Generator] = None,
-            shape=None) -> torch.Tensor:
+            shape=None, mesh=None) -> torch.Tensor:
     """Inverted dropout (flax ``nn.Dropout``): keeps each element with
     probability 1 - rate and scales it by 1 / (1 - rate).  ``shape``
-    broadcasts one keep mask over the axes where it is 1."""
+    broadcasts one keep mask over the axes where it is 1.  ``mesh``: x's
+    rows are this rank's of a data axis (``parallel.mesh.rand_rows``)."""
     if not train or rate <= 0.0:
         return x
     if generator is None:
         raise ValueError("dropout in train mode needs a torch.Generator")
     keep_prob = 1.0 - rate
-    keep = torch.rand(shape or x.shape, generator=generator,
-                      device=generator.device) < keep_prob
+    keep = rand_rows(shape or x.shape, generator, mesh) < keep_prob
     return torch.where(keep.to(x.device), x / keep_prob,
                        torch.zeros((), dtype=x.dtype, device=x.device))

@@ -109,7 +109,13 @@ class SuperGuessr(nn.Module):
     hierarchical: fuse the views by positional encoding + self-attention
       (``pos_encoder``, ``self_attn``, ``num_attention_heads`` heads in
       ``dtype``) instead of their mean.
+
+    On a model axis the cell layer is column-parallel: each rank holds
+    ceil(num_cells / mp) rows of the weight (the last rank's padded with
+    zeros) and its logits are gathered whole.
     """
+
+    MODEL_AXIS = ("cell_layer",)
 
     def __init__(self, num_cells: int, backbone: Optional[nn.Module] = None,
                  embed_dim: int = 576, hierarchical: bool = False,
@@ -154,7 +160,7 @@ class SuperGuessr(nn.Module):
             raise ValueError("embedding must be supplied when backbone is "
                              "None")
         if not self.panorama:
-            return embedding, self.cell_layer(embedding.float())
+            return embedding, self._cells(embedding.float())
         emb = embedding.float()
         m = None if view_mask is None else view_mask.float()
         if m is not None:  # before the positional encoding, as flax
@@ -172,7 +178,15 @@ class SuperGuessr(nn.Module):
             fused = emb.sum(dim=1) / m.sum(dim=1).clamp(min=1.0)[:, None]
         else:
             fused = emb.mean(dim=1)
-        return embedding, self.cell_layer(fused)
+        return embedding, self._cells(fused)
+
+    def _cells(self, x: torch.Tensor) -> torch.Tensor:
+        lin = self.cell_layer
+        mesh = getattr(lin, "mesh", None)
+        if mesh is None:
+            return lin(x)
+        local = F.linear(mesh.copy_to_model(x), lin.weight, lin.bias)
+        return mesh.gather_model(local, -1, lin.out_features)
 
 
 def decode_predictions(logits: torch.Tensor, centroids: torch.Tensor,

@@ -94,6 +94,7 @@ from geoguessr_ai_torch.ops.window_attention import (
     window_partition,
     window_unpartition,
 )
+from geoguessr_ai_torch.parallel.mesh import all_reduce_sum, rand_rows, whole
 
 
 _ALL_QUANT_SITES = ("conv", "qkv", "proj", "fc1", "fc2")
@@ -341,6 +342,9 @@ class _BN(nn.Module):
     of an NHWC tensor."""
 
     MOMENTUM = 0.9
+    #: a data-axis ``parallel.mesh.Mesh`` (``shard_module_``): the train
+    #: statistics are taken over the global batch
+    mesh = None
 
     def __init__(self, c: int):
         super().__init__()
@@ -355,12 +359,17 @@ class _BN(nn.Module):
         and flax's fast variance max(E[x^2] - E[x]^2, 0), both f32 over
         (N, H, W), and moves the running statistics 0.1 of the way to them
         (the biased variance, unlike ``F.batch_norm``), except in a remat
-        recompute."""
+        recompute.  On a data axis both means are averaged over the data
+        group (equal shards), differentiably: the statistics of the global
+        batch."""
         xf = x.float()
         if train:
             dims = tuple(range(x.ndim - 1))
-            mean = xf.mean(dims)
-            var = torch.clamp((xf * xf).mean(dims) - mean * mean, min=0.0)
+            mean, sq = xf.mean(dims), (xf * xf).mean(dims)
+            if self.mesh is not None and self.mesh.dp > 1:
+                both = all_reduce_sum(torch.stack([mean, sq]), self.mesh)
+                mean, sq = both[0] / self.mesh.dp, both[1] / self.mesh.dp
+            var = torch.clamp(sq - mean * mean, min=0.0)
             m = self.MOMENTUM
             if not getattr(_RECOMPUTE, "active", False):
                 with torch.no_grad():
@@ -382,7 +391,11 @@ class _BN(nn.Module):
 class DropPath(nn.Module):
     """Stochastic depth: zeroes a whole sample's residual branch with
     probability ``rate`` in train mode and scales the kept ones by
-    1 / (1 - rate); the identity otherwise or at rate 0."""
+    1 / (1 - rate); the identity otherwise or at rate 0.  On a data axis
+    the mask is drawn for the global batch and this rank's rows kept."""
+
+    #: a data-axis ``parallel.mesh.Mesh`` (``shard_module_``)
+    mesh = None
 
     def __init__(self, rate: float):
         super().__init__()
@@ -395,8 +408,7 @@ class DropPath(nn.Module):
             raise ValueError("DropPath in train mode needs a torch.Generator")
         keep = 1.0 - self.rate
         shape = (x.shape[0],) + (1,) * (x.ndim - 1)
-        mask = torch.rand(shape, generator=generator,
-                          device=generator.device) < keep
+        mask = rand_rows(shape, generator, self.mesh) < keep
         return torch.where(mask.to(x.device), x / keep,
                            torch.zeros((), dtype=x.dtype, device=x.device))
 
@@ -531,7 +543,10 @@ class WindowAttention(_Quant):
     """LeViT-style attention with learned relative biases; (B, N, C)
     window tokens in, its own pre-LayerNorm inside.  The qkv and proj
     GEMMs of the K3 and plain branches, and the proj after K2, are int8
-    sites; the K1, K9 and head-major branches have none."""
+    sites; the K1, K9 and head-major branches have none.  On a model axis
+    qkv and proj are stored sharded and gathered whole before each use."""
+
+    MODEL_AXIS = ("qkv", "proj")
 
     def __init__(self, dim, num_heads, window, use_kernel_qkv=False,
                  fused_block=False, fused_block_noproj=False):
@@ -554,7 +569,7 @@ class WindowAttention(_Quant):
         ``four_d``): K9 on the card.  -> (B, H, W, C)."""
         C = x.shape[-1]
         H = self.num_heads
-        n, q, p = self.norm, self.qkv, self.proj
+        n, q, p = self.norm, whole(self.qkv), whole(self.proj)
         return wa.fused_block_attention_4d(
             x.to(dtype), n.weight, n.bias, q.weight.t(), q.bias,
             p.weight.t(), p.bias, self.attention_biases[:, self.bias_idx],
@@ -566,7 +581,7 @@ class WindowAttention(_Quant):
         scale = (C // H) ** -0.5
         bias = self.attention_biases[:, self.bias_idx]  # (H, N, N)
         x = x.to(dtype)
-        n, q, p = self.norm, self.qkv, self.proj
+        n, q, p = self.norm, whole(self.qkv), whole(self.proj)
         if self.fused_block_noproj and N % 128 == 0:
             out = wa.fused_block_attention_noproj(
                 x, n.weight, n.bias, q.weight.t(), q.bias, bias, scale, H)
@@ -578,7 +593,7 @@ class WindowAttention(_Quant):
         x = F.layer_norm(x.float(), (C,), n.weight, n.bias, 1e-5).to(dtype)
         kernel = self.use_kernel_qkv and N % 128 == 0
         if kernel and N < wa.QKV_KERNEL_MIN_N:
-            return self._head_major(x, dtype, bias, scale)
+            return self._head_major(x, dtype, bias, scale, q, p)
         qkv = self._quant_gemm(x, q, dtype, "qkv_in_amax", "qkv")
         if kernel:
             out = wa.window_attention_qkv(qkv, bias, scale, H)
@@ -586,7 +601,7 @@ class WindowAttention(_Quant):
             out = wa.window_attention_qkv_xla(qkv, bias, scale, H)
         return self._quant_gemm(out, p, dtype, "proj_in_amax", "proj")
 
-    def _head_major(self, x, dtype, bias, scale):
+    def _head_major(self, x, dtype, bias, scale, q, p):
         """The JAX module's head-major branch: q, k, v (B, H, N, hd), each
         product rounded to the compute dtype and its bias slice added in
         it, ``window_attention``, and the back-projection from head-major
@@ -595,18 +610,25 @@ class WindowAttention(_Quant):
         H = self.num_heads
         hd = C // H
         # qkv output channel c -> (head c // 3hd, q|k|v slot, dim)
-        wk = self.qkv.weight.t().reshape(C, H, 3, hd).to(dtype)
-        wb = self.qkv.bias.reshape(H, 3, 1, hd).to(dtype)
+        wk = q.weight.t().reshape(C, H, 3, hd).to(dtype)
+        wb = q.bias.reshape(H, 3, 1, hd).to(dtype)
         q, k, v = (
             (torch.einsum("bnc,chd->bhnd", x, wk[:, :, i]) + wb[:, i])
             .contiguous() for i in range(3))
         out = wa.window_attention(q, k, v, bias, scale)
-        wp = self.proj.weight.t().reshape(H, hd, C).to(dtype)
+        wp = p.weight.t().reshape(H, hd, C).to(dtype)
         return (torch.einsum("bhnd,hdc->bnc", out, wp)
-                + self.proj.bias.to(dtype))
+                + p.bias.to(dtype))
 
 
 class Mlp(_Quant):
+    """LayerNorm, fc1, GELU, fc2.  On a model axis fc1 and fc2 are a
+    Megatron pair: each rank holds a slice of the hidden units, and the
+    partial fc2 products are summed over the model group (in f32) before
+    fc2's bias."""
+
+    MODEL_AXIS = ("fc1", "fc2")
+
     def __init__(self, dim, hidden, exact_gelu):
         super().__init__()
         self.exact_gelu = exact_gelu
@@ -618,9 +640,23 @@ class Mlp(_Quant):
         n = self.norm
         x = F.layer_norm(x.float(), n.normalized_shape, n.weight, n.bias,
                          1e-5).to(dtype)
+        mesh = getattr(self.fc1, "mesh", None)
+        if mesh is not None:
+            return self._model_parallel(x, dtype, mesh)
         x = _gelu(self._quant_gemm(x, self.fc1, dtype, "fc1_in_amax", "fc1"),
                   self.exact_gelu)
         return self._quant_gemm(x, self.fc2, dtype, "fc2_in_amax", "fc2")
+
+    def _model_parallel(self, x, dtype, mesh):
+        if self.quant != "none":
+            raise NotImplementedError(
+                "a model-sharded MLP runs unquantized GEMMs; quant_mode "
+                f"{self.quant!r} quantizes fc1 / fc2 with per-tensor scales "
+                "of the whole weight")
+        h = _gelu(_linear(mesh.copy_to_model(x), self.fc1, dtype),
+                  self.exact_gelu)
+        out = mesh.reduce_from_model(F.linear(h, self.fc2.weight.to(dtype)))
+        return out + self.fc2.bias.to(dtype)
 
 
 class TinyViTBlock(_Quant):

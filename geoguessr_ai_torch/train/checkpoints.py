@@ -41,6 +41,9 @@ class CheckpointConfig:
     #: waits for it before touching the directory again, and an error
     #: raised there surfaces at that next store operation.
     async_save: bool = False
+    #: False on every rank of a mesh but rank 0: save_epoch resolves the
+    #: best value and writes nothing (rank 0 writes; every rank reads).
+    write: bool = True
 
 
 def _to_host(tree):
@@ -148,7 +151,10 @@ class CheckpointStore:
             or self._is_better(monitored_value, best_value)
         )
         new_best = monitored_value if improved else best_value
+        # (a collective on a model axis: every rank takes the state dict)
         sd = state.state_dict() if hasattr(state, "state_dict") else state
+        if not self.cfg.write:
+            return float(new_best) if new_best is not None else float("nan")
         tree = {
             "state": _to_host(sd),
             "meta": {

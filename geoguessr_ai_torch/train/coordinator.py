@@ -2,8 +2,10 @@
 ``train`` and ``main``): SuperGuessr over TinyViT-21M-512 or a CLIP tower
 ("clip": ViT-L/14-336, "clip_b32": ViT-B/32-224), or the head alone on
 precomputed embeddings (backbone "none"), trained on panorama records on
-one device, with periodic validation, last/best/top-K checkpoints and
-resume (``train.checkpoints``), early stopping and a returned summary.
+one device or on a mesh of ranks (``TrainConfig.mesh``,
+``parallel.mesh``), with periodic validation, last/best/top-K checkpoints
+and resume (``train.checkpoints``), early stopping and a returned
+summary.
 ``freeze_all_but_last_stage`` keeps TinyViT's last stage, or a CLIP
 tower's last layer and ``post_layernorm``, trainable
 (``train.state.backbone_freeze_mask``).  ``main`` is the production
@@ -15,8 +17,12 @@ checkpoint=<run>/best)``.
 
 ``discover_sqlite`` finds the newest SQLite dataset.
 
-Not ported, and raising ``NotImplementedError`` when asked for: a mesh of
-more than one device (ROADMAP Queue 1 item 11).  A single-image model
+On a mesh (one process a card, ``torchrun``; ``WORLD_SIZE`` > 1) every
+rank iterates the same global batches and decodes only its own rows
+(``Mesh.batch_rows``), the model is sharded on the model axis
+(``shard_module_``), and rank 0 alone logs and writes checkpoints, which
+hold whole tensors and which every rank reads on resume.  A mesh that
+does not cover the ranks raises ValueError.  A single-image model
 (``panorama=False``) is refused with a ValueError, as the JAX ``train()``
 fails on it: its batch iterators always yield a view axis.
 """
@@ -55,6 +61,7 @@ from geoguessr_ai_torch.models.tinyvit import (
 )
 from geoguessr_ai_torch.ops.preprocess import fused_preprocess
 from geoguessr_ai_torch.ops.quant import calibrate_act_stats
+from geoguessr_ai_torch.parallel.mesh import mesh_for, shard_module_
 from geoguessr_ai_torch.train.checkpoints import (
     CheckpointConfig,
     CheckpointStore,
@@ -64,7 +71,12 @@ from geoguessr_ai_torch.train.state import (
     create_train_state,
 )
 from geoguessr_ai_torch.train.steps import eval_step, train_step
-from geoguessr_ai_torch.utils.logging import MetricsLogger, StepTimer, logger
+from geoguessr_ai_torch.utils.logging import (
+    MetricsLogger,
+    NullMetricsLogger,
+    StepTimer,
+    logger,
+)
 
 
 def default_sqlite_dirs() -> List[str]:
@@ -163,11 +175,12 @@ def calibrate_qat_(model: SuperGuessr, seed: int, image_size: int) -> None:
 
 
 def create_state(cfg: TrainConfig, num_cells: int, steps_per_epoch: int,
-                 device=None, model_config=None):
+                 device=None, model_config=None, mesh=None):
     """The model of ``cfg`` (its backbone's preset replaced by
     ``model_config`` when given) with seeded random weights (``cfg.seed``),
-    its QAT scales calibrated when ``qat_storage``, on ``device``, under the
-    freeze policy of ``cfg.model.backbone``, in a fresh TrainState.
+    its QAT scales calibrated when ``qat_storage``, on ``device``, sharded
+    on ``mesh`` when given, under the freeze policy of
+    ``cfg.model.backbone``, in a fresh TrainState.
     Returns (state, norm_mean, norm_std, image_size); image_size falls back
     to the backbone config's for embedding-only training."""
     model, mean, std, image_size = build_model(cfg, num_cells, model_config)
@@ -179,6 +192,8 @@ def create_state(cfg: TrainConfig, num_cells: int, steps_per_epoch: int,
             and model.backbone.config.quant_mode == "static"):
         calibrate_qat_(model, cfg.seed, image_size)
     model.to(C.resolve_device(device))
+    if mesh is not None:
+        shard_module_(model, mesh)
     bb = cfg.model.backbone
     mask = None
     if bb.freeze_base or bb.freeze_all_but_last_stage:
@@ -187,19 +202,8 @@ def create_state(cfg: TrainConfig, num_cells: int, steps_per_epoch: int,
             freeze_base=bb.freeze_base,
             freeze_all_but_last_stage=bb.freeze_all_but_last_stage)
     state = create_train_state(model, cfg.optimizer, steps_per_epoch,
-                               seed=cfg.seed, trainable_mask=mask)
+                               seed=cfg.seed, trainable_mask=mask, mesh=mesh)
     return state, mean, std, image_size
-
-
-def _check_single_device(cfg) -> None:
-    """Refuses a ``cfg.mesh`` (a TrainConfig's or PretrainConfig's) of more
-    than one device."""
-    mesh = cfg.mesh
-    if mesh.model_parallel != 1 or mesh.data_parallel not in (-1, 1):
-        raise NotImplementedError(
-            "the port trains on one device; a mesh of more than one (data "
-            f"{mesh.data_parallel}, model {mesh.model_parallel}) waits for "
-            "torch.distributed (ROADMAP Queue 1 item 11)")
 
 
 def _check_panorama(cfg: TrainConfig) -> None:
@@ -248,20 +252,25 @@ def train(
     from ``cfg.resume_path`` when set, else from the store's ``last`` when
     it has one (epoch, best value and global step too).
 
-    ``device``: None means the GPU (raises without one); "cpu" runs the
-    plain PyTorch path.  ``model_config`` replaces the backbone's preset
+    ``device``: None means the GPU (raises without one; on a mesh,
+    ``cuda:LOCAL_RANK``); "cpu" runs the plain PyTorch path (on a mesh,
+    over gloo).  ``model_config`` replaces the backbone's preset
     (``build_backbone``), e.g. a CLIPVisionConfig with
     ``pallas_fuse_proj``.  Returns a summary dict with the last epoch's and
-    the best metrics.
+    the best metrics (of the global batches, equal on every rank).
     """
-    _check_single_device(cfg)
     _check_panorama(cfg)
     embedding_mode = cfg.model.backbone.name == "none"
     dev = C.resolve_device(device)
+    mesh = mesh_for(cfg.mesh, dev)
+    if mesh is not None:
+        dev = mesh.device
     steps_per_epoch = max(1, len(pano_train) // cfg.batch_size)
     state, mean, std, image_size = create_state(
-        cfg, centroid_table.num_cells, steps_per_epoch, dev, model_config)
+        cfg, centroid_table.num_cells, steps_per_epoch, dev, model_config,
+        mesh)
     centroids = torch.as_tensor(centroid_table.centroids, device=dev)
+    writer = mesh is None or mesh.rank == 0
 
     store = None
     best_value: Optional[float] = None
@@ -271,7 +280,7 @@ def train(
         store = CheckpointStore(CheckpointConfig(
             directory=checkpoint_dir, keep_top_k=cfg.keep_last_n,
             monitored_mode=cfg.monitored_mode,
-            async_save=cfg.async_checkpoints))
+            async_save=cfg.async_checkpoints, write=writer))
         if cfg.resume_path:
             # an explicit checkpoint directory, e.g. <run>/last or <run>/best
             resume_store = CheckpointStore(CheckpointConfig(
@@ -286,7 +295,11 @@ def train(
             start_epoch, best_value, resume_step = _resume(
                 store, state, "last", os.path.join(checkpoint_dir, "last"))
 
-    mlog = metrics_logger or MetricsLogger(run_config=dataclasses.asdict(cfg))
+    if not writer:
+        mlog = NullMetricsLogger()
+    else:
+        mlog = metrics_logger or MetricsLogger(
+            run_config=dataclasses.asdict(cfg))
     timer = StepTimer()
 
     def preprocess(batch):
@@ -298,21 +311,24 @@ def train(
                                                    mean, std, image_size)
         return out
 
-    def make_iter(records, shuffle=False, seed=0):
+    def make_iter(records, shuffle=False, seed=0, accum=1):
+        rows = None if mesh is None else mesh.batch_rows(cfg.batch_size,
+                                                         accum)
         if embedding_mode:
             return EmbeddingBatchIterator(
                 records, cfg.batch_size, cfg.model.backbone.embed_dim,
-                shuffle=shuffle, seed=seed, drop_remainder=True)
+                shuffle=shuffle, seed=seed, drop_remainder=True,
+                batch_rows=rows)
         return PanoramaBatchIterator(
             records, cfg.batch_size, image_size, shuffle=shuffle, seed=seed,
             decode_threads=cfg.decode_threads, drop_remainder=True,
-            fetch_fn=fetch_fn)
+            fetch_fn=fetch_fn, batch_rows=rows)
 
     def run_validation(step):
         agg, dists = [], []
         for batch in prefetch_to_device(make_iter(pano_val), dev,
                                         depth=cfg.prefetch_depth):
-            m = eval_step(state, preprocess(batch), centroids)
+            m = eval_step(state, preprocess(batch), centroids, mesh)
             dists.append(m.pop("dist_km").cpu().numpy())
             agg.append({k: float(v) for k, v in m.items()})
         if not agg:
@@ -335,14 +351,15 @@ def train(
                      "monitored_value": (best_value if best_value is not None
                                          else float("nan"))}
     for epoch in range(start_epoch, cfg.num_epochs):
-        it = make_iter(pano_train, shuffle=True, seed=cfg.seed + epoch)
+        it = make_iter(pano_train, shuffle=True, seed=cfg.seed + epoch,
+                       accum=cfg.grad_accum_steps)
         epoch_metrics = []
         t_epoch = time.perf_counter()
         for batch in prefetch_to_device(it, dev, depth=cfg.prefetch_depth):
             state, metrics = train_step(
                 state, preprocess(batch), centroids,
                 should_smooth_labels=cfg.model.should_smooth_labels,
-                grad_accum_steps=cfg.grad_accum_steps)
+                grad_accum_steps=cfg.grad_accum_steps, mesh=mesh)
             timer.tick()
             global_step += 1
             epoch_metrics.append(metrics)
@@ -396,6 +413,8 @@ def train(
 
     if store is not None:
         store.wait_until_finished()  # commit an in-flight async save
+    if mesh is not None:
+        mesh.barrier()  # rank 0's last write lands before any rank reads
     mlog.summary("best_value", best_value)
     mlog.finish()
     return summary
@@ -423,7 +442,9 @@ def main_streaming(cfg: Optional[TrainConfig] = None, device=None) -> Dict:
     ``./.s3cache``, validated on the holdout snapshot; without one, the
     first 90 % trains and the rest validates (a fixed 0.9, whatever
     ``cfg.val_fraction`` says, as in the JAX package).  Checkpoints in
-    ``CHECKPOINT_DIR``."""
+    ``CHECKPOINT_DIR``.  On a mesh every rank reads the snapshot and
+    fetches and decodes only its rows of each global batch, which is the
+    ranks' local batches in rank order; the ranks share the fetch cache."""
     cfg = cfg or TrainConfig()
     store = ObjectStore()
     pano_train, fetch_fn = snapshot_panorama_table(store)

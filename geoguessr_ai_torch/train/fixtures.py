@@ -33,14 +33,15 @@ def fixture_records(n: int, seed: int = 0):
 
 def fixture_train_setup(batch_size: int = 16, device=None, seed: int = 0,
                         dtype: str = "bfloat16", model_config=None,
-                        backbone: str = "tinyvit"):
+                        backbone: str = "tinyvit", mesh=None):
     """A full-width TrainState (default TrainConfig: f32 master weights,
     freeze_all_but_last_stage, AdamW) over ``backbone`` ("tinyvit",
     "clip" or "clip_b32"; ``model_config``, a TinyViTConfig or a
     CLIPVisionConfig, replaces its preset) and one device batch of
     ``batch_size`` fixture panoramas.  The pixels are normalised in f32 on
-    the host, so a bf16 and an f32 model see the same input.  Returns
-    (state, batch, centroids)."""
+    the host, so a bf16 and an f32 model see the same input.  ``mesh``: the
+    model is sharded on it (``create_state``); the batch stays whole.
+    Returns (state, batch, centroids)."""
     bb = dataclasses.replace(getattr(BackboneConfig, backbone)(),
                              dtype=dtype)
     cfg = TrainConfig(batch_size=batch_size, seed=seed,
@@ -48,7 +49,7 @@ def fixture_train_setup(batch_size: int = 16, device=None, seed: int = 0,
     table = CentroidTable.load(C.CENTROID_TABLE_PATH)
     dev = C.resolve_device(device)
     state, mean, std, size = create_state(cfg, table.num_cells, 1, dev,
-                                          model_config)
+                                          model_config, mesh)
     host = next(iter(PanoramaBatchIterator(fixture_records(batch_size, seed),
                                            batch_size, size)))
     pixels = fused_preprocess(torch.from_numpy(host["pixel_values"]), mean,

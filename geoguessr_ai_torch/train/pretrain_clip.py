@@ -15,6 +15,13 @@ norm over the trainable parameters only, AdamW (decay included) on them
 only, the learning rate of the i-th inner update ``schedule(i)``.  Frozen
 parameters get no update and no decay.
 
+On a data axis (``PretrainConfig.mesh``, ``parallel.mesh``) each rank
+runs its rows of every global micro-batch, the image and text embeddings
+of all ranks are gathered (with their gradient) before the logits
+matrix, every rank takes the loss of the global matrix, and the gradients
+are averaged over the data group: the step of one process on the global
+batch.  Rank 0 writes the checkpoints.
+
 ``STOP_GRAD_FROZEN`` runs the frozen towers without an autograd graph
 (the JAX step's ``stop_gradient``), so only the projection and the logit
 scale are differentiated; it gives the numbers of computing every
@@ -43,14 +50,18 @@ import torch
 
 from geoguessr_ai_torch import config as C
 from geoguessr_ai_torch.config import PretrainConfig
-from geoguessr_ai_torch.models.clip_text import CLIPModel, CLIPTextConfig
+from geoguessr_ai_torch.models.clip_text import (
+    CLIPModel,
+    CLIPTextConfig,
+    contrastive_loss,
+)
 from geoguessr_ai_torch.models.clip_vit import CLIPVisionConfig
 from geoguessr_ai_torch.models.super_guessr import init_parameters_
 from geoguessr_ai_torch.ops.preprocess import fused_preprocess
 from geoguessr_ai_torch.train.captions import select_caption
-from geoguessr_ai_torch.train.coordinator import _check_single_device
+from geoguessr_ai_torch.parallel.mesh import Mesh, mesh_for
 from geoguessr_ai_torch.train.state import AdamW, linear_value
-from geoguessr_ai_torch.utils.logging import MetricsLogger
+from geoguessr_ai_torch.utils.logging import MetricsLogger, NullMetricsLogger
 
 TRAINABLE_SUBTREES = ("visual_projection", "logit_scale")
 
@@ -133,17 +144,30 @@ STOP_GRAD_FROZEN = True
 
 def pretrain_step(model: CLIPModel, optimizer: PretrainOptimizer,
                   batch: Dict[str, torch.Tensor],
-                  mask: Dict[str, bool]) -> torch.Tensor:
+                  mask: Dict[str, bool],
+                  mesh: Optional[Mesh] = None) -> torch.Tensor:
     """One micro-step: the contrastive loss of ``batch`` (pixel_values
     preprocessed, input_ids), the gradients of the trainable parameters,
-    ``optimizer.step``.  Returns the loss as a device scalar."""
+    ``optimizer.step``.  Returns the loss as a device scalar.  ``mesh``:
+    the batch is this rank's rows of the global micro-batch, and the loss
+    that of the global batch's logits matrix."""
     params = dict(model.named_parameters())
     for n, p in params.items():
         p.requires_grad_(mask[n] or not STOP_GRAD_FROZEN)
     names = [n for n, p in params.items() if p.requires_grad]
-    loss = model(batch["pixel_values"], batch["input_ids"],
-                 return_loss=True).loss
+    if mesh is None:
+        loss = model(batch["pixel_values"], batch["input_ids"],
+                     return_loss=True).loss
+    else:
+        mesh.check_device(batch["input_ids"])
+        out = model(batch["pixel_values"], batch["input_ids"],
+                    return_loss=False)
+        _, loss = contrastive_loss(mesh.gather_data(out.image_embeds),
+                                   mesh.gather_data(out.text_embeds),
+                                   model.logit_scale)
     grads = torch.autograd.grad(loss, [params[n] for n in names])
+    if mesh is not None:
+        grads = mesh.average_gradients(grads)
     optimizer.step(params, {n: g if mask[n] else torch.zeros_like(g)
                             for n, g in zip(names, grads)})
     return loss.detach()
@@ -154,11 +178,13 @@ class CaptionedBatchIterator:
     (B, T) int32}`` over row mappings: each pass shuffles the rows and
     captions them from one ``random.Random(seed + pass)``, in the JAX
     iterator's order (the shuffle, then each batch's captions after its
-    decode); the last partial batch is dropped."""
+    decode); the last partial batch is dropped.  ``batch_rows``: the
+    positions of each batch to yield (one rank's rows; every row is still
+    captioned, so the caption stream is that of the whole batch)."""
 
     def __init__(self, rows, tokenize_fn: Callable[[List[str]], np.ndarray],
                  batch_size: int, image_size: int, seed: int = 42,
-                 decode_threads: int = 8):
+                 decode_threads: int = 8, batch_rows=None):
         from geoguessr_ai_torch.data import pipeline
 
         self.rows = list(rows)
@@ -167,6 +193,7 @@ class CaptionedBatchIterator:
         self.image_size = image_size
         self.seed = seed
         self.decode_threads = decode_threads
+        self.batch_rows = batch_rows
         self._decode = pipeline.decode_jpeg
         self._epoch = 0
 
@@ -179,13 +206,16 @@ class CaptionedBatchIterator:
         with cf.ThreadPoolExecutor(self.decode_threads) as pool:
             for start in range(0, len(order) - bs + 1, bs):
                 rows = [self.rows[i] for i in order[start:start + bs]]
+                mine = (rows if self.batch_rows is None
+                        else [rows[i] for i in self.batch_rows])
                 images = np.stack(list(pool.map(
                     lambda r: self._decode(r["image"], self.image_size),
-                    rows)))
+                    mine)))
                 captions = [select_caption(dict(r), rng) for r in rows]
-                yield {"pixel_values": images,
-                       "input_ids": np.asarray(self.tokenize(captions),
-                                               np.int32)}
+                ids = np.asarray(self.tokenize(captions), np.int32)
+                if self.batch_rows is not None:
+                    ids = ids[self.batch_rows]
+                yield {"pixel_values": images, "input_ids": ids}
 
 
 def init_clip_model_(model: CLIPModel, seed: int) -> None:
@@ -220,10 +250,14 @@ def pretrain(rows, tokenize_fn: Callable[[List[str]], np.ndarray],
     (``cfg.seed``).  ``checkpoint_dir``: ``<dir>/step_%07d/`` every
     ``save_every_steps`` micro-steps and ``<dir>/last/`` at the end, each
     holding ``params.pt`` (``read_pretrain_checkpoint``).  ``device``: None
-    means the GPU (raises without one); "cpu" runs the plain path.  A
-    mesh of more than one device raises NotImplementedError."""
-    _check_single_device(cfg)
+    means the GPU (raises without one; on a mesh ``cuda:LOCAL_RANK``);
+    "cpu" runs the plain path (on a mesh, over gloo).  ``cfg.mesh``: the
+    data axis (parameters replicated, as the JAX ``pretrain`` holds them);
+    a mesh that does not cover the ranks raises ValueError."""
     dev = C.resolve_device(device)
+    mesh = mesh_for(cfg.mesh, dev)
+    if mesh is not None:
+        dev = mesh.device
     vision_config = vision_config or CLIPVisionConfig.vit_l_14_336()
     text_config = text_config or CLIPTextConfig.vit_l_text()
     model = CLIPModel(vision_config, text_config)
@@ -239,12 +273,16 @@ def pretrain(rows, tokenize_fn: Callable[[List[str]], np.ndarray],
     params = dict(model.named_parameters())
     optimizer, _ = make_pretrain_optimizer(cfg, total_steps, params)
     mask = trainable_mask(params)
-    it = CaptionedBatchIterator(rows, tokenize_fn, cfg.batch_size,
-                                vision_config.image_size, seed=cfg.seed)
-    mlog = metrics_logger or MetricsLogger(project="geoguessr-tpu-pretrain")
+    it = CaptionedBatchIterator(
+        rows, tokenize_fn, cfg.batch_size, vision_config.image_size,
+        seed=cfg.seed,
+        batch_rows=None if mesh is None else mesh.batch_rows(cfg.batch_size))
+    writer = mesh is None or mesh.rank == 0
+    mlog = (metrics_logger or MetricsLogger(project="geoguessr-tpu-pretrain")
+            if writer else NullMetricsLogger())
 
     def save_checkpoint(name: str) -> None:
-        if checkpoint_dir is None:
+        if checkpoint_dir is None or not writer:
             return
         path = os.path.join(os.path.abspath(checkpoint_dir), name)
         shutil.rmtree(path, ignore_errors=True)
@@ -264,7 +302,7 @@ def pretrain(rows, tokenize_fn: Callable[[List[str]], np.ndarray],
                 "input_ids": torch.from_numpy(batch["input_ids"]).long()
                 .to(dev),
             }
-            loss = pretrain_step(model, optimizer, device_batch, mask)
+            loss = pretrain_step(model, optimizer, device_batch, mask, mesh)
             step += 1
             losses.append(float(loss))
             if step % 10 == 0 or step == 1:
@@ -276,6 +314,8 @@ def pretrain(rows, tokenize_fn: Callable[[List[str]], np.ndarray],
         if max_steps is not None and step >= max_steps:
             break
     save_checkpoint("last")
+    if mesh is not None:
+        mesh.barrier()  # rank 0's last write lands before any rank reads
     mlog.finish()
     return {"params": {k: v.detach().cpu()
                        for k, v in model.state_dict().items()},

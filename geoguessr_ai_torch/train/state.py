@@ -28,6 +28,7 @@ import numpy as np
 import torch
 
 from geoguessr_ai_torch.config import OptimizerConfig
+from geoguessr_ai_torch.parallel.mesh import Mesh
 
 
 #: Top-level TinyViT modules that stay trainable under
@@ -175,13 +176,17 @@ class AdamW:
 
     @torch.no_grad()
     def step(self, params: Dict[str, torch.Tensor],
-             grads: Dict[str, torch.Tensor]) -> float:
+             grads: Dict[str, torch.Tensor],
+             norm: Optional[torch.Tensor] = None) -> float:
         """Updates the trainable ``params`` in place; returns the learning
-        rate used."""
+        rate used.  ``norm``: the global norm of the trainable gradients,
+        when the caller takes it (a model axis, where each rank holds a
+        shard of some of them)."""
         cfg = self.cfg
         g = {n: grads[n].float() for n in self.names}
         if cfg.max_grad_norm is not None:
-            norm = global_norm(g.values())
+            if norm is None:
+                norm = global_norm(g.values())
             clip = norm >= cfg.max_grad_norm  # a device scalar: no host sync
             g = {n: torch.where(clip, (t / norm) * cfg.max_grad_norm, t)
                  for n, t in g.items()}
@@ -242,25 +247,40 @@ def make_optimizer(params: Dict[str, torch.Tensor], cfg: OptimizerConfig,
 class TrainState:
     """What a train step reads and advances: the model (its parameters and
     BatchNorm running statistics), the optimizer's moments, the step count
-    and the generator DropPath draws from."""
+    and the generator DropPath draws from; ``mesh``, the
+    ``parallel.mesh.Mesh`` the model is sharded on (None: one device)."""
 
     model: torch.nn.Module
     optimizer: AdamW
     generator: torch.Generator
     step: int = 0
+    mesh: Optional[Mesh] = None
 
     def state_dict(self) -> Dict:
         """Everything a resume needs, as tensors, numbers and plain
         containers (loadable with ``torch.load(..., weights_only=True)``):
         the model's state dict, the optimizer's moments and count, the
-        generator's state and the step."""
-        return {"model": self.model.state_dict(),
-                "optimizer": self.optimizer.state_dict(),
+        generator's state and the step.  Sharded parameters and their
+        moments are whole (a collective on a model axis: every rank calls
+        it)."""
+        opt = self.optimizer.state_dict()
+        model = self.model.state_dict()
+        if self.mesh is not None:
+            model = self.mesh.unshard(model)
+            opt = {**opt, "mu": self.mesh.unshard(opt["mu"]),
+                   "nu": self.mesh.unshard(opt["nu"])}
+        return {"model": model, "optimizer": opt,
                 "generator": self.generator.get_state(),
                 "step": self.step}
 
     def load_state_dict(self, sd: Dict) -> None:
-        """Loads ``state_dict()``'s form in place (the model strictly)."""
+        """Loads ``state_dict()``'s form in place (the model strictly),
+        each sharded entry cut to this rank's shard."""
+        if self.mesh is not None:
+            opt = sd["optimizer"]
+            sd = {**sd, "model": self.mesh.shard(sd["model"]),
+                  "optimizer": {**opt, "mu": self.mesh.shard(opt["mu"]),
+                                "nu": self.mesh.shard(opt["nu"])}}
         self.model.load_state_dict(sd["model"], strict=True)
         self.optimizer.load_state_dict(sd["optimizer"])
         self.generator.set_state(sd["generator"].cpu())
@@ -269,10 +289,12 @@ class TrainState:
 
 def create_train_state(model: torch.nn.Module, optimizer_cfg: OptimizerConfig,
                        steps_per_epoch: int, seed: int = 0,
-                       trainable_mask: Optional[Dict[str, bool]] = None
-                       ) -> TrainState:
-    """A TrainState for ``model`` on its current device.  Every parameter
-    requires grad: the step's grad_norm covers all of them."""
+                       trainable_mask: Optional[Dict[str, bool]] = None,
+                       mesh: Optional[Mesh] = None) -> TrainState:
+    """A TrainState for ``model`` on its current device (on ``mesh``,
+    already sharded by ``shard_module_``: the moments take the shards'
+    shapes).  Every parameter requires grad: the step's grad_norm covers
+    all of them."""
     params = dict(model.named_parameters())
     for p in params.values():
         p.requires_grad_(True)
@@ -282,4 +304,5 @@ def create_train_state(model: torch.nn.Module, optimizer_cfg: OptimizerConfig,
         optimizer=make_optimizer(params, optimizer_cfg, steps_per_epoch,
                                  trainable_mask),
         generator=torch.Generator(device=device).manual_seed(seed),
+        mesh=mesh,
     )

@@ -4,8 +4,10 @@ geoguessr_ai_tpu/train/train_eval_loop.py): ``generate_profiler``,
 as adapters onto the coordinator's ``train`` and ``eval_step``.
 
 Datasets are the port's panorama records (``data.sqlite_dataset``
-Panoramas, dicts or namedtuples; no pandas).  One device: ``mesh_cfg`` of
-more than one raises (ROADMAP Queue 1 item 11).
+Panoramas, dicts or namedtuples; no pandas).  ``train_model`` trains on
+``TrainConfig.mesh`` and ``evaluate_model`` evaluates on the state's mesh
+or ``mesh_cfg`` (``parallel.mesh``): each rank embeds its rows of every
+batch and the metrics are of the whole batches.
 """
 
 from __future__ import annotations
@@ -88,7 +90,13 @@ def evaluate_model(
     on the model's device: the mean over full batches of eval_step's
     metrics (loss, geocell top-1/top-5, mean km, score) and the median km
     over every sample; ``"refined": True`` when a refiner is given (its
-    refinement is applied per batch by callers, as in the JAX package)."""
+    refinement is applied per batch by callers, as in the JAX package).
+
+    On a mesh (the state's, else ``mesh_cfg`` over the process group)
+    each data rank decodes and runs its rows of every batch
+    (``Mesh.eval_rows``: counts differing by one at most when the batch
+    does not split evenly) and ``eval_step`` gathers the logits, so every
+    rank returns the one-device values."""
     import torch
 
     from geoguessr_ai_torch import config as C
@@ -99,20 +107,17 @@ def evaluate_model(
     from geoguessr_ai_torch.geocells.manager import CentroidTable
     from geoguessr_ai_torch.models.clip_vit import CLIPEmbed
     from geoguessr_ai_torch.ops.preprocess import fused_preprocess
+    from geoguessr_ai_torch.parallel.mesh import mesh_for
     from geoguessr_ai_torch.train.steps import eval_step
 
     if state is None or eval_dataset is None:
         raise ValueError("evaluate_model needs a state and an eval_dataset")
-    mesh_cfg = mesh_cfg or MeshConfig()
-    if mesh_cfg.model_parallel != 1 or mesh_cfg.data_parallel not in (-1, 1):
-        raise NotImplementedError(
-            "the port evaluates on one device; a mesh of more than one waits "
-            "for torch.distributed (ROADMAP Queue 1 item 11)")
     model = model or state.model
     if model.backbone is None:
         raise ValueError("evaluate_model reads panorama images: the model "
                          "has no backbone")
     dev = next(model.parameters()).device
+    mesh = state.mesh or mesh_for(mesh_cfg or MeshConfig(), dev)
     table = centroid_table or CentroidTable.load(C.CENTROID_TABLE_PATH)
     centroids = torch.as_tensor(table.centroids, device=dev)
     image_size = model.backbone.config.image_size
@@ -123,14 +128,15 @@ def evaluate_model(
         mean, std = C.TINYVIT_NORM_MEAN, C.TINYVIT_NORM_STD
     evaluated = dataclasses.replace(state, model=model)
     agg = []
-    it = PanoramaBatchIterator(eval_dataset, batch_size, image_size,
-                               drop_remainder=True)
+    it = PanoramaBatchIterator(
+        eval_dataset, batch_size, image_size, drop_remainder=True,
+        batch_rows=None if mesh is None else mesh.eval_rows(batch_size))
     for batch in prefetch_to_device(it, dev, depth=2):
         px = fused_preprocess(batch["pixel_values"], mean, std, image_size)
         agg.append(eval_step(evaluated, {"pixel_values": px,
                                          "coords": batch["coords"],
                                          "view_mask": batch["view_mask"]},
-                             centroids))
+                             centroids, mesh))
     if not agg:
         return {}
     dists = [m.pop("dist_km").cpu().numpy() for m in agg]

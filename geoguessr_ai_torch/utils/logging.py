@@ -47,6 +47,19 @@ class MetricsLogger:
         writer here; stdout needs nothing)."""
 
 
+class NullMetricsLogger(MetricsLogger):
+    """Logs nothing: the logger of every rank of a mesh but rank 0."""
+
+    def __init__(self):
+        pass
+
+    def log(self, metrics: Dict[str, float], step: int) -> None:
+        pass
+
+    def summary(self, key: str, value) -> None:
+        pass
+
+
 class StepTimer:
     """Rolling steps/sec over the last ``window`` ticks."""
 

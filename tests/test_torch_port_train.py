@@ -963,7 +963,9 @@ def test_train_runs_steps_validation_and_summary(fixtures_dir, monkeypatch):
 
 
 @pytest.mark.parametrize("change,match", [
-    (dict(mesh=dict(data_parallel=4)), "one device"),
+    # the mesh is ported (tests/test_torch_port_mesh.py): a mesh of four in
+    # one process does not cover its one rank
+    (dict(mesh=dict(data_parallel=4)), "does not cover 1"),
 ])
 def test_train_raises_for_what_is_not_ported(change, match, tmp_path):
     from geoguessr_ai_torch.config import (
@@ -977,7 +979,7 @@ def test_train_raises_for_what_is_not_ported(change, match, tmp_path):
     cfg = TrainConfig(
         mesh=MeshConfig(**change.get("mesh", {})),
         model=ModelConfig(backbone=BackboneConfig(**change.get("backbone", {}))))
-    with pytest.raises(NotImplementedError, match=match):
+    with pytest.raises(ValueError, match=match):
         coordinator.train(cfg, [], [], _tiny_table(), device="cpu")
 
 

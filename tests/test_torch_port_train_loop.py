@@ -933,7 +933,8 @@ def test_train_model_and_evaluate_model(fixtures_dir, monkeypatch, tmp_path):
     """``train_model`` applies its scalar overrides and trains into a
     checkpoint directory; ``evaluate_model`` on the restored state gives
     eval_step's metrics over the records with the whole-set median, and
-    refuses a mesh of more than one device."""
+    raises for a mesh that does not cover its one process (two ranks:
+    tests/test_torch_port_mesh.py)."""
     from geoguessr_ai_torch.config import MeshConfig
     from geoguessr_ai_torch.train import coordinator
     from geoguessr_ai_torch.train.checkpoints import (
@@ -960,7 +961,7 @@ def test_train_model_and_evaluate_model(fixtures_dir, monkeypatch, tmp_path):
     out = evaluate_model(state, records[8:], table, batch_size=4)
     np.testing.assert_allclose(out["loss"], summary["val_loss"], rtol=1e-6)
     assert {"top1", "top5", "mean_km", "median_km", "score"} <= set(out)
-    with pytest.raises(NotImplementedError, match="item 11"):
+    with pytest.raises(ValueError, match="does not cover 1"):
         evaluate_model(state, records, table,
                        mesh_cfg=MeshConfig(data_parallel=2))
 
