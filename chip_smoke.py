@@ -251,7 +251,7 @@ Phases, in order; any failure exits non-zero:
     bitwise as the ingested files, and the inference entry point's
     fallback (no images, no fixture) printing the guess of the panorama it
     downloaded; the phase under 60 s;
-33. two ranks on the one card over gloo (``parallel.launch``, a
+33. two ranks on the one card over gloo (``parallel.mesh.spawn_ranks``, a
     ``file://`` rendezvous; NCCL refuses two ranks on one device), each
     driving the full-width TinyViT-21M-512 (seeded weights): (a) MESH_STEPS
     data-axis ``train_step``s of its 8 panoramas of the 16-panorama
@@ -5697,8 +5697,8 @@ def _mesh_steps(state, batch, centroids, steps, mesh=None):
 
 
 def _mesh_rank(out):
-    """One rank of phase 33, started by ``parallel.launch`` on cuda:0 over
-    gloo: its data-axis state, its model-axis state (f32) and its
+    """One rank of phase 33, started by ``parallel.mesh.spawn_ranks`` on
+    cuda:0 over gloo: its data-axis state, its model-axis state (f32) and its
     ``Embedder`` built, then (once ``out/go`` exists) MESH_STEPS data-axis
     train_steps of its half of the fixture batch at full width with the
     launch counters at 0 first, the gradient all-reduce timed alone, a
@@ -5840,7 +5840,7 @@ def phase_mesh():
     multi-card measurement."""
     import threading
 
-    from geoguessr_ai_torch.parallel.launch import spawn
+    from geoguessr_ai_torch.parallel.mesh import spawn_ranks
 
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp:
@@ -5848,10 +5848,10 @@ def phase_mesh():
 
         def run_ranks():
             try:
-                spawn("chip_smoke:_mesh_rank", 2,
-                      f"file://{os.path.join(tmp, 'rendezvous')}", [tmp],
-                      cwd=HERE, timeout=3 * MESH_PHASE_S)
-            except RuntimeError as e:
+                spawn_ranks(_mesh_rank, 2,
+                            f"file://{os.path.join(tmp, 'rendezvous')}",
+                            [tmp], timeout=3 * MESH_PHASE_S)
+            except Exception as e:  # a rank's error, reported below
                 failed.append(e)
 
         ranks_thread = threading.Thread(target=run_ranks)

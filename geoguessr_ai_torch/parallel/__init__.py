@@ -1,2 +1,1 @@
-"""Data and model parallelism over torch.distributed (``mesh``) and a
-launcher of ranks on one machine (``launch``)."""
+"""Data and model parallelism over torch.distributed (``mesh``)."""

@@ -28,16 +28,16 @@ Mesh positions: the ranks in ``dcn_aware_order`` reshaped (dp, mp); rank
 m) and model group d.
 
 **The data axis** (``batch_slice``, the counterpart of ``batch_sharding``;
-``replicated`` is the identity): each rank runs its rows of the global
-batch and the gradients are averaged over the data group, which equals
-the JAX step on the global batch when the slices are equal.  What reads
-the whole batch reads it whole: BatchNorm's train statistics are
-all-reduced over the data group (differentiably, so the backward sees the
-global statistics too, and the running statistics stay equal on every
-rank), per-sample random masks are drawn for the global batch and sliced
-(``rand_rows``), the contrastive loss gathers both embeddings
-(``gather_data``), and the metrics gather logits and coordinates
-(``gather_rows``).
+a replicated value needs no call: every rank holds all of it): each rank
+runs its rows of the global batch and the gradients are averaged over the
+data group, which equals the JAX step on the global batch when the slices
+are equal.  What reads the whole batch reads it whole: BatchNorm's train
+statistics are all-reduced over the data group (differentiably, so the
+backward sees the global statistics too, and the running statistics stay
+equal on every rank), per-sample random masks are drawn for the global
+batch and sliced (``rand_rows``), the contrastive loss gathers both
+embeddings (``gather_data``), and the metrics gather logits and
+coordinates (``gather_rows``).
 
 **The model axis** (``param_spec``: the JAX name rules on the port's
 names; a flax kernel is (in, out) and a ``Linear.weight`` (out, in), so a
@@ -62,6 +62,10 @@ carry on CUDA tensors, so that two ranks sharing one card (gloo, which
 carries only broadcast and all-reduce there) run the same code as two
 cards (NCCL).  A gather is the sum of zero-filled slots, one a rank, which
 is exact.  Nothing falls back to a host copy.
+
+Ranks on one machine without ``torchrun`` (the CPU tests over gloo, two
+ranks sharing one card): ``spawn_ranks`` starts them with
+``torch.multiprocessing`` and forms their group at a ``file://`` address.
 """
 
 from __future__ import annotations
@@ -69,7 +73,9 @@ from __future__ import annotations
 import dataclasses
 import datetime
 import os
-from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
+import time
+from typing import (Callable, Dict, List, NamedTuple, Optional, Sequence,
+                    Tuple)
 
 import numpy as np
 import torch
@@ -206,10 +212,14 @@ class Mesh:
     # -- collectives -----------------------------------------------------
 
     def barrier(self) -> None:
-        """Returns once every rank of the group has called it (an
-        all-reduce on this rank's device)."""
+        """Returns once every rank of the group has called it, on every
+        backend: an all-reduce on this rank's device read back to the host
+        (NCCL returns from a collective once it is queued on the stream;
+        reading its result waits for every rank's part)."""
         if self.size > 1:
-            dist.all_reduce(torch.zeros((), device=self.device))
+            t = torch.zeros((), device=self.device)
+            dist.all_reduce(t)
+            t.item()
 
     def _sum_(self, t: torch.Tensor, group) -> torch.Tensor:
         dist.all_reduce(t, group=group)
@@ -495,15 +505,34 @@ def create_mesh(cfg: MeshConfig = MeshConfig(), world: Optional[int] = None,
         # every rank forms every group, in one order
         if dp > 1:
             for j in range(mp):
-                g = dist.new_group([int(r) for r in grid[:, j]])
+                g = _group(grid[:, j])
                 if j == m:
                     data_group = g
         if mp > 1:
             for i in range(dp):
-                g = dist.new_group([int(r) for r in grid[i]])
+                g = _group(grid[i])
                 if i == d:
                     model_group = g
     return Mesh(dp, mp, rank, d, m, data_group, model_group, device)
+
+
+#: The groups formed in this process group, by their ranks (and the
+#: process group they belong to under "world").
+_GROUPS: dict = {}
+
+
+def _group(ranks) -> object:
+    """The group of ``ranks``, formed once a process group: every mesh
+    over the same ranks shares it (``dist.new_group`` is a collective of
+    every rank and, on NCCL, a communicator holding device memory).  The
+    ranks form their meshes in one order, so their caches agree."""
+    if _GROUPS.get("world") is not dist.group.WORLD:
+        _GROUPS.clear()
+        _GROUPS["world"] = dist.group.WORLD
+    key = tuple(int(r) for r in ranks)
+    if key not in _GROUPS:
+        _GROUPS[key] = dist.new_group(list(key))
+    return _GROUPS[key]
 
 
 def mesh_for(cfg: MeshConfig, device=None) -> Optional[Mesh]:
@@ -541,11 +570,6 @@ def batch_slice(global_batch: Dict, mesh: Optional[Mesh],
             v = v[rows]
         out[k] = v
     return out
-
-
-def replicated(x):
-    """A replicated value: every rank holds all of it."""
-    return x
 
 
 # Layers whose weights are column-sharded on the model axis (the JAX
@@ -643,3 +667,43 @@ def whole(lin: nn.Linear):
     if bias is not None and d == 0:
         bias = mesh.gather_model(bias, 0, size)
     return Dense(mesh.gather_model(lin.weight, d, size), bias)
+
+
+def _rank_main(rank: int, fn: Callable, world: int, init_method: str,
+               backend: str, args: tuple) -> None:
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(world),
+                      LOCAL_RANK=str(rank), LOCAL_WORLD_SIZE=str(world))
+    maybe_initialize_distributed(backend, init_method)
+    try:
+        fn(*args)
+    finally:
+        dist.destroy_process_group()
+
+
+def spawn_ranks(fn: Callable, world: int, init_method: str,
+                args: Sequence = (), backend: str = "gloo",
+                timeout: float = 600.0) -> None:
+    """Runs ``fn(*args)`` (a module-level function) on ranks 0..world-1 of
+    one machine, one ``torch.multiprocessing`` process each, with
+    ``RANK`` / ``WORLD_SIZE`` / ``LOCAL_RANK`` set and the group formed at
+    ``init_method`` (a ``file://`` path keeps concurrent runs apart).  A
+    rank that raises stops the others and raises here; so does the time
+    running out.  Gloo rides the loopback interface unless
+    ``GLOO_SOCKET_IFNAME`` names another.  Each rank's process imports
+    the caller's main module again, so a script that calls this keeps its
+    work under ``if __name__ == "__main__"``.  Production runs start their
+    ranks with ``torchrun`` instead."""
+    import torch.multiprocessing as mp
+
+    os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")
+    ctx = mp.start_processes(
+        _rank_main, (fn, world, init_method, backend, tuple(args)),
+        nprocs=world, join=False, start_method="spawn")
+    deadline = time.monotonic() + timeout
+    while not ctx.join(max(0.0, deadline - time.monotonic())):
+        if time.monotonic() >= deadline:
+            for p in ctx.processes:
+                p.kill()
+                p.join()
+            raise TimeoutError(f"{fn.__name__} on {world} ranks: over "
+                               f"{timeout:.0f} s")

@@ -1,8 +1,8 @@
 """Two-rank dry run of the multi-card plumbing on the CPU (counterpart of
 the repo's tools/multihost_dryrun.py).
 
-Starts two gloo ranks (``parallel.launch``, a ``file://`` rendezvous in a
-temporary directory) and checks on both what one process cannot: the
+Starts two gloo ranks (``parallel.mesh.spawn_ranks``, a ``file://``
+rendezvous in a temporary directory) and checks on both what one process cannot: the
 process group forms, ``host_shard_range`` gives contiguous, disjoint
 ranges that cover the rows, a padded gather of ragged shards
 (``Mesh.gather_rows``) recovers every row with its rank's values, and a
@@ -97,11 +97,11 @@ def worker() -> None:
 
 
 def main() -> None:
-    from geoguessr_ai_torch.parallel.launch import spawn
+    from geoguessr_ai_torch.parallel.mesh import spawn_ranks
 
     with tempfile.TemporaryDirectory() as tmp:
-        spawn("geoguessr_ai_torch.tools.multihost_dryrun:worker", 2,
-              f"file://{os.path.join(tmp, 'rendezvous')}", timeout=300)
+        spawn_ranks(worker, 2, f"file://{os.path.join(tmp, 'rendezvous')}",
+                    timeout=300)
     print("MULTIHOST DRYRUN OK (2 gloo ranks)")
 
 

@@ -43,6 +43,9 @@ class CheckpointConfig:
     async_save: bool = False
     #: False on every rank of a mesh but rank 0: save_epoch resolves the
     #: best value and writes nothing (rank 0 writes; every rank reads).
+    #: Every rank still calls save_epoch, since the state dict of a model
+    #: axis is a collective (its shards gathered) and every rank needs the
+    #: best value; the store itself knows no mesh.
     write: bool = True
 
 

@@ -329,13 +329,11 @@ def ranks(tmp_path_factory):
     failed = []
 
     def run_ranks():
-        from geoguessr_ai_torch.parallel.launch import spawn
-
         try:
-            spawn("torch_mesh_worker:main", 2,
-                  f"file://{os.path.join(out, 'rendezvous')}", [out],
-                  env=env, cwd=REPO, timeout=240)
-        except RuntimeError as e:
+            M.spawn_ranks(W.main, 2,
+                          f"file://{os.path.join(out, 'rendezvous')}", [out],
+                          timeout=240)
+        except Exception as e:  # a rank's error, shown by the assert below
             failed.append(e)
 
     jax_results = _jax_steps(out, env)
@@ -559,6 +557,15 @@ def test_train_with_a_resume_on_two_ranks_equals_one_process(ranks):
                   "global_step", "best_value"):
             np.testing.assert_allclose(summary[k], want_summary[k],
                                        rtol=1e-5, err_msg=k)
+
+
+def test_train_returns_on_every_rank_after_rank_0s_last_write(ranks):
+    """train() with async checkpoints, rank 0's write held back a second:
+    neither rank returns before ``last`` and ``best`` hold their file (the
+    barrier at train()'s end waits for rank 0's write)."""
+    results, _, _ = ranks
+    for r in results:
+        assert r["train_slow_write"] == {"last": True, "best": True}
 
 
 def test_multihost_dryrun_tool_passes(ranks):

@@ -323,7 +323,6 @@ def test_port_imports_no_jax_flax_or_the_jax_package():
             "geoguessr_ai_torch/acquisition/collect.py",
             "geoguessr_ai_torch/tools/upload_checkpoint.py",
             "geoguessr_ai_torch/parallel/mesh.py",
-            "geoguessr_ai_torch/parallel/launch.py",
             "geoguessr_ai_torch/tools/multihost_dryrun.py"} <= rel
     # the one exception, as in the JAX package: the Parquet writer imports
     # pandas inside itself

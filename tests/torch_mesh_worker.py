@@ -4,8 +4,8 @@ Each scenario is a function of a ``parallel.mesh.Mesh`` (None: one
 process) over inputs made here from numpy seeds, so that the test's
 one-process references and the JAX references read the same inputs.
 ``main(OUT)`` runs every scenario on the ranks of a gloo process group
-(``python -m geoguessr_ai_torch.parallel.launch ... torch_mesh_worker:main
-OUT``) and writes each rank's results to ``OUT/rank<r>.pt``.  It imports
+(started by ``parallel.mesh.spawn_ranks``) and writes each rank's results
+to ``OUT/rank<r>.pt``.  It imports
 torch and the port only.
 """
 
@@ -197,7 +197,7 @@ def run_eval(mesh=None):
                           batch_size=EVAL_BATCH)
 
 
-def _train_config(epochs):
+def _train_config(epochs, **fields):
     from geoguessr_ai_torch.config import (
         BackboneConfig,
         ModelConfig,
@@ -209,7 +209,7 @@ def _train_config(epochs):
     return TrainConfig(batch_size=4, num_epochs=epochs, seed=0,
                        log_every_steps=1, eval_every_steps=0,
                        optimizer=OptimizerConfig(learning_rate=1e-3),
-                       model=ModelConfig(backbone=bb))
+                       model=ModelConfig(backbone=bb), **fields)
 
 
 def run_train(directory, epochs):
@@ -226,6 +226,39 @@ def run_train(directory, epochs):
     last = read_checkpoint(os.path.join(directory, "last"))["state"]
     return {k: v for k, v in summary.items() if isinstance(v, (int, float))
             }, last["model"]
+
+
+#: Seconds rank 0's checkpoint write waits before it starts in
+#: ``run_train_slow_write``.
+SLOW_WRITE_S = 1.0
+
+
+def run_train_slow_write(directory):
+    """train() for one epoch into ``directory`` with async checkpoints,
+    rank 0's write held back SLOW_WRITE_S; returns which of ``last`` and
+    ``best`` hold their file when train() has returned on this rank."""
+    import time
+
+    from geoguessr_ai_torch.train import checkpoints
+    from geoguessr_ai_torch.train.coordinator import train
+
+    save = checkpoints.CheckpointStore._save_tree
+
+    def slow(self, name, tree):
+        time.sleep(SLOW_WRITE_S)
+        save(self, name, tree)
+
+    checkpoints.CheckpointStore._save_tree = slow
+    records = fixture_records(16)
+    try:
+        train(_train_config(1, async_checkpoints=True), records[:12],
+              records[12:], tiny_table(), checkpoint_dir=directory,
+              device="cpu", model_config=tiny_config())
+    finally:
+        checkpoints.CheckpointStore._save_tree = save
+    return {d: os.path.exists(os.path.join(directory, d,
+                                           checkpoints.STATE_FILE))
+            for d in ("last", "best")}
 
 
 def clip_configs():
@@ -336,6 +369,7 @@ def main(out):
         os.path.join(out, "embed_src.sqlite"),
         os.path.join(out, "embed_dp2.sqlite"), dp2)
     results["train"] = run_train(os.path.join(out, "train_a"), 2)
-    run_train(os.path.join(out, "train_b"), 1)
+    results["train_slow_write"] = run_train_slow_write(
+        os.path.join(out, "train_b"))
     results["train_resumed"] = run_train(os.path.join(out, "train_b"), 2)
     torch.save(results, os.path.join(out, f"rank{rank}.pt"))
