@@ -269,7 +269,22 @@ Phases, in order; any failure exits non-zero:
     gloo carries on CUDA tensors) at B=4 with exact launches, against one
     process under (a)'s gates; the phase under 60 s.  Its times are two
     ranks sharing one card, not a multi-card measurement;
-34. print the kernel JSON line, then ``{"ok": true, "device": ...}`` last.
+34. the window-attention tile knobs (``ops/window_attention.py``
+    ``TILE_KNOBS``; ``phase_tile_knobs``): (a) the wrapper's plan mirror
+    of every call of the phase against each library's CUDA plan query,
+    and SMEM_LIMIT_BYTES at 48 KiB refusing every bf16 core call with
+    ValueError before a launch; (b) K1-K5, K7-K9 at production shapes
+    with every knob set to its default bitwise equal to the knobs
+    untouched; (c) BWD_Q_ROWS 64 (K4 at the train and the TinyViT-5M-224
+    shapes, K5 and K7 at stage 2), FWD_Q_ROWS 128 (K1-K3, K8a, K8b, K9),
+    FUSED_BLOCK_WB 8 under a 32 MiB budget (K1, K9) and BWD_PARTIAL_BYTES
+    4 MiB (K4 stage 3) against the plain versions (max |err| / max |ref| <=
+    2e-2), one launch a call, bitwise over two calls, timed beside the
+    default and the library call; (d) ``tools.exp_r4_vmem``'s
+    ``s2bq1024_v64`` and ``train_both_v64`` in subprocesses, one timed call
+    or step each (result "ok"; the embed case's first 8 embeddings at
+    cosine >= 0.999 to a default-knob run here); the phase under 90 s;
+35. print the kernel JSON line, then ``{"ok": true, "device": ...}`` last.
 
 Times: ``kernel_ms`` times a kernel or a library call by 10 (or 50)
 launches between two CUDA events; where that reads under SHORT_MS (0.5
@@ -506,7 +521,8 @@ def _case_inputs(W, N, C, H, gen, dtype=torch.bfloat16):
     bf = dtype
 
     def randn(*shape, std=1.0, mean=0.0):
-        return (torch.randn(*shape, generator=gen) * std + mean).to(dev)
+        return (torch.randn(*shape, generator=gen, device=gen.device) * std
+                + mean).to(dev)
 
     return dict(
         x=randn(W, N, C).to(bf),
@@ -5935,6 +5951,387 @@ def phase_mesh():
 # ---------------------------------------------------------------------------
 
 
+# ---------------------------------------------------------------------------
+# Phase 34: the window-attention tile knobs
+# ---------------------------------------------------------------------------
+
+#: The forward kernels at their production shapes: K1 (stage 1) and K2
+#: (stage 2) of a serving bucket of 16, K3 at stage 3 ((W, N, C, H)), K8a
+#: (stage 2) and K8b (stage 1) of the head-major bucket 16 ((W, H, N)), K9
+#: at 64 images.
+KNOB_FWD_CASES = (
+    ("K1", "stage1", (1024, 256, 192, 6)),
+    ("K2", "stage2", (64, 1024, 384, 12)),
+    ("K3", "stage3", (64, 256, 576, 18)),
+    ("K8a", "stage2_bucket16", (64, 12, 1024)),
+    ("K8b", "stage1_bucket16", (1024, 6, 256)),
+    ("K9", "bucket16", (64,)),
+)
+#: The backward kernels ((W, N, H)): K4 at the B=16 train shapes of
+#: TinyViT-21M-512 and at the finetune's three TinyViT-5M-224 shapes, K5
+#: and K7 at stage 2.
+KNOB_BWD_CASES = (
+    ("K4", "stage1", (1024, 256, 6)),
+    ("K4", "stage3", (64, 256, 18)),
+    ("K4", "5m224_stage1", (1024, 49, 4)),
+    ("K4", "5m224_stage2", (64, 196, 5)),
+    ("K4", "5m224_stage3", (64, 49, 10)),
+    ("K5", "stage2", (64, 1024, 12)),
+    ("K7", "stage2", (64, 1024, 12)),
+)
+_K4_LABELS = tuple(label for k, label, _ in KNOB_BWD_CASES if k == "K4")
+#: (c): each non-default value (label, the knobs it sets) and the cases it
+#: runs.
+KNOB_VALUE_CASES = (
+    ("BWD_Q_ROWS=64", {"BWD_Q_ROWS": 64},
+     tuple(("K4", label) for label in _K4_LABELS)
+     + (("K5", "stage2"), ("K7", "stage2"))),
+    ("FWD_Q_ROWS=128", {"FWD_Q_ROWS": 128},
+     (("K2", "stage2"), ("K3", "stage3"), ("K8b", "stage1_bucket16"),
+      ("K8a", "stage2_bucket16"), ("K1", "stage1"), ("K9", "bucket16"))),
+    ("FUSED_BLOCK_WB=8", {"FUSED_BLOCK_WB": 8,
+                          "FUSED_BLOCK_SCORE_BYTES": 32 * 1024 * 1024},
+     (("K1", "stage1"), ("K9", "bucket16"))),
+    ("BWD_PARTIAL_BYTES=4MiB", {"BWD_PARTIAL_BYTES": 4 * 1024 * 1024},
+     (("K4", "stage3"),)),
+)
+#: (c): the case of each other kind whose launches are traced (the core's
+#: template arguments and each launch's device time), at the kind and at
+#: the defaults.
+KNOB_TRACED = {"BWD_Q_ROWS=64": ("K4", "5m224_stage1"),
+               "FWD_Q_ROWS=128": ("K2", "stage2")}
+#: (d): the cases of ``tools.exp_r4_vmem`` run in subprocesses, one embed
+#: and one train case.
+KNOB_TOOL_CASES = ("s2bq1024_v64", "train_both_v64")
+KNOB_PHASE_S = 90.0
+
+
+def _knob_case(kernel, shape, gen):
+    """One phase-34 case in bf16: a dict of the wrapper (``fn``) and its
+    plain version, their arguments, the LAUNCHES key, a function timing
+    the library call ((ms or None, what)) and the core's geometry (W, N,
+    H, the windows of a map row for K9; N padded to 64 for K4)."""
+    from geoguessr_ai_torch.ops import window_attention as wa
+
+    bf = torch.bfloat16
+
+    def randn(*shape, std=1.0):
+        return torch.randn(*shape, generator=gen, device="cuda") * std
+
+    if kernel in ("K4", "K5", "K7"):
+        W, N, H = shape
+        D = H * 32
+        qkv = randn(W, N, 3 * D).to(bf)
+        bias = randn(H, N, N, std=0.5)
+        g = randn(W, N, D).to(bf)
+        name = {"K4": BWD_META["K4"][0], "K5": BWD_META["K5"][0],
+                "K7": K7_META[0]}[kernel]
+        plain = {"K4": wa._attention_qkv_bwd_plain,
+                 "K5": wa._attention_bwd_merged_plain,
+                 "K7": wa._attention_bwd_qtiled_plain}[kernel]
+        return dict(fn=getattr(wa, name), plain=plain, name=name,
+                    args=(qkv, bias, g, 32 ** -0.5, H),
+                    library=lambda: _sdpa_bwd_ms(qkv, bias, g, 32 ** -0.5, H),
+                    geometry=(W, -(-N // 64) * 64, H, None))
+    if kernel in ("K8a", "K8b"):
+        W, H, N = shape
+        q, k, v = (randn(W, H, N, 32).to(bf) for _ in range(3))
+        bias = randn(H, N, N, std=0.5)
+        name = HEADMAJOR_META[kernel][0]
+        return dict(fn=getattr(wa, name), plain=wa._attention_plain,
+                    name=name, args=(q, k, v, bias, 32 ** -0.5),
+                    library=lambda: _headmajor_sdpa_ms(q, k, v, bias,
+                                                       32 ** -0.5),
+                    geometry=(W, N, H, None))
+    if kernel == "K9":
+        images = shape[0]
+        kern, plain, args, _, _, lib_ms, what = _embed_kernel_case(
+            "K9", images, gen)
+        rw = STAGE1_MAP // STAGE1_WINDOW
+        return dict(fn=kern, plain=plain, name=EMBED_META["K9"][0],
+                    args=args, library=lambda: (lib_ms, what),
+                    geometry=(images * rw * rw, STAGE1_WINDOW ** 2,
+                              STAGE1_HEADS, rw))
+    W, N, C, H = shape
+    a = _case_inputs(W, N, C, H, gen)
+    scale = (C // H) ** -0.5
+    qkv = wa._ln_qkv_plain(a["x"], a["ln_scale"], a["ln_bias"], a["w_qkv"],
+                           a["b_qkv"], 1e-5)
+    lib = (lambda: (_sdpa_ms(qkv, a["bias"], scale, H),
+                    "scaled_dot_product_attention on its q, k, v and bias"))
+    if kernel == "K3":
+        args = (qkv, a["bias"], scale, H)
+        fn, plain = wa._attention_qkv_fused_cuda, wa._attention_qkv_fused_plain
+    elif kernel == "K2":
+        args = (a["x"], a["ln_scale"], a["ln_bias"], a["w_qkv"],
+                a["b_qkv"], a["bias"], scale, H, 1e-5)
+        fn, plain = wa._fb_s2_cuda, wa._fb_s2_plain
+    else:
+        args = (a["x"], a["ln_scale"], a["ln_bias"], a["w_qkv"],
+                a["b_qkv"], a["w_proj"], a["b_proj"], a["bias"], scale,
+                H, 1e-5)
+        fn, plain = wa._fused_block_cuda, wa._fused_block_plain
+    return dict(fn=fn, plain=plain, name=KERNEL_META[kernel][0], args=args,
+                library=lib, geometry=(W, N, H, None))
+
+
+def _outputs(out):
+    return out if isinstance(out, tuple) else (out,)
+
+
+def _core_kernels(fn):
+    """The template arguments of each Hopper attention core kernel one
+    fn() call launches, from a torch.profiler trace (empty when the trace
+    holds no device kernels)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sorted({evt.name.split("<", 1)[1].split(">", 1)[0]
+                   for evt in prof.events()
+                   if evt.device_type == torch.autograd.DeviceType.CUDA
+                   and ("attn_bwd_sm90<" in evt.name
+                        or "attention_fwd_sm90<" in evt.name)})
+
+
+def _cuda_plan(lib, entry, *args, n):
+    """The ``n`` ints a library's plan query fills, or fails."""
+    import ctypes
+
+    from geoguessr_ai_torch.ops import _build
+
+    out = (ctypes.c_int * n)()
+    err = _build.entry(lib, entry)(*args, ctypes.addressof(out))
+    if err:
+        fail(f"{entry}{args}: the plan query returned {err}")
+    return list(out)
+
+
+def _knob_plan_check(kernel, geometry, knobs):
+    """(a): the wrapper's plan mirror of one call against the CUDA plan's
+    query at the same (W, N, H, hd 32, G, rows); returns a log line."""
+    from geoguessr_ai_torch.ops import window_attention as wa
+
+    W, N, H, rw = geometry
+    if kernel in ("K4", "K5", "K7"):
+        plan = wa._bwd_call_plan(kernel, W, N, H, 32, knobs)
+        lib = {"K4": "attention_qkv_bwd", "K5": "attention_bwd_merged",
+               "K7": "attention_bwd_qtiled"}[kernel]
+        got = _cuda_plan(lib, f"{lib}_plan", W, N, H, 32, plan["G"],
+                         plan["rows"], n=12)
+        modes = wa._BWD_LAUNCHES
+        want = ([plan["smem"][m] for m in modes]
+                + [plan["items"][m] for m in modes]
+                + [plan["stages"][m] for m in modes])
+        what = (f"rows {plan['rows']} G {plan['G']} smem "
+                f"{dict(zip(modes, want[:4]))} items "
+                f"{dict(zip(modes, want[4:8]))} slots {want[8:]}")
+    else:
+        plan = wa._fwd_call_plan(kernel, W, H, N, 32, knobs, rw)
+        _, _, lib, fn = wa._FWD_KERNELS[kernel]
+        got = _cuda_plan(lib, f"{fn}_plan", W, N, H, 32, plan["groups"],
+                         plan["rows"], n=8)
+        keys = ("smem", "items", "G", "NT", "NB", "QB", "S", "stream")
+        want = [plan[k] for k in keys]
+        what = ", ".join(f"{k} {v}" for k, v in zip(keys, want))
+    if got != want:
+        fail(f"{kernel} {geometry} {knobs}: the plan mirror {want} differs "
+             f"from the CUDA plan {got}")
+    return what
+
+
+def _set_knobs(values):
+    from geoguessr_ai_torch.ops import window_attention as wa
+
+    for name, value in values.items():
+        setattr(wa, name, value)
+    return wa.tile_knobs()
+
+
+def phase_tile_knobs():
+    """Phase 34: the window-attention tile knobs.  (a) At every call the
+    phase makes, the wrapper's plan mirror equals the CUDA plan's query;
+    with SMEM_LIMIT_BYTES at 48 KiB every bf16 core call raises ValueError
+    and no launch is counted.  (b) K1-K5, K7-K9 with every knob set to its
+    default equal the run with the knobs untouched, bit for bit.  (c) Each
+    non-default value against the kernel's plain version (max |err| / max
+    |ref| <= KERNEL_REL_TOL), one launch a call, bitwise over two calls,
+    timed beside the default (both device time) and the library call.  (d)
+    One embed and one train case of ``tools.exp_r4_vmem`` in subprocesses,
+    one timed call or step each: result "ok", the embed case's first 8
+    embeddings at cosine >= MIN_COSINE to this process's default-knob run
+    of the same forward on the batch's first 8 images.  Under
+    KNOB_PHASE_S."""
+    from geoguessr_ai_torch.ops import window_attention as wa
+    from geoguessr_ai_torch.tools import exp_r4_vmem as tv
+
+    t0 = time.perf_counter()
+    defaults = {name: d for name, (d, _) in wa.TILE_KNOBS.items()}
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 34)
+    cases = {(k, label): _knob_case(k, shape, gen)
+             for k, label, shape in KNOB_FWD_CASES + KNOB_BWD_CASES}
+    torch.cuda.synchronize()
+    log(f"(set-up) {len(cases)} cases in {time.perf_counter() - t0:.1f} s")
+
+    # (a) the plan mirrors, and the shared-memory limit
+    knobs = wa.tile_knobs()
+    for (k, label), c in cases.items():
+        what = _knob_plan_check(k, c["geometry"], knobs)
+        log(f"(a) {k} {label} default: {what}")
+    for value, over, which in KNOB_VALUE_CASES:
+        knobs = _set_knobs(over)
+        for k, label in which:
+            log(f"(a) {k} {label} {value}: "
+                f"{_knob_plan_check(k, cases[(k, label)]['geometry'], knobs)}")
+        _set_knobs(defaults)
+    wa.SMEM_LIMIT_BYTES = 48 * 1024
+    _reset_all_launches()
+    for (k, label), c in cases.items():
+        try:
+            c["fn"](*c["args"])
+        except ValueError as e:
+            if "SMEM_LIMIT_BYTES" not in str(e):
+                fail(f"{k} {label}: SMEM_LIMIT_BYTES=48 KiB raised another "
+                     f"ValueError: {e}")
+            continue
+        fail(f"{k} {label}: SMEM_LIMIT_BYTES=48 KiB did not refuse the call")
+    wa.SMEM_LIMIT_BYTES = None
+    moved = {k: n for k, n in _all_launches().items() if n}
+    log(f"(a) SMEM_LIMIT_BYTES=48 KiB: all {len(cases)} calls refused with "
+        f"ValueError; launches counted {moved or 0}")
+    if moved:
+        fail(f"SMEM_LIMIT_BYTES=48 KiB: launches were counted {moved}")
+
+    # (b) every knob set to its default: the bits of the knobs untouched
+    for (k, label), c in cases.items():
+        c["default"] = _outputs(c["fn"](*c["args"]))
+        _set_knobs(defaults)
+        same = all(torch.equal(a, b) for a, b in
+                   zip(c["default"], _outputs(c["fn"](*c["args"]))))
+        log(f"(b) {k} {label}: every knob at its default, bitwise equal to "
+            f"the knobs untouched {same}")
+        if not same:
+            fail(f"{k} {label}: the knobs at their defaults changed the bits")
+    torch.cuda.synchronize()
+    log(f"(a), (b) at {time.perf_counter() - t0:.1f} s")
+
+    # (c) each non-default value against the plain version, timed
+    rows = {}
+    for value, over, which in KNOB_VALUE_CASES:
+        if value in KNOB_TRACED:
+            k, label = KNOB_TRACED[value]
+            c = cases[(k, label)]
+            for at, knobs in ((value, over), ("the defaults", defaults)):
+                _set_knobs(knobs)
+                names = _core_kernels(lambda: c["fn"](*c["args"]))
+                log(f"(c) {k} {label} at {at}: the core kernels <"
+                    + ">, <".join(names) + "> (torch.profiler; the item's "
+                    "rows are the last template argument)")
+                _log_launch_ms(_launch_ms(lambda: c["fn"](*c["args"])))
+            _set_knobs(defaults)
+        for k, label in which:
+            c = cases[(k, label)]
+            if "want" not in c:
+                c["want"] = _outputs(c["plain"](*c["args"]))
+                c["ms"] = device_time_ms(lambda: c["fn"](*c["args"]),
+                                         iters=10, reps=3)
+                c["library_ms"], c["library_what"] = c["library"]()
+            _set_knobs(over)
+            _reset_all_launches()
+            got = _outputs(c["fn"](*c["args"]))
+            again = _outputs(c["fn"](*c["args"]))
+            torch.cuda.synchronize()
+            launches = {n: v for n, v in wa.LAUNCHES.items() if v}
+            stable = all(torch.equal(a, b) for a, b in zip(got, again))
+            errs = [(*_rel_err(a, b), bool(torch.isfinite(a).all()))
+                    for a, b in zip(got, c["want"])]
+            same_bits = all(torch.equal(a, b)
+                            for a, b in zip(got, c["default"]))
+            ms = device_time_ms(lambda: c["fn"](*c["args"]), iters=10,
+                                reps=3)
+            _set_knobs(defaults)
+            lib = c["library_ms"]
+            log(f"(c) {k} {label} {value}: max_rel_err "
+                + ", ".join(f"{e[1]:.6g}" for e in errs)
+                + f" (tolerance {KERNEL_REL_TOL}), finite "
+                f"{all(e[2] for e in errs)}, launches {launches}, bitwise "
+                f"over two calls {stable}, equal to the default's bits "
+                f"{same_bits}")
+            log(f"  ms {ms:.4f} beside the default's {c['ms']:.4f} (device "
+                f"time) and the library's "
+                f"{'null' if lib is None else f'{lib:.4f}'} "
+                f"({c['library_what']})")
+            if launches != {c["name"]: 2}:
+                fail(f"{k} {label} {value}: launches {launches}, expected "
+                     f"{c['name']} 2")
+            if not stable:
+                fail(f"{k} {label} {value}: two calls gave different bits")
+            if not all(fin and rel <= KERNEL_REL_TOL for _, rel, fin in errs):
+                fail(f"{k} {label} {value}: disagrees with the plain version "
+                     f"({errs})")
+            rows.setdefault(k, {})[f"{label} {value}"] = dict(
+                ms=ms, default_ms=c["ms"], library_ms=lib,
+                max_abs_err=errs[0][0], max_rel_err=max(e[1] for e in errs))
+    del cases, c
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"(c) at {time.perf_counter() - t0:.1f} s")
+
+    # (d) the tool's cases, each in a process of its own and one timed call
+    # or step: the train case beside this process's default-knob embed of
+    # the batch's first 8 images, then the embed case against it (one
+    # full-width run on the card at a time)
+    t1 = time.perf_counter()
+    ref = os.path.join(tv.OUT_DIR, "phase34_default_emb.npy")
+    env = dict(os.environ, PYTHONPATH=HERE + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+
+    def tool(case, *extra):
+        return subprocess.Popen(
+            [sys.executable, "-m", "geoguessr_ai_torch.tools.exp_r4_vmem",
+             "--case", case, "--iters", "1", *extra], cwd=HERE, env=env,
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+    (embed_case,) = [c for c in KNOB_TOOL_CASES
+                     if tv.KNOB_CASES[c]["run"] == "embed"]
+    procs = {c: tool(c) for c in KNOB_TOOL_CASES if c != embed_case}
+    ref_rec, _ = tv.embed_run(save=ref, iters=0, images=8)
+    torch.cuda.empty_cache()
+    log(f"(d) default-knob embed here: {ref_rec} "
+        f"({time.perf_counter() - t1:.1f} s)")
+    outputs = {c: p.communicate(timeout=3 * KNOB_PHASE_S)
+               for c, p in procs.items()}
+    procs[embed_case] = tool(embed_case, "--ref", ref)
+    outputs[embed_case] = procs[embed_case].communicate(
+        timeout=3 * KNOB_PHASE_S)
+    for case in KNOB_TOOL_CASES:
+        out, err = outputs[case]
+        recs = [json.loads(line) for line in out.splitlines()
+                if line.startswith("{")]
+        for rec in recs:
+            log(f"(d) {case}: {json.dumps(rec)}")
+        oks = [r for r in recs if r.get("result") == "ok"]
+        if procs[case].returncode or not oks:
+            fail(f"(d) {case}: rc {procs[case].returncode}, records {recs}, "
+                 f"stderr {err[-500:]}")
+        if case == embed_case:
+            cos = oks[0].get("min_cosine")
+            log(f"(d) {case}: min cosine to the default-knob embed {cos} "
+                f"(>= {MIN_COSINE})")
+            if cos is None or not cos >= MIN_COSINE:
+                fail(f"(d) {case}: min cosine {cos} < {MIN_COSINE}")
+    took = time.perf_counter() - t0
+    log(f"phase 34 took {took:.1f} s ((d) {time.perf_counter() - t1:.1f} s; "
+        f"under {KNOB_PHASE_S:.0f} s)")
+    if took > KNOB_PHASE_S:
+        fail(f"phase 34 took {took:.1f} s, over its {KNOB_PHASE_S:.0f} s")
+    _reset_all_launches()
+    return rows
+
+
 def main():
     card = phase_device()
     phase_build()
@@ -5981,6 +6378,7 @@ def main():
     gc.collect()
     torch.cuda.empty_cache()
     phase_mesh()
+    knob_rows = phase_tile_knobs()
 
     main_case = {"K1": "stage1", "K2": "stage2", "K3": "stage3",
                  "K4": "stage1", "K5": "stage2"}
@@ -6139,6 +6537,12 @@ def main():
         # torch.mul(x, 21.0) computes the same function in one call
         "library_ms": k14["library_ms"],
     })
+    # phase 34's readings of each kernel's non-default tile knobs
+    ids = {m[0]: k for k, m in {**ALL_META, **HEADMAJOR_META, "K7": K7_META,
+                                "K9": EMBED_META["K9"]}.items()}
+    for entry in kernels:
+        if ids.get(entry["name"]) in knob_rows:
+            entry["tile_knobs"] = knob_rows[ids[entry["name"]]]
     log(card)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -38,28 +38,40 @@ def _twins(name: str, argtypes: tuple) -> Dict[str, tuple]:
     return {f"{name}_bf16": argtypes, f"{name}_f32": argtypes}
 
 
+#: A window-attention core's plan query: (W, N, H, hd, G, rows, int *out).
+_PLAN = (_I, _I, _I, _I, _I, _I, _P)
+
+
+def _tiled(name: str, kind: str, argtypes: tuple) -> Dict[str, tuple]:
+    """A window-attention entry, its f32 twin, its bf16 entry of the other
+    item kind (``<name>_<kind>_bf16``, the same arguments: the tile knobs
+    of ``window_attention``) and its library's plan query."""
+    return {**_twins(name, argtypes), f"{name}_{kind}_bf16": argtypes,
+            f"{name}_plan": _PLAN}
+
+
 #: Entry points of every library, by library name: C name -> argtypes.
 SIGNATURES: Dict[str, Dict[str, tuple]] = {
-    "attention_qkv": _twins("attention_qkv", (
+    "attention_qkv": _tiled("attention_qkv", "q128", (
         _P, _P, _P, _I, _I, _I, _I, _I, _F, _P)),
-    "fb_s2": _twins("fb_s2", (
+    "fb_s2": _tiled("fb_s2", "q128", (
         _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _P)),
-    "fused_block": _twins("fused_block", (
+    "fused_block": _tiled("fused_block", "q128", (
         _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
         _I, _I, _I, _I, _I, _I, _F, _F, _P)),
-    "attention_qkv_bwd": _twins("attention_qkv_bwd", (
+    "attention_qkv_bwd": _tiled("attention_qkv_bwd", "q64", (
         _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P)),
-    "attention_bwd_merged": _twins("attention_bwd_merged", (
+    "attention_bwd_merged": _tiled("attention_bwd_merged", "q64", (
         _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P)),
-    "attention_bwd_qtiled": _twins("attention_bwd_qtiled", (
+    "attention_bwd_qtiled": _tiled("attention_bwd_qtiled", "q64", (
         _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P)),
     "attention_headmajor": {
-        **_twins("attention_qtiled", (
+        **_tiled("attention_qtiled", "q128", (
             _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P)),
-        **_twins("attention_batched", (
+        **_tiled("attention_batched", "q128", (
             _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P)),
     },
-    "fb4d": _twins("fb4d", (
+    "fb4d": _tiled("fb4d", "q128", (
         _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
         _I, _I, _I, _I, _I, _I, _I, _I, _F, _F, _P)),
     "mbconv": _twins("mbconv", (

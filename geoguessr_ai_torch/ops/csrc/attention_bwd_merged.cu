@@ -68,6 +68,22 @@ extern "C" int attention_bwd_merged_bf16(const void* qkv, const void* bias, cons
   return (int)gg::bwd90::launch(a, b, nullptr, 1, hd, 2, static_cast<cudaStream_t>(stream));
 }
 
+// The 64-row kind of the core (window_attention.BWD_Q_ROWS = 64, hd 32),
+// one window group, t in a second pass.
+extern "C" int attention_bwd_merged_q64_bf16(const void* qkv, const void* bias, const void* g,
+                                             void* dqkv, void* dbias, void* stats, int W, int N,
+                                             int H, int hd, float scale, void* stream) {
+  const gg::BwdArgs<gg::bf16> a = args<gg::bf16>(qkv, g, dqkv, dbias, stats, W, N, H, scale);
+  return (int)gg::bwd90::launch(a, static_cast<const float*>(bias), nullptr, 1, hd, 2,
+                                static_cast<cudaStream_t>(stream), 64);
+}
+
+// The bf16 core's plan at (W, N, H, G, hd, rows) without a launch: out[12]
+// as bwd90::plan fills it (the f32 bias).
+extern "C" int attention_bwd_merged_plan(int W, int N, int H, int hd, int G, int rows, int* out) {
+  return (int)gg::bwd90::plan<float>(W, N, H, G, hd, rows, out);
+}
+
 extern "C" int attention_bwd_merged_f32(const void* qkv, const void* bias, const void* g, void* dqkv,
                 void* dbias, void* stats, int W, int N, int H, int hd, float scale,
                 void* stream) {

@@ -291,6 +291,22 @@ extern "C" int attention_bwd_qtiled_bf16(const void* qkv, const void* bias, cons
                                 hd, 2, static_cast<cudaStream_t>(stream));
 }
 
+// The 64-row kind of the core (window_attention.BWD_Q_ROWS = 64, hd 32).
+extern "C" int attention_bwd_qtiled_q64_bf16(const void* qkv, const void* bias, const void* g,
+                                             void* dqkv, void* dbias, void* stats, void* partial,
+                                             int W, int N, int H, int hd, int G, float scale,
+                                             void* stream) {
+  return (int)gg::bwd90::launch(gg::args<gg::bf16>(qkv, g, dqkv, dbias, stats, W, N, H, scale),
+                                static_cast<const float*>(bias), static_cast<float*>(partial), G,
+                                hd, 2, static_cast<cudaStream_t>(stream), 64);
+}
+
+// The bf16 core's plan at (W, N, H, G, hd, rows) without a launch: out[12]
+// as bwd90::plan fills it (the f32 bias).
+extern "C" int attention_bwd_qtiled_plan(int W, int N, int H, int hd, int G, int rows, int* out) {
+  return (int)gg::bwd90::plan<float>(W, N, H, G, hd, rows, out);
+}
+
 extern "C" int attention_bwd_qtiled_f32(const void* qkv, const void* bias, const void* g,
                                         void* dqkv, void* dbias, void* stats, void* partial, int W,
                                         int N, int H, int hd, int G, float scale, void* stream) {

@@ -63,6 +63,15 @@
 // warpgroups an SM.  Two-pass stats issues step s + 1's score products
 // before step s's algebra (two register sets); in dq and dkdv the second
 // set spills, and one-pass stats is slower for it.
+//
+// Two kinds of item, by ROWS (window_attention.BWD_Q_ROWS): 128 rows, the
+// two consumer warpgroups on one item (the default), or 64 rows, each
+// consumer warpgroup on items of its own.  In the 64-row kind a block runs
+// two pipes: pipe p is fed by producer warp p through its own rings and
+// barriers, walks items p, p + 2, .. of the block's share, and its one
+// consumer warpgroup keeps the 128-row kind's register layout.  Where N
+// pads to 64 (N = 49, TinyViT-5M-224), a 128-row item leaves its second
+// warpgroup idle; two 64-row items keep both busy.  Built at hd 32.
 #pragma once
 
 #include <type_traits>
@@ -77,7 +86,7 @@ using namespace sm90;
 
 enum Mode { kStats = 0, kDkdv = 1, kDq = 2, kDbias = 3 };
 
-constexpr int kRowsA = 128;    // row-side rows of an item: two consumer warpgroups of 64
+constexpr int kRowsA = 128;    // row-side rows of the default item: two consumer warpgroups of 64
 constexpr int kCols = 64;      // column-side rows of a step
 constexpr int kConsumers = 256;             // two consumer warpgroups,
 constexpr int kThreads = kConsumers + 128;  // then the producer warpgroup
@@ -86,13 +95,17 @@ constexpr int kThreads = kConsumers + 128;  // then the producer warpgroup
 constexpr int kProducerRegs = 40;
 constexpr int kConsumerRegs = 232;
 
-// Shared memory of one launch, from a 1024-byte aligned base: kRowBufs row
-// slots, kStages column slots, then the mbarriers.
-template <int HD, int MODE, class BiasT>
+// Shared memory of one launch, from a 1024-byte aligned base: each pipe's
+// kRowBufs row slots, each pipe's kStages column slots, then each pipe's
+// mbarriers.
+template <int HD, int MODE, class BiasT, int ROWS = kRowsA>
 struct Smem {
+  static constexpr int kPipes = kRowsA / ROWS;        // item streams of a block: 1, or 2 of 64 rows
   static constexpr int kHalf = kCols * HD * 2;        // 64 rows of one tensor
-  static constexpr int kRowStats = 4 * kHalf;         // a row slot's statistics, after its tiles
-  static constexpr int kRowBuf = 4 * kHalf + 2048;    // two tensors of 128 rows, m, 1/l, t of 128
+  static constexpr int kRowTiles = ROWS / 64;         // 64-row tiles of a row-side tensor
+  static constexpr int kRowStats = 2 * kRowTiles * kHalf;  // a row slot's statistics, after its tiles
+  // two tensors of ROWS rows, m, 1/l, t of ROWS
+  static constexpr int kRowBuf = kRowStats + 1024 * kRowTiles;
   // dbias walks units of one step each, so it keeps more rows in flight
   static constexpr int kRowBufs = MODE == kDbias ? 4 : 2;
   static constexpr int kStatBytes = 3 * kCols * 4;    // m, 1/l, t of 64 queries (dkdv)
@@ -102,22 +115,23 @@ struct Smem {
   static constexpr bool kBiasTile = MODE != kDbias;
   static constexpr int kBoxElems = 128 / (int)sizeof(BiasT);
   static constexpr int kBiasOffset = 2 * kHalf + 1024;
-  static constexpr int kStage = kBiasOffset + (kBiasTile ? kRowsA * kCols * (int)sizeof(BiasT) : 0);
-  static constexpr int kFit = (216 * 1024 - 1024 - kRowBufs * kRowBuf) / kStage;
+  static constexpr int kStage = kBiasOffset + (kBiasTile ? ROWS * kCols * (int)sizeof(BiasT) : 0);
+  static constexpr int kFit = (216 * 1024 - 1024 - kPipes * kRowBufs * kRowBuf) / (kPipes * kStage);
   static constexpr int kStages = kFit < 6 ? kFit : 6;
   static_assert(kStages >= 3, "a ring of at least three column slots");
-  static constexpr int kColsOffset = kRowBufs * kRowBuf;
-  static constexpr int kBarOffset = kColsOffset + kStages * kStage;
-  static constexpr int kBytes = 1024 + kBarOffset + 16 * (kRowBufs + kStages);
+  static constexpr int kColsOffset = kPipes * kRowBufs * kRowBuf;
+  static constexpr int kBarOffset = kColsOffset + kPipes * kStages * kStage;
+  static constexpr int kPipeBars = 16 * (kRowBufs + kStages);  // a pipe's full and empty barriers
+  static constexpr int kBytes = 1024 + kBarOffset + kPipes * kPipeBars;
 };
 
 // The work of one launch: its items and how an item decodes.
 struct Geometry {
   int W, N, H, G;
-  int R, C;  // 128-row tiles and 64-row tiles of N
+  int R, C;  // row tiles (of the item's rows) and 64-row tiles of N
 
-  __host__ __device__ Geometry(int W_, int N_, int H_, int G_)
-      : W(W_), N(N_), H(H_), G(G_), R((N_ + kRowsA - 1) / kRowsA), C(N_ / kCols) {}
+  __host__ __device__ Geometry(int W_, int N_, int H_, int G_, int rows = kRowsA)
+      : W(W_), N(N_), H(H_), G(G_), R((N_ + rows - 1) / rows), C(N_ / kCols) {}
 
   __host__ __device__ long items(int mode) const {
     return mode == kDbias ? (long)C * R * G * H : (long)R * W * H;
@@ -153,7 +167,7 @@ struct Geometry {
 // boxes hold 128-byte rows of kBoxElems columns (row-major: 128 rows a box)
 // or of kBoxElems keys (dkdv: the bias read transposed, 64 queries a box);
 // the swizzle spreads a warp's reads over the banks.
-template <int MODE, class BiasT>
+template <int MODE, class BiasT, int ROWS>
 __device__ __forceinline__ void bias_from_tile(float (&b)[32], const uint8_t* tile, int lr0, int c) {
   constexpr int E = sizeof(BiasT), kBox = 128 / E;
   if constexpr (MODE == kDkdv) {
@@ -171,7 +185,7 @@ __device__ __forceinline__ void bias_from_tile(float (&b)[32], const uint8_t* ti
 #pragma unroll
       for (int half = 0; half < 2; ++half) {
         const int row = lr0 + 8 * half, col = 8 * t + 2 * c;
-        const uint8_t* p = tile + (col / kBox) * (kRowsA * 128) + swizzle128(row, (col % kBox) * E);
+        const uint8_t* p = tile + (col / kBox) * (ROWS * 128) + swizzle128(row, (col % kBox) * E);
         const float2 v = load2(reinterpret_cast<const BiasT*>(p));
         b[4 * t + 2 * half] = v.x;
         b[4 * t + 2 * half + 1] = v.y;
@@ -212,25 +226,29 @@ __device__ __forceinline__ void store_rows(bf16* out, long ld, const float (&d)[
 // 4g + c), as mma.sync's C fragment in each 8-column tile t: d[4t + 0..1]
 // = row 16w + g, columns 8t + 2c + 0..1; d[4t + 2..3] = row 16w + g + 8.
 // Threads 0-255 are the two consumer warpgroups, 256-383 the producer.
-// PASSES (stats only): over the key tiles, 1 or 2 (see launch).
-template <int HD, int MODE, class BiasT, int PASSES>
+// PASSES (stats only): over the key tiles, 1 or 2 (see launch).  ROWS: the
+// item's rows, 128 (one pipe, both consumer warpgroups) or 64 (two pipes,
+// one consumer warpgroup each; producer warp p feeds pipe p).
+template <int HD, int MODE, class BiasT, int PASSES, int ROWS>
 __global__ void __launch_bounds__(kThreads, 1)
 attn_bwd_sm90(const __grid_constant__ CUtensorMap qkv_map, const __grid_constant__ CUtensorMap g_map,
               const __grid_constant__ CUtensorMap bias_map, BwdArgs<bf16> a,
               const BiasT* __restrict__ bias, float* __restrict__ dbias_dst, Geometry geo) {
-  using S = Smem<HD, MODE, BiasT>;
+  using S = Smem<HD, MODE, BiasT, ROWS>;
   constexpr int kRowBufs = S::kRowBufs, kStages = S::kStages;
+  constexpr int kPipes = S::kPipes, kRowTiles = S::kRowTiles;
+  constexpr int kPipeWarps = 8 / kPipes;  // the consumer warps that release a pipe's slots
   // dq and dbias read the row side's statistics, dkdv the column side's
   constexpr bool kRowStats = MODE == kDq || MODE == kDbias;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t base = (raw + 1023) & ~1023u;
-  const uint32_t rows0 = base;                          // row slot b at + b * kRowBuf
-  const uint32_t cols0 = base + S::kColsOffset;         // column slot s at + s * kStage
-  const uint32_t full_row = base + S::kBarOffset;       // + 8 b
-  const uint32_t empty_row = full_row + 8 * kRowBufs;   // released by the 8 consumer warps
-  const uint32_t full_col = empty_row + 8 * kRowBufs;   // + 8 s
-  const uint32_t empty_col = full_col + 8 * kStages;    // released by the 8 consumer warps
+  // pipe pp: row slot b at rows0 + b * kRowBuf, column slot s at cols0 + s
+  // * kStage, barriers full_row + 8 b, empty_row (released by the pipe's
+  // consumer warps), full_col + 8 s, empty_col
+  auto rows0_of = [&](int pp) { return base + pp * kRowBufs * S::kRowBuf; };
+  auto cols0_of = [&](int pp) { return base + S::kColsOffset + pp * kStages * S::kStage; };
+  auto full_row_of = [&](int pp) { return base + S::kBarOffset + pp * S::kPipeBars; };
   // the generic address of a shared one
   auto at = [&](uint32_t saddr) { return smem_raw + (saddr - raw); };
 
@@ -243,24 +261,32 @@ attn_bwd_sm90(const __grid_constant__ CUtensorMap qkv_map, const __grid_constant
   auto scores_only = [&](int s) { return MODE == kStats && PASSES == 2 && s < geo.C; };
 
   if (threadIdx.x == 0) {
-    for (int b = 0; b < kRowBufs; ++b) {
-      mbar_init(full_row + 8 * b, 1);
-      mbar_init(empty_row + 8 * b, 8);
-    }
-    for (int s = 0; s < kStages; ++s) {
-      mbar_init(full_col + 8 * s, 1);
-      mbar_init(empty_col + 8 * s, 8);
+    for (int pp = 0; pp < kPipes; ++pp) {
+      const uint32_t full_row = full_row_of(pp), empty_row = full_row + 8 * kRowBufs;
+      const uint32_t full_col = empty_row + 8 * kRowBufs, empty_col = full_col + 8 * kStages;
+      for (int b = 0; b < kRowBufs; ++b) {
+        mbar_init(full_row + 8 * b, 1);
+        mbar_init(empty_row + 8 * b, kPipeWarps);
+      }
+      for (int s = 0; s < kStages; ++s) {
+        mbar_init(full_col + 8 * s, 1);
+        mbar_init(empty_col + 8 * s, kPipeWarps);
+      }
     }
     mbar_init_fence();
   }
   __syncthreads();
 
   if (threadIdx.x >= kConsumers) {
-    // the producer: one thread issues every load
+    // the producer: one thread a pipe issues every load of its pipe
     asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
-    if (threadIdx.x == kConsumers) {
+    const int pp = (threadIdx.x - kConsumers) / 32;
+    if (pp < kPipes && (threadIdx.x & 31) == 0) {
+      const uint32_t rows0 = rows0_of(pp), cols0 = cols0_of(pp);
+      const uint32_t full_row = full_row_of(pp), empty_row = full_row + 8 * kRowBufs;
+      const uint32_t full_col = empty_row + 8 * kRowBufs, empty_col = full_col + 8 * kStages;
       int ru = 0, cs = 0;  // row and column slots filled so far: the ring positions
-      for (int it = blockIdx.x; it < items; it += gridDim.x) {
+      for (int it = blockIdx.x * kPipes + pp; it < items; it += gridDim.x * kPipes) {
         int h, rt, ct, w0, w1;
         geo.decode(MODE, it, h, rt, ct, w0, w1);
         const int qc = h * 3 * HD;  // q of head h in qkv; k at + HD, v at + 2 HD
@@ -271,28 +297,28 @@ attn_bwd_sm90(const __grid_constant__ CUtensorMap qkv_map, const __grid_constant
         const int b1 = MODE == kDkdv ? qc : qc + HD;
         const int b2 = MODE == kDkdv ? h * HD : qc + 2 * HD;
         const CUtensorMap* b2map = MODE == kDkdv ? &g_map : &qkv_map;
-        // rows of the tile below N: 128, or 64 for the last when N % 128 == 64
-        const int live = N - rt * kRowsA < kRowsA ? N - rt * kRowsA : kRowsA;
+        // rows of the tile below N: ROWS, or 64 for the last when N % 128 == 64
+        const int live = N - rt * ROWS < ROWS ? N - rt * ROWS : ROWS;
         const int halves = live / 64;
         // the bias boxes of a step: dkdv's hold kBoxElems keys of the row
         // tile each (those wholly past N are not loaded), the others
-        // kBoxElems columns of all 128 rows
+        // kBoxElems columns of all ROWS rows
         const int boxes = MODE == kDkdv ? live / S::kBoxElems : kCols / S::kBoxElems;
-        const int box_bytes = MODE == kDkdv ? kCols * 128 : kRowsA * 128;
+        const int box_bytes = MODE == kDkdv ? kCols * 128 : ROWS * 128;
         for (int w = w0; w < w1; ++w, ++ru) {
           const int rb = ru % kRowBufs;
           if (ru >= kRowBufs) mbar_wait(empty_row + 8 * rb, ((ru / kRowBufs) - 1) & 1);
           const uint32_t dst = rows0 + rb * S::kRowBuf, bar = full_row + 8 * rb;
           mbar_expect_tx(bar, halves * (2 * S::kHalf + (kRowStats ? 3 * 64 * 4 : 0)));
           for (int hf = 0; hf < halves; ++hf) {
-            tma_load(dst + hf * S::kHalf, &qkv_map, bar, a1, rt * kRowsA + hf * 64, w);
-            tma_load(dst + (2 + hf) * S::kHalf, a2map, bar, a2, rt * kRowsA + hf * 64, w);
+            tma_load(dst + hf * S::kHalf, &qkv_map, bar, a1, rt * ROWS + hf * 64, w);
+            tma_load(dst + (kRowTiles + hf) * S::kHalf, a2map, bar, a2, rt * ROWS + hf * 64, w);
           }
           if (kRowStats) {
-            const float* st0 = a.stats + stat_index(a, w, h, rt * kRowsA);
+            const float* st0 = a.stats + stat_index(a, w, h, rt * ROWS);
 #pragma unroll
             for (int p = 0; p < 3; ++p)
-              bulk_load(dst + S::kRowStats + p * kRowsA * 4, st0 + p * plane, halves * 64 * 4, bar);
+              bulk_load(dst + S::kRowStats + p * ROWS * 4, st0 + p * plane, halves * 64 * 4, bar);
           }
           for (int s = 0; s < steps; ++s, ++cs) {
             const int j = MODE == kDbias ? ct : s % geo.C;
@@ -313,12 +339,12 @@ attn_bwd_sm90(const __grid_constant__ CUtensorMap qkv_map, const __grid_constant
             if (S::kBiasTile) {
               const uint32_t bdst = cdst + S::kBiasOffset;
               for (int b = 0; b < boxes; ++b) {
-                if (MODE == kDkdv)  // keys rt*128 + b*kBoxElems.., queries j*64..
-                  tma_load(bdst + b * box_bytes, &bias_map, cbar, rt * kRowsA + b * S::kBoxElems,
+                if (MODE == kDkdv)  // keys rt*ROWS + b*kBoxElems.., queries j*64..
+                  tma_load(bdst + b * box_bytes, &bias_map, cbar, rt * ROWS + b * S::kBoxElems,
                            j * kCols, h);
-                else  // columns j*64 + b*kBoxElems.., rows rt*128..
+                else  // columns j*64 + b*kBoxElems.., rows rt*ROWS..
                   tma_load(bdst + b * box_bytes, &bias_map, cbar, j * kCols + b * S::kBoxElems,
-                           rt * kRowsA, h);
+                           rt * ROWS, h);
               }
             }
           }
@@ -327,10 +353,14 @@ attn_bwd_sm90(const __grid_constant__ CUtensorMap qkv_map, const __grid_constant
     }
   } else {
     asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
-    const int cg = threadIdx.x / 128;  // rows 64 cg .. of each row tile
+    const int pp = (threadIdx.x / 128) / (2 / kPipes);  // this warpgroup's pipe
+    const int cg = (threadIdx.x / 128) % (2 / kPipes);  // rows 64 cg .. of each row tile
     const int warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
     const int g = lane >> 2, c = lane & 3;
     const int lr0 = cg * 64 + warp * 16 + g;  // this thread's rows lr0, lr0 + 8 of a row tile
+    const uint32_t rows0 = rows0_of(pp), cols0 = cols0_of(pp);
+    const uint32_t full_row = full_row_of(pp), empty_row = full_row + 8 * kRowBufs;
+    const uint32_t full_col = empty_row + 8 * kRowBufs, empty_col = full_col + 8 * kStages;
     const long ld = 3L * H * HD;
     const float scale = a.scale;
     // this warp is done with a slot
@@ -340,13 +370,13 @@ attn_bwd_sm90(const __grid_constant__ CUtensorMap qkv_map, const __grid_constant
     };
 
     int ru = 0, cs = 0;
-    for (int it = blockIdx.x; it < items; it += gridDim.x) {
+    for (int it = blockIdx.x * kPipes + pp; it < items; it += gridDim.x * kPipes) {
       int h, rt, ct, w0, w1;
       geo.decode(MODE, it, h, rt, ct, w0, w1);
-      const int r0 = rt * kRowsA + lr0;  // this thread's rows r0, r0 + 8
+      const int r0 = rt * ROWS + lr0;  // this thread's rows r0, r0 + 8
       // rows >= N (the second half of the last tile when N % 128 == 64):
       // the group keeps the barrier protocol but computes nothing
-      const bool active = rt * kRowsA + cg * 64 < N;
+      const bool active = rt * ROWS + cg * 64 < N;
       float acc[32];  // dbias: the sum of ds over the group's windows
       float bt[32];   // dbias: the bias of the item's tile
       zero(acc);
@@ -355,7 +385,7 @@ attn_bwd_sm90(const __grid_constant__ CUtensorMap qkv_map, const __grid_constant
       for (int w = w0; w < w1; ++w, ++ru) {
         const int rb = ru % kRowBufs;
         const uint32_t arow = rows0 + rb * S::kRowBuf + cg * S::kHalf;
-        const uint64_t da1 = desc<HD>(arow), da2 = desc<HD>(arow + 2 * S::kHalf);
+        const uint64_t da1 = desc<HD>(arow), da2 = desc<HD>(arow + kRowTiles * S::kHalf);
         // stats: running max, this thread's shares of the row sum and of
         // t; dq, dbias: the rows' statistics
         float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f, u0 = 0.f, u1 = 0.f;
@@ -368,10 +398,10 @@ attn_bwd_sm90(const __grid_constant__ CUtensorMap qkv_map, const __grid_constant
           const float* rs = reinterpret_cast<const float*>(at(rows0 + rb * S::kRowBuf + S::kRowStats));
           m0 = rs[lr0];
           m1 = rs[lr0 + 8];
-          il0 = rs[kRowsA + lr0];
-          il1 = rs[kRowsA + lr0 + 8];
-          t0 = rs[2 * kRowsA + lr0];
-          t1 = rs[2 * kRowsA + lr0 + 8];
+          il0 = rs[ROWS + lr0];
+          il1 = rs[ROWS + lr0 + 8];
+          t0 = rs[2 * ROWS + lr0];
+          t1 = rs[2 * ROWS + lr0 + 8];
         }
 
         if (!active) {
@@ -420,7 +450,7 @@ attn_bwd_sm90(const __grid_constant__ CUtensorMap qkv_map, const __grid_constant
 #pragma unroll
               for (int i = 0; i < 32; ++i) bs[i] = bt[i];
             } else {
-              bias_from_tile<MODE, BiasT>(bs, at(bcol + S::kBiasOffset), lr0, c);
+              bias_from_tile<MODE, BiasT, ROWS>(bs, at(bcol + S::kBiasOffset), lr0, c);
             }
             bool waited = false;
             if constexpr (ahead) {
@@ -615,15 +645,15 @@ constexpr CUtensorMapDataType map_type() {
 // with external linkage is one object process-wide (a GNU unique symbol),
 // so K7's library setting it would leave K5's kernels, which are the same
 // instances, without their shared-memory opt-in.
-template <int HD, int MODE, class BiasT, int PASSES = 1>
+template <int HD, int MODE, class BiasT, int PASSES = 1, int ROWS = kRowsA>
 static cudaError_t launch_mode(const CUtensorMap& qmap, const CUtensorMap& gmap, const BwdArgs<bf16>& a,
                         const BiasT* bias, float* dst, const Geometry& geo, int sms,
                         cudaStream_t stream) {
-  using S = Smem<HD, MODE, BiasT>;
+  using S = Smem<HD, MODE, BiasT, ROWS>;
   static bool opted_in = false;  // one per instance
   if (!opted_in) {
     const cudaError_t e = cudaFuncSetAttribute(
-        attn_bwd_sm90<HD, MODE, BiasT, PASSES>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        attn_bwd_sm90<HD, MODE, BiasT, PASSES, ROWS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         S::kBytes);
     if (e != cudaSuccess) return e;
     opted_in = true;
@@ -633,21 +663,23 @@ static cudaError_t launch_mode(const CUtensorMap& qmap, const CUtensorMap& gmap,
   CUtensorMap bmap = qmap;
   if (S::kBiasTile) {
     const cudaError_t e = encode_3d(&bmap, map_type<BiasT>(), sizeof(BiasT), bias, a.N, a.N, a.H,
-                                    S::kBoxElems, MODE == kDkdv ? kCols : kRowsA,
+                                    S::kBoxElems, MODE == kDkdv ? kCols : ROWS,
                                     CU_TENSOR_MAP_SWIZZLE_128B);
     if (e != cudaSuccess) return e;
   }
   const long items = geo.items(MODE);
   if (items > 0x7fffffffL) return cudaErrorInvalidValue;  // the kernel counts items in int
-  const int grid = (int)(items < sms ? items : sms);
-  attn_bwd_sm90<HD, MODE, BiasT, PASSES>
+  // a block runs S::kPipes items at once
+  const long blocks = (items + S::kPipes - 1) / S::kPipes;
+  const int grid = (int)(blocks < sms ? blocks : sms);
+  attn_bwd_sm90<HD, MODE, BiasT, PASSES, ROWS>
       <<<grid, kThreads, S::kBytes, stream>>>(qmap, gmap, bmap, a, bias, dst, geo);
   return cudaGetLastError();
 }
 
 // The four launches (and the partials' sum when G > 1) of one call.
 // partial is (G, H, N, N) f32 scratch when G > 1, else unused.
-template <int HD, class BiasT>
+template <int HD, class BiasT, int ROWS = kRowsA>
 cudaError_t launch_hd(const BwdArgs<bf16>& a, const BiasT* bias, float* partial, int G,
                       int stat_passes, cudaStream_t stream) {
   CUtensorMap qmap, gmap;
@@ -657,14 +689,21 @@ cudaError_t launch_hd(const BwdArgs<bf16>& a, const BiasT* bias, float* partial,
   int sms = 0;
   if (e == cudaSuccess) e = sm_count(&sms);
   if (e != cudaSuccess) return e;
-  const Geometry geo(a.W, a.N, a.H, G);
+  const Geometry geo(a.W, a.N, a.H, G, ROWS);
   float* dst = G > 1 ? partial : a.dbias;
-  e = stat_passes == 1 ? launch_mode<HD, kStats, BiasT, 1>(qmap, gmap, a, bias, dst, geo, sms, stream)
-                       : launch_mode<HD, kStats, BiasT, 2>(qmap, gmap, a, bias, dst, geo, sms, stream);
+  e = stat_passes == 1
+          ? launch_mode<HD, kStats, BiasT, 1, ROWS>(qmap, gmap, a, bias, dst, geo, sms, stream)
+          : launch_mode<HD, kStats, BiasT, 2, ROWS>(qmap, gmap, a, bias, dst, geo, sms, stream);
   if (e != cudaSuccess) return e;
-  if ((e = launch_mode<HD, kDkdv>(qmap, gmap, a, bias, dst, geo, sms, stream)) != cudaSuccess) return e;
-  if ((e = launch_mode<HD, kDq>(qmap, gmap, a, bias, dst, geo, sms, stream)) != cudaSuccess) return e;
-  if ((e = launch_mode<HD, kDbias>(qmap, gmap, a, bias, dst, geo, sms, stream)) != cudaSuccess) return e;
+  if ((e = launch_mode<HD, kDkdv, BiasT, 1, ROWS>(qmap, gmap, a, bias, dst, geo, sms, stream)) !=
+      cudaSuccess)
+    return e;
+  if ((e = launch_mode<HD, kDq, BiasT, 1, ROWS>(qmap, gmap, a, bias, dst, geo, sms, stream)) !=
+      cudaSuccess)
+    return e;
+  if ((e = launch_mode<HD, kDbias, BiasT, 1, ROWS>(qmap, gmap, a, bias, dst, geo, sms, stream)) !=
+      cudaSuccess)
+    return e;
   if (G > 1) {
     const long n4 = (long)a.H * a.N * a.N / 4;
     const long blocks = (n4 + 255) / 256;
@@ -675,17 +714,60 @@ cudaError_t launch_hd(const BwdArgs<bf16>& a, const BiasT* bias, float* partial,
   return e;
 }
 
+// The head dim the 64-row kind is built for: every TinyViT stage's.
+constexpr int kRows64HeadDim = 32;
+
 // Entry of K4's, K5's and K7's bf16 calls: N a multiple of 64, hd 16, 32 or 64,
 // 1 <= G <= W, qkv and g 16-byte aligned (validated by the wrapper).
 // stat_passes 1 takes t in the same online pass as the row max and sum
 // (rescaled with them; eleven N x N products a window and head), 2 in a
 // second pass as attention_bwd.cuh does (twelve; K5's rounding, bit for
-// bit: its d_qkv, and d_bias when G = 1).
+// bit: its d_qkv, and d_bias when G = 1).  rows: the items' rows, 128, or
+// 64 at hd 32 (the kind is built there only).
 template <class BiasT>
 cudaError_t launch(const BwdArgs<bf16>& a, const BiasT* bias, float* partial, int G, int hd,
-                   int stat_passes, cudaStream_t stream) {
+                   int stat_passes, cudaStream_t stream, int rows = kRowsA) {
   if (stat_passes != 1 && stat_passes != 2) return cudaErrorInvalidValue;
+  if (rows == 64) {
+    if (hd != kRows64HeadDim) return cudaErrorInvalidValue;
+    return launch_hd<kRows64HeadDim, BiasT, 64>(a, bias, partial, G, stat_passes, stream);
+  }
+  if (rows != kRowsA) return cudaErrorInvalidValue;
   GG_HEAD_DIM_SWITCH(hd, { return launch_hd<HD>(a, bias, partial, G, stat_passes, stream); })
+}
+
+// The plan of one call without a launch, for the wrapper's mirror
+// (window_attention._bwd_smem): for each launch in the order stats, dkdv,
+// dq, dbias its shared memory bytes (out[0..3]), items (out[4..7]; the
+// launch refuses more than 2^31 - 1) and column slots (out[8..11]).
+template <int HD, class BiasT, int ROWS>
+void plan_of(const Geometry& geo, int* out) {
+  const int bytes[4] = {Smem<HD, kStats, BiasT, ROWS>::kBytes, Smem<HD, kDkdv, BiasT, ROWS>::kBytes,
+                        Smem<HD, kDq, BiasT, ROWS>::kBytes, Smem<HD, kDbias, BiasT, ROWS>::kBytes};
+  const int stages[4] = {Smem<HD, kStats, BiasT, ROWS>::kStages,
+                         Smem<HD, kDkdv, BiasT, ROWS>::kStages, Smem<HD, kDq, BiasT, ROWS>::kStages,
+                         Smem<HD, kDbias, BiasT, ROWS>::kStages};
+  for (int m = 0; m < 4; ++m) {
+    const long items = geo.items(m);
+    out[m] = bytes[m];
+    out[4 + m] = (int)(items < 0x7fffffffL ? items : 0x7fffffffL);
+    out[8 + m] = stages[m];
+  }
+}
+
+template <class BiasT>
+cudaError_t plan(int W, int N, int H, int G, int hd, int rows, int* out) {
+  const Geometry geo(W, N, H, G, rows);
+  if (rows == 64) {
+    if (hd != kRows64HeadDim) return cudaErrorInvalidValue;
+    plan_of<kRows64HeadDim, BiasT, 64>(geo, out);
+    return cudaSuccess;
+  }
+  if (rows != kRowsA) return cudaErrorInvalidValue;
+  GG_HEAD_DIM_SWITCH(hd, {
+    plan_of<HD, BiasT, kRowsA>(geo, out);
+    return cudaSuccess;
+  })
 }
 
 }  // namespace bwd90

@@ -80,6 +80,19 @@
 // K8b's stage-3 shape with half the bias bytes: 1008 items of 14-window
 // groups, the whole row at once.
 //
+// The 128-row kind (window_attention.FWD_Q_ROWS = 128; ROWS = 128, built
+// at hd 32): items (128-query tile, window group, head), both consumer
+// groups on one window at a time, group c on the tile's rows 64 c .. 64 c +
+// 63, reading one k/v ring that a single producer warp fills for both, so
+// each k and v tile leaves L2 once for 128 query rows, not twice.  The
+// 128 x N bias tile of an item does not fit at N = 1024 (256 KB in bf16),
+// so this kind streams the bias as the streamed plan does, in chunks of
+// 128 rows x 128 keys shared by both groups, over pairs of windows: each
+// group takes both windows of a pair at once (attend_chunk_pair), and a
+// chunk serves the pair.  The window groups are the wrapper's
+// (_headmajor_groups over 128-row tiles, or FUSED_BLOCK_WB's), walked a
+// pair at a time.  N must be a multiple of 128.
+//
 // Every output element is computed by one thread in an order fixed by the
 // shape, so two calls are bitwise the same on any card.
 //
@@ -112,6 +125,7 @@ constexpr int kMaxSlots = 16;           // k/v slots of a group's ring, at most
 constexpr int kSmemMax = 232448;        // what a block may opt in to (227 KB)
 constexpr int kStreamWindows = 2;       // windows a consumer group takes at once, streamed
 constexpr int kStreamTiles = 2;         // key tiles of a streamed bias chunk (when C is even)
+constexpr int kRows128HeadDim = 32;     // the head dim the 128-row kind is built for
 
 // The bias element as the boxes hold it.
 template <class BiasT>
@@ -135,7 +149,9 @@ __device__ __forceinline__ float2 bias_pair(const uint8_t* p, bf16) {
 // dim and the bias element alone.
 struct Plan {
   int W, H, N, G;
-  int C;       // 64-key tiles of N (= 64-query tiles)
+  int rows;    // query rows of an item: 64, or 128 (both consumer groups on one window)
+  int QT;      // query tiles of an item's rows in N
+  int C;       // 64-key tiles of N
   int NT;      // key tiles a chunk of the score row
   int NB;      // bias buffers: the resident tile (2: the next item's too), or the streamed ring's slots
   int QB;      // q buffers of each consumer group
@@ -144,21 +160,25 @@ struct Plan {
   int bias;    // bytes of a bias buffer: the 64 x N tile, or a 64 x 64 NT chunk
   int stream;  // 1: the bias streamed by chunks
 
-  __host__ __device__ long items() const { return (long)C * G * H; }
+  __host__ __device__ long items() const { return (long)QT * G * H; }
 
   // Item `it` -> its head, q-tile and windows [w0, w1).  The q-tile is
   // fastest, so the blocks in flight share the windows' k and v in L2.
   __device__ void decode(int it, int& h, int& qt, int& w0, int& w1) const {
-    qt = it % C;
-    it /= C;
+    qt = it % QT;
+    it /= QT;
     const int grp = it % G;
     h = it / G;
     w0 = (int)((long)grp * W / G);
     w1 = (int)((long)(grp + 1) * W / G);
   }
 
-  __host__ __device__ int barrier_bytes() const { return 8 * (2 * NB + 2 * (2 * QB + 2 * S)); }
-  int smem_bytes() const { return 1024 + NB * bias + 2 * (QB + S) * tile + barrier_bytes(); }
+  // k/v rings: one a consumer group, or one both share (128-row items)
+  __host__ __device__ int rings() const { return rows == kRows ? 2 : 1; }
+  __host__ __device__ int barrier_bytes() const {
+    return 8 * (2 * NB + 2 * (2 * QB + rings() * S));
+  }
+  int smem_bytes() const { return 1024 + NB * bias + (2 * QB + rings() * S) * tile + barrier_bytes(); }
 };
 
 // The largest of 4, 3, 2, 1 tiles that divides the C key tiles: the whole
@@ -171,7 +191,8 @@ bool fit_ring(Plan* p, int nb, int need) {
   p->NB = nb;
   p->S = kMaxSlots;
   const int room = kSmemMax - 1024 - p->barrier_bytes() - nb * p->bias;
-  int slots = room / (2 * p->tile) - p->QB;  // less each group's q buffers
+  // less each group's q buffers
+  int slots = p->rings() == 2 ? room / (2 * p->tile) - p->QB : room / p->tile - 2 * p->QB;
   if (slots > kMaxSlots) slots = kMaxSlots;
   if (slots < need) return false;
   p->S = slots;
@@ -184,16 +205,32 @@ bool fit_ring(Plan* p, int nb, int need) {
 // kStreamWindows per consumer group (G = ceil(W / 4), whatever G was
 // given), chunks of kStreamTiles tiles (1 when C is odd), a ring that
 // holds a chunk's k and v tiles of both windows of a group, two bias slots
-// when they fit.
+// when they fit.  rows 128: the 128-row kind (N a multiple of 128), its
+// bias streamed in chunks of 128 rows x kStreamTiles key tiles, the ring
+// shared by both groups and holding a chunk's k and v tiles of a pair of
+// windows, the G groups as given.
 cudaError_t make_plan(Plan* p, int W, int H, int N, int G, int hd, int bias_elem,
-                      bool may_stream) {
+                      bool may_stream, int rows = kRows) {
   p->W = W;
   p->H = H;
   p->N = N;
   p->G = G;
+  p->rows = rows;
   p->C = N / kRows;
+  p->QT = N / rows;
   p->tile = kRows * hd * 2;
   p->stream = 0;
+  if (rows == 2 * kRows) {
+    if (N % rows) return cudaErrorInvalidValue;
+    p->stream = 1;
+    p->QB = 2 * kStreamWindows;
+    p->NT = kStreamTiles;
+    p->bias = rows * kRows * p->NT * bias_elem;
+    const int need = 2 * kStreamWindows * p->NT;  // both windows' k and v tiles of a chunk
+    if (fit_ring(p, 2, need) || fit_ring(p, 1, need)) return cudaSuccess;
+    return cudaErrorInvalidValue;
+  }
+  if (rows != kRows) return cudaErrorInvalidValue;
   p->QB = 2;
   p->NT = chunk_tiles(p->C);
   p->bias = kRows * N * bias_elem;
@@ -213,29 +250,41 @@ cudaError_t make_plan(Plan* p, int W, int H, int N, int G, int hd, int bias_elem
 // base, then each consumer group's QB q buffers and S ring slots, then the
 // mbarriers: the bias buffers' full and empty, then each group's q full, q
 // empty, slot full and slot empty.  The tile size and QB are constants of
-// the kernel (the plan's QB is the same: make_plan).
-template <int HD, bool STREAM>
+// the kernel (the plan's QB is the same: make_plan).  ROWS 128: both
+// groups' q buffers, then the one shared ring; the bias barriers, each
+// group's q full and q empty, then the ring's full and empty (released by
+// all 8 consumer warps); a ring slot's group c is ignored.
+template <int HD, bool STREAM, int ROWS = kRows>
 struct Smem {
   static constexpr int QB = STREAM ? 2 * kStreamWindows : 2;
   static constexpr int kTile = kRows * HD * 2;
+  static constexpr bool kShared = ROWS != kRows;  // one k/v ring for both groups
   uint32_t base, groups0, bars;
   int NB, S, bias;
 
   __device__ Smem(const Plan& p, uint32_t base_) : base(base_), NB(p.NB), S(p.S), bias(p.bias) {
     groups0 = base + NB * bias;
-    bars = groups0 + 2 * (QB + S) * kTile;
+    bars = groups0 + (kShared ? 2 * QB + S : 2 * (QB + S)) * kTile;
   }
   __device__ uint32_t bias_buf(int b) const { return base + b * bias; }
   __device__ uint32_t bias_full(int b) const { return bars + 8 * b; }
   __device__ uint32_t bias_empty(int b) const { return bars + 8 * (NB + b); }  // the 8 consumer warps
-  __device__ uint32_t q_buf(int c, int i) const { return groups0 + (c * (QB + S) + i) * kTile; }
-  __device__ uint32_t slot(int c, int s) const { return groups0 + (c * (QB + S) + QB + s) * kTile; }
-  __device__ uint32_t gbar(int c) const { return bars + 16 * NB + c * 8 * (2 * QB + 2 * S); }
+  __device__ uint32_t q_buf(int c, int i) const {
+    return groups0 + (kShared ? c * QB + i : c * (QB + S) + i) * kTile;
+  }
+  __device__ uint32_t slot(int c, int s) const {
+    return groups0 + (kShared ? 2 * QB + s : c * (QB + S) + QB + s) * kTile;
+  }
+  __device__ uint32_t gbar(int c) const {
+    return bars + 16 * NB + c * 8 * (kShared ? 2 * QB : 2 * QB + 2 * S);
+  }
   __device__ uint32_t q_full(int c, int i) const { return gbar(c) + 8 * i; }
   __device__ uint32_t q_empty(int c, int i) const { return gbar(c) + 8 * (QB + i); }  // the group's 4 warps
-  __device__ uint32_t full(int c, int s) const { return gbar(c) + 16 * QB + 8 * s; }
-  __device__ uint32_t empty(int c, int s) const {  // the group's 4 warps
-    return gbar(c) + 16 * QB + 8 * S + 8 * s;
+  __device__ uint32_t full(int c, int s) const {
+    return kShared ? gbar(2) + 8 * s : gbar(c) + 16 * QB + 8 * s;
+  }
+  __device__ uint32_t empty(int c, int s) const {  // the group's 4 warps, or all 8 (shared)
+    return kShared ? gbar(2) + 8 * S + 8 * s : gbar(c) + 16 * QB + 8 * S + 8 * s;
   }
 };
 
@@ -444,7 +493,8 @@ __device__ __forceinline__ void attend_chunk_pair(const SM& sm, int c,
                                                   const uint32_t (&q_empty)[kStreamWindows],
                                                   float scale, float (&o)[kStreamWindows][HD / 2],
                                                   float (&m)[kStreamWindows][2],
-                                                  float (&l)[kStreamWindows][2]) {
+                                                  float (&l)[kStreamWindows][2],
+                                                  bool whole = false) {
   static_assert(kStreamWindows == 2, "two windows a consumer group");
   const int S = sm.S;
   // window i's k tiles are the NT slots from ring + 2 i NT, its v tiles the
@@ -484,7 +534,7 @@ __device__ __forceinline__ void attend_chunk_pair(const SM& sm, int c,
 #pragma unroll
   for (int j = 0; j < NT; ++j) fence_regs(s0[j]);
   uint32_t pa0[NT][4][4];
-  softmax_chunk<HD, NT, BiasT>(s0, bchunk, boff, scale, false, o[0], m[0][0], m[0][1], l[0][0],
+  softmax_chunk<HD, NT, BiasT>(s0, bchunk, boff, scale, whole, o[0], m[0][0], m[0][1], l[0][0],
                                l[0][1], pa0);
   fence_regs(o[0]);
   wgmma_fence();
@@ -496,7 +546,7 @@ __device__ __forceinline__ void attend_chunk_pair(const SM& sm, int c,
 #pragma unroll
   for (int j = 0; j < NT; ++j) fence_regs(s1[j]);
   uint32_t pa1[NT][4][4];
-  softmax_chunk<HD, NT, BiasT>(s1, bchunk, boff, scale, false, o[1], m[1][0], m[1][1], l[1][0],
+  softmax_chunk<HD, NT, BiasT>(s1, bchunk, boff, scale, whole, o[1], m[1][0], m[1][1], l[1][0],
                                l[1][1], pa1);
   fence_regs(o[1]);
   wgmma_fence();
@@ -536,18 +586,20 @@ __device__ __forceinline__ void store_rows(bf16* __restrict__ out, const Plan& p
 }
 
 // Threads 0-255 are the two consumer warpgroups; warp 8 of the producer
-// warpgroup loads group 0's tiles and the bias, warp 9 group 1's tiles.
-template <int LAYOUT, class BiasT, int HD, int NT, bool STREAM>
+// warpgroup loads group 0's tiles and the bias, warp 9 group 1's tiles
+// (ROWS 128: warp 8 loads everything, into the one shared ring).
+template <int LAYOUT, class BiasT, int HD, int NT, bool STREAM, int ROWS = kRows>
 __global__ void __launch_bounds__(kThreads, 1)
 attention_fwd_sm90(const __grid_constant__ CUtensorMap q_map, const __grid_constant__ CUtensorMap k_map,
                    const __grid_constant__ CUtensorMap v_map,
                    const __grid_constant__ CUtensorMap bias_map, bf16* __restrict__ out, const Plan p,
                    float scale) {
   using B = BiasBox<BiasT>;
+  using SM = Smem<HD, STREAM, ROWS>;
   constexpr int T = kRows * HD * 2;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
-  const Smem<HD, STREAM> sm(p, (raw + 1023) & ~1023u);
+  const SM sm(p, (raw + 1023) & ~1023u);
   // the generic address of a shared one
   auto at = [&](uint32_t saddr) { return smem_raw + (saddr - raw); };
   // the tensor maps' column and outer coordinates of slot 0 (q), 1 (k) or
@@ -567,9 +619,10 @@ attention_fwd_sm90(const __grid_constant__ CUtensorMap q_map, const __grid_const
         mbar_init(sm.q_full(c, i), 1);
         mbar_init(sm.q_empty(c, i), 4);
       }
+      if (SM::kShared && c == 1) continue;  // one ring, released by all 8 warps
       for (int s = 0; s < p.S; ++s) {
         mbar_init(sm.full(c, s), 1);
-        mbar_init(sm.empty(c, s), 4);
+        mbar_init(sm.empty(c, s), SM::kShared ? 8 : 4);
       }
     }
     mbar_init_fence();
@@ -579,7 +632,7 @@ attention_fwd_sm90(const __grid_constant__ CUtensorMap q_map, const __grid_const
   if (threadIdx.x >= kConsumers) {
     asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
     const int c = (threadIdx.x - kConsumers) / 32;  // the group this warp feeds
-    if (c < 2 && (threadIdx.x & 31) == 0) {
+    if (c < (SM::kShared ? 1 : 2) && (threadIdx.x & 31) == 0) {
       Loader kv;  // the group's k/v ring
       // k and v tiles of one chunk of window w, head h: its k tiles, then its v tiles
       auto load_chunk = [&](int k0, int w, int h) {
@@ -591,7 +644,37 @@ attention_fwd_sm90(const __grid_constant__ CUtensorMap q_map, const __grid_const
                      (k0 + j) * kRows, outer(w, h));
           }
       };
-      if constexpr (STREAM) {
+      if constexpr (SM::kShared) {
+        Loader qs[2], bs;  // each group's q buffers; the bias ring
+        for (int it = blockIdx.x; it < items; it += gridDim.x) {
+          int h, qt, w0, w1;
+          p.decode(it, h, qt, w0, w1);
+          for (int wp = w0; wp < w1; wp += kStreamWindows) {
+            int win[kStreamWindows];  // a window past the group's end repeats its last, unstored
+#pragma unroll
+            for (int i = 0; i < kStreamWindows; ++i) win[i] = min(wp + i, w1 - 1);
+            for (int gq = 0; gq < 2; ++gq)  // group gq's rows of the pair's q tiles
+#pragma unroll
+              for (int i = 0; i < kStreamWindows; ++i) {
+                const int s = qs[gq].take(sm.q_empty(gq, qs[gq].pos.slot), sm.QB);
+                mbar_expect_tx(sm.q_full(gq, s), T);
+                tma_load(sm.q_buf(gq, s), &q_map, sm.q_full(gq, s), col(0, h),
+                         qt * ROWS + gq * kRows, outer(win[i], h));
+              }
+            for (int k0 = 0; k0 < C; k0 += NT) {
+              // the chunk's 128 bias rows: group 0's boxes, then group 1's
+              const int b = bs.take(sm.bias_empty(bs.pos.slot), p.NB);
+              mbar_expect_tx(sm.bias_full(b), p.bias);
+              for (int gq = 0; gq < 2; ++gq)
+                for (int x = 0; x < NT * B::kPerTile; ++x)
+                  tma_load(sm.bias_buf(b) + (gq * NT * B::kPerTile + x) * kBoxBytes, &bias_map,
+                           sm.bias_full(b), k0 * kRows + x * B::kCols, qt * ROWS + gq * kRows, h);
+#pragma unroll
+              for (int i = 0; i < kStreamWindows; ++i) load_chunk(k0, win[i], h);
+            }
+          }
+        }
+      } else if constexpr (STREAM) {
         Loader qs, bs;  // the group's q buffers; the bias ring (group 0's warp)
         for (int it = blockIdx.x; it < items; it += gridDim.x) {
           int h, qt, w0, w1;
@@ -652,7 +735,45 @@ attention_fwd_sm90(const __grid_constant__ CUtensorMap q_map, const __grid_const
     for (int u = 0; u < B::kPairs; ++u) boff[u] = swizzle128(lr0, (8 * u + 2 * cc) * B::kElem);
     RingPos ring;  // the group's next k/v tile
 
-    if constexpr (STREAM) {
+    if constexpr (SM::kShared) {
+      const bool whole = C == NT;  // one chunk: the whole score row at once
+      RingPos qpos, bpos;  // the group's next q buffer; the next bias chunk
+      for (int it = blockIdx.x; it < items; it += gridDim.x) {
+        int h, qt, w0, w1;
+        p.decode(it, h, qt, w0, w1);
+        for (int wp = w0; wp < w1; wp += kStreamWindows) {
+          uint64_t dq[kStreamWindows];
+          uint32_t q_empty[kStreamWindows];
+          float o[kStreamWindows][HD / 2];
+          float m[kStreamWindows][2], l[kStreamWindows][2];  // running max and row sum
+#pragma unroll
+          for (int i = 0; i < kStreamWindows; ++i) {
+            mbar_wait(sm.q_full(c, qpos.slot), qpos.phase);
+            dq[i] = desc<HD>(sm.q_buf(c, qpos.slot));
+            q_empty[i] = sm.q_empty(c, qpos.slot);
+            qpos.next(sm.QB);
+            zero(o[i]);
+            m[i][0] = m[i][1] = -INFINITY;
+            l[i][0] = l[i][1] = 0.f;
+          }
+          for (int k0 = 0; k0 < C; k0 += NT) {
+            mbar_wait(sm.bias_full(bpos.slot), bpos.phase);
+            const uint8_t* bchunk = at(sm.bias_buf(bpos.slot)) + c * NT * B::kPerTile * kBoxBytes;
+            attend_chunk_pair<HD, NT, BiasT>(sm, c, dq, bchunk, boff, ring, k0 + NT >= C, q_empty,
+                                             scale, o, m, l, whole);
+            release(sm.bias_empty(bpos.slot));
+            bpos.next(p.NB);
+          }
+#pragma unroll
+          for (int i = 0; i < kStreamWindows; ++i) {
+            const int w = wp + i;
+            if (w < w1)
+              store_rows<LAYOUT, HD>(out, p, w, h, qt * ROWS + c * kRows + lr0, cc, o[i],
+                                     whole ? 1.f : 1.f / l[i][0], whole ? 1.f : 1.f / l[i][1]);
+          }
+        }
+      }
+    } else if constexpr (STREAM) {
       RingPos qpos, bpos;  // the group's next q buffer; the next bias chunk
       for (int it = blockIdx.x; it < items; it += gridDim.x) {
         int h, qt, w0, w1;
@@ -718,21 +839,22 @@ attention_fwd_sm90(const __grid_constant__ CUtensorMap q_map, const __grid_const
   }
 }
 
-template <int LAYOUT, class BiasT, int HD, int NT, bool STREAM>
+template <int LAYOUT, class BiasT, int HD, int NT, bool STREAM, int ROWS = kRows>
 cudaError_t launch_nt(const CUtensorMap (&maps)[4], bf16* out, const Plan& p, float scale, int sms,
                       cudaStream_t stream) {
   static bool opted_in = false;  // one per instance, and this library's own
   if (!opted_in) {
     const cudaError_t e =
-        cudaFuncSetAttribute(attention_fwd_sm90<LAYOUT, BiasT, HD, NT, STREAM>,
+        cudaFuncSetAttribute(attention_fwd_sm90<LAYOUT, BiasT, HD, NT, STREAM, ROWS>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemMax);
     if (e != cudaSuccess) return e;
     opted_in = true;
   }
   const long items = p.items();
   const int grid = (int)(items < sms ? items : sms);
-  attention_fwd_sm90<LAYOUT, BiasT, HD, NT, STREAM><<<grid, kThreads, p.smem_bytes(), stream>>>(
-      maps[0], maps[1], maps[2], maps[3], out, p, scale);
+  attention_fwd_sm90<LAYOUT, BiasT, HD, NT, STREAM, ROWS>
+      <<<grid, kThreads, p.smem_bytes(), stream>>>(maps[0], maps[1], maps[2], maps[3], out, p,
+                                                   scale);
   return cudaGetLastError();
 }
 
@@ -741,13 +863,15 @@ cudaError_t launch_nt(const CUtensorMap (&maps)[4], bf16* out, const Plan& p, fl
 // contiguous with a 16-byte aligned base (the wrapper's _headmajor_layout
 // or _qkv_layout); N a multiple of 64; 1 <= G <= W.  MAY_STREAM: take the
 // streamed plan where the resident one does not fit, else return
-// cudaErrorInvalidValue there.
+// cudaErrorInvalidValue there.  rows: 64, or 128 for the 128-row kind (hd
+// 32, N a multiple of 128; it streams the bias whatever MAY_STREAM says).
 template <int LAYOUT, class BiasT, int HD, bool MAY_STREAM>
 cudaError_t run(const void* q, const void* k, const void* v, const void* bias, void* out, int W,
-                int H, int N, int G, float scale, cudaStream_t stream) {
+                int H, int N, int G, float scale, cudaStream_t stream, int rows = kRows) {
   using B = BiasBox<BiasT>;
+  if (rows != kRows && HD != kRows128HeadDim) return cudaErrorInvalidValue;
   Plan p;
-  cudaError_t e = make_plan(&p, W, H, N, G, HD, B::kElem, MAY_STREAM);
+  cudaError_t e = make_plan(&p, W, H, N, G, HD, B::kElem, MAY_STREAM, rows);
   if (e != cudaSuccess) return e;
   if (p.items() > 0x7fffffffL) return cudaErrorInvalidValue;  // the kernel counts items in int
   // q, k, v in boxes of (HD, 64 rows); the bias in boxes of 64 rows of
@@ -770,6 +894,12 @@ cudaError_t run(const void* q, const void* k, const void* v, const void* bias, v
   if (e == cudaSuccess) e = sm_count(&sms);
   if (e != cudaSuccess) return e;
   bf16* o = static_cast<bf16*>(out);
+  if (rows != kRows) {
+    if constexpr (HD == kRows128HeadDim)
+      return launch_nt<LAYOUT, BiasT, HD, kStreamTiles, true, 2 * kRows>(maps, o, p, scale, sms,
+                                                                        stream);
+    return cudaErrorInvalidValue;
+  }
   if constexpr (MAY_STREAM) {
     if (p.stream)
       return p.NT == 2 ? launch_nt<LAYOUT, BiasT, HD, 2, true>(maps, o, p, scale, sms, stream)
@@ -781,6 +911,22 @@ cudaError_t run(const void* q, const void* k, const void* v, const void* bias, v
     case 2: return launch_nt<LAYOUT, BiasT, HD, 2, false>(maps, o, p, scale, sms, stream);
     default: return launch_nt<LAYOUT, BiasT, HD, 1, false>(maps, o, p, scale, sms, stream);
   }
+}
+
+// The plan of one call without a launch, for the wrapper's mirror
+// (window_attention._fwd_plan): out[0..7] = its shared memory bytes, items
+// (the launch refuses more than 2^31 - 1), G, NT, NB, QB, S and stream.
+cudaError_t plan(int W, int H, int N, int G, int hd, int bias_elem, bool may_stream, int rows,
+                 int* out) {
+  if (rows != kRows && hd != kRows128HeadDim) return cudaErrorInvalidValue;
+  Plan p;
+  const cudaError_t e = make_plan(&p, W, H, N, G, hd, bias_elem, may_stream, rows);
+  if (e != cudaSuccess) return e;
+  const long items = p.items();
+  const int fields[8] = {p.smem_bytes(), (int)(items < 0x7fffffffL ? items : 0x7fffffffL),
+                         p.G, p.NT, p.NB, p.QB, p.S, p.stream};
+  for (int i = 0; i < 8; ++i) out[i] = fields[i];
+  return cudaSuccess;
 }
 
 }  // namespace

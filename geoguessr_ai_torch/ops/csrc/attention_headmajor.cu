@@ -309,6 +309,36 @@ extern "C" int attention_batched_bf16(const void* q, const void* k, const void* 
   })
 }
 
+// The 128-row kind of K8a and K8b (window_attention.FWD_Q_ROWS = 128): hd
+// 32, N a multiple of 128, `groups` walked a pair of windows at a time.
+extern "C" int attention_qtiled_q128_bf16(const void* q, const void* k, const void* v,
+                                          const void* bias, void* out, int W, int H, int N,
+                                          int hd, int groups, float scale, cudaStream_t stream) {
+  using namespace gg::fwd90;
+  if (hd != kRows128HeadDim) return (int)cudaErrorInvalidValue;
+  return (int)run<kHeadMajor, float, kRows128HeadDim, true>(q, k, v, bias, out, W, H, N, groups,
+                                                            scale, stream, 2 * kRows);
+}
+
+extern "C" int attention_batched_q128_bf16(const void* q, const void* k, const void* v,
+                                           const void* bias, void* out, int W, int H, int N,
+                                           int hd, int groups, float scale, cudaStream_t stream) {
+  using namespace gg::fwd90;
+  if (hd != kRows128HeadDim) return (int)cudaErrorInvalidValue;
+  return (int)run<kHeadMajor, float, kRows128HeadDim, false>(q, k, v, bias, out, W, H, N, groups,
+                                                             scale, stream, 2 * kRows);
+}
+
+// The bf16 core's plans at (W, N, H, hd, G, rows) without a launch: out[8]
+// as fwd90::plan fills it (the f32 bias; K8a may stream it, K8b not).
+extern "C" int attention_qtiled_plan(int W, int N, int H, int hd, int G, int rows, int* out) {
+  return (int)gg::fwd90::plan(W, H, N, G, hd, 4, true, rows, out);
+}
+
+extern "C" int attention_batched_plan(int W, int N, int H, int hd, int G, int rows, int* out) {
+  return (int)gg::fwd90::plan(W, H, N, G, hd, 4, false, rows, out);
+}
+
 extern "C" int attention_batched_f32(const void* q, const void* k, const void* v,
                                      const void* bias, void* out, int W, int H, int N, int hd,
                                      int block_w, float scale, cudaStream_t stream) {

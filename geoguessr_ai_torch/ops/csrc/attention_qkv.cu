@@ -40,6 +40,24 @@ extern "C" int attention_qkv_bf16(const void* qkv, const void* bias, void* out, 
   })
 }
 
+// The 128-row kind (window_attention.FWD_Q_ROWS = 128): hd 32, N a
+// multiple of 128, `groups` walked a pair of windows at a time.
+extern "C" int attention_qkv_q128_bf16(const void* qkv, const void* bias, void* out, int W,
+                                       int N, int H, int hd, int groups, float scale,
+                                       void* stream) {
+  using namespace gg::fwd90;
+  if (hd != kRows128HeadDim) return (int)cudaErrorInvalidValue;
+  return (int)run<kQkv, gg::bf16, kRows128HeadDim, false>(
+      qkv, qkv, qkv, bias, out, W, H, N, groups, scale, static_cast<cudaStream_t>(stream),
+      2 * kRows);
+}
+
+// The bf16 core's plan at (W, N, H, hd, G, rows) without a launch: out[8]
+// as fwd90::plan fills it (the bf16 bias, no streamed plan).
+extern "C" int attention_qkv_plan(int W, int N, int H, int hd, int G, int rows, int* out) {
+  return (int)gg::fwd90::plan(W, H, N, G, hd, 2, false, rows, out);
+}
+
 extern "C" int attention_qkv_f32(const void* qkv, const void* bias, void* out, int W, int N,
                                  int H, int hd, int /*groups*/, float scale, void* stream) {
   return (int)gg::launch_window_attention(

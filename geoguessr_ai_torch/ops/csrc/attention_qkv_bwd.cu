@@ -61,6 +61,23 @@ extern "C" int attention_qkv_bwd_bf16(const void* qkv, const void* bias, const v
                                 hd, 1, static_cast<cudaStream_t>(stream));
 }
 
+// The 64-row kind of the core (window_attention.BWD_Q_ROWS = 64, hd 32):
+// each consumer warpgroup on 64-row items of its own.
+extern "C" int attention_qkv_bwd_q64_bf16(const void* qkv, const void* bias, const void* g,
+                                          void* dqkv, void* dbias, void* stats, void* partial,
+                                          int W, int N, int H, int hd, int G, float scale,
+                                          void* stream) {
+  return (int)gg::bwd90::launch(args<gg::bf16>(qkv, g, dqkv, dbias, stats, W, N, H, scale),
+                                static_cast<const gg::bf16*>(bias), static_cast<float*>(partial), G,
+                                hd, 1, static_cast<cudaStream_t>(stream), 64);
+}
+
+// The bf16 core's plan at (W, N, H, G, hd, rows) without a launch: out[12]
+// as bwd90::plan fills it.
+extern "C" int attention_qkv_bwd_plan(int W, int N, int H, int hd, int G, int rows, int* out) {
+  return (int)gg::bwd90::plan<gg::bf16>(W, N, H, G, hd, rows, out);
+}
+
 // The f32 twin keeps the four launches of attention_bwd.cuh (G and
 // partial unused: its d_bias launch sums all W windows in order).
 extern "C" int attention_qkv_bwd_f32(const void* qkv, const void* bias, const void* g, void* dqkv,

@@ -62,6 +62,42 @@ extern "C" int fb4d_bf16(const void* x, const void* ln_scale, const void* ln_bia
                                               s, window, Wm);
 }
 
+// The 128-row kind of the attention (window_attention.FWD_Q_ROWS = 128):
+// hd 32, N a multiple of 128, `groups` walked a pair of windows at a time.
+extern "C" int fb4d_q128_bf16(const void* x, const void* ln_scale, const void* ln_bias,
+                              const void* w_qkv_t, const void* b_qkv, const void* w_proj_t,
+                              const void* b_proj, const void* bias, void* qkv_scratch,
+                              void* attn_scratch, void* out, int B, int Hm, int Wm, int C, int H,
+                              int hd, int window, int groups, float scale, float eps,
+                              void* stream) {
+  using gg::lng90::kProjGemm;
+  using gg::lng90::kQkvGemm;
+  using namespace gg::fwd90;
+  if (hd != kRows128HeadDim) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int D = H * hd;
+  const int M = B * Hm * Wm;
+  const int N = window * window;
+  const int W = M / N;
+  cudaError_t e = gg::lng90::run<kQkvGemm, true>(
+      x, static_cast<const float*>(ln_scale), static_cast<const float*>(ln_bias), w_qkv_t,
+      static_cast<const float*>(b_qkv), qkv_scratch, M, C, 3 * D, eps, s, window, Wm);
+  if (e != cudaSuccess) return (int)e;
+  e = run<kQkv, gg::bf16, kRows128HeadDim, false>(qkv_scratch, qkv_scratch, qkv_scratch, bias,
+                                                  attn_scratch, W, H, N, groups, scale, s,
+                                                  2 * kRows);
+  if (e != cudaSuccess) return (int)e;
+  return (int)gg::lng90::run<kProjGemm, true>(attn_scratch, nullptr, nullptr, w_proj_t,
+                                              static_cast<const float*>(b_proj), out, M, D, C, eps,
+                                              s, window, Wm);
+}
+
+// The attention's plan at (W, N, H, hd, G, rows) without a launch: out[8]
+// as fwd90::plan fills it (the bf16 bias, no streamed plan).
+extern "C" int fb4d_plan(int W, int N, int H, int hd, int G, int rows, int* out) {
+  return (int)gg::fwd90::plan(W, H, N, G, hd, 2, false, rows, out);
+}
+
 extern "C" int fb4d_f32(const void* x, const void* ln_scale, const void* ln_bias,
                         const void* w_qkv_t, const void* b_qkv, const void* w_proj_t,
                         const void* b_proj, const void* bias, void* qkv_scratch,

@@ -58,7 +58,10 @@ kernel.
 
 The module constants below are the JAX module's, with its defaults.  The
 JAX package reads them when it traces; the port reads them at each call,
-so a caller sets one before building or calling, as the JAX tools do.
+so a caller sets one before building or calling, as the JAX tools do.  The
+tile knobs (``TILE_KNOBS``) are the counterparts of the JAX module's tile
+and VMEM knobs: they choose the bf16 cores' item kinds, window groups and
+shared-memory limit, and their defaults are the cores' own plans.
 """
 
 from __future__ import annotations
@@ -117,6 +120,118 @@ _BWD_DBIAS_ITEMS = 1024
 #: into as many groups as bring the items up to this many
 #: (``_headmajor_groups``), about 8 an SM of an H100.
 _HEADMAJOR_ITEMS = 1024
+
+# The tile knobs: the counterparts of the JAX module's VMEM_LIMIT_BYTES,
+# FUSED_BLOCK_WB, FUSED_BLOCK_SCORE_BYTES, _BWD_STACK_BYTES, _BWD_BLOCK_Q
+# and S2_BLOCK_Q.  Each bf16 call of the Hopper cores reads them
+# (``tile_knobs``); their defaults give the cores' own plans bit for bit.
+# The f32 twins keep their first design's tiles and refuse a non-default
+# value; the plain versions (CPU tensors) do not read them.
+
+#: Shared memory a bf16 window-attention launch may opt into, in bytes
+#: (the VMEM_LIMIT_BYTES counterpart).  None: the card's
+#: ``shared_memory_per_block_optin``, which every plan fits.  A call whose
+#: attention core plans more raises ValueError before any launch, as a
+#: Pallas tile above the limit fails to compile.
+SMEM_LIMIT_BYTES = None
+#: Windows of a group in K1's and K9's attention (the JAX FUSED_BLOCK_WB).
+#: None: ``_headmajor_groups``.  An int takes the JAX rule (``wb =
+#: max(1, min(FUSED_BLOCK_WB, FUSED_BLOCK_SCORE_BYTES // (H N^2 4)))``,
+#: lowered to a divisor of the windows, of a map row's for K9) and G = W /
+#: wb.
+FUSED_BLOCK_WB = None
+#: The JAX rule's budget for FUSED_BLOCK_WB (its default); read only with an
+#: int FUSED_BLOCK_WB, and refused beside None.
+FUSED_BLOCK_SCORE_BYTES = 8 * 1024 * 1024
+#: Bytes of the backward core's f32 d_bias partials (G, H, N, N) of K4 and
+#: K7 (the _BWD_STACK_BYTES counterpart).  None: ``_bwd_groups``.  An int:
+#: G = max(1, min(W, BWD_PARTIAL_BYTES // (H N^2 4))).  K5 has one group.
+BWD_PARTIAL_BYTES = None
+#: Query rows of an item of the backward core (K4, K5, K7; _BWD_BLOCK_Q):
+#: 128, both consumer warpgroups on one item, or 64, each on its own (hd
+#: 32).
+BWD_Q_ROWS = 128
+#: Query rows of an item of the forward core (K1, K2, K3, K8a, K8b, K9;
+#: S2_BLOCK_Q and BLOCK_Q): 64, or 128, both consumer warpgroups on one
+#: window's two 64-row tiles over one k/v ring, the bias streamed in
+#: 128-row chunks over pairs of windows (hd 32, N a multiple of 128).
+FWD_Q_ROWS = 64
+
+#: Each tile knob's default and the values it takes.
+TILE_KNOBS = {
+    "SMEM_LIMIT_BYTES": (None, "None or a positive int"),
+    "FUSED_BLOCK_WB": (None, "None or a positive int"),
+    "FUSED_BLOCK_SCORE_BYTES": (8 * 1024 * 1024, "a positive int"),
+    "BWD_PARTIAL_BYTES": (None, "None or a positive int"),
+    "BWD_Q_ROWS": (128, "64 or 128"),
+    "FWD_Q_ROWS": (64, "64 or 128"),
+}
+#: The knobs each kernel reads.
+KERNEL_KNOBS = {
+    "K1": ("SMEM_LIMIT_BYTES", "FUSED_BLOCK_WB", "FUSED_BLOCK_SCORE_BYTES",
+           "FWD_Q_ROWS"),
+    "K2": ("SMEM_LIMIT_BYTES", "FWD_Q_ROWS"),
+    "K3": ("SMEM_LIMIT_BYTES", "FWD_Q_ROWS"),
+    "K4": ("SMEM_LIMIT_BYTES", "BWD_PARTIAL_BYTES", "BWD_Q_ROWS"),
+    "K5": ("SMEM_LIMIT_BYTES", "BWD_Q_ROWS"),
+    "K7": ("SMEM_LIMIT_BYTES", "BWD_PARTIAL_BYTES", "BWD_Q_ROWS"),
+    "K8a": ("SMEM_LIMIT_BYTES", "FWD_Q_ROWS"),
+    "K8b": ("SMEM_LIMIT_BYTES", "FWD_Q_ROWS"),
+}
+KERNEL_KNOBS["K9"] = KERNEL_KNOBS["K1"]
+#: The head dim the cores' other item kinds (BWD_Q_ROWS 64, FWD_Q_ROWS
+#: 128) are built for: every TinyViT stage's.
+TILE_KIND_HEAD_DIM = 32
+
+
+def tile_knobs() -> dict:
+    """The tile knobs' values, each checked against what the Hopper cores
+    take: a ValueError names the knob and its values otherwise."""
+    knobs = {}
+    for name, (_, takes) in TILE_KNOBS.items():
+        v = globals()[name]
+        if name.endswith("_Q_ROWS"):
+            ok = v in (64, 128) and not isinstance(v, bool)
+        else:
+            ok = (v is None and takes.startswith("None")) or (
+                isinstance(v, int) and not isinstance(v, bool) and v > 0)
+        if not ok:
+            raise ValueError(f"{name}={v!r}: the Hopper cores take {takes}")
+        knobs[name] = v
+    return knobs
+
+
+def _knobs_for(kernel, dtype):
+    """The knobs ``kernel`` reads, checked (``tile_knobs``); in f32 each must
+    hold its default, since the f32 twins keep their first design's tiles,
+    and FUSED_BLOCK_SCORE_BYTES takes effect only beside an int
+    FUSED_BLOCK_WB.  Raises ValueError naming the knob."""
+    knobs = tile_knobs()
+    for name in KERNEL_KNOBS[kernel]:
+        default = TILE_KNOBS[name][0]
+        if dtype != torch.bfloat16 and knobs[name] != default:
+            raise ValueError(
+                f"{name}={knobs[name]!r}: {kernel}'s f32 twin keeps its first "
+                f"design's tiles and takes only the default {default!r}")
+    if ("FUSED_BLOCK_WB" in KERNEL_KNOBS[kernel]
+            and knobs["FUSED_BLOCK_WB"] is None
+            and knobs["FUSED_BLOCK_SCORE_BYTES"] != TILE_KNOBS[
+                "FUSED_BLOCK_SCORE_BYTES"][0]):
+        raise ValueError(
+            f"FUSED_BLOCK_SCORE_BYTES={knobs['FUSED_BLOCK_SCORE_BYTES']!r}: "
+            "it bounds an int FUSED_BLOCK_WB and takes only its default "
+            "beside FUSED_BLOCK_WB=None")
+    return knobs
+
+
+def _check_smem(kernel, need, knobs):
+    """Raises ValueError when ``kernel``'s plan needs more shared memory a
+    block than SMEM_LIMIT_BYTES allows."""
+    limit = knobs["SMEM_LIMIT_BYTES"]
+    if limit is not None and need > limit:
+        raise ValueError(
+            f"SMEM_LIMIT_BYTES={limit}: {kernel}'s plan needs {need} bytes of "
+            "shared memory a block")
 
 
 def reset_launches() -> None:
@@ -384,26 +499,46 @@ def _attention_qkv_fused_cuda(qkv, bias, scale, num_heads):
     of 64) up to 1024 at every head dim, and raises where no ring fits
     beside that tile (first at N = 1280 with hd 64).  The f32 twin runs
     the first design."""
-    from geoguessr_ai_torch.ops import _build
-
     W, N, D3 = qkv.shape
     D = D3 // 3
     hd = _check_geometry(W, N, 64, D, num_heads)
     dt = _act_dtype(qkv=qkv)
+    knobs = _knobs_for("K3", dt)
     _check("qkv", qkv, (W, N, D3), dt)
     bias = _bias_as(bias, num_heads, N, dt)
-    groups = 1
+    groups, other = 1, None
     if dt == torch.bfloat16:
         _qkv_layout(*((t.shape, t.stride(), t.data_ptr(), t.element_size())
                       for t in (qkv, bias)), num_heads)
-        groups = _headmajor_groups(W, num_heads, N)
+        groups, other = _fwd_groups_entry("K3", W, num_heads, N, hd, knobs)
     out = torch.empty((W, N, D), dtype=qkv.dtype, device=qkv.device)
-    fn = _build.typed_entry("attention_qkv", "attention_qkv", dt)
+    fn = _entry("attention_qkv", "attention_qkv", dt, other)
     err = fn(qkv.data_ptr(), bias.data_ptr(), out.data_ptr(), W, N,
              num_heads, hd, groups, float(scale), _stream())
     _raise_on(err, "_attention_qkv_fused_cuda")
     LAUNCHES["_attention_qkv_fused_cuda"] += 1
     return out
+
+
+def _fwd_groups_entry(kernel, W, H, N, hd, knobs, row_windows=None):
+    """(window groups, the C entry of the other item kind or None for the
+    ``_bf16`` one) of a bf16 forward-core call under the tile knobs
+    (``_fwd_call_plan``); the default where the core has no plan at the
+    default rows, which the entry then refuses."""
+    plan = _fwd_call_plan(kernel, W, H, N, hd, knobs, row_windows)
+    if plan is None:
+        return _headmajor_groups(W, H, N), None
+    return plan["groups"], None if plan["rows"] == 64 else plan["entry"]
+
+
+def _entry(lib, fn, dtype, other):
+    """``lib``'s C entry ``<fn>_bf16`` or ``<fn>_f32`` for ``dtype``, or its
+    entry ``other`` of another item kind when given."""
+    from geoguessr_ai_torch.ops import _build
+
+    if other is None:
+        return _build.typed_entry(lib, fn, dtype)
+    return _build.entry(lib, other)
 
 
 #: Largest window size and channel count K2's bf16 entry takes: the
@@ -428,12 +563,11 @@ def _fb_s2_cuda(x, ln_scale, ln_bias, w_qkv, b_qkv, bias, scale,
     layout over ``_headmajor_groups`` window groups (as K3), which takes N
     up to FB_S2_MAX_N and C up to FB_S2_MAX_C; the f32 twin runs the first
     design."""
-    from geoguessr_ai_torch.ops import _build
-
     W, N, C = x.shape
     D = w_qkv.shape[1] // 3
     hd = _check_geometry(W, N, C, D, num_heads, gemm=True)
     dt = _act_dtype(x=x)
+    knobs = _knobs_for("K2", dt)
     _check("x", x, (W, N, C), dt)
     ls = _vec_f32(ln_scale, C, "ln_scale")
     lb = _vec_f32(ln_bias, C, "ln_bias")
@@ -443,15 +577,15 @@ def _fb_s2_cuda(x, ln_scale, ln_bias, w_qkv, b_qkv, bias, scale,
     bias = _bias_as(bias, num_heads, N, dt)
     qkv = torch.empty((W, N, 3 * D), dtype=x.dtype, device=x.device)
     out = torch.empty((W, N, D), dtype=x.dtype, device=x.device)
-    groups = 1
+    groups, other = 1, None
     if dt == torch.bfloat16:
         if N > FB_S2_MAX_N or C > FB_S2_MAX_C:
             raise ValueError(f"K2 takes N up to {FB_S2_MAX_N} and C up to "
                              f"{FB_S2_MAX_C} in bf16, got N={N}, C={C}")
         _qkv_layout(*((t.shape, t.stride(), t.data_ptr(), t.element_size())
                       for t in (qkv, bias)), num_heads)
-        groups = _headmajor_groups(W, num_heads, N)
-    fn = _build.typed_entry("fb_s2", "fb_s2", dt)
+        groups, other = _fwd_groups_entry("K2", W, num_heads, N, hd, knobs)
+    fn = _entry("fb_s2", "fb_s2", dt, other)
     err = fn(x.data_ptr(), ls.data_ptr(), lb.data_ptr(), wq.data_ptr(),
              bq.data_ptr(), bias.data_ptr(), qkv.data_ptr(), out.data_ptr(),
              W, N, C, num_heads, hd, groups, float(scale), float(eps),
@@ -478,17 +612,17 @@ def _fused_block_plan(N, C, D, window=None):
 
 
 def _fused_block_launch(lib, x, ln_scale, ln_bias, w_qkv, b_qkv, w_proj,
-                        b_proj, bias, num_heads, W, N, geometry, scale, eps):
+                        b_proj, bias, num_heads, W, N, geometry, scale, eps,
+                        knobs, row_windows=None):
     """K1 and K9's shared launch: converts the operands to what the
     kernels read, allocates qkv (W, N, 3D) and the attention output (W, N,
     D) as scratch, and calls ``lib``'s entry with ``geometry``, the window
     groups, scale and eps before the stream.  In bf16 the entry runs the
     Hopper cores, whose attention reads qkv through a tensor map
-    (``_qkv_layout``) over ``_headmajor_groups`` window groups; the f32
-    twin ignores the groups.  Returns (the entry's error code, the output
-    shaped like x)."""
-    from geoguessr_ai_torch.ops import _build
-
+    (``_qkv_layout``) over the window groups of the tile knobs
+    (``_fwd_call_plan``; K9's windows of a map row ``row_windows``); the
+    f32 twin ignores the groups.  Returns (the entry's error code, the
+    output shaped like x)."""
     C = x.shape[-1]
     D = w_proj.shape[0]
     dt = x.dtype
@@ -503,12 +637,14 @@ def _fused_block_launch(lib, x, ln_scale, ln_bias, w_qkv, b_qkv, w_proj,
     qkv = torch.empty((W, N, 3 * D), dtype=x.dtype, device=x.device)
     attn = torch.empty((W, N, D), dtype=x.dtype, device=x.device)
     out = torch.empty_like(x)
-    groups = 1
+    groups, other = 1, None
     if dt == torch.bfloat16:
         _qkv_layout(*((t.shape, t.stride(), t.data_ptr(), t.element_size())
                       for t in (qkv, bias)), num_heads)
-        groups = _headmajor_groups(W, num_heads, N)
-    err = _build.typed_entry(lib, lib, dt)(
+        groups, other = _fwd_groups_entry(
+            "K1" if lib == "fused_block" else "K9", W, num_heads, N,
+            D // num_heads, knobs, row_windows)
+    err = _entry(lib, lib, dt, other)(
         x.data_ptr(), ls.data_ptr(), lb.data_ptr(), wq.data_ptr(),
         bq.data_ptr(), wp.data_ptr(), bp.data_ptr(), bias.data_ptr(),
         qkv.data_ptr(), attn.data_ptr(), out.data_ptr(), *geometry, groups,
@@ -528,12 +664,13 @@ def _fused_block_cuda(x, ln_scale, ln_bias, w_qkv, b_qkv, w_proj, b_proj,
     D = w_proj.shape[0]
     hd = _check_geometry(W, N, C, D, num_heads, gemm=True)
     dt = _act_dtype(x=x)
+    knobs = _knobs_for("K1", dt)
     _check("x", x, (W, N, C), dt)
     if dt == torch.bfloat16:
         _fused_block_plan(N, C, D)
     err, out = _fused_block_launch(
         "fused_block", x, ln_scale, ln_bias, w_qkv, b_qkv, w_proj, b_proj,
-        bias, num_heads, W, N, (W, N, C, num_heads, hd), scale, eps)
+        bias, num_heads, W, N, (W, N, C, num_heads, hd), scale, eps, knobs)
     _raise_on(err, "_fused_block_cuda")
     LAUNCHES["_fused_block_cuda"] += 1
     return out
@@ -558,12 +695,14 @@ def _fb4d_cuda(x, ln_scale, ln_bias, w_qkv, b_qkv, w_proj, b_proj, bias,
     D = w_proj.shape[0]
     hd = _check_geometry(W, N, C, D, num_heads, gemm=True)
     dt = _act_dtype(x=x)
+    knobs = _knobs_for("K9", dt)
     _check("x", x, (B, Hm, Wm, C), dt)
     if dt == torch.bfloat16:
         _fused_block_plan(N, C, D, window)
     err, out = _fused_block_launch(
         "fb4d", x, ln_scale, ln_bias, w_qkv, b_qkv, w_proj, b_proj, bias,
-        num_heads, W, N, (B, Hm, Wm, C, num_heads, hd, window), scale, eps)
+        num_heads, W, N, (B, Hm, Wm, C, num_heads, hd, window), scale, eps,
+        knobs, Wm // window)
     _raise_on(err, "_fb4d_cuda")
     LAUNCHES["_fb4d_cuda"] += 1
     return out
@@ -588,25 +727,76 @@ def _pad_tokens(qkv, bias, g, pad):
     return F.pad(qkv, (0, 0, 0, pad)), bias, F.pad(g, (0, 0, 0, pad))
 
 
-def _bwd_groups(W, N, H):
+def _bwd_groups(W, N, H, rows=128):
     """The window groups G of the d_bias launch of K4's and K7's bf16
-    core, a function of (W, N, H) only (never of the card): enough groups
-    that its (128-query tile, 64-key tile, head, group) items number about
-    _BWD_DBIAS_ITEMS, at most one a window; group i sums windows
-    [i W // G, (i + 1) W // G) in order.  21 at K4's stage 1 (W=1024,
-    N=256, H=6), 7 at stage 3 (W=64, H=18), 1 at K7's (W=64, N=1024,
-    H=12)."""
-    tiles = _bwd_items(W, N, H, 1)["dbias"]
+    core, a function of (W, N, H) and the items' rows only (never of the
+    card): enough groups that its (row tile, 64-key tile, head, group)
+    items number about _BWD_DBIAS_ITEMS, at most one a window; group i
+    sums windows [i W // G, (i + 1) W // G) in order.  21 at K4's stage 1
+    (W=1024, N=256, H=6), 7 at stage 3 (W=64, H=18), 1 at K7's (W=64,
+    N=1024, H=12)."""
+    tiles = _bwd_items(W, N, H, 1, rows)["dbias"]
     return max(1, min(W, _BWD_DBIAS_ITEMS // tiles))
 
 
-def _bwd_items(W, N, H, G):
+def _bwd_items(W, N, H, G, rows=128):
     """Work items of each launch of the bf16 core: the row statistics, dk
-    and dv, dq (a 128-row tile of one window and head each) and d_bias (a
-    128 x 64 tile of one head over one group of windows)."""
-    rows = -(-N // 128) * W * H
-    return {"stats": rows, "dkdv": rows, "dq": rows,
-            "dbias": (N // 64) * -(-N // 128) * G * H}
+    and dv, dq (a tile of ``rows`` rows of one window and head each) and
+    d_bias (a rows x 64 tile of one head over one group of windows)."""
+    tiles = -(-N // rows)
+    return {"stats": tiles * W * H, "dkdv": tiles * W * H,
+            "dq": tiles * W * H, "dbias": (N // 64) * tiles * G * H}
+
+
+_BWD_LAUNCHES = ("stats", "dkdv", "dq", "dbias")
+
+
+def _bwd_smem(hd, bias_elem, rows=128):
+    """Mirror of attention_bwd_sm90.cuh ``Smem``: per launch, (the shared
+    memory bytes of a block, the column slots of each pipe's ring).  A
+    block runs 128 / rows pipes, each with its own row and column rings:
+    row slots of two tensors of ``rows`` rows and their statistics, column
+    slots of a 64-row k/v (or q/g) pair, statistics and the step's rows x
+    64 bias tile (none in dbias), in 216 KB less 1 KB of alignment."""
+    half = 64 * hd * 2
+    tiles = rows // 64
+    pipes = 128 // rows
+    row_buf = 2 * tiles * half + 1024 * tiles
+    out = {}
+    for mode in _BWD_LAUNCHES:
+        row_bufs = 4 if mode == "dbias" else 2
+        stage = 2 * half + 1024 + (
+            0 if mode == "dbias" else rows * 64 * bias_elem)
+        stages = min(6, (216 * 1024 - 1024 - pipes * row_bufs * row_buf)
+                     // (pipes * stage))
+        bars = pipes * row_bufs * row_buf + pipes * stages * stage
+        out[mode] = (1024 + bars + pipes * 16 * (row_bufs + stages), stages)
+    return out
+
+
+def _bwd_call_plan(kernel, W, N, H, hd, knobs):
+    """The bf16 core's plan of one K4, K5 or K7 call at (W, N, H), N padded
+    to 64, under the tile knobs: the items' rows, the window groups G (K5:
+    one; BWD_PARTIAL_BYTES, else ``_bwd_groups``), each launch's items,
+    shared memory bytes and column slots.  Raises ValueError where a knob
+    asks for what the core does not take."""
+    rows = knobs["BWD_Q_ROWS"]
+    if rows != 128 and hd != TILE_KIND_HEAD_DIM:
+        raise ValueError(
+            f"BWD_Q_ROWS={rows}: the backward core's 64-row kind is built "
+            f"for hd {TILE_KIND_HEAD_DIM}, got hd {hd}; hd {hd} takes 128")
+    if kernel == "K5":
+        G = 1
+    elif knobs["BWD_PARTIAL_BYTES"] is not None:
+        G = max(1, min(W, knobs["BWD_PARTIAL_BYTES"] // (H * N * N * 4)))
+    else:
+        G = _bwd_groups(W, N, H, rows)
+    smem = _bwd_smem(hd, 2 if kernel == "K4" else 4, rows)
+    plan = {"rows": rows, "G": G, "items": _bwd_items(W, N, H, G, rows),
+            "smem": {m: b for m, (b, _) in smem.items()},
+            "stages": {m: s for m, (_, s) in smem.items()}}
+    _check_smem(kernel, max(plan["smem"].values()), knobs)
+    return plan
 
 
 def _bwd_scratch_shapes(W, N, H, G):
@@ -662,9 +852,10 @@ def _attention_bwd_cuda(name, lib, qkv, bias, g, scale, num_heads,
     the Hopper core, which needs ``_bwd_layout``; K4 and K7 also take the
     d_bias partials of its window groups (``_bwd_groups``), while K5 sums
     all windows in one group, and the f32 twins take no groups."""
-    from geoguessr_ai_torch.ops import _build
-
     dt = _act_dtype(qkv=qkv, g=g)
+    kernel = {"attention_qkv_bwd": "K4", "attention_bwd_merged": "K5",
+              "attention_bwd_qtiled": "K7"}[lib]
+    knobs = _knobs_for(kernel, dt)
     bias_dtype = bias_dtype or dt
     N = qkv.shape[1]
     pad = -N % 64
@@ -682,19 +873,21 @@ def _attention_bwd_cuda(name, lib, qkv, bias, g, scale, num_heads,
                         device=qkv.device)
     # K5 sums d_bias over the windows in one group and takes no partials
     grouped = lib != "attention_bwd_merged"
-    G = 1
+    G, other = 1, None
     if dt == torch.bfloat16:
         _bwd_layout(qkv.shape, qkv.stride(), qkv.data_ptr(), g.shape,
                     g.stride(), g.data_ptr(), qkv.element_size(), num_heads)
-        if grouped:
-            G = _bwd_groups(W, Np, num_heads)
+        plan = _bwd_call_plan(kernel, W, Np, num_heads, hd, knobs)
+        G = plan["G"]
+        if plan["rows"] != 128:
+            other = f"{lib}_q64_bf16"
     shapes = _bwd_scratch_shapes(W, Np, num_heads, G)
     # row max, 1 / row sum and t per (window, head, query)
     stats = torch.empty(shapes["stats"], dtype=torch.float32,
                         device=qkv.device)
     partial = None if shapes["partial"] is None else torch.empty(
         shapes["partial"], dtype=torch.float32, device=qkv.device)
-    fn = _build.typed_entry(lib, lib, dt)
+    fn = _entry(lib, lib, dt, other)
     ptrs = (qkv.data_ptr(), bias.data_ptr(), g.data_ptr(), dqkv.data_ptr(),
             dbias.data_ptr(), stats.data_ptr())
     if grouped:
@@ -753,20 +946,131 @@ def _headmajor_operands(q, k, v, bias):
     return W, H, N, hd, bias, dt
 
 
-def _headmajor_groups(W, H, N):
+def _headmajor_groups(W, H, N, rows=64):
     """The window groups G of the bf16 forward core (K3, K8a, K8b) where it
-    keeps the bias tile resident, a function of (W, H, N) only (never of
-    the card): enough groups that its (64-query tile, group, head) items
-    number about _HEADMAJOR_ITEMS, at most one a pair of windows, so that
-    both consumer warpgroups of an item have a window; group i holds
-    windows [i W // G, (i + 1) W // G), walked in order by the block that
-    owns the item.  42 at stage 1 of a serving bucket of 16 (W=1024, H=6,
-    N=256), 14 at stage 3 (W=64, H=18), 2 at stage 3 of a bucket of 1
-    (W=4).  Where K8a streams the bias (its f32 tile does not fit), the
-    core takes groups of at most four windows instead, ceil(W / 4) of
-    them, whatever G it is given."""
-    tiles = (N // 64) * H
+    keeps the bias tile resident, a function of (W, H, N) and the items'
+    rows only (never of the card): enough groups that its (query tile,
+    group, head) items number about _HEADMAJOR_ITEMS, at most one a pair
+    of windows, so that both consumer warpgroups of an item have a window;
+    group i holds windows [i W // G, (i + 1) W // G), walked in order by
+    the block that owns the item.  42 at stage 1 of a serving bucket of 16
+    (W=1024, H=6, N=256), 14 at stage 3 (W=64, H=18), 2 at stage 3 of a
+    bucket of 1 (W=4).  Where K8a streams the bias (its f32 tile does not
+    fit), the core takes groups of at most four windows instead, ceil(W /
+    4) of them, whatever G it is given."""
+    tiles = (N // rows) * H
     return max(1, min(-(-W // 2), _HEADMAJOR_ITEMS // tiles))
+
+
+#: What a block of the forward core may opt into (227 KB), and the most
+#: k/v slots a ring takes: attention_fwd_sm90.cuh kSmemMax, kMaxSlots.
+_FWD_SMEM_MAX = 232448
+_FWD_MAX_SLOTS = 16
+
+
+def _fwd_plan(W, H, N, G, hd, bias_elem, may_stream, rows=64):
+    """Mirror of attention_fwd_sm90.cuh ``make_plan``: the forward core's
+    plan of one call, a dict of its shared memory bytes (``smem``), items,
+    G, NT (key tiles a chunk), NB (bias buffers), QB (q buffers a consumer
+    group), S (k/v slots a ring) and stream, or None where the core has no
+    plan (it refuses the call).  rows 128 is the 128-row kind: one ring
+    both groups share, the bias streamed in 128-row chunks of two key
+    tiles, G as given."""
+    C = N // 64
+    tile = 64 * hd * 2
+    rings = 2 if rows == 64 else 1
+
+    def fit(nb, qb, bias, need):
+        barriers = 8 * (2 * nb + 2 * (2 * qb + rings * _FWD_MAX_SLOTS))
+        room = _FWD_SMEM_MAX - 1024 - barriers - nb * bias
+        if room < 0:
+            return None
+        slots = (room // (2 * tile) - qb if rings == 2
+                 else room // tile - 2 * qb)
+        slots = min(slots, _FWD_MAX_SLOTS)
+        if slots < need:
+            return None
+        smem = (1024 + nb * bias + (2 * qb + rings * slots) * tile
+                + 8 * (2 * nb + 2 * (2 * qb + rings * slots)))
+        return {"NB": nb, "S": slots, "smem": smem}
+
+    def plan(g, nt, qb, bias, stream, needs):
+        for nb, need in needs:
+            got = fit(nb, qb, bias, need)
+            if got:
+                return {"items": (N // rows) * g * H, "G": g, "NT": nt,
+                        "QB": qb, "stream": stream, "rows": rows, **got}
+        return None
+
+    if rows == 128:
+        if N % 128:
+            return None
+        need = 4 * 2
+        return plan(G, 2, 4, 128 * 64 * 2 * bias_elem, 1,
+                    ((2, need), (1, need)))
+    nt = 4 if C % 4 == 0 else 3 if C % 3 == 0 else 2 if C % 2 == 0 else 1
+    got = plan(G, nt, 2, 64 * N * bias_elem, 0, ((2, 2 * nt), (1, nt)))
+    if got or not may_stream:
+        return got
+    nt = 2 if C % 2 == 0 else 1
+    return plan(-(-W // 4), nt, 4, 64 * 64 * nt * bias_elem, 1,
+                ((2, 4 * nt), (1, 4 * nt)))
+
+
+def _fused_block_wb(W, N, H, knobs, row_windows=None):
+    """The JAX rule of K1's and K9's windows a grid cell (_fused_block_pallas,
+    _fb4d_pallas): FUSED_BLOCK_WB capped so that wb H N^2 4 bytes of scores
+    fit FUSED_BLOCK_SCORE_BYTES, at least 1, then lowered until it divides
+    the windows (K9: ``row_windows``, the windows of a row of the map)."""
+    wb = max(1, min(knobs["FUSED_BLOCK_WB"],
+                    knobs["FUSED_BLOCK_SCORE_BYTES"] // (H * N * N * 4)))
+    n = W if row_windows is None else row_windows
+    while n % wb:
+        wb -= 1
+    return wb
+
+
+#: The forward kernels: (the bias element's bytes, whether the core may
+#: stream the bias, the library and entry of its C entries).
+_FWD_KERNELS = {
+    "K1": (2, False, "fused_block", "fused_block"),
+    "K2": (2, False, "fb_s2", "fb_s2"),
+    "K3": (2, False, "attention_qkv", "attention_qkv"),
+    "K8a": (4, True, "attention_headmajor", "attention_qtiled"),
+    "K8b": (4, False, "attention_headmajor", "attention_batched"),
+    "K9": (2, False, "fb4d", "fb4d"),
+}
+
+
+def _fwd_call_plan(kernel, W, H, N, hd, knobs, row_windows=None):
+    """The forward core's plan of one bf16 call of ``kernel`` under the tile
+    knobs: ``_fwd_plan`` at the items' rows (FWD_Q_ROWS) and the window
+    groups (FUSED_BLOCK_WB's rule for K1 and K9 when it is an int, else
+    ``_headmajor_groups``), with the entry to call; None where the core has
+    no plan at the default rows (the entry refuses the call).  Raises
+    ValueError where a knob asks for what the core does not take."""
+    bias_elem, may_stream, _, fn = _FWD_KERNELS[kernel]
+    rows = knobs["FWD_Q_ROWS"]
+    if rows != 64 and (hd != TILE_KIND_HEAD_DIM or N % 128):
+        raise ValueError(
+            f"FWD_Q_ROWS={rows}: the forward core's 128-row kind takes hd "
+            f"{TILE_KIND_HEAD_DIM} and N a multiple of 128, got hd {hd}, N "
+            f"{N}; these take 64")
+    if kernel in ("K1", "K9") and knobs["FUSED_BLOCK_WB"] is not None:
+        G = W // _fused_block_wb(W, N, H, knobs, row_windows)
+    else:
+        G = _headmajor_groups(W, H, N, rows)
+    plan = _fwd_plan(W, H, N, G, hd, bias_elem, may_stream, rows)
+    if plan is None:
+        if rows != 64:
+            raise ValueError(f"FWD_Q_ROWS={rows}: {kernel} has no plan of "
+                             f"the 128-row kind at W={W}, H={H}, N={N}")
+        return None
+    _check_smem(kernel, plan["smem"], knobs)
+    # the G the entry takes (the streamed plan takes its own)
+    plan["groups"] = G
+    plan["entry"] = f"{fn}_bf16" if rows == 64 else f"{fn}_q128_bf16"
+    return plan
 
 
 def _headmajor_items(W, H, N, G):
@@ -830,17 +1134,16 @@ def _attention_qtiled_cuda(q, k, v, bias, scale):
     resident over ``_headmajor_groups`` window groups where it fits, else
     streamed in chunks over groups of four windows; the f32 twin runs the
     first design."""
-    from geoguessr_ai_torch.ops import _build
-
     W, H, N, hd, bias, dt = _headmajor_operands(q, k, v, bias)
+    knobs = _knobs_for("K8a", dt)
     out = torch.empty_like(q)
-    groups = 1
+    groups, other = 1, None
     if dt == torch.bfloat16:
         _headmajor_layout(*((t.shape, t.stride(), t.data_ptr(),
                              t.element_size()) for t in (q, k, v, bias)),
                           max_n=None)
-        groups = _headmajor_groups(W, H, N)
-    err = _build.typed_entry("attention_headmajor", "attention_qtiled", dt)(
+        groups, other = _fwd_groups_entry("K8a", W, H, N, hd, knobs)
+    err = _entry("attention_headmajor", "attention_qtiled", dt, other)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
         out.data_ptr(), W, H, N, hd, groups, float(scale), _stream())
     _raise_on(err, "_attention_qtiled_cuda")
@@ -854,20 +1157,19 @@ def _attention_batched_cuda(q, k, v, bias, scale):
     multiple of BLOCK_W (the JAX dispatch rule) and N below 512.  The bf16
     kernel walks ``_headmajor_groups`` groups of windows and needs
     ``_headmajor_layout``; the f32 twin walks BLOCK_W windows a block."""
-    from geoguessr_ai_torch.ops import _build
-
     W, H, N, hd, bias, dt = _headmajor_operands(q, k, v, bias)
+    knobs = _knobs_for("K8b", dt)
     block_w = min(BLOCK_W, W)
     if W % block_w or N >= 512:
         raise ValueError(f"K8b takes W a multiple of BLOCK_W={BLOCK_W} and "
                          f"N < 512, got W={W}, N={N}")
     out = torch.empty_like(q)
-    windows = block_w
+    windows, other = block_w, None
     if dt == torch.bfloat16:
         _headmajor_layout(*((t.shape, t.stride(), t.data_ptr(),
                              t.element_size()) for t in (q, k, v, bias)))
-        windows = _headmajor_groups(W, H, N)
-    err = _build.typed_entry("attention_headmajor", "attention_batched", dt)(
+        windows, other = _fwd_groups_entry("K8b", W, H, N, hd, knobs)
+    err = _entry("attention_headmajor", "attention_batched", dt, other)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
         out.data_ptr(), W, H, N, hd, windows, float(scale), _stream())
     _raise_on(err, "_attention_batched_cuda")
@@ -885,6 +1187,7 @@ def _attention_bwd(qkv, bias, g, scale, num_heads):
     footprint is small, else K5, or K7 when ``BWD_MERGED`` is False, on a
     CUDA tensor; their plain mirrors on a CPU one.  Returns (d_qkv,
     d_bias f32)."""
+    tile_knobs()
     if num_heads * qkv.shape[1] ** 2 * 4 <= BWD_MAX_SCORE_BYTES:
         fns = (_attention_qkv_bwd_cuda, _attention_qkv_bwd_plain)
     elif BWD_MERGED:
@@ -899,8 +1202,8 @@ def _attention_headmajor_cuda(q, k, v, bias, scale):
     """``_attention_pallas``'s choice: K8a at N >= 512, else K8b when W is
     a multiple of BLOCK_W, else K8a."""
     if BLOCK_Q != 256:
-        raise ValueError(f"BLOCK_Q={BLOCK_Q}: K8a's q-tile is the 64 rows of "
-                         "the forward core's wgmma, fixed by its plan, so "
+        raise ValueError(f"BLOCK_Q={BLOCK_Q}: K8a's q-tile is the forward "
+                         "core's item, set by FWD_Q_ROWS (64 or 128), so "
                          "the card takes only the default 256")
     W, _, N, _ = q.shape
     if N < 512 and W % BLOCK_W == 0:
@@ -921,6 +1224,7 @@ class _WindowAttentionQKV(torch.autograd.Function):
     def forward(ctx, qkv, bias, scale, num_heads):
         ctx.save_for_backward(qkv, bias)
         ctx.args = (scale, num_heads)
+        tile_knobs()
         if qkv.is_cuda:
             return _attention_qkv_fused_cuda(qkv, bias, scale, num_heads)
         return _attention_qkv_fused_plain(qkv, bias, scale, num_heads)
@@ -953,6 +1257,7 @@ class _WindowAttention(torch.autograd.Function):
     def forward(ctx, q, k, v, bias, scale):
         ctx.save_for_backward(q, k, v, bias)
         ctx.scale = scale
+        tile_knobs()
         if q.is_cuda:
             return _attention_headmajor_cuda(q, k, v, bias, scale)
         return _attention_plain(q, k, v, bias, scale)
@@ -979,6 +1284,7 @@ class _FusedBlockAttention(torch.autograd.Function):
         args = (x, ln_scale, ln_bias, w_qkv, b_qkv, w_proj, b_proj, bias)
         ctx.save_for_backward(*args)
         ctx.args = (scale, num_heads, eps)
+        tile_knobs()
         fn = _fused_block_cuda if x.is_cuda else _fused_block_plain
         return fn(*args, scale, num_heads, eps)
 
@@ -1005,6 +1311,7 @@ class _FusedBlockAttention4D(torch.autograd.Function):
         args = (x, ln_scale, ln_bias, w_qkv, b_qkv, w_proj, b_proj, bias)
         ctx.save_for_backward(*args)
         ctx.args = (scale, num_heads, window, eps)
+        tile_knobs()
         fn = _fb4d_cuda if x.is_cuda else _fb4d_plain
         return fn(*args, scale, num_heads, window, eps)
 
@@ -1029,6 +1336,7 @@ class _FusedBlockAttentionNoproj(torch.autograd.Function):
         args = (x, ln_scale, ln_bias, w_qkv, b_qkv, bias)
         ctx.save_for_backward(*args)
         ctx.args = (scale, num_heads, eps)
+        tile_knobs()
         fn = _fb_s2_cuda if x.is_cuda else _fb_s2_plain
         return fn(*args, scale, num_heads, eps)
 

@@ -246,7 +246,8 @@ def test_k5_keeps_its_entry_and_its_core(monkeypatch):
     src = open(_build.CSRC / "attention_bwd_merged.cu").read()
     assert '#include "attention_bwd_sm90.cuh"' in src
     for k in ("attention_qkv_bwd", "attention_bwd_qtiled"):
-        assert all(len(a) == 14 for a in _build.SIGNATURES[k].values())
+        assert all(len(a) == 14 for n, a in _build.SIGNATURES[k].items()
+                   if not n.endswith("_plan"))
 
 
 def test_the_core_is_hopper_code():

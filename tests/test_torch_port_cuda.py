@@ -644,7 +644,8 @@ def _sm90_case(monkeypatch, kernel, W, N, H, hd):
     monkeypatch.undo()
     _check_fenced(made)
     # stats, d_qkv and d_bias, and the partials when G > 1 (K5: one group)
-    G = 1 if kernel == "K5" else wa._bwd_groups(W, -(-N // 64) * 64, H)
+    G = wa._bwd_call_plan(kernel, W, -(-N // 64) * 64, H, hd,
+                          wa.tile_knobs())["G"]
     assert len(made) >= 3 + (G > 1)
     again = kern(qkv, bias, g, scale, H)
     torch.cuda.synchronize()
@@ -721,6 +722,59 @@ def test_cuda_headmajor_sm90_matches_plain_and_writes_every_element(
     assert wa.LAUNCHES[name] == before + 2
     assert torch.equal(got, again)
     want = wa._attention_plain(q, k, v, bias, scale)
+    assert got.shape == want.shape and got.dtype == torch.bfloat16
+    assert _rel_err(got, want) < KERNEL_REL_TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("W,N,H", [(3, 49, 4), (17, 196, 2), (3, 256, 3),
+                                   (2, 1024, 2), (1024, 64, 4)])
+@pytest.mark.parametrize("kernel", ["K4", "K7", "K5"])
+def test_cuda_bwd_sm90_64_row_kind(cuda_device, monkeypatch, kernel, W, N, H):
+    """BWD_Q_ROWS = 64, the backward core's 64-row kind (hd 32: two pipes a
+    block), as ``_sm90_case`` holds the default kind: ragged and whole
+    N, one window group and several."""
+    with pytest.MonkeyPatch.context() as knobs:
+        knobs.setattr(wa, "BWD_Q_ROWS", 64)
+        _sm90_case(monkeypatch, kernel, W, N, H, HD)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("W,H,N", [(3, 2, 128), (8, 6, 256), (5, 3, 1024),
+                                   (1, 2, 384)])
+@pytest.mark.parametrize("kernel", ["K8a", "K8b", "K3"])
+def test_cuda_fwd_sm90_128_row_kind(cuda_device, monkeypatch, kernel, W, H,
+                                    N):
+    """FWD_Q_ROWS = 128, the forward core's 128-row kind (hd 32, N a
+    multiple of 128; the last pair of an odd group repeats its window
+    unstored): the output in a NaN-fenced buffer, one launch a call, two
+    calls bitwise equal, within KERNEL_REL_TOL of the plain version."""
+    if kernel == "K8b" and N >= 512:
+        pytest.skip("K8b takes N below 512")
+    scale = HD ** -0.5
+    if kernel == "K3":
+        qkv, bias, _ = _bwd_inputs(W, N, H, cuda_device, seed=N)
+        args, name = (qkv, bias, scale, H), "_attention_qkv_fused_cuda"
+        plain = wa._attention_qkv_fused_plain
+    else:
+        args = (*_headmajor_inputs(W, H, N, cuda_device, seed=N), scale)
+        name = ("_attention_qtiled_cuda" if kernel == "K8a"
+                else "_attention_batched_cuda")
+        plain = wa._attention_plain
+    kern = getattr(wa, name)
+    with pytest.MonkeyPatch.context() as knobs:
+        knobs.setattr(wa, "FWD_Q_ROWS", 128)
+        before = wa.LAUNCHES[name]
+        made = _nan_fenced_buffers(monkeypatch)
+        got = kern(*args)
+        torch.cuda.synchronize()
+        monkeypatch.undo()
+        _check_fenced(made)
+        again = kern(*args)
+        torch.cuda.synchronize()
+        assert wa.LAUNCHES[name] == before + 2
+    assert torch.equal(got, again)
+    want = plain(*args)
     assert got.shape == want.shape and got.dtype == torch.bfloat16
     assert _rel_err(got, want) < KERNEL_REL_TOL
 

@@ -280,15 +280,31 @@ def test_smem_probe_refuses_rows_of_no_whole_float4():
 
 
 def test_vmem_tool_has_the_jax_tools_cases():
-    """The port's tool names the JAX tool's cases; the seven that set JAX
-    window-attention tile knobs raise NotImplementedError citing the
-    ROADMAP item of their counterparts."""
+    """The port's tool names the JAX tool's cases, in its order; the seven
+    that set JAX window-attention tile knobs each state those knobs as the
+    JAX tool's case sets them (read from its syntax tree), whether the case
+    embeds or trains, and map every knob to a port knob of
+    ``ops/window_attention.py`` or to ``no_counterpart``."""
+    from geoguessr_ai_torch.ops import window_attention as wa
+
     assert list(TV.CASES) == list(_jax_vmem_tool().CASES)
     assert set(TV.KNOB_CASES) == set(TV.CASES) - {"probe_default",
                                                   "probe_v64"}
-    for name in TV.KNOB_CASES:
-        with pytest.raises(NotImplementedError, match="Queue 1 item 16"):
-            TV.CASES[name]()
+    path = os.path.join(REPO, "tools", "exp_r4_vmem.py")
+    (cases,) = [n.value for n in ast.parse(open(path).read()).body
+                if isinstance(n, ast.Assign)
+                and getattr(n.targets[0], "id", None) == "CASES"]
+    for key, lam in zip(cases.keys, cases.values):
+        if key.value not in TV.KNOB_CASES:
+            continue
+        case = TV.KNOB_CASES[key.value]
+        assert lam.body.func.id == f"{case['run']}_case", key.value
+        knobs = eval(compile(ast.Expression(lam.body.args[0]), path, "eval"),
+                     {"V64": TV.V64})
+        assert case["jax"] == knobs, key.value
+        assert len(case["port"]) + len(case["no_counterpart"]) == len(knobs)
+        assert set(case["port"]) <= set(wa.TILE_KNOBS)
+        assert set(case["no_counterpart"]) <= set(knobs)
 
 
 def test_vmem_tool_needs_a_gpu():
