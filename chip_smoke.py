@@ -137,10 +137,13 @@ Phases, in order; any failure exits non-zero:
     forward, cosine >= 0.99 to the K6 engine of phase 11, bucket-16 p50;
 24. the f32 compute dtype (``BackboneConfig(dtype="float32")``): every
     f32 entry of K1-K11 against its plain f32 version at the shapes of
-    phases 3, 6, 10, 13 and 16 (max |err| / max |ref| <= 1e-3, which bf16
-    operands would not meet), timed beside the f32 library call and the f32
-    bound (4 bytes an element at 3.35 TB/s, products at the 495 TFLOP/s
-    TF32 peak);
+    phases 3, 6, 10, 13 and 16, and K4 at phase 31's TinyViT-5M-224 shapes
+    (max |err| / max |ref| <= 1e-3, which bf16 operands would not meet),
+    timed beside the f32 library call and the f32 bound (4 bytes an
+    element at 3.35 TB/s, products at the 495 TFLOP/s TF32 peak); K4's,
+    K5's and K7's f32 entries (the backward core's f32 kind) also bitwise
+    over two calls, their plan mirror equal to the CUDA plan query, each
+    launch's device time, and K7 on K5's stage-2 inputs bitwise K5's;
 25. the f32 engines at bucket 16 (TinyViT default, head-major and with
     both knobs; CLIP-L with K6 and with K11) and the f32 ``Embedder`` of
     ``bulk_embed_config()`` at 64 images: exact launches of one forward,
@@ -220,7 +223,9 @@ Phases, in order; any failure exits non-zero:
     the in-memory model's eval logits bit for bit; the step's p50
     (synchronised), the loop's p50 and peak memory; (d) one B=4 finetune
     step on the card in bf16 against the CPU in f32 and bf16 under phase
-    9's gates; (e) K4 at the finetune's three ragged shapes (W, N, H) =
+    9's gates, then in f32 against the CPU in f32 under phase 26's gates
+    (K4 exactly 10 launches, no other kernel); (e) K4 at the finetune's
+    three ragged shapes (W, N, H) =
     (1024, 49, 4), (64, 196, 5), (64, 49, 10) against its plain version,
     timed beside SDPA's backward, with the bound of the real and of the
     padded work; (f) ``extract_embeddings`` on the card against the CPU
@@ -865,29 +870,21 @@ def _rel_err(got, want):
 
 
 def _bwd_plan(kernel, W, N, H, dtype=torch.bfloat16):
-    """What one K4, K5 or K7 call launches at (W, N, H), as a log line: in
-    bf16 the Hopper core's window groups G (``_bwd_groups``; one for K5),
-    the items of each of its persistent launches and their grid (one
-    block of 384 threads an SM at most); in f32 the first design's grids,
-    which the twins keep."""
+    """What one K4, K5 or K7 call launches at (W, N, H), as a log line: the
+    Hopper core's kind (bf16, or f32), its window groups G
+    (``_bwd_groups``; one for K5), the items of each of its persistent
+    launches and their grid (one block of 384 threads an SM at most)."""
     from geoguessr_ai_torch.ops import window_attention as wa
 
     Np = -(-N // 64) * 64
-    if dtype == torch.bfloat16:
-        G = 1 if kernel == "K5" else wa._bwd_groups(W, Np, H)
-        sms = torch.cuda.get_device_properties(0).multi_processor_count
-        items = wa._bwd_items(W, Np, H, G)
-        grid = {k: min(n, sms) for k, n in items.items()}
-        return (f"bf16 core: G={G} window groups; items {items}; grid "
-                f"{grid} x 384 threads" + (" + the sum of the G partials"
-                                           if G > 1 else ""))
-    rows = f"({Np // 64}, {H}, {W})"
-    dbias = f"({Np // 64}, {Np // 64}, {H})"
-    if kernel == "K7":
-        return (f"f32 twin: grids ({H}, {W}) and {dbias} x 128 threads, "
-                f"d_bias over all {W} windows in one block a tile")
-    return (f"f32 twin: grids {rows} x 3 and {dbias} x 128 threads, d_bias "
-            f"over all {W} windows in one block a tile")
+    G = 1 if kernel == "K5" else wa._bwd_groups(W, Np, H)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    items = wa._bwd_items(W, Np, H, G)
+    grid = {k: min(n, sms) for k, n in items.items()}
+    kind = "bf16" if dtype == torch.bfloat16 else "f32"
+    return (f"{kind} core: G={G} window groups; items {items}; grid "
+            f"{grid} x 384 threads" + (" + the sum of the G partials"
+                                       if G > 1 else ""))
 
 
 #: The launches of K4's and K7's bf16 core by kernel name.
@@ -919,7 +916,7 @@ def _launch_ms(fn, calls=3):
         if evt.device_type != torch.autograd.DeviceType.CUDA:
             continue
         key = evt.name
-        if "attn_bwd_sm90<" in key:
+        if "attn_bwd_sm90<" in key or "attn_bwd_f32_sm90<" in key:
             key = _BWD_LAUNCH_NAMES[int(key.split("<")[1].split(",")[1])]
         elif "dbias_reduce" in key:
             key = "dbias_sum"
@@ -3089,7 +3086,9 @@ F32_TRAIN_GRAD_MIN_COSINE = 0.9999
 F32_NOISE_FLOOR = 1e-6
 #: (kernel, label, shape): each K1-K11 kernel at the shape its main path
 #: gives it (serving bucket 16, the B=16 train shapes, CLIP-L bucket 16,
-#: the embed batch of 512 images), as the bf16 phases run it.
+#: the embed batch of 512 images), as the bf16 phases run it, and K4 at
+#: the B=64 finetune's TinyViT-5M-224 shapes (FT_K4_CASES; N padded to 64
+#: inside the wrapper).
 F32_CASES = (
     ("K1", "stage1", (1024, 256, 192, 6)),
     ("K1", "embed_stage3", (64, 256, 576, 18)),
@@ -3097,6 +3096,9 @@ F32_CASES = (
     ("K3", "stage3", (64, 256, 576, 18)),
     ("K4", "stage1", (1024, 256, 6)),
     ("K4", "stage3", (64, 256, 18)),
+    ("K4", "5m224_stage1", (1024, 49, 4)),
+    ("K4", "5m224_stage2", (64, 196, 5)),
+    ("K4", "5m224_stage3", (64, 49, 10)),
     ("K5", "stage2", (64, 1024, 12)),
     ("K7", "stage2", (64, 1024, 12)),
     ("K8a", "stage2_bucket16", (64, 12, 1024)),
@@ -3188,6 +3190,33 @@ def _f32_case(kernel, shape, gen):
             bound_by, None)
 
 
+def _f32_bwd_checks(kernel, label, shape, kern, args, got):
+    """K4's, K5's and K7's f32 entries (the backward core's f32 kind): the
+    plan mirror against the CUDA plan query, two calls bitwise equal, and
+    at K5's stage 2 K7's call on the same inputs bitwise K5's (one window
+    group, t in a second pass: the same launches).  Returns a log line."""
+    from geoguessr_ai_torch.ops import window_attention as wa
+
+    W, N, H = shape
+    Np = -(-N // 64) * 64
+    what = _knob_plan_check(kernel, (W, Np, H, None),
+                            wa._knobs_for(kernel, torch.float32), elem=4)
+    again = kern(*args)
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+        fail(f"{kernel} f32 {label}: two calls differ")
+    del again
+    line = f"f32 kind: {what}; bitwise over two calls"
+    if kernel == "K5":
+        k7 = wa._attention_bwd_qtiled_cuda(*args)
+        torch.cuda.synchronize()
+        same = all(torch.equal(a, b) for a, b in zip(got, k7))
+        line += f"; K7 on these inputs bitwise K5's: {same}"
+        if not same:
+            fail(f"K7 f32 at {shape} differs from K5 f32 (one window group)")
+    return line
+
+
 def phase_f32_kernels():
     rows = {}
     gen = torch.Generator().manual_seed(SEED + 10)
@@ -3196,6 +3225,8 @@ def phase_f32_kernels():
                                                             gen)
         got = kern(*args)
         torch.cuda.synchronize()
+        bwd_line = (_f32_bwd_checks(kernel, label, shape, kern, args, got)
+                    if kernel in ("K4", "K5", "K7") else None)
         want = plain(*args)
         torch.cuda.synchronize()
         pairs = zip(got, want) if isinstance(got, tuple) else [(got, want)]
@@ -3206,15 +3237,20 @@ def phase_f32_kernels():
                      f"{tuple(b.shape)} {b.dtype}")
             errs.append((*_rel_err(a, b), bool(torch.isfinite(a).all())))
         del got, want
-        ms = cuda_time_ms(lambda: kern(*args), iters=5)
+        # the backward core's f32 kind as device time (a loop between two
+        # events reads the wrapper's host work at the 5M-224 shapes)
+        ms = (device_time_ms(lambda: kern(*args))
+              if bwd_line else cuda_time_ms(lambda: kern(*args), iters=5))
         plain_ms = cuda_time_ms(lambda: plain(*args), iters=2)
         lib_ms, lib_what = (None, "") if lib is None else lib()
         log(f"{kernel} f32 {label} {shape}: max_abs_err "
             + ", ".join(f"{e[0]:.6g}" for e in errs) + " max_rel_err "
             + ", ".join(f"{e[1]:.6g}" for e in errs)
             + f" (tolerance {F32_REL_TOL})")
-        if kernel in ("K4", "K7"):
+        if bwd_line:
             log(f"  {_bwd_plan(kernel, shape[0], shape[1], shape[2], torch.float32)}")
+            log(f"  {bwd_line}")
+            _log_launch_ms(_launch_ms(lambda: kern(*args)))
         log(f"  kernel_ms {ms:.4f}, plain_ms {plain_ms:.4f}, library_ms "
             f"{'null' if lib_ms is None else f'{lib_ms:.4f}'}"
             f"{f' ({lib_what})' if lib_what else ''}, bound_ms {bound:.4f} "
@@ -3368,6 +3404,49 @@ def phase_f32_serve(tinyvit_ref, clip_ref, embed_ref):
 # ---------------------------------------------------------------------------
 
 
+def _f32_step_gates(label, gl, gg, cl, cg, launches, want, stats=None):
+    """A step on the card in f32 (loss gl, gradients gg) against the CPU's
+    f32 step (cl, cg), logged: the loss within F32_TRAIN_LOSS_RTOL, each
+    top-level module's and each gradient leaf's cosine at least
+    F32_TRAIN_GRAD_MIN_COSINE, the running statistics' lowest cosine
+    (``stats``, where the step has them) too, and exactly the launches
+    ``want``; fails otherwise."""
+    rel = abs(gl - cl) / abs(cl)
+    modules = sorted({_top_module(n) for n in cg})
+    mod_cos = {m: _cosine(*(torch.cat([g[n].flatten() for n in cg
+                                       if _top_module(n) == m])
+                            for g in (gg, cg))) for m in modules}
+    # A leaf whose gradient is zero in exact arithmetic (a bias that
+    # reaches the loss only through a batch-statistics BatchNorm, which
+    # removes any per-channel constant) holds rounding noise on both
+    # sides: its cosine says nothing.  Those leaves are the ones below
+    # F32_NOISE_FLOOR of the largest gradient norm, listed with it.
+    top = max(float(cg[n].norm()) for n in cg)
+    leaves = [n for n in cg if float(cg[n].norm()) > F32_NOISE_FLOOR * top]
+    floor = sorted(set(cg) - set(leaves))
+    cos = {n: _cosine(gg[n], cg[n]) for n in leaves}
+    worst = min(cos, key=cos.get)
+    worst_mod = min(mod_cos, key=mod_cos.get)
+    log(f"{label} on the card vs the CPU f32 step: loss "
+        f"{gl:.8f} / {cl:.8f} rel {rel:.3g} (<= {F32_TRAIN_LOSS_RTOL}); "
+        f"lowest module gradient cosine {mod_cos[worst_mod]:.8f} "
+        f"({worst_mod}); {len(leaves)} gradient leaves, lowest cosine "
+        f"{cos[worst]:.8f} ({worst}; >= {F32_TRAIN_GRAD_MIN_COSINE}); "
+        + ("" if stats is None else
+           f"lowest running statistics cosine {stats:.8f}; ")
+        + f"launches {launches}")
+    log(f"  {len(floor)} leaves at the noise floor (norm < "
+        f"{F32_NOISE_FLOOR} x {top:.4g}): " + ", ".join(
+            f"{n} {float(cg[n].norm()):.3g}/{float(gg[n].norm()):.3g}"
+            for n in floor))
+    if launches != want:
+        fail(f"{label}: launches {launches}, expected {want}")
+    if rel > F32_TRAIN_LOSS_RTOL or cos[worst] < F32_TRAIN_GRAD_MIN_COSINE \
+            or mod_cos[worst_mod] < F32_TRAIN_GRAD_MIN_COSINE \
+            or (stats is not None and stats < F32_TRAIN_GRAD_MIN_COSINE):
+        fail(f"the {label} disagrees with the CPU f32 step")
+
+
 def phase_f32_train(cpu_step):
     """The B=2 train step of phase 9 in f32 on the card, with K5 and with
     K7 (BWD_MERGED False), each against phase 9's CPU f32 step: loss, every
@@ -3391,42 +3470,9 @@ def phase_f32_train(cpu_step):
             want["K7"], want["K5"] = want.pop("K5"), 0
         want = {k: want.get(k, 0) for k in launches}
         label = "K5" if merged else "K7"
-        rel = abs(gl - cl) / abs(cl)
-        modules = sorted({_top_module(n) for n in cg})
-        mod_cos = {m: _cosine(*(torch.cat([g[n].flatten() for n in cg
-                                           if _top_module(n) == m])
-                                for g in (gg, cg))) for m in modules}
-        # A leaf whose gradient is zero in exact arithmetic (a bias that
-        # reaches the loss only through a batch-statistics BatchNorm, which
-        # removes any per-channel constant) holds rounding noise on both
-        # sides: its cosine says nothing.  Those leaves are the ones below
-        # F32_NOISE_FLOOR of the largest gradient norm, listed with it.
-        top = max(float(cg[n].norm()) for n in cg)
-        leaves = [n for n in cg if float(cg[n].norm()) > F32_NOISE_FLOOR * top]
-        floor = sorted(set(cg) - set(leaves))
-        cos = {n: _cosine(gg[n], cg[n]) for n in leaves}
-        worst = min(cos, key=cos.get)
-        worst_mod = min(mod_cos, key=mod_cos.get)
-        stats = min(_cosine(gs[n], cs[n]) for n in cs)
-        log(f"f32 train step ({label}) on the card vs the CPU f32 step: loss "
-            f"{gl:.8f} / {cl:.8f} rel {rel:.3g} (<= {F32_TRAIN_LOSS_RTOL}); "
-            f"lowest module gradient cosine {mod_cos[worst_mod]:.8f} "
-            f"({worst_mod}); {len(leaves)} gradient leaves, lowest cosine "
-            f"{cos[worst]:.8f} ({worst}; >= {F32_TRAIN_GRAD_MIN_COSINE}); "
-            f"lowest running statistics cosine {stats:.8f}; launches "
-            f"{launches}")
-        log(f"  {len(floor)} leaves at the noise floor (norm < "
-            f"{F32_NOISE_FLOOR} x {top:.4g}): " + ", ".join(
-                f"{n} {float(cg[n].norm()):.3g}/{float(gg[n].norm()):.3g}"
-                for n in floor))
-        if launches != want:
-            fail(f"f32 train step ({label}): launches {launches}, expected "
-                 f"{want}")
-        if rel > F32_TRAIN_LOSS_RTOL or cos[worst] < F32_TRAIN_GRAD_MIN_COSINE \
-                or mod_cos[worst_mod] < F32_TRAIN_GRAD_MIN_COSINE \
-                or stats < F32_TRAIN_GRAD_MIN_COSINE:
-            fail(f"the f32 train step ({label}) disagrees with the CPU f32 "
-                 "step")
+        _f32_step_gates(f"f32 train step ({label})", gl, gg, cl, cg,
+                        launches, want,
+                        min(_cosine(gs[n], cs[n]) for n in cs))
         for k, n in launches.items():
             total[k] = total.get(k, 0) + n
         gc.collect()
@@ -5093,7 +5139,10 @@ def _ft_step_grads(device, dtype, state, batch):
 def _ft_step_vs_cpu(train):
     """(d) One finetune train step of seeded weights on FT_CPU_BATCH train
     rows: the card in bf16 against the port on the CPU in f32 and in bf16,
-    under phase 9's gates."""
+    under phase 9's gates; then the card in f32 against the CPU in f32,
+    under phase 26's f32 gates, with K4 (the backward core's f32 kind)
+    exactly FT_K4_PER_STEP launches and no other kernel.  Returns the f32
+    step's K4 launches."""
     from geoguessr_ai_torch.models.super_guessr import init_parameters_
     from geoguessr_ai_torch.models.tinyvit import TinyViTConfig
     from geoguessr_ai_torch.train import finetune_tinyvit as ft
@@ -5111,6 +5160,13 @@ def _ft_step_vs_cpu(train):
     bad = _step_disagreements(gl, gg, cl, cg, bl, bg)
     if bad:
         fail(f"the finetune step on the card disagrees with the CPU: {bad}")
+    _reset_all_launches()
+    fl, fg = _ft_step_grads("cuda", "float32", state, batch)
+    torch.cuda.synchronize()
+    launches = _all_launches()
+    _f32_step_gates("(d) finetune step in f32", fl, fg, cl, cg, launches,
+                    {**{k: 0 for k in launches}, "K4": FT_K4_PER_STEP})
+    return launches["K4"]
 
 
 def _ft_k4_cases():
@@ -5231,7 +5287,7 @@ def _ft_embeddings(tmp, mgr, train, summary):
 
 def phase_finetune(paths):
     """Phase 31; returns (K4's launches in the finetune, K4's rows at the
-    finetune's shapes)."""
+    finetune's shapes, K4's launches in the f32 step of (d))."""
     t0 = time.perf_counter()
     gc.collect()
     torch.cuda.empty_cache()
@@ -5239,7 +5295,7 @@ def phase_finetune(paths):
         mgr, points = _ft_world(tmp)
         train, val, class_map = _ft_rows(mgr, points, paths)
         launches, summary = _ft_finetune(tmp, train, val, class_map)
-        _ft_step_vs_cpu(train)
+        f32_launches = _ft_step_vs_cpu(train)
         rows = _ft_k4_cases()
         _ft_embeddings(tmp, mgr, train, summary)
         del summary
@@ -5249,7 +5305,7 @@ def phase_finetune(paths):
     log(f"phase 31 in {took:.1f} s (limit {FT_PHASE_S:.0f} s)")
     if took > FT_PHASE_S:
         fail(f"phase 31 took {took:.1f} s, over its {FT_PHASE_S:.0f} s")
-    return launches, rows
+    return launches, rows, f32_launches
 
 
 # ---------------------------------------------------------------------------
@@ -6110,18 +6166,20 @@ def _cuda_plan(lib, entry, *args, n):
     return list(out)
 
 
-def _knob_plan_check(kernel, geometry, knobs):
+def _knob_plan_check(kernel, geometry, knobs, elem=2):
     """(a): the wrapper's plan mirror of one call against the CUDA plan's
-    query at the same (W, N, H, hd 32, G, rows); returns a log line."""
+    query at the same (W, N, H, hd 32, G, rows); returns a log line.
+    ``elem`` 4: the backward core's f32 kind (``<lib>_plan_f32``)."""
     from geoguessr_ai_torch.ops import window_attention as wa
 
     W, N, H, rw = geometry
     if kernel in ("K4", "K5", "K7"):
-        plan = wa._bwd_call_plan(kernel, W, N, H, 32, knobs)
+        plan = wa._bwd_call_plan(kernel, W, N, H, 32, knobs, elem)
         lib = {"K4": "attention_qkv_bwd", "K5": "attention_bwd_merged",
                "K7": "attention_bwd_qtiled"}[kernel]
-        got = _cuda_plan(lib, f"{lib}_plan", W, N, H, 32, plan["G"],
-                         plan["rows"], n=12)
+        query = f"{lib}_plan" if elem == 2 else f"{lib}_plan_f32"
+        got = _cuda_plan(lib, query, W, N, H, 32, plan["G"], plan["rows"],
+                         n=12)
         modes = wa._BWD_LAUNCHES
         want = ([plan["smem"][m] for m in modes]
                 + [plan["items"][m] for m in modes]
@@ -6373,7 +6431,8 @@ def main():
     torch.cuda.empty_cache()
     surface_launches = phase_train_surface(paths, train_loop_p50)
     clip_train_launches = phase_clip_train(paths)
-    finetune_launches, finetune_rows = phase_finetune(paths)
+    finetune_launches, finetune_rows, ft_f32_launches = phase_finetune(paths)
+    f32_launches["K4"] += ft_f32_launches
     store_launches = phase_store(paths, train_loop_p50)
     gc.collect()
     torch.cuda.empty_cache()
@@ -6517,7 +6576,8 @@ def main():
                 for key, r in exp_rows.items()
                 if key[0] == "K13" and key[1] == kind and key[2] != main_shape},
         })
-    # the f32 entries: launches over the f32 main paths (phases 25-26)
+    # the f32 entries: launches over the f32 main paths (phases 25-26, and
+    # phase 31's f32 finetune step for K4)
     for (k, label), row in f32_rows.items():
         name, source, replaces = F32_META[k]
         kernels.append({

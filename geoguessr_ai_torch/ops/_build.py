@@ -50,6 +50,13 @@ def _tiled(name: str, kind: str, argtypes: tuple) -> Dict[str, tuple]:
             f"{name}_plan": _PLAN}
 
 
+def _tiled_bwd(name: str, argtypes: tuple) -> Dict[str, tuple]:
+    """A backward entry of the Hopper backward core (``_tiled`` with its
+    64-row bf16 kind) and the plan query of the core's f32 kind,
+    ``<name>_plan_f32``."""
+    return {**_tiled(name, "q64", argtypes), f"{name}_plan_f32": _PLAN}
+
+
 #: Entry points of every library, by library name: C name -> argtypes.
 SIGNATURES: Dict[str, Dict[str, tuple]] = {
     "attention_qkv": _tiled("attention_qkv", "q128", (
@@ -59,11 +66,11 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
     "fused_block": _tiled("fused_block", "q128", (
         _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
         _I, _I, _I, _I, _I, _I, _F, _F, _P)),
-    "attention_qkv_bwd": _tiled("attention_qkv_bwd", "q64", (
+    "attention_qkv_bwd": _tiled_bwd("attention_qkv_bwd", (
         _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P)),
-    "attention_bwd_merged": _tiled("attention_bwd_merged", "q64", (
+    "attention_bwd_merged": _tiled_bwd("attention_bwd_merged", (
         _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P)),
-    "attention_bwd_qtiled": _tiled("attention_bwd_qtiled", "q64", (
+    "attention_bwd_qtiled": _tiled_bwd("attention_bwd_qtiled", (
         _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P)),
     "attention_headmajor": {
         **_tiled("attention_qtiled", "q128", (

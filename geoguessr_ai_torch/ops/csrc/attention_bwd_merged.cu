@@ -1,5 +1,5 @@
-// K5: the large-N window-attention backward, d_qkv (W, N, 3D) in bf16 and
-// d_bias (H, N, N) in f32 summed over the W windows, with an f32 bias.
+// K5: the large-N window-attention backward, d_qkv (W, N, 3D) in the
+// activations' type (bf16, or f32) and d_bias (H, N, N) in f32 summed over the W windows, with an f32 bias.
 //
 // Replaces geoguessr_ai_tpu/ops/window_attention.py:1708
 // _attention_bwd_merged_pallas (kernel _bwd_merged_kernel, the tile math
@@ -35,13 +35,13 @@
 // per byte ridge, so the tensor cores bound it (~258 GFLOP at B=16
 // panoramas).  The core recomputes the scores in each launch: twelve
 // N x N products a (window, head) where the function needs five.
-// The _f32 twin keeps the first design (attention_bwd.cuh), which
-// recomputes scores per 64x64 tile on mma.sync in four launches.
+// The _f32 entry runs the same launches in the core's f32 kind (the
+// products split into bf16 pairs on the chip).
 #include "attention_bwd_sm90.cuh"
 
 namespace {
 
-// qkv, g, dqkv bf16 (or f32 for the twin); bias, dbias and stats f32.
+// qkv, g, dqkv bf16 (or f32 for the _f32 entry); bias, dbias and stats f32.
 template <class E>
 gg::BwdArgs<E> args(const void* qkv, const void* g, void* dqkv, void* dbias, void* stats, int W,
                     int N, int H, float scale) {
@@ -84,10 +84,17 @@ extern "C" int attention_bwd_merged_plan(int W, int N, int H, int hd, int G, int
   return (int)gg::bwd90::plan<float>(W, N, H, G, hd, rows, out);
 }
 
+// The f32 entry runs the core's f32 kind with one window group and t in a
+// second pass, as the bf16 entry does: K7's f32 entry's bits at one group.
 extern "C" int attention_bwd_merged_f32(const void* qkv, const void* bias, const void* g, void* dqkv,
                 void* dbias, void* stats, int W, int N, int H, int hd, float scale,
                 void* stream) {
-  return (int)gg::launch_attention_bwd(args<float>(qkv, g, dqkv, dbias, stats, W, N, H, scale),
-                                       static_cast<const float*>(bias), hd,
-                                       static_cast<cudaStream_t>(stream));
+  const gg::BwdArgs<float> a = args<float>(qkv, g, dqkv, dbias, stats, W, N, H, scale);
+  const float* b = static_cast<const float*>(bias);
+  return (int)gg::bwd90::launch(a, b, nullptr, 1, hd, 2, static_cast<cudaStream_t>(stream));
+}
+
+// The f32 kind's plan at (W, N, H, G, hd, rows = 128) without a launch.
+extern "C" int attention_bwd_merged_plan_f32(int W, int N, int H, int hd, int G, int rows, int* out) {
+  return (int)gg::bwd90::plan_f32(W, N, H, G, hd, rows, out);
 }

@@ -1,10 +1,13 @@
-// The Hopper core of the bf16 window-attention backwards K4
-// (attention_qkv_bwd.cu, a bf16 bias), K5 (attention_bwd_merged.cu, an f32
-// bias, one window group) and K7 (attention_bwd_qtiled.cu, an f32 bias).  It computes what attention_bwd.cuh computes, with the same
-// numerics (that file's head comment): s in f32 from bf16 products plus
-// the bias, the row softmax in f32, t = sum_row dp * p, ds = p * (dp - t),
-// dv from bf16(p), dq and dk from bf16(ds) times scale, d_bias the f32 sum
-// of ds over the windows; each d_qkv sum rounded to bf16 once.
+// The Hopper core of the window-attention backwards K4
+// (attention_qkv_bwd.cu, the bias in the activations' type), K5
+// (attention_bwd_merged.cu, an f32 bias, one window group) and K7
+// (attention_bwd_qtiled.cu, an f32 bias), in two kinds: bf16 activations
+// (attn_bwd_sm90) and f32 ones (attn_bwd_f32_sm90, "The f32 kind" below).
+// It computes the function attention_bwd.cuh's head comment states: s in
+// f32 from bf16 products plus the bias, the row softmax in f32, t =
+// sum_row dp * p, ds = p * (dp - t), dv from bf16(p), dq and dk from
+// bf16(ds) times scale, d_bias the f32 sum of ds over the windows; each
+// d_qkv sum rounded to bf16 once (in f32: split products, nothing rounded).
 //
 // Four persistent launches, each one block of 384 threads on every SM
 // walking its work items in a fixed order, with one tile core:
@@ -211,9 +214,10 @@ __device__ __forceinline__ void bias_from_memory(float (&b)[32], const BiasT* __
 }
 
 // The thread's d (64 x HD accumulator, rows r0 and r0 + 8) times `sc`
-// into the hd columns at `out` of rows r0 and r0 + 8 (row pitch ld).
-template <int HD>
-__device__ __forceinline__ void store_rows(bf16* out, long ld, const float (&d)[HD / 2], float sc,
+// into the hd columns at `out` of rows r0 and r0 + 8 (row pitch ld), in
+// out's type (bf16, or f32 in the f32 kind).
+template <int HD, class E>
+__device__ __forceinline__ void store_rows(E* out, long ld, const float (&d)[HD / 2], float sc,
                                            int c) {
 #pragma unroll
   for (int t = 0; t < HD / 8; ++t) {
@@ -766,6 +770,638 @@ cudaError_t plan(int W, int N, int H, int G, int hd, int rows, int* out) {
   if (rows != kRowsA) return cudaErrorInvalidValue;
   GG_HEAD_DIM_SWITCH(hd, {
     plan_of<HD, BiasT, kRowsA>(geo, out);
+    return cudaSuccess;
+  })
+}
+
+// ---------------------------------------------------------------------------
+// The f32 kind: qkv, g and d_qkv f32, the bias and d_bias f32.
+//
+// The same four launches over the same items (128-row ones only) as the
+// bf16 kind, with the first design's f32 numerics: every product splits
+// its operands into bf16 pairs hi = bf16(x), lo = bf16(x - hi) and sums
+// lo.hi + hi.lo + hi.hi in the f32 accumulator (three wgmma for one, about
+// 2^-17 of error a product); p and ds are split, not rounded; each d_qkv
+// sum is stored in f32.  d_bias is summed per window group in the order
+// the bf16 kind takes (K4, K7: _bwd_groups; K5: one group), with no
+// atomics, so every output is bitwise the same from run to run, and K5
+// and K7 at one group run the same launches (t in a second pass).
+//
+// wgmma reads bf16 operands, and TMA copies without converting, so the
+// split happens on the chip between the two.  What a step needs and where
+// it lives:
+//   * the item's row side (q and g, or k and v in dkdv: two tensors of 128
+//     rows) lands in f32 by TMA in one row slot (two in dbias, whose items
+//     take one step a window); each consumer thread splits its rows into
+//     the A fragments of its products, in registers for the whole item, and
+//     releases the slot at once, so the next item's rows load meanwhile;
+//   * a step's column side (k and v, or q and g: 64 rows each) lands in f32
+//     by TMA in one of kF32Lands landing slots; the producer warpgroup's
+//     three idle warps split it into a column slot as a bf16 hi and a bf16
+//     lo tile each, written in the swizzled layout the bf16 kind's TMA
+//     writes (so the score products read it K-major and the dv, dk, dq
+//     products MN-major, as there), and arrive on the slot's full barrier
+//     beside the TMA of its bias tile and (dkdv) statistics;
+//   * the score products take A from registers (wgmma's register-A form,
+//     B K-major), the others p or ds split in registers, as in bf16.
+// An f32 column slot holds four bf16 tiles where the bf16 kind's holds
+// two, the row side is twice the bytes, and the f32 bias tile is 32 KB,
+// so the layout gives up the row side's second slot (outside dbias) and,
+// where that still leaves under two column slots (hd 64), the bias tile:
+// the consumers then read the bias from device memory.  Each consumer
+// step waits for its products before its algebra (one register set).
+// ---------------------------------------------------------------------------
+
+constexpr int kF32Lands = 2;      // landing slots of the column side
+constexpr int kSplitWarps = 3;    // producer warps 1-3 split; warp 0 issues the TMA
+constexpr int kF32ProducerRegs = 56;
+constexpr int kF32ConsumerRegs = 224;  // 56 x 128 + 224 x 256 <= 64K
+constexpr int kF32BiasBytes = kRowsA * kCols * 4;  // the step's f32 bias tile
+
+// Bytes of the f32 kind's pieces at head dim hd, and the column slots that
+// fit beside `row_bufs` row slots with or without the bias tile.
+constexpr int f32_tile(int hd) { return kCols * hd * 4; }  // 64 rows of a tensor in f32
+constexpr int f32_row_buf(int hd) { return 2 * (kRowsA / 64) * f32_tile(hd) + 1024 * (kRowsA / 64); }
+constexpr int f32_stage(int hd, bool bias) { return 4 * kCols * hd * 2 + 1024 + (bias ? kF32BiasBytes : 0); }
+constexpr int f32_fit(int hd, int row_bufs, bool bias) {
+  return (216 * 1024 - 1024 - row_bufs * f32_row_buf(hd) - kF32Lands * 2 * f32_tile(hd)) /
+         f32_stage(hd, bias);
+}
+
+// Shared memory of one f32 launch, from a 1024-byte aligned base: the row
+// slots (a1 rows 0-63, 64-127, a2 rows 0-63, 64-127 in f32, then m, 1/l, t
+// of the 128 rows), the landing slots (b1, b2 in f32), the column slots
+// (b1 hi, b1 lo, b2 hi, b2 lo in bf16, the 64 queries' statistics, the
+// bias tile), then the mbarriers.
+template <int HD, int MODE>
+struct SmemF32 {
+  static constexpr int kTile = f32_tile(HD);
+  static constexpr int kHalf = kCols * HD * 2;  // 64 rows of a tensor in bf16
+  static constexpr int kRowStats = 2 * (kRowsA / 64) * kTile;
+  static constexpr int kRowBuf = f32_row_buf(HD);
+  static constexpr int kRowBufs = MODE == kDbias && f32_fit(HD, 2, false) >= 2 ? 2 : 1;
+  static constexpr bool kBiasTile = MODE != kDbias && f32_fit(HD, kRowBufs, true) >= 2;
+  static constexpr int kLand = 2 * kTile;
+  static constexpr int kStatOffset = 4 * kHalf;
+  static constexpr int kStatBytes = 3 * kCols * 4;
+  static constexpr int kBiasOffset = kStatOffset + 1024;
+  static constexpr int kStage = f32_stage(HD, kBiasTile);
+  static constexpr int kFit = f32_fit(HD, kRowBufs, kBiasTile);
+  static constexpr int kStages = kFit < 6 ? kFit : 6;
+  static_assert(kStages >= 2, "a ring of at least two column slots");
+  static constexpr int kLandOffset = kRowBufs * kRowBuf;
+  static constexpr int kColsOffset = kLandOffset + kF32Lands * kLand;
+  static constexpr int kBarOffset = kColsOffset + kStages * kStage;
+  static constexpr int kBytes = 1024 + kBarOffset + 16 * (kRowBufs + kF32Lands + kStages);
+};
+
+// The A fragments of the thread's rows of an f32 row tile (p: row lr of
+// the tile, pitch HD; rows lr and lr + 8), split: k-step kk covers dims
+// 16 kk .. 16 kk + 15, in mma.sync's A layout.
+template <int HD>
+__device__ __forceinline__ void row_frags(uint32_t (&hi)[HD / 16][4], uint32_t (&lo)[HD / 16][4],
+                                          const float* p, int c) {
+#pragma unroll
+  for (int kk = 0; kk < HD / 16; ++kk) {
+    const float* r0 = p + 16 * kk + 2 * c;
+    const float* r1 = r0 + 8 * HD;
+    const Frag<float> f[4] = {frag(r0), frag(r1), frag(r0 + 8), frag(r1 + 8)};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      hi[kk][i] = f[i].hi;
+      lo[kk][i] = f[i].lo;
+    }
+  }
+}
+
+// A 64 x 64 f32 accumulator split as the A fragments of the 4 k-steps of a
+// product over its 64 columns (pack_a's layout).
+__device__ __forceinline__ void split_a(const float (&x)[32], uint32_t (&hi)[4][4], uint32_t (&lo)[4][4]) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const Frag<float> f = split_pair(x[8 * kk + 2 * i], x[8 * kk + 2 * i + 1]);
+      hi[kk][i] = f.hi;
+      lo[kk][i] = f.lo;
+    }
+}
+
+// d (64 x 64) += A . B^T over HD dims, A split in registers, B the hi tile
+// at b_hi and its lo tile kHalf after it (K-major): lo.hi + hi.lo + hi.hi
+// each k-step.
+template <int HD>
+__device__ __forceinline__ void split_scores(float (&d)[32], const uint32_t (&ah)[HD / 16][4],
+                                             const uint32_t (&al)[HD / 16][4], uint32_t b_hi) {
+  constexpr uint32_t kHalf = kCols * HD * 2;
+#pragma unroll
+  for (int kk = 0; kk < HD / 16; ++kk) {
+    const uint64_t bh = desc<HD>(b_hi) + 2 * kk, bl = desc<HD>(b_hi + kHalf) + 2 * kk;
+    wgmma_m64n64k16_rs<0>(d, al[kk], bh);
+    wgmma_m64n64k16_rs<0>(d, ah[kk], bl);
+    wgmma_m64n64k16_rs<0>(d, ah[kk], bh);
+  }
+}
+
+// d (64 x HD) += A . B over the 64 rows of a column tile, A split in
+// registers, B's hi tile at b_hi and lo tile kHalf after it (MN-major).
+template <int HD>
+__device__ __forceinline__ void split_k64(float (&d)[HD / 2], const uint32_t (&ah)[4][4],
+                                          const uint32_t (&al)[4][4], uint32_t b_hi) {
+  constexpr uint32_t kHalf = kCols * HD * 2;
+  wgmma_k64_rs<HD>(d, al, desc<HD>(b_hi));
+  wgmma_k64_rs<HD>(d, ah, desc<HD>(b_hi + kHalf));
+  wgmma_k64_rs<HD>(d, ah, desc<HD>(b_hi));
+}
+
+// The bias at the thread's accumulator elements of dkdv's transposed tile
+// (rows key0 and key0 + 8 are keys, columns queries q0 ..) from device
+// memory, where the f32 kind keeps no bias tile.
+__device__ __forceinline__ void bias_from_memory_t(float (&b)[32], const float* __restrict__ bias, int h,
+                                                   int N, int key0, int q0, int c) {
+#pragma unroll
+  for (int t = 0; t < 8; ++t)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int key = key0 + 8 * (i >> 1), q = q0 + 8 * t + 2 * c + (i & 1);
+      b[4 * t + i] = bias[((long)h * N + q) * N + key];
+    }
+}
+
+// One splitter thread's share (thread t of kSplitWarps * 32) of `tensors`
+// 64-row f32 tiles at `land` into their bf16 hi and lo tiles at `slot`:
+// tile i's hi at slot + 2 i kHalf, its lo kHalf after.  A bf16 tile's byte
+// at linear offset o (row r at r * 2 HD) sits at o with its 16-byte chunk
+// index XORed with bits 7.. of o, as TMA's swizzle over 2 HD bytes writes
+// it (128, 64 or 32 B: Swizzled<HD>).
+template <int HD>
+__device__ __forceinline__ void split_tiles(const uint8_t* land, uint8_t* slot, int tensors, int t) {
+  constexpr int kChunks = kCols * HD / 4;     // float4 chunks of a 64-row f32 tile
+  constexpr int kHalf = kCols * HD * 2;
+  constexpr int kMask = Swizzled<HD>::kRowBytes / 16 - 1;
+  for (int i = t; i < tensors * kChunks; i += kSplitWarps * 32) {
+    const int tensor = i / kChunks, ch = i % kChunks;
+    const float4 v = reinterpret_cast<const float4*>(land)[i];
+    const uint32_t h0 = pack_bf16(v.x, v.y), h1 = pack_bf16(v.z, v.w);
+    const float2 a = unpack_bf16(h0), b = unpack_bf16(h1);
+    const uint32_t l0 = pack_bf16(v.x - a.x, v.y - a.y), l1 = pack_bf16(v.z - b.x, v.w - b.y);
+    const int lin = ch * 8;  // the chunk's 4 bf16 values: row ch / (HD / 4)
+    uint8_t* dst = slot + tensor * 2 * kHalf + (lin ^ (((lin >> 7) & kMask) << 4));
+    *reinterpret_cast<uint2*>(dst) = make_uint2(h0, h1);
+    *reinterpret_cast<uint2*>(dst + kHalf) = make_uint2(l0, l1);
+  }
+}
+
+// Thread roles as in attn_bwd_sm90 (ROWS = 128, one pipe), except that
+// producer warp 0's lane 0 issues every TMA load and producer warps 1-3
+// split the landed column tiles.  PASSES (stats only): 1 or 2.
+template <int HD, int MODE, int PASSES>
+__global__ void __launch_bounds__(kThreads, 1)
+attn_bwd_f32_sm90(const __grid_constant__ CUtensorMap qkv_map, const __grid_constant__ CUtensorMap g_map,
+                  const __grid_constant__ CUtensorMap bias_map, BwdArgs<float> a,
+                  const float* __restrict__ bias, float* __restrict__ dbias_dst, Geometry geo) {
+  using S = SmemF32<HD, MODE>;
+  constexpr int kRowBufs = S::kRowBufs, kStages = S::kStages;
+  constexpr bool kRowStats = MODE == kDq || MODE == kDbias;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;
+  const uint32_t rows0 = base, lands0 = base + S::kLandOffset, cols0 = base + S::kColsOffset;
+  const uint32_t full_row = base + S::kBarOffset, empty_row = full_row + 8 * kRowBufs;
+  const uint32_t full_land = empty_row + 8 * kRowBufs, empty_land = full_land + 8 * kF32Lands;
+  const uint32_t full_col = empty_land + 8 * kF32Lands, empty_col = full_col + 8 * kStages;
+  auto at = [&](uint32_t saddr) { return smem_raw + (saddr - raw); };
+
+  const int N = a.N, H = a.H;
+  const long plane = (long)a.W * H * N;
+  const int items = (int)geo.items(MODE);  // below 2^31 (launch_mode_f32)
+  const int steps = MODE == kDbias ? 1 : MODE == kStats ? PASSES * geo.C : geo.C;
+  auto scores_only = [&](int s) { return MODE == kStats && PASSES == 2 && s < geo.C; };
+
+  if (threadIdx.x == 0) {
+    for (int b = 0; b < kRowBufs; ++b) {
+      mbar_init(full_row + 8 * b, 1);
+      mbar_init(empty_row + 8 * b, 8);
+    }
+    for (int l = 0; l < kF32Lands; ++l) {
+      mbar_init(full_land + 8 * l, 1);
+      mbar_init(empty_land + 8 * l, kSplitWarps);
+    }
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(full_col + 8 * s, 1 + kSplitWarps);  // the TMA thread and the splitters
+      mbar_init(empty_col + 8 * s, 8);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= kConsumers) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kF32ProducerRegs));
+    const int pw = (threadIdx.x - kConsumers) / 32;
+    if (pw == 0) {
+      if ((threadIdx.x & 31) != 0) return;
+      int ru = 0, ls = 0, cs = 0;  // row, landing and column slots filled so far
+      for (int it = blockIdx.x; it < items; it += gridDim.x) {
+        int h, rt, ct, w0, w1;
+        geo.decode(MODE, it, h, rt, ct, w0, w1);
+        const int qc = h * 3 * HD;
+        // row side: q and g, or k and v (dkdv); column side: k and v, or q and g
+        const int a1 = MODE == kDkdv ? qc + HD : qc;
+        const int a2 = MODE == kDkdv ? qc + 2 * HD : h * HD;
+        const CUtensorMap* a2map = MODE == kDkdv ? &qkv_map : &g_map;
+        const int b1 = MODE == kDkdv ? qc : qc + HD;
+        const int b2 = MODE == kDkdv ? h * HD : qc + 2 * HD;
+        const CUtensorMap* b2map = MODE == kDkdv ? &g_map : &qkv_map;
+        const int live = N - rt * kRowsA < kRowsA ? N - rt * kRowsA : kRowsA;
+        const int halves = live / 64;
+        // the bias boxes of 32 f32 columns (dkdv: 32 keys of the row tile,
+        // those wholly past N not loaded)
+        const int boxes = MODE == kDkdv ? live / 32 : kCols / 32;
+        const int box_bytes = MODE == kDkdv ? kCols * 128 : kRowsA * 128;
+        for (int w = w0; w < w1; ++w, ++ru) {
+          const int rb = ru % kRowBufs;
+          if (ru >= kRowBufs) mbar_wait(empty_row + 8 * rb, ((ru / kRowBufs) - 1) & 1);
+          const uint32_t dst = rows0 + rb * S::kRowBuf, bar = full_row + 8 * rb;
+          mbar_expect_tx(bar, halves * (2 * S::kTile + (kRowStats ? 3 * 64 * 4 : 0)));
+          for (int hf = 0; hf < halves; ++hf) {
+            tma_load(dst + hf * S::kTile, &qkv_map, bar, a1, rt * kRowsA + hf * 64, w);
+            tma_load(dst + (2 + hf) * S::kTile, a2map, bar, a2, rt * kRowsA + hf * 64, w);
+          }
+          if (kRowStats) {
+            const float* st0 = a.stats + stat_index(a, w, h, rt * kRowsA);
+#pragma unroll
+            for (int p = 0; p < 3; ++p)
+              bulk_load(dst + S::kRowStats + p * kRowsA * 4, st0 + p * plane, halves * 64 * 4, bar);
+          }
+          for (int s = 0; s < steps; ++s, ++ls, ++cs) {
+            const int j = MODE == kDbias ? ct : s % geo.C;
+            const bool both = !scores_only(s);
+            const int l = ls % kF32Lands;
+            if (ls >= kF32Lands) mbar_wait(empty_land + 8 * l, ((ls / kF32Lands) - 1) & 1);
+            const uint32_t ldst = lands0 + l * S::kLand, lbar = full_land + 8 * l;
+            mbar_expect_tx(lbar, (both ? 2 : 1) * S::kTile);
+            tma_load(ldst, &qkv_map, lbar, b1, j * kCols, w);
+            if (both) tma_load(ldst + S::kTile, b2map, lbar, b2, j * kCols, w);
+            const int st = cs % kStages;
+            if (cs >= kStages) mbar_wait(empty_col + 8 * st, ((cs / kStages) - 1) & 1);
+            const uint32_t cdst = cols0 + st * S::kStage, cbar = full_col + 8 * st;
+            const uint32_t tx = (MODE == kDkdv ? S::kStatBytes : 0) + (S::kBiasTile ? boxes * box_bytes : 0);
+            if (tx) mbar_expect_tx(cbar, tx);
+            else mbar_arrive(cbar);
+            if (MODE == kDkdv) {
+              const float* st0 = a.stats + stat_index(a, w, h, j * kCols);
+#pragma unroll
+              for (int p = 0; p < 3; ++p)
+                bulk_load(cdst + S::kStatOffset + p * kCols * 4, st0 + p * plane, kCols * 4, cbar);
+            }
+            if (S::kBiasTile) {
+              const uint32_t bdst = cdst + S::kBiasOffset;
+              for (int b = 0; b < boxes; ++b) {
+                if (MODE == kDkdv)  // keys rt*128 + b*32.., queries j*64..
+                  tma_load(bdst + b * box_bytes, &bias_map, cbar, rt * kRowsA + b * 32, j * kCols, h);
+                else  // columns j*64 + b*32.., rows rt*128..
+                  tma_load(bdst + b * box_bytes, &bias_map, cbar, j * kCols + b * 32, rt * kRowsA, h);
+              }
+            }
+          }
+        }
+      }
+    } else {
+      // the splitters walk the same steps as the TMA thread
+      const int t = threadIdx.x - kConsumers - 32;
+      int ls = 0, cs = 0;
+      for (int it = blockIdx.x; it < items; it += gridDim.x) {
+        int h, rt, ct, w0, w1;
+        geo.decode(MODE, it, h, rt, ct, w0, w1);
+        for (int w = w0; w < w1; ++w) {
+          for (int s = 0; s < steps; ++s, ++ls, ++cs) {
+            const int l = ls % kF32Lands, st = cs % kStages;
+            mbar_wait(full_land + 8 * l, (ls / kF32Lands) & 1);
+            if (cs >= kStages) mbar_wait(empty_col + 8 * st, ((cs / kStages) - 1) & 1);
+            split_tiles<HD>(at(lands0 + l * S::kLand), at(cols0 + st * S::kStage), scores_only(s) ? 1 : 2,
+                            t);
+            fence_proxy_async();  // the tiles written, for the consumers' wgmma
+            release(empty_land + 8 * l);
+            release(full_col + 8 * st);
+          }
+        }
+      }
+    }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kF32ConsumerRegs));
+    const int cg = threadIdx.x / 128;  // rows 64 cg .. of each row tile
+    const int warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
+    const int g = lane >> 2, c = lane & 3;
+    const int lr0 = cg * 64 + warp * 16 + g;  // this thread's rows lr0, lr0 + 8 of a row tile
+    const long ld = 3L * H * HD;
+    const float scale = a.scale;
+
+    int ru = 0, cs = 0;
+    for (int it = blockIdx.x; it < items; it += gridDim.x) {
+      int h, rt, ct, w0, w1;
+      geo.decode(MODE, it, h, rt, ct, w0, w1);
+      const int r0 = rt * kRowsA + lr0;  // this thread's rows r0, r0 + 8
+      // rows >= N (the second half of the last tile when N % 128 == 64):
+      // the group keeps the barrier protocol but computes nothing
+      const bool active = rt * kRowsA + cg * 64 < N;
+      float acc[32];  // dbias: the sum of ds over the group's windows
+      float bt[32];   // dbias: the bias of the item's tile
+      zero(acc);
+      if (MODE == kDbias && active) bias_from_memory(bt, bias, h, N, r0, ct * kCols, c);
+
+      for (int w = w0; w < w1; ++w, ++ru) {
+        const int rb = ru % kRowBufs;
+        const uint32_t rbuf = rows0 + rb * S::kRowBuf;
+        float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f, u0 = 0.f, u1 = 0.f;
+        float il0 = 0.f, il1 = 0.f, t0 = 0.f, t1 = 0.f;
+        uint32_t a1h[HD / 16][4], a1l[HD / 16][4], a2h[HD / 16][4], a2l[HD / 16][4];
+        mbar_wait(full_row + 8 * rb, (ru / kRowBufs) & 1);
+        if (active) {
+          if (kRowStats) {
+            const float* rs = reinterpret_cast<const float*>(at(rbuf + S::kRowStats));
+            m0 = rs[lr0];
+            m1 = rs[lr0 + 8];
+            il0 = rs[kRowsA + lr0];
+            il1 = rs[kRowsA + lr0 + 8];
+            t0 = rs[2 * kRowsA + lr0];
+            t1 = rs[2 * kRowsA + lr0 + 8];
+          }
+          const int lr = (warp * 16 + g) * HD;  // row lr0 of tile cg
+          row_frags<HD>(a1h, a1l, reinterpret_cast<const float*>(at(rbuf + cg * S::kTile)) + lr, c);
+          row_frags<HD>(a2h, a2l, reinterpret_cast<const float*>(at(rbuf + (2 + cg) * S::kTile)) + lr, c);
+        }
+        release(empty_row + 8 * rb);  // the rows are in registers
+
+        if (!active) {
+          // keep the ring's protocol: every column slot waited for and released
+          for (int s = 0; s < steps; ++s, ++cs) {
+            mbar_wait(full_col + 8 * (cs % kStages), (cs / kStages) & 1);
+            release(empty_col + 8 * (cs % kStages));
+          }
+          continue;
+        }
+        float o1[HD / 2], o2[HD / 2];  // dq; or dk and dv (dkdv)
+        zero(o1);
+        zero(o2);
+        for (int s = 0; s < steps; ++s, ++cs) {
+          const int j = MODE == kDbias ? ct : s % geo.C;
+          const int st = cs % kStages;
+          mbar_wait(full_col + 8 * st, (cs / kStages) & 1);
+          const uint32_t bcol = cols0 + st * S::kStage;
+          float x[32], y[32];
+          zero(x);
+          zero(y);
+          fence_regs(x);
+          fence_regs(y);
+          wgmma_fence();
+          split_scores<HD>(x, a1h, a1l, bcol);
+          if (!scores_only(s)) split_scores<HD>(y, a2h, a2l, bcol + 2 * S::kHalf);
+          wgmma_commit();
+          float bs[32];  // the step's bias, read while the products run
+          if (MODE == kDbias) {
+#pragma unroll
+            for (int i = 0; i < 32; ++i) bs[i] = bt[i];
+          } else if (S::kBiasTile) {
+            bias_from_tile<MODE, float, kRowsA>(bs, at(bcol + S::kBiasOffset), lr0, c);
+          } else if (MODE == kDkdv) {
+            bias_from_memory_t(bs, bias, h, N, r0, j * kCols, c);
+          } else {
+            bias_from_memory(bs, bias, h, N, r0, j * kCols, c);
+          }
+          wgmma_wait<0>();
+          fence_regs(x);
+          fence_regs(y);
+
+          if constexpr (MODE == kStats) {
+            if (PASSES == 1 || s < geo.C) {
+              // the running max and row sum; in one pass also u = the sum
+              // of exp(s - m) dp, rescaled as the row sum is
+              float mx0 = m0, mx1 = m1;
+#pragma unroll
+              for (int t = 0; t < 8; ++t) {
+#pragma unroll
+                for (int i = 0; i < 4; ++i) x[4 * t + i] = x[4 * t + i] * scale + bs[4 * t + i];
+                mx0 = fmaxf(mx0, fmaxf(x[4 * t + 0], x[4 * t + 1]));
+                mx1 = fmaxf(mx1, fmaxf(x[4 * t + 2], x[4 * t + 3]));
+              }
+              mx0 = quad_max(mx0);
+              mx1 = quad_max(mx1);
+              const float al0 = __expf(m0 - mx0), al1 = __expf(m1 - mx1);
+              float r0s = 0.f, r1s = 0.f, v0s = 0.f, v1s = 0.f;
+#pragma unroll
+              for (int t = 0; t < 8; ++t) {
+                const float e0 = __expf(x[4 * t + 0] - mx0), e1 = __expf(x[4 * t + 1] - mx0);
+                const float e2 = __expf(x[4 * t + 2] - mx1), e3 = __expf(x[4 * t + 3] - mx1);
+                r0s += e0 + e1;
+                r1s += e2 + e3;
+                if (PASSES == 1) {
+                  v0s += e0 * y[4 * t + 0] + e1 * y[4 * t + 1];
+                  v1s += e2 * y[4 * t + 2] + e3 * y[4 * t + 3];
+                }
+              }
+              l0 = l0 * al0 + r0s;
+              l1 = l1 * al1 + r1s;
+              u0 = u0 * al0 + v0s;
+              u1 = u1 * al1 + v1s;
+              m0 = mx0;
+              m1 = mx1;
+            } else {  // pass 2 of 2: t = sum_row dp * p with the final p
+              if (s == geo.C) {
+                il0 = 1.f / quad_sum(l0);
+                il1 = 1.f / quad_sum(l1);
+              }
+#pragma unroll
+              for (int t = 0; t < 8; ++t) {
+                const float s0 = x[4 * t + 0] * scale + bs[4 * t + 0];
+                const float s1 = x[4 * t + 1] * scale + bs[4 * t + 1];
+                const float s2 = x[4 * t + 2] * scale + bs[4 * t + 2];
+                const float s3 = x[4 * t + 3] * scale + bs[4 * t + 3];
+                u0 += __expf(s0 - m0) * il0 * y[4 * t + 0] + __expf(s1 - m0) * il0 * y[4 * t + 1];
+                u1 += __expf(s2 - m1) * il1 * y[4 * t + 2] + __expf(s3 - m1) * il1 * y[4 * t + 3];
+              }
+            }
+          } else if constexpr (MODE == kDq || MODE == kDbias) {
+#pragma unroll
+            for (int t = 0; t < 8; ++t)
+#pragma unroll
+              for (int i = 0; i < 4; ++i) {
+                const float pr = __expf(x[4 * t + i] * scale + bs[4 * t + i] - (i < 2 ? m0 : m1)) *
+                                 (i < 2 ? il0 : il1);
+                const float ds = pr * (y[4 * t + i] - (i < 2 ? t0 : t1));
+                if (MODE == kDbias) acc[4 * t + i] += ds;
+                else x[4 * t + i] = ds;
+              }
+            if constexpr (MODE == kDq) {
+              // dq += ds k
+              uint32_t fh[4][4], fl[4][4];
+              split_a(x, fh, fl);
+              fence_regs(o1);
+              wgmma_fence();
+              split_k64<HD>(o1, fh, fl, bcol);
+              wgmma_commit();
+              wgmma_wait<0>();
+              fence_regs(o1);
+            }
+          } else {  // dkdv: rows are keys, columns queries
+            // m, 1/l and t of the 64 queries
+            const float* sst = reinterpret_cast<const float*>(at(bcol + S::kStatOffset));
+#pragma unroll
+            for (int t = 0; t < 8; ++t)
+#pragma unroll
+              for (int i = 0; i < 4; ++i) {
+                const int q = 8 * t + 2 * c + (i & 1);
+                const float pr = __expf(x[4 * t + i] * scale + bs[4 * t + i] - sst[q]) * sst[kCols + q];
+                x[4 * t + i] = pr;
+                y[4 * t + i] = pr * (y[4 * t + i] - sst[2 * kCols + q]);
+              }
+            // dv += p^T g, dk += ds^T q
+            uint32_t ph[4][4], pl[4][4], dh[4][4], dl[4][4];
+            split_a(x, ph, pl);
+            split_a(y, dh, dl);
+            fence_regs(o1);
+            fence_regs(o2);
+            wgmma_fence();
+            split_k64<HD>(o2, ph, pl, bcol + 2 * S::kHalf);
+            split_k64<HD>(o1, dh, dl, bcol);
+            wgmma_commit();
+            wgmma_wait<0>();
+            fence_regs(o1);
+            fence_regs(o2);
+          }
+          release(empty_col + 8 * st);
+        }
+
+        float* out = a.dqkv + ((long)w * N + r0) * ld + h * 3 * HD;
+        if constexpr (MODE == kStats) {
+          u0 = quad_sum(u0);
+          u1 = quad_sum(u1);
+          if (PASSES == 1) {  // 1 / l, and t = u / l
+            il0 = 1.f / quad_sum(l0);
+            il1 = 1.f / quad_sum(l1);
+            u0 *= il0;
+            u1 *= il1;
+          }
+          if (c == 0) {
+            const long i0 = stat_index(a, w, h, r0), i1 = i0 + 8;
+            a.stats[i0] = m0;
+            a.stats[i1] = m1;
+            a.stats[plane + i0] = il0;
+            a.stats[plane + i1] = il1;
+            a.stats[2 * plane + i0] = u0;
+            a.stats[2 * plane + i1] = u1;
+          }
+        } else if constexpr (MODE == kDq) {
+          store_rows<HD>(out, ld, o1, scale, c);
+        } else if constexpr (MODE == kDkdv) {
+          store_rows<HD>(out + HD, ld, o1, scale, c);
+          store_rows<HD>(out + 2 * HD, ld, o2, 1.f, c);
+        }
+      }
+
+      if (MODE == kDbias && active) {
+        const int grp = it / (geo.C * geo.R) % geo.G;
+        float* d0 = dbias_dst + (((long)grp * H + h) * N + r0) * N + ct * kCols + 2 * c;
+        float* d1 = d0 + 8L * N;
+#pragma unroll
+        for (int t = 0; t < 8; ++t) {
+          *reinterpret_cast<float2*>(d0 + 8 * t) = make_float2(acc[4 * t + 0], acc[4 * t + 1]);
+          *reinterpret_cast<float2*>(d1 + 8 * t) = make_float2(acc[4 * t + 2], acc[4 * t + 3]);
+        }
+      }
+    }
+  }
+}
+
+// static, as launch_mode: its opt-in flag must be this library's.
+template <int HD, int MODE, int PASSES = 1>
+static cudaError_t launch_mode_f32(const CUtensorMap& qmap, const CUtensorMap& gmap, const BwdArgs<float>& a,
+                                   const float* bias, float* dst, const Geometry& geo, int sms,
+                                   cudaStream_t stream) {
+  using S = SmemF32<HD, MODE>;
+  static bool opted_in = false;  // one per instance
+  if (!opted_in) {
+    const cudaError_t e = cudaFuncSetAttribute(attn_bwd_f32_sm90<HD, MODE, PASSES>,
+                                               cudaFuncAttributeMaxDynamicSharedMemorySize, S::kBytes);
+    if (e != cudaSuccess) return e;
+    opted_in = true;
+  }
+  // the bias (H, N, N) in boxes of 128-byte rows (32 f32): 128 rows of a
+  // row tile, or (dkdv) 64 queries of a column tile
+  CUtensorMap bmap = qmap;
+  if (S::kBiasTile) {
+    const cudaError_t e = encode_3d(&bmap, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, bias, a.N, a.N, a.H, 32,
+                                    MODE == kDkdv ? kCols : kRowsA, CU_TENSOR_MAP_SWIZZLE_128B);
+    if (e != cudaSuccess) return e;
+  }
+  const long items = geo.items(MODE);
+  if (items > 0x7fffffffL) return cudaErrorInvalidValue;  // the kernel counts items in int
+  const int grid = (int)(items < sms ? items : sms);
+  attn_bwd_f32_sm90<HD, MODE, PASSES><<<grid, kThreads, S::kBytes, stream>>>(qmap, gmap, bmap, a, bias, dst, geo);
+  return cudaGetLastError();
+}
+
+template <int HD>
+static cudaError_t launch_hd_f32(const BwdArgs<float>& a, const float* bias, float* partial, int G,
+                                 int stat_passes, cudaStream_t stream) {
+  // qkv and g in boxes of (HD, 64 rows) of f32, unswizzled: the splitters
+  // and the consumers read them with plain loads
+  CUtensorMap qmap, gmap;
+  const long D = (long)a.H * HD;
+  cudaError_t e = encode_3d(&qmap, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, a.qkv, 3 * D, a.N, a.W, HD, kCols,
+                            CU_TENSOR_MAP_SWIZZLE_NONE);
+  if (e == cudaSuccess)
+    e = encode_3d(&gmap, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, a.g, D, a.N, a.W, HD, kCols,
+                  CU_TENSOR_MAP_SWIZZLE_NONE);
+  int sms = 0;
+  if (e == cudaSuccess) e = sm_count(&sms);
+  if (e != cudaSuccess) return e;
+  const Geometry geo(a.W, a.N, a.H, G);
+  float* dst = G > 1 ? partial : a.dbias;
+  e = stat_passes == 1 ? launch_mode_f32<HD, kStats, 1>(qmap, gmap, a, bias, dst, geo, sms, stream)
+                       : launch_mode_f32<HD, kStats, 2>(qmap, gmap, a, bias, dst, geo, sms, stream);
+  if (e != cudaSuccess) return e;
+  if ((e = launch_mode_f32<HD, kDkdv>(qmap, gmap, a, bias, dst, geo, sms, stream)) != cudaSuccess) return e;
+  if ((e = launch_mode_f32<HD, kDq>(qmap, gmap, a, bias, dst, geo, sms, stream)) != cudaSuccess) return e;
+  if ((e = launch_mode_f32<HD, kDbias>(qmap, gmap, a, bias, dst, geo, sms, stream)) != cudaSuccess) return e;
+  if (G > 1) {
+    const long n4 = (long)a.H * a.N * a.N / 4;
+    const long blocks = (n4 + 255) / 256;
+    dbias_reduce<<<(int)(blocks < 4 * sms ? blocks : 4 * sms), 256, 0, stream>>>(
+        reinterpret_cast<const float4*>(partial), reinterpret_cast<float4*>(a.dbias), n4, G);
+    e = cudaGetLastError();
+  }
+  return e;
+}
+
+// Entry of K4's, K5's and K7's f32 calls: the bf16 launch's contract (N a
+// multiple of 64, hd 16, 32 or 64, 1 <= G <= W, qkv and g 16-byte
+// aligned, validated by the wrapper), 128-row items only.
+static inline cudaError_t launch(const BwdArgs<float>& a, const float* bias, float* partial, int G, int hd,
+                                 int stat_passes, cudaStream_t stream) {
+  if (stat_passes != 1 && stat_passes != 2) return cudaErrorInvalidValue;
+  GG_HEAD_DIM_SWITCH(hd, { return launch_hd_f32<HD>(a, bias, partial, G, stat_passes, stream); })
+}
+
+// The f32 kind's plan without a launch, as plan fills out[12].
+template <int HD>
+void plan_of_f32(const Geometry& geo, int* out) {
+  const int bytes[4] = {SmemF32<HD, kStats>::kBytes, SmemF32<HD, kDkdv>::kBytes, SmemF32<HD, kDq>::kBytes,
+                        SmemF32<HD, kDbias>::kBytes};
+  const int stages[4] = {SmemF32<HD, kStats>::kStages, SmemF32<HD, kDkdv>::kStages,
+                         SmemF32<HD, kDq>::kStages, SmemF32<HD, kDbias>::kStages};
+  for (int m = 0; m < 4; ++m) {
+    const long items = geo.items(m);
+    out[m] = bytes[m];
+    out[4 + m] = (int)(items < 0x7fffffffL ? items : 0x7fffffffL);
+    out[8 + m] = stages[m];
+  }
+}
+
+static inline cudaError_t plan_f32(int W, int N, int H, int G, int hd, int rows, int* out) {
+  if (rows != kRowsA) return cudaErrorInvalidValue;
+  const Geometry geo(W, N, H, G);
+  GG_HEAD_DIM_SWITCH(hd, {
+    plan_of_f32<HD>(geo, out);
     return cudaSuccess;
   })
 }

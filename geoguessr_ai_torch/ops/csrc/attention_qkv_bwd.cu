@@ -1,6 +1,7 @@
-// K4: the small-N window-attention backward, d_qkv (W, N, 3D) in bf16 and
-// d_bias (H, N, N) in f32 summed over the W windows, from the interleaved
-// qkv tensor, the bf16 bias and the output cotangent g (W, N, D).
+// K4: the small-N window-attention backward, d_qkv (W, N, 3D) in the
+// activations' type (bf16, or f32) and d_bias (H, N, N) in f32 summed over
+// the W windows, from the interleaved qkv tensor, the bias in the
+// activations' type and the output cotangent g (W, N, D).
 //
 // Replaces geoguessr_ai_tpu/ops/window_attention.py:560
 // _attention_qkv_bwd_pallas (kernel _qkv_bwd_kernel), which the JAX package
@@ -15,10 +16,11 @@
 // bytes: about 183 flops per byte at N=256, under the card's ~295 flops
 // per byte ridge, so bytes bound it (~0.7 GB).
 //
-// The bf16 entry runs the Hopper core of attention_bwd_sm90.cuh (K7's
-// too): TMA loads through rings of shared memory kept full by a producer
-// warpgroup, wgmma products, persistent blocks.  What it does about the
-// first design's time (attention_bwd.cuh, which the _f32 twin keeps), whose
+// Both entries run the Hopper core of attention_bwd_sm90.cuh (K7's too),
+// the bf16 one its bf16 kind and the _f32 one its f32 kind: TMA loads
+// through rings of shared memory kept full by a producer warpgroup, wgmma
+// products, persistent blocks.  What it does about the first design's
+// time (four mma.sync launches, which both entries ran once), whose
 // d_bias launch walked all 1024 windows in 96 blocks one after the other
 // and whose four launches recomputed twelve N x N products a (window, head)
 // on mma.sync from synchronously staged tiles:
@@ -38,9 +40,8 @@
 
 namespace {
 
-// qkv, g, dqkv bf16 (or f32 for the twin); bias in the same type; dbias
-// and stats f32; partial (G, H, N, N) f32 scratch when the bf16 entry runs
-// with G > 1.
+// qkv, g, dqkv bf16 (or f32 for the _f32 entry); bias in the same type;
+// dbias and stats f32; partial (G, H, N, N) f32 scratch when G > 1.
 template <class E>
 gg::BwdArgs<E> args(const void* qkv, const void* g, void* dqkv, void* dbias, void* stats, int W,
                     int N, int H, float scale) {
@@ -78,12 +79,18 @@ extern "C" int attention_qkv_bwd_plan(int W, int N, int H, int hd, int G, int ro
   return (int)gg::bwd90::plan<gg::bf16>(W, N, H, G, hd, rows, out);
 }
 
-// The f32 twin keeps the four launches of attention_bwd.cuh (G and
-// partial unused: its d_bias launch sums all W windows in order).
+// The f32 entry runs the core's f32 kind: the same launches and window
+// groups (G and partial as the bf16 entry takes them), every product split
+// into bf16 (hi, lo) pairs, t in the online pass.
 extern "C" int attention_qkv_bwd_f32(const void* qkv, const void* bias, const void* g, void* dqkv,
                                      void* dbias, void* stats, void* partial, int W, int N, int H,
                                      int hd, int G, float scale, void* stream) {
-  return (int)gg::launch_attention_bwd(args<float>(qkv, g, dqkv, dbias, stats, W, N, H, scale),
-                                       static_cast<const float*>(bias), hd,
-                                       static_cast<cudaStream_t>(stream));
+  return (int)gg::bwd90::launch(args<float>(qkv, g, dqkv, dbias, stats, W, N, H, scale),
+                                static_cast<const float*>(bias), static_cast<float*>(partial), G,
+                                hd, 1, static_cast<cudaStream_t>(stream));
+}
+
+// The f32 kind's plan at (W, N, H, G, hd, rows = 128) without a launch.
+extern "C" int attention_qkv_bwd_plan_f32(int W, int N, int H, int hd, int G, int rows, int* out) {
+  return (int)gg::bwd90::plan_f32(W, N, H, G, hd, rows, out);
 }

@@ -28,11 +28,12 @@ Kernels:
 * K4 ``_attention_qkv_bwd_cuda``, K5 ``_attention_bwd_merged_cuda`` and
   K7 ``_attention_bwd_qtiled_cuda``: the attention backward, K4 when the
   all-heads f32 score footprint H * N^2 * 4 is at most 6 MB (stages 1 and
-  3), else K5, or K7 when ``BWD_MERGED`` is False (stage 2).  In bf16 all
-  three run the Hopper core ``csrc/attention_bwd_sm90.cuh`` (TMA loads
-  through tensor maps over qkv and g, wgmma, persistent blocks; d_bias
-  summed per group of windows, ``_bwd_groups``), which reads qkv and g in
-  place and so needs their TMA layout (``_bwd_layout``).  K5 and K7 then
+  3), else K5, or K7 when ``BWD_MERGED`` is False (stage 2).  All three
+  run the Hopper core ``csrc/attention_bwd_sm90.cuh`` (TMA loads through
+  tensor maps over qkv and g, wgmma, persistent blocks; d_bias summed per
+  group of windows, ``_bwd_groups``) in its bf16 kind, which reads qkv and
+  g in place and so needs their TMA layout (``_bwd_layout``), or its f32
+  kind (the products split into bf16 pairs on the chip).  K5 and K7 then
   run the same launches: K5 with one window group, K7 with
   ``_bwd_groups`` (also one at stage 2), both with t in a second pass, so
   at one group their bits are equal; ``BWD_MERGED`` still picks the
@@ -110,7 +111,7 @@ BLOCK_W = 8
 #: two-kernel one (K7) when False.  Both compute the same cotangents from
 #: the f32 bias.
 BWD_MERGED = True
-#: Work items the d_bias launch of K4's and K7's bf16 core aims at: it
+#: Work items the d_bias launch of K4's and K7's core aims at: it
 #: sums ds over the windows per (128-query tile, 64-key tile, head) item,
 #: and cuts the windows into as many groups as bring the items up to this
 #: many (``_bwd_groups``), about 8 an SM of an H100.
@@ -125,8 +126,9 @@ _HEADMAJOR_ITEMS = 1024
 # FUSED_BLOCK_WB, FUSED_BLOCK_SCORE_BYTES, _BWD_STACK_BYTES, _BWD_BLOCK_Q
 # and S2_BLOCK_Q.  Each bf16 call of the Hopper cores reads them
 # (``tile_knobs``); their defaults give the cores' own plans bit for bit.
-# The f32 twins keep their first design's tiles and refuse a non-default
-# value; the plain versions (CPU tensors) do not read them.
+# The f32 entries (the first design's tiles; the backward core's f32 kind
+# in K4, K5 and K7) have one plan each and refuse a non-default value; the
+# plain versions (CPU tensors) do not read them.
 
 #: Shared memory a bf16 window-attention launch may opt into, in bytes
 #: (the VMEM_LIMIT_BYTES counterpart).  None: the card's
@@ -203,16 +205,17 @@ def tile_knobs() -> dict:
 
 def _knobs_for(kernel, dtype):
     """The knobs ``kernel`` reads, checked (``tile_knobs``); in f32 each must
-    hold its default, since the f32 twins keep their first design's tiles,
-    and FUSED_BLOCK_SCORE_BYTES takes effect only beside an int
+    hold its default, since the f32 entries have one plan each (the first
+    design's tiles, or the backward core's f32 kind in K4, K5 and K7), and
+    FUSED_BLOCK_SCORE_BYTES takes effect only beside an int
     FUSED_BLOCK_WB.  Raises ValueError naming the knob."""
     knobs = tile_knobs()
     for name in KERNEL_KNOBS[kernel]:
         default = TILE_KNOBS[name][0]
         if dtype != torch.bfloat16 and knobs[name] != default:
             raise ValueError(
-                f"{name}={knobs[name]!r}: {kernel}'s f32 twin keeps its first "
-                f"design's tiles and takes only the default {default!r}")
+                f"{name}={knobs[name]!r}: {kernel}'s f32 entry has one plan "
+                f"and takes only the default {default!r}")
     if ("FUSED_BLOCK_WB" in KERNEL_KNOBS[kernel]
             and knobs["FUSED_BLOCK_WB"] is None
             and knobs["FUSED_BLOCK_SCORE_BYTES"] != TILE_KNOBS[
@@ -728,8 +731,8 @@ def _pad_tokens(qkv, bias, g, pad):
 
 
 def _bwd_groups(W, N, H, rows=128):
-    """The window groups G of the d_bias launch of K4's and K7's bf16
-    core, a function of (W, N, H) and the items' rows only (never of the
+    """The window groups G of the d_bias launch of K4's and K7's core (both
+    kinds), a function of (W, N, H) and the items' rows only (never of the
     card): enough groups that its (row tile, 64-key tile, head, group)
     items number about _BWD_DBIAS_ITEMS, at most one a window; group i
     sums windows [i W // G, (i + 1) W // G) in order.  21 at K4's stage 1
@@ -740,7 +743,7 @@ def _bwd_groups(W, N, H, rows=128):
 
 
 def _bwd_items(W, N, H, G, rows=128):
-    """Work items of each launch of the bf16 core: the row statistics, dk
+    """Work items of each launch of the core: the row statistics, dk
     and dv, dq (a tile of ``rows`` rows of one window and head each) and
     d_bias (a rows x 64 tile of one head over one group of windows)."""
     tiles = -(-N // rows)
@@ -774,12 +777,46 @@ def _bwd_smem(hd, bias_elem, rows=128):
     return out
 
 
-def _bwd_call_plan(kernel, W, N, H, hd, knobs):
-    """The bf16 core's plan of one K4, K5 or K7 call at (W, N, H), N padded
-    to 64, under the tile knobs: the items' rows, the window groups G (K5:
-    one; BWD_PARTIAL_BYTES, else ``_bwd_groups``), each launch's items,
-    shared memory bytes and column slots.  Raises ValueError where a knob
-    asks for what the core does not take."""
+#: Landing slots of the f32 kind's column side (``kF32Lands``).
+_BWD_F32_LANDS = 2
+
+
+def _bwd_smem_f32(hd):
+    """Mirror of attention_bwd_sm90.cuh ``SmemF32`` (128-row items, one
+    pipe): per launch, (bytes, column slots).  Row slots of the two
+    row-side tensors of 128 rows in f32 and their statistics (one; two in
+    dbias where they leave two column slots), two landing slots of a step's
+    two 64-row column tiles in f32, and column slots of those tiles as
+    bf16 hi and lo tiles, the statistics and the f32 128 x 64 bias tile
+    (none in dbias, nor where it leaves under two column slots), in 216 KB
+    less 1 KB of alignment."""
+    tile = 64 * hd * 4
+    row_buf = 2 * 2 * tile + 2 * 1024
+    lands = _BWD_F32_LANDS * 2 * tile
+
+    def fit(row_bufs, bias):
+        stage = 4 * 64 * hd * 2 + 1024 + (128 * 64 * 4 if bias else 0)
+        return (216 * 1024 - 1024 - row_bufs * row_buf - lands) // stage, stage
+
+    out = {}
+    for mode in _BWD_LAUNCHES:
+        row_bufs = 2 if mode == "dbias" and fit(2, False)[0] >= 2 else 1
+        bias = mode != "dbias" and fit(row_bufs, True)[0] >= 2
+        slots, stage = fit(row_bufs, bias)
+        stages = min(6, slots)
+        out[mode] = (1024 + row_bufs * row_buf + lands + stages * stage
+                     + 16 * (row_bufs + _BWD_F32_LANDS + stages), stages)
+    return out
+
+
+def _bwd_call_plan(kernel, W, N, H, hd, knobs, elem=2):
+    """The core's plan of one K4, K5 or K7 call at (W, N, H), N padded to
+    64, under the tile knobs, for its bf16 kind (``elem`` 2) or its f32 one
+    (4, whose knobs ``_knobs_for`` holds at their defaults): the items'
+    rows, the window groups G (K5: one; BWD_PARTIAL_BYTES, else
+    ``_bwd_groups``), each launch's items, shared memory bytes and column
+    slots.  Raises ValueError where a knob asks for what the core does not
+    take."""
     rows = knobs["BWD_Q_ROWS"]
     if rows != 128 and hd != TILE_KIND_HEAD_DIM:
         raise ValueError(
@@ -791,7 +828,8 @@ def _bwd_call_plan(kernel, W, N, H, hd, knobs):
         G = max(1, min(W, knobs["BWD_PARTIAL_BYTES"] // (H * N * N * 4)))
     else:
         G = _bwd_groups(W, N, H, rows)
-    smem = _bwd_smem(hd, 2 if kernel == "K4" else 4, rows)
+    smem = (_bwd_smem_f32(hd) if elem == 4
+            else _bwd_smem(hd, 2 if kernel == "K4" else 4, rows))
     plan = {"rows": rows, "G": G, "items": _bwd_items(W, N, H, G, rows),
             "smem": {m: b for m, (b, _) in smem.items()},
             "stages": {m: s for m, (_, s) in smem.items()}}
@@ -848,10 +886,13 @@ def _attention_bwd_cuda(name, lib, qkv, bias, g, scale, num_heads,
                         bias_dtype=None):
     """K4, K5 or K7's launch, the bias in ``bias_dtype`` (None: qkv's
     dtype); an N that is not a multiple of 64 (a ragged window such as
-    14x14 or 28x28) runs padded (``_pad_tokens``).  In bf16 all three run
-    the Hopper core, which needs ``_bwd_layout``; K4 and K7 also take the
+    14x14 or 28x28) runs padded (``_pad_tokens``).  All three run the
+    Hopper core, its bf16 kind or its f32 one; K4 and K7 also take the
     d_bias partials of its window groups (``_bwd_groups``), while K5 sums
-    all windows in one group, and the f32 twins take no groups."""
+    all windows in one group.  The bf16 kind's tensor maps need
+    ``_bwd_layout``; the f32 kind's read f32 rows of 3D and D elements
+    (multiples of 64 bytes at every head dim) of the contiguous, 16-byte
+    aligned tensors ``_check`` lets through."""
     dt = _act_dtype(qkv=qkv, g=g)
     kernel = {"attention_qkv_bwd": "K4", "attention_bwd_merged": "K5",
               "attention_bwd_qtiled": "K7"}[lib]
@@ -873,14 +914,15 @@ def _attention_bwd_cuda(name, lib, qkv, bias, g, scale, num_heads,
                         device=qkv.device)
     # K5 sums d_bias over the windows in one group and takes no partials
     grouped = lib != "attention_bwd_merged"
-    G, other = 1, None
+    other = None
     if dt == torch.bfloat16:
         _bwd_layout(qkv.shape, qkv.stride(), qkv.data_ptr(), g.shape,
                     g.stride(), g.data_ptr(), qkv.element_size(), num_heads)
-        plan = _bwd_call_plan(kernel, W, Np, num_heads, hd, knobs)
-        G = plan["G"]
-        if plan["rows"] != 128:
-            other = f"{lib}_q64_bf16"
+    plan = _bwd_call_plan(kernel, W, Np, num_heads, hd, knobs,
+                          qkv.element_size())
+    G = plan["G"]
+    if plan["rows"] != 128:
+        other = f"{lib}_q64_bf16"
     shapes = _bwd_scratch_shapes(W, Np, num_heads, G)
     # row max, 1 / row sum and t per (window, head, query)
     stats = torch.empty(shapes["stats"], dtype=torch.float32,

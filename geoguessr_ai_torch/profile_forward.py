@@ -57,11 +57,11 @@ GROUPS = (
     # the H100 with torch 2.11)
     ("gemm_s8", "int8 GEMM (torch._int_mm)"),
     ("imma", "int8 GEMM (torch._int_mm)"),
-    # the sum of the d_bias partials of the bf16 backward core (K4, K5,
-    # K7), whose launches _group tells apart by their bias type
+    # the sum of the d_bias partials of the backward core (K4, K7), whose
+    # bf16 launches _group tells apart by their bias type; the core's f32
+    # kind (attn_bwd_f32_sm90), which K4, K5 and K7 share in f32
     ("dbias_reduce", "attention backward (K4/K7 CUDA)"),
-    ("attn_bwd_", "attention backward (f32 K4/K5 CUDA)"),
-    ("bwd_qtiled_", "attention backward (f32 K7 CUDA)"),
+    ("attn_bwd_", "attention backward (f32 K4/K5/K7 CUDA)"),
     # the f32 twins (in bf16 both run the forward core)
     ("attention_qtiled_kernel", "head-major attention (K8a CUDA)"),
     ("attention_batched", "head-major attention (K8b CUDA)"),

@@ -1,4 +1,5 @@
-"""Quick probe of the bf16 attention backwards K4 and K7 on one GPU.
+"""Quick probe of the attention backwards K4, K5 and K7 on one GPU, in
+bf16 or (``--f32``) in f32, the backward core's two kinds.
 
 Builds the two libraries, then for ten shapes (the B=16 train shapes of
 K4 at stages 1 and 3 and of K7 at stage 2, and small ones at head dims 16,
@@ -8,10 +9,14 @@ of its q, k and v parts, and of d_bias), checks two calls bitwise and,
 at the train shapes, times a call by events (10 after 2 warm-ups); then
 counts the elements where K7 and K5 differ on the same inputs, and prints
 the device time of each launch of K4, K7 and K5 at the train shapes
-(torch.profiler).  Faster than chip_smoke.py, which runs the same checks
-among all the others:
+(torch.profiler).  With ``--f32`` every operand is f32, the tolerance is
+1e-3, the cases add K4 at TinyViT-5M-224's three shapes (timed too), K7
+and K5 must agree bit for bit where K7 takes one window group, and the
+compiler's register and spill lines of the f32 kind are printed first.
+Faster than chip_smoke.py, which runs the same checks among all the
+others:
 
-    python3 scripts/bwd_sm90_check.py
+    python3 scripts/bwd_sm90_check.py [--f32]
 """
 
 import os
@@ -37,7 +42,12 @@ KERNELS = {"K4": (wa._attention_qkv_bwd_cuda, wa._attention_qkv_bwd_plain),
                   wa._attention_bwd_qtiled_plain),
            "K5": (wa._attention_bwd_merged_cuda,
                   wa._attention_bwd_merged_plain)}
-TOL = 2e-2
+#: K4's f32 cases at TinyViT-5M-224 (B=64), timed with the train shapes.
+F32_CASES = (("K4", 1024, 49, 4, 32), ("K4", 64, 196, 5, 32),
+             ("K4", 64, 49, 10, 32))
+F32 = "--f32" in sys.argv[1:]
+DTYPE = torch.float32 if F32 else torch.bfloat16
+TOL = 1e-3 if F32 else 2e-2
 
 
 def rel(a, b):
@@ -46,9 +56,9 @@ def rel(a, b):
 
 def inputs(W, N, H, hd, gen):
     D = H * hd
-    return (torch.randn(W, N, 3 * D, generator=gen).to("cuda", torch.bfloat16),
+    return (torch.randn(W, N, 3 * D, generator=gen).to("cuda", DTYPE),
             (torch.randn(H, N, N, generator=gen) * 0.5).to("cuda"),
-            torch.randn(W, N, D, generator=gen).to("cuda", torch.bfloat16),
+            torch.randn(W, N, D, generator=gen).to("cuda", DTYPE),
             hd ** -0.5, H)
 
 
@@ -75,9 +85,20 @@ def main():
     secs = _build.build(("attention_qkv_bwd", "attention_bwd_qtiled",
                          "attention_bwd_merged"))
     print(f"build {secs:.1f} s")
+    if F32:
+        for lib in ("attention_qkv_bwd", "attention_bwd_qtiled",
+                    "attention_bwd_merged"):
+            log = _build.build_log(lib).splitlines()
+            for j, line in enumerate(log):
+                if "Compiling entry function" in line and "f32_sm90" in line:
+                    print(lib, line.split("'")[1][:60], *(
+                        x.strip() for x in log[j + 1:j + 4]
+                        if "Used" in x or "spill" in x))
     ok = True
     gen = torch.Generator().manual_seed(0)
-    for i, (k, W, N, H, hd) in enumerate(CASES):
+    cases = CASES[:3] + (F32_CASES if F32 else ()) + CASES[3:]
+    timed = 6 if F32 else 3
+    for i, (k, W, N, H, hd) in enumerate(cases):
         args = inputs(W, N, H, hd, gen)
         kern, plain = KERNELS[k]
         a, b = kern(*args), kern(*args)
@@ -92,7 +113,7 @@ def main():
                 f"{wa._bwd_groups(W, -(-N // 64) * 64, H)} d_qkv {e1:.3g} (q, k, v "
                 f"{parts[0]:.3g} {parts[1]:.3g} {parts[2]:.3g}) d_bias {e2:.3g} "
                 f"stable {stable} finite {finite}")
-        if i < 3:
+        if i < timed:
             line += f" ms {event_ms(lambda: kern(*args)):.4f}"
         print(line, flush=True)
         ok = ok and e1 < TOL and e2 < TOL and stable and finite
@@ -102,11 +123,15 @@ def main():
         a = wa._attention_bwd_qtiled_cuda(*args)
         b = wa._attention_bwd_merged_cuda(*args)
         torch.cuda.synchronize()
-        print(f"K7 vs K5 W={W} N={N} H={H}: d_qkv elements that differ "
-              f"{int((a[0] != b[0]).sum())} of {a[0].numel()}; d_bias max "
-              f"difference {float((a[1] - b[1]).abs().max()):.3g}")
+        G = wa._bwd_groups(W, N, H)
+        print(f"K7 vs K5 W={W} N={N} H={H} (K7's G={G}): d_qkv elements "
+              f"that differ {int((a[0] != b[0]).sum())} of {a[0].numel()}; "
+              f"d_bias max difference {float((a[1] - b[1]).abs().max()):.3g}")
+        if F32 and G == 1:
+            ok = ok and torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
     gen = torch.Generator().manual_seed(0)
-    for k, W, N, H, hd in CASES[:3] + (("K5",) + CASES[2][1:],):
+    for k, W, N, H, hd in (CASES[:3] + (("K5",) + CASES[2][1:],)
+                           + (F32_CASES if F32 else ())):
         args = inputs(W, N, H, hd, gen)
         kern = KERNELS[k][0]
         for _ in range(3):

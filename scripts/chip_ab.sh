@@ -32,7 +32,10 @@
 # only the two engines' serving phases (their p50s, which the host's noise
 # moves most), in the same turns; AB_PHASES=mbconv only the K10 and K12
 # lines; AB_PHASES=fusion only the hierarchical engine's fusion beside
-# mean fusion (fusion_ab below).
+# mean fusion (fusion_ab below); AB_PHASES=bwd_f32 only K4, K5 and K7 in
+# f32 at PERF.md's seven f32 backward rows as device time, beside SDPA's
+# f32 backward, with each launch's device time and hashes of the bf16
+# entries' outputs at the train shapes (bwd_f32_ab below).
 set -u
 parent=${1:?usage: chip_ab.sh PARENT_DIR}
 out=$(pwd)/${AB_OUT:-build/ab_logs}
@@ -149,7 +152,58 @@ def fusion_ab():
           f"in {behind:.3f} ms")
 
 
+def bwd_f32_ab():
+    """K4, K5 and K7 with f32 operands at the seven shapes of PERF.md's f32
+    backward rows (TinyViT-21M-512 at B=16, TinyViT-5M-224 at B=64) as
+    device time (cs.device_time_ms: 20 calls in one CUDA graph, replayed 5
+    times) beside SDPA's f32 backward on the same inputs and with each
+    launch's device time (torch.profiler); then hashes of K4's, K5's and
+    K7's bf16 d_qkv and d_bias on seeded inputs at the train shapes (equal
+    in both trees when the bf16 entries' bits did not change)."""
+    from geoguessr_ai_torch.ops import window_attention as wa
+
+    fns = {"K4": wa._attention_qkv_bwd_cuda,
+           "K5": wa._attention_bwd_merged_cuda,
+           "K7": wa._attention_bwd_qtiled_cuda}
+
+    def inputs(W, N, H, dtype):
+        gen = torch.Generator().manual_seed(23)
+        D = H * 32
+        return (torch.randn(W, N, 3 * D, generator=gen).to("cuda", dtype),
+                (torch.randn(H, N, N, generator=gen) * 0.5).to("cuda"),
+                torch.randn(W, N, D, generator=gen).to("cuda", dtype))
+
+    for k, W, N, H in (("K4", 1024, 256, 6), ("K4", 64, 256, 18),
+                       ("K4", 1024, 49, 4), ("K4", 64, 196, 5),
+                       ("K4", 64, 49, 10), ("K5", 64, 1024, 12),
+                       ("K7", 64, 1024, 12)):
+        qkv, bias, g = inputs(W, N, H, torch.float32)
+        fn = lambda: fns[k](qkv, bias, g, 32 ** -0.5, H)
+        lib, _ = cs._sdpa_bwd_ms(qkv, bias, g, 32 ** -0.5, H)
+        print(f"AB f32 {k} ({W}, {N}, {H}) graph_ms "
+              f"{cs.device_time_ms(fn):.4f} sdpa_f32_bwd_ms "
+              f"{'null' if lib is None else f'{lib:.4f}'}")
+        launch = cs._launch_ms(fn)
+        print(f"AB f32 {k} ({W}, {N}, {H}) launch_ms " + (
+            ", ".join(f"{n} {t:.4f}" for n, t in launch.items())
+            if launch else "not measured"))
+        del qkv, bias, g
+        torch.cuda.empty_cache()
+    for k, W, N, H in (("K4", 1024, 256, 6), ("K4", 64, 256, 18),
+                       ("K4", 1024, 49, 4), ("K5", 64, 1024, 12),
+                       ("K7", 64, 1024, 12)):
+        dqkv, dbias = fns[k](*inputs(W, N, H, torch.bfloat16), 32 ** -0.5, H)
+        torch.cuda.synchronize()
+        print(f"AB bf16 bits {k} ({W}, {N}, {H}) d_qkv {sha(dqkv)} d_bias "
+              f"{sha(dbias)}")
+        del dqkv, dbias
+        torch.cuda.empty_cache()
+
+
 cs.phase_device(); cs.phase_build()
+if os.environ.get("AB_PHASES") == "bwd_f32":
+    bwd_f32_ab()
+    sys.exit(0)
 if os.environ.get("AB_PHASES") == "fusion":
     fusion_ab()
     sys.exit(0)

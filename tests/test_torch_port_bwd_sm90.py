@@ -1,18 +1,18 @@
-"""The bf16 entries of K4, K5 and K7, the Hopper backward core, on the
-CPU: the window groups of its d_bias launch, its scratch, its layout
-rules, its routing, and Python mirrors of the d_bias sum it takes in
-another order than the first design and of its row statistics.
+"""The entries of K4, K5 and K7, the Hopper backward core, on the CPU:
+the window groups of its d_bias launch, its scratch, its layout rules,
+its routing, and Python mirrors of the d_bias sum it takes in another
+order than the first design and of its row statistics.
 
-In bf16 ``_attention_qkv_bwd_cuda`` (K4), ``_attention_bwd_merged_cuda``
-(K5) and ``_attention_bwd_qtiled_cuda`` (K7) launch
-``attention_qkv_bwd_bf16``, ``attention_bwd_merged_bf16`` and
-``attention_bwd_qtiled_bf16``, which run ``csrc/attention_bwd_sm90.cuh``:
-TMA loads through tensor maps over qkv and g (so both must be 16-byte
-aligned with rows a multiple of 16 bytes apart, ``_bwd_layout``), and a
-d_bias launch that sums ds over ``_bwd_groups`` groups of windows (K5:
-one group) into (G, H, N, N) partials, then sums the partials in group
-order.  The f32 entries keep the first design (``attention_bwd.cuh``).
-What is checked here,
+``_attention_qkv_bwd_cuda`` (K4), ``_attention_bwd_merged_cuda`` (K5) and
+``_attention_bwd_qtiled_cuda`` (K7) launch ``attention_qkv_bwd_<dtype>``,
+``attention_bwd_merged_<dtype>`` and ``attention_bwd_qtiled_<dtype>``,
+which run ``csrc/attention_bwd_sm90.cuh`` in its bf16 or its f32 kind:
+TMA loads through tensor maps over qkv and g (in bf16 both must be
+16-byte aligned with rows a multiple of 16 bytes apart, ``_bwd_layout``),
+and a d_bias launch that sums ds over ``_bwd_groups`` groups of windows
+(K5: one group) into (G, H, N, N) partials, then sums the partials in
+group order.  The f32 kind's plan, its rounding and its tile layout are
+checked in tests/test_torch_port_bwd_f32.py.  What is checked here,
 where there is no ``nvcc`` and no card: the grouping, the scratch shapes,
 every layout rule, which entry each call reaches with which arguments,
 and that the group-ordered sums and the row statistics (one pass in K4,
@@ -179,11 +179,11 @@ def _c_body(lib, entry):
                          ids=["bf16", "f32"])
 def test_k4_k7_route_bf16_to_the_core_and_f32_to_the_twin(
         monkeypatch, kernel, lib, dtype):
-    """A bf16 call of K4 or K7 reaches the ``_bf16`` entry with the d_bias
-    partials and G = ``_bwd_groups``; an f32 call reaches the ``_f32`` twin
-    with no partials and G = 1; K5 takes neither (one window group) in
-    either dtype; one launch counted either way.  Every bf16 entry's body
-    runs the Hopper core, every f32 one the first design."""
+    """A call of K4 or K7 reaches the entry of its dtype (``_bf16`` or
+    ``_f32``) with the d_bias partials and G = ``_bwd_groups``; K5 takes
+    neither (one window group) in either dtype; one launch counted either
+    way.  Every entry's body runs the Hopper core (``gg::bwd90::launch``),
+    the bf16 kind or the f32 one by the type of its arguments."""
     calls = _fake_card(monkeypatch)
     W, N, H, hd = 17, 128, 2, 32
     qkv = torch.zeros(W, N, 3 * H * hd, dtype=dtype)
@@ -201,25 +201,22 @@ def test_k4_k7_route_bf16_to_the_core_and_f32_to_the_twin(
         assert tail == (W, N, H, hd, 0.25, 0)
     else:
         partial, rest = tail[0], tail[1:]
-        G = wa._bwd_groups(W, N, H) if suffix == "bf16" else 1
-        assert G == (17 if suffix == "bf16" else 1)
+        G = wa._bwd_groups(W, N, H)
+        assert G == 17
         assert rest[:5] == (W, N, H, hd, G) and rest[5] == 0.25
         assert (partial != 0) == (G > 1)
     body = _c_body(lib, entry)
-    if suffix == "bf16":
-        assert "gg::bwd90::launch(" in body
-    else:
-        assert "bwd90" not in body
-        assert ("launch_attention_bwd(" in body) or ("run_f32(" in body)
+    assert "gg::bwd90::launch(" in body
+    args = "gg::bf16" if suffix == "bf16" else "float"
+    assert re.search(r"args<%s>\(" % args, body)
 
 
 def test_k5_keeps_its_entry_and_its_core(monkeypatch):
     """K5 (``attention_bwd_merged``) keeps its entry, which takes no
-    partials or groups; in bf16 the entry runs the Hopper core with one
-    window group (G = 1: d_bias summed over all windows in order) and t in
-    two passes, as K7's does, so the two give equal bits at one group; its
-    f32 twin keeps the first design.  A bf16 call checks the core's TMA
-    layout (``_bwd_layout``) first."""
+    partials or groups; in either dtype the entry runs the Hopper core with
+    one window group (G = 1: d_bias summed over all windows in order) and
+    t in two passes, as K7's does, so the two give equal bits at one group.
+    A bf16 call checks the core's TMA layout (``_bwd_layout``) first."""
     calls = _fake_card(monkeypatch)
     checked = []
     real_layout = wa._bwd_layout
@@ -242,27 +239,44 @@ def test_k5_keeps_its_entry_and_its_core(monkeypatch):
                      bf16)
     assert "const float* b = static_cast<const float*>(bias)" in bf16
     f32 = _c_body(lib, "attention_bwd_merged_f32")
-    assert "bwd90" not in f32 and "launch_attention_bwd(" in f32
+    assert "gg::bwd90::launch(" in f32
+    assert re.search(r"launch\(a, b, nullptr, 1, hd, 2, static_cast<cudaStream_t>",
+                     f32)
+    assert "const gg::BwdArgs<float> a = args<float>(" in f32
     src = open(_build.CSRC / "attention_bwd_merged.cu").read()
     assert '#include "attention_bwd_sm90.cuh"' in src
     for k in ("attention_qkv_bwd", "attention_bwd_qtiled"):
         assert all(len(a) == 14 for n, a in _build.SIGNATURES[k].items()
-                   if not n.endswith("_plan"))
+                   if "_plan" not in n)
 
 
 def test_the_core_is_hopper_code():
-    """The bf16 core reads through tensor maps, runs wgmma and specialises
-    its warps; the f32 twins' core does none of that."""
+    """Both kinds of the core read through tensor maps, run wgmma and
+    specialise their warps, with no atomics; the first design's kernels
+    are gone from every source (attention_bwd.cuh keeps what the core
+    shares: ``BwdArgs``, ``stat_index``, the quad reductions)."""
     core = open(_build.CSRC / "attention_bwd_sm90.cuh").read()
     for feature in ("tma_load(", "bulk_load(", "setmaxnreg.dec", "setmaxnreg.inc",
                     "wgmma_m64n64k16_ss(",
                     "wgmma_k64_rs<HD>(", "mbar_wait(full_col",
                     "mbar_wait(empty_col", "dbias_reduce"):
         assert feature in core, feature
+    f32 = core[core.index("attn_bwd_f32_sm90("):]
+    for feature in ("tma_load(", "bulk_load(", "setmaxnreg.dec", "setmaxnreg.inc",
+                    "split_scores<HD>(", "split_k64<HD>(", "split_tiles<HD>(",
+                    "mbar_wait(full_land", "mbar_wait(full_col",
+                    "mbar_wait(empty_col", "fence_proxy_async()",
+                    "dbias_reduce<<<"):
+        assert feature in f32, feature
     atomics = re.compile(r"\batomic[A-Z]\w*\(|\batom\.|\bred\.")
     assert not atomics.search(core)
     old = open(_build.CSRC / "attention_bwd.cuh").read()
     assert "wgmma" not in old and not atomics.search(old)
+    assert "__global__" not in old
+    for lib in ("attention_qkv_bwd", "attention_bwd_merged",
+                "attention_bwd_qtiled"):
+        src = open(_build.CSRC / f"{lib}.cu").read()
+        assert "__global__" not in src and "mma_16x64" not in src
 
 
 def _ds_per_window(W, N, H, seed=0):
@@ -360,18 +374,22 @@ def test_the_row_statistics_passes_match_softmax(passes):
      "attention backward (K4 CUDA)"),
     ("gg::bwd90::dbias_reduce(float4 const*, float4*, long, int)",
      "attention backward (K4/K7 CUDA)"),
+    ("void gg::bwd90::attn_bwd_f32_sm90<32, 0, 1>(CUtensorMap_st, "
+     "CUtensorMap_st, CUtensorMap_st, gg::BwdArgs<float>)",
+     "attention backward (f32 K4/K5/K7 CUDA)"),
     ("void gg::hm90::attention_batched_sm90<32, 4>(CUtensorMap_st, "
      "CUtensorMap_st, CUtensorMap_st, CUtensorMap_st, __nv_bfloat16*)",
      "head-major attention (K8b CUDA)"),
     ("void gg::(anonymous namespace)::attention_batched_kernel<float, 32>("
      "float const*)", "head-major attention (K8b CUDA)"),
 ], ids=["core_stats_f32_bias", "core_dbias_f32_bias", "core_bf16_bias",
-        "partials_sum", "k8b_bf16", "k8b_f32"])
+        "partials_sum", "f32_kind", "k8b_bf16", "k8b_f32"])
 def test_profile_groups_name_the_core_launches_by_their_kernels(kernel_name,
                                                                 group):
-    """``profile_forward`` counts the f32-bias launches of the core as K5/K7
-    (the default train step's K5 runs them since K5 moved onto the core)
-    and both of K8b's kernels as K8b."""
+    """``profile_forward`` counts the f32-bias launches of the core's bf16
+    kind as K5/K7 (the default train step's K5 runs them since K5 moved
+    onto the core), the f32 kind's as f32 K4/K5/K7, and both of K8b's
+    kernels as K8b."""
     from geoguessr_ai_torch import profile_forward
 
     assert profile_forward._group(kernel_name) == group

@@ -210,10 +210,11 @@ def test_calibrate_act_stats_accumulates_the_running_max():
 
 
 def _randomised_variables(jm, x, seed=0):
-    v = jax.jit(jm.init)(jax.random.PRNGKey(0), jnp.asarray(x))
+    # only the tree's paths and shapes are read (every value is drawn
+    # below), so the init is traced abstractly, not run
+    v = jax.eval_shape(jm.init, jax.random.PRNGKey(0), jnp.asarray(x))
     rng = np.random.default_rng(seed)
-    leaves, tree = jax.tree_util.tree_flatten_with_path(
-        jax.tree_util.tree_map(np.asarray, v))
+    leaves, tree = jax.tree_util.tree_flatten_with_path(v)
     out = []
     for path, a in leaves:
         name = jax.tree_util.keystr(path)
@@ -293,8 +294,19 @@ QUANT_CASES = {
 }
 
 
+@pytest.fixture(scope="module")
+def quant_reference():
+    """The input and randomised variables every QUANT_CASES case shares,
+    and flax's calibrated scales of them by CONV_INT8_EMITTER value
+    (filled by the first case that needs them), built once a module."""
+    x = _tiny_input(seed=2)
+    jm0, _ = _models()
+    return {"x": x, "variables": _randomised_variables(jm0, x, seed=3),
+            "scales": {}}
+
+
 @pytest.mark.parametrize("case", list(QUANT_CASES))
-def test_quant_forward_matches_flax(case, monkeypatch):
+def test_quant_forward_matches_flax(case, monkeypatch, quant_reference):
     """The static forward from flax's calibrated scales (carried by
     ``from_jax_variables``), and the dynamic one, against flax: cosine >=
     0.9999 per image."""
@@ -308,12 +320,12 @@ def test_quant_forward_matches_flax(case, monkeypatch):
     monkeypatch.setattr(TQ, "int8_static_conv",
                         lambda *a, real=TQ.int8_static_conv, **k:
                         convs.append(1) or real(*a, **k))
-    x = _tiny_input(seed=2)
-    jm0, _ = _models()
-    variables = _randomised_variables(jm0, x, seed=3)
+    x, variables = quant_reference["x"], quant_reference["variables"]
     if fields.get("quant_mode") == "static":
-        _, stats = _flax_calibrate(variables, x)
-        variables = {**variables, "act_scales": stats}
+        scales = quant_reference["scales"]
+        if emitter not in scales:  # the emitter changes the calibrated sites
+            scales[emitter] = _flax_calibrate(variables, x)[1]
+        variables = {**variables, "act_scales": scales[emitter]}
     jm, pm = _models(**fields)
     want = _np(jax.jit(jm.apply)(variables, jnp.asarray(x)))
     pm.load_state_dict(from_jax_variables(variables), strict=True)
@@ -409,7 +421,7 @@ def _fixture_images(n, size):
                                  size) for i in range(n)])
 
 
-def test_static_embedder_matches_the_jax_static_embedder():
+def test_static_embedder_matches_the_jax_static_embedder(monkeypatch):
     """Full width (the JAX static Embedder builds TinyViT-21M-512), B=2,
     one call each: the same scales after calibration (rtol 1e-4) and
     embeddings at cosine >= 0.999."""
@@ -420,10 +432,15 @@ def test_static_embedder_matches_the_jax_static_embedder():
     from geoguessr_ai_torch.data.embed_builder import Embedder
 
     images = _fixture_images(2, 512)
-    jemb = JEmbedder(JBC(), quant_mode="static")
-    jemb.variables = _randomised_variables(
+    variables = _randomised_variables(
         jtv.TinyViT(jtv.TinyViTConfig.tiny_vit_21m_512()), images[:1] / 255.0,
         seed=7)
+    # the JAX Embedder's constructor draws weights (an eager full-width
+    # init) that the test replaces at once: it is handed these instead
+    with monkeypatch.context() as m:
+        m.setattr(jtv.TinyViT, "init", lambda self, *a, **k: variables)
+        jemb = JEmbedder(JBC(), quant_mode="static")
+    jemb.variables = variables
     want = np.asarray(jemb(images))
     temb = Embedder(BackboneConfig.tinyvit(), quant_mode="static",
                     device="cpu",
