@@ -1691,12 +1691,13 @@ def _mbconv_bound_ms(B, elem=2):
 
 def _mbconv_cudnn_ms(args, exact=False):
     """The same function as one chain of cuDNN convolutions (1x1,
-    depthwise 3x3, 1x1) with the folded BN and GELU between, in bf16
-    channels-last: the yardstick only; the port never calls it."""
+    depthwise 3x3, 1x1) with the folded BN and GELU between, channels-last
+    in x's dtype (the BN pairs cast to it too): the yardstick only; the
+    port never calls it."""
     import torch.nn.functional as F
 
     x, w1, s1, b1, w2, s2, b2, w3, s3, b3 = args
-    bf = torch.bfloat16
+    bf = x.dtype
     E = w1.shape[1]
     xc = x.permute(0, 3, 1, 2)
     k1 = w1.t().contiguous()[:, :, None, None]
@@ -1832,27 +1833,32 @@ MB_OTHER_IMAGES = 4
 
 
 def _mbconv_other_channels(gen):
-    """K10 at C = 64 and 32 against its plain version (the kernel's other
-    instances: one 64-channel box, one 32-channel box with the 64-byte
-    swizzle)."""
+    """K10 at C = 64 and 32 against its plain version, in bf16 and in f32
+    (the kernel's other instances: in bf16 one 64-channel box, one
+    32-channel box with the 64-byte swizzle; in f32 two and one 32-channel
+    boxes of the halo)."""
     from geoguessr_ai_torch.ops import mbconv
 
-    for C, E in MB_OTHER_CHANNELS:
-        args = _mbconv_inputs(MB_OTHER_IMAGES, gen, C=C, E=E)
-        got = mbconv._mbconv_cuda(*args, False)
-        again = mbconv._mbconv_cuda(*args, False)
-        torch.cuda.synchronize()
-        want = mbconv._mbconv_plain(*args, False)
-        max_abs, rel = _rel_err(got, want)
-        finite = bool(torch.isfinite(got).all())
-        stable = torch.equal(got, again)
-        log(f"K10 C={C} E={E} {MB_OTHER_IMAGES} images: max_abs_err "
-            f"{max_abs:.6g} max_rel_err {rel:.6g} (tolerance "
-            f"{KERNEL_REL_TOL}), bitwise equal over two calls {stable}")
-        if not (finite and stable and rel <= KERNEL_REL_TOL):
-            fail(f"K10 C={C}: kernel disagrees with its plain version (rel "
-                 f"{rel:.3g}, finite {finite}, stable {stable})")
-        del args, got, again, want
+    for dtype, tol in ((torch.bfloat16, KERNEL_REL_TOL),
+                       (torch.float32, F32_REL_TOL)):
+        kind = "bf16" if dtype == torch.bfloat16 else "f32"
+        for C, E in MB_OTHER_CHANNELS:
+            args = _mbconv_inputs(MB_OTHER_IMAGES, gen, dtype, C=C, E=E)
+            got = mbconv._mbconv_cuda(*args, False)
+            again = mbconv._mbconv_cuda(*args, False)
+            torch.cuda.synchronize()
+            want = mbconv._mbconv_plain(*args, False)
+            max_abs, rel = _rel_err(got, want)
+            finite = bool(torch.isfinite(got).all())
+            stable = torch.equal(got, again)
+            log(f"K10 {kind} C={C} E={E} {MB_OTHER_IMAGES} images: "
+                f"max_abs_err {max_abs:.6g} max_rel_err {rel:.6g} (tolerance "
+                f"{tol}), bitwise equal over two calls {stable}")
+            if not (finite and stable and rel <= tol and got.dtype == dtype):
+                fail(f"K10 {kind} C={C}: kernel disagrees with its plain "
+                     f"version (rel {rel:.3g}, finite {finite}, stable "
+                     f"{stable})")
+            del args, got, again, want
 
 
 def _reset_all_launches():
@@ -3086,9 +3092,10 @@ F32_TRAIN_GRAD_MIN_COSINE = 0.9999
 F32_NOISE_FLOOR = 1e-6
 #: (kernel, label, shape): each K1-K11 kernel at the shape its main path
 #: gives it (serving bucket 16, the B=16 train shapes, CLIP-L bucket 16,
-#: the embed batch of 512 images), as the bf16 phases run it, and K4 at
-#: the B=64 finetune's TinyViT-5M-224 shapes (FT_K4_CASES; N padded to 64
-#: inside the wrapper).
+#: the embed batch of 512 images), as the bf16 phases run it, K4 at the
+#: B=64 finetune's TinyViT-5M-224 shapes (FT_K4_CASES; N padded to 64
+#: inside the wrapper) and K10 also at the 64 images of a serving bucket
+#: of 16 (the f32 knobs engine's shape).
 F32_CASES = (
     ("K1", "stage1", (1024, 256, 192, 6)),
     ("K1", "embed_stage3", (64, 256, 576, 18)),
@@ -3106,6 +3113,7 @@ F32_CASES = (
     ("K8b", "stage3_bucket16", (64, 18, 256)),
     ("K9", "embed", (EMBED_BATCH,)),
     ("K10", "embed", (EMBED_BATCH,)),
+    ("K10", "bucket16", (EMBED_KERNEL_IMAGES[0],)),
     ("K6", "vit_l14_bucket16", (64, 577, 1024, 16)),
     ("K11", "vit_l14_bucket16", (64, 577, 1024, 16)),
 )
@@ -3227,6 +3235,14 @@ def phase_f32_kernels():
         torch.cuda.synchronize()
         bwd_line = (_f32_bwd_checks(kernel, label, shape, kern, args, got)
                     if kernel in ("K4", "K5", "K7") else None)
+        if kernel == "K10":
+            # the kernel's f32 kind: every output element one thread's sum
+            # in an order fixed by the shape
+            stable = torch.equal(got, kern(*args))
+            log(f"K10 f32 {label}: bitwise equal over two calls {stable}")
+            if not stable:
+                fail(f"K10 f32 {label}: two calls on the same inputs gave "
+                     f"different bits")
         want = plain(*args)
         torch.cuda.synchronize()
         pairs = zip(got, want) if isinstance(got, tuple) else [(got, want)]

@@ -10,8 +10,8 @@ Counterpart of geoguessr_ai_tpu/ops/mbconv.py:
 ``fused_mbconv`` dispatches on the device of its input: a CPU tensor takes
 the plain PyTorch version (``_mbconv_plain``, the mirror of the JAX
 package's ``_mbconv_xla``), a CUDA tensor launches the hand-written kernel
-``csrc/mbconv.cu`` (in bf16 the Hopper kernel of ``csrc/mbconv_sm90.cuh``)
-or raises.  Inference only, as in the JAX package: BN
+``csrc/mbconv.cu`` (the Hopper kernel of ``csrc/mbconv_sm90.cuh``: its bf16
+kind, or in f32 its f32 kind) or raises.  Inference only, as in the JAX package: BN
 folds into per-channel (scale, bias) from the running statistics
 (``fold_bn``), and there is no backward.  Layouts are the JAX package's:
 x (B, H, W, C), w1 (C, E), w2 (3, 3, E) depthwise, w3 (E, C).  x is bf16
@@ -82,6 +82,14 @@ def _mbconv_plain(x, w1, s1, b1, w2, s2, b2, w3, s3, b3, exact: bool):
     return _gelu(x + p, exact)
 
 
+def _split_bf16(w):
+    """f32 ``w`` as the stacked bf16 pair (hi, lo), hi = bf16(w) and lo =
+    bf16(w - hi): the operands of the f32 kind's split products (lo.hi +
+    hi.lo + hi.hi), made once a call."""
+    hi = w.to(torch.bfloat16)
+    return torch.stack([hi, (w - hi.float()).to(torch.bfloat16)])
+
+
 def _mbconv_cuda(x, w1, s1, b1, w2, s2, b2, w3, s3, b3, exact: bool):
     from geoguessr_ai_torch.ops import _build
 
@@ -97,9 +105,15 @@ def _mbconv_cuda(x, w1, s1, b1, w2, s2, b2, w3, s3, b3, exact: bool):
     _check("x", x, (B, H, W, C), dt)
     # the kernel reads the 1x1 weights (out, in); no copy when w1 / w3 are
     # the transposed views of contiguous conv weights of x's dtype, as the
-    # model passes them
-    w1t = _check("w1", w1.t().to(dt).contiguous(), (E, C), dt)
-    w3t = _check("w3", w3.t().to(dt).contiguous(), (C, E), dt)
+    # model passes them.  The f32 kind reads each as its (hi, lo) bf16 pair.
+    w1t = w1.t().to(dt).contiguous()
+    w3t = w3.t().to(dt).contiguous()
+    if dt == torch.float32:
+        w1t = _check("w1", _split_bf16(w1t), (2, E, C), torch.bfloat16)
+        w3t = _check("w3", _split_bf16(w3t), (2, C, E), torch.bfloat16)
+    else:
+        w1t = _check("w1", w1t, (E, C), dt)
+        w3t = _check("w3", w3t, (C, E), dt)
     # depthwise taps rounded to x's dtype, then widened for the f32 MACs
     w2r = _check("w2", w2.reshape(9, E).to(dt).float().contiguous(), (9, E),
                  torch.float32)

@@ -46,11 +46,11 @@ GROUPS = (
     # apart by its template arguments)
     ("window_attention_kernel", "attention (f32 K1/K2/K3/K9 CUDA)"),
     ("ln_gemm_kernel", "LN+GEMM (f32 K1/K2/K9 CUDA)"),
-    ("mbconv_kernel", "fused MBConv (K10 CUDA)"),
     # the bf16 Hopper kernels: the LayerNorm + GEMM core (K1's and K9's qkv
-    # GEMM and out-projection, K2's qkv GEMM) and K10's
+    # GEMM and out-projection, K2's qkv GEMM) and K10's; K10's f32 kind
     ("ln_gemm_sm90", "LN+GEMM (K1/K2/K9 CUDA)"),
     ("mbconv_sm90", "fused MBConv (K10 CUDA)"),
+    ("mbconv_f32_sm90", "fused MBConv (f32 K10 CUDA)"),
     # the GEMM core with A streamed along K (K11's out-projection, K13)
     ("gemm_sm90", "GEMM core (K11/K13 CUDA)"),
     # torch._int_mm's kernels (cutlass_80_tensorop_i16832gemm_s8_... on

@@ -12,9 +12,11 @@
 # exponential a score at 16 a clock an SM, at the card's clocks.max.sm),
 # and a hash of K8b's output on seeded inputs (equal in both trees when
 # its bits did not change); K10 (the fused stage-0 MBConv) at 64 and 512
-# images by events with a hash of its output at 64 images on a fixed seed,
-# K12a and K12b (the experimental fused MBConv) at 64 and 256 images by
-# events beside the cuDNN chain of the same function, and K2 (the stage-2
+# images by events with a hash of its output at each on a fixed seed, its
+# f32 entry at 64 and 512 images by events, K12a and K12b (the
+# experimental fused MBConv) at 64 and 256 images by events beside the
+# cuDNN chain of the same function (their outputs hashed at 64, 256 and
+# 512 images), and K2 (the stage-2
 # no-proj fused block) at bucket 16 as
 # device time (each launch's device time: phase 3's launch_ms lines, K1's
 # too; K9's in phase 13's); K13 (the int8 / bf16 tiled GEMM) at the JAX
@@ -35,7 +37,9 @@
 # mean fusion (fusion_ab below); AB_PHASES=bwd_f32 only K4, K5 and K7 in
 # f32 at PERF.md's seven f32 backward rows as device time, beside SDPA's
 # f32 backward, with each launch's device time and hashes of the bf16
-# entries' outputs at the train shapes (bwd_f32_ab below).
+# entries' outputs at the train shapes (bwd_f32_ab below); AB_PHASES=
+# f32_serve only the p50s of the f32 paths that launch K10 (f32_serve_ab
+# below).
 set -u
 parent=${1:?usage: chip_ab.sh PARENT_DIR}
 out=$(pwd)/${AB_OUT:-build/ab_logs}
@@ -58,10 +62,13 @@ def sha(t):
 
 
 def mbconv_ab():
-    """K10 at 64 and 512 images by events, with a hash of its output at 64
-    images on a fixed seed (equal in both trees when its bits did not
-    change); K12a and K12b at 64 and 256 images of the JAX benchmark's
-    inputs by events, with the cuDNN chain of the same function."""
+    """K10 at 64 and 512 images by events, with a hash of its output at
+    each on a fixed seed (equal in both trees when its bits did not
+    change); K10's f32 entry at 64 and 512 images by events, with its
+    largest error against the plain f32 version; K12a and K12b at 64 and
+    256 images of the JAX benchmark's inputs by events, with the cuDNN
+    chain of the same function, and hashes of their outputs at 64, 256 and
+    512 images."""
     from geoguessr_ai_torch.ops import mbconv
     from geoguessr_ai_torch.ops.experimental import fused_mbconv as fm
 
@@ -70,23 +77,83 @@ def mbconv_ab():
         margs = cs._mbconv_inputs(images, gen)
         fn = lambda: mbconv._mbconv_cuda(*margs, False)
         print(f"AB K10 {images} images events_ms {cs.cuda_time_ms(fn):.4f}")
-        if images == 64:
-            out = fn()
-            torch.cuda.synchronize()
-            print(f"AB K10 bits 64 images {sha(out)}")
-            del out
-        del margs
+        out = fn()
+        torch.cuda.synchronize()
+        print(f"AB K10 bits {images} images {sha(out)}")
+        del out, margs
+    gen = torch.Generator().manual_seed(24)
+    for images in (64, 512):
+        margs = cs._mbconv_inputs(images, gen, torch.float32)
+        fn = lambda: mbconv._mbconv_cuda(*margs, False)
+        ms = cs.cuda_time_ms(fn)
+        out = fn()
+        want = cs._sliced(lambda *a: mbconv._mbconv_plain(*a, False), margs,
+                          images)
+        _, rel = cs._rel_err(out, want)
+        print(f"AB K10 f32 {images} images events_ms {ms:.4f} max_rel_err "
+              f"{rel:.3g}")
+        del out, want, margs
+        torch.cuda.empty_cache()
     gen = torch.Generator().manual_seed(6)
-    for images in (64, 256):
+    for images in (64, 256, 512):
         args = cs._exp_mbconv_inputs(images, gen)
         with torch.inference_mode():
-            ms = {k: cs.cuda_time_ms(lambda: fm._fused_mbconv_cuda(*args, v2=v2))
-                  for k, v2 in (("K12a", False), ("K12b", True))}
-            ms["K12 cuDNN chain"] = cs._exp_chain_ms(args)
-        for k, t in ms.items():
-            print(f"AB {k} {images} images events_ms {t:.4f}")
+            if images != 512:
+                ms = {k: cs.cuda_time_ms(lambda: fm._fused_mbconv_cuda(*args, v2=v2))
+                      for k, v2 in (("K12a", False), ("K12b", True))}
+                ms["K12 cuDNN chain"] = cs._exp_chain_ms(args)
+                for k, t in ms.items():
+                    print(f"AB {k} {images} images events_ms {t:.4f}")
+            for k, v2 in (("K12a", False), ("K12b", True)):
+                out = fm._fused_mbconv_cuda(*args, v2=v2)
+                torch.cuda.synchronize()
+                print(f"AB {k} bits {images} images {sha(out)}")
+                del out
         del args
         torch.cuda.empty_cache()
+
+
+def f32_serve_ab():
+    """The f32 paths that launch K10 (chip_smoke.py phase 25): the f32
+    TinyViT engine with fused_mbconv and fused_block_4d at bucket 16
+    (predict_batch p50 over 11 calls after a warm-up) and the f32 Embedder
+    of bulk_embed_config() at 64 images (p50 over 11 calls), each with
+    K10's launches in one call."""
+    import gc
+
+    import numpy as np
+
+    from geoguessr_ai_torch.config import BackboneConfig
+    from geoguessr_ai_torch.data.embed_builder import Embedder, bulk_embed_config
+    from geoguessr_ai_torch.models.tinyvit import TinyViTConfig
+    from geoguessr_ai_torch.ops import mbconv
+    from geoguessr_ai_torch.serving.engine import ServingEngine
+
+    f32 = torch.float32
+
+    def read(label, fn):
+        fn()
+        torch.cuda.synchronize()
+        mbconv.reset_launches()
+        fn()
+        torch.cuda.synchronize()
+        k10 = mbconv.LAUNCHES["_mbconv_cuda"]
+        p50 = cs._p50_ms(fn, reps=11)
+        print(f"AB f32 {label} p50 {p50:.2f} ms (K10 {k10} a call)")
+
+    engine = ServingEngine(seed=cs.SEED, backbone_config=TinyViTConfig(
+        dtype=f32, fused_mbconv=True, fused_block_4d=True))
+    _, views = cs._fixture_views(engine)
+    batch = np.repeat(views[None], 16, axis=0)
+    read("knobs engine bucket 16", lambda: engine.predict_batch(batch))
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    emb = Embedder(BackboneConfig.tinyvit(), seed=cs.SEED,
+                   model_config=bulk_embed_config(dtype=f32))
+    _, images = cs._fixture_views(emb)
+    images = images[np.arange(64) % 4]
+    read("Embedder B=64", lambda: emb(images))
 
 
 def fusion_ab():
@@ -209,6 +276,9 @@ if os.environ.get("AB_PHASES") == "fusion":
     sys.exit(0)
 if os.environ.get("AB_PHASES") == "mbconv":
     mbconv_ab()
+    sys.exit(0)
+if os.environ.get("AB_PHASES") == "f32_serve":
+    f32_serve_ab()
     sys.exit(0)
 if os.environ.get("AB_PHASES") == "serve":
     _, paths, result, _ = cs.phase_serve()
@@ -365,9 +435,11 @@ run "$parent" parent1
 run . change1
 run . change2
 run "$parent" parent2
-# K10's bf16 kernels (mbconv_sm90<C, EXACT[, PLAIN = false]>) in both trees'
-# libraries, instruction by instruction (cuobjdump's SASS without the
-# addresses): "identical True" when the change compiled K10 to the same code
+# K10's bf16 kernels (mbconv_sm90<C, EXACT, PLAIN = false> in the mbconv
+# library) and K12a's / K12b's (mbconv_sm90<C, false, PLAIN = true> in
+# fused_mbconv_exp) in both trees' libraries, instruction by instruction
+# (cuobjdump's SASS without the addresses): "identical True" when the
+# change compiled them to the same code
 python3 - "$parent" <<'PY'
 import glob
 import re
@@ -375,22 +447,24 @@ import subprocess
 import sys
 
 
-def kernels(tree):
-    lib = glob.glob(f"{tree}/build/kernels/mbconv-*.so")[0]
-    sass = subprocess.run(["/usr/local/cuda/bin/cuobjdump", "-sass", lib],
+def kernels(tree, lib):
+    path = glob.glob(f"{tree}/build/kernels/{lib}-*.so")[0]
+    sass = subprocess.run(["/usr/local/cuda/bin/cuobjdump", "-sass", path],
                           capture_output=True, text=True).stdout
     parts = re.split(r"\n\s*Function : (\S+)\n", sass)
     out = {}
     for name, body in zip(parts[1::2], parts[2::2]):
-        m = re.search(r"mbconv_sm90ILi(\d+)ELb([01])E(?:Lb0E)?E", name)
+        m = re.search(r"mbconv_sm90ILi(\d+)ELb([01])ELb([01])EE", name)
         if m:
             out[m.groups()] = [re.sub(r"/\*[0-9a-f]+\*/", "", l).split(";")[0].strip()
                                for l in body.splitlines() if re.match(r"\s*/\*[0-9a-f]+\*/", l)]
     return out
 
 
-old, new = kernels(sys.argv[1]), kernels(".")
-for key in sorted(old):
-    print(f"AB K10 SASS C={key[0]} exact={key[1]}: {len(old[key])} / "
-          f"{len(new.get(key, []))} instructions, identical {old[key] == new.get(key)}")
+for lib, label in (("mbconv", "K10"), ("fused_mbconv_exp", "K12")):
+    old, new = kernels(sys.argv[1], lib), kernels(".", lib)
+    for key in sorted(old):
+        print(f"AB {label} SASS C={key[0]} exact={key[1]} plain={key[2]}: "
+              f"{len(old[key])} / {len(new.get(key, []))} instructions, "
+              f"identical {old[key] == new.get(key)}")
 PY

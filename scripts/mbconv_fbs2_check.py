@@ -13,10 +13,13 @@ special-function (MUFU), FP32 and shared-memory pipes at the card's
 ``clocks.max.sm``, from the instruction counts of the kernel's inner
 loops (``K10_PER_EXPANDED``):
 
-    python3 scripts/mbconv_fbs2_check.py [--sass]
+    python3 scripts/mbconv_fbs2_check.py [--sass] [--f32]
 
 ``--sass`` also counts the instructions of each kind in the code of K10's
-bf16 kernel (``cuobjdump -sass``).  Faster than chip_smoke.py, which runs
+kernels at C = 96 (``cuobjdump -sass``).  ``--f32`` runs K10's f32 entry
+(the kernel's f32 kind) at the same shapes instead, within 1e-3 of the
+plain f32 version, with its MUFU floor and the floor of its split products
+on the tensor cores, and skips K2.  Faster than chip_smoke.py, which runs
 the same checks among all the others.
 """
 
@@ -52,6 +55,8 @@ K2_CASES = (
     (7, 64, 192, 6, False), (5, 256, 384, 12, False), (1, 1024, 384, 12, False),
 )
 TOL = 2e-2
+#: f32 kernel vs its plain f32 version (chip_smoke.F32_REL_TOL).
+TOL_F32 = 1e-3
 #: Instructions of each pipe for one (output pixel, expanded channel) of
 #: K10's bf16 kernel at a 16 x 16 output tile (1.5 expanded halo pixels an
 #: output pixel), counted from its code: MUFU: one tanh.approx for each of
@@ -63,9 +68,16 @@ TOL = 2e-2
 #: 2-way bank conflicts).
 K10_PER_EXPANDED = {"mufu": 2.75, "fp32": 9 + 2.75 * 8,
                     "smem_wavefronts": 25 / 256 + 1.5 * 2 / 64}
+#: The f32 kind at its 8 x 16 tile (180 / 128 expanded halo pixels an
+#: output pixel): MUFU: an ex2 and a rcp for each of the 1.41 + 1 + 0.25
+#: GELUs; tensor-core work: the three split products of each 1x1 conv,
+#: counted as bf16 flops an (output pixel, expanded channel): 2 C for the
+#: project, 2 C x 1.5 (three 64-row m-tiles) for the expand.
+K10_F32_PER_EXPANDED = {"mufu": 2 * (180 / 128 + 1 + 0.25)}
+F32_SPLIT_PRODUCTS = 3
 
 
-def _mbconv_inputs(B, Hm, Wm, C, E, gen):
+def _mbconv_inputs(B, Hm, Wm, C, E, gen, dtype=torch.bfloat16):
     from geoguessr_ai_torch.ops.mbconv import fold_bn
 
     def randn(*shape, std=1.0, mean=0.0):
@@ -75,7 +87,7 @@ def _mbconv_inputs(B, Hm, Wm, C, E, gen):
         return fold_bn(randn(n, std=0.1, mean=1.0), randn(n, std=0.1),
                        randn(n, std=0.1), randn(n, std=0.1, mean=1.0).abs())
 
-    bf = torch.bfloat16
+    bf = dtype
     return (randn(B, Hm, Wm, C).to(bf), randn(E, C, std=C ** -0.5).to(bf).t(),
             *folded(E), randn(3, 3, E, std=1 / 3).to(bf), *folded(E),
             randn(C, E, std=E ** -0.5).to(bf).t(), *folded(C))
@@ -89,15 +101,21 @@ def _clock():
     return mhz, torch.cuda.get_device_properties(0).multi_processor_count
 
 
-def k10_floors(images, E=384, Hm=128, Wm=128):
+def k10_floors(images, E=384, Hm=128, Wm=128, C=96, f32=False):
     """ms of each pipe's work for K10 at its instruction counts: MUFU at 16
-    a clock an SM, FP32 at 128, shared memory at one wavefront a clock."""
+    a clock an SM, FP32 at 128, shared memory at one wavefront a clock; in
+    f32 also the split products at the bf16 tensor-core peak (989 TFLOP/s
+    at 700 W)."""
     mhz, sms = _clock()
     per_s = sms * mhz * 1e6
     n = images * Hm * Wm * E
     rate = {"mufu": 16, "fp32": 128, "smem_wavefronts": 1}
-    return {k: n * v / (rate[k] * per_s) * 1e3
-            for k, v in K10_PER_EXPANDED.items()}, mhz
+    counts = K10_F32_PER_EXPANDED if f32 else K10_PER_EXPANDED
+    out = {k: n * v / (rate[k] * per_s) * 1e3 for k, v in counts.items()}
+    if f32:
+        flops = F32_SPLIT_PRODUCTS * n * (2 * C * 1.5 + 2 * C)
+        out["split_products"] = flops / 989e12 * 1e3
+    return out, mhz
 
 
 def _rel(a, want):
@@ -105,10 +123,12 @@ def _rel(a, want):
                  / want.float().abs().max())
 
 
-def check_k10(gen):
+def check_k10(gen, dtype=torch.bfloat16):
     ok = True
+    f32 = dtype == torch.float32
+    tol = TOL_F32 if f32 else TOL
     for B, Hm, Wm, C, E, exact, timed in K10_CASES:
-        args = _mbconv_inputs(B, Hm, Wm, C, E, gen)
+        args = _mbconv_inputs(B, Hm, Wm, C, E, gen, dtype)
         fn = lambda: mbconv._mbconv_cuda(*args, exact)  # noqa: E731
         a, b = fn(), fn()
         torch.cuda.synchronize()
@@ -116,17 +136,17 @@ def check_k10(gen):
                           for i in range(0, B, 64)])
         err, stable = _rel(a, want), torch.equal(a, b)
         finite = bool(torch.isfinite(a).all())
-        line = (f"K10 B={B} map={Hm}x{Wm} C={C} E={E} exact={exact} rel {err:.3g} "
-                f"stable {stable} finite {finite}")
+        line = (f"K10{' f32' if f32 else ''} B={B} map={Hm}x{Wm} C={C} E={E} "
+                f"exact={exact} rel {err:.3g} stable {stable} finite {finite}")
         if timed:
             ms = cs.cuda_time_ms(fn)
-            bound, by = cs._mbconv_bound_ms(B)
-            floors, mhz = k10_floors(B, E, Hm, Wm)
+            bound, by = cs._mbconv_bound_ms(B, 4 if f32 else 2)
+            floors, mhz = k10_floors(B, E, Hm, Wm, C, f32)
             line += (f" ms {ms:.4f} bound_ms {bound:.4f} ({by})\n  floors K10 "
                      f"B={B} at {mhz:.0f} MHz: " + ", ".join(
                          f"{k} {v:.4f} ms" for k, v in floors.items()))
         print(line, flush=True)
-        ok = ok and err <= TOL and stable and finite
+        ok = ok and err <= tol and stable and finite
         del a, b, want, args
         torch.cuda.empty_cache()
     return ok
@@ -190,7 +210,8 @@ def main():
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip())
-    libs = ("mbconv", "fb_s2")
+    f32 = "--f32" in sys.argv
+    libs = ("mbconv",) if f32 else ("mbconv", "fb_s2")
     try:
         print(f"build {_build.build(libs):.1f} s")
     except RuntimeError as e:
@@ -198,12 +219,15 @@ def main():
         sys.exit(1)
     for lib in libs:
         for line in _build.build_log(lib).splitlines():
-            if any(w in line for w in ("registers", "spill", "C75", "arning",
-                                       "rror")):
+            if any(w in line for w in ("Function properties", "registers",
+                                       "spill", "C75", "arning", "rror")):
                 print("ptxas", lib, line.strip())
     gen = torch.Generator().manual_seed(0)
-    ok = check_k2(gen)
-    ok = check_k10(gen) and ok
+    if f32:
+        ok = check_k10(gen, torch.float32)
+    else:
+        ok = check_k2(gen)
+        ok = check_k10(gen) and ok
     if "--sass" in sys.argv:
         sass_counts()
     print("ALL OK" if ok else "FAILED")

@@ -10,7 +10,10 @@ images of TinyViT-21M's stage 0 (events over 10 calls).  The ablations
 what that piece costs.  The alternative designs must give the kernel's
 bits, and the script checks that they do.
 
-    python3 scripts/mbconv_fbs2_variants.py
+    python3 scripts/mbconv_fbs2_variants.py [--f32]
+
+``--f32`` runs the ablations of the kernel's f32 kind (``F32_VARIANTS``,
+K10's f32 entry on f32 inputs) instead.
 """
 
 import ctypes
@@ -111,11 +114,46 @@ VARIANTS = {
 }
 
 
-def build_variants(out_dir):
+#: The f32 kind's ablations (each gives wrong results and says only what
+#: its piece costs): the GELUs' two MUFU operations, the depthwise FMAs
+#: (with the h loads only they feed), the expand's and the project's split
+#: products on the tensor cores, the producer warps' in-place halo split,
+#: BN and GELU of the expand's and of the depthwise's outputs.
+F32_VARIANTS = {
+    "f32_no_mufu": ([('asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(e) : "f"(t));', "e = t;"),
+                     ('asm("rcp.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(1.f + e));',
+                      "r = 1.f + e;")], False),
+    "f32_no_depthwise_fma": ([("""            s0 = fmaf(v.x, tap[di * 3 + dj].x, s0);
+            s1 = fmaf(v.y, tap[di * 3 + dj].y, s1);""",
+                               """            if (di == 1 && dj == 1) {
+              s0 = v.x * tap[4].x;
+              s1 = v.y * tap[4].y;
+            }""")], False),
+    "f32_no_expand_wgmma": ([("""    wgmma_m64n32k16_ss(d, al, bh);
+    wgmma_m64n32k16_ss(d, ah, bl);
+    wgmma_m64n32k16_ss(d, ah, bh);""",
+                              "    d[ks % 16] += __uint_as_float((uint32_t)(ah ^ bl ^ al));")], False),
+    "f32_no_project_wgmma": ([("""          wgmma_rs_k<C>(acc[mt], pal[ks][mt], w3h + 2 * ks);
+          wgmma_rs_k<C>(acc[mt], pah[ks][mt], w3l + 2 * ks);
+          wgmma_rs_k<C>(acc[mt], pah[ks][mt], w3h + 2 * ks);""",
+                               "          acc[mt][ks] += __uint_as_float(pah[ks][mt][0] ^ pal[ks][mt][3]);")],
+                             False),
+    "f32_no_halo_split": ([("        split_halo<C>(gbase, threadIdx.x - kConsumers - 64);\n", "")], False),
+    "f32_no_expand_bn_gelu": ([("""        v = make_float2(gelu_f32<EXACT>(fmaf(d[4 * t + 2 * j], s.x, b.x)),
+                        gelu_f32<EXACT>(fmaf(d[4 * t + 2 * j + 1], s.y, b.y)));""",
+                                "        v = make_float2(d[4 * t + 2 * j] * s.x, d[4 * t + 2 * j + 1] + b.y);")],
+                              False),
+    "f32_no_depthwise_bn_gelu": ([(
+        "const Frag<float> f = split_pair(gelu_f32<EXACT>(fmaf(s0, s.x, b.x)), gelu_f32<EXACT>(fmaf(s1, s.y, b.y)));",
+        "const Frag<float> f = split_pair(s0 * s.x, s1 + b.y);")], False),
+}
+
+
+def build_variants(out_dir, variants=VARIANTS):
     """Every variant's library, built at once; returns {name: (path, the
     ptxas lines that report spills)}."""
     procs = {}
-    for name, (edits, _) in VARIANTS.items():
+    for name, (edits, _) in variants.items():
         src = os.path.join(out_dir, name)
         shutil.rmtree(src, ignore_errors=True)
         shutil.copytree(_build.CSRC, src)
@@ -163,9 +201,11 @@ def main():
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip())
-    built = build_variants(os.path.join(ROOT, "build", "variants"))
+    f32 = "--f32" in sys.argv
+    variants = F32_VARIANTS if f32 else VARIANTS
+    built = build_variants(os.path.join(ROOT, "build", "variants"), variants)
     gen = torch.Generator().manual_seed(0)
-    args = cs._mbconv_inputs(512, gen)
+    args = cs._mbconv_inputs(512, gen, torch.float32 if f32 else torch.bfloat16)
     small = (args[0][:64], *args[1:])
     want = mbconv._mbconv_cuda(*args, False)
     ok = True
@@ -176,8 +216,9 @@ def main():
         ms = cs.cuda_time_ms(lambda: mbconv._mbconv_cuda(*args, False))
         ms64 = cs.cuda_time_ms(lambda: mbconv._mbconv_cuda(*small, False))
         same = torch.equal(got, want)
-        must = name == "kernel" or VARIANTS[name][1]
-        print(f"K10 variant {name}: 512 images {ms:.4f} ms, 64 images {ms64:.4f} ms, "
+        must = name == "kernel" or variants[name][1]
+        print(f"K10{' f32' if f32 else ''} variant {name}: 512 images {ms:.4f} ms, "
+              f"64 images {ms64:.4f} ms, "
               f"bits {'equal' if same else 'differ'}{' (must be equal)' if must else ''}"
               + (f"; {'; '.join(spills)}" if spills else ""), flush=True)
         ok = ok and (same or not must)

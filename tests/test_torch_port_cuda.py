@@ -425,20 +425,25 @@ MBCONV_SHAPES = [(2, 128, 128, 96, 384), (3, 20, 24, 32, 128)]
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
 @pytest.mark.parametrize("exact", [False, True])
 @pytest.mark.parametrize("B,H,W,C,E", MBCONV_SHAPES)
-def test_cuda_mbconv_matches_plain(cuda_device, B, H, W, C, E, exact):
+def test_cuda_mbconv_matches_plain(cuda_device, B, H, W, C, E, exact, dtype):
+    """K10 in bf16 (the kernel's bf16 kind) within KERNEL_REL_TOL and in
+    f32 (its f32 kind) within F32_REL_TOL of ``_mbconv_plain``."""
     from geoguessr_ai_torch.ops import mbconv
 
-    args = _mbconv_args(B, H, W, C, E, cuda_device)
+    args = _mbconv_args(B, H, W, C, E, cuda_device, dtype=dtype)
     before = mbconv.LAUNCHES["_mbconv_cuda"]
     got = mbconv._mbconv_cuda(*args, exact)
     torch.cuda.synchronize()
     assert mbconv.LAUNCHES["_mbconv_cuda"] == before + 1
     want = mbconv._mbconv_plain(*args, exact)
     assert got.shape == want.shape == (B, H, W, C)
-    assert got.dtype == torch.bfloat16 and bool(torch.isfinite(got).all())
-    assert _rel_err(got, want) < KERNEL_REL_TOL
+    assert got.dtype == dtype and bool(torch.isfinite(got).all())
+    tol = F32_REL_TOL if dtype == torch.float32 else KERNEL_REL_TOL
+    assert _rel_err(got, want) < tol
 
 
 @pytest.mark.cuda
@@ -1455,25 +1460,27 @@ def test_cuda_smem_probe_needs_the_opt_in(cuda_device):
         sp.smem_probe(x, None)  # None sets the opt-in back first
 
 
-#: (B, H, W, C, E) of K10's bf16 Hopper kernel: stage 0 of TinyViT-21M-512,
+#: (B, H, W, C, E) of K10's Hopper kernel: stage 0 of TinyViT-21M-512,
 #: the other channel counts, and maps whose sides are no multiple of its
-#: 16 x 16 tile (one smaller than a tile).
+#: 16 x 16 tile (one smaller than a tile) or of the f32 kind's 8 x 16.
 MBCONV_SM90_SHAPES = [(2, 128, 128, 96, 384), (3, 128, 128, 64, 256),
                       (3, 128, 128, 32, 128), (2, 7, 9, 96, 384),
                       (2, 17, 33, 32, 192), (1, 112, 112, 64, 256)]
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
 @pytest.mark.parametrize("exact", [False, True])
 @pytest.mark.parametrize("B,H,W,C,E", MBCONV_SM90_SHAPES)
 def test_cuda_mbconv_sm90_matches_plain_and_writes_every_element(
-        cuda_device, monkeypatch, B, H, W, C, E, exact):
-    """K10's bf16 entry (mbconv_sm90.cuh): the output in a NaN-fenced
-    buffer, one launch a call, two calls bitwise equal, within
-    KERNEL_REL_TOL of ``_mbconv_plain``."""
+        cuda_device, monkeypatch, B, H, W, C, E, exact, dtype):
+    """K10's entries (mbconv_sm90.cuh: the bf16 kind, the f32 kind): the
+    output in a NaN-fenced buffer, one launch a call, two calls bitwise
+    equal, within KERNEL_REL_TOL (f32: F32_REL_TOL) of ``_mbconv_plain``."""
     from geoguessr_ai_torch.ops import mbconv
 
-    args = _mbconv_args(B, H, W, C, E, cuda_device, seed=C + E)
+    args = _mbconv_args(B, H, W, C, E, cuda_device, seed=C + E, dtype=dtype)
     before = mbconv.LAUNCHES["_mbconv_cuda"]
     made = _nan_fenced_buffers(monkeypatch)
     got = mbconv._mbconv_cuda(*args, exact)
@@ -1485,8 +1492,9 @@ def test_cuda_mbconv_sm90_matches_plain_and_writes_every_element(
     assert mbconv.LAUNCHES["_mbconv_cuda"] == before + 2
     assert torch.equal(got, again)
     want = mbconv._mbconv_plain(*args, exact)
-    assert got.shape == want.shape == (B, H, W, C)
-    assert _rel_err(got, want) < KERNEL_REL_TOL
+    assert got.shape == want.shape == (B, H, W, C) and got.dtype == dtype
+    tol = F32_REL_TOL if dtype == torch.float32 else KERNEL_REL_TOL
+    assert _rel_err(got, want) < tol
 
 
 #: (W, N, C, H) of K2's bf16 entry: stage 2 of a serving bucket of 16, head

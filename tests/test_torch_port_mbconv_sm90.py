@@ -7,7 +7,11 @@ against the plain version and the JAX kernel in interpret mode.
 In bf16 ``_mbconv_cuda`` (K10) launches a kernel of persistent blocks over
 16 x 16 output tiles whose two consumer warpgroups each take 8 rows, and
 ``_fb_s2_cuda`` (K2) runs the LayerNorm + GEMM core and then the forward
-core as K3 does.  The f32 twins keep the first designs.  The experimental
+core as K3 does.  K10's f32 twin runs the same kernel's f32 kind (8 x 16
+tiles, the two groups splitting each E-chunk's channels, split products):
+its layout, schedule, routing and a torch emulation of its rounding
+against the plain f32 version and the JAX kernel in interpret mode are
+here too.  K2's f32 twin keeps the first design.  The experimental
 K12a / K12b run K10's kernel in its PLAIN kind (plain biases, f32 taps,
 only GELU's outputs rounded): their routing, their shape checks and a
 torch emulation of that rounding order against the plain version and the
@@ -122,6 +126,84 @@ def test_k10_schedule_covers_every_output_pixel_once(B, H, W):
     assert 3 * 64 >= (_int(MB90, "kGroupRows") + 2) * 18
 
 
+def _mb_layout_f32(C):
+    """A mirror of ``mbconv_sm90.cuh``'s LayoutF32<C>: the f32 halo in
+    32-channel boxes of kF32HaloRows rows, the ring's bf16 tiles (w1 hi and
+    lo, w3 hi and lo) and f32 rows (taps, BN pairs) of each E-chunk, the
+    two groups' 32-channel chunks and the mbarriers, from a 1024-aligned
+    base (the halo's full, empty and split barriers, the ring's)."""
+    ec, max_slots = _int(MB90, "kEc"), _int(MB90, "kMaxSlots")
+    box_c, rows = _int(MB90, "kF32Box"), _int(MB90, "kF32HaloRows")
+    halo_px = (_int(MB90, "kF32Rows") + 2) * (_int(MB90, "kTile") + 2)
+    box = rows * box_c * 4
+    halo = C // box_c * box
+    tiles = 2 * ec * 2 * C + 2 * C * 128
+    slot_tx = tiles + 9 * ec * 4 + 2 * 2 * ec * 4
+    hbuf = halo_px * _int(MB90, "kF32HPitch") * 4
+    fixed = halo + 2 * hbuf
+    S = min((_int(MB90, "kSmemMax") - 1024 - fixed - 8 * (3 + 2 * max_slots))
+            // slot_tx, max_slots)
+    return dict(S=S, box=box, tiles=tiles, slot_tx=slot_tx, hbuf=hbuf,
+                halo_px=halo_px, halo_rows=rows,
+                bytes=1024 + fixed + S * slot_tx + 8 * (3 + 2 * S))
+
+
+@pytest.mark.parametrize("C", [32, 64, 96])
+def test_k10_f32_kind_shared_memory_fits_at_every_channel_count(C):
+    """LayoutF32<C> fits the 232,448 bytes a block may opt in to with a
+    ring of at least two E-chunks (two at TinyViT's C = 96, where the f32
+    halo of the bf16 kind's 16 x 16 tile and its two f32 chunks alone would
+    take 226,944); the TMA destinations with a swizzle (the halo's boxes
+    and each slot's bf16 tiles) are 1024-aligned; three 64-row m-tiles
+    cover the 10 x 18 halo; a group's chunk buffer holds the m-tile of
+    project sums it hands to the other group."""
+    lay = _mb_layout_f32(C)
+    assert lay["bytes"] <= SMEM_MAX
+    assert lay["S"] >= 2 and {32: 7, 64: 3, 96: 2}[C] == lay["S"]
+    assert lay["box"] % 1024 == 0 and lay["tiles"] % 1024 == 0
+    assert lay["slot_tx"] % 16 == 0 and lay["hbuf"] % 16 == 0
+    assert lay["halo_rows"] == 3 * 64 >= lay["halo_px"] == 180
+    assert (C // 2) * 128 * 4 <= lay["hbuf"]
+    if C == 96:  # the bf16 kind's tile in f32 (336 halo rows, two chunks
+        # of pitch 68) would leave no room for a ring of two
+        assert 1024 + 336 * 4 * C + 2 * 180 * 68 * 4 + 2 * lay["slot_tx"] \
+            > SMEM_MAX
+
+
+@pytest.mark.parametrize("B,H,W", [(1, 128, 128), (2, 7, 9), (1, 17, 33)])
+def test_k10_f32_schedule_covers_every_output_and_channel_once(B, H, W):
+    """The f32 kind's tiles are 8 rows of 16 columns, image-major, the
+    column tile fastest.  Group c expands, convolves and projects channels
+    [32 c, 32 c + 32) of each 64-channel E-chunk for the tile's 128 pixels
+    (each group's m-tile rows cover the 180 halo pixels once); thread
+    (warp w, lane 4 g + cc) of group c finishes pixels (2 w + c, 2 g + j),
+    row 16 w + g + 8 j of m-tile c.  Over every tile of a ragged map each
+    (pixel, expanded channel) is summed by one group for each chunk and
+    each pixel is written once; each thread's 4 x 4 neighbourhood of the
+    chunk lies inside the 10 x 18 halo."""
+    rows, tile = _int(MB90, "kF32Rows"), _int(MB90, "kTile")
+    ec, half = _int(MB90, "kEc"), _int(MB90, "kEc") // 2
+    ty, tx = -(-H // rows), -(-W // tile)
+    halo_rows = [64 * mi + 16 * w + g + 8 * j for mi in range(3)
+                 for w in range(4) for g in range(8) for j in range(2)]
+    assert sorted(r for r in halo_rows if r < 180) == list(range(180))
+    assert sorted(half * c + ch for c in range(2) for ch in range(half)) \
+        == list(range(ec))
+    seen = np.zeros((B, H, W), np.int64)
+    for t in range(B * ty * tx):
+        x0, rest = (t % tx) * tile, t // tx
+        y0, b = (rest % ty) * rows, rest // ty
+        for c in range(2):
+            for w in range(4):
+                for g in range(8):
+                    assert 2 * w + 3 < rows + 2 and 2 * g + 3 < tile + 2
+                    for j in range(2):
+                        py, px = y0 + 2 * w + c, x0 + 2 * g + j
+                        if py < H and px < W:
+                            seen[b, py, px] += 1
+    assert (seen == 1).all()
+
+
 def _fake_card(monkeypatch, module):
     """The wrappers run here up to their launch: ``_check`` keeps its
     dtype, shape, contiguity and alignment rules but not the device one,
@@ -158,16 +240,24 @@ def _c_body(lib, entry):
                          ids=["bf16", "f32"])
 def test_k10_routes_bf16_to_the_hopper_kernel_and_f32_to_the_twin(
         monkeypatch, dtype):
-    """A bf16 call reaches ``mbconv_bf16``, whose body runs mb90::run for
-    each channel count; an f32 call the twin, whose body runs the first
-    design (mb::run).  One K10 launch either way; the arguments after the
-    pointers are (B, H, W, C, E, exact, stream)."""
+    """A bf16 call reaches ``mbconv_bf16``, whose body runs mb90::run (the
+    bf16 kind) for each channel count; an f32 call the twin, whose body
+    runs mb90::run_f32 (the f32 kind) for each, with w1 and w3 handed over
+    as their stacked (hi, lo) bf16 pairs (hi + lo is the f32 weight to
+    2^-16 of its size).  One K10 launch either way; the arguments after
+    the pointers are (B, H, W, C, E, exact, stream)."""
     calls = _fake_card(monkeypatch, tmb)
+    checked = {}
+    host_check = tmb._check
+    monkeypatch.setattr(tmb, "_check", lambda name, t, *a: checked.setdefault(
+        name, host_check(name, t, *a)))
     B, H, W, C, E = 2, 20, 24, 32, 128
+    gen = torch.Generator().manual_seed(2)
     x = torch.zeros(B, H, W, C, dtype=dtype)
-    args = (x, torch.zeros(C, E), torch.ones(E), torch.zeros(E),
+    w1, w3 = torch.randn(C, E, generator=gen), torch.randn(E, C, generator=gen)
+    args = (x, w1, torch.ones(E), torch.zeros(E),
             torch.zeros(3, 3, E), torch.ones(E), torch.zeros(E),
-            torch.zeros(E, C), torch.ones(C), torch.zeros(C))
+            w3, torch.ones(C), torch.zeros(C))
     tmb.reset_launches()
     out = tmb._mbconv_cuda(*args, False)
     assert out.shape == x.shape and out.dtype == dtype
@@ -177,11 +267,20 @@ def test_k10_routes_bf16_to_the_hopper_kernel_and_f32_to_the_twin(
     assert (lib, entry) == ("mbconv", f"mbconv_{suffix}")
     assert tail == (B, H, W, C, E, 0, 0)
     body = _c_body(lib, entry)
+    assert "gg::mb::" not in body
     if suffix == "bf16":
         assert all(f"gg::mb90::run<{c}>(" in body for c in (32, 64, 96))
-        assert "gg::mb::" not in body
+        assert "run_f32" not in body
+        assert torch.equal(checked["w1"], w1.t().to(dtype))
     else:
-        assert "gg::mb::run<float>(" in body and "mb90" not in body
+        assert all(f"gg::mb90::run_f32<{c}>(" in body for c in (32, 64, 96))
+        for name, w in (("w1", w1.t()), ("w3", w3.t())):
+            pair = checked[name]
+            assert pair.dtype == torch.bfloat16
+            assert tuple(pair.shape) == (2, *w.shape)
+            assert torch.equal(pair[0], w.to(torch.bfloat16))
+            err = (pair[0].float() + pair[1].float() - w).abs().max()
+            assert float(err) <= 2 ** -16 * float(w.abs().max())
 
 
 def _entry_body(src, entry):
@@ -196,8 +295,9 @@ def test_k12_entries_run_the_plain_kind_of_the_hopper_kernel():
     """K12a and K12b include K10's Hopper kernel and not the first design;
     their two entries differ only in the grid (K12a a block a tile, K12b
     persistent blocks), each channel count running the PLAIN kind with the
-    tanh GELU; the first design's header has no K12 path left and its
-    pipelined kernel is gone."""
+    tanh GELU; the first design (``mbconv.cuh``, its pipelined kernel and
+    ``gg::mb::``) is gone, and K10's library includes only the Hopper
+    kernel's header."""
     exp = (_build.CSRC / "fused_mbconv_exp.cu").read_text()
     assert '#include "mbconv_sm90.cuh"' in exp
     assert '#include "mbconv.cuh"' not in exp
@@ -209,15 +309,17 @@ def test_k12_entries_run_the_plain_kind_of_the_hopper_kernel():
     for c in (32, 64, 96):
         assert re.search(r"gg::mb90::run<%d, true>\(.*?, false,\s+s, one_tile_a_block\)" % c,
                          exp, re.S), c
-    old = (_build.CSRC / "mbconv.cuh").read_text()
-    assert "PLAIN" not in old and "round_unless" not in old
-    assert not any("mbconv_pipelined_kernel" in f.read_text()
-                   for f in _build.CSRC.iterdir())
+    assert not (_build.CSRC / "mbconv.cuh").exists()
+    for f in _build.CSRC.iterdir():
+        text = f.read_text()
+        for gone in ("mbconv_pipelined_kernel", "gg::mb::", "namespace mb {",
+                     "mbconv_kernel<"):
+            assert gone not in text, (f.name, gone)
     mb90 = MB90.read_text()
     assert "template <int C, bool EXACT, bool PLAIN>\n__global__" in mb90
     assert "return launch<C, false, true>(" in mb90
     k10 = (_build.CSRC / "mbconv.cu").read_text()
-    assert '#include "mbconv.cuh"' in k10 and '#include "mbconv_sm90.cuh"' in k10
+    assert re.findall(r'#include "([^"]+)"', k10) == ["mbconv_sm90.cuh"]
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
@@ -436,6 +538,90 @@ def test_k10_gelu_form_is_torchs_tanh_gelu():
     assert float((_gelu_kernel(x, True) - want).abs().max()) < 1e-5
 
 
+def _split(t):
+    hi = _bf(t)
+    return hi, _bf(t - hi)
+
+
+def _split_mm(a, b):
+    """a @ b on bf16 (hi, lo) splits of both, lo.hi + hi.lo + hi.hi summed
+    in f32: the f32 kind's products."""
+    (ah, al), (bh, bl) = _split(a), _split(b)
+    return al @ bh + ah @ bl + ah @ bh
+
+
+def _gelu_f32_kernel(x, exact):
+    """The f32 kind's GELU: x / (1 + 2^t), t = x (k0 + k1 x^2) with the
+    header's constants (ex2.approx and rcp.approx on the card), or erf."""
+    if exact:
+        return 0.5 * x * (1 + torch.erf(x * 0.7071067811865476))
+    body = MB90.read_text().split("float gelu_f32(float x)", 1)[1]
+    m = re.search(r"fmaf\((-?[\d.]+)f, x \* x, (-?[\d.]+)f\)", body)
+    k1, k0 = float(m.group(1)), float(m.group(2))
+    return x / (1 + torch.exp2(x * (k1 * x * x + k0)))
+
+
+def _emulate_k10_f32(x, w1, s1, b1, w2, s2, b2, w3, s3, b3, exact):
+    """The f32 kind's arithmetic: split products summed in f32, BN1 and
+    GELU unrounded, zero where the halo pixel is padding, the depthwise
+    MACs in f32 over the f32 taps in (di, dj) order, BN2, GELU, the split
+    project, BN3, the residual and the last GELU, nothing rounded."""
+    B, H, W, C = x.shape
+    E = w1.shape[1]
+    h = _gelu_f32_kernel(_split_mm(x, w1) * s1 + b1, exact)
+    hp = torch.nn.functional.pad(h, (0, 0, 1, 1, 1, 1))
+    taps = w2.reshape(9, E)
+    acc = torch.zeros(B, H, W, E)
+    for di in range(3):
+        for dj in range(3):
+            acc = acc + hp[:, di:di + H, dj:dj + W] * taps[3 * di + dj]
+    y = _gelu_f32_kernel(acc * s2 + b2, exact)
+    return _gelu_f32_kernel(x + (_split_mm(y, w3) * s3 + b3), exact)
+
+
+#: f32 kernel vs its plain f32 version, as the card tests and chip_smoke.py
+#: hold the f32 entries (the split products' 2^-17 a product and f32 sums
+#: in another order).
+F32_REL_TOL = 1e-3
+
+
+@pytest.mark.parametrize("exact", [False, True])
+def test_k10_f32_emulation_matches_plain_and_the_jax_kernel(exact):
+    """On one seeded f32 input (a 12 x 10 map: a ragged edge against the 8
+    x 16 tile, C = 32, E = 64) the emulation of the f32 kind's arithmetic
+    with its GELU form against ``_mbconv_plain`` in f32 and the JAX
+    ``_mbconv_xla`` and ``_mbconv_pallas`` (interpret mode) on f32 inputs,
+    within F32_REL_TOL; its GELU is torch's to 1e-6 of the output's
+    size."""
+    x, w1, w2, w3, bns = _k10_case(6)
+    tfold = [tmb.fold_bn(*map(torch.from_numpy, bn)) for bn in bns]
+    targs = (torch.from_numpy(x), torch.from_numpy(w1), *tfold[0],
+             torch.from_numpy(w2), *tfold[1], torch.from_numpy(w3), *tfold[2])
+    got = _emulate_k10_f32(*targs, exact)
+    plain = tmb._mbconv_plain(*targs, exact)
+    jfold = [jmb.fold_bn(*map(jnp.asarray, bn)) for bn in bns]
+    jargs = (jnp.asarray(x), jnp.asarray(w1), *jfold[0], jnp.asarray(w2),
+             *jfold[1], jnp.asarray(w3), *jfold[2])
+    wants = [np.asarray(jmb._mbconv_xla(*jargs, exact=exact)),
+             np.asarray(jmb._mbconv_pallas(*jargs, exact=exact,
+                                           interpret=True))]
+
+    def rel(a, b):
+        a, b = np.asarray(a, np.float32), np.asarray(b, np.float32)
+        return float(np.abs(a - b).max() / np.abs(b).max())
+
+    assert got.dtype == plain.dtype == torch.float32
+    assert got.shape == plain.shape == x.shape
+    assert rel(got, plain) < F32_REL_TOL
+    for want in wants:
+        assert want.dtype == np.float32 and want.shape == x.shape
+        assert rel(got, want) < F32_REL_TOL
+        assert rel(plain, want) < F32_REL_TOL
+    z = torch.linspace(-8, 8, 4001)
+    ref = torch.nn.functional.gelu(z, approximate="none" if exact else "tanh")
+    assert float((_gelu_f32_kernel(z, exact) - ref).abs().max()) < 1e-6 * 8
+
+
 @pytest.mark.parametrize("kernel_name,group", [
     ("void gg::lng90::(anonymous namespace)::ln_gemm_sm90<6, 0, false>("
      "CUtensorMap, CUtensorMap, CUtensorMap, float const*, float const*, "
@@ -460,12 +646,18 @@ def test_k10_gelu_form_is_torchs_tanh_gelu():
      "CUtensorMap, CUtensorMap, CUtensorMap, __nv_bfloat16 const*, float "
      "const*, __nv_bfloat16*, gg::mb90::(anonymous namespace)::Tiles, int, "
      "int)", "fused MBConv (K10 CUDA)"),
+    # K10's f32 kind
+    ("void gg::mb90::(anonymous namespace)::mbconv_f32_sm90<96, false>("
+     "CUtensorMap, CUtensorMap, CUtensorMap, CUtensorMap, CUtensorMap, "
+     "CUtensorMap, CUtensorMap, float const*, float const*, float*, "
+     "gg::mb90::(anonymous namespace)::Tiles, int, int)",
+     "fused MBConv (f32 K10 CUDA)"),
 ])
 def test_profile_groups_name_the_new_kernels(kernel_name, group):
     """``profile_forward`` puts the GEMM core (both kinds: K1's and K9's qkv
-    GEMM and out-projection, K2's qkv GEMM) and K10's Hopper kernel in
-    their layers (not cuBLAS's GEMM group, which "gemm" would match), and
-    the first design's GEMM in the f32 twins' layer."""
+    GEMM and out-projection, K2's qkv GEMM) and K10's Hopper kernel (both
+    kinds) in their layers (not cuBLAS's GEMM group, which "gemm" would
+    match), and the first design's GEMM in the f32 twins' layer."""
     from geoguessr_ai_torch import profile_forward
 
     assert profile_forward._group(kernel_name) == group
