@@ -897,7 +897,8 @@ def _launch_ms(fn, calls=3):
     events, as profile_forward reads them): the bf16 backward core's
     launches by role (``attn_bwd_sm90<HD, MODE, ...>``), the sum of the
     d_bias partials, the LayerNorm + GEMM core's by kind
-    (``ln_gemm_sm90<KB, KIND, MAP>``: the qkv GEMM or the out-projection),
+    (``ln_gemm_sm90<KB, KIND, MAP>`` and its f32 kind: the qkv GEMM or the
+    out-projection),
     the GEMM core's (``gemm_sm90<KIND, BN>``, K11's out-projection) as
     proj_gemm, the forward core's and K6's kernel as the attention, and
     any other kernel by its name;
@@ -920,12 +921,13 @@ def _launch_ms(fn, calls=3):
             key = _BWD_LAUNCH_NAMES[int(key.split("<")[1].split(",")[1])]
         elif "dbias_reduce" in key:
             key = "dbias_sum"
-        elif "ln_gemm_sm90<" in key:
+        elif "ln_gemm_sm90<" in key or "ln_gemm_f32_sm90<" in key:
             key = ("qkv_gemm", "proj_gemm")[
                 int(key.split("<")[1].split(",")[1])]
         elif "gemm_sm90<" in key:  # the GEMM core: K11's projection
             key = "proj_gemm"
-        elif "attention_fwd_sm90<" in key or "clip_flash_sm90<" in key:
+        elif ("attention_fwd_sm90<" in key or "attention_fwd_f32_sm90<" in key
+              or "clip_flash_sm90<" in key):
             key = "attention"
         else:
             key = key.split("(")[0].split("<")[0].replace("void ", "")
@@ -3094,8 +3096,8 @@ F32_NOISE_FLOOR = 1e-6
 #: gives it (serving bucket 16, the B=16 train shapes, CLIP-L bucket 16,
 #: the embed batch of 512 images), as the bf16 phases run it, K4 at the
 #: B=64 finetune's TinyViT-5M-224 shapes (FT_K4_CASES; N padded to 64
-#: inside the wrapper) and K10 also at the 64 images of a serving bucket
-#: of 16 (the f32 knobs engine's shape).
+#: inside the wrapper) and K9 and K10 also at the 64 images of a serving
+#: bucket of 16 (the f32 knobs engine's shape).
 F32_CASES = (
     ("K1", "stage1", (1024, 256, 192, 6)),
     ("K1", "embed_stage3", (64, 256, 576, 18)),
@@ -3112,6 +3114,7 @@ F32_CASES = (
     ("K8b", "stage1_bucket16", (1024, 6, 256)),
     ("K8b", "stage3_bucket16", (64, 18, 256)),
     ("K9", "embed", (EMBED_BATCH,)),
+    ("K9", "bucket16", (EMBED_KERNEL_IMAGES[0],)),
     ("K10", "embed", (EMBED_BATCH,)),
     ("K10", "bucket16", (EMBED_KERNEL_IMAGES[0],)),
     ("K6", "vit_l14_bucket16", (64, 577, 1024, 16)),
@@ -3188,10 +3191,17 @@ def _f32_case(kernel, shape, gen):
                 lambda: (_sdpa_ms(qkv, a["bias"], scale, H),
                          "scaled_dot_product_attention in f32"))
     if kernel == "K2":
+        qkv = wa._ln_qkv_plain(a["x"], a["ln_scale"], a["ln_bias"],
+                               a["w_qkv"], a["b_qkv"], 1e-5)
+        # SDPA in f32 on the same qkv: the attention alone, no one call
+        # computing the LayerNorm and the GEMM too (the yardstick)
+        sdpa = _sdpa_ms(qkv, a["bias"], scale, H)
+        del qkv
         return (kern, wa._fb_s2_plain,
                 (a["x"], a["ln_scale"], a["ln_bias"], a["w_qkv"],
                  a["b_qkv"], a["bias"], scale, H, 1e-5), bound, bound_by,
-                None)
+                lambda: (None, "[scaled_dot_product_attention in f32 on its "
+                         f"qkv, the attention alone {sdpa:.4f}]"))
     return (kern, wa._fused_block_plain,
             (a["x"], a["ln_scale"], a["ln_bias"], a["w_qkv"], a["b_qkv"],
              a["w_proj"], a["b_proj"], a["bias"], scale, H, 1e-5), bound,
@@ -3225,6 +3235,32 @@ def _f32_bwd_checks(kernel, label, shape, kern, args, got):
     return line
 
 
+def _f32_fwd_plan(kernel, shape):
+    """K2's and K9's f32 attention plan (the forward core's f32 kind) from
+    the library's plan query, failing unless it is the mirror's
+    (``_fwd_plan_f32``).  Returns a log line."""
+    import ctypes
+
+    from geoguessr_ai_torch.ops import _build
+    from geoguessr_ai_torch.ops import window_attention as wa
+
+    if kernel == "K2":
+        lib, (W, N, C, H) = "fb_s2", shape
+    else:
+        lib, N, C, H = "fb4d", STAGE1_WINDOW ** 2, STAGE1_C, STAGE1_HEADS
+        W = shape[0] * (STAGE1_MAP // STAGE1_WINDOW) ** 2
+    G = wa._headmajor_groups(W, H, N)
+    out = (ctypes.c_int * 8)()
+    err = _build.entry(lib, f"{lib}_plan_f32")(W, N, H, C // H, G, 64, out)
+    got = dict(zip(("smem", "items", "G", "NT", "NB", "QB", "S", "stream"),
+                   list(out)))
+    want = wa._fwd_plan_f32(W, H, N, G, C // H)
+    if err or any(got[k] != want[k] for k in got):
+        fail(f"{kernel} f32 at {shape}: the core's attention plan {got} "
+             f"(error {err}) is not the mirror's {want}")
+    return f"f32 attention plan (the core's, the mirror's): {got}"
+
+
 def phase_f32_kernels():
     rows = {}
     gen = torch.Generator().manual_seed(SEED + 10)
@@ -3235,14 +3271,15 @@ def phase_f32_kernels():
         torch.cuda.synchronize()
         bwd_line = (_f32_bwd_checks(kernel, label, shape, kern, args, got)
                     if kernel in ("K4", "K5", "K7") else None)
-        if kernel == "K10":
-            # the kernel's f32 kind: every output element one thread's sum
-            # in an order fixed by the shape
+        if kernel in ("K2", "K9", "K10"):
+            # the Hopper cores' f32 kinds: every output element one
+            # thread's sum in an order fixed by the shape
             stable = torch.equal(got, kern(*args))
-            log(f"K10 f32 {label}: bitwise equal over two calls {stable}")
+            log(f"{kernel} f32 {label}: bitwise equal over two calls "
+                f"{stable}")
             if not stable:
-                fail(f"K10 f32 {label}: two calls on the same inputs gave "
-                     f"different bits")
+                fail(f"{kernel} f32 {label}: two calls on the same inputs "
+                     f"gave different bits")
         want = plain(*args)
         torch.cuda.synchronize()
         pairs = zip(got, want) if isinstance(got, tuple) else [(got, want)]
@@ -3266,6 +3303,9 @@ def phase_f32_kernels():
         if bwd_line:
             log(f"  {_bwd_plan(kernel, shape[0], shape[1], shape[2], torch.float32)}")
             log(f"  {bwd_line}")
+            _log_launch_ms(_launch_ms(lambda: kern(*args)))
+        if kernel in ("K2", "K9"):
+            log(f"  {_f32_fwd_plan(kernel, shape)}")
             _log_launch_ms(_launch_ms(lambda: kern(*args)))
         log(f"  kernel_ms {ms:.4f}, plain_ms {plain_ms:.4f}, library_ms "
             f"{'null' if lib_ms is None else f'{lib_ms:.4f}'}"

@@ -61,8 +61,9 @@ def _tiled_bwd(name: str, argtypes: tuple) -> Dict[str, tuple]:
 SIGNATURES: Dict[str, Dict[str, tuple]] = {
     "attention_qkv": _tiled("attention_qkv", "q128", (
         _P, _P, _P, _I, _I, _I, _I, _I, _F, _P)),
-    "fb_s2": _tiled("fb_s2", "q128", (
+    "fb_s2": {**_tiled("fb_s2", "q128", (
         _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _P)),
+        "fb_s2_plan_f32": _PLAN},
     "fused_block": _tiled("fused_block", "q128", (
         _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
         _I, _I, _I, _I, _I, _I, _F, _F, _P)),
@@ -78,9 +79,10 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
         **_tiled("attention_batched", "q128", (
             _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P)),
     },
-    "fb4d": _tiled("fb4d", "q128", (
+    "fb4d": {**_tiled("fb4d", "q128", (
         _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
         _I, _I, _I, _I, _I, _I, _I, _I, _F, _F, _P)),
+        "fb4d_plan_f32": _PLAN},
     "mbconv": _twins("mbconv", (
         _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P)),
     "fused_mbconv_exp": {

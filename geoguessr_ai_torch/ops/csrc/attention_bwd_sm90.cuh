@@ -874,19 +874,6 @@ __device__ __forceinline__ void row_frags(uint32_t (&hi)[HD / 16][4], uint32_t (
   }
 }
 
-// A 64 x 64 f32 accumulator split as the A fragments of the 4 k-steps of a
-// product over its 64 columns (pack_a's layout).
-__device__ __forceinline__ void split_a(const float (&x)[32], uint32_t (&hi)[4][4], uint32_t (&lo)[4][4]) {
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const Frag<float> f = split_pair(x[8 * kk + 2 * i], x[8 * kk + 2 * i + 1]);
-      hi[kk][i] = f.hi;
-      lo[kk][i] = f.lo;
-    }
-}
-
 // d (64 x 64) += A . B^T over HD dims, A split in registers, B the hi tile
 // at b_hi and its lo tile kHalf after it (K-major): lo.hi + hi.lo + hi.hi
 // each k-step.
@@ -901,17 +888,6 @@ __device__ __forceinline__ void split_scores(float (&d)[32], const uint32_t (&ah
     wgmma_m64n64k16_rs<0>(d, ah[kk], bl);
     wgmma_m64n64k16_rs<0>(d, ah[kk], bh);
   }
-}
-
-// d (64 x HD) += A . B over the 64 rows of a column tile, A split in
-// registers, B's hi tile at b_hi and lo tile kHalf after it (MN-major).
-template <int HD>
-__device__ __forceinline__ void split_k64(float (&d)[HD / 2], const uint32_t (&ah)[4][4],
-                                          const uint32_t (&al)[4][4], uint32_t b_hi) {
-  constexpr uint32_t kHalf = kCols * HD * 2;
-  wgmma_k64_rs<HD>(d, al, desc<HD>(b_hi));
-  wgmma_k64_rs<HD>(d, ah, desc<HD>(b_hi + kHalf));
-  wgmma_k64_rs<HD>(d, ah, desc<HD>(b_hi));
 }
 
 // The bias at the thread's accumulator elements of dkdv's transposed tile

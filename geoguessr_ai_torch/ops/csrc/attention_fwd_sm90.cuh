@@ -4,7 +4,10 @@
 //     out[w, h] = softmax(q[w, h] k[w, h]^T * scale + bias[h]) v[w, h]
 //
 // over 64-row q-tiles of N = 64 C tokens, with bf16 q, k, v and out and a
-// head dim HD of 16, 32 or 64.  Two template choices make the three
+// head dim HD of 16, 32 or 64; and an f32 kind of the interleaved layout
+// with an f32 bias ("The f32 kind" below), which K2's and K9's f32 entries
+// (fb_s2.cu, fb4d.cu) run.  The bf16 kernels of K1, K2 and K9 (fused_block.cu,
+// fb_s2.cu, fb4d.cu) are K3's.  Two template choices make the three bf16
 // kernels:
 //
 //   LAYOUT  kHeadMajor: q, k, v and out (W, H, N, HD), read through one
@@ -320,10 +323,18 @@ struct Loader {
   }
 };
 
+// p as the A fragments of the p.v product: rounded to bf16 (pack_a), or
+// split into bf16 hi and lo (the f32 kind).
+struct SplitA {
+  uint32_t hi[4][4], lo[4][4];
+};
+__device__ __forceinline__ void emit_p(const float (&x)[32], uint32_t (&a)[4][4]) { pack_a(x, a); }
+__device__ __forceinline__ void emit_p(const float (&x)[32], SplitA& a) { split_a(x, a.hi, a.lo); }
+
 // The softmax step of one chunk on its scores s (NT 64-key tiles of a
 // consumer thread's two rows): s * scale + bias in f32, the update of the
-// running max m, sum l and output o, and p rounded to bf16 as the A
-// fragments pa of the p.v product.  bchunk holds the chunk's bias
+// running max m, sum l and output o, and p as the A fragments pa of the
+// p.v product (emit_p).  bchunk holds the chunk's bias
 // columns, a box of kCols columns each kBoxBytes; boff are this thread's
 // byte offsets in a box (row lr0; row lr0 + 8 is 1024 bytes further, in
 // the same swizzle phase).  whole: the chunk is the whole row, so p is
@@ -332,12 +343,11 @@ struct Loader {
 // Accumulator layout of a consumer thread (warp w of its group, lane =
 // 4g + c), as mma.sync's C fragment in each 8-column tile t: d[4t + 0..1]
 // = row 16w + g, columns 8t + 2c + 0..1; d[4t + 2..3] = row 16w + g + 8.
-template <int HD, int NT, class BiasT>
+template <int HD, int NT, class BiasT, class PA>
 __device__ __forceinline__ void softmax_chunk(float (&s)[NT][32], const uint8_t* bchunk,
                                               const uint32_t (&boff)[BiasBox<BiasT>::kPairs],
                                               float scale, bool whole, float (&o)[HD / 2], float& m0,
-                                              float& m1, float& l0, float& l1,
-                                              uint32_t (&pa)[NT][4][4]) {
+                                              float& m1, float& l0, float& l1, PA (&pa)[NT]) {
   using B = BiasBox<BiasT>;
   // s * scale + bias in f32, then the max over the chunk's columns (four
   // partial maxima and sums a row, so that no chain of dependent
@@ -403,7 +413,7 @@ __device__ __forceinline__ void softmax_chunk(float (&s)[NT][32], const uint8_t*
       s[j][4 * t + 2] *= il1;
       s[j][4 * t + 3] *= il1;
     }
-    pack_a(s[j], pa[j]);
+    emit_p(s[j], pa[j]);
   }
 }
 
@@ -924,6 +934,389 @@ cudaError_t plan(int W, int H, int N, int G, int hd, int bias_elem, bool may_str
   if (e != cudaSuccess) return e;
   const long items = p.items();
   const int fields[8] = {p.smem_bytes(), (int)(items < 0x7fffffffL ? items : 0x7fffffffL),
+                         p.G, p.NT, p.NB, p.QB, p.S, p.stream};
+  for (int i = 0; i < 8; ++i) out[i] = fields[i];
+  return cudaSuccess;
+}
+
+// ---------------------------------------------------------------------------
+// The f32 kind (K2's and K9's f32 entries): the interleaved layout only, an
+// f32 bias and f32 out, and qkv as the qkv GEMM's f32 kind stores it: its
+// bf16 hi and lo planes (2, W, N, 3D), hi = bf16(x), lo = bf16(x - hi) of
+// the f32 sum, never rounded further.  The f32 numerics of the first
+// design: every product sums lo.hi + hi.lo + hi.hi of its split operands in
+// f32 (three wgmma for one); the softmax is online in f32 over chunks of
+// NT = 2 key tiles (one where C is odd), p is split in registers, not
+// rounded; out is the f32 sum over l.
+//
+// With the split done once where qkv is made, this is the bf16 kind's
+// pipeline with each tile twice the bytes: q, k and v come by TMA as a hi
+// tile and its lo tile (one tensor map over both planes) in the swizzle
+// the bf16 kind's TMA writes, so the score products read q and k K-major
+// from shared memory and the p.v products read v MN-major beside p split
+// in registers (split_a, split_k64).  (Splitting f32 k and v tiles here,
+// once for every q-tile that reads them, by producer warps 2-3 cost K2's
+// attention 0.79 of 2.26 ms on an H100.)  One window at a time a consumer
+// group: two windows' scores and split p do not fit its registers.  The
+// bias (f32 boxes of 32 columns, as K8a's) is resident, the item's 64 x N
+// tile read for every window of the group, where it fits beside the rings;
+// else (N = 1024: 256 KB) streamed in chunks of 64 rows x NT key tiles,
+// items of two windows (G = ceil(W / 2)), one a consumer group, each chunk
+// read by both.
+// ---------------------------------------------------------------------------
+
+constexpr int kF32QB = 2;             // q buffers of a consumer group
+constexpr int kF32StreamWindows = 2;  // windows of a streamed item: one a consumer group
+
+// Bytes of the barriers of an f32 plan: the bias buffers' full and empty,
+// then each group's q buffers' and ring slots' full and empty.
+__host__ __device__ inline int f32_barrier_bytes(const Plan& p) { return 8 * (2 * p.NB + 4 * (p.QB + p.S)); }
+// p.tile: a q buffer or ring slot, a 64-row bf16 hi tile and its lo tile.
+inline int f32_smem_bytes(const Plan& p) {
+  return 1024 + p.NB * p.bias + 2 * (p.QB + p.S) * p.tile + f32_barrier_bytes(p);
+}
+
+// The ring slots a group gets beside nb bias buffers, at most kMaxSlots;
+// the plan holds when there are at least `need`.
+bool fit_ring_f32(Plan* p, int nb, int need) {
+  p->NB = nb;
+  p->S = kMaxSlots;
+  const int room = kSmemMax - 1024 - f32_barrier_bytes(*p) - nb * p->bias;
+  int slots = room / (2 * p->tile) - p->QB;
+  if (slots > kMaxSlots) slots = kMaxSlots;
+  if (slots < need) return false;
+  p->S = slots;
+  return true;
+}
+
+// Resident when the 64 x N f32 tile fits: two bias buffers beside a ring
+// of two chunks, else one beside one chunk.  Else streamed: items of
+// kF32StreamWindows windows, chunks of NT key tiles, one or two bias slots.
+cudaError_t make_plan_f32(Plan* p, int W, int H, int N, int G, int hd) {
+  p->W = W;
+  p->H = H;
+  p->N = N;
+  p->G = G;
+  p->rows = kRows;
+  p->C = N / kRows;
+  p->QT = p->C;
+  p->tile = kRows * hd * 4;
+  p->QB = kF32QB;
+  p->NT = p->C % 2 == 0 ? 2 : 1;
+  p->stream = 0;
+  p->bias = kRows * N * 4;
+  if (fit_ring_f32(p, 2, 2 * p->NT) || fit_ring_f32(p, 1, p->NT)) return cudaSuccess;
+  p->stream = 1;
+  p->G = (W + kF32StreamWindows - 1) / kF32StreamWindows;
+  p->bias = kRows * kRows * p->NT * 4;
+  if (fit_ring_f32(p, 2, p->NT) || fit_ring_f32(p, 1, p->NT)) return cudaSuccess;
+  return cudaErrorInvalidValue;
+}
+
+// The shared memory of an f32 block: the NB bias buffers at the
+// 1024-aligned base, then each group's QB q buffers and S ring slots (each
+// p.tile bytes: the hi tile, then the lo tile), then the barriers
+// (f32_barrier_bytes' order).
+struct SmemF32 {
+  uint32_t base, groups0, bars;
+  int NB, QB, S, tile, bias;
+  __device__ SmemF32(const Plan& p, uint32_t base_)
+      : base(base_), NB(p.NB), QB(p.QB), S(p.S), tile(p.tile), bias(p.bias) {
+    groups0 = base + NB * bias;
+    bars = groups0 + 2 * (QB + S) * tile;
+  }
+  __device__ uint32_t bias_buf(int b) const { return base + b * bias; }
+  __device__ uint32_t q_buf(int c, int i) const { return groups0 + (c * (QB + S) + i) * tile; }
+  __device__ uint32_t slot(int c, int s) const { return groups0 + (c * (QB + S) + QB + s) * tile; }
+  __device__ uint32_t bias_full(int b) const { return bars + 8 * b; }
+  __device__ uint32_t bias_empty(int b) const { return bars + 8 * (NB + b); }  // the 8 consumer warps
+  __device__ uint32_t gbar(int c) const { return bars + 16 * NB + c * 16 * (QB + S); }
+  __device__ uint32_t q_full(int c, int i) const { return gbar(c) + 8 * i; }
+  __device__ uint32_t q_empty(int c, int i) const { return gbar(c) + 8 * (QB + i); }  // the group's 4 warps
+  __device__ uint32_t full(int c, int s) const { return gbar(c) + 16 * QB + 8 * s; }
+  __device__ uint32_t empty(int c, int s) const { return gbar(c) + 16 * QB + 8 * (S + s); }  // 4 warps
+};
+
+// d (64 x 64) += A . B^T over HD dims, A's and B's hi tiles at a_hi and
+// b_hi and their lo tiles kHalf after each (K-major): lo.hi + hi.lo + hi.hi
+// each k-step.
+template <int HD>
+__device__ __forceinline__ void split_scores_ss(float (&d)[32], uint32_t a_hi, uint32_t b_hi) {
+  constexpr uint32_t kHalf = kRows * HD * 2;
+  const uint64_t ah = desc<HD>(a_hi), al = desc<HD>(a_hi + kHalf);
+  const uint64_t bh = desc<HD>(b_hi), bl = desc<HD>(b_hi + kHalf);
+#pragma unroll
+  for (int kk = 0; kk < HD / 16; ++kk) {
+    wgmma_m64n64k16_ss(d, al + 2 * kk, bh + 2 * kk);
+    wgmma_m64n64k16_ss(d, ah + 2 * kk, bl + 2 * kk);
+    wgmma_m64n64k16_ss(d, ah + 2 * kk, bh + 2 * kk);
+  }
+}
+
+// One chunk of NT key tiles of one window's 64 query rows in f32: s = q
+// k^T (q's tiles at dq), the softmax step, then o += p v with p split.  The
+// chunk's NT k tiles, then its NT v tiles, are the next 2 NT slots of group
+// c's ring; `last` releases the q buffer after the score products.
+template <int HD, int NT>
+__device__ __forceinline__ void attend_chunk_f32(const SmemF32& sm, int c, uint32_t dq, const uint8_t* bchunk,
+                                                 const uint32_t (&boff)[BiasBox<float>::kPairs],
+                                                 RingPos& ring, bool last, uint32_t q_empty, float scale,
+                                                 float (&o)[HD / 2], float& m0, float& m1, float& l0,
+                                                 float& l1) {
+  const int S = sm.S;
+  uint32_t kt[NT];
+  RingPos at = ring;
+#pragma unroll
+  for (int j = 0; j < NT; ++j) {
+    mbar_wait(sm.full(c, at.slot), at.phase);
+    kt[j] = sm.slot(c, at.slot);
+    at.next(S);
+  }
+  float s[NT][32];
+#pragma unroll
+  for (int j = 0; j < NT; ++j) {
+    zero(s[j]);
+    fence_regs(s[j]);
+  }
+  wgmma_fence();
+#pragma unroll
+  for (int j = 0; j < NT; ++j) split_scores_ss<HD>(s[j], dq, kt[j]);
+  wgmma_commit();
+  wgmma_wait<0>();
+#pragma unroll
+  for (int j = 0; j < NT; ++j) {
+    fence_regs(s[j]);
+    release(sm.empty(c, ring.slot));
+    ring.next(S);
+  }
+  if (last) release(q_empty);
+
+  SplitA pa[NT];
+  softmax_chunk<HD, NT, float>(s, bchunk, boff, scale, false, o, m0, m1, l0, l1, pa);
+
+  uint32_t vt[NT];
+  at = ring;
+#pragma unroll
+  for (int j = 0; j < NT; ++j) {
+    mbar_wait(sm.full(c, at.slot), at.phase);
+    vt[j] = sm.slot(c, at.slot);
+    at.next(S);
+  }
+  fence_regs(o);
+  wgmma_fence();
+#pragma unroll
+  for (int j = 0; j < NT; ++j) split_k64<HD>(o, pa[j].hi, pa[j].lo, vt[j]);
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_regs(o);
+#pragma unroll
+  for (int j = 0; j < NT; ++j) {
+    release(sm.empty(c, ring.slot));
+    ring.next(S);
+  }
+}
+
+// Query rows `row`, row + 8 of window w, head h of the (W, N, H HD) f32
+// out: o scaled by f0 and f1.
+template <int HD>
+__device__ __forceinline__ void store_rows_f32(float* __restrict__ out, const Plan& p, int w, int h, int row,
+                                               int cc, const float (&o)[HD / 2], float f0, float f1) {
+  const long ld = (long)p.H * HD;
+  float* orow0 = out + ((long)w * p.N + row) * ld + h * HD + 2 * cc;
+  float* orow1 = orow0 + 8 * ld;
+#pragma unroll
+  for (int t = 0; t < HD / 8; ++t) {
+    *reinterpret_cast<float2*>(orow0 + 8 * t) = make_float2(o[4 * t + 0] * f0, o[4 * t + 1] * f0);
+    *reinterpret_cast<float2*>(orow1 + 8 * t) = make_float2(o[4 * t + 2] * f1, o[4 * t + 3] * f1);
+  }
+}
+
+// Threads 0-255 are the two consumer warpgroups; producer warp c (0, 1)
+// loads group c's q, k and v tiles (warp 0 the bias too).  Group c takes
+// windows w0 + c, w0 + c + 2, .. of an item (streamed: w0 + c alone).
+template <int HD, int NT, bool STREAM>
+__global__ void __launch_bounds__(kThreads, 1)
+attention_fwd_f32_sm90(const __grid_constant__ CUtensorMap qkv_map,
+                       const __grid_constant__ CUtensorMap bias_map, float* __restrict__ out, const Plan p,
+                       float scale) {
+  using B = BiasBox<float>;
+  constexpr int kHalf = kRows * HD * 2;  // a bf16 tile: a slot's hi, then its lo
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const SmemF32 sm(p, (raw + 1023) & ~1023u);
+  auto at = [&](uint32_t saddr) { return smem_raw + (saddr - raw); };
+  const int items = (int)p.items();  // below 2^31 (run_f32)
+  const int C = p.C;
+
+  if (threadIdx.x == 0) {
+    for (int b = 0; b < p.NB; ++b) {
+      mbar_init(sm.bias_full(b), 1);
+      mbar_init(sm.bias_empty(b), 8);
+    }
+    for (int c = 0; c < 2; ++c) {
+      for (int i = 0; i < sm.QB; ++i) {
+        mbar_init(sm.q_full(c, i), 1);
+        mbar_init(sm.q_empty(c, i), 4);
+      }
+      for (int s = 0; s < p.S; ++s) {
+        mbar_init(sm.full(c, s), 1);
+        mbar_init(sm.empty(c, s), 4);
+      }
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= kConsumers) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
+    const int c = (threadIdx.x - kConsumers) / 32;  // the group this warp feeds
+    if (c >= 2 || (threadIdx.x & 31) != 0) return;
+    // tensor `slot` (0 q, 1 k, 2 v) of head h, its 64-row tile from `row`
+    // of window w: the hi tile, then the lo tile from the plane W windows on
+    auto load_pair = [&](uint32_t dst, uint32_t bar, int slot, int h, int row, int w) {
+      mbar_expect_tx(bar, 2 * kHalf);
+      tma_load(dst, &qkv_map, bar, (3 * h + slot) * HD, row, w);
+      tma_load(dst + kHalf, &qkv_map, bar, (3 * h + slot) * HD, row, p.W + w);
+    };
+    Loader qs, kv, bs;  // the group's q buffers and ring; the bias ring (warp 0)
+    int bi = 0;         // resident bias tiles loaded
+    for (int it = blockIdx.x; it < items; it += gridDim.x, ++bi) {
+      int h, qt, w0, w1;
+      p.decode(it, h, qt, w0, w1);
+      if (!STREAM && c == 0) {
+        const int b = bi % p.NB;
+        if (bi >= p.NB) mbar_wait(sm.bias_empty(b), ((bi / p.NB) - 1) & 1);
+        mbar_expect_tx(sm.bias_full(b), p.bias);
+        for (int x = 0; x < p.N / B::kCols; ++x)
+          tma_load(sm.bias_buf(b) + x * kBoxBytes, &bias_map, sm.bias_full(b), x * B::kCols, qt * kRows, h);
+      }
+      for (int w = w0 + c; STREAM ? w == w0 + c : w < w1; w += 2) {
+        const bool has = w < w1;
+        if (has) {
+          const int s = qs.take(sm.q_empty(c, qs.pos.slot), sm.QB);
+          load_pair(sm.q_buf(c, s), sm.q_full(c, s), 0, h, qt * kRows, w);
+        }
+        for (int k0 = 0; k0 < C; k0 += NT) {
+          if (STREAM && c == 0) {
+            const int b = bs.take(sm.bias_empty(bs.pos.slot), p.NB);
+            mbar_expect_tx(sm.bias_full(b), p.bias);
+            for (int x = 0; x < NT * B::kPerTile; ++x)
+              tma_load(sm.bias_buf(b) + x * kBoxBytes, &bias_map, sm.bias_full(b),
+                       k0 * kRows + x * B::kCols, qt * kRows, h);
+          }
+          if (!has) continue;
+          for (int src = 1; src < 3; ++src)  // the chunk's k tiles, then its v tiles
+            for (int j = 0; j < NT; ++j) {
+              const int s = kv.take(sm.empty(c, kv.pos.slot), p.S);
+              load_pair(sm.slot(c, s), sm.full(c, s), src, h, (k0 + j) * kRows, w);
+            }
+        }
+      }
+    }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
+    const int c = threadIdx.x / 128;
+    const int warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
+    const int g = lane >> 2, cc = lane & 3;
+    const int lr0 = warp * 16 + g;  // this thread's rows lr0, lr0 + 8 of the q-tile
+    uint32_t boff[B::kPairs];
+#pragma unroll
+    for (int u = 0; u < B::kPairs; ++u) boff[u] = swizzle128(lr0, (8 * u + 2 * cc) * B::kElem);
+    RingPos ring, qpos, bpos;  // the group's next k/v slot and q buffer; the next bias buffer
+    for (int it = blockIdx.x; it < items; it += gridDim.x) {
+      int h, qt, w0, w1;
+      p.decode(it, h, qt, w0, w1);
+      if (!STREAM) mbar_wait(sm.bias_full(bpos.slot), bpos.phase);  // even with no window of the item
+      for (int w = w0 + c; STREAM ? w == w0 + c : w < w1; w += 2) {
+        const bool has = w < w1;
+        if (has) mbar_wait(sm.q_full(c, qpos.slot), qpos.phase);
+        const uint32_t dq = sm.q_buf(c, qpos.slot), q_empty = sm.q_empty(c, qpos.slot);
+        float o[HD / 2];
+        zero(o);
+        float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;  // running max and row sum
+        for (int k0 = 0; k0 < C; k0 += NT) {
+          const uint8_t* bchunk;
+          if constexpr (STREAM) {
+            mbar_wait(sm.bias_full(bpos.slot), bpos.phase);
+            bchunk = at(sm.bias_buf(bpos.slot));
+          } else {
+            bchunk = at(sm.bias_buf(bpos.slot)) + k0 * B::kPerTile * kBoxBytes;
+          }
+          if (has)
+            attend_chunk_f32<HD, NT>(sm, c, dq, bchunk, boff, ring, k0 + NT >= C, q_empty, scale, o, m0, m1,
+                                     l0, l1);
+          if constexpr (STREAM) {
+            release(sm.bias_empty(bpos.slot));
+            bpos.next(p.NB);
+          }
+        }
+        if (has) {
+          store_rows_f32<HD>(out, p, w, h, qt * kRows + lr0, cc, o, 1.f / l0, 1.f / l1);
+          qpos.next(sm.QB);
+        }
+      }
+      if (!STREAM) {
+        release(sm.bias_empty(bpos.slot));
+        bpos.next(p.NB);
+      }
+    }
+  }
+}
+
+template <int HD, int NT, bool STREAM>
+cudaError_t launch_f32(const CUtensorMap (&maps)[2], float* out, const Plan& p, float scale, int sms,
+                       cudaStream_t stream) {
+  static bool opted_in = false;  // one per instance, and this library's own
+  if (!opted_in) {
+    const cudaError_t e = cudaFuncSetAttribute(attention_fwd_f32_sm90<HD, NT, STREAM>,
+                                               cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemMax);
+    if (e != cudaSuccess) return e;
+    opted_in = true;
+  }
+  const long items = p.items();
+  const int grid = (int)(items < sms ? items : sms);
+  attention_fwd_f32_sm90<HD, NT, STREAM><<<grid, kThreads, f32_smem_bytes(p), stream>>>(maps[0], maps[1], out,
+                                                                                       p, scale);
+  return cudaGetLastError();
+}
+
+// One call of the f32 kind: qkv2 the (2, W, N, 3 H HD) bf16 hi and lo
+// planes of the f32 qkv, the bias (H, N, N) f32 and out (W, N, H HD) f32,
+// each contiguous with a 16-byte aligned base; N a multiple of 64; 1 <= G
+// <= W (the resident plan's groups; the streamed plan takes its own).
+// Where no plan fits, cudaErrorInvalidValue.
+template <int HD>
+cudaError_t run_f32(const void* qkv2, const void* bias, void* out, int W, int H, int N, int G, float scale,
+                    cudaStream_t stream) {
+  Plan p;
+  cudaError_t e = make_plan_f32(&p, W, H, N, G, HD);
+  if (e != cudaSuccess) return e;
+  if (p.items() > 0x7fffffffL) return cudaErrorInvalidValue;  // the kernel counts items in int
+  // both planes as 2 W windows of (N, 3D) bf16 rows in boxes of (HD, 64
+  // rows), swizzled as the bf16 kind's; the bias as K8a's
+  CUtensorMap maps[2];
+  e = encode_rows<HD>(&maps[0], qkv2, 3L * H * HD, N, 2L * W, kRows);
+  if (e == cudaSuccess)
+    e = encode_3d(&maps[1], CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, bias, N, N, H, BiasBox<float>::kCols, kRows,
+                  CU_TENSOR_MAP_SWIZZLE_128B);
+  int sms = 0;
+  if (e == cudaSuccess) e = sm_count(&sms);
+  if (e != cudaSuccess) return e;
+  float* o = static_cast<float*>(out);
+  if (p.stream)
+    return p.NT == 2 ? launch_f32<HD, 2, true>(maps, o, p, scale, sms, stream)
+                     : launch_f32<HD, 1, true>(maps, o, p, scale, sms, stream);
+  return p.NT == 2 ? launch_f32<HD, 2, false>(maps, o, p, scale, sms, stream)
+                   : launch_f32<HD, 1, false>(maps, o, p, scale, sms, stream);
+}
+
+// The f32 plan of one call without a launch, as plan fills out[8].
+cudaError_t plan_f32(int W, int H, int N, int G, int hd, int* out) {
+  Plan p;
+  const cudaError_t e = make_plan_f32(&p, W, H, N, G, hd);
+  if (e != cudaSuccess) return e;
+  const long items = p.items();
+  const int fields[8] = {f32_smem_bytes(p), (int)(items < 0x7fffffffL ? items : 0x7fffffffL),
                          p.G, p.NT, p.NB, p.QB, p.S, p.stream};
   for (int i = 0; i < 8; ++i) out[i] = fields[i];
   return cudaSuccess;

@@ -195,29 +195,6 @@ __device__ __forceinline__ void store8(E* p, const Vec8<E>& v) {
 // and of the output (row stride D).
 // ---------------------------------------------------------------------------
 
-// Windows stored one after another, (W, N, .): row w * N + n.
-struct WindowRows {
-  __device__ __forceinline__ long operator()(int w, int n, int N) const {
-    return (long)w * N + n;
-  }
-};
-
-// Windows of side ws cut from a (B, nwh * ws, nww * ws, .) map in raster
-// order (the order window_partition gives them): window w = (b, i, j),
-// token n = (r, c) lives at map row (b, i * ws + r, j * ws + c).  This is
-// the whole of the window partition on the card: no copy is made.
-struct MapRows {
-  int ws, nwh, nww;
-  __device__ __forceinline__ long operator()(int w, int n, int /*N*/) const {
-    const int per_image = nwh * nww;
-    const int b = w / per_image, rem = w - b * per_image;
-    const int i = rem / nww, j = rem - i * nww;
-    const int r = n / ws, c = n - r * ws;
-    const long map_w = (long)nww * ws;
-    return ((long)b * nwh * ws + (long)i * ws + r) * map_w + (long)j * ws + c;
-  }
-};
-
 // ---------------------------------------------------------------------------
 // Head dims.  Every attention kernel is a template over the head dim HD, a
 // multiple of the 16 that one mma.sync.m16n8k16 k-step covers, and is
@@ -259,7 +236,8 @@ struct HeadDim {
 // Window attention over the interleaved qkv tensor.
 //
 // One block of 4 warps per (q-tile of 64 rows, head, window); each warp owns
-// 16 query rows.  ROWS maps (window, token) to the row of qkv and out.  k and v stream through shared memory in tiles of 64 keys
+// 16 query rows; window w's token n is row w * N + n of qkv and out.  k and
+// v stream through shared memory in tiles of 64 keys
 // and the softmax is the online (running max / running sum) form, kept in
 // f32.  In bf16, p is rounded to bf16 before the p.v product, as the Pallas
 // kernels round it before their MXU dot; the row sum uses the unrounded p,
@@ -271,10 +249,10 @@ constexpr int kBq = 64;            // query rows per block
 constexpr int kBk = 64;            // keys per tile
 constexpr int kVPad = kBk + 8;     // V^T tile row pitch (elements)
 
-template <class E, int HD, class ROWS>
+template <class E, int HD>
 __global__ void __launch_bounds__(128)
 window_attention_kernel(const E* __restrict__ qkv, const E* __restrict__ bias,
-                        E* __restrict__ out, int N, int H, float scale, ROWS rows) {
+                        E* __restrict__ out, int N, int H, float scale) {
   using T = HeadDim<HD>;
   constexpr int KP = T::kPad;
   __shared__ __align__(16) E ks[kBk * KP];
@@ -289,7 +267,7 @@ window_attention_kernel(const E* __restrict__ qkv, const E* __restrict__ bias,
   const long row_stride = 3L * D;
   const E* base = qkv + (long)h * 3 * HD;
   const int q0 = blockIdx.x * kBq + warp * 16;
-  const long qrow0 = rows(w, q0 + g, N), qrow1 = rows(w, q0 + g + 8, N);
+  const long qrow0 = (long)w * N + q0 + g, qrow1 = qrow0 + 8;
 
   // This warp's 16 query rows as A fragments, one per 16 dims.
   Frag<E> qa[T::kSteps][4];
@@ -319,7 +297,7 @@ window_attention_kernel(const E* __restrict__ qkv, const E* __restrict__ bias,
     __syncthreads();  // previous tile fully consumed
     for (int i = tid; i < kBk * T::kVecs; i += 128) {
       const int key = i / T::kVecs, ch = i % T::kVecs;
-      const E* src = base + rows(w, k0 + key, N) * row_stride + ch * 8;
+      const E* src = base + ((long)w * N + k0 + key) * row_stride + ch * 8;
       store8(&ks[key * KP + ch * 8], load8(src + HD));
       const Vec8<E> vv = load8(src + 2 * HD);
 #pragma unroll
@@ -413,14 +391,12 @@ window_attention_kernel(const E* __restrict__ qkv, const E* __restrict__ bias,
   }
 }
 
-template <class E, class ROWS = WindowRows>
+template <class E>
 inline cudaError_t launch_window_attention(const E* qkv, const E* bias, E* out, int W, int N,
-                                           int H, int hd, float scale, cudaStream_t stream,
-                                           ROWS rows = ROWS()) {
+                                           int H, int hd, float scale, cudaStream_t stream) {
   const dim3 grid(N / kBq, H, W);
   GG_HEAD_DIM_SWITCH(hd, {
-    window_attention_kernel<E, HD, ROWS><<<grid, 128, 0, stream>>>(qkv, bias, out, N, H, scale,
-                                                                   rows);
+    window_attention_kernel<E, HD><<<grid, 128, 0, stream>>>(qkv, bias, out, N, H, scale);
     return cudaGetLastError();
   })
 }

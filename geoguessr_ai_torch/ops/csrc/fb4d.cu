@@ -26,11 +26,13 @@
 // Every output element is summed in the order of K1's on the partitioned
 // map, so K9 equals K1 there bit for bit.
 //
-// The _f32 twin keeps the first design: common.cuh's LayerNorm + GEMM on
-// the map's rows in map order, and the attention reading token (r, c) of
-// window (b, i, j) from map row (b, i*ws + r, j*ws + c) of qkv and writing
-// its output to the same row of the attention scratch (common.cuh
-// MapRows); it ignores `groups`.
+// The _f32 twin runs the same three launches on the cores' f32 kinds (the
+// GEMM core splitting x and the attention output in place into bf16 hi and
+// lo, the weights the wrapper's stacked (hi, lo) pairs, qkv stored as its
+// bf16 hi and lo planes in qkv_scratch; the forward core's f32 kind with
+// its 64 x 256 bias tile resident over `groups`), through the same window
+// map: x read in f32 boxes of 32 channels, out stored row by row at its
+// place in the map.  Its scratch is window-ordered, as K1's.
 #include "attention_fwd_sm90.cuh"
 #include "ln_gemm_sm90.cuh"
 
@@ -102,26 +104,32 @@ extern "C" int fb4d_f32(const void* x, const void* ln_scale, const void* ln_bias
                         const void* w_qkv_t, const void* b_qkv, const void* w_proj_t,
                         const void* b_proj, const void* bias, void* qkv_scratch,
                         void* attn_scratch, void* out, int B, int Hm, int Wm, int C, int H,
-                        int hd, int window, int /*groups*/, float scale, float eps,
-                        void* stream) {
+                        int hd, int window, int groups, float scale, float eps, void* stream) {
+  using gg::lng90::kProjGemm;
+  using gg::lng90::kQkvGemm;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int D = H * hd;
   const int M = B * Hm * Wm;
   const int N = window * window;
-  const gg::MapRows rows{window, Hm / window, Wm / window};
-  const int num_windows = B * rows.nwh * rows.nww;
-  cudaError_t e = gg::launch_ln_gemm<true, true>(
+  const int W = M / N;
+  cudaError_t e = gg::lng90::run_f32<kQkvGemm, true>(
       static_cast<const float*>(x), static_cast<const float*>(ln_scale),
-      static_cast<const float*>(ln_bias), static_cast<const float*>(w_qkv_t),
-      static_cast<const float*>(b_qkv), static_cast<float*>(qkv_scratch), M, C, 3 * D, eps, s);
+      static_cast<const float*>(ln_bias), w_qkv_t, static_cast<const float*>(b_qkv),
+      qkv_scratch, M, C, 3 * D, eps, s, window, Wm);
   if (e != cudaSuccess) return (int)e;
-  e = gg::launch_window_attention(static_cast<const float*>(qkv_scratch),
-                                  static_cast<const float*>(bias),
-                                  static_cast<float*>(attn_scratch), num_windows, N, H, hd, scale,
-                                  s, rows);
+  GG_HEAD_DIM_SWITCH(hd, {
+    e = gg::fwd90::run_f32<HD>(qkv_scratch, bias, attn_scratch, W, H, N, groups, scale, s);
+    break;
+  })
   if (e != cudaSuccess) return (int)e;
-  return (int)gg::launch_ln_gemm<false, false>(
-      static_cast<const float*>(attn_scratch), nullptr, nullptr,
-      static_cast<const float*>(w_proj_t), static_cast<const float*>(b_proj),
-      static_cast<float*>(out), M, D, C, eps, s);
+  return (int)gg::lng90::run_f32<kProjGemm, true>(
+      static_cast<const float*>(attn_scratch), nullptr, nullptr, w_proj_t,
+      static_cast<const float*>(b_proj), static_cast<float*>(out), M, D, C, eps, s, window, Wm);
+}
+
+// The f32 attention's plan at (W, N, H, hd, G) without a launch: out[8] as
+// fwd90::plan_f32 fills it (64-row items only).
+extern "C" int fb4d_plan_f32(int W, int N, int H, int hd, int G, int rows, int* out) {
+  if (rows != gg::fwd90::kRows) return (int)cudaErrorInvalidValue;
+  return (int)gg::fwd90::plan_f32(W, H, N, G, hd, out);
 }

@@ -30,9 +30,12 @@
 //      contract against _fb_s2_plain does not change.  A bf16 64 x 1024
 //      bias tile is 128 KB and fits beside a ring at every head dim; N
 //      above 1024 is refused by the wrapper.
-// The _f32 twin keeps the first design: common.cuh's LayerNorm + GEMM
-// kernel and window attention kernel (mma.sync, "Element types"); it
-// ignores `groups`.
+// The _f32 twin runs the same two cores' f32 kinds: the GEMM core with x
+// split in place into bf16 hi and lo after LayerNorm and w_qkv_t the
+// wrapper's stacked (hi, lo) pair, storing qkv as its bf16 hi and lo planes
+// (qkv_scratch: (2, W, N, 3D) bf16), then the forward core's f32 kind over
+// `groups` (N = 1024: the bias streamed in 128-key chunks, items of two
+// windows), every product split, nothing rounded to bf16 on the way.
 #include "attention_fwd_sm90.cuh"
 #include "ln_gemm_sm90.cuh"
 
@@ -85,15 +88,23 @@ extern "C" int fb_s2_plan(int W, int N, int H, int hd, int G, int rows, int* out
 extern "C" int fb_s2_f32(const void* x, const void* ln_scale, const void* ln_bias,
                          const void* w_qkv_t, const void* b_qkv, const void* bias,
                          void* qkv_scratch, void* out, int W, int N, int C, int H, int hd,
-                         int /*groups*/, float scale, float eps, void* stream) {
+                         int groups, float scale, float eps, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int D = H * hd;
-  cudaError_t e = gg::launch_ln_gemm<true, true>(
+  using gg::lng90::kQkvGemm;
+  cudaError_t e = gg::lng90::run_f32<kQkvGemm, false>(
       static_cast<const float*>(x), static_cast<const float*>(ln_scale),
-      static_cast<const float*>(ln_bias), static_cast<const float*>(w_qkv_t),
-      static_cast<const float*>(b_qkv), static_cast<float*>(qkv_scratch), W * N, C, 3 * D, eps, s);
+      static_cast<const float*>(ln_bias), w_qkv_t, static_cast<const float*>(b_qkv),
+      qkv_scratch, W * N, C, 3 * D, eps, s);
   if (e != cudaSuccess) return (int)e;
-  return (int)gg::launch_window_attention(static_cast<const float*>(qkv_scratch),
-                                          static_cast<const float*>(bias),
-                                          static_cast<float*>(out), W, N, H, hd, scale, s);
+  GG_HEAD_DIM_SWITCH(hd, {
+    return (int)gg::fwd90::run_f32<HD>(qkv_scratch, bias, out, W, H, N, groups, scale, s);
+  })
+}
+
+// The f32 attention's plan at (W, N, H, hd, G) without a launch: out[8] as
+// fwd90::plan_f32 fills it (64-row items only).
+extern "C" int fb_s2_plan_f32(int W, int N, int H, int hd, int G, int rows, int* out) {
+  if (rows != gg::fwd90::kRows) return (int)cudaErrorInvalidValue;
+  return (int)gg::fwd90::plan_f32(W, H, N, G, hd, out);
 }

@@ -10,6 +10,8 @@
 // one (the f32 b_proj on the f32 sum, rounded once), as common.cuh's
 // ln_gemm_kernel<LN, ROUND_FIRST> computes them.  K2's bf16 entry (fb_s2.cu)
 // runs the qkv kind; K1's (fused_block.cu) and K9's (fb4d.cu) run both.
+// An f32 kind of both (ln_gemm_f32_sm90, "The f32 kind" below) serves K2's
+// and K9's f32 entries; K1's f32 twin keeps common.cuh's first design.
 //
 // K9 reads its x and writes its out in the order of the raw (B, Hm, Wm, C)
 // map, and its qkv GEMM and out-projection take them through a window map
@@ -173,7 +175,8 @@ struct Smem {
 // window row over the images).
 struct WinCoords {
   int c1, c2, c3, c4;
-  __device__ WinCoords(const Plan& p, int r0) {
+  template <class P>  // Plan or PlanF32
+  __device__ WinCoords(const P& p, int r0) {
     const int w = r0 / p.N;
     c1 = 0;
     c2 = w % p.nww;
@@ -487,22 +490,23 @@ cudaError_t launch_kb(const CUtensorMap (&maps)[3], const float* gamma, const fl
   return cudaGetLastError();
 }
 
-// The window map over a (B, Hm, Wm, C) bf16 map of M = B Hm Wm rows, read
-// or written in window order: dims (C, ws, Wm / ws, ws, B Hm / ws), boxes
-// of 64 channels x box_rows rows (box_rows / ws rows of ws columns of one
-// window), the 128-byte swizzle.
-cudaError_t encode_window_map(CUtensorMap* map, const void* base, long C, int ws, long Wm, long M,
-                              int box_rows) {
+// The window map over a (B, Hm, Wm, C) map of M = B Hm Wm rows of `type`
+// elements of `elem` bytes (bf16, or f32 in the f32 kind), read or written
+// in window order: dims (C, ws, Wm / ws, ws, B Hm / ws), boxes of 128
+// bytes of channels (64 bf16, 32 f32) x box_rows rows (box_rows / ws rows
+// of ws columns of one window), the 128-byte swizzle.
+cudaError_t encode_window_map(CUtensorMap* map, CUtensorMapDataType type, int elem, const void* base,
+                              long C, int ws, long Wm, long M, int box_rows) {
   const EncodeTiled encode = encode_tiled();
   if (!encode) return cudaErrorNotSupported;
   const cuuint64_t dims[5] = {(cuuint64_t)C, (cuuint64_t)ws, (cuuint64_t)(Wm / ws), (cuuint64_t)ws,
                               (cuuint64_t)(M / (ws * Wm))};
-  const cuuint64_t strides[4] = {(cuuint64_t)(C * 2), (cuuint64_t)(ws * C * 2), (cuuint64_t)(Wm * C * 2),
-                                 (cuuint64_t)(ws * Wm * C * 2)};
-  const cuuint32_t box[5] = {64, (cuuint32_t)ws, 1, (cuuint32_t)(box_rows / ws), 1};
+  const cuuint64_t strides[4] = {(cuuint64_t)(C * elem), (cuuint64_t)(ws * C * elem),
+                                 (cuuint64_t)(Wm * C * elem), (cuuint64_t)(ws * Wm * C * elem)};
+  const cuuint32_t box[5] = {(cuuint32_t)(128 / elem), (cuuint32_t)ws, 1, (cuuint32_t)(box_rows / ws), 1};
   const cuuint32_t ones[5] = {1, 1, 1, 1, 1};
-  if (encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 5, const_cast<void*>(base), dims, strides, box, ones,
-             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+  if (encode(map, type, 5, const_cast<void*>(base), dims, strides, box, ones, CU_TENSOR_MAP_INTERLEAVE_NONE,
+             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
     return cudaErrorInvalidValue;
   return cudaSuccess;
@@ -525,13 +529,13 @@ cudaError_t run(const void* x, const float* gamma, const float* beta, const void
   CUtensorMap maps[3];
   constexpr CUtensorMapDataType kBf = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
   e = MAP && KIND == kQkvGemm
-          ? encode_window_map(&maps[0], x, K, ws, Wm, M, kRows)
+          ? encode_window_map(&maps[0], kBf, 2, x, K, ws, Wm, M, kRows)
           : encode_3d(&maps[0], kBf, 2, x, K, M, 1, kBoxK, kRows, CU_TENSOR_MAP_SWIZZLE_128B);
   if (e == cudaSuccess)
     e = encode_3d(&maps[1], kBf, 2, wt, K, Nout, 1, kBoxK, kCols, CU_TENSOR_MAP_SWIZZLE_128B);
   if (e == cudaSuccess)
     e = MAP && KIND == kProjGemm
-            ? encode_window_map(&maps[2], y, Nout, ws, Wm, M, 64)
+            ? encode_window_map(&maps[2], kBf, 2, y, Nout, ws, Wm, M, 64)
             : encode_3d(&maps[2], kBf, 2, y, Nout, M, 1, kCols, 64, CU_TENSOR_MAP_SWIZZLE_128B);
   int sms = 0;
   if (e == cudaSuccess) e = sm_count(&sms);
@@ -546,6 +550,481 @@ cudaError_t run(const void* x, const float* gamma, const float* beta, const void
     case 7: return launch_kb<7, KIND, MAP>(maps, gamma, beta, b, p, eps, sms, stream);
     case 8: return launch_kb<8, KIND, MAP>(maps, gamma, beta, b, p, eps, sms, stream);
     default: return launch_kb<9, KIND, MAP>(maps, gamma, beta, b, p, eps, sms, stream);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// The f32 kind (K2's and K9's f32 entries): x f32 rows, wt the f32 weight
+// as the stacked bf16 pair (2, Nout, K), hi = bf16(w) and lo = bf16(w - hi)
+// (the wrapper's mbconv._split_bf16, once a call), gamma, beta and b f32:
+//
+//   kQkvGemm   y = LN(x) @ wt^T + b,   LN(x) = (x - mu) rstd gamma + beta
+//   kProjGemm  y = x @ wt^T + b
+//
+// with nothing rounded on the way: every product splits its operands into
+// bf16 hi and lo and sums lo.hi + hi.lo + hi.hi in the f32 accumulator
+// (three wgmma for one), LayerNorm's statistics are two passes in f32, and
+// y is the f32 sum plus b.  kQkvGemm stores y as its bf16 hi and lo planes
+// (2, M, Nout), hi = bf16(y), lo = bf16(y - hi): the operands the forward
+// core's f32 kind loads by TMA into its ring as they are (splitting f32 k
+// and v tiles there instead, once for every q-tile that reads them, cost
+// K2's attention 0.79 of 2.26 ms on an H100).  kProjGemm stores y in f32.
+//
+// What changes beside the bf16 kind, and why:
+//   * x lands by TMA in f32 boxes of 32 columns (128 bytes, the 128-byte
+//     swizzle), two to a 64-column chunk of the tile.  Once a tile is in,
+//     the 256 consumer threads (four a row) take each row's statistics and
+//     rewrite each 64-column chunk of it in place as its bf16 hi box and
+//     lo box (128 bytes a row each, in the swizzle wgmma reads: the bytes
+//     of the chunk's first and second f32 box), so the products read A from
+//     shared memory as in bf16.  kProjGemm splits its x the same way, with
+//     no LayerNorm.
+//   * An f32 tile is twice the bf16 tile's bytes, so a tile is 64 rows (a
+//     128-row one is 196,608 bytes at K = 384), both consumer groups take
+//     all of them and each one of a step's two column tiles; the ring is
+//     loaded in the bf16 kind's order.  (At K9's K = 192, where a 128-row
+//     tile fits beside one buffer, the 64-row tiles in two buffers ran both
+//     GEMMs 8-9 % faster on an H100.)
+//   * A ring slot holds a weight box's hi and lo (16 KB).
+//   * kQkvGemm's planes leave as the bf16 kind's output does: each group
+//     writes a tile's hi and its lo into its two 64 x 64 staging tiles (the
+//     128-byte swizzle) and issues their TMA stores; where two a group
+//     leave no ring of kMinSlots (K = 576) it has one, which the lo plane
+//     takes once the hi plane's store has read it.  4-byte stores straight
+//     from the accumulators ran K9's qkv GEMM 48 % slower on an H100.
+//     kProjGemm's f32 sum leaves as float2 stores (full 32-byte sectors),
+//     K9's at each row's place in the map.
+// Every output element is one thread's sum in an order fixed by (K, Nout),
+// so two calls give the same bits and a row's result does not depend on
+// where it lives in the map.
+// ---------------------------------------------------------------------------
+
+constexpr int kF32Rows = 64;         // rows of an f32 x tile
+constexpr int kF32BoxK = 32;         // k of an f32 box: 128 bytes
+constexpr int kF32Slot = 2 * kBoxB;  // a ring slot: a B box's hi and lo
+constexpr int kF32Tpr = kConsumers / kF32Rows;  // consumer threads a row of the tile
+
+struct PlanF32 {
+  int M, K, Nout;
+  int KB;     // 64-column chunks of a row (K / 64)
+  int AB;     // x tile buffers (1 or 2)
+  int P;      // staging tiles a consumer group (kQkvGemm: 2 or 1; kProjGemm: 0)
+  int S;      // ring slots
+  int tiles;  // 64-row tiles of x
+  int ncol;   // 64-column tiles of y
+  int ws, nww, N;  // the window map, as Plan's
+
+  __host__ __device__ int tile_bytes() const { return kF32Rows * KB * 2 * 128; }
+  __host__ __device__ int barrier_bytes() const { return 8 * (2 * AB + 2 * S); }
+  int smem_bytes() const {
+    return 1024 + AB * tile_bytes() + 2 * P * kBoxB + S * kF32Slot + barrier_bytes();
+  }
+};
+
+// Ring slots that fit beside AB x tiles of KB chunks and P staging tiles a
+// group, at most kMaxSlots.
+int ring_slots_f32(int KB, int AB, int P) {
+  const int s = (kSmemMax - 1024 - 8 * (2 * AB + 2 * kMaxSlots) - AB * kF32Rows * KB * 256 - 2 * P * kBoxB) /
+                kF32Slot;
+  return s < kMaxSlots ? s : kMaxSlots;
+}
+
+// The bf16 kind's shapes; the first of (two x buffers, two staging tiles),
+// (one, two), (one, one) that leaves a ring of kMinSlots (STAGED: kQkvGemm,
+// whose output goes through staging tiles; else none).
+cudaError_t make_plan_f32(PlanF32* p, int M, int K, int Nout, bool staged, int ws = 0, int Wm = 0) {
+  if (M < 1 || K < kBoxK || K % kBoxK || K > kMaxKB * kBoxK || Nout < kCols || Nout % kCols)
+    return cudaErrorInvalidValue;
+  if (ws && (ws < 0 || 64 % ws || ws * ws % kRows || Wm < ws || Wm % ws || M % (ws * Wm)))
+    return cudaErrorInvalidValue;
+  p->M = M;
+  p->K = K;
+  p->Nout = Nout;
+  p->KB = K / kBoxK;
+  p->tiles = (M + kF32Rows - 1) / kF32Rows;
+  p->ncol = Nout / kCols;
+  p->ws = ws;
+  p->nww = ws ? Wm / ws : 0;
+  p->N = ws * ws;
+  const int options[3][2] = {{2, 2}, {1, 2}, {1, 1}};
+  for (const auto& o : options) {
+    p->AB = o[0];
+    p->P = staged ? o[1] : 0;
+    p->S = ring_slots_f32(p->KB, p->AB, p->P);
+    if (p->S >= kMinSlots) return cudaSuccess;
+  }
+  return cudaErrorInvalidValue;
+}
+
+// The 256 consumer threads meet (named barrier 3; 1 and 2 are the groups').
+__device__ __forceinline__ void consumers_sync() { asm volatile("bar.sync 3, 256;\n" ::: "memory"); }
+
+// LayerNorm (kQkvGemm) and the split in place of an f32 x tile of 64 rows:
+// kF32Tpr neighbouring threads a row, each over kCw columns of every
+// 64-column chunk, with the two-pass statistics met by shuffles.  Chunk b
+// of a row, its f32 boxes' rows at b * kChunk and kChunk / 2 further,
+// becomes its bf16 hi row at the first and its lo row at the second; a
+// row's threads read the chunk before any of them writes it.
+template <int KB, int KIND>
+__device__ __forceinline__ void split_tile_f32(uint8_t* tile, const float* __restrict__ gamma,
+                                               const float* __restrict__ beta, float eps) {
+  constexpr int R = kF32Rows;
+  constexpr int kCw = 64 / kF32Tpr;  // columns of a chunk a thread takes: 16
+  constexpr int kQ = kCw / 4;        // its 16-byte f32 pieces
+  constexpr int kChunk = 2 * R * 128;
+  const int r = threadIdx.x / kF32Tpr, col = (threadIdx.x % kF32Tpr) * kCw;
+  uint8_t* row = tile + r * 128;
+  // piece q of chunk b: f32 columns col + 4 q .. of box (col + 4 q) / 32
+  const auto f32_at = [&](int b, int q) {
+    const int k = col + 4 * q;
+    return reinterpret_cast<const float4*>(row + b * kChunk + (k >> 5) * (R * 128) +
+                                           (((((k & 31) >> 2) ^ r) & 7) << 4));
+  };
+  const auto row_sum = [](float v) {
+#pragma unroll
+    for (int m = 1; m < kF32Tpr; m *= 2) v += __shfl_xor_sync(0xffffffffu, v, m);
+    return v;
+  };
+  float mu = 0.f, rs = 1.f;
+  if constexpr (KIND == kQkvGemm) {
+    float sum = 0.f;
+#pragma unroll
+    for (int b = 0; b < KB; ++b)
+#pragma unroll
+      for (int q = 0; q < kQ; ++q) {
+        const float4 v = *f32_at(b, q);
+        sum += (v.x + v.y) + (v.z + v.w);
+      }
+    mu = row_sum(sum) / (KB * kBoxK);
+    float sq = 0.f;
+#pragma unroll
+    for (int b = 0; b < KB; ++b)
+#pragma unroll
+      for (int q = 0; q < kQ; ++q) {
+        const float4 v = *f32_at(b, q);
+        const float d0 = v.x - mu, d1 = v.y - mu, d2 = v.z - mu, d3 = v.w - mu;
+        sq += (d0 * d0 + d1 * d1) + (d2 * d2 + d3 * d3);
+      }
+    rs = rsqrtf(row_sum(sq) / (KB * kBoxK) + eps);
+  }
+#pragma unroll 1
+  for (int b = 0; b < KB; ++b) {
+    float v[kCw];
+#pragma unroll
+    for (int q = 0; q < kQ; ++q) {
+      const float4 x = *f32_at(b, q);
+      v[4 * q] = x.x;
+      v[4 * q + 1] = x.y;
+      v[4 * q + 2] = x.z;
+      v[4 * q + 3] = x.w;
+    }
+    if constexpr (KIND == kQkvGemm) {
+      const float* g = gamma + b * kBoxK + col;
+      const float* bt = beta + b * kBoxK + col;
+#pragma unroll
+      for (int e = 0; e < kCw; ++e) v[e] = (v[e] - mu) * rs * g[e] + bt[e];
+    }
+    uint32_t hi[kCw / 2], lo[kCw / 2];
+#pragma unroll
+    for (int e = 0; e < kCw / 2; ++e) {
+      const Frag<float> f = split_pair(v[2 * e], v[2 * e + 1]);
+      hi[e] = f.hi;
+      lo[e] = f.lo;
+    }
+    __syncwarp();  // the row's threads have read the chunk
+#pragma unroll
+    for (int u = 0; u < kCw / 8; ++u) {
+      uint8_t* at = row + b * kChunk + ((((col / 8 + u) ^ r) & 7) << 4);
+      *reinterpret_cast<uint4*>(at) = make_uint4(hi[4 * u], hi[4 * u + 1], hi[4 * u + 2], hi[4 * u + 3]);
+      *reinterpret_cast<uint4*>(at + R * 128) =
+          make_uint4(lo[4 * u], lo[4 * u + 1], lo[4 * u + 2], lo[4 * u + 3]);
+    }
+  }
+}
+
+// The map row of window-ordered row r (K9's out-projection).
+__device__ __forceinline__ long map_row(const PlanF32& p, int r) {
+  const int w = r / p.N, i = r - w * p.N;
+  const int wx = w % p.nww, wy = w / p.nww;
+  return ((long)wy * p.ws + i / p.ws) * (p.nww * p.ws) + (long)wx * p.ws + i % p.ws;
+}
+
+// kQkvGemm's output tile: the group's 64 x 64 f32 sums plus b as their
+// bf16 hi and lo planes, through the group's P staging tiles (rows
+// swizzled over 128 bytes, as the output map writes them): hi into tile 0
+// and lo into tile P - 1 (P = 1: once the hi plane's store has read it),
+// then one TMA store of each at (col0, row0) of its plane.  A staging tile
+// is written once the store that read it before has read it.
+__device__ __forceinline__ void store_planes(const float (&d)[32], uint32_t stage, int P, const CUtensorMap* y_map,
+                                             const float* __restrict__ bvec, int col0, int row0, int c, int warp,
+                                             int g, int cc) {
+  const bool leader = (threadIdx.x & 127) == 0;
+  const int r = 16 * warp + g;
+  uint32_t lo[16];
+  store_wait_read<0>(leader);
+  group_sync(c);
+#pragma unroll
+  for (int t = 0; t < 8; ++t) {
+    const float2 b = *reinterpret_cast<const float2*>(bvec + col0 + 8 * t + 2 * cc);
+    const Frag<float> f0 = split_pair(d[4 * t] + b.x, d[4 * t + 1] + b.y);
+    const Frag<float> f1 = split_pair(d[4 * t + 2] + b.x, d[4 * t + 3] + b.y);
+    const int byte = (8 * t + 2 * cc) * 2;
+    asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(stage + swizzle128(r, byte)), "r"(f0.hi) : "memory");
+    asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(stage + swizzle128(r + 8, byte)), "r"(f1.hi) : "memory");
+    lo[2 * t] = f0.lo;
+    lo[2 * t + 1] = f1.lo;
+  }
+  const uint32_t lo_stage = stage + (P - 1) * kBoxB;
+  if (P == 1) {
+    fence_proxy_async();
+    group_sync(c);
+    store_tile_tma(leader, y_map, stage, col0, row0, 0);
+    store_wait_read<0>(leader);
+    group_sync(c);
+  }
+#pragma unroll
+  for (int t = 0; t < 8; ++t) {
+    const int byte = (8 * t + 2 * cc) * 2;
+    asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(lo_stage + swizzle128(r, byte)), "r"(lo[2 * t]) : "memory");
+    asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(lo_stage + swizzle128(r + 8, byte)), "r"(lo[2 * t + 1])
+                 : "memory");
+  }
+  fence_proxy_async();
+  group_sync(c);
+  if (P == 2) store_tile_tma(leader, y_map, stage, col0, row0, 0);
+  store_tile_tma(leader, y_map, lo_stage, col0, row0, 1);
+}
+
+// One step of the f32 kind: group `first` of the step's STEP column tiles
+// from ct takes tile ct + first, k-box by k-box as the bf16 kind's
+// gemm_step: its slot of a box waited for, its split products issued, the
+// previous box's slot released once its products are done.  Then y = acc +
+// b: kQkvGemm through store_planes, kProjGemm as float2 stores straight
+// from the accumulators (rows past M not written; OUT_MAP: in map order).
+template <int KB, int STEP, int KIND, bool OUT_MAP>
+__device__ __forceinline__ void gemm_step_f32(uint32_t slots, uint32_t bars, int S, RingPos& ring, int first,
+                                              uint64_t da, uint32_t stage, const CUtensorMap* y_map,
+                                              float* __restrict__ y, const PlanF32& p,
+                                              const float* __restrict__ bvec, int row0, int ct, int c, int warp,
+                                              int g, int cc) {
+  constexpr int kChunk = 2 * kF32Rows * 128;
+  const auto full = [&](int s) { return bars + 8 * s; };
+  const auto empty = [&](int s) { return bars + 8 * (S + s); };
+  float d[32];
+  zero(d);
+  fence_regs(d);
+  RingPos at = ring, rel = ring;
+  for (int i = 0; i < first; ++i) {
+    at.next(S);
+    rel.next(S);
+  }
+#pragma unroll
+  for (int b = 0; b < KB; ++b) {
+    wait_phase(full(at.slot), at.phase);
+    const uint32_t bs = slots + at.slot * kF32Slot;
+#pragma unroll
+    for (int i = 0; i < STEP; ++i) at.next(S);
+    const uint64_t ah = da + (b * kChunk >> 4), al = ah + (kF32Rows * 128 >> 4);
+    const uint64_t bh = desc<64>(bs), bl = desc<64>(bs + kBoxB);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      wgmma_m64n64k16_ss(d, al + 2 * kk, bh + 2 * kk);
+      wgmma_m64n64k16_ss(d, ah + 2 * kk, bl + 2 * kk);
+      wgmma_m64n64k16_ss(d, ah + 2 * kk, bh + 2 * kk);
+    }
+    wgmma_commit();
+    if (b > 0) {
+      wgmma_wait<1>();
+      arrive_nb(empty(rel.slot));
+#pragma unroll
+      for (int i = 0; i < STEP; ++i) rel.next(S);
+    }
+  }
+  wgmma_wait<0>();
+  fence_regs(d);
+  arrive_nb(empty(rel.slot));
+#pragma unroll
+  for (int b = 0; b < KB; ++b)
+#pragma unroll
+    for (int i = 0; i < STEP; ++i) ring.next(S);
+  const int col0 = (ct + first) * kCols;
+  if constexpr (KIND == kQkvGemm) {
+    store_planes(d, stage, p.P, y_map, bvec, col0, row0, c, warp, g, cc);
+  } else {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = row0 + 16 * warp + g + 8 * h;
+      if (r >= p.M) continue;
+      float* out = y + (OUT_MAP ? map_row(p, r) : (long)r) * p.Nout + col0 + 2 * cc;
+#pragma unroll
+      for (int t = 0; t < 8; ++t) {
+        const float2 bb = *reinterpret_cast<const float2*>(bvec + col0 + 8 * t + 2 * cc);
+        *reinterpret_cast<float2*>(out + 8 * t) =
+            make_float2(d[4 * t + 2 * h] + bb.x, d[4 * t + 2 * h + 1] + bb.y);
+      }
+    }
+  }
+}
+
+// The f32 kind's kernel: the bf16 kind's roles (warp 8 the x tiles, warp 9
+// the ring, the consumer groups the products).  y_map: kQkvGemm's planes;
+// y: kProjGemm's f32 rows.
+template <int KB, int KIND, bool MAP>
+__global__ void __launch_bounds__(kThreads, 1)
+ln_gemm_f32_sm90(const __grid_constant__ CUtensorMap x_map, const __grid_constant__ CUtensorMap w_map,
+                 const __grid_constant__ CUtensorMap y_map, float* __restrict__ y,
+                 const float* __restrict__ gamma, const float* __restrict__ beta,
+                 const float* __restrict__ bvec, const PlanF32 p, float eps) {
+  constexpr int R = kF32Rows;
+  constexpr int kTile = R * KB * 2 * 128;
+  constexpr bool kInMap = MAP && KIND == kQkvGemm;
+  constexpr bool kOutMap = MAP && KIND == kProjGemm;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;
+  const int S = p.S, AB = p.AB;
+  const uint32_t stages = base + AB * kTile, slots = stages + 2 * p.P * kBoxB;
+  const uint32_t bars = slots + S * kF32Slot;
+  const uint32_t a_bars = bars + 16 * S;  // each x buffer's full, then its empty
+  uint8_t* tiles = smem_raw + (base - raw);
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < S; ++s) {
+      mbar_init(bars + 8 * s, 1);
+      mbar_init(bars + 8 * (S + s), 4);  // the warps of the group that reads the slot
+    }
+    for (int i = 0; i < AB; ++i) {
+      mbar_init(a_bars + 8 * i, 1);
+      mbar_init(a_bars + 8 * (AB + i), 8);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= kConsumers) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kLoaderRegs));
+    const int warp = (threadIdx.x - kConsumers) / 32;
+    if ((threadIdx.x & 31) != 0) return;
+    if (warp == 0) {  // the x tiles, into the buffers in turns, two f32 boxes a chunk
+      int n = 0;
+      for (int t = blockIdx.x; t < p.tiles; t += gridDim.x, ++n) {
+        const int buf = n % AB, use = n / AB;
+        if (use > 0) mbar_wait(a_bars + 8 * (AB + buf), (use - 1) & 1);
+        mbar_expect_tx(a_bars + 8 * buf, kTile);
+        const uint32_t dst = base + buf * kTile;
+        for (int x = 0; x < 2 * KB; ++x) {
+          if constexpr (kInMap)
+            tma_load_5d(dst + x * R * 128, &x_map, a_bars + 8 * buf, x * kF32BoxK, WinCoords(p, t * R));
+          else
+            tma_load(dst + x * R * 128, &x_map, a_bars + 8 * buf, x * kF32BoxK, t * R, 0);
+        }
+      }
+    } else if (warp == 1) {  // the ring in the bf16 kind's order: a slot a (box, column tile), hi and lo
+      RingPos pos;
+      bool wrapped = false;
+      for (int t = blockIdx.x; t < p.tiles; t += gridDim.x)
+        for (int ct = 0; ct < p.ncol; ct += 2)
+          for (int b = 0; b < KB; ++b)
+            for (int i = 0; i < (ct + 1 < p.ncol ? 2 : 1); ++i) {
+              const uint32_t full = bars + 8 * pos.slot, dst = slots + pos.slot * kF32Slot;
+              if (wrapped) mbar_wait(bars + 8 * (S + pos.slot), pos.phase ^ 1);
+              mbar_expect_tx(full, kF32Slot);
+              tma_load(dst, &w_map, full, b * kBoxK, (ct + i) * kCols, 0);
+              tma_load(dst + kBoxB, &w_map, full, b * kBoxK, (ct + i) * kCols, 1);
+              pos.next(S);
+              wrapped = wrapped || pos.slot == 0;
+            }
+    }
+    return;
+  }
+
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
+  const int c = threadIdx.x / 128;
+  const int warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
+  const int g = lane >> 2, cc = lane & 3;
+  const uint32_t stage = stages + c * p.P * kBoxB;  // the group's P staging tiles
+  RingPos ring;
+  int n = 0;
+  for (int t = blockIdx.x; t < p.tiles; t += gridDim.x, ++n) {
+    const int buf = n % AB;
+    mbar_wait(a_bars + 8 * buf, (n / AB) & 1);
+    split_tile_f32<KB, KIND>(tiles + buf * kTile, gamma, beta, eps);
+    fence_proxy_async();
+    consumers_sync();  // both groups read every row of the tile
+    const uint64_t da = desc<64>(base + buf * kTile);  // chunk 0's hi box
+    int ct = 0;
+    for (; ct + 1 < p.ncol; ct += 2)
+      gemm_step_f32<KB, 2, KIND, kOutMap>(slots, bars, S, ring, c, da, stage, &y_map, y, p, bvec, t * R, ct, c,
+                                          warp, g, cc);
+    if (ct < p.ncol) {
+      if (c == 0)
+        gemm_step_f32<KB, 1, KIND, kOutMap>(slots, bars, S, ring, 0, da, stage, &y_map, y, p, bvec, t * R, ct,
+                                            c, warp, g, cc);
+      else
+        for (int b = 0; b < KB; ++b) ring.next(S);  // group 0's tile
+    }
+    release(a_bars + 8 * (AB + buf));
+  }
+  // the group's output stores have read their staging tiles before the block exits
+  if ((threadIdx.x & 127) == 0) asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+
+template <int KB, int KIND, bool MAP>
+cudaError_t launch_f32_kb(const CUtensorMap (&maps)[3], void* y, const float* gamma, const float* beta,
+                          const float* b, const PlanF32& p, float eps, int sms, cudaStream_t stream) {
+  static bool opted_in = false;  // one per instance, and this library's own
+  if (!opted_in) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        ln_gemm_f32_sm90<KB, KIND, MAP>, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemMax);
+    if (e != cudaSuccess) return e;
+    opted_in = true;
+  }
+  const int grid = p.tiles < sms ? p.tiles : sms;
+  ln_gemm_f32_sm90<KB, KIND, MAP><<<grid, kThreads, p.smem_bytes(), stream>>>(
+      maps[0], maps[1], maps[2], static_cast<float*>(y), gamma, beta, b, p, eps);
+  return cudaGetLastError();
+}
+
+// One call of the f32 kind: x (M, K) contiguous f32, wt2 the (2, Nout, K)
+// bf16 (hi, lo) pair, y the (2, M, Nout) bf16 (hi, lo) planes (kQkvGemm)
+// or (M, Nout) f32 (kProjGemm), 16-byte aligned bases; gamma, beta (K) f32
+// (unread in kProjGemm), b (Nout) f32.  The bf16 kind's shapes and window
+// map (x of kQkvGemm in map order; y of kProjGemm written in map order).
+// Anything else returns cudaErrorInvalidValue.
+template <int KIND, bool MAP>
+cudaError_t run_f32(const float* x, const float* gamma, const float* beta, const void* wt2, const float* b,
+                    void* y, int M, int K, int Nout, float eps, cudaStream_t stream, int ws = 0, int Wm = 0) {
+  static_assert(KIND == kQkvGemm || KIND == kProjGemm, "a kind of the core");
+  if (MAP != (ws > 0)) return cudaErrorInvalidValue;
+  PlanF32 p;
+  cudaError_t e = make_plan_f32(&p, M, K, Nout, KIND == kQkvGemm, ws, Wm);
+  if (e != cudaSuccess) return e;
+  constexpr CUtensorMapDataType kF32 = CU_TENSOR_MAP_DATA_TYPE_FLOAT32, kBf = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  CUtensorMap maps[3];
+  e = MAP && KIND == kQkvGemm
+          ? encode_window_map(&maps[0], kF32, 4, x, K, ws, Wm, M, kF32Rows)
+          : encode_3d(&maps[0], kF32, 4, x, K, M, 1, kF32BoxK, kF32Rows, CU_TENSOR_MAP_SWIZZLE_128B);
+  if (e == cudaSuccess) e = encode_3d(&maps[1], kBf, 2, wt2, K, Nout, 2, kBoxK, kCols, CU_TENSOR_MAP_SWIZZLE_128B);
+  if (e == cudaSuccess) {
+    if (KIND == kQkvGemm)  // the (2, M, Nout) planes in 64 x 64 boxes
+      e = encode_3d(&maps[2], kBf, 2, y, Nout, M, 2, kCols, 64, CU_TENSOR_MAP_SWIZZLE_128B);
+    else
+      maps[2] = maps[1];  // unread: kProjGemm stores from the accumulators
+  }
+  int sms = 0;
+  if (e == cudaSuccess) e = sm_count(&sms);
+  if (e != cudaSuccess) return e;
+  switch (p.KB) {
+    case 1: return launch_f32_kb<1, KIND, MAP>(maps, y, gamma, beta, b, p, eps, sms, stream);
+    case 2: return launch_f32_kb<2, KIND, MAP>(maps, y, gamma, beta, b, p, eps, sms, stream);
+    case 3: return launch_f32_kb<3, KIND, MAP>(maps, y, gamma, beta, b, p, eps, sms, stream);
+    case 4: return launch_f32_kb<4, KIND, MAP>(maps, y, gamma, beta, b, p, eps, sms, stream);
+    case 5: return launch_f32_kb<5, KIND, MAP>(maps, y, gamma, beta, b, p, eps, sms, stream);
+    case 6: return launch_f32_kb<6, KIND, MAP>(maps, y, gamma, beta, b, p, eps, sms, stream);
+    case 7: return launch_f32_kb<7, KIND, MAP>(maps, y, gamma, beta, b, p, eps, sms, stream);
+    case 8: return launch_f32_kb<8, KIND, MAP>(maps, y, gamma, beta, b, p, eps, sms, stream);
+    default: return launch_f32_kb<9, KIND, MAP>(maps, y, gamma, beta, b, p, eps, sms, stream);
   }
 }
 

@@ -3,7 +3,8 @@
 // tensor maps and 1D bulk copies), wgmma shared-memory descriptors and the
 // wgmma shapes of the attention cores (attention_bwd_sm90.cuh,
 // attention_fwd_sm90.cuh), the LayerNorm + GEMM core (ln_gemm_sm90.cuh)
-// and K10's kernel (mbconv_sm90.cuh).  They are the pieces of
+// and K10's kernel (mbconv_sm90.cuh), and the split products both
+// attention cores' f32 kinds run.  They are the pieces of
 // K6's kernel (clip_flash.cu, which takes its tensor maps and SM count from
 // here and keeps its own device helpers), for tiles of bf16 rows of
 // HD = 16, 32 or 64 elements swizzled over one row's bytes.
@@ -414,6 +415,38 @@ __device__ __forceinline__ void pack_a(const float (&x)[32], uint32_t (&a)[4][4]
   }
 }
 
+// The split products of the attention cores' f32 kinds
+// (attention_bwd_sm90.cuh, attention_fwd_sm90.cuh): an f32 operand x
+// enters wgmma as two bf16 operands hi = bf16(x) and lo = bf16(x - hi), and
+// each product sums lo.hi + hi.lo + hi.hi in the f32 accumulator (three
+// wgmma for one, about 2^-17 of error a product).  kSplitRows: the rows of
+// a split tile.
+constexpr int kSplitRows = 64;
+
+// A 64 x 64 f32 accumulator split as the A fragments of the 4 k-steps of a
+// product over its 64 columns (pack_a's layout).
+__device__ __forceinline__ void split_a(const float (&x)[32], uint32_t (&hi)[4][4], uint32_t (&lo)[4][4]) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const Frag<float> f = split_pair(x[8 * kk + 2 * i], x[8 * kk + 2 * i + 1]);
+      hi[kk][i] = f.hi;
+      lo[kk][i] = f.lo;
+    }
+}
+
+// d (64 x HD) += A . B over the 64 rows of a column tile, A split in
+// registers, B's hi tile at b_hi and lo tile kHalf after it (MN-major).
+template <int HD>
+__device__ __forceinline__ void split_k64(float (&d)[HD / 2], const uint32_t (&ah)[4][4],
+                                          const uint32_t (&al)[4][4], uint32_t b_hi) {
+  constexpr uint32_t kHalf = kSplitRows * HD * 2;
+  wgmma_k64_rs<HD>(d, al, desc<HD>(b_hi));
+  wgmma_k64_rs<HD>(d, ah, desc<HD>(b_hi + kHalf));
+  wgmma_k64_rs<HD>(d, ah, desc<HD>(b_hi));
+}
+
 // The warp's arrival on an empty barrier (lane 0, predicated: no branch).
 __device__ __forceinline__ void arrive_nb(uint32_t bar) {
   __syncwarp();
@@ -444,15 +477,15 @@ __device__ __forceinline__ void store_wait_read(bool leader) {
                : "memory");
 }
 
-// The leader's TMA store of an output box at (c0, rows from c1) from
+// The leader's TMA store of an output box at (c0, rows from c1, c2) from
 // shared memory at src (rows past the tensor's end are not written).
 __device__ __forceinline__ void store_tile_tma(bool leader, const CUtensorMap* map, uint32_t src, int c0,
-                                               int c1) {
+                                               int c1, int c2 = 0) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %0, 0;\n"
       "@p cp.async.bulk.tensor.3d.global.shared::cta.bulk_group [%1, {%3, %4, %5}], [%2];\n"
       "@p cp.async.bulk.commit_group;\n}\n" ::"r"((int)leader),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(src), "r"(c0), "r"(c1), "r"(0)
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(src), "r"(c0), "r"(c1), "r"(c2)
       : "memory");
 }
 

@@ -451,6 +451,21 @@ def _weight_t(w, rows, cols, dtype):
     return _check("weight", w.t().to(dtype).contiguous(), (rows, cols), dtype)
 
 
+def _split_bf16(w):
+    """mbconv._split_bf16: the f32 kinds' stacked bf16 (hi, lo) weight."""
+    from geoguessr_ai_torch.ops.mbconv import _split_bf16 as split
+
+    return split(w)
+
+
+def _qkv_planes(W, N, D, device):
+    """K2's and K9's f32 qkv scratch: the (2, W, N, 3D) bf16 hi and lo
+    planes of the f32 qkv, which the LN + GEMM core's f32 kind stores and
+    the forward core's f32 kind loads as the operands of its split
+    products."""
+    return torch.empty((2, W, N, 3 * D), dtype=torch.bfloat16, device=device)
+
+
 def _vec_f32(v, n, name):
     return _check(name, v.float().contiguous(), (n,), torch.float32)
 
@@ -564,8 +579,9 @@ def _fb_s2_cuda(x, ln_scale, ln_bias, w_qkv, b_qkv, bias, scale,
     3D) scratch and the attention.  The bf16 entry runs the Hopper
     LayerNorm + GEMM core and then the forward core in its interleaved
     layout over ``_headmajor_groups`` window groups (as K3), which takes N
-    up to FB_S2_MAX_N and C up to FB_S2_MAX_C; the f32 twin runs the first
-    design."""
+    up to FB_S2_MAX_N and C up to FB_S2_MAX_C; the f32 entry runs both
+    cores' f32 kinds (w_qkv as its bf16 (hi, lo) pair, ``_split_bf16``),
+    which take N up to FB_S2_MAX_N and C up to LN_GEMM_MAX_K."""
     W, N, C = x.shape
     D = w_qkv.shape[1] // 3
     hd = _check_geometry(W, N, C, D, num_heads, gemm=True)
@@ -578,16 +594,22 @@ def _fb_s2_cuda(x, ln_scale, ln_bias, w_qkv, b_qkv, bias, scale,
     # the qkv GEMM adds its bias in x's dtype, as the TPU kernel does
     bq = _vec_f32(b_qkv.to(dt), 3 * D, "b_qkv")
     bias = _bias_as(bias, num_heads, N, dt)
-    qkv = torch.empty((W, N, 3 * D), dtype=x.dtype, device=x.device)
     out = torch.empty((W, N, D), dtype=x.dtype, device=x.device)
-    groups, other = 1, None
     if dt == torch.bfloat16:
         if N > FB_S2_MAX_N or C > FB_S2_MAX_C:
             raise ValueError(f"K2 takes N up to {FB_S2_MAX_N} and C up to "
                              f"{FB_S2_MAX_C} in bf16, got N={N}, C={C}")
+        qkv = torch.empty((W, N, 3 * D), dtype=dt, device=x.device)
         _qkv_layout(*((t.shape, t.stride(), t.data_ptr(), t.element_size())
                       for t in (qkv, bias)), num_heads)
         groups, other = _fwd_groups_entry("K2", W, num_heads, N, hd, knobs)
+    else:
+        if N > FB_S2_MAX_N or C > LN_GEMM_MAX_K:
+            raise ValueError(f"K2 takes N up to {FB_S2_MAX_N} and C up to "
+                             f"{LN_GEMM_MAX_K} in f32, got N={N}, C={C}")
+        wq = _split_bf16(wq)
+        qkv = _qkv_planes(W, N, D, x.device)
+        groups, other = _headmajor_groups(W, num_heads, N), None
     fn = _entry("fb_s2", "fb_s2", dt, other)
     err = fn(x.data_ptr(), ls.data_ptr(), lb.data_ptr(), wq.data_ptr(),
              bq.data_ptr(), bias.data_ptr(), qkv.data_ptr(), out.data_ptr(),
@@ -600,18 +622,18 @@ def _fb_s2_cuda(x, ln_scale, ln_bias, w_qkv, b_qkv, bias, scale,
 
 def _fused_block_plan(N, C, D, window=None):
     """Raises ValueError where K1's bf16 entry (or, given the ``window``
-    side, K9's) has no plan: the attention keeps a bf16 64 x N bias tile
-    resident (N up to FB_S2_MAX_N), the GEMM core takes K up to
-    LN_GEMM_MAX_K (C for the qkv GEMM, D for the out-projection), and K9's
-    window map reads 128-row tiles of one window in boxes of whole window
-    rows (a side dividing 64, N a multiple of 128: 16 or 32)."""
+    side, K9's bf16 or f32 entry) has no plan: the attention keeps a bf16
+    64 x N bias tile resident (N up to FB_S2_MAX_N), the GEMM core takes K
+    up to LN_GEMM_MAX_K (C for the qkv GEMM, D for the out-projection), and
+    K9's window map reads 128-row tiles of one window in boxes of whole
+    window rows (a side dividing 64, N a multiple of 128: 16 or 32)."""
     name = "K1" if window is None else "K9"
     if N > FB_S2_MAX_N or C > LN_GEMM_MAX_K or D > LN_GEMM_MAX_K:
         raise ValueError(f"{name} takes N up to {FB_S2_MAX_N} and C, D up to "
-                         f"{LN_GEMM_MAX_K} in bf16, got N={N}, C={C}, D={D}")
+                         f"{LN_GEMM_MAX_K}, got N={N}, C={C}, D={D}")
     if window is not None and (64 % window or N % 128):
         raise ValueError(f"K9 takes a window side dividing 64 with N a "
-                         f"multiple of 128 in bf16 (16 or 32), got {window}")
+                         f"multiple of 128 (16 or 32), got {window}")
 
 
 def _fused_block_launch(lib, x, ln_scale, ln_bias, w_qkv, b_qkv, w_proj,
@@ -623,9 +645,11 @@ def _fused_block_launch(lib, x, ln_scale, ln_bias, w_qkv, b_qkv, w_proj,
     groups, scale and eps before the stream.  In bf16 the entry runs the
     Hopper cores, whose attention reads qkv through a tensor map
     (``_qkv_layout``) over the window groups of the tile knobs
-    (``_fwd_call_plan``; K9's windows of a map row ``row_windows``); the
-    f32 twin ignores the groups.  Returns (the entry's error code, the
-    output shaped like x)."""
+    (``_fwd_call_plan``; K9's windows of a map row ``row_windows``).  K9's
+    f32 entry runs the cores' f32 kinds, with both weights as their bf16
+    (hi, lo) pairs (``_split_bf16``) and ``_headmajor_groups``; K1's f32
+    twin runs the first design and ignores the groups.  Returns (the
+    entry's error code, the output shaped like x)."""
     C = x.shape[-1]
     D = w_proj.shape[0]
     dt = x.dtype
@@ -637,7 +661,8 @@ def _fused_block_launch(lib, x, ln_scale, ln_bias, w_qkv, b_qkv, w_proj,
     wp = _weight_t(w_proj, C, D, dt)
     bp = _vec_f32(b_proj, C, "b_proj")
     bias = _bias_as(bias, num_heads, N, dt)
-    qkv = torch.empty((W, N, 3 * D), dtype=x.dtype, device=x.device)
+    qkv = (_qkv_planes(W, N, D, x.device) if lib == "fb4d" and dt != torch.bfloat16
+           else torch.empty((W, N, 3 * D), dtype=x.dtype, device=x.device))
     attn = torch.empty((W, N, D), dtype=x.dtype, device=x.device)
     out = torch.empty_like(x)
     groups, other = 1, None
@@ -647,6 +672,9 @@ def _fused_block_launch(lib, x, ln_scale, ln_bias, w_qkv, b_qkv, w_proj,
         groups, other = _fwd_groups_entry(
             "K1" if lib == "fused_block" else "K9", W, num_heads, N,
             D // num_heads, knobs, row_windows)
+    elif lib == "fb4d":
+        wq, wp = _split_bf16(wq), _split_bf16(wp)
+        groups = _headmajor_groups(W, num_heads, N)
     err = _entry(lib, lib, dt, other)(
         x.data_ptr(), ls.data_ptr(), lb.data_ptr(), wq.data_ptr(),
         bq.data_ptr(), wp.data_ptr(), bp.data_ptr(), bias.data_ptr(),
@@ -686,7 +714,8 @@ def _fb4d_cuda(x, ln_scale, ln_bias, w_qkv, b_qkv, w_proj, b_proj, bias,
     maps: the qkv GEMM reads x and the out-projection writes out in window
     order through a 5D map over the map, so qkv and the attention output
     are K1's window-ordered scratch (``_fused_block_plan`` with the window
-    side).  The f32 twin runs the first design, its scratch in map order."""
+    side).  The f32 entry runs the same launches on the cores' f32 kinds,
+    with the same limits."""
     if x.dim() != 4:
         raise ValueError(f"x must be (B, H, W, C), got {tuple(x.shape)}")
     B, Hm, Wm, C = x.shape
@@ -700,8 +729,7 @@ def _fb4d_cuda(x, ln_scale, ln_bias, w_qkv, b_qkv, w_proj, b_proj, bias,
     dt = _act_dtype(x=x)
     knobs = _knobs_for("K9", dt)
     _check("x", x, (B, Hm, Wm, C), dt)
-    if dt == torch.bfloat16:
-        _fused_block_plan(N, C, D, window)
+    _fused_block_plan(N, C, D, window)
     err, out = _fused_block_launch(
         "fb4d", x, ln_scale, ln_bias, w_qkv, b_qkv, w_proj, b_proj, bias,
         num_heads, W, N, (B, Hm, Wm, C, num_heads, hd, window), scale, eps,
@@ -1057,6 +1085,49 @@ def _fwd_plan(W, H, N, G, hd, bias_elem, may_stream, rows=64):
     nt = 2 if C % 2 == 0 else 1
     return plan(-(-W // 4), nt, 4, 64 * 64 * nt * bias_elem, 1,
                 ((2, 4 * nt), (1, 4 * nt)))
+
+
+#: The forward core's f32 kind (attention_fwd_sm90.cuh): the q buffers of
+#: a consumer group (kF32QB) and the windows of a streamed item
+#: (kF32StreamWindows).
+_FWD_F32_QB = 2
+_FWD_F32_STREAM_WINDOWS = 2
+
+
+def _fwd_plan_f32(W, H, N, G, hd):
+    """Mirror of attention_fwd_sm90.cuh ``make_plan_f32``, the plan of K2's
+    and K9's f32 attention as ``_fwd_plan``'s dict (rows 64): the item's
+    64 x N f32 bias tile resident where it fits (two buffers beside a ring
+    of two chunks, else one beside one), else streamed in chunks of 64 rows
+    x NT key tiles over items of two windows (G = ceil(W / 2)); chunks of
+    NT = 2 key tiles (1 where N / 64 is odd); each consumer group's q
+    buffers and ring slots a 64-row bf16 hi tile and its lo tile each."""
+    C = N // 64
+    tile = 64 * hd * 4
+    nt = 2 if C % 2 == 0 else 1
+
+    def fit(nb, bias, need):
+        def barriers(slots):
+            return 8 * (2 * nb + 4 * (_FWD_F32_QB + slots))
+
+        room = _FWD_SMEM_MAX - 1024 - barriers(_FWD_MAX_SLOTS) - nb * bias
+        slots = min(room // (2 * tile) - _FWD_F32_QB, _FWD_MAX_SLOTS)
+        if slots < need:
+            return None
+        return {"NB": nb, "S": slots, "smem": 1024 + nb * bias + 2 * (
+            _FWD_F32_QB + slots) * tile + barriers(slots)}
+
+    for stream, g, bias, needs in (
+            (0, G, 64 * N * 4, ((2, 2 * nt), (1, nt))),
+            (1, -(-W // _FWD_F32_STREAM_WINDOWS), 64 * 64 * nt * 4,
+             ((2, nt), (1, nt)))):
+        for nb, need in needs:
+            got = fit(nb, bias, need)
+            if got:
+                return {"items": C * g * H, "G": g, "NT": nt,
+                        "QB": _FWD_F32_QB, "stream": stream, "rows": 64,
+                        **got}
+    return None
 
 
 def _fused_block_wb(W, N, H, knobs, row_windows=None):

@@ -41,11 +41,15 @@ import torch
 
 #: Kernel-name substrings -> the port's layer they belong to, first match.
 GROUPS = (
-    # the first design, which only the f32 twins of K1, K2, K3 and K9 run
-    # (in bf16 their attention runs the forward core, which _group tells
-    # apart by its template arguments)
-    ("window_attention_kernel", "attention (f32 K1/K2/K3/K9 CUDA)"),
-    ("ln_gemm_kernel", "LN+GEMM (f32 K1/K2/K9 CUDA)"),
+    # the first design, which only the f32 twins of K1 and K3 run (in bf16
+    # their attention runs the forward core, which _group tells apart by
+    # its template arguments)
+    ("window_attention_kernel", "attention (f32 K1/K3 CUDA)"),
+    ("ln_gemm_kernel", "LN+GEMM (f32 K1 CUDA)"),
+    # the f32 kinds of the LayerNorm + GEMM core and the forward core, which
+    # K2's and K9's f32 entries run
+    ("ln_gemm_f32_sm90", "LN+GEMM (f32 K2/K9 CUDA)"),
+    ("attention_fwd_f32_sm90", "attention (f32 K2/K9 CUDA)"),
     # the bf16 Hopper kernels: the LayerNorm + GEMM core (K1's and K9's qkv
     # GEMM and out-projection, K2's qkv GEMM) and K10's; K10's f32 kind
     ("ln_gemm_sm90", "LN+GEMM (K1/K2/K9 CUDA)"),

@@ -38,8 +38,13 @@
 # f32 at PERF.md's seven f32 backward rows as device time, beside SDPA's
 # f32 backward, with each launch's device time and hashes of the bf16
 # entries' outputs at the train shapes (bwd_f32_ab below); AB_PHASES=
-# f32_serve only the p50s of the f32 paths that launch K10 (f32_serve_ab
-# below).
+# f32_serve only the p50s of the f32 paths that launch K2, K9 and K10
+# (f32_serve_ab below); AB_PHASES=fwd_f32 K2 and K9 in f32 at their main
+# shapes as device time with their largest error against the plain f32
+# version, hashes of every bf16 forward entry's output, then the f32
+# serving p50s (fwd_f32_ab below), and after the four runs whether the
+# forward core's and the LN + GEMM core's bf16 kernels compiled to the
+# same SASS in both trees.
 set -u
 parent=${1:?usage: chip_ab.sh PARENT_DIR}
 out=$(pwd)/${AB_OUT:-build/ab_logs}
@@ -114,11 +119,11 @@ def mbconv_ab():
 
 
 def f32_serve_ab():
-    """The f32 paths that launch K10 (chip_smoke.py phase 25): the f32
-    TinyViT engine with fused_mbconv and fused_block_4d at bucket 16
-    (predict_batch p50 over 11 calls after a warm-up) and the f32 Embedder
-    of bulk_embed_config() at 64 images (p50 over 11 calls), each with
-    K10's launches in one call."""
+    """The f32 paths that launch K2, K9 and K10 (chip_smoke.py phase 25):
+    the default f32 TinyViT engine and the one with fused_mbconv and
+    fused_block_4d at bucket 16 (predict_batch p50 over 11 calls after a
+    warm-up) and the f32 Embedder of bulk_embed_config() at 64 images (p50
+    over 11 calls), each with K2's, K9's and K10's launches in one call."""
     import gc
 
     import numpy as np
@@ -127,6 +132,7 @@ def f32_serve_ab():
     from geoguessr_ai_torch.data.embed_builder import Embedder, bulk_embed_config
     from geoguessr_ai_torch.models.tinyvit import TinyViTConfig
     from geoguessr_ai_torch.ops import mbconv
+    from geoguessr_ai_torch.ops import window_attention as wa
     from geoguessr_ai_torch.serving.engine import ServingEngine
 
     f32 = torch.float32
@@ -135,25 +141,117 @@ def f32_serve_ab():
         fn()
         torch.cuda.synchronize()
         mbconv.reset_launches()
+        wa.reset_launches()
         fn()
         torch.cuda.synchronize()
         k10 = mbconv.LAUNCHES["_mbconv_cuda"]
+        k2, k9 = wa.LAUNCHES["_fb_s2_cuda"], wa.LAUNCHES["_fb4d_cuda"]
         p50 = cs._p50_ms(fn, reps=11)
-        print(f"AB f32 {label} p50 {p50:.2f} ms (K10 {k10} a call)")
+        print(f"AB f32 {label} p50 {p50:.2f} ms (K2 {k2}, K9 {k9}, K10 "
+              f"{k10} a call)")
 
-    engine = ServingEngine(seed=cs.SEED, backbone_config=TinyViTConfig(
-        dtype=f32, fused_mbconv=True, fused_block_4d=True))
-    _, views = cs._fixture_views(engine)
-    batch = np.repeat(views[None], 16, axis=0)
-    read("knobs engine bucket 16", lambda: engine.predict_batch(batch))
-    del engine
-    gc.collect()
-    torch.cuda.empty_cache()
+    for label, knobs in (("default engine", {}),
+                         ("knobs engine", dict(fused_mbconv=True,
+                                               fused_block_4d=True))):
+        engine = ServingEngine(seed=cs.SEED, backbone_config=TinyViTConfig(
+            dtype=f32, **knobs))
+        _, views = cs._fixture_views(engine)
+        batch = np.repeat(views[None], 16, axis=0)
+        read(f"{label} bucket 16", lambda: engine.predict_batch(batch))
+        del engine
+        gc.collect()
+        torch.cuda.empty_cache()
     emb = Embedder(BackboneConfig.tinyvit(), seed=cs.SEED,
                    model_config=bulk_embed_config(dtype=f32))
     _, images = cs._fixture_views(emb)
     images = images[np.arange(64) % 4]
     read("Embedder B=64", lambda: emb(images))
+
+
+def fwd_f32_ab():
+    """K2 in f32 at stage 2 of a serving bucket of 16 and K9 in f32 at 64
+    and 512 images of stage 1 (chip_smoke's shapes) as device time
+    (cs.kernel_ms) with each one's largest error against its plain f32
+    version and each launch's device time; hashes of every bf16 forward
+    entry's output on seeded inputs (K1 at stage 1 and the embed stage 3,
+    K2, K3, K8a at stage 2 and stage 3 of bucket 1, K8b at stages 1 and 3,
+    K9 at 64 images, and the 128-row kinds of K2 and K9: equal in both
+    trees when their bits did not change); then f32_serve_ab."""
+    from geoguessr_ai_torch.ops import window_attention as wa
+
+    f32, bf = torch.float32, torch.bfloat16
+    gen = torch.Generator().manual_seed(25)
+    a = cs._case_inputs(64, 1024, 384, 12, gen, f32)
+    k2 = (a["x"], a["ln_scale"], a["ln_bias"], a["w_qkv"], a["b_qkv"],
+          a["bias"], 32 ** -0.5, 12, 1e-5)
+    cases = [("K2 (64, 1024, 384) H=12", lambda: wa._fb_s2_cuda(*k2),
+              lambda: wa._fb_s2_plain(*k2))]
+    for images in (64, 512):
+        kern, plain, args, *_ = cs._embed_kernel_case("K9", images, gen, f32)
+        cases.append((f"K9 ({images}, 64, 64, 192) H=6",
+                      lambda kern=kern, args=args: kern(*args),
+                      lambda plain=plain, args=args, images=images:
+                      cs._sliced(plain, args, images)))
+    for label, fn, plain in cases:
+        ms = cs.kernel_ms(fn)
+        out = fn()
+        torch.cuda.synchronize()
+        _, rel = cs._rel_err(out, plain())
+        print(f"AB f32 {label} device_ms {ms:.4f} max_rel_err {rel:.3g}")
+        launch = cs._launch_ms(fn)
+        print(f"AB f32 {label} launch_ms " + (
+            ", ".join(f"{n} {t:.4f}" for n, t in launch.items())
+            if launch else "not measured"))
+        del out
+        torch.cuda.empty_cache()
+    del a, k2, cases
+
+    def bits(label, fn):
+        out = fn()
+        torch.cuda.synchronize()
+        print(f"AB bf16 bits {label} {sha(out)}")
+
+    gen = torch.Generator().manual_seed(26)
+    for kernel, W, N, C, H in (("K1", 1024, 256, 192, 6),
+                               ("K1", 64, 256, 576, 18),
+                               ("K2", 64, 1024, 384, 12),
+                               ("K3", 64, 256, 576, 18)):
+        a = cs._case_inputs(W, N, C, H, gen)
+        scale = (C // H) ** -0.5
+        if kernel == "K1":
+            fn = lambda: wa._fused_block_cuda(
+                a["x"], a["ln_scale"], a["ln_bias"], a["w_qkv"], a["b_qkv"],
+                a["w_proj"], a["b_proj"], a["bias"], scale, H, 1e-5)
+        elif kernel == "K2":
+            fn = lambda: wa._fb_s2_cuda(
+                a["x"], a["ln_scale"], a["ln_bias"], a["w_qkv"], a["b_qkv"],
+                a["bias"], scale, H, 1e-5)
+        else:
+            qkv = wa._ln_qkv_plain(a["x"], a["ln_scale"], a["ln_bias"],
+                                   a["w_qkv"], a["b_qkv"], 1e-5)
+            fn = lambda: wa._attention_qkv_fused_cuda(qkv, a["bias"], scale, H)
+        bits(f"{kernel} ({W}, {N}, {C}) H={H}", fn)
+        if kernel == "K2":
+            wa.FWD_Q_ROWS = 128
+            bits(f"{kernel} q128 ({W}, {N}, {C}) H={H}", fn)
+            wa.FWD_Q_ROWS = 64
+    for kernel, W, H, N in (("K8a", 64, 12, 1024), ("K8a", 4, 18, 256),
+                            ("K8b", 1024, 6, 256), ("K8b", 64, 18, 256)):
+        q, k, v = (torch.randn(W, H, N, 32, generator=gen).to("cuda", bf)
+                   for _ in range(3))
+        hb = (torch.randn(H, N, N, generator=gen) * 0.5).to("cuda")
+        fn = (wa._attention_qtiled_cuda if kernel == "K8a"
+              else wa._attention_batched_cuda)
+        bits(f"{kernel} ({W}, {H}, {N})",
+             lambda: fn(q, k, v, hb, 32 ** -0.5))
+    kern, _, args, *_ = cs._embed_kernel_case("K9", 64, gen)
+    bits("K9 (64, 64, 64, 192) H=6", lambda: kern(*args))
+    wa.FWD_Q_ROWS = 128
+    bits("K9 q128 (64, 64, 64, 192) H=6", lambda: kern(*args))
+    wa.FWD_Q_ROWS = 64
+    del args
+    torch.cuda.empty_cache()
+    f32_serve_ab()
 
 
 def fusion_ab():
@@ -279,6 +377,9 @@ if os.environ.get("AB_PHASES") == "mbconv":
     sys.exit(0)
 if os.environ.get("AB_PHASES") == "f32_serve":
     f32_serve_ab()
+    sys.exit(0)
+if os.environ.get("AB_PHASES") == "fwd_f32":
+    fwd_f32_ab()
     sys.exit(0)
 if os.environ.get("AB_PHASES") == "serve":
     _, paths, result, _ = cs.phase_serve()
@@ -437,34 +538,44 @@ run . change2
 run "$parent" parent2
 # K10's bf16 kernels (mbconv_sm90<C, EXACT, PLAIN = false> in the mbconv
 # library) and K12a's / K12b's (mbconv_sm90<C, false, PLAIN = true> in
-# fused_mbconv_exp) in both trees' libraries, instruction by instruction
-# (cuobjdump's SASS without the addresses): "identical True" when the
-# change compiled them to the same code
-python3 - "$parent" <<'PY'
+# fused_mbconv_exp), and with AB_PHASES=fwd_f32 the bf16 kernels of the
+# forward core (attention_fwd_sm90), the LN + GEMM core (ln_gemm_sm90) and
+# the streamed-K GEMM core (gemm_sm90) in every library that builds them,
+# in both trees' libraries,
+# instruction by instruction (cuobjdump's SASS without the addresses):
+# "identical True" when the change compiled them to the same code
+python3 - "$parent" "${AB_PHASES:-}" <<'PY'
 import glob
 import re
 import subprocess
 import sys
 
 
-def kernels(tree, lib):
+def kernels(tree, lib, pattern):
     path = glob.glob(f"{tree}/build/kernels/{lib}-*.so")[0]
     sass = subprocess.run(["/usr/local/cuda/bin/cuobjdump", "-sass", path],
                           capture_output=True, text=True).stdout
     parts = re.split(r"\n\s*Function : (\S+)\n", sass)
     out = {}
     for name, body in zip(parts[1::2], parts[2::2]):
-        m = re.search(r"mbconv_sm90ILi(\d+)ELb([01])ELb([01])EE", name)
+        m = re.search(pattern, name)
         if m:
             out[m.groups()] = [re.sub(r"/\*[0-9a-f]+\*/", "", l).split(";")[0].strip()
                                for l in body.splitlines() if re.match(r"\s*/\*[0-9a-f]+\*/", l)]
     return out
 
 
-for lib, label in (("mbconv", "K10"), ("fused_mbconv_exp", "K12")):
-    old, new = kernels(sys.argv[1], lib), kernels(".", lib)
+mb = r"mbconv_sm90ILi(\d+)ELb([01])ELb([01])EE"
+checks = [("mbconv", "K10", mb), ("fused_mbconv_exp", "K12", mb)]
+if sys.argv[2] == "fwd_f32":
+    cores = r"((?:attention_fwd|ln_gemm|gemm)_sm90I\w+)"
+    checks += [(lib, lib, cores) for lib in (
+        "fb_s2", "fb4d", "fused_block", "attention_qkv", "attention_headmajor",
+        "tiled_gemm", "clip_flash_proj")]
+for lib, label, pattern in checks:
+    old, new = kernels(sys.argv[1], lib, pattern), kernels(".", lib, pattern)
     for key in sorted(old):
-        print(f"AB {label} SASS C={key[0]} exact={key[1]} plain={key[2]}: "
+        print(f"AB {label} SASS {' '.join(key)}: "
               f"{len(old[key])} / {len(new.get(key, []))} instructions, "
               f"identical {old[key] == new.get(key)}")
 PY

@@ -67,10 +67,15 @@ _K2_KEYS = ("x", "ln_scale", "ln_bias", "w_qkv", "b_qkv", "bias")
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
 @pytest.mark.parametrize("kernel", ["K1", "K2", "K3"])
 @pytest.mark.parametrize("W,N,C,H", [(4, 256, 192, 6), (2, 1024, 64, 2)])
-def test_cuda_kernel_matches_plain(cuda_device, kernel, W, N, C, H):
-    a = _inputs(W, N, C, H, cuda_device)
+def test_cuda_kernel_matches_plain(cuda_device, kernel, W, N, C, H, dtype):
+    """Each kernel against its plain version in its dtype: bf16 within
+    KERNEL_REL_TOL, f32 within F32_REL_TOL (K2's f32 entry on the cores'
+    f32 kinds, its bias streamed at N = 1024)."""
+    a = _inputs(W, N, C, H, cuda_device, dtype=dtype)
     scale = (C // H) ** -0.5
     if kernel == "K1":
         args = [a[k] for k in _K1_KEYS] + [scale, H, 1e-5]
@@ -92,9 +97,10 @@ def test_cuda_kernel_matches_plain(cuda_device, kernel, W, N, C, H):
     torch.cuda.synchronize()
     assert wa.LAUNCHES[name] == before + 1
     want = plain(*args).float()
-    assert got.shape == want.shape and got.dtype == torch.bfloat16
+    assert got.shape == want.shape and got.dtype == dtype
     assert bool(torch.isfinite(got).all())
-    assert _rel_err(got, want) < KERNEL_REL_TOL
+    tol = KERNEL_REL_TOL if dtype == torch.bfloat16 else F32_REL_TOL
+    assert _rel_err(got, want) < tol
 
 
 def _rel_err(got, want):
@@ -368,17 +374,23 @@ def _fb4d_args(B, Hm, Wm, C, H, device, seed=0, dtype=torch.bfloat16):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
 @pytest.mark.parametrize("B,Hm,Wm,C,H", FB4D_SHAPES)
-def test_cuda_fb4d_matches_plain(cuda_device, B, Hm, Wm, C, H):
-    args, scale, H = _fb4d_args(B, Hm, Wm, C, H, cuda_device)
+def test_cuda_fb4d_matches_plain(cuda_device, B, Hm, Wm, C, H, dtype):
+    """K9 against its plain version in its dtype: bf16 within
+    KERNEL_REL_TOL, f32 (the cores' f32 kinds through the window map)
+    within F32_REL_TOL."""
+    args, scale, H = _fb4d_args(B, Hm, Wm, C, H, cuda_device, dtype=dtype)
     before = wa.LAUNCHES["_fb4d_cuda"]
     got = wa._fb4d_cuda(*args, scale, H, 16, 1e-5)
     torch.cuda.synchronize()
     assert wa.LAUNCHES["_fb4d_cuda"] == before + 1
     want = wa._fb4d_plain(*args, scale, H, 16, 1e-5)
     assert got.shape == want.shape == (B, Hm, Wm, C)
-    assert got.dtype == torch.bfloat16 and bool(torch.isfinite(got).all())
-    assert _rel_err(got, want) < KERNEL_REL_TOL
+    assert got.dtype == dtype and bool(torch.isfinite(got).all())
+    tol = KERNEL_REL_TOL if dtype == torch.bfloat16 else F32_REL_TOL
+    assert _rel_err(got, want) < tol
 
 
 @pytest.mark.cuda

@@ -10,10 +10,11 @@ In bf16 ``_fused_block_cuda`` (K1) and ``_fb4d_cuda`` (K9) run three
 launches: the GEMM core's qkv kind (LayerNorm, ROUND_FIRST), the forward
 core in its interleaved layout over ``_headmajor_groups`` window groups,
 and the GEMM core's projection kind (no LayerNorm, ROUND_LAST); K9's two
-GEMMs read x and write out through the window map.  The f32 twins keep the
-first design.  The kernels themselves are held against the plain versions
-on the card by tests/test_torch_port_cuda.py (``-k fused_block_sm90``) and
-chip_smoke.py.
+GEMMs read x and write out through the window map.  K9's f32 entry runs
+the same launches on the cores' f32 kinds (tests/test_torch_port_fwd_f32.py);
+K1's f32 twin keeps the first design.  The kernels themselves are held
+against the plain versions on the card by tests/test_torch_port_cuda.py
+(``-k fused_block_sm90``) and chip_smoke.py.
 """
 
 import re
@@ -176,18 +177,24 @@ def test_window_map_boxes_read_and_write_window_order(shape, ws):
 
 
 def test_window_map_encoding_matches_the_mirror():
-    """``encode_window_map`` names the dims, strides (bytes of bf16) and
-    box the mirror above uses, with the 128-byte swizzle of a 2D box."""
+    """``encode_window_map`` names the dims, strides (bytes of the element:
+    2 in bf16, 4 in the f32 kind) and box the mirror above uses (128 bytes
+    of channels: 64 in bf16), with the 128-byte swizzle of a 2D box."""
     src = LNG90.read_text()
     body = re.search(r"cudaError_t encode_window_map\(.*?\n\}", src, re.S).group(0)
     squashed = re.sub(r"\s+", " ", body)
     for piece in ("(cuuint64_t)C, (cuuint64_t)ws, (cuuint64_t)(Wm / ws), "
                   "(cuuint64_t)ws, (cuuint64_t)(M / (ws * Wm))",
-                  "(cuuint64_t)(C * 2), (cuuint64_t)(ws * C * 2), "
-                  "(cuuint64_t)(Wm * C * 2), (cuuint64_t)(ws * Wm * C * 2)",
-                  "{64, (cuuint32_t)ws, 1, (cuuint32_t)(box_rows / ws), 1}",
+                  "(cuuint64_t)(C * elem), (cuuint64_t)(ws * C * elem), "
+                  "(cuuint64_t)(Wm * C * elem), (cuuint64_t)(ws * Wm * C * elem)",
+                  "{(cuuint32_t)(128 / elem), (cuuint32_t)ws, 1, "
+                  "(cuuint32_t)(box_rows / ws), 1}",
                   "CU_TENSOR_MAP_SWIZZLE_128B"):
         assert piece in squashed, piece
+    squashed_src = re.sub(r"\s+", " ", src)
+    assert "encode_window_map(&maps[0], kBf, 2, x, K, ws, Wm, M, kRows)" in src
+    assert "encode_window_map(&maps[2], kBf, 2, y, Nout, ws, Wm, M, 64)" in squashed_src
+    assert "encode_window_map(&maps[0], kF32, 4, x, K, ws, Wm, M, kF32Rows)" in squashed_src
     assert "cp.async.bulk.tensor.5d.shared::cluster.global" in src
     assert "cp.async.bulk.tensor.5d.global.shared::cta" in src
 
@@ -263,11 +270,21 @@ def test_k9_routes_bf16_to_the_window_map_with_k1s_groups(monkeypatch, dtype):
     ``fb4d_bf16`` with the same qkv scratch, layout check and G as K1 at
     the same windows; its body runs K1's three launches with the GEMMs'
     window map (MAP, the window side and the map's width).  An f32 call
-    reaches the twin, whose body runs the first design over MapRows.  The
+    reaches ``fb4d_f32`` with the same G and both weights split once into
+    their stacked bf16 (hi, lo) pairs, whose body runs the same three
+    launches on the cores' f32 kinds through the window map.  The
     arguments after the pointers are (B, Hm, Wm, C, H, hd, window, G,
     scale, eps, stream)."""
     calls = _fake_card(monkeypatch, wa)
     checked = _watch_layout(monkeypatch)
+    split = []
+    real_split = wa._split_bf16
+    monkeypatch.setattr(wa, "_split_bf16",
+                        lambda w: split.append(real_split(w)) or split[-1])
+    planes = []
+    real_planes = wa._qkv_planes
+    monkeypatch.setattr(wa, "_qkv_planes",
+                        lambda *a: planes.append(real_planes(*a)) or planes[-1])
     B, Hm, Wm, C, H = 4, 64, 64, 192, 6
     args = list(_k1_args(B * 16, 256, C, C, H, dtype))
     args[0] = torch.zeros(B, Hm, Wm, C, dtype=dtype)
@@ -279,22 +296,29 @@ def test_k9_routes_bf16_to_the_window_map_with_k1s_groups(monkeypatch, dtype):
     ((lib, entry, tail),) = calls
     tail = tail[3:]  # _fake_card keeps what follows K2's eight pointers
     assert (lib, entry) == ("fb4d", f"fb4d_{suffix}")
-    groups = wa._headmajor_groups(64, H, 256) if suffix == "bf16" else 1
+    groups = wa._headmajor_groups(64, H, 256)
     assert tail[:8] == (B, Hm, Wm, C, H, 32, 16, groups) and tail[8] == 0.25
     assert len(checked) == (suffix == "bf16")
     if checked:
         assert tuple(checked[0][0][0]) == (64, 256, 3 * C)  # K1's scratch
+    assert [tuple(w.shape) for w in split] == (
+        [] if suffix == "bf16" else [(2, 3 * C, C), (2, C, C)])
+    assert [(tuple(t.shape), t.dtype) for t in planes] == (
+        [] if suffix == "bf16" else [((2, 64, 256, 3 * C), torch.bfloat16)])
     body = _c_body(lib, entry)
+    assert "MapRows" not in body and "launch_ln_gemm" not in body
+    assert "launch_window_attention" not in body
+    assert body.count("window, Wm)") == 2
     if suffix == "bf16":
         assert "gg::lng90::run<kQkvGemm, true>(" in body
         assert "gg::lng90::run<kProjGemm, true>(attn_scratch" in body
-        assert body.count("window, Wm)") == 2
         assert ("run<kQkv, gg::bf16, HD, false>(qkv_scratch, qkv_scratch, "
                 "qkv_scratch, bias, attn_scratch") in body
-        assert "MapRows" not in body and "launch_ln_gemm" not in body
     else:
-        assert "lng90" not in body and "fwd90" not in body
-        assert "gg::MapRows rows" in body and "launch_window_attention(" in body
+        assert "gg::lng90::run_f32<kQkvGemm, true>(" in body
+        assert "gg::lng90::run_f32<kProjGemm, true>(" in body
+        assert ("gg::fwd90::run_f32<HD>(qkv_scratch, bias, attn_scratch, W, "
+                "H, N, groups, scale, s)") in body
 
 
 @pytest.mark.parametrize("kernel,shape,match", [
@@ -309,7 +333,9 @@ def test_k1_and_k9_refuse_what_their_bf16_entries_cannot_plan(
         monkeypatch, kernel, shape, match):
     """N above FB_S2_MAX_N, C or D above LN_GEMM_MAX_K, and for K9 a window
     side whose 128-row tiles straddle windows (8) or divides no 64 (24)
-    raise ValueError in bf16 before any launch; the f32 twin takes each."""
+    raise ValueError in bf16 before any launch, and for K9 in f32 too (its
+    f32 entry runs the same cores' f32 kinds); K1's f32 twin (the first
+    design) takes each."""
     calls = _fake_card(monkeypatch, wa)
     for dtype in (torch.bfloat16, torch.float32):
         if kernel == "K1":
@@ -321,14 +347,13 @@ def test_k1_and_k9_refuse_what_their_bf16_entries_cannot_plan(
             a = list(_k1_args(1, ws * ws, C, C, H, dtype))
             a[0] = torch.zeros(1, Hm, Wm, C, dtype=dtype)
             args, fn = (*a, 0.25, H, ws, 1e-5), wa._fb4d_cuda
-        if dtype == torch.bfloat16:
+        if dtype == torch.bfloat16 or kernel == "K9":
             with pytest.raises(ValueError, match=match):
                 fn(*args)
-            assert not calls
         else:
             fn(*args)
-    assert [c[1] for c in calls] == [
-        "fused_block_f32" if kernel == "K1" else "fb4d_f32"]
+    assert [c[1] for c in calls] == (
+        ["fused_block_f32"] if kernel == "K1" else [])
 
 
 # ---------------------------------------------------------------------------

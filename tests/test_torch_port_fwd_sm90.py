@@ -459,9 +459,13 @@ def test_the_headers_host_code_has_internal_linkage():
      "32, 4, false>(CUtensorMap, CUtensorMap, CUtensorMap, CUtensorMap, "
      "__nv_bfloat16*, gg::fwd90::(anonymous namespace)::Plan, float)",
      "head-major attention (K8b, K8a resident; CUDA)"),
-    ("void gg::(anonymous namespace)::window_attention_kernel<float, 32, "
-     "gg::WindowRows>(float const*, float const*, float*, int, int, float, "
-     "gg::WindowRows)", "attention (f32 K1/K2/K3/K9 CUDA)"),
+    ("void gg::(anonymous namespace)::window_attention_kernel<float, 32>("
+     "float const*, float const*, float*, int, int, float)",
+     "attention (f32 K1/K3 CUDA)"),
+    # the f32 kind K2 and K9 run
+    ("void gg::fwd90::(anonymous namespace)::attention_fwd_f32_sm90<32, 2, "
+     "true>(CUtensorMap, CUtensorMap, float*, gg::fwd90::(anonymous "
+     "namespace)::Plan, float)", "attention (f32 K2/K9 CUDA)"),
 ])
 def test_profile_groups_name_the_forward_core_by_its_kernels(kernel_name,
                                                              group):

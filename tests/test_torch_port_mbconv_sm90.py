@@ -11,7 +11,8 @@ core as K3 does.  K10's f32 twin runs the same kernel's f32 kind (8 x 16
 tiles, the two groups splitting each E-chunk's channels, split products):
 its layout, schedule, routing and a torch emulation of its rounding
 against the plain f32 version and the JAX kernel in interpret mode are
-here too.  K2's f32 twin keeps the first design.  The experimental
+here too.  K2's f32 entry runs the cores' f32 kinds
+(tests/test_torch_port_fwd_f32.py).  The experimental
 K12a / K12b run K10's kernel in its PLAIN kind (plain biases, f32 taps,
 only GELU's outputs rounded): their routing, their shape checks and a
 torch emulation of that rounding order against the plain version and the
@@ -329,15 +330,23 @@ def test_k2_routes_bf16_to_the_hopper_cores_with_the_groups(monkeypatch,
     """A bf16 call reaches ``fb_s2_bf16`` after ``_qkv_layout`` of its qkv
     scratch with G = ``_headmajor_groups`` (stage 2 of bucket 16: W=64,
     H=12, N=1024), whose body runs the LayerNorm + GEMM core and then the
-    forward core in its interleaved layout; an f32 call the twin (G = 1,
-    ignored), whose body runs common.cuh's first design.  One K2 launch
-    either way; the arguments after the pointers are (W, N, C, H, hd, G,
-    scale, eps, stream)."""
+    forward core in its interleaved layout; an f32 call reaches
+    ``fb_s2_f32`` with the same G and w_qkv split once into its stacked
+    bf16 (hi, lo) pair, whose body runs both cores' f32 kinds.  One K2
+    launch either way; the arguments after the pointers are (W, N, C, H,
+    hd, G, scale, eps, stream)."""
     calls = _fake_card(monkeypatch, wa)
-    checked = []
+    checked, split = [], []
     real = wa._qkv_layout
     monkeypatch.setattr(wa, "_qkv_layout",
                         lambda *a: checked.append(a) or real(*a))
+    real_split = wa._split_bf16
+    monkeypatch.setattr(wa, "_split_bf16",
+                        lambda w: split.append(real_split(w)) or split[-1])
+    planes = []
+    real_planes = wa._qkv_planes
+    monkeypatch.setattr(wa, "_qkv_planes",
+                        lambda *a: planes.append(real_planes(*a)) or planes[-1])
     W, N, C, H = 64, 1024, 384, 12
     x = torch.zeros(W, N, C, dtype=dtype)
     wa.reset_launches()
@@ -349,24 +358,34 @@ def test_k2_routes_bf16_to_the_hopper_cores_with_the_groups(monkeypatch,
     suffix = "bf16" if dtype == torch.bfloat16 else "f32"
     ((lib, entry, tail),) = calls
     assert (lib, entry) == ("fb_s2", f"fb_s2_{suffix}")
-    groups = wa._headmajor_groups(W, H, N) if suffix == "bf16" else 1
+    groups = wa._headmajor_groups(W, H, N)
     assert tail[:6] == (W, N, C, H, C // H, groups) and tail[6] == 0.25
     assert len(checked) == (suffix == "bf16")
+    assert [(tuple(w.shape), w.dtype) for w in split] == (
+        [] if suffix == "bf16" else [((2, 3 * C, C), torch.bfloat16)])
+    # the f32 qkv scratch: the bf16 hi and lo planes the GEMM stores
+    assert [(tuple(t.shape), t.dtype) for t in planes] == (
+        [] if suffix == "bf16" else [((2, W, N, 3 * C), torch.bfloat16)])
     body = _c_body(lib, entry)
+    assert "launch_ln_gemm" not in body and "launch_window_attention" not in body
     if suffix == "bf16":
         assert "gg::lng90::run<kQkvGemm, false>(" in body
         assert "run<kQkv, gg::bf16, HD, false>(qkv_scratch, qkv_scratch, qkv_scratch" in body
     else:
-        assert "lng90" not in body and "fwd90" not in body
-        assert "launch_ln_gemm<true, true>(" in body and "launch_window_attention(" in body
+        assert "gg::lng90::run_f32<kQkvGemm, false>(" in body
+        assert ("gg::fwd90::run_f32<HD>(qkv_scratch, bias, out, W, H, N, "
+                "groups, scale, s)") in body
 
 
 def test_k2_refuses_what_its_bf16_entry_cannot_plan(monkeypatch):
-    """N above FB_S2_MAX_N or C above FB_S2_MAX_C raises ValueError in bf16
-    before any launch; the f32 twin takes both."""
+    """N above FB_S2_MAX_N raises ValueError before any launch in both
+    dtypes; C above FB_S2_MAX_C in bf16, and above LN_GEMM_MAX_K (the GEMM
+    core's f32 kind) in f32."""
     calls = _fake_card(monkeypatch, wa)
-    for N, C, H in ((1088, 64, 2), (64, 512, 8)):
-        for dtype, refused in ((torch.bfloat16, True), (torch.float32, False)):
+    for N, C, H, f32_refused in ((1088, 64, 2, True), (64, 512, 8, False),
+                                 (64, 640, 10, True)):
+        for dtype, refused in ((torch.bfloat16, True),
+                               (torch.float32, f32_refused)):
             args = (torch.zeros(1, N, C, dtype=dtype), torch.ones(C),
                     torch.zeros(C), torch.zeros(C, 3 * C), torch.zeros(3 * C),
                     torch.zeros(H, N, N), 0.25, H, 1e-5)
@@ -375,7 +394,7 @@ def test_k2_refuses_what_its_bf16_entry_cannot_plan(monkeypatch):
                     wa._fb_s2_cuda(*args)
             else:
                 wa._fb_s2_cuda(*args)
-    assert [c[1] for c in calls] == ["fb_s2_f32", "fb_s2_f32"]
+    assert [c[1] for c in calls] == ["fb_s2_f32"]
 
 
 def _gemm_plan(M, K, Nout, ws=0, Wm=0):
@@ -640,7 +659,12 @@ def test_k10_f32_emulation_matches_plain_and_the_jax_kernel(exact):
     # the first design's GEMM, which only the f32 twins run
     ("void gg::(anonymous namespace)::ln_gemm_kernel<float, false, false>("
      "float const*, float const*, float const*, float const*, float const*, "
-     "float*, int, int, int, float)", "LN+GEMM (f32 K1/K2/K9 CUDA)"),
+     "float*, int, int, int, float)", "LN+GEMM (f32 K1 CUDA)"),
+    # the core's f32 kind, K2's and K9's f32 GEMMs
+    ("void gg::lng90::(anonymous namespace)::ln_gemm_f32_sm90<6, 0, false>("
+     "CUtensorMap, CUtensorMap, float*, float const*, float const*, float "
+     "const*, gg::lng90::(anonymous namespace)::PlanF32, float)",
+     "LN+GEMM (f32 K2/K9 CUDA)"),
     ("void gg::mb90::(anonymous namespace)::mbconv_sm90<96, false, false>("
      "CUtensorMap, CUtensorMap, CUtensorMap, CUtensorMap, CUtensorMap, "
      "CUtensorMap, CUtensorMap, CUtensorMap, __nv_bfloat16 const*, float "
@@ -657,7 +681,8 @@ def test_profile_groups_name_the_new_kernels(kernel_name, group):
     """``profile_forward`` puts the GEMM core (both kinds: K1's and K9's qkv
     GEMM and out-projection, K2's qkv GEMM) and K10's Hopper kernel (both
     kinds) in their layers (not cuBLAS's GEMM group, which "gemm" would
-    match), and the first design's GEMM in the f32 twins' layer."""
+    match), its f32 kind (K2's and K9's f32 GEMMs) in its own, and the
+    first design's GEMM in the layer of K1's f32 twin."""
     from geoguessr_ai_torch import profile_forward
 
     assert profile_forward._group(kernel_name) == group
