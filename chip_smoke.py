@@ -143,7 +143,11 @@ Phases, in order; any failure exits non-zero:
     element at 3.35 TB/s, products at the 495 TFLOP/s TF32 peak); K4's,
     K5's and K7's f32 entries (the backward core's f32 kind) also bitwise
     over two calls, their plan mirror equal to the CUDA plan query, each
-    launch's device time, and K7 on K5's stage-2 inputs bitwise K5's;
+    launch's device time, and K7 on K5's stage-2 inputs bitwise K5's; K6
+    and K11 (the f32 kinds of K6's kernel and the GEMM core) also at
+    ViT-B/32's N = 50, bitwise over two calls, K11 bitwise the core's f32
+    kind on the split of K6's f32 output, each launch's device time, K11
+    beside SDPA f32 + the f32 matmul;
 25. the f32 engines at bucket 16 (TinyViT default, head-major and with
     both knobs; CLIP-L with K6 and with K11) and the f32 ``Embedder`` of
     ``bulk_embed_config()`` at 64 images: exact launches of one forward,
@@ -900,8 +904,9 @@ def _launch_ms(fn, calls=3):
     (``ln_gemm_sm90<KB, KIND, MAP>`` and its f32 kind: the qkv GEMM or the
     out-projection),
     the GEMM core's (``gemm_sm90<KIND, BN>``, K11's out-projection) as
-    proj_gemm, the forward core's and K6's kernel as the attention, and
-    any other kernel by its name;
+    proj_gemm, the forward core's and K6's kernel as the attention, the
+    split of k and v into planes by K6's f32 kind as kv_split, and any other
+    kernel by its name;
     each a call's, over the calls the trace holds.  None when the trace
     holds no device kernels."""
     from torch.profiler import ProfilerActivity, profile
@@ -927,8 +932,10 @@ def _launch_ms(fn, calls=3):
         elif "gemm_sm90<" in key:  # the GEMM core: K11's projection
             key = "proj_gemm"
         elif ("attention_fwd_sm90<" in key or "attention_fwd_f32_sm90<" in key
-              or "clip_flash_sm90<" in key):
+              or "clip_flash_sm90<" in key or "clip_flash_f32_sm90<" in key):
             key = "attention"
+        elif "split_kv" in key:  # K6's and K11's f32 split of k and v
+            key = "kv_split"
         else:
             key = key.split("(")[0].split("<")[0].replace("void ", "")
         out[key] = out.get(key, 0.0) + evt.time_range.elapsed_us() / 1e3
@@ -3096,8 +3103,9 @@ F32_NOISE_FLOOR = 1e-6
 #: gives it (serving bucket 16, the B=16 train shapes, CLIP-L bucket 16,
 #: the embed batch of 512 images), as the bf16 phases run it, K4 at the
 #: B=64 finetune's TinyViT-5M-224 shapes (FT_K4_CASES; N padded to 64
-#: inside the wrapper) and K9 and K10 also at the 64 images of a serving
-#: bucket of 16 (the f32 knobs engine's shape).
+#: inside the wrapper), K9 and K10 also at the 64 images of a serving
+#: bucket of 16 (the f32 knobs engine's shape) and K6 and K11 also at
+#: ViT-B/32's N = 50.
 F32_CASES = (
     ("K1", "stage1", (1024, 256, 192, 6)),
     ("K1", "embed_stage3", (64, 256, 576, 18)),
@@ -3119,17 +3127,75 @@ F32_CASES = (
     ("K10", "bucket16", (EMBED_KERNEL_IMAGES[0],)),
     ("K6", "vit_l14_bucket16", (64, 577, 1024, 16)),
     ("K11", "vit_l14_bucket16", (64, 577, 1024, 16)),
+    ("K6", "vit_b32", (64, 50, 768, 12)),
+    ("K11", "vit_b32", (64, 50, 768, 12)),
 )
 F32_META = {**ALL_META, **CLIP_META, **EMBED_META, **HEADMAJOR_META,
             "K7": K7_META}
 
 
+def _clip_f32_inputs(B, N, D, H, gen):
+    """An f32 CLIP attention case from ``gen``: (qkv, w, scale, H), w the
+    (D, D) out-projection in (in, out) layout as the tower hands it over,
+    and the head-major (q, k, v) copies the yardsticks read."""
+    hd = D // H
+    qkv = torch.randn(B, N, 3 * D, generator=gen).to("cuda")
+    w = (torch.randn(D, D, generator=gen) * D ** -0.5).to("cuda")
+    q, k, v = (t.contiguous() for t in
+               qkv.view(B, N, 3, H, hd).permute(2, 0, 3, 1, 4))
+    return (qkv, w, hd ** -0.5, H), (q, k, v)
+
+
+def _clip_f32_case(kernel, args, heads):
+    """(kernel fn, plain fn, its args, yardstick) of K6 or K11 in f32 on
+    ``_clip_f32_inputs``' case; the yardstick () -> (ms, what) times SDPA
+    in f32 on the same q, k, v (K11: and then the f32 matmul of its output
+    by w), one PyTorch call of K6's function; the port never calls them."""
+    import torch.nn.functional as F
+
+    from geoguessr_ai_torch.ops import clip_attention as ca
+
+    qkv, w, scale, H = args
+    q, k, v = heads
+    sdpa = lambda: F.scaled_dot_product_attention(q, k, v, scale=scale)
+    if kernel == "K6":
+        return (ca._flash_cuda, ca._flash_plain, (qkv, scale, H),
+                lambda: (kernel_ms(sdpa), "scaled_dot_product_attention "
+                         "in f32"))
+    B, N, D = qkv.shape[0], qkv.shape[1], qkv.shape[2] // 3
+
+    def yardstick():
+        o = sdpa().transpose(1, 2).reshape(B, N, D)
+        ms = kernel_ms(sdpa) + kernel_ms(lambda: o @ w)
+        return ms, "SDPA f32 + matmul f32"
+    return ca._flash_proj_cuda, ca._flash_proj_plain, args, yardstick
+
+
+def _core_f32_of_k6(qkv, w, scale, H):
+    """The GEMM core's kSplitF32 kind alone (K11's f32 projection launch,
+    the C entry clip_flash_proj_gemm_f32) on the bf16 hi / lo planes of
+    K6's f32 output and of w^T, split in torch (``_split_bf16``): what
+    K11's f32 entry must equal bit for bit."""
+    from geoguessr_ai_torch.ops import _build
+    from geoguessr_ai_torch.ops import clip_attention as ca
+
+    B, N, D = qkv.shape[0], qkv.shape[1], qkv.shape[2] // 3
+    o2 = ca._split_bf16(ca._flash_cuda(qkv, scale, H).reshape(B * N, D))
+    wt2 = ca._split_bf16(w.t().float().contiguous())
+    out = torch.empty(B * N, D, device=qkv.device)
+    err = _build.entry("clip_flash_proj", "clip_flash_proj_gemm_f32")(
+        o2.data_ptr(), wt2.data_ptr(), out.data_ptr(), B * N, D,
+        torch.cuda.current_stream().cuda_stream)
+    if err:
+        fail(f"clip_flash_proj_gemm_f32 at {tuple(qkv.shape)}: error {err}")
+    return out.reshape(B, N, D)
+
+
 def _f32_case(kernel, shape, gen):
     """(kernel fn, plain fn, args, bound, bound_by, library) of one
     F32_CASES case, every operand f32; library is None or a function that
-    times one PyTorch call of the same function: (ms or None, what)."""
-    import torch.nn.functional as F
-
+    times one PyTorch call of the same function: (ms or None, what), and
+    where no one call computes it the yardstick's ms third."""
     from geoguessr_ai_torch.ops import clip_attention as ca
     from geoguessr_ai_torch.ops import window_attention as wa
 
@@ -3142,21 +3208,16 @@ def _f32_case(kernel, shape, gen):
                 bound_by, lambda: (None, f"[{what} in f32 {ms:.4f}]"))
     kern = getattr(ca if kernel in CLIP_META else wa, F32_META[kernel][0])
     if kernel in ("K6", "K11"):
-        B, N, D, H = shape
-        hd = D // H
-        qkv = torch.randn(B, N, 3 * D, generator=gen).to("cuda")
-        w = (torch.randn(D, D, generator=gen) * D ** -0.5).to("cuda")
-        q, k, v = (t.contiguous() for t in
-                   qkv.view(B, N, 3, H, hd).permute(2, 0, 3, 1, 4))
-        bound, bound_by = _clip_bound_ms(kernel, B, N, D, H, 4)
+        args, heads = _clip_f32_inputs(*shape, gen)
+        kern, plain, kargs, yardstick = _clip_f32_case(kernel, args, heads)
+        bound, bound_by = _clip_bound_ms(kernel, *shape, 4)
         if kernel == "K6":
-            return (kern, ca._flash_plain, (qkv, hd ** -0.5, H), bound,
-                    bound_by, lambda: (cuda_time_ms(
-                        lambda: F.scaled_dot_product_attention(
-                            q, k, v, scale=hd ** -0.5)),
-                        "scaled_dot_product_attention in f32"))
-        return (kern, ca._flash_proj_plain, (qkv, w, hd ** -0.5, H), bound,
-                bound_by, None)
+            return kern, plain, kargs, bound, bound_by, yardstick
+
+        def library():  # no one PyTorch call computes K11's function
+            ms, what = yardstick()
+            return None, f"[{what} {ms:.4f}]", ms
+        return kern, plain, kargs, bound, bound_by, library
     if kernel in ("K8a", "K8b"):
         W, H, N = shape
         q, k, v = (torch.randn(W, H, N, 32, generator=gen).to("cuda")
@@ -3271,7 +3332,7 @@ def phase_f32_kernels():
         torch.cuda.synchronize()
         bwd_line = (_f32_bwd_checks(kernel, label, shape, kern, args, got)
                     if kernel in ("K4", "K5", "K7") else None)
-        if kernel in ("K2", "K9", "K10"):
+        if kernel in ("K2", "K9", "K10", "K6", "K11"):
             # the Hopper cores' f32 kinds: every output element one
             # thread's sum in an order fixed by the shape
             stable = torch.equal(got, kern(*args))
@@ -3280,6 +3341,15 @@ def phase_f32_kernels():
             if not stable:
                 fail(f"{kernel} f32 {label}: two calls on the same inputs "
                      f"gave different bits")
+        if kernel == "K11":
+            # K6's f32 kind into o's planes, then the core's kSplitF32 kind:
+            # bit for bit that kind on the split of K6's f32 output
+            same = torch.equal(got, _core_f32_of_k6(*args))
+            log(f"K11 f32 {label}: bitwise equal to the GEMM core's f32 "
+                f"kind on split(K6-f32) {same}")
+            if not same:
+                fail(f"K11 f32 {label}: not the GEMM core's f32 kind on the "
+                     f"split of K6's f32 output")
         want = plain(*args)
         torch.cuda.synchronize()
         pairs = zip(got, want) if isinstance(got, tuple) else [(got, want)]
@@ -3291,11 +3361,16 @@ def phase_f32_kernels():
             errs.append((*_rel_err(a, b), bool(torch.isfinite(a).all())))
         del got, want
         # the backward core's f32 kind as device time (a loop between two
-        # events reads the wrapper's host work at the 5M-224 shapes)
-        ms = (device_time_ms(lambda: kern(*args))
-              if bwd_line else cuda_time_ms(lambda: kern(*args), iters=5))
+        # events reads the wrapper's host work at the 5M-224 shapes), K6
+        # and K11 as device time under SHORT_MS (N = 50)
+        if bwd_line:
+            ms = device_time_ms(lambda: kern(*args))
+        elif kernel in CLIP_META:
+            ms = kernel_ms(lambda: kern(*args))
+        else:
+            ms = cuda_time_ms(lambda: kern(*args), iters=5)
         plain_ms = cuda_time_ms(lambda: plain(*args), iters=2)
-        lib_ms, lib_what = (None, "") if lib is None else lib()
+        lib_ms, lib_what, *yard = (None, "") if lib is None else lib()
         log(f"{kernel} f32 {label} {shape}: max_abs_err "
             + ", ".join(f"{e[0]:.6g}" for e in errs) + " max_rel_err "
             + ", ".join(f"{e[1]:.6g}" for e in errs)
@@ -3306,6 +3381,7 @@ def phase_f32_kernels():
             _log_launch_ms(_launch_ms(lambda: kern(*args)))
         if kernel in ("K2", "K9"):
             log(f"  {_f32_fwd_plan(kernel, shape)}")
+        if kernel in ("K2", "K9", "K6", "K11"):
             _log_launch_ms(_launch_ms(lambda: kern(*args)))
         log(f"  kernel_ms {ms:.4f}, plain_ms {plain_ms:.4f}, library_ms "
             f"{'null' if lib_ms is None else f'{lib_ms:.4f}'}"
@@ -3318,7 +3394,7 @@ def phase_f32_kernels():
         rows[(kernel, label)] = dict(
             max_abs_err=errs[0][0], max_rel_err=max(e[1] for e in errs),
             ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound,
-            bound_by=bound_by)
+            bound_by=bound_by, **({"yardstick_ms": yard[0]} if yard else {}))
         del args
         gc.collect()
         torch.cuda.empty_cache()
@@ -6643,6 +6719,8 @@ def main():
             "max_rel_err": row["max_rel_err"], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],
+            **({"yardstick_ms": row["yardstick_ms"]}
+               if "yardstick_ms" in row else {}),
         })
     kernels.append({
         "name": K14_META[0], "route": "cuda", "source": K14_META[1],

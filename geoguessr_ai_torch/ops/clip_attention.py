@@ -19,17 +19,21 @@ Kernels (a head dim in ``KERNEL_HEAD_DIMS``, ViT-L/14 and ViT-B/32 have
 64; qkv in bf16 or f32, the compute dtype, each with its C entry, and
 w_proj cast to qkv's dtype as the plain version casts it):
 
-* K6 ``_flash_cuda``: softmax(q k^T * scale) v -> (B, N, D); in bf16 the
-  Hopper kernel (TMA loads, wgmma products, warp-specialised), in f32 the
-  mma.sync twin;
-* K11 ``_flash_proj_cuda``: the same, then o @ w_proj; in bf16 K6's
-  Hopper kernel into a scratch and the Hopper GEMM core on it (two
-  launches of one C call, counted as one), in f32 the first design (one
-  mma.sync kernel that keeps o in shared memory).
+* K6 ``_flash_cuda``: softmax(q k^T * scale) v -> (B, N, D): the Hopper
+  kernel (TMA loads, wgmma products, warp-specialised), its bf16 kind, or
+  in f32 its f32 kind, which first splits k and v into bf16 hi / lo planes
+  in a scratch the wrapper allocates (``_kv_planes``), splits q in
+  registers and sums every product as lo.hi + hi.lo + hi.hi;
+* K11 ``_flash_proj_cuda``: the same, then o @ w_proj: K6's kernel into a
+  scratch and the Hopper GEMM core on it (launches of one C call, counted
+  as one); in f32 the scratch holds o's hi / lo planes and the core's
+  split kind reads them beside w_proj^T's planes (``_split_bf16``, made
+  once a call).
 
 qkv must be contiguous with a 16-byte aligned base (``_qkv_layout``): the
-bf16 K6 kernel reads it through one TMA tensor map, which needs that base
-and a row pitch that is a multiple of 16 bytes.
+kernels read it (and the f32 kind k's and v's planes) through TMA tensor
+maps, which need that base and a row pitch that is a multiple of 16
+bytes.
 
 ``head_block`` is the Pallas kernels' heads per grid cell; the result does
 not depend on it and the CUDA kernels take no such parameter.  Every
@@ -41,7 +45,11 @@ from __future__ import annotations
 
 import torch
 
-from geoguessr_ai_torch.ops.window_attention import _act_dtype, _raise_on
+from geoguessr_ai_torch.ops.window_attention import (
+    _act_dtype,
+    _raise_on,
+    _split_bf16,
+)
 
 #: Launches of each kernel wrapper since the last ``reset_launches()``.
 LAUNCHES = {
@@ -52,15 +60,9 @@ LAUNCHES = {
 #: The JAX package's default heads per Pallas grid cell.
 HEAD_BLOCK = 2
 
-#: Head dims the kernels are built for: the multiples of the mma k-step of
-#: 16 up to 64 (one swizzled row of 32, 64 or 128 bytes in the bf16 K6).
+#: Head dims the kernels are built for: the multiples of the wgmma k-step
+#: of 16 up to 64 (one swizzled row of 32, 64 or 128 bytes in K6's tiles).
 KERNEL_HEAD_DIMS = (16, 32, 64)
-
-#: Query rows per block of K11's f32 twin; its shared memory holds their
-#: (rows, Dc) attention output beside two (64, hd) k/v tiles per head pair,
-#: Dc the widest head chunk that fits (``_flash_proj_chunk``).
-_PROJ_ROWS = 64
-_SMEM_LIMIT = 232448
 
 
 def reset_launches() -> None:
@@ -144,56 +146,44 @@ def _stream():
     return torch.cuda.current_stream().cuda_stream
 
 
+def _kv_planes(B, N, D, device, extra=0):
+    """The f32 kinds' bf16 scratch: k's and v's hi and lo planes (2, B, N,
+    2D), which K6's f32 kind writes and then loads as the B operands of its
+    split products, flat, with ``extra`` elements after them (K11's o
+    planes)."""
+    return torch.empty(2 * B * N * 2 * D + extra, dtype=torch.bfloat16,
+                       device=device)
+
+
 def _flash_cuda(qkv, scale, num_heads):
-    """K6: (B, N, D) in the qkv dtype."""
+    """K6: (B, N, D) in the qkv dtype; in f32 the C entry splits k and v
+    into a (2, B, N, 2D) bf16 scratch first."""
     from geoguessr_ai_torch.ops import _build
 
     B, N, D, hd = _check_qkv(qkv, num_heads)
     out = torch.empty((B, N, D), dtype=qkv.dtype, device=qkv.device)
+    planes = (_kv_planes(B, N, D, qkv.device)
+              if qkv.dtype == torch.float32 else None)
     fn = _build.typed_entry("clip_flash", "clip_flash", qkv.dtype)
-    err = fn(qkv.data_ptr(), out.data_ptr(), B, N, num_heads, hd,
-             float(scale), _stream())
+    err = fn(qkv.data_ptr(), None if planes is None else planes.data_ptr(),
+             out.data_ptr(), B, N, num_heads, hd, float(scale), _stream())
     _raise_on(err, "_flash_cuda")
     LAUNCHES["_flash_cuda"] += 1
     return out
 
 
-def _flash_proj_smem_bytes(dc, hd, elem=2):
-    """Dynamic shared memory of one block of K11's first design (the f32
-    twin): two (64, hd+8) k tiles and two (hd, 64+8) v^T tiles, or the
-    (128, 64+8) W tile where that is larger, and the (64, dc+8) attention
-    output, in elements of ``elem`` bytes."""
-    tiles = max(2 * (64 * (hd + 8) + hd * 72) * elem, 128 * 72 * elem)
-    return tiles + _PROJ_ROWS * (dc + 8) * elem
-
-
-def _flash_proj_chunk(D, hd, dtype):
-    """The channels of one K11 head chunk: D in bf16 (the GEMM core streams
-    all D input channels of o from device memory); in f32 the widest whole
-    number of head pairs that divides D, is a multiple of 64 and fits in
-    shared memory, as the first design picks it.  None when none fits."""
-    if torch.finfo(dtype).bits == 16:
-        return D
-    H = D // hd
-    for n in range(1, H // 2 + 1):
-        dc = D // n
-        if (H // 2) % n == 0 and dc % 64 == 0 and \
-                _flash_proj_smem_bytes(dc, hd, 4) <= _SMEM_LIMIT:
-            return dc
-    return None
-
-
 def _flash_proj_cuda(qkv, w_proj, scale, num_heads):
-    """K11: (B, N, D) in the qkv dtype.  In bf16 the C entry writes K6's
-    output into a (B, N, D) scratch and multiplies it by w_proj on the
-    GEMM core; the f32 twin takes no scratch."""
+    """K11: (B, N, D) in the qkv dtype.  The C entry writes K6's output into
+    a scratch and multiplies it by w_proj on the GEMM core: in bf16 a
+    (B, N, D) scratch and w_proj^T; in f32 one scratch of k's and v's planes
+    and then o's (2, B N, D) planes, and w_proj^T as its (2, D, D)
+    planes."""
     from geoguessr_ai_torch.ops import _build
 
     B, N, D, hd = _check_qkv(qkv, num_heads)
-    if D % 128 or _flash_proj_chunk(D, hd, qkv.dtype) is None:
+    if D % 128:
         raise ValueError(
-            f"the out-projection kernel takes D a multiple of 128 (in f32 "
-            f"one whose attention rows fit in shared memory), got D={D}")
+            f"the out-projection kernel takes D a multiple of 128, got D={D}")
     if tuple(w_proj.shape) != (D, D):
         raise ValueError(f"w_proj must be ({D}, {D}), got "
                          f"{tuple(w_proj.shape)}")
@@ -204,12 +194,14 @@ def _flash_proj_cuda(qkv, w_proj, scale, num_heads):
     if not wt.is_cuda or wt.data_ptr() % 16:
         raise ValueError("w_proj must be a 16-byte aligned CUDA tensor")
     out = torch.empty((B, N, D), dtype=qkv.dtype, device=qkv.device)
-    attn = (torch.empty((B, N, D), dtype=qkv.dtype, device=qkv.device)
-            if qkv.dtype == torch.bfloat16 else None)
+    if qkv.dtype == torch.float32:
+        wt = _split_bf16(wt)
+        attn = _kv_planes(B, N, D, qkv.device, extra=2 * B * N * D)
+    else:
+        attn = torch.empty((B, N, D), dtype=qkv.dtype, device=qkv.device)
     fn = _build.typed_entry("clip_flash_proj", "clip_flash_proj", qkv.dtype)
-    err = fn(qkv.data_ptr(), wt.data_ptr(),
-             None if attn is None else attn.data_ptr(), out.data_ptr(), B, N,
-             num_heads, hd, float(scale), _stream())
+    err = fn(qkv.data_ptr(), wt.data_ptr(), attn.data_ptr(), out.data_ptr(),
+             B, N, num_heads, hd, float(scale), _stream())
     _raise_on(err, "_flash_proj_cuda")
     LAUNCHES["_flash_proj_cuda"] += 1
     return out

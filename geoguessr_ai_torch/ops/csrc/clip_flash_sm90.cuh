@@ -1,10 +1,11 @@
-// K6's bf16 kernel, the Hopper (sm_90a) CLIP attention: softmax(q k^T *
+// K6's kernel, the Hopper (sm_90a) CLIP attention: softmax(q k^T *
 // scale) v read straight from the fused token-major (B, N, 3D) qkv
-// tensor, no bias or mask, hd = 64 (and 16 or 32), written to (B, N, D).
-// K6's bf16 entry (clip_flash.cu) launches it alone; K11's bf16 entry
-// (clip_flash_proj.cu) launches it into a scratch and then the GEMM core
-// (gemm_sm90.cuh) on that scratch, so both libraries carry it and K11's
-// attention is K6's bit for bit.
+// tensor, no bias or mask, hd = 64 (and 16 or 32), written to (B, N, D),
+// in a bf16 kind and an f32 kind ("The f32 kind" below).  K6's entries
+// (clip_flash.cu) launch it alone; K11's entries (clip_flash_proj.cu)
+// launch it into a scratch and then the GEMM core (gemm_sm90.cuh) on that
+// scratch, so both libraries carry it and K11's attention is K6's bit for
+// bit in either dtype.
 //
 // The kernel (clip_flash_sm90 below) is built from what Hopper adds,
 // so that instruction issue and latency stand in the way of neither bound:
@@ -34,11 +35,12 @@
 // The online softmax runs in registers: the running max over the raw
 // scores, p = exp2(s * scale*log2(e) - m) in one FFMA and one exp2, keys >=
 // N set to -inf in the last tile only.  p is rounded to bf16 relative to
-// the running max, as the f32 twin and K11 round it, and the row sums are
-// applied at the end.  Exponentials (one per score, 16 a clock on an SM)
-// and products take about equal time here; handing the tensor cores to
-// the two consumer groups in turns (named barriers) or overlapping a
-// group's softmax with its own p.v product were both slower on the card.
+// the running max, as the Pallas kernel rounds it (the f32 kind splits it
+// instead), and the row sums are applied at the end.  Exponentials (one
+// per score, 16 a clock on an SM) and products take about equal time here;
+// handing the tensor cores to the two consumer groups in turns (named
+// barriers) or overlapping a group's softmax with its own p.v product were
+// both slower on the card.
 //
 //
 // Everything here has internal linkage (the unnamed namespace below), so
@@ -508,6 +510,384 @@ int run(const void* qkv, void* out, int B, int N, int H, float scale, cudaStream
   const int grid = (int)(items < sms ? items : sms);
   clip_flash_sm90<HD><<<grid, kThreads, T::kSmem, stream>>>(map, static_cast<bf16*>(out), N, H, B,
                                                            scale * kLog2e);
+  return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// The f32 kind (K6's and K11's f32 entries).  The numerics of the f32 kinds
+// of the other cores: every product splits its f32 operands into bf16 hi =
+// bf16(x) and lo = bf16(x - hi) and sums lo.hi + hi.lo + hi.hi in f32 (three
+// wgmma for one, about 2^-17 of error a product); the softmax is online in
+// f32 as above; p is split in registers (split_p), never rounded; o is the
+// f32 sum over l.  Nothing is rounded to bf16 on the way.
+//
+// wgmma reads bf16 operands, and k and v are B operands, read from shared
+// memory in the swizzled layout TMA writes.  So a call is two launches.
+// First split_kv writes k and v of the f32 qkv as their bf16 hi and lo
+// planes (2, B, N, 2D) into a scratch the wrapper allocates (CLIP's qkv
+// comes from cuBLAS, so no kernel of the port can store it split as the LN
+// + GEMM core's f32 kind stores K2's): at CLIP-L bucket 16 it reads and
+// writes 302 MB each, about 0.18 ms at 3.35 TB/s, once, where splitting
+// them inside the attention would redo it for each of the 5 q-tiles that
+// read them (that cost K2's f32 attention 0.79 of 2.26 ms).  Then
+// clip_flash_f32_sm90 is the bf16 kernel with every k and v tile a pair:
+// the producer loads the hi tile from plane image b and the lo tile from
+// plane image B + b of one tensor map over the planes, and q's 128 rows in
+// f32 by a second tensor map over qkv itself (unswizzled); each consumer
+// thread splits its two q rows once an item into the A fragments of the
+// score products (q_frags, in registers for the whole item) and releases
+// the q buffer at once, so one buffer lets the next item's q land
+// meanwhile.  The score products take A from registers and k K-major
+// (split_scores), the p.v products p split in registers and v MN-major
+// (split_pv).  A pair is twice a bf16 tile: one q tile and kF32Stages<HD>
+// k/v stages fit (3 at hd 64: 225 KB of the 227 a block may have; all 5 of
+// N = 577's tiles at hd 16 and 32).  Registers of a consumer thread while
+// s_j and p_{j-1}.v_{j-1} are in flight: the scores (64), p's hi and lo
+// fragments (64), q's (HD / 4) and o (HD / 2).
+//
+// PLANES = false writes out (B, N, D) f32 (K6); PLANES = true writes each
+// normalised output value's hi and lo into the planes (2, B N, D) bf16 of
+// o that K11's second launch, the GEMM core's kSplitF32 kind, reads: the
+// split the core would make of K6's stored f32 output (the product by
+// 1 / l is __fmul_rn in both, never contracted into the split's
+// subtraction), so K11's f32 entry equals that kind on split(K6-f32) bit
+// for bit.
+// ---------------------------------------------------------------------------
+
+constexpr int kF32QBufs = 1;  // f32 q tiles in flight (each released once split)
+constexpr int kSmemMax = 232448;
+
+constexpr int f32_bar_bytes(int stages) { return 8 * (2 * kF32QBufs + 3 * stages); }
+
+// The f32 kind's shared memory at head dim HD: kF32QBufs f32 q tiles of
+// kRowsQ rows, then kF32Stages k/v stages of a k pair and a v pair (each
+// pair a hi tile, then its lo tile, Tile<HD>::kBytes each) from the
+// 1024-aligned base, then the barriers: full and empty of each q tile,
+// full k, full v and empty of each stage.
+template <int HD>
+struct TileF32 {
+  static constexpr int kQBytes = kRowsQ * HD * 4;
+  static constexpr int kPair = 2 * Tile<HD>::kBytes;
+  static constexpr int kFit =
+      (kSmemMax - 1024 - kF32QBufs * kQBytes - f32_bar_bytes(kStages)) / (2 * kPair);
+  static constexpr int kF32Stages = kFit < kStages ? kFit : kStages;
+  static_assert(kF32Stages >= 2, "two k/v stages in flight");
+  static constexpr int kBarOffset = kF32QBufs * kQBytes + 2 * kF32Stages * kPair;
+  static constexpr int kSmem = 1024 + kBarOffset + f32_bar_bytes(kF32Stages);
+};
+
+// k and v of the f32 qkv (rows of 3D floats, d4 = D / 4) as their bf16 hi
+// plane at hi and lo plane at lo, rows of 2D: n4 float4 of k and v in all.
+__global__ void __launch_bounds__(256)
+split_kv(const float4* __restrict__ x, uint2* __restrict__ hi, uint2* __restrict__ lo, long n4, int d4) {
+  for (long i = blockIdx.x * 256L + threadIdx.x; i < n4; i += (long)gridDim.x * 256) {
+    const long row = i / (2 * d4);
+    const float4 v = x[row * 3 * d4 + d4 + (i - row * 2 * d4)];
+    const Frag<float> a = split_pair(v.x, v.y), b = split_pair(v.z, v.w);
+    hi[i] = make_uint2(a.hi, b.hi);
+    lo[i] = make_uint2(a.lo, b.lo);
+  }
+}
+
+// d (64 x 128, f32) += A (64 x 16, bf16 registers) . B (16 x 128, shared, K-major).
+__device__ __forceinline__ void wgmma_m64n128k16_rs(float (&d)[64], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1)
+      : "memory");
+}
+
+// The A fragments of a consumer thread's two rows of an f32 q tile (row
+// points at its row g, pitch HD; rows g and g + 8), split: k-step kk covers
+// dims 16 kk .. 16 kk + 15, in mma.sync's A layout.
+template <int HD>
+__device__ __forceinline__ void q_frags(const float* row, int c, uint32_t (&qh)[HD / 16][4],
+                                        uint32_t (&ql)[HD / 16][4]) {
+#pragma unroll
+  for (int kk = 0; kk < HD / 16; ++kk) {
+    const float* r0 = row + 16 * kk + 2 * c;
+    const float* r1 = r0 + 8 * HD;
+    const Frag<float> f[4] = {frag(r0), frag(r1), frag(r0 + 8), frag(r1 + 8)};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      qh[kk][i] = f[i].hi;
+      ql[kk][i] = f[i].lo;
+    }
+  }
+}
+
+// s (64 x 128) = q k^T in split products: q split in registers, k's hi
+// tile at dkh and lo tile at dkl (K-major); lo.hi + hi.lo + hi.hi each
+// k-step.
+template <int HD>
+__device__ __forceinline__ void split_scores(float (&sc)[64], const uint32_t (&qh)[HD / 16][4],
+                                             const uint32_t (&ql)[HD / 16][4], uint64_t dkh, uint64_t dkl) {
+#pragma unroll
+  for (int kk = 0; kk < HD / 16; ++kk) {
+    wgmma_m64n128k16_rs(sc, ql[kk], dkh + 2 * kk);
+    wgmma_m64n128k16_rs(sc, qh[kk], dkl + 2 * kk);
+    wgmma_m64n128k16_rs(sc, qh[kk], dkh + 2 * kk);
+  }
+}
+
+// o += p v with p split in registers (hi ph, lo pl) and v's hi tile at dvh,
+// lo tile at dvl (MN-major): lo.hi + hi.lo + hi.hi.
+template <int HD>
+__device__ __forceinline__ void split_pv(float (&o)[HD / 2], const uint32_t (&ph)[8][4], const uint32_t (&pl)[8][4],
+                                         uint64_t dvh, uint64_t dvl) {
+  wgmma_pv<HD>(o, pl, dvh);
+  wgmma_pv<HD>(o, ph, dvl);
+  wgmma_pv<HD>(o, ph, dvh);
+}
+
+// p (the f32 scores after the softmax step) as the hi and lo A fragments of
+// the 8 k-steps of p v, in pack_p's layout.
+__device__ __forceinline__ void split_p(const float (&sc)[64], uint32_t (&ph)[8][4], uint32_t (&pl)[8][4]) {
+#pragma unroll
+  for (int kk = 0; kk < 8; ++kk)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const Frag<float> f = split_pair(sc[8 * kk + 2 * i], sc[8 * kk + 2 * i + 1]);
+      ph[kk][i] = f.hi;
+      pl[kk][i] = f.lo;
+    }
+}
+
+// The bf16 kernel's walk and pipeline: q in f32 through q_map over qkv, k
+// and v as hi / lo pairs through kv_map over their planes (2 B images of
+// (N, 2D) bf16 rows, k of head h at column h HD, v at D + h HD).  out is
+// (B, N, D) f32, or with PLANES the (2, B N, D) bf16 planes of o.
+template <int HD, bool PLANES>
+__global__ void __launch_bounds__(kThreads, 1)
+clip_flash_f32_sm90(const __grid_constant__ CUtensorMap q_map, const __grid_constant__ CUtensorMap kv_map,
+                    void* __restrict__ out, int N, int H, int B, float sl2) {
+  using T = Tile<HD>;
+  using F = TileF32<HD>;
+  constexpr int S = F::kF32Stages, QB = kF32QBufs;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;
+  const uint32_t sq = base;                         // q tile i at + i * kQBytes
+  const uint32_t sk = base + QB * F::kQBytes;       // stage s: k pair at + 2 s kPair, v pair after it
+  const uint32_t full_q = base + F::kBarOffset;     // + 8 i
+  const uint32_t empty_q = full_q + 8 * QB;         // + 8 i, released by the 8 consumer warps
+  const uint32_t full_k = empty_q + 8 * QB;         // + 8 s
+  const uint32_t full_v = full_k + 8 * S;
+  const uint32_t empty = full_v + 8 * S;            // released by the 8 consumer warps
+  auto k_pair = [&](int s) { return sk + 2 * s * F::kPair; };
+  auto v_pair = [&](int s) { return sk + (2 * s + 1) * F::kPair; };
+
+  const int D = H * HD;
+  const int tiles = (N + kKeys - 1) / kKeys;
+  const int qtiles = (N + kRowsQ - 1) / kRowsQ;
+  const int items = qtiles * H * B;
+  const int group = threadIdx.x / 128;
+
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < QB; ++i) {
+      mbar_init(full_q + 8 * i, 1);
+      mbar_init(empty_q + 8 * i, 8);
+    }
+    for (int s = 0; s < S; ++s) {
+      mbar_init(full_k + 8 * s, 1);
+      mbar_init(full_v + 8 * s, 1);
+      mbar_init(empty + 8 * s, 8);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (group == 0) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
+    if (threadIdx.x == 0) {
+      // column c0 of image b: the hi tile from plane image b, the lo tile
+      // from plane image B + b, both completing on bar
+      auto load_pair = [&](uint32_t dst, uint32_t bar, int c0, int row, int b) {
+        mbar_expect_tx(bar, F::kPair);
+        tma_load(dst, &kv_map, bar, c0, row, b);
+        tma_load(dst + T::kBytes, &kv_map, bar, c0, row, B + b);
+      };
+      int kv = 0;  // k/v tiles loaded so far: the ring position
+      for (int w = blockIdx.x, i = 0; w < items; w += gridDim.x, ++i) {
+        const int qt = w % qtiles, h = (w / qtiles) % H, b = w / (qtiles * H);
+        const int qb = i % QB;
+        if (i >= QB) mbar_wait(empty_q + 8 * qb, ((i / QB) - 1) & 1);
+        mbar_expect_tx(full_q + 8 * qb, F::kQBytes);
+        tma_load(sq + qb * F::kQBytes, &q_map, full_q + 8 * qb, h * HD, qt * kRowsQ, b);
+        for (int j = 0; j < tiles; ++j, ++kv) {
+          const int s = kv % S;
+          if (kv >= S) mbar_wait(empty + 8 * s, ((kv / S) - 1) & 1);
+          load_pair(k_pair(s), full_k + 8 * s, h * HD, j * kKeys, b);
+          load_pair(v_pair(s), full_v + 8 * s, D + h * HD, j * kKeys, b);
+        }
+      }
+    }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
+    const int cg = group - 1;  // query rows 64 cg .. of each q tile
+    const int warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
+    const int g = lane >> 2, c = lane & 3;
+    auto parity = [](int kv) { return (uint32_t)(kv / S) & 1; };
+    // the hi and lo descriptors of a pair
+    auto dh = [&](uint32_t pair) { return desc<HD>(pair); };
+    auto dl = [&](uint32_t pair) { return desc<HD>(pair + T::kBytes); };
+    auto release = [&](uint32_t bar) {
+      __syncwarp();
+      if (lane == 0) mbar_arrive(bar);
+    };
+
+    int kv = 0;  // the ring position of this item's first k/v tile
+    for (int w = blockIdx.x, i = 0; w < items; w += gridDim.x, ++i, kv += tiles) {
+      const int qt = w % qtiles, h = (w / qtiles) % H, b = w / (qtiles * H);
+      const int qb = i % QB;
+      float o[HD / 2];
+      zero(o);
+      Softmax sm;
+      float sc[64];
+      uint32_t ph[8][4], pl[8][4];
+      uint32_t qh[HD / 16][4], ql[HD / 16][4];
+
+      // this thread's q rows split into registers, the q tile released
+      mbar_wait(full_q + 8 * qb, (i / QB) & 1);
+      q_frags<HD>(reinterpret_cast<const float*>(smem_raw + (sq + qb * F::kQBytes - raw)) +
+                      (cg * 64 + warp * 16 + g) * HD,
+                  c, qh, ql);
+      release(empty_q + 8 * qb);
+
+      // s_0 = q k_0^T and its softmax
+      zero(sc);
+      mbar_wait(full_k + 8 * (kv % S), parity(kv));
+      fence_regs(sc);
+      wgmma_fence();
+      split_scores<HD>(sc, qh, ql, dh(k_pair(kv % S)), dl(k_pair(kv % S)));
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(sc);
+      sm.tile(sc, 0, N, sl2);
+      split_p(sc, ph, pl);
+      for (int j = 1; j < tiles; ++j) {
+        // s_j = q k_j^T and o += p_{j-1} v_{j-1}, then the softmax of tile j
+        const int s = (kv + j) % S, sp = (kv + j - 1) % S;
+        zero(sc);
+        mbar_wait(full_k + 8 * s, parity(kv + j));
+        mbar_wait(full_v + 8 * sp, parity(kv + j - 1));
+        fence_regs(sc);
+        fence_regs(o);
+        wgmma_fence();
+        split_scores<HD>(sc, qh, ql, dh(k_pair(s)), dl(k_pair(s)));
+        split_pv<HD>(o, ph, pl, dh(v_pair(sp)), dl(v_pair(sp)));
+        wgmma_commit();
+        wgmma_wait_all();
+        fence_regs(sc);
+        fence_regs(o);
+        release(empty + 8 * sp);  // done with tile j-1
+        sm.tile(sc, j * kKeys, N, sl2);
+        sm.rescale(o);
+        split_p(sc, ph, pl);
+      }
+      // o += p_last v_last
+      const int sl = (kv + tiles - 1) % S;
+      mbar_wait(full_v + 8 * sl, parity(kv + tiles - 1));
+      fence_regs(o);
+      wgmma_fence();
+      split_pv<HD>(o, ph, pl, dh(v_pair(sl)), dl(v_pair(sl)));
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(o);
+      release(empty + 8 * sl);
+
+      float l0 = sm.l0, l1 = sm.l1;
+      l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
+      l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
+      l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
+      l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
+      const float inv0 = 1.f / l0, inv1 = 1.f / l1;
+      const int r0 = qt * kRowsQ + cg * 64 + warp * 16 + g, r1 = r0 + 8;
+      const long at0 = ((long)b * N + r0) * D + h * HD + 2 * c, at1 = at0 + 8L * D;
+#pragma unroll
+      for (int t = 0; t < HD / 8; ++t) {
+        const float x0 = __fmul_rn(o[4 * t + 0], inv0), y0 = __fmul_rn(o[4 * t + 1], inv0);
+        const float x1 = __fmul_rn(o[4 * t + 2], inv1), y1 = __fmul_rn(o[4 * t + 3], inv1);
+        if constexpr (PLANES) {
+          bf16* hi = static_cast<bf16*>(out);
+          bf16* lo = hi + (long)B * N * D;
+          if (r0 < N) {
+            const Frag<float> f = split_pair(x0, y0);
+            *reinterpret_cast<uint32_t*>(hi + at0 + 8 * t) = f.hi;
+            *reinterpret_cast<uint32_t*>(lo + at0 + 8 * t) = f.lo;
+          }
+          if (r1 < N) {
+            const Frag<float> f = split_pair(x1, y1);
+            *reinterpret_cast<uint32_t*>(hi + at1 + 8 * t) = f.hi;
+            *reinterpret_cast<uint32_t*>(lo + at1 + 8 * t) = f.lo;
+          }
+        } else {
+          float* of = static_cast<float*>(out);
+          if (r0 < N) *reinterpret_cast<float2*>(of + at0 + 8 * t) = make_float2(x0, y0);
+          if (r1 < N) *reinterpret_cast<float2*>(of + at1 + 8 * t) = make_float2(x1, y1);
+        }
+      }
+    }
+  }
+}
+
+// One call of the f32 kind: qkv (B, N, 3D) f32, kv2 the (2, B, N, 2D) bf16
+// scratch of k's and v's split, out (B, N, D) f32 or (PLANES) o's (2, B N,
+// D) bf16 planes; every base 16-byte aligned.  Two launches: the split,
+// then the attention.  Each instance keeps its own opt-in flag (the
+// unnamed namespace).
+template <int HD, bool PLANES>
+int run_f32(const void* qkv, void* kv2, void* out, int B, int N, int H, float scale, cudaStream_t stream) {
+  using F = TileF32<HD>;
+  const int D = H * HD;  // a multiple of 16
+  const long n4 = (long)B * N * D / 2;
+  int sms = 0;
+  cudaError_t e = ::gg::sm90::sm_count(&sms);
+  if (e != cudaSuccess) return (int)e;
+  const long blocks = (n4 + 255) / 256;
+  split_kv<<<(int)(blocks < 8L * sms ? blocks : 8L * sms), 256, 0, stream>>>(
+      static_cast<const float4*>(qkv), static_cast<uint2*>(kv2), static_cast<uint2*>(kv2) + n4, n4, D / 4);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  // q: qkv's (N, 3D) f32 rows of B images in unswizzled boxes of (HD,
+  // kRowsQ rows); k and v: both planes as 2B images of (N, 2D) bf16 rows in
+  // boxes of (HD, kKeys rows), swizzled as the bf16 kernel's qkv
+  CUtensorMap maps[2];
+  e = ::gg::sm90::encode_3d(&maps[0], CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, qkv, 3L * D, N, B, HD, kRowsQ,
+                            CU_TENSOR_MAP_SWIZZLE_NONE);
+  if (e == cudaSuccess)
+    e = ::gg::sm90::encode_3d(&maps[1], CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, kv2, 2L * D, N, 2L * B, HD, kKeys,
+                              Tile<HD>::kSwizzle);
+  if (e != cudaSuccess) return (int)e;
+  static bool opted_in = false;  // one per instance
+  if (!opted_in) {
+    e = cudaFuncSetAttribute(clip_flash_f32_sm90<HD, PLANES>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             F::kSmem);
+    if (e != cudaSuccess) return (int)e;
+    opted_in = true;
+  }
+  const long items = (long)((N + kRowsQ - 1) / kRowsQ) * H * B;
+  const int grid = (int)(items < sms ? items : sms);
+  clip_flash_f32_sm90<HD, PLANES><<<grid, kThreads, F::kSmem, stream>>>(maps[0], maps[1], out, N, H, B,
+                                                                        scale * kLog2e);
   return (int)cudaGetLastError();
 }
 

@@ -1,15 +1,20 @@
-// The Hopper (sm_90a) GEMM core with A streamed along K, in three kinds:
+// The Hopper (sm_90a) GEMM core with A streamed along K, in four kinds:
 //
 //   kBf16F32   c[M, Nout] = a @ bt^T, bf16 operands, the f32 sum       (K13 bf16)
 //   kS8S32     c[M, Nout] = a @ bt^T, int8 operands, the int32 sum, exact (K13 int8)
 //   kBf16Bf16  c[M, Nout] = bf16(a @ bt^T), bf16 rounded once from the f32 sum
 //              (K11's out-projection, as clip_attention._flash_proj_plain)
+//   kSplitF32  c[M, Nout] = a @ bt^T of f32 operands handed over as their
+//              bf16 (hi, lo) planes, the f32 sum of lo.hi + hi.lo + hi.hi
+//              (K11's f32 out-projection)
 //
 // with a (M, K) and bt (Nout, K) both K-major (bt is PyTorch's (out, in)
-// weight, or b transposed), c (M, Nout) row-major.  K13's bf16 and int8
-// entries (tiled_gemm.cu) run the first two; K11's bf16 entry
-// (clip_flash_proj.cu) runs K6's attention into a scratch and then the
-// third on it.
+// weight, or b transposed), c (M, Nout) row-major; kSplitF32's a and bt
+// are (2, M, K) and (2, Nout, K), hi = bf16(x) then lo = bf16(x - hi).
+// K13's bf16 and int8 entries (tiled_gemm.cu) run the first two; K11's
+// bf16 entry (clip_flash_proj.cu) runs K6's attention into a scratch and
+// then the third on it, K11's f32 entry K6's f32 kind into o's planes and
+// then the fourth on them.
 //
 // What bounds it on the H100: 2 M K Nout operations against (M + Nout) K
 // input bytes and M Nout output bytes.  K11's projection at CLIP-L bucket
@@ -58,6 +63,16 @@
 // are bitwise the same on any card, and a row's result does not depend on
 // the other rows: K13's bf16 kind rounded to bf16 equals the bf16 kind.
 //
+// kSplitF32 (K11's f32 entry) is the same pipeline with each operand in
+// two planes: a stage holds A's hi and lo boxes and bt's hi and lo boxes
+// (96 KB at BN = 256, so make_plan finds 2 stages beside the staging
+// boxes, 3 at BN = 128), the loader reads each plane's box at plane
+// coordinate 0 or 1 of the same tensor maps (bt's halves multicast as
+// before), and each k-step is three wgmma into the f32 accumulator:
+// lo.hi, hi.lo, hi.hi (the split products of the attention cores' f32
+// kinds, about 2^-17 of error a product).  The f32 output leaves as
+// kBf16F32's does.
+//
 // Everything here has internal linkage (the unnamed namespace below).
 #pragma once
 
@@ -73,29 +88,38 @@ using namespace sm90;
 constexpr int kBf16F32 = 0;
 constexpr int kS8S32 = 1;
 constexpr int kBf16Bf16 = 2;
+constexpr int kSplitF32 = 3;
 
 template <int KIND>
 struct Kind;
 template <>
 struct Kind<kBf16F32> {
   using Acc = float;
-  static constexpr int kIn = 2, kOut = 4;
+  static constexpr int kIn = 2, kOut = 4, kPlanes = 1;
   static constexpr CUtensorMapDataType kInType = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
   static constexpr CUtensorMapDataType kOutType = CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
 };
 template <>
 struct Kind<kS8S32> {
   using Acc = int;
-  static constexpr int kIn = 1, kOut = 4;
+  static constexpr int kIn = 1, kOut = 4, kPlanes = 1;
   static constexpr CUtensorMapDataType kInType = CU_TENSOR_MAP_DATA_TYPE_UINT8;
   static constexpr CUtensorMapDataType kOutType = CU_TENSOR_MAP_DATA_TYPE_INT32;
 };
 template <>
 struct Kind<kBf16Bf16> {
   using Acc = float;
-  static constexpr int kIn = 2, kOut = 2;
+  static constexpr int kIn = 2, kOut = 2, kPlanes = 1;
   static constexpr CUtensorMapDataType kInType = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
   static constexpr CUtensorMapDataType kOutType = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+};
+// kPlanes: each operand as its bf16 hi and lo planes
+template <>
+struct Kind<kSplitF32> {
+  using Acc = float;
+  static constexpr int kIn = 2, kOut = 4, kPlanes = 2;
+  static constexpr CUtensorMapDataType kInType = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  static constexpr CUtensorMapDataType kOutType = CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
 };
 
 constexpr int kRows = 128;                 // rows of an output tile
@@ -116,8 +140,9 @@ constexpr int kConsumerRegs = 232;
 constexpr int kSmemMax = 232448;  // what a block may opt in to (227 KB)
 constexpr int kCluster = 2;       // CTAs of a cluster along M, which share each bt box
 
-// The work of one call and its shared memory, from (M, K, Nout) and the
-// operand's bytes an element.
+// The work of one call and its shared memory, from (M, K, Nout), the
+// operand's bytes an element and its planes (a stage holds `planes` times
+// stage_bytes(): each plane's A box, then each plane's bt box).
 struct Plan {
   int M, K, Nout;
   int KB;      // 128-byte k-boxes of a row, the last one zero-filled past K
@@ -128,13 +153,13 @@ struct Plan {
   int tiles;   // cluster tiles: kCluster row tiles of one column tile
 
   __host__ __device__ int stage_bytes() const { return kBoxA + BN * kBoxBytes; }
-  int smem_bytes() const { return 1024 + S * stage_bytes() + kStaging + 16 * S; }
+  int smem_bytes(int planes = 1) const { return 1024 + S * planes * stage_bytes() + kStaging + 16 * S; }
 };
 
 // M >= 1, K a multiple of 64 bytes, Nout a multiple of 128 (every kind's
 // output rows then hold whole staging boxes); as many stages as fit, at
-// most kMaxStages: 4 at BN = 256, 6 at 128.
-cudaError_t make_plan(Plan* p, int M, int K, int Nout, int in_bytes) {
+// most kMaxStages: 4 at BN = 256, 6 at 128 (two planes: 2 and 3).
+cudaError_t make_plan(Plan* p, int M, int K, int Nout, int in_bytes, int planes = 1) {
   if (M < 1 || K < 1 || (long)K * in_bytes % 64 || Nout < 128 || Nout % 128)
     return cudaErrorInvalidValue;
   p->M = M;
@@ -146,24 +171,25 @@ cudaError_t make_plan(Plan* p, int M, int K, int Nout, int in_bytes) {
   p->ntiles = (Nout + p->BN - 1) / p->BN;
   if ((long)p->mtiles * p->ntiles > (1L << 30)) return cudaErrorInvalidValue;
   p->tiles = (p->mtiles + kCluster - 1) / kCluster * p->ntiles;
-  const int s = (kSmemMax - 1024 - kStaging - 16 * kMaxStages) / p->stage_bytes();
+  const int s = (kSmemMax - 1024 - kStaging - 16 * kMaxStages) / (planes * p->stage_bytes());
   p->S = s < kMaxStages ? s : kMaxStages;
   return p->S < 2 ? cudaErrorInvalidValue : cudaSuccess;
 }
 
-// The shared memory of a block: the S stages (A's box, then bt's) at the
-// 1024-aligned base, the staging boxes (group c's box i at kOutBufs c + i),
-// then the mbarriers: each stage's full (the loader's) and empty (the 8
-// consumer warps).
+// The shared memory of a block: the S stages (A's box, then bt's; with two
+// planes A's hi and lo boxes, then bt's) at the 1024-aligned base, the
+// staging boxes (group c's box i at kOutBufs c + i), then the mbarriers:
+// each stage's full (the loader's) and empty (the 8 consumer warps).
 struct Smem {
   uint32_t ring, out0, bars;
-  int S, stage;
-  __device__ Smem(const Plan& p, uint32_t base) : ring(base), S(p.S), stage(p.stage_bytes()) {
+  int S, stage, planes;
+  __device__ Smem(const Plan& p, uint32_t base, int planes_ = 1)
+      : ring(base), S(p.S), stage(planes_ * p.stage_bytes()), planes(planes_) {
     out0 = ring + S * stage;
     bars = out0 + kStaging;
   }
   __device__ uint32_t a(int s) const { return ring + s * stage; }
-  __device__ uint32_t b(int s) const { return ring + s * stage + kBoxA; }
+  __device__ uint32_t b(int s) const { return ring + s * stage + planes * kBoxA; }
   __device__ uint32_t out(int c, int i) const { return out0 + (kOutBufs * c + i) * kOutBox; }
   __device__ uint32_t full(int s) const { return bars + 8 * s; }
   __device__ uint32_t empty(int s) const { return bars + 8 * (S + s); }
@@ -182,14 +208,26 @@ __device__ __forceinline__ void mma(int (&d)[NW / 2], uint64_t da, uint64_t db) 
   else wgmma_m64n128k32_s8_ss(d, da, db);
 }
 
-// The four k-steps of one stage: the group's 64 rows of A (da) against the
-// tile's NW columns of B (db).  A k-step moves a K-major start by 32 bytes
-// (+2 in the descriptor).
-template <int NW, class Acc>
-__device__ __forceinline__ void stage_products(Acc (&d)[NW / 2], uint64_t da, uint64_t db) {
+// The four k-steps of stage `slot`: the group's 64 rows of A (a_off into
+// the A box) against the tile's NW columns of B.  A k-step moves a K-major
+// start by 32 bytes (+2 in the descriptor).  With two planes each k-step
+// is lo.hi + hi.lo + hi.hi.
+template <int KIND, int NW, class Acc>
+__device__ __forceinline__ void stage_products(Acc (&d)[NW / 2], const Smem& sm, int slot, uint32_t a_off) {
+  const uint64_t da = desc<64>(sm.a(slot) + a_off), db = desc<64>(sm.b(slot));
   wgmma_fence();
+  if constexpr (Kind<KIND>::kPlanes == 2) {
+    const uint64_t dal = desc<64>(sm.a(slot) + kBoxA + a_off), dbl = desc<64>(sm.b(slot) + NW * kBoxBytes);
 #pragma unroll
-  for (int kk = 0; kk < 4; ++kk) mma<NW>(d, da + 2 * kk, db + 2 * kk);
+    for (int kk = 0; kk < 4; ++kk) {
+      mma<NW>(d, dal + 2 * kk, db + 2 * kk);
+      mma<NW>(d, da + 2 * kk, dbl + 2 * kk);
+      mma<NW>(d, da + 2 * kk, db + 2 * kk);
+    }
+  } else {
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) mma<NW>(d, da + 2 * kk, db + 2 * kk);
+  }
   wgmma_commit();
 }
 
@@ -250,8 +288,9 @@ gemm_sm90(const __grid_constant__ CUtensorMap a_map, const __grid_constant__ CUt
           const __grid_constant__ CUtensorMap c_map, const Plan p) {
   using Acc = typename Kind<KIND>::Acc;
   constexpr int kBoxElems = kBoxBytes / Kind<KIND>::kIn;
+  constexpr int kPlanes = Kind<KIND>::kPlanes;
   extern __shared__ uint8_t smem_raw[];
-  const Smem sm(p, (smem_u32(smem_raw) + 1023) & ~1023u);
+  const Smem sm(p, (smem_u32(smem_raw) + 1023) & ~1023u, kPlanes);
   const int S = p.S, KB = p.KB;
 
   // the CTA's rank in its cluster (its row tile of each cluster tile), the
@@ -279,10 +318,15 @@ gemm_sm90(const __grid_constant__ CUtensorMap a_map, const __grid_constant__ CUt
         for (int b = 0; b < KB; ++b, ++loads) {
           // the slot is free in every CTA: its empty barrier counts them all
           if (loads >= S) mbar_wait(sm.empty(pos.slot), pos.phase ^ 1);
-          mbar_expect_tx(sm.full(pos.slot), p.stage_bytes());
+          mbar_expect_tx(sm.full(pos.slot), sm.stage);
           tma_load(sm.a(pos.slot), &a_map, sm.full(pos.slot), b * kBoxElems, m * kRows, 0);
           tma_load_multicast(sm.b(pos.slot) + rank * kHalfB * kBoxBytes, &b_map, sm.full(pos.slot),
                              b * kBoxElems, n * BN + rank * kHalfB, 0, (1 << kCluster) - 1);
+          if constexpr (kPlanes == 2) {  // the lo planes, at plane coordinate 1
+            tma_load(sm.a(pos.slot) + kBoxA, &a_map, sm.full(pos.slot), b * kBoxElems, m * kRows, 1);
+            tma_load_multicast(sm.b(pos.slot) + (BN + rank * kHalfB) * kBoxBytes, &b_map, sm.full(pos.slot),
+                               b * kBoxElems, n * BN + rank * kHalfB, 1, (1 << kCluster) - 1);
+          }
           pos.next(S);
         }
       }
@@ -317,11 +361,11 @@ gemm_sm90(const __grid_constant__ CUtensorMap a_map, const __grid_constant__ CUt
     // products are done: one box of products in flight while the next lands
     RingPos at = ring;
     wait_phase(sm.full(at.slot), at.phase);
-    stage_products<BN>(d, desc<64>(sm.a(at.slot) + a_off), desc<64>(sm.b(at.slot)));
+    stage_products<KIND, BN>(d, sm, at.slot, a_off);
     at.next(S);
     for (int b = 1; b < KB; ++b) {
       wait_phase(sm.full(at.slot), at.phase);
-      stage_products<BN>(d, desc<64>(sm.a(at.slot) + a_off), desc<64>(sm.b(at.slot)));
+      stage_products<KIND, BN>(d, sm, at.slot, a_off);
       at.next(S);
       wgmma_wait<1>();
       release_stage(sm.empty(ring.slot));
@@ -337,8 +381,10 @@ gemm_sm90(const __grid_constant__ CUtensorMap a_map, const __grid_constant__ CUt
   if ((threadIdx.x & 127) == 0) asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
 }
 
-// A launch of grid CTAs in clusters of kCluster along x.
-cudaLaunchConfig_t cluster_launch(int grid, const Plan& p, cudaStream_t stream, cudaLaunchAttribute* attr) {
+// A launch of grid CTAs in clusters of kCluster along x, with the shared
+// memory of the plan's operands in `planes` planes.
+cudaLaunchConfig_t cluster_launch(int grid, const Plan& p, int planes, cudaStream_t stream,
+                                  cudaLaunchAttribute* attr) {
   attr->id = cudaLaunchAttributeClusterDimension;
   attr->val.clusterDim.x = kCluster;
   attr->val.clusterDim.y = 1;
@@ -346,7 +392,7 @@ cudaLaunchConfig_t cluster_launch(int grid, const Plan& p, cudaStream_t stream, 
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(grid);
   cfg.blockDim = dim3(kThreads);
-  cfg.dynamicSmemBytes = p.smem_bytes();
+  cfg.dynamicSmemBytes = p.smem_bytes(planes);
   cfg.stream = stream;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
@@ -368,7 +414,7 @@ cudaError_t grid_of(const Plan& p, int sms, int* grid) {
   }
   if (!max_clusters) {
     cudaLaunchAttribute attr;
-    const cudaLaunchConfig_t cfg = cluster_launch(sms / kCluster * kCluster, p, 0, &attr);
+    const cudaLaunchConfig_t cfg = cluster_launch(sms / kCluster * kCluster, p, Kind<KIND>::kPlanes, 0, &attr);
     const cudaError_t e = cudaOccupancyMaxActiveClusters(&max_clusters, kernel, &cfg);
     if (e != cudaSuccess) return e;
     if (max_clusters < 1) return cudaErrorInvalidConfiguration;
@@ -383,26 +429,28 @@ cudaError_t launch(const CUtensorMap (&maps)[3], const Plan& p, int sms, cudaStr
   cudaError_t e = grid_of<KIND, BN>(p, sms, &grid);
   if (e != cudaSuccess) return e;
   cudaLaunchAttribute attr;
-  const cudaLaunchConfig_t cfg = cluster_launch(grid, p, stream, &attr);
+  const cudaLaunchConfig_t cfg = cluster_launch(grid, p, Kind<KIND>::kPlanes, stream, &attr);
   e = cudaLaunchKernelEx(&cfg, gemm_sm90<KIND, BN>, maps[0], maps[1], maps[2], p);
   if (e != cudaSuccess) return e;
   return cudaGetLastError();
 }
 
 // One call: a (M, K), bt (Nout, K) and c (M, Nout) contiguous with
-// 16-byte aligned bases, in the kind's types; K a multiple of 64 bytes,
+// 16-byte aligned bases, in the kind's types (kSplitF32: a (2, M, K) and bt
+// (2, Nout, K), each plane after the other); K a multiple of 64 bytes,
 // Nout of 128.  Anything else returns cudaErrorInvalidValue.
 template <int KIND>
 cudaError_t run(const void* a, const void* bt, void* c, int M, int K, int Nout, cudaStream_t stream) {
   using T = Kind<KIND>;
   Plan p;
-  cudaError_t e = make_plan(&p, M, K, Nout, T::kIn);
+  cudaError_t e = make_plan(&p, M, K, Nout, T::kIn, T::kPlanes);
   if (e != cudaSuccess) return e;
   CUtensorMap maps[3];
   constexpr int kBoxElems = kBoxBytes / T::kIn;
-  e = encode_3d(&maps[0], T::kInType, T::kIn, a, K, M, 1, kBoxElems, kRows, CU_TENSOR_MAP_SWIZZLE_128B);
+  e = encode_3d(&maps[0], T::kInType, T::kIn, a, K, M, T::kPlanes, kBoxElems, kRows,
+                CU_TENSOR_MAP_SWIZZLE_128B);
   if (e == cudaSuccess)
-    e = encode_3d(&maps[1], T::kInType, T::kIn, bt, K, Nout, 1, kBoxElems, p.BN / kCluster,
+    e = encode_3d(&maps[1], T::kInType, T::kIn, bt, K, Nout, T::kPlanes, kBoxElems, p.BN / kCluster,
                   CU_TENSOR_MAP_SWIZZLE_128B);
   if (e == cudaSuccess)
     e = encode_3d(&maps[2], T::kOutType, T::kOut, c, Nout, M, 1, 128 / T::kOut, kOutRows,

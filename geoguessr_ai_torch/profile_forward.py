@@ -55,7 +55,13 @@ GROUPS = (
     ("ln_gemm_sm90", "LN+GEMM (K1/K2/K9 CUDA)"),
     ("mbconv_sm90", "fused MBConv (K10 CUDA)"),
     ("mbconv_f32_sm90", "fused MBConv (f32 K10 CUDA)"),
-    # the GEMM core with A streamed along K (K11's out-projection, K13)
+    # the f32 kind of K6's kernel and its split of k and v into bf16
+    # planes, which K6's and K11's f32 entries run
+    ("clip_flash_f32_sm90", "CLIP attention (f32 K6/K11 CUDA)"),
+    ("split_kv", "k/v split (f32 K6/K11 CUDA)"),
+    # the GEMM core with A streamed along K (K11's out-projection, K13);
+    # its kSplitF32 kind (gemm_sm90<3, BN>) K11's f32 out-projection
+    ("gemm_sm90<3,", "GEMM core (f32 K11 CUDA)"),
     ("gemm_sm90", "GEMM core (K11/K13 CUDA)"),
     # torch._int_mm's kernels (cutlass_80_tensorop_i16832gemm_s8_... on
     # the H100 with torch 2.11)

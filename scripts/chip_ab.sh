@@ -44,7 +44,13 @@
 # version, hashes of every bf16 forward entry's output, then the f32
 # serving p50s (fwd_f32_ab below), and after the four runs whether the
 # forward core's and the LN + GEMM core's bf16 kernels compiled to the
-# same SASS in both trees.
+# same SASS in both trees; AB_PHASES=clip_f32 K6 and K11 in f32 at CLIP-L's
+# bucket 16 and at ViT-B/32's N = 50 as device time with each launch's
+# device time and their largest error against the plain f32 version,
+# hashes of K6's, K11's and K13's bf16 (and K13's int8) outputs, the f32
+# CLIP engines' bucket-16 p50s (clip_f32_ab below), and after the four runs
+# whether K6's bf16 kernel and the GEMM core's bf16 and int8 kinds
+# compiled to the same SASS in both trees.
 set -u
 parent=${1:?usage: chip_ab.sh PARENT_DIR}
 out=$(pwd)/${AB_OUT:-build/ab_logs}
@@ -118,12 +124,15 @@ def mbconv_ab():
         torch.cuda.empty_cache()
 
 
-def f32_serve_ab():
+def f32_serve_ab(clip=False):
     """The f32 paths that launch K2, K9 and K10 (chip_smoke.py phase 25):
     the default f32 TinyViT engine and the one with fused_mbconv and
     fused_block_4d at bucket 16 (predict_batch p50 over 11 calls after a
     warm-up) and the f32 Embedder of bulk_embed_config() at 64 images (p50
-    over 11 calls), each with K2's, K9's and K10's launches in one call."""
+    over 11 calls), each with K2's, K9's and K10's launches in one call;
+    with ``clip`` instead phase 25's two f32 CLIP ViT-L/14-336 engines at
+    bucket 16, K6's and K11's (pallas_fuse_proj=True), each with K6's and
+    K11's launches a call."""
     import gc
 
     import numpy as np
@@ -135,6 +144,9 @@ def f32_serve_ab():
     from geoguessr_ai_torch.ops import window_attention as wa
     from geoguessr_ai_torch.serving.engine import ServingEngine
 
+    from geoguessr_ai_torch.models.clip_vit import CLIPVisionConfig
+    from geoguessr_ai_torch.ops import clip_attention as ca
+
     f32 = torch.float32
 
     def read(label, fn):
@@ -142,13 +154,30 @@ def f32_serve_ab():
         torch.cuda.synchronize()
         mbconv.reset_launches()
         wa.reset_launches()
+        ca.reset_launches()
         fn()
         torch.cuda.synchronize()
         k10 = mbconv.LAUNCHES["_mbconv_cuda"]
         k2, k9 = wa.LAUNCHES["_fb_s2_cuda"], wa.LAUNCHES["_fb4d_cuda"]
+        k6, k11 = ca.LAUNCHES["_flash_cuda"], ca.LAUNCHES["_flash_proj_cuda"]
         p50 = cs._p50_ms(fn, reps=11)
         print(f"AB f32 {label} p50 {p50:.2f} ms (K2 {k2}, K9 {k9}, K10 "
-              f"{k10} a call)")
+              f"{k10}, K6 {k6}, K11 {k11} a call)")
+
+    if clip:
+        for fuse in (False, True):
+            engine = ServingEngine(
+                backbone="clip", seed=cs.SEED,
+                backbone_config=CLIPVisionConfig.vit_l_14_336(
+                    dtype=f32, pallas_fuse_proj=fuse))
+            _, views = cs._fixture_views(engine)
+            batch = np.repeat(views[None], 16, axis=0)
+            read(f"CLIP {'K11' if fuse else 'K6'} engine bucket 16",
+                 lambda: engine.predict_batch(batch))
+            del engine
+            gc.collect()
+            torch.cuda.empty_cache()
+        return
 
     for label, knobs in (("default engine", {}),
                          ("knobs engine", dict(fused_mbconv=True,
@@ -252,6 +281,72 @@ def fwd_f32_ab():
     del args
     torch.cuda.empty_cache()
     f32_serve_ab()
+
+
+def clip_f32_ab():
+    """K6 and K11 in f32 at CLIP-L's bucket 16 (64, 577, 3072), H=16, and at
+    ViT-B/32's (64, 50, 2304), H=12, as device time (cs.kernel_ms) with
+    their largest error against the plain f32 version and each launch's
+    device time (torch.profiler: the k/v split, the attention and K11's
+    projection apart); hashes of K6's and K11's bf16 outputs and K13's
+    bf16 and int8 outputs at (4096, 4096, 4096) on seeded inputs (equal in
+    both trees when their bits did not change); then the f32 CLIP engines'
+    p50s (f32_serve_ab)."""
+    from geoguessr_ai_torch.ops import clip_attention as ca
+    from geoguessr_ai_torch.ops.experimental import tiled_gemm as tg
+
+    f32, bf = torch.float32, torch.bfloat16
+    gen = torch.Generator().manual_seed(26)
+    for B, N, D, H in ((64, 577, 1024, 16), (64, 50, 768, 12)):
+        qkv = torch.randn(B, N, 3 * D, generator=gen).to("cuda")
+        w = (torch.randn(D, D, generator=gen) * D ** -0.5).to("cuda")
+        scale = (D // H) ** -0.5
+        for k, fn, plain in (
+                ("K6", lambda: ca._flash_cuda(qkv, scale, H),
+                 lambda: ca._flash_plain(qkv, scale, H)),
+                ("K11", lambda: ca._flash_proj_cuda(qkv, w, scale, H),
+                 lambda: ca._flash_proj_plain(qkv, w, scale, H))):
+            label = f"{k} ({B}, {N}, {3 * D}) H={H}"
+            ms = cs.kernel_ms(fn)
+            out = fn()
+            torch.cuda.synchronize()
+            _, rel = cs._rel_err(out, plain())
+            print(f"AB f32 {label} device_ms {ms:.4f} max_rel_err {rel:.3g}")
+            launch = cs._launch_ms(fn)
+            print(f"AB f32 {label} launch_ms " + (
+                ", ".join(f"{n} {t:.4f}" for n, t in launch.items())
+                if launch else "not measured"))
+            del out
+        del qkv, w
+        torch.cuda.empty_cache()
+
+    def bits(label, fn):
+        out = fn()
+        torch.cuda.synchronize()
+        print(f"AB bits {label} {sha(out)}")
+
+    gen = torch.Generator().manual_seed(27)
+    for B, N, D, H in ((64, 577, 1024, 16), (64, 50, 768, 12)):
+        qkv = torch.randn(B, N, 3 * D, generator=gen).to("cuda", bf)
+        w = (torch.randn(D, D, generator=gen) * D ** -0.5).to("cuda", bf)
+        scale = (D // H) ** -0.5
+        bits(f"K6 bf16 ({B}, {N}, {3 * D})",
+             lambda: ca._flash_cuda(qkv, scale, H))
+        bits(f"K11 bf16 ({B}, {N}, {3 * D})",
+             lambda: ca._flash_proj_cuda(qkv, w, scale, H))
+        del qkv, w
+    M = K = N = 4096
+    a8 = torch.randint(-127, 128, (M, K), generator=gen, dtype=torch.int8).cuda()
+    b8 = torch.randint(-127, 128, (K, N), generator=gen, dtype=torch.int8).cuda()
+    a = torch.randn(M, K, generator=gen).to("cuda", bf)
+    b = torch.randn(K, N, generator=gen).to("cuda", bf)
+    bits("K13 int8 (4096, 4096, 4096)",
+         lambda: tg._tiled_matmul_cuda(a8, b8, torch.int32))
+    bits("K13 bf16 (4096, 4096, 4096)",
+         lambda: tg._tiled_matmul_cuda(a, b, f32))
+    del a8, b8, a, b
+    torch.cuda.empty_cache()
+    f32_serve_ab(clip=True)
 
 
 def fusion_ab():
@@ -380,6 +475,9 @@ if os.environ.get("AB_PHASES") == "f32_serve":
     sys.exit(0)
 if os.environ.get("AB_PHASES") == "fwd_f32":
     fwd_f32_ab()
+    sys.exit(0)
+if os.environ.get("AB_PHASES") == "clip_f32":
+    clip_f32_ab()
     sys.exit(0)
 if os.environ.get("AB_PHASES") == "serve":
     _, paths, result, _ = cs.phase_serve()
@@ -541,7 +639,9 @@ run "$parent" parent2
 # fused_mbconv_exp), and with AB_PHASES=fwd_f32 the bf16 kernels of the
 # forward core (attention_fwd_sm90), the LN + GEMM core (ln_gemm_sm90) and
 # the streamed-K GEMM core (gemm_sm90) in every library that builds them,
-# in both trees' libraries,
+# with AB_PHASES=clip_f32 K6's bf16 kernel (clip_flash_sm90) and the GEMM
+# core's three earlier kinds (gemm_sm90<0, 1, 2, ...>) in the CLIP and K13
+# libraries, in both trees' libraries,
 # instruction by instruction (cuobjdump's SASS without the addresses):
 # "identical True" when the change compiled them to the same code
 python3 - "$parent" "${AB_PHASES:-}" <<'PY'
@@ -572,6 +672,10 @@ if sys.argv[2] == "fwd_f32":
     checks += [(lib, lib, cores) for lib in (
         "fb_s2", "fb4d", "fused_block", "attention_qkv", "attention_headmajor",
         "tiled_gemm", "clip_flash_proj")]
+if sys.argv[2] == "clip_f32":
+    clip = r"((?:clip_flash_sm90ILi\d+E|gemm_sm90ILi[012]E)\w*)"
+    checks += [(lib, lib, clip) for lib in ("clip_flash", "clip_flash_proj",
+                                            "tiled_gemm")]
 for lib, label, pattern in checks:
     old, new = kernels(sys.argv[1], lib, pattern), kernels(".", lib, pattern)
     for key in sorted(old):

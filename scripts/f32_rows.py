@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """The f32 readings of the kernel rows of PERF.md §6 that ``chip_smoke.py``
-does not time in f32: K4 at the three TinyViT-5M-224 shapes, K6 and K11 at
-CLIP ViT-B/32's N=50, K8a at stage 3 of a serving bucket of 1, K9 and K10
-at a serving bucket of 16 (64 images).  Each f32 entry is held against its
+does not time in f32: K4 at the three TinyViT-5M-224 shapes, K8a at stage
+3 of a serving bucket of 1, K9 and K10 at a serving bucket of 16 (64
+images).  Each f32 entry is held against its
 plain f32 version (max |err| / max |ref| <= 1e-3, as phase 24) and timed as
 device time beside one PyTorch call of the same function where there is
 one (SDPA's forward, or its backward for K4), all on the card.
@@ -29,24 +29,10 @@ ROWS = (
     ("K4 5M-224 stage 1", "K4", (1024, 49, 4)),
     ("K4 5M-224 stage 2", "K4", (64, 196, 5)),
     ("K4 5M-224 stage 3", "K4", (64, 49, 10)),
-    ("K6 N=50", "K6", (64, 50, 768, 12)),
-    ("K11 N=50", "K11", (64, 50, 768, 12)),
     ("K8a stage 3 bucket 1", "K8a", (4, 18, 256)),
     ("K9 bucket 16", "K9", (64,)),
     ("K10 bucket 16", "K10", (64,)),
 )
-
-
-def _sdpa_f32_ms(shape, gen):
-    """K6's library call at ``shape`` in f32, as device time."""
-    import torch.nn.functional as F
-
-    B, N, D, H = shape
-    q, k, v = (torch.randn(B, H, N, D // H, generator=gen).to("cuda")
-               for _ in range(3))
-    return (cs.kernel_ms(lambda: F.scaled_dot_product_attention(
-        q, k, v, scale=(D // H) ** -0.5)),
-        "scaled_dot_product_attention in f32, device time")
 
 
 def main():
@@ -67,8 +53,6 @@ def main():
                     f"version (rel {rel:.3g})")
         del got, want
         ms = cs.kernel_ms(lambda: kern(*args))
-        if kernel == "K6":
-            lib = lambda: _sdpa_f32_ms(shape, gen)  # noqa: E731
         lib_ms, lib_what = (None, "") if lib is None else lib()
         rows[label] = dict(ms=ms, library_ms=lib_ms, library=lib_what,
                            bound_ms=bound, bound_by=bound_by,

@@ -39,9 +39,9 @@ from geoguessr_ai_torch.ops.experimental import tiled_gemm as tg  # noqa: E402
 
 _STAGES = "constexpr int kMaxStages = 8;"
 _TILE = ("  p->BN = Nout % 256 == 0 ? 256 : 128;", "  p->BN = 128;")
-_STAGE = ("    stage_products<BN>(d, desc<64>(sm.a(at.slot) + a_off), "
-          "desc<64>(sm.b(at.slot)));")
-_PRODUCTS = "  for (int kk = 0; kk < 4; ++kk) mma<NW>(d, da + 2 * kk, db + 2 * kk);"
+_STAGE = "    stage_products<KIND, BN>(d, sm, at.slot, a_off);"
+_PRODUCTS = ("    for (int kk = 0; kk < 4; ++kk) mma<NW>(d, da + 2 * kk, db + "
+             "2 * kk);\n  }")
 _EPILOGUE = ("    epilogue<KIND, BN>(d, sm, &c_map, m * kRows + 64 * c, n * BN, c, "
              "warp, g, cc);")
 _KERNEL = "template <int KIND, int BN>\n__global__"
@@ -88,7 +88,11 @@ VARIANTS = {
         ("""          tma_load_multicast(sm.b(pos.slot) + rank * kHalfB * kBoxBytes, &b_map, sm.full(pos.slot),
                              b * kBoxElems, n * BN + rank * kHalfB, 0, (1 << kCluster) - 1);""",
          "          tma_load(sm.b(pos.slot), &b_map, sm.full(pos.slot), "
-         "b * kBoxElems, n * BN, 0);")],
+         "b * kBoxElems, n * BN, 0);"),
+        ("""            tma_load_multicast(sm.b(pos.slot) + (BN + rank * kHalfB) * kBoxBytes, &b_map, sm.full(pos.slot),
+                               b * kBoxElems, n * BN + rank * kHalfB, 1, (1 << kCluster) - 1);""",
+         "            tma_load(sm.b(pos.slot) + BN * kBoxBytes, &b_map, "
+         "sm.full(pos.slot), b * kBoxElems, n * BN, 1);")],
     "tile_128": [_TILE],
     "tile_128_stages_4": [_TILE, (_STAGES, "constexpr int kMaxStages = 4;")],
     "stages_3": [(_STAGES, "constexpr int kMaxStages = 3;")],
@@ -100,13 +104,18 @@ VARIANTS = {
     "no_stores": [("store_tile_tma(leader, c_map,",
                    "store_tile_tma(false, c_map,")],
     # the products (the stages still land and are released)
-    "no_products": [(_PRODUCTS, "  for (int kk = 0; kk < 4; ++kk) "
-                     "asm volatile(\"\" :: \"l\"(da), \"l\"(db));")],
+    "no_products": [(_PRODUCTS, "    for (int kk = 0; kk < 4; ++kk) "
+                     "asm volatile(\"\" :: \"l\"(da), \"l\"(db));\n  }")],
     # the loads (each stage's full barrier completed by a plain arrival)
-    "no_loads": [("""          mbar_expect_tx(sm.full(pos.slot), p.stage_bytes());
+    "no_loads": [("""          mbar_expect_tx(sm.full(pos.slot), sm.stage);
           tma_load(sm.a(pos.slot), &a_map, sm.full(pos.slot), b * kBoxElems, m * kRows, 0);
           tma_load_multicast(sm.b(pos.slot) + rank * kHalfB * kBoxBytes, &b_map, sm.full(pos.slot),
-                             b * kBoxElems, n * BN + rank * kHalfB, 0, (1 << kCluster) - 1);""",
+                             b * kBoxElems, n * BN + rank * kHalfB, 0, (1 << kCluster) - 1);
+          if constexpr (kPlanes == 2) {  // the lo planes, at plane coordinate 1
+            tma_load(sm.a(pos.slot) + kBoxA, &a_map, sm.full(pos.slot), b * kBoxElems, m * kRows, 1);
+            tma_load_multicast(sm.b(pos.slot) + (BN + rank * kHalfB) * kBoxBytes, &b_map, sm.full(pos.slot),
+                               b * kBoxElems, n * BN + rank * kHalfB, 1, (1 << kCluster) - 1);
+          }""",
                   """          mbar_arrive(sm.full(pos.slot));""")],
 }
 _NO_LOADS = VARIANTS["no_loads"]
@@ -117,8 +126,8 @@ VARIANTS["no_loads_one_group"] = _NO_LOADS + [
 VARIANTS["no_loads_wait0"] = _NO_LOADS + [("      wgmma_wait<1>();",
                                            "      wgmma_wait<0>();")]
 VARIANTS["no_loads_twice"] = _NO_LOADS + [
-    (_PRODUCTS, "  for (int kk = 0; kk < 8; ++kk) "
-     "mma<NW>(d, da + 2 * (kk & 3), db + 2 * (kk & 3));")]
+    (_PRODUCTS, "    for (int kk = 0; kk < 8; ++kk) "
+     "mma<NW>(d, da + 2 * (kk & 3), db + 2 * (kk & 3));\n  }")]
 #: The ablations, whose results are not checked.
 ABLATIONS = ("no_stores", "no_products", "no_loads", "no_loads_one_group",
              "no_loads_wait0", "no_loads_twice")

@@ -1,18 +1,21 @@
-"""K6's bf16 entry, the Hopper kernel, on the CPU: its routing and its
+"""K6's entries, the Hopper kernel, on the CPU: their routing and their
 layout rules.
 
 In bf16 ``_flash_cuda`` launches ``clip_flash_bf16``, the kernel that
 reads qkv through one TMA tensor map and multiplies with wgmma
-(``ops/csrc/clip_flash_sm90.cuh``, ``sm90``, which K11's bf16 entry
-launches too); in f32 it launches
-``clip_flash_f32``, the mma.sync twin.  The tensor map needs a 16-byte
-aligned base and rows a multiple of 16 bytes apart, and the C entries
-take no strides, so ``_qkv_layout`` (a pure function of shape, strides,
-address and element size) refuses anything else before a launch.  What
-is checked here, where there is no ``nvcc`` and no card: which entry each
-dtype reaches, that each entry's C body reaches the kernel it names, and
-every layout rule.  The kernel itself is held against ``_flash_plain`` by
-tests/test_torch_port_cuda.py on the card.
+(``ops/csrc/clip_flash_sm90.cuh``, ``sm90``, which K11's entries launch
+too); in f32 it launches ``clip_flash_f32``, the same kernel's f32 kind,
+which first splits k and v into a (2, B, N, 2D) bf16 scratch the wrapper
+allocates and reads those planes through one tensor map and q in f32
+through another.  The tensor map
+needs a 16-byte aligned base and rows a multiple of 16 bytes apart, and
+the C entries take no strides, so ``_qkv_layout`` (a pure function of
+shape, strides, address and element size) refuses anything else before a
+launch.  What is checked here, where there is no ``nvcc`` and no card:
+which entry each dtype reaches, that each entry's C body reaches the
+kernel kind it names, and every layout rule.  The kernel itself is held
+against ``_flash_plain`` by tests/test_torch_port_cuda.py on the card; the
+f32 kind's plan and arithmetic by tests/test_torch_port_clip_f32.py.
 """
 
 import re
@@ -33,49 +36,80 @@ def _c_body(entry):
 
 @pytest.mark.parametrize("dtype,entry,core", [
     (torch.bfloat16, "clip_flash_bf16", "sm90::run<HD>"),
-    (torch.float32, "clip_flash_f32", "run_f32("),
+    (torch.float32, "clip_flash_f32", "sm90::run_f32<HD, false>("),
 ], ids=["bf16", "f32"])
 def test_flash_wrapper_routes_each_dtype_to_its_entry(monkeypatch, dtype,
                                                       entry, core):
     """``_flash_cuda`` launches the entry of its qkv's dtype once, and that
-    entry's body runs the Hopper kernel (bf16) or the mma.sync twin
-    (f32).  The card check is replaced by the layout rules alone, and the
-    entry by a recorder, so the wrapper runs here up to its launch."""
+    entry's body runs the Hopper kernel's bf16 kind or its f32 kind, the
+    latter with a bf16 scratch of k's and v's two planes (2 B N 2D
+    elements) and
+    the bf16 entry with none.  The card check is replaced by the layout
+    rules alone, and the entry by a recorder, so the wrapper runs here up
+    to its launch."""
     calls = []
 
     def fake_entry(lib, name):
         def launch(*args):
-            calls.append((lib, name, args[2:7]))
+            calls.append((lib, name, args[1], args[3:8]))
             return 0
         return launch
+
+    empties = []
+    real_empty = torch.empty
+
+    def empty(*shape, **kw):
+        empties.append((shape[0] if len(shape) == 1 else shape,
+                        kw.get("dtype")))
+        return real_empty(*shape, **kw)
 
     monkeypatch.setattr(_build, "entry", fake_entry)
     monkeypatch.setattr(ca, "_stream", lambda: 0)
     monkeypatch.setattr(ca, "_check_qkv", lambda qkv, h: ca._qkv_layout(
         tuple(qkv.shape), qkv.stride(), 0, qkv.element_size(), h))
+    monkeypatch.setattr(torch, "empty", empty)
     ca.reset_launches()
     out = ca._flash_cuda(torch.zeros(3, 50, 3 * 128, dtype=dtype), 0.125, 2)
     assert out.shape == (3, 50, 128) and out.dtype == dtype
-    assert calls == [("clip_flash", entry, (3, 50, 2, 64, 0.125))]
+    (lib, name, planes, args), = calls
+    assert (lib, name, args) == ("clip_flash", entry, (3, 50, 2, 64, 0.125))
+    if dtype == torch.float32:
+        assert isinstance(planes, int)
+        assert (2 * 3 * 50 * 2 * 128, torch.bfloat16) in empties
+    else:
+        assert planes is None
     assert ca.LAUNCHES["_flash_cuda"] == 1
     assert core in _c_body(entry)
 
 
 def test_only_the_bf16_entry_reads_through_a_tensor_map():
+    """Both kinds read through tensor maps now: the bf16 kind over qkv,
+    the f32 kind over qkv's q rows in f32 and over k's and v's planes (hi
+    at plane image b, lo at B + b), each with the same warp-specialised TMA
+    + wgmma pipeline; the first design (attend_rows, mma.sync) is gone from
+    both CLIP libraries."""
     src = open(_build.CSRC / "clip_flash_sm90.cuh").read()
     kernel = src[src.index("clip_flash_sm90("):src.index("int run(")]
+    f32 = src[src.index("clip_flash_f32_sm90("):src.index("int run_f32(")]
     assert '#include "clip_flash_sm90.cuh"' in open(
         _build.CSRC / "clip_flash.cu").read()
     assert "cp.async.bulk.tensor.3d" in src and "tma_load(" in kernel
     for feature in ("setmaxnreg.dec", "setmaxnreg.inc", "mbar_wait(full_k",
                     "mbar_wait(empty", "wgmma_s<HD>(", "wgmma_pv<HD>("):
         assert feature in kernel, feature
+    for feature in ("setmaxnreg.dec", "setmaxnreg.inc", "mbar_wait(full_k",
+                    "mbar_wait(empty", "split_scores<HD>(", "split_pv<HD>(",
+                    "tma_load(dst + T::kBytes, &kv_map, bar, c0, row, B + b)",
+                    "&q_map, full_q"):
+        assert feature in f32, feature
     for fn in ("wgmma_m64n128k16_ss", "wgmma_m64n64k16_rs",
                "wgmma_m64n32k16_rs", "wgmma_m64n16k16_rs"):
         assert f"wgmma.mma_async.sync.aligned.{fn[6:-3]}.f32.bf16.bf16" in src
-    assert "attend_rows" not in kernel
-    # the first design, which K11's f32 twin keeps
-    assert "attend_rows" in open(_build.CSRC / "clip_flash_proj.cu").read()
+    assert "attend_rows" not in kernel and "attend_rows" not in f32
+    # the first design is gone with its header
+    for lib in ("clip_flash", "clip_flash_proj"):
+        assert "attend_rows" not in open(_build.CSRC / f"{lib}.cu").read()
+    assert not (_build.CSRC / "clip_flash.cuh").exists()
 
 
 @pytest.mark.parametrize("shape,strides,ptr,elem,H,want", [

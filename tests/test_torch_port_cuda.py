@@ -259,10 +259,16 @@ def _clip_inputs(B, N, D, device, seed=0, dtype=torch.bfloat16):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
 @pytest.mark.parametrize("kernel", ["K6", "K11"])
 @pytest.mark.parametrize("B,N,D,H", CLIP_SHAPES)
-def test_cuda_clip_kernel_matches_plain(cuda_device, kernel, B, N, D, H):
-    qkv, w = _clip_inputs(B, N, D, cuda_device)
+def test_cuda_clip_kernel_matches_plain(cuda_device, kernel, B, N, D, H,
+                                        dtype):
+    """Each entry against its plain version in its dtype: bf16 within
+    KERNEL_REL_TOL, f32 (the kernels' f32 kinds: split products) within
+    F32_REL_TOL, one launch a call."""
+    qkv, w = _clip_inputs(B, N, D, cuda_device, dtype=dtype)
     scale = 64 ** -0.5
     if kernel == "K6":
         name, run = "_flash_cuda", lambda f: f(qkv, scale, H)
@@ -276,9 +282,10 @@ def test_cuda_clip_kernel_matches_plain(cuda_device, kernel, B, N, D, H):
     assert ca.LAUNCHES[name] == before + 1
     want = run(plain)
     assert got.shape == want.shape == (B, N, D)
-    assert got.dtype == torch.bfloat16
+    assert got.dtype == dtype
     assert bool(torch.isfinite(got).all())
-    assert _rel_err(got, want) < KERNEL_REL_TOL
+    tol = KERNEL_REL_TOL if dtype == torch.bfloat16 else F32_REL_TOL
+    assert _rel_err(got, want) < tol
 
 
 @pytest.mark.cuda
@@ -1393,14 +1400,15 @@ def test_cuda_f32_entries_match_plain(cuda_device, kernel, hd):
 @pytest.mark.cuda
 @pytest.mark.parametrize("D,H", [(768, 12), (1024, 16)])
 def test_cuda_f32_flash_proj_walks_head_chunks(cuda_device, D, H):
-    """K11's f32 entry at ViT-B/32's and ViT-L/14's widths, whose (64, D)
-    f32 attention rows do not fit beside the k/v tiles: two head chunks,
-    the second added into the first's output, against the plain version."""
+    """K11's f32 entry at ViT-B/32's and ViT-L/14's widths, where the first
+    design walked two head chunks: the GEMM core's kSplitF32 kind now
+    streams all D channels of o's planes, against the plain version, and
+    two calls give the same bits."""
     qkv, w = _clip_inputs(1, 197, D, cuda_device, seed=10, dtype=F32)
-    assert ca._flash_proj_chunk(D, 64, F32) == D // 2
     got = ca._flash_proj_cuda(qkv, w, 0.125, H)
     torch.cuda.synchronize()
     assert _rel_err(got, ca._flash_proj_plain(qkv, w, 0.125, H)) < F32_REL_TOL
+    assert torch.equal(got, ca._flash_proj_cuda(qkv, w, 0.125, H))
 
 
 @pytest.mark.cuda

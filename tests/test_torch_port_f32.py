@@ -7,8 +7,9 @@ the twin of its activations' dtype.  What is checked here, where there is
 no ``nvcc`` and no card: every C name in ``SIGNATURES`` is defined in its
 source, the twelve bf16 entries of K1-K11 each have an f32 twin, the
 wrappers let bf16 and f32 through their dtype gate and refuse any other
-dtype and operands of two dtypes before anything is built, and K11's f32
-head chunks fit in shared memory.  The kernels themselves are held against
+dtype and operands of two dtypes before anything is built, and the plan of
+K11's f32 projection (the GEMM core's kSplitF32 kind, which streams all D
+input channels: no head chunks) fits in shared memory.  The kernels themselves are held against
 their plain f32 versions by tests/test_torch_port_cuda.py on the card; the
 plain f32 versions against the JAX package by the other port tests.
 """
@@ -149,19 +150,26 @@ def test_wrappers_refuse_operands_of_two_dtypes(nothing_built, kernel):
 
 
 @pytest.mark.parametrize("D,hd,want", [
-    (1024, 64, 512),   # ViT-L/14: two chunks of 8 heads
-    (768, 64, 384),    # ViT-B/32: two chunks of 6 heads
-    (256, 64, 256),    # narrow: one chunk
-    (128, 16, 128),
+    (1024, 64, dict(BN=256, S=2, KB=16)),   # ViT-L/14
+    (768, 64, dict(BN=256, S=2, KB=12)),    # ViT-B/32
+    (256, 64, dict(BN=256, S=2, KB=4)),     # narrow
+    (128, 16, dict(BN=128, S=3, KB=2)),
 ])
-def test_flash_proj_f32_head_chunks_fit_in_shared_memory(D, hd, want):
-    """K11 in f32 walks the heads in chunks whose (64, Dc) f32 attention
-    rows fit beside the k/v tiles; in bf16 it takes all D at once."""
-    got = ca._flash_proj_chunk(D, hd, torch.float32)
-    assert got == want
-    assert ca._flash_proj_smem_bytes(got, hd, 4) <= ca._SMEM_LIMIT
-    assert (D // hd // 2) % (D // got) == 0  # whole head pairs a chunk
-    assert ca._flash_proj_chunk(D, hd, torch.bfloat16) == D
-    if want < D:  # the next wider chunk would not fit
-        assert ca._flash_proj_smem_bytes(D, hd, 4) > ca._SMEM_LIMIT
+def test_flash_proj_f32_core_plan_fits_in_shared_memory(D, hd, want):
+    """K11 in f32 projects o's planes with the GEMM core's kSplitF32 kind,
+    which streams all D input channels in 128-byte k-boxes of both planes
+    (the first design's head chunks are gone): two ring stages at 256
+    columns, three at 128, within the bytes a block may opt in to, the same
+    tiles as the bf16 kind with half its stages; a head dim only picks H."""
+    from test_torch_port_gemm_sm90 import SMEM_MAX, _plan
+
+    M = 64 * 577
+    got = _plan(M, D, D, 2, planes=2)
+    assert {k: got[k] for k in want} == want
+    assert got["bytes"] <= SMEM_MAX
+    bf16 = _plan(M, D, D, 2)
+    assert bf16["BN"] == got["BN"] and bf16["KB"] == got["KB"]
+    assert got["S"] == bf16["S"] // 2
+    assert D % 128 == 0 and (D // hd) * hd == D
+    assert not hasattr(ca, "_flash_proj_chunk")
 

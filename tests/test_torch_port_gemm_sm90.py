@@ -1,10 +1,13 @@
 """The Hopper GEMM core (``csrc/gemm_sm90.cuh``) and its two users, K11's
-bf16 entry and K13, on the CPU.
+entries and K13, on the CPU.
 
 In bf16 ``clip_attention._flash_proj_cuda`` (K11) allocates a (B, N, D)
 scratch and calls ``clip_flash_proj_bf16``, which launches K6's kernel
 (``csrc/clip_flash_sm90.cuh``) into the scratch and then the core's bf16 ->
-bf16 kind on it; the f32 twin keeps the first design and takes no scratch.
+bf16 kind on it; in f32 it allocates one bf16 scratch for k's and v's
+planes and o's planes and calls ``clip_flash_proj_f32``, which launches K6's f32 kind
+into o's planes and then the core's kSplitF32 kind on them and on w_proj^T's
+planes.
 ``tiled_gemm.tiled_matmul`` (K13) calls ``tiled_gemm_s8`` or
 ``tiled_gemm_bf16``, the core's int8 -> int32 and bf16 -> f32 kinds.  What
 is checked here, where there is no ``nvcc`` and no card: the core's plan
@@ -57,12 +60,13 @@ def _int(name):
 # ---------------------------------------------------------------------------
 
 
-def _plan(M, K, N, in_bytes):
+def _plan(M, K, N, in_bytes, planes=1):
     """A mirror of ``gemm_sm90.cuh``'s make_plan: K a multiple of 64 bytes
     in 128-byte k-boxes (the last one zero-filled past K), N a multiple of
     128 in tiles of 256 columns where N allows, else 128, as many
-    ring stages of A's 128-row box and B's BN-row box as fit beside the
-    four staging boxes, at most kMaxStages."""
+    ring stages of A's 128-row box and B's BN-row box (each in ``planes``
+    planes: kSplitF32's hi and lo) as fit beside the four staging boxes, at
+    most kMaxStages."""
     rows, box = _int("kRows"), _int("kBoxBytes")
     max_stages, out_bufs, out_rows = (_int("kMaxStages"), _int("kOutBufs"),
                                       _int("kOutRows"))
@@ -70,7 +74,7 @@ def _plan(M, K, N, in_bytes):
         return None
     BN = 256 if N % 256 == 0 else 128
     staging = 2 * out_bufs * out_rows * 128
-    stage = rows * box + BN * box
+    stage = planes * (rows * box + BN * box)
     S = min((_int("kSmemMax") - 1024 - staging - 16 * max_stages) // stage,
             max_stages)
     if S < 2:
@@ -360,18 +364,30 @@ def test_k11_routes_bf16_to_k6_and_the_core_and_f32_to_the_twin(
     launch and no K6 launch.  In bf16 it hands the entry a (B, N, D)
     scratch beside out (two allocations of that shape), and the entry's
     body runs K6's kernel into it, then the core's bf16 kind over its B N
-    rows; the f32 twin gets no scratch and runs the first design."""
+    rows; in f32 it hands the entry one bf16 scratch of 6 B N D elements
+    (k's and v's planes, then o's) and w_proj^T as its (2, D, D) bf16 planes, and
+    the body runs K6's f32 kind into o's planes, then the core's kSplitF32
+    kind on them."""
     calls = _recorder(monkeypatch)
     _host_qkv_check(monkeypatch)
     empties = []
     real_empty = torch.empty
 
     def empty(*shape, **kw):
-        empties.append((tuple(shape[0]) if len(shape) == 1 else shape,
+        one = shape[0] if len(shape) == 1 else shape
+        empties.append((tuple(one) if isinstance(one, (tuple, list)) else one,
                         kw.get("dtype")))
         return real_empty(*shape, **kw)
 
     monkeypatch.setattr(torch, "empty", empty)
+    splits = []
+    real_split = ca._split_bf16
+
+    def split(w):
+        splits.append(tuple(w.shape))
+        return real_split(w)
+
+    monkeypatch.setattr(ca, "_split_bf16", split)
     B, N, D, H = 3, 50, 256, 4
     qkv = torch.zeros(B, N, 3 * D, dtype=dtype)
     # a CUDA-looking weight: the wrapper checks only is_cuda and alignment
@@ -393,9 +409,14 @@ def test_k11_routes_bf16_to_k6_and_the_core_and_f32_to_the_twin(
         assert ("gg::gemm90::run<gg::gemm90::kBf16Bf16>(attn, wt, out, "
                 "B * N, D, D, s)") in body
     else:
-        assert args[2] is None and len(scratch) == 1
-        assert "gg::clip::run<float>(qkv, wt, out," in body
-        assert "gemm90" not in body
+        assert isinstance(args[2], int) and args[2] != args[3]
+        assert len(scratch) == 1 and splits == [(D, D)]
+        assert (6 * B * N * D, torch.bfloat16) in empties
+        assert "void* o2 = static_cast<gg::bf16*>(attn) + 4L * B * N * D;" in body
+        assert ("gg::clip::sm90::run_f32<HD, true>(qkv, attn, o2, B, N, H, "
+                "scale, s)") in body
+        assert ("gg::gemm90::run<gg::gemm90::kSplitF32>(o2, wt, out, "
+                "B * N, D, D, s)") in body
 
 
 @pytest.mark.parametrize("dtype,entry,kind,out_dtype", [
@@ -442,23 +463,27 @@ def test_k13_refuses_before_its_launch(monkeypatch, M, K, N, dtype):
 
 
 def test_k11_refuses_what_neither_entry_takes(monkeypatch):
-    """D off 128, a w_proj of another shape and float16 are refused before
-    any launch; bf16 takes all D channels in one chunk (the core streams
-    K), f32 walks head chunks that fit in shared memory."""
+    """D off 128 (in bf16 and in f32), a w_proj of another shape and
+    float16 are refused before any launch; both dtypes take all D channels
+    at once (the core streams K: no head chunks), and both C entries refuse
+    D off 128 themselves."""
     calls = _recorder(monkeypatch)
     _host_qkv_check(monkeypatch)
     ca.reset_launches()
-    odd = torch.zeros(2, 50, 3 * 192, dtype=torch.bfloat16)
-    with pytest.raises(ValueError, match="multiple of 128"):
-        ca._flash_proj_cuda(odd, torch.zeros(192, 192), 0.125, 3)
+    for dtype in (torch.bfloat16, torch.float32):
+        odd = torch.zeros(2, 50, 3 * 192, dtype=dtype)
+        with pytest.raises(ValueError, match="multiple of 128"):
+            ca._flash_proj_cuda(odd, torch.zeros(192, 192), 0.125, 3)
     qkv = torch.zeros(2, 50, 3 * 128, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="w_proj"):
         ca._flash_proj_cuda(qkv, torch.zeros(64, 128), 0.125, 2)
     with pytest.raises(ValueError, match="bfloat16 or torch.float32"):
         ca._flash_proj_cuda(qkv.half(), torch.zeros(128, 128), 0.125, 2)
     assert calls == [] and ca.LAUNCHES["_flash_proj_cuda"] == 0
-    assert ca._flash_proj_chunk(4096, 64, torch.bfloat16) == 4096
-    assert ca._flash_proj_chunk(4096, 64, torch.float32) == 512
+    for entry in ("clip_flash_proj_bf16", "clip_flash_proj_f32"):
+        assert "if (D % 128) return (int)cudaErrorInvalidValue;" in _c_body(
+            "clip_flash_proj", entry)
+    assert not hasattr(ca, "_flash_proj_chunk")
 
 
 # ---------------------------------------------------------------------------
@@ -492,10 +517,11 @@ def test_one_mainloop_serves_both_kernels():
     for lib in ("tiled_gemm", "clip_flash_proj"):
         src = (_build.CSRC / f"{lib}.cu").read_text()
         assert '#include "gemm_sm90.cuh"' in src
-        # no kernel of their own but the first design's, which only K11's
-        # f32 twin launches
-        assert src.count("__global__") == (lib == "clip_flash_proj")
-    assert "<<<" not in _c_body("clip_flash_proj", "clip_flash_proj_bf16")
+        # no kernel of their own: K11's f32 entry runs the core's split kind
+        assert src.count("__global__") == 0
+    for entry in ("clip_flash_proj_bf16", "clip_flash_proj_f32",
+                  "clip_flash_proj_gemm_f32"):
+        assert "<<<" not in _c_body("clip_flash_proj", entry)
     for lib in ("clip_flash", "clip_flash_proj"):
         src = (_build.CSRC / f"{lib}.cu").read_text()
         assert '#include "clip_flash_sm90.cuh"' in src
@@ -537,6 +563,14 @@ def test_the_core_ablations_still_apply():
     ("void gg::clip::sm90::(anonymous namespace)::clip_flash_sm90<64>("
      "CUtensorMap, __nv_bfloat16*, int, int, int, float)",
      "CLIP attention (K6/K11 CUDA)"),
+    ("void gg::gemm90::(anonymous namespace)::gemm_sm90<3, 256>(CUtensorMap, "
+     "CUtensorMap, CUtensorMap, gg::gemm90::(anonymous namespace)::Plan)",
+     "GEMM core (f32 K11 CUDA)"),
+    ("void gg::clip::sm90::(anonymous namespace)::clip_flash_f32_sm90<64, "
+     "true>(CUtensorMap, void*, int, int, int, float)",
+     "CLIP attention (f32 K6/K11 CUDA)"),
+    ("void gg::clip::sm90::(anonymous namespace)::split_kv(float4 const*, "
+     "uint2*, uint2*, long, int)", "k/v split (f32 K6/K11 CUDA)"),
     ("void gg::lng90::(anonymous namespace)::ln_gemm_sm90<3, 1, false>("
      "CUtensorMap, CUtensorMap, CUtensorMap, float const*, float const*, "
      "float const*, gg::lng90::(anonymous namespace)::Plan, float)",
