@@ -905,8 +905,8 @@ def _launch_ms(fn, calls=3):
     out-projection),
     the GEMM core's (``gemm_sm90<KIND, BN>``, K11's out-projection) as
     proj_gemm, the forward core's and K6's kernel as the attention, the
-    split of k and v into planes by K6's f32 kind as kv_split, and any other
-    kernel by its name;
+    split of k and v into planes by K6's f32 kind as kv_split, K8a's f32
+    split of q, k and v as qkv_split, and any other kernel by its name;
     each a call's, over the calls the trace holds.  None when the trace
     holds no device kernels."""
     from torch.profiler import ProfilerActivity, profile
@@ -936,6 +936,8 @@ def _launch_ms(fn, calls=3):
             key = "attention"
         elif "split_kv" in key:  # K6's and K11's f32 split of k and v
             key = "kv_split"
+        elif "split_planes" in key:  # K8a's f32 split of q, k and v
+            key = "qkv_split"
         else:
             key = key.split("(")[0].split("<")[0].replace("void ", "")
         out[key] = out.get(key, 0.0) + evt.time_range.elapsed_us() / 1e3
@@ -1758,9 +1760,9 @@ def _embed_kernel_case(kernel, images, gen, dtype=torch.bfloat16):
 
 def _k9_equals_k1(got, args, label=""):
     """Fails unless K9's output ``got`` on ``args`` (``_fb4d_cuda``'s)
-    equals K1's on the partitioned map bit for bit: in bf16 both run the
-    same GEMM and attention instances over the same window-ordered rows and
-    window groups."""
+    equals K1's on the partitioned map bit for bit: in bf16, and in f32 on
+    the cores' f32 kinds, both run the same GEMM and attention arithmetic
+    over the same window-ordered rows and window groups."""
     from geoguessr_ai_torch.ops import window_attention as wa
 
     x4, weights, (scale, heads, window, eps) = args[0], args[1:8], args[8:]
@@ -3119,6 +3121,7 @@ F32_CASES = (
     ("K5", "stage2", (64, 1024, 12)),
     ("K7", "stage2", (64, 1024, 12)),
     ("K8a", "stage2_bucket16", (64, 12, 1024)),
+    ("K8a", "stage3_bucket1", (4, 18, 256)),
     ("K8b", "stage1_bucket16", (1024, 6, 256)),
     ("K8b", "stage3_bucket16", (64, 18, 256)),
     ("K9", "embed", (EMBED_BATCH,)),
@@ -3263,10 +3266,18 @@ def _f32_case(kernel, shape, gen):
                  a["b_qkv"], a["bias"], scale, H, 1e-5), bound, bound_by,
                 lambda: (None, "[scaled_dot_product_attention in f32 on its "
                          f"qkv, the attention alone {sdpa:.4f}]"))
+    # K1: SDPA in f32 on its qkv, the attention alone (the yardstick, as
+    # K2's)
+    qkv = wa._ln_qkv_plain(a["x"], a["ln_scale"], a["ln_bias"], a["w_qkv"],
+                           a["b_qkv"], 1e-5)
+    sdpa = _sdpa_ms(qkv, a["bias"], scale, H)
+    del qkv
     return (kern, wa._fused_block_plain,
             (a["x"], a["ln_scale"], a["ln_bias"], a["w_qkv"], a["b_qkv"],
              a["w_proj"], a["b_proj"], a["bias"], scale, H, 1e-5), bound,
-            bound_by, None)
+            bound_by,
+            lambda: (None, "[scaled_dot_product_attention in f32 on its "
+                     f"qkv, the attention alone {sdpa:.4f}]"))
 
 
 def _f32_bwd_checks(kernel, label, shape, kern, args, got):
@@ -3297,25 +3308,31 @@ def _f32_bwd_checks(kernel, label, shape, kern, args, got):
 
 
 def _f32_fwd_plan(kernel, shape):
-    """K2's and K9's f32 attention plan (the forward core's f32 kind) from
-    the library's plan query, failing unless it is the mirror's
-    (``_fwd_plan_f32``).  Returns a log line."""
+    """K1's, K2's, K8a's and K9's f32 attention plan (the forward core's
+    f32 kind) from the library's plan query, failing unless it is the
+    mirror's (``_fwd_plan_f32``).  Returns a log line."""
     import ctypes
 
     from geoguessr_ai_torch.ops import _build
     from geoguessr_ai_torch.ops import window_attention as wa
 
-    if kernel == "K2":
-        lib, (W, N, C, H) = "fb_s2", shape
+    lib, fn = {"K1": ("fused_block", "fused_block"), "K2": ("fb_s2", "fb_s2"),
+               "K8a": ("attention_headmajor", "attention_qtiled"),
+               "K9": ("fb4d", "fb4d")}[kernel]
+    if kernel == "K8a":
+        (W, H, N), hd = shape, 32
+    elif kernel == "K9":
+        N, H = STAGE1_WINDOW ** 2, STAGE1_HEADS
+        W, hd = shape[0] * (STAGE1_MAP // STAGE1_WINDOW) ** 2, STAGE1_C // H
     else:
-        lib, N, C, H = "fb4d", STAGE1_WINDOW ** 2, STAGE1_C, STAGE1_HEADS
-        W = shape[0] * (STAGE1_MAP // STAGE1_WINDOW) ** 2
+        W, N, C, H = shape
+        hd = C // H
     G = wa._headmajor_groups(W, H, N)
     out = (ctypes.c_int * 8)()
-    err = _build.entry(lib, f"{lib}_plan_f32")(W, N, H, C // H, G, 64, out)
+    err = _build.entry(lib, f"{fn}_plan_f32")(W, N, H, hd, G, 64, out)
     got = dict(zip(("smem", "items", "G", "NT", "NB", "QB", "S", "stream"),
                    list(out)))
-    want = wa._fwd_plan_f32(W, H, N, G, C // H)
+    want = wa._fwd_plan_f32(W, H, N, G, hd)
     if err or any(got[k] != want[k] for k in got):
         fail(f"{kernel} f32 at {shape}: the core's attention plan {got} "
              f"(error {err}) is not the mirror's {want}")
@@ -3332,7 +3349,7 @@ def phase_f32_kernels():
         torch.cuda.synchronize()
         bwd_line = (_f32_bwd_checks(kernel, label, shape, kern, args, got)
                     if kernel in ("K4", "K5", "K7") else None)
-        if kernel in ("K2", "K9", "K10", "K6", "K11"):
+        if kernel in ("K1", "K2", "K8a", "K9", "K10", "K6", "K11"):
             # the Hopper cores' f32 kinds: every output element one
             # thread's sum in an order fixed by the shape
             stable = torch.equal(got, kern(*args))
@@ -3341,6 +3358,11 @@ def phase_f32_kernels():
             if not stable:
                 fail(f"{kernel} f32 {label}: two calls on the same inputs "
                      f"gave different bits")
+        if (kernel, label) == ("K9", "bucket16"):
+            # K1's f32 launches on the window-ordered rows K9's map hands
+            # its GEMMs: K1-f32 on the partitioned map, bit for bit
+            _k9_equals_k1(got, (*args, (STAGE1_C // STAGE1_HEADS) ** -0.5,
+                                STAGE1_HEADS, STAGE1_WINDOW, 1e-5), " f32")
         if kernel == "K11":
             # K6's f32 kind into o's planes, then the core's kSplitF32 kind:
             # bit for bit that kind on the split of K6's f32 output
@@ -3361,11 +3383,12 @@ def phase_f32_kernels():
             errs.append((*_rel_err(a, b), bool(torch.isfinite(a).all())))
         del got, want
         # the backward core's f32 kind as device time (a loop between two
-        # events reads the wrapper's host work at the 5M-224 shapes), K6
-        # and K11 as device time under SHORT_MS (N = 50)
+        # events reads the wrapper's host work at the 5M-224 shapes), K6,
+        # K11, K1 and K8a as device time under SHORT_MS (N = 50, K8a at a
+        # bucket of 1)
         if bwd_line:
             ms = device_time_ms(lambda: kern(*args))
-        elif kernel in CLIP_META:
+        elif kernel in CLIP_META or kernel in ("K1", "K8a"):
             ms = kernel_ms(lambda: kern(*args))
         else:
             ms = cuda_time_ms(lambda: kern(*args), iters=5)
@@ -3379,9 +3402,9 @@ def phase_f32_kernels():
             log(f"  {_bwd_plan(kernel, shape[0], shape[1], shape[2], torch.float32)}")
             log(f"  {bwd_line}")
             _log_launch_ms(_launch_ms(lambda: kern(*args)))
-        if kernel in ("K2", "K9"):
+        if kernel in ("K1", "K2", "K8a", "K9"):
             log(f"  {_f32_fwd_plan(kernel, shape)}")
-        if kernel in ("K2", "K9", "K6", "K11"):
+        if kernel in ("K1", "K2", "K8a", "K9", "K6", "K11"):
             _log_launch_ms(_launch_ms(lambda: kern(*args)))
         log(f"  kernel_ms {ms:.4f}, plain_ms {plain_ms:.4f}, library_ms "
             f"{'null' if lib_ms is None else f'{lib_ms:.4f}'}"

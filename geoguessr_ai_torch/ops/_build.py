@@ -64,9 +64,10 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
     "fb_s2": {**_tiled("fb_s2", "q128", (
         _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _P)),
         "fb_s2_plan_f32": _PLAN},
-    "fused_block": _tiled("fused_block", "q128", (
+    "fused_block": {**_tiled("fused_block", "q128", (
         _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
         _I, _I, _I, _I, _I, _I, _F, _F, _P)),
+        "fused_block_plan_f32": _PLAN},
     "attention_qkv_bwd": _tiled_bwd("attention_qkv_bwd", (
         _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P)),
     "attention_bwd_merged": _tiled_bwd("attention_bwd_merged", (
@@ -75,7 +76,8 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
         _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P)),
     "attention_headmajor": {
         **_tiled("attention_qtiled", "q128", (
-            _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P)),
+            _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P)),
+        "attention_qtiled_plan_f32": _PLAN,
         **_tiled("attention_batched", "q128", (
             _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P)),
     },

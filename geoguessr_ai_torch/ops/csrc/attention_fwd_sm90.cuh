@@ -4,10 +4,12 @@
 //     out[w, h] = softmax(q[w, h] k[w, h]^T * scale + bias[h]) v[w, h]
 //
 // over 64-row q-tiles of N = 64 C tokens, with bf16 q, k, v and out and a
-// head dim HD of 16, 32 or 64; and an f32 kind of the interleaved layout
-// with an f32 bias ("The f32 kind" below), which K2's and K9's f32 entries
-// (fb_s2.cu, fb4d.cu) run.  The bf16 kernels of K1, K2 and K9 (fused_block.cu,
-// fb_s2.cu, fb4d.cu) are K3's.  Two template choices make the three bf16
+// head dim HD of 16, 32 or 64; and an f32 kind with an f32 bias ("The f32
+// kind" below), which K1's, K2's and K9's f32 entries (fused_block.cu,
+// fb_s2.cu, fb4d.cu) run in the interleaved layout and K8a's
+// (attention_headmajor.cu) after a split pass of its head-major q, k and v.
+// The bf16 kernels of K1, K2 and K9 (fused_block.cu, fb_s2.cu, fb4d.cu) are
+// K3's.  Two template choices make the three bf16
 // kernels:
 //
 //   LAYOUT  kHeadMajor: q, k, v and out (W, H, N, HD), read through one
@@ -940,10 +942,12 @@ cudaError_t plan(int W, int H, int N, int G, int hd, int bias_elem, bool may_str
 }
 
 // ---------------------------------------------------------------------------
-// The f32 kind (K2's and K9's f32 entries): the interleaved layout only, an
-// f32 bias and f32 out, and qkv as the qkv GEMM's f32 kind stores it: its
-// bf16 hi and lo planes (2, W, N, 3D), hi = bf16(x), lo = bf16(x - hi) of
-// the f32 sum, never rounded further.  The f32 numerics of the first
+// The f32 kind (K1's, K2's, K8a's and K9's f32 entries): an f32 bias and
+// f32 out, interleaved (W, N, D) or head-major (W, H, N, HD) (LAYOUT, only
+// out's), and qkv as the qkv GEMM's f32 kind stores it, or K8a's split
+// pass (split_planes) writes it from q, k and v: its bf16 hi and lo planes
+// (2, W, N, 3D) in the interleaved layout, hi = bf16(x), lo = bf16(x - hi)
+// of the f32 values, never rounded further.  The f32 numerics of the first
 // design: every product sums lo.hi + hi.lo + hi.hi of its split operands in
 // f32 (three wgmma for one); the softmax is online in f32 over chunks of
 // NT = 2 key tiles (one where C is odd), p is split in registers, not
@@ -1116,13 +1120,16 @@ __device__ __forceinline__ void attend_chunk_f32(const SmemF32& sm, int c, uint3
   }
 }
 
-// Query rows `row`, row + 8 of window w, head h of the (W, N, H HD) f32
-// out: o scaled by f0 and f1.
-template <int HD>
+// Query rows `row`, row + 8 of window w, head h of the f32 out, (W, N, H
+// HD) or head-major (W, H, N, HD) as store_rows lays it out: o scaled by f0
+// and f1.
+template <int LAYOUT, int HD>
 __device__ __forceinline__ void store_rows_f32(float* __restrict__ out, const Plan& p, int w, int h, int row,
                                                int cc, const float (&o)[HD / 2], float f0, float f1) {
-  const long ld = (long)p.H * HD;
-  float* orow0 = out + ((long)w * p.N + row) * ld + h * HD + 2 * cc;
+  const long ld = LAYOUT == kQkv ? (long)p.H * HD : HD;  // elements between two rows of out
+  const long r0 = LAYOUT == kQkv ? ((long)w * p.N + row) * ld + h * HD
+                                 : ((long)(w * p.H + h) * p.N + row) * HD;
+  float* orow0 = out + r0 + 2 * cc;
   float* orow1 = orow0 + 8 * ld;
 #pragma unroll
   for (int t = 0; t < HD / 8; ++t) {
@@ -1134,7 +1141,8 @@ __device__ __forceinline__ void store_rows_f32(float* __restrict__ out, const Pl
 // Threads 0-255 are the two consumer warpgroups; producer warp c (0, 1)
 // loads group c's q, k and v tiles (warp 0 the bias too).  Group c takes
 // windows w0 + c, w0 + c + 2, .. of an item (streamed: w0 + c alone).
-template <int HD, int NT, bool STREAM>
+// LAYOUT is out's (store_rows_f32); the planes are read alike in both.
+template <int HD, int NT, bool STREAM, int LAYOUT>
 __global__ void __launch_bounds__(kThreads, 1)
 attention_fwd_f32_sm90(const __grid_constant__ CUtensorMap qkv_map,
                        const __grid_constant__ CUtensorMap bias_map, float* __restrict__ out, const Plan p,
@@ -1251,7 +1259,7 @@ attention_fwd_f32_sm90(const __grid_constant__ CUtensorMap qkv_map,
           }
         }
         if (has) {
-          store_rows_f32<HD>(out, p, w, h, qt * kRows + lr0, cc, o, 1.f / l0, 1.f / l1);
+          store_rows_f32<LAYOUT, HD>(out, p, w, h, qt * kRows + lr0, cc, o, 1.f / l0, 1.f / l1);
           qpos.next(sm.QB);
         }
       }
@@ -1263,29 +1271,90 @@ attention_fwd_f32_sm90(const __grid_constant__ CUtensorMap qkv_map,
   }
 }
 
-template <int HD, int NT, bool STREAM>
+template <int HD, int NT, bool STREAM, int LAYOUT>
 cudaError_t launch_f32(const CUtensorMap (&maps)[2], float* out, const Plan& p, float scale, int sms,
                        cudaStream_t stream) {
   static bool opted_in = false;  // one per instance, and this library's own
   if (!opted_in) {
-    const cudaError_t e = cudaFuncSetAttribute(attention_fwd_f32_sm90<HD, NT, STREAM>,
+    const cudaError_t e = cudaFuncSetAttribute(attention_fwd_f32_sm90<HD, NT, STREAM, LAYOUT>,
                                                cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemMax);
     if (e != cudaSuccess) return e;
     opted_in = true;
   }
   const long items = p.items();
   const int grid = (int)(items < sms ? items : sms);
-  attention_fwd_f32_sm90<HD, NT, STREAM><<<grid, kThreads, f32_smem_bytes(p), stream>>>(maps[0], maps[1], out,
-                                                                                       p, scale);
+  attention_fwd_f32_sm90<HD, NT, STREAM, LAYOUT><<<grid, kThreads, f32_smem_bytes(p), stream>>>(
+      maps[0], maps[1], out, p, scale);
+  return cudaGetLastError();
+}
+
+// The split pass of K8a's f32 entry: its head-major f32 q, k and v, (W, H,
+// N, HD) each, as the bf16 hi and lo planes (2, W, N, 3 H HD) of the
+// interleaved qkv that the f32 kind loads (row n of head h of tensor
+// `slot` at columns (3 h + slot) HD .. + HD - 1 of row n of window w), hi
+// = bf16(x) and lo = bf16(x - hi), both rounded to nearest (split_pair).
+// It walks the planes' rows in order: block (z, w) takes uint2 (four bf16)
+// z kSplitPer 256 .. of window w's rows in a plane, kSplitPer a thread
+// with all loads issued first, so a warp writes 256 contiguous bytes of
+// each plane and reads whole 64- to 256-byte head rows.  plane4 is the
+// uint2 of one plane.  It generalises clip_flash_sm90.cuh's split_kv,
+// which reads the interleaved qkv.
+constexpr int kSplitThreads = 256;
+constexpr int kSplitPer = 4;  // uint2 of a plane a thread
+
+template <int HD>
+__global__ void __launch_bounds__(kSplitThreads)
+split_planes(const float4* __restrict__ q, const float4* __restrict__ k, const float4* __restrict__ v,
+             uint2* __restrict__ planes, int H, int N, long plane4) {
+  constexpr int kVec = HD / 4;    // float4 of a head row, uint2 of its planes' rows
+  const int row4 = 3 * H * kVec;  // uint2 of a plane row
+  const int end = N * row4;       // uint2 of window w in a plane
+  const int w = blockIdx.y;
+  const int f0 = blockIdx.x * (kSplitThreads * kSplitPer) + threadIdx.x;
+  uint2* hi = planes + (long)w * end;
+  float4 a[kSplitPer];
+#pragma unroll
+  for (int u = 0; u < kSplitPer; ++u) {
+    const int f = f0 + u * kSplitThreads;
+    if (f >= end) continue;
+    const int n = f / row4, col = f - n * row4;
+    const int h = col / (3 * kVec), slot = (col - h * 3 * kVec) / kVec, j = col % kVec;
+    const float4* x = slot == 0 ? q : slot == 1 ? k : v;
+    a[u] = x[((long)(w * H + h) * N + n) * kVec + j];
+  }
+#pragma unroll
+  for (int u = 0; u < kSplitPer; ++u) {
+    const int f = f0 + u * kSplitThreads;
+    if (f >= end) continue;
+    const Frag<float> s0 = split_pair(a[u].x, a[u].y), s1 = split_pair(a[u].z, a[u].w);
+    hi[f] = make_uint2(s0.hi, s1.hi);
+    hi[plane4 + f] = make_uint2(s0.lo, s1.lo);
+  }
+}
+
+// One launch of split_planes: q, k, v (W, H, N, HD) f32 and planes (2, W,
+// N, 3 H HD) bf16, contiguous with 16-byte aligned bases; N a multiple of
+// 64, 1 <= W <= 65535, a window's plane below 2^31 elements.
+template <int HD>
+cudaError_t split_headmajor(const void* q, const void* k, const void* v, void* planes, int W, int H, int N,
+                            cudaStream_t stream) {
+  const long per = kSplitThreads * kSplitPer, end = (long)N * 3 * H * HD / 4;
+  if (W < 1 || W > 65535 || H < 1 || N % kRows || end > 0x7fffffffL - per) return cudaErrorInvalidValue;
+  const dim3 grid((unsigned)((end + per - 1) / per), W);
+  split_planes<HD><<<grid, kSplitThreads, 0, stream>>>(
+      static_cast<const float4*>(q), static_cast<const float4*>(k), static_cast<const float4*>(v),
+      static_cast<uint2*>(planes), H, N, (long)W * end);
   return cudaGetLastError();
 }
 
 // One call of the f32 kind: qkv2 the (2, W, N, 3 H HD) bf16 hi and lo
-// planes of the f32 qkv, the bias (H, N, N) f32 and out (W, N, H HD) f32,
-// each contiguous with a 16-byte aligned base; N a multiple of 64; 1 <= G
-// <= W (the resident plan's groups; the streamed plan takes its own).
-// Where no plan fits, cudaErrorInvalidValue.
-template <int HD>
+// planes of the f32 qkv, the bias (H, N, N) f32 and out (W, N, H HD) f32
+// (LAYOUT kQkv: K1, K2, K9) or (W, H, N, HD) f32 (kHeadMajor: K8a, its
+// planes written by split_headmajor), each contiguous with a 16-byte
+// aligned base; N a multiple of 64; 1 <= G <= W (the resident plan's
+// groups; the streamed plan takes its own).  Where no plan fits,
+// cudaErrorInvalidValue.
+template <int HD, int LAYOUT = kQkv>
 cudaError_t run_f32(const void* qkv2, const void* bias, void* out, int W, int H, int N, int G, float scale,
                     cudaStream_t stream) {
   Plan p;
@@ -1304,10 +1373,10 @@ cudaError_t run_f32(const void* qkv2, const void* bias, void* out, int W, int H,
   if (e != cudaSuccess) return e;
   float* o = static_cast<float*>(out);
   if (p.stream)
-    return p.NT == 2 ? launch_f32<HD, 2, true>(maps, o, p, scale, sms, stream)
-                     : launch_f32<HD, 1, true>(maps, o, p, scale, sms, stream);
-  return p.NT == 2 ? launch_f32<HD, 2, false>(maps, o, p, scale, sms, stream)
-                   : launch_f32<HD, 1, false>(maps, o, p, scale, sms, stream);
+    return p.NT == 2 ? launch_f32<HD, 2, true, LAYOUT>(maps, o, p, scale, sms, stream)
+                     : launch_f32<HD, 1, true, LAYOUT>(maps, o, p, scale, sms, stream);
+  return p.NT == 2 ? launch_f32<HD, 2, false, LAYOUT>(maps, o, p, scale, sms, stream)
+                   : launch_f32<HD, 1, false, LAYOUT>(maps, o, p, scale, sms, stream);
 }
 
 // The f32 plan of one call without a launch, as plan fills out[8].

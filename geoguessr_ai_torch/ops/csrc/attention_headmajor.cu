@@ -29,16 +29,24 @@
 // 128-key chunks that each serve the four windows of an item.  That
 // header's comment gives the design and the budget at stage 2.
 //
-// The f32 twins run the first design: one core per 64-row q-tile, 4 warps
+// K8a's f32 twin runs two launches of the same header: split_planes writes
+// its f32 q, k and v as the bf16 hi and lo planes (2, W, N, 3 H hd) of the
+// interleaved qkv into the wrapper's scratch (window_attention.
+// _qkv_planes), then the core's f32 kind reads them through one tensor map
+// exactly as K2's and K9's f32 attention does (split products, the f32
+// bias resident over _headmajor_groups or streamed in items of two
+// windows, the online softmax in f32 over chunks of two key tiles, p split
+// in registers) and stores out head-major.  No port kernel writes K8a's
+// operands, so the split is a pass of its own: 604 MB at stage 2 of a
+// bucket of 16, against the attention's 1.1 ms.
+//
+// K8b's f32 twin runs the first design: one core per 64-row q-tile, 4 warps
 // of 16 query rows, k and v^T in tiles of 64 keys staged through shared
 // memory by plain loads, the one-pass online softmax (running max and sum
 // in f32, log2 domain) of common.cuh's window_attention_kernel on
-// mma.sync.m16n8k16 with each f32 operand split into a bf16 (hi, lo) pair;
-// K8a's launches its blocks window-fastest (grid (W, N/64, H)) so that
-// blocks scheduled together share one (head, q-tile)'s 64 x N f32 bias
-// rows in L2, and K8b's stages a block's 64 bias rows in shared memory once
-// for its BLOCK_W windows.  p is rounded relative to the running max, not
-// the final one.
+// mma.sync.m16n8k16 with each f32 operand split into a bf16 (hi, lo) pair,
+// a block's 64 bias rows staged in shared memory once for its BLOCK_W
+// windows.  p is rounded relative to the running max, not the final one.
 #include "attention_fwd_sm90.cuh"
 
 namespace gg {
@@ -46,17 +54,10 @@ namespace {
 
 constexpr int kBiasPad = 8;  // f32 pitch padding of K8b's staged bias rows
 
-// The bias as each kernel reads it: a pair of f32 values of query row
-// `row`, key columns col, col + 1.
-struct GlobalBias {  // K8a: (N, N) of one head, in device memory
-  const float* base;
-  int ld;
-  __device__ __forceinline__ float2 pair(int row, int col) const {
-    return *reinterpret_cast<const float2*>(base + (long)row * ld + col);
-  }
-};
-
-struct SharedBias {  // K8b: the block's 64 query rows, in shared memory
+// The bias as K8b's f32 twin reads it: a pair of f32 values of query row
+// `row`, key columns col, col + 1, from the block's 64 query rows staged in
+// shared memory.
+struct SharedBias {
   const float* base;
   int ld, row0;
   __device__ __forceinline__ float2 pair(int row, int col) const {
@@ -193,20 +194,6 @@ __device__ __forceinline__ void attend_tile(const E* __restrict__ q, const E* __
   }
 }
 
-// K8a: grid (W, N/64, H), the window fastest.
-template <class E, int HD>
-__global__ void __launch_bounds__(128)
-attention_qtiled_kernel(const E* __restrict__ q, const E* __restrict__ k,
-                        const E* __restrict__ v, const float* __restrict__ bias,
-                        E* __restrict__ out, int H, int N, float scale) {
-  __shared__ __align__(16) E ks[kBk * HeadDim<HD>::kPad];
-  __shared__ __align__(16) E vt[HD * kVPad];
-  const int w = blockIdx.x, h = blockIdx.z;
-  const long slab = ((long)w * H + h) * N * HD;
-  attend_tile<HD>(q + slab, k + slab, v + slab, out + slab,
-              GlobalBias{bias + (long)h * N * N, N}, N, blockIdx.y * kBq, scale, ks, vt);
-}
-
 // K8b: grid (N/64, H, W / bw); the block stages its 64 bias rows once and
 // walks its bw windows in order.
 template <class E, int HD>
@@ -243,18 +230,6 @@ size_t batched_smem_bytes(int N) {
 }
 
 template <class E>
-int qtiled(const void* q, const void* k, const void* v, const void* bias, void* out, int W,
-           int H, int N, int hd, float scale, cudaStream_t stream) {
-  const dim3 grid(W, N / kBq, H);
-  GG_HEAD_DIM_SWITCH(hd, {
-    attention_qtiled_kernel<E, HD><<<grid, 128, 0, stream>>>(
-        static_cast<const E*>(q), static_cast<const E*>(k), static_cast<const E*>(v),
-        static_cast<const float*>(bias), static_cast<E*>(out), H, N, scale);
-    return (int)cudaGetLastError();
-  })
-}
-
-template <class E>
 int batched(const void* q, const void* k, const void* v, const void* bias, void* out, int W,
             int H, int N, int hd, int block_w, float scale, cudaStream_t stream) {
   if (block_w < 1 || W % block_w) return (int)cudaErrorInvalidValue;
@@ -276,26 +251,35 @@ int batched(const void* q, const void* k, const void* v, const void* bias, void*
 
 // C entry points: shapes validated by the Python wrapper (N a multiple of
 // 64, head dim 16, 32 or 64).  q, k, v and out bf16 (or f32 for the _f32
-// twins), bias f32.  `groups` is the bf16 core's window groups G
-// (window_attention._headmajor_groups), which the f32 twin of K8a does not
-// take; K8b's f32 twin takes BLOCK_W windows a block there instead.
-// Return cudaGetLastError() after the launch.
+// twins), bias f32.  `groups` is the core's window groups G
+// (window_attention._headmajor_groups); K8b's f32 twin takes BLOCK_W
+// windows a block there instead.  K8a's entries take `planes`, a (2, W, N,
+// 3 H hd) bf16 scratch for the f32 twin's split pass, which the bf16
+// entries do not read.  Return cudaGetLastError() after the launch.
 
 // K8a: the Hopper core at every N, the bias resident where it fits, else
 // streamed.
 extern "C" int attention_qtiled_bf16(const void* q, const void* k, const void* v,
-                                     const void* bias, void* out, int W, int H, int N, int hd,
-                                     int groups, float scale, cudaStream_t stream) {
+                                     const void* bias, void* /*planes*/, void* out, int W, int H,
+                                     int N, int hd, int groups, float scale, cudaStream_t stream) {
   using namespace gg::fwd90;
   GG_HEAD_DIM_SWITCH(hd, {
     return (int)run<kHeadMajor, float, HD, true>(q, k, v, bias, out, W, H, N, groups, scale, stream);
   })
 }
 
+// Two launches: split_planes writes q's, k's and v's bf16 hi and lo planes
+// into `planes` in the interleaved layout, then the core's f32 kind reads
+// them as K2's and K9's f32 attention does and stores out head-major.
 extern "C" int attention_qtiled_f32(const void* q, const void* k, const void* v,
-                                    const void* bias, void* out, int W, int H, int N, int hd,
-                                    int /*groups*/, float scale, cudaStream_t stream) {
-  return gg::qtiled<float>(q, k, v, bias, out, W, H, N, hd, scale, stream);
+                                    const void* bias, void* planes, void* out, int W, int H, int N,
+                                    int hd, int groups, float scale, cudaStream_t stream) {
+  using namespace gg::fwd90;
+  GG_HEAD_DIM_SWITCH(hd, {
+    const cudaError_t e = split_headmajor<HD>(q, k, v, planes, W, H, N, stream);
+    if (e != cudaSuccess) return (int)e;
+    return (int)run_f32<HD, kHeadMajor>(planes, bias, out, W, H, N, groups, scale, stream);
+  })
 }
 
 // K8b: the Hopper core with the bias resident (N below 512).
@@ -312,8 +296,9 @@ extern "C" int attention_batched_bf16(const void* q, const void* k, const void* 
 // The 128-row kind of K8a and K8b (window_attention.FWD_Q_ROWS = 128): hd
 // 32, N a multiple of 128, `groups` walked a pair of windows at a time.
 extern "C" int attention_qtiled_q128_bf16(const void* q, const void* k, const void* v,
-                                          const void* bias, void* out, int W, int H, int N,
-                                          int hd, int groups, float scale, cudaStream_t stream) {
+                                          const void* bias, void* /*planes*/, void* out, int W,
+                                          int H, int N, int hd, int groups, float scale,
+                                          cudaStream_t stream) {
   using namespace gg::fwd90;
   if (hd != kRows128HeadDim) return (int)cudaErrorInvalidValue;
   return (int)run<kHeadMajor, float, kRows128HeadDim, true>(q, k, v, bias, out, W, H, N, groups,
@@ -337,6 +322,13 @@ extern "C" int attention_qtiled_plan(int W, int N, int H, int hd, int G, int row
 
 extern "C" int attention_batched_plan(int W, int N, int H, int hd, int G, int rows, int* out) {
   return (int)gg::fwd90::plan(W, H, N, G, hd, 4, false, rows, out);
+}
+
+// K8a's f32 attention plan at (W, N, H, hd, G) without a launch: out[8] as
+// fwd90::plan_f32 fills it (64-row items only).
+extern "C" int attention_qtiled_plan_f32(int W, int N, int H, int hd, int G, int rows, int* out) {
+  if (rows != gg::fwd90::kRows) return (int)cudaErrorInvalidValue;
+  return (int)gg::fwd90::plan_f32(W, H, N, G, hd, out);
 }
 
 extern "C" int attention_batched_f32(const void* q, const void* k, const void* v,

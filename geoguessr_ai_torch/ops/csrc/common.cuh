@@ -1,8 +1,9 @@
-// Device code shared by the window-attention kernels of the port (K1
-// fused_block.cu, K2 fb_s2.cu, K3 attention_qkv.cu, K9 fb4d.cu) and the
-// head-dim dispatch every attention kernel uses.  Each .cu file is
-// compiled on its own into its own shared library, so the __global__
-// templates below are instantiated once per library.
+// Device code shared by the port's kernels: the bf16 pack and split
+// helpers, mma.sync fragments, the head-dim dispatch every attention kernel
+// uses, and the first design's window attention, which K3's f32 twin
+// (attention_qkv.cu) still runs.  Each .cu file is compiled on its own into
+// its own shared library, so the __global__ templates below are
+// instantiated once per library.
 //
 // Layouts follow the JAX package (geoguessr_ai_tpu/ops/window_attention.py),
 // in the element type E of the activations (bf16 or float, see "Element
@@ -13,11 +14,7 @@
 //        (hd 16, 32 or 64)
 //   bias (H, N, N) additive attention bias
 //   out  (W, N, D), head h at channels [h*hd, (h+1)*hd)
-// Weights arrive in PyTorch's (out, in) layout, which is the column-major
-// B operand that mma.sync wants: two consecutive k of one output column are
-// one 32-bit word (one bf16 pair, or one (hi, lo) pair of words in f32).
-//
-// Both kernels use the warp-level tensor-core instruction
+// The window attention uses the warp-level tensor-core instruction
 // mma.sync.m16n8k16 (bf16 in, f32 accumulate).  Fragment layout, with
 // g = lane / 4 and c = lane % 4:
 //   A (16x16, row-major): a0 = (g, 2c..2c+1), a1 = (g+8, 2c..), a2 = (g, 8+2c..),
@@ -137,23 +134,6 @@ __device__ __forceinline__ void mma(float c[4], const Frag<float> a[4], Frag<flo
 
 __device__ __forceinline__ float to_f(bf16 v) { return __bfloat162float(v); }
 __device__ __forceinline__ float to_f(float v) { return v; }
-
-template <class E>
-__device__ __forceinline__ E from_f(float v);
-template <>
-__device__ __forceinline__ bf16 from_f<bf16>(float v) {
-  return __float2bfloat16_rn(v);
-}
-template <>
-__device__ __forceinline__ float from_f<float>(float v) {
-  return v;
-}
-
-// A value as the type E holds it: rounded to bf16, or unchanged.
-template <class E>
-__device__ __forceinline__ float round_e(float v) {
-  return to_f(from_f<E>(v));
-}
 
 // Two consecutive elements as floats, and stored from floats.
 __device__ __forceinline__ float2 load2(const bf16* p) { return unpack_bf16(ld32(p)); }
@@ -399,137 +379,6 @@ inline cudaError_t launch_window_attention(const E* qkv, const E* bias, E* out, 
     window_attention_kernel<E, HD><<<grid, 128, 0, stream>>>(qkv, bias, out, N, H, scale);
     return cudaGetLastError();
   })
-}
-
-// ---------------------------------------------------------------------------
-// y[M, Nout] = epilogue(a[M, K] @ wt[Nout, K]^T + b), a = LN(x) when LN.
-//
-// Block tile 64x64, 4 warps in 2x2, each warp 32x32; k steps of 32 through
-// shared memory.  With LN the block first computes its 64 rows' mean and
-// rstd in f32 (two passes: mean, then mean of squared deviations, as the
-// JAX kernels do), then normalises each A tile on its way into shared
-// memory and rounds it to E there: the normalised rows never touch device
-// memory.  In bf16:
-//   ROUND_FIRST: y = bf16(bf16(acc) + b)  (the qkv GEMM: dot -> bf16, + bf16 bias)
-//   otherwise:   y = bf16(acc + b)        (the out-proj: f32 bias on the f32 sum)
-// In f32 both are y = acc + b with the f32 bias.
-// ---------------------------------------------------------------------------
-
-constexpr int kGemmTile = 64;
-constexpr int kGemmK = 32;
-constexpr int kGemmPad = kGemmK + 8;
-
-template <class E, bool LN, bool ROUND_FIRST>
-__global__ void __launch_bounds__(128)
-ln_gemm_kernel(const E* __restrict__ x, const float* __restrict__ gamma,
-               const float* __restrict__ beta, const E* __restrict__ wt,
-               const float* __restrict__ bvec, E* __restrict__ y, int M, int K, int Nout,
-               float eps) {
-  __shared__ __align__(16) E as[kGemmTile * kGemmPad];
-  __shared__ __align__(16) E bs[kGemmTile * kGemmPad];
-  __shared__ float mean_s[kGemmTile], rstd_s[kGemmTile];
-
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, c = lane & 3;
-  const int wm = warp >> 1, wn = warp & 1;
-  const long m0 = (long)blockIdx.x * kGemmTile;
-  const long n0 = (long)blockIdx.y * kGemmTile;
-
-  if (LN) {
-    for (int r = warp; r < kGemmTile; r += 4) {
-      const E* xr = x + (m0 + r) * K;
-      float sum = 0.f;
-      for (int k = lane; k < K; k += 32) sum += to_f(xr[k]);
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, off);
-      const float mu = sum / K;
-      float sq = 0.f;
-      for (int k = lane; k < K; k += 32) {
-        const float d = to_f(xr[k]) - mu;
-        sq += d * d;
-      }
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1) sq += __shfl_xor_sync(0xffffffffu, sq, off);
-      if (lane == 0) {
-        mean_s[r] = mu;
-        rstd_s[r] = rsqrtf(sq / K + eps);
-      }
-    }
-    __syncthreads();
-  }
-
-  float acc[2][4][4];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int t = 0; t < 4; ++t) acc[i][j][t] = 0.f;
-
-  for (int k0 = 0; k0 < K; k0 += kGemmK) {
-    for (int i = tid; i < kGemmTile * 4; i += 128) {
-      const int r = i >> 2, ch = i & 3;
-      Vec8<E> av = load8(x + (m0 + r) * K + k0 + ch * 8);
-      if (LN) {
-        const float mu = mean_s[r], rs = rstd_s[r];
-#pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          const int k = k0 + ch * 8 + j;
-          av[j] = from_f<E>((to_f(av[j]) - mu) * rs * gamma[k] + beta[k]);
-        }
-      }
-      store8(&as[r * kGemmPad + ch * 8], av);
-      store8(&bs[r * kGemmPad + ch * 8], load8(wt + (n0 + r) * K + k0 + ch * 8));
-    }
-    __syncthreads();
-#pragma unroll
-    for (int st = 0; st < 2; ++st) {
-      Frag<E> a[2][4];
-#pragma unroll
-      for (int mt = 0; mt < 2; ++mt) {
-        const E* ar = &as[(wm * 32 + mt * 16 + g) * kGemmPad + st * 16 + 2 * c];
-        a[mt][0] = frag(ar);
-        a[mt][1] = frag(ar + 8 * kGemmPad);
-        a[mt][2] = frag(ar + 8);
-        a[mt][3] = frag(ar + 8 * kGemmPad + 8);
-      }
-#pragma unroll
-      for (int nt = 0; nt < 4; ++nt) {
-        const E* br = &bs[(wn * 32 + nt * 8 + g) * kGemmPad + st * 16 + 2 * c];
-        const Frag<E> b0 = frag(br), b1 = frag(br + 8);
-#pragma unroll
-        for (int mt = 0; mt < 2; ++mt) mma(acc[mt][nt], a[mt], b0, b1);
-      }
-    }
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int mt = 0; mt < 2; ++mt) {
-    const long r0 = m0 + wm * 32 + mt * 16 + g;
-#pragma unroll
-    for (int nt = 0; nt < 4; ++nt) {
-      const long col = n0 + wn * 32 + nt * 8 + 2 * c;
-      const float b0 = bvec[col], b1 = bvec[col + 1];
-      float v[4];
-#pragma unroll
-      for (int t = 0; t < 4; ++t)
-        v[t] = ROUND_FIRST ? round_e<E>(acc[mt][nt][t]) : acc[mt][nt][t];
-      store2(y + r0 * Nout + col, v[0] + b0, v[1] + b1);
-      store2(y + (r0 + 8) * Nout + col, v[2] + b0, v[3] + b1);
-    }
-  }
-}
-
-template <bool LN, bool ROUND_FIRST, class E>
-inline cudaError_t launch_ln_gemm(const E* x, const float* gamma, const float* beta,
-                                  const E* wt, const float* b, E* y, int M, int K, int Nout,
-                                  float eps, cudaStream_t stream) {
-  dim3 grid(M / kGemmTile, Nout / kGemmTile);
-  ln_gemm_kernel<E, LN, ROUND_FIRST><<<grid, 128, 0, stream>>>(x, gamma, beta, wt, b, y, M, K,
-                                                               Nout, eps);
-  return cudaGetLastError();
 }
 
 }  // namespace gg

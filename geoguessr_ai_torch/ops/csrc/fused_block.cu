@@ -35,14 +35,24 @@
 //   3. ln_gemm_sm90.cuh, kProjGemm: the attention output's tiles straight
 //      from TMA to wgmma (no LayerNorm), epilogue bf16(acc + b_proj) with
 //      the f32 b_proj, the ROUND_LAST contract.
-// The _f32 twin runs the first design's three launches in f32 (common.cuh
-// "Element types": no rounding between them, split operands in every
-// product); it ignores `groups`.
+// The _f32 twin runs the same three launches on the cores' f32 kinds, as
+// K9's f32 entry (fb4d.cu) does without the window map: the GEMM core
+// splitting x in place into bf16 hi and lo after LayerNorm, w_qkv_t and
+// w_proj_t the wrapper's stacked (hi, lo) pairs, qkv stored as its bf16 hi
+// and lo planes in qkv_scratch ((2, W, N, 3D)); the forward core's f32 kind
+// over `groups` (the 64 x N f32 bias tile resident at N = 256, streamed
+// above 704 at hd 32); the projection kind storing the f32 sum plus the
+// f32 b_proj.  Nothing is rounded to bf16 on the way, every product is
+// split (lo.hi + hi.lo + hi.hi), and every output element is one thread's
+// sum in an order fixed by the shape: K9-f32 equals it on the partitioned
+// map bit for bit.  It takes what the bf16 entry takes (N up to 1024, C
+// and D up to 576); the first design it replaces took any multiple of 64.
 #include "attention_fwd_sm90.cuh"
 #include "ln_gemm_sm90.cuh"
 
-// x, the weights, bias, the scratch and out in bf16 (or f32 for the _f32
-// twin); ln_scale, ln_bias, b_qkv and b_proj f32.
+// x, bias, attn_scratch and out in bf16 (or f32 for the _f32 twin, whose
+// weights are (2, out, in) bf16 (hi, lo) pairs and qkv_scratch the (2, W,
+// N, 3D) bf16 planes); ln_scale, ln_bias, b_qkv and b_proj f32.
 extern "C" int fused_block_bf16(const void* x, const void* ln_scale, const void* ln_bias,
                                 const void* w_qkv_t, const void* b_qkv, const void* w_proj_t,
                                 const void* b_proj, const void* bias, void* qkv_scratch,
@@ -100,24 +110,35 @@ extern "C" int fused_block_plan(int W, int N, int H, int hd, int G, int rows, in
   return (int)gg::fwd90::plan(W, H, N, G, hd, 2, false, rows, out);
 }
 
+// The f32 twin: K9's f32 launches (fb4d.cu) without the window map, the
+// entry K2's f32 call makes (fb_s2.cu) followed by the projection kind.
 extern "C" int fused_block_f32(const void* x, const void* ln_scale, const void* ln_bias,
                                const void* w_qkv_t, const void* b_qkv, const void* w_proj_t,
                                const void* b_proj, const void* bias, void* qkv_scratch,
                                void* attn_scratch, void* out, int W, int N, int C, int H, int hd,
-                               int /*groups*/, float scale, float eps, void* stream) {
+                               int groups, float scale, float eps, void* stream) {
+  using gg::lng90::kProjGemm;
+  using gg::lng90::kQkvGemm;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int D = H * hd;
-  cudaError_t e = gg::launch_ln_gemm<true, true>(
+  cudaError_t e = gg::lng90::run_f32<kQkvGemm, false>(
       static_cast<const float*>(x), static_cast<const float*>(ln_scale),
-      static_cast<const float*>(ln_bias), static_cast<const float*>(w_qkv_t),
-      static_cast<const float*>(b_qkv), static_cast<float*>(qkv_scratch), W * N, C, 3 * D, eps, s);
+      static_cast<const float*>(ln_bias), w_qkv_t, static_cast<const float*>(b_qkv),
+      qkv_scratch, W * N, C, 3 * D, eps, s);
   if (e != cudaSuccess) return (int)e;
-  e = gg::launch_window_attention(static_cast<const float*>(qkv_scratch),
-                                  static_cast<const float*>(bias),
-                                  static_cast<float*>(attn_scratch), W, N, H, hd, scale, s);
+  GG_HEAD_DIM_SWITCH(hd, {
+    e = gg::fwd90::run_f32<HD>(qkv_scratch, bias, attn_scratch, W, H, N, groups, scale, s);
+    break;
+  })
   if (e != cudaSuccess) return (int)e;
-  return (int)gg::launch_ln_gemm<false, false>(
-      static_cast<const float*>(attn_scratch), nullptr, nullptr,
-      static_cast<const float*>(w_proj_t), static_cast<const float*>(b_proj),
-      static_cast<float*>(out), W * N, D, C, eps, s);
+  return (int)gg::lng90::run_f32<kProjGemm, false>(
+      static_cast<const float*>(attn_scratch), nullptr, nullptr, w_proj_t,
+      static_cast<const float*>(b_proj), static_cast<float*>(out), W * N, D, C, eps, s);
+}
+
+// The f32 attention's plan at (W, N, H, hd, G) without a launch: out[8] as
+// fwd90::plan_f32 fills it (64-row items only).
+extern "C" int fused_block_plan_f32(int W, int N, int H, int hd, int G, int rows, int* out) {
+  if (rows != gg::fwd90::kRows) return (int)cudaErrorInvalidValue;
+  return (int)gg::fwd90::plan_f32(W, H, N, G, hd, out);
 }

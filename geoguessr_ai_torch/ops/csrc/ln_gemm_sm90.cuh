@@ -7,11 +7,11 @@
 // (out, in) layout: the K-major B operand of wgmma), gamma, beta (K) and b
 // (Nout) f32.  kQkvGemm is the qkv GEMM's ROUND_FIRST epilogue (b already
 // rounded to bf16 by the caller), kProjGemm the out-projection's ROUND_LAST
-// one (the f32 b_proj on the f32 sum, rounded once), as common.cuh's
-// ln_gemm_kernel<LN, ROUND_FIRST> computes them.  K2's bf16 entry (fb_s2.cu)
+// one (the f32 b_proj on the f32 sum, rounded once), the roundings of the
+// JAX kernels' qkv GEMM and out-projection.  K2's bf16 entry (fb_s2.cu)
 // runs the qkv kind; K1's (fused_block.cu) and K9's (fb4d.cu) run both.
-// An f32 kind of both (ln_gemm_f32_sm90, "The f32 kind" below) serves K2's
-// and K9's f32 entries; K1's f32 twin keeps common.cuh's first design.
+// An f32 kind of both (ln_gemm_f32_sm90, "The f32 kind" below) serves K1's,
+// K2's and K9's f32 entries.
 //
 // K9 reads its x and writes its out in the order of the raw (B, Hm, Wm, C)
 // map, and its qkv GEMM and out-projection take them through a window map

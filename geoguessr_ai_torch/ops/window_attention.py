@@ -18,13 +18,13 @@ package:
 Kernels:
 
 * K1 ``_fused_block_cuda``, K2 ``_fb_s2_cuda`` and K3
-  ``_attention_qkv_fused_cuda``: the forwards (K1's and K2's bf16 entries:
-  the Hopper LayerNorm + GEMM core ``csrc/ln_gemm_sm90.cuh``, then the
-  forward core below as K3 runs it, and K1's out-projection on the GEMM
-  core again);
+  ``_attention_qkv_fused_cuda``: the forwards (K1's and K2's entries: the
+  Hopper LayerNorm + GEMM core ``csrc/ln_gemm_sm90.cuh``, then the forward
+  core below as K3 runs it, and K1's out-projection on the GEMM core
+  again; in f32 both cores' f32 kinds, qkv passed between them as its
+  bf16 hi / lo planes);
 * K9 ``_fb4d_cuda``: K1 over the raw map, the window partition done by
-  tensor maps in K1's GEMM launches (in bf16; the f32 twin by index
-  arithmetic in its attention launch);
+  tensor maps in K1's GEMM launches (in bf16 and in f32);
 * K4 ``_attention_qkv_bwd_cuda``, K5 ``_attention_bwd_merged_cuda`` and
   K7 ``_attention_bwd_qtiled_cuda``: the attention backward, K4 when the
   all-heads f32 score footprint H * N^2 * 4 is at most 6 MB (stages 1 and
@@ -45,7 +45,9 @@ Kernels:
   a (head, q-tile) bias tile resident over a group of windows,
   ``_headmajor_groups``, or for K8a's f32 tile at large N stream it in
   chunks over four windows), which needs the TMA layout of its operands
-  (``_headmajor_layout``, ``_qkv_layout``).
+  (``_headmajor_layout``, ``_qkv_layout``).  K8a's f32 entry splits q, k
+  and v into bf16 hi / lo planes and runs the same core's f32 kind, as
+  K2's f32 attention; K3's and K8b's f32 twins run the first design.
 
 The kernels take activations in one of ``KERNEL_DTYPES``, the compute
 dtype (``BackboneConfig.dtype``): each C entry has a bf16 and an f32 twin,
@@ -126,9 +128,10 @@ _HEADMAJOR_ITEMS = 1024
 # FUSED_BLOCK_WB, FUSED_BLOCK_SCORE_BYTES, _BWD_STACK_BYTES, _BWD_BLOCK_Q
 # and S2_BLOCK_Q.  Each bf16 call of the Hopper cores reads them
 # (``tile_knobs``); their defaults give the cores' own plans bit for bit.
-# The f32 entries (the first design's tiles; the backward core's f32 kind
-# in K4, K5 and K7) have one plan each and refuse a non-default value; the
-# plain versions (CPU tensors) do not read them.
+# The f32 entries (the cores' f32 kinds: the backward core's in K4, K5 and
+# K7, the LN + GEMM and forward cores' in K1, K2, K8a and K9; the first
+# design's tiles in K3 and K8b) have one plan each and refuse a non-default
+# value; the plain versions (CPU tensors) do not read them.
 
 #: Shared memory a bf16 window-attention launch may opt into, in bytes
 #: (the VMEM_LIMIT_BYTES counterpart).  None: the card's
@@ -205,8 +208,8 @@ def tile_knobs() -> dict:
 
 def _knobs_for(kernel, dtype):
     """The knobs ``kernel`` reads, checked (``tile_knobs``); in f32 each must
-    hold its default, since the f32 entries have one plan each (the first
-    design's tiles, or the backward core's f32 kind in K4, K5 and K7), and
+    hold its default, since the f32 entries have one plan each (the cores'
+    f32 kinds, or the first design's tiles in K3 and K8b), and
     FUSED_BLOCK_SCORE_BYTES takes effect only beside an int
     FUSED_BLOCK_WB.  Raises ValueError naming the knob."""
     knobs = tile_knobs()
@@ -459,9 +462,10 @@ def _split_bf16(w):
 
 
 def _qkv_planes(W, N, D, device):
-    """K2's and K9's f32 qkv scratch: the (2, W, N, 3D) bf16 hi and lo
-    planes of the f32 qkv, which the LN + GEMM core's f32 kind stores and
-    the forward core's f32 kind loads as the operands of its split
+    """The f32 qkv scratch of K1, K2, K8a and K9: the (2, W, N, 3D) bf16
+    hi and lo planes of the f32 qkv, which the LN + GEMM core's f32 kind
+    (K1, K2, K9) or K8a's split pass of its head-major q, k and v stores
+    and the forward core's f32 kind loads as the operands of its split
     products."""
     return torch.empty((2, W, N, 3 * D), dtype=torch.bfloat16, device=device)
 
@@ -621,12 +625,13 @@ def _fb_s2_cuda(x, ln_scale, ln_bias, w_qkv, b_qkv, bias, scale,
 
 
 def _fused_block_plan(N, C, D, window=None):
-    """Raises ValueError where K1's bf16 entry (or, given the ``window``
-    side, K9's bf16 or f32 entry) has no plan: the attention keeps a bf16
-    64 x N bias tile resident (N up to FB_S2_MAX_N), the GEMM core takes K
-    up to LN_GEMM_MAX_K (C for the qkv GEMM, D for the out-projection), and
-    K9's window map reads 128-row tiles of one window in boxes of whole
-    window rows (a side dividing 64, N a multiple of 128: 16 or 32)."""
+    """Raises ValueError where K1's entries (or, given the ``window`` side,
+    K9's), bf16 or f32, have no plan: the attention takes N up to
+    FB_S2_MAX_N (in bf16 its 64 x N bias tile resident, in f32 streamed
+    above 704 at hd 32), the GEMM core takes K up to LN_GEMM_MAX_K (C for
+    the qkv GEMM, D for the out-projection), and K9's window map reads
+    128-row tiles of one window in boxes of whole window rows (a side
+    dividing 64, N a multiple of 128: 16 or 32)."""
     name = "K1" if window is None else "K9"
     if N > FB_S2_MAX_N or C > LN_GEMM_MAX_K or D > LN_GEMM_MAX_K:
         raise ValueError(f"{name} takes N up to {FB_S2_MAX_N} and C, D up to "
@@ -648,8 +653,8 @@ def _fused_block_launch(lib, x, ln_scale, ln_bias, w_qkv, b_qkv, w_proj,
     (``_fwd_call_plan``; K9's windows of a map row ``row_windows``).  K9's
     f32 entry runs the cores' f32 kinds, with both weights as their bf16
     (hi, lo) pairs (``_split_bf16``) and ``_headmajor_groups``; K1's f32
-    twin runs the first design and ignores the groups.  Returns (the
-    entry's error code, the output shaped like x)."""
+    entry runs the same three launches without the window map.  Returns
+    (the entry's error code, the output shaped like x)."""
     C = x.shape[-1]
     D = w_proj.shape[0]
     dt = x.dtype
@@ -661,7 +666,7 @@ def _fused_block_launch(lib, x, ln_scale, ln_bias, w_qkv, b_qkv, w_proj,
     wp = _weight_t(w_proj, C, D, dt)
     bp = _vec_f32(b_proj, C, "b_proj")
     bias = _bias_as(bias, num_heads, N, dt)
-    qkv = (_qkv_planes(W, N, D, x.device) if lib == "fb4d" and dt != torch.bfloat16
+    qkv = (_qkv_planes(W, N, D, x.device) if dt != torch.bfloat16
            else torch.empty((W, N, 3 * D), dtype=x.dtype, device=x.device))
     attn = torch.empty((W, N, D), dtype=x.dtype, device=x.device)
     out = torch.empty_like(x)
@@ -672,7 +677,7 @@ def _fused_block_launch(lib, x, ln_scale, ln_bias, w_qkv, b_qkv, w_proj,
         groups, other = _fwd_groups_entry(
             "K1" if lib == "fused_block" else "K9", W, num_heads, N,
             D // num_heads, knobs, row_windows)
-    elif lib == "fb4d":
+    else:
         wq, wp = _split_bf16(wq), _split_bf16(wp)
         groups = _headmajor_groups(W, num_heads, N)
     err = _entry(lib, lib, dt, other)(
@@ -688,17 +693,19 @@ def _fused_block_cuda(x, ln_scale, ln_bias, w_qkv, b_qkv, w_proj, b_proj,
     """K1: (W, N, C) x -> (W, N, C).  The bf16 entry runs the Hopper
     LayerNorm + GEMM core (the qkv GEMM), the forward core in its
     interleaved layout over ``_headmajor_groups`` window groups, and the
-    core again without LayerNorm (the out-projection); it takes N up to
-    FB_S2_MAX_N and C, D up to LN_GEMM_MAX_K and raises above
-    (``_fused_block_plan``).  The f32 twin runs the first design."""
+    core again without LayerNorm (the out-projection); the f32 entry runs
+    the same three launches on the cores' f32 kinds (K9's f32 launches
+    without the window map: qkv as its bf16 hi / lo planes in the scratch,
+    both weights as their bf16 (hi, lo) pairs).  Either takes N up to
+    FB_S2_MAX_N and C, D up to LN_GEMM_MAX_K and raises above, before any
+    launch (``_fused_block_plan``)."""
     W, N, C = x.shape
     D = w_proj.shape[0]
     hd = _check_geometry(W, N, C, D, num_heads, gemm=True)
     dt = _act_dtype(x=x)
     knobs = _knobs_for("K1", dt)
     _check("x", x, (W, N, C), dt)
-    if dt == torch.bfloat16:
-        _fused_block_plan(N, C, D)
+    _fused_block_plan(N, C, D)
     err, out = _fused_block_launch(
         "fused_block", x, ln_scale, ln_bias, w_qkv, b_qkv, w_proj, b_proj,
         bias, num_heads, W, N, (W, N, C, num_heads, hd), scale, eps, knobs)
@@ -1245,20 +1252,32 @@ def _attention_qtiled_cuda(q, k, v, bias, scale):
     (W, H, N, hd) in q's dtype, any N a multiple of 64.  The bf16 kernel is
     K8b's Hopper core, which needs ``_headmajor_layout``: the bias tile
     resident over ``_headmajor_groups`` window groups where it fits, else
-    streamed in chunks over groups of four windows; the f32 twin runs the
-    first design."""
+    streamed in chunks over groups of four windows.  The f32 entry runs two
+    launches: a split pass writes q's, k's and v's bf16 hi / lo planes into
+    a (2, W, N, 3D) scratch (``_qkv_planes``) in K2's interleaved layout,
+    then the forward core's f32 kind reads them as K2's f32 attention does
+    over ``_headmajor_groups`` (streamed in items of two windows where the
+    64 x N f32 bias tile does not fit) and stores out head-major; where
+    ``_fwd_plan_f32`` has no plan it raises before any launch."""
     W, H, N, hd, bias, dt = _headmajor_operands(q, k, v, bias)
     knobs = _knobs_for("K8a", dt)
     out = torch.empty_like(q)
-    groups, other = 1, None
+    planes = None
     if dt == torch.bfloat16:
         _headmajor_layout(*((t.shape, t.stride(), t.data_ptr(),
                              t.element_size()) for t in (q, k, v, bias)),
                           max_n=None)
         groups, other = _fwd_groups_entry("K8a", W, H, N, hd, knobs)
+    else:
+        groups, other = _headmajor_groups(W, H, N), None
+        if _fwd_plan_f32(W, H, N, groups, hd) is None:
+            raise ValueError(f"K8a's f32 attention has no plan at W={W}, "
+                             f"H={H}, N={N}, hd={hd}")
+        planes = _qkv_planes(W, N, H * hd, q.device)
     err = _entry("attention_headmajor", "attention_qtiled", dt, other)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
-        out.data_ptr(), W, H, N, hd, groups, float(scale), _stream())
+        None if planes is None else planes.data_ptr(), out.data_ptr(), W, H,
+        N, hd, groups, float(scale), _stream())
     _raise_on(err, "_attention_qtiled_cuda")
     LAUNCHES["_attention_qtiled_cuda"] += 1
     return out

@@ -41,15 +41,15 @@ import torch
 
 #: Kernel-name substrings -> the port's layer they belong to, first match.
 GROUPS = (
-    # the first design, which only the f32 twins of K1 and K3 run (in bf16
-    # their attention runs the forward core, which _group tells apart by
-    # its template arguments)
-    ("window_attention_kernel", "attention (f32 K1/K3 CUDA)"),
-    ("ln_gemm_kernel", "LN+GEMM (f32 K1 CUDA)"),
-    # the f32 kinds of the LayerNorm + GEMM core and the forward core, which
-    # K2's and K9's f32 entries run
-    ("ln_gemm_f32_sm90", "LN+GEMM (f32 K2/K9 CUDA)"),
-    ("attention_fwd_f32_sm90", "attention (f32 K2/K9 CUDA)"),
+    # the first design, which only K3's f32 twin runs (in bf16 its
+    # attention runs the forward core, which _group tells apart by its
+    # template arguments)
+    ("window_attention_kernel", "attention (f32 K3 CUDA)"),
+    # the f32 kind of the LayerNorm + GEMM core, which K1's, K2's and K9's
+    # f32 entries run (the forward core's f32 kind: _group), and K8a's f32
+    # split of its head-major q, k and v into bf16 planes
+    ("ln_gemm_f32_sm90", "LN+GEMM (f32 K1/K2/K9 CUDA)"),
+    ("split_planes", "q/k/v split (f32 K8a CUDA)"),
     # the bf16 Hopper kernels: the LayerNorm + GEMM core (K1's and K9's qkv
     # GEMM and out-projection, K2's qkv GEMM) and K10's; K10's f32 kind
     ("ln_gemm_sm90", "LN+GEMM (K1/K2/K9 CUDA)"),
@@ -72,8 +72,7 @@ GROUPS = (
     # kind (attn_bwd_f32_sm90), which K4, K5 and K7 share in f32
     ("dbias_reduce", "attention backward (K4/K7 CUDA)"),
     ("attn_bwd_", "attention backward (f32 K4/K5/K7 CUDA)"),
-    # the f32 twins (in bf16 both run the forward core)
-    ("attention_qtiled_kernel", "head-major attention (K8a CUDA)"),
+    # K8b's f32 twin (in bf16 it runs the forward core)
     ("attention_batched", "head-major attention (K8b CUDA)"),
     ("clip_flash", "CLIP attention (K6/K11 CUDA)"),
     ("conv", "convolution (cuDNN)"),
@@ -114,6 +113,12 @@ def _group(name: str) -> str:
             return "attention (K1/K2/K3/K9 CUDA)"
         return ("head-major attention (K8a CUDA)" if args[-1].strip() == "true"
                 else "head-major attention (K8b, K8a resident; CUDA)")
+    if "attention_fwd_f32_sm90<" in low:
+        # attention_fwd_f32_sm90<HD, NT, streamed, layout>: out interleaved
+        # in K1, K2 and K9 (the same instances), head-major in K8a
+        args = low.split("<", 1)[1].split(">", 1)[0].split(",")
+        return ("head-major attention (f32 K8a CUDA)" if args[-1].strip() == "0"
+                else "attention (f32 K1/K2/K9 CUDA)")
     for key, group in GROUPS:
         if key in low:
             return group

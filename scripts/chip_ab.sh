@@ -50,7 +50,17 @@
 # hashes of K6's, K11's and K13's bf16 (and K13's int8) outputs, the f32
 # CLIP engines' bucket-16 p50s (clip_f32_ab below), and after the four runs
 # whether K6's bf16 kernel and the GEMM core's bf16 and int8 kinds
-# compiled to the same SASS in both trees.
+# compiled to the same SASS in both trees; AB_PHASES=fwd_f32_k1_k8a K1 in
+# f32 at stage 1 of a serving bucket of 16 and the embed configuration's
+# stage 3 and K8a in f32 at stage 2 of a bucket of 16 and stage 3 of a
+# bucket of 1 as device time with each launch's device time and their
+# largest error against the plain f32 version, hashes of every bf16
+# forward entry's output and of K2-f32's and K9-f32's, the f32 default and
+# head-major engines' bucket-16 p50s (fwd_f32_k1_k8a_ab below), and after
+# the four runs whether the cores' bf16 kernels and K2's and K9's f32
+# kernels compiled to the same SASS in both trees; AB_PHASES=f32_kernels
+# chip_smoke.py's phase 24 alone (every f32 entry against its plain
+# version) with its wall seconds, and the same SASS comparison.
 set -u
 parent=${1:?usage: chip_ab.sh PARENT_DIR}
 out=$(pwd)/${AB_OUT:-build/ab_logs}
@@ -234,12 +244,24 @@ def fwd_f32_ab():
         del out
         torch.cuda.empty_cache()
     del a, k2, cases
+    bf16_forward_bits()
+    f32_serve_ab()
 
-    def bits(label, fn):
-        out = fn()
-        torch.cuda.synchronize()
-        print(f"AB bf16 bits {label} {sha(out)}")
 
+def bits(label, fn):
+    out = fn()
+    torch.cuda.synchronize()
+    print(f"AB bf16 bits {label} {sha(out)}")
+
+
+def bf16_forward_bits():
+    """Hashes of every bf16 forward entry's output on seeded inputs (K1 at
+    stage 1 and the embed stage 3, K2, K3, K8a at stage 2 and stage 3 of
+    bucket 1, K8b at stages 1 and 3, K9 at 64 images, and the 128-row kinds
+    of K2 and K9): equal in both trees when their bits did not change."""
+    from geoguessr_ai_torch.ops import window_attention as wa
+
+    bf = torch.bfloat16
     gen = torch.Generator().manual_seed(26)
     for kernel, W, N, C, H in (("K1", 1024, 256, 192, 6),
                                ("K1", 64, 256, 576, 18),
@@ -280,7 +302,87 @@ def fwd_f32_ab():
     wa.FWD_Q_ROWS = 64
     del args
     torch.cuda.empty_cache()
-    f32_serve_ab()
+
+
+def fwd_f32_k1_k8a_ab():
+    """K1 in f32 at stage 1 of a serving bucket of 16 and the embed
+    configuration's stage 3, and K8a in f32 at stage 2 of a bucket of 16
+    and stage 3 of a bucket of 1 (chip_smoke's F32_CASES), as device time
+    (cs.kernel_ms) with each one's largest error against its plain f32
+    version and each launch's device time; hashes of every bf16 forward
+    entry's output (bf16_forward_bits) and of K2-f32's and K9-f32's on
+    seeded inputs; then the f32 default and head-major TinyViT engines'
+    bucket-16 p50s (11 calls after a warm-up) with K1's, K8a's and K8b's
+    launches in one call."""
+    import gc
+
+    import numpy as np
+
+    from geoguessr_ai_torch.models.tinyvit import TinyViTConfig
+    from geoguessr_ai_torch.ops import window_attention as wa
+    from geoguessr_ai_torch.profile_forward import HEAD_MAJOR, HEAD_MAJOR_MIN_N
+    from geoguessr_ai_torch.serving.engine import ServingEngine
+
+    f32 = torch.float32
+    gen = torch.Generator().manual_seed(27)
+    for kernel, label, shape in (("K1", "stage1", (1024, 256, 192, 6)),
+                                 ("K1", "embed_stage3", (64, 256, 576, 18)),
+                                 ("K8a", "stage2_bucket16", (64, 12, 1024)),
+                                 ("K8a", "stage3_bucket1", (4, 18, 256))):
+        kern, plain, args, *_ = cs._f32_case(kernel, shape, gen)
+        fn = lambda: kern(*args)
+        ms = cs.kernel_ms(fn)
+        out = fn()
+        torch.cuda.synchronize()
+        _, rel = cs._rel_err(out, plain(*args))
+        print(f"AB f32 {kernel} {label} {shape} device_ms {ms:.4f} "
+              f"max_rel_err {rel:.3g}")
+        launch = cs._launch_ms(fn)
+        print(f"AB f32 {kernel} {label} launch_ms " + (
+            ", ".join(f"{n} {t:.4f}" for n, t in launch.items())
+            if launch else "not measured"))
+        del out, args
+        torch.cuda.empty_cache()
+    bf16_forward_bits()
+    gen = torch.Generator().manual_seed(28)
+    a = cs._case_inputs(64, 1024, 384, 12, gen, f32)
+    out = wa._fb_s2_cuda(a["x"], a["ln_scale"], a["ln_bias"], a["w_qkv"],
+                         a["b_qkv"], a["bias"], 32 ** -0.5, 12, 1e-5)
+    torch.cuda.synchronize()
+    print(f"AB f32 bits K2 (64, 1024, 384) H=12 {sha(out)}")
+    del a, out
+    kern, _, args, *_ = cs._embed_kernel_case("K9", 64, gen, f32)
+    out = kern(*args)
+    torch.cuda.synchronize()
+    print(f"AB f32 bits K9 (64, 64, 64, 192) H=6 {sha(out)}")
+    del args, out
+    torch.cuda.empty_cache()
+    for label, fields in (("default", {}), ("head-major", HEAD_MAJOR)):
+        saved = wa.QKV_KERNEL_MIN_N
+        if fields:
+            wa.QKV_KERNEL_MIN_N = HEAD_MAJOR_MIN_N
+        try:
+            engine = ServingEngine(seed=cs.SEED, backbone_config=TinyViTConfig(
+                dtype=f32, **fields))
+            _, views = cs._fixture_views(engine)
+            batch = np.repeat(views[None], 16, axis=0)
+            fn = lambda: engine.predict_batch(batch)
+            fn()
+            torch.cuda.synchronize()
+            wa.reset_launches()
+            fn()
+            torch.cuda.synchronize()
+            n = {k: wa.LAUNCHES[m] for k, m in (
+                ("K1", "_fused_block_cuda"), ("K8a", "_attention_qtiled_cuda"),
+                ("K8b", "_attention_batched_cuda"))}
+            p50 = cs._p50_ms(fn, reps=11)
+            print(f"AB f32 {label} engine bucket 16 p50 {p50:.2f} ms "
+                  f"(launches a call {n})")
+            del engine
+        finally:
+            wa.QKV_KERNEL_MIN_N = saved
+        gc.collect()
+        torch.cuda.empty_cache()
 
 
 def clip_f32_ab():
@@ -479,6 +581,15 @@ if os.environ.get("AB_PHASES") == "fwd_f32":
 if os.environ.get("AB_PHASES") == "clip_f32":
     clip_f32_ab()
     sys.exit(0)
+if os.environ.get("AB_PHASES") == "fwd_f32_k1_k8a":
+    fwd_f32_k1_k8a_ab()
+    sys.exit(0)
+if os.environ.get("AB_PHASES") == "f32_kernels":
+    import time
+    t0 = time.time()
+    cs.phase_f32_kernels()
+    print(f"AB phase 24 wall {time.time() - t0:.1f} s")
+    sys.exit(0)
 if os.environ.get("AB_PHASES") == "serve":
     _, paths, result, _ = cs.phase_serve()
     cs.phase_headmajor_serve(paths, result); cs.phase_clip_serve()
@@ -643,8 +754,9 @@ run "$parent" parent2
 # core's three earlier kinds (gemm_sm90<0, 1, 2, ...>) in the CLIP and K13
 # libraries, in both trees' libraries,
 # instruction by instruction (cuobjdump's SASS without the addresses):
-# "identical True" when the change compiled them to the same code
-python3 - "$parent" "${AB_PHASES:-}" <<'PY'
+# "identical True" when the change compiled them to the same code; the
+# lines go to $AB_OUT/sass.log too
+python3 - "$parent" "${AB_PHASES:-}" <<'PY' | tee "$out/sass.log"
 import glob
 import re
 import subprocess
@@ -658,6 +770,9 @@ def kernels(tree, lib, pattern):
     parts = re.split(r"\n\s*Function : (\S+)\n", sass)
     out = {}
     for name, body in zip(parts[1::2], parts[2::2]):
+        # the forward core's f32 kind gained a last template argument, its
+        # out layout (1: the interleaved out K2 and K9 store)
+        name = name.replace("Li1EEEv14CUtensorMap_stS3_Pf", "EEv14CUtensorMap_stS3_Pf")
         m = re.search(pattern, name)
         if m:
             out[m.groups()] = [re.sub(r"/\*[0-9a-f]+\*/", "", l).split(";")[0].strip()
@@ -667,11 +782,14 @@ def kernels(tree, lib, pattern):
 
 mb = r"mbconv_sm90ILi(\d+)ELb([01])ELb([01])EE"
 checks = [("mbconv", "K10", mb), ("fused_mbconv_exp", "K12", mb)]
-if sys.argv[2] == "fwd_f32":
+if sys.argv[2] in ("fwd_f32", "fwd_f32_k1_k8a", "f32_kernels"):
     cores = r"((?:attention_fwd|ln_gemm|gemm)_sm90I\w+)"
     checks += [(lib, lib, cores) for lib in (
         "fb_s2", "fb4d", "fused_block", "attention_qkv", "attention_headmajor",
         "tiled_gemm", "clip_flash_proj")]
+if sys.argv[2] in ("fwd_f32_k1_k8a", "f32_kernels"):
+    f32 = r"((?:attention_fwd|ln_gemm)_f32_sm90I\w+)"
+    checks += [(lib, f"{lib} f32", f32) for lib in ("fb_s2", "fb4d")]
 if sys.argv[2] == "clip_f32":
     clip = r"((?:clip_flash_sm90ILi\d+E|gemm_sm90ILi[012]E)\w*)"
     checks += [(lib, lib, clip) for lib in ("clip_flash", "clip_flash_proj",

@@ -11,8 +11,8 @@ launches: the GEMM core's qkv kind (LayerNorm, ROUND_FIRST), the forward
 core in its interleaved layout over ``_headmajor_groups`` window groups,
 and the GEMM core's projection kind (no LayerNorm, ROUND_LAST); K9's two
 GEMMs read x and write out through the window map.  K9's f32 entry runs
-the same launches on the cores' f32 kinds (tests/test_torch_port_fwd_f32.py);
-K1's f32 twin keeps the first design.  The kernels themselves are held
+the same launches on the cores' f32 kinds (tests/test_torch_port_fwd_f32.py),
+and K1's f32 entry those launches without the window map.  The kernels themselves are held
 against the plain versions on the card by tests/test_torch_port_cuda.py
 (``-k fused_block_sm90``) and chip_smoke.py.
 """
@@ -228,12 +228,23 @@ def test_k1_routes_bf16_to_the_hopper_cores_with_the_groups(monkeypatch,
     (W, N, 3D) qkv scratch, with G = ``_headmajor_groups`` (42 at stage 1
     of a serving bucket of 16, 14 at the embed stage 3 of 64 windows); its
     body runs the GEMM core's qkv kind, the forward core in its interleaved
-    layout and the core's projection kind.  An f32 call reaches the twin
-    (G = 1, ignored), whose body runs common.cuh's first design.  One K1
-    launch either way; the arguments after the pointers are (W, N, C, H,
-    hd, G, scale, eps, stream)."""
+    layout and the core's projection kind.  An f32 call reaches
+    ``fused_block_f32`` with the same G, qkv's (2, W, N, 3D) bf16 planes as
+    its scratch and both weights split once into their stacked bf16 (hi,
+    lo) pairs; its body runs the same three launches on the cores' f32
+    kinds (K9's without the window map).  One K1 launch either way; the
+    arguments after the pointers are (W, N, C, H, hd, G, scale, eps,
+    stream)."""
     calls = _fake_card(monkeypatch, wa)
     checked = _watch_layout(monkeypatch)
+    split = []
+    real_split = wa._split_bf16
+    monkeypatch.setattr(wa, "_split_bf16",
+                        lambda w: split.append(real_split(w)) or split[-1])
+    planes = []
+    real_planes = wa._qkv_planes
+    monkeypatch.setattr(wa, "_qkv_planes",
+                        lambda *a: planes.append(real_planes(*a)) or planes[-1])
     wa.reset_launches()
     out = wa._fused_block_cuda(*_k1_args(W, N, C, C, H, dtype), 0.25, H, 1e-5)
     assert out.shape == (W, N, C) and out.dtype == dtype
@@ -242,25 +253,30 @@ def test_k1_routes_bf16_to_the_hopper_cores_with_the_groups(monkeypatch,
     ((lib, entry, tail),) = calls
     tail = tail[3:]  # _fake_card keeps what follows K2's eight pointers
     assert (lib, entry) == ("fused_block", f"fused_block_{suffix}")
-    groups = wa._headmajor_groups(W, H, N) if suffix == "bf16" else 1
+    groups = wa._headmajor_groups(W, H, N)
+    assert groups == {1024: 42, 64: 14}[W]
     assert tail[:6] == (W, N, C, H, C // H, groups) and tail[6] == 0.25
     assert len(checked) == (suffix == "bf16")
     if checked:
-        assert groups == {1024: 42, 64: 14}[W]
         qkv, bias, _ = checked[0]
         assert tuple(qkv[0]) == (W, N, 3 * C) and tuple(bias[0]) == (H, N, N)
+    assert [tuple(w.shape) for w in split] == (
+        [] if suffix == "bf16" else [(2, 3 * C, C), (2, C, C)])
+    assert [(tuple(t.shape), t.dtype) for t in planes] == (
+        [] if suffix == "bf16" else [((2, W, N, 3 * C), torch.bfloat16)])
     body = _c_body(lib, entry)
+    assert "launch_ln_gemm" not in body and "launch_window_attention" not in body
     if suffix == "bf16":
         assert "gg::lng90::run<kQkvGemm, false>(" in body
         assert ("run<kQkv, gg::bf16, HD, false>(qkv_scratch, qkv_scratch, "
                 "qkv_scratch, bias, attn_scratch") in body
         assert "gg::lng90::run<kProjGemm, false>(attn_scratch, nullptr, nullptr" in body
-        assert "launch_ln_gemm" not in body and "launch_window_attention" not in body
     else:
-        assert "lng90" not in body and "fwd90" not in body
-        assert "launch_ln_gemm<true, true>(" in body
-        assert "launch_window_attention(" in body
-        assert "launch_ln_gemm<false, false>(" in body
+        assert "gg::lng90::run_f32<kQkvGemm, false>(" in body
+        assert ("gg::fwd90::run_f32<HD>(qkv_scratch, bias, attn_scratch, W, "
+                "H, N, groups, scale, s)") in body
+        assert "gg::lng90::run_f32<kProjGemm, false>(" in body
+        assert "window, Wm" not in body
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
@@ -333,9 +349,9 @@ def test_k1_and_k9_refuse_what_their_bf16_entries_cannot_plan(
         monkeypatch, kernel, shape, match):
     """N above FB_S2_MAX_N, C or D above LN_GEMM_MAX_K, and for K9 a window
     side whose 128-row tiles straddle windows (8) or divides no 64 (24)
-    raise ValueError in bf16 before any launch, and for K9 in f32 too (its
-    f32 entry runs the same cores' f32 kinds); K1's f32 twin (the first
-    design) takes each."""
+    raise ValueError before any launch, in bf16 and in f32 alike (both f32
+    entries run the same cores' f32 kinds, which take what the bf16 kinds
+    take)."""
     calls = _fake_card(monkeypatch, wa)
     for dtype in (torch.bfloat16, torch.float32):
         if kernel == "K1":
@@ -347,13 +363,9 @@ def test_k1_and_k9_refuse_what_their_bf16_entries_cannot_plan(
             a = list(_k1_args(1, ws * ws, C, C, H, dtype))
             a[0] = torch.zeros(1, Hm, Wm, C, dtype=dtype)
             args, fn = (*a, 0.25, H, ws, 1e-5), wa._fb4d_cuda
-        if dtype == torch.bfloat16 or kernel == "K9":
-            with pytest.raises(ValueError, match=match):
-                fn(*args)
-        else:
+        with pytest.raises(ValueError, match=match):
             fn(*args)
-    assert [c[1] for c in calls] == (
-        ["fused_block_f32"] if kernel == "K1" else [])
+    assert calls == []
 
 
 # ---------------------------------------------------------------------------

@@ -259,7 +259,8 @@ def _fake_card(monkeypatch):
     """The wrappers run here up to their launch: ``_check`` keeps its
     dtype, shape, contiguity and alignment rules but not the device one,
     and each C entry is replaced by a recorder of its arguments after the
-    tensor pointers."""
+    tensor pointers (K8a's: q, k, v, the bias, the planes scratch and
+    out)."""
     calls = []
 
     def host_check(name, t, shape, dtype=torch.bfloat16):
@@ -269,7 +270,8 @@ def _fake_card(monkeypatch):
 
     def fake_entry(lib, name):
         def launch(*args):
-            ptrs = 3 if lib == "attention_qkv" else 5
+            ptrs = (3 if lib == "attention_qkv"
+                    else 6 if name.startswith("attention_qtiled") else 5)
             calls.append((lib, name, args[ptrs:]))
             return 0
         return launch
@@ -326,12 +328,19 @@ def test_k8a_routes_bf16_to_the_core_and_f32_to_the_twin(monkeypatch, dtype):
     """Through ``window_attention``'s dispatch at stage 2 (N >= 512), a
     bf16 call reaches ``attention_qtiled_bf16`` after ``_headmajor_layout``
     (no N limit) with G = ``_headmajor_groups``, whose body runs the core
-    with the streamed plan allowed; an f32 call the first design."""
+    with the streamed plan allowed; an f32 call reaches
+    ``attention_qtiled_f32`` with the same G and a (2, W, N, 3D) bf16
+    planes scratch, whose body runs the split pass into the planes and
+    then the core's f32 kind with the head-major store."""
     calls = _fake_card(monkeypatch)
     checked = []
     real = wa._headmajor_layout
     monkeypatch.setattr(wa, "_headmajor_layout", lambda *a, **kw: (
         checked.append(kw) or real(*a, **kw)))
+    planes = []
+    real_planes = wa._qkv_planes
+    monkeypatch.setattr(wa, "_qkv_planes",
+                        lambda *a: planes.append(real_planes(*a)) or planes[-1])
     W, H, N, hd = 64, 12, 1024, 32
     q, k, v = (torch.zeros(W, H, N, hd, dtype=dtype) for _ in range(3))
     wa.reset_launches()
@@ -342,14 +351,20 @@ def test_k8a_routes_bf16_to_the_core_and_f32_to_the_twin(monkeypatch, dtype):
     suffix = "bf16" if dtype == torch.bfloat16 else "f32"
     ((lib, entry, tail),) = calls
     assert (lib, entry) == ("attention_headmajor", f"attention_qtiled_{suffix}")
-    groups = wa._headmajor_groups(W, H, N) if suffix == "bf16" else 1
+    groups = wa._headmajor_groups(W, H, N)
     assert tail == (W, H, N, hd, groups, 0.25, 0)
     assert checked == ([{"max_n": None}] if suffix == "bf16" else [])
+    assert [(tuple(t.shape), t.dtype) for t in planes] == (
+        [] if suffix == "bf16"
+        else [((2, W, N, 3 * H * hd), torch.bfloat16)])
     body = _c_body(lib, entry)
     if suffix == "bf16":
         assert "run<kHeadMajor, float, HD, true>(" in body
     else:
-        assert "fwd90" not in body and "qtiled<float>(" in body
+        assert "split_headmajor<HD>(q, k, v, planes, W, H, N, stream)" in body
+        assert ("run_f32<HD, kHeadMajor>(planes, bias, out, W, H, N, groups, "
+                "scale, stream)") in body
+        assert "qtiled<" not in body
 
 
 def test_the_core_is_hopper_code_shared_by_both_libraries():
@@ -461,11 +476,21 @@ def test_the_headers_host_code_has_internal_linkage():
      "head-major attention (K8b, K8a resident; CUDA)"),
     ("void gg::(anonymous namespace)::window_attention_kernel<float, 32>("
      "float const*, float const*, float*, int, int, float)",
-     "attention (f32 K1/K3 CUDA)"),
-    # the f32 kind K2 and K9 run
+     "attention (f32 K3 CUDA)"),
+    # the f32 kind K1, K2 and K9 run (out interleaved), and K8a (head-major)
+    # with its split pass
     ("void gg::fwd90::(anonymous namespace)::attention_fwd_f32_sm90<32, 2, "
-     "true>(CUtensorMap, CUtensorMap, float*, gg::fwd90::(anonymous "
-     "namespace)::Plan, float)", "attention (f32 K2/K9 CUDA)"),
+     "true, 1>(CUtensorMap, CUtensorMap, float*, gg::fwd90::(anonymous "
+     "namespace)::Plan, float)", "attention (f32 K1/K2/K9 CUDA)"),
+    ("void gg::fwd90::(anonymous namespace)::attention_fwd_f32_sm90<32, 2, "
+     "true, 0>(CUtensorMap, CUtensorMap, float*, gg::fwd90::(anonymous "
+     "namespace)::Plan, float)", "head-major attention (f32 K8a CUDA)"),
+    ("void gg::fwd90::(anonymous namespace)::attention_fwd_f32_sm90<32, 1, "
+     "false, 0>(CUtensorMap, CUtensorMap, float*, gg::fwd90::(anonymous "
+     "namespace)::Plan, float)", "head-major attention (f32 K8a CUDA)"),
+    ("void gg::fwd90::(anonymous namespace)::split_planes<32>(float4 const*, "
+     "float4 const*, float4 const*, uint2*, int, int, long)",
+     "q/k/v split (f32 K8a CUDA)"),
 ])
 def test_profile_groups_name_the_forward_core_by_its_kernels(kernel_name,
                                                              group):

@@ -656,15 +656,17 @@ def test_k10_f32_emulation_matches_plain_and_the_jax_kernel(exact):
      "CUtensorMap, CUtensorMap, CUtensorMap, float const*, float const*, "
      "float const*, gg::lng90::(anonymous namespace)::Plan, float)",
      "LN+GEMM (K1/K2/K9 CUDA)"),
-    # the first design's GEMM, which only the f32 twins run
-    ("void gg::(anonymous namespace)::ln_gemm_kernel<float, false, false>("
-     "float const*, float const*, float const*, float const*, float const*, "
-     "float*, int, int, int, float)", "LN+GEMM (f32 K1 CUDA)"),
-    # the core's f32 kind, K2's and K9's f32 GEMMs
+    # K1's f32 out-projection at the embed stage 3's D = 576 (the core's
+    # f32 projection kind without the window map)
+    ("void gg::lng90::(anonymous namespace)::ln_gemm_f32_sm90<9, 1, false>("
+     "CUtensorMap, CUtensorMap, float*, float const*, float const*, float "
+     "const*, gg::lng90::(anonymous namespace)::PlanF32, float)",
+     "LN+GEMM (f32 K1/K2/K9 CUDA)"),
+    # the core's f32 kind, K1's, K2's and K9's f32 GEMMs
     ("void gg::lng90::(anonymous namespace)::ln_gemm_f32_sm90<6, 0, false>("
      "CUtensorMap, CUtensorMap, float*, float const*, float const*, float "
      "const*, gg::lng90::(anonymous namespace)::PlanF32, float)",
-     "LN+GEMM (f32 K2/K9 CUDA)"),
+     "LN+GEMM (f32 K1/K2/K9 CUDA)"),
     ("void gg::mb90::(anonymous namespace)::mbconv_sm90<96, false, false>("
      "CUtensorMap, CUtensorMap, CUtensorMap, CUtensorMap, CUtensorMap, "
      "CUtensorMap, CUtensorMap, CUtensorMap, __nv_bfloat16 const*, float "
@@ -681,8 +683,7 @@ def test_profile_groups_name_the_new_kernels(kernel_name, group):
     """``profile_forward`` puts the GEMM core (both kinds: K1's and K9's qkv
     GEMM and out-projection, K2's qkv GEMM) and K10's Hopper kernel (both
     kinds) in their layers (not cuBLAS's GEMM group, which "gemm" would
-    match), its f32 kind (K2's and K9's f32 GEMMs) in its own, and the
-    first design's GEMM in the layer of K1's f32 twin."""
+    match), and its f32 kind (K1's, K2's and K9's f32 GEMMs) in its own."""
     from geoguessr_ai_torch import profile_forward
 
     assert profile_forward._group(kernel_name) == group
