@@ -905,8 +905,9 @@ def _launch_ms(fn, calls=3):
     out-projection),
     the GEMM core's (``gemm_sm90<KIND, BN>``, K11's out-projection) as
     proj_gemm, the forward core's and K6's kernel as the attention, the
-    split of k and v into planes by K6's f32 kind as kv_split, K8a's f32
-    split of q, k and v as qkv_split, and any other kernel by its name;
+    split of k and v into planes by K6's f32 kind as kv_split, the f32
+    split pass of K3, K8a and K8b into qkv's planes as qkv_split, and any
+    other kernel by its name;
     each a call's, over the calls the trace holds.  None when the trace
     holds no device kernels."""
     from torch.profiler import ProfilerActivity, profile
@@ -936,7 +937,7 @@ def _launch_ms(fn, calls=3):
             key = "attention"
         elif "split_kv" in key:  # K6's and K11's f32 split of k and v
             key = "kv_split"
-        elif "split_planes" in key:  # K8a's f32 split of q, k and v
+        elif "split_planes" in key:  # K3's, K8a's and K8b's f32 split
             key = "qkv_split"
         else:
             key = key.split("(")[0].split("<")[0].replace("void ", "")
@@ -3103,7 +3104,8 @@ F32_TRAIN_GRAD_MIN_COSINE = 0.9999
 F32_NOISE_FLOOR = 1e-6
 #: (kernel, label, shape): each K1-K11 kernel at the shape its main path
 #: gives it (serving bucket 16, the B=16 train shapes, CLIP-L bucket 16,
-#: the embed batch of 512 images), as the bf16 phases run it, K4 at the
+#: the embed batch of 512 images), as the bf16 phases run it, K3 and K8a
+#: also at stage 3 of a serving bucket of 1, K4 at the
 #: B=64 finetune's TinyViT-5M-224 shapes (FT_K4_CASES; N padded to 64
 #: inside the wrapper), K9 and K10 also at the 64 images of a serving
 #: bucket of 16 (the f32 knobs engine's shape) and K6 and K11 also at
@@ -3113,6 +3115,7 @@ F32_CASES = (
     ("K1", "embed_stage3", (64, 256, 576, 18)),
     ("K2", "stage2", (64, 1024, 384, 12)),
     ("K3", "stage3", (64, 256, 576, 18)),
+    ("K3", "stage3_bucket1", (4, 256, 576, 18)),
     ("K4", "stage1", (1024, 256, 6)),
     ("K4", "stage3", (64, 256, 18)),
     ("K4", "5m224_stage1", (1024, 49, 4)),
@@ -3307,19 +3310,27 @@ def _f32_bwd_checks(kernel, label, shape, kern, args, got):
     return line
 
 
+#: The f32 entries on the forward core's f32 kind: the library and the
+#: prefix of each one's plan query (``<prefix>_plan_f32``).
+F32_FWD_PLAN_QUERY = {
+    "K1": ("fused_block", "fused_block"), "K2": ("fb_s2", "fb_s2"),
+    "K3": ("attention_qkv", "attention_qkv"),
+    "K8a": ("attention_headmajor", "attention_qtiled"),
+    "K8b": ("attention_headmajor", "attention_batched"),
+    "K9": ("fb4d", "fb4d")}
+
+
 def _f32_fwd_plan(kernel, shape):
-    """K1's, K2's, K8a's and K9's f32 attention plan (the forward core's
-    f32 kind) from the library's plan query, failing unless it is the
-    mirror's (``_fwd_plan_f32``).  Returns a log line."""
+    """The f32 attention plan of K1, K2, K3, K8a, K8b or K9 (the forward
+    core's f32 kind) from the library's plan query, failing unless it is
+    the mirror's (``_fwd_plan_f32``).  Returns a log line."""
     import ctypes
 
     from geoguessr_ai_torch.ops import _build
     from geoguessr_ai_torch.ops import window_attention as wa
 
-    lib, fn = {"K1": ("fused_block", "fused_block"), "K2": ("fb_s2", "fb_s2"),
-               "K8a": ("attention_headmajor", "attention_qtiled"),
-               "K9": ("fb4d", "fb4d")}[kernel]
-    if kernel == "K8a":
+    lib, fn = F32_FWD_PLAN_QUERY[kernel]
+    if kernel in ("K8a", "K8b"):
         (W, H, N), hd = shape, 32
     elif kernel == "K9":
         N, H = STAGE1_WINDOW ** 2, STAGE1_HEADS
@@ -3339,6 +3350,34 @@ def _f32_fwd_plan(kernel, shape):
     return f"f32 attention plan (the core's, the mirror's): {got}"
 
 
+def _f32_equals_k8a(kernel, label, got, args):
+    """K8b-f32 makes K8a-f32's two launches over the same window groups, so
+    on K8b's inputs K8a-f32 must give its bits; K3-f32's in-order split
+    writes the planes K8a's split writes from qkv's head-major copies, and
+    the f32 kind's sums do not depend on out's layout, so K8a-f32 on those
+    copies, permuted back to (W, N, D), must give K3-f32's bits."""
+    from geoguessr_ai_torch.ops import window_attention as wa
+
+    if kernel == "K8b":
+        other = wa._attention_qtiled_cuda(*args)
+    else:
+        qkv, bias, scale, H = args
+        W, N, D3 = qkv.shape
+        q, k, v = (t.contiguous() for t in qkv.view(
+            W, N, H, 3, D3 // (3 * H)).permute(3, 0, 2, 1, 4))
+        other = wa._attention_qtiled_cuda(q, k, v, bias, scale).permute(
+            0, 2, 1, 3).reshape(W, N, D3 // 3)
+        del q, k, v
+    torch.cuda.synchronize()
+    same = torch.equal(got, other)
+    log(f"{kernel} f32 {label}: bitwise equal to K8a-f32 on "
+        f"{'the same inputs' if kernel == 'K8b' else 'its head-major copies'}"
+        f" {same}")
+    if not same:
+        fail(f"{kernel} f32 {label}: not K8a-f32's bits "
+             f"(max |diff| {float((got - other).abs().max()):.3g})")
+
+
 def phase_f32_kernels():
     rows = {}
     gen = torch.Generator().manual_seed(SEED + 10)
@@ -3349,7 +3388,8 @@ def phase_f32_kernels():
         torch.cuda.synchronize()
         bwd_line = (_f32_bwd_checks(kernel, label, shape, kern, args, got)
                     if kernel in ("K4", "K5", "K7") else None)
-        if kernel in ("K1", "K2", "K8a", "K9", "K10", "K6", "K11"):
+        if kernel in ("K1", "K2", "K3", "K8a", "K8b", "K9", "K10", "K6",
+                      "K11"):
             # the Hopper cores' f32 kinds: every output element one
             # thread's sum in an order fixed by the shape
             stable = torch.equal(got, kern(*args))
@@ -3363,6 +3403,8 @@ def phase_f32_kernels():
             # its GEMMs: K1-f32 on the partitioned map, bit for bit
             _k9_equals_k1(got, (*args, (STAGE1_C // STAGE1_HEADS) ** -0.5,
                                 STAGE1_HEADS, STAGE1_WINDOW, 1e-5), " f32")
+        if kernel in ("K3", "K8b"):
+            _f32_equals_k8a(kernel, label, got, args)
         if kernel == "K11":
             # K6's f32 kind into o's planes, then the core's kSplitF32 kind:
             # bit for bit that kind on the split of K6's f32 output
@@ -3384,11 +3426,11 @@ def phase_f32_kernels():
         del got, want
         # the backward core's f32 kind as device time (a loop between two
         # events reads the wrapper's host work at the 5M-224 shapes), K6,
-        # K11, K1 and K8a as device time under SHORT_MS (N = 50, K8a at a
-        # bucket of 1)
+        # K11, K1, K3 and K8 as device time under SHORT_MS (N = 50, K3 and
+        # K8a at a bucket of 1, K8b at stage 3)
         if bwd_line:
             ms = device_time_ms(lambda: kern(*args))
-        elif kernel in CLIP_META or kernel in ("K1", "K8a"):
+        elif kernel in CLIP_META or kernel in ("K1", "K3", "K8a", "K8b"):
             ms = kernel_ms(lambda: kern(*args))
         else:
             ms = cuda_time_ms(lambda: kern(*args), iters=5)
@@ -3402,9 +3444,9 @@ def phase_f32_kernels():
             log(f"  {_bwd_plan(kernel, shape[0], shape[1], shape[2], torch.float32)}")
             log(f"  {bwd_line}")
             _log_launch_ms(_launch_ms(lambda: kern(*args)))
-        if kernel in ("K1", "K2", "K8a", "K9"):
+        if kernel in F32_FWD_PLAN_QUERY:
             log(f"  {_f32_fwd_plan(kernel, shape)}")
-        if kernel in ("K1", "K2", "K8a", "K9", "K6", "K11"):
+        if kernel in (*F32_FWD_PLAN_QUERY, "K6", "K11"):
             _log_launch_ms(_launch_ms(lambda: kern(*args)))
         log(f"  kernel_ms {ms:.4f}, plain_ms {plain_ms:.4f}, library_ms "
             f"{'null' if lib_ms is None else f'{lib_ms:.4f}'}"

@@ -59,8 +59,9 @@ def _tiled_bwd(name: str, argtypes: tuple) -> Dict[str, tuple]:
 
 #: Entry points of every library, by library name: C name -> argtypes.
 SIGNATURES: Dict[str, Dict[str, tuple]] = {
-    "attention_qkv": _tiled("attention_qkv", "q128", (
-        _P, _P, _P, _I, _I, _I, _I, _I, _F, _P)),
+    "attention_qkv": {**_tiled("attention_qkv", "q128", (
+        _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P)),
+        "attention_qkv_plan_f32": _PLAN},
     "fb_s2": {**_tiled("fb_s2", "q128", (
         _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _P)),
         "fb_s2_plan_f32": _PLAN},
@@ -79,7 +80,8 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
             _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P)),
         "attention_qtiled_plan_f32": _PLAN,
         **_tiled("attention_batched", "q128", (
-            _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P)),
+            _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P)),
+        "attention_batched_plan_f32": _PLAN,
     },
     "fb4d": {**_tiled("fb4d", "q128", (
         _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,

@@ -6,8 +6,10 @@
 // over 64-row q-tiles of N = 64 C tokens, with bf16 q, k, v and out and a
 // head dim HD of 16, 32 or 64; and an f32 kind with an f32 bias ("The f32
 // kind" below), which K1's, K2's and K9's f32 entries (fused_block.cu,
-// fb_s2.cu, fb4d.cu) run in the interleaved layout and K8a's
-// (attention_headmajor.cu) after a split pass of its head-major q, k and v.
+// fb_s2.cu, fb4d.cu) run in the interleaved layout after their qkv GEMM,
+// K3's (attention_qkv.cu) in the same layout after a split pass of its f32
+// qkv, and K8a's and K8b's (attention_headmajor.cu) after a split pass of
+// their head-major q, k and v.
 // The bf16 kernels of K1, K2 and K9 (fused_block.cu, fb_s2.cu, fb4d.cu) are
 // K3's.  Two template choices make the three bf16
 // kernels:
@@ -942,16 +944,16 @@ cudaError_t plan(int W, int H, int N, int G, int hd, int bias_elem, bool may_str
 }
 
 // ---------------------------------------------------------------------------
-// The f32 kind (K1's, K2's, K8a's and K9's f32 entries): an f32 bias and
-// f32 out, interleaved (W, N, D) or head-major (W, H, N, HD) (LAYOUT, only
-// out's), and qkv as the qkv GEMM's f32 kind stores it, or K8a's split
-// pass (split_planes) writes it from q, k and v: its bf16 hi and lo planes
-// (2, W, N, 3D) in the interleaved layout, hi = bf16(x), lo = bf16(x - hi)
-// of the f32 values, never rounded further.  The f32 numerics of the first
-// design: every product sums lo.hi + hi.lo + hi.hi of its split operands in
-// f32 (three wgmma for one); the softmax is online in f32 over chunks of
-// NT = 2 key tiles (one where C is odd), p is split in registers, not
-// rounded; out is the f32 sum over l.
+// The f32 kind (the f32 entries of K1, K2, K3, K8a, K8b and K9): an f32
+// bias and f32 out, interleaved (W, N, D) or head-major (W, H, N, HD)
+// (LAYOUT, only out's), and qkv as the qkv GEMM's f32 kind stores it, or
+// the split pass (split_planes) writes it from K3's qkv or K8's q, k and
+// v: its bf16 hi and lo planes (2, W, N, 3D) in the interleaved layout, hi
+// = bf16(x), lo = bf16(x - hi) of the f32 values, never rounded further.
+// The f32 numerics (common.cuh "Element types"): every product sums lo.hi
+// + hi.lo + hi.hi of its split operands in f32 (three wgmma for one); the
+// softmax is online in f32 over chunks of NT = 2 key tiles (one where C is
+// odd), p is split in registers, not rounded; out is the f32 sum over l.
 //
 // With the split done once where qkv is made, this is the bf16 kind's
 // pipeline with each tile twice the bytes: q, k and v come by TMA as a hi
@@ -1288,21 +1290,29 @@ cudaError_t launch_f32(const CUtensorMap (&maps)[2], float* out, const Plan& p, 
   return cudaGetLastError();
 }
 
-// The split pass of K8a's f32 entry: its head-major f32 q, k and v, (W, H,
-// N, HD) each, as the bf16 hi and lo planes (2, W, N, 3 H HD) of the
-// interleaved qkv that the f32 kind loads (row n of head h of tensor
-// `slot` at columns (3 h + slot) HD .. + HD - 1 of row n of window w), hi
-// = bf16(x) and lo = bf16(x - hi), both rounded to nearest (split_pair).
+// The split pass of K3's, K8a's and K8b's f32 entries: their f32 q, k and
+// v as the bf16 hi and lo planes (2, W, N, 3 H HD) of the interleaved qkv
+// that the f32 kind loads (row n of head h of tensor `slot` at columns (3 h
+// + slot) HD .. + HD - 1 of row n of window w), hi = bf16(x) and lo =
+// bf16(x - hi), both rounded to nearest (split_pair).  SRC is the layout
+// the f32 values come in:
+//   kHeadMajor  q, k and v (W, H, N, HD) each (K8a, K8b): each uint2 of a
+//               plane row gathers its float4 from the tensor and head that
+//               own its columns;
+//   kQkv        the interleaved (W, N, 3 H HD) qkv a torch Linear wrote
+//               (K3; passed as q, k and v unread): the planes' layout
+//               already, so uint2 f of a window's plane rows is the split
+//               of float4 f of its qkv rows.
 // It walks the planes' rows in order: block (z, w) takes uint2 (four bf16)
 // z kSplitPer 256 .. of window w's rows in a plane, kSplitPer a thread
 // with all loads issued first, so a warp writes 256 contiguous bytes of
-// each plane and reads whole 64- to 256-byte head rows.  plane4 is the
-// uint2 of one plane.  It generalises clip_flash_sm90.cuh's split_kv,
-// which reads the interleaved qkv.
+// each plane and reads whole 64- to 256-byte head rows (kQkv: 512
+// contiguous bytes).  plane4 is the uint2 of one plane.  It generalises
+// clip_flash_sm90.cuh's split_kv, which reads the interleaved qkv.
 constexpr int kSplitThreads = 256;
 constexpr int kSplitPer = 4;  // uint2 of a plane a thread
 
-template <int HD>
+template <int HD, int SRC>
 __global__ void __launch_bounds__(kSplitThreads)
 split_planes(const float4* __restrict__ q, const float4* __restrict__ k, const float4* __restrict__ v,
              uint2* __restrict__ planes, int H, int N, long plane4) {
@@ -1317,10 +1327,14 @@ split_planes(const float4* __restrict__ q, const float4* __restrict__ k, const f
   for (int u = 0; u < kSplitPer; ++u) {
     const int f = f0 + u * kSplitThreads;
     if (f >= end) continue;
-    const int n = f / row4, col = f - n * row4;
-    const int h = col / (3 * kVec), slot = (col - h * 3 * kVec) / kVec, j = col % kVec;
-    const float4* x = slot == 0 ? q : slot == 1 ? k : v;
-    a[u] = x[((long)(w * H + h) * N + n) * kVec + j];
+    if constexpr (SRC == kQkv) {
+      a[u] = q[(long)w * end + f];
+    } else {
+      const int n = f / row4, col = f - n * row4;
+      const int h = col / (3 * kVec), slot = (col - h * 3 * kVec) / kVec, j = col % kVec;
+      const float4* x = slot == 0 ? q : slot == 1 ? k : v;
+      a[u] = x[((long)(w * H + h) * N + n) * kVec + j];
+    }
   }
 #pragma unroll
   for (int u = 0; u < kSplitPer; ++u) {
@@ -1332,27 +1346,41 @@ split_planes(const float4* __restrict__ q, const float4* __restrict__ k, const f
   }
 }
 
-// One launch of split_planes: q, k, v (W, H, N, HD) f32 and planes (2, W,
-// N, 3 H HD) bf16, contiguous with 16-byte aligned bases; N a multiple of
-// 64, 1 <= W <= 65535, a window's plane below 2^31 elements.
-template <int HD>
-cudaError_t split_headmajor(const void* q, const void* k, const void* v, void* planes, int W, int H, int N,
+// One launch of split_planes: q, k, v f32 in SRC's layout and planes (2,
+// W, N, 3 H HD) bf16, contiguous with 16-byte aligned bases; N a multiple
+// of 64, 1 <= W <= 65535, a window's plane below 2^31 elements.
+template <int HD, int SRC>
+cudaError_t split_to_planes(const void* q, const void* k, const void* v, void* planes, int W, int H, int N,
                             cudaStream_t stream) {
   const long per = kSplitThreads * kSplitPer, end = (long)N * 3 * H * HD / 4;
   if (W < 1 || W > 65535 || H < 1 || N % kRows || end > 0x7fffffffL - per) return cudaErrorInvalidValue;
   const dim3 grid((unsigned)((end + per - 1) / per), W);
-  split_planes<HD><<<grid, kSplitThreads, 0, stream>>>(
+  split_planes<HD, SRC><<<grid, kSplitThreads, 0, stream>>>(
       static_cast<const float4*>(q), static_cast<const float4*>(k), static_cast<const float4*>(v),
       static_cast<uint2*>(planes), H, N, (long)W * end);
   return cudaGetLastError();
 }
 
+// K8a's and K8b's split: head-major q, k, v (W, H, N, HD).
+template <int HD>
+cudaError_t split_headmajor(const void* q, const void* k, const void* v, void* planes, int W, int H, int N,
+                            cudaStream_t stream) {
+  return split_to_planes<HD, kHeadMajor>(q, k, v, planes, W, H, N, stream);
+}
+
+// K3's split: the interleaved (W, N, 3 H HD) qkv, element i of it into
+// element i of each plane.
+template <int HD>
+cudaError_t split_qkv(const void* qkv, void* planes, int W, int H, int N, cudaStream_t stream) {
+  return split_to_planes<HD, kQkv>(qkv, qkv, qkv, planes, W, H, N, stream);
+}
+
 // One call of the f32 kind: qkv2 the (2, W, N, 3 H HD) bf16 hi and lo
 // planes of the f32 qkv, the bias (H, N, N) f32 and out (W, N, H HD) f32
-// (LAYOUT kQkv: K1, K2, K9) or (W, H, N, HD) f32 (kHeadMajor: K8a, its
-// planes written by split_headmajor), each contiguous with a 16-byte
-// aligned base; N a multiple of 64; 1 <= G <= W (the resident plan's
-// groups; the streamed plan takes its own).  Where no plan fits,
+// (LAYOUT kQkv: K1, K2, K3, K9) or (W, H, N, HD) f32 (kHeadMajor: K8a,
+// K8b), each contiguous with a 16-byte aligned base; N a multiple of 64;
+// 1 <= G <= W (the resident plan's groups; the streamed plan takes its
+// own).  Where no plan fits,
 // cudaErrorInvalidValue.
 template <int HD, int LAYOUT = kQkv>
 cudaError_t run_f32(const void* qkv2, const void* bias, void* out, int W, int H, int N, int G, float scale,

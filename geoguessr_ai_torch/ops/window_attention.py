@@ -47,7 +47,9 @@ Kernels:
   chunks over four windows), which needs the TMA layout of its operands
   (``_headmajor_layout``, ``_qkv_layout``).  K8a's f32 entry splits q, k
   and v into bf16 hi / lo planes and runs the same core's f32 kind, as
-  K2's f32 attention; K3's and K8b's f32 twins run the first design.
+  K2's f32 attention; K8b's f32 entry makes the same two launches, and
+  K3's splits its f32 qkv in order into the planes before the same f32
+  kind.
 
 The kernels take activations in one of ``KERNEL_DTYPES``, the compute
 dtype (``BackboneConfig.dtype``): each C entry has a bf16 and an f32 twin,
@@ -209,7 +211,7 @@ def tile_knobs() -> dict:
 def _knobs_for(kernel, dtype):
     """The knobs ``kernel`` reads, checked (``tile_knobs``); in f32 each must
     hold its default, since the f32 entries have one plan each (the cores'
-    f32 kinds, or the first design's tiles in K3 and K8b), and
+    f32 kinds), and
     FUSED_BLOCK_SCORE_BYTES takes effect only beside an int
     FUSED_BLOCK_WB.  Raises ValueError naming the knob."""
     knobs = tile_knobs()
@@ -462,11 +464,11 @@ def _split_bf16(w):
 
 
 def _qkv_planes(W, N, D, device):
-    """The f32 qkv scratch of K1, K2, K8a and K9: the (2, W, N, 3D) bf16
-    hi and lo planes of the f32 qkv, which the LN + GEMM core's f32 kind
-    (K1, K2, K9) or K8a's split pass of its head-major q, k and v stores
-    and the forward core's f32 kind loads as the operands of its split
-    products."""
+    """The f32 qkv scratch of K1-K3, K8a, K8b and K9: the (2, W, N, 3D)
+    bf16 hi and lo planes of the f32 qkv, which the LN + GEMM core's f32
+    kind (K1, K2, K9) or the split pass (K3's of its qkv, K8's of its
+    head-major q, k and v) stores and the forward core's f32 kind loads as
+    the operands of its split products."""
     return torch.empty((2, W, N, 3 * D), dtype=torch.bfloat16, device=device)
 
 
@@ -519,8 +521,16 @@ def _attention_qkv_fused_cuda(qkv, bias, scale, num_heads):
     needs ``_qkv_layout`` and walks ``_headmajor_groups`` window groups
     with the item's 64 x N bias tile resident: it takes every N (a multiple
     of 64) up to 1024 at every head dim, and raises where no ring fits
-    beside that tile (first at N = 1280 with hd 64).  The f32 twin runs
-    the first design."""
+    beside that tile (first at N = 1280 with hd 64).  The f32 entry makes
+    two launches: a split pass writes qkv's bf16 hi / lo planes into a (2,
+    W, N, 3D) scratch (``_qkv_planes``, qkv's own layout, so element i of
+    qkv goes to element i of each plane), then the forward core's f32 kind
+    reads them as K2's f32 attention does over ``_headmajor_groups`` (the
+    f32 bias tile resident, or streamed in items of two windows where it
+    does not fit) and writes out (W, N, D).  It takes every N a multiple
+    of 64 that ``_fwd_plan_f32`` plans (each up to 2048 at hd 16, 32 and
+    64) and raises before any launch where there is none; the split pass
+    takes W up to 65535 and a window's plane below 2^31 elements."""
     W, N, D3 = qkv.shape
     D = D3 // 3
     hd = _check_geometry(W, N, 64, D, num_heads)
@@ -528,15 +538,18 @@ def _attention_qkv_fused_cuda(qkv, bias, scale, num_heads):
     knobs = _knobs_for("K3", dt)
     _check("qkv", qkv, (W, N, D3), dt)
     bias = _bias_as(bias, num_heads, N, dt)
-    groups, other = 1, None
+    planes = other = None
     if dt == torch.bfloat16:
         _qkv_layout(*((t.shape, t.stride(), t.data_ptr(), t.element_size())
                       for t in (qkv, bias)), num_heads)
         groups, other = _fwd_groups_entry("K3", W, num_heads, N, hd, knobs)
+    else:
+        groups, planes = _fwd_f32_call("K3", W, num_heads, N, hd, qkv.device)
     out = torch.empty((W, N, D), dtype=qkv.dtype, device=qkv.device)
     fn = _entry("attention_qkv", "attention_qkv", dt, other)
-    err = fn(qkv.data_ptr(), bias.data_ptr(), out.data_ptr(), W, N,
-             num_heads, hd, groups, float(scale), _stream())
+    err = fn(qkv.data_ptr(), bias.data_ptr(),
+             None if planes is None else planes.data_ptr(), out.data_ptr(),
+             W, N, num_heads, hd, groups, float(scale), _stream())
     _raise_on(err, "_attention_qkv_fused_cuda")
     LAUNCHES["_attention_qkv_fused_cuda"] += 1
     return out
@@ -1024,17 +1037,18 @@ def _headmajor_operands(q, k, v, bias):
 
 
 def _headmajor_groups(W, H, N, rows=64):
-    """The window groups G of the bf16 forward core (K3, K8a, K8b) where it
-    keeps the bias tile resident, a function of (W, H, N) and the items'
-    rows only (never of the card): enough groups that its (query tile,
-    group, head) items number about _HEADMAJOR_ITEMS, at most one a pair
-    of windows, so that both consumer warpgroups of an item have a window;
-    group i holds windows [i W // G, (i + 1) W // G), walked in order by
-    the block that owns the item.  42 at stage 1 of a serving bucket of 16
-    (W=1024, H=6, N=256), 14 at stage 3 (W=64, H=18), 2 at stage 3 of a
-    bucket of 1 (W=4).  Where K8a streams the bias (its f32 tile does not
-    fit), the core takes groups of at most four windows instead, ceil(W /
-    4) of them, whatever G it is given."""
+    """The window groups G of the forward core (K1-K3, K8a, K8b, K9; its
+    bf16 and f32 kinds) where it keeps the bias tile resident, a function
+    of (W, H, N) and the items' rows only (never of the card): enough
+    groups that its (query tile, group, head) items number about
+    _HEADMAJOR_ITEMS, at most one a pair of windows, so that both consumer
+    warpgroups of an item have a window; group i holds windows [i W // G,
+    (i + 1) W // G), walked in order by the block that owns the item.  42
+    at stage 1 of a serving bucket of 16 (W=1024, H=6, N=256), 14 at stage
+    3 (W=64, H=18), 2 at stage 3 of a bucket of 1 (W=4).  Where the core
+    streams the bias (its bf16 kind: K8a's tile at large N; its f32 kind:
+    any tile that does not fit), it takes groups of at most four windows
+    (bf16) or two (f32) instead, whatever G it is given."""
     tiles = (N // rows) * H
     return max(1, min(-(-W // 2), _HEADMAJOR_ITEMS // tiles))
 
@@ -1102,13 +1116,14 @@ _FWD_F32_STREAM_WINDOWS = 2
 
 
 def _fwd_plan_f32(W, H, N, G, hd):
-    """Mirror of attention_fwd_sm90.cuh ``make_plan_f32``, the plan of K2's
-    and K9's f32 attention as ``_fwd_plan``'s dict (rows 64): the item's
-    64 x N f32 bias tile resident where it fits (two buffers beside a ring
-    of two chunks, else one beside one), else streamed in chunks of 64 rows
-    x NT key tiles over items of two windows (G = ceil(W / 2)); chunks of
-    NT = 2 key tiles (1 where N / 64 is odd); each consumer group's q
-    buffers and ring slots a 64-row bf16 hi tile and its lo tile each."""
+    """Mirror of attention_fwd_sm90.cuh ``make_plan_f32``, the plan of the
+    f32 attention of K1-K3, K8a, K8b and K9 as ``_fwd_plan``'s dict (rows
+    64): the item's 64 x N f32 bias tile resident where it fits (two
+    buffers beside a ring of two chunks, else one beside one), else
+    streamed in chunks of 64 rows x NT key tiles over items of two windows
+    (G = ceil(W / 2)); chunks of NT = 2 key tiles (1 where N / 64 is odd);
+    each consumer group's q buffers and ring slots a 64-row bf16 hi tile
+    and its lo tile each."""
     C = N // 64
     tile = 64 * hd * 4
     nt = 2 if C % 2 == 0 else 1
@@ -1135,6 +1150,18 @@ def _fwd_plan_f32(W, H, N, G, hd):
                         "QB": _FWD_F32_QB, "stream": stream, "rows": 64,
                         **got}
     return None
+
+
+def _fwd_f32_call(kernel, W, H, N, hd, device):
+    """(window groups, planes scratch) of an f32 call of K3, K8a or K8b,
+    whose split pass writes the planes the forward core's f32 kind reads:
+    ``_headmajor_groups`` and a ``_qkv_planes`` scratch.  Raises
+    ValueError, before any launch, where ``_fwd_plan_f32`` has no plan."""
+    groups = _headmajor_groups(W, H, N)
+    if _fwd_plan_f32(W, H, N, groups, hd) is None:
+        raise ValueError(f"{kernel}'s f32 attention has no plan at W={W}, "
+                         f"H={H}, N={N}, hd={hd}")
+    return groups, _qkv_planes(W, N, H * hd, device)
 
 
 def _fused_block_wb(W, N, H, knobs, row_windows=None):
@@ -1262,18 +1289,14 @@ def _attention_qtiled_cuda(q, k, v, bias, scale):
     W, H, N, hd, bias, dt = _headmajor_operands(q, k, v, bias)
     knobs = _knobs_for("K8a", dt)
     out = torch.empty_like(q)
-    planes = None
+    planes = other = None
     if dt == torch.bfloat16:
         _headmajor_layout(*((t.shape, t.stride(), t.data_ptr(),
                              t.element_size()) for t in (q, k, v, bias)),
                           max_n=None)
         groups, other = _fwd_groups_entry("K8a", W, H, N, hd, knobs)
     else:
-        groups, other = _headmajor_groups(W, H, N), None
-        if _fwd_plan_f32(W, H, N, groups, hd) is None:
-            raise ValueError(f"K8a's f32 attention has no plan at W={W}, "
-                             f"H={H}, N={N}, hd={hd}")
-        planes = _qkv_planes(W, N, H * hd, q.device)
+        groups, planes = _fwd_f32_call("K8a", W, H, N, hd, q.device)
     err = _entry("attention_headmajor", "attention_qtiled", dt, other)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
         None if planes is None else planes.data_ptr(), out.data_ptr(), W, H,
@@ -1284,11 +1307,15 @@ def _attention_qtiled_cuda(q, k, v, bias, scale):
 
 
 def _attention_batched_cuda(q, k, v, bias, scale):
-    """K8b: as K8a for N below 512, a q-tile's bias rows resident in shared
-    memory while a block walks several windows of one head; W must be a
-    multiple of BLOCK_W (the JAX dispatch rule) and N below 512.  The bf16
-    kernel walks ``_headmajor_groups`` groups of windows and needs
-    ``_headmajor_layout``; the f32 twin walks BLOCK_W windows a block."""
+    """K8b: as K8a for N below 512; W must be a multiple of BLOCK_W (the
+    JAX dispatch rule) and N below 512.  The bf16 kernel keeps a q-tile's
+    bias rows resident while a block walks ``_headmajor_groups`` groups of
+    windows of one head, and needs ``_headmajor_layout``.  The f32 entry
+    makes K8a's two f32 launches over the same ``_headmajor_groups`` (the
+    split pass into a ``_qkv_planes`` scratch, then the forward core's f32
+    kind with the bias resident and the head-major store), so it gives
+    K8a-f32's bits on the same inputs; where ``_fwd_plan_f32`` has no plan
+    it raises before any launch."""
     W, H, N, hd, bias, dt = _headmajor_operands(q, k, v, bias)
     knobs = _knobs_for("K8b", dt)
     block_w = min(BLOCK_W, W)
@@ -1296,14 +1323,17 @@ def _attention_batched_cuda(q, k, v, bias, scale):
         raise ValueError(f"K8b takes W a multiple of BLOCK_W={BLOCK_W} and "
                          f"N < 512, got W={W}, N={N}")
     out = torch.empty_like(q)
-    windows, other = block_w, None
+    planes = other = None
     if dt == torch.bfloat16:
         _headmajor_layout(*((t.shape, t.stride(), t.data_ptr(),
                              t.element_size()) for t in (q, k, v, bias)))
-        windows, other = _fwd_groups_entry("K8b", W, H, N, hd, knobs)
+        groups, other = _fwd_groups_entry("K8b", W, H, N, hd, knobs)
+    else:
+        groups, planes = _fwd_f32_call("K8b", W, H, N, hd, q.device)
     err = _entry("attention_headmajor", "attention_batched", dt, other)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
-        out.data_ptr(), W, H, N, hd, windows, float(scale), _stream())
+        None if planes is None else planes.data_ptr(), out.data_ptr(), W, H,
+        N, hd, groups, float(scale), _stream())
     _raise_on(err, "_attention_batched_cuda")
     LAUNCHES["_attention_batched_cuda"] += 1
     return out

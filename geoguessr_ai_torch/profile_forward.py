@@ -41,15 +41,10 @@ import torch
 
 #: Kernel-name substrings -> the port's layer they belong to, first match.
 GROUPS = (
-    # the first design, which only K3's f32 twin runs (in bf16 its
-    # attention runs the forward core, which _group tells apart by its
-    # template arguments)
-    ("window_attention_kernel", "attention (f32 K3 CUDA)"),
     # the f32 kind of the LayerNorm + GEMM core, which K1's, K2's and K9's
-    # f32 entries run (the forward core's f32 kind: _group), and K8a's f32
-    # split of its head-major q, k and v into bf16 planes
+    # f32 entries run (the forward core's f32 kind and the split pass of
+    # K3's, K8a's and K8b's f32 entries: _group)
     ("ln_gemm_f32_sm90", "LN+GEMM (f32 K1/K2/K9 CUDA)"),
-    ("split_planes", "q/k/v split (f32 K8a CUDA)"),
     # the bf16 Hopper kernels: the LayerNorm + GEMM core (K1's and K9's qkv
     # GEMM and out-projection, K2's qkv GEMM) and K10's; K10's f32 kind
     ("ln_gemm_sm90", "LN+GEMM (K1/K2/K9 CUDA)"),
@@ -72,8 +67,6 @@ GROUPS = (
     # kind (attn_bwd_f32_sm90), which K4, K5 and K7 share in f32
     ("dbias_reduce", "attention backward (K4/K7 CUDA)"),
     ("attn_bwd_", "attention backward (f32 K4/K5/K7 CUDA)"),
-    # K8b's f32 twin (in bf16 it runs the forward core)
-    ("attention_batched", "head-major attention (K8b CUDA)"),
     ("clip_flash", "CLIP attention (K6/K11 CUDA)"),
     ("conv", "convolution (cuDNN)"),
     ("cudnn", "convolution (cuDNN)"),
@@ -115,10 +108,18 @@ def _group(name: str) -> str:
                 else "head-major attention (K8b, K8a resident; CUDA)")
     if "attention_fwd_f32_sm90<" in low:
         # attention_fwd_f32_sm90<HD, NT, streamed, layout>: out interleaved
-        # in K1, K2 and K9 (the same instances), head-major in K8a
+        # in K1, K2, K3 and K9 (the same instances), head-major in K8a and
+        # K8b (the same instances)
         args = low.split("<", 1)[1].split(">", 1)[0].split(",")
-        return ("head-major attention (f32 K8a CUDA)" if args[-1].strip() == "0"
-                else "attention (f32 K1/K2/K9 CUDA)")
+        if args[-1].strip() == "0":
+            return "head-major attention (f32 K8a/K8b CUDA)"
+        return "attention (f32 K1/K2/K3/K9 CUDA)"
+    if "split_planes<" in low:
+        # split_planes<HD, source layout>: K8a's and K8b's head-major q, k
+        # and v, or K3's interleaved qkv, into qkv's bf16 planes
+        args = low.split("<", 1)[1].split(">", 1)[0].split(",")
+        return ("qkv split (f32 K3 CUDA)" if args[-1].strip() == "1"
+                else "q/k/v split (f32 K8a/K8b CUDA)")
     for key, group in GROUPS:
         if key in low:
             return group

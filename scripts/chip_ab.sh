@@ -58,7 +58,13 @@
 # forward entry's output and of K2-f32's and K9-f32's, the f32 default and
 # head-major engines' bucket-16 p50s (fwd_f32_k1_k8a_ab below), and after
 # the four runs whether the cores' bf16 kernels and K2's and K9's f32
-# kernels compiled to the same SASS in both trees; AB_PHASES=f32_kernels
+# kernels compiled to the same SASS in both trees; AB_PHASES=fwd_f32_k3_k8b
+# K8b in f32 at stages 1 and 3 of a bucket of 16 and K3 in f32 at stage 3
+# of buckets of 16 and 1 the same way, hashes of every bf16 forward entry's
+# output and of K1-f32's, K2-f32's, K8a-f32's and K9-f32's, the same two
+# p50s (fwd_f32_k3_k8b_ab below), and after the four runs whether the
+# cores' bf16 kernels, K1's, K2's, K8a's and K9's f32 kernels and K8a's
+# split pass compiled to the same SASS in both trees; AB_PHASES=f32_kernels
 # chip_smoke.py's phase 24 alone (every f32 entry against its plain
 # version) with its wall seconds, and the same SASS comparison.
 set -u
@@ -304,31 +310,12 @@ def bf16_forward_bits():
     torch.cuda.empty_cache()
 
 
-def fwd_f32_k1_k8a_ab():
-    """K1 in f32 at stage 1 of a serving bucket of 16 and the embed
-    configuration's stage 3, and K8a in f32 at stage 2 of a bucket of 16
-    and stage 3 of a bucket of 1 (chip_smoke's F32_CASES), as device time
-    (cs.kernel_ms) with each one's largest error against its plain f32
-    version and each launch's device time; hashes of every bf16 forward
-    entry's output (bf16_forward_bits) and of K2-f32's and K9-f32's on
-    seeded inputs; then the f32 default and head-major TinyViT engines'
-    bucket-16 p50s (11 calls after a warm-up) with K1's, K8a's and K8b's
-    launches in one call."""
-    import gc
-
-    import numpy as np
-
-    from geoguessr_ai_torch.models.tinyvit import TinyViTConfig
-    from geoguessr_ai_torch.ops import window_attention as wa
-    from geoguessr_ai_torch.profile_forward import HEAD_MAJOR, HEAD_MAJOR_MIN_N
-    from geoguessr_ai_torch.serving.engine import ServingEngine
-
-    f32 = torch.float32
-    gen = torch.Generator().manual_seed(27)
-    for kernel, label, shape in (("K1", "stage1", (1024, 256, 192, 6)),
-                                 ("K1", "embed_stage3", (64, 256, 576, 18)),
-                                 ("K8a", "stage2_bucket16", (64, 12, 1024)),
-                                 ("K8a", "stage3_bucket1", (4, 18, 256))):
+def f32_rows_ab(rows, seed):
+    """Each (kernel, label, shape) of ``rows`` (chip_smoke's F32_CASES) in
+    f32 as device time (cs.kernel_ms) with its largest error against its
+    plain f32 version and each launch's device time (torch.profiler)."""
+    gen = torch.Generator().manual_seed(seed)
+    for kernel, label, shape in rows:
         kern, plain, args, *_ = cs._f32_case(kernel, shape, gen)
         fn = lambda: kern(*args)
         ms = cs.kernel_ms(fn)
@@ -343,27 +330,28 @@ def fwd_f32_k1_k8a_ab():
             if launch else "not measured"))
         del out, args
         torch.cuda.empty_cache()
-    bf16_forward_bits()
-    gen = torch.Generator().manual_seed(28)
-    a = cs._case_inputs(64, 1024, 384, 12, gen, f32)
-    out = wa._fb_s2_cuda(a["x"], a["ln_scale"], a["ln_bias"], a["w_qkv"],
-                         a["b_qkv"], a["bias"], 32 ** -0.5, 12, 1e-5)
-    torch.cuda.synchronize()
-    print(f"AB f32 bits K2 (64, 1024, 384) H=12 {sha(out)}")
-    del a, out
-    kern, _, args, *_ = cs._embed_kernel_case("K9", 64, gen, f32)
-    out = kern(*args)
-    torch.cuda.synchronize()
-    print(f"AB f32 bits K9 (64, 64, 64, 192) H=6 {sha(out)}")
-    del args, out
-    torch.cuda.empty_cache()
+
+
+def f32_engines_ab(kernels):
+    """The f32 default and head-major TinyViT engines' bucket-16 p50s (11
+    calls after a warm-up) with ``kernels``' launches (names of
+    chip_smoke.F32_META) in one call."""
+    import gc
+
+    import numpy as np
+
+    from geoguessr_ai_torch.models.tinyvit import TinyViTConfig
+    from geoguessr_ai_torch.ops import window_attention as wa
+    from geoguessr_ai_torch.profile_forward import HEAD_MAJOR, HEAD_MAJOR_MIN_N
+    from geoguessr_ai_torch.serving.engine import ServingEngine
+
     for label, fields in (("default", {}), ("head-major", HEAD_MAJOR)):
         saved = wa.QKV_KERNEL_MIN_N
         if fields:
             wa.QKV_KERNEL_MIN_N = HEAD_MAJOR_MIN_N
         try:
             engine = ServingEngine(seed=cs.SEED, backbone_config=TinyViTConfig(
-                dtype=f32, **fields))
+                dtype=torch.float32, **fields))
             _, views = cs._fixture_views(engine)
             batch = np.repeat(views[None], 16, axis=0)
             fn = lambda: engine.predict_batch(batch)
@@ -372,9 +360,7 @@ def fwd_f32_k1_k8a_ab():
             wa.reset_launches()
             fn()
             torch.cuda.synchronize()
-            n = {k: wa.LAUNCHES[m] for k, m in (
-                ("K1", "_fused_block_cuda"), ("K8a", "_attention_qtiled_cuda"),
-                ("K8b", "_attention_batched_cuda"))}
+            n = {k: wa.LAUNCHES[cs.F32_META[k][0]] for k in kernels}
             p50 = cs._p50_ms(fn, reps=11)
             print(f"AB f32 {label} engine bucket 16 p50 {p50:.2f} ms "
                   f"(launches a call {n})")
@@ -383,6 +369,74 @@ def fwd_f32_k1_k8a_ab():
             wa.QKV_KERNEL_MIN_N = saved
         gc.collect()
         torch.cuda.empty_cache()
+
+
+def fwd_f32_k1_k8a_ab():
+    """K1 in f32 at stage 1 of a serving bucket of 16 and the embed
+    configuration's stage 3, and K8a in f32 at stage 2 of a bucket of 16
+    and stage 3 of a bucket of 1 (f32_rows_ab); hashes of every bf16
+    forward entry's output (bf16_forward_bits) and of K2-f32's and
+    K9-f32's on seeded inputs; then the f32 default and head-major TinyViT
+    engines' p50s with K1's, K8a's and K8b's launches (f32_engines_ab)."""
+    from geoguessr_ai_torch.ops import window_attention as wa
+
+    f32_rows_ab((("K1", "stage1", (1024, 256, 192, 6)),
+                 ("K1", "embed_stage3", (64, 256, 576, 18)),
+                 ("K8a", "stage2_bucket16", (64, 12, 1024)),
+                 ("K8a", "stage3_bucket1", (4, 18, 256))), 27)
+    bf16_forward_bits()
+    f32_fwd_bits(("K2", "K9"))
+    f32_engines_ab(("K1", "K8a", "K8b"))
+
+
+def f32_fwd_bits(kernels):
+    """Hashes of the f32 outputs of ``kernels`` (of K1 at stage 1 of a
+    serving bucket of 16, K2 at stage 2, K8a at stage 2 and K9 at 64
+    images) on seeded inputs: equal in both trees when their bits did not
+    change."""
+    from geoguessr_ai_torch.ops import window_attention as wa
+
+    f32 = torch.float32
+    gen = torch.Generator().manual_seed(28)
+    for kernel in kernels:
+        if kernel == "K2":
+            a = cs._case_inputs(64, 1024, 384, 12, gen, f32)
+            out = wa._fb_s2_cuda(a["x"], a["ln_scale"], a["ln_bias"],
+                                 a["w_qkv"], a["b_qkv"], a["bias"],
+                                 32 ** -0.5, 12, 1e-5)
+            label = "K2 (64, 1024, 384) H=12"
+            del a
+        elif kernel == "K9":
+            kern, _, args, *_ = cs._embed_kernel_case("K9", 64, gen, f32)
+            out = kern(*args)
+            label = "K9 (64, 64, 64, 192) H=6"
+            del args
+        else:
+            shape = {"K1": (1024, 256, 192, 6), "K8a": (64, 12, 1024)}[kernel]
+            kern, _, args, *_ = cs._f32_case(kernel, shape, gen)
+            out = kern(*args)
+            label = f"{kernel} {shape}"
+            del args
+        torch.cuda.synchronize()
+        print(f"AB f32 bits {label} {sha(out)}")
+        del out
+        torch.cuda.empty_cache()
+
+
+def fwd_f32_k3_k8b_ab():
+    """K8b in f32 at stages 1 and 3 of a serving bucket of 16 and K3 in f32
+    at stage 3 of buckets of 16 and 1 (f32_rows_ab: device time, the split
+    pass and the attention apart); hashes of every bf16 forward entry's
+    output (bf16_forward_bits) and of K1-f32's, K2-f32's, K8a-f32's and
+    K9-f32's on seeded inputs; then the f32 default and head-major TinyViT
+    engines' p50s with K1's, K3's, K8a's and K8b's launches."""
+    f32_rows_ab((("K8b", "stage1_bucket16", (1024, 6, 256)),
+                 ("K8b", "stage3_bucket16", (64, 18, 256)),
+                 ("K3", "stage3", (64, 256, 576, 18)),
+                 ("K3", "stage3_bucket1", (4, 256, 576, 18))), 28)
+    bf16_forward_bits()
+    f32_fwd_bits(("K1", "K2", "K8a", "K9"))
+    f32_engines_ab(("K1", "K3", "K8a", "K8b"))
 
 
 def clip_f32_ab():
@@ -584,6 +638,9 @@ if os.environ.get("AB_PHASES") == "clip_f32":
 if os.environ.get("AB_PHASES") == "fwd_f32_k1_k8a":
     fwd_f32_k1_k8a_ab()
     sys.exit(0)
+if os.environ.get("AB_PHASES") == "fwd_f32_k3_k8b":
+    fwd_f32_k3_k8b_ab()
+    sys.exit(0)
 if os.environ.get("AB_PHASES") == "f32_kernels":
     import time
     t0 = time.time()
@@ -773,6 +830,9 @@ def kernels(tree, lib, pattern):
         # the forward core's f32 kind gained a last template argument, its
         # out layout (1: the interleaved out K2 and K9 store)
         name = name.replace("Li1EEEv14CUtensorMap_stS3_Pf", "EEv14CUtensorMap_stS3_Pf")
+        # and the split pass its source layout (0: K8a's and K8b's head-major
+        # q, k, v)
+        name = re.sub(r"split_planesILi(\d+)ELi0EE", r"split_planesILi\1EE", name)
         m = re.search(pattern, name)
         if m:
             out[m.groups()] = [re.sub(r"/\*[0-9a-f]+\*/", "", l).split(";")[0].strip()
@@ -782,7 +842,7 @@ def kernels(tree, lib, pattern):
 
 mb = r"mbconv_sm90ILi(\d+)ELb([01])ELb([01])EE"
 checks = [("mbconv", "K10", mb), ("fused_mbconv_exp", "K12", mb)]
-if sys.argv[2] in ("fwd_f32", "fwd_f32_k1_k8a", "f32_kernels"):
+if sys.argv[2] in ("fwd_f32", "fwd_f32_k1_k8a", "fwd_f32_k3_k8b", "f32_kernels"):
     cores = r"((?:attention_fwd|ln_gemm|gemm)_sm90I\w+)"
     checks += [(lib, lib, cores) for lib in (
         "fb_s2", "fb4d", "fused_block", "attention_qkv", "attention_headmajor",
@@ -790,6 +850,11 @@ if sys.argv[2] in ("fwd_f32", "fwd_f32_k1_k8a", "f32_kernels"):
 if sys.argv[2] in ("fwd_f32_k1_k8a", "f32_kernels"):
     f32 = r"((?:attention_fwd|ln_gemm)_f32_sm90I\w+)"
     checks += [(lib, f"{lib} f32", f32) for lib in ("fb_s2", "fb4d")]
+if sys.argv[2] == "fwd_f32_k3_k8b":
+    # K1's, K2's, K8a's and K9's f32 kernels (K8a's split pass too)
+    f32 = r"((?:attention_fwd|ln_gemm)_f32_sm90I\w+|split_planesI\w+)"
+    checks += [(lib, f"{lib} f32", f32) for lib in (
+        "fb_s2", "fb4d", "fused_block", "attention_headmajor")]
 if sys.argv[2] == "clip_f32":
     clip = r"((?:clip_flash_sm90ILi\d+E|gemm_sm90ILi[012]E)\w*)"
     checks += [(lib, lib, clip) for lib in ("clip_flash", "clip_flash_proj",

@@ -40,8 +40,9 @@ from geoguessr_ai_torch.ops import window_attention as wa  # noqa: E402
 
 FWD, LNG = "attention_fwd_sm90.cuh", "ln_gemm_sm90.cuh"
 LIBS = ("fb_s2", "fb4d", "fused_block", "attention_headmajor")
-#: K8a's split pass as the header walks the planes' rows, and walking each
-#: (window, head, tensor)'s rows instead (the variant split_slab_order).
+#: The split pass as the header walks the planes' rows (its head-major and
+#: in-order sources), and walking each (window, head, tensor)'s rows of the
+#: head-major source instead (the variant split_slab_order; K8a only).
 SPLIT_ROWS = """\
   constexpr int kVec = HD / 4;    // float4 of a head row, uint2 of its planes' rows
   const int row4 = 3 * H * kVec;  // uint2 of a plane row
@@ -54,10 +55,14 @@ SPLIT_ROWS = """\
   for (int u = 0; u < kSplitPer; ++u) {
     const int f = f0 + u * kSplitThreads;
     if (f >= end) continue;
-    const int n = f / row4, col = f - n * row4;
-    const int h = col / (3 * kVec), slot = (col - h * 3 * kVec) / kVec, j = col % kVec;
-    const float4* x = slot == 0 ? q : slot == 1 ? k : v;
-    a[u] = x[((long)(w * H + h) * N + n) * kVec + j];
+    if constexpr (SRC == kQkv) {
+      a[u] = q[(long)w * end + f];
+    } else {
+      const int n = f / row4, col = f - n * row4;
+      const int h = col / (3 * kVec), slot = (col - h * 3 * kVec) / kVec, j = col % kVec;
+      const float4* x = slot == 0 ? q : slot == 1 ? k : v;
+      a[u] = x[((long)(w * H + h) * N + n) * kVec + j];
+    }
   }
 #pragma unroll
   for (int u = 0; u < kSplitPer; ++u) {
@@ -69,16 +74,16 @@ SPLIT_ROWS = """\
   }
 }
 
-// One launch of split_planes: q, k, v (W, H, N, HD) f32 and planes (2, W,
-// N, 3 H HD) bf16, contiguous with 16-byte aligned bases; N a multiple of
-// 64, 1 <= W <= 65535, a window's plane below 2^31 elements.
-template <int HD>
-cudaError_t split_headmajor(const void* q, const void* k, const void* v, void* planes, int W, int H, int N,
+// One launch of split_planes: q, k, v f32 in SRC's layout and planes (2,
+// W, N, 3 H HD) bf16, contiguous with 16-byte aligned bases; N a multiple
+// of 64, 1 <= W <= 65535, a window's plane below 2^31 elements.
+template <int HD, int SRC>
+cudaError_t split_to_planes(const void* q, const void* k, const void* v, void* planes, int W, int H, int N,
                             cudaStream_t stream) {
   const long per = kSplitThreads * kSplitPer, end = (long)N * 3 * H * HD / 4;
   if (W < 1 || W > 65535 || H < 1 || N % kRows || end > 0x7fffffffL - per) return cudaErrorInvalidValue;
   const dim3 grid((unsigned)((end + per - 1) / per), W);
-  split_planes<HD><<<grid, kSplitThreads, 0, stream>>>(
+  split_planes<HD, SRC><<<grid, kSplitThreads, 0, stream>>>(
       static_cast<const float4*>(q), static_cast<const float4*>(k), static_cast<const float4*>(v),
       static_cast<uint2*>(planes), H, N, (long)W * end);"""
 SPLIT_SLABS = """\
@@ -105,13 +110,15 @@ SPLIT_SLABS = """\
   }
 }
 
-template <int HD>
-cudaError_t split_headmajor(const void* q, const void* k, const void* v, void* planes, int W, int H, int N,
+// The head-major source only (K8a's and K8b's split).
+template <int HD, int SRC>
+cudaError_t split_to_planes(const void* q, const void* k, const void* v, void* planes, int W, int H, int N,
                             cudaStream_t stream) {
+  static_assert(SRC == kHeadMajor, "the slab order reads head-major q, k, v");
   const long per = kSplitThreads * kSplitPer, chunks = ((long)N * HD / 4 + per - 1) / per;
   if (W < 1 || H < 1 || (long)W * H >= 0x7fffffffL || N % kRows || chunks > 65535) return cudaErrorInvalidValue;
   const dim3 grid(W * H, 3, (unsigned)chunks);
-  split_planes<HD><<<grid, kSplitThreads, 0, stream>>>(
+  split_planes<HD, SRC><<<grid, kSplitThreads, 0, stream>>>(
       static_cast<const float4*>(q), static_cast<const float4*>(k), static_cast<const float4*>(v),
       static_cast<uint2*>(planes), H, N, (long)W * N * 3 * H * HD / 4);"""
 #: name -> edits as (header, old, new).

@@ -56,11 +56,11 @@ K8A_CASES = (
 )
 
 
-def _ptxas():
+def _ptxas(names=("fused_block", "attention_headmajor")):
     """ptxas's registers and spills of each f32-kind kernel and of the
-    split pass (by mangled name) and any warning that it serialised wgmma
-    (C75xx)."""
-    for name in ("fused_block", "attention_headmajor"):
+    split pass (by mangled name) in the libraries ``names`` and any
+    warning that it serialised wgmma (C75xx)."""
+    for name in names:
         lines = _build.build_log(name).splitlines()
         for i, line in enumerate(lines):
             if (("f32_sm90" in line or "split_planes" in line)

@@ -377,19 +377,22 @@ def test_the_row_statistics_passes_match_softmax(passes):
     ("void gg::bwd90::attn_bwd_f32_sm90<32, 0, 1>(CUtensorMap_st, "
      "CUtensorMap_st, CUtensorMap_st, gg::BwdArgs<float>)",
      "attention backward (f32 K4/K5/K7 CUDA)"),
-    ("void gg::hm90::attention_batched_sm90<32, 4>(CUtensorMap_st, "
-     "CUtensorMap_st, CUtensorMap_st, CUtensorMap_st, __nv_bfloat16*)",
-     "head-major attention (K8b CUDA)"),
-    ("void gg::(anonymous namespace)::attention_batched_kernel<float, 32>("
-     "float const*)", "head-major attention (K8b CUDA)"),
+    ("void gg::fwd90::(anonymous namespace)::attention_fwd_sm90<0, float, "
+     "32, 4, false>(CUtensorMap, CUtensorMap, CUtensorMap, CUtensorMap, "
+     "__nv_bfloat16*, gg::fwd90::(anonymous namespace)::Plan, float)",
+     "head-major attention (K8b, K8a resident; CUDA)"),
+    ("void gg::fwd90::(anonymous namespace)::attention_fwd_f32_sm90<32, 2, "
+     "false, 0>(CUtensorMap, CUtensorMap, float*, gg::fwd90::(anonymous "
+     "namespace)::Plan, float)", "head-major attention (f32 K8a/K8b CUDA)"),
 ], ids=["core_stats_f32_bias", "core_dbias_f32_bias", "core_bf16_bias",
         "partials_sum", "f32_kind", "k8b_bf16", "k8b_f32"])
 def test_profile_groups_name_the_core_launches_by_their_kernels(kernel_name,
                                                                 group):
     """``profile_forward`` counts the f32-bias launches of the core's bf16
     kind as K5/K7 (the default train step's K5 runs them since K5 moved
-    onto the core), the f32 kind's as f32 K4/K5/K7, and both of K8b's
-    kernels as K8b."""
+    onto the core), the f32 kind's as f32 K4/K5/K7, and K8b's kernels as
+    the forward core's head-major instances: the bf16 kind's resident one
+    and, in f32, the f32 kind's head-major one it shares with K8a."""
     from geoguessr_ai_torch import profile_forward
 
     assert profile_forward._group(kernel_name) == group

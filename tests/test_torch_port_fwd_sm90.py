@@ -9,9 +9,10 @@ In bf16 ``_attention_qkv_fused_cuda`` (K3) and ``_attention_qtiled_cuda``
 (W, N, 3D) qkv through one tensor map with a bf16 bias tile resident over a
 window group; K8a keeps its f32 bias tile resident where it fits, else
 streams it in chunks of two 64-key tiles, each serving the four windows of
-an item.  The f32 twins keep the first design.  The kernels themselves are
-held against the plain versions on the card by tests/test_torch_port_cuda.py
-(``-k fwd_sm90``) and chip_smoke.py.
+an item.  The f32 entries run the same header's split pass and f32 kind
+(tests/test_torch_port_k1_k8a_f32.py, tests/test_torch_port_k3_k8b_f32.py).
+The kernels themselves are held against the plain versions on the card by
+tests/test_torch_port_cuda.py (``-k fwd_sm90``) and chip_smoke.py.
 """
 
 import math
@@ -259,8 +260,8 @@ def _fake_card(monkeypatch):
     """The wrappers run here up to their launch: ``_check`` keeps its
     dtype, shape, contiguity and alignment rules but not the device one,
     and each C entry is replaced by a recorder of its arguments after the
-    tensor pointers (K8a's: q, k, v, the bias, the planes scratch and
-    out)."""
+    tensor pointers (K3's: qkv, the bias, the planes scratch and out; K8a's
+    and K8b's: q, k, v, the bias, the planes scratch and out)."""
     calls = []
 
     def host_check(name, t, shape, dtype=torch.bfloat16):
@@ -270,8 +271,7 @@ def _fake_card(monkeypatch):
 
     def fake_entry(lib, name):
         def launch(*args):
-            ptrs = (3 if lib == "attention_qkv"
-                    else 6 if name.startswith("attention_qtiled") else 5)
+            ptrs = 4 if lib == "attention_qkv" else 6
             calls.append((lib, name, args[ptrs:]))
             return 0
         return launch
@@ -294,13 +294,20 @@ def _c_body(lib, entry):
 def test_k3_routes_bf16_to_the_core_and_f32_to_the_twin(monkeypatch, dtype):
     """A bf16 call reaches ``attention_qkv_bf16`` after ``_qkv_layout``
     with G = ``_headmajor_groups`` (14 at stage 3), whose body runs the core
-    in its interleaved layout with a bf16 bias; an f32 call the twin, whose
-    body runs common.cuh's first design.  One K3 launch either way."""
+    in its interleaved layout with a bf16 bias; an f32 call reaches
+    ``attention_qkv_f32`` with the same G and a (2, W, N, 3D) bf16 planes
+    scratch, whose body runs the in-order split of qkv into the planes and
+    then the core's f32 kind in the interleaved layout.  One K3 launch
+    either way."""
     calls = _fake_card(monkeypatch)
     checked = []
     real = wa._qkv_layout
     monkeypatch.setattr(wa, "_qkv_layout",
                         lambda *a: checked.append(a) or real(*a))
+    planes = []
+    real_planes = wa._qkv_planes
+    monkeypatch.setattr(wa, "_qkv_planes",
+                        lambda *a: planes.append(real_planes(*a)) or planes[-1])
     W, N, H, hd = 64, 256, 18, 32
     qkv = torch.zeros(W, N, 3 * H * hd, dtype=dtype)
     wa.reset_launches()
@@ -311,15 +318,20 @@ def test_k3_routes_bf16_to_the_core_and_f32_to_the_twin(monkeypatch, dtype):
     suffix = "bf16" if dtype == torch.bfloat16 else "f32"
     ((lib, entry, tail),) = calls
     assert (lib, entry) == ("attention_qkv", f"attention_qkv_{suffix}")
-    groups = 14 if suffix == "bf16" else 1
-    assert tail == (W, N, H, hd, groups, 0.25, 0)
+    assert tail == (W, N, H, hd, 14, 0.25, 0)
     assert len(checked) == (suffix == "bf16")
+    assert [(tuple(t.shape), t.dtype) for t in planes] == (
+        [] if suffix == "bf16"
+        else [((2, W, N, 3 * H * hd), torch.bfloat16)])
     assert [wa._headmajor_groups(W, H, N) for W in (64, 4)] == [14, 2]
     body = _c_body(lib, entry)
     if suffix == "bf16":
         assert "run<kQkv, gg::bf16, HD, false>(qkv, qkv, qkv, bias" in body
     else:
-        assert "fwd90" not in body and "launch_window_attention(" in body
+        assert "split_qkv<HD>(qkv, planes, W, H, N, s)" in body
+        assert ("run_f32<HD>(planes, bias, out, W, H, N, groups, scale, s)"
+                in body)
+        assert "launch_window_attention(" not in body
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
@@ -474,23 +486,29 @@ def test_the_headers_host_code_has_internal_linkage():
      "32, 4, false>(CUtensorMap, CUtensorMap, CUtensorMap, CUtensorMap, "
      "__nv_bfloat16*, gg::fwd90::(anonymous namespace)::Plan, float)",
      "head-major attention (K8b, K8a resident; CUDA)"),
-    ("void gg::(anonymous namespace)::window_attention_kernel<float, 32>("
-     "float const*, float const*, float*, int, int, float)",
-     "attention (f32 K3 CUDA)"),
-    # the f32 kind K1, K2 and K9 run (out interleaved), and K8a (head-major)
-    # with its split pass
+    # K3's f32 attention: the f32 kind's interleaved instance K1, K2 and K9
+    # run (resident bias, chunks of two key tiles at N = 256)
+    ("void gg::fwd90::(anonymous namespace)::attention_fwd_f32_sm90<32, 2, "
+     "false, 1>(CUtensorMap, CUtensorMap, float*, gg::fwd90::(anonymous "
+     "namespace)::Plan, float)", "attention (f32 K1/K2/K3/K9 CUDA)"),
+    # the f32 kind K1, K2, K3 and K9 run (out interleaved), and K8a and K8b
+    # (head-major) with their split pass
     ("void gg::fwd90::(anonymous namespace)::attention_fwd_f32_sm90<32, 2, "
      "true, 1>(CUtensorMap, CUtensorMap, float*, gg::fwd90::(anonymous "
-     "namespace)::Plan, float)", "attention (f32 K1/K2/K9 CUDA)"),
+     "namespace)::Plan, float)", "attention (f32 K1/K2/K3/K9 CUDA)"),
     ("void gg::fwd90::(anonymous namespace)::attention_fwd_f32_sm90<32, 2, "
      "true, 0>(CUtensorMap, CUtensorMap, float*, gg::fwd90::(anonymous "
-     "namespace)::Plan, float)", "head-major attention (f32 K8a CUDA)"),
+     "namespace)::Plan, float)", "head-major attention (f32 K8a/K8b CUDA)"),
     ("void gg::fwd90::(anonymous namespace)::attention_fwd_f32_sm90<32, 1, "
      "false, 0>(CUtensorMap, CUtensorMap, float*, gg::fwd90::(anonymous "
-     "namespace)::Plan, float)", "head-major attention (f32 K8a CUDA)"),
-    ("void gg::fwd90::(anonymous namespace)::split_planes<32>(float4 const*, "
-     "float4 const*, float4 const*, uint2*, int, int, long)",
-     "q/k/v split (f32 K8a CUDA)"),
+     "namespace)::Plan, float)", "head-major attention (f32 K8a/K8b CUDA)"),
+    ("void gg::fwd90::(anonymous namespace)::split_planes<32, 0>(float4 "
+     "const*, float4 const*, float4 const*, uint2*, int, int, long)",
+     "q/k/v split (f32 K8a/K8b CUDA)"),
+    # K3's in-order split of its f32 qkv
+    ("void gg::fwd90::(anonymous namespace)::split_planes<32, 1>(float4 "
+     "const*, float4 const*, float4 const*, uint2*, int, int, long)",
+     "qkv split (f32 K3 CUDA)"),
 ])
 def test_profile_groups_name_the_forward_core_by_its_kernels(kernel_name,
                                                              group):

@@ -9,8 +9,9 @@ v and the bias through TMA tensor maps (so all four must be contiguous
 with a 16-byte aligned base and rows a multiple of 16 bytes apart,
 ``_headmajor_layout``), walks items of (64-query tile, window group, head)
 with the bias tile resident over the group's windows
-(``_headmajor_groups``), and computes s and p v with wgmma.  The f32 twin
-keeps the first design with BLOCK_W windows a block.  What is checked here,
+(``_headmajor_groups``), and computes s and p v with wgmma.  The f32 entry
+makes K8a's two f32 launches (tests/test_torch_port_k3_k8b_f32.py).  What
+is checked here,
 where there is no ``nvcc`` and no card: the schedule, every layout rule,
 which entry each call reaches with which arguments, that every accepted
 shape fits the kernel's shared memory, and that the softmax the kernel
@@ -162,7 +163,7 @@ def _fake_card(monkeypatch):
     """The wrappers run here up to their launch: ``_check`` keeps its
     dtype, shape, contiguity and alignment rules but not the device one,
     and each C entry is replaced by a recorder of its arguments after the
-    five tensor pointers."""
+    six tensor pointers (q, k, v, the bias, the planes scratch and out)."""
     calls = []
 
     def host_check(name, t, shape, dtype=torch.bfloat16):
@@ -172,7 +173,7 @@ def _fake_card(monkeypatch):
 
     def fake_entry(lib, name):
         def launch(*args):
-            calls.append((lib, name, args[5:]))
+            calls.append((lib, name, args[6:]))
             return 0
         return launch
 
@@ -195,14 +196,20 @@ def test_k8b_routes_bf16_to_the_hopper_entry_and_f32_to_the_twin(
         monkeypatch, dtype):
     """Through ``window_attention``'s dispatch (W a multiple of BLOCK_W, N
     below 512), a bf16 call reaches ``attention_batched_bf16`` with G =
-    ``_headmajor_groups`` after the layout check, an f32 call the twin
-    with BLOCK_W windows a block; one K8b launch either way.  The bf16
-    entry runs the Hopper kernel, the f32 one the first design."""
+    ``_headmajor_groups`` after the layout check, an f32 call
+    ``attention_batched_f32`` with the same G and a (2, W, N, 3D) bf16
+    planes scratch; one K8b launch either way.  The bf16 entry runs the
+    Hopper kernel, the f32 one K8a's two f32 launches: the split pass, then
+    the core's f32 kind with the head-major store."""
     calls = _fake_card(monkeypatch)
     checked = []
     real_layout = wa._headmajor_layout
     monkeypatch.setattr(wa, "_headmajor_layout",
                         lambda *a: checked.append(a) or real_layout(*a))
+    planes = []
+    real_planes = wa._qkv_planes
+    monkeypatch.setattr(wa, "_qkv_planes",
+                        lambda *a: planes.append(real_planes(*a)) or planes[-1])
     W, H, N, hd = 64, 3, 256, 32
     q, k, v = (torch.zeros(W, H, N, hd, dtype=dtype) for _ in range(3))
     wa.reset_launches()
@@ -214,15 +221,19 @@ def test_k8b_routes_bf16_to_the_hopper_entry_and_f32_to_the_twin(
     ((lib, entry, tail),) = calls
     assert (lib, entry) == ("attention_headmajor",
                             f"attention_batched_{suffix}")
-    windows = wa._headmajor_groups(W, H, N) if suffix == "bf16" \
-        else wa.BLOCK_W
-    assert tail == (W, H, N, hd, windows, 0.25, 0)
+    assert tail == (W, H, N, hd, wa._headmajor_groups(W, H, N), 0.25, 0)
     assert len(checked) == (suffix == "bf16")
+    assert [(tuple(t.shape), t.dtype) for t in planes] == (
+        [] if suffix == "bf16"
+        else [((2, W, N, 3 * H * hd), torch.bfloat16)])
     body = _c_body(entry)
     if suffix == "bf16":
         assert "run<kHeadMajor, float, HD, false>(" in body and "groups" in body
     else:
-        assert "fwd90" not in body and "batched<float>(" in body
+        # K8a-f32's entry: the split pass, then run_f32<HD, kHeadMajor>
+        assert ("attention_qtiled_f32(q, k, v, bias, planes, out, W, H, N, "
+                "hd, groups, scale, stream)") in body
+        assert "batched<float>(" not in body
 
 
 def _hm90_source():
@@ -236,8 +247,8 @@ def test_the_k8b_entry_is_hopper_code():
     """The bf16 kernel reads q, k, v and the bias through tensor maps (the
     bias with the 128-byte swizzle), keeps its pipelines with mbarriers,
     specialises its warps and runs both products as wgmma; it takes no
-    atomics.  The first design it replaces in bf16 (mma.sync) stays for
-    the f32 twin and K8a."""
+    atomics.  The first design it replaced (mma.sync) is gone, with K8b's
+    f32 entry on the same header's f32 kind."""
     core = _hm90_source()
     for feature in ("encode_rows<HD>(", "encode_3d(",
                     "CU_TENSOR_MAP_SWIZZLE_128B", "tma_load(", "swizzle128(",
@@ -250,6 +261,7 @@ def test_the_k8b_entry_is_hopper_code():
     assert '#include "attention_fwd_sm90.cuh"' in SOURCE.read_text()
     assert '#include "sm90.cuh"' in CORE.read_text()
     assert "mma(" not in core and "attend_tile" not in core
+    assert "attend_tile" not in SOURCE.read_text()
 
 
 def _source_int(name):

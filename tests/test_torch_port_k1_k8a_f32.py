@@ -118,8 +118,8 @@ def test_the_split_pass_is_hopper_code_beside_the_f32_kind():
     ``split_pair`` (round to nearest), in the forward core's unnamed
     namespace; K8a's f32 entry runs it and then the f32 kind's head-major
     instance, which stores out through ``store_rows_f32<LAYOUT, HD>``.
-    The first design's kernels of K1 and K8a are gone; K3's and K8b's
-    stay."""
+    The first design's kernels of K1 and K8a are gone, and with K3's and
+    K8b's f32 entries on the f32 kind, so are theirs."""
     fwd = FWD90.read_text()
     f32 = fwd[fwd.index("// The f32 kind"):]
     body = f32[f32.index("split_planes(const float4*"):]
@@ -138,9 +138,12 @@ def test_the_split_pass_is_hopper_code_beside_the_f32_kind():
     common = (_build.CSRC / "common.cuh").read_text()
     for gone in ("ln_gemm_kernel", "launch_ln_gemm"):
         assert gone not in common
-    # K3's and K8b's f32 twins keep the first design
-    assert "launch_window_attention(" in common
-    assert "attention_batched_kernel" in head
+    # K3's and K8b's f32 entries left the first design
+    for gone in ("launch_window_attention", "window_attention_kernel",
+                 "mma_bf16_16816"):
+        assert gone not in common
+    for gone in ("attention_batched_kernel", "attend_tile", "batched<"):
+        assert gone not in head
 
 
 # ---------------------------------------------------------------------------
