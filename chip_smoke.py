@@ -293,7 +293,26 @@ Phases, in order; any failure exits non-zero:
     ``s2bq1024_v64`` and ``train_both_v64`` in subprocesses, one timed call
     or step each (result "ok"; the embed case's first 8 embeddings at
     cosine >= 0.999 to a default-knob run here); the phase under 90 s;
-35. print the kernel JSON line, then ``{"ok": true, "device": ...}`` last.
+35. geocell generation on the card (``phase_geocells``): (a)
+    ``GenerateGeocells`` (device None: the card) over a world seeded from
+    ``data/geocells/proto_df.csv`` (the reference dataset's 6,823 cells:
+    167,022 points in 87 countries and 1,504 admin1 boxes, drawn around
+    each cell's centroid by its real clusters' counts), each step's wall
+    time and the cell count; every point in a cell and every cell
+    clustered; (b) the port's OPTICS (``optics_many``) of the 20,000
+    points nearest the largest admin1 and of 64 seeded generated cells in
+    one call, on
+    the card against the CPU: ordering, core distances, reachability,
+    predecessors and labels bitwise equal, both timed (and the labels
+    against scikit-learn's where it imports; "sklearn: absent" otherwise);
+    (c) the pickles through the port's ``GeocellManager``, one centroid
+    row per generated cell, and one 4-view request of the default engine
+    on that table: top-k ids inside it, the guess its top-1 cell's
+    centroid, K1 2, K2 6, K3 2 launches and no other kernel; (d) the
+    globe HTML of the table (one point a cell) and ``python -m
+    geoguessr_ai_torch.tools.build_clip_bpe --num-merges 256``, its
+    assets loaded by the port's tokenizer; the phase under 90 s;
+36. print the kernel JSON line, then ``{"ok": true, "device": ...}`` last.
 
 Times: ``kernel_ms`` times a kernel or a library call by 10 (or 50)
 launches between two CUDA events; where that reads under SHORT_MS (0.5
@@ -6587,6 +6606,284 @@ def phase_tile_knobs():
     return rows
 
 
+# ---------------------------------------------------------------------------
+# Phase 35: geocell generation on the card
+# ---------------------------------------------------------------------------
+
+#: Phase 35's world is seeded from the geocells the reference dataset was
+#: cut into (GEN_PROTO_CSV, ``GeocellManager.generate_proto_df``'s rows):
+#: each distinct cell's points are drawn around its centroid, one point for
+#: each distinct index the CSV lists, with its real country and admin1, so
+#: the counts by country, admin1, cell and cluster are the real ones; the
+#: admin1 regions are the boxes around their points.  A cell's radius is
+#: half the distance to the nearest other cell centroid, within
+#: GEN_RADIUS; its cluster -1 (noise) is uniform over that disk, every
+#: other cluster a Gaussian of a sixth of it around a point of the inner
+#: half.  (b) also runs OPTICS over the GEN_BIG_SET points nearest the
+#: largest admin1's centroid.
+GEN_PROTO_CSV = os.path.join(HERE, "data", "geocells", "proto_df.csv")
+GEN_RADIUS = (0.005, 0.5)
+GEN_BIG_SET = 20_000
+#: Cells of the generated set held card against CPU in one batched call.
+GEN_BATCH_CELLS = 64
+#: Merges of (d)'s BPE command.
+GEN_BPE_MERGES = 256
+#: The phase's time limit (s).
+GEN_PHASE_S = 90.0
+GEN_STEPS = ("init_cells", "add_points_to_cells", "combine_small_cells",
+             "cluster_cells", "split_large_cells")
+
+
+def _gen_proto_cells():
+    """GEN_PROTO_CSV's distinct cells in order of first row, each a dict of
+    country, admin1, (lng, lat) centroid and {cluster id: point indices}
+    (the CSV lists most cells twice, under two geocell indices)."""
+    import csv
+
+    cells = {}
+    with open(GEN_PROTO_CSV, newline="") as f:
+        for r in csv.DictReader(f):
+            c = cells.setdefault(r["cell_id"], {
+                "country": r["country"], "admin1": r["admin1"],
+                "lnglat": (float(r["centroid_lng"]),
+                           float(r["centroid_lat"])),
+                "clusters": {}})
+            c["clusters"].setdefault(int(r["cluster_id"]),
+                                     json.loads(r["indices"]))
+    return list(cells.values())
+
+
+def _gen_world(rng):
+    """(admin tables, points by country, the big set's (lat, lng), the
+    number of proto cells) of the world above; each country's points in
+    the order of their indices, each index drawn once (its first row)."""
+    from scipy.spatial import cKDTree
+
+    cells = _gen_proto_cells()
+    cen = np.array([c["lnglat"] for c in cells])
+    radius = np.clip(cKDTree(cen).query(cen, 2)[0][:, 1] / 2, *GEN_RADIUS)
+
+    def disk(n, r):
+        a, s = rng.uniform(0, 2 * np.pi, n), r * np.sqrt(rng.uniform(0, 1, n))
+        return np.stack([s * np.cos(a), s * np.sin(a)], 1)
+
+    index, xy, region, regions = [], [], [], {}
+    for c, r in zip(cells, radius):
+        key = regions.setdefault((c["country"], c["admin1"]), len(regions))
+        for cid, ind in sorted(c["clusters"].items()):
+            n = len(ind)
+            if cid < 0:
+                xy.append(np.add(c["lnglat"], disk(n, r)))
+            else:
+                xy.append(np.add(c["lnglat"], disk(1, r / 2))
+                          + rng.normal(0, r / 6, (n, 2)))
+            index += ind
+            region += [key] * n
+    index, first = np.unique(np.array(index), return_index=True)
+    xy, region = np.concatenate(xy)[first], np.array(region)[first]
+    admin = {}
+    for (country, admin1), k in regions.items():
+        lo, hi = xy[region == k].min(0) - 0.01, xy[region == k].max(0) + 0.01
+        admin.setdefault(country, {})[admin1] = [np.array(
+            [[lo[0], lo[1]], [hi[0], lo[1]], [hi[0], hi[1]], [lo[0], hi[1]]])]
+    names = [k[0] for k in regions]
+    points = {country: [] for country in admin}
+    for (lng, lat), k in zip(xy.tolist(), region.tolist()):
+        points[names[k]].append({"latitude": lat, "longitude": lng})
+    largest = np.argmax(np.bincount(region))
+    d = ((xy - xy[region == largest].mean(0)) ** 2).sum(1)
+    big = xy[np.argsort(d, kind="stable")[:GEN_BIG_SET]]
+    return admin, points, big[:, ::-1].copy(), len(cells)
+
+
+def _gen_same_bits(a, b):
+    """Whether two OpticsResults hold the same bits in every array."""
+    for f in ("ordering", "core_distances", "reachability", "predecessor",
+              "labels"):
+        x, y = getattr(a, f), getattr(b, f)
+        if x.shape != y.shape or x.tobytes() != y.tobytes():
+            return False
+    return True
+
+
+def _gen_vs_cpu(big, cells, rng):
+    """(b) The GEN_BIG_SET-point set and GEN_BATCH_CELLS seeded cells of the
+    generated set: optics_many on the card against the CPU, bitwise, both
+    timed; against scikit-learn's labels where it imports."""
+    import importlib
+    import importlib.util
+
+    from geoguessr_ai_torch.geocells.optics import optics_many
+
+    many = [i for i, c in enumerate(cells) if len(c) > 5]
+    pick = sorted(rng.choice(many, min(GEN_BATCH_CELLS, len(many)),
+                             replace=False))
+    batch = [np.array(cells[i].curr_coords, np.float64) for i in pick]
+    sk = None
+    if importlib.util.find_spec("sklearn") is not None:
+        sk = importlib.import_module("sklearn.cluster").OPTICS
+    for label, sets in ((f"the {len(big)} points nearest the largest "
+                         "admin1", [big]),
+                        (f"{len(batch)} seeded cells (n {min(map(len, batch))}"
+                         f"-{max(map(len, batch))}), one call", batch)):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        card = optics_many(sets)  # device None: the card
+        card_s = time.perf_counter() - t
+        t = time.perf_counter()
+        cpu = optics_many(sets, device="cpu")
+        cpu_s = time.perf_counter() - t
+        bad = sum(not _gen_same_bits(a, b) for a, b in zip(card, cpu))
+        log(f"(b) OPTICS of {label}: card {card_s:.3f} s, CPU {cpu_s:.3f} s; "
+            f"{len(sets) - bad} of {len(sets)} sets bitwise equal (ordering, "
+            f"core distances, reachability, predecessors, labels)")
+        if bad:
+            fail(f"(b) {bad} sets of {label} differ between the card and "
+                 "the CPU")
+        if len(sets) == 1:
+            log(f"(b) {label}: {int(card[0].labels.max()) + 1} clusters, "
+                f"{int((card[0].labels < 0).sum())} noise points")
+        if sk is None:
+            continue
+        off = sum(not np.array_equal(
+            sk(min_samples=5, xi=0.05, min_cluster_size=0.05).fit(x).labels_,
+            r.labels) for x, r in zip(sets, card))
+        log(f"(b) sklearn: {len(sets) - off} of {len(sets)} label sets equal")
+        if off:
+            fail(f"(b) {off} sets of {label} differ from sklearn's labels")
+    if sk is None:
+        log("(b) sklearn: absent")
+
+
+def _gen_serve(out_dir, n_cells, n_points):
+    """(c) The pickles through the port's GeocellManager, the centroid
+    table, and one 4-view request of the default engine on it."""
+    from geoguessr_ai_torch.geocells.manager import GeocellManager
+    from geoguessr_ai_torch.serving.engine import ServingEngine
+
+    t = time.perf_counter()
+    mgr = GeocellManager(out_dir)
+    table = mgr.build_centroid_table()
+    log(f"(c) GeocellManager: {mgr.num_cells} cells, {len(mgr.point_info)} "
+        f"points, centroid table {table.centroids.shape} in "
+        f"{time.perf_counter() - t:.2f} s")
+    if not mgr.num_cells == table.num_cells == n_cells:
+        fail(f"(c) the manager / table hold {mgr.num_cells} / "
+             f"{table.num_cells} cells, generated {n_cells}")
+    if len(mgr.point_info) != n_points:
+        fail(f"(c) the manager indexes {len(mgr.point_info)} points, "
+             f"expected {n_points}")
+    engine = ServingEngine(centroid_table=table, seed=SEED)
+    paths, _ = _fixture_views(engine)
+    engine.predict_images(paths)  # warm-up
+    torch.cuda.synchronize()
+    _reset_all_launches()
+    res = engine.predict_images(paths)
+    torch.cuda.synchronize()
+    launches = _tinyvit_launches()
+    want = (float(table.centroids[res.top_ids[0], 0]),
+            float(table.centroids[res.top_ids[0], 1]))
+    log(f"(c) guess on the generated table: lat {res.lat:.6f} lon "
+        f"{res.lon:.6f}, top {res.top_ids} ({res.top_countries[0]} / "
+        f"{res.top_admin1[0]}); launches {launches}")
+    if not all(0 <= i < table.num_cells for i in res.top_ids):
+        fail(f"(c) top ids {res.top_ids} outside the {table.num_cells} cells")
+    if (res.lon, res.lat) != want:
+        fail(f"(c) the guess {(res.lon, res.lat)} is not the top-1 cell's "
+             f"centroid {want}")
+    for k, n in launches.items():
+        if n != LAUNCHES_PER_FORWARD.get(k, 0):
+            fail(f"(c) {k} launched {n} times in one forward, expected "
+                 f"{LAUNCHES_PER_FORWARD.get(k, 0)}")
+    del engine
+    return {k: launches[k] for k in LAUNCHES_PER_FORWARD}, table
+
+
+def _gen_commands(tmp, table):
+    """(d) The globe HTML of the generated table, and the BPE command."""
+    import re
+
+    from geoguessr_ai_torch.train.clip_bpe import CLIPBPETokenizer
+    from geoguessr_ai_torch.viz.globe import visualize_geocells
+
+    html_path = visualize_geocells(table, os.path.join(tmp, "globe.html"))
+    with open(html_path) as f:
+        html = f.read()
+    spec = json.loads(re.search(r"const layersSpec = (\[.*?\]);\n", html,
+                                re.S).group(1))
+    log(f"(d) globe HTML: {len(html)} bytes, layer {spec[0]['id']!r} of "
+        f"{len(spec[0]['data'])} points")
+    if len(spec) != 1 or len(spec[0]["data"]) != table.num_cells:
+        fail(f"(d) the globe's layers {[len(s['data']) for s in spec]}, "
+             f"expected one of {table.num_cells} points")
+    out = os.path.join(tmp, "clip_bpe")
+    t = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "geoguessr_ai_torch.tools.build_clip_bpe",
+         "--num-merges", str(GEN_BPE_MERGES), "--out", out],
+        cwd=HERE, capture_output=True, text=True, timeout=GEN_PHASE_S)
+    log(f"(d) build_clip_bpe in {time.perf_counter() - t:.2f} s: "
+        f"{proc.stdout.strip().splitlines()[-1:]}")
+    if proc.returncode:
+        fail(f"(d) build_clip_bpe: rc {proc.returncode}, "
+             f"{proc.stderr[-500:]}")
+    tok = CLIPBPETokenizer(os.path.join(out, "vocab.json"),
+                           os.path.join(out, "merges.txt"))
+    ids = tok.encode("A Street View photo taken in Norway.")
+    log(f"(d) its tokenizer: {tok.vocab_size} tokens, a caption -> {ids}")
+    if tok.vocab_size != 512 + GEN_BPE_MERGES + 2 or not ids:
+        fail(f"(d) the tokenizer has {tok.vocab_size} tokens, expected "
+             f"{512 + GEN_BPE_MERGES + 2}")
+
+
+def phase_geocells():
+    """Phase 35; returns K1-K3's launches of (c)'s forward."""
+    from geoguessr_ai_torch.geocells.generate import GenerateGeocells
+
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    rng = np.random.default_rng(SEED)
+    admin, points, big, n_proto = _gen_world(rng)
+    n_admin = sum(len(v) for v in admin.values())
+    n_points = sum(map(len, points.values()))
+    log(f"(a) world from {os.path.relpath(GEN_PROTO_CSV, HERE)} ({n_proto} "
+        f"cells): {len(admin)} countries, {n_admin} admin1 boxes, "
+        f"{n_points} points in {time.perf_counter() - t0:.2f} s")
+    with tempfile.TemporaryDirectory() as tmp:
+        gen = GenerateGeocells(admin, points)  # device None: the card
+        secs = {}
+        for step in GEN_STEPS:
+            t = time.perf_counter()
+            getattr(gen, step)()
+            torch.cuda.synchronize()
+            secs[step] = round(time.perf_counter() - t, 3)
+        cells = [c for cs in gen.cells.values() for c in cs]
+        t = time.perf_counter()
+        gen.save(os.path.join(tmp, "geocells"))
+        secs["save"] = round(time.perf_counter() - t, 3)
+        held = sum(len(c) for c in cells)
+        log(f"(a) GenerateGeocells on the card: {len(cells)} cells (from "
+            f"{n_admin} admin1 boxes; largest {max(map(len, cells))} "
+            f"points) in {sum(secs.values()):.2f} s: {secs}")
+        if held != n_points or not all(len(c) and c.clusters
+                                         for c in cells):
+            fail(f"(a) the cells hold {held} points, or a cell is empty or "
+                 "unclustered")
+        _gen_vs_cpu(big, cells, rng)
+        launches, table = _gen_serve(os.path.join(tmp, "geocells"),
+                                     len(cells), n_points)
+        _gen_commands(tmp, table)
+    gc.collect()
+    torch.cuda.empty_cache()
+    took = time.perf_counter() - t0
+    log(f"phase 35 in {took:.1f} s (limit {GEN_PHASE_S:.0f} s)")
+    if took > GEN_PHASE_S:
+        fail(f"phase 35 took {took:.1f} s, over its {GEN_PHASE_S:.0f} s")
+    _reset_all_launches()
+    return launches
+
+
 def main():
     card = phase_device()
     phase_build()
@@ -6635,6 +6932,7 @@ def main():
     torch.cuda.empty_cache()
     phase_mesh()
     knob_rows = phase_tile_knobs()
+    gen_launches = phase_geocells()
 
     main_case = {"K1": "stage1", "K2": "stage2", "K3": "stage3",
                  "K4": "stage1", "K5": "stage2"}
@@ -6655,6 +6953,7 @@ def main():
                          + guess_launches.get(k, 0)
                          + surface_launches.get(k, 0)
                          + store_launches.get(k, 0)
+                         + gen_launches.get(k, 0)
                          + (finetune_launches if k == "K4" else 0)),
             "max_abs_err": row["max_abs_err"], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],

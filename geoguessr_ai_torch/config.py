@@ -41,6 +41,11 @@ NUM_CANDIDATES = 5
 #: Heads of the hierarchical view fusion's self-attention.
 NUM_ATTENTION_HEADS = 16
 
+#: Geocell generation bounds: cells under GENERATOR_MIN_POINTS points are
+#: combined into a neighbour, cells over GENERATOR_MAX_POINTS are split.
+GENERATOR_MIN_POINTS = 10
+GENERATOR_MAX_POINTS = 67
+
 #: Paths, with the JAX package's environment overrides.
 REPO_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 DATA_DIR = os.environ.get("GEO_TPU_DATA_DIR", os.path.join(REPO_ROOT, "data"))

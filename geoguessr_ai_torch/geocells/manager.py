@@ -15,7 +15,8 @@ class of the JAX package, and any class it cannot import, to
 ``_CellRecord``, which keeps the pickled attributes.
 
 ``generate_proto_df`` returns its rows as a list of dicts and writes the
-CSV with the ``csv`` module, where the JAX package builds a DataFrame;
+CSV with the ``csv`` module (the bytes pandas writes: ``\n`` line ends),
+where the JAX package builds a DataFrame;
 ``CentroidTable.from_proto_df`` takes such rows.
 """
 
@@ -242,7 +243,7 @@ class GeocellManager:
                 )
         if out_csv is not None:
             with open(out_csv, "w", newline="") as f:
-                w = csv.writer(f)
+                w = csv.writer(f, lineterminator="\n")
                 w.writerow(PROTO_COLUMNS)
                 w.writerows([r[c] for c in PROTO_COLUMNS] for r in rows)
         return rows

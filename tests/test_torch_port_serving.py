@@ -280,9 +280,10 @@ def _port_sources():
 
 def test_port_imports_no_jax_flax_or_the_jax_package():
     # nor what the card's machine lacks: regex (the BPE scanner is
-    # stdlib), pandas, rasterio and pyproj
+    # stdlib), pandas, rasterio, pyproj, scikit-learn (the port has its own
+    # OPTICS), shapely and geopandas
     banned = ("jax", "flax", "optax", "geoguessr_ai_tpu", "regex", "pandas",
-              "rasterio", "pyproj")
+              "rasterio", "pyproj", "sklearn", "shapely", "geopandas")
     files = _port_sources()
     assert len(files) > 15
     rel = {os.path.relpath(f, REPO) for f in files}
@@ -323,17 +324,28 @@ def test_port_imports_no_jax_flax_or_the_jax_package():
             "geoguessr_ai_torch/acquisition/collect.py",
             "geoguessr_ai_torch/tools/upload_checkpoint.py",
             "geoguessr_ai_torch/parallel/mesh.py",
-            "geoguessr_ai_torch/tools/multihost_dryrun.py"} <= rel
-    # the one exception, as in the JAX package: the Parquet writer imports
-    # pandas inside itself
-    pandas_ok = ("geoguessr_ai_torch/train/finetune_tinyvit.py",
-                 "extract_embeddings_parquet")
+            "geoguessr_ai_torch/tools/multihost_dryrun.py",
+            "geoguessr_ai_torch/geocells/optics.py",
+            "geoguessr_ai_torch/geocells/cell.py",
+            "geoguessr_ai_torch/geocells/generate.py",
+            "geoguessr_ai_torch/geocells/naive_cell.py",
+            "geoguessr_ai_torch/geocells/voronoi.py",
+            "geoguessr_ai_torch/viz/globe.py",
+            "geoguessr_ai_torch/tools/geocells_cli.py",
+            "geoguessr_ai_torch/tools/build_clip_bpe.py"} <= rel
+    # the exceptions, as in the JAX package: the Parquet writer imports
+    # pandas inside itself, the GADM reader geopandas
+    inside = {"geoguessr_ai_torch/train/finetune_tinyvit.py":
+              ("extract_embeddings_parquet", "pandas"),
+              "geoguessr_ai_torch/geocells/generate.py":
+              ("load_admin_tables_from_gadm", "geopandas")}
     for path in files:
         tree = ast.parse(open(path).read(), filename=path)
-        allowed = set()
-        if os.path.relpath(path, REPO) == pandas_ok[0]:
+        allowed, allowed_name = set(), None
+        if os.path.relpath(path, REPO) in inside:
+            fn, allowed_name = inside[os.path.relpath(path, REPO)]
             fns = [f for f in ast.walk(tree) if isinstance(f, ast.FunctionDef)
-                   and f.name == pandas_ok[1]]
+                   and f.name == fn]
             assert len(fns) == 1
             allowed = {id(n) for n in ast.walk(fns[0])}
         for node in ast.walk(tree):
@@ -344,7 +356,7 @@ def test_port_imports_no_jax_flax_or_the_jax_package():
             else:
                 continue
             for name in names:
-                if name == "pandas" and id(node) in allowed:
+                if name == allowed_name and id(node) in allowed:
                     continue
                 assert name.split(".")[0] not in banned, (
                     f"{os.path.relpath(path, REPO)}:{node.lineno} imports "
@@ -355,7 +367,8 @@ def test_serving_engine_imports_with_jax_blocked():
     code = (
         "import sys\n"
         "for m in ('jax', 'flax', 'geoguessr_ai_tpu', 'pandas', 'orbax',\n"
-        "          'fastapi', 'regex', 'optax', 'rasterio', 'pyproj'):\n"
+        "          'fastapi', 'regex', 'optax', 'rasterio', 'pyproj',\n"
+        "          'sklearn', 'shapely', 'geopandas'):\n"
         "    sys.modules[m] = None\n"
         "import geoguessr_ai_torch.serving.engine\n"
         "import geoguessr_ai_torch.inference\n"
@@ -385,6 +398,14 @@ def test_serving_engine_imports_with_jax_blocked():
         "import geoguessr_ai_torch.acquisition.sampling\n"
         "import geoguessr_ai_torch.acquisition.collect\n"
         "import geoguessr_ai_torch.tools.upload_checkpoint\n"
+        "import geoguessr_ai_torch.geocells.optics\n"
+        "import geoguessr_ai_torch.geocells.cell\n"
+        "import geoguessr_ai_torch.geocells.generate\n"
+        "import geoguessr_ai_torch.geocells.naive_cell\n"
+        "import geoguessr_ai_torch.geocells.voronoi\n"
+        "import geoguessr_ai_torch.viz.globe\n"
+        "import geoguessr_ai_torch.tools.geocells_cli\n"
+        "import geoguessr_ai_torch.tools.build_clip_bpe\n"
         "from geoguessr_ai_torch.train.coordinator import main_streaming\n"
         "from geoguessr_ai_torch.train import clip_bpe\n"
         "ids = clip_bpe.load_default_tokenizer(16)(['x² ½ ٣ İstanbul'])\n"
